@@ -1,0 +1,1048 @@
+"""Continuous-batching decode engine over a block-paged KV pool with a
+radix prefix cache (port of kubeflow_tpu/serving/engine.py, the parts
+the `:generate` slice runs).
+
+- The resident KV cache is a fixed POOL of `num_pages × page_size`
+  blocks per layer (models/gpt.py `make_paged_pool`); each slot maps its
+  logical positions onto pool pages through a host-owned page table.
+- A reference-counted RADIX PREFIX INDEX (host side) remembers committed
+  token sequences page by page: a new request whose prompt shares a
+  committed prefix maps those pages copy-free, copies the one partially
+  matched boundary page (copy-on-write), and prefills only the tail.
+- CHUNKED PREFILL feeds prefix tails and prompts past the largest
+  bucket through page-aligned multi-token windows over the paged cache,
+  so any prompt with prompt + max_new_tokens <= max_len rides the engine.
+- Admission is RESERVATION-GATED: a request is admitted only when the
+  pool can cover its worst-case page demand, so decode never runs out of
+  pages mid-request; overload waits in the bounded queue (429 past it).
+- Decode is ONE single-token step over ALL slots per iteration. Page
+  tables and cursors are host numpy shipped per dispatch; parked slots
+  (cursor = max_len) write nothing.
+
+`paged_attention` selects the read path: "gather" (a per-slot view plus
+dense attention) or "kernel" (the CUDA page-walk kernels of
+ops/paged_attention.py — the counterpart of the JAX engine's "pallas").
+The JAX programs donate the pool; here the pool tensors are updated in
+place. Greedy engine output equals `generate()` (serving/generate.py).
+
+Not ported in this slice: speculative decoding, int8 weights and pages,
+the serving mesh, MoE, the host/disk KV tiers, drain/recover and chaos.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from kubeflow_tpu_torch.models.gpt import (
+    PAGED_ATTENTION_IMPLS,
+    KVPool,
+    PagedState,
+    copy_pool_page,
+    insert_pages,
+    make_paged_pool,
+)
+from kubeflow_tpu_torch.serving.sampling import sample_slots
+from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
+from kubeflow_tpu_torch.utils.logging import get_logger
+from kubeflow_tpu_torch.utils.metrics import default_registry
+
+log = get_logger(__name__)
+
+DEFAULT_NUM_SLOTS = 8
+DEFAULT_MAX_QUEUE = 64
+DEFAULT_PAGE_SIZE = 16
+DEFAULT_PAGED_ATTENTION = "gather"
+
+
+class QueueFullError(RuntimeError):
+    """Admission queue at capacity — the server maps this to HTTP 429."""
+
+
+class EngineCapacityError(ValueError):
+    """The request exceeds the MODEL's window: prompt + max_new_tokens >
+    max_len (a 400, as on the static path)."""
+
+
+class Completion:
+    """One waiter's completion slot: a value or an error behind an event
+    (the worker calls exactly one of set()/fail(); the caller waits)."""
+
+    __slots__ = ("_event", "value", "error")
+
+    def __init__(self):
+        self._event = threading.Event()
+        self.value = None
+        self.error: Optional[BaseException] = None
+
+    def set(self, value) -> None:
+        self.value = value
+        self._event.set()
+
+    def fail(self, error: BaseException) -> None:
+        self.error = error
+        self._event.set()
+
+    def wait(self, timeout: Optional[float] = None):
+        if not self._event.wait(timeout):
+            raise TimeoutError(f"no completion within {timeout}s")
+        if self.error is not None:
+            raise self.error
+        return self.value
+
+
+def default_prefill_buckets(max_len: int, smallest: int = 8) -> Tuple[int, ...]:
+    """Powers of two from `smallest` up to max_len: the prefill shapes."""
+    out: List[int] = []
+    b = 1
+    while b < smallest:
+        b *= 2
+    while b <= max_len:
+        out.append(b)
+        b *= 2
+    return tuple(out)
+
+
+def bucket_for(prompt_len: int, buckets: Sequence[int]) -> int:
+    """Smallest prefill bucket admitting a prompt of `prompt_len` tokens.
+    Prompts past the largest bucket ride head prefill + chunk windows, so
+    raising here is an internal contract, not an admission ceiling."""
+    for b in buckets:
+        if prompt_len <= b:
+            return b
+    raise EngineCapacityError(
+        f"prompt length {prompt_len} exceeds the largest prefill "
+        f"bucket {buckets[-1]}"
+    )
+
+
+# Chunk-prefill window floor: windows are page-aligned but never smaller
+# than this many tokens (a 16-token forward wastes most of a matmul's
+# width). Pad positions past the real tail are written onto pages the
+# slot owns, stay invisible, and are overwritten by decode.
+CHUNK_MIN_TOKENS = 64
+
+
+def auto_num_pages(num_slots: int, max_len: int, page_size: int) -> int:
+    """Default pool sizing: 3/4 of the slot-row footprint (num_slots ×
+    max_len), floored at one full-length request."""
+    per_slot = max_len // page_size
+    return max(per_slot, (num_slots * per_slot * 3) // 4)
+
+
+# ---------------------------------------------------------------------------
+# Host-side page accounting: the pool allocator and the radix prefix index.
+# Both are scheduler-thread-owned (no locks) — every mutation happens
+# between device dispatches.
+# ---------------------------------------------------------------------------
+
+
+class PagePool:
+    """Free-list page allocator with reference counts. A page is held by
+    each slot that maps it plus (at most once) the radix prefix index;
+    it returns to the free list when the last reference drops.
+    Tree-evictability is tracked incrementally (a tree flag per page and
+    a count of tree pages some slot also maps)."""
+
+    def __init__(self, num_pages: int):
+        self.num_pages = int(num_pages)
+        self._free: List[int] = list(range(self.num_pages - 1, -1, -1))
+        self._ref = np.zeros((self.num_pages,), np.int32)
+        self._tree = np.zeros((self.num_pages,), bool)
+        self._tree_pages = 0
+        self._tree_shared = 0  # tree pages a slot ALSO maps (unevictable)
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def in_use(self) -> int:
+        return self.num_pages - len(self._free)
+
+    @property
+    def tree_evictable(self) -> int:
+        """Pages whose ONLY reference is the prefix index."""
+        return self._tree_pages - self._tree_shared
+
+    def refcount(self, page: int) -> int:
+        return int(self._ref[page])
+
+    def alloc(self, n: int) -> Optional[List[int]]:
+        """n fresh pages at refcount 1, or None if the free list is
+        short (the caller evicts from the prefix index and retries)."""
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        for p in out:
+            self._ref[p] = 1
+        return out
+
+    def retain(self, pages: Sequence[int]) -> None:
+        for p in pages:
+            self._ref[p] += 1
+            if self._tree[p] and self._ref[p] == 2:
+                self._tree_shared += 1
+
+    def release(self, pages: Sequence[int]) -> int:
+        """Drop one reference per page; returns how many pages freed."""
+        freed = 0
+        for p in pages:
+            self._ref[p] -= 1
+            if self._tree[p] and self._ref[p] == 1:
+                self._tree_shared -= 1
+            if self._ref[p] <= 0:
+                self._ref[p] = 0
+                self._free.append(p)
+                freed += 1
+        return freed
+
+    def mark_tree(self, page: int) -> None:
+        """The prefix index adopted this page (call AFTER its retain)."""
+        self._tree[page] = True
+        self._tree_pages += 1
+        if self._ref[page] > 1:
+            self._tree_shared += 1
+
+    def unmark_tree(self, page: int) -> None:
+        """The prefix index is dropping this page (call BEFORE its
+        release)."""
+        self._tree[page] = False
+        self._tree_pages -= 1
+        if self._ref[page] > 1:
+            self._tree_shared -= 1
+
+
+class _RadixNode:
+    __slots__ = ("chunk", "page", "children", "parent", "last_used")
+
+    def __init__(self, chunk, page, parent):
+        self.chunk = chunk          # tuple of page_size token ids
+        self.page = page            # pool page holding this chunk's K/V
+        self.parent = parent
+        self.children: Dict[tuple, "_RadixNode"] = {}
+        self.last_used = 0
+
+
+class RadixPrefixIndex:
+    """Reference-counted radix tree over committed token sequences with
+    PAGE-ALIGNED edges: each node is one full page, children keyed by
+    their chunk's token tuple. Token-level reuse happens at the frontier:
+    the longest common prefix with any child's chunk names the
+    copy-on-write candidate.
+
+    Slots commit their FULL pages at retire; eviction removes the least
+    recently matched LEAVES, releasing the tree's reference. Host data
+    touched only by the scheduler thread."""
+
+    def __init__(self, page_size: int, pool: PagePool):
+        self.page_size = int(page_size)
+        self.pool = pool
+        self.root = _RadixNode(None, -1, None)
+        self._clock = 0
+        # leaves maintained incrementally: eviction scans only these
+        self._leaves: Dict[_RadixNode, None] = {}
+
+    def match(self, tokens) -> Tuple[List[int], int, Optional[Tuple[int, int]]]:
+        """Longest committed prefix of `tokens`: (full-page chain,
+        matched token count, partial) where partial = (page, r) names a
+        frontier page whose first r tokens continue the prompt (the COW
+        candidate), or None."""
+        ps = self.page_size
+        self._clock += 1
+        node = self.root
+        pages: List[int] = []
+        i, n = 0, len(tokens)
+        while n - i >= ps:
+            chunk = tuple(int(t) for t in tokens[i : i + ps])
+            child = node.children.get(chunk)
+            if child is None:
+                break
+            child.last_used = self._clock
+            pages.append(child.page)
+            node = child
+            i += ps
+        partial = None
+        rest = [int(t) for t in tokens[i:]]
+        if rest:
+            best, best_child = 0, None
+            for chunk, child in node.children.items():
+                r = 0
+                for a, c in zip(rest, chunk):
+                    if a != c:
+                        break
+                    r += 1
+                if r > best:
+                    best, best_child = r, child
+            if best_child is not None:
+                best_child.last_used = self._clock
+                partial = (best_child.page, best)
+        return pages, i, partial
+
+    def insert(self, tokens, pages: Sequence[int]) -> None:
+        """Commit `len(pages)` full pages of `tokens` (page-aligned). New
+        chunks adopt the slot's page with a tree reference; chunks already
+        committed keep the existing page (the caller's release drops the
+        slot's duplicate)."""
+        ps = self.page_size
+        self._clock += 1
+        node = self.root
+        i = 0
+        for pg in pages:
+            chunk = tuple(int(t) for t in tokens[i : i + ps])
+            i += ps
+            child = node.children.get(chunk)
+            if child is None:
+                child = _RadixNode(chunk, int(pg), node)
+                if not node.children and node is not self.root:
+                    del self._leaves[node]  # gained a child: not a leaf
+                node.children[chunk] = child
+                self._leaves[child] = None
+                self.pool.retain([int(pg)])
+                self.pool.mark_tree(int(pg))
+            child.last_used = self._clock
+            node = child
+
+    def evictable_pages(self) -> int:
+        return self.pool.tree_evictable
+
+    def evict(self, need: int) -> int:
+        """Remove least-recently-matched leaves until `need` pages have
+        actually freed (a leaf a resident slot still maps releases the
+        tree ref but frees nothing)."""
+        freed = 0
+        while freed < need and self._leaves:
+            victim = min(self._leaves, key=lambda n: n.last_used)
+            del self._leaves[victim]
+            del victim.parent.children[victim.chunk]
+            parent = victim.parent
+            if not parent.children and parent is not self.root:
+                self._leaves[parent] = None
+            self.pool.unmark_tree(victim.page)
+            freed += self.pool.release([victim.page])
+        return freed
+
+
+class EnginePrograms:
+    """The engine's device programs (the JAX `EnginePrograms` bodies as
+    plain methods): prefill, insert, chunk, cow and step. Every program
+    that writes the pool writes it in place.
+
+    Paged geometry (`page_size`, `num_pages`) is construction state."""
+
+    def __init__(self, model, *, page_size: int, num_pages: int,
+                 paged_attention: str):
+        cfg = model.cfg
+        self.model = model
+        if paged_attention not in PAGED_ATTENTION_IMPLS:
+            raise ValueError(
+                f"paged_attention {paged_attention!r} must be one of "
+                f"{PAGED_ATTENTION_IMPLS}"
+            )
+        self.paged_attention = paged_attention
+        self.page_size = int(page_size)
+        if self.page_size < 1 or self.page_size & (self.page_size - 1):
+            raise ValueError(
+                f"page_size {self.page_size} must be a positive power of two"
+            )
+        if cfg.max_len % self.page_size:
+            raise ValueError(
+                f"page_size {self.page_size} must divide the model's "
+                f"max_len {cfg.max_len}"
+            )
+        self.max_pages_per_slot = cfg.max_len // self.page_size
+        # chunk windows: whole pages, floored for matmul width, capped by
+        # the logical window
+        self.chunk_len = min(max(self.page_size, CHUNK_MIN_TOKENS), cfg.max_len)
+        self.chunk_len -= self.chunk_len % self.page_size
+        self.num_pages = int(num_pages)
+        if self.num_pages < self.max_pages_per_slot:
+            raise ValueError(
+                f"num_pages {self.num_pages} cannot hold one full-length "
+                f"request ({self.max_pages_per_slot} pages of "
+                f"{self.page_size})"
+            )
+
+    def _paged(self, page_table, cursors) -> PagedState:
+        return PagedState(page_table, cursors, attn_impl=self.paged_attention)
+
+    def prefill(self, ids, mask, seed, temp, top_k, top_p):
+        """Batch-1 bucketed prefill → (slot cache, first token)."""
+        logits, cache = self.model.prefill(ids, mask)
+        last = int(mask[0].sum()) - 1
+        tok = sample_slots(
+            logits[:, max(last, 0)], [seed], [0], [temp], [top_k], [top_p]
+        )
+        return cache, tok[0]
+
+    def insert(self, pool: KVPool, cache_one, page_ids, real_len: int):
+        return insert_pages(pool, cache_one, page_ids, real_len)
+
+    def chunk(self, pool: KVPool, ids, page_table, cursor, sample_idx: int,
+              seed, temp, top_k, top_p):
+        """One page-aligned prefill window through the paged path: writes
+        the window's K/V into the slot's pages and samples the token after
+        window position `sample_idx` (meaningful only for the chunk
+        holding the prompt's last real token)."""
+        logits = self.model.paged_forward(
+            ids, pool, self._paged(page_table, cursor)
+        )
+        tok = sample_slots(
+            logits[0, sample_idx][None], [seed], [0], [temp], [top_k],
+            [top_p],
+        )
+        return tok[0]
+
+    def cow(self, pool: KVPool, src: int, dst: int):
+        return copy_pool_page(pool, src, dst)
+
+    def step(self, pool: KVPool, tokens, page_table, cursors, seeds,
+             counters, temps, top_ks, top_ps):
+        """One single-token decode step over all slots → [S] tokens."""
+        logits = self.model.paged_forward(
+            tokens[:, None], pool, self._paged(page_table, cursors)
+        )
+        return sample_slots(
+            logits[:, 0], seeds, counters, temps, top_ks, top_ps
+        )
+
+
+class _Request:
+    """One admitted-or-queued generation request."""
+
+    __slots__ = (
+        "prompt", "max_new", "temperature", "top_k", "top_p", "eos_id",
+        "seed", "t_submit", "future",
+    )
+
+    def __init__(self, prompt, max_new, temperature, top_k, top_p, eos_id,
+                 seed):
+        self.prompt = prompt  # np.int64 [P], real tokens only
+        self.max_new = max_new
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+        self.eos_id = eos_id
+        self.seed = seed
+        self.t_submit = time.monotonic()
+        # completes with {"tokens": [...], "ttft_s": float}
+        self.future = Completion()
+
+
+class _Slot:
+    """Host bookkeeping for one occupied decode slot."""
+
+    __slots__ = ("req", "tokens", "ttft_s")
+
+    def __init__(self, req: _Request):
+        self.req = req
+        self.tokens: List[int] = []
+        self.ttft_s = 0.0
+
+
+class DecodeEngine:
+    """The persistent paged-KV decode engine for one causal LM.
+
+    Thread model: `submit()` (any thread) only touches the admission queue
+    under the condition lock; the scheduler thread owns the pool, all page
+    accounting and the slot table, so the hot loop takes no lock around
+    device work. Aggregate counters live behind their own lock.
+
+    `device` defaults to "cuda" and raises without CUDA unless "cpu" is
+    asked for; the model's weights must already live there."""
+
+    def __init__(
+        self,
+        name: str,
+        model,
+        *,
+        device: DeviceLike = None,
+        num_slots: int = DEFAULT_NUM_SLOTS,
+        prefill_buckets: Optional[Sequence[int]] = None,
+        max_queue: int = DEFAULT_MAX_QUEUE,
+        autostart: bool = True,
+        page_size: Optional[int] = None,
+        num_pages: Optional[int] = None,
+        prefix_cache: bool = True,
+        paged_attention: Optional[str] = None,
+    ):
+        self.device = resolve_device(device)
+        if model.device != self.device:
+            raise ValueError(
+                f"model weights live on {model.device}, engine device is "
+                f"{self.device}"
+            )
+        if num_slots < 1:
+            raise ValueError("num_slots must be >= 1")
+        if max_queue < 1:
+            raise ValueError("max_queue must be >= 1")
+        cfg = model.cfg
+        self.name = name
+        self.model = model
+        self.num_slots = num_slots
+        self.max_queue = max_queue
+        self.paged_attention = paged_attention or DEFAULT_PAGED_ATTENTION
+        ps = int(page_size) if page_size else DEFAULT_PAGE_SIZE
+        pool_pages = int(num_pages) if num_pages else auto_num_pages(
+            num_slots, cfg.max_len, ps
+        )
+        self.programs = EnginePrograms(
+            model, page_size=ps, num_pages=pool_pages,
+            paged_attention=self.paged_attention,
+        )
+        self.page_size = ps
+        self.num_pages = pool_pages
+        self._max_pages = self.programs.max_pages_per_slot
+        self.prefix_cache_enabled = bool(prefix_cache)
+        buckets = tuple(
+            sorted(prefill_buckets) if prefill_buckets
+            else default_prefill_buckets(cfg.max_len)
+        )
+        for b in buckets:
+            if b < 1 or b > cfg.max_len:
+                raise ValueError(
+                    f"prefill bucket {b} outside [1, max_len={cfg.max_len}]"
+                )
+            if b & (b - 1):
+                raise ValueError(f"prefill bucket {b} not a power of two")
+        self.prefill_buckets = buckets
+
+        # -- device state (scheduler-thread-owned after start) ----------
+        self._pool = make_paged_pool(cfg, self.num_pages, ps, self.device)
+        self.kv_pool_bytes = int(
+            2 * self._pool.k.numel() * self._pool.k.element_size()
+        )
+        # -- host page accounting (scheduler-thread-owned) --------------
+        self._pagepool = PagePool(self.num_pages)
+        self._radix = (
+            RadixPrefixIndex(ps, self._pagepool)
+            if self.prefix_cache_enabled else None
+        )
+        self._pt_np = np.zeros((num_slots, self._max_pages), np.int32)
+        # parked cursor = max_len: the paged write drops positions past
+        # the logical window, so idle/retired rows write nothing
+        self._cur_np = np.full((num_slots,), cfg.max_len, np.int32)
+        self._slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
+        self._slot_reserve = np.zeros((num_slots,), np.int32)
+        self._slots: List[Optional[_Slot]] = [None] * num_slots
+        self._tok_np = np.zeros((num_slots,), np.int64)
+        self._seed_np = np.zeros((num_slots,), np.int64)
+        self._cnt_np = np.zeros((num_slots,), np.int64)
+        self._temp_np = np.zeros((num_slots,), np.float32)
+        self._topk_np = np.zeros((num_slots,), np.int64)
+        self._topp_np = np.ones((num_slots,), np.float32)
+
+        # -- shared state (condition-lock-guarded) ----------------------
+        self._cv = threading.Condition()
+        self._queue: deque = deque()
+        self._stop = False
+
+        self._stats_lock = threading.Lock()
+        self._admitted = 0
+        self._steps = 0
+        # host wall time of the decode steps, tokens fetched included
+        self._step_seconds = 0.0
+        self._emitted = 0
+        self._occupied_slot_steps = 0
+        self._prefix_hit_tokens = 0
+        self._prefix_lookups = 0
+        self._cow_copies = 0
+        self._prefill_compute_tokens = 0
+        self._pages_allocated = 0
+        # read-path evidence: window size (query rows per pool walk) ->
+        # read path that served it
+        self._attn_windows: Dict[int, str] = {}
+
+        reg = default_registry()
+        self._ttft = reg.histogram(
+            "serving_time_to_first_token_seconds",
+            "submit to first token", ["model"],
+        )
+        self._decode_steps_m = reg.counter(
+            "serving_decode_steps_total", "engine decode steps", ["model"]
+        )
+        self._tokens_m = reg.counter(
+            "serving_tokens_total", "tokens emitted", ["model"]
+        )
+        self._attn_calls_m = reg.counter(
+            "serving_paged_attention_calls_total",
+            "pool-reading dispatches by read path", ["model", "variant"],
+        )
+        self._queue_depth_g = reg.gauge(
+            "serving_queue_depth", "admission queue depth", ["model"]
+        )
+        self._occupancy_g = reg.gauge(
+            "serving_slot_occupancy", "occupied slot fraction", ["model"]
+        )
+        self._pages_in_use_g = reg.gauge(
+            "serving_kv_pages_in_use", "pool pages in use", ["model"]
+        )
+        self._queue_depth_g.set(0, model=name)
+        self._occupancy_g.set(0.0, model=name)
+        self._pages_in_use_g.set(0, model=name)
+
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name=f"decode-engine-{name}"
+        )
+        if autostart:
+            self._thread.start()
+
+    # -- public API --------------------------------------------------------
+
+    def bucket_for(self, prompt_len: int) -> int:
+        return bucket_for(prompt_len, self.prefill_buckets)
+
+    def _make_request(self, prompt_ids, max_new_tokens, temperature, top_k,
+                      top_p, eos_id, seed) -> _Request:
+        prompt = np.asarray(prompt_ids, dtype=np.int64).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError("prompt must contain at least one token")
+        vocab = self.model.cfg.vocab_size
+        if prompt.min() < 0 or prompt.max() >= vocab:
+            raise ValueError(f"prompt ids must be in [0, {vocab})")
+        n = int(max_new_tokens)
+        if n < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if prompt.size + n > self.model.cfg.max_len:
+            raise EngineCapacityError(
+                f"prompt {prompt.size} + {n} new tokens exceeds "
+                f"max_len {self.model.cfg.max_len}"
+            )
+        temperature = float(temperature)
+        if temperature < 0.0:
+            raise ValueError("temperature must be >= 0")
+        top_k = int(top_k)
+        if top_k < 0:
+            raise ValueError("top_k must be >= 0")
+        top_p = float(top_p)
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError("top_p must be in (0, 1]")
+        if eos_id is not None:
+            eos_id = int(eos_id)
+            if not 0 <= eos_id < vocab:
+                raise ValueError(f"eos_id must be in [0, {vocab})")
+        return _Request(prompt, n, temperature, top_k, top_p, eos_id,
+                        int(seed))
+
+    def _enqueue(self, reqs: List[_Request]) -> None:
+        with self._cv:
+            if self._stop:
+                raise RuntimeError("engine is closed")
+            if len(self._queue) + len(reqs) > self.max_queue:
+                raise QueueFullError(
+                    f"admission queue full ({len(self._queue)} waiting, "
+                    f"capacity {self.max_queue})"
+                )
+            self._queue.extend(reqs)
+            self._queue_depth_g.set(len(self._queue), model=self.name)
+            self._cv.notify_all()
+
+    def submit(self, prompt_ids, max_new_tokens: int, *,
+               temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+               eos_id: Optional[int] = None, seed: int = 0) -> Completion:
+        """Enqueue one UNPADDED prompt row; returns the request future
+        (completes with {"tokens", "ttft_s"}). Raises QueueFullError when
+        the admission queue is at max_queue."""
+        req = self._make_request(prompt_ids, max_new_tokens, temperature,
+                                 top_k, top_p, eos_id, seed)
+        self._enqueue([req])
+        return req.future
+
+    def submit_batch(self, rows, max_new_tokens: int, *,
+                     temperature: float = 0.0, top_k: int = 0,
+                     top_p: float = 1.0, eos_id: Optional[int] = None,
+                     seed: int = 0) -> List[Completion]:
+        """Atomic multi-row admission: every row enters the queue, or
+        none does. Row i's sampling stream is seeded `seed + i`."""
+        reqs = [
+            self._make_request(row, max_new_tokens, temperature, top_k,
+                               top_p, eos_id, int(seed) + i)
+            for i, row in enumerate(rows)
+        ]
+        if not reqs:
+            raise ValueError("submit_batch needs at least one row")
+        self._enqueue(reqs)
+        return [r.future for r in reqs]
+
+    def generate_row(self, prompt_ids, max_new_tokens: int,
+                     timeout: Optional[float] = 300.0, **kw) -> dict:
+        """Blocking submit: {"tokens": [...], "ttft_s": float}."""
+        return self.submit(prompt_ids, max_new_tokens, **kw).wait(timeout)
+
+    def stats(self) -> dict:
+        with self._stats_lock:
+            steps = self._steps
+            seen = self._prefix_hit_tokens + self._prefill_compute_tokens
+            return {
+                "admitted": self._admitted,
+                "decode_steps": steps,
+                "decode_step_ms": (
+                    1e3 * self._step_seconds / steps if steps else 0.0
+                ),
+                "tokens": self._emitted,
+                "mean_occupancy": (
+                    self._occupied_slot_steps / (steps * self.num_slots)
+                    if steps else 0.0
+                ),
+                "prefix_lookups": self._prefix_lookups,
+                "prefix_hit_tokens": self._prefix_hit_tokens,
+                "prefix_cache_hit_rate": (
+                    self._prefix_hit_tokens / seen if seen else 0.0
+                ),
+                "cow_copies": self._cow_copies,
+                "prefill_compute_tokens": self._prefill_compute_tokens,
+                "pages_allocated": self._pages_allocated,
+                "pages_in_use": self._pagepool.in_use,
+                "pages_total": self.num_pages,
+                # which read path is live: "gather" or "kernel" (the CUDA
+                # page walk on a CUDA engine)
+                "attention_kernel": self.paged_attention,
+                # every window size (query rows per pool walk) dispatched,
+                # and the read path that served it
+                "paged_attention_windows": dict(
+                    sorted(self._attn_windows.items())
+                ),
+                "kv_pool_dtype": str(self.model.cfg.dtype).replace(
+                    "torch.", ""
+                ),
+                "kv_pool_bytes": self.kv_pool_bytes,
+                "device": str(self.device),
+            }
+
+    def close(self) -> None:
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        if self._thread.is_alive():
+            self._thread.join(timeout=30)
+        # the scheduler is down (or never started): fail whatever is still
+        # queued or resident so no caller blocks forever
+        err = RuntimeError("engine closed")
+        with self._cv:
+            leftover = list(self._queue)
+            self._queue.clear()
+        for req in leftover:
+            req.future.fail(err)
+        if self._thread.is_alive():
+            log.warning("engine %s scheduler still running after close "
+                        "timeout; leaving slot state to it", self.name)
+            return
+        for i, slot in enumerate(self._slots):
+            if slot is not None:
+                self._slots[i] = None
+                slot.req.future.fail(err)
+        self._occupancy_g.set(0.0, model=self.name)
+
+    # -- page accounting (scheduler thread only) ---------------------------
+
+    def _reserve_pages(self, prompt_len: int, max_new: int) -> int:
+        """Worst-case pages one request can ever hold: its prompt (plus
+        the last chunk window's pad spill) and every token it may decode,
+        capped at the logical window."""
+        tokens = min(
+            prompt_len + max(max_new, self.programs.chunk_len),
+            self.model.cfg.max_len,
+        )
+        return -(-tokens // self.page_size)
+
+    def _outstanding_pages(self) -> int:
+        out = 0
+        for i, s in enumerate(self._slots):
+            if s is not None:
+                out += max(
+                    0, int(self._slot_reserve[i]) - len(self._slot_pages[i])
+                )
+        return out
+
+    def _can_admit(self, req: _Request) -> bool:
+        """The reservation gate (assumes no prefix hit — a hit only ever
+        needs fewer fresh pages)."""
+        need = self._reserve_pages(int(req.prompt.size), req.max_new)
+        avail = self._pagepool.free_count - self._outstanding_pages()
+        if self._radix is not None:
+            avail += self._radix.evictable_pages()
+        return avail >= need
+
+    def _alloc_pages(self, n: int) -> List[int]:
+        short = n - self._pagepool.free_count
+        if short > 0 and self._radix is not None:
+            self._radix.evict(short)
+        pages = self._pagepool.alloc(n)
+        if pages is None:
+            # unreachable behind the admission gate
+            raise RuntimeError(
+                f"engine {self.name}: KV page pool exhausted "
+                f"({self._pagepool.free_count} free of {self.num_pages})"
+            )
+        with self._stats_lock:
+            self._pages_allocated += n
+        return pages
+
+    def _ensure_pages(self, i: int, upto_tokens: int) -> None:
+        """Map enough pages onto slot i's table to cover logical positions
+        [0, upto_tokens), capped at max_pages."""
+        need = min(-(-upto_tokens // self.page_size), self._max_pages)
+        pages = self._slot_pages[i]
+        if len(pages) >= need:
+            return
+        for pg in self._alloc_pages(need - len(pages)):
+            self._pt_np[i, len(pages)] = pg
+            pages.append(pg)
+
+    def _release_slot_pages(self, i: int) -> None:
+        pages = self._slot_pages[i]
+        if pages:
+            self._pagepool.release(pages)
+        self._slot_pages[i] = []
+        self._slot_reserve[i] = 0
+        self._cur_np[i] = self.model.cfg.max_len
+        self._pt_np[i, :] = 0
+        self._pages_in_use_g.set(self._pagepool.in_use, model=self.name)
+
+    # -- scheduler ---------------------------------------------------------
+
+    def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    def _note_attn(self, window: int) -> None:
+        """Record one pool-reading dispatch at `window` query rows."""
+        self._attn_calls_m.inc(model=self.name, variant=self.paged_attention)
+        with self._stats_lock:
+            self._attn_windows.setdefault(window, self.paged_attention)
+
+    def _prefix_lookup(self, slot_idx: int, prompt: np.ndarray) -> int:
+        """Map the prompt's committed prefix onto slot `slot_idx`: full
+        pages copy-free, the partially matched boundary page through a
+        copy-on-write. Returns the matched token count (0 = miss)."""
+        ps = self.page_size
+        p = int(prompt.size)
+        with self._stats_lock:
+            self._prefix_lookups += 1
+        chain, full_m, partial = self._radix.match(prompt)
+        # never map the WHOLE prompt: the last real token must run through
+        # a chunk window to produce the first-token logits
+        m = min(full_m + (partial[1] if partial is not None else 0), p - 1)
+        largest = self.prefill_buckets[-1]
+        if not (m * 2 >= p or (p > largest and m >= largest)):
+            # a small hit is slower than a miss: it routes the whole tail
+            # through chunk windows. Keep it only when it covers half the
+            # prompt, or past the largest bucket the head prefill.
+            return 0
+        q, r = divmod(m, ps)
+        pages: List[int] = []
+        for pg in chain[:q]:
+            self._pagepool.retain([pg])
+            self._pt_np[slot_idx, len(pages)] = pg
+            pages.append(pg)
+        self._slot_pages[slot_idx] = pages
+        if r > 0:
+            # copy-on-write at the divergence/extension boundary: this slot
+            # will write into the page's tail, so it gets its own copy
+            src = chain[q] if q < len(chain) else partial[0]
+            dst = self._alloc_pages(1)[0]
+            self.programs.cow(self._pool, src, dst)
+            with self._stats_lock:
+                self._cow_copies += 1
+            self._pt_np[slot_idx, len(pages)] = dst
+            pages.append(dst)
+        with self._stats_lock:
+            self._prefix_hit_tokens += m
+        return m
+
+    def _admit(self, slot_idx: int, req: _Request) -> None:
+        prompt = req.prompt
+        p = int(prompt.size)
+        self._slot_reserve[slot_idx] = self._reserve_pages(p, req.max_new)
+        matched = (
+            self._prefix_lookup(slot_idx, prompt)
+            if self._radix is not None else 0
+        )
+        self._cur_np[slot_idx] = matched
+        knobs = (req.seed, req.temperature, req.top_k, req.top_p)
+        largest = self.prefill_buckets[-1]
+        computed = 0
+        first_tok = None
+        if matched == 0 and p <= largest:
+            # fresh short prompt: one bucketed batch-1 prefill, copied into
+            # this slot's pages at the prompt's REAL length
+            bucket = self.bucket_for(p)
+            ids = np.zeros((1, bucket), np.int64)
+            ids[0, :p] = prompt
+            mask = np.zeros((1, bucket), bool)
+            mask[0, :p] = True
+            cache_one, first_tok = self.programs.prefill(
+                self._to_dev(ids), self._to_dev(mask), *knobs
+            )
+            self._ensure_pages(slot_idx, p)
+            self.programs.insert(
+                self._pool, cache_one, self._slot_pages[slot_idx], p
+            )
+            computed = p
+        else:
+            pos = matched
+            if matched == 0:
+                # long fresh prompt: the head rides ONE largest-bucket
+                # prefill, the rest chunk-prefills below
+                ids = prompt[:largest][None]
+                mask = np.ones((1, largest), bool)
+                cache_one, _ = self.programs.prefill(
+                    self._to_dev(ids), self._to_dev(mask), *knobs
+                )
+                self._ensure_pages(slot_idx, largest)
+                self.programs.insert(
+                    self._pool, cache_one, self._slot_pages[slot_idx],
+                    largest,
+                )
+                pos = computed = largest
+            # chunked prefill: page-aligned windows over the paged cache;
+            # the tail attends to everything already resident, and window
+            # pads past the real tail land on the slot's own pages
+            clen = self.programs.chunk_len
+            while pos < p:
+                nreal = min(clen, p - pos)
+                chunk = np.zeros((1, clen), np.int64)
+                chunk[0, :nreal] = prompt[pos : pos + nreal]
+                self._ensure_pages(slot_idx, pos + clen)
+                final = pos + nreal >= p
+                tok = self.programs.chunk(
+                    self._pool, self._to_dev(chunk),
+                    self._to_dev(self._pt_np[slot_idx][None]),
+                    self._to_dev(np.asarray([pos], np.int32)),
+                    (p - 1) - pos if final else 0, *knobs,
+                )
+                self._note_attn(clen)
+                if final:
+                    first_tok = tok
+                computed += nreal
+                pos += clen
+        self._cur_np[slot_idx] = p
+        slot = _Slot(req)
+        slot.tokens.append(int(first_tok))
+        slot.ttft_s = time.monotonic() - req.t_submit
+        self._ttft.observe(slot.ttft_s, model=self.name)
+        self._tokens_m.inc(model=self.name)
+        self._tok_np[slot_idx] = slot.tokens[0]
+        self._seed_np[slot_idx] = req.seed
+        self._cnt_np[slot_idx] = 1  # the admission sample drew counter 0
+        self._temp_np[slot_idx] = req.temperature
+        self._topk_np[slot_idx] = req.top_k
+        self._topp_np[slot_idx] = req.top_p
+        self._slots[slot_idx] = slot
+        with self._stats_lock:
+            self._admitted += 1
+            self._prefill_compute_tokens += computed
+        self._pages_in_use_g.set(self._pagepool.in_use, model=self.name)
+
+    def _finish(self, slot_idx: int) -> None:
+        slot = self._slots[slot_idx]
+        self._slots[slot_idx] = None
+        self._temp_np[slot_idx] = 0.0  # freed slots cost only the argmax
+        # commit the retired request's FULL resident pages to the prefix
+        # index, then drop this slot's references
+        req = slot.req
+        pages = self._slot_pages[slot_idx]
+        if self._radix is not None and pages:
+            fullp = min(int(self._cur_np[slot_idx]) // self.page_size,
+                        len(pages))
+            if fullp > 0:
+                seq = np.concatenate(
+                    [req.prompt, np.asarray(slot.tokens[:-1], np.int64)]
+                )
+                self._radix.insert(
+                    seq[: fullp * self.page_size], pages[:fullp]
+                )
+        self._release_slot_pages(slot_idx)
+        req.future.set({"tokens": list(slot.tokens), "ttft_s": slot.ttft_s})
+
+    @staticmethod
+    def _done(slot: _Slot) -> bool:
+        req = slot.req
+        if len(slot.tokens) >= req.max_new:
+            return True
+        return req.eos_id is not None and slot.tokens[-1] == req.eos_id
+
+    def _loop(self) -> None:
+        # grad mode is thread-local: the scheduler thread sets its own
+        with torch.inference_mode():
+            while True:
+                with self._cv:
+                    while (
+                        not self._stop and not self._queue
+                        and not any(s is not None for s in self._slots)
+                    ):
+                        self._cv.wait()
+                    if self._stop:
+                        return
+                try:
+                    self._iterate()
+                except Exception as e:  # the thread must live
+                    self._fail_resident(e)
+
+    def _fail_resident(self, exc: BaseException) -> None:
+        """A decode step failed: fail every resident request and free its
+        pages (queued requests were never admitted and stay servable)."""
+        log.exception("engine %s decode iteration failed", self.name)
+        err = RuntimeError(f"engine {self.name} decode step failed: {exc!r}")
+        err.__cause__ = exc
+        for i, slot in enumerate(self._slots):
+            if slot is not None:
+                self._slots[i] = None
+                self._temp_np[i] = 0.0
+                self._release_slot_pages(i)
+                slot.req.future.fail(err)
+
+    def _iterate(self) -> None:
+        # retire finished slots, then refill FIFO from the queue — each
+        # admission passes the page-reservation gate
+        for i, slot in enumerate(self._slots):
+            if slot is not None and self._done(slot):
+                self._finish(i)
+        for i in range(self.num_slots):
+            if self._slots[i] is not None:
+                continue
+            with self._cv:
+                if not self._queue or not self._can_admit(self._queue[0]):
+                    break
+                req = self._queue.popleft()
+                self._queue_depth_g.set(len(self._queue), model=self.name)
+            try:
+                self._admit(i, req)
+            except Exception as e:  # per-request: fail it, keep serving
+                log.exception("engine %s admission failed", self.name)
+                req.future.fail(e)
+                self._release_slot_pages(i)
+                continue
+            if self._done(self._slots[i]):
+                # one-token request (or instant EOS): never steps
+                self._finish(i)
+        active = [i for i, s in enumerate(self._slots) if s is not None]
+        self._occupancy_g.set(len(active) / self.num_slots, model=self.name)
+        if not active:
+            return
+        for i in active:  # host-only page mapping
+            self._ensure_pages(i, int(self._cur_np[i]) + 1)
+        t0 = time.monotonic()
+        toks = self.programs.step(
+            self._pool, self._to_dev(self._tok_np),
+            self._to_dev(self._pt_np), self._to_dev(self._cur_np),
+            self._seed_np, self._cnt_np, self._temp_np, self._topk_np,
+            self._topp_np,
+        ).cpu().numpy()
+        self._note_attn(1)
+        self._decode_steps_m.inc(model=self.name)
+        self._tokens_m.inc(len(active), model=self.name)
+        with self._stats_lock:
+            self._steps += 1
+            self._step_seconds += time.monotonic() - t0
+            self._emitted += len(active)
+            self._occupied_slot_steps += len(active)
+        for i in active:
+            self._slots[i].tokens.append(int(toks[i]))
+            self._tok_np[i] = toks[i]
+            self._cnt_np[i] += 1
+            self._cur_np[i] += 1

@@ -47,6 +47,11 @@ def pytest_configure(config):
         "slow: production-topology sweeps excluded from the tier-1 budget "
         "(run by the static-analysis CI workflow)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's hand-written "
+        "kernels); skips where there is none",
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,136 @@
+"""The port's continuous-batching engine (kubeflow_tpu_torch/serving/
+engine.py) on the CPU, with the session gpt_tiny weights bridged from
+JAX and page_size 8.
+
+Greedy engine tokens must equal JAX `generate()` exactly (f32 logits
+agree to ~1e-6, far inside the greedy margins of these prompts) and the
+port's own `generate()` through chunked prefill and prefix hits with
+copy-on-write, on both read paths ("kernel" walks the page table
+through the kernel's plain version on CPU tensors)."""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from kubeflow_tpu.serving.generate import generate as jgenerate  # noqa: E402
+from kubeflow_tpu_torch.models import get_model  # noqa: E402
+from kubeflow_tpu_torch.models.convert import load_jax_params  # noqa: E402
+from kubeflow_tpu_torch.serving.engine import (  # noqa: E402
+    DecodeEngine,
+    EngineCapacityError,
+    PagePool,
+    QueueFullError,
+    RadixPrefixIndex,
+)
+from kubeflow_tpu_torch.serving.generate import generate  # noqa: E402
+
+MAX_NEW = 8
+IMPLS = ["kernel", "gather"]
+
+
+@pytest.fixture(scope="module")
+def tiny(gpt_and_params):
+    jmodel, params = gpt_and_params
+    tmodel = get_model("gpt_tiny", dtype=torch.float32, device="cpu")
+    load_jax_params(tmodel, jax.tree.map(np.asarray, params))
+    rng = np.random.default_rng(7)
+    rows = {n: rng.integers(0, 512, n) for n in (4, 7, 40)}
+    return jmodel, params, tmodel, rows
+
+
+@pytest.fixture(scope="module")
+def jax_tokens(tiny):
+    jmodel, params, _, rows = tiny
+    run = jax.jit(functools.partial(jgenerate, jmodel), static_argnums=(2,))
+    return {
+        n: np.asarray(run(params, jnp.asarray(rows[n][None], jnp.int32),
+                          MAX_NEW))[0, n:].tolist()
+        for n in (4, 7)
+    }
+
+
+def _engine(tmodel, impl, **kw):
+    return DecodeEngine("tiny", tmodel, device="cpu", num_slots=2,
+                        page_size=8, paged_attention=impl, **kw)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_greedy_engine_tokens_equal_jax_generate(tiny, jax_tokens, impl):
+    _, _, tmodel, rows = tiny
+    eng = _engine(tmodel, impl)
+    try:
+        futures = {n: eng.submit(rows[n], MAX_NEW) for n in (4, 7)}
+        for n, fut in futures.items():
+            assert fut.wait(60)["tokens"] == jax_tokens[n], n
+        stats = eng.stats()
+    finally:
+        eng.close()
+    assert stats["attention_kernel"] == impl
+    assert stats["paged_attention_windows"] == {1: impl}
+    # decode steps emit all but each row's first (admission) token
+    assert stats["tokens"] == 2 * (MAX_NEW - 1)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_chunked_prefill_and_prefix_cow_equal_generate(tiny, impl):
+    """A 40-token prompt past the capped bucket set (8, 16) takes a head
+    prefill plus chunk windows; sent again, it maps the committed pages
+    and copies the partially matched boundary page."""
+    _, _, tmodel, rows = tiny
+    row = rows[40]
+    want = generate(tmodel, row[None], MAX_NEW)[0, 40:].tolist()
+    eng = _engine(tmodel, impl, prefill_buckets=(8, 16))
+    try:
+        assert eng.generate_row(row, MAX_NEW)["tokens"] == want
+        first = eng.stats()
+        assert eng.generate_row(row, MAX_NEW)["tokens"] == want
+        second = eng.stats()
+    finally:
+        eng.close()
+    assert first["paged_attention_windows"] == {1: impl, 64: impl}
+    assert first["prefill_compute_tokens"] == 40
+    assert second["cow_copies"] == 1
+    # 5 committed pages of 8; the prompt's last token always recomputes
+    assert second["prefix_hit_tokens"] == 39
+    assert second["prefill_compute_tokens"] == 41
+
+
+def test_engine_rejects_what_the_model_cannot_hold(tiny):
+    tmodel = tiny[2]
+    eng = _engine(tmodel, "kernel", autostart=False, max_queue=1)
+    try:
+        with pytest.raises(EngineCapacityError, match="max_len 128"):
+            eng.submit(np.arange(100), 29)
+        with pytest.raises(ValueError, match="prompt ids"):
+            eng.submit([600], 1)
+        eng.submit([1, 2, 3], 2)
+        with pytest.raises(QueueFullError):
+            eng.submit([1, 2, 3], 2)
+    finally:
+        eng.close()
+    with pytest.raises(ValueError, match="paged_attention"):
+        _engine(tmodel, "pallas")
+    with pytest.raises(ValueError, match="page_size"):
+        DecodeEngine("t", tmodel, device="cpu", page_size=6)
+
+
+def test_radix_index_matches_commits_and_evicts():
+    pool = PagePool(8)
+    radix = RadixPrefixIndex(4, pool)
+    pages = pool.alloc(3)
+    tokens = list(range(12))
+    radix.insert(tokens, pages)
+    assert [pool.refcount(p) for p in pages] == [2, 2, 2]
+    pool.release(pages)  # the slot retires; the tree keeps the pages
+    assert pool.tree_evictable == 3
+    chain, matched, partial = radix.match(tokens[:10])
+    assert chain == pages[:2] and matched == 8 and partial == (pages[2], 2)
+    assert radix.evict(2) == 2
+    assert pool.free_count == 5 + 2
+    assert radix.match(tokens)[1] == 4

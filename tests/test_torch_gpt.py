@@ -1,0 +1,198 @@
+"""The port's GPT (kubeflow_tpu_torch/models/gpt.py) against the JAX
+model on the same weights: the session gpt_tiny (f32, PRNGKey(0))
+bridged through `params_from_jax`, inputs seeded with numpy.
+
+Tolerances: logits atol = rtol = 1e-4 (f32 summation order through two
+blocks and the vocab head); written K/V pool rows atol = rtol = 1e-5."""
+
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from kubeflow_tpu.models.gpt import (  # noqa: E402
+    PagedState as JPagedState,
+    stack_layer_params,
+)
+from kubeflow_tpu_torch.models import get_model  # noqa: E402
+from kubeflow_tpu_torch.models.convert import (  # noqa: E402
+    load_jax_params,
+    params_from_jax,
+)
+from kubeflow_tpu_torch.models.gpt import KVPool, PagedState  # noqa: E402
+
+ATOL = RTOL = 1e-4
+POOL_ATOL = POOL_RTOL = 1e-5
+
+
+@pytest.fixture(scope="module")
+def pair(gpt_and_params):
+    jmodel, params = gpt_and_params
+    tmodel = get_model("gpt_tiny", dtype=torch.float32, device="cpu")
+    load_jax_params(tmodel, jax.tree.map(np.asarray, params))
+    return jmodel, params, tmodel
+
+
+def _japply(jmodel, **static):
+    """jitted JAX apply (one compile instead of one per eager op)."""
+    return jax.jit(functools.partial(jmodel.apply, **static))
+
+
+def _ids(rng, b, s, vocab=512):
+    return rng.integers(0, vocab, (b, s)).astype(np.int32)
+
+
+def test_params_from_jax_reads_both_layouts(gpt_and_params):
+    jmodel, params = gpt_and_params
+    named = params_from_jax(jax.tree.map(np.asarray, params))
+    stacked = params_from_jax(jax.tree.map(
+        np.asarray, stack_layer_params(params, jmodel.cfg.num_layers)
+    ))
+    assert named.keys() == stacked.keys()
+    for k in named:
+        torch.testing.assert_close(named[k], stacked[k], atol=0, rtol=0)
+    tmodel = get_model("gpt_tiny", dtype=torch.float32, device="cpu")
+    assert set(named) == set(tmodel.state_dict())
+    assert named["layers.1.attention.query.kernel"].shape == (64, 4, 16)
+    assert named["layers.0.attention.out.kernel"].shape == (4, 16, 64)
+
+
+def test_full_forward_logits_match_jax(pair):
+    jmodel, params, tmodel = pair
+    rng = np.random.default_rng(0)
+    ids = _ids(rng, 2, 12)
+    mask = np.ones((2, 12), bool)
+    mask[1, 9:] = False
+    want = np.asarray(_japply(jmodel)(
+        {"params": params}, jnp.asarray(ids), attention_mask=jnp.asarray(mask)
+    )["logits"])
+    with torch.inference_mode():
+        got = tmodel(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+def test_prefill_and_slot_cache_decode_match_jax(pair):
+    """A ragged prefill, then three single-token decode steps over the
+    slot-row cache (the path `generate()` runs)."""
+    jmodel, params, tmodel = pair
+    rng = np.random.default_rng(1)
+    ids = _ids(rng, 2, 10)
+    mask = np.ones((2, 10), bool)
+    mask[0, 7:] = False
+    out, mutated = _japply(jmodel, prefill=True, mutable=["cache"])(
+        {"params": params}, jnp.asarray(ids), attention_mask=jnp.asarray(mask),
+    )
+    cache = mutated["cache"]
+    with torch.inference_mode():
+        logits, tcache = tmodel.prefill(
+            torch.from_numpy(ids).long(), torch.from_numpy(mask)
+        )
+        np.testing.assert_allclose(
+            logits.numpy(), np.asarray(out["logits"]), atol=ATOL, rtol=RTOL
+        )
+        decode = _japply(jmodel, decode=True, mutable=["cache"])
+        for step in range(3):
+            tok = _ids(rng, 2, 1)
+            out, mutated = decode(
+                {"params": params, "cache": cache}, jnp.asarray(tok)
+            )
+            cache = mutated["cache"]
+            got = tmodel.decode(torch.from_numpy(tok).long(), tcache)
+            np.testing.assert_allclose(
+                got.numpy(), np.asarray(out["logits"]), atol=ATOL, rtol=RTOL,
+                err_msg=f"decode step {step}",
+            )
+    assert tcache.index == 13
+
+
+def _pools(rng, cfg, num_pages, ps):
+    h, d = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    shape = (cfg.num_layers, num_pages, ps, h, d)
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+WINDOWS = {
+    # one paged decode step over three slots, one parked at max_len
+    "decode_step": (np.array([5, 17, 128], np.int32), 1),
+    # a 16-token chunk-prefill window
+    "chunk16": (np.array([20], np.int32), 16),
+}
+
+
+@pytest.fixture(scope="module")
+def paged_case(pair):
+    """Per window: the seeded inputs and the JAX paged branch's logits and
+    written pools, computed once for both of the port's read paths."""
+    jmodel, params, _ = pair
+    cfg = jmodel.cfg
+    ps, num_pages = 8, 40
+    mp = cfg.max_len // ps
+    memo = {}
+
+    def get(window):
+        if window in memo:
+            return memo[window]
+        rng = np.random.default_rng(2)
+        k_np, v_np = _pools(rng, cfg, num_pages, ps)
+        cursors, s = WINDOWS[window]
+        b = cursors.size
+        table = np.stack(
+            [rng.permutation(num_pages)[:mp] for _ in range(b)]
+        ).astype(np.int32)
+        ids = _ids(rng, b, s)
+        jcache = {
+            f"layer_{i}": {"attention": {
+                "cached_key": jnp.asarray(k_np[i]),
+                "cached_value": jnp.asarray(v_np[i]),
+            }}
+            for i in range(cfg.num_layers)
+        }
+        jpaged = JPagedState(
+            jnp.asarray(table), jnp.asarray(cursors), ps, num_pages,
+            attn_impl="gather",
+        )
+        out, mutated = _japply(jmodel, decode=True, mutable=["cache"])(
+            {"params": params, "cache": jcache}, jnp.asarray(ids),
+            paged=jpaged,
+        )
+        jk = np.stack([np.asarray(mutated["cache"][f"layer_{i}"]["attention"]
+                                  ["cached_key"]) for i in range(cfg.num_layers)])
+        jv = np.stack([np.asarray(mutated["cache"][f"layer_{i}"]["attention"]
+                                  ["cached_value"]) for i in range(cfg.num_layers)])
+        memo[window] = (ids, k_np, v_np, table, cursors,
+                        np.asarray(out["logits"]), jk, jv)
+        return memo[window]
+
+    return get
+
+
+@pytest.mark.parametrize("impl", ["gather", "kernel"])
+@pytest.mark.parametrize("window", sorted(WINDOWS))
+def test_paged_forward_matches_jax(pair, paged_case, impl, window):
+    """A paged decode step and a 16-token chunk window: logits and the
+    written pools against the JAX paged branch, on both of the port's
+    read paths."""
+    tmodel = pair[2]
+    ids, k_np, v_np, table, cursors, want, jk, jv = paged_case(window)
+    pool = KVPool(torch.from_numpy(k_np.copy()), torch.from_numpy(v_np.copy()))
+    with torch.inference_mode():
+        got = tmodel.paged_forward(
+            torch.from_numpy(ids).long(), pool,
+            PagedState(torch.from_numpy(table), torch.from_numpy(cursors),
+                       attn_impl=impl),
+        )
+    live = cursors < tmodel.cfg.max_len
+    np.testing.assert_allclose(
+        got.numpy()[live], want[live], atol=ATOL, rtol=RTOL
+    )
+    np.testing.assert_allclose(pool.k.numpy(), jk, atol=POOL_ATOL,
+                               rtol=POOL_RTOL)
+    np.testing.assert_allclose(pool.v.numpy(), jv, atol=POOL_ATOL,
+                               rtol=POOL_RTOL)
