@@ -12,8 +12,10 @@ Phases (any failure raises and the script exits non-zero):
 3. Kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the card, at gpt_small's serving shapes (8 slots,
    12 heads x 64, page 16, 64 pages a slot, 384 pool pages), bf16 and
-   f32, with ragged cursors (0, 15, 16, 1023 and a parked 1024). Times
-   are medians over CUDA events with the L2 flushed before each launch.
+   f32, with ragged cursors (0, 15, 16, 1023 and a parked 1024); then
+   the window kernel at the batch-1 calls phase 5 makes (MAIN_WINDOWS),
+   whose mean the kernels line reports. Times are medians over CUDA
+   events with the L2 flushed before each launch.
 4. Serve f32: gpt_small at full width (seeded init) behind the REST
    server on a real socket, paged_attention=kernel; two greedy
    `:generate` requests must equal the port's `generate()`.
@@ -56,8 +58,21 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 
 # gpt_small serving geometry (engine defaults: 8 slots, page 16)
 B, H, D, PS, MP, NUM_PAGES = 8, 12, 64, 16, 64, 384
+# ragged cursors of the 8-slot calls; 1024 = max_len is a parked slot
 CURSORS = (0, 15, 16, 1023, 1024, 300, 517, 64)
-PARKED = 4  # the row whose cursor is parked at max_len (never read)
+
+# phase 5's traffic: prefill buckets up to 256, chunk windows of 64 rows
+# (the engine's chunk_len at page 16), one long prompt and one prompt
+# sent twice
+BUCKETS = "8,16,32,64,128,256"
+CHUNK, LONG_LEN, HIT_LEN = 64, 700, 300
+LARGEST = int(BUCKETS.split(",")[-1])
+# the windows phase 5 hands the window kernel, each a batch-1 call at
+# cursor = the window's first position: the long prompt's and the first
+# 300-token prompt's windows after their head prefill, then the repeat's
+# one window after its prefix hit (the whole prompt but its last token)
+MAIN_WINDOWS = (*range(LARGEST, LONG_LEN, CHUNK),
+                *range(LARGEST, HIT_LEN, CHUNK), HIT_LEN - 1)
 
 
 def smi_line() -> str:
@@ -68,37 +83,54 @@ def smi_line() -> str:
     ).stdout.strip()
 
 
-def kernel_inputs(torch, dtype, s, dev, seed=0):
+def kernel_inputs(torch, dtype, s, dev, cursors=CURSORS, seed=0):
     """q, pools, page table and cursors at the serving shapes: each slot
     owns distinct pages up to its last live one; entries past it are
     stale (random) and must never be read."""
     g = torch.Generator().manual_seed(seed)
-    q = torch.randn((B, s, H, D), generator=g).to(dtype)
+    b = len(cursors)
+    q = torch.randn((b, s, H, D), generator=g).to(dtype)
     pool_k = torch.randn((NUM_PAGES, PS, H, D), generator=g).to(dtype)
     pool_v = torch.randn((NUM_PAGES, PS, H, D), generator=g).to(dtype)
     perm = torch.randperm(NUM_PAGES, generator=g).tolist()
-    table = torch.randint(0, NUM_PAGES, (B, MP), generator=g, dtype=torch.int32)
-    for b, cur in enumerate(CURSORS):
+    table = torch.randint(0, NUM_PAGES, (b, MP), generator=g, dtype=torch.int32)
+    for row, cur in enumerate(cursors):
         live = min((cur + s - 1) // PS, MP - 1) + 1
-        table[b, :live] = torch.tensor(perm[:live], dtype=torch.int32)
+        table[row, :live] = torch.tensor(perm[:live], dtype=torch.int32)
         perm = perm[live:]
-    cursors = torch.tensor(CURSORS, dtype=torch.int32)
+    cursors = torch.tensor(cursors, dtype=torch.int32)
     return [t.to(dev) for t in (q, pool_k, pool_v, table, cursors)]
 
 
-def work_bounds(dtype_name, itemsize, s):
-    """(bytes, ops) this call needs: each live K/V vector read once, q
-    read and the output written once, the table and cursors read; 4 ops
-    per live (query row, key, element) — QK^T and PV."""
+def work_bounds(cursors, itemsize, s):
+    """(bytes, ops) this call needs: each live K/V vector read once, the
+    live rows' q read once, every output row written once, the live
+    pages' table entries and the cursors read; 4 ops per live (query
+    row, key, element) — QK^T and PV. A parked row (cursor past the
+    window) needs only its output written."""
     view_len = MP * PS
-    kv_keys, pairs = 0, 0
-    for cur in CURSORS:
-        kv_keys += min(cur + s - 1, view_len - 1) + 1
+    kv_keys, pairs, live_rows, pages = 0, 0, 0, 0
+    for cur in cursors:
+        if cur >= view_len:
+            continue
+        n = min(cur + s - 1, view_len - 1) + 1
+        kv_keys += n
+        pages += -(-n // PS)
         pairs += sum(min(cur + j, view_len - 1) + 1 for j in range(s))
-    nbytes = (2 * kv_keys * H * D + 2 * B * s * H * D) * itemsize
-    nbytes += 4 * (B * MP + B)
+        live_rows += 1
+    nbytes = (2 * kv_keys + (live_rows + len(cursors)) * s) * H * D * itemsize
+    nbytes += 4 * (pages + len(cursors))
     ops = 4 * pairs * H * D
     return nbytes, ops
+
+
+def bound_of(name, cursors, itemsize, s):
+    """(bound_ms, bound_by, bytes, ops) of one call on the H100."""
+    nbytes, ops = work_bounds(cursors, itemsize, s)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
 
 
 def time_ms(torch, fn, flush, iters=30, warmup=3):
@@ -137,7 +169,54 @@ def library_attention(torch, q, pool_k, pool_v, table, cursors):
     ).transpose(1, 2)
 
 
+def measure(torch, pa, flush, dtype, s, cursors):
+    """One kernel call at (s, cursors) against its plain version (every
+    row, parked ones included: both write zeros there) and the library
+    yardstick (live rows), then their times and the call's bound."""
+    name = str(dtype).replace("torch.", "")
+    kname = pa.kernel_name(s)
+    args = kernel_inputs(torch, dtype, s, "cuda", cursors=cursors)
+    out = pa.paged_attention(*args, dtype=dtype)
+    ref = pa.paged_attention_reference(*args, dtype=dtype)
+    lib = library_attention(torch, *args)
+    torch.cuda.synchronize()
+    live = args[4] < MP * PS
+    err = (out.float() - ref.float()).abs().max().item()
+    lib_err = (lib[live].float() - ref[live].float()).abs().max().item()
+    label = f"kernel {kname} {name} B={len(cursors)} s={s} cursors {list(cursors)}"
+    print(f"{label}: max_abs_err {err:.3e} (atol {ATOL[name]:g}); library "
+          f"max_abs_err {lib_err:.3e}", flush=True)
+    if not err <= ATOL[name]:
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{err} > {ATOL[name]}")
+    ms = time_ms(torch, lambda: pa.paged_attention(*args, dtype=dtype), flush)
+    plain_ms = time_ms(
+        torch, lambda: pa.paged_attention_reference(*args, dtype=dtype), flush
+    )
+    library_ms = time_ms(torch, lambda: library_attention(torch, *args), flush)
+    bound_ms, bound_by, nbytes, ops = bound_of(name, cursors, args[0].element_size(), s)
+    print(f"{label}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+          f"{library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes} B, "
+          f"{ops} ops)", flush=True)
+    return {
+        "name": kname, "route": "cuda",
+        "source": "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": (
+            "kubeflow_tpu/ops/paged_attention.py:71" if s == 1
+            else "kubeflow_tpu/ops/paged_attention.py:143"
+        ),
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+        "dtype": name, "bytes": nbytes, "ops": ops,
+        "shape": (f"B={len(cursors)} s={s} H={H} D={D} ps={PS} MP={MP} "
+                  f"P={NUM_PAGES} cursors={list(cursors)}"),
+    }
+
+
 def phase_kernels(torch):
+    """Each kernel against its plain version: at the 8-slot decode shape
+    and an 8-slot window (ragged cursors, a parked row) in both dtypes,
+    and at the batch-1 windows the main path gives the window kernel."""
     from kubeflow_tpu_torch.ops import paged_attention as pa
 
     flush = torch.empty(2 << 30, dtype=torch.uint8, device="cuda")
@@ -145,51 +224,34 @@ def phase_kernels(torch):
           flush=True)
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).replace("torch.", "")
-        for s in (1, 64):
-            args = kernel_inputs(torch, dtype, s, "cuda")
-            out = pa.paged_attention(*args, dtype=dtype)
-            ref = pa.paged_attention_reference(*args, dtype=dtype)
-            lib = library_attention(torch, *args)
-            torch.cuda.synchronize()
-            keep = [b for b in range(B) if b != PARKED]
-            err = (out[keep].float() - ref[keep].float()).abs().max().item()
-            lib_err = (lib[keep].float() - ref[keep].float()).abs().max().item()
-            kname = pa.kernel_name(s)
-            print(f"kernel {kname} {name} s={s}: max_abs_err {err:.3e} "
-                  f"(atol {ATOL[name]:g}); library max_abs_err {lib_err:.3e}",
-                  flush=True)
-            if not err <= ATOL[name]:
-                raise AssertionError(
-                    f"{kname} {name} s={s} disagrees with its plain "
-                    f"version: {err} > {ATOL[name]}"
-                )
-            ms = time_ms(torch, lambda: pa.paged_attention(*args, dtype=dtype), flush)
-            plain_ms = time_ms(
-                torch, lambda: pa.paged_attention_reference(*args, dtype=dtype), flush
-            )
-            library_ms = time_ms(torch, lambda: library_attention(torch, *args), flush)
-            nbytes, ops = work_bounds(name, args[0].element_size(), s)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_OPS[name] * 1e3
-            rec = {
-                "name": kname, "route": "cuda",
-                "source": "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
-                "replaces": (
-                    "kubeflow_tpu/ops/paged_attention.py:71" if s == 1
-                    else "kubeflow_tpu/ops/paged_attention.py:143"
-                ),
-                "launches": 0, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": library_ms, "dtype": name,
-                "shape": f"B={B} s={s} H={H} D={D} ps={PS} MP={MP} P={NUM_PAGES}",
-            }
-            print(f"kernel {kname} {name} s={s}: ms {ms:.4f} plain_ms "
-                  f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
-                  f"{rec['bound_ms']:.4f} ({rec['bound_by']}; {nbytes} B, "
-                  f"{ops} ops)", flush=True)
-            records[(kname, name)] = rec
+        for s in (1, CHUNK):
+            rec = measure(torch, pa, flush, dtype, s, CURSORS)
+            records[(rec["name"], rec["dtype"], "B8")] = rec
+    # the main path's window calls (bf16, batch 1): each distinct cursor
+    # measured once, then averaged over the calls phase 5 makes
+    per_cursor = {
+        c: measure(torch, pa, flush, torch.bfloat16, CHUNK, (c,))
+        for c in sorted(set(MAIN_WINDOWS))
+    }
+    calls = [per_cursor[c] for c in MAIN_WINDOWS]
+    main = dict(calls[0])
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        main[key] = statistics.fmean(r[key] for r in calls)
+    main["max_abs_err"] = max(r["max_abs_err"] for r in calls)
+    main["bytes"] = sum(r["bytes"] for r in calls)
+    main["ops"] = sum(r["ops"] for r in calls)
+    main["bound_by"] = (
+        "bytes" if main["bytes"] / HBM_BYTES_PER_S
+        >= main["ops"] / PEAK_OPS["bfloat16"] else "operations"
+    )
+    main["shape"] = (f"B=1 s={CHUNK} H={H} D={D} ps={PS} MP={MP} "
+                     f"P={NUM_PAGES}; mean over the main path's windows at "
+                     f"cursors {list(MAIN_WINDOWS)}")
+    print(f"kernel paged_window bf16 main-path windows (mean of "
+          f"{len(calls)} calls): ms {main['ms']:.4f} plain_ms "
+          f"{main['plain_ms']:.4f} library_ms {main['library_ms']:.4f} "
+          f"bound_ms {main['bound_ms']:.5f} ({main['bound_by']})", flush=True)
+    records[("paged_window", "bfloat16", "main")] = main
     del flush
     return records
 
@@ -225,6 +287,7 @@ def serve(model, dtype, device, **knobs):
 
 def phase_serve_f32(torch, model="gpt_small", device="cuda", prompts=None,
                     max_new=16):
+    from kubeflow_tpu_torch.ops import paged_attention as pa
     from kubeflow_tpu_torch.serving.generate import generate
 
     ms, httpd = serve(model, torch.float32, device, num_slots=8, page_size=16)
@@ -232,6 +295,7 @@ def phase_serve_f32(torch, model="gpt_small", device="cuda", prompts=None,
         rng = np.random.default_rng(1)
         lm = ms.lm(model)
         vocab = lm.model.cfg.vocab_size
+        pa.reset_launch_counts()
         for n in prompts or (12, 37):
             prompt = rng.integers(0, vocab, n).tolist()
             status, out = post(httpd.port, model,
@@ -247,6 +311,14 @@ def phase_serve_f32(torch, model="gpt_small", device="cuda", prompts=None,
                 )
             print(f"serve f32: prompt {n} -> {max_new} tokens equal generate()",
                   flush=True)
+        launches = dict(pa.launch_counts)
+        kernel = ms.engine(model).stats()["attention_kernel"]
+        print(f"serve f32: read path {kernel}, launches {launches}", flush=True)
+        if kernel != "kernel" or (device == "cuda" and launches["paged_decode"] < 1):
+            raise AssertionError(
+                f"the f32 serve did not read through the decode kernel: "
+                f"read path {kernel}, launches {launches}"
+            )
         return lm.model
     finally:
         httpd.stop()
@@ -266,8 +338,8 @@ def rescore(torch, f32_model, prompt, tokens):
 
 
 def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
-                     short=(5, 17, 33, 64, 120), long_len=700, hit_len=300,
-                     max_new=32, buckets="8,16,32,64,128,256"):
+                     short=(5, 17, 33, 64, 120), long_len=LONG_LEN,
+                     hit_len=HIT_LEN, max_new=32, buckets=BUCKETS):
     from kubeflow_tpu_torch.ops import paged_attention as pa
 
     os.environ["KFT_SERVING_PREFILL_BUCKETS"] = buckets
@@ -377,15 +449,25 @@ def main() -> int:
     records = phase_kernels(torch)
     f32_model = phase_serve_f32(torch)
     launches, _, steps = phase_serve_bf16(torch, f32_model)
+    layers = f32_model.cfg.num_layers
     print(f"launches per decode step: "
           f"{launches['paged_decode'] / max(steps, 1):.2f} "
-          f"(one per layer, {f32_model.cfg.num_layers})", flush=True)
+          f"(one per layer, {layers})", flush=True)
+    # phase 3 timed the window kernel at the calls MAIN_WINDOWS lists:
+    # one launch per layer for each
+    if launches["paged_window"] != len(MAIN_WINDOWS) * layers:
+        raise AssertionError(
+            f"the main path made {launches['paged_window']} window launches, "
+            f"not the {len(MAIN_WINDOWS)} windows x {layers} layers that "
+            f"phase 3 measured"
+        )
     kernels = []
-    for kname in ("paged_decode", "paged_window"):
-        rec = dict(records[(kname, "bfloat16")])
-        rec["launches"] = launches[kname]
+    for key in (("paged_decode", "bfloat16", "B8"),
+                ("paged_window", "bfloat16", "main")):
+        rec = dict(records[key])
+        rec["launches"] = launches[key[0]]
         if rec["launches"] < 1:
-            raise AssertionError(f"the main path never launched {kname}")
+            raise AssertionError(f"the main path never launched {key[0]}")
         kernels.append(rec)
     print(smi)
     print(json.dumps({"kernels": kernels}))

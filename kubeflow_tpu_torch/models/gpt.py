@@ -477,14 +477,6 @@ def gpt_small(**kwargs) -> Gpt:
     return _build({}, kwargs)
 
 
-@register_model("gpt_medium")
-def gpt_medium(**kwargs) -> Gpt:
-    return _build(
-        dict(hidden_size=1024, num_layers=24, num_heads=16, mlp_dim=4096),
-        kwargs,
-    )
-
-
 @register_model("gpt_tiny")
 def gpt_tiny(**kwargs) -> Gpt:
     """Test-scale config."""

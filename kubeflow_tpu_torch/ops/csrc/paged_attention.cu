@@ -13,7 +13,10 @@
 //   softmax(q_b · K_bᵀ / sqrt(D)) · V_b
 // where K_b/V_b are the slot's logical rows read page by page through
 // page_table[b] out of the pool [P, page_size, H, D], keys past the row's
-// position masked. They keep the JAX package's roundings: each q·k dot is
+// position masked. A slot whose cursor lies past the window (the engine
+// parks idle and retired slots at max_len) is never read: its output is
+// zeros and its blocks load nothing, so an idle slot costs no bytes.
+// They keep the JAX package's roundings: each q·k dot is
 // accumulated in f32 and rounded to the compute dtype, divided by sqrt(D)
 // in the compute dtype, the softmax runs in f32 and the probabilities are
 // rounded to the compute dtype before P·V (f32 accumulation, one final
@@ -199,11 +202,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int sub = (tid & 31) / LPK, li = tid % LPK, g = tid / LPK;
   int cur = cursors[b];
   cur = cur < 0 ? 0 : cur;
-  // a parked cursor (max_len) clamps to the whole window; its output is
-  // never read
-  const int n_keys = min(cur, view_len - 1) + 1;
-  const int* pt = page_table + static_cast<size_t>(b) * max_pages;
   const size_t qo = (static_cast<size_t>(b) * H + h) * D;
+  // a parked row (cursor past the window: an idle or retired slot) is
+  // never read; it writes zeros and walks nothing
+  if (cur >= view_len) {
+    for (int d = tid; d < D; d += kThreads) out[qo + d] = from_f<T>(0.f);
+    return;
+  }
+  const int n_keys = cur + 1;
+  const int* pt = page_table + static_cast<size_t>(b) * max_pages;
 
   float qv[N];
   Vec<T>::load(q + qo + li * N, qv);
@@ -315,6 +322,13 @@ paged_window_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int sub = lane / LPK, li = tid % LPK, g = tid / LPK;
   int cur = cursors[b];
   cur = cur < 0 ? 0 : cur;
+  // a parked row's window is never read: zeros, no walk
+  if (cur >= view_len) {
+    for (int i = tid; i < rows * D; i += kThreads)
+      out[((static_cast<size_t>(b) * S + j0 + i / D) * H + h) * D + i % D] =
+          from_f<T>(0.f);
+    return;
+  }
   const int* pt = page_table + static_cast<size_t>(b) * max_pages;
   // visible keys of the block's last row: the keys (and pages) it walks
   const int n_max = min(cur + j0 + rows - 1, view_len - 1) + 1;
@@ -467,7 +481,6 @@ cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
                        cudaStream_t stream) {
   switch (D) {
     case 16: return launch<T, 16>(q, pk, pv, pt, cur, out, B, S, H, ps, mp, np, scale, stream);
-    case 32: return launch<T, 32>(q, pk, pv, pt, cur, out, B, S, H, ps, mp, np, scale, stream);
     case 64: return launch<T, 64>(q, pk, pv, pt, cur, out, B, S, H, ps, mp, np, scale, stream);
     case 128: return launch<T, 128>(q, pk, pv, pt, cur, out, B, S, H, ps, mp, np, scale, stream);
     default: return cudaErrorInvalidValue;

@@ -28,7 +28,7 @@ from kubeflow_tpu_torch.ops.attention import dense_attention, scale_for
 # CPU path never counts)
 launch_counts: Dict[str, int] = {"paged_decode": 0, "paged_window": 0}
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_SMEM = 227 * 1024  # H100 dynamic shared memory per block
 
@@ -60,7 +60,9 @@ def paged_attention_reference(
     Like the kernels, the table is read only up to each slot's last live
     page (min((cursor + s - 1) // page_size, max_pages - 1)); entries past
     it are replaced by that page, so a stale entry is never dereferenced
-    (its positions are masked either way)."""
+    (its positions are masked either way). A parked slot (cursor at or
+    past the window, max_pages * page_size) is never read: its rows are
+    zeros, as the kernels write them."""
     b, s = q.shape[:2]
     ps = pool_k.shape[1]
     mp = page_table.shape[1]
@@ -71,6 +73,9 @@ def paged_attention_reference(
         torch.arange(mp, device=cur.device)[None, :], last[:, None]
     )
     table = torch.gather(page_table.long(), 1, p_idx)
+    parked = cur >= view_len
+    # a parked row's table may be stale: page 0 stands in, output zeroed
+    table = table.masked_fill(parked[:, None], 0)
     k_view = pool_k.index_select(0, table.reshape(-1)).reshape(
         (b, view_len) + tuple(pool_k.shape[2:])
     )
@@ -82,9 +87,10 @@ def paged_attention_reference(
         torch.arange(view_len, device=cur.device)[None, None, :]
         <= q_pos[:, :, None]
     )
-    return dense_attention(
+    out = dense_attention(
         q, k_view, v_view, mask=visible, dtype=dtype, causal=False
     )
+    return out.masked_fill(parked[:, None, None, None], 0)
 
 
 def _library():

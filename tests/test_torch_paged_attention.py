@@ -101,6 +101,22 @@ def test_stale_table_entries_past_the_live_page_are_never_read(s):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("s", [1, 4])
+def test_parked_rows_are_zeros_and_read_nothing(s):
+    """A parked slot (cursor max_len, past the window) reads no page: its
+    rows are zeros whatever its table holds, and the live rows are
+    unchanged by it."""
+    q, pk, pv, table, cursors = case = _case(s, 8, seed=3)
+    parked = cursors >= MAX_LEN
+    want = _port(case)
+    stale = table.copy()
+    stale[parked] = 10**6
+    got = _port((q, pk, pv, stale, cursors))
+    assert parked.any()
+    assert not got[torch.from_numpy(parked)].any()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
 def test_cpu_path_counts_no_launches():
     tpa.reset_launch_counts()
     _port(_case(1, 8))

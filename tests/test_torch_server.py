@@ -130,16 +130,37 @@ def test_bad_read_path_knobs_raise(knobs):
         build_server("gpt_tiny", device="cpu", **knobs)
 
 
-def test_chip_smoke_serve_phases_rehearse_on_cpu():
-    """chip_smoke.py's serve phases, driven on the CPU at gpt_tiny size:
-    f32 REST tokens equal generate(); the bf16 run answers every request
-    (incl. a chunked prefill and a repeated prompt that hits the prefix
-    cache with a copy-on-write) within the logit-gap bound."""
+def _chip_smoke():
     path = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_chip_smoke_bound_counts_only_what_a_call_needs():
+    """A parked slot adds only its output row to a call's bytes and no
+    operations; a live one its visible K/V, q, output, table entries."""
+    smoke = _chip_smoke()
+    hd = smoke.H * smoke.D
+    live, live_ops = smoke.work_bounds((15,), 2, 1)
+    assert live == (2 * 16 + 2) * hd * 2 + 4 * (1 + 1)
+    assert live_ops == 4 * 16 * hd
+    both, both_ops = smoke.work_bounds((15, smoke.MP * smoke.PS), 2, 1)
+    assert both - live == hd * 2 + 4
+    assert both_ops == live_ops
+    # the window calls phase 3 times are the main path's: the long
+    # prompt's, the first 300-token prompt's, then the prefix hit's
+    assert smoke.MAIN_WINDOWS == (256, 320, 384, 448, 512, 576, 640, 256, 299)
+
+
+def test_chip_smoke_serve_phases_rehearse_on_cpu():
+    """chip_smoke.py's serve phases, driven on the CPU at gpt_tiny size:
+    f32 REST tokens equal generate(); the bf16 run answers every request
+    (incl. a chunked prefill and a repeated prompt that hits the prefix
+    cache with a copy-on-write) within the logit-gap bound."""
+    smoke = _chip_smoke()
     f32_model = smoke.phase_serve_f32(torch, model="gpt_tiny", device="cpu",
                                       prompts=(5, 9), max_new=8)
     launches, stats, steps = smoke.phase_serve_bf16(
