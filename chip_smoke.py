@@ -26,6 +26,26 @@ Phases (any failure raises and the script exits non-zero):
    Every reply must be 200, every emitted token's f32 teacher-forced
    logit within DELTA of its position's max, and both kernels launched.
 
+6. Flash kernels vs plain: the three flash-attention kernels (forward,
+   dQ, dK/dV) against their plain PyTorch versions at the training
+   microbatch shape (B=2, H=12, D=64, S=4096, causal, bf16) without and
+   with a key mask, and in f32 at S=1024 (o, dQ, dK and dV each held row
+   by row at its own scale in bf16: FLASH_REL); times as in phase 3, the
+   bound from the visible (query, key) pairs, and
+   scaled_dot_product_attention (forward; its autograd backward for the
+   dQ + dK/dV pair) as the library yardstick.
+7. Train f32: gpt_small at seq 1024, batch 2, f32, 3 steps of
+   `Trainer.fit` from the same seeded init and batches, once through the
+   flash kernels and once dense: per-step losses within rel 1e-5, the
+   updates of a few q/k/MLP/head leaves within rel 1e-4 (L2), flash
+   launches only in the flash run.
+8. Train bf16 (the training main path): `run_training` of gpt_small at
+   configs/gpt_longcontext_v5e16.yaml's one-card share (seq 4096, global
+   batch 8 = 4 microbatches of 2, remat, loss_chunk 4096, full attention,
+   AdamW lr 3e-4, wd 0.1) with attention_impl="flash", 6 steps: every
+   loss finite, launch counts equal to the config's formula; the steady
+   step is steps 2-6's wall time over 5, with one host sync at their end.
+
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
 turned off for matmuls and cuDNN below.
@@ -45,6 +65,12 @@ import urllib.request
 
 import numpy as np
 
+# the H100's peaks, from the one table the port keeps
+from kubeflow_tpu_torch.observability.mfu import (
+    H100_HBM_BYTES_PER_S as HBM_BYTES_PER_S,
+    H100_PEAK_OPS as PEAK_OPS,
+)
+
 # tolerances of each kernel against its plain version on the same inputs:
 # f32 differs only in summation order; bf16 may also round a score,
 # probability or output element one bf16 ulp apart (2^-8 relative)
@@ -52,9 +78,40 @@ ATOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # a bf16 greedy token may differ from f32's argmax on a near-tie: each
 # emitted token's f32 logit must be within DELTA of its position's max
 DELTA = 0.25
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense ops/s by type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# flash kernels against the plain versions. f32 (summation order only):
+# absolute. bf16: each row (one head's D values at one position) within
+# FLASH_REL of the larger of its own largest |value| and the tensor's
+# median |value| — two bf16 ulps of the row's largest element, with
+# margin — or within the f32 tolerance. A row's scale is its own, so a
+# causal row late in the sequence (|values| ~ sqrt(e/S)) is held as
+# tightly as an early one (|values| ~ 1). lse is f32 from exact bf16
+# products: absolute.
+FLASH_ATOL = {"float32": dict(o=1e-5, lse=1e-5, grad=1e-4),
+              "bfloat16": dict(o=1e-5, lse=1e-3, grad=1e-4)}
+FLASH_REL = 2e-2
+# phase 7: f32 flash against dense, summation order only: per-step losses
+# within TRAIN_LOSS_REL, and each checked leaf's 3-step update within
+# TRAIN_UPDATE_REL of dense's (relative L2 norm). The leaves are ones
+# whose gradient passes through attention's backward (q and k
+# projections) or follows from its output; not the key bias, whose
+# gradient is 0 up to rounding (softmax ignores a per-row shift), so
+# that AdamW's per-element step there is noise in both runs.
+TRAIN_LOSS_REL, TRAIN_UPDATE_REL = 1e-5, 1e-4
+TRAIN_LEAVES = ("layers.0.attention.query.kernel",
+                "layers.1.attention.key.kernel", "layers.1.mlp_wi.kernel",
+                "head.kernel")
+# the training main path: configs/gpt_longcontext_v5e16.yaml at one card's
+# share (each of its 16 chips holds 2 sequences x 4096 positions a
+# microbatch)
+TRAIN_CFG = dict(
+    model="gpt_small", seq_len=4096, global_batch_size=8, accum_steps=4,
+    remat=True, loss_chunk=4096, assume_full_attention=True,
+    learning_rate=3e-4, warmup_steps=2, weight_decay=0.1, steps=6,
+    dtype="bfloat16", attention_impl="flash",
+)
+# phase 6's kernel shapes: one microbatch of TRAIN_CFG, gpt_small heads
+FB, FH, FD, FS = 2, 12, 64, 4096
 
 # gpt_small serving geometry (engine defaults: 8 slots, page 16)
 B, H, D, PS, MP, NUM_PAGES = 8, 12, 64, 16, 64, 384
@@ -425,6 +482,273 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         ms.close()
 
 
+def flash_case(torch, dtype, s, with_mask, dev="cuda", seed=0):
+    """q/k/v/dO [FB, s, FH, FD]; with a mask, row 1 keeps its first 3/4."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((FB, s, FH, FD), generator=g).to(dtype).to(dev)
+                   for _ in range(4))
+    mask = None
+    if with_mask:
+        mask = torch.ones((FB, s), dtype=torch.int32)
+        mask[1, (3 * s) // 4:] = 0
+        mask = mask.to(dev)
+    return q, k, v, do, mask
+
+
+def flash_err(torch, got, want, name, key):
+    """(max_abs_err, worst, typical) of a flash kernel's output against
+    its plain version's: `worst` is the largest, over rows (the last
+    axis), of the row's max |got - want| over its limit (FLASH_ATOL in
+    f32; in bf16 FLASH_REL x max(the row's max |want|, typical), at least
+    FLASH_ATOL), so worst <= 1 passes; `typical` is the median |want|."""
+    diff = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    typical = ref.median().item()
+    floor = FLASH_ATOL[name][key]
+    if name == "float32":
+        limit = torch.full_like(ref[..., :1], floor)
+    else:
+        scale = ref.amax(-1, keepdim=True).clamp_min(typical)
+        limit = (FLASH_REL * scale).clamp_min(floor)
+    worst = (diff.amax(-1, keepdim=True) / limit).max().item()
+    return diff.max().item(), worst, typical
+
+
+def flash_bound(kname, mask, s, itemsize, dtype_name):
+    """(bound_ms, bound_by, bytes, ops) of one causal call: ops = c·H·D per
+    visible (query, key) pair, c = 4 (QKᵀ, PV), 6 (+dO·Vᵀ, dS·K) or 8
+    (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q); bytes = each input read once and each
+    output written once."""
+    if mask is None:
+        pairs = FB * s * (s + 1) // 2
+    else:
+        # key j is seen by queries j..s-1 when it is not padding
+        m = mask.cpu().numpy()
+        pairs = int(sum((s - np.arange(s))[m[b] != 0].sum() for b in range(FB)))
+    elems = FB * s * FH * FD
+    mask_bytes = 0 if mask is None else 4 * FB * s
+    rows = 4 * FB * FH * s  # one f32 per (b, h, row): lse, delta
+    c, n_in, n_out, f32_rows = {
+        "flash_fwd": (4, 3, 1, 1),        # q k v → o, lse
+        "flash_bwd_dq": (6, 4, 1, 2),     # q k v dO lse delta → dq
+        "flash_bwd_dkv": (8, 4, 2, 2),    # q k v dO lse delta → dk dv
+    }[kname]
+    nbytes = (n_in + n_out) * elems * itemsize + f32_rows * rows + mask_bytes
+    ops = c * pairs * FH * FD
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def library_flash(torch, q, k, v):
+    """scaled_dot_product_attention(is_causal=True) on [B, H, S, D]: a
+    yardstick timed beside the kernels, never called by the port."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True
+    ).transpose(1, 2)
+
+
+def measure_flash(torch, fa, flush, dtype, s, with_mask):
+    """The three flash kernels at (dtype, s, mask) against their plain
+    versions on the same inputs, then their times, bounds and the library
+    yardstick (no-mask calls only: the library's causal call takes no key
+    mask)."""
+    name = str(dtype).replace("torch.", "")
+    tol = FLASH_ATOL[name]
+    q, k, v, do, mask = flash_case(torch, dtype, s, with_mask)
+    scale = fa.default_scale(FD)
+    o, lse = fa.flash_fwd(q, k, v, mask, True, scale)
+    ro, rlse = fa.flash_attention_reference(q, k, v, mask, True, scale)
+    delta = fa.flash_attention_delta(ro, do)
+    dq = fa.flash_bwd_dq(q, k, v, mask, do, rlse, delta, True, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, mask, do, rlse, delta, True, scale)
+    rdq = fa.flash_bwd_dq_reference(q, k, v, mask, do, rlse, delta, True, scale)
+    rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, mask, do, rlse, delta, True,
+                                          scale)
+    torch.cuda.synchronize()
+    label = f"{name} B={FB} S={s} H={FH} D={FD} causal mask={with_mask}"
+    lse_err = (lse - rlse).abs().max().item()
+    print(f"flash {label}: lse max_abs_err {lse_err:.3e} (atol {tol['lse']:g})",
+          flush=True)
+    if not lse_err <= tol["lse"]:
+        raise AssertionError(f"flash_fwd lse {label}: {lse_err} > {tol['lse']}")
+    errs = {}
+    for kname, tname, got, want, key in (
+            ("flash_fwd", "o", o, ro, "o"), ("flash_bwd_dq", "dq", dq, rdq, "grad"),
+            ("flash_bwd_dkv", "dk", dk, rdk, "grad"),
+            ("flash_bwd_dkv", "dv", dv, rdv, "grad")):
+        e, worst, typical = flash_err(torch, got, want, name, key)
+        limit = (f"atol {tol[key]:g}" if name == "float32" else
+                 f"row limit {FLASH_REL:g} x max(row max |value|, median) or "
+                 f"{tol[key]:g}; at the median row {FLASH_REL * typical:.3e}")
+        print(f"flash {kname} {label}: {tname} max_abs_err {e:.3e}, median "
+              f"|{tname}| {typical:.3e}, worst row err/limit {worst:.3f} "
+              f"({limit})", flush=True)
+        if not worst <= 1.0:
+            raise AssertionError(f"{kname} {label} disagrees with its plain "
+                                 f"version: {tname} row error {worst:.3f} "
+                                 f"x its limit")
+        errs[kname] = max(errs.get(kname, 0.0), e)
+    calls = {
+        "flash_fwd": (
+            lambda: fa.flash_fwd(q, k, v, mask, True, scale),
+            lambda: fa.flash_attention_reference(q, k, v, mask, True, scale)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, mask, do, rlse, delta, True, scale),
+            lambda: fa.flash_bwd_dq_reference(q, k, v, mask, do, rlse, delta,
+                                              True, scale)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, mask, do, rlse, delta, True, scale),
+            lambda: fa.flash_bwd_dkv_reference(q, k, v, mask, do, rlse, delta,
+                                               True, scale)),
+    }
+    library = {"flash_fwd": None, "flash_bwd_dq": None, "flash_bwd_dkv": None}
+    if mask is None:
+        library["flash_fwd"] = time_ms(torch, lambda: library_flash(torch, q, k, v),
+                                       flush)
+        qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+        out = library_flash(torch, qs, ks, vs)
+        pair = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True), flush)
+        library["flash_bwd_dq"] = library["flash_bwd_dkv"] = pair
+        del out
+    records = {}
+    for kname, (kernel, plain) in calls.items():
+        ms = time_ms(torch, kernel, flush)
+        plain_ms = time_ms(torch, plain, flush, iters=10)
+        bound_ms, bound_by, nbytes, ops = flash_bound(kname, mask, s,
+                                                      q.element_size(), name)
+        lib_ms = library[kname]
+        print(f"flash {kname} {label}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)} "
+              f"bound_ms {bound_ms:.5f} ({bound_by}; {nbytes} B, {ops} ops); "
+              f"{bound_ms / ms:.1%} of bound", flush=True)
+        records[kname] = {
+            "name": kname, "route": "cuda",
+            "source": "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": {
+                "flash_fwd": "kubeflow_tpu/ops/flash_attention.py:169",
+                "flash_bwd_dq": "kubeflow_tpu/ops/flash_attention.py:276",
+                "flash_bwd_dkv": "kubeflow_tpu/ops/flash_attention.py:331",
+            }[kname],
+            "launches": 0, "max_abs_err": errs[kname], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": lib_ms, "dtype": name, "bytes": nbytes, "ops": ops,
+            "shape": (f"B={FB} S={s} H={FH} D={FD} causal, "
+                      f"{'key mask' if with_mask else 'no mask'}"
+                      + ("; library_ms is SDPA's whole backward (dQ, dK, dV)"
+                         if kname != "flash_fwd" and lib_ms is not None else "")),
+        }
+    return records
+
+
+def phase_flash(torch):
+    """Phase 6: each flash kernel against its plain version at the main
+    path's microbatch shape (bf16, S=4096, no mask as the config runs, and
+    with a key mask) and in f32 at S=1024."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    flush = torch.empty(2 << 30, dtype=torch.uint8, device="cuda")
+    main = measure_flash(torch, fa, flush, torch.bfloat16, FS, False)
+    measure_flash(torch, fa, flush, torch.bfloat16, FS, True)
+    measure_flash(torch, fa, flush, torch.float32, 1024, False)
+    measure_flash(torch, fa, flush, torch.float32, 1024, True)
+    del flush
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_train_f32(torch, model="gpt_small", seq=1024, device="cuda"):
+    """Phase 7: the same 3 f32 steps (`Trainer.fit`) through the flash
+    kernels and dense, from one seeded init on the same batches: per-step
+    losses and the updates of TRAIN_LEAVES must agree."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    losses, launches, updates = {}, {}, {}
+    for impl in ("flash", "dense"):
+        cfg = TrainingConfig(
+            model=model, seq_len=seq, global_batch_size=2, steps=3,
+            learning_rate=3e-4, warmup_steps=1, weight_decay=0.1,
+            dtype="float32", attention_impl=impl,
+        )
+        trainer = Trainer(cfg, device=device)
+        state = trainer.init_state()
+        init = {n: state.params[n].detach().clone() for n in TRAIN_LEAVES}
+        fa.reset_launch_counts()
+        trainer.fit(state=state, log_every=cfg.steps)
+        launches[impl] = dict(fa.launch_counts)
+        losses[impl] = [loss for _, loss in trainer.losses]
+        updates[impl] = {n: state.params[n].detach() - init[n]
+                         for n in TRAIN_LEAVES}
+        print(f"train f32 {impl}: losses {losses[impl]} launches "
+              f"{launches[impl]}", flush=True)
+        del trainer, state, init
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses["flash"], losses["dense"]))
+    gaps = {n: ((updates["flash"][n] - updates["dense"][n]).norm()
+                / updates["dense"][n].norm()).item() for n in TRAIN_LEAVES}
+    print(f"train f32: worst relative loss gap flash vs dense {worst:.3e} "
+          f"(rel {TRAIN_LOSS_REL:g}); relative gap of each leaf's 3-step "
+          f"update {json.dumps(gaps)} (rel {TRAIN_UPDATE_REL:g}); update "
+          f"norms {json.dumps({n: u.norm().item() for n, u in updates['dense'].items()})}",
+          flush=True)
+    if len(losses["flash"]) != 3 or not worst <= TRAIN_LOSS_REL:
+        raise AssertionError(f"f32 flash and dense losses disagree: {losses}")
+    if not all(g <= TRAIN_UPDATE_REL for g in gaps.values()):
+        raise AssertionError(f"f32 flash and dense updates disagree: {gaps}")
+    if device == "cuda" and (min(launches["flash"].values()) < 1
+                             or any(launches["dense"].values())):
+        raise AssertionError(f"flash launches wrong: {launches}")
+
+
+def phase_train_bf16(torch, overrides=None, device="cuda"):
+    """Phase 8, the training main path: run_training at TRAIN_CFG."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+
+    cfg = TrainingConfig(**{**TRAIN_CFG, **(overrides or {})})
+    layers = get_model(cfg.model, device="meta", max_len=1).cfg.num_layers
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # the main path's run: every launch count starts at 0 here
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    # one log window after the first-step fence: steps 2..N are enqueued
+    # back to back and the host syncs once, at the window's end (each
+    # step's loss is read then)
+    result = run_training(cfg, device=device, log_every=cfg.steps)
+    wall = time.monotonic() - t0
+    launches = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    losses = result["losses"]
+    print(f"train bf16: per-step loss {losses}", flush=True)
+    print(f"train bf16: {cfg.steps} steps in {wall:.3f} s; steady step "
+          f"{result['step_time_s'] * 1e3:.3f} ms (wall time of steps 2-"
+          f"{cfg.steps} over {cfg.steps - 1}, one host sync at their end); "
+          f"{result['items_per_sec']:.1f} tokens/s; mfu {result.get('mfu')}; "
+          f"compile_s {result.get('compile_s')}; max_memory_allocated {peak} B",
+          flush=True)
+    if [s for s, _ in losses] != list(range(1, cfg.steps + 1)):
+        raise AssertionError(f"not every step's loss was read: {losses}")
+    if not all(np.isfinite(loss) for _, loss in losses):
+        raise AssertionError(f"a non-finite loss: {losses}")
+    # per step: every layer's forward runs twice under remat (forward and
+    # recompute), its backward once, in each microbatch
+    a, r = cfg.accum_steps, 2 if cfg.remat else 1
+    want = {"flash_fwd": cfg.steps * layers * a * r,
+            "flash_bwd_dq": cfg.steps * layers * a,
+            "flash_bwd_dkv": cfg.steps * layers * a}
+    print(f"train bf16: launches {launches} (config's formula {want})", flush=True)
+    if device == "cuda" and launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    return launches, result
+
+
 def main() -> int:
     import torch
 
@@ -450,6 +774,7 @@ def main() -> int:
     f32_model = phase_serve_f32(torch)
     launches, _, steps = phase_serve_bf16(torch, f32_model)
     layers = f32_model.cfg.num_layers
+    del f32_model
     print(f"launches per decode step: "
           f"{launches['paged_decode'] / max(steps, 1):.2f} "
           f"(one per layer, {layers})", flush=True)
@@ -468,6 +793,18 @@ def main() -> int:
         rec["launches"] = launches[key[0]]
         if rec["launches"] < 1:
             raise AssertionError(f"the main path never launched {key[0]}")
+        kernels.append(rec)
+    torch.cuda.empty_cache()
+
+    flash_records = phase_flash(torch)
+    phase_train_f32(torch)
+    torch.cuda.empty_cache()
+    train_launches, _ = phase_train_bf16(torch)
+    for kname, rec in flash_records.items():
+        rec = dict(rec)
+        rec["launches"] = train_launches[kname]
+        if rec["launches"] < 1:
+            raise AssertionError(f"the training main path never launched {kname}")
         kernels.append(rec)
     print(smi)
     print(json.dumps({"kernels": kernels}))

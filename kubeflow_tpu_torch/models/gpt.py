@@ -8,7 +8,12 @@ names and shapes are the flax tree's (`layers.<i>` for `layer_<i>`), so
 
 Three forward paths, mirroring the JAX module's three branches:
 
-- `forward`: the full causal pass (the JAX `attention_impl="dense"`).
+- `forward`: the full causal pass, the training path. Its attention is
+  `cfg.attention_impl`: "dense" (`ops/attention.py::dense_attention`) or
+  "flash" (`ops/flash_attention.py`, the CUDA forward/backward kernels on
+  the card). `cfg.remat` recomputes each block in the backward
+  (`torch.utils.checkpoint`, the JAX `nn.remat`), and `return_hidden`
+  hands the post-LN hidden states to a chunked loss.
 - `prefill` / `decode`: the slot-row KV cache (`SlotCache`) that
   `serving/generate.py` runs — a causal prefill seeds the cache, then
   each decode step writes at the shared cursor and attends over the real
@@ -19,6 +24,11 @@ Three forward paths, mirroring the JAX module's three branches:
   table in place through the CUDA kernel (`attn_impl="kernel"`).
 
 Caches are updated IN PLACE (the JAX programs donate and replace them).
+
+A model is built frozen, for serving (`requires_grad_(False)`, eval
+mode). `trainable()` turns the f32 master weights trainable: every module
+casts them to the compute dtype at use, so gradients land in f32, as in
+the JAX package's mixed precision.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.models.registry import register_model
 from kubeflow_tpu_torch.ops.attention import (
@@ -38,10 +49,18 @@ from kubeflow_tpu_torch.ops.attention import (
     paged_write,
     paged_write_index,
 )
+from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.paged_attention import paged_attention
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
 PAGED_ATTENTION_IMPLS = ("gather", "kernel")
+GPT_ATTENTION_IMPLS = ("dense", "flash")
+# the JAX package's other full-causal impls, and what they wait for
+_UNPORTED_IMPLS = {
+    "auto": "ROADMAP A1: re-measure the dense/flash thresholds on the H100",
+    "ring": "ROADMAP A13 item 5 (sequence parallelism)",
+    "ulysses": "ROADMAP A13 item 5 (sequence parallelism)",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +71,30 @@ class GptConfig:
     num_heads: int = 12
     mlp_dim: int = 3072
     max_len: int = 1024
+    dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16
+    # "dense" | "flash" (full causal pass only; serving's cached paths
+    # read through their own kernels)
+    attention_impl: str = "dense"
+    remat: bool = False
+
+    def __post_init__(self):
+        if self.attention_impl in _UNPORTED_IMPLS:
+            raise ValueError(
+                f"attention_impl {self.attention_impl!r} is not ported yet "
+                f"({_UNPORTED_IMPLS[self.attention_impl]})"
+            )
+        if self.attention_impl not in GPT_ATTENTION_IMPLS:
+            raise ValueError(
+                f"unknown attention_impl {self.attention_impl!r}; known: "
+                f"{GPT_ATTENTION_IMPLS}"
+            )
+        if self.dropout_rate > 0:
+            # every GPT preset trains at 0, and the JAX dropout stream
+            # (threefry) cannot be reproduced here
+            raise ValueError(
+                "dropout_rate > 0 is not ported (ROADMAP A11: dropout)"
+            )
 
     @property
     def head_dim(self) -> int:
@@ -114,10 +156,15 @@ class PagedState:
 
 
 class _Causal:
-    def __init__(self, mask: Optional[torch.Tensor], dtype):
-        self.mask, self.dtype = mask, dtype
+    def __init__(self, mask: Optional[torch.Tensor], dtype,
+                 impl: str = "dense"):
+        self.mask, self.dtype, self.impl = mask, dtype, impl
 
     def attend(self, layer, q, k, v):
+        if self.impl == "flash":
+            return flash_attention(
+                q, k, v, mask=self.mask, causal=True
+            ).to(self.dtype)
         return dense_attention(
             q, k, v, mask=self.mask, dtype=self.dtype, causal=True
         )
@@ -126,8 +173,8 @@ class _Causal:
 class _SlotPrefill(_Causal):
     """One causal pass over the prompt that also seeds the slot cache."""
 
-    def __init__(self, cache: SlotCache, mask, dtype):
-        super().__init__(mask, dtype)
+    def __init__(self, cache: SlotCache, mask, dtype, impl: str):
+        super().__init__(mask, dtype, impl)
         self.cache = cache
 
     def attend(self, layer, q, k, v):
@@ -342,22 +389,45 @@ class Gpt(nn.Module):
     def device(self) -> torch.device:
         return self.head.kernel.device
 
-    def _run(self, input_ids, positions, ctx):
+    def trainable(self) -> "Gpt":
+        """Make the f32 master weights trainable (train mode); returns
+        self. Serving keeps the frozen model the constructor builds."""
+        self.requires_grad_(True)
+        self.train()
+        return self
+
+    def _hidden(self, input_ids, positions, ctx, remat: bool = False):
+        """Embeddings → blocks → ln_final: f32 hidden states [B, S, D]."""
         x = (self.tok_emb(input_ids) + self.pos_emb(positions)).to(
             self.cfg.dtype
         )
         for i, block in enumerate(self.layers):
-            x = block(x, ctx, i)
-        x = self.ln_final(x)
+            if remat:
+                x = checkpoint(block, x, ctx, i, use_reentrant=False)
+            else:
+                x = block(x, ctx, i)
+        return self.ln_final(x)
+
+    def _run(self, input_ids, positions, ctx):
+        x = self._hidden(input_ids, positions, ctx)
         return self.head(x.to(self.cfg.dtype)).float()
 
-    def forward(self, input_ids, attention_mask=None):
+    def forward(self, input_ids, attention_mask=None, return_hidden=False):
         """Full causal pass → f32 logits [B, S, V]. `attention_mask`
-        [B, S] marks real tokens (None = no padding)."""
+        [B, S] marks real tokens (None = no padding, so the flash kernel
+        runs unmasked). `return_hidden=True` returns the post-LN f32
+        hidden states [B, S, D] instead (the chunked loss streams the
+        head itself). Under `cfg.remat` and grad mode every block is
+        recomputed in the backward."""
         s = input_ids.shape[1]
         mask = None if attention_mask is None else attention_mask.bool()
         positions = torch.arange(s, device=input_ids.device)[None, :]
-        return self._run(input_ids, positions, _Causal(mask, self.cfg.dtype))
+        ctx = _Causal(mask, self.cfg.dtype, self.cfg.attention_impl)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        x = self._hidden(input_ids, positions, ctx, remat=remat)
+        if return_hidden:
+            return x
+        return self.head(x.to(self.cfg.dtype)).float()
 
     def new_slot_cache(self, batch: int) -> SlotCache:
         cfg = self.cfg
@@ -388,7 +458,8 @@ class Gpt(nn.Module):
         cache.position = m.sum(1)
         cache.index = s
         logits = self._run(
-            input_ids, positions, _SlotPrefill(cache, mask, self.cfg.dtype)
+            input_ids, positions,
+            _SlotPrefill(cache, mask, self.cfg.dtype, self.cfg.attention_impl),
         )
         return logits, cache
 

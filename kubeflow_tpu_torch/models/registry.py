@@ -24,9 +24,10 @@ def _import_builtin_models() -> None:
 
 
 def get_model(name: str, **kwargs):
-    """Build registry model `name`. kwargs override config fields and
-    take `device` (default "cuda"; raises without CUDA unless "cpu")
-    and `seed` (the seeded init's torch.Generator seed)."""
+    """Build registry model `name`. kwargs override config fields (e.g.
+    `dtype`, `max_len`, `attention_impl`, `remat`, as the trainer passes
+    them) and take `device` (default "cuda"; raises without CUDA unless
+    "cpu") and `seed` (the seeded init's torch.Generator seed)."""
     _import_builtin_models()
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")

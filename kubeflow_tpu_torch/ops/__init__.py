@@ -1,2 +1,3 @@
-"""Attention ops: the dense core, the paged-KV helpers, and the paged
-attention kernels with their plain PyTorch versions."""
+"""Attention ops: the dense core, the paged-KV helpers, the paged
+attention kernels and the flash-attention forward and backward kernels,
+each with its plain PyTorch version."""

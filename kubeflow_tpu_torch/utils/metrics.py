@@ -171,11 +171,17 @@ class MetricsRegistry:
         return self._get_or_create(Gauge, name, help, label_names)
 
     def histogram(
-        self, name: str, help: str = "", label_names: Sequence[str] = ()
+        self,
+        name: str,
+        help: str = "",
+        label_names: Sequence[str] = (),
+        buckets: Sequence[float] = DEFAULT_BUCKETS,
     ) -> Histogram:
-        return self._get_or_create(Histogram, name, help, label_names)
+        return self._get_or_create(
+            Histogram, name, help, label_names, buckets=buckets
+        )
 
-    def _get_or_create(self, cls, name, help, label_names):
+    def _get_or_create(self, cls, name, help, label_names, **kwargs):
         with self._lock:
             existing = self._metrics.get(name)
             if existing is not None:
@@ -184,7 +190,7 @@ class MetricsRegistry:
                         f"{name} already registered as {existing.kind}"
                     )
                 return existing
-            m = cls(name, help, label_names)
+            m = cls(name, help, label_names, **kwargs)
             self._metrics[name] = m
             return m
 
@@ -201,3 +207,57 @@ _default_registry = MetricsRegistry()
 
 def default_registry() -> MetricsRegistry:
     return _default_registry
+
+
+# -- the training loop's series (Trainer.fit) ---------------------------------
+
+HOST_WAIT_BUCKETS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1, 2.5, 5, 10,
+)
+
+
+def training_step_histogram() -> Histogram:
+    """Steady-state train step wall time (first step fenced out)."""
+    return default_registry().histogram(
+        "training_step_seconds", "train step latency", ["model"]
+    )
+
+
+def training_items_gauge() -> Gauge:
+    """Items (tokens for an LM) per second over the last log window."""
+    return default_registry().gauge(
+        "training_items_per_sec", "items (images/tokens) per second",
+        ["model"],
+    )
+
+
+def host_wait_histogram() -> Histogram:
+    """Time `Trainer.fit` blocks on host input each step: making the
+    batch and enqueuing its copy to the device."""
+    return default_registry().histogram(
+        "training_host_wait_seconds",
+        "seconds the train loop blocked waiting on host input per step",
+        ["model"],
+        buckets=HOST_WAIT_BUCKETS,
+    )
+
+
+def training_mfu_gauge() -> Gauge:
+    """Model-FLOPs utilization of the train step: analytic model FLOPs
+    over step wall time over the card's peak (observability/mfu.py)."""
+    return default_registry().gauge(
+        "training_model_flops_utilization",
+        "train-step model-FLOPs utilization (achieved / per-chip peak)",
+        ["model"],
+    )
+
+
+def training_goodput_gauge() -> Gauge:
+    """Fraction of the training wall window spent feeding the device:
+    1 minus the host input-wait share per logging window."""
+    return default_registry().gauge(
+        "training_goodput",
+        "fraction of training wall time not lost to host-side overheads",
+        ["model"],
+    )

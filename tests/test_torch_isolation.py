@@ -90,6 +90,18 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
     eng = DecodeEngine("t", model, device="cpu", autostart=False)
     eng.close()
 
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    cfg = TrainingConfig(model="gpt_tiny", global_batch_size=2, steps=1,
+                         seq_len=16, dtype="float32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_training(cfg)
+    assert Trainer(cfg, device="cpu").device.type == "cpu"
+
 
 def test_chip_smoke_fails_without_cuda():
     if torch.cuda.is_available():
@@ -105,7 +117,7 @@ def test_chip_smoke_fails_without_cuda():
 def test_kernel_build_needs_nvcc_and_says_so(monkeypatch):
     from kubeflow_tpu_torch.native import build
 
-    assert build.kernel_sources() == ["paged_attention"]
+    assert build.kernel_sources() == ["flash_attention", "paged_attention"]
     monkeypatch.setenv("PATH", "")
     if os.path.exists("/usr/local/cuda/bin/nvcc"):
         pytest.skip("the CUDA toolkit is installed here")

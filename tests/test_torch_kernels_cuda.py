@@ -6,14 +6,36 @@ each skips where there is no CUDA device). No JAX here: on the card run
 Each kernel is held against its plain PyTorch version on the same inputs:
 atol 1e-5 in f32 (summation order), 2e-2 in bf16 (one bf16 ulp of a
 rounded score, probability or output element). End to end, the engine's
-greedy f32 tokens through the kernels equal `generate()` exactly."""
+greedy f32 tokens through the kernels equal `generate()` exactly.
+
+The flash-attention kernels (forward, dQ, dK/dV) are held against
+`flash_attention_reference` / `flash_attention_bwd_reference` by
+chip_smoke.py's phase-6 check (`flash_err`, FLASH_ATOL, FLASH_REL): f32
+o and lse atol 1e-5, gradients 1e-4 (summation order over up to 1024
+keys); bf16 lse 1e-3 (f32 from exact bf16 products: summation order
+only), and bf16 o, dq, dk and dv each row by row (one head's D values at
+one position): within 2e-2 of the larger of the row's own largest
+|value| and the tensor's median |value| — two bf16 ulps of the row's
+largest element, with margin (o and p rounded to bf16, p at the running
+rather than the final row max; dS and P rounded before their products)
+— or within the f32 tolerance. A row's scale is its own, so a late
+causal row with small values is held as tightly as an early one."""
+
+import importlib.util
+import os
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from kubeflow_tpu_torch.ops import flash_attention as tfa  # noqa: E402
 from kubeflow_tpu_torch.ops import paged_attention as tpa  # noqa: E402
+
+_spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "chip_smoke.py"))
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 pytestmark = pytest.mark.cuda
 
@@ -100,3 +122,91 @@ def test_engine_through_the_kernels_equals_generate(cuda):
     assert stats["attention_kernel"] == "kernel"
     assert tpa.launch_counts["paged_decode"] == 2 * stats["decode_steps"]
     assert tpa.launch_counts["paged_window"] > 0
+
+
+DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
+
+
+def _assert_rows_close(got, want, dtype, key, name=""):
+    """chip_smoke's phase-6 check (at s = 1, where dQ is 0 up to summation
+    order, the f32 tolerance floors each row's limit)."""
+    err, worst, _ = smoke.flash_err(torch, got, want, DTYPE_NAME[dtype], key)
+    assert worst <= 1.0, (f"{name}: a row's error is {worst:.3f} x its limit "
+                          f"(max abs err {err:.3e})")
+
+
+def _flash_case(dev, s, d, dtype, with_mask, seed=0):
+    """q/k/v/dO [2, s, 3, d] and, with a mask, row 0 valid up to ~2/3
+    of s and row 1 fully masked (zeros out, lse about -1e30)."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((2, s, 3, d), generator=g).to(dtype).to(dev)
+                   for _ in range(4))
+    mask = None
+    if with_mask:
+        mask = torch.zeros((2, s), dtype=torch.int32)
+        mask[0, : max(1, (2 * s) // 3)] = 1
+        mask = mask.to(dev)
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("with_mask", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", [1, 63, 128, 257, 1024])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_match_plain_versions(cuda, dtype, d, s, causal,
+                                            with_mask):
+    q, k, v, do, mask = _flash_case(cuda, s, d, dtype, with_mask)
+    tol = smoke.FLASH_ATOL[DTYPE_NAME[dtype]]
+    scale = tfa.default_scale(d)
+    tfa.reset_launch_counts()
+    o, lse = tfa.flash_fwd(q, k, v, mask, causal, scale)
+    torch.cuda.synchronize()
+    ro, rlse = tfa.flash_attention_reference(q, k, v, mask, causal, scale)
+    _assert_rows_close(o, ro, dtype, "o", "o")
+    torch.testing.assert_close(lse, rlse, atol=tol["lse"], rtol=0)
+    # the backward from the reference's (o, lse): both sides then see the
+    # same inputs
+    got = tfa.flash_bwd(q, k, v, mask, ro, rlse, do, None, causal, scale)
+    torch.cuda.synchronize()
+    want = tfa.flash_attention_bwd_reference(q, k, v, mask, ro, rlse, do,
+                                             None, causal, scale)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        _assert_rows_close(g_, w_, dtype, "grad", name)
+    assert tfa.launch_counts == {"flash_fwd": 1, "flash_bwd_dq": 1,
+                                 "flash_bwd_dkv": 1}
+    if with_mask:
+        assert not o[1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_autograd_with_lse_cotangent_matches_plain(cuda, dtype):
+    """flash_attention(return_lse=True) end to end: the lse cotangent
+    folds into delta on the kernels' side as in the plain formulas."""
+    q, k, v, do, mask = _flash_case(cuda, 200, 64, dtype, True, seed=3)
+    qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
+    o, lse = tfa.flash_attention(qs, ks, vs, mask=mask, causal=True,
+                                 return_lse=True)
+    dlse = torch.randn(lse.shape, generator=torch.Generator().manual_seed(4)
+                       ).to(cuda)
+    torch.autograd.backward((o, lse), (do, dlse))
+    torch.cuda.synchronize()
+    ro, rlse = tfa.flash_attention_reference(q, k, v, mask, True)
+    want = tfa.flash_attention_bwd_reference(q, k, v, mask, ro, rlse, do,
+                                             dlse, True)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), (qs.grad, ks.grad, vs.grad),
+                            want):
+        _assert_rows_close(g_, w_, dtype, "grad", name)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, do, mask = _flash_case(cuda, 64, 64, torch.float32, True)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                      v[..., :48].contiguous(), None, True, 0.1)
+    with pytest.raises(ValueError, match="int32"):
+        tfa.flash_fwd(q, k, v, mask.long(), True, 0.1)
+    with pytest.raises(ValueError, match="dtype"):
+        tfa.flash_fwd(q.half(), k.half(), v.half(), None, True, 0.1)
