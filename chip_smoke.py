@@ -45,6 +45,23 @@ Phases (any failure raises and the script exits non-zero):
    AdamW lr 3e-4, wd 0.1) with attention_impl="flash", 6 steps: every
    loss finite, launch counts equal to the config's formula; the steady
    step is steps 2-6's wall time over 5, with one host sync at their end.
+9. int8 kernels vs plain: the int8 variants of both paged kernels
+   (int8 pools from `quantize_kv` of phase 3's seeded pools, bf16
+   scales) against their plain version (gather, `dequant_kv`, dense
+   core) at phase 3's calls, bf16 and f32 compute; the library yardstick
+   is gather + `dequant_kv` + scaled_dot_product_attention, and the
+   bound counts D + 2 bytes per live K and V vector.
+10. Serve int8 (the int8 main path): gpt_small with quantize="int8"
+   (int8 weights dequantized at use, int8 KV pages). f32: phase 4's two
+   greedy prompts through the int8 kernels and through gather +
+   `dequant_kv` must give the same tokens. bf16: phase 5's traffic; every
+   reply 200, every emitted token's f32 teacher-forced logit within
+   DELTA of its position's max under the f32 model of the same int8
+   weights; only the int8 kernels launch, the window kernel once per
+   layer for each of MAIN_WINDOWS; the auto-sized pool holds the int8
+   capacity ratio times phase 5's pages in no more bytes; and
+   `quantization_accuracy` of gpt_small (bf16 and f32, a seeded batch)
+   stays within the JAX package's pinned limits (ACCURACY).
 
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
@@ -101,6 +118,10 @@ TRAIN_LOSS_REL, TRAIN_UPDATE_REL = 1e-5, 1e-4
 TRAIN_LEAVES = ("layers.0.attention.query.kernel",
                 "layers.1.attention.key.kernel", "layers.1.mlp_wi.kernel",
                 "head.kernel")
+# the JAX package's pinned int8 accuracy gate (tests/test_quantize.py):
+# logit max-abs-err and held-out next-token loss delta of the dequantized
+# model against the full-width one
+ACCURACY = {"logit_max_abs_err": 0.25, "loss_delta": 0.02}
 # the training main path: configs/gpt_longcontext_v5e16.yaml at one card's
 # share (each of its 16 chips holds 2 sequences x 4096 positions a
 # microbatch)
@@ -159,12 +180,14 @@ def kernel_inputs(torch, dtype, s, dev, cursors=CURSORS, seed=0):
     return [t.to(dev) for t in (q, pool_k, pool_v, table, cursors)]
 
 
-def work_bounds(cursors, itemsize, s):
-    """(bytes, ops) this call needs: each live K/V vector read once, the
+def work_bounds(cursors, itemsize, s, quantized=False):
+    """(bytes, ops) this call needs: each live K/V vector read once (D
+    elements of `itemsize`, or D int8 values and a 2-byte scale), the
     live rows' q read once, every output row written once, the live
     pages' table entries and the cursors read; 4 ops per live (query
-    row, key, element) — QK^T and PV. A parked row (cursor past the
-    window) needs only its output written."""
+    row, key, element) — QK^T and PV — plus, in int8, one dequant
+    multiply per live K/V element. A parked row (cursor past the window)
+    needs only its output written."""
     view_len = MP * PS
     kv_keys, pairs, live_rows, pages = 0, 0, 0, 0
     for cur in cursors:
@@ -175,15 +198,17 @@ def work_bounds(cursors, itemsize, s):
         pages += -(-n // PS)
         pairs += sum(min(cur + j, view_len - 1) + 1 for j in range(s))
         live_rows += 1
-    nbytes = (2 * kv_keys + (live_rows + len(cursors)) * s) * H * D * itemsize
+    vector_bytes = D + 2 if quantized else D * itemsize
+    nbytes = 2 * kv_keys * H * vector_bytes
+    nbytes += (live_rows + len(cursors)) * s * H * D * itemsize
     nbytes += 4 * (pages + len(cursors))
-    ops = 4 * pairs * H * D
+    ops = 4 * pairs * H * D + (2 * kv_keys * H * D if quantized else 0)
     return nbytes, ops
 
 
-def bound_of(name, cursors, itemsize, s):
+def bound_of(name, cursors, itemsize, s, quantized=False):
     """(bound_ms, bound_by, bytes, ops) of one call on the H100."""
-    nbytes, ops = work_bounds(cursors, itemsize, s)
+    nbytes, ops = work_bounds(cursors, itemsize, s, quantized)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[name] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
@@ -211,14 +236,19 @@ def time_ms(torch, fn, flush, iters=30, warmup=3):
     return statistics.median(times)
 
 
-def library_attention(torch, q, pool_k, pool_v, table, cursors):
-    """gather + torch's scaled_dot_product_attention: a yardstick timed
-    beside the kernels, never called by the port."""
-    from kubeflow_tpu_torch.ops.attention import paged_kv_view
+def library_attention(torch, q, pool_k, pool_v, table, cursors, k_scale=None,
+                      v_scale=None):
+    """gather (+ `dequant_kv` of an int8 pool) + torch's
+    scaled_dot_product_attention: a yardstick timed beside the kernels,
+    never called by the port."""
+    from kubeflow_tpu_torch.ops.attention import dequant_kv, paged_kv_view
 
     s = q.shape[1]
-    k = paged_kv_view(pool_k, table).transpose(1, 2)
-    v = paged_kv_view(pool_v, table).transpose(1, 2)
+    k, v = paged_kv_view(pool_k, table), paged_kv_view(pool_v, table)
+    if k_scale is not None:
+        k = dequant_kv(k, paged_kv_view(k_scale, table), q.dtype)
+        v = dequant_kv(v, paged_kv_view(v_scale, table), q.dtype)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
     q_pos = cursors.long()[:, None] + torch.arange(s, device=q.device)
     mask = torch.arange(k.shape[2], device=q.device)[None, None, :] <= q_pos[:, :, None]
     return torch.nn.functional.scaled_dot_product_attention(
@@ -226,16 +256,24 @@ def library_attention(torch, q, pool_k, pool_v, table, cursors):
     ).transpose(1, 2)
 
 
-def measure(torch, pa, flush, dtype, s, cursors):
+def measure(torch, pa, flush, dtype, s, cursors, quantized=False):
     """One kernel call at (s, cursors) against its plain version (every
     row, parked ones included: both write zeros there) and the library
-    yardstick (live rows), then their times and the call's bound."""
+    yardstick (live rows), then their times and the call's bound. With
+    `quantized`, the pools are `quantize_kv` of the same seeded pools and
+    the call reads them through the kernel's int8 variant."""
+    from kubeflow_tpu_torch.ops.attention import quantize_kv
+
     name = str(dtype).replace("torch.", "")
-    kname = pa.kernel_name(s)
+    kname = pa.kernel_name(s, quantized)
     args = kernel_inputs(torch, dtype, s, "cuda", cursors=cursors)
-    out = pa.paged_attention(*args, dtype=dtype)
-    ref = pa.paged_attention_reference(*args, dtype=dtype)
-    lib = library_attention(torch, *args)
+    kw = {}
+    if quantized:
+        (args[1], ks), (args[2], vs) = quantize_kv(args[1]), quantize_kv(args[2])
+        kw = {"k_scale": ks, "v_scale": vs}
+    out = pa.paged_attention(*args, dtype=dtype, **kw)
+    ref = pa.paged_attention_reference(*args, dtype=dtype, **kw)
+    lib = library_attention(torch, *args, **kw)
     torch.cuda.synchronize()
     live = args[4] < MP * PS
     err = (out.float() - ref.float()).abs().max().item()
@@ -246,21 +284,27 @@ def measure(torch, pa, flush, dtype, s, cursors):
     if not err <= ATOL[name]:
         raise AssertionError(f"{label} disagrees with its plain version: "
                              f"{err} > {ATOL[name]}")
-    ms = time_ms(torch, lambda: pa.paged_attention(*args, dtype=dtype), flush)
+    ms = time_ms(torch, lambda: pa.paged_attention(*args, dtype=dtype, **kw),
+                 flush)
     plain_ms = time_ms(
-        torch, lambda: pa.paged_attention_reference(*args, dtype=dtype), flush
+        torch, lambda: pa.paged_attention_reference(*args, dtype=dtype, **kw),
+        flush,
     )
-    library_ms = time_ms(torch, lambda: library_attention(torch, *args), flush)
-    bound_ms, bound_by, nbytes, ops = bound_of(name, cursors, args[0].element_size(), s)
+    library_ms = time_ms(torch, lambda: library_attention(torch, *args, **kw),
+                         flush)
+    bound_ms, bound_by, nbytes, ops = bound_of(
+        name, cursors, args[0].element_size(), s, quantized
+    )
     print(f"{label}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
           f"{library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes} B, "
           f"{ops} ops)", flush=True)
     return {
         "name": kname, "route": "cuda",
         "source": "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": (
-            "kubeflow_tpu/ops/paged_attention.py:71" if s == 1
-            else "kubeflow_tpu/ops/paged_attention.py:143"
+        # the kernel function, or its quantized branch's dequant
+        "replaces": "kubeflow_tpu/ops/paged_attention.py:" + (
+            ("106" if s == 1 else "184") if quantized
+            else ("71" if s == 1 else "143")
         ),
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
@@ -270,10 +314,11 @@ def measure(torch, pa, flush, dtype, s, cursors):
     }
 
 
-def phase_kernels(torch):
-    """Each kernel against its plain version: at the 8-slot decode shape
-    and an 8-slot window (ragged cursors, a parked row) in both dtypes,
-    and at the batch-1 windows the main path gives the window kernel."""
+def phase_kernels(torch, quantized=False):
+    """Each kernel (its int8 variant when `quantized`: phase 9) against
+    its plain version: at the 8-slot decode shape and an 8-slot window
+    (ragged cursors, a parked row) in both dtypes, and at the batch-1
+    windows the main path gives the window kernel."""
     from kubeflow_tpu_torch.ops import paged_attention as pa
 
     flush = torch.empty(2 << 30, dtype=torch.uint8, device="cuda")
@@ -282,12 +327,13 @@ def phase_kernels(torch):
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
         for s in (1, CHUNK):
-            rec = measure(torch, pa, flush, dtype, s, CURSORS)
+            rec = measure(torch, pa, flush, dtype, s, CURSORS, quantized)
             records[(rec["name"], rec["dtype"], "B8")] = rec
     # the main path's window calls (bf16, batch 1): each distinct cursor
-    # measured once, then averaged over the calls phase 5 makes
+    # measured once, then averaged over the calls phase 5 (10) makes
+    window = pa.kernel_name(CHUNK, quantized)
     per_cursor = {
-        c: measure(torch, pa, flush, torch.bfloat16, CHUNK, (c,))
+        c: measure(torch, pa, flush, torch.bfloat16, CHUNK, (c,), quantized)
         for c in sorted(set(MAIN_WINDOWS))
     }
     calls = [per_cursor[c] for c in MAIN_WINDOWS]
@@ -304,11 +350,11 @@ def phase_kernels(torch):
     main["shape"] = (f"B=1 s={CHUNK} H={H} D={D} ps={PS} MP={MP} "
                      f"P={NUM_PAGES}; mean over the main path's windows at "
                      f"cursors {list(MAIN_WINDOWS)}")
-    print(f"kernel paged_window bf16 main-path windows (mean of "
+    print(f"kernel {window} bf16 main-path windows (mean of "
           f"{len(calls)} calls): ms {main['ms']:.4f} plain_ms "
           f"{main['plain_ms']:.4f} library_ms {main['library_ms']:.4f} "
           f"bound_ms {main['bound_ms']:.5f} ({main['bound_by']})", flush=True)
-    records[("paged_window", "bfloat16", "main")] = main
+    records[(window, "bfloat16", "main")] = main
     del flush
     return records
 
@@ -331,12 +377,12 @@ def get(port, path):
         return resp.status, resp.read()
 
 
-def serve(model, dtype, device, **knobs):
+def serve(model, dtype, device, paged_attention="kernel", **knobs):
     from kubeflow_tpu_torch.api.wsgi import Server
     from kubeflow_tpu_torch.serving.main import build_server
 
     ms = build_server(model, device=device, dtype=dtype,
-                      paged_attention="kernel", **knobs)
+                      paged_attention=paged_attention, **knobs)
     httpd = Server(ms.app, port=0)
     httpd.start()
     return ms, httpd
@@ -396,11 +442,16 @@ def rescore(torch, f32_model, prompt, tokens):
 
 def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
                      short=(5, 17, 33, 64, 120), long_len=LONG_LEN,
-                     hit_len=HIT_LEN, max_new=32, buckets=BUCKETS):
+                     hit_len=HIT_LEN, max_new=32, buckets=BUCKETS,
+                     quantize="none"):
+    """Phase 5 (phase 10's bf16 half with quantize="int8"): `f32_model`
+    rescores every emitted token."""
     from kubeflow_tpu_torch.ops import paged_attention as pa
 
     os.environ["KFT_SERVING_PREFILL_BUCKETS"] = buckets
-    ms, httpd = serve(model, torch.bfloat16, device, num_slots=8, page_size=16)
+    ms, httpd = serve(model, torch.bfloat16, device, num_slots=8, page_size=16,
+                      quantize=quantize)
+    tag = "bf16" if quantize == "none" else f"{quantize} bf16"
     try:
         vocab = f32_model.cfg.vocab_size
         rng = np.random.default_rng(2)
@@ -419,7 +470,7 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         status, _ = post(httpd.port, model, {"prompt_ids": [warm],
                                              "max_new_tokens": 2})
         if status != 200:
-            raise AssertionError(f"bf16 warm-up answered {status}")
+            raise AssertionError(f"{tag} warm-up answered {status}")
         before = ms.engine(model).stats()
         if device == "cuda":
             torch.cuda.synchronize()
@@ -448,7 +499,7 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         worst = 0.0
         for prompt, res in zip(prompts, results):
             if res is None or res[0] != 200:
-                raise AssertionError(f"bf16 :generate failed: {res}")
+                raise AssertionError(f"{tag} :generate failed: {res}")
             tokens = res[1]["sequences"][0][len(prompt):]
             if len(tokens) != max_new:
                 raise AssertionError(f"expected {max_new} tokens, got {len(tokens)}")
@@ -460,13 +511,13 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         if status != 200 or b"serving_decode_steps_total" not in body:
             raise AssertionError("/metrics lacks the engine's series")
         gen_tokens = max_new * (len(prompts) - 1)
-        print(f"serve bf16: {len(results)} requests answered 200; "
+        print(f"serve {tag}: {len(results)} requests answered 200; "
               f"{gen_tokens} tokens in {wall:.3f} s of concurrent load = "
               f"{gen_tokens / wall:.1f} tokens/s; decode_step_ms "
               f"{step_ms:.3f} over {steps} steps; "
               f"max_memory_allocated {peak} B", flush=True)
-        print(f"serve bf16: stats {json.dumps(stats)}", flush=True)
-        print(f"serve bf16: launches {launches}; worst f32 logit gap of an "
+        print(f"serve {tag}: stats {json.dumps(stats)}", flush=True)
+        print(f"serve {tag}: launches {launches}; worst f32 logit gap of an "
               f"emitted token {worst:.4f} (delta {DELTA})", flush=True)
         if stats["cow_copies"] < 1 or stats["prefix_hit_tokens"] < 1:
             raise AssertionError("the repeated prompt did not hit the prefix cache")
@@ -480,6 +531,107 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         os.environ.pop("KFT_SERVING_PREFILL_BUCKETS", None)
         httpd.stop()
         ms.close()
+
+
+def phase_serve_int8(torch, bf16_stats, model="gpt_small", device="cuda",
+                     f32_prompts=(12, 37), f32_max_new=16,
+                     accuracy_shape=(4, 256), **traffic):
+    """Phase 10: int8 serving (int8 weights, int8 KV pages). f32: the
+    same greedy requests through the int8 kernels and through gather +
+    dequant_kv must give the same tokens (phase 4's requests:
+    `f32_prompts`, `f32_max_new`). bf16: phase 5's traffic
+    (`traffic` overrides it, as for phase_serve_bf16), rescored by the f32
+    model of the same int8 weights; the pool must hold the int8 capacity
+    ratio times phase 5's pages (`bf16_stats`) in no more bytes; then the
+    accuracy gate. Returns the bf16 run's (launches, stats, steps)."""
+    from kubeflow_tpu_torch.checkpointing.quantize import (
+        quantization_accuracy,
+        quantize_params_int8,
+    )
+    from kubeflow_tpu_torch.models.gpt import int8_model
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serving.engine import (
+        auto_num_pages,
+        int8_page_capacity_ratio,
+    )
+
+    tokens = {}
+    for impl in ("kernel", "gather"):
+        ms, httpd = serve(model, torch.float32, device, paged_attention=impl,
+                          num_slots=8, page_size=16, quantize="int8")
+        try:
+            rng = np.random.default_rng(1)
+            f32_full = ms.lm(model).model  # the ServedLm stays full width
+            eng = ms.engine(model)
+            pa.reset_launch_counts()
+            tokens[impl] = []
+            for n in f32_prompts:
+                prompt = rng.integers(0, f32_full.cfg.vocab_size, n).tolist()
+                status, out = post(httpd.port, model, {
+                    "prompt_ids": [prompt], "max_new_tokens": f32_max_new})
+                if status != 200:
+                    raise AssertionError(f"int8 f32 :generate answered {status}: {out}")
+                tokens[impl].append(out["sequences"][0][n:])
+            launches = dict(pa.launch_counts)
+            stats = eng.stats()
+            weights = (eng.model.weight_bytes(), f32_full.weight_bytes())
+        finally:
+            httpd.stop()
+            ms.close()
+        print(f"serve int8 f32 {impl}: tokens {tokens[impl]}; launches "
+              f"{launches}; resident weights {weights[0]} B int8 against "
+              f"{weights[1]} B f32", flush=True)
+        if (stats["kv_pool_dtype"], stats["quantize"]) != ("int8", "int8"):
+            raise AssertionError(f"the int8 engine's pool is not int8: {stats}")
+        if (device == "cuda" and impl == "kernel"
+                and (launches["paged_decode_int8"] < 1
+                     or launches["paged_decode"] + launches["paged_window"])):
+            raise AssertionError(f"the int8 f32 serve did not read through the "
+                                 f"int8 decode kernel alone: {launches}")
+    if tokens["kernel"] != tokens["gather"]:
+        raise AssertionError(f"int8 f32 kernel tokens {tokens['kernel']} differ "
+                             f"from gather's {tokens['gather']}")
+    print("serve int8 f32: kernel tokens equal gather + dequant_kv tokens",
+          flush=True)
+
+    # the f32 model of the int8 weights: dequantized (into f32) at each use
+    f32_int8 = int8_model(f32_full)
+    launches, stats, steps = phase_serve_bf16(
+        torch, f32_int8, model=model, device=device, quantize="int8", **traffic
+    )
+    cfg = f32_full.cfg
+    ratio = int8_page_capacity_ratio(cfg.hidden_size // cfg.num_heads, 2)
+    want_pages = int(auto_num_pages(8, cfg.max_len, 16) * ratio)
+    print(f"serve int8 bf16: {stats['pages_total']} pool pages in "
+          f"{stats['kv_pool_bytes']} B (int8 capacity ratio {ratio:.4f} x "
+          f"phase 5's {bf16_stats['pages_total']} pages in "
+          f"{bf16_stats['kv_pool_bytes']} B)", flush=True)
+    if stats["kv_pool_dtype"] != "int8" or stats["pages_total"] != want_pages:
+        raise AssertionError(f"int8 pool: {stats['kv_pool_dtype']} with "
+                             f"{stats['pages_total']} pages, not {want_pages}")
+    if stats["kv_pool_bytes"] > bf16_stats["kv_pool_bytes"]:
+        raise AssertionError("the int8 pool takes more bytes than phase 5's")
+    if device == "cuda" and (launches["paged_decode"] or launches["paged_window"]
+                             or launches["paged_decode_int8"] < 1):
+        raise AssertionError(f"int8 serving launched a full-width kernel or "
+                             f"no int8 decode kernel: {launches}")
+
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, accuracy_shape)).to(device)
+    del f32_int8
+    for dtype, full in ((torch.bfloat16, get_model(model, device=device,
+                                                   dtype=torch.bfloat16)),
+                        (torch.float32, f32_full)):
+        params = full.state_dict()
+        acc = quantization_accuracy(full, params, quantize_params_int8(params), ids)
+        print(f"int8 accuracy {str(dtype)[6:]} over {list(accuracy_shape)} "
+              f"held-out tokens: {json.dumps(acc)} (limits {json.dumps(ACCURACY)})",
+              flush=True)
+        if not all(acc[k] <= ACCURACY[k] for k in ACCURACY):
+            raise AssertionError(f"int8 accuracy {acc} above {ACCURACY}")
+        del full, params
+    return launches, stats, steps
 
 
 def flash_case(torch, dtype, s, with_mask, dev="cuda", seed=0):
@@ -772,7 +924,7 @@ def main() -> int:
 
     records = phase_kernels(torch)
     f32_model = phase_serve_f32(torch)
-    launches, _, steps = phase_serve_bf16(torch, f32_model)
+    launches, bf16_stats, steps = phase_serve_bf16(torch, f32_model)
     layers = f32_model.cfg.num_layers
     del f32_model
     print(f"launches per decode step: "
@@ -805,6 +957,26 @@ def main() -> int:
         rec["launches"] = train_launches[kname]
         if rec["launches"] < 1:
             raise AssertionError(f"the training main path never launched {kname}")
+        kernels.append(rec)
+    torch.cuda.empty_cache()
+
+    int8_records = phase_kernels(torch, quantized=True)
+    int8_launches, _, int8_steps = phase_serve_int8(torch, bf16_stats)
+    print(f"int8 launches per decode step: "
+          f"{int8_launches['paged_decode_int8'] / max(int8_steps, 1):.2f} "
+          f"(one per layer, {layers})", flush=True)
+    if int8_launches["paged_window_int8"] != len(MAIN_WINDOWS) * layers:
+        raise AssertionError(
+            f"the int8 path made {int8_launches['paged_window_int8']} window "
+            f"launches, not the {len(MAIN_WINDOWS)} windows x {layers} layers "
+            f"that phase 9 measured"
+        )
+    for key in (("paged_decode_int8", "bfloat16", "B8"),
+                ("paged_window_int8", "bfloat16", "main")):
+        rec = dict(int8_records[key])
+        rec["launches"] = int8_launches[key[0]]
+        if rec["launches"] < 1:
+            raise AssertionError(f"the int8 main path never launched {key[0]}")
         kernels.append(rec)
     print(smi)
     print(json.dumps({"kernels": kernels}))

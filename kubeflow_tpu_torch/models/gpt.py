@@ -21,9 +21,20 @@ Three forward paths, mirroring the JAX module's three branches:
 - `paged_forward`: the continuous-batching engine's block-paged pool
   (`KVPool` + `PagedState`). Writes scatter through the page table, the
   read either gathers a per-slot view (`attn_impl="gather"`) or walks the
-  table in place through the CUDA kernel (`attn_impl="kernel"`).
+  table in place through the CUDA kernel (`attn_impl="kernel"`). An int8
+  pool (`make_paged_pool(..., kv_quant="int8")`) stores int8 values plus
+  one bf16 scale per written vector: writes quantize (`quantize_kv`),
+  reads dequantize (`dequant_kv` on the gathered view, or fused into the
+  kernels' page walk).
 
 Caches are updated IN PLACE (the JAX programs donate and replace them).
+
+`int8_model` builds the int8 serving model (`serving.quantize=int8`):
+every quantized leaf is held as an int8 buffer plus an f32 per-channel
+scale buffer and dequantized at its point of use with
+`dequantize_params`' arithmetic. The JAX engine dequantizes the whole
+tree at program entry; dequantizing each leaf where it is used gives
+the same bits and keeps the resident weights int8.
 
 A model is built frozen, for serving (`requires_grad_(False)`, eval
 mode). `trainable()` turns the f32 master weights trainable: every module
@@ -42,18 +53,25 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from kubeflow_tpu_torch.checkpointing.quantize import (
+    dequantize_leaf,
+    quantize_params_int8,
+)
 from kubeflow_tpu_torch.models.registry import register_model
 from kubeflow_tpu_torch.ops.attention import (
     dense_attention,
+    dequant_kv,
     paged_kv_view,
     paged_write,
     paged_write_index,
+    quantize_kv,
 )
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.paged_attention import paged_attention
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
 PAGED_ATTENTION_IMPLS = ("gather", "kernel")
+QUANTIZE_CHOICES = ("none", "int8")
 GPT_ATTENTION_IMPLS = ("dense", "flash")
 # the JAX package's other full-causal impls, and what they wait for
 _UNPORTED_IMPLS = {
@@ -125,14 +143,31 @@ class SlotCache:
 @dataclasses.dataclass
 class KVPool:
     """The engine's block-paged K/V pool: k/v [L, num_pages, page_size,
-    H, D] in the compute dtype (the JAX scan-layers pool layout)."""
+    H, D] in the compute dtype (the JAX scan-layers pool layout), or int8
+    with bf16 scales k_scale/v_scale [L, num_pages, page_size, H, 1] (the
+    JAX `cached_*_scale` leaves)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def page_size(self) -> int:
         return self.k.shape[2]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def tensors(self):
+        """Every pool tensor: values, then scales when int8."""
+        return [t for t in (self.k, self.v, self.k_scale, self.v_scale)
+                if t is not None]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.tensors())
 
 
 @dataclasses.dataclass
@@ -244,19 +279,47 @@ class _Paged:
                 self.visible = ar[None, None, :] <= q_pos[:, :, None]
 
     def attend(self, layer, q, k, v):
-        pk, pv = self.pool.k[layer], self.pool.v[layer]
+        pool = self.pool
+        pk, pv = pool.k[layer], pool.v[layer]
         pt, idx = self.paged.page_table, self.paged.cache_index
+        ks = vs = None
+        if pool.quantized:
+            # quantize the s new vectors at write; values and scales go
+            # through the same page-table routing
+            ks, vs = pool.k_scale[layer], pool.v_scale[layer]
+            (k, k_sc), (v, v_sc) = quantize_kv(k), quantize_kv(v)
+            paged_write(ks, k_sc, self.write_index)
+            paged_write(vs, v_sc, self.write_index)
         paged_write(pk, k, self.write_index)
         paged_write(pv, v, self.write_index)
         if self.visible is None:
-            return paged_attention(q, pk, pv, pt, idx, dtype=self.dtype)
+            return paged_attention(q, pk, pv, pt, idx, dtype=self.dtype,
+                                   k_scale=ks, v_scale=vs)
+        k_view, v_view = paged_kv_view(pk, pt), paged_kv_view(pv, pt)
+        if pool.quantized:
+            k_view = dequant_kv(k_view, paged_kv_view(ks, pt), self.dtype)
+            v_view = dequant_kv(v_view, paged_kv_view(vs, pt), self.dtype)
         return dense_attention(
-            q, paged_kv_view(pk, pt), paged_kv_view(pv, pt),
-            mask=self.visible, dtype=self.dtype, causal=False,
+            q, k_view, v_view, mask=self.visible, dtype=self.dtype,
+            causal=False,
         )
 
 
 # -- modules -------------------------------------------------------------------
+
+# suffix of the f32 per-channel scale buffer beside an int8 leaf
+_QSCALE = "_qscale"
+
+
+def _at_use(module: nn.Module, name: str, dtype) -> torch.Tensor:
+    """Leaf `name` of `module` as its point of use reads it: the stored
+    tensor (f32 at rest; the caller casts as before), or on an int8 model
+    the int8 leaf dequantized into the compute dtype with
+    `dequantize_params`' arithmetic."""
+    leaf = getattr(module, name)
+    scale = module._buffers.get(name + _QSCALE)
+    return leaf if scale is None else dequantize_leaf(leaf, scale, dtype)
+
 
 
 class _Dense(nn.Module):
@@ -277,21 +340,25 @@ class _Dense(nn.Module):
     def forward(self, x):
         n_in = len(self.in_shape)
         lead = x.shape[: x.dim() - n_in]
-        w = self.kernel.to(self.dtype).reshape(
+        w = _at_use(self, "kernel", self.dtype).to(self.dtype).reshape(
             math.prod(self.in_shape), math.prod(self.out_shape)
         )
         y = (x.reshape(lead + (-1,)) @ w).reshape(lead + self.out_shape)
         if self.bias is not None:
-            y = y + self.bias.to(self.dtype)
+            y = y + _at_use(self, "bias", self.dtype).to(self.dtype)
         return y
 
 
 class _LayerNorm(nn.Module):
     """flax LayerNorm(dtype=float32): epsilon 1e-6, statistics in f32 by
-    the fast variance (E[x^2] - E[x]^2, floored at 0), f32 output."""
+    the fast variance (E[x^2] - E[x]^2, floored at 0), f32 output. Its
+    leaves are quantized only when an int8 envelope from the JAX
+    package's scan-stacked layout brings them (there they are [L, D]);
+    dequantized into `dtype`, they enter the f32 math exactly."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.empty(dim))
         self.bias = nn.Parameter(torch.empty(dim))
 
@@ -299,7 +366,9 @@ class _LayerNorm(nn.Module):
         x = x.float()
         mean = x.mean(-1, keepdim=True)
         var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        return (x - mean) * (torch.rsqrt(var + 1e-6) * self.scale) + self.bias
+        scale = _at_use(self, "scale", self.dtype).float()
+        bias = _at_use(self, "bias", self.dtype).float()
+        return (x - mean) * (torch.rsqrt(var + 1e-6) * scale) + bias
 
 
 class _Embed(nn.Module):
@@ -309,6 +378,11 @@ class _Embed(nn.Module):
         self.embedding = nn.Parameter(torch.empty(num, dim))
 
     def forward(self, ids):
+        scale = self._buffers.get("embedding" + _QSCALE)
+        if scale is not None:
+            # gather the int8 rows, then dequantize: the scale is per
+            # column, so this is the dequantized table's gather, bit for bit
+            return dequantize_leaf(self.embedding[ids], scale, self.dtype)
         # gather then cast == flax's cast-table-then-gather, bit for bit
         return F.embedding(ids, self.embedding).to(self.dtype)
 
@@ -333,9 +407,9 @@ class DecoderBlock(nn.Module):
     def __init__(self, cfg: GptConfig):
         super().__init__()
         self.dtype = cfg.dtype
-        self.ln_att = _LayerNorm(cfg.hidden_size)
+        self.ln_att = _LayerNorm(cfg.hidden_size, cfg.dtype)
         self.attention = CausalSelfAttention(cfg)
-        self.ln_mlp = _LayerNorm(cfg.hidden_size)
+        self.ln_mlp = _LayerNorm(cfg.hidden_size, cfg.dtype)
         self.mlp_wi = _Dense((cfg.hidden_size,), (cfg.mlp_dim,), cfg.dtype)
         self.mlp_wo = _Dense((cfg.mlp_dim,), (cfg.hidden_size,), cfg.dtype)
 
@@ -376,11 +450,14 @@ class Gpt(nn.Module):
         self.layers = nn.ModuleList(
             DecoderBlock(cfg) for _ in range(cfg.num_layers)
         )
-        self.ln_final = _LayerNorm(cfg.hidden_size)
+        self.ln_final = _LayerNorm(cfg.hidden_size, cfg.dtype)
         self.head = _Dense(
             (cfg.hidden_size,), (cfg.vocab_size,), cfg.dtype, use_bias=False
         )
-        init_params(self, seed)
+        # "int8" once `int8_model` has loaded an envelope
+        self.quantize = "none"
+        if dev.type != "meta":  # a meta model has shapes only
+            init_params(self, seed)
         self.to(dev)
         self.requires_grad_(False)
         self.eval()
@@ -388,6 +465,11 @@ class Gpt(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.head.kernel.device
+
+    def weight_bytes(self) -> int:
+        """Bytes of the resident weights (parameters and int8 buffers)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.state_dict().values())
 
     def trainable(self) -> "Gpt":
         """Make the f32 master weights trainable (train mode); returns
@@ -495,13 +577,25 @@ class Gpt(nn.Module):
 
 
 def make_paged_pool(cfg: GptConfig, num_pages: int, page_size: int,
-                    device) -> KVPool:
-    """Zeroed K/V pool [L, num_pages, page_size, H, D] per side."""
+                    device, kv_quant: str = "none") -> KVPool:
+    """Zeroed K/V pool [L, num_pages, page_size, H, D] per side, in the
+    compute dtype; `kv_quant="int8"` stores int8 values plus zeroed bf16
+    scales [L, num_pages, page_size, H, 1] per side."""
+    if kv_quant not in QUANTIZE_CHOICES:
+        raise ValueError(f"kv_quant {kv_quant!r} not in {QUANTIZE_CHOICES}")
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_heads,
              cfg.head_dim)
+    if kv_quant == "none":
+        return KVPool(
+            k=torch.zeros(shape, dtype=cfg.dtype, device=device),
+            v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        )
+    scale_shape = shape[:-1] + (1,)
     return KVPool(
-        k=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        v=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        k=torch.zeros(shape, dtype=torch.int8, device=device),
+        v=torch.zeros(shape, dtype=torch.int8, device=device),
+        k_scale=torch.zeros(scale_shape, dtype=torch.bfloat16, device=device),
+        v_scale=torch.zeros(scale_shape, dtype=torch.bfloat16, device=device),
     )
 
 
@@ -510,7 +604,9 @@ def insert_pages(pool: KVPool, cache_one: SlotCache, page_ids, real_len: int):
     pool pages `page_ids` (in place): cache rows [c*ps, (c+1)*ps) land
     on page page_ids[c] for every chunk holding at least one real row.
     Pad rows inside the last chunk land past the cursor, stay invisible,
-    and are overwritten by decode."""
+    and are overwritten by decode. An int8 pool gets the copied rows
+    quantized (JAX `quantize_kv_cache`; quantization is per vector, so
+    quantizing only these rows gives the bits of quantizing all)."""
     ps = pool.page_size
     n = -(-int(real_len) // ps)
     ids = torch.as_tensor(
@@ -518,18 +614,63 @@ def insert_pages(pool: KVPool, cache_one: SlotCache, page_ids, real_len: int):
         device=pool.k.device,
     )
     lead = pool.k.shape[0]
-    tail = tuple(pool.k.shape[3:])
-    pool.k[:, ids] = cache_one.k[:, 0, : n * ps].reshape((lead, n, ps) + tail)
-    pool.v[:, ids] = cache_one.v[:, 0, : n * ps].reshape((lead, n, ps) + tail)
+    rows = [cache_one.k[:, 0, : n * ps], cache_one.v[:, 0, : n * ps]]
+    if pool.quantized:
+        (qk, sk), (qv, sv) = quantize_kv(rows[0]), quantize_kv(rows[1])
+        rows = [qk, qv, sk, sv]
+    for dst, src in zip(pool.tensors(), rows):
+        dst[:, ids] = src.reshape((lead, n, ps) + tuple(dst.shape[3:]))
     return pool
 
 
 def copy_pool_page(pool: KVPool, src: int, dst: int) -> KVPool:
-    """Copy page `src` onto page `dst` in every layer (in place) — the
-    prefix cache's copy-on-write."""
-    pool.k[:, dst] = pool.k[:, src]
-    pool.v[:, dst] = pool.v[:, src]
+    """Copy page `src` onto page `dst` in every layer (in place), the
+    scales of an int8 pool with its values — the prefix cache's
+    copy-on-write."""
+    for t in pool.tensors():
+        t[:, dst] = t[:, src]
     return pool
+
+
+def int8_model(model: Gpt, envelope: Optional[dict] = None) -> Gpt:
+    """The int8 serving model of `model` (`serving.quantize=int8`): a new
+    Gpt on `model`'s device whose quantized leaves are int8 buffers with
+    f32 per-channel scale buffers beside them, dequantized at each use.
+    The weights come from `envelope` (checkpointing/quantize.py, e.g.
+    `models/convert.py quantized_params_from_jax`) or, without one, from
+    quantizing `model`'s own state dict once. `model` is not changed;
+    an int8 `model` is returned as it is."""
+    if model.quantize == "int8":
+        return model
+    if envelope is None:
+        envelope = quantize_params_int8(model.state_dict())
+    values, scales = envelope["qvalues"], envelope["qscales"]
+    names = set(model.state_dict())
+    if set(values) != names or not set(scales) <= names:
+        raise ValueError(
+            "int8 envelope does not match the model: missing "
+            f"{sorted(names - set(values))[:4]}, unexpected "
+            f"{sorted((set(values) | set(scales)) - names)[:4]}"
+        )
+    dev = model.device
+    out = Gpt(model.cfg, device="meta")
+    for name, value in values.items():
+        owner, _, leaf = name.rpartition(".")
+        module = out.get_submodule(owner)
+        del module._parameters[leaf]
+        if name in scales:
+            if value.dtype != torch.int8:
+                raise ValueError(f"int8 envelope: {name} is {value.dtype}")
+            module.register_buffer(leaf, value.to(dev, copy=True))
+            module.register_buffer(
+                leaf + _QSCALE, scales[name].to(dev, torch.float32, copy=True)
+            )
+        else:
+            module.register_parameter(leaf, nn.Parameter(
+                value.to(dev, torch.float32, copy=True), requires_grad=False
+            ))
+    out.quantize = "int8"
+    return out
 
 
 # -- registry ------------------------------------------------------------------

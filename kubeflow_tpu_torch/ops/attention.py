@@ -1,6 +1,6 @@
 """Dense attention and the paged-KV primitives (port of
 kubeflow_tpu/ops/attention.py: `dense_attention`, `paged_kv_view`,
-`paged_kv_update`).
+`paged_kv_update`, `quantize_kv`, `dequant_kv`).
 
 Layouts follow the JAX package: activations [B, S, H, D]; the engine's
 block pool [num_pages, page_size, H, D] per layer; a per-slot page table
@@ -31,6 +31,35 @@ def scale_for(depth: int, dtype: torch.dtype) -> float:
     float holding that exact value: dividing a tensor by it divides in
     the tensor's dtype, with no device copy."""
     return float(torch.tensor(float(depth)).sqrt().to(dtype))
+
+
+# -- int8 KV page quantization (serving quantize=int8) ------------------------
+# Per-(token, head) symmetric int8 over the head_dim axis: one bf16 scale
+# per written K/V vector, stored beside the pool as [..., H, 1], so a
+# cached token-head costs D + 2 bytes instead of 2D in bf16.
+
+
+def quantize_kv(x: torch.Tensor) -> tuple:
+    """x [..., H, D] float → (int8 values [..., H, D], bf16 scales
+    [..., H, 1]). The scale amax/127 (f32) is rounded to bf16 FIRST and
+    the values are quantized against the rounded scale, so dequant
+    multiplies by exactly the stored scale. torch.round rounds half to
+    even, as jnp.round does."""
+    x32 = x.float()
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    scale = (amax / 127.0).to(torch.bfloat16)
+    s = scale.float()
+    q = torch.round(x32 / torch.where(s > 0.0, s, torch.ones_like(s)))
+    return q.clamp(-127.0, 127.0).to(torch.int8), scale
+
+
+def dequant_kv(values: torch.Tensor, scales: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of `quantize_kv` (values [..., H, D] int8 x scales
+    [..., H, 1]): an f32 multiply, rounded once into the compute dtype.
+    The one definition point: the gather read path, the kernels' plain
+    version and the CUDA kernels' dequant all compute exactly this."""
+    return (values.float() * scales.float()).to(dtype)
 
 
 def dense_attention(

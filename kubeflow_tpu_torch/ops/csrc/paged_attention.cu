@@ -1,6 +1,7 @@
 // Paged attention over the serving engine's block-paged KV pool, for
 // Hopper (sm_90a), behind a plain C interface loaded with ctypes
-// (kubeflow_tpu_torch/native/build.py). Two kernels:
+// (kubeflow_tpu_torch/native/build.py). Two kernels, each in two storage
+// variants:
 //
 //   paged_decode_kernel  replaces kubeflow_tpu/ops/paged_attention.py
 //                        `_kernel` (the s == 1 one-token decode step that
@@ -8,6 +9,14 @@
 //   paged_window_kernel  replaces kubeflow_tpu/ops/paged_attention.py
 //                        `_mq_kernel` (an s > 1 query window: chunk
 //                        prefill, where row j sits at cursor + j).
+//
+// The storage type KV is a template parameter beside the compute dtype T:
+// KV == T reads a pool in the compute dtype; KV == int8_t reads the int8
+// pool of `serving.quantize=int8` (the `quantized=True` branches of
+// `_kernel` and `_mq_kernel`), with one bf16 scale per (token, head)
+// vector in a [P, page_size, H, 1] sibling array. Each loaded int8
+// element is dequantized as `dequant_kv` does it: f32(value) * f32(scale),
+// rounded once to T; from there the arithmetic is the full-width one.
 //
 // Both compute, for slot b and head h,
 //   softmax(q_b · K_bᵀ / sqrt(D)) · V_b
@@ -23,8 +32,9 @@
 // rounding).
 //
 // What bounds them: decode is bound by bytes. Each step reads every live
-// K and V vector of every slot once (2 · n_keys · H · D elements per slot)
-// and does 4 flops per element read, far below the ~295 flops per byte
+// K and V vector of every slot once (2 · n_keys · H · D elements per slot;
+// D + 2 bytes a vector in int8, 2D in bf16) and does 4 flops per element
+// read (5 with the dequant), far below the ~295 flops per byte
 // the H100 needs before its arithmetic is the limit. The design reads
 // each live vector exactly once per (slot, head) block, walks only the
 // pages up to the row's last visible position (a page-table entry past
@@ -33,8 +43,9 @@
 // Since a walk is a chain of dependent loads (table entry, then vector),
 // what the design does about the bytes is keep many of them in flight:
 // each key is read as 16-byte vectors by a few neighbouring lanes, so a
-// 256-thread block walks 8 to 128 keys at once (32 at bf16, D=64), with
-// kUnroll loads in flight for each.
+// 256-thread block walks 8 to 256 keys at once (32 at bf16, D=64; 64 at
+// int8, D=64, where four lanes hold a key), with kUnroll loads in flight
+// for each. An int8 key costs one more 2-byte load per lane: its scale.
 //
 // What this simple design leaves on the table (later work): one block
 // per (slot, head) gives B·H blocks, 96 at 8 slots x 12 heads, fewer than
@@ -115,6 +126,39 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// the N elements of T at p as f32, in 16-byte loads (N a multiple of
+// Vec<T>::N; p 16-byte aligned)
+template <typename T, int N>
+__device__ __forceinline__ void load_n(const T* p, float* f) {
+#pragma unroll
+  for (int j = 0; j < N / Vec<T>::N; ++j) Vec<T>::load(p + j * Vec<T>::N, f + j * Vec<T>::N);
+}
+
+// one 16-byte load of a K/V vector slice as the compute dtype T holds it:
+// a pool in T itself (the scale pointer is unused) ...
+template <typename T, typename KV>
+struct Kv {
+  static constexpr int N = Vec<T>::N;
+  __device__ __forceinline__ static void load(const KV* p, const __nv_bfloat16*,
+                                              float* f) {
+    Vec<T>::load(p, f);
+  }
+};
+// ... or an int8 pool: 16 values, each dequantized with the vector's bf16
+// scale as `dequant_kv` does it (f32 multiply, one rounding to T)
+template <typename T>
+struct Kv<T, int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* p,
+                                              const __nv_bfloat16* scale, float* f) {
+    const float sc = __bfloat162float(*scale);
+    const int4 v = *reinterpret_cast<const int4*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = round_to<T>(static_cast<float>(b[i]) * sc);
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -159,19 +203,21 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return r;
 }
 
-// pool row (position t of slot b) -> element offset of head h's vector.
-// The page id is clamped into [0, num_pages) so a corrupt table entry
-// can never fault; the engine never hands the kernel one.
-__device__ __forceinline__ size_t kv_offset(const int* pt, int t, int page_size,
-                                            int num_pages, int H, int D, int h) {
+// position t of slot b, head h -> index of its vector in the pool viewed
+// as [P * page_size * H] vectors: its values start at row * D, its int8
+// scale (if any) is scale[row]. The page id is clamped into
+// [0, num_pages) so a corrupt table entry can never fault; the engine
+// never hands the kernel one.
+__device__ __forceinline__ size_t kv_row(const int* pt, int t, int page_size,
+                                         int num_pages, int H, int h) {
   int page = pt[t / page_size];
   page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-  return ((static_cast<size_t>(page) * page_size + t % page_size) * H + h) *
-         static_cast<size_t>(D);
+  return (static_cast<size_t>(page) * page_size + t % page_size) * H + h;
 }
 
 // Thread layout shared by both kernels: a key's D elements are read as
-// LPK = D / N 16-byte vectors by LPK neighbouring lanes (a "lane group");
+// LPK = D / N 16-byte vectors by LPK neighbouring lanes (a "lane group";
+// N = Kv<T, KV>::N elements a load: 4 f32, 8 bf16, 16 int8);
 // the block's G = kThreads / LPK lane groups each take one key, and each
 // loads kUnroll keys before computing. Loops step a warp-uniform base so
 // every lane of a warp runs the same iterations (the shuffles need it).
@@ -180,14 +226,16 @@ __device__ __forceinline__ size_t kv_offset(const int* pt, int t, int page_size,
 // s == 1: one block per (slot, head). Three phases over the row's
 // n_keys = min(cursor, L - 1) + 1 visible keys: scores, f32 softmax, P·V.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                    const T* __restrict__ pool_v,
+paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ pool_k,
+                    const KV* __restrict__ pool_v,
+                    const __nv_bfloat16* __restrict__ k_scale,
+                    const __nv_bfloat16* __restrict__ v_scale,
                     const int* __restrict__ page_table,
                     const int* __restrict__ cursors, T* __restrict__ out,
                     int page_size, int max_pages, int num_pages, float scale) {
-  constexpr int N = Vec<T>::N;
+  constexpr int N = Kv<T, KV>::N;
   constexpr int LPK = D / N;
   constexpr int KPW = 32 / LPK;      // lane groups per warp
   constexpr int G = kThreads / LPK;  // lane groups per block
@@ -213,7 +261,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   const int* pt = page_table + static_cast<size_t>(b) * max_pages;
 
   float qv[N];
-  Vec<T>::load(q + qo + li * N, qv);
+  load_n<T, N>(q + qo + li * N, qv);
 
   for (int base = warp * KPW; base < n_keys; base += G * kUnroll) {
     float kf[kUnroll][N];
@@ -221,8 +269,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + sub + u * G;
       if (t < n_keys) {
-        Vec<T>::load(pool_k + kv_offset(pt, t, page_size, num_pages, H, D, h) + li * N,
-                     kf[u]);
+        const size_t row = kv_row(pt, t, page_size, num_pages, H, h);
+        Kv<T, KV>::load(pool_k + row * D + li * N, k_scale + row, kf[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < N; ++i) kf[u][i] = 0.f;
@@ -266,8 +314,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
       p[u] = 0.f;
       if (t < n_keys) {
         p[u] = scores[t];
-        Vec<T>::load(pool_v + kv_offset(pt, t, page_size, num_pages, H, D, h) + li * N,
-                     vf[u]);
+        const size_t row = kv_row(pt, t, page_size, num_pages, H, h);
+        Kv<T, KV>::load(pool_v + row * D + li * N, v_scale + row, vf[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < N; ++i) vf[u][i] = 0.f;
@@ -297,15 +345,17 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
 // cursor + s - 1 for the whole window). Each K/V vector the block needs
 // is loaded once and used by all its rows.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_window_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
-                    const T* __restrict__ pool_v,
+paged_window_kernel(const T* __restrict__ q, const KV* __restrict__ pool_k,
+                    const KV* __restrict__ pool_v,
+                    const __nv_bfloat16* __restrict__ k_scale,
+                    const __nv_bfloat16* __restrict__ v_scale,
                     const int* __restrict__ page_table,
                     const int* __restrict__ cursors, T* __restrict__ out,
                     int S, int page_size, int max_pages, int num_pages,
                     float scale) {
-  constexpr int N = Vec<T>::N;
+  constexpr int N = Kv<T, KV>::N;
   constexpr int LPK = D / N;
   constexpr int KPW = 32 / LPK;
   constexpr int G = kThreads / LPK;
@@ -347,8 +397,8 @@ paged_window_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + sub + u * G;
       if (t < n_max) {
-        Vec<T>::load(pool_k + kv_offset(pt, t, page_size, num_pages, H, D, h) + li * N,
-                     kf[u]);
+        const size_t row = kv_row(pt, t, page_size, num_pages, H, h);
+        Kv<T, KV>::load(pool_k + row * D + li * N, k_scale + row, kf[u]);
       } else {
 #pragma unroll
         for (int i = 0; i < N; ++i) kf[u][i] = 0.f;
@@ -400,8 +450,8 @@ paged_window_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + sub + u * G;
       if (t < n_max) {
-        Vec<T>::load(pool_v + kv_offset(pt, t, page_size, num_pages, H, D, h) + li * N,
-                     vf[u]);
+        const size_t row = kv_row(pt, t, page_size, num_pages, H, h);
+        Kv<T, KV>::load(pool_v + row * D + li * N, v_scale + row, vf[u]);
       }
     }
 #pragma unroll
@@ -432,7 +482,7 @@ paged_window_kernel(const T* __restrict__ q, const T* __restrict__ pool_k,
   }
 }
 
-// dynamic shared memory of a launch; n = elements per 16-byte vector
+// dynamic shared memory of a launch; n = elements per 16-byte K/V load
 size_t decode_smem(int view_len, int n) {
   return sizeof(float) * (static_cast<size_t>(view_len) + kThreads * n);
 }
@@ -449,72 +499,99 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* pk, const void* pv, const int* pt,
-                   const int* cur, void* out, int B, int S, int H, int ps, int mp,
-                   int np, float scale, cudaStream_t stream) {
-  const int view_len = ps * mp;
+struct Args {
+  const void* q;
+  const void* pk;
+  const void* pv;
+  const __nv_bfloat16* ks;
+  const __nv_bfloat16* vs;
+  const int* pt;
+  const int* cur;
+  void* out;
+  int B, S, H, ps, mp, np;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KV, int D>
+cudaError_t launch(const Args& a) {
+  const int view_len = a.ps * a.mp;
+  constexpr int n = Kv<T, KV>::N;
   cudaError_t err;
-  if (S == 1) {
-    const size_t smem = decode_smem(view_len, Vec<T>::N);
-    if ((err = allow_smem(paged_decode_kernel<T, D>, smem)) != cudaSuccess) return err;
-    paged_decode_kernel<T, D><<<dim3(B, H), kThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(pk),
-        static_cast<const T*>(pv), pt, cur, static_cast<T*>(out), ps, mp, np,
-        scale);
+  if (a.S == 1) {
+    const size_t smem = decode_smem(view_len, n);
+    if ((err = allow_smem(paged_decode_kernel<T, KV, D>, smem)) != cudaSuccess) return err;
+    paged_decode_kernel<T, KV, D><<<dim3(a.B, a.H), kThreads, smem, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const KV*>(a.pk),
+        static_cast<const KV*>(a.pv), a.ks, a.vs, a.pt, a.cur,
+        static_cast<T*>(a.out), a.ps, a.mp, a.np, a.scale);
   } else {
-    const size_t smem = window_smem(view_len, D, Vec<T>::N);
-    if ((err = allow_smem(paged_window_kernel<T, D>, smem)) != cudaSuccess) return err;
-    paged_window_kernel<T, D><<<dim3(B, H, (S + kRows - 1) / kRows), kThreads, smem,
-                                stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(pk),
-        static_cast<const T*>(pv), pt, cur, static_cast<T*>(out), S, ps, mp, np,
-        scale);
+    const size_t smem = window_smem(view_len, D, n);
+    if ((err = allow_smem(paged_window_kernel<T, KV, D>, smem)) != cudaSuccess) return err;
+    paged_window_kernel<T, KV, D>
+        <<<dim3(a.B, a.H, (a.S + kRows - 1) / kRows), kThreads, smem, a.stream>>>(
+            static_cast<const T*>(a.q), static_cast<const KV*>(a.pk),
+            static_cast<const KV*>(a.pv), a.ks, a.vs, a.pt, a.cur,
+            static_cast<T*>(a.out), a.S, a.ps, a.mp, a.np, a.scale);
   }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* pk, const void* pv,
-                       const int* pt, const int* cur, void* out, int B, int S,
-                       int H, int ps, int mp, int np, float scale,
-                       cudaStream_t stream) {
+template <typename T, typename KV>
+cudaError_t dispatch_d(int D, const Args& a) {
   switch (D) {
-    case 16: return launch<T, 16>(q, pk, pv, pt, cur, out, B, S, H, ps, mp, np, scale, stream);
-    case 64: return launch<T, 64>(q, pk, pv, pt, cur, out, B, S, H, ps, mp, np, scale, stream);
-    case 128: return launch<T, 128>(q, pk, pv, pt, cur, out, B, S, H, ps, mp, np, scale, stream);
+    case 16: return launch<T, KV, 16>(a);
+    case 64: return launch<T, KV, 64>(a);
+    case 128: return launch<T, KV, 128>(a);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// elements of one 16-byte K/V load for (compute dtype, storage) codes
+int kv_elems(int dtype, int kv_dtype) {
+  if (kv_dtype == 2) return Kv<float, int8_t>::N;
+  return dtype == 1 ? Vec<__nv_bfloat16>::N : Vec<float>::N;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. q/out [B, S, H, D]; pools
+// dtype (the compute dtype of q and out): 0 = float32, 1 = bfloat16.
+// kv_dtype (the pools' storage): 0 = float32, 1 = bfloat16 (each equal to
+// dtype), 2 = int8 with bf16 scales k_scale/v_scale [num_pages,
+// page_size, H, 1] (null otherwise). q/out [B, S, H, D]; pools
 // [num_pages, page_size, H, D]; page_table [B, max_pages] int32; cursors
 // [B] int32; all contiguous on the current device. `scale` is sqrt(D)
 // rounded to the compute dtype. S == 1 launches paged_decode_kernel,
 // S > 1 paged_window_kernel. Returns cudaGetLastError() after the launch.
 int kft_paged_attention(const void* q, const void* pool_k, const void* pool_v,
+                        const void* k_scale, const void* v_scale,
                         const void* page_table, const void* cursors, void* out,
                         int B, int S, int H, int D, int page_size, int max_pages,
-                        int num_pages, int dtype, float scale, void* stream) {
-  const int* pt = static_cast<const int*>(page_table);
-  const int* cur = static_cast<const int*>(cursors);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, pool_k, pool_v, pt, cur, out, B, S, H,
-                             page_size, max_pages, num_pages, scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, pool_k, pool_v, pt, cur, out, B, S, H,
-                                     page_size, max_pages, num_pages, scale, st);
+                        int num_pages, int dtype, int kv_dtype, float scale,
+                        void* stream) {
+  const Args a{q, pool_k, pool_v,
+               static_cast<const __nv_bfloat16*>(k_scale),
+               static_cast<const __nv_bfloat16*>(v_scale),
+               static_cast<const int*>(page_table), static_cast<const int*>(cursors),
+               out, B, S, H, page_size, max_pages, num_pages, scale,
+               static_cast<cudaStream_t>(stream)};
+  if (kv_dtype == 2) {
+    if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
+    if (dtype == 0) return dispatch_d<float, int8_t>(D, a);
+    if (dtype == 1) return dispatch_d<__nv_bfloat16, int8_t>(D, a);
+    return cudaErrorInvalidValue;
+  }
+  if (kv_dtype != dtype) return cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_d<float, float>(D, a);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16, __nv_bfloat16>(D, a);
   return cudaErrorInvalidValue;
 }
 
 // dynamic shared memory (bytes) a launch needs, for the wrapper's check
-size_t kft_paged_attention_smem(int S, int view_len, int D, int dtype) {
-  const int n = dtype == 1 ? Vec<__nv_bfloat16>::N : Vec<float>::N;
+size_t kft_paged_attention_smem(int S, int view_len, int D, int dtype, int kv_dtype) {
+  const int n = kv_elems(dtype, kv_dtype);
   return S == 1 ? decode_smem(view_len, n) : window_smem(view_len, D, n);
 }
 

@@ -22,11 +22,15 @@ the `:generate` slice runs).
 `paged_attention` selects the read path: "gather" (a per-slot view plus
 dense attention) or "kernel" (the CUDA page-walk kernels of
 ops/paged_attention.py — the counterpart of the JAX engine's "pallas").
-The JAX programs donate the pool; here the pool tensors are updated in
-place. Greedy engine output equals `generate()` (serving/generate.py).
+`quantize="int8"` serves int8 weights (dequantized at each use) over
+int8 KV pages with bf16 per-vector scales, read through the kernels'
+int8 variants; auto pool sizing then holds ~2x the pages in the same
+bytes. The JAX programs donate the pool; here the pool tensors are
+updated in place. Greedy engine output equals `generate()`
+(serving/generate.py) over the same weights.
 
-Not ported in this slice: speculative decoding, int8 weights and pages,
-the serving mesh, MoE, the host/disk KV tiers, drain/recover and chaos.
+Not ported yet: speculative decoding, the serving mesh, MoE, the
+host/disk KV tiers, drain/recover and chaos.
 """
 
 from __future__ import annotations
@@ -41,10 +45,12 @@ import torch
 
 from kubeflow_tpu_torch.models.gpt import (
     PAGED_ATTENTION_IMPLS,
+    QUANTIZE_CHOICES,
     KVPool,
     PagedState,
     copy_pool_page,
     insert_pages,
+    int8_model,
     make_paged_pool,
 )
 from kubeflow_tpu_torch.serving.sampling import sample_slots
@@ -58,6 +64,7 @@ DEFAULT_NUM_SLOTS = 8
 DEFAULT_MAX_QUEUE = 64
 DEFAULT_PAGE_SIZE = 16
 DEFAULT_PAGED_ATTENTION = "gather"
+DEFAULT_QUANTIZE = "none"
 
 
 class QueueFullError(RuntimeError):
@@ -133,6 +140,37 @@ def auto_num_pages(num_slots: int, max_len: int, page_size: int) -> int:
     max_len), floored at one full-length request."""
     per_slot = max_len // page_size
     return max(per_slot, (num_slots * per_slot * 3) // 4)
+
+
+def resolve_num_pages(num_pages, num_slots: int, model_cfg, page_size: int,
+                      quantize: str = DEFAULT_QUANTIZE, mesh_tensor: int = 1,
+                      telemetry=None) -> int:
+    """The pool-sizing rule: explicit num_pages wins; auto sizing takes
+    `auto_num_pages` and, at quantize=int8, scales it by
+    `int8_page_capacity_ratio` (the same bytes hold ~2x the pages).
+    Telemetry-driven sizing and the tensor-sharded mesh are not ported
+    and raise."""
+    if telemetry:
+        raise ValueError("pool sizing from telemetry is not ported yet "
+                         "(ROADMAP A10: serving/kv_tiers.py)")
+    if int(mesh_tensor) > 1:
+        raise ValueError("mesh_tensor > 1 is not ported yet (ROADMAP A13: "
+                         "the serving mesh)")
+    if num_pages:
+        return int(num_pages)
+    pages = auto_num_pages(num_slots, model_cfg.max_len, page_size)
+    if quantize == "int8":
+        head_dim = model_cfg.hidden_size // model_cfg.num_heads
+        itemsize = torch.finfo(model_cfg.dtype).bits // 8
+        pages = int(pages * int8_page_capacity_ratio(head_dim, itemsize))
+    return pages
+
+
+def int8_page_capacity_ratio(head_dim: int, itemsize: int = 2) -> float:
+    """How many int8 pages fit in one unquantized page's bytes: a cached
+    K/V vector costs itemsize·D bytes unquantized and D + 2 quantized
+    (int8 values, one bf16 scale): 1.94 for bf16 at D=64."""
+    return (itemsize * float(head_dim)) / (head_dim + 2.0)
 
 
 # ---------------------------------------------------------------------------
@@ -333,10 +371,11 @@ class EnginePrograms:
     plain methods): prefill, insert, chunk, cow and step. Every program
     that writes the pool writes it in place.
 
-    Paged geometry (`page_size`, `num_pages`) is construction state."""
+    Paged geometry (`page_size`, `num_pages`) and `quantize` (int8 pools
+    follow the weights) are construction state."""
 
     def __init__(self, model, *, page_size: int, num_pages: int,
-                 paged_attention: str):
+                 paged_attention: str, quantize: str = DEFAULT_QUANTIZE):
         cfg = model.cfg
         self.model = model
         if paged_attention not in PAGED_ATTENTION_IMPLS:
@@ -344,7 +383,17 @@ class EnginePrograms:
                 f"paged_attention {paged_attention!r} must be one of "
                 f"{PAGED_ATTENTION_IMPLS}"
             )
+        if quantize not in QUANTIZE_CHOICES:
+            raise ValueError(
+                f"quantize {quantize!r} must be one of {QUANTIZE_CHOICES}"
+            )
+        if model.quantize != quantize:
+            raise ValueError(
+                f"quantize={quantize!r} programs need a model whose weights "
+                f"are {quantize!r}, not {model.quantize!r}"
+            )
         self.paged_attention = paged_attention
+        self.quantize = quantize
         self.page_size = int(page_size)
         if self.page_size < 1 or self.page_size & (self.page_size - 1):
             raise ValueError(
@@ -380,7 +429,13 @@ class EnginePrograms:
         )
         return cache, tok[0]
 
+    def make_pool(self, device) -> KVPool:
+        return make_paged_pool(self.model.cfg, self.num_pages,
+                               self.page_size, device, kv_quant=self.quantize)
+
     def insert(self, pool: KVPool, cache_one, page_ids, real_len: int):
+        """Copy the prefill rows into the slot's pages (quantized on the
+        way into an int8 pool)."""
         return insert_pages(pool, cache_one, page_ids, real_len)
 
     def chunk(self, pool: KVPool, ids, page_table, cursor, sample_idx: int,
@@ -454,7 +509,11 @@ class DecodeEngine:
     device work. Aggregate counters live behind their own lock.
 
     `device` defaults to "cuda" and raises without CUDA unless "cpu" is
-    asked for; the model's weights must already live there."""
+    asked for; the model's weights must already live there.
+
+    `quantize="int8"` serves the int8 model of `model`: built once here
+    (`models/gpt.py int8_model`, `model` itself is left full width) unless
+    `model` already is one (e.g. from an envelope)."""
 
     def __init__(
         self,
@@ -470,6 +529,7 @@ class DecodeEngine:
         num_pages: Optional[int] = None,
         prefix_cache: bool = True,
         paged_attention: Optional[str] = None,
+        quantize: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -482,18 +542,25 @@ class DecodeEngine:
         if max_queue < 1:
             raise ValueError("max_queue must be >= 1")
         cfg = model.cfg
+        self.quantize = quantize or DEFAULT_QUANTIZE
+        if self.quantize not in QUANTIZE_CHOICES:
+            raise ValueError(
+                f"quantize {self.quantize!r} must be one of {QUANTIZE_CHOICES}"
+            )
+        if self.quantize == "int8":
+            # the resident weights become int8 + per-channel scales, once
+            model = int8_model(model)
         self.name = name
         self.model = model
         self.num_slots = num_slots
         self.max_queue = max_queue
         self.paged_attention = paged_attention or DEFAULT_PAGED_ATTENTION
         ps = int(page_size) if page_size else DEFAULT_PAGE_SIZE
-        pool_pages = int(num_pages) if num_pages else auto_num_pages(
-            num_slots, cfg.max_len, ps
-        )
+        pool_pages = resolve_num_pages(num_pages, num_slots, cfg, ps,
+                                       self.quantize)
         self.programs = EnginePrograms(
             model, page_size=ps, num_pages=pool_pages,
-            paged_attention=self.paged_attention,
+            paged_attention=self.paged_attention, quantize=self.quantize,
         )
         self.page_size = ps
         self.num_pages = pool_pages
@@ -513,10 +580,9 @@ class DecodeEngine:
         self.prefill_buckets = buckets
 
         # -- device state (scheduler-thread-owned after start) ----------
-        self._pool = make_paged_pool(cfg, self.num_pages, ps, self.device)
-        self.kv_pool_bytes = int(
-            2 * self._pool.k.numel() * self._pool.k.element_size()
-        )
+        self._pool = self.programs.make_pool(self.device)
+        # values and, in int8, their scales: the bytes the pool holds
+        self.kv_pool_bytes = self._pool.nbytes
         # -- host page accounting (scheduler-thread-owned) --------------
         self._pagepool = PagePool(self.num_pages)
         self._radix = (
@@ -707,7 +773,8 @@ class DecodeEngine:
                 "paged_attention_windows": dict(
                     sorted(self._attn_windows.items())
                 ),
-                "kv_pool_dtype": str(self.model.cfg.dtype).replace(
+                "quantize": self.quantize,
+                "kv_pool_dtype": str(self._pool.k.dtype).replace(
                     "torch.", ""
                 ),
                 "kv_pool_bytes": self.kv_pool_bytes,

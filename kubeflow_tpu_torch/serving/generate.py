@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.models.gpt import QUANTIZE_CHOICES, int8_model
 from kubeflow_tpu_torch.serving.sampling import sample_logits
 
 
@@ -84,9 +85,23 @@ def generate(
 
 class ServedLm:
     """A named generative model for the server's static `:generate` path
-    (one request, one prefill + decode loop) and the engine's model."""
+    (one request, one prefill + decode loop) and the engine's model.
 
-    def __init__(self, name: str, model, max_batch: int = 8):
+    `quantize="int8"` is the static int8 path: the resident weights are
+    the int8 model of `model` (`models/gpt.py int8_model`; an int8
+    `model` is kept as it is) and `generate` runs over them, each leaf
+    dequantized at its use."""
+
+    def __init__(self, name: str, model, max_batch: int = 8,
+                 quantize: str = "none"):
+        self.quantize = str(quantize or "none")
+        if self.quantize not in QUANTIZE_CHOICES:
+            raise ValueError(
+                f"ServedLm quantize must be one of {QUANTIZE_CHOICES}, got "
+                f"{self.quantize!r}"
+            )
+        if self.quantize == "int8":
+            model = int8_model(model)
         self.name = name
         self.model = model
         self.max_batch = max_batch

@@ -6,6 +6,8 @@ subset this port honours). `KFT_SERVING_PAGED_ATTENTION` takes
 `gather | kernel`: `kernel` walks the page table in place through the
 CUDA kernels on CUDA tensors (the counterpart of the JAX package's
 `pallas`) and through their plain version on CPU tensors.
+`KFT_SERVING_QUANTIZE` takes `none | int8`: int8 weights and int8 KV
+pages (the engine), or int8 weights on the static path (num_slots=0).
 
     python -m kubeflow_tpu_torch.serving.main --model gpt_small --port 8500
 """
@@ -19,12 +21,16 @@ from typing import Mapping, Optional
 
 import torch
 
-from kubeflow_tpu_torch.models.gpt import PAGED_ATTENTION_IMPLS
+from kubeflow_tpu_torch.models.gpt import (
+    PAGED_ATTENTION_IMPLS,
+    QUANTIZE_CHOICES,
+)
 from kubeflow_tpu_torch.serving.engine import (
     DEFAULT_MAX_QUEUE,
     DEFAULT_NUM_SLOTS,
     DEFAULT_PAGE_SIZE,
     DEFAULT_PAGED_ATTENTION,
+    DEFAULT_QUANTIZE,
 )
 
 def _env_int(name: str, default: int) -> int:
@@ -35,8 +41,8 @@ def _env_int(name: str, default: int) -> int:
 def engine_knobs_from_env() -> dict:
     """KFT_SERVING_NUM_SLOTS (0 disables the engine), _MAX_QUEUE,
     _PREFILL_BUCKETS (comma-separated powers of two; empty = auto),
-    _PAGE_SIZE, _NUM_PAGES (0 = auto), _PREFIX_CACHE (0 = off) and
-    _PAGED_ATTENTION (gather | kernel)."""
+    _PAGE_SIZE, _NUM_PAGES (0 = auto), _PREFIX_CACHE (0 = off),
+    _PAGED_ATTENTION (gather | kernel) and _QUANTIZE (none | int8)."""
     buckets_raw = os.environ.get("KFT_SERVING_PREFILL_BUCKETS", "")
     buckets = [int(b) for b in buckets_raw.split(",") if b.strip()]
     prefix_raw = os.environ.get("KFT_SERVING_PREFIX_CACHE", "").strip()
@@ -50,6 +56,10 @@ def engine_knobs_from_env() -> dict:
         "paged_attention": (
             os.environ.get("KFT_SERVING_PAGED_ATTENTION", "").strip()
             or DEFAULT_PAGED_ATTENTION
+        ),
+        "quantize": (
+            os.environ.get("KFT_SERVING_QUANTIZE", "").strip()
+            or DEFAULT_QUANTIZE
         ),
     }
 
@@ -67,9 +77,14 @@ def build_server(
     num_pages: Optional[int] = None,
     prefix_cache: Optional[bool] = None,
     paged_attention: Optional[str] = None,
+    quantize: Optional[str] = None,
 ):
     """Assemble the ModelServer for one registry model: the ServedLm
     plus (num_slots > 0) its continuous-batching DecodeEngine.
+
+    `quantize="int8"` with the engine on serves int8 weights and int8 KV
+    pages through the engine while the ServedLm stays full width; with
+    num_slots=0 the ServedLm itself is int8 (the static int8 path).
 
     `params` is a state dict for the model (e.g. from
     models/convert.py `params_from_jax`); without one the model keeps
@@ -94,6 +109,12 @@ def build_server(
         prefix_cache = env["prefix_cache"]
     if paged_attention is None:
         paged_attention = env["paged_attention"]
+    if quantize is None:
+        quantize = env["quantize"]
+    if quantize not in QUANTIZE_CHOICES:
+        raise ValueError(
+            f"quantize {quantize!r} must be one of {QUANTIZE_CHOICES}"
+        )
     if paged_attention not in PAGED_ATTENTION_IMPLS:
         raise ValueError(
             f"paged_attention {paged_attention!r} must be one of "
@@ -111,7 +132,8 @@ def build_server(
     if params is not None:
         lm_model.load_state_dict(params, strict=True)
     server = ModelServer()
-    lm = ServedLm(model, lm_model)
+    lm = ServedLm(model, lm_model,
+                  quantize=quantize if num_slots < 1 else "none")
     server.add_lm(lm)
     if num_slots > 0:
         server.add_engine(
@@ -121,6 +143,7 @@ def build_server(
                 prefill_buckets=prefill_buckets,
                 page_size=page_size or None, num_pages=num_pages or None,
                 prefix_cache=prefix_cache, paged_attention=paged_attention,
+                quantize=quantize,
             )
         )
     return server
@@ -140,6 +163,8 @@ def main(argv=None) -> int:
     ap.add_argument("--prefix-cache", type=int, choices=(0, 1), default=None)
     ap.add_argument("--paged-attention", choices=PAGED_ATTENTION_IMPLS,
                     default=None)
+    ap.add_argument("--quantize", choices=QUANTIZE_CHOICES, default=None,
+                    help="int8: int8 weights and int8 KV pages")
     args = ap.parse_args(argv)
 
     import signal
@@ -161,7 +186,7 @@ def main(argv=None) -> int:
         prefix_cache=(
             None if args.prefix_cache is None else bool(args.prefix_cache)
         ),
-        paged_attention=args.paged_attention,
+        paged_attention=args.paged_attention, quantize=args.quantize,
     )
     httpd = Server(server.app, host=args.host, port=args.port)
     print(f"serving {args.model} on :{httpd.port}", flush=True)

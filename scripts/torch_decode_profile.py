@@ -2,11 +2,12 @@
 """Where a decode step of the PyTorch port's serving engine spends its
 time on the card: a torch.profiler window over steady-state decode.
 
-    python3 scripts/torch_decode_profile.py
+    python3 scripts/torch_decode_profile.py [--quantize none|int8]
 
 Builds gpt_small in bf16 (seeded weights) behind the port's DecodeEngine
-(8 slots, page 16, paged_attention=kernel) and fills every slot with a
-300-token prompt. Once all slots decode, it times a window of decode
+(8 slots, page 16, paged_attention=kernel; `--quantize int8` serves int8
+weights over int8 KV pages through the kernels' int8 variants) and fills
+every slot with a 300-token prompt. Once all slots decode, it times a window of decode
 steps unprofiled (the engine's own step clock), then profiles a second
 window with CUDA activity only (kernel durations are the device's own;
 the profiler slows the host side, so the step time comes from the
@@ -28,7 +29,9 @@ sys.path.insert(0, REPO)
 SLOTS, PROMPT, MAX_NEW, WINDOW_S = 8, 300, 400, 1.0
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -36,12 +39,16 @@ def main() -> int:
     from kubeflow_tpu_torch.models import get_model
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quantize", choices=("none", "int8"), default="none")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_decode_profile: no CUDA device", file=sys.stderr)
         return 1
     model = get_model("gpt_small", dtype=torch.bfloat16)
     eng = DecodeEngine("gpt_small", model, num_slots=SLOTS, page_size=16,
-                       paged_attention="kernel")
+                       paged_attention="kernel", quantize=args.quantize)
+    del model  # an int8 engine holds its own int8 copy
     try:
         rng = np.random.default_rng(0)
         eng.generate_row(rng.integers(0, 50257, PROMPT), 4)  # warm-up
@@ -66,8 +73,10 @@ def main() -> int:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     psteps = sum(e.count for e in events
-                 if "paged_decode_kernel" in e.key) / model.cfg.num_layers
+                 if "paged_decode_kernel" in e.key) / eng.model.cfg.num_layers
     busy = sum(e.self_device_time_total for e in events) / 1e3 / max(psteps, 1)
+    print(f"quantize={args.quantize}: kv pool {eng.stats()['kv_pool_dtype']}, "
+          f"resident weights {eng.model.weight_bytes()} B")
     print(f"unprofiled: {steps} decode steps, {ms:.3f} ms a step "
           f"(8 slots decoding, no admissions)")
     print(f"profiled: {psteps:.1f} traced decode steps, device busy "

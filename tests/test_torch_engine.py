@@ -6,7 +6,9 @@ Greedy engine tokens must equal JAX `generate()` exactly (f32 logits
 agree to ~1e-6, far inside the greedy margins of these prompts) and the
 port's own `generate()` through chunked prefill and prefix hits with
 copy-on-write, on both read paths ("kernel" walks the page table
-through the kernel's plain version on CPU tensors)."""
+through the kernel's plain version on CPU tensors). At quantize="int8"
+the tokens must equal the JAX int8 engine's, and the two read paths
+must agree with each other."""
 
 import functools
 
@@ -134,3 +136,101 @@ def test_radix_index_matches_commits_and_evicts():
     assert radix.evict(2) == 2
     assert pool.free_count == 5 + 2
     assert radix.match(tokens)[1] == 4
+
+
+# -- int8 serving (quantize="int8") ----------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_int8_tokens(tiny):
+    """The JAX engine at quantize="int8" over the int8 gather read path:
+    one slot, the 7-token prompt, MAX_NEW greedy tokens."""
+    from kubeflow_tpu.serving.engine import DecodeEngine as JDecodeEngine
+
+    jmodel, params, _, rows = tiny
+    eng = JDecodeEngine("jq", jmodel, params, num_slots=1, max_queue=4,
+                        quantize="int8", paged_attention="gather")
+    try:
+        assert eng.stats()["kv_pool_dtype"] == "int8"
+        return eng.generate_row(rows[7], MAX_NEW, timeout=300)["tokens"]
+    finally:
+        eng.close()
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_int8_engine_tokens_equal_the_jax_int8_engine(tiny, jax_int8_tokens,
+                                                      impl):
+    """int8 weights quantized once at construction, int8 KV pages: greedy
+    tokens equal the JAX int8 engine's, on both read paths. The model
+    handed in stays full width."""
+    _, _, tmodel, rows = tiny
+    eng = DecodeEngine("tiny", tmodel, device="cpu", num_slots=1,
+                       paged_attention=impl, quantize="int8")
+    try:
+        assert eng.generate_row(rows[7], MAX_NEW)["tokens"] == jax_int8_tokens
+        stats = eng.stats()
+    finally:
+        eng.close()
+    assert (stats["quantize"], stats["kv_pool_dtype"]) == ("int8", "int8")
+    assert eng.model.quantize == "int8" and tmodel.quantize == "none"
+    assert stats["paged_attention_windows"] == {1: impl}
+
+
+def test_int8_chunked_prefill_and_prefix_cow_gather_equals_kernel(tiny):
+    """The 40-token prompt through head prefill, chunk windows, and then a
+    prefix hit with copy-on-write of the int8 values and scales: the
+    kernel read path gives the gather path's tokens."""
+    _, _, tmodel, rows = tiny
+    got = {}
+    for impl in IMPLS:
+        eng = _engine(tmodel, impl, prefill_buckets=(8, 16), quantize="int8")
+        try:
+            got[impl] = [eng.generate_row(rows[40], MAX_NEW)["tokens"]
+                         for _ in range(2)]
+            stats = eng.stats()
+        finally:
+            eng.close()
+        assert got[impl][0] == got[impl][1]
+        assert stats["cow_copies"] == 1 and stats["prefix_hit_tokens"] == 39
+        assert stats["paged_attention_windows"] == {1: impl, 64: impl}
+    assert got["kernel"] == got["gather"]
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("model", ["gpt_tiny", "gpt_small"])
+def test_pool_sizing_agrees_with_jax(model, dtype, quantize):
+    from kubeflow_tpu.models import get_model as jget_model
+    from kubeflow_tpu.serving import engine as jengine
+
+    from kubeflow_tpu_torch.serving import engine as tengine
+
+    jcfg = jget_model(model, dtype=getattr(jnp, dtype)).cfg
+    tcfg = get_model(model, dtype=getattr(torch, dtype), device="meta").cfg
+    for num_pages, slots, ps in ((None, 8, 16), (0, 3, 8), (50, 2, 16)):
+        assert tengine.resolve_num_pages(num_pages, slots, tcfg, ps,
+                                         quantize) == \
+            jengine.resolve_num_pages(num_pages, slots, jcfg, ps, quantize)
+    for d, itemsize in ((64, 2), (16, 4), (128, 2)):
+        assert tengine.int8_page_capacity_ratio(d, itemsize) == \
+            jengine.int8_page_capacity_ratio(d, itemsize)
+
+
+def test_int8_pool_holds_more_pages_in_no_more_bytes(tiny):
+    from kubeflow_tpu_torch.serving.engine import resolve_num_pages
+
+    tmodel = tiny[2]
+    stats = {}
+    for q in ("none", "int8"):
+        eng = DecodeEngine("t", tmodel, device="cpu", num_slots=4,
+                           autostart=False, quantize=q)
+        stats[q] = eng.stats()
+        eng.close()
+    assert stats["int8"]["pages_total"] > stats["none"]["pages_total"]
+    assert stats["int8"]["kv_pool_bytes"] <= stats["none"]["kv_pool_bytes"]
+    with pytest.raises(ValueError, match="A10"):
+        resolve_num_pages(0, 4, tmodel.cfg, 16, telemetry={"x": 1})
+    with pytest.raises(ValueError, match="A13"):
+        resolve_num_pages(0, 4, tmodel.cfg, 16, mesh_tensor=2)
+    with pytest.raises(ValueError, match="quantize"):
+        _engine(tmodel, "kernel", quantize="int4")

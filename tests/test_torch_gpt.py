@@ -196,3 +196,89 @@ def test_paged_forward_matches_jax(pair, paged_case, impl, window):
                                rtol=POOL_RTOL)
     np.testing.assert_allclose(pool.v.numpy(), jv, atol=POOL_ATOL,
                                rtol=POOL_RTOL)
+
+
+# -- int8 pools (kv_quant="int8") ----------------------------------------------
+
+
+def _jcache_int8(pools):
+    k, v, ks, vs = pools
+    return {
+        f"layer_{i}": {"attention": {
+            "cached_key": jnp.asarray(k[i]),
+            "cached_value": jnp.asarray(v[i]),
+            "cached_key_scale": jnp.asarray(ks[i]).astype(jnp.bfloat16),
+            "cached_value_scale": jnp.asarray(vs[i]).astype(jnp.bfloat16),
+        }}
+        for i in range(k.shape[0])
+    }
+
+
+def _jpools_int8(cache, n):
+    names = ("cached_key", "cached_value", "cached_key_scale",
+             "cached_value_scale")
+    return [np.stack([np.asarray(cache[f"layer_{i}"]["attention"][name]
+                                 ).astype(np.int8 if j < 2 else np.float32)
+                      for i in range(n)]) for j, name in enumerate(names)]
+
+
+@pytest.fixture(scope="module")
+def int8_case(pair):
+    """A 3-slot 8-token window (cursors 5, 17 and a parked 128), then one
+    decode step at the advanced cursors, through the JAX paged branch
+    with kv_quant="int8" (gather), on int8 pools quantized from seeded
+    f32 pools. Returns the inputs, the JAX logits of both calls and the
+    JAX pools after each."""
+    from kubeflow_tpu_torch.ops.attention import quantize_kv
+
+    jmodel, params, _ = pair
+    cfg = jmodel.cfg
+    ps, num_pages = 8, 40
+    rng = np.random.default_rng(3)
+    (qk, sk), (qv, sv) = (quantize_kv(torch.from_numpy(p))
+                          for p in _pools(rng, cfg, num_pages, ps))
+    pools = [qk.numpy(), qv.numpy(), sk.float().numpy(), sv.float().numpy()]
+    cursors = np.array([5, 17, cfg.max_len], np.int32)
+    table = np.stack([rng.permutation(num_pages)[: cfg.max_len // ps]
+                      for _ in range(3)]).astype(np.int32)
+    calls = [(_ids(rng, 3, 8), cursors),
+             (_ids(rng, 3, 1), np.minimum(cursors + 8, cfg.max_len))]
+    apply = _japply(jmodel, decode=True, mutable=["cache"])
+    jpools, logits, after = pools, [], []
+    for ids, cur in calls:
+        out, mutated = apply(
+            {"params": params, "cache": _jcache_int8(jpools)},
+            jnp.asarray(ids),
+            paged=JPagedState(jnp.asarray(table), jnp.asarray(cur), ps,
+                              num_pages, attn_impl="gather", kv_quant="int8"),
+        )
+        jpools = _jpools_int8(mutated["cache"], cfg.num_layers)
+        logits.append(np.asarray(out["logits"]))
+        after.append(jpools)
+    return pools, table, calls, logits, after
+
+
+@pytest.mark.parametrize("impl", ["gather", "kernel"])
+def test_int8_paged_forward_matches_jax(pair, int8_case, impl):
+    """A window, then a decode step, over an int8 pool: logits against the
+    JAX paged branch at kv_quant="int8", and the written int8 values and
+    bf16 scales bitwise, on both of the port's read paths."""
+    tmodel = pair[2]
+    pools, table, calls, want_logits, want_pools = int8_case
+    k, v, ks, vs = (torch.from_numpy(p.copy()) for p in pools)
+    pool = KVPool(k, v, ks.bfloat16(), vs.bfloat16())
+    assert pool.quantized
+    for (ids, cur), want, jpool in zip(calls, want_logits, want_pools):
+        with torch.inference_mode():
+            got = tmodel.paged_forward(
+                torch.from_numpy(ids).long(), pool,
+                PagedState(torch.from_numpy(table), torch.from_numpy(cur),
+                           attn_impl=impl),
+            )
+        live = cur < tmodel.cfg.max_len
+        np.testing.assert_allclose(got.numpy()[live], want[live], atol=ATOL,
+                                   rtol=RTOL)
+        for name, t, w in zip(("k", "v", "k_scale", "v_scale"),
+                              pool.tensors(), jpool):
+            np.testing.assert_array_equal(t.float().numpy(), w.astype(
+                np.float32), err_msg=name)

@@ -5,8 +5,11 @@ each skips where there is no CUDA device). No JAX here: on the card run
 
 Each kernel is held against its plain PyTorch version on the same inputs:
 atol 1e-5 in f32 (summation order), 2e-2 in bf16 (one bf16 ulp of a
-rounded score, probability or output element). End to end, the engine's
-greedy f32 tokens through the kernels equal `generate()` exactly.
+rounded score, probability or output element); the int8 variants the
+same, over int8 pools from `quantize_kv` (the dequant is the same f32
+multiply and rounding on both sides). End to end, the engine's greedy
+f32 tokens through the kernels equal `generate()` exactly, and at
+quantize="int8" they equal the int8 engine's tokens through gather.
 
 The flash-attention kernels (forward, dQ, dK/dV) are held against
 `flash_attention_reference` / `flash_attention_bwd_reference` by
@@ -88,6 +91,67 @@ def test_kernel_matches_plain_version(cuda, s, d, dtype):
     assert not got[cursors >= MAX_LEN].any()
 
 
+def _int8_case(dev, s, h, d, dtype, seed=0):
+    """`_case` with its pools quantized by `quantize_kv` (values int8,
+    one bf16 scale per vector), one pool vector all zeros (scale 0)."""
+    from kubeflow_tpu_torch.ops.attention import quantize_kv
+
+    q, pk, pv, table, cursors = _case(dev, s, h, d, dtype, seed)
+    pk, pv = pk.clone(), pv.clone()
+    pk[int(table[1, 0]), 3] = 0
+    pv[int(table[1, 0]), 3] = 0
+    (qk, sk), (qv, sv) = quantize_kv(pk), quantize_kv(pv)
+    return q, qk, qv, table, cursors, sk, sv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("s", [1, 5, 16, 64])
+def test_int8_kernel_matches_plain_version(cuda, s, d, dtype):
+    """The int8 variants against the plain version (gather, `dequant_kv`,
+    dense core) on the same int8 pools, ragged and parked cursors."""
+    q, pk, pv, table, cursors, sk, sv = _int8_case(cuda, s, 4, d, dtype)
+    tpa.reset_launch_counts()
+    got = tpa.paged_attention(q, pk, pv, table, cursors, dtype=dtype,
+                              k_scale=sk, v_scale=sv)
+    want = tpa.paged_attention_reference(q, pk, pv, table, cursors,
+                                         dtype=dtype, k_scale=sk, v_scale=sv)
+    torch.cuda.synchronize()
+    name = tpa.kernel_name(s, quantized=True)
+    assert tpa.launch_counts == {**{k: 0 for k in tpa.launch_counts},
+                                 name: 1}
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATOL[dtype], rtol=0)
+    assert not got[cursors >= MAX_LEN].any()
+
+
+@pytest.mark.parametrize("bad", ["scale_dtype", "scale_shape", "no_scales",
+                                 "scales_without_int8", "one_scale"])
+def test_int8_kernel_raises_on_mismatched_scales(cuda, bad):
+    """An int8 pool on the card reaches its kernel or raises; nothing
+    falls back to the plain version."""
+    q, pk, pv, table, cursors, sk, sv = _int8_case(cuda, 1, 4, 64,
+                                                   torch.bfloat16)
+    kw = {"k_scale": sk, "v_scale": sv}
+    if bad == "scale_dtype":
+        kw = {"k_scale": sk.float(), "v_scale": sv.float()}
+    elif bad == "scale_shape":
+        kw = {"k_scale": sk[:, :, :2].contiguous(),
+              "v_scale": sv[:, :, :2].contiguous()}
+    elif bad == "no_scales":
+        kw = {}
+    elif bad == "scales_without_int8":
+        pk, pv = pk.to(torch.bfloat16), pv.to(torch.bfloat16)
+    elif bad == "one_scale":
+        kw = {"k_scale": sk}
+    tpa.reset_launch_counts()
+    with pytest.raises(ValueError):
+        tpa.paged_attention(q, pk, pv, table, cursors, dtype=torch.bfloat16,
+                            **kw)
+    assert not any(tpa.launch_counts.values())
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, pk, pv, table, cursors = _case(cuda, 1, 4, 64, torch.float32)
     with pytest.raises(ValueError, match="head dim"):
@@ -122,6 +186,40 @@ def test_engine_through_the_kernels_equals_generate(cuda):
     assert stats["attention_kernel"] == "kernel"
     assert tpa.launch_counts["paged_decode"] == 2 * stats["decode_steps"]
     assert tpa.launch_counts["paged_window"] > 0
+
+
+def test_int8_engine_through_the_kernels_equals_gather(cuda):
+    """quantize="int8": greedy f32 tokens through the int8 kernels equal
+    those through gather + dequant_kv (chunk windows and a prefix hit
+    with copy-on-write included), and only the int8 kernels launch."""
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = get_model("gpt_tiny", dtype=torch.float32, device=cuda, seed=1)
+    rng = np.random.default_rng(0)
+    long_row = rng.integers(0, 512, 40)
+    # the 40-token prompt twice: the second maps its committed pages
+    rows = [rng.integers(0, 512, 4), long_row, long_row]
+    got, launches = {}, {}
+    for impl in ("kernel", "gather"):
+        tpa.reset_launch_counts()
+        eng = DecodeEngine("tiny", model, device=cuda, num_slots=2,
+                           page_size=8, paged_attention=impl,
+                           prefill_buckets=(8, 16), quantize="int8")
+        try:
+            got[impl] = [eng.generate_row(r, 8, timeout=120)["tokens"]
+                         for r in rows]
+            stats = eng.stats()
+        finally:
+            eng.close()
+        launches[impl] = dict(tpa.launch_counts)
+        assert stats["kv_pool_dtype"] == "int8" and stats["cow_copies"] == 1
+    assert got["kernel"] == got["gather"]
+    assert launches["kernel"]["paged_decode_int8"] > 0
+    assert launches["kernel"]["paged_window_int8"] > 0
+    assert launches["kernel"]["paged_decode"] == 0
+    assert not any(launches["gather"].values())
 
 
 DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}

@@ -4,8 +4,11 @@ On CPU tensors `paged_attention` runs its plain version; it is held
 against the JAX Pallas kernel (interpret mode off-TPU, as the JAX
 package's own tests run it) and against the JAX gather read path, in
 f32: atol = rtol = 1e-5 (summation order only). Rows parked at max_len
-are excluded (their output is never read). The CUDA kernels themselves
-are compared with the plain version on the card
+are excluded (their output is never read). The int8 read (int8 pools
+from `quantize_kv`, bf16 scales) is held the same way against the JAX
+kernel's quantized branch and the JAX int8 gather path (gather,
+`dequant_kv`, dense attention), at the same tolerance. The CUDA kernels
+themselves are compared with the plain version on the card
 (tests/test_torch_kernels_cuda.py)."""
 
 import numpy as np
@@ -17,12 +20,14 @@ import jax.numpy as jnp  # noqa: E402
 
 from kubeflow_tpu.ops.attention import (  # noqa: E402
     dense_attention as jdense,
+    dequant_kv as jdequant,
     paged_kv_view as jview,
 )
 from kubeflow_tpu.ops.paged_attention import (  # noqa: E402
     paged_attention as jpaged,
 )
 from kubeflow_tpu_torch.ops import paged_attention as tpa  # noqa: E402
+from kubeflow_tpu_torch.ops.attention import quantize_kv  # noqa: E402
 
 ATOL = RTOL = 1e-5
 H, D, NUM_PAGES, MAX_LEN = 3, 16, 40, 64
@@ -121,9 +126,14 @@ def test_cpu_path_counts_no_launches():
     tpa.reset_launch_counts()
     _port(_case(1, 8))
     _port(_case(4, 8))
-    assert tpa.launch_counts == {"paged_decode": 0, "paged_window": 0}
+    _port_int8(_int8_case(1, 8))
+    assert tpa.launch_counts == {"paged_decode": 0, "paged_window": 0,
+                                 "paged_decode_int8": 0,
+                                 "paged_window_int8": 0}
     assert tpa.kernel_name(1) == "paged_decode"
     assert tpa.kernel_name(64) == "paged_window"
+    assert tpa.kernel_name(1, quantized=True) == "paged_decode_int8"
+    assert tpa.kernel_name(8, quantized=True) == "paged_window_int8"
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "table_dtype",
@@ -146,3 +156,105 @@ def test_kernel_input_checks_raise(bad):
     with pytest.raises(ValueError):
         tpa._check_cuda_inputs(q.contiguous(), pk.contiguous(),
                                pv.contiguous(), table, cursors, dtype)
+
+
+# -- int8 pools ----------------------------------------------------------------
+
+
+def _int8_case(s, ps, seed=0):
+    """`_case` with both pools quantized by the port's `quantize_kv`
+    (bitwise the JAX package's: tests/test_torch_quantize.py): q, int8
+    pools, table, cursors, and the bf16 scales as float32 numpy (exact)."""
+    q, pk, pv, table, cursors = _case(s, ps, seed)
+    (qk, sk), (qv, sv) = (quantize_kv(torch.from_numpy(p)) for p in (pk, pv))
+    return (q, qk.numpy(), qv.numpy(), table, cursors,
+            sk.float().numpy(), sv.float().numpy())
+
+
+def _port_int8(case):
+    q, pk, pv, table, cursors, sk, sv = _torch(*case)
+    return tpa.paged_attention(q, pk, pv, table, cursors, dtype=torch.float32,
+                               k_scale=sk.bfloat16(), v_scale=sv.bfloat16())
+
+
+def _jax_int8(case):
+    q, pk, pv, table, cursors, sk, sv = (jnp.asarray(a) for a in case)
+    return q, pk, pv, table, cursors, sk.astype(jnp.bfloat16), sv.astype(
+        jnp.bfloat16)
+
+
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("s", [1, 8])
+def test_int8_plain_path_matches_jax_pallas_kernel(s, ps):
+    """The JAX kernel's quantized branch (dequant fused on the page walk),
+    interpret mode."""
+    case = _int8_case(s, ps, seed=4)
+    q, pk, pv, table, cursors, sk, sv = _jax_int8(case)
+    want = np.asarray(jpaged(q, pk, pv, table, cursors, dtype=jnp.float32,
+                             k_scale=sk, v_scale=sv))
+    got = _port_int8(case).numpy()
+    np.testing.assert_allclose(_live(got, case[4]), _live(want, case[4]),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("s", [1, 8])
+def test_int8_plain_path_matches_jax_gather_path(s, ps):
+    """The JAX model's int8 gather read: values and scales viewed through
+    the table, `dequant_kv`, then dense attention with the per-query
+    mask (kubeflow_tpu/models/gpt.py)."""
+    case = _int8_case(s, ps, seed=5)
+    q, pk, pv, table, cursors, sk, sv = _jax_int8(case)
+    view_len = table.shape[1] * ps
+    q_pos = case[4][:, None] + np.arange(s)[None, :]
+    visible = np.arange(view_len)[None, None, :] <= q_pos[:, :, None]
+    want = np.asarray(jdense(
+        q, jdequant(jview(pk, table), jview(sk, table), jnp.float32),
+        jdequant(jview(pv, table), jview(sv, table), jnp.float32),
+        mask=jnp.asarray(visible), dtype=jnp.float32, causal=False,
+    ))
+    got = _port_int8(case).numpy()
+    np.testing.assert_allclose(_live(got, case[4]), _live(want, case[4]),
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_int8_parked_and_stale_entries_are_never_read():
+    """As at full width: parked rows are zeros, and table entries past a
+    slot's last live page (or a parked slot's whole row) never matter."""
+    case = _int8_case(4, 8, seed=6)
+    table, cursors = case[3], case[4]
+    want = _port_int8(case)
+    stale = table.copy()
+    live = np.minimum((cursors + 3) // 8, table.shape[1] - 1)
+    for b, last in enumerate(live):
+        stale[b, last + 1:] = 10**6
+    stale[cursors >= MAX_LEN] = 10**6
+    got = _port_int8(case[:3] + (stale,) + case[4:])
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    assert not got[torch.from_numpy(cursors >= MAX_LEN)].any()
+
+
+@pytest.mark.parametrize("bad", ["scale_dtype", "scale_shape", "no_scales",
+                                 "scales_without_int8", "one_scale"])
+def test_int8_kernel_input_checks_raise(bad):
+    """What the CUDA wrapper refuses before an int8 launch: an int8 pool
+    always reaches the int8 kernel with matching bf16 scales, or raises."""
+    q, pk, pv, table, cursors, sk, sv = _torch(*_int8_case(1, 8))
+    sk, sv = sk.bfloat16(), sv.bfloat16()
+    dtype = torch.float32
+    if bad == "scale_dtype":
+        sk, sv = sk.float(), sv.float()
+    elif bad == "scale_shape":
+        sk, sv = sk[:, :, :2].contiguous(), sv[:, :, :2].contiguous()
+    elif bad == "no_scales":
+        sk = sv = None
+    elif bad == "scales_without_int8":
+        pk, pv = pk.float(), pv.float()
+    elif bad == "one_scale":
+        sv = None
+    with pytest.raises(ValueError):
+        tpa._check_cuda_inputs(q, pk, pv, table, cursors, dtype, sk, sv)
+    # the same inputs with matching scales pass
+    q, pk, pv, table, cursors, sk, sv = _torch(*_int8_case(1, 8))
+    tpa._check_cuda_inputs(q, pk, pv, table, cursors, dtype, sk.bfloat16(),
+                           sv.bfloat16())

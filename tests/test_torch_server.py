@@ -109,7 +109,7 @@ def test_engine_knobs_from_env(monkeypatch):
     assert knobs == {
         "num_slots": 3, "max_queue": 64, "prefill_buckets": [8, 32],
         "page_size": 8, "num_pages": 0, "prefix_cache": False,
-        "paged_attention": "kernel",
+        "paged_attention": "kernel", "quantize": "none",
     }
     ms = build_server("gpt_tiny", device="cpu", dtype=torch.float32)
     try:
@@ -169,7 +169,113 @@ def test_chip_smoke_serve_phases_rehearse_on_cpu():
         buckets="8,16,32",
     )
     # CPU tensors take the plain version: no kernel launches here
-    assert launches == {"paged_decode": 0, "paged_window": 0}
+    assert not any(launches.values())
     assert 0 < steps < stats["decode_steps"]  # the warm-up's are excluded
     assert stats["cow_copies"] == 1
+    assert stats["paged_attention_windows"] == {1: "kernel", 64: "kernel"}
+
+
+def test_quantize_knob_reaches_the_engine(monkeypatch):
+    """KFT_SERVING_QUANTIZE=int8 with the engine on: the engine serves
+    int8 weights over int8 pages; the ServedLm stays full width."""
+    monkeypatch.setenv("KFT_SERVING_QUANTIZE", "int8")
+    assert engine_knobs_from_env()["quantize"] == "int8"
+    ms = build_server("gpt_tiny", device="cpu", dtype=torch.float32,
+                      num_slots=2, page_size=8, paged_attention="kernel")
+    httpd = Server(ms.app, port=0)
+    httpd.start()
+    try:
+        eng = ms.engine("gpt_tiny")
+        row = ((np.arange(9) * 3 + 1) % 512).tolist()
+        status, body, _ = _post(httpd.port, {"prompt_ids": [row],
+                                             "max_new_tokens": 6})
+        stats = eng.stats()
+    finally:
+        httpd.stop()
+        ms.close()
+    assert status == 200, body
+    assert (stats["quantize"], stats["kv_pool_dtype"]) == ("int8", "int8")
+    assert eng.model.quantize == "int8"
+    assert ms.lm("gpt_tiny").model.quantize == "none"
+    assert len(body["sequences"][0]) == 15
+    assert stats["admitted"] == 1
+    assert stats["paged_attention_windows"] == {1: "kernel"}
+
+
+def test_static_path_serves_int8(monkeypatch):
+    """num_slots=0 + quantize=int8: the ServedLm's resident weights are
+    int8, and its tokens equal `generate()` over the dequantized weights
+    (the int8 oracle)."""
+    from kubeflow_tpu_torch.checkpointing.quantize import (
+        dequantize_params,
+        quantize_params_int8,
+    )
+    from kubeflow_tpu_torch.models import get_model
+
+    monkeypatch.delenv("KFT_SERVING_QUANTIZE", raising=False)
+    ms = build_server("gpt_tiny", device="cpu", dtype=torch.float32,
+                      num_slots=0, quantize="int8")
+    httpd = Server(ms.app, port=0)
+    httpd.start()
+    try:
+        lm = ms.lm("gpt_tiny")
+        row = ((np.arange(9) * 3 + 1) % 512).tolist()
+        status, body, _ = _post(httpd.port, {"prompt_ids": [row],
+                                             "max_new_tokens": 6})
+    finally:
+        httpd.stop()
+        ms.close()
+    assert status == 200, body
+    assert lm.quantize == "int8" and lm.model.quantize == "int8"
+    assert {t.dtype for n, t in lm.model.state_dict().items()
+            if n.endswith("kernel")} == {torch.int8}
+    full = get_model("gpt_tiny", dtype=torch.float32, device="cpu")
+    deq = get_model("gpt_tiny", dtype=torch.float32, device="cpu")
+    deq.load_state_dict(dequantize_params(
+        quantize_params_int8(full.state_dict()), torch.float32))
+    assert body["sequences"][0][-6:] == generate(deq, [row], 6)[0, 9:].tolist()
+
+
+@pytest.mark.parametrize("where", ["arg", "env", "served_lm", "engine"])
+def test_bad_quantize_values_raise(monkeypatch, where):
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.generate import ServedLm
+
+    with pytest.raises(ValueError, match="quantize"):
+        if where == "arg":
+            build_server("gpt_tiny", device="cpu", quantize="int4")
+        elif where == "env":
+            monkeypatch.setenv("KFT_SERVING_QUANTIZE", "fp8")
+            build_server("gpt_tiny", device="cpu")
+        elif where == "served_lm":
+            ServedLm("t", get_model("gpt_tiny", device="cpu"), quantize="int4")
+        else:
+            DecodeEngine("t", get_model("gpt_tiny", device="cpu"),
+                         device="cpu", autostart=False, quantize="fp8")
+
+
+def test_chip_smoke_int8_serve_phase_rehearses_on_cpu():
+    """chip_smoke.py's phase 10 on the CPU at gpt_tiny size: int8 f32
+    tokens through the kernel read path equal gather's; the int8 bf16
+    run answers phase 5's traffic within the logit-gap bound with the
+    capacity ratio's pages in no more bytes; the accuracy gate holds."""
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.models import get_model
+
+    smoke = _chip_smoke()
+    eng = DecodeEngine("gpt_tiny", get_model("gpt_tiny", device="cpu",
+                                             dtype=torch.bfloat16),
+                       device="cpu", num_slots=8, page_size=16,
+                       autostart=False)
+    bf16_stats = eng.stats()
+    eng.close()
+    launches, stats, steps = smoke.phase_serve_int8(
+        torch, bf16_stats, model="gpt_tiny", device="cpu", f32_prompts=(5, 9),
+        f32_max_new=8, accuracy_shape=(2, 32), short=(3, 5, 9, 17, 30),
+        long_len=90, hit_len=40, max_new=16, buckets="8,16,32",
+    )
+    assert not any(launches.values())
+    assert 0 < steps < stats["decode_steps"]
+    assert stats["kv_pool_dtype"] == "int8" and stats["cow_copies"] == 1
     assert stats["paged_attention_windows"] == {1: "kernel", 64: "kernel"}
