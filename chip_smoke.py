@@ -8,7 +8,10 @@ Phases (any failure raises and the script exits non-zero):
 1. Device: raise unless CUDA is available; print the card's name and
    power limit as nvidia-smi reports them.
 2. Build: nvcc builds every kernel under kubeflow_tpu_torch/ops/csrc into
-   build/kernels/ (one nvcc per source, started together).
+   build/kernels/ (one nvcc per source, started together). ptxas's report
+   must show no spill in any instance of the bf16 flash forward or dK/dV
+   kernel and no ignored setmaxnreg (C7508); their register counts are
+   printed.
 3. Kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the card, at gpt_small's serving shapes (8 slots,
    12 heads x 64, page 16, 64 pages a slot, 384 pool pages), bf16 and
@@ -72,6 +75,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +137,9 @@ TRAIN_CFG = dict(
 )
 # phase 6's kernel shapes: one microbatch of TRAIN_CFG, gpt_small heads
 FB, FH, FD, FS = 2, 12, 64, 4096
+# the flash kernels built with TMA, wgmma and setmaxnreg: phase 2 fails when
+# ptxas reports that one of their instances spills or ignored setmaxnreg
+HOPPER_KERNELS = ("flash_fwd_bf16", "flash_bwd_dkv_bf16")
 
 # gpt_small serving geometry (engine defaults: 8 slots, page 16)
 B, H, D, PS, MP, NUM_PAGES = 8, 12, 64, 16, 64, 384
@@ -151,6 +158,36 @@ LARGEST = int(BUCKETS.split(",")[-1])
 # one window after its prefix hit (the whole prompt but its last token)
 MAIN_WINDOWS = (*range(LARGEST, LONG_LEN, CHUNK),
                 *range(LARGEST, HIT_LEN, CHUNK), HIT_LEN - 1)
+
+
+def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
+    """{(kernel, D): (registers, spill store bytes, spill load bytes)} of
+    each instance of `kernels` in a ptxas report (nvcc -Xptxas -v); raises
+    when one spills, when ptxas ignored a setmaxnreg (C7508), or when an
+    instance is missing."""
+    if "C7508" in log or "setmaxnreg ignored" in log:
+        raise AssertionError("ptxas ignored a setmaxnreg (C7508):\n" + "\n".join(
+            line for line in log.splitlines() if "C7508" in line or "setmaxnreg" in line))
+    report = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        kernel = next((k for k in kernels if k in name), None)
+        if kernel is None:
+            continue
+        d = int(re.search(r"ILi(\d+)E", name).group(1))
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        if regs is None or spills is None:
+            raise AssertionError(f"no ptxas register report for {name}")
+        report[(kernel, d)] = (int(regs.group(1)), int(spills.group(1)),
+                               int(spills.group(2)))
+    want = {(k, d) for k in kernels for d in (16, 64, 128)}
+    if set(report) != want:
+        raise AssertionError(f"ptxas reported {sorted(report)}, not {sorted(want)}")
+    spilled = {key: r for key, r in report.items() if r[1] or r[2]}
+    if spilled:
+        raise AssertionError(f"spills (registers, store bytes, load bytes): {spilled}")
+    return report
 
 
 def smi_line() -> str:
@@ -921,6 +958,11 @@ def main() -> int:
     print(f"build: {sorted(libs)} in {time.monotonic() - t0:.2f} s", flush=True)
     for name, log in build_logs.items():
         print(f"build log {name}:\n{log.strip()}", flush=True)
+    report = hopper_kernel_report(build_logs["flash_attention"])
+    print("ptxas, the Hopper kernels (registers a thread at launch; no spills, "
+          "setmaxnreg honoured): " + ", ".join(
+              f"{k} D={d} {r[0]}" for (k, d), r in sorted(report.items())),
+          flush=True)
 
     records = phase_kernels(torch)
     f32_model = phase_serve_f32(torch)

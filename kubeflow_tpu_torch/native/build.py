@@ -38,7 +38,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-# ptxas register/shared-memory report of each build this process ran
+# ptxas register/shared-memory report of each library this process built
+# or found built (nvcc's output, kept beside the library as <name>.so.log)
 build_logs: Dict[str, str] = {}
 
 
@@ -74,8 +75,13 @@ def _tmp_path(name: str) -> str:
 
 
 def _start_build(name: str) -> Optional[subprocess.Popen]:
-    """Start nvcc for `name` unless its library is already built."""
-    if os.path.exists(_library_path(name)):
+    """Start nvcc for `name` unless its library is already built with its
+    report (which then goes into build_logs)."""
+    report = _library_path(name) + ".log"
+    if os.path.exists(_library_path(name)) and os.path.exists(report):
+        if name not in build_logs:
+            with open(report) as f:
+                build_logs[name] = f.read()
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", _tmp_path(name),
@@ -89,7 +95,10 @@ def _finish_build(name: str, proc: subprocess.Popen) -> None:
     output, _ = proc.communicate()
     if proc.returncode != 0:
         raise KernelBuildError(f"nvcc failed for {name}.cu:\n{output}")
-    # atomic: a concurrent loader never sees a half-written library
+    # the report first, then the library (atomic: a concurrent loader never
+    # sees a half-written one), so a built library always has its report
+    with open(_library_path(name) + ".log", "w") as f:
+        f.write(output)
     os.replace(_tmp_path(name), _library_path(name))
     build_logs[name] = output
 

@@ -2,10 +2,11 @@
 // C interface loaded with ctypes (kubeflow_tpu_torch/native/build.py).
 // Three kernels, one per TPU kernel body of kubeflow_tpu/ops/flash_attention.py:
 //
-//   flash_fwd      replaces `_fwd_kernel` (blockwise online-softmax
-//                  attention: o in the input dtype, f32 lse = m + log l)
-//   flash_bwd_dq   replaces `_bwd_dq_kernel` (dQ = scale · Σ_k dS·K)
-//   flash_bwd_dkv  replaces `_bwd_dkv_kernel` (dV = Σ_q Pᵀ·dO,
+//   flash_fwd      replaces `_fwd_kernel` (kubeflow_tpu/ops/flash_attention.py:169;
+//                  blockwise online-softmax attention: o in the input
+//                  dtype, f32 lse = m + log l)
+//   flash_bwd_dq   replaces `_bwd_dq_kernel` (:276; dQ = scale · Σ_k dS·K)
+//   flash_bwd_dkv  replaces `_bwd_dkv_kernel` (:331; dV = Σ_q Pᵀ·dO,
 //                  dK = scale · Σ_q dSᵀ·Q)
 //
 // each in a bf16 version on the tensor cores and an f32 version on the CUDA
@@ -28,38 +29,62 @@
 // optional key mask is [B, S] int32. Any S works: keys and queries past S
 // are masked inside the kernels, so nothing is padded to a tile multiple.
 //
-// Design. One block of 4 warps per (tile, b·h). The forward and dQ
-// kernels own a tile of q rows and walk the k tiles up to the diagonal
-// under causal (the skipped tiles cost neither loads nor math); the dK/dV
-// kernel owns a tile of keys and walks the q tiles from the first one that
-// sees it. This is the TPU kernels' two-kernel split: no atomics,
-// deterministic gradients. Causal q tiles launch heaviest first. Tiles are
-// copied with 16-byte vectors into padded shared memory. `causal` and the
-// key mask are runtime flags (warp-uniform branches), so nvcc builds 6
-// instances per kernel, not 24.
+// Common to all: the forward and dQ kernels own a tile of q rows and walk
+// the k tiles up to the diagonal under causal (tiles above it are never
+// loaded); the dK/dV kernel owns a tile of keys and walks the q tiles from
+// the first one that sees it. This is the TPU kernels' two-kernel split:
+// no atomics, deterministic gradients. Causal q tiles launch heaviest
+// first. `causal` and the key mask are runtime flags (uniform branches), so
+// nvcc builds one instance per kernel and D.
 //
-// - bf16 (the training path): 64-row tiles, each warp owning a strip of 16
-//   rows. Products run as mma.sync m16n8k16 (bf16 in, f32 accumulate) with
-//   the accumulators in registers: the strip's scores, its probabilities
-//   (re-packed from the accumulator layout straight into the next
-//   product's A operand, never stored), its online-softmax state (two rows
-//   a thread, reduced over the 4 threads of a quad) and its output or
-//   gradient accumulators. Shared memory holds only the q/k/v/dO tiles;
-//   the walked ones are double-buffered, the next tile streaming in with
-//   cp.async while the current one is computed.
-// - f32: 32-row tiles on the CUDA cores (a register tile of outputs per
-//   thread), scores and accumulators staged in shared memory.
+// What bounds them: at gpt_small's training shapes (B = 2, H = 12,
+// S = 4096, D = 64, causal) operations, not bytes: the forward does
+// ½·4·B·H·S²·D = 51.5 GFLOP on 25 MB of q/k/v/o (~2000 flops a byte, far
+// past the H100's ~295), dK/dV twice that. At D = 64 a score costs 2·D
+// tensor-core flops per product against one exponential, so the
+// exponential unit (16 a clock per SM) is a co-limit beside the tensor
+// cores.
 //
-// What bounds it: at gpt_small's training shapes (B = 2, H = 12, S = 4096,
-// D = 64, causal) the work is bound by operations, not bytes: the forward
-// does ½·4·B·H·S²·D = 51.5 GFLOP on 25 MB of q/k/v/o (~2000 flops a byte,
-// far past the H100's ~295). What this design leaves on the table: wgmma
-// (the only path to the card's full bf16 rate; mma.sync reaches a fraction
-// of it), TMA with a deeper mbarrier pipeline and warp specialisation (here
-// one tile in flight, and every warp both loads and computes), and a
-// persistent schedule that balances the causal triangle's uneven tiles
-// across SMs.
+// bf16 forward and dK/dV (the training path): designed for Hopper. What
+// held the mma.sync design back, and what this one does about it:
+// 1. mma.sync m16n8k16 reaches a fraction of the bf16 rate: the products
+//    are wgmma (m64nNk16), B read by the tensor cores straight from
+//    shared memory, and for the score products A too.
+// 2. 64-row tiles of 16 rows a warp, A fragments reloaded from shared
+//    memory for every walked tile: a block's tile is 128 rows, two
+//    consumer warpgroups of 64 rows sharing each K/V (or Q/dO) tile, and
+//    no ldmatrix at all. Probabilities (and dSᵀ) go from the f32
+//    accumulator layout straight into the next product's register A
+//    operand.
+// 3. Every mask on every tile: the causal compare runs on the diagonal
+//    tile only, the ragged-tail compare on the last tile only, the key mask
+//    only when one is given (the forward reads it as 128 bits a tile that
+//    the producer warp packs with ballots). A masked score becomes -inf
+//    before its exponential, which then gives p = 0 exactly. Tiles above
+//    the diagonal are never loaded.
+// 4. Precise expf per score: the softmax runs in the exp2 domain,
+//    scale·log2(e) folded into one FMA per score and ex2.approx; lse is
+//    written back in natural-log units.
+// 5. One tile in flight and loads on the math warps: a producer warpgroup
+//    (24 registers a thread after setmaxnreg; the consumers get 240), in
+//    which one warp works and its lane 0 issues every TMA copy, keeps a
+//    ring of 2-3 stages full, guarded by full and empty mbarriers; there is
+//    no __syncthreads() in the main loop. Tensor maps are 4-D (D, H, S, B)
+//    over the [B, S, H, D] tensors; TMA zero-fills rows past S, and its
+//    swizzle (128 B for D = 64, two 64-column boxes for D = 128, 32 B for
+//    D = 16) is the one the wgmma descriptors name. The two consumer
+//    warpgroups overlap each other's softmax and products; inside one, the
+//    forward issues the next tile's S right behind this tile's P·V (one
+//    wait for both). Overlapping a warpgroup's softmax with its own
+//    product in flight is not done: ptxas (CUDA 12.8) serialises the
+//    products when registers of an in-flight wgmma group are read.
+// dQ (flash_bwd_dq_bf16) is still the mma.sync design: 64-row tiles, a
+// strip of 16 rows a warp, cp.async double buffering.
+//
+// f32 (the parity path): 32-row tiles on the CUDA cores (a register tile
+// of outputs per thread), scores and accumulators staged in shared memory.
 
+#include <cuda.h>  // CUtensorMap and its enums only: no driver library is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -164,7 +189,7 @@ __device__ __forceinline__ void load_row_values(float* dst, const float* src, in
 }
 
 // ===========================================================================
-// bf16: mma.sync m16n8k16 with register accumulators
+// bf16 dQ: mma.sync m16n8k16 with register accumulators
 // ===========================================================================
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16; g = lane / 4, t = lane % 4):
@@ -191,7 +216,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ldmatrix: each of the first 8·N lanes gives the shared address of one
 // 8-element row (lanes 8i..8i+7: matrix i); lane l receives matrix i's
 // elements (l / 4, 2·(l % 4)..+1), or with .trans (2·(l % 4)..+1, l / 4)
-__device__ __forceinline__ uint32_t smem_addr(const bf16* p) {
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
@@ -298,117 +323,8 @@ struct Geo16 {
   static constexpr int LD = D + 8;  // 16 bytes of padding a row
   static constexpr size_t kTile = sizeof(bf16) * kTile16 * LD;
   static constexpr size_t kRow = sizeof(float) * kTile16;
-  static constexpr size_t kFwdSmem = 5 * kTile + 2 * kRow;  // Q, K×2, V×2 | keymask×2
-  static constexpr size_t kDqSmem = 6 * kTile + 2 * kRow;   // Q, dO, K×2, V×2 | keymask×2
-  // K, V, Q×2, dO×2 | lse×2, delta×2, keymask
-  static constexpr size_t kDkvSmem = 6 * kTile + 5 * kRow;
+  static constexpr size_t kDqSmem = 6 * kTile + 2 * kRow;  // Q, dO, K×2, V×2 | keymask×2
 };
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const int* __restrict__ mask,
-               bf16* __restrict__ o, float* __restrict__ lse, int S, int H, float scale,
-               int causal) {
-  constexpr int BT = kTile16, LD = Geo16<D>::LD, NB = BT / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Kbuf = Qs + BT * LD;        // [2][BT][LD]
-  bf16* Vbuf = Kbuf + 2 * BT * LD;  // [2][BT][LD]
-  int* kmbuf = reinterpret_cast<int*>(Vbuf + 2 * BT * LD);  // [2][BT]
-
-  const int n_tiles = (S + BT - 1) / BT;
-  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest first
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = qt * BT, row_stride = H * D;
-  const size_t base = (static_cast<size_t>(b) * S * H + h) * D;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-
-  load_rows_async<D, BT, LD>(Qs, q + base, q0, S, row_stride);
-  load_rows_async<D, BT, LD>(Kbuf, k + base, 0, S, row_stride);
-  load_rows_async<D, BT, LD>(Vbuf, v + base, 0, S, row_stride);
-  cp_async_commit();
-  load_key_mask<BT>(kmbuf, mask, b, 0, S);
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  float m[2] = {kBigNeg, kBigNeg}, l[2] = {0.f, 0.f};
-  const int n_kt = causal ? qt + 1 : n_tiles;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BT, cur = kt & 1;
-    const bool more = kt + 1 < n_kt;
-    int km_next = 0;
-    if (more) {  // the next tile streams in while this one is computed
-      load_rows_async<D, BT, LD>(Kbuf + (cur ^ 1) * BT * LD, k + base, k0 + BT, S, row_stride);
-      load_rows_async<D, BT, LD>(Vbuf + (cur ^ 1) * BT * LD, v + base, k0 + BT, S, row_stride);
-      if (threadIdx.x < BT) km_next = key_valid(mask, b, k0 + BT + threadIdx.x, S);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* Ks = Kbuf + cur * BT * LD;
-    const bf16* Vs = Vbuf + cur * BT * LD;
-    const int* keymask = kmbuf + cur * BT;
-    float s[NB][4];
-    strip_abt<D, NB, LD>(s, Qs, r0, Ks);  // S = Q·Kᵀ
-    uint32_t live = 0;  // bit 4·j + e: score (j, e) is visible
-    float mx[2] = {kBigNeg, kBigNeg};
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t + (e & 1);
-        const bool vis = keymask[c] && (!causal || k0 + c <= rows[e >> 1]);
-        live |= static_cast<uint32_t>(vis) << (4 * j + e);
-        s[j][e] = vis ? s[j][e] * scale : kBigNeg;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-    float alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = (live >> (4 * j + e)) & 1u ? expf(s[j][e] - m[e >> 1]) : 0.f;
-        sum[e >> 1] += s[j][e];
-      }
-    }
-    // per-thread partial row sums: alpha is the same on the whole quad
-    l[0] = l[0] * alpha[0] + sum[0];
-    l[1] = l[1] * alpha[1] + sum[1];
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-    strip_pv<D, NB, LD>(acc, s, Vs);  // O += P·V
-    if (more && threadIdx.x < BT) kmbuf[(cur ^ 1) * BT + threadIdx.x] = km_next;
-    __syncthreads();  // buffer `cur` is free for tile kt + 2
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float lr = fmaxf(quad_sum(l[r]), 1e-30f);
-    if (t == 0 && rows[r] < S) lse[static_cast<size_t>(bh) * S + rows[r]] = m[r] + logf(lr);
-    // o = acc / l, divided as the Pallas kernel divides
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      acc[j][2 * r] /= lr;
-      acc[j][2 * r + 1] /= lr;
-    }
-  }
-  const float one[2] = {1.f, 1.f};
-  store_strip<D>(o + base, acc, rows, S, row_stride, one);
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -487,102 +403,733 @@ flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_strip<D>(dq + base, acc, rows, S, row_stride, mul);
 }
 
+// ===========================================================================
+// bf16 forward and dK/dV for Hopper: TMA, mbarriers, wgmma, warp
+// specialisation
+// ===========================================================================
+//
+// A block is three warpgroups: two consumers (first, as wgmma wants them
+// warpgroup-aligned), each owning 64 rows of the block's 128-row tile, and
+// a producer warpgroup, of which one warp works: its lane 0 issues the TMA
+// copies, and all its lanes pack the forward's key-mask bits or write the
+// dK/dV kernel's lse and delta rows. wgmma's f32
+// accumulator of an m64nN product gives warp w of a warpgroup rows
+// 16w + g and 16w + g + 8 (g = lane / 4), and register i of a thread the
+// column 8·(i / 4) + 2·(lane % 4) + (i % 2) of row 16w + g + 8·((i / 2) % 2):
+// per 8 columns the mma.sync C layout above, and as pairs the A-fragment
+// layout of the next product's register operand.
+
+constexpr int kWarpGroup = 128;
+constexpr int kConsumers = 2;  // consumer warpgroups a block
+constexpr int kConsumerThreads = kConsumers * kWarpGroup;
+constexpr int kHopThreads = kConsumerThreads + kWarpGroup;  // + the producer warpgroup
+// registers a thread after setmaxnreg: 24·128 + 240·256 = the 168·384 a
+// block of 384 threads starts with
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+// an mbarrier wait of this many polls (each try_wait suspends the thread a
+// while) means a lost arrival: trap rather than hang the card
+constexpr uint32_t kWaitLimitPolls = 1u << 28;
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
+
+__device__ __forceinline__ float fast_exp2(float x) {  // ex2(-inf) = +0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// threadIdx.x / 128, broadcast from lane 0 so that the compiler knows it is
+// warp-uniform: the descriptors built from it then live in uniform registers
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kWarpGroup, 0);
+}
+
+// -- mbarriers (shared addresses) ---------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// arrive, and add `bytes` to the transfers the current phase waits for
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t polls = 0; !mbar_try(bar, parity);)
+    if (++polls == kWaitLimitPolls) __trap();
+}
+
+// -- TMA ------------------------------------------------------------------------
+
+// copy the box at (c0, c1, c2, c3) of a 4-D tensor map into shared memory;
+// its bytes complete a transfer of `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// -- wgmma --------------------------------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Registers an asynchronous wgmma reads or writes: the empty asm redefines
+// them here, so no read or write of them moves across this point.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// `x` as a value the compiler cannot see through: descriptors built from it
+// inside a loop are rebuilt there (a few integer adds) instead of being
+// hoisted and held, 2 registers each, across the loop
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, swizzle (1 = 128 B, 3 = 32 B)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                               uint64_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32 | swizzle << 62;
+}
+
+// wgmma m64nNk16, bf16 in, f32 accumulators
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // d[64×16] += a·b; a (bf16 pairs) in registers, b MN-major in shared memory
+  static __device__ __forceinline__ void rs_t(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  // d[64×64] = a·b (accumulate = 0) or d + a·b; a and b K-major in shared memory
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // d[64×64] += a·b; a (bf16 pairs) in registers, b MN-major in shared memory
+  static __device__ __forceinline__ void rs_t(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  // d[64×128] = a·b (accumulate = 0) or d + a·b; a and b K-major in shared memory
+  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+  // d[64×128] += a·b; a (bf16 pairs) in registers, b MN-major in shared memory
+  static __device__ __forceinline__ void rs_t(float* d, const uint32_t* a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, "
+        "%40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, "
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+// A [rows][D] bf16 tile as TMA leaves it in shared memory (1024-byte
+// aligned): D = 16 as one box of 32-byte rows with the 32-byte swizzle,
+// D = 64 as one box of 128-byte rows with the 128-byte swizzle, D = 128 as
+// two such boxes of 64 columns, one after the other. The descriptors name
+// the same swizzle; 8 rows make one swizzle atom.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const int* __restrict__ mask,
-                   const bf16* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int S, int H, float scale, int causal) {
-  constexpr int BT = kTile16, LD = Geo16<D>::LD, NB = BT / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BT * LD;
-  bf16* Qbuf = Vs + BT * LD;          // [2][BT][LD]
-  bf16* dObuf = Qbuf + 2 * BT * LD;   // [2][BT][LD]
-  float* lse_buf = reinterpret_cast<float*>(dObuf + 2 * BT * LD);  // [2][BT]
-  float* dl_buf = lse_buf + 2 * BT;                                  // [2][BT]
-  int* keymask = reinterpret_cast<int*>(dl_buf + 2 * BT);
+struct Swz {
+  static constexpr int kCols = D < 64 ? D : 64;  // columns of one box
+  static constexpr int kBoxes = D / kCols;
+  static constexpr uint32_t kRow = 2 * kCols;  // bytes of a box row
+  static constexpr uint32_t kAtom = 8 * kRow;
+  static constexpr uint64_t kSwizzle = D == 16 ? 3 : 1;
+
+  // K-major operand (D is the reduced dimension): rows from r0 of a tile
+  // of `rows` rows at `tile`, columns [16·kk, 16·kk + 16)
+  static __device__ __forceinline__ uint64_t k_major(uint32_t tile, int rows, int r0, int kk) {
+    const int box = 16 * kk / kCols, col = 16 * kk % kCols;
+    return wgmma_desc(tile + box * rows * kRow + r0 * kRow + 2 * col, 16, kAtom, kSwizzle);
+  }
+
+  // MN-major operand (the tile's rows are the reduced dimension): rows
+  // [16·kk, 16·kk + 16), all D columns; boxes `rows` rows apart
+  static __device__ __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int kk) {
+    return wgmma_desc(tile + 16 * kk * kRow, rows * kRow, kAtom, kSwizzle);
+  }
+};
+
+// rows [row0, row0 + rows) of head h, batch row b, into the tile at `dst`
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int rows, int row0, int h, int b) {
+#pragma unroll
+  for (int box = 0; box < Swz<D>::kBoxes; ++box)
+    tma_load(dst + box * rows * Swz<D>::kRow, map, bar, box * Swz<D>::kCols, h, row0, b);
+}
+
+__device__ __forceinline__ uint32_t align1024(uint32_t addr) { return (addr + 1023u) & ~1023u; }
+
+// the parity of the i-th use of a ring of kStages stages (use i fills stage
+// i % kStages for the (i / kStages)-th time)
+template <int kStages>
+__device__ __forceinline__ uint32_t ring_parity(int i) {
+  return static_cast<uint32_t>(i / kStages) & 1u;
+}
+
+// Forward: Q (128 rows) once, then K and V tiles of 128 keys through a
+// ring, with a key mask's 128 bits beside each; shared memory is Q |
+// K × stages | V × stages | mask words × stages | barriers.
+template <int D>
+struct FwdHop {
+  static constexpr int kRows = 128;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  // the next tile's S is issued behind this tile's P·V, except at D = 128,
+  // where S, O and P in flight together do not fit in registers
+  static constexpr bool kNextSBehindPv = D < 128;
+  static constexpr uint32_t kTile = kRows * D * 2;
+  static constexpr uint32_t kOffK = kTile;
+  static constexpr uint32_t kOffV = kOffK + kStages * kTile;
+  static constexpr uint32_t kOffMask = kOffV + kStages * kTile;  // 4 words a stage
+  static constexpr uint32_t kOffBar = kOffMask + 16 * kStages;  // Q full, full × stages, empty × stages
+  static constexpr size_t kSmem = kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const int* __restrict__ mask,
+               bf16* __restrict__ o, float* __restrict__ lse, int S, int H, float scale,
+               int causal) {
+  using G = FwdHop<D>;
+  using W = Swz<D>;
+  constexpr int BT = G::kRows;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = align1024(smem_addr(smem));
+  uint32_t* mask_words =
+      reinterpret_cast<uint32_t*>(smem + (base - smem_addr(smem)) + G::kOffMask);
+  const uint32_t bar_q = base + G::kOffBar;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * G::kStages;
 
   const int n_tiles = (S + BT - 1) / BT;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_kt = causal ? qt + 1 : n_tiles;
+  const int wg = warpgroup_index();
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < G::kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one warp; its lane 0 issues every copy and, with a key
+    // mask, writes the stage's 128 mask bits (one ballot of the warp per
+    // 32 keys; keys past S are 0)
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x / 32 == kConsumerThreads / 32) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        mbar_arrive_tx(bar_q, G::kTile);
+        tma_tile<D>(base, &tm_q, bar_q, BT, qt * BT, h, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % G::kStages;
+        if (j >= G::kStages) mbar_wait(bar_empty + 8 * st, ring_parity<G::kStages>(j) ^ 1u);
+        if (mask != nullptr) {
+#pragma unroll
+          for (int w = 0; w < BT / 32; ++w) {
+            const int key = j * BT + 32 * w + lane;
+            const uint32_t bits = __ballot_sync(
+                0xffffffffu, key < S && mask[static_cast<size_t>(b) * S + key] != 0);
+            if (lane == 0) mask_words[st * (BT / 32) + w] = bits;
+          }
+        }
+        if (lane == 0) {
+          mbar_arrive_tx(bar_full + 8 * st, 2 * G::kTile);
+          tma_tile<D>(base + G::kOffK + st * G::kTile, &tm_k, bar_full + 8 * st, BT, j * BT, h, b);
+          tma_tile<D>(base + G::kOffV + st * G::kTile, &tm_v, bar_full + 8 * st, BT, j * BT, h, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns q rows [64·wg, 64·wg + 64) of the tile
+    setmaxnreg_inc<kConsumerRegs>();
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int r0 = wg * 64 + (threadIdx.x % kWarpGroup >> 5) * 16 + g;
+    const int rows[2] = {qt * BT + r0, qt * BT + r0 + 8};
+    const float c = scale * kLog2e;  // scores in the exp2 domain
+    float acc[D / 2], s[BT / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) s[i] = 0.f;
+    float m2[2] = {kBigNeg, kBigNeg}, l[2] = {0.f, 0.f};  // running max (·c) and sum
+    // S = Q·K_jᵀ of the tile at ring use j into s
+    auto issue_s = [&](int j) {
+      const int st = j % G::kStages;
+      const uint32_t qb = opaque(base);
+      mbar_wait(bar_full + 8 * st, ring_parity<G::kStages>(j));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<BT>::ss(s, W::k_major(qb, BT, wg * 64, kk),
+                      W::k_major(qb + G::kOffK + st * G::kTile, BT, 0, kk), kk);
+      wgmma_commit();
+    };
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_kt; ++j) {
+      // the softmax of tile j, then its P·V and (where registers allow) the
+      // next tile's S issued back to back: one wait covers both
+      const int st = j % G::kStages, k0 = j * BT;
+      if (!G::kNextSBehindPv || j == 0) {
+        wgmma_fence();
+        issue_s(j);
+        wgmma_wait<0>();
+        fence_regs<BT / 2>(s);
+      }
+      if ((causal && j == qt) || k0 + BT > S || mask != nullptr) {
+        uint4 kw = make_uint4(~0u, ~0u, ~0u, ~0u);  // the stage's mask bits
+        if (mask != nullptr) kw = *reinterpret_cast<const uint4*>(mask_words + st * (BT / 32));
+        const uint32_t words[4] = {kw.x, kw.y, kw.z, kw.w};
+#pragma unroll
+        for (int i = 0; i < BT / 2; ++i) {
+          const int c = 8 * (i >> 2) + 2 * t + (i & 1), col = k0 + c;
+          const bool vis = col < S && (!causal || col <= rows[(i >> 1) & 1]) &&
+                           (words[i >> 4] >> (c & 31) & 1u);  // word c / 32
+          if (!vis) s[i] = neg_inf();
+        }
+      }
+      float mx[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m2[r], quad_max(mx[r]) * c);
+        alpha[r] = fast_exp2(m2[r] - m_new);
+        m2[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) {
+        s[i] = fast_exp2(fmaf(s[i], c, -m2[(i >> 1) & 1]));
+        sum[(i >> 1) & 1] += s[i];
+      }
+      // per-thread partial row sums: alpha is the same on the whole quad
+      l[0] = l[0] * alpha[0] + sum[0];
+      l[1] = l[1] * alpha[1] + sum[1];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      uint32_t p[BT / 4];  // P in bf16 as the A operand of 8 k-steps
+#pragma unroll
+      for (int i = 0; i < BT / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+      wgmma_fence();  // O += P·V, then S of the next tile
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk)
+        Wgmma<D>::rs_t(acc, p + 4 * kk, W::mn_major(opaque(base) + G::kOffV + st * G::kTile, BT, kk));
+      wgmma_commit();
+      if (G::kNextSBehindPv && j + 1 < n_kt) issue_s(j + 1);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(acc);
+      fence_regs<BT / 4>(p);
+      if (G::kNextSBehindPv) fence_regs<BT / 2>(s);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = quad_sum(l[r]), ld = fmaxf(lr, 1e-30f);
+      if (t == 0 && rows[r] < S)
+        lse[static_cast<size_t>(bh) * S + rows[r]] = (lr > 0.f ? m2[r] * kLn2 : kBigNeg) + logf(ld);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        if (((i >> 1) & 1) == r) acc[i] /= ld;  // o = acc / l, as the Pallas kernel divides
+    }
+    const float one[2] = {1.f, 1.f};
+    store_strip<D>(o + (static_cast<size_t>(b) * S * H + h) * D,
+                   reinterpret_cast<float(*)[4]>(acc), rows, S, H * D, one);
+  }
+}
+
+// dK/dV: K and V (128 keys) once, then Q and dO tiles of 64 queries, with
+// their lse·log2(e) and delta rows, through a ring; shared memory is K | V |
+// Q × stages | dO × stages | rows × stages | barriers. The producer warp
+// writes the rows with plain loads, not bulk copies: a [B, H, S] row of
+// 64 floats starts 16-byte aligned, as bulk copies need, only when S % 4 == 0.
+template <int D>
+struct DkvHop {
+  static constexpr int kKeys = 128, kQRows = 64, kStages = 3;
+  static constexpr int kWalks = D == 128 ? 2 : 1;  // see DkvWalk
+  static constexpr uint32_t kKV = kKeys * D * 2;
+  static constexpr uint32_t kQ = kQRows * D * 2;
+  static constexpr uint32_t kOffV = kKV;
+  static constexpr uint32_t kOffQ = 2 * kKV;
+  static constexpr uint32_t kOffDo = kOffQ + kStages * kQ;
+  static constexpr uint32_t kOffRows = kOffDo + kStages * kQ;  // [stage][lse·log2e 64 | delta 64]
+  static constexpr uint32_t kOffBar = kOffRows + kStages * 2 * kQRows * 4;  // KV full, full, empty
+  static constexpr size_t kSmem = kOffBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// What one walk of a dK/dV consumer over the q tiles accumulates: both
+// gradients, or, at D = 128 (where dK and dV alone fill 128 registers a
+// thread and the score products would then spill), dV in a first walk and
+// dK in a second that recomputes Sᵀ.
+enum DkvWalk { kBoth, kOnlyDv, kOnlyDk };
+
+// One consumer warpgroup of the dK/dV kernel: it owns keys
+// [wkey0, wkey0 + 64); its scores are transposed (rows are keys, columns
+// the tile's queries).
+template <int D>
+struct DkvConsumer {
+  using G = DkvHop<D>;
+  using W = Swz<D>;
+  static constexpr int QR = G::kQRows;
+  uint32_t base, bar_full, bar_empty;
+  const float* rows_s;
+  const int* mask;
+  int wg, t, wkey0, first, n_qt, S, causal;
+  int key;          // this thread's first key row; its second is key + 8
+  uint32_t key_ok;  // bit r: key + 8·r exists and is not padding
+  float c;          // scale·log2(e)
+
+  // walk the q tiles once, the ring at its i0-th use when the walk starts
+  template <DkvWalk kWalk>
+  __device__ __forceinline__ void walk(float* dv_acc, float* dk_acc, int i0) const {
+    constexpr bool kDv = kWalk != kOnlyDk, kDk = kWalk != kOnlyDv;
+    float s[QR / 2], dp[QR / 2];
+#pragma unroll
+    for (int e = 0; e < QR / 2; ++e) s[e] = dp[e] = 0.f;
+    for (int j = 0; first + j < n_qt; ++j) {
+      const int i = i0 + j, st = i % G::kStages, q0 = (first + j) * QR;
+      mbar_wait(bar_full + 8 * st, ring_parity<G::kStages>(i));
+      if (causal && q0 + QR <= wkey0) {  // every query precedes every key here
+        mbar_arrive(bar_empty + 8 * st);
+        continue;
+      }
+      const uint32_t kb = opaque(base);
+      const uint32_t qs = kb + G::kOffQ + st * G::kQ, dos = kb + G::kOffDo + st * G::kQ;
+      const float* lse_s = rows_s + st * 2 * QR;
+      const float* dl_s = lse_s + QR;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)  // Sᵀ = K·Qᵀ
+        Wgmma<QR>::ss(s, W::k_major(kb, G::kKeys, wg * 64, kk), W::k_major(qs, QR, 0, kk), kk);
+      if constexpr (kDk) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)  // dPᵀ = V·dOᵀ
+          Wgmma<QR>::ss(dp, W::k_major(kb + G::kOffV, G::kKeys, wg * 64, kk),
+                        W::k_major(dos, QR, 0, kk), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<QR / 2>(s);
+      if constexpr (kDk) fence_regs<QR / 2>(dp);
+      if ((causal && q0 < wkey0 + 64) || q0 + QR > S || mask != nullptr) {
+#pragma unroll
+        for (int e = 0; e < QR / 2; ++e) {
+          const int col = q0 + 8 * (e >> 2) + 2 * t + (e & 1), r = (e >> 1) & 1;
+          if (!((key_ok >> r & 1u) && col < S && (!causal || key + 8 * r <= col))) s[e] = neg_inf();
+        }
+      }
+      // Pᵀ = exp2(Sᵀ·scale·log2e − lse·log2e) and dSᵀ = Pᵀ∘(dPᵀ − delta),
+      // each straight into bf16 A operands (register e: columns
+      // 8·(e / 2) + 2t, +1 of row g + 8·(e % 2))
+      uint32_t pa[QR / 4], da[QR / 4];
+#pragma unroll
+      for (int e = 0; e < QR / 4; ++e) {
+        const int col = 8 * (e >> 1) + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+        const float p0 = fast_exp2(fmaf(s[2 * e], c, -l2.x));
+        const float p1 = fast_exp2(fmaf(s[2 * e + 1], c, -l2.y));
+        if constexpr (kDv) pa[e] = pack_bf16(p0, p1);
+        if constexpr (kDk) {
+          const float2 dl = *reinterpret_cast<const float2*>(dl_s + col);
+          da[e] = pack_bf16(p0 * (dp[2 * e] - dl.x), p1 * (dp[2 * e + 1] - dl.y));
+        }
+      }
+      wgmma_fence();
+      if constexpr (kDv) {
+#pragma unroll
+        for (int kk = 0; kk < QR / 16; ++kk)  // dV += Pᵀ·dO
+          Wgmma<D>::rs_t(dv_acc, pa + 4 * kk, W::mn_major(dos, QR, kk));
+      }
+      if constexpr (kDk) {
+#pragma unroll
+        for (int kk = 0; kk < QR / 16; ++kk)  // dK += dSᵀ·Q
+          Wgmma<D>::rs_t(dk_acc, da + 4 * kk, W::mn_major(qs, QR, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      if constexpr (kDv) {
+        fence_regs<D / 2>(dv_acc);
+        fence_regs<QR / 4>(pa);
+      }
+      if constexpr (kDk) {
+        fence_regs<D / 2>(dk_acc);
+        fence_regs<QR / 4>(da);
+      }
+      mbar_arrive(bar_empty + 8 * st);
+    }
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do, const int* __restrict__ mask,
+                   const float* __restrict__ lse, const float* __restrict__ delta,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, float scale,
+                   int causal) {
+  using G = DkvHop<D>;
+  constexpr int QR = G::kQRows;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = align1024(smem_addr(smem));
+  float* rows_s = reinterpret_cast<float*>(smem + (base - smem_addr(smem)) + G::kOffRows);
+  const uint32_t bar_kv = base + G::kOffBar;
+  const uint32_t bar_full = bar_kv + 8, bar_empty = bar_full + 8 * G::kStages;
+
   const int kt = blockIdx.x;  // low k tiles see the most q tiles: first
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = kt * BT, row_stride = H * D;
-  const size_t base = (static_cast<size_t>(b) * S * H + h) * D;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const int keys[2] = {k0 + r0 + g, k0 + r0 + g + 8};  // this thread's key rows
+  const int k0 = kt * G::kKeys;
+  const int n_qt = (S + QR - 1) / QR;
+  const int first = causal ? k0 / QR : 0;  // the first q tile that sees key k0
+  const int wg = warpgroup_index();
 
-  const int first = causal ? kt : 0;
-  load_rows_async<D, BT, LD>(Ks, k + base, k0, S, row_stride);
-  load_rows_async<D, BT, LD>(Vs, v + base, k0, S, row_stride);
-  load_rows_async<D, BT, LD>(Qbuf, q + base, first * BT, S, row_stride);
-  load_rows_async<D, BT, LD>(dObuf, dout + base, first * BT, S, row_stride);
-  cp_async_commit();
-  load_key_mask<BT>(keymask, mask, b, k0, S);
-  load_row_values<BT>(lse_buf, lse, bh, first * BT, S);
-  load_row_values<BT>(dl_buf, delta, bh, first * BT, S);
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
-    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < G::kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 32);  // the producer warp's lanes
+      mbar_init(bar_empty + 8 * st, kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int qt = first; qt < n_tiles; ++qt) {
-    const int q0 = qt * BT, cur = (qt - first) & 1;
-    const bool more = qt + 1 < n_tiles;
-    float lse_next = 0.f, dl_next = 0.f;
-    if (more) {  // the next tile streams in while this one is computed
-      load_rows_async<D, BT, LD>(Qbuf + (cur ^ 1) * BT * LD, q + base, q0 + BT, S, row_stride);
-      load_rows_async<D, BT, LD>(dObuf + (cur ^ 1) * BT * LD, dout + base, q0 + BT, S,
-                                 row_stride);
-      const int qn = q0 + BT + threadIdx.x;
-      if (threadIdx.x < BT && qn < S) {
-        lse_next = lse[static_cast<size_t>(bh) * S + qn];
-        dl_next = delta[static_cast<size_t>(bh) * S + qn];
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: its first warp writes each stage's lse·log2(e) and delta
+    // rows (one per query; 0 past S), lane 0 issues every copy
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x / 32 == kConsumerThreads / 32) {
+      const int lane = threadIdx.x & 31;
+      const float* lse_bh = lse + static_cast<size_t>(bh) * S;
+      const float* delta_bh = delta + static_cast<size_t>(bh) * S;
+      if (lane == 0) {
+        mbar_arrive_tx(bar_kv, 2 * G::kKV);
+        tma_tile<D>(base, &tm_k, bar_kv, G::kKeys, k0, h, b);
+        tma_tile<D>(base + G::kOffV, &tm_v, bar_kv, G::kKeys, k0, h, b);
+      }
+      const int n_walk = n_qt - first;
+      for (int i = 0; i < G::kWalks * n_walk; ++i) {
+        const int st = i % G::kStages, q0 = (first + i % n_walk) * QR;
+        if (i >= G::kStages) mbar_wait(bar_empty + 8 * st, ring_parity<G::kStages>(i) ^ 1u);
+        float* row_vals = rows_s + st * 2 * QR;
+#pragma unroll
+        for (int r = lane; r < QR; r += 32) {
+          const bool in = q0 + r < S;
+          row_vals[r] = in ? lse_bh[q0 + r] * kLog2e : 0.f;
+          row_vals[QR + r] = in ? delta_bh[q0 + r] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_arrive_tx(bar_full + 8 * st, 2 * G::kQ);
+          tma_tile<D>(base + G::kOffQ + st * G::kQ, &tm_q, bar_full + 8 * st, QR, q0, h, b);
+          tma_tile<D>(base + G::kOffDo + st * G::kQ, &tm_do, bar_full + 8 * st, QR, q0, h, b);
+        } else {
+          mbar_arrive(bar_full + 8 * st);
+        }
       }
     }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* Qs = Qbuf + cur * BT * LD;
-    const bf16* dOs = dObuf + cur * BT * LD;
-    const float* lse_s = lse_buf + cur * BT;
-    const float* dl_s = dl_buf + cur * BT;
-    const bool key_ok[2] = {keymask[r0 + g] != 0, keymask[r0 + g + 8] != 0};
-    // transposed scores: rows are this strip's keys, columns the tile's queries
-    float p[NB][4];
-    strip_abt<D, NB, LD>(p, Ks, r0, Qs);  // Sᵀ = K·Qᵀ
+  } else {
+    // consumers: warpgroup wg owns keys [k0 + 64·wg, k0 + 64·wg + 64)
+    setmaxnreg_inc<kConsumerRegs>();
+    const int lane = threadIdx.x & 31, g = lane >> 2;
+    const int r0 = wg * 64 + (threadIdx.x % kWarpGroup >> 5) * 16 + g;
+    const int key = k0 + r0;
+    uint32_t key_ok = 3u;
+    if (mask != nullptr) {
+      key_ok = 0u;
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t + (e & 1), r = e >> 1;
-        const bool vis = q0 + c < S && key_ok[r] && (!causal || keys[r] <= q0 + c);
-        p[j][e] = vis ? expf(p[j][e] * scale - lse_s[c]) : 0.f;
+      for (int r = 0; r < 2; ++r) {
+        const int kr = key + 8 * r;
+        key_ok |= static_cast<uint32_t>(kr < S && mask[static_cast<size_t>(b) * S + kr] != 0) << r;
       }
     }
-    strip_pv<D, NB, LD>(dv_acc, p, dOs);  // dV += Pᵀ·dO
-    float ds[NB][4];
-    strip_abt<D, NB, LD>(ds, Vs, r0, dOs);  // dPᵀ = V·dOᵀ
+    const DkvConsumer<D> cons{base, bar_full, bar_empty, rows_s, mask, wg, lane & 3, k0 + wg * 64,
+                              first, n_qt, S, causal, key, key_ok, scale * kLog2e};
+    const int keys[2] = {key, key + 8};
+    const size_t out = (static_cast<size_t>(b) * S * H + h) * D;
+    const float mul_k[2] = {scale, scale}, mul_v[2] = {1.f, 1.f};
+    mbar_wait(bar_kv, 0);
+    if constexpr (G::kWalks == 2) {
+      float acc[D / 2];
 #pragma unroll
-    for (int j = 0; j < NB; ++j) {
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      cons.template walk<kOnlyDv>(acc, nullptr, 0);
+      store_strip<D>(dv + out, reinterpret_cast<float(*)[4]>(acc), keys, S, H * D, mul_v);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t + (e & 1);
-        ds[j][e] = p[j][e] * (ds[j][e] - dl_s[c]);  // dSᵀ
-      }
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      cons.template walk<kOnlyDk>(nullptr, acc, n_qt - first);
+      store_strip<D>(dk + out, reinterpret_cast<float(*)[4]>(acc), keys, S, H * D, mul_k);
+    } else {
+      float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+      cons.template walk<kBoth>(dv_acc, dk_acc, 0);
+      store_strip<D>(dk + out, reinterpret_cast<float(*)[4]>(dk_acc), keys, S, H * D, mul_k);
+      store_strip<D>(dv + out, reinterpret_cast<float(*)[4]>(dv_acc), keys, S, H * D, mul_v);
     }
-    strip_pv<D, NB, LD>(dk_acc, ds, Qs);  // dK += dSᵀ·Q
-    if (more && threadIdx.x < BT) {
-      lse_buf[(cur ^ 1) * BT + threadIdx.x] = lse_next;
-      dl_buf[(cur ^ 1) * BT + threadIdx.x] = dl_next;
-    }
-    __syncthreads();  // buffer `cur` is free for tile qt + 2
   }
-  const float mul_k[2] = {scale, scale}, mul_v[2] = {1.f, 1.f};
-  store_strip<D>(dk + base, dk_acc, keys, S, row_stride, mul_k);
-  store_strip<D>(dv + base, dv_acc, keys, S, row_stride, mul_v);
 }
 
 // ===========================================================================
@@ -876,6 +1423,7 @@ struct Args {
 
 enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 
+// the f32 kernels, one block of kThreads per (tile, b·h)
 template <typename KernelFwd, typename KernelDq, typename KernelDkv, typename T>
 cudaError_t launch(Which which, const Args& a, int tile, KernelFwd fwd, size_t fwd_smem,
                    KernelDq dq, size_t dq_smem, KernelDkv dkv, size_t dkv_smem) {
@@ -906,13 +1454,90 @@ cudaError_t launch(Which which, const Args& a, int tile, KernelFwd fwd, size_t f
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map (D, H, S, B) over a contiguous [B, S, H, D] bf16 tensor whose
+// box is `rows` rows of one (b, h) and Swz<D>::kCols columns, swizzled as
+// Swz<D> reads it; rows past S read as zeros.
+template <int D>
+cudaError_t rows_map(CUtensorMap* map, const void* ptr, const Args& a, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(a.H), static_cast<cuuint64_t>(a.S),
+                              static_cast<cuuint64_t>(a.B)};
+  const cuuint64_t strides[3] = {2 * D, 2ull * D * a.H, 2ull * D * a.H * a.S};  // bytes
+  const cuuint32_t box[4] = {Swz<D>::kCols, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D>
 cudaError_t launch_bf16(Which which, const Args& a) {
-  using G = Geo16<D>;
-  return launch<decltype(&flash_fwd_bf16<D>), decltype(&flash_bwd_dq_bf16<D>),
-                decltype(&flash_bwd_dkv_bf16<D>), bf16>(
-      which, a, kTile16, flash_fwd_bf16<D>, G::kFwdSmem, flash_bwd_dq_bf16<D>, G::kDqSmem,
-      flash_bwd_dkv_bf16<D>, G::kDkvSmem);
+  const int* mask = static_cast<const int*>(a.mask);
+  cudaError_t err;
+  if (which == kFwd) {
+    using G = FwdHop<D>;
+    CUtensorMap tq, tk, tv;
+    if ((err = rows_map<D>(&tq, a.q, a, G::kRows)) != cudaSuccess ||
+        (err = rows_map<D>(&tk, a.k, a, G::kRows)) != cudaSuccess ||
+        (err = rows_map<D>(&tv, a.v, a, G::kRows)) != cudaSuccess ||
+        (err = allow_smem(flash_fwd_bf16<D>, G::kSmem)) != cudaSuccess)
+      return err;
+    const dim3 grid((a.S + G::kRows - 1) / G::kRows, a.B * a.H);
+    flash_fwd_bf16<D><<<grid, kHopThreads, G::kSmem, a.stream>>>(
+        tq, tk, tv, mask, static_cast<bf16*>(a.o), static_cast<float*>(a.lse_out), a.S, a.H,
+        a.scale, a.causal);
+  } else if (which == kDkv) {
+    using G = DkvHop<D>;
+    CUtensorMap tq, tk, tv, tdo;
+    if ((err = rows_map<D>(&tq, a.q, a, G::kQRows)) != cudaSuccess ||
+        (err = rows_map<D>(&tdo, a.dout, a, G::kQRows)) != cudaSuccess ||
+        (err = rows_map<D>(&tk, a.k, a, G::kKeys)) != cudaSuccess ||
+        (err = rows_map<D>(&tv, a.v, a, G::kKeys)) != cudaSuccess ||
+        (err = allow_smem(flash_bwd_dkv_bf16<D>, G::kSmem)) != cudaSuccess)
+      return err;
+    const dim3 grid((a.S + G::kKeys - 1) / G::kKeys, a.B * a.H);
+    flash_bwd_dkv_bf16<D><<<grid, kHopThreads, G::kSmem, a.stream>>>(
+        tq, tk, tv, tdo, mask, static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+        a.S, a.H, a.scale, a.causal);
+  } else {
+    if ((err = allow_smem(flash_bwd_dq_bf16<D>, Geo16<D>::kDqSmem)) != cudaSuccess) return err;
+    const dim3 grid((a.S + kTile16 - 1) / kTile16, a.B * a.H);
+    flash_bwd_dq_bf16<D><<<grid, kThreads, Geo16<D>::kDqSmem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), mask, static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+        static_cast<bf16*>(a.dq), a.S, a.H, a.scale, a.causal);
+  }
+  return cudaGetLastError();
 }
 
 template <int D>

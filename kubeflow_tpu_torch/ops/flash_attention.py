@@ -5,7 +5,9 @@ PyTorch versions (port of kubeflow_tpu/ops/flash_attention.py).
 `flash_fwd` and whose backward is `flash_bwd_dq` + `flash_bwd_dkv`, the
 three hand-written kernels of `ops/csrc/flash_attention.cu` (built with
 nvcc at first use), replacing the JAX package's `_fwd_kernel`,
-`_bwd_dq_kernel` and `_bwd_dkv_kernel`. On a CUDA tensor it launches them
+`_bwd_dq_kernel` and `_bwd_dkv_kernel`. In bf16 the forward and dK/dV
+kernels read their tiles through TMA, so every tensor they take must be
+16-byte aligned (checked before any launch). On a CUDA tensor it launches them
 or raises: there is no fallback. On a CPU tensor it runs
 `flash_attention_reference` and `flash_attention_bwd_reference`, as the
 JAX kernels run in interpret mode off-TPU.
@@ -200,7 +202,8 @@ def _check_cuda_inputs(tensors: Dict[str, torch.Tensor], mask) -> None:
             )
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention kernel: {name} must be 16-byte "
-                             f"aligned (the kernels load 16-byte vectors)")
+                             f"aligned (TMA and the kernels' 16-byte loads "
+                             f"require it)")
     every = list(tensors.values()) + ([] if mask is None else [mask])
     if any(t.device != q.device for t in every):
         raise ValueError("flash_attention kernel: inputs on different devices")

@@ -5,7 +5,9 @@ port runs its plain versions, the arithmetic its CUDA kernels implement.
 
 Tolerances (f32): o and lse atol 2e-5 (one-pass softmax here, blockwise
 online softmax over 128-key blocks there: summation order only);
-gradients atol 1e-4 (the same, through three more products)."""
+gradients atol 1e-4 (the same, through three more products). S = 127 and
+129 sit one row either side of a 128-row tile edge (the Pallas blocks and
+the card's bf16 forward tiles), S = 200 a partly filled second tile."""
 
 import numpy as np
 import pytest
@@ -73,7 +75,7 @@ def _port_side(q, k, v, mask, causal, with_lse_loss):
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("s", [64, 200])
+@pytest.mark.parametrize("s", [64, 127, 129, 200])
 def test_forward_and_grads_match_pallas(s, variant):
     causal, with_mask = VARIANTS[variant]
     q, k, v, mask = _inputs(s)
@@ -94,7 +96,7 @@ def test_forward_and_grads_match_pallas(s, variant):
         assert (got_lse[2] < -1e29).all()
 
 
-@pytest.mark.parametrize("s", [64, 200])
+@pytest.mark.parametrize("s", [64, 127, 129, 200])
 def test_lse_cotangent_folds_into_delta_like_pallas(s):
     """Gradients of sum(o²) + sum(lse), causal + key mask: the lse
     cotangent reaches q and k through delta."""

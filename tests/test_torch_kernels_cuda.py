@@ -235,7 +235,9 @@ def _assert_rows_close(got, want, dtype, key, name=""):
 
 def _flash_case(dev, s, d, dtype, with_mask, seed=0):
     """q/k/v/dO [2, s, 3, d] and, with a mask, row 0 valid up to ~2/3
-    of s and row 1 fully masked (zeros out, lse about -1e30)."""
+    of s and row 1 fully masked (zeros out, lse about -1e30). The bf16
+    forward's tiles are 128 rows and the dK/dV kernel's q tiles 64: the
+    tests' S values sit on and beside those edges."""
     g = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn((2, s, 3, d), generator=g).to(dtype).to(dev)
                    for _ in range(4))
@@ -249,7 +251,7 @@ def _flash_case(dev, s, d, dtype, with_mask, seed=0):
 
 @pytest.mark.parametrize("with_mask", [False, True], ids=["nomask", "mask"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("s", [1, 63, 128, 257, 1024])
+@pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 255, 257, 1024, 4096])
 @pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -276,6 +278,7 @@ def test_flash_kernels_match_plain_versions(cuda, dtype, d, s, causal,
                                  "flash_bwd_dkv": 1}
     if with_mask:
         assert not o[1].any()
+        assert (lse[1] < -1e29).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -297,6 +300,22 @@ def test_flash_autograd_with_lse_cotangent_matches_plain(cuda, dtype):
     for name, g_, w_ in zip(("dq", "dk", "dv"), (qs.grad, ks.grad, vs.grad),
                             want):
         _assert_rows_close(g_, w_, dtype, "grad", name)
+
+
+def test_flash_forward_refuses_unaligned_tensors(cuda):
+    """TMA reads the bf16 tiles, and it needs 16-byte aligned addresses: a
+    contiguous q that starts 2 bytes into its buffer raises before any
+    launch."""
+    q, k, v, _, _ = _flash_case(cuda, 64, 64, torch.bfloat16, False)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)
+    unaligned = buf[1:].view(q.shape)
+    unaligned.copy_(q)
+    assert unaligned.is_contiguous() and unaligned.data_ptr() % 16
+    tfa.reset_launch_counts()
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_fwd(unaligned, k, v, None, True, tfa.default_scale(64))
+    torch.cuda.synchronize()
+    assert not any(tfa.launch_counts.values())
 
 
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
