@@ -9,16 +9,19 @@ Phases (any failure raises and the script exits non-zero):
    power limit as nvidia-smi reports them.
 2. Build: nvcc builds every kernel under kubeflow_tpu_torch/ops/csrc into
    build/kernels/ (one nvcc per source, started together). ptxas's report
-   must show no spill in any instance of the bf16 flash forward or dK/dV
-   kernel and no ignored setmaxnreg (C7508); their register counts are
-   printed.
+   must show no spill in any instance of the bf16 flash forward, dQ or
+   dK/dV kernel and no ignored setmaxnreg (C7508); their register counts
+   are printed.
 3. Kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the card, at gpt_small's serving shapes (8 slots,
    12 heads x 64, page 16, 64 pages a slot, 384 pool pages), bf16 and
-   f32, with ragged cursors (0, 15, 16, 1023 and a parked 1024); then
-   the window kernel at the batch-1 calls phase 5 makes (MAIN_WINDOWS),
-   whose mean the kernels line reports. Times are medians over CUDA
-   events with the L2 flushed before each launch.
+   f32, with ragged cursors (0, 15, 16, 1023 and a parked 1024); the
+   decode kernel also at cursors on its split edges (127, 128, 129;
+   checked, not timed) and at one slot with cursor 1023 (one long row,
+   the case the split over pages is for; timed); then the window kernel
+   at the batch-1 calls phase 5 makes (MAIN_WINDOWS), whose mean the
+   kernels line reports. Times are medians over CUDA events with the L2
+   flushed before each launch.
 4. Serve f32: gpt_small at full width (seeded init) behind the REST
    server on a real socket, paged_attention=kernel; two greedy
    `:generate` requests must equal the port's `generate()`.
@@ -139,12 +142,15 @@ TRAIN_CFG = dict(
 FB, FH, FD, FS = 2, 12, 64, 4096
 # the flash kernels built with TMA, wgmma and setmaxnreg: phase 2 fails when
 # ptxas reports that one of their instances spills or ignored setmaxnreg
-HOPPER_KERNELS = ("flash_fwd_bf16", "flash_bwd_dkv_bf16")
+HOPPER_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
 
 # gpt_small serving geometry (engine defaults: 8 slots, page 16)
 B, H, D, PS, MP, NUM_PAGES = 8, 12, 64, 16, 64, 384
 # ragged cursors of the 8-slot calls; 1024 = max_len is a parked slot
 CURSORS = (0, 15, 16, 1023, 1024, 300, 517, 64)
+# the decode kernel's split edges (a split is 128 keys at page 16) and its
+# one-long-row call
+SPLIT_EDGES, LONG_ROW = (127, 128, 129), (1023,)
 
 # phase 5's traffic: prefill buckets up to 256, chunk windows of 64 rows
 # (the engine's chunk_len at page 16), one long prompt and one prompt
@@ -293,12 +299,13 @@ def library_attention(torch, q, pool_k, pool_v, table, cursors, k_scale=None,
     ).transpose(1, 2)
 
 
-def measure(torch, pa, flush, dtype, s, cursors, quantized=False):
+def measure(torch, pa, flush, dtype, s, cursors, quantized=False, timed=True):
     """One kernel call at (s, cursors) against its plain version (every
     row, parked ones included: both write zeros there) and the library
     yardstick (live rows), then their times and the call's bound. With
     `quantized`, the pools are `quantize_kv` of the same seeded pools and
-    the call reads them through the kernel's int8 variant."""
+    the call reads them through the kernel's int8 variant. Not `timed`:
+    the check alone (the record carries the error only)."""
     from kubeflow_tpu_torch.ops.attention import quantize_kv
 
     name = str(dtype).replace("torch.", "")
@@ -321,6 +328,8 @@ def measure(torch, pa, flush, dtype, s, cursors, quantized=False):
     if not err <= ATOL[name]:
         raise AssertionError(f"{label} disagrees with its plain version: "
                              f"{err} > {ATOL[name]}")
+    if not timed:
+        return {"name": kname, "dtype": name, "max_abs_err": err}
     ms = time_ms(torch, lambda: pa.paged_attention(*args, dtype=dtype, **kw),
                  flush)
     plain_ms = time_ms(
@@ -366,6 +375,16 @@ def phase_kernels(torch, quantized=False):
         for s in (1, CHUNK):
             rec = measure(torch, pa, flush, dtype, s, CURSORS, quantized)
             records[(rec["name"], rec["dtype"], "B8")] = rec
+        measure(torch, pa, flush, dtype, 1, SPLIT_EDGES, quantized, timed=False)
+    # one long row: a slot at cursor 1023 walks 8 splits of 128 keys
+    decode = pa.kernel_name(1, quantized)
+    long_row = measure(torch, pa, flush, torch.bfloat16, 1, LONG_ROW, quantized)
+    b8 = records[(decode, "bfloat16", "B8")]
+    print(f"kernel {decode} bf16 one long row (B=1, cursor {LONG_ROW[0]}): ms "
+          f"{long_row['ms']:.4f} bound_ms {long_row['bound_ms']:.5f} "
+          f"({long_row['bound_ms'] / long_row['ms']:.1%} of bound); the B=8 "
+          f"call {b8['ms']:.4f} ms ({b8['bound_ms'] / b8['ms']:.1%} of bound)",
+          flush=True)
     # the main path's window calls (bf16, batch 1): each distinct cursor
     # measured once, then averaged over the calls phase 5 (10) makes
     window = pa.kernel_name(CHUNK, quantized)

@@ -43,43 +43,47 @@
 // past the H100's ~295), dK/dV twice that. At D = 64 a score costs 2·D
 // tensor-core flops per product against one exponential, so the
 // exponential unit (16 a clock per SM) is a co-limit beside the tensor
-// cores.
+// cores. dQ does three products per (query, key) pair (S, dP, dS·K): at
+// the same shape 77 GFLOP, bound 0.078 ms on the tensor cores.
 //
-// bf16 forward and dK/dV (the training path): designed for Hopper. What
-// held the mma.sync design back, and what this one does about it:
+// bf16 forward, dQ and dK/dV (the training path): designed for Hopper.
+// What held the mma.sync design back, and what this one does about it:
 // 1. mma.sync m16n8k16 reaches a fraction of the bf16 rate: the products
 //    are wgmma (m64nNk16), B read by the tensor cores straight from
-//    shared memory, and for the score products A too.
+//    shared memory, and for the score products A too. dQ reads K both
+//    ways from one tile: K-major as the B of S = Q·Kᵀ, MN-major as the B
+//    of dS·K.
 // 2. 64-row tiles of 16 rows a warp, A fragments reloaded from shared
 //    memory for every walked tile: a block's tile is 128 rows, two
 //    consumer warpgroups of 64 rows sharing each K/V (or Q/dO) tile, and
-//    no ldmatrix at all. Probabilities (and dSᵀ) go from the f32
+//    no ldmatrix at all. Probabilities (and dS, dSᵀ) go from the f32
 //    accumulator layout straight into the next product's register A
-//    operand.
+//    operand. dQ keeps each row's lse·log2(e) and delta in registers.
 // 3. Every mask on every tile: the causal compare runs on the diagonal
 //    tile only, the ragged-tail compare on the last tile only, the key mask
-//    only when one is given (the forward reads it as 128 bits a tile that
-//    the producer warp packs with ballots). A masked score becomes -inf
-//    before its exponential, which then gives p = 0 exactly. Tiles above
-//    the diagonal are never loaded.
+//    only when one is given (the forward and dQ read it as 128 or 64 bits
+//    a tile that the producer warp packs with ballots). A masked score
+//    becomes -inf before its exponential, which then gives p = 0 exactly.
+//    Tiles above the diagonal are never loaded (dQ's warpgroup 0 hands
+//    back, unread, the one tile above its own diagonal).
 // 4. Precise expf per score: the softmax runs in the exp2 domain,
 //    scale·log2(e) folded into one FMA per score and ex2.approx; lse is
 //    written back in natural-log units.
 // 5. One tile in flight and loads on the math warps: a producer warpgroup
 //    (24 registers a thread after setmaxnreg; the consumers get 240), in
 //    which one warp works and its lane 0 issues every TMA copy, keeps a
-//    ring of 2-3 stages full, guarded by full and empty mbarriers; there is
+//    ring of 2-4 stages full, guarded by full and empty mbarriers; there is
 //    no __syncthreads() in the main loop. Tensor maps are 4-D (D, H, S, B)
 //    over the [B, S, H, D] tensors; TMA zero-fills rows past S, and its
 //    swizzle (128 B for D = 64, two 64-column boxes for D = 128, 32 B for
 //    D = 16) is the one the wgmma descriptors name. The two consumer
 //    warpgroups overlap each other's softmax and products; inside one, the
-//    forward issues the next tile's S right behind this tile's P·V (one
-//    wait for both). Overlapping a warpgroup's softmax with its own
-//    product in flight is not done: ptxas (CUDA 12.8) serialises the
-//    products when registers of an in-flight wgmma group are read.
-// dQ (flash_bwd_dq_bf16) is still the mma.sync design: 64-row tiles, a
-// strip of 16 rows a warp, cp.async double buffering.
+//    forward issues the next tile's S right behind this tile's P·V, and
+//    dQ the next tile's S and dP behind this tile's dS·K (one wait for
+//    both; not at D = 128, for registers). Overlapping a warpgroup's
+//    softmax with its own product in flight is not done: ptxas (CUDA 12.8)
+//    serialises the products when registers of an in-flight wgmma group
+//    are read.
 //
 // f32 (the parity path): 32-row tiles on the CUDA cores (a register tile
 // of outputs per thread), scores and accumulators staged in shared memory.
@@ -150,36 +154,6 @@ __device__ __forceinline__ void load_key_mask(int* keymask, const int* mask, int
   for (int c = threadIdx.x; c < BT; c += kThreads) keymask[c] = key_valid(mask, b, k0 + c, S);
 }
 
-// cp.async: 16 bytes global → shared without a register round trip,
-// zero-filled when `valid` is false (rows past S)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one committed group (the newest) is still in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// load_rows with cp.async (the caller commits and waits)
-template <int D, int BT, int LD>
-__device__ __forceinline__ void load_rows_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                int row0, int S, int row_stride) {
-  constexpr int kPerRow = D / 8;
-  for (int i = threadIdx.x; i < BT * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * 8;
-    const bool valid = row0 + r < S;
-    cp_async16(dst + r * LD + c,
-               src + (valid ? static_cast<size_t>(row0 + r) * row_stride + c : 0), valid);
-  }
-}
-
 // per-(b, h, row) f32 values ([B, H, S]) of rows [row0, row0 + BT); 0 past S
 template <int BT>
 __device__ __forceinline__ void load_row_values(float* dst, const float* src, int bh,
@@ -189,118 +163,33 @@ __device__ __forceinline__ void load_row_values(float* dst, const float* src, in
 }
 
 // ===========================================================================
-// bf16 dQ: mma.sync m16n8k16 with register accumulators
+// bf16 forward, dQ and dK/dV for Hopper: TMA, mbarriers, wgmma, warp
+// specialisation
 // ===========================================================================
 //
-// Fragment layouts (PTX ISA, mma.m16n8k16 .bf16; g = lane / 4, t = lane % 4):
-//   A 16×16: a0 = (g, 2t..2t+1), a1 = (g+8, 2t..), a2 = (g, 2t+8..), a3 = (g+8, 2t+8..)
-//   B 16×8:  b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
-//   C 16×8:  c0, c1 = (g, 2t), (g, 2t+1); c2, c3 = (g+8, 2t), (g+8, 2t+1)
-// Each 32-bit register holds two bf16, the lower index in the low half.
-
-constexpr int kTile16 = 64;  // rows of a bf16 tile: 4 warps × 16
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// A block is three warpgroups: two consumers (first, as wgmma wants them
+// warpgroup-aligned), each owning 64 rows of the block's 128-row tile, and
+// a producer warpgroup, of which one warp works: its lane 0 issues the TMA
+// copies, and all its lanes pack the forward's and dQ's key-mask bits or
+// write the dK/dV kernel's lse and delta rows. wgmma's f32
+// accumulator of an m64nN product gives warp w of a warpgroup rows
+// 16w + g and 16w + g + 8 (g = lane / 4), and register i of a thread the
+// column 8·(i / 4) + 2·(lane % 4) + (i % 2) of row 16w + g + 8·((i / 2) % 2):
+// as bf16 pairs, the A-fragment layout of the next product's register
+// operand (a0 = row g, k 2t..2t+1; a1 = row g + 8; a2, a3 the same at k + 8).
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ldmatrix: each of the first 8·N lanes gives the shared address of one
-// 8-element row (lanes 8i..8i+7: matrix i); lane l receives matrix i's
-// elements (l / 4, 2·(l % 4)..+1), or with .trans (2·(l % 4)..+1, l / 4)
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// A operand: rows [r0, r0 + 16) × k columns [16·kk, 16·kk + 16) of a
-// row-major shared tile X[·][LD]; matrices (rows +0/+8) × (cols +0/+8) in
-// the order a0..a3
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* X, int r0, int kk) {
-  const int lane = threadIdx.x & 31, i = lane >> 3;
-  ldmatrix_x4(a, X + (r0 + (lane & 7) + 8 * (i & 1)) * LD + 16 * kk + 8 * (i >> 1));
-}
-
-// B operands of n-blocks j and j+1 with B(k, n) = Y[n][k] (the transposed
-// side of a q·kᵀ-type product), k rows [16·kk, 16·kk + 16): b[0..1] for
-// n-block j, b[2..3] for j + 1
-template <int LD>
-__device__ __forceinline__ void load_b_rows2(uint32_t* b, const bf16* Y, int j, int kk) {
-  const int lane = threadIdx.x & 31, i = lane >> 3;
-  ldmatrix_x4(b, Y + (8 * (j + (i >> 1)) + (lane & 7)) * LD + 16 * kk + 8 * (i & 1));
-}
-
-// B operands of n-blocks j and j+1 with B(k, n) = Z[k][n] (a P·V-type
-// product), k rows [16·kk, 16·kk + 16): b[0..1] for j, b[2..3] for j + 1
-template <int LD>
-__device__ __forceinline__ void load_b_cols2(uint32_t* b, const bf16* Z, int kk, int j) {
-  const int lane = threadIdx.x & 31, i = lane >> 3;
-  ldmatrix_x4_trans(b, Z + (16 * kk + 8 * (i & 1) + (lane & 7)) * LD + 8 * (j + (i >> 1)));
-}
-
-// acc[NB][4] = strip(A rows r0..r0+15 of X) · Yᵀ over K = D (Y has 8·NB rows)
-template <int D, int NB, int LD>
-__device__ __forceinline__ void strip_abt(float (*acc)[4], const bf16* X, int r0,
-                                          const bf16* Y) {
-#pragma unroll
-  for (int j = 0; j < NB; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    load_a<LD>(a, X, r0, kk);
-#pragma unroll
-    for (int j = 0; j < NB; j += 2) {
-      uint32_t b[4];
-      load_b_rows2<LD>(b, Y, j, kk);
-      mma_bf16(acc[j], a, b);
-      mma_bf16(acc[j + 1], a, b + 2);
-    }
-  }
-}
-
-// out[D/8][4] += P · Z, where P (16 × 8·NB, f32 accumulator layout) is
-// rounded to bf16 and re-packed as A operands, Z = Z[k][d] in shared memory
-template <int D, int NB, int LD>
-__device__ __forceinline__ void strip_pv(float (*out)[4], float (*p)[4], const bf16* Z) {
-#pragma unroll
-  for (int kk = 0; kk < NB / 2; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    a[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    a[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    a[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int j = 0; j < D / 8; j += 2) {
-      uint32_t b[4];
-      load_b_cols2<LD>(b, Z, kk, j);
-      mma_bf16(out[j], a, b);
-      mma_bf16(out[j + 1], a, b + 2);
-    }
-  }
-}
-
-// write a strip's accumulator rows (times mul, or divided per row) as bf16
-// rows `rows[0..1]` of one (b, h) slice
+// write a warpgroup's accumulator rows `rows[0..1]` of this thread (the
+// m64nD layout above, as [D / 8][4]; times mul[r]) as bf16 rows of one
+// (b, h) slice; rows past S are skipped
 template <int D>
 __device__ __forceinline__ void store_strip(bf16* dst, float (*acc)[4], const int* rows,
                                             int S, int row_stride, const float* mul) {
@@ -315,109 +204,6 @@ __device__ __forceinline__ void store_strip(bf16* dst, float (*acc)[4], const in
           pack_bf16(acc[j][2 * r] * mul[r], acc[j][2 * r + 1] * mul[r]);
   }
 }
-
-// The walked tiles are double-buffered: tile i + 1 streams in (cp.async)
-// while tile i is computed.
-template <int D>
-struct Geo16 {
-  static constexpr int LD = D + 8;  // 16 bytes of padding a row
-  static constexpr size_t kTile = sizeof(bf16) * kTile16 * LD;
-  static constexpr size_t kRow = sizeof(float) * kTile16;
-  static constexpr size_t kDqSmem = 6 * kTile + 2 * kRow;  // Q, dO, K×2, V×2 | keymask×2
-};
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const int* __restrict__ mask,
-                  const bf16* __restrict__ dout, const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dq, int S, int H,
-                  float scale, int causal) {
-  constexpr int BT = kTile16, LD = Geo16<D>::LD, NB = BT / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BT * LD;
-  bf16* Kbuf = dOs + BT * LD;       // [2][BT][LD]
-  bf16* Vbuf = Kbuf + 2 * BT * LD;  // [2][BT][LD]
-  int* kmbuf = reinterpret_cast<int*>(Vbuf + 2 * BT * LD);  // [2][BT]
-
-  const int n_tiles = (S + BT - 1) / BT;
-  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = qt * BT, row_stride = H * D;
-  const size_t base = (static_cast<size_t>(b) * S * H + h) * D;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int r0 = (threadIdx.x >> 5) * 16;
-  const int rows[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool in = rows[r] < S;
-    row_lse[r] = in ? lse[static_cast<size_t>(bh) * S + rows[r]] : 0.f;
-    row_delta[r] = in ? delta[static_cast<size_t>(bh) * S + rows[r]] : 0.f;
-  }
-
-  load_rows_async<D, BT, LD>(Qs, q + base, q0, S, row_stride);
-  load_rows_async<D, BT, LD>(dOs, dout + base, q0, S, row_stride);
-  load_rows_async<D, BT, LD>(Kbuf, k + base, 0, S, row_stride);
-  load_rows_async<D, BT, LD>(Vbuf, v + base, 0, S, row_stride);
-  cp_async_commit();
-  load_key_mask<BT>(kmbuf, mask, b, 0, S);
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  const int n_kt = causal ? qt + 1 : n_tiles;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BT, cur = kt & 1;
-    const bool more = kt + 1 < n_kt;
-    int km_next = 0;
-    if (more) {  // the next tile streams in while this one is computed
-      load_rows_async<D, BT, LD>(Kbuf + (cur ^ 1) * BT * LD, k + base, k0 + BT, S, row_stride);
-      load_rows_async<D, BT, LD>(Vbuf + (cur ^ 1) * BT * LD, v + base, k0 + BT, S, row_stride);
-      if (threadIdx.x < BT) km_next = key_valid(mask, b, k0 + BT + threadIdx.x, S);
-    }
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    const bf16* Ks = Kbuf + cur * BT * LD;
-    const bf16* Vs = Vbuf + cur * BT * LD;
-    const int* keymask = kmbuf + cur * BT;
-    float s[NB][4], dp[NB][4];
-    strip_abt<D, NB, LD>(s, Qs, r0, Ks);    // S = Q·Kᵀ
-    strip_abt<D, NB, LD>(dp, dOs, r0, Vs);  // dP = dO·Vᵀ
-#pragma unroll
-    for (int j = 0; j < NB; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * t + (e & 1), r = e >> 1;
-        const bool vis = rows[r] < S && keymask[c] && (!causal || k0 + c <= rows[r]);
-        const float p = vis ? expf(s[j][e] * scale - row_lse[r]) : 0.f;
-        s[j][e] = p * (dp[j][e] - row_delta[r]);  // dS
-      }
-    }
-    strip_pv<D, NB, LD>(acc, s, Ks);  // dQ += dS·K
-    if (more && threadIdx.x < BT) kmbuf[(cur ^ 1) * BT + threadIdx.x] = km_next;
-    __syncthreads();  // buffer `cur` is free for tile kt + 2
-  }
-  const float mul[2] = {scale, scale};
-  store_strip<D>(dq + base, acc, rows, S, row_stride, mul);
-}
-
-// ===========================================================================
-// bf16 forward and dK/dV for Hopper: TMA, mbarriers, wgmma, warp
-// specialisation
-// ===========================================================================
-//
-// A block is three warpgroups: two consumers (first, as wgmma wants them
-// warpgroup-aligned), each owning 64 rows of the block's 128-row tile, and
-// a producer warpgroup, of which one warp works: its lane 0 issues the TMA
-// copies, and all its lanes pack the forward's key-mask bits or write the
-// dK/dV kernel's lse and delta rows. wgmma's f32
-// accumulator of an m64nN product gives warp w of a warpgroup rows
-// 16w + g and 16w + g + 8 (g = lane / 4), and register i of a thread the
-// column 8·(i / 4) + 2·(lane % 4) + (i % 2) of row 16w + g + 8·((i / 2) % 2):
-// per 8 columns the mma.sync C layout above, and as pairs the A-fragment
-// layout of the next product's register operand.
 
 constexpr int kWarpGroup = 128;
 constexpr int kConsumers = 2;  // consumer warpgroups a block
@@ -1132,6 +918,200 @@ flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// dQ: Q and dO (128 rows) once, then K and V tiles of 64 keys through a
+// ring, with the key mask's 64 bits beside each; shared memory is Q | dO |
+// K × stages | V × stages | mask words × stages | barriers. Key tiles are
+// 64, not the forward's 128: a consumer thread holds S and dP (N/2 f32
+// each), the dQ accumulator (D/2) and dS as bf16 pairs (N/4), 112
+// registers at D = 64 and N = 64 (144 at D = 128), where N = 128 would
+// take 192 before addresses.
+template <int D>
+struct DqHop {
+  static constexpr int kRows = 128, kKeys = 64;
+  static constexpr int kStages = D == 128 ? 3 : 4;
+  // the next tile's S and dP are issued behind this tile's dS·K, except at
+  // D = 128, where the registers of all three in flight would not fit
+  static constexpr bool kNextBehindDq = D < 128;
+  static constexpr uint32_t kQ = kRows * D * 2;   // a Q or dO tile
+  static constexpr uint32_t kKV = kKeys * D * 2;  // a K or V tile
+  static constexpr uint32_t kOffDo = kQ;
+  static constexpr uint32_t kOffK = 2 * kQ;
+  static constexpr uint32_t kOffV = kOffK + kStages * kKV;
+  static constexpr uint32_t kOffMask = kOffV + kStages * kKV;  // 2 words a stage
+  static constexpr uint32_t kOffBar = kOffMask + 8 * kStages;  // Q full, full × stages, empty × stages
+  static constexpr size_t kSmem = kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v,
+                  const __grid_constant__ CUtensorMap tm_do, const int* __restrict__ mask,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  bf16* __restrict__ dq, int S, int H, float scale, int causal) {
+  using G = DqHop<D>;
+  using W = Swz<D>;
+  constexpr int BT = G::kRows, KN = G::kKeys;
+  extern __shared__ unsigned char smem[];
+  const uint32_t base = align1024(smem_addr(smem));
+  uint32_t* mask_words =
+      reinterpret_cast<uint32_t*>(smem + (base - smem_addr(smem)) + G::kOffMask);
+  const uint32_t bar_q = base + G::kOffBar;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * G::kStages;
+
+  const int n_tiles = (S + BT - 1) / BT;
+  const int qt = n_tiles - 1 - static_cast<int>(blockIdx.x);  // heaviest first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int n_ktiles = (S + KN - 1) / KN;
+  // key tiles up to the block's diagonal; none above it is loaded
+  const int n_kt = causal ? min(n_ktiles, (qt * BT + BT - 1) / KN + 1) : n_ktiles;
+  const int wg = warpgroup_index();
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < G::kStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, kConsumerThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one warp; its lane 0 issues every copy and, with a key
+    // mask, writes the stage's 64 mask bits (one ballot of the warp per 32
+    // keys; keys past S are 0)
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x / 32 == kConsumerThreads / 32) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        mbar_arrive_tx(bar_q, 2 * G::kQ);
+        tma_tile<D>(base, &tm_q, bar_q, BT, qt * BT, h, b);
+        tma_tile<D>(base + G::kOffDo, &tm_do, bar_q, BT, qt * BT, h, b);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int st = j % G::kStages;
+        if (j >= G::kStages) mbar_wait(bar_empty + 8 * st, ring_parity<G::kStages>(j) ^ 1u);
+        if (mask != nullptr) {
+#pragma unroll
+          for (int w = 0; w < KN / 32; ++w) {
+            const int key = j * KN + 32 * w + lane;
+            const uint32_t bits = __ballot_sync(
+                0xffffffffu, key < S && mask[static_cast<size_t>(b) * S + key] != 0);
+            if (lane == 0) mask_words[st * (KN / 32) + w] = bits;
+          }
+        }
+        if (lane == 0) {
+          mbar_arrive_tx(bar_full + 8 * st, 2 * G::kKV);
+          tma_tile<D>(base + G::kOffK + st * G::kKV, &tm_k, bar_full + 8 * st, KN, j * KN, h, b);
+          tma_tile<D>(base + G::kOffV + st * G::kKV, &tm_v, bar_full + 8 * st, KN, j * KN, h, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns q rows [64·wg, 64·wg + 64) of the tile
+    setmaxnreg_inc<kConsumerRegs>();
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int wrow0 = qt * BT + wg * 64;  // the warpgroup's first row
+    const int r0 = wg * 64 + (threadIdx.x % kWarpGroup >> 5) * 16 + g;
+    const int rows[2] = {qt * BT + r0, qt * BT + r0 + 8};
+    const float c = scale * kLog2e;  // scores in the exp2 domain
+    // this thread's rows' lse·log2(e) and delta, fixed along the walk (0
+    // past S: those rows are never stored)
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool in = rows[r] < S;
+      lse2[r] = in ? lse[static_cast<size_t>(bh) * S + rows[r]] * kLog2e : 0.f;
+      dl[r] = in ? delta[static_cast<size_t>(bh) * S + rows[r]] : 0.f;
+    }
+    // key tiles this warpgroup computes: under causal, up to its own
+    // diagonal; the block's last tile lies above warpgroup 0's
+    const int n_mine = causal ? min(n_kt, (wrow0 + 63) / KN + 1) : n_kt;
+    float acc[D / 2], s[KN / 2], dp[KN / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < KN / 2; ++i) s[i] = dp[i] = 0.f;
+    // S = Q·K_jᵀ and dP = dO·V_jᵀ of the tile at ring use j
+    auto issue_sdp = [&](int j) {
+      const int st = j % G::kStages;
+      const uint32_t qb = opaque(base);
+      mbar_wait(bar_full + 8 * st, ring_parity<G::kStages>(j));
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<KN>::ss(s, W::k_major(qb, BT, wg * 64, kk),
+                      W::k_major(qb + G::kOffK + st * G::kKV, KN, 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<KN>::ss(dp, W::k_major(qb + G::kOffDo, BT, wg * 64, kk),
+                      W::k_major(qb + G::kOffV + st * G::kKV, KN, 0, kk), kk);
+      wgmma_commit();
+    };
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_mine; ++j) {
+      const int st = j % G::kStages, k0 = j * KN;
+      if (!G::kNextBehindDq || j == 0) {
+        wgmma_fence();
+        issue_sdp(j);
+        wgmma_wait<0>();
+        fence_regs<KN / 2>(s);
+        fence_regs<KN / 2>(dp);
+      }
+      // masks: the causal compare where the tile reaches past the
+      // warpgroup's first row, the tail compare on the last tile, the key
+      // mask when one is given; a masked score becomes -inf, so p = 0
+      if ((causal && k0 + KN - 1 > wrow0) || k0 + KN > S || mask != nullptr) {
+        uint2 kw = make_uint2(~0u, ~0u);  // the stage's mask bits
+        if (mask != nullptr) kw = *reinterpret_cast<const uint2*>(mask_words + st * (KN / 32));
+        const uint32_t words[2] = {kw.x, kw.y};
+#pragma unroll
+        for (int i = 0; i < KN / 2; ++i) {
+          const int cc = 8 * (i >> 2) + 2 * t + (i & 1), col = k0 + cc;
+          const bool vis = col < S && (!causal || col <= rows[(i >> 1) & 1]) &&
+                           (words[i >> 4] >> (cc & 31) & 1u);  // word cc / 32
+          if (!vis) s[i] = neg_inf();
+        }
+      }
+      // P = exp2(S·scale·log2e − lse·log2e), dS = P∘(dP − delta), straight
+      // into bf16 A operands (register e: columns 8·(e / 2) + 2t, +1 of row
+      // g + 8·(e % 2))
+      uint32_t ds[KN / 4];
+#pragma unroll
+      for (int e = 0; e < KN / 4; ++e) {
+        const int r = e & 1;
+        const float p0 = fast_exp2(fmaf(s[2 * e], c, -lse2[r]));
+        const float p1 = fast_exp2(fmaf(s[2 * e + 1], c, -lse2[r]));
+        ds[e] = pack_bf16(p0 * (dp[2 * e] - dl[r]), p1 * (dp[2 * e + 1] - dl[r]));
+      }
+      wgmma_fence();  // dQ += dS·K (K read MN-major from its K-major tile), then the next S, dP
+#pragma unroll
+      for (int kk = 0; kk < KN / 16; ++kk)
+        Wgmma<D>::rs_t(acc, ds + 4 * kk, W::mn_major(opaque(base) + G::kOffK + st * G::kKV, KN, kk));
+      wgmma_commit();
+      if (G::kNextBehindDq && j + 1 < n_mine) issue_sdp(j + 1);
+      wgmma_wait<0>();
+      fence_regs<D / 2>(acc);
+      fence_regs<KN / 4>(ds);
+      if (G::kNextBehindDq) {
+        fence_regs<KN / 2>(s);
+        fence_regs<KN / 2>(dp);
+      }
+      mbar_arrive(bar_empty + 8 * st);
+    }
+    // tiles past this warpgroup's diagonal: hand them back once loaded
+    for (int j = n_mine; j < n_kt; ++j) {
+      const int st = j % G::kStages;
+      mbar_wait(bar_full + 8 * st, ring_parity<G::kStages>(j));
+      mbar_arrive(bar_empty + 8 * st);
+    }
+    const float mul[2] = {scale, scale};  // dQ = scale · Σ dS·K
+    store_strip<D>(dq + (static_cast<size_t>(b) * S * H + h) * D,
+                   reinterpret_cast<float(*)[4]>(acc), rows, S, H * D, mul);
+  }
+}
+
 // ===========================================================================
 // f32: CUDA cores, scores and accumulators in shared memory
 // ===========================================================================
@@ -1529,13 +1509,19 @@ cudaError_t launch_bf16(Which which, const Args& a) {
         static_cast<const float*>(a.delta), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
         a.S, a.H, a.scale, a.causal);
   } else {
-    if ((err = allow_smem(flash_bwd_dq_bf16<D>, Geo16<D>::kDqSmem)) != cudaSuccess) return err;
-    const dim3 grid((a.S + kTile16 - 1) / kTile16, a.B * a.H);
-    flash_bwd_dq_bf16<D><<<grid, kThreads, Geo16<D>::kDqSmem, a.stream>>>(
-        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-        static_cast<const bf16*>(a.v), mask, static_cast<const bf16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-        static_cast<bf16*>(a.dq), a.S, a.H, a.scale, a.causal);
+    using G = DqHop<D>;
+    CUtensorMap tq, tk, tv, tdo;
+    if ((err = rows_map<D>(&tq, a.q, a, G::kRows)) != cudaSuccess ||
+        (err = rows_map<D>(&tdo, a.dout, a, G::kRows)) != cudaSuccess ||
+        (err = rows_map<D>(&tk, a.k, a, G::kKeys)) != cudaSuccess ||
+        (err = rows_map<D>(&tv, a.v, a, G::kKeys)) != cudaSuccess ||
+        (err = allow_smem(flash_bwd_dq_bf16<D>, G::kSmem)) != cudaSuccess)
+      return err;
+    const dim3 grid((a.S + G::kRows - 1) / G::kRows, a.B * a.H);
+    flash_bwd_dq_bf16<D><<<grid, kHopThreads, G::kSmem, a.stream>>>(
+        tq, tk, tv, tdo, mask, static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<bf16*>(a.dq), a.S, a.H, a.scale,
+        a.causal);
   }
   return cudaGetLastError();
 }

@@ -27,33 +27,46 @@
 // zeros and its blocks load nothing, so an idle slot costs no bytes.
 // They keep the JAX package's roundings: each q·k dot is
 // accumulated in f32 and rounded to the compute dtype, divided by sqrt(D)
-// in the compute dtype, the softmax runs in f32 and the probabilities are
-// rounded to the compute dtype before P·V (f32 accumulation, one final
-// rounding).
+// in the compute dtype, and the softmax runs in f32. The window kernel
+// rounds the normalised probabilities to the compute dtype before P·V; the
+// decode kernel's one-pass softmax sums un-normalised f32 probabilities
+// times V and divides once at the end (a reordering that ROADMAP's parity
+// contract (c) allows: the same in f32 up to summation order, within one
+// bf16 rounding of p in bf16). Both accumulate in f32 and round once.
 //
-// What bounds them: decode is bound by bytes. Each step reads every live
-// K and V vector of every slot once (2 · n_keys · H · D elements per slot;
-// D + 2 bytes a vector in int8, 2D in bf16) and does 4 flops per element
-// read (5 with the dequant), far below the ~295 flops per byte
-// the H100 needs before its arithmetic is the limit. The design reads
-// each live vector exactly once per (slot, head) block, walks only the
-// pages up to the row's last visible position (a page-table entry past
-// it may be stale and is never dereferenced), and keeps the row's scores
-// in shared memory (max_len f32, 4 KB at 1024) instead of device memory.
-// Since a walk is a chain of dependent loads (table entry, then vector),
-// what the design does about the bytes is keep many of them in flight:
-// each key is read as 16-byte vectors by a few neighbouring lanes, so a
-// 256-thread block walks 8 to 256 keys at once (32 at bf16, D=64; 64 at
-// int8, D=64, where four lanes hold a key), with kUnroll loads in flight
-// for each. An int8 key costs one more 2-byte load per lane: its scale.
-//
-// What this simple design leaves on the table (later work): one block
-// per (slot, head) gives B·H blocks, 96 at 8 slots x 12 heads, fewer than
-// the 132 SMs, and one long row serializes its whole walk in one block;
-// split-K over pages with a combine pass (flash-decoding) would spread
-// it over the card. Nothing overlaps the page loads with compute beyond
-// kUnroll (no cp.async/TMA pipeline). The window kernel does its products
-// on CUDA cores; wgmma would serve it at s = 64.
+// What bounds them: bytes. Each step reads every live K and V vector of
+// every slot once (2 · n_keys · H · D elements per slot; D + 2 bytes a
+// vector in int8, 2D in bf16) and does 4 flops per element read (5 with
+// the dequant), far below the ~295 flops per byte the H100 needs before
+// its arithmetic is the limit: the bound is the live vectors' bytes over
+// 3.35 TB/s, 1.8 us for gpt_small's 8-slot decode step of one layer. Both
+// walk only the pages up to a row's last visible position (a page-table
+// entry past it may be stale and is never dereferenced) and read each
+// live vector once per (slot, head). At ~2 us of bytes the walk is bound
+// by latency, not bandwidth, and the decode kernel is built against
+// that:
+// 1. One block per (slot, head) gave 96 blocks on 132 SMs, and the one
+//    long row walked its 1024 keys alone in 32 dependent rounds: the
+//    decode grid is (slot, head, split), a split being a fixed run of
+//    pages of 128 keys (kSplitKeys), sized from max_pages on the host and
+//    never from the cursors (a split past its row's last key exits at
+//    once), so a long row spreads over as many blocks as it has splits.
+// 2. A page-table read sat in every load's chain: a block reads its
+//    split's page ids into shared memory once, beside the cursor, and then
+//    every lane group issues all its keys' K and V loads (up to 8 of each,
+//    16 bytes a lane) before it computes, none of them behind a table
+//    read.
+// 3. Three block-wide barriers and reductions over a max_len score row in
+//    shared memory (which capped the context it served): each lane group
+//    keeps its own running max, sum and P·V (online softmax), the block
+//    folds its groups once, and the splits are folded by the row's last
+//    split to finish (a ticket per row in a workspace the wrapper
+//    allocates and the kernel leaves zeroed), in split order, so the
+//    result does not depend on which block finishes first. Shared memory
+//    is static and small; the context is capped by nothing in the kernel.
+// The window kernel keeps the first design (one block per (slot, head,
+// 8 query rows), scores in shared memory, kUnroll loads in flight per lane
+// group); it waits for its own redesign (split over pages, wgmma at s = 64).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -103,19 +116,20 @@ struct Vec;
 template <>
 struct Vec<float> {
   static constexpr int N = 4;
+  __device__ __forceinline__ static void unpack(const uint4& v, float* f) {
+    f[0] = __uint_as_float(v.x);
+    f[1] = __uint_as_float(v.y);
+    f[2] = __uint_as_float(v.z);
+    f[3] = __uint_as_float(v.w);
+  }
   __device__ __forceinline__ static void load(const float* p, float* f) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x;
-    f[1] = v.y;
-    f[2] = v.z;
-    f[3] = v.w;
+    unpack(*reinterpret_cast<const uint4*>(p), f);
   }
 };
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
+  __device__ __forceinline__ static void unpack(const uint4& v, float* f) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -123,6 +137,9 @@ struct Vec<__nv_bfloat16> {
       f[2 * i] = x.x;
       f[2 * i + 1] = x.y;
     }
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* f) {
+    unpack(*reinterpret_cast<const uint4*>(p), f);
   }
 };
 
@@ -149,14 +166,45 @@ struct Kv {
 template <typename T>
 struct Kv<T, int8_t> {
   static constexpr int N = 16;
-  __device__ __forceinline__ static void load(const int8_t* p,
-                                              const __nv_bfloat16* scale, float* f) {
-    const float sc = __bfloat162float(*scale);
-    const int4 v = *reinterpret_cast<const int4*>(p);
+  __device__ __forceinline__ static void unpack(const uint4& v, __nv_bfloat16 scale,
+                                                float* f) {
+    const float sc = __bfloat162float(scale);
     const int8_t* b = reinterpret_cast<const int8_t*>(&v);
 #pragma unroll
     for (int i = 0; i < N; ++i) f[i] = round_to<T>(static_cast<float>(b[i]) * sc);
   }
+  __device__ __forceinline__ static void load(const int8_t* p,
+                                              const __nv_bfloat16* scale, float* f) {
+    unpack(*reinterpret_cast<const uint4*>(p), *scale, f);
+  }
+};
+
+// A K/V vector slice's 16 bytes (and an int8 vector's scale) held in
+// registers: loaded now and unpacked (dequantized) later, so that a
+// thread keeps many loads in flight before it computes. Unpacking gives
+// exactly what Kv<T, KV>::load gives.
+template <typename T, typename KV>
+struct KvRaw {
+  uint4 bits;
+  __device__ __forceinline__ void load(const KV* p, const __nv_bfloat16*) {
+    bits = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void clear() { bits = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ void unpack(float* f) const { Vec<T>::unpack(bits, f); }
+};
+template <typename T>
+struct KvRaw<T, int8_t> {
+  uint4 bits;
+  __nv_bfloat16 scale;
+  __device__ __forceinline__ void load(const int8_t* p, const __nv_bfloat16* sc) {
+    bits = *reinterpret_cast<const uint4*>(p);
+    scale = *sc;
+  }
+  __device__ __forceinline__ void clear() {
+    bits = make_uint4(0u, 0u, 0u, 0u);
+    scale = __float2bfloat16_rn(0.f);
+  }
+  __device__ __forceinline__ void unpack(float* f) const { Kv<T, int8_t>::unpack(bits, scale, f); }
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -180,29 +228,6 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// block-wide reductions through `red` [kWarps]; every thread gets the result
-__device__ __forceinline__ float block_max(float v, float* red) {
-  v = warp_max(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int i = 1; i < kWarps; ++i) r = fmaxf(r, red[i]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = 0.f;
-#pragma unroll
-  for (int i = 0; i < kWarps; ++i) r += red[i];
-  __syncthreads();
-  return r;
-}
-
 // position t of slot b, head h -> index of its vector in the pool viewed
 // as [P * page_size * H] vectors: its values start at row * D, its int8
 // scale (if any) is scale[row]. The page id is clamped into
@@ -215,127 +240,228 @@ __device__ __forceinline__ size_t kv_row(const int* pt, int t, int page_size,
   return (static_cast<size_t>(page) * page_size + t % page_size) * H + h;
 }
 
-// Thread layout shared by both kernels: a key's D elements are read as
+// Thread layout of both kernels: a key's D elements are read as
 // LPK = D / N 16-byte vectors by LPK neighbouring lanes (a "lane group";
 // N = Kv<T, KV>::N elements a load: 4 f32, 8 bf16, 16 int8);
-// the block's G = kThreads / LPK lane groups each take one key, and each
-// loads kUnroll keys before computing. Loops step a warp-uniform base so
-// every lane of a warp runs the same iterations (the shuffles need it).
+// the block's G = threads / LPK lane groups each take one key, and each
+// loads several keys before computing (the window kernel kUnroll, the
+// decode kernel DecodeGeo::U). Loops step a block-uniform base so every
+// lane of a warp runs the same iterations (the shuffles need it).
 
 // ---------------------------------------------------------------------------
-// s == 1: one block per (slot, head). Three phases over the row's
-// n_keys = min(cursor, L - 1) + 1 visible keys: scores, f32 softmax, P·V.
+// s == 1: split over pages (flash-decoding). Block (slot b, head h, split)
+// walks the split's run of pages_per_split pages (kSplitKeys keys, at least
+// one page) of the row's n_keys = min(cursor, L - 1) + 1 visible keys, in
+// one pass: each lane group keeps a running max, sum and un-normalised
+// P·V over the keys it loads (U at a time, all in flight), the block folds
+// its groups into the split's (m_i, l_i, o_i) (each warp's groups by
+// shuffles, then the warps), and the row's last live split to finish (a
+// ticket per row) folds the splits in split order with a running max:
+//   m' = max(m, m_i), l' = l·exp(m − m') + l_i·exp(m_i − m'), o' likewise,
+//   out = o / l.
+// A row that one split covers writes o_i / l_i itself.
 // ---------------------------------------------------------------------------
+constexpr int kDecThreads = 256;
+constexpr int kDecWarps = kDecThreads / 32;
+// keys a split walks (whole pages: 128 / page_size of them, at least one)
+constexpr int kSplitKeys = 128;
+
+int decode_pages_per_split(int page_size) {
+  return page_size >= kSplitKeys ? 1 : kSplitKeys / page_size;
+}
+
+int decode_splits(int page_size, int max_pages) {
+  const int pps = decode_pages_per_split(page_size);
+  return (max_pages + pps - 1) / pps;
+}
+
+// the ticket's old value after adding 1; a release of what the block wrote
+// before it (its threads' writes precede it through the block barrier)
+// and an acquire of what the row's other splits released with theirs
+__device__ __forceinline__ int take_ticket(int* ticket) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(old)
+               : "l"(ticket)
+               : "memory");
+  return old;
+}
+
 template <typename T, typename KV, int D>
-__global__ void __launch_bounds__(kThreads)
+struct DecodeGeo {
+  static constexpr int N = Kv<T, KV>::N;    // elements a 16-byte load
+  static constexpr int LPK = D / N;         // lanes a key
+  static constexpr int G = kDecThreads / LPK;  // lane groups a block
+  // keys a lane group loads before it computes (each a K and a V load)
+  static constexpr int U = kSplitKeys / G < 1 ? 1 : (kSplitKeys / G > 8 ? 8 : kSplitKeys / G);
+};
+
+template <typename T, typename KV, int D>
+__global__ void __launch_bounds__(kDecThreads)
 paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ pool_k,
                     const KV* __restrict__ pool_v,
                     const __nv_bfloat16* __restrict__ k_scale,
                     const __nv_bfloat16* __restrict__ v_scale,
                     const int* __restrict__ page_table,
                     const int* __restrict__ cursors, T* __restrict__ out,
-                    int page_size, int max_pages, int num_pages, float scale) {
-  constexpr int N = Kv<T, KV>::N;
-  constexpr int LPK = D / N;
-  constexpr int KPW = 32 / LPK;      // lane groups per warp
-  constexpr int G = kThreads / LPK;  // lane groups per block
-  extern __shared__ float smem[];
-  const int view_len = max_pages * page_size;
-  float* scores = smem;             // [view_len]
-  float* part = scores + view_len;  // [G][D]
-  __shared__ float red[kWarps];
+                    float* __restrict__ part_o, float2* __restrict__ part_ml,
+                    int* __restrict__ tickets, int page_size, int max_pages,
+                    int num_pages, int pages_per_split, float scale) {
+  using Geo = DecodeGeo<T, KV, D>;
+  constexpr int N = Geo::N, LPK = Geo::LPK, G = Geo::G, U = Geo::U;
+  __shared__ int pages[kSplitKeys];     // the split's page ids
+  __shared__ float wpart[kDecWarps * D];  // the warps' un-normalised P·V
+  __shared__ float wm[kDecWarps], wl[kDecWarps];
+  __shared__ int last;
 
-  const int b = blockIdx.x, h = blockIdx.y, H = gridDim.y;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int sub = (tid & 31) / LPK, li = tid % LPK, g = tid / LPK;
+  const int b = blockIdx.x, h = blockIdx.y, split = blockIdx.z;
+  const int H = gridDim.y, n_splits = gridDim.z, row = b * H + h;
+  const int tid = threadIdx.x, li = tid % LPK, g = tid / LPK;
+  const size_t qo = static_cast<size_t>(row) * D;
+  const int p0 = split * pages_per_split;
+  // the split's page ids, read beside the cursor: no table read sits in a
+  // K/V load's chain. An id past the row's last live page may be stale; it
+  // is read here (clamped into the pool) but never dereferenced.
+  if (tid < pages_per_split && p0 + tid < max_pages) {
+    const int page = page_table[static_cast<size_t>(b) * max_pages + p0 + tid];
+    pages[tid] = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
+  }
   int cur = cursors[b];
   cur = cur < 0 ? 0 : cur;
-  const size_t qo = (static_cast<size_t>(b) * H + h) * D;
   // a parked row (cursor past the window: an idle or retired slot) is
-  // never read; it writes zeros and walks nothing
-  if (cur >= view_len) {
-    for (int d = tid; d < D; d += kThreads) out[qo + d] = from_f<T>(0.f);
+  // never read; its first split writes zeros
+  if (cur >= max_pages * page_size) {
+    if (split == 0)
+      for (int d = tid; d < D; d += kDecThreads) out[qo + d] = from_f<T>(0.f);
     return;
   }
   const int n_keys = cur + 1;
-  const int* pt = page_table + static_cast<size_t>(b) * max_pages;
-
+  const int kps = pages_per_split * page_size;
+  const int k_begin = split * kps;
+  if (k_begin >= n_keys) return;  // a split past the row's last key
+  const int k_end = min(k_begin + kps, n_keys);
   float qv[N];
   load_n<T, N>(q + qo + li * N, qv);
-
-  for (int base = warp * KPW; base < n_keys; base += G * kUnroll) {
-    float kf[kUnroll][N];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + sub + u * G;
-      if (t < n_keys) {
-        const size_t row = kv_row(pt, t, page_size, num_pages, H, h);
-        Kv<T, KV>::load(pool_k + row * D + li * N, k_scale + row, kf[u]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) kf[u][i] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc += qv[i] * kf[u][i];
-      acc = group_sum<LPK>(acc);
-      const int t = base + sub + u * G;
-      if (li == 0 && t < n_keys) scores[t] = round_to<T>(round_to<T>(acc) / scale);
-    }
-  }
   __syncthreads();
 
-  float m = -CUDART_INF_F;
-  for (int t = tid; t < n_keys; t += kThreads) m = fmaxf(m, scores[t]);
-  m = block_max(m, red);
-  float s = 0.f;
-  for (int t = tid; t < n_keys; t += kThreads) {
-    const float e = expf(scores[t] - m);
-    scores[t] = e;
-    s += e;
-  }
-  s = block_sum(s, red);
-  for (int t = tid; t < n_keys; t += kThreads)
-    scores[t] = round_to<T>(scores[t] / s);
-  __syncthreads();
-
-  float acc[N];
+  float m = -CUDART_INF_F, l = 0.f, acc[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) acc[i] = 0.f;
-  for (int base = warp * KPW; base < n_keys; base += G * kUnroll) {
-    float vf[kUnroll][N];
-    float p[kUnroll];
+  for (int c0 = k_begin; c0 < k_end; c0 += G * U) {
+    KvRaw<T, KV> kr[U], vr[U];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + sub + u * G;
-      p[u] = 0.f;
-      if (t < n_keys) {
-        p[u] = scores[t];
-        const size_t row = kv_row(pt, t, page_size, num_pages, H, h);
-        Kv<T, KV>::load(pool_v + row * D + li * N, v_scale + row, vf[u]);
+    for (int u = 0; u < U; ++u) {
+      const int t = c0 + u * G + g;
+      if (t < k_end) {
+        const size_t r =
+            (static_cast<size_t>(pages[(t - k_begin) / page_size]) * page_size + t % page_size) *
+                H + h;
+        kr[u].load(pool_k + r * D + li * N, k_scale + r);
+        vr[u].load(pool_v + r * D + li * N, v_scale + r);
       } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) vf[u][i] = 0.f;
+        kr[u].clear();
+        vr[u].clear();
       }
     }
+    // scores as the JAX kernel rounds them: the f32 dot rounded to T, then
+    // divided by sqrt(D) in T
+    float s[U];
+    float mx = m;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
+      float kf[N];
+      kr[u].unpack(kf);
+      float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < N; ++i) acc[i] += p[u] * vf[u][i];
+      for (int i = 0; i < N; ++i) dot += qv[i] * kf[i];
+      dot = group_sum<LPK>(dot);
+      s[u] = c0 + u * G + g < k_end ? round_to<T>(round_to<T>(dot) / scale) : -CUDART_INF_F;
+      mx = fmaxf(mx, s[u]);
+    }
+    if (mx > -CUDART_INF_F) {  // the group has a key in this chunk
+      const float alpha = expf(m - mx);
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc[i] *= alpha;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float p = expf(s[u] - mx);
+        float vf[N];
+        vr[u].unpack(vf);
+        l += p;
+#pragma unroll
+        for (int i = 0; i < N; ++i) acc[i] += p * vf[i];
+      }
+      m = mx;
     }
   }
+
+  // the split's (m_i, l_i, o_i): each warp's lane groups folded by
+  // shuffles across groups (offsets >= LPK keep a lane's slice of D), a
+  // group without keys weighing 0; then the warps, in warp order
+  float mw = m;
 #pragma unroll
-  for (int i = 0; i < N; ++i) part[g * D + li * N + i] = acc[i];
-  __syncthreads();
-  for (int d = tid; d < D; d += kThreads) {
-    float o = 0.f;
-#pragma unroll 8
-    for (int gg = 0; gg < G; ++gg) o += part[gg * D + d];
-    out[qo + d] = from_f<T>(o);
+  for (int o = 16; o >= LPK; o >>= 1) mw = fmaxf(mw, __shfl_xor_sync(0xffffffffu, mw, o));
+  const float f = m == -CUDART_INF_F ? 0.f : expf(m - mw);
+  l *= f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] *= f;
+#pragma unroll
+  for (int o = 16; o >= LPK; o >>= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, o);
+#pragma unroll
+    for (int i = 0; i < N; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
   }
+  const int warp = tid >> 5, lane = tid & 31;
+  if (lane < LPK) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) wpart[warp * D + lane * N + i] = acc[i];
+    if (lane == 0) {
+      wm[warp] = mw;
+      wl[warp] = l;
+    }
+  }
+  __syncthreads();
+  float m_i = -CUDART_INF_F;
+#pragma unroll
+  for (int w = 0; w < kDecWarps; ++w) m_i = fmaxf(m_i, wm[w]);
+  float l_i = 0.f, o_i = 0.f;
+#pragma unroll
+  for (int w = 0; w < kDecWarps; ++w) {
+    const float fw = wm[w] == -CUDART_INF_F ? 0.f : expf(wm[w] - m_i);
+    l_i += fw * wl[w];
+    if (tid < D) o_i += fw * wpart[w * D + tid];
+  }
+  const int n_live = (n_keys + kps - 1) / kps;
+  if (n_live == 1) {
+    if (tid < D) out[qo + tid] = from_f<T>(o_i / l_i);
+    return;
+  }
+  const size_t slot = static_cast<size_t>(row) * n_splits;
+  if (tid < D) part_o[(slot + split) * D + tid] = o_i;
+  if (tid == 0) part_ml[slot + split] = make_float2(m_i, l_i);
+  __syncthreads();
+  if (tid == 0) last = take_ticket(tickets + row) == n_live - 1;
+  __syncthreads();
+  if (!last) return;
+  // the row's last live split: every split's partial is written; fold
+  // them in split order with a running max (reads bypass L1, which may
+  // hold stale lines)
+  if (tid < D) {
+    float mm = -CUDART_INF_F, ll = 0.f, oo = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < n_live; ++j) {
+      const float2 ml = __ldcg(part_ml + slot + j);
+      const float o_j = __ldcg(part_o + (slot + j) * D + tid);
+      const float m_new = fmaxf(mm, ml.x);
+      const float a = expf(mm - m_new), fj = expf(ml.x - m_new);
+      ll = ll * a + ml.y * fj;
+      oo = oo * a + o_j * fj;
+      mm = m_new;
+    }
+    out[qo + tid] = from_f<T>(oo / ll);
+  }
+  if (tid == 0) tickets[row] = 0;  // ready for the next launch
 }
 
 // ---------------------------------------------------------------------------
@@ -482,11 +608,8 @@ paged_window_kernel(const T* __restrict__ q, const KV* __restrict__ pool_k,
   }
 }
 
-// dynamic shared memory of a launch; n = elements per 16-byte K/V load
-size_t decode_smem(int view_len, int n) {
-  return sizeof(float) * (static_cast<size_t>(view_len) + kThreads * n);
-}
-
+// dynamic shared memory of a window launch; n = elements per 16-byte K/V
+// load (the decode kernel's is static and does not grow with the window)
 size_t window_smem(int view_len, int D, int n) {
   return sizeof(float) *
          (static_cast<size_t>(kRows) * view_len + kRows * D + kThreads * n);
@@ -497,6 +620,23 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= kDefaultSmem) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The decode kernel's workspace, one buffer: a ticket per (slot, head)
+// row (int32, zero between launches: the row's last split resets it), then
+// each split's (m_i, l_i) (float2) and un-normalised o_i (D f32).
+struct DecodeWorkspace {
+  size_t ml, o, bytes;  // byte offsets of the stats and partials; the size
+};
+
+DecodeWorkspace decode_workspace(int B, int H, int D, int page_size, int max_pages) {
+  const size_t rows = static_cast<size_t>(B) * H;
+  const size_t parts = rows * decode_splits(page_size, max_pages);
+  DecodeWorkspace w;
+  w.ml = (4 * rows + 15) / 16 * 16;
+  w.o = w.ml + 8 * parts;
+  w.bytes = w.o + 4 * parts * D;
+  return w;
 }
 
 struct Args {
@@ -510,6 +650,7 @@ struct Args {
   void* out;
   int B, S, H, ps, mp, np;
   float scale;
+  void* workspace;
   cudaStream_t stream;
 };
 
@@ -519,12 +660,18 @@ cudaError_t launch(const Args& a) {
   constexpr int n = Kv<T, KV>::N;
   cudaError_t err;
   if (a.S == 1) {
-    const size_t smem = decode_smem(view_len, n);
-    if ((err = allow_smem(paged_decode_kernel<T, KV, D>, smem)) != cudaSuccess) return err;
-    paged_decode_kernel<T, KV, D><<<dim3(a.B, a.H), kThreads, smem, a.stream>>>(
-        static_cast<const T*>(a.q), static_cast<const KV*>(a.pk),
-        static_cast<const KV*>(a.pv), a.ks, a.vs, a.pt, a.cur,
-        static_cast<T*>(a.out), a.ps, a.mp, a.np, a.scale);
+    // the grid follows max_pages, never the cursors: no host read, so the
+    // launch can be captured in a CUDA graph
+    if (a.workspace == nullptr) return cudaErrorInvalidValue;
+    const DecodeWorkspace w = decode_workspace(a.B, a.H, D, a.ps, a.mp);
+    unsigned char* ws = static_cast<unsigned char*>(a.workspace);
+    paged_decode_kernel<T, KV, D>
+        <<<dim3(a.B, a.H, decode_splits(a.ps, a.mp)), kDecThreads, 0, a.stream>>>(
+            static_cast<const T*>(a.q), static_cast<const KV*>(a.pk),
+            static_cast<const KV*>(a.pv), a.ks, a.vs, a.pt, a.cur, static_cast<T*>(a.out),
+            reinterpret_cast<float*>(ws + w.o), reinterpret_cast<float2*>(ws + w.ml),
+            reinterpret_cast<int*>(ws), a.ps, a.mp, a.np, decode_pages_per_split(a.ps),
+            a.scale);
   } else {
     const size_t smem = window_smem(view_len, D, n);
     if ((err = allow_smem(paged_window_kernel<T, KV, D>, smem)) != cudaSuccess) return err;
@@ -563,19 +710,22 @@ extern "C" {
 // page_size, H, 1] (null otherwise). q/out [B, S, H, D]; pools
 // [num_pages, page_size, H, D]; page_table [B, max_pages] int32; cursors
 // [B] int32; all contiguous on the current device. `scale` is sqrt(D)
-// rounded to the compute dtype. S == 1 launches paged_decode_kernel,
-// S > 1 paged_window_kernel. Returns cudaGetLastError() after the launch.
+// rounded to the compute dtype. S == 1 launches paged_decode_kernel, which
+// needs `workspace`: kft_paged_attention_workspace bytes on the device,
+// zeroed before its first launch and left zeroed by every launch (null at
+// S > 1). S > 1 launches paged_window_kernel. Returns cudaGetLastError()
+// after the launch; neither allocates or synchronises.
 int kft_paged_attention(const void* q, const void* pool_k, const void* pool_v,
                         const void* k_scale, const void* v_scale,
                         const void* page_table, const void* cursors, void* out,
                         int B, int S, int H, int D, int page_size, int max_pages,
                         int num_pages, int dtype, int kv_dtype, float scale,
-                        void* stream) {
+                        void* stream, void* workspace) {
   const Args a{q, pool_k, pool_v,
                static_cast<const __nv_bfloat16*>(k_scale),
                static_cast<const __nv_bfloat16*>(v_scale),
                static_cast<const int*>(page_table), static_cast<const int*>(cursors),
-               out, B, S, H, page_size, max_pages, num_pages, scale,
+               out, B, S, H, page_size, max_pages, num_pages, scale, workspace,
                static_cast<cudaStream_t>(stream)};
   if (kv_dtype == 2) {
     if (k_scale == nullptr || v_scale == nullptr) return cudaErrorInvalidValue;
@@ -590,9 +740,15 @@ int kft_paged_attention(const void* q, const void* pool_k, const void* pool_v,
 }
 
 // dynamic shared memory (bytes) a launch needs, for the wrapper's check
+// (0 at S == 1: the decode kernel's shared memory is static)
 size_t kft_paged_attention_smem(int S, int view_len, int D, int dtype, int kv_dtype) {
-  const int n = kv_elems(dtype, kv_dtype);
-  return S == 1 ? decode_smem(view_len, n) : window_smem(view_len, D, n);
+  return S == 1 ? 0 : window_smem(view_len, D, kv_elems(dtype, kv_dtype));
+}
+
+// workspace bytes an S-row launch needs (0 at S > 1)
+size_t kft_paged_attention_workspace(int S, int B, int H, int D, int page_size,
+                                     int max_pages) {
+  return S == 1 ? decode_workspace(B, H, D, page_size, max_pages).bytes : 0;
 }
 
 const char* kft_cuda_error_string(int err) {

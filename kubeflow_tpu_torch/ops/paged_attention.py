@@ -15,14 +15,25 @@ a CUDA input either launches the kernel or raises. On a CPU tensor it
 runs `paged_attention_reference`, as the JAX kernel runs in interpret
 mode off-TPU.
 
-`launch_counts` counts kernel launches, one integer per kernel, so a run
+The decode kernel splits each slot's walk over runs of pages and folds
+the splits inside its one launch; its scratch (per-split partials and a
+ticket per (slot, head)) is one workspace buffer per device and shape,
+allocated zeroed at that shape's first call and reused by every later
+one (the kernel leaves it ready), so a decode step allocates nothing
+new and the launch, whose grid follows the table's width and never the
+cursors, can be captured in a CUDA graph. Calls that share a workspace
+run in the order of one stream.
+
+`launch_counts` counts kernel launches, one integer per kernel and one
+launch per wrapper call (a decode step makes one per layer), so a run
 can show which read path served it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -42,7 +53,13 @@ launch_counts: Dict[str, int] = {
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8_CODE = 2  # the C interface's storage code of an int8 pool
-_MAX_SMEM = 227 * 1024  # H100 dynamic shared memory per block
+# H100 dynamic shared memory per block (the window kernel's bound; the
+# decode kernel's shared memory is static)
+_MAX_SMEM = 227 * 1024
+# the decode kernel's workspaces, by (device, bytes); engines call from
+# their own threads
+_workspaces: Dict[Tuple[str, int], torch.Tensor] = {}
+_workspaces_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
@@ -55,6 +72,19 @@ def kernel_name(s: int, quantized: bool = False) -> str:
     when `quantized`)."""
     name = "paged_decode" if s == 1 else "paged_window"
     return f"{name}_int8" if quantized else name
+
+
+def decode_workspace(device: torch.device, nbytes: int) -> torch.Tensor:
+    """The zeroed uint8 buffer of `nbytes` on `device` that the decode
+    kernel uses as its workspace: made at the first call of a shape,
+    the same tensor for every later one."""
+    key = (str(device), nbytes)
+    with _workspaces_lock:
+        ws = _workspaces.get(key)
+        if ws is None:
+            ws = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+            _workspaces[key] = ws
+    return ws
 
 
 def paged_attention_reference(
@@ -124,11 +154,13 @@ def _library():
         lib.kft_paged_attention.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
             i32, i32, i32, i32, i32, i32, i32, i32, i32,
-            ctypes.c_float, ptr,
+            ctypes.c_float, ptr, ptr,
         ]
         lib.kft_paged_attention.restype = ctypes.c_int
         lib.kft_paged_attention_smem.argtypes = [i32, i32, i32, i32, i32]
         lib.kft_paged_attention_smem.restype = ctypes.c_size_t
+        lib.kft_paged_attention_workspace.argtypes = [i32] * 6
+        lib.kft_paged_attention_workspace.restype = ctypes.c_size_t
         lib.kft_cuda_error_string.argtypes = [ctypes.c_int]
         lib.kft_cuda_error_string.restype = ctypes.c_char_p
         lib._kft_bound = True
@@ -221,8 +253,8 @@ def paged_attention(
     s == 1 is the one-token decode step, s > 1 a chunk-prefill window.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    on the current stream (no sync, no allocation besides the output)
-    or raise."""
+    on the current stream (no sync; no allocation besides the output and,
+    at a decode shape's first call, its workspace) or raise."""
     if q.device.type == "cpu":
         return paged_attention_reference(
             q, pool_k, pool_v, page_table, cursors, dtype=dtype,
@@ -245,6 +277,8 @@ def paged_attention(
             f"paged_attention kernel: a {mp * ps}-position window needs "
             f"{smem} B of shared memory, over the {_MAX_SMEM} B a block has"
         )
+    ws_bytes = lib.kft_paged_attention_workspace(s, b, h, d, ps, mp)
+    ws = decode_workspace(q.device, ws_bytes) if ws_bytes else None
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -255,6 +289,7 @@ def paged_attention(
             page_table.data_ptr(), cursors.data_ptr(), out.data_ptr(),
             b, s, h, d, ps, mp, num_pages, _DTYPE_CODES[dtype], kv_code,
             scale_for(d, dtype), stream,
+            None if ws is None else ws.data_ptr(),
         )
     if err != 0:
         msg = lib.kft_cuda_error_string(err).decode()

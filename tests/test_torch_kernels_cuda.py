@@ -126,6 +126,95 @@ def test_int8_kernel_matches_plain_version(cuda, s, d, dtype):
     assert not got[cursors >= MAX_LEN].any()
 
 
+# the decode kernel splits a row into runs of 128 keys (128 / page_size
+# pages): cursors on those edges, one long row, and the view's last key
+SPLIT_CURSORS = (0, 127, 128, 129, 1023)
+DECODE_MAX_LEN = 1024
+DECODE_KINDS = ["f32", "bf16", "int8-bf16", "int8-f32"]
+
+
+def _decode_case(dev, kind, cursors, ps, h=4, d=64, seed=0):
+    """One decode call's inputs at max_len 1024: distinct pages up to each
+    slot's last live page, out-of-range garbage past it (never read);
+    int8 kinds quantize the pools with `quantize_kv`. Returns (args,
+    kwargs) for `paged_attention` and its plain version."""
+    from kubeflow_tpu_torch.ops.attention import quantize_kv
+
+    dtype = torch.float32 if kind.endswith("f32") else torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    mp = DECODE_MAX_LEN // ps
+    live = [min(c // ps, mp - 1) + 1 if c < DECODE_MAX_LEN else 0 for c in cursors]
+    num_pages = sum(live) + 8
+    b = len(cursors)
+    q = torch.randn((b, 1, h, d), generator=g).to(dtype)
+    pk = torch.randn((num_pages, ps, h, d), generator=g).to(dtype)
+    pv = torch.randn((num_pages, ps, h, d), generator=g).to(dtype)
+    table = torch.full((b, mp), 10**6, dtype=torch.int32)
+    perm = torch.randperm(num_pages, generator=g).tolist()
+    for i, n in enumerate(live):
+        table[i, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    cur = torch.tensor(cursors, dtype=torch.int32)
+    kw = {"dtype": dtype}
+    if kind.startswith("int8"):
+        (pk, sk), (pv, sv) = quantize_kv(pk), quantize_kv(pv)
+        kw.update(k_scale=sk.to(dev), v_scale=sv.to(dev))
+    return [t.to(dev) for t in (q, pk, pv, table, cur)], kw
+
+
+def _check_decode(args, kw):
+    tpa.reset_launch_counts()
+    got = tpa.paged_attention(*args, **kw)
+    want = tpa.paged_attention_reference(*args, **kw)
+    torch.cuda.synchronize()
+    name = tpa.kernel_name(1, quantized="k_scale" in kw)
+    assert tpa.launch_counts == {**{k: 0 for k in tpa.launch_counts}, name: 1}
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=ATOL[kw["dtype"]], rtol=0)
+    return got
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_decode_kernel_at_split_edges(cuda, kind, ps):
+    """Cursors on the split edges, the view's last key (1023) and a
+    parked row, at page sizes 8, 16 and 32 (16, 8 and 4 pages a split);
+    table entries past each live page are out of range and never read."""
+    args, kw = _decode_case(cuda, kind, SPLIT_CURSORS + (DECODE_MAX_LEN,), ps)
+    got = _check_decode(args, kw)
+    assert not got[-1].any()
+
+
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_decode_kernel_one_long_row(cuda, kind):
+    """B = 1 at cursor 1023: eight splits of one row folded by its last."""
+    _check_decode(*_decode_case(cuda, kind, (DECODE_MAX_LEN - 1,), 16))
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8-bf16"])
+def test_decode_kernel_all_slots_parked(cuda, kind):
+    """Every slot parked: zeros, no page read (the table is all garbage)."""
+    args, kw = _decode_case(cuda, kind, (DECODE_MAX_LEN,) * 3, 16)
+    assert not _check_decode(args, kw).any()
+
+
+def test_decode_kernel_is_deterministic(cuda):
+    """The splits are folded in split order by whichever finishes last:
+    repeated calls give bitwise the same output, and the workspace's
+    tickets are back at 0 after each."""
+    b, h, ps = len(SPLIT_CURSORS) * 4, 12, 16
+    args, kw = _decode_case(cuda, "bf16", SPLIT_CURSORS * 4, ps, h=h)
+    first = tpa.paged_attention(*args, **kw)
+    for _ in range(20):
+        again = tpa.paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(again, first)
+    nbytes = tpa._library().kft_paged_attention_workspace(
+        1, b, h, 64, ps, DECODE_MAX_LEN // ps)
+    tickets = tpa.decode_workspace(args[0].device, nbytes)[: 4 * b * h]
+    assert not tickets.any()
+
+
 @pytest.mark.parametrize("bad", ["scale_dtype", "scale_shape", "no_scales",
                                  "scales_without_int8", "one_scale"])
 def test_int8_kernel_raises_on_mismatched_scales(cuda, bad):
@@ -236,8 +325,9 @@ def _assert_rows_close(got, want, dtype, key, name=""):
 def _flash_case(dev, s, d, dtype, with_mask, seed=0):
     """q/k/v/dO [2, s, 3, d] and, with a mask, row 0 valid up to ~2/3
     of s and row 1 fully masked (zeros out, lse about -1e30). The bf16
-    forward's tiles are 128 rows and the dK/dV kernel's q tiles 64: the
-    tests' S values sit on and beside those edges."""
+    forward's and dQ's q tiles are 128 rows, dQ's key tiles and the dK/dV
+    kernel's q tiles 64: the tests' S values sit on and beside those
+    edges."""
     g = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn((2, s, 3, d), generator=g).to(dtype).to(dev)
                    for _ in range(4))
@@ -251,7 +341,8 @@ def _flash_case(dev, s, d, dtype, with_mask, seed=0):
 
 @pytest.mark.parametrize("with_mask", [False, True], ids=["nomask", "mask"])
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("s", [1, 63, 127, 128, 129, 255, 257, 1024, 4096])
+@pytest.mark.parametrize("s", [1, 63, 65, 127, 128, 129, 191, 255, 257, 1024,
+                               4096])
 @pytest.mark.parametrize("d", [16, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])

@@ -27,7 +27,11 @@ from kubeflow_tpu.ops.paged_attention import (  # noqa: E402
     paged_attention as jpaged,
 )
 from kubeflow_tpu_torch.ops import paged_attention as tpa  # noqa: E402
-from kubeflow_tpu_torch.ops.attention import quantize_kv  # noqa: E402
+from kubeflow_tpu_torch.ops.attention import (  # noqa: E402
+    paged_kv_view,
+    quantize_kv,
+    scale_for,
+)
 
 ATOL = RTOL = 1e-5
 H, D, NUM_PAGES, MAX_LEN = 3, 16, 40, 64
@@ -161,14 +165,19 @@ def test_kernel_input_checks_raise(bad):
 # -- int8 pools ----------------------------------------------------------------
 
 
-def _int8_case(s, ps, seed=0):
-    """`_case` with both pools quantized by the port's `quantize_kv`
+def _quantize_case(case):
+    """A case with both pools quantized by the port's `quantize_kv`
     (bitwise the JAX package's: tests/test_torch_quantize.py): q, int8
     pools, table, cursors, and the bf16 scales as float32 numpy (exact)."""
-    q, pk, pv, table, cursors = _case(s, ps, seed)
+    q, pk, pv, table, cursors = case
     (qk, sk), (qv, sv) = (quantize_kv(torch.from_numpy(p)) for p in (pk, pv))
     return (q, qk.numpy(), qv.numpy(), table, cursors,
             sk.float().numpy(), sv.float().numpy())
+
+
+def _int8_case(s, ps, seed=0):
+    """`_case` with both pools quantized (`_quantize_case`)."""
+    return _quantize_case(_case(s, ps, seed))
 
 
 def _port_int8(case):
@@ -258,3 +267,115 @@ def test_int8_kernel_input_checks_raise(bad):
     q, pk, pv, table, cursors, sk, sv = _torch(*_int8_case(1, 8))
     tpa._check_cuda_inputs(q, pk, pv, table, cursors, dtype, sk.bfloat16(),
                            sv.bfloat16())
+
+
+# -- the decode kernel's split over pages ---------------------------------------
+# The CUDA decode kernel cuts each slot's visible keys into splits of 128
+# keys (128 / page_size whole pages) and folds the splits' softmax partials
+# (ops/csrc/paged_attention.cu). Its yardstick, the plain version, is held
+# against the JAX kernel at cursors on those edges; the split arithmetic
+# itself is rebuilt here and held against the plain version.
+
+SPLIT_MAX_LEN, SPLIT_KEYS = 256, 128
+# the split edges at page 16 and the view's last key
+SPLIT_CURSORS = (127, 128, 129, SPLIT_MAX_LEN - 1)
+
+
+def _split_case(cursors, ps, seed=0):
+    """Decode inputs at max_len 256: the given cursors and a parked row
+    (256); each slot's table a shuffled page set."""
+    rng = np.random.default_rng(seed + ps + sum(cursors))
+    cursors = np.array(tuple(cursors) + (SPLIT_MAX_LEN,), np.int32)
+    b, mp = cursors.size, SPLIT_MAX_LEN // ps
+    q = rng.standard_normal((b, 1, H, D)).astype(np.float32)
+    pk = rng.standard_normal((NUM_PAGES, ps, H, D)).astype(np.float32)
+    pv = rng.standard_normal((NUM_PAGES, ps, H, D)).astype(np.float32)
+    table = np.stack([rng.permutation(NUM_PAGES)[:mp] for _ in range(b)])
+    return q, pk, pv, table.astype(np.int32), cursors
+
+
+@pytest.mark.parametrize("cursor", SPLIT_CURSORS)
+def test_plain_decode_matches_jax_pallas_kernel_at_split_edges(cursor):
+    """`test_plain_path_matches_jax_pallas_kernel` at s = 1, page 16, at
+    cursors on the decode kernel's split edges and the view's last key."""
+    case = _split_case((cursor,), 16)
+    want = np.asarray(jpaged(*(jnp.asarray(a) for a in case), dtype=jnp.float32))
+    got = _port(case).numpy()
+    live = case[-1] < SPLIT_MAX_LEN
+    np.testing.assert_allclose(got[live], want[live], atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("cursor", SPLIT_CURSORS)
+def test_int8_plain_decode_matches_jax_pallas_kernel_at_split_edges(cursor):
+    """`test_int8_plain_path_matches_jax_pallas_kernel` at s = 1, page 16,
+    at the split edges."""
+    case = _quantize_case(_split_case((cursor,), 16, seed=1))
+    q, pk, pv, table, cursors, sk, sv = _jax_int8(case)
+    want = np.asarray(jpaged(q, pk, pv, table, cursors, dtype=jnp.float32,
+                             k_scale=sk, v_scale=sv))
+    got = _port_int8(case).numpy()
+    live = case[4] < SPLIT_MAX_LEN
+    np.testing.assert_allclose(got[live], want[live], atol=ATOL, rtol=RTOL)
+
+
+def _split_decode(q, pk, pv, table, cursors, ps):
+    """The decode kernel's split arithmetic in plain f32 torch: each live
+    slot's visible keys cut into splits of 128 // ps pages; per split
+    m_i = max s, l_i = Σ exp(s − m_i), o_i = Σ exp(s − m_i)·v; then the
+    splits folded in split order with a running max: m' = max(m, m_i),
+    l' = l·exp(m − m') + l_i·exp(m_i − m'), o' likewise; out = o / l.
+    Parked slots are zeros."""
+    b, _, h, d = q.shape
+    kps = max(1, SPLIT_KEYS // ps) * ps
+    k_view, v_view = paged_kv_view(pk, table), paged_kv_view(pv, table)
+    view_len = k_view.shape[1]
+    out = torch.zeros_like(q)
+    for i in range(b):
+        n = int(cursors[i]) + 1
+        if n > view_len:
+            continue
+        s = torch.einsum("hd,khd->hk", q[i, 0], k_view[i, :n]) / scale_for(
+            d, torch.float32)
+        parts = []
+        for k0 in range(0, n, kps):
+            k1 = min(k0 + kps, n)
+            m_i = s[:, k0:k1].amax(-1)
+            e = torch.exp(s[:, k0:k1] - m_i[:, None])
+            parts.append((m_i, e.sum(-1),
+                          torch.einsum("hk,khd->hd", e, v_view[i, k0:k1])))
+        m = torch.full((h,), float("-inf"))
+        l, o = torch.zeros(h), torch.zeros((h, d))
+        for m_i, l_i, o_i in parts:
+            m_new = torch.maximum(m, m_i)
+            a, f = torch.exp(m - m_new), torch.exp(m_i - m_new)
+            l = l * a + l_i * f
+            o = o * a[:, None] + o_i * f[:, None]
+            m = m_new
+        out[i, 0] = o / l[:, None]
+    return out
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+def test_split_decode_arithmetic_matches_plain_version(ps):
+    """The splits' partials folded in split order give the plain
+    version's output in f32 within 1e-6 (summation order only), at the
+    split edges, the view's last key, a one-key row and a parked row."""
+    case = _split_case((0,) + SPLIT_CURSORS, ps, seed=2)
+    q, pk, pv, table, cursors = _torch(*case)
+    got = _split_decode(q, pk, pv, table, cursors, ps)
+    want = tpa.paged_attention_reference(q, pk, pv, table, cursors,
+                                         dtype=torch.float32)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+def test_decode_workspace_is_made_once_per_device_and_size():
+    """The decode kernel's workspace: zeroed at a shape's first call, the
+    same buffer at every later one (a decode step allocates nothing new),
+    another buffer for another size."""
+    dev = torch.device("cpu")
+    first = tpa.decode_workspace(dev, 1040)
+    assert first.dtype == torch.uint8 and first.numel() == 1040
+    assert not first.any()
+    assert tpa.decode_workspace(dev, 1040) is first
+    other = tpa.decode_workspace(dev, 2080)
+    assert other is not first and other.numel() == 2080
