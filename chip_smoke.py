@@ -10,18 +10,20 @@ Phases (any failure raises and the script exits non-zero):
 2. Build: nvcc builds every kernel under kubeflow_tpu_torch/ops/csrc into
    build/kernels/ (one nvcc per source, started together). ptxas's report
    must show no spill in any instance of the bf16 flash forward, dQ or
-   dK/dV kernel and no ignored setmaxnreg (C7508); their register counts
-   are printed.
+   dK/dV kernel or of the paged window kernel's bf16 (wgmma) instances,
+   and no ignored setmaxnreg (C7508); their register counts are printed.
 3. Kernels vs plain: each paged-attention kernel against its plain
    PyTorch version on the card, at gpt_small's serving shapes (8 slots,
    12 heads x 64, page 16, 64 pages a slot, 384 pool pages), bf16 and
    f32, with ragged cursors (0, 15, 16, 1023 and a parked 1024); the
    decode kernel also at cursors on its split edges (127, 128, 129;
    checked, not timed) and at one slot with cursor 1023 (one long row,
-   the case the split over pages is for; timed); then the window kernel
-   at the batch-1 calls phase 5 makes (MAIN_WINDOWS), whose mean the
-   kernels line reports. Times are medians over CUDA events with the L2
-   flushed before each launch.
+   the case the split over pages is for; timed); the window kernel also
+   at s = 5 (the K+1 verify window of K = 4) and over a view of 8,192
+   positions (512 pages a slot, past the old kernel's cap), both checked,
+   not timed; then the window kernel at the batch-1 calls phase 5 makes
+   (MAIN_WINDOWS), whose mean the kernels line reports. Times are
+   medians over CUDA events with the L2 flushed before each launch.
 4. Serve f32: gpt_small at full width (seeded init) behind the REST
    server on a real socket, paged_attention=kernel; two greedy
    `:generate` requests must equal the port's `generate()`.
@@ -140,9 +142,16 @@ TRAIN_CFG = dict(
 )
 # phase 6's kernel shapes: one microbatch of TRAIN_CFG, gpt_small heads
 FB, FH, FD, FS = 2, 12, 64, 4096
-# the flash kernels built with TMA, wgmma and setmaxnreg: phase 2 fails when
-# ptxas reports that one of their instances spills or ignored setmaxnreg
+# the kernels built on wgmma (the flash kernels with TMA and setmaxnreg too):
+# phase 2 fails when ptxas reports that one of their instances spills or
+# ignored setmaxnreg. The flash kernels' instances are named <kernel>ILi<D>E;
+# the window kernel's bf16 instances by the storage they read, full-width
+# bf16 pages (a repeated template argument, S<n>_) or int8 (a)
 HOPPER_KERNELS = ("flash_fwd_bf16", "flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+WINDOW_HOPPER_KERNELS = {
+    "paged_window_bf16": r"paged_window_kernelI13__nv_bfloat16S\d*_Li(?P<d>\d+)E",
+    "paged_window_int8_bf16": r"paged_window_kernelI13__nv_bfloat16aLi(?P<d>\d+)E",
+}
 
 # gpt_small serving geometry (engine defaults: 8 slots, page 16)
 B, H, D, PS, MP, NUM_PAGES = 8, 12, 64, 16, 64, 384
@@ -151,6 +160,12 @@ CURSORS = (0, 15, 16, 1023, 1024, 300, 517, 64)
 # the decode kernel's split edges (a split is 128 keys at page 16) and its
 # one-long-row call
 SPLIT_EDGES, LONG_ROW = (127, 128, 129), (1023,)
+# the K+1 verify window of K = 4 draft tokens
+VERIFY = 5
+# a long view (512 pages of 16 a slot): slots near its end, mid-way, on a
+# split edge, and parked; pool pages for their live pages
+LONG_MP, LONG_NUM_PAGES = 512, 1400
+LONG_CURSORS = (8100, 4000, 128, LONG_MP * PS)
 
 # phase 5's traffic: prefill buckets up to 256, chunk windows of 64 rows
 # (the engine's chunk_len at page 16), one long prompt and one prompt
@@ -170,17 +185,22 @@ def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
     """{(kernel, D): (registers, spill store bytes, spill load bytes)} of
     each instance of `kernels` in a ptxas report (nvcc -Xptxas -v); raises
     when one spills, when ptxas ignored a setmaxnreg (C7508), or when an
-    instance is missing."""
+    instance is missing. `kernels` names kernels whose instances are
+    <kernel>ILi<D>E, or maps a label to a pattern of its instances' names
+    with D as the group `d`."""
     if "C7508" in log or "setmaxnreg ignored" in log:
         raise AssertionError("ptxas ignored a setmaxnreg (C7508):\n" + "\n".join(
             line for line in log.splitlines() if "C7508" in line or "setmaxnreg" in line))
+    if not isinstance(kernels, dict):
+        kernels = {k: re.escape(k) + r"ILi(?P<d>\d+)E" for k in kernels}
     report = {}
     for chunk in log.split("Compiling entry function '")[1:]:
         name = chunk.split("'", 1)[0]
-        kernel = next((k for k in kernels if k in name), None)
-        if kernel is None:
+        found = next(((k, m) for k, pat in kernels.items()
+                      if (m := re.search(pat, name))), None)
+        if found is None:
             continue
-        d = int(re.search(r"ILi(\d+)E", name).group(1))
+        kernel, d = found[0], int(found[1].group("d"))
         regs = re.search(r"Used (\d+) registers", chunk)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         if regs is None or spills is None:
@@ -204,19 +224,21 @@ def smi_line() -> str:
     ).stdout.strip()
 
 
-def kernel_inputs(torch, dtype, s, dev, cursors=CURSORS, seed=0):
-    """q, pools, page table and cursors at the serving shapes: each slot
-    owns distinct pages up to its last live one; entries past it are
-    stale (random) and must never be read."""
+def kernel_inputs(torch, dtype, s, dev, cursors=CURSORS, seed=0, mp=MP,
+                  num_pages=NUM_PAGES):
+    """q, pools, page table and cursors at the serving shapes (or `mp`
+    pages a slot in a pool of `num_pages`): each slot owns distinct pages
+    up to its last live one; entries past it are stale (random) and must
+    never be read."""
     g = torch.Generator().manual_seed(seed)
     b = len(cursors)
     q = torch.randn((b, s, H, D), generator=g).to(dtype)
-    pool_k = torch.randn((NUM_PAGES, PS, H, D), generator=g).to(dtype)
-    pool_v = torch.randn((NUM_PAGES, PS, H, D), generator=g).to(dtype)
-    perm = torch.randperm(NUM_PAGES, generator=g).tolist()
-    table = torch.randint(0, NUM_PAGES, (b, MP), generator=g, dtype=torch.int32)
+    pool_k = torch.randn((num_pages, PS, H, D), generator=g).to(dtype)
+    pool_v = torch.randn((num_pages, PS, H, D), generator=g).to(dtype)
+    perm = torch.randperm(num_pages, generator=g).tolist()
+    table = torch.randint(0, num_pages, (b, mp), generator=g, dtype=torch.int32)
     for row, cur in enumerate(cursors):
-        live = min((cur + s - 1) // PS, MP - 1) + 1
+        live = min((cur + s - 1) // PS, mp - 1) + 1
         table[row, :live] = torch.tensor(perm[:live], dtype=torch.int32)
         perm = perm[live:]
     cursors = torch.tensor(cursors, dtype=torch.int32)
@@ -299,18 +321,21 @@ def library_attention(torch, q, pool_k, pool_v, table, cursors, k_scale=None,
     ).transpose(1, 2)
 
 
-def measure(torch, pa, flush, dtype, s, cursors, quantized=False, timed=True):
+def measure(torch, pa, flush, dtype, s, cursors, quantized=False, timed=True,
+            mp=MP, num_pages=NUM_PAGES):
     """One kernel call at (s, cursors) against its plain version (every
     row, parked ones included: both write zeros there) and the library
     yardstick (live rows), then their times and the call's bound. With
     `quantized`, the pools are `quantize_kv` of the same seeded pools and
     the call reads them through the kernel's int8 variant. Not `timed`:
-    the check alone (the record carries the error only)."""
+    the check alone (the record carries the error only), which may take
+    another view (`mp` pages a slot, `num_pages` in the pool)."""
     from kubeflow_tpu_torch.ops.attention import quantize_kv
 
     name = str(dtype).replace("torch.", "")
     kname = pa.kernel_name(s, quantized)
-    args = kernel_inputs(torch, dtype, s, "cuda", cursors=cursors)
+    args = kernel_inputs(torch, dtype, s, "cuda", cursors=cursors, mp=mp,
+                         num_pages=num_pages)
     kw = {}
     if quantized:
         (args[1], ks), (args[2], vs) = quantize_kv(args[1]), quantize_kv(args[2])
@@ -319,10 +344,11 @@ def measure(torch, pa, flush, dtype, s, cursors, quantized=False, timed=True):
     ref = pa.paged_attention_reference(*args, dtype=dtype, **kw)
     lib = library_attention(torch, *args, **kw)
     torch.cuda.synchronize()
-    live = args[4] < MP * PS
+    live = args[4] < mp * PS
     err = (out.float() - ref.float()).abs().max().item()
     lib_err = (lib[live].float() - ref[live].float()).abs().max().item()
-    label = f"kernel {kname} {name} B={len(cursors)} s={s} cursors {list(cursors)}"
+    label = (f"kernel {kname} {name} B={len(cursors)} s={s} cursors {list(cursors)}"
+             + ("" if mp == MP else f" view {mp * PS}"))
     print(f"{label}: max_abs_err {err:.3e} (atol {ATOL[name]:g}); library "
           f"max_abs_err {lib_err:.3e}", flush=True)
     if not err <= ATOL[name]:
@@ -376,6 +402,11 @@ def phase_kernels(torch, quantized=False):
             rec = measure(torch, pa, flush, dtype, s, CURSORS, quantized)
             records[(rec["name"], rec["dtype"], "B8")] = rec
         measure(torch, pa, flush, dtype, 1, SPLIT_EDGES, quantized, timed=False)
+        # the window kernel at the verify window and over a long view
+        measure(torch, pa, flush, dtype, VERIFY, CURSORS, quantized, timed=False)
+        for s in (VERIFY, CHUNK):
+            measure(torch, pa, flush, dtype, s, LONG_CURSORS, quantized,
+                    timed=False, mp=LONG_MP, num_pages=LONG_NUM_PAGES)
     # one long row: a slot at cursor 1023 walks 8 splits of 128 keys
     decode = pa.kernel_name(1, quantized)
     long_row = measure(torch, pa, flush, torch.bfloat16, 1, LONG_ROW, quantized)
@@ -978,6 +1009,8 @@ def main() -> int:
     for name, log in build_logs.items():
         print(f"build log {name}:\n{log.strip()}", flush=True)
     report = hopper_kernel_report(build_logs["flash_attention"])
+    report.update(hopper_kernel_report(build_logs["paged_attention"],
+                                       WINDOW_HOPPER_KERNELS))
     print("ptxas, the Hopper kernels (registers a thread at launch; no spills, "
           "setmaxnreg honoured): " + ", ".join(
               f"{k} D={d} {r[0]}" for (k, d), r in sorted(report.items())),

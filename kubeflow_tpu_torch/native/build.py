@@ -7,12 +7,13 @@ PyTorch header, so one nvcc call builds it in seconds:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source and flags, so a stale
-build is never loaded; a finished build is reused by later processes
-in the same checkout. Pointer and stream arguments go through ctypes as
-`c_void_p`; every C entry point returns `cudaGetLastError()` and the
-caller raises when it is not 0. A failed build raises with nvcc's
-output. Nothing here runs at import time.
+The library name carries a hash of the flags, the source and every
+header of ops/csrc it includes (`#include "..."`, directly or through
+another header), so a stale build is never loaded; a finished build is
+reused by later processes in the same checkout. Pointer and stream
+arguments go through ctypes as `c_void_p`; every C entry point returns
+`cudaGetLastError()` and the caller raises when it is not 0. A failed
+build raises with nvcc's output. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -64,9 +66,33 @@ def kernel_sources() -> List[str]:
     )
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> List[str]:
+    """ops/csrc/<name>.cu and every file of ops/csrc it includes with
+    quotes, directly or through another header, each once, in the order
+    they are first met."""
+    files, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        path = os.path.join(CSRC_DIR, f)
+        if not os.path.exists(path):
+            raise KernelBuildError(f"{f} (a source of {name}) is not in "
+                                   f"{CSRC_DIR}")
+        files.append(f)
+        with open(path, "rb") as fh:
+            todo += [m.decode() for m in _INCLUDE.findall(fh.read())]
+    return files
+
+
 def _library_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in source_files(name):
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            digest.update(f.encode() + b"\0" + fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

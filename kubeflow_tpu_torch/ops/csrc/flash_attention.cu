@@ -94,6 +94,8 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -113,17 +115,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// over the 4 threads of a quad (the threads holding one accumulator row)
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 // Copy rows [row0, row0 + BT) of one (b, h) slice of a [B, S, H, D] tensor
@@ -171,24 +162,11 @@ __device__ __forceinline__ void load_row_values(float* dst, const float* src, in
 // warpgroup-aligned), each owning 64 rows of the block's 128-row tile, and
 // a producer warpgroup, of which one warp works: its lane 0 issues the TMA
 // copies, and all its lanes pack the forward's and dQ's key-mask bits or
-// write the dK/dV kernel's lse and delta rows. wgmma's f32
-// accumulator of an m64nN product gives warp w of a warpgroup rows
-// 16w + g and 16w + g + 8 (g = lane / 4), and register i of a thread the
-// column 8·(i / 4) + 2·(lane % 4) + (i % 2) of row 16w + g + 8·((i / 2) % 2):
-// as bf16 pairs, the A-fragment layout of the next product's register
-// operand (a0 = row g, k 2t..2t+1; a1 = row g + 8; a2, a3 the same at k + 8).
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// write the dK/dV kernel's lse and delta rows. The mbarrier, TMA and wgmma
+// helpers, and the accumulator layout they rely on, are hopper.cuh's.
 
 // write a warpgroup's accumulator rows `rows[0..1]` of this thread (the
-// m64nD layout above, as [D / 8][4]; times mul[r]) as bf16 rows of one
+// m64nD layout of hopper.cuh, as [D / 8][4]; times mul[r]) as bf16 rows of one
 // (b, h) slice; rows past S are skipped
 template <int D>
 __device__ __forceinline__ void store_strip(bf16* dst, float (*acc)[4], const int* rows,
@@ -205,293 +183,12 @@ __device__ __forceinline__ void store_strip(bf16* dst, float (*acc)[4], const in
   }
 }
 
-constexpr int kWarpGroup = 128;
 constexpr int kConsumers = 2;  // consumer warpgroups a block
 constexpr int kConsumerThreads = kConsumers * kWarpGroup;
 constexpr int kHopThreads = kConsumerThreads + kWarpGroup;  // + the producer warpgroup
 // registers a thread after setmaxnreg: 24·128 + 240·256 = the 168·384 a
 // block of 384 threads starts with
 constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
-// an mbarrier wait of this many polls (each try_wait suspends the thread a
-// while) means a lost arrival: trap rather than hang the card
-constexpr uint32_t kWaitLimitPolls = 1u << 28;
-
-__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000u); }
-
-__device__ __forceinline__ float fast_exp2(float x) {  // ex2(-inf) = +0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// threadIdx.x / 128, broadcast from lane 0 so that the compiler knows it is
-// warp-uniform: the descriptors built from it then live in uniform registers
-__device__ __forceinline__ int warpgroup_index() {
-  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / kWarpGroup, 0);
-}
-
-// -- mbarriers (shared addresses) ---------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// arrive, and add `bytes` to the transfers the current phase waits for
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// wait until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t polls = 0; !mbar_try(bar, parity);)
-    if (++polls == kWaitLimitPolls) __trap();
-}
-
-// -- TMA ------------------------------------------------------------------------
-
-// copy the box at (c0, c1, c2, c3) of a 4-D tensor map into shared memory;
-// its bytes complete a transfer of `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// -- wgmma --------------------------------------------------------------------
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Registers an asynchronous wgmma reads or writes: the empty asm redefines
-// them here, so no read or write of them moves across this point.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// `x` as a value the compiler cannot see through: descriptors built from it
-// inside a loop are rebuilt there (a few integer adds) instead of being
-// hoisted and held, 2 registers each, across the loop
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
-// shared-memory matrix descriptor: start address, leading and stride byte
-// offsets, swizzle (1 = 128 B, 3 = 32 B)
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                               uint64_t swizzle) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32 | swizzle << 62;
-}
-
-// wgmma m64nNk16, bf16 in, f32 accumulators
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  // d[64×16] += a·b; a (bf16 pairs) in registers, b MN-major in shared memory
-  static __device__ __forceinline__ void rs_t(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  // d[64×64] = a·b (accumulate = 0) or d + a·b; a and b K-major in shared memory
-  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-  // d[64×64] += a·b; a (bf16 pairs) in registers, b MN-major in shared memory
-  static __device__ __forceinline__ void rs_t(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  // d[64×128] = a·b (accumulate = 0) or d + a·b; a and b K-major in shared memory
-  static __device__ __forceinline__ void ss(float* d, uint64_t a, uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-  // d[64×128] += a·b; a (bf16 pairs) in registers, b MN-major in shared memory
-  static __device__ __forceinline__ void rs_t(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-// A [rows][D] bf16 tile as TMA leaves it in shared memory (1024-byte
-// aligned): D = 16 as one box of 32-byte rows with the 32-byte swizzle,
-// D = 64 as one box of 128-byte rows with the 128-byte swizzle, D = 128 as
-// two such boxes of 64 columns, one after the other. The descriptors name
-// the same swizzle; 8 rows make one swizzle atom.
-template <int D>
-struct Swz {
-  static constexpr int kCols = D < 64 ? D : 64;  // columns of one box
-  static constexpr int kBoxes = D / kCols;
-  static constexpr uint32_t kRow = 2 * kCols;  // bytes of a box row
-  static constexpr uint32_t kAtom = 8 * kRow;
-  static constexpr uint64_t kSwizzle = D == 16 ? 3 : 1;
-
-  // K-major operand (D is the reduced dimension): rows from r0 of a tile
-  // of `rows` rows at `tile`, columns [16·kk, 16·kk + 16)
-  static __device__ __forceinline__ uint64_t k_major(uint32_t tile, int rows, int r0, int kk) {
-    const int box = 16 * kk / kCols, col = 16 * kk % kCols;
-    return wgmma_desc(tile + box * rows * kRow + r0 * kRow + 2 * col, 16, kAtom, kSwizzle);
-  }
-
-  // MN-major operand (the tile's rows are the reduced dimension): rows
-  // [16·kk, 16·kk + 16), all D columns; boxes `rows` rows apart
-  static __device__ __forceinline__ uint64_t mn_major(uint32_t tile, int rows, int kk) {
-    return wgmma_desc(tile + 16 * kk * kRow, rows * kRow, kAtom, kSwizzle);
-  }
-};
-
 // rows [row0, row0 + rows) of head h, batch row b, into the tile at `dst`
 template <int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
@@ -499,15 +196,6 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, u
 #pragma unroll
   for (int box = 0; box < Swz<D>::kBoxes; ++box)
     tma_load(dst + box * rows * Swz<D>::kRow, map, bar, box * Swz<D>::kCols, h, row0, b);
-}
-
-__device__ __forceinline__ uint32_t align1024(uint32_t addr) { return (addr + 1023u) & ~1023u; }
-
-// the parity of the i-th use of a ring of kStages stages (use i fills stage
-// i % kStages for the (i / kStages)-th time)
-template <int kStages>
-__device__ __forceinline__ uint32_t ring_parity(int i) {
-  return static_cast<uint32_t>(i / kStages) & 1u;
 }
 
 // Forward: Q (128 rows) once, then K and V tiles of 128 keys through a
@@ -1432,30 +1120,6 @@ cudaError_t launch(Which which, const Args& a, int tile, KernelFwd fwd, size_t f
         a.S, a.H, a.scale, a.causal);
   }
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, found through the runtime (no -lcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // A 4-D map (D, H, S, B) over a contiguous [B, S, H, D] bf16 tensor whose

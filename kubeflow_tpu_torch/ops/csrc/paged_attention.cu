@@ -8,7 +8,8 @@
 //                        every generated token runs, once per layer).
 //   paged_window_kernel  replaces kubeflow_tpu/ops/paged_attention.py
 //                        `_mq_kernel` (an s > 1 query window: chunk
-//                        prefill, where row j sits at cursor + j).
+//                        prefill, the prefix-hit tail and the K+1 verify
+//                        window, where row j sits at cursor + j).
 //
 // The storage type KV is a template parameter beside the compute dtype T:
 // KV == T reads a pool in the compute dtype; KV == int8_t reads the int8
@@ -25,48 +26,55 @@
 // position masked. A slot whose cursor lies past the window (the engine
 // parks idle and retired slots at max_len) is never read: its output is
 // zeros and its blocks load nothing, so an idle slot costs no bytes.
-// They keep the JAX package's roundings: each q·k dot is
+// They keep the JAX package's score roundings: each q·k dot is
 // accumulated in f32 and rounded to the compute dtype, divided by sqrt(D)
-// in the compute dtype, and the softmax runs in f32. The window kernel
-// rounds the normalised probabilities to the compute dtype before P·V; the
-// decode kernel's one-pass softmax sums un-normalised f32 probabilities
-// times V and divides once at the end (a reordering that ROADMAP's parity
-// contract (c) allows: the same in f32 up to summation order, within one
-// bf16 rounding of p in bf16). Both accumulate in f32 and round once.
+// in the compute dtype, and the softmax runs in f32. Both split a row's
+// keys over blocks and carry un-normalised probabilities: each split sums
+// exp(s − m_split) (f32) and its product with V, and the splits are folded
+// with a running max and divided by the sum once at the end. The JAX
+// kernels round the normalised probabilities to the compute dtype before
+// P·V; this is the reordering ROADMAP's parity contract (c) allows (the
+// same in f32 up to summation order; in bf16 the window kernel rounds the
+// un-normalised p to bf16 for its tensor-core product, the decode kernel
+// keeps it in f32). Both accumulate in f32 and round once.
 //
-// What bounds them: bytes. Each step reads every live K and V vector of
-// every slot once (2 · n_keys · H · D elements per slot; D + 2 bytes a
-// vector in int8, 2D in bf16) and does 4 flops per element read (5 with
-// the dequant), far below the ~295 flops per byte the H100 needs before
-// its arithmetic is the limit: the bound is the live vectors' bytes over
-// 3.35 TB/s, 1.8 us for gpt_small's 8-slot decode step of one layer. Both
-// walk only the pages up to a row's last visible position (a page-table
-// entry past it may be stale and is never dereferenced) and read each
-// live vector once per (slot, head). At ~2 us of bytes the walk is bound
-// by latency, not bandwidth, and the decode kernel is built against
-// that:
-// 1. One block per (slot, head) gave 96 blocks on 132 SMs, and the one
-//    long row walked its 1024 keys alone in 32 dependent rounds: the
-//    decode grid is (slot, head, split), a split being a fixed run of
-//    pages of 128 keys (kSplitKeys), sized from max_pages on the host and
-//    never from the cursors (a split past its row's last key exits at
-//    once), so a long row spreads over as many blocks as it has splits.
+// What bounds them: bytes. A call reads every live K and V vector of every
+// slot once (2 · n_keys · H · D elements per slot; D + 2 bytes a vector in
+// int8, 2D in bf16) and does 4 flops per (query row, key, element) (plus
+// the dequant), far below the ~295 flops per byte the H100 needs before its
+// arithmetic is the limit: the bound is the live vectors' bytes over
+// 3.35 TB/s, 1.8 us for gpt_small's 8-slot decode step of one layer and
+// ~0.5 us for one 64-row chunk window. Both walk only the pages up to a
+// row's last visible position (a page-table entry past it may be stale and
+// is never dereferenced) and read each live vector once per (slot, head,
+// block). At a few us of bytes a walk is bound by latency, not bandwidth,
+// and both kernels are built against that:
+// 1. One block per (slot, head) gave 96 blocks on 132 SMs, and a long row
+//    walked its keys alone in dependent rounds: the grid is split over
+//    pages, a split being a fixed run of whole pages of 128 keys
+//    (kSplitKeys), sized from max_pages on the host and never from the
+//    cursors (a split past its rows' last key exits at once), so a long
+//    row spreads over as many blocks as it has splits and the launch reads
+//    nothing on the host.
 // 2. A page-table read sat in every load's chain: a block reads its
-//    split's page ids into shared memory once, beside the cursor, and then
-//    every lane group issues all its keys' K and V loads (up to 8 of each,
-//    16 bytes a lane) before it computes, none of them behind a table
-//    read.
-// 3. Three block-wide barriers and reductions over a max_len score row in
-//    shared memory (which capped the context it served): each lane group
-//    keeps its own running max, sum and P·V (online softmax), the block
-//    folds its groups once, and the splits are folded by the row's last
-//    split to finish (a ticket per row in a workspace the wrapper
-//    allocates and the kernel leaves zeroed), in split order, so the
-//    result does not depend on which block finishes first. Shared memory
-//    is static and small; the context is capped by nothing in the kernel.
-// The window kernel keeps the first design (one block per (slot, head,
-// 8 query rows), scores in shared memory, kUnroll loads in flight per lane
-// group); it waits for its own redesign (split over pages, wgmma at s = 64).
+//    split's page ids once, beside the cursor, and then issues all its
+//    K and V loads (decode: up to 8 of each per lane group, 16 bytes a
+//    lane; window: one TMA box per page, or 16-byte loads by every thread)
+//    before it computes, none of them behind a table read.
+// 3. Block-wide reductions over a score row of the whole view in shared
+//    memory (which capped the context the window kernel served at ~7,000
+//    positions): each block keeps only its split's running max, sum and
+//    P·V, and the splits are folded by the row's (decode) or query tile's
+//    (window) last live split to finish (a ticket in a workspace the
+//    wrapper allocates and the kernel leaves zeroed), in split order, so
+//    the result does not depend on which block finishes first. Shared
+//    memory does not grow with the view; the context is capped by nothing
+//    in either kernel.
+// The window kernel's products run on the tensor cores (wgmma, bf16): a
+// 64-row query tile against a 128-key split is one m64n128 chain for S and
+// one m64nD chain for P·V. A short window (the s = 5 verify window) fills
+// 5 of the tile's 64 rows; the tensor-core work it wastes costs nothing
+// next to the call's bytes and latency.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,15 +82,12 @@
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-// query rows one window block serves (one softmax warp each); its score
-// tile is kRows x max_len f32
-constexpr int kRows = kWarps;
-// keys each lane group loads before it computes: loads in flight
-constexpr int kUnroll = 2;
+using bf16 = __nv_bfloat16;
+
 constexpr int kDefaultSmem = 48 * 1024;
 
 template <typename T>
@@ -207,19 +212,6 @@ struct KvRaw<T, int8_t> {
   __device__ __forceinline__ void unpack(float* f) const { Kv<T, int8_t>::unpack(bits, scale, f); }
 };
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // sum over the `lanes` neighbouring lanes that hold one key's vectors
 template <int lanes>
 __device__ __forceinline__ float group_sum(float v) {
@@ -228,25 +220,13 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// position t of slot b, head h -> index of its vector in the pool viewed
-// as [P * page_size * H] vectors: its values start at row * D, its int8
-// scale (if any) is scale[row]. The page id is clamped into
-// [0, num_pages) so a corrupt table entry can never fault; the engine
-// never hands the kernel one.
-__device__ __forceinline__ size_t kv_row(const int* pt, int t, int page_size,
-                                         int num_pages, int H, int h) {
-  int page = pt[t / page_size];
-  page = page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
-  return (static_cast<size_t>(page) * page_size + t % page_size) * H + h;
-}
-
-// Thread layout of both kernels: a key's D elements are read as
+// Thread layout of the decode kernel: a key's D elements are read as
 // LPK = D / N 16-byte vectors by LPK neighbouring lanes (a "lane group";
 // N = Kv<T, KV>::N elements a load: 4 f32, 8 bf16, 16 int8);
 // the block's G = threads / LPK lane groups each take one key, and each
-// loads several keys before computing (the window kernel kUnroll, the
-// decode kernel DecodeGeo::U). Loops step a block-uniform base so every
-// lane of a warp runs the same iterations (the shuffles need it).
+// loads DecodeGeo::U keys before computing. Loops step a block-uniform
+// base so every lane of a warp runs the same iterations (the shuffles
+// need it).
 
 // ---------------------------------------------------------------------------
 // s == 1: split over pages (flash-decoding). Block (slot b, head h, split)
@@ -266,7 +246,7 @@ constexpr int kDecWarps = kDecThreads / 32;
 // keys a split walks (whole pages: 128 / page_size of them, at least one)
 constexpr int kSplitKeys = 128;
 
-int decode_pages_per_split(int page_size) {
+__host__ __device__ inline int decode_pages_per_split(int page_size) {
   return page_size >= kSplitKeys ? 1 : kSplitKeys / page_size;
 }
 
@@ -465,154 +445,544 @@ paged_decode_kernel(const T* __restrict__ q, const KV* __restrict__ pool_k,
 }
 
 // ---------------------------------------------------------------------------
-// s > 1: one block per (slot, head, tile of kRows query rows). Row j sits
-// at position cursor + j and sees keys <= cursor + j; the block walks the
-// pages up to its last row's position (the JAX kernel's live-page gate is
-// cursor + s - 1 for the whole window). Each K/V vector the block needs
-// is loaded once and used by all its rows.
+// s > 1: split over pages, 64 query rows a block. Block (split, query tile,
+// slot b · H + head h) takes query rows [64·tile, 64·tile + 64) of the
+// window (row j at position cursor + j, seeing keys <= cursor + j) and the
+// split's run of keys [k0, k0 + kps): whole pages of at most 128 keys, as
+// the decode kernel cuts them (a page over 128 keys is cut into parts of
+// 128). A split past its tile's last visible position exits at once; the
+// others compute each row's (m_i, l_i, o_i) over the split's keys, and the
+// tile's last live split to finish (a ticket per tile) folds them in split
+// order, as the decode kernel does. A tile that one split covers writes
+// o_i / l_i itself.
+//
+// bf16 (one warpgroup): Q [64][D] and the split's K and V [128][D] tiles in
+// shared memory in the swizzled layout wgmma reads; S = Q·Kᵀ is a chain of
+// wgmma m64n128k16 from shared memory; the scores are rounded as the JAX
+// kernel rounds them, masked, and exponentiated against the row's split
+// max (un-normalised p, f32 sum l); P·V is a wgmma with P (rounded to bf16)
+// as the register A operand and V read MN-major. A block takes one split,
+// so its ring has two stages used once each, K's and V's: at full width
+// each page (one head's page_size × D rows) is one TMA box of the 2-D view
+// [num_pages · page_size, H · D] landing on K's or V's mbarrier (issued by
+// the lanes of warp 0, a page a lane), so S and the softmax run while V's
+// pages are in flight; a page of fewer than 8
+// rows (under the swizzle atom) and the int8 pool are read by the
+// warpgroup's threads in 16-byte loads (int8 dequantized on the way) and
+// written in the same layout, V's while S is in flight. Rows of the tile
+// no page fills are zeros (stale shared memory may hold NaN, and p = 0
+// does not clear it in P·V).
+//
+// f32 (the parity path): the same grid, split and fold, the tiles in
+// shared memory as f32 and the products on the CUDA cores (scalar FMA, 8
+// rows × 8 keys a thread for S, 8 rows × D / 16 columns for P·V).
+//
+// A 64-row chunk window at gpt_small's widths needs ~0.5 us of bytes and
+// less of the tensor cores: the call is a chain of dependent steps (launch,
+// cursor and page ids, the page copies, two products, the partials' write,
+// the ticket, the fold's reads), and the fold of a tile's splits is its
+// longest link (PERF.md).
 // ---------------------------------------------------------------------------
-template <typename T, typename KV, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_window_kernel(const T* __restrict__ q, const KV* __restrict__ pool_k,
-                    const KV* __restrict__ pool_v,
-                    const __nv_bfloat16* __restrict__ k_scale,
-                    const __nv_bfloat16* __restrict__ v_scale,
-                    const int* __restrict__ page_table,
-                    const int* __restrict__ cursors, T* __restrict__ out,
-                    int S, int page_size, int max_pages, int num_pages,
-                    float scale) {
-  constexpr int N = Kv<T, KV>::N;
-  constexpr int LPK = D / N;
-  constexpr int KPW = 32 / LPK;
-  constexpr int G = kThreads / LPK;
-  extern __shared__ float smem[];
-  const int view_len = max_pages * page_size;
-  float* scores = smem;                    // [kRows][view_len]
-  float* q_s = scores + kRows * view_len;  // [kRows][D]
-  float* part = q_s + kRows * D;           // [G][D], one row at a time
+constexpr int kWinThreads = kWarpGroup;  // one warpgroup a block
+constexpr int kWinRows = 64;             // query rows a block (a tile)
+constexpr int kWinKeys = kSplitKeys;     // tile rows of K and V: keys a split at most
+constexpr float kBigNeg = -1e30f;        // a row max before any visible key
 
-  const int b = blockIdx.x, h = blockIdx.y, H = gridDim.y;
-  const int j0 = blockIdx.z * kRows;
-  const int rows = min(kRows, S - j0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int sub = lane / LPK, li = tid % LPK, g = tid / LPK;
-  int cur = cursors[b];
-  cur = cur < 0 ? 0 : cur;
-  // a parked row's window is never read: zeros, no walk
-  if (cur >= view_len) {
-    for (int i = tid; i < rows * D; i += kThreads)
-      out[((static_cast<size_t>(b) * S + j0 + i / D) * H + h) * D + i % D] =
-          from_f<T>(0.f);
-    return;
-  }
-  const int* pt = page_table + static_cast<size_t>(b) * max_pages;
-  // visible keys of the block's last row: the keys (and pages) it walks
-  const int n_max = min(cur + j0 + rows - 1, view_len - 1) + 1;
+// keys a window split walks (decode_pages_per_split whole pages, or a
+// 128-key part of a larger page) and rows of one copy (a page or a part)
+__host__ __device__ inline int window_split_keys(int ps) {
+  return ps <= kWinKeys ? decode_pages_per_split(ps) * ps : kWinKeys;
+}
+__host__ __device__ inline int window_box_rows(int ps) { return ps < kWinKeys ? ps : kWinKeys; }
 
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    q_s[i] = r < rows
-        ? to_f<T>(q[((static_cast<size_t>(b) * S + j0 + r) * H + h) * D + d])
-        : 0.f;
+int window_splits(int ps, int max_pages) {
+  const int kps = window_split_keys(ps);
+  return (max_pages * ps + kps - 1) / kps;
+}
+
+// shared memory of a window block: bf16 Q | K | V tiles (1024-byte aligned)
+// | two mbarriers | the split's page ids; f32 Q, K, V [rows][D + 1] | P
+// [64][kPStride] | page ids
+template <typename T, int D>
+struct WinSmem {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr uint32_t kQ = kWinRows * D * 2, kKV = kWinKeys * D * 2;  // bf16 tiles
+  // f32 row strides, padded against bank conflicts
+  static constexpr int kLd = D + 1, kPStride = kWinKeys + 1;
+  static constexpr size_t kBytes =
+      kBf16 ? 1024 + kQ + 2 * kKV + 16 + 4 * kWinKeys
+            : 4 * (static_cast<size_t>(kWinRows + 2 * kWinKeys) * kLd + kWinRows * kPStride +
+                   kWinKeys);
+};
+
+// What one window block works on, from its indices and the slot's cursor.
+struct WinBlock {
+  int b, h, bh, tile, split, j0, rows;  // rows [j0, j0 + rows) of slot b, head h
+  int cur, view_len, k0, n_keys;        // the split's first key and its keys the tile sees
+  int n_live;                           // live splits of the tile
+  bool parked;                          // cursor past the window: zeros, nothing read
+
+  __device__ __forceinline__ WinBlock(const int* cursors, int S, int H, int page_size,
+                                      int max_pages) {
+    split = blockIdx.x;
+    tile = blockIdx.y;
+    bh = blockIdx.z;
+    b = bh / H;
+    h = bh % H;
+    j0 = tile * kWinRows;
+    rows = min(kWinRows, S - j0);
+    cur = max(cursors[b], 0);
+    view_len = max_pages * page_size;
+    parked = cur >= view_len;
+    // the tile's last visible position: its last row's, inside the view
+    const int last = min(cur + j0 + rows - 1, view_len - 1);
+    const int kps = window_split_keys(page_size);
+    k0 = split * kps;
+    n_keys = parked ? 0 : min(kps, last + 1 - k0);
+    n_live = last / kps + 1;
   }
+  // the last key of the split that query row r of the tile sees (< 0: none)
+  __device__ __forceinline__ int last_key(int r) const {
+    return min(cur + j0 + r, view_len - 1) - k0;
+  }
+  __device__ __forceinline__ size_t out_row(int S, int H, int D, int r) const {
+    return ((static_cast<size_t>(b) * S + j0 + r) * H + h) * D;
+  }
+  // index of (this tile, this split)'s partials: kWinRows rows of them
+  __device__ __forceinline__ size_t part(int split_j) const {
+    return (static_cast<size_t>(bh) * gridDim.y + tile) * gridDim.x + split_j;
+  }
+};
+
+// a parked slot's tile (written by split 0): zeros
+template <typename T, int D>
+__device__ __forceinline__ void window_zeros(const WinBlock& w, T* out, int S, int H) {
+  for (int i = threadIdx.x; i < w.rows * D; i += kWinThreads)
+    out[w.out_row(S, H, D, i / D) + i % D] = from_f<T>(0.f);
+}
+
+// The id of the page (or page part) holding copy `threadIdx.x` of the
+// block's split, clamped into the pool (the engine never hands the kernel
+// one outside it), read before the cursor is known, so that no table read
+// waits for it; -1 past the split or the table. An id past the tile's last
+// live page may be stale: it is read but never dereferenced.
+__device__ __forceinline__ int window_page_id(const int* page_table, int H, int page_size,
+                                              int max_pages, int num_pages) {
+  const int kps = window_split_keys(page_size), bs = window_box_rows(page_size);
+  const int i = threadIdx.x, p = (blockIdx.x * kps + i * bs) / page_size;
+  if (i * bs >= kps || p >= max_pages) return -1;
+  const int page = page_table[static_cast<size_t>(blockIdx.z / H) * max_pages + p];
+  return page < 0 ? 0 : (page >= num_pages ? num_pages - 1 : page);
+}
+
+// pool vector index (values at index · D, int8 scale at index) of the
+// split's key c, head h
+__device__ __forceinline__ size_t window_vector(const int* pages, const WinBlock& w, int c,
+                                                int page_size, int H) {
+  const int bs = window_box_rows(page_size);
+  return (static_cast<size_t>(pages[c / bs]) * page_size + (w.k0 + c) % page_size) * H + w.h;
+}
+
+// The tile's last live split: every split's (m, l, o) of each of its rows,
+// folded in split order with a running max (kLog2: m in the exp2 domain),
+// out = o / l. Thread t folds half a row (row t / 2). Reads bypass L1,
+// which may hold stale lines.
+template <typename T, int D, bool kLog2>
+__device__ __forceinline__ void window_fold(const WinBlock& w, const float* part_o,
+                                            const float2* part_ml, T* out, int S, int H) {
+  constexpr int kHalf = D / 2;
+  constexpr int kInFlight = D <= 64 ? 4 : 2;  // splits whose loads go out together
+  const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * kHalf;
+  if (r >= w.rows) return;
+  float mm = -CUDART_INF_F, ll = 0.f, oo[kHalf];
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) oo[i] = 0.f;
+#pragma unroll kInFlight
+  for (int j = 0; j < w.n_live; ++j) {
+    const size_t p = w.part(j) * kWinRows + r;
+    const float2 ml = __ldcg(part_ml + p);
+    const float4* src = reinterpret_cast<const float4*>(part_o + p * D + c0);
+    const float m_new = fmaxf(mm, ml.x);
+    const float a = kLog2 ? exp2f(mm - m_new) : expf(mm - m_new);
+    const float f = kLog2 ? exp2f(ml.x - m_new) : expf(ml.x - m_new);
+    ll = ll * a + ml.y * f;
+#pragma unroll
+    for (int i = 0; i < kHalf / 4; ++i) {
+      const float4 v = __ldcg(src + i);
+      oo[4 * i] = oo[4 * i] * a + v.x * f;
+      oo[4 * i + 1] = oo[4 * i + 1] * a + v.y * f;
+      oo[4 * i + 2] = oo[4 * i + 2] * a + v.z * f;
+      oo[4 * i + 3] = oo[4 * i + 3] * a + v.w * f;
+    }
+    mm = m_new;
+  }
+  T* dst = out + w.out_row(S, H, D, r) + c0;
+#pragma unroll
+  for (int i = 0; i < kHalf; ++i) dst[i] = from_f<T>(oo[i] / ll);
+}
+
+// After a block wrote its partials: take the tile's ticket; the last live
+// split folds every split and resets the ticket for the next launch.
+template <typename T, int D, bool kLog2>
+__device__ __forceinline__ void window_finish(const WinBlock& w, const float* part_o,
+                                              const float2* part_ml, int* tickets, T* out,
+                                              int S, int H) {
+  __shared__ int last;
+  int* ticket = tickets + static_cast<size_t>(w.bh) * gridDim.y + w.tile;
   __syncthreads();
-
-  for (int base = warp * KPW; base < n_max; base += G * kUnroll) {
-    float kf[kUnroll][N];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + sub + u * G;
-      if (t < n_max) {
-        const size_t row = kv_row(pt, t, page_size, num_pages, H, h);
-        Kv<T, KV>::load(pool_k + row * D + li * N, k_scale + row, kf[u]);
-      } else {
-#pragma unroll
-        for (int i = 0; i < N; ++i) kf[u][i] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + sub + u * G;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        float acc = 0.f;
-#pragma unroll
-        for (int i = 0; i < N; ++i) acc += q_s[r * D + li * N + i] * kf[u][i];
-        acc = group_sum<LPK>(acc);
-        if (li == 0 && t < n_max)
-          scores[r * view_len + t] = round_to<T>(round_to<T>(acc) / scale);
-      }
-    }
-  }
+  if (threadIdx.x == 0) last = take_ticket(ticket) == w.n_live - 1;
   __syncthreads();
+  if (!last) return;
+  window_fold<T, D, kLog2>(w, part_o, part_ml, out, S, H);
+  if (threadIdx.x == 0) *ticket = 0;
+}
 
-  // f32 softmax per row, one warp per row
-  if (warp < rows) {
-    float* row = scores + warp * view_len;
-    const int n_r = min(cur + j0 + warp, view_len - 1) + 1;
-    float m = -CUDART_INF_F;
-    for (int t = lane; t < n_r; t += 32) m = fmaxf(m, row[t]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int t = lane; t < n_r; t += 32) {
-      const float e = expf(row[t] - m);
-      row[t] = e;
-      s += e;
-    }
-    s = warp_sum(s);
-    for (int t = lane; t < n_r; t += 32) row[t] = round_to<T>(row[t] / s);
-  }
-  __syncthreads();
-
-  float acc[kRows][N];
+// A K or V tile of the bf16 kernel filled by the block's threads: key c <
+// n_keys from the pool (int8 dequantized as dequant_kv does it), zeros past
+// it; every load is issued before any store.
+template <typename KV, int D>
+__device__ __forceinline__ void window_fill(unsigned char* tile, const KV* pool,
+                                            const bf16* scale, const int* pages,
+                                            const WinBlock& w, int page_size, int H) {
+  using W = Swz<D>;
+  constexpr int N = Kv<bf16, KV>::N;                // elements a 16-byte load
+  constexpr int LPK = D / N;                        // loads a key
+  constexpr int U = kWinKeys * LPK / kWinThreads;  // loads a thread
+  KvRaw<bf16, KV> raw[U];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) acc[r][i] = 0.f;
-  }
-  for (int base = warp * KPW; base < n_max; base += G * kUnroll) {
-    float vf[kUnroll][N];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + sub + u * G;
-      if (t < n_max) {
-        const size_t row = kv_row(pt, t, page_size, num_pages, H, h);
-        Kv<T, KV>::load(pool_v + row * D + li * N, v_scale + row, vf[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int t = base + sub + u * G;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        // keys past row r's own position are masked: skipped
-        if (r < rows && t < n_max && t <= cur + j0 + r) {
-          const float p = scores[r * view_len + t];
-#pragma unroll
-          for (int i = 0; i < N; ++i) acc[r][i] += p * vf[u][i];
-        }
-      }
+  for (int u = 0; u < U; ++u) {
+    const int i = threadIdx.x + u * kWinThreads, c = i / LPK, li = i % LPK;
+    if (c < w.n_keys) {
+      const size_t v = window_vector(pages, w, c, page_size, H);
+      raw[u].load(pool + v * D + li * N, scale + v);
+    } else {
+      raw[u].clear();
     }
   }
-  for (int r = 0; r < rows; ++r) {
 #pragma unroll
-    for (int i = 0; i < N; ++i) part[g * D + li * N + i] = acc[r][i];
-    __syncthreads();
-    for (int d = tid; d < D; d += kThreads) {
-      float o = 0.f;
-#pragma unroll 8
-      for (int gg = 0; gg < G; ++gg) o += part[gg * D + d];
-      out[((static_cast<size_t>(b) * S + j0 + r) * H + h) * D + d] = from_f<T>(o);
+  for (int u = 0; u < U; ++u) {
+    const int i = threadIdx.x + u * kWinThreads, c = i / LPK, li = i % LPK;
+    float f[N];
+    raw[u].unpack(f);
+#pragma unroll
+    for (int h8 = 0; h8 < N / 8; ++h8) {
+      const uint4 chunk = make_uint4(pack_bf16(f[8 * h8], f[8 * h8 + 1]),
+                                     pack_bf16(f[8 * h8 + 2], f[8 * h8 + 3]),
+                                     pack_bf16(f[8 * h8 + 4], f[8 * h8 + 5]),
+                                     pack_bf16(f[8 * h8 + 6], f[8 * h8 + 7]));
+      *reinterpret_cast<uint4*>(tile + W::offset(kWinKeys, c, li * N + 8 * h8)) = chunk;
     }
-    __syncthreads();
   }
 }
 
-// dynamic shared memory of a window launch; n = elements per 16-byte K/V
-// load (the decode kernel's is static and does not grow with the window)
-size_t window_smem(int view_len, int D, int n) {
-  return sizeof(float) *
-         (static_cast<size_t>(kRows) * view_len + kRows * D + kThreads * n);
+// (f32) a K or V tile [kWinKeys][D + 1] filled by the block's threads: key
+// c < n_keys from the pool (int8 dequantized), zeros past it
+template <typename KV, int D>
+__device__ __forceinline__ void window_fill_f32(float* tile, const KV* pool, const bf16* scale,
+                                                const int* pages, const WinBlock& w,
+                                                int page_size, int H) {
+  constexpr int N = Kv<float, KV>::N, LPK = D / N, kLd = D + 1;
+  for (int i = threadIdx.x; i < kWinKeys * LPK; i += kWinThreads) {
+    const int c = i / LPK, li = i % LPK;
+    float f[N];
+    if (c < w.n_keys) {
+      const size_t v = window_vector(pages, w, c, page_size, H);
+      Kv<float, KV>::load(pool + v * D + li * N, scale + v, f);
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e) f[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) tile[c * kLd + li * N + e] = f[e];
+  }
+}
+
+// round(round(x) / scale) in bf16 (the JAX kernel's score), dividing
+// exactly: a power-of-two scale (D = 16, 64) by its reciprocal
+__device__ __forceinline__ float window_score(float x, float scale, float inv, bool pow2) {
+  x = round_to<bf16>(x);
+  return round_to<bf16>(pow2 ? x * inv : x / scale);
+}
+
+template <typename T, typename KV, int D>
+__global__ void __launch_bounds__(kWinThreads)
+paged_window_kernel(const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const T* __restrict__ q,
+                    const KV* __restrict__ pool_k, const KV* __restrict__ pool_v,
+                    const bf16* __restrict__ k_scale, const bf16* __restrict__ v_scale,
+                    const int* __restrict__ page_table, const int* __restrict__ cursors,
+                    T* __restrict__ out, float* __restrict__ part_o,
+                    float2* __restrict__ part_ml, int* __restrict__ tickets, int S, int H,
+                    int page_size, int max_pages, int num_pages, int use_tma, float scale) {
+  using G = WinSmem<T, D>;
+  extern __shared__ unsigned char smem[];
+  if (G::kBf16 && use_tma && threadIdx.x == 0) {
+    tma_prefetch(&tm_k);
+    tma_prefetch(&tm_v);
+  }
+  const int page = window_page_id(page_table, H, page_size, max_pages, num_pages);
+  const WinBlock w(cursors, S, H, page_size, max_pages);
+  if (w.parked) {
+    if (w.split == 0) window_zeros<T, D>(w, out, S, H);
+    return;
+  }
+  if (w.n_keys <= 0) return;  // a split past the tile's last visible key
+  const int tid = threadIdx.x;
+
+  if constexpr (G::kBf16) {
+    using W = Swz<D>;
+    const uint32_t base = align1024(smem_addr(smem));
+    unsigned char* gen = smem + (base - smem_addr(smem));  // base as a generic pointer
+    const uint32_t sq = base, sk = sq + G::kQ, sv = sk + G::kKV, bar_k = sv + G::kKV,
+                   bar_v = bar_k + 8;
+    int* pages = reinterpret_cast<int*>(gen + (bar_v + 8 - base));
+    if (page >= 0) pages[tid] = page;
+    if (use_tma && tid == 0) {
+      mbar_init(bar_k, 1);
+      mbar_init(bar_v, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    const int bs = window_box_rows(page_size), boxes = (w.n_keys + bs - 1) / bs;
+    if (use_tma) {
+      // warp 0: one copy per page (or page part) of K, then of V
+      if (tid < 32) {
+        if (tid == 0) {
+          mbar_arrive_tx(bar_k, boxes * bs * D * 2);
+          mbar_arrive_tx(bar_v, boxes * bs * D * 2);
+        }
+        __syncwarp();
+        for (int i = tid; i < boxes; i += 32) {
+          const int row = pages[i] * page_size + (w.k0 + i * bs) % page_size;
+#pragma unroll
+          for (int box = 0; box < W::kBoxes; ++box)
+            tma_load_2d(sk + box * kWinKeys * W::kRow + i * bs * W::kRow, &tm_k, bar_k,
+                        w.h * D + box * W::kCols, row);
+        }
+        for (int i = tid; i < boxes; i += 32) {
+          const int row = pages[i] * page_size + (w.k0 + i * bs) % page_size;
+#pragma unroll
+          for (int box = 0; box < W::kBoxes; ++box)
+            tma_load_2d(sv + box * kWinKeys * W::kRow + i * bs * W::kRow, &tm_v, bar_v,
+                        w.h * D + box * W::kCols, row);
+        }
+      }
+      // V rows no copy fills: zeros
+      const int filled = boxes * bs;
+      constexpr int kChunks = W::kRow / 16;  // 16-byte chunks of a box row
+      for (int i = tid; i < (kWinKeys - filled) * kChunks * W::kBoxes; i += kWinThreads) {
+        const int box = i / ((kWinKeys - filled) * kChunks);
+        const int rest = i % ((kWinKeys - filled) * kChunks);
+        *reinterpret_cast<uint4*>(gen + (sv - base) + box * kWinKeys * W::kRow +
+                                  (filled + rest / kChunks) * W::kRow + (rest % kChunks) * 16) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+      window_fill<KV, D>(gen + (sk - base), pool_k, k_scale, pages, w, page_size, H);
+    }
+    // Q's rows of the tile (zeros past S)
+    {
+      constexpr int LPK = D / 8, U = kWinRows * LPK / kWinThreads;
+      uint4 qv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = tid + u * kWinThreads, r = i / LPK, li = i % LPK;
+        qv[u] = r < w.rows ? *reinterpret_cast<const uint4*>(q + w.out_row(S, H, D, r) + li * 8)
+                           : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = tid + u * kWinThreads, r = i / LPK, li = i % LPK;
+        *reinterpret_cast<uint4*>(gen + W::offset(kWinRows, r, li * 8)) = qv[u];
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (use_tma) mbar_wait(bar_k, 0);
+
+    float s[kWinKeys / 2];  // S = Q·Kᵀ: rows r0, r0 + 8 of the tile (wgmma layout)
+#pragma unroll
+    for (int i = 0; i < kWinKeys / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      Wgmma<kWinKeys>::ss(s, W::k_major(sq, kWinRows, 0, kk), W::k_major(sk, kWinKeys, 0, kk), kk);
+    wgmma_commit();
+    if (!use_tma) {  // V's tile while S is in flight
+      window_fill<KV, D>(gen + (sv - base), pool_v, v_scale, pages, w, page_size, H);
+      fence_proxy_async();
+      __syncthreads();
+    }
+    wgmma_wait<0>();
+    fence_regs<kWinKeys / 2>(s);
+
+    const int lane = tid & 31, t = lane & 3;
+    const int r0 = (tid >> 5) * 16 + (lane >> 2);  // this thread's rows r0, r0 + 8
+    const int vis[2] = {w.last_key(r0), w.last_key(r0 + 8)};
+    const float inv = 1.f / scale;
+    const bool pow2 = (__float_as_uint(scale) & 0x7fffffu) == 0;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int i = 0; i < kWinKeys / 2; ++i) {
+      const int c = 8 * (i >> 2) + 2 * t + (i & 1), rr = (i >> 1) & 1;
+      s[i] = c <= vis[rr] ? window_score(s[i], scale, inv, pow2) : -CUDART_INF_F;
+      mx[rr] = fmaxf(mx[rr], s[i]);
+    }
+    float m2[2], l[2] = {0.f, 0.f};  // the split's row max (exp2 domain) and sum
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) m2[rr] = fmaxf(quad_max(mx[rr]) * kLog2e, kBigNeg);
+#pragma unroll
+    for (int i = 0; i < kWinKeys / 2; ++i) {
+      s[i] = fast_exp2(fmaf(s[i], kLog2e, -m2[(i >> 1) & 1]));
+      l[(i >> 1) & 1] += s[i];
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) l[rr] = quad_sum(l[rr]);
+    // a tile that one split covers knows its rows' sums now: it rounds the
+    // normalised p, as the JAX kernel does, and its P·V is the output
+    const bool single = w.n_live == 1;
+    if (single) {
+      const float il[2] = {1.f / l[0], 1.f / l[1]};
+#pragma unroll
+      for (int i = 0; i < kWinKeys / 2; ++i) s[i] *= il[(i >> 1) & 1];
+    }
+    uint32_t p[kWinKeys / 4];  // P in bf16: the A operand of 8 k-steps
+#pragma unroll
+    for (int i = 0; i < kWinKeys / 4; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+    if (use_tma) mbar_wait(bar_v, 0);
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWinKeys / 16; ++kk)
+      Wgmma<D>::rs_t(acc, p + 4 * kk, W::mn_major(sv, kWinKeys, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<D / 2>(acc);
+    fence_regs<kWinKeys / 4>(p);
+
+    const size_t pidx = w.part(w.split) * kWinRows;
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = r0 + 8 * rr;
+      if (r >= w.rows) continue;
+      if (single) {
+        T* dst = out + w.out_row(S, H, D, r) + 2 * t;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              pack_bf16(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+      } else {
+        float* dst = part_o + (pidx + r) * D + 2 * t;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * j) =
+              make_float2(acc[4 * j + 2 * rr], acc[4 * j + 2 * rr + 1]);
+        if (t == 0) part_ml[pidx + r] = make_float2(m2[rr], l[rr]);
+      }
+    }
+    if (single) return;
+    window_finish<T, D, true>(w, part_o, part_ml, tickets, out, S, H);
+  } else {
+    constexpr int kLd = G::kLd, kPs = G::kPStride, DC = D / 16;
+    float* qs = reinterpret_cast<float*>(smem);  // [64][kLd]
+    float* ks = qs + kWinRows * kLd;             // [128][kLd]
+    float* vs = ks + kWinKeys * kLd;             // [128][kLd]
+    float* ps = vs + kWinKeys * kLd;             // [64][kPs]: P
+    int* pages = reinterpret_cast<int*>(ps + kWinRows * kPs);
+    if (page >= 0) pages[tid] = page;
+    __syncthreads();
+    window_fill_f32<KV, D>(ks, pool_k, k_scale, pages, w, page_size, H);
+    window_fill_f32<KV, D>(vs, pool_v, v_scale, pages, w, page_size, H);
+    for (int i = tid; i < kWinRows * D / 4; i += kWinThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < w.rows)
+        Vec<float>::load(reinterpret_cast<const float*>(q) + w.out_row(S, H, D, r) + c, f);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) qs[r * kLd + c + e] = f[e];
+    }
+    __syncthreads();
+    // S: rows 8·tr + i, keys tc + 16·u
+    const int tr = tid >> 4, tc = tid & 15;
+    float sc[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) sc[i][u] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      float qv[8], kv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) qv[i] = qs[(8 * tr + i) * kLd + d];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) kv[u] = ks[(tc + 16 * u) * kLd + d];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int u = 0; u < 8; ++u) sc[i][u] = fmaf(qv[i], kv[u], sc[i][u]);
+    }
+    float m[8], l[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int vis = w.last_key(8 * tr + i);
+      float mx = -CUDART_INF_F;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        sc[i][u] = tc + 16 * u <= vis ? sc[i][u] / scale : -CUDART_INF_F;
+        mx = fmaxf(mx, sc[i][u]);
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      m[i] = fmaxf(mx, kBigNeg);
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const float e = expf(sc[i][u] - m[i]);
+        ps[(8 * tr + i) * kPs + tc + 16 * u] = e;
+        sum += e;
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      l[i] = sum;
+    }
+    __syncthreads();
+    // O = P·V: rows 8·tr + i, columns tc + 16·e
+    float o[8][DC];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < DC; ++e) o[i][e] = 0.f;
+    for (int c = 0; c < kWinKeys; ++c) {
+      float pv[8], vv[DC];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) pv[i] = ps[(8 * tr + i) * kPs + c];
+#pragma unroll
+      for (int e = 0; e < DC; ++e) vv[e] = vs[c * kLd + tc + 16 * e];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < DC; ++e) o[i][e] = fmaf(pv[i], vv[e], o[i][e]);
+    }
+    const bool single = w.n_live == 1;
+    const size_t pidx = w.part(w.split) * kWinRows;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * tr + i;
+      if (r >= w.rows) continue;
+      if (single) {
+        T* dst = out + w.out_row(S, H, D, r);
+#pragma unroll
+        for (int e = 0; e < DC; ++e) dst[tc + 16 * e] = from_f<T>(o[i][e] / l[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < DC; ++e) part_o[(pidx + r) * D + tc + 16 * e] = o[i][e];
+        if (tc == 0) part_ml[pidx + r] = make_float2(m[i], l[i]);
+      }
+    }
+    if (single) return;
+    window_finish<T, D, false>(w, part_o, part_ml, tickets, out, S, H);
+  }
 }
 
 template <typename K>
@@ -622,21 +992,55 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// The decode kernel's workspace, one buffer: a ticket per (slot, head)
-// row (int32, zero between launches: the row's last split resets it), then
-// each split's (m_i, l_i) (float2) and un-normalised o_i (D f32).
-struct DecodeWorkspace {
+// A kernel's workspace, one buffer: a ticket per row the splits fold into
+// (int32, zero between launches: the last split resets it), then each
+// split's (m_i, l_i) (float2) and un-normalised o_i (D f32) of every row.
+// The decode kernel's rows are (slot, head).
+struct Workspace {
   size_t ml, o, bytes;  // byte offsets of the stats and partials; the size
 };
 
-DecodeWorkspace decode_workspace(int B, int H, int D, int page_size, int max_pages) {
+Workspace decode_workspace(int B, int H, int D, int page_size, int max_pages) {
   const size_t rows = static_cast<size_t>(B) * H;
   const size_t parts = rows * decode_splits(page_size, max_pages);
-  DecodeWorkspace w;
+  Workspace w;
   w.ml = (4 * rows + 15) / 16 * 16;
   w.o = w.ml + 8 * parts;
   w.bytes = w.o + 4 * parts * D;
   return w;
+}
+
+// The window kernel's: a ticket per (slot, head, query tile), partials
+// per (tile, split, query row).
+Workspace window_workspace(int B, int S, int H, int D, int page_size, int max_pages) {
+  const size_t tiles = static_cast<size_t>(B) * H * ((S + kWinRows - 1) / kWinRows);
+  const size_t parts = tiles * window_splits(page_size, max_pages) * kWinRows;
+  Workspace w;
+  w.ml = (4 * tiles + 15) / 16 * 16;
+  w.o = w.ml + 8 * parts;
+  w.bytes = w.o + 4 * parts * D;
+  return w;
+}
+
+// A 2-D map over a pool [num_pages, page_size, H, D] of bf16 viewed as
+// [num_pages · page_size, H · D], whose box is `rows` rows of one head
+// (Swz<D>::kCols columns), swizzled as Swz<D> reads it.
+template <int D>
+cudaError_t pool_map(CUtensorMap* map, const void* pool, int num_pages, int page_size, int H,
+                     int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(H) * D,
+                              static_cast<cuuint64_t>(num_pages) * page_size};
+  const cuuint64_t strides[1] = {2ull * H * D};  // bytes
+  const cuuint32_t box[2] = {Swz<D>::kCols, static_cast<cuuint32_t>(rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(pool), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 struct Args {
@@ -656,15 +1060,12 @@ struct Args {
 
 template <typename T, typename KV, int D>
 cudaError_t launch(const Args& a) {
-  const int view_len = a.ps * a.mp;
-  constexpr int n = Kv<T, KV>::N;
-  cudaError_t err;
+  // both grids follow S and max_pages, never the cursors: no host read, so
+  // a launch can be captured in a CUDA graph
+  if (a.workspace == nullptr) return cudaErrorInvalidValue;
+  unsigned char* ws = static_cast<unsigned char*>(a.workspace);
   if (a.S == 1) {
-    // the grid follows max_pages, never the cursors: no host read, so the
-    // launch can be captured in a CUDA graph
-    if (a.workspace == nullptr) return cudaErrorInvalidValue;
-    const DecodeWorkspace w = decode_workspace(a.B, a.H, D, a.ps, a.mp);
-    unsigned char* ws = static_cast<unsigned char*>(a.workspace);
+    const Workspace w = decode_workspace(a.B, a.H, D, a.ps, a.mp);
     paged_decode_kernel<T, KV, D>
         <<<dim3(a.B, a.H, decode_splits(a.ps, a.mp)), kDecThreads, 0, a.stream>>>(
             static_cast<const T*>(a.q), static_cast<const KV*>(a.pk),
@@ -672,15 +1073,33 @@ cudaError_t launch(const Args& a) {
             reinterpret_cast<float*>(ws + w.o), reinterpret_cast<float2*>(ws + w.ml),
             reinterpret_cast<int*>(ws), a.ps, a.mp, a.np, decode_pages_per_split(a.ps),
             a.scale);
-  } else {
-    const size_t smem = window_smem(view_len, D, n);
-    if ((err = allow_smem(paged_window_kernel<T, KV, D>, smem)) != cudaSuccess) return err;
-    paged_window_kernel<T, KV, D>
-        <<<dim3(a.B, a.H, (a.S + kRows - 1) / kRows), kThreads, smem, a.stream>>>(
-            static_cast<const T*>(a.q), static_cast<const KV*>(a.pk),
-            static_cast<const KV*>(a.pv), a.ks, a.vs, a.pt, a.cur,
-            static_cast<T*>(a.out), a.S, a.ps, a.mp, a.np, a.scale);
+    return cudaGetLastError();
   }
+  // a page over 128 keys is cut into 128-key parts: it must hold whole ones
+  if (a.ps > kWinKeys && a.ps % kWinKeys) return cudaErrorInvalidValue;
+  const Workspace w = window_workspace(a.B, a.S, a.H, D, a.ps, a.mp);
+  CUtensorMap tk{}, tv{};
+  int use_tma = 0;
+  cudaError_t err;
+  // full-width bf16 pages come by TMA, one box a page (or page part), when
+  // a box is whole swizzle atoms (8 rows)
+  if constexpr (sizeof(T) == 2 && sizeof(KV) == 2) {
+    const int rows = window_box_rows(a.ps);
+    if (rows % 8 == 0) {
+      if ((err = pool_map<D>(&tk, a.pk, a.np, a.ps, a.H, rows)) != cudaSuccess ||
+          (err = pool_map<D>(&tv, a.pv, a.np, a.ps, a.H, rows)) != cudaSuccess)
+        return err;
+      use_tma = 1;
+    }
+  }
+  const size_t smem = WinSmem<T, D>::kBytes;
+  if ((err = allow_smem(paged_window_kernel<T, KV, D>, smem)) != cudaSuccess) return err;
+  const dim3 grid(window_splits(a.ps, a.mp), (a.S + kWinRows - 1) / kWinRows, a.B * a.H);
+  paged_window_kernel<T, KV, D><<<grid, kWinThreads, smem, a.stream>>>(
+      tk, tv, static_cast<const T*>(a.q), static_cast<const KV*>(a.pk),
+      static_cast<const KV*>(a.pv), a.ks, a.vs, a.pt, a.cur, static_cast<T*>(a.out),
+      reinterpret_cast<float*>(ws + w.o), reinterpret_cast<float2*>(ws + w.ml),
+      reinterpret_cast<int*>(ws), a.S, a.H, a.ps, a.mp, a.np, use_tma, a.scale);
   return cudaGetLastError();
 }
 
@@ -694,12 +1113,6 @@ cudaError_t dispatch_d(int D, const Args& a) {
   }
 }
 
-// elements of one 16-byte K/V load for (compute dtype, storage) codes
-int kv_elems(int dtype, int kv_dtype) {
-  if (kv_dtype == 2) return Kv<float, int8_t>::N;
-  return dtype == 1 ? Vec<__nv_bfloat16>::N : Vec<float>::N;
-}
-
 }  // namespace
 
 extern "C" {
@@ -709,12 +1122,14 @@ extern "C" {
 // dtype), 2 = int8 with bf16 scales k_scale/v_scale [num_pages,
 // page_size, H, 1] (null otherwise). q/out [B, S, H, D]; pools
 // [num_pages, page_size, H, D]; page_table [B, max_pages] int32; cursors
-// [B] int32; all contiguous on the current device. `scale` is sqrt(D)
-// rounded to the compute dtype. S == 1 launches paged_decode_kernel, which
-// needs `workspace`: kft_paged_attention_workspace bytes on the device,
-// zeroed before its first launch and left zeroed by every launch (null at
-// S > 1). S > 1 launches paged_window_kernel. Returns cudaGetLastError()
-// after the launch; neither allocates or synchronises.
+// [B] int32; all contiguous and 16-byte aligned on the current device.
+// `scale` is sqrt(D) rounded to the compute dtype. S == 1 launches
+// paged_decode_kernel, S > 1 paged_window_kernel (a page_size over 128
+// must be a multiple of 128); both need `workspace`:
+// kft_paged_attention_workspace bytes on the device, zeroed before the
+// first launch that uses it and left zeroed by every launch, used by one
+// stream at a time. Returns cudaGetLastError() after the launch; neither
+// allocates or synchronises.
 int kft_paged_attention(const void* q, const void* pool_k, const void* pool_v,
                         const void* k_scale, const void* v_scale,
                         const void* page_table, const void* cursors, void* out,
@@ -739,16 +1154,11 @@ int kft_paged_attention(const void* q, const void* pool_k, const void* pool_v,
   return cudaErrorInvalidValue;
 }
 
-// dynamic shared memory (bytes) a launch needs, for the wrapper's check
-// (0 at S == 1: the decode kernel's shared memory is static)
-size_t kft_paged_attention_smem(int S, int view_len, int D, int dtype, int kv_dtype) {
-  return S == 1 ? 0 : window_smem(view_len, D, kv_elems(dtype, kv_dtype));
-}
-
-// workspace bytes an S-row launch needs (0 at S > 1)
+// workspace bytes an S-row launch needs
 size_t kft_paged_attention_workspace(int S, int B, int H, int D, int page_size,
                                      int max_pages) {
-  return S == 1 ? decode_workspace(B, H, D, page_size, max_pages).bytes : 0;
+  return S == 1 ? decode_workspace(B, H, D, page_size, max_pages).bytes
+                : window_workspace(B, S, H, D, page_size, max_pages).bytes;
 }
 
 const char* kft_cuda_error_string(int err) {

@@ -15,14 +15,17 @@ a CUDA input either launches the kernel or raises. On a CPU tensor it
 runs `paged_attention_reference`, as the JAX kernel runs in interpret
 mode off-TPU.
 
-The decode kernel splits each slot's walk over runs of pages and folds
-the splits inside its one launch; its scratch (per-split partials and a
-ticket per (slot, head)) is one workspace buffer per device and shape,
-allocated zeroed at that shape's first call and reused by every later
-one (the kernel leaves it ready), so a decode step allocates nothing
-new and the launch, whose grid follows the table's width and never the
-cursors, can be captured in a CUDA graph. Calls that share a workspace
-run in the order of one stream.
+Both kernels split each slot's walk over runs of pages and fold the
+splits inside their one launch; their scratch (per-split partials and a
+ticket per (slot, head), or per (slot, head, query tile) for a window) is
+one workspace buffer per device, stream and size, allocated zeroed at
+that shape's first call on the stream and reused by every later one (the
+kernels leave it ready), so a call allocates nothing new and the launch,
+whose grid follows the window and the table's width and never the
+cursors, can be captured in a CUDA graph. The tickets assume that the
+calls sharing a workspace run one after another: keyed by stream, two
+streams (two engines, or a graph replayed on a side stream) never share
+one.
 
 `launch_counts` counts kernel launches, one integer per kernel and one
 launch per wrapper call (a decode step makes one per layer), so a run
@@ -53,12 +56,12 @@ launch_counts: Dict[str, int] = {
 SUPPORTED_HEAD_DIMS = (16, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8_CODE = 2  # the C interface's storage code of an int8 pool
-# H100 dynamic shared memory per block (the window kernel's bound; the
-# decode kernel's shared memory is static)
-_MAX_SMEM = 227 * 1024
-# the decode kernel's workspaces, by (device, bytes); engines call from
+# keys a window split takes at most: a larger page is cut into parts of
+# this many keys, so it must hold whole ones
+WINDOW_SPLIT_KEYS = 128
+# the kernels' workspaces, by (device, stream, bytes); engines call from
 # their own threads
-_workspaces: Dict[Tuple[str, int], torch.Tensor] = {}
+_workspaces: Dict[Tuple[str, int, int], torch.Tensor] = {}
 _workspaces_lock = threading.Lock()
 
 
@@ -74,11 +77,13 @@ def kernel_name(s: int, quantized: bool = False) -> str:
     return f"{name}_int8" if quantized else name
 
 
-def decode_workspace(device: torch.device, nbytes: int) -> torch.Tensor:
-    """The zeroed uint8 buffer of `nbytes` on `device` that the decode
-    kernel uses as its workspace: made at the first call of a shape,
-    the same tensor for every later one."""
-    key = (str(device), nbytes)
+def paged_workspace(device: torch.device, stream: int,
+                    nbytes: int) -> torch.Tensor:
+    """The zeroed uint8 buffer of `nbytes` on `device` that the kernels
+    launched on `stream` (its handle) use as their workspace: made at the
+    first call of a size on that stream, the same tensor for every later
+    one there, another tensor on another stream."""
+    key = (str(device), stream, nbytes)
     with _workspaces_lock:
         ws = _workspaces.get(key)
         if ws is None:
@@ -157,8 +162,6 @@ def _library():
             ctypes.c_float, ptr, ptr,
         ]
         lib.kft_paged_attention.restype = ctypes.c_int
-        lib.kft_paged_attention_smem.argtypes = [i32, i32, i32, i32, i32]
-        lib.kft_paged_attention_smem.restype = ctypes.c_size_t
         lib.kft_paged_attention_workspace.argtypes = [i32] * 6
         lib.kft_paged_attention_workspace.restype = ctypes.c_size_t
         lib.kft_cuda_error_string.argtypes = [ctypes.c_int]
@@ -250,11 +253,12 @@ def paged_attention(
     the compute dtype, or int8 with bf16 k_scale/v_scale [P, page_size,
     H, 1]; page_table [B, MP] int32; cursors [B] int32 (query row j of
     slot b sits at logical position cursors[b] + j). Returns [B, s, H, D].
-    s == 1 is the one-token decode step, s > 1 a chunk-prefill window.
+    s == 1 is the one-token decode step, s > 1 a window (chunk prefill,
+    the prefix-hit tail, the K+1 verify window).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     on the current stream (no sync; no allocation besides the output and,
-    at a decode shape's first call, its workspace) or raise."""
+    at a shape's first call on the stream, its workspace) or raise."""
     if q.device.type == "cpu":
         return paged_attention_reference(
             q, pool_k, pool_v, page_table, cursors, dtype=dtype,
@@ -269,27 +273,27 @@ def paged_attention(
     mp = page_table.shape[1]
     quantized = k_scale is not None
     kv_code = _INT8_CODE if quantized else _DTYPE_CODES[dtype]
-    lib = _library()
-    smem = lib.kft_paged_attention_smem(s, mp * ps, d, _DTYPE_CODES[dtype],
-                                        kv_code)
-    if smem > _MAX_SMEM:
+    if s > 1 and ps > WINDOW_SPLIT_KEYS and ps % WINDOW_SPLIT_KEYS:
         raise ValueError(
-            f"paged_attention kernel: a {mp * ps}-position window needs "
-            f"{smem} B of shared memory, over the {_MAX_SMEM} B a block has"
+            f"paged_attention kernel: a window over pages of {ps} positions "
+            f"needs a page size of at most {WINDOW_SPLIT_KEYS} or a multiple "
+            f"of it (a split takes {WINDOW_SPLIT_KEYS} keys of one page)"
         )
-    ws_bytes = lib.kft_paged_attention_workspace(s, b, h, d, ps, mp)
-    ws = decode_workspace(q.device, ws_bytes) if ws_bytes else None
+    lib = _library()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        ws = paged_workspace(
+            q.device, stream,
+            lib.kft_paged_attention_workspace(s, b, h, d, ps, mp),
+        )
         err = lib.kft_paged_attention(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             k_scale.data_ptr() if quantized else None,
             v_scale.data_ptr() if quantized else None,
             page_table.data_ptr(), cursors.data_ptr(), out.data_ptr(),
             b, s, h, d, ps, mp, num_pages, _DTYPE_CODES[dtype], kv_code,
-            scale_for(d, dtype), stream,
-            None if ws is None else ws.data_ptr(),
+            scale_for(d, dtype), stream, ws.data_ptr(),
         )
     if err != 0:
         msg = lib.kft_cuda_error_string(err).decode()

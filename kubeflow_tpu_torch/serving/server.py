@@ -2,8 +2,11 @@
 `:generate` part of kubeflow_tpu/serving/server.py).
 
 Routes: `POST /v1/models/<name>:generate` (through the DecodeEngine when
-one is attached, else the static ServedLm path), `GET /healthz` and
-`GET /metrics` (Prometheus text).
+one is attached, else the static ServedLm path), `GET /v1/models` and
+`GET /v1/models/<name>` (model discovery, as the kft-router forwards
+them), `GET /healthz` and `GET /metrics` (Prometheus text). The bodies
+are the reference server's; this server never drains (`"draining":
+false`).
 """
 
 from __future__ import annotations
@@ -113,7 +116,37 @@ class ModelServer:
         @app.get("/healthz")
         def healthz(req):
             names = sorted(set(self._lms) | set(self._engines))
-            return {"ok": True, "models": names}
+            return {"ok": True, "draining": False, "models": names}
+
+        @app.get("/v1/models")
+        def list_models(req):
+            """Every model, ServedLm ones first, then engine-only ones:
+            each generative, with continuous batching when an engine
+            serves it."""
+            return {
+                "models": [
+                    {"name": lm.name, "version": "1", "generative": True,
+                     "continuous_batching": lm.name in self._engines}
+                    for lm in self._lms.values()
+                ] + [
+                    {"name": engine.name, "version": "1", "generative": True,
+                     "continuous_batching": True}
+                    for engine in self._engines.values()
+                    if engine.name not in self._lms
+                ]
+            }
+
+        @app.get("/v1/models/<name>")
+        def model_status(req):
+            name = req.params["name"]
+            if name not in self._lms and name not in self._engines:
+                raise NotFoundError(f"model {name} not loaded")
+            return {
+                "model_version_status": [{
+                    "version": "1", "state": "AVAILABLE",
+                    "status": {"error_code": "OK", "error_message": ""},
+                }]
+            }
 
         @app.get("/metrics")
         def metrics(req):

@@ -282,3 +282,47 @@ def test_int8_paged_forward_matches_jax(pair, int8_case, impl):
                               pool.tensors(), jpool):
             np.testing.assert_array_equal(t.float().numpy(), w.astype(
                 np.float32), err_msg=name)
+
+
+# the preset's widths and depth, as the reference registers them
+PRESET_FIELDS = ("vocab_size", "hidden_size", "num_layers", "num_heads",
+                 "mlp_dim", "max_len", "dropout_rate")
+
+
+@pytest.mark.parametrize("name", ["gpt_medium", "gpt_small", "gpt_tiny"])
+def test_presets_match_the_reference_configs(name):
+    """Each preset of the port's registry has the reference's config,
+    field by field (gpt_medium: 1024/24/16/4096, head dim 64)."""
+    from kubeflow_tpu.models.registry import get_model as jget_model
+
+    want = jget_model(name).cfg
+    got = get_model(name, device="meta").cfg
+    for field in PRESET_FIELDS:
+        assert getattr(got, field) == getattr(want, field), field
+    assert got.head_dim == want.hidden_size // want.num_heads
+    if name == "gpt_medium":
+        assert (got.hidden_size, got.num_layers, got.num_heads, got.mlp_dim,
+                got.head_dim) == (1024, 24, 16, 4096, 64)
+
+
+def test_gpt_medium_logits_match_jax():
+    """gpt_medium at its widths (1024 hidden, 16 heads of 64, MLP 4096),
+    cut to 2 layers and a 512-token vocabulary: the JAX model's f32
+    weights through `load_jax_params`, the same ids, logits within
+    ATOL/RTOL."""
+    from kubeflow_tpu.models.registry import get_model as jget_model
+
+    over = dict(num_layers=2, vocab_size=512)
+    jmodel = jget_model("gpt_medium", dtype=jnp.float32, **over)
+    ids = _ids(np.random.default_rng(5), 2, 12)
+    params = jax.jit(lambda key: jmodel.init(
+        key, jnp.asarray(ids), deterministic=True)["params"])(
+            jax.random.PRNGKey(0))
+    want = np.asarray(_japply(jmodel)({"params": params},
+                                      jnp.asarray(ids))["logits"])
+    tmodel = get_model("gpt_medium", dtype=torch.float32, device="cpu", **over)
+    load_jax_params(tmodel, jax.tree.map(np.asarray, params))
+    with torch.inference_mode():
+        got = tmodel(torch.from_numpy(ids).long())
+    assert got.shape == (2, 12, 512)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)

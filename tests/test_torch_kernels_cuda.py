@@ -133,20 +133,23 @@ DECODE_MAX_LEN = 1024
 DECODE_KINDS = ["f32", "bf16", "int8-bf16", "int8-f32"]
 
 
-def _decode_case(dev, kind, cursors, ps, h=4, d=64, seed=0):
-    """One decode call's inputs at max_len 1024: distinct pages up to each
-    slot's last live page, out-of-range garbage past it (never read);
-    int8 kinds quantize the pools with `quantize_kv`. Returns (args,
-    kwargs) for `paged_attention` and its plain version."""
+def _decode_case(dev, kind, cursors, ps, h=4, d=64, seed=0, s=1,
+                 max_len=DECODE_MAX_LEN):
+    """One decode call's inputs (or an s-row window's) at max_len 1024:
+    distinct pages up to each slot's last live page, out-of-range garbage
+    past it (never read); int8 kinds quantize the pools with
+    `quantize_kv`. Returns (args, kwargs) for `paged_attention` and its
+    plain version."""
     from kubeflow_tpu_torch.ops.attention import quantize_kv
 
     dtype = torch.float32 if kind.endswith("f32") else torch.bfloat16
     g = torch.Generator().manual_seed(seed)
-    mp = DECODE_MAX_LEN // ps
-    live = [min(c // ps, mp - 1) + 1 if c < DECODE_MAX_LEN else 0 for c in cursors]
+    mp = max_len // ps
+    live = [min((c + s - 1) // ps, mp - 1) + 1 if c < max_len else 0
+            for c in cursors]
     num_pages = sum(live) + 8
     b = len(cursors)
-    q = torch.randn((b, 1, h, d), generator=g).to(dtype)
+    q = torch.randn((b, s, h, d), generator=g).to(dtype)
     pk = torch.randn((num_pages, ps, h, d), generator=g).to(dtype)
     pv = torch.randn((num_pages, ps, h, d), generator=g).to(dtype)
     table = torch.full((b, mp), 10**6, dtype=torch.int32)
@@ -163,11 +166,13 @@ def _decode_case(dev, kind, cursors, ps, h=4, d=64, seed=0):
 
 
 def _check_decode(args, kw):
+    """One call (decode, or a window when q has s > 1 rows) against the
+    plain version; exactly one launch of the kernel that serves it."""
     tpa.reset_launch_counts()
     got = tpa.paged_attention(*args, **kw)
     want = tpa.paged_attention_reference(*args, **kw)
     torch.cuda.synchronize()
-    name = tpa.kernel_name(1, quantized="k_scale" in kw)
+    name = tpa.kernel_name(args[0].shape[1], quantized="k_scale" in kw)
     assert tpa.launch_counts == {**{k: 0 for k in tpa.launch_counts}, name: 1}
     torch.testing.assert_close(got.float(), want.float(),
                                atol=ATOL[kw["dtype"]], rtol=0)
@@ -211,8 +216,117 @@ def test_decode_kernel_is_deterministic(cuda):
         assert torch.equal(again, first)
     nbytes = tpa._library().kft_paged_attention_workspace(
         1, b, h, 64, ps, DECODE_MAX_LEN // ps)
-    tickets = tpa.decode_workspace(args[0].device, nbytes)[: 4 * b * h]
+    tickets = tpa.paged_workspace(args[0].device,
+                                  torch.cuda.current_stream().cuda_stream,
+                                  nbytes)[: 4 * b * h]
     assert not tickets.any()
+
+
+# the window kernel: tiles of 64 query rows against splits of 128 keys
+# (128 / page_size pages) folded by the tile's last live split
+WINDOW_S = (5, 64, 65, 130)
+
+
+def _window_cursors(s, view_len=DECODE_MAX_LEN):
+    """Cursor 0, cursors whose first or last row sits on the split edges
+    127, 128 and 129, one mid-view, one whose last row is the view's last
+    position, and a parked slot."""
+    edges = {c for e in (127, 128, 129) for c in (e, max(e - s + 1, 0))}
+    return tuple(sorted(edges | {0, 700, view_len - s})) + (view_len,)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("s", WINDOW_S)
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_window_kernel_at_split_edges(cuda, kind, s, ps):
+    """s = 5 (the K+1 verify window), 64 (a chunk), 65 and 130 (two and
+    three query tiles) at page sizes 8, 16 and 32, rows on the split
+    edges; table entries past each live page are out of range and never
+    read; the parked slot is zeros."""
+    args, kw = _decode_case(cuda, kind, _window_cursors(s), ps, s=s)
+    got = _check_decode(args, kw)
+    assert not got[-1].any()
+
+
+@pytest.mark.parametrize("ps", [1, 4, 256])
+@pytest.mark.parametrize("kind", ["bf16", "int8-bf16", "f32"])
+def test_window_kernel_at_other_page_sizes(cuda, kind, ps):
+    """Pages under the 8-row swizzle atom (1, 4: full-width bf16 pages are
+    then read by the block's threads, not by TMA) and over a split (256:
+    cut into parts of 128 keys)."""
+    args, kw = _decode_case(cuda, kind, _window_cursors(64), ps, s=64)
+    assert not _check_decode(args, kw)[-1].any()
+
+
+def test_window_kernel_refuses_a_page_it_cannot_cut(cuda):
+    """A page over 128 keys that is not whole 128-key parts raises before
+    any launch."""
+    args, kw = _decode_case(cuda, "bf16", (0, 100), 192, s=8, max_len=768)
+    tpa.reset_launch_counts()
+    with pytest.raises(ValueError, match="page size"):
+        tpa.paged_attention(*args, **kw)
+    assert not any(tpa.launch_counts.values())
+
+
+@pytest.mark.parametrize("s", [5, 64])
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_window_kernel_over_a_long_view(cuda, kind, s):
+    """A view of 8,192 positions (512 pages of 16 a slot, past the old
+    kernel's ~7,000-position cap): up to 64 splits a tile, folded in
+    order; 12 heads."""
+    args, kw = _decode_case(cuda, kind, (8192 - s, 4000, 128, 8192), 16, h=12,
+                            s=s, max_len=8192)
+    assert not _check_decode(args, kw)[-1].any()
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8-bf16", "f32"])
+def test_window_kernel_is_deterministic(cuda, kind):
+    """Each tile's splits are folded in split order by whichever finishes
+    last: repeated calls give bitwise the same output, and the tiles'
+    tickets are back at 0 after each."""
+    s, h, ps = 130, 12, 16
+    cursors = _window_cursors(s) * 2
+    args, kw = _decode_case(cuda, kind, cursors, ps, h=h, s=s)
+    first = tpa.paged_attention(*args, **kw)
+    for _ in range(20):
+        again = tpa.paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(again, first)
+    b, tiles = len(cursors), -(-s // 64)
+    nbytes = tpa._library().kft_paged_attention_workspace(
+        s, b, h, 64, ps, DECODE_MAX_LEN // ps)
+    tickets = tpa.paged_workspace(args[0].device,
+                                  torch.cuda.current_stream().cuda_stream,
+                                  nbytes)[: 4 * b * h * tiles]
+    assert not tickets.any()
+
+
+@pytest.mark.parametrize("s", [1, 64])
+def test_two_streams_keep_their_own_workspaces(cuda, s):
+    """Two engines' calls of one shape on two streams at once: each stream
+    has its own workspace, so one stream's splits never take the other's
+    tickets; every output equals the plain version's."""
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    cases = [_decode_case(cuda, "bf16", SPLIT_CURSORS * 4, 16, h=12, s=s,
+                          seed=i) for i in range(2)]
+    want = [tpa.paged_attention_reference(*a, **kw) for a, kw in cases]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for _ in range(10):
+        for i, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                got[i].append(tpa.paged_attention(*cases[i][0], **cases[i][1]))
+    torch.cuda.synchronize()
+    for outs, w in zip(got, want):
+        for out in outs:
+            torch.testing.assert_close(out.float(), w.float(),
+                                       atol=ATOL[torch.bfloat16], rtol=0)
+    b = len(SPLIT_CURSORS) * 4
+    nbytes = tpa._library().kft_paged_attention_workspace(
+        s, b, 12, 64, 16, DECODE_MAX_LEN // 16)
+    buffers = {tpa.paged_workspace(cuda, st.cuda_stream, nbytes).data_ptr()
+               for st in streams}
+    assert len(buffers) == 2
 
 
 @pytest.mark.parametrize("bad", ["scale_dtype", "scale_shape", "no_scales",

@@ -281,13 +281,14 @@ SPLIT_MAX_LEN, SPLIT_KEYS = 256, 128
 SPLIT_CURSORS = (127, 128, 129, SPLIT_MAX_LEN - 1)
 
 
-def _split_case(cursors, ps, seed=0):
-    """Decode inputs at max_len 256: the given cursors and a parked row
-    (256); each slot's table a shuffled page set."""
+def _split_case(cursors, ps, seed=0, s=1):
+    """Decode inputs (or an s-row window's) at max_len 256: the given
+    cursors and a parked row (256); each slot's table a shuffled page
+    set."""
     rng = np.random.default_rng(seed + ps + sum(cursors))
     cursors = np.array(tuple(cursors) + (SPLIT_MAX_LEN,), np.int32)
     b, mp = cursors.size, SPLIT_MAX_LEN // ps
-    q = rng.standard_normal((b, 1, H, D)).astype(np.float32)
+    q = rng.standard_normal((b, s, H, D)).astype(np.float32)
     pk = rng.standard_normal((NUM_PAGES, ps, H, D)).astype(np.float32)
     pv = rng.standard_normal((NUM_PAGES, ps, H, D)).astype(np.float32)
     table = np.stack([rng.permutation(NUM_PAGES)[:mp] for _ in range(b)])
@@ -369,13 +370,154 @@ def test_split_decode_arithmetic_matches_plain_version(ps):
 
 
 def test_decode_workspace_is_made_once_per_device_and_size():
-    """The decode kernel's workspace: zeroed at a shape's first call, the
-    same buffer at every later one (a decode step allocates nothing new),
-    another buffer for another size."""
+    """The kernels' workspace: zeroed at a shape's first call, the same
+    buffer at every later one on that stream (a decode step allocates
+    nothing new), another buffer for another size."""
     dev = torch.device("cpu")
-    first = tpa.decode_workspace(dev, 1040)
+    first = tpa.paged_workspace(dev, 0, 1040)
     assert first.dtype == torch.uint8 and first.numel() == 1040
     assert not first.any()
-    assert tpa.decode_workspace(dev, 1040) is first
-    other = tpa.decode_workspace(dev, 2080)
+    assert tpa.paged_workspace(dev, 0, 1040) is first
+    other = tpa.paged_workspace(dev, 0, 2080)
     assert other is not first and other.numel() == 2080
+
+
+@pytest.mark.parametrize("nbytes", [1040, 4096])
+def test_workspace_is_keyed_by_stream(nbytes):
+    """Two streams (two engines, or a graph replayed on a side stream)
+    get two buffers of one size, whose tickets then never count each
+    other's splits; the same stream gets the same buffer back, and so does
+    each stream after the other's calls."""
+    dev = torch.device("cpu")
+    a = tpa.paged_workspace(dev, 101, nbytes)
+    b = tpa.paged_workspace(dev, 202, nbytes)
+    assert a is not b and a.data_ptr() != b.data_ptr()
+    assert a.numel() == b.numel() == nbytes and not a.any() and not b.any()
+    assert tpa.paged_workspace(dev, 101, nbytes) is a
+    assert tpa.paged_workspace(dev, 202, nbytes) is b
+    assert tpa.paged_workspace(torch.device("meta"), 101, nbytes) is not a
+
+
+# -- the window kernel's split over pages ---------------------------------------
+# The CUDA window kernel takes 64 query rows a block and cuts the keys the
+# tile sees (up to its last row's position) into the same splits of 128
+# keys, folded in split order by the tile's last live split
+# (ops/csrc/paged_attention.cu). The plain version is held against the JAX
+# `_mq_kernel` where rows land on the split edges; the split arithmetic is
+# rebuilt here and held against the plain version.
+
+WINDOW_ROWS = 64
+# per window size: cursors whose first or last row sits on 127, 128, 129
+WINDOW_EDGE_CURSORS = {5: (123, 124, 125, 127, 128, 129),
+                       64: (64, 65, 66, 127, 128, 129),
+                       130: (0, 127, 128, 129)}
+
+
+@pytest.mark.parametrize("s", [5, 64])
+def test_plain_window_matches_jax_pallas_kernel_at_split_edges(s):
+    """`test_plain_path_matches_jax_pallas_kernel` at page 16 for the
+    verify window (s = 5) and a chunk window (s = 64), rows on the window
+    kernel's split edges, a parked row."""
+    case = _split_case(WINDOW_EDGE_CURSORS[s], 16, s=s)
+    want = np.asarray(jpaged(*(jnp.asarray(a) for a in case), dtype=jnp.float32))
+    got = _port(case).numpy()
+    live = case[-1] < SPLIT_MAX_LEN
+    np.testing.assert_allclose(got[live], want[live], atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("s", [5, 64])
+def test_int8_plain_window_matches_jax_pallas_kernel_at_split_edges(s):
+    """The same over int8 pools, against the JAX kernel's quantized
+    branch."""
+    case = _quantize_case(_split_case(WINDOW_EDGE_CURSORS[s], 16, seed=1, s=s))
+    q, pk, pv, table, cursors, sk, sv = _jax_int8(case)
+    want = np.asarray(jpaged(q, pk, pv, table, cursors, dtype=jnp.float32,
+                             k_scale=sk, v_scale=sv))
+    got = _port_int8(case).numpy()
+    live = case[4] < SPLIT_MAX_LEN
+    np.testing.assert_allclose(got[live], want[live], atol=ATOL, rtol=RTOL)
+
+
+def _split_window(q, pk, pv, table, cursors, ps, dtype):
+    """The window kernel's arithmetic in plain torch: tiles of 64 query
+    rows; each tile's visible keys (up to its last row's position, inside
+    the view) cut into splits of 128 // ps pages; per split and row
+    m_i = max s, p = exp(s − m_i) in f32, l_i = Σ p, o_i = Σ round(p)·v (p
+    rounded to `dtype` for the product, sums in f32); a row that sees no
+    key of a split gives (−1e30, 0, 0); the tile's live splits folded in
+    split order with a running max; out = o / l rounded to `dtype`. A tile
+    that one split covers rounds the normalised p / l_i instead, as the
+    JAX kernel does, and its o_i is the output. Scores as the kernels take
+    them: the f32 dot rounded to `dtype`, divided by sqrt(D) in `dtype`.
+    Parked slots are zeros."""
+    b, s, h, d = q.shape
+    kps = max(1, SPLIT_KEYS // ps) * ps
+    k_view = paged_kv_view(pk, table).float()
+    v_view = paged_kv_view(pv, table).float()
+    view_len = k_view.shape[1]
+    scale = scale_for(d, dtype)
+    out = torch.zeros(q.shape, dtype=torch.float32)
+    for i in range(b):
+        cur = int(cursors[i])
+        if cur >= view_len:
+            continue
+        for j0 in range(0, s, WINDOW_ROWS):
+            rows = min(WINDOW_ROWS, s - j0)
+            last = min(cur + j0 + rows - 1, view_len - 1)
+            seen = (cur + j0 + torch.arange(rows)).clamp_max(view_len - 1)
+            qq = q[i, j0:j0 + rows].float()
+            m = torch.full((rows, h), float("-inf"))
+            l, o = torch.zeros((rows, h)), torch.zeros((rows, h, d))
+            single = last < kps
+            for k0 in range(0, last // kps * kps + 1, kps):
+                k1 = min(k0 + kps, view_len)
+                sc = torch.einsum("rhd,khd->rhk", qq, k_view[i, k0:k1])
+                sc = ((sc.to(dtype) / scale).to(dtype)).float()
+                hidden = torch.arange(k0, k1)[None, :] > seen[:, None]
+                sc = sc.masked_fill(hidden[:, None, :], float("-inf"))
+                m_i = sc.amax(-1).clamp_min(-1e30)
+                p = torch.exp(sc - m_i[..., None])
+                weights = p / p.sum(-1, keepdim=True) if single else p
+                o_i = torch.einsum("rhk,khd->rhd", weights.to(dtype).float(),
+                                   v_view[i, k0:k1])
+                if single:
+                    out[i, j0:j0 + rows] = o_i
+                    break
+                m_new = torch.maximum(m, m_i)
+                a, f = torch.exp(m - m_new), torch.exp(m_i - m_new)
+                l = l * a + p.sum(-1) * f
+                o = o * a[..., None] + o_i * f[..., None]
+                m = m_new
+            else:
+                out[i, j0:j0 + rows] = o / l[..., None]
+    return out.to(dtype)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32])
+@pytest.mark.parametrize("s", [5, 64, 130])
+def test_split_window_arithmetic_matches_plain_version(s, ps):
+    """In f32 the tiles' splits folded in split order give the plain
+    version's output within 1e-6 (summation order only): one tile (s = 5,
+    64) and three (s = 130), rows on the split edges, a parked row."""
+    case = _split_case(WINDOW_EDGE_CURSORS[s], ps, seed=3, s=s)
+    q, pk, pv, table, cursors = _torch(*case)
+    got = _split_window(q, pk, pv, table, cursors, ps, torch.float32)
+    want = tpa.paged_attention_reference(q, pk, pv, table, cursors,
+                                         dtype=torch.float32)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("s", [5, 64])
+def test_split_window_bf16_probabilities_stay_within_tolerance(s):
+    """In bf16 the kernel rounds the un-normalised p of each split to bf16
+    for its tensor-core product, where the JAX kernel rounds the
+    normalised probabilities (parity contract (c)): the rebuilt arithmetic
+    stays within the card tests' bf16 tolerance (2e-2) of the plain
+    version in bf16, on the same bf16 inputs."""
+    case = _split_case(WINDOW_EDGE_CURSORS[s], 16, seed=4, s=s)
+    q, pk, pv, table, cursors = _torch(*case)
+    q, pk, pv = (t.bfloat16() for t in (q, pk, pv))
+    got = _split_window(q, pk, pv, table, cursors, 16, torch.bfloat16)
+    want = tpa.paged_attention_reference(q, pk, pv, table, cursors,
+                                         dtype=torch.bfloat16)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=0)

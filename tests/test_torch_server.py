@@ -2,7 +2,9 @@
 device="cpu")` behind the port's own wsgi Server on a real socket.
 `:generate` output must equal the port's `generate()` exactly (same
 weights, greedy), through the engine (read path "kernel") and the static
-path. Weights are the port's own seeded gpt_tiny init: no JAX here."""
+path. Weights are the port's own seeded gpt_tiny init. Model discovery
+and /healthz are held against the reference server's bodies (the one
+test here that builds it, with JAX on the CPU)."""
 
 import importlib.util
 import json
@@ -90,13 +92,47 @@ def test_healthz_and_metrics_answer(served):
     _post(port, {"prompt_ids": [[3, 4, 5]], "max_new_tokens": 2})
     status, body = _get(port, "/healthz")
     assert status == 200
-    assert json.loads(body) == {"ok": True, "models": ["gpt_tiny"]}
+    assert json.loads(body) == {"ok": True, "draining": False,
+                                "models": ["gpt_tiny"]}
     status, body = _get(port, "/metrics")
     assert status == 200
     assert b"http_requests_total" in body
     if num_slots:
         assert b'serving_paged_attention_calls_total{model="gpt_tiny",' \
                b'variant="kernel"}' in body
+
+
+@pytest.mark.parametrize("num_slots", [2, 0], ids=["engine", "static"])
+def test_discovery_and_healthz_bodies_equal_the_reference_servers(
+        gpt_and_params, monkeypatch, num_slots):
+    """`GET /v1/models`, `/v1/models/gpt_tiny` and `/healthz` answer the
+    reference server's bodies (the kft-router forwards the first two to
+    every replica), and `/v1/models/nope` its 404, on gpt_tiny built with
+    the same knobs, engine on and off."""
+    from kubeflow_tpu.serving.main import build_server as jbuild_server
+
+    for knob in ("NUM_SLOTS", "PAGE_SIZE", "PAGED_ATTENTION", "QUANTIZE"):
+        monkeypatch.delenv(f"KFT_SERVING_{knob}", raising=False)
+    knobs = dict(num_slots=num_slots, page_size=8, paged_attention="gather")
+    _, params = gpt_and_params
+    ref = jbuild_server("gpt_tiny", params=params, batch_window_ms=0, **knobs)
+    port = build_server("gpt_tiny", device="cpu", dtype=torch.float32, **knobs)
+    try:
+        for path in ("/v1/models", "/v1/models/gpt_tiny", "/healthz"):
+            want = ref.app.handle_full("GET", path)[:2]
+            got = port.app.handle_full("GET", path)[:2]
+            assert want[0] == 200 and got == want, path
+        assert port.app.handle_full("GET", "/v1/models/nope")[0] == \
+            ref.app.handle_full("GET", "/v1/models/nope")[0] == 404
+    finally:
+        ref.close()
+        port.close()
+    entry = {"name": "gpt_tiny", "version": "1", "generative": True,
+             "continuous_batching": bool(num_slots)}
+    assert got == (200, {"ok": True, "draining": False,
+                         "models": ["gpt_tiny"]})
+    assert port.app.handle_full("GET", "/v1/models")[:2] == (
+        200, {"models": [entry]})
 
 
 def test_engine_knobs_from_env(monkeypatch):
