@@ -22,7 +22,10 @@ Phases (any failure raises and the script exits non-zero):
    at s = 5 (the K+1 verify window of K = 4) and over a view of 8,192
    positions (512 pages a slot, past the old kernel's cap), both checked,
    not timed; then the window kernel at the batch-1 calls phase 5 makes
-   (MAIN_WINDOWS), whose mean the kernels line reports. Times are
+   (MAIN_WINDOWS), whose mean the kernels line reports; then both
+   kernels at phase 11c's small-draft calls (4 heads x 16: the decode
+   kernel at the 8 ragged cursors, the window kernel at MAIN_WINDOWS'
+   cursors; bf16 and f32, checked, not timed). Times are
    medians over CUDA events with the L2 flushed before each launch.
 4. Serve f32: gpt_small at full width (seeded init) behind the REST
    server on a real socket, paged_attention=kernel; two greedy
@@ -70,6 +73,28 @@ Phases (any failure raises and the script exits non-zero):
    capacity ratio times phase 5's pages in no more bytes; and
    `quantization_accuracy` of gpt_small (bf16 and f32, a seeded batch)
    stays within the JAX package's pinned limits (ACCURACY).
+11. Serve with speculation (K = SPEC_K draft tokens, gpt_small at full
+   width, 8 slots, page 16, paged_attention=kernel). 11a, f32: phase 4's
+   two greedy prompts through a drafted engine must equal `generate()`,
+   with the same weights as the draft and with a draft whose head is
+   rolled one vocab row (it never proposes the target's argmax); the
+   first must accept at least ACCEPT_SAME of its proposals, the second
+   none; at quantize="int8" a drafted engine's tokens must equal the K = 0 int8
+   engine's. 11b, bf16 over REST (the main path with speculation):
+   `build_server(..., draft_model=<the model>, num_draft_tokens=K)` (the
+   draft's seed-0 init is the target's) serves phase 5's traffic; every
+   reply 200 and within DELTA; the decode kernel launches exactly
+   verify_steps x (K+1) x the draft's layers (the target's one-token
+   step never runs), the window kernel verify_steps x the target's
+   layers plus the chunk windows of both models; pages_in_use returns to
+   what the prefix index holds; one sampled request sent twice with one
+   seed returns the same tokens. 11c, bf16 with a small draft (gpt_tiny's
+   widths at gpt_small's vocabulary and window, SMALL_DRAFT: the decode
+   kernel runs at D = 16 on the draft's pool): phase 5's traffic through
+   the engine, the DELTA gate, the launch formula, pages given back by
+   rewinds, no page leaked. Printed, not gated: each engine's accept
+   rate, wall time per verify iteration and tokens per iteration, beside
+   phase 5's K = 0 step time and tokens/s from the same call.
 
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
@@ -177,8 +202,25 @@ LARGEST = int(BUCKETS.split(",")[-1])
 # cursor = the window's first position: the long prompt's and the first
 # 300-token prompt's windows after their head prefill, then the repeat's
 # one window after its prefix hit (the whole prompt but its last token)
-MAIN_WINDOWS = (*range(LARGEST, LONG_LEN, CHUNK),
-                *range(LARGEST, HIT_LEN, CHUNK), HIT_LEN - 1)
+def main_windows(long_len=LONG_LEN, hit_len=HIT_LEN, largest=LARGEST,
+                 chunk=CHUNK):
+    """The chunk windows phase 5's traffic makes (each prompt but the
+    long and the hit one fits a prefill bucket), by first position."""
+    return (*range(largest, long_len, chunk), *range(largest, hit_len, chunk),
+            hit_len - 1)
+
+
+MAIN_WINDOWS = main_windows()
+# phase 11: K draft tokens a verify iteration; 11c's draft has gpt_tiny's
+# widths (head dim 16) at the target's vocabulary and window
+SPEC_K = 4
+SMALL_DRAFT = dict(hidden_size=64, num_layers=2, num_heads=4, mlp_dim=128)
+SMALL_H = SMALL_DRAFT["num_heads"]
+SMALL_D = SMALL_DRAFT["hidden_size"] // SMALL_H
+# 11a: a draft with the target's own weights, f32, accepts at least this
+# share of its proposals (one-token steps and the K+1 verify window differ
+# only in summation order)
+ACCEPT_SAME = 0.99
 
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
@@ -225,16 +267,16 @@ def smi_line() -> str:
 
 
 def kernel_inputs(torch, dtype, s, dev, cursors=CURSORS, seed=0, mp=MP,
-                  num_pages=NUM_PAGES):
+                  num_pages=NUM_PAGES, h=H, d=D):
     """q, pools, page table and cursors at the serving shapes (or `mp`
-    pages a slot in a pool of `num_pages`): each slot owns distinct pages
-    up to its last live one; entries past it are stale (random) and must
-    never be read."""
+    pages a slot in a pool of `num_pages`, `h` heads of `d`): each slot
+    owns distinct pages up to its last live one; entries past it are
+    stale (random) and must never be read."""
     g = torch.Generator().manual_seed(seed)
     b = len(cursors)
-    q = torch.randn((b, s, H, D), generator=g).to(dtype)
-    pool_k = torch.randn((num_pages, PS, H, D), generator=g).to(dtype)
-    pool_v = torch.randn((num_pages, PS, H, D), generator=g).to(dtype)
+    q = torch.randn((b, s, h, d), generator=g).to(dtype)
+    pool_k = torch.randn((num_pages, PS, h, d), generator=g).to(dtype)
+    pool_v = torch.randn((num_pages, PS, h, d), generator=g).to(dtype)
     perm = torch.randperm(num_pages, generator=g).tolist()
     table = torch.randint(0, num_pages, (b, mp), generator=g, dtype=torch.int32)
     for row, cur in enumerate(cursors):
@@ -245,7 +287,7 @@ def kernel_inputs(torch, dtype, s, dev, cursors=CURSORS, seed=0, mp=MP,
     return [t.to(dev) for t in (q, pool_k, pool_v, table, cursors)]
 
 
-def work_bounds(cursors, itemsize, s, quantized=False):
+def work_bounds(cursors, itemsize, s, quantized=False, h=H, d=D):
     """(bytes, ops) this call needs: each live K/V vector read once (D
     elements of `itemsize`, or D int8 values and a 2-byte scale), the
     live rows' q read once, every output row written once, the live
@@ -263,17 +305,17 @@ def work_bounds(cursors, itemsize, s, quantized=False):
         pages += -(-n // PS)
         pairs += sum(min(cur + j, view_len - 1) + 1 for j in range(s))
         live_rows += 1
-    vector_bytes = D + 2 if quantized else D * itemsize
-    nbytes = 2 * kv_keys * H * vector_bytes
-    nbytes += (live_rows + len(cursors)) * s * H * D * itemsize
+    vector_bytes = d + 2 if quantized else d * itemsize
+    nbytes = 2 * kv_keys * h * vector_bytes
+    nbytes += (live_rows + len(cursors)) * s * h * d * itemsize
     nbytes += 4 * (pages + len(cursors))
-    ops = 4 * pairs * H * D + (2 * kv_keys * H * D if quantized else 0)
+    ops = 4 * pairs * h * d + (2 * kv_keys * h * d if quantized else 0)
     return nbytes, ops
 
 
-def bound_of(name, cursors, itemsize, s, quantized=False):
+def bound_of(name, cursors, itemsize, s, quantized=False, h=H, d=D):
     """(bound_ms, bound_by, bytes, ops) of one call on the H100."""
-    nbytes, ops = work_bounds(cursors, itemsize, s, quantized)
+    nbytes, ops = work_bounds(cursors, itemsize, s, quantized, h, d)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[name] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
@@ -322,20 +364,21 @@ def library_attention(torch, q, pool_k, pool_v, table, cursors, k_scale=None,
 
 
 def measure(torch, pa, flush, dtype, s, cursors, quantized=False, timed=True,
-            mp=MP, num_pages=NUM_PAGES):
+            mp=MP, num_pages=NUM_PAGES, h=H, d=D):
     """One kernel call at (s, cursors) against its plain version (every
     row, parked ones included: both write zeros there) and the library
     yardstick (live rows), then their times and the call's bound. With
     `quantized`, the pools are `quantize_kv` of the same seeded pools and
     the call reads them through the kernel's int8 variant. Not `timed`:
     the check alone (the record carries the error only), which may take
-    another view (`mp` pages a slot, `num_pages` in the pool)."""
+    another view (`mp` pages a slot, `num_pages` in the pool) or another
+    head geometry (`h` heads of `d`)."""
     from kubeflow_tpu_torch.ops.attention import quantize_kv
 
     name = str(dtype).replace("torch.", "")
     kname = pa.kernel_name(s, quantized)
     args = kernel_inputs(torch, dtype, s, "cuda", cursors=cursors, mp=mp,
-                         num_pages=num_pages)
+                         num_pages=num_pages, h=h, d=d)
     kw = {}
     if quantized:
         (args[1], ks), (args[2], vs) = quantize_kv(args[1]), quantize_kv(args[2])
@@ -348,7 +391,8 @@ def measure(torch, pa, flush, dtype, s, cursors, quantized=False, timed=True,
     err = (out.float() - ref.float()).abs().max().item()
     lib_err = (lib[live].float() - ref[live].float()).abs().max().item()
     label = (f"kernel {kname} {name} B={len(cursors)} s={s} cursors {list(cursors)}"
-             + ("" if mp == MP else f" view {mp * PS}"))
+             + ("" if mp == MP else f" view {mp * PS}")
+             + ("" if (h, d) == (H, D) else f" H={h} D={d}"))
     print(f"{label}: max_abs_err {err:.3e} (atol {ATOL[name]:g}); library "
           f"max_abs_err {lib_err:.3e}", flush=True)
     if not err <= ATOL[name]:
@@ -365,7 +409,7 @@ def measure(torch, pa, flush, dtype, s, cursors, quantized=False, timed=True,
     library_ms = time_ms(torch, lambda: library_attention(torch, *args, **kw),
                          flush)
     bound_ms, bound_by, nbytes, ops = bound_of(
-        name, cursors, args[0].element_size(), s, quantized
+        name, cursors, args[0].element_size(), s, quantized, h, d
     )
     print(f"{label}: ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
           f"{library_ms:.4f} bound_ms {bound_ms:.5f} ({bound_by}; {nbytes} B, "
@@ -381,16 +425,18 @@ def measure(torch, pa, flush, dtype, s, cursors, quantized=False, timed=True,
         "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
         "dtype": name, "bytes": nbytes, "ops": ops,
-        "shape": (f"B={len(cursors)} s={s} H={H} D={D} ps={PS} MP={MP} "
-                  f"P={NUM_PAGES} cursors={list(cursors)}"),
+        "shape": (f"B={len(cursors)} s={s} H={h} D={d} ps={PS} MP={mp} "
+                  f"P={num_pages} cursors={list(cursors)}"),
     }
 
 
 def phase_kernels(torch, quantized=False):
     """Each kernel (its int8 variant when `quantized`: phase 9) against
     its plain version: at the 8-slot decode shape and an 8-slot window
-    (ragged cursors, a parked row) in both dtypes, and at the batch-1
-    windows the main path gives the window kernel."""
+    (ragged cursors, a parked row) in both dtypes, at the batch-1
+    windows the main path gives the window kernel, and at phase 11c's
+    small-draft calls (SMALL_H heads of SMALL_D: the 8-slot draft step,
+    the draft's chunk windows), checked, not timed."""
     from kubeflow_tpu_torch.ops import paged_attention as pa
 
     flush = torch.empty(2 << 30, dtype=torch.uint8, device="cuda")
@@ -407,6 +453,17 @@ def phase_kernels(torch, quantized=False):
         for s in (VERIFY, CHUNK):
             measure(torch, pa, flush, dtype, s, LONG_CURSORS, quantized,
                     timed=False, mp=LONG_MP, num_pages=LONG_NUM_PAGES)
+        # 11c's draft: its one-token steps (8 slots) and its chunk windows
+        # (batch 1 at MAIN_WINDOWS' cursors) read a pool of D = 16 heads
+        small = [measure(torch, pa, flush, dtype, 1, CURSORS, quantized,
+                         timed=False, h=SMALL_H, d=SMALL_D)]
+        small += [measure(torch, pa, flush, dtype, CHUNK, (c,), quantized,
+                          timed=False, h=SMALL_H, d=SMALL_D)
+                  for c in sorted(set(MAIN_WINDOWS))]
+        for rec in small:
+            key = (rec["name"], rec["dtype"], "small_draft")
+            records[key] = {"max_abs_err": max(
+                rec["max_abs_err"], records.get(key, {}).get("max_abs_err", 0.0))}
     # one long row: a slot at cursor 1023 walks 8 splits of 128 keys
     decode = pa.kernel_name(1, quantized)
     long_row = measure(torch, pa, flush, torch.bfloat16, 1, LONG_ROW, quantized)
@@ -613,6 +670,9 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         if not worst <= DELTA:
             raise AssertionError(f"an emitted token is {worst} below its "
                                  f"position's max f32 logit (> {DELTA})")
+        # the K = 0 numbers phase 11 prints beside its own
+        stats = dict(stats, load_tokens_per_s=gen_tokens / wall,
+                     load_decode_step_ms=step_ms)
         return launches, stats, steps
     finally:
         os.environ.pop("KFT_SERVING_PREFILL_BUCKETS", None)
@@ -988,6 +1048,275 @@ def phase_train_bf16(torch, overrides=None, device="cuda"):
     return launches, result
 
 
+def rolled_draft(torch, target):
+    """A copy of `target` whose head weight is rolled one vocab row: each
+    logit row shifts by one, so its argmax is never the target's."""
+    from kubeflow_tpu_torch.models.gpt import Gpt
+
+    draft = Gpt(target.cfg, device=target.device)
+    draft.load_state_dict(target.state_dict())
+    with torch.no_grad():
+        draft.head.kernel.copy_(torch.roll(target.head.kernel, 1, dims=-1))
+    return draft
+
+
+def spec_summary(stats, before=None, num_slots=8):
+    """accept_rate, verify_steps, rewind_pages_returned, ms per verify
+    iteration, and tokens per iteration (over all slots, and per slot it
+    served) of a drafted engine's run (its stats less `before`'s)."""
+    before = before or {}
+    keys = ("verify_steps", "draft_proposed", "draft_accepted", "tokens",
+            "rewind_pages_returned")
+    run = {k: stats[k] - before.get(k, 0) for k in keys}
+    total_ms = (stats["decode_step_ms"] * stats["decode_steps"]
+                - before.get("decode_step_ms", 0.0)
+                * before.get("decode_steps", 0))
+    steps = max(run["verify_steps"], 1)
+    # slot-iterations: each verify iteration once per slot it served
+    slot_steps = (stats["mean_occupancy"] * stats["decode_steps"]
+                  - before.get("mean_occupancy", 0.0)
+                  * before.get("decode_steps", 0)) * num_slots
+    run["accept_rate"] = run["draft_accepted"] / max(run["draft_proposed"], 1)
+    run["verify_iteration_ms"] = total_ms / steps
+    run["tokens_per_iteration"] = run["tokens"] / steps
+    run["tokens_per_slot_iteration"] = run["tokens"] / max(slot_steps, 1e-9)
+    return run
+
+
+def phase_spec_f32(torch, model="gpt_small", device="cuda", prompts=(12, 37),
+                   max_new=16, k=SPEC_K):
+    """11a: phase 4's greedy prompts through drafted f32 engines (the
+    target's own weights as the draft, then the rolled-head draft) must
+    equal `generate()`; at int8 a drafted engine must equal the K = 0
+    int8 engine."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.generate import generate
+
+    target = get_model(model, device=device, dtype=torch.float32)
+    rng = np.random.default_rng(1)  # phase 4's prompts
+    rows = [rng.integers(0, target.cfg.vocab_size, n) for n in prompts]
+    want = [generate(target, r[None], max_new)[0, len(r):].tolist() for r in rows]
+
+    def run(draft, kk, quantize="none"):
+        eng = DecodeEngine("spec", target, device=device, num_slots=8,
+                           page_size=16, paged_attention="kernel",
+                           quantize=quantize, draft_model=draft,
+                           num_draft_tokens=kk)
+        try:
+            futures = [eng.submit(r, max_new) for r in rows]
+            return [f.wait(600)["tokens"] for f in futures], eng.stats()
+        finally:
+            eng.close()
+
+    # the same weights accept every proposal (a draft pool out of lockstep
+    # with the target's, or a wrong draft read, shows here and not in the
+    # tokens); the rolled head proposes the target's argmax + 1, never it
+    for label, draft, accept in (("same weights", target, ACCEPT_SAME),
+                                 ("rolled head", rolled_draft(torch, target), 0.0)):
+        pa.reset_launch_counts()
+        got, stats = run(draft, k)
+        launches = dict(pa.launch_counts)
+        summary = spec_summary(stats)
+        print(f"spec f32 ({label} draft, K={k}): {json.dumps(summary)}; "
+              f"launches {launches}", flush=True)
+        if got != want:
+            raise AssertionError(f"f32 drafted tokens ({label}) differ from "
+                                 f"generate(): {got} vs {want}")
+        if not (summary["accept_rate"] >= accept if accept
+                else summary["draft_accepted"] == 0):
+            raise AssertionError(f"f32 {label} draft: accept_rate "
+                                 f"{summary['accept_rate']} (want "
+                                 f"{'>= ' if accept else ''}{accept})")
+        if device == "cuda" and (launches["paged_decode"] < 1
+                                 or launches["paged_window"] < 1):
+            raise AssertionError(f"the f32 drafted serve missed a kernel: {launches}")
+        del draft
+    print(f"spec f32: both drafts' tokens equal generate() (prompts {list(prompts)}, "
+          f"{max_new} new)", flush=True)
+    k0, _ = run(None, 0, "int8")
+    pa.reset_launch_counts()
+    drafted, stats = run(target, k, "int8")
+    launches = dict(pa.launch_counts)
+    print(f"spec int8 f32 (K={k}): {json.dumps(spec_summary(stats))}; launches "
+          f"{launches}", flush=True)
+    if drafted != k0:
+        raise AssertionError(f"int8 drafted tokens {drafted} differ from the K = 0 "
+                             f"int8 engine's {k0}")
+    if device == "cuda" and (launches["paged_decode_int8"] < 1
+                             or launches["paged_window_int8"] < 1
+                             or launches["paged_decode"] + launches["paged_window"]):
+        raise AssertionError(f"the int8 drafted serve did not read through the "
+                             f"int8 kernels alone: {launches}")
+    print("spec int8 f32: drafted tokens equal the K = 0 int8 engine's", flush=True)
+    return target
+
+
+def check_spec_launches(tag, launches, run, device, windows, target_layers,
+                        draft_layers, k=SPEC_K):
+    """The drafted engine's launch formula: every one-token read is a draft
+    step (K+1 an iteration, one per draft layer), every window read a
+    verify (one per target layer) or a chunk window of either model."""
+    want = {"paged_decode": run["verify_steps"] * (k + 1) * draft_layers,
+            "paged_window": (run["verify_steps"] * target_layers
+                             + len(windows) * (target_layers + draft_layers))}
+    print(f"{tag}: launches {launches} (formula {want})", flush=True)
+    if device == "cuda" and {n: launches[n] for n in want} != want:
+        raise AssertionError(f"{tag}: launches {launches} != formula {want}")
+
+
+def spec_traffic(f32_model, short, long_len, hit_len):
+    """Phase 5's prompts (its seed, its lengths), then the hit prompt again."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, f32_model.cfg.vocab_size, n).tolist()
+               for n in (*short, long_len, hit_len)]
+    return prompts, rng
+
+
+def phase_spec_serve(torch, f32_model, k0_stats, model="gpt_small", device="cuda",
+                     short=(5, 17, 33, 64, 120), long_len=LONG_LEN,
+                     hit_len=HIT_LEN, max_new=32, buckets=BUCKETS, k=SPEC_K):
+    """11b: the drafted bf16 server (the draft is the registry model's
+    seed-0 init, the target's) on phase 5's traffic over REST; phase 5's
+    K = 0 tokens/s and step time (`k0_stats`) are printed beside. Returns
+    the run's launches."""
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    os.environ["KFT_SERVING_PREFILL_BUCKETS"] = buckets
+    ms, httpd = serve(model, torch.bfloat16, device, num_slots=8, page_size=16,
+                      draft_model=model, num_draft_tokens=k)
+    largest = int(buckets.split(",")[-1])
+    try:
+        eng = ms.engine(model)
+        prompts, rng = spec_traffic(f32_model, short, long_len, hit_len)
+        results = [None] * len(prompts)
+
+        def run(i):
+            results[i] = post(httpd.port, model,
+                              {"prompt_ids": [prompts[i]], "max_new_tokens": max_new})
+
+        warm = rng.integers(0, f32_model.cfg.vocab_size, largest + 4).tolist()
+        status, _ = post(httpd.port, model, {"prompt_ids": [warm],
+                                             "max_new_tokens": 2})
+        if status != 200:
+            raise AssertionError(f"spec bf16 warm-up answered {status}")
+        before = eng.stats()
+        # the main path's run with speculation: every count starts at 0 here
+        pa.reset_launch_counts()
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.monotonic() - t0
+        prompts.append(prompts[-1])
+        results.append(post(httpd.port, model,
+                            {"prompt_ids": [prompts[-1]], "max_new_tokens": max_new}))
+        launches = dict(pa.launch_counts)
+        stats = eng.stats()
+        run_stats = spec_summary(stats, before)
+        worst = 0.0
+        for prompt, res in zip(prompts, results):
+            if res is None or res[0] != 200:
+                raise AssertionError(f"spec bf16 :generate failed: {res}")
+            tokens = res[1]["sequences"][0][len(prompt):]
+            if len(tokens) != max_new:
+                raise AssertionError(f"expected {max_new} tokens, got {len(tokens)}")
+            worst = max(worst, rescore(torch, f32_model, prompt, tokens))
+        gen_tokens = max_new * (len(prompts) - 1)
+        print(f"spec bf16 (REST, same-weights draft, K={k}): {len(results)} "
+              f"requests answered 200; {gen_tokens} tokens in {wall:.3f} s of "
+              f"concurrent load = {gen_tokens / wall:.1f} tokens/s; "
+              f"{json.dumps(run_stats)}; K = 0 (phase 5, this call): "
+              f"{k0_stats['load_tokens_per_s']:.1f} tokens/s, decode_step_ms "
+              f"{k0_stats['load_decode_step_ms']:.3f}", flush=True)
+        print(f"spec bf16: stats {json.dumps(stats)}", flush=True)
+        print(f"spec bf16: worst f32 logit gap of an emitted token {worst:.4f} "
+              f"(delta {DELTA})", flush=True)
+        layers = f32_model.cfg.num_layers
+        check_spec_launches("spec bf16", launches, run_stats, device,
+                            main_windows(long_len, hit_len, largest), layers, layers)
+        if not worst <= DELTA:
+            raise AssertionError(f"an emitted token is {worst} below its "
+                                 f"position's max f32 logit (> {DELTA})")
+        if stats["cow_copies"] < 1 or stats["decode_steps"] != stats["verify_steps"]:
+            raise AssertionError(f"spec bf16: no prefix hit, or a one-token step "
+                                 f"ran: {stats}")
+        if stats["pages_in_use"] != stats["prefix_index_pages"]:
+            raise AssertionError(f"spec bf16 leaked pages: {stats['pages_in_use']} "
+                                 f"in use, {stats['prefix_index_pages']} in the "
+                                 f"prefix index")
+        sampled = {"prompt_ids": [prompts[2]], "max_new_tokens": max_new,
+                   "temperature": 0.8, "top_k": 50, "seed": 1234}
+        twice = [post(httpd.port, model, sampled) for _ in range(2)]
+        if any(st != 200 for st, _ in twice) or twice[0][1] != twice[1][1]:
+            raise AssertionError(f"a sampled request sent twice with one seed "
+                                 f"differs: {twice}")
+        print(f"spec bf16: a sampled request (temperature 0.8, top_k 50) sent "
+              f"twice with one seed returned the same {max_new} tokens", flush=True)
+        return launches
+    finally:
+        os.environ.pop("KFT_SERVING_PREFILL_BUCKETS", None)
+        httpd.stop()
+        ms.close()
+
+
+def phase_spec_small_draft(torch, f32_model, model="gpt_small", device="cuda",
+                           short=(5, 17, 33, 64, 120), long_len=LONG_LEN,
+                           hit_len=HIT_LEN, max_new=32, buckets=BUCKETS,
+                           k=SPEC_K):
+    """11c: a bf16 engine whose draft has SMALL_DRAFT's widths on phase
+    5's traffic (the hit prompt once more after the rest)."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    target = get_model(model, device=device, dtype=torch.bfloat16)
+    draft = get_model(model, device=device, dtype=torch.bfloat16, **SMALL_DRAFT)
+    eng = DecodeEngine("spec-small", target, device=device, num_slots=8,
+                       page_size=16, paged_attention="kernel",
+                       prefill_buckets=[int(b) for b in buckets.split(",")],
+                       draft_model=draft, num_draft_tokens=k)
+    try:
+        prompts, rng = spec_traffic(f32_model, short, long_len, hit_len)
+        largest = eng.prefill_buckets[-1]
+        warm = rng.integers(0, f32_model.cfg.vocab_size, largest + 4)
+        eng.generate_row(warm, 2, timeout=600)
+        before = eng.stats()
+        pa.reset_launch_counts()
+        t0 = time.monotonic()
+        futures = [eng.submit(p, max_new) for p in prompts]
+        results = [f.wait(900)["tokens"] for f in futures]
+        wall = time.monotonic() - t0
+        prompts.append(prompts[-1])
+        results.append(eng.generate_row(prompts[-1], max_new, timeout=600)["tokens"])
+        launches = dict(pa.launch_counts)
+        stats = eng.stats()
+    finally:
+        eng.close()
+    run_stats = spec_summary(stats, before)
+    worst = max(rescore(torch, f32_model, p, r) for p, r in zip(prompts, results))
+    gen_tokens = max_new * (len(prompts) - 1)
+    print(f"spec bf16 small draft ({draft.cfg.hidden_size}/{draft.cfg.num_layers}/"
+          f"{draft.cfg.num_heads}/{draft.cfg.mlp_dim}, head dim "
+          f"{draft.cfg.head_dim}, K={k}): {gen_tokens} tokens in {wall:.3f} s "
+          f"= {gen_tokens / wall:.1f} tokens/s; {json.dumps(run_stats)}; worst f32 "
+          f"logit gap {worst:.4f} (delta {DELTA})", flush=True)
+    check_spec_launches("spec bf16 small draft", launches, run_stats, device,
+                        main_windows(long_len, hit_len, largest),
+                        target.cfg.num_layers, draft.cfg.num_layers)
+    if any(len(r) != max_new for r in results) or not worst <= DELTA:
+        raise AssertionError(f"small-draft serve: lengths "
+                             f"{[len(r) for r in results]}, worst gap {worst}")
+    if stats["rewind_pages_returned"] < 1:
+        raise AssertionError("no rewind gave a page back")
+    if stats["pages_in_use"] != stats["prefix_index_pages"]:
+        raise AssertionError(f"small-draft serve leaked pages: {stats}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1072,6 +1401,29 @@ def main() -> int:
         if rec["launches"] < 1:
             raise AssertionError(f"the int8 main path never launched {key[0]}")
         kernels.append(rec)
+    torch.cuda.empty_cache()
+
+    f32_model = phase_spec_f32(torch)
+    spec_launches = phase_spec_serve(torch, f32_model, bf16_stats)
+    small_launches = phase_spec_small_draft(torch, f32_model)
+    del f32_model
+    small_shapes = {
+        "paged_decode": f"B=8 s=1 H={SMALL_H} D={SMALL_D} cursors={list(CURSORS)}",
+        "paged_window": (f"B=1 s={CHUNK} H={SMALL_H} D={SMALL_D} cursors="
+                         f"{sorted(set(MAIN_WINDOWS))} (the draft's chunk "
+                         f"windows); the target's verify at B=8 s={VERIFY} "
+                         f"H={H} D={D}"),
+    }
+    for rec in kernels[:2]:
+        # this slice's path: the drafted bf16 serve (11b), then 11c's,
+        # whose draft calls run at D = 16 (phase 3 held them, not timed)
+        rec["spec_launches"] = spec_launches[rec["name"]]
+        rec["small_draft_launches"] = small_launches[rec["name"]]
+        rec["small_draft_shape"] = small_shapes[rec["name"]]
+        rec["small_draft_max_abs_err"] = records[
+            (rec["name"], "bfloat16", "small_draft")]["max_abs_err"]
+        if min(rec["spec_launches"], rec["small_draft_launches"]) < 1:
+            raise AssertionError(f"the speculative path never launched {rec['name']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,19 +18,34 @@ the `:generate` slice runs).
 - Decode is ONE single-token step over ALL slots per iteration. Page
   tables and cursors are host numpy shipped per dispatch; parked slots
   (cursor = max_len) write nothing.
+- SPECULATIVE DECODING (`num_draft_tokens` K > 0 with a `draft_model`):
+  each iteration runs K+1 one-token draft steps over all slots on the
+  draft's own pool (same page ids, same page table), then ONE target
+  forward over all slots × (K+1) positions that keeps each slot's
+  longest accepted prefix plus one replacement token. Rollback is host
+  cursor arithmetic: the rejected tail stays past the rewound cursor,
+  invisible, and the pages only it claimed go back to the pool. Every
+  greedy token is the target's argmax, whatever the draft proposes.
+- DRAIN flips admission to `EngineDrainingError` (429 + Retry-After at
+  the server) while every accepted request, queued or resident, drafted
+  or not, runs to completion under a deadline; stragglers then fail
+  fast.
 
 `paged_attention` selects the read path: "gather" (a per-slot view plus
 dense attention) or "kernel" (the CUDA page-walk kernels of
-ops/paged_attention.py — the counterpart of the JAX engine's "pallas").
+ops/paged_attention.py — the counterpart of the JAX engine's "pallas"):
+the decode kernel serves every one-token step (the draft's included),
+the window kernel every chunk window and the K+1 verify window.
 `quantize="int8"` serves int8 weights (dequantized at each use) over
 int8 KV pages with bf16 per-vector scales, read through the kernels'
-int8 variants; auto pool sizing then holds ~2x the pages in the same
-bytes. The JAX programs donate the pool; here the pool tensors are
-updated in place. Greedy engine output equals `generate()`
-(serving/generate.py) over the same weights.
+int8 variants (a draft model is int8 too, with its own int8 pool); auto
+pool sizing then holds ~2x the pages in the same bytes. The JAX programs
+donate the pool; here the pool tensors are updated in place. Greedy
+engine output equals `generate()` (serving/generate.py) over the same
+weights.
 
-Not ported yet: speculative decoding, the serving mesh, MoE, the
-host/disk KV tiers, drain/recover and chaos.
+Not ported yet: the serving mesh, MoE, the host/disk KV tiers, the
+pool rebuild of recover, and chaos.
 """
 
 from __future__ import annotations
@@ -53,7 +68,16 @@ from kubeflow_tpu_torch.models.gpt import (
     int8_model,
     make_paged_pool,
 )
-from kubeflow_tpu_torch.serving.sampling import sample_slots
+from kubeflow_tpu_torch.serving.sampling import (
+    SALT_ACCEPT,
+    SALT_CORRECT,
+    SALT_DRAFT,
+    draw_generator,
+    sample_slots,
+    sampled_rows,
+    slot_probs,
+    speculative_accept,
+)
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.utils.logging import get_logger
 from kubeflow_tpu_torch.utils.metrics import default_registry
@@ -69,6 +93,17 @@ DEFAULT_QUANTIZE = "none"
 
 class QueueFullError(RuntimeError):
     """Admission queue at capacity — the server maps this to HTTP 429."""
+
+
+class EngineDrainingError(QueueFullError):
+    """Admission rejected because the engine is draining for shutdown. A
+    QueueFullError, so every 429 mapping applies; the server adds
+    Retry-After from `retry_after_s` (the client should retry against
+    another replica)."""
+
+    def __init__(self, message: str, retry_after_s: float = 1.0):
+        super().__init__(message)
+        self.retry_after_s = float(retry_after_s)
 
 
 class EngineCapacityError(ValueError):
@@ -202,6 +237,11 @@ class PagePool:
     @property
     def in_use(self) -> int:
         return self.num_pages - len(self._free)
+
+    @property
+    def tree_pages(self) -> int:
+        """Pages the prefix index holds a reference to."""
+        return self._tree_pages
 
     @property
     def tree_evictable(self) -> int:
@@ -368,14 +408,19 @@ class RadixPrefixIndex:
 
 class EnginePrograms:
     """The engine's device programs (the JAX `EnginePrograms` bodies as
-    plain methods): prefill, insert, chunk, cow and step. Every program
-    that writes the pool writes it in place.
+    plain methods): prefill, insert, chunk, cow and step, plus at K > 0
+    the draft family (draft_prefill, draft_chunk, draft) and verify;
+    `insert` and `cow` serve the draft's pool too. Every program that
+    writes a pool writes it in place.
 
-    Paged geometry (`page_size`, `num_pages`) and `quantize` (int8 pools
-    follow the weights) are construction state."""
+    Paged geometry (`page_size`, `num_pages`), `quantize` (int8 pools
+    follow the weights) and the draft (`draft_model`, `num_draft_tokens`)
+    are construction state. The draft's pool has the target's geometry:
+    the engine maps one page id onto both."""
 
     def __init__(self, model, *, page_size: int, num_pages: int,
-                 paged_attention: str, quantize: str = DEFAULT_QUANTIZE):
+                 paged_attention: str, quantize: str = DEFAULT_QUANTIZE,
+                 draft_model=None, num_draft_tokens: int = 0):
         cfg = model.cfg
         self.model = model
         if paged_attention not in PAGED_ATTENTION_IMPLS:
@@ -392,6 +437,35 @@ class EnginePrograms:
                 f"quantize={quantize!r} programs need a model whose weights "
                 f"are {quantize!r}, not {model.quantize!r}"
             )
+        self.num_draft_tokens = int(num_draft_tokens)
+        if self.num_draft_tokens < 0:
+            raise ValueError("num_draft_tokens must be >= 0")
+        self.draft_model = None
+        if self.num_draft_tokens > 0:
+            if draft_model is None:
+                raise ValueError(
+                    "num_draft_tokens > 0 needs a draft_model (speculative "
+                    "decoding drafts from a resident second model)"
+                )
+            dcfg = draft_model.cfg
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {dcfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}: the verify step compares token "
+                    "ids, so the models must share a vocabulary"
+                )
+            if dcfg.max_len < cfg.max_len:
+                raise ValueError(
+                    f"draft max_len {dcfg.max_len} < target max_len "
+                    f"{cfg.max_len}: the draft cache tracks the same "
+                    "token positions as the target's"
+                )
+            if draft_model.quantize != quantize:
+                raise ValueError(
+                    f"quantize={quantize!r} programs need a draft whose "
+                    f"weights are {quantize!r}, not {draft_model.quantize!r}"
+                )
+            self.draft_model = draft_model
         self.paged_attention = paged_attention
         self.quantize = quantize
         self.page_size = int(page_size)
@@ -466,6 +540,113 @@ class EnginePrograms:
             logits[:, 0], seeds, counters, temps, top_ks, top_ps
         )
 
+    # -- the speculative draft-and-verify family (K > 0) -------------------
+
+    def make_draft_pool(self, device) -> KVPool:
+        return make_paged_pool(self.draft_model.cfg, self.num_pages,
+                               self.page_size, device, kv_quant=self.quantize)
+
+    def draft_prefill(self, ids, mask):
+        """Seed the draft's batch-1 cache over the same bucketed prompt
+        the target prefilled. The first token comes from the target's
+        prefill, so only the cache returns."""
+        return self.draft_model.prefill(ids, mask)[1]
+
+    def draft_chunk(self, dpool: KVPool, ids, page_table, cursor) -> None:
+        """The draft side of a prefill chunk: the same window on the same
+        pages of its own pool, so the draft's cache stays position for
+        position in lockstep with the target's."""
+        self.draft_model.paged_forward(
+            ids, dpool, self._paged(page_table, cursor)
+        )
+
+    def draft(self, dpool: KVPool, tokens, page_table, cursors, seeds,
+              counters, temps, top_ks, top_ps):
+        """K+1 one-token draft steps over all slots, step j writing at
+        `cursors + j` → (proposals [S, K], q [R, K, V] or None): q are
+        the sampled rows' (`sampled_rows(temps)`) filtered distributions
+        the proposals were drawn from, what the verify's rejection rule
+        needs. The (K+1)-th step only writes d_K's K/V, so the draft pool
+        ends the iteration with the same K+1 positions written as the
+        target's verify window."""
+        kk = self.num_draft_tokens
+        tok, proposals, qs = tokens, [], []
+        for j in range(kk + 1):
+            logits = self.draft_model.paged_forward(
+                tok[:, None], dpool, self._paged(page_table, cursors + j)
+            )
+            if j == kk:
+                break
+            tok, q = sample_slots(
+                logits[:, 0], seeds, counters + j, temps, top_ks, top_ps,
+                salt=SALT_DRAFT, with_probs=True,
+            )
+            proposals.append(tok)
+            if q is not None:
+                qs.append(q)
+        return torch.stack(proposals, 1), (torch.stack(qs, 1) if qs else None)
+
+    def verify(self, pool: KVPool, window, qs, page_table, cursors, seeds,
+               counters, temps, top_ks, top_ps):
+        """ONE target forward over all slots × (K+1) positions (window[:,
+        0] is each slot's last emitted token, window[:, 1:] the draft's
+        proposals), then each slot's longest accepted prefix plus one
+        replacement → (tokens [S, K+1], lengths [S]): a slot emits
+        tokens[s, :lengths[s]], 1..K+1 of them.
+
+        Greedy slots accept while the proposal equals the target's argmax
+        and replace with the argmax. Sampled slots run
+        `speculative_accept` (uniforms on the SALT_ACCEPT stream at
+        positions counters + j); the replacement is drawn on the
+        SALT_CORRECT stream from the residual at the first rejection, or
+        after a clean sweep from the (K+1)-th target distribution (the
+        bonus token). Only that one draw is made: the others would be
+        discarded."""
+        kk = window.shape[1] - 1
+        logits = self.model.paged_forward(
+            window, pool, self._paged(page_table, cursors)
+        )
+        greedy = logits.argmax(dim=-1)  # [S, K+1]
+        drafted = window[:, 1:]
+        accept = drafted == greedy[:, :kk]
+        replacement = greedy
+        sampled = sampled_rows(temps)
+        if sampled:
+            dev = logits.device
+            rows = torch.as_tensor(sampled, device=dev)
+            vocab = logits.shape[-1]
+
+            def per_position(knob):
+                return [knob[i] for i in sampled for _ in range(kk + 1)]
+
+            p = slot_probs(
+                logits[rows].reshape(-1, vocab), per_position(temps),
+                per_position(top_ks), per_position(top_ps),
+            ).reshape(len(sampled), kk + 1, vocab)
+            uniforms = torch.stack([torch.stack([
+                torch.rand((), generator=draw_generator(
+                    "cpu", seeds[i], counters[i] + j, SALT_ACCEPT))
+                for j in range(kk)
+            ]) for i in sampled]).to(dev)
+            acc_s, residual = speculative_accept(
+                p[:, :kk], qs, drafted[rows], uniforms
+            )
+            accept = accept.clone()
+            accept[rows] = acc_s
+            replacement = greedy.clone()
+            first = torch.cumprod(acc_s.long(), dim=1).sum(dim=1).tolist()
+            for r, (i, a) in enumerate(zip(sampled, first)):
+                dist = residual[r, a] if a < kk else p[r, kk]
+                gen = draw_generator(dev, seeds[i], counters[i] + a,
+                                     SALT_CORRECT)
+                replacement[i, a] = torch.multinomial(dist, 1,
+                                                      generator=gen)[0]
+        acc = torch.cumprod(accept.long(), dim=1).sum(dim=1)  # [S] in [0, K]
+        padded = torch.cat([drafted, torch.zeros_like(drafted[:, :1])], 1)
+        pos = torch.arange(kk + 1, device=acc.device)
+        tokens = torch.where(pos[None, :] < acc[:, None], padded, replacement)
+        return tokens, acc + 1
+
 
 class _Request:
     """One admitted-or-queued generation request."""
@@ -513,7 +694,12 @@ class DecodeEngine:
 
     `quantize="int8"` serves the int8 model of `model`: built once here
     (`models/gpt.py int8_model`, `model` itself is left full width) unless
-    `model` already is one (e.g. from an envelope)."""
+    `model` already is one (e.g. from an envelope).
+
+    `num_draft_tokens` K > 0 decodes speculatively with `draft_model`
+    (a model with its own weights on the engine's device, the same
+    vocabulary and at least the target's max_len; at int8 it becomes an
+    int8 model too). A drafted engine never runs the one-token step."""
 
     def __init__(
         self,
@@ -530,13 +716,18 @@ class DecodeEngine:
         prefix_cache: bool = True,
         paged_attention: Optional[str] = None,
         quantize: Optional[str] = None,
+        draft_model=None,
+        num_draft_tokens: int = 0,
     ):
         self.device = resolve_device(device)
-        if model.device != self.device:
-            raise ValueError(
-                f"model weights live on {model.device}, engine device is "
-                f"{self.device}"
-            )
+        if int(num_draft_tokens) <= 0:
+            draft_model = None  # K = 0 ignores a draft, as the reference
+        for role, m in (("model", model), ("draft model", draft_model)):
+            if m is not None and m.device != self.device:
+                raise ValueError(
+                    f"{role} weights live on {m.device}, engine device is "
+                    f"{self.device}"
+                )
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if max_queue < 1:
@@ -548,8 +739,12 @@ class DecodeEngine:
                 f"quantize {self.quantize!r} must be one of {QUANTIZE_CHOICES}"
             )
         if self.quantize == "int8":
-            # the resident weights become int8 + per-channel scales, once
+            # the resident weights become int8 + per-channel scales, once;
+            # a draft that is the target shares the target's int8 model
+            same = draft_model is model
             model = int8_model(model)
+            if draft_model is not None:
+                draft_model = model if same else int8_model(draft_model)
         self.name = name
         self.model = model
         self.num_slots = num_slots
@@ -561,7 +756,10 @@ class DecodeEngine:
         self.programs = EnginePrograms(
             model, page_size=ps, num_pages=pool_pages,
             paged_attention=self.paged_attention, quantize=self.quantize,
+            draft_model=draft_model, num_draft_tokens=num_draft_tokens,
         )
+        self.num_draft_tokens = self.programs.num_draft_tokens
+        self.draft_model = self.programs.draft_model
         self.page_size = ps
         self.num_pages = pool_pages
         self._max_pages = self.programs.max_pages_per_slot
@@ -581,8 +779,16 @@ class DecodeEngine:
 
         # -- device state (scheduler-thread-owned after start) ----------
         self._pool = self.programs.make_pool(self.device)
-        # values and, in int8, their scales: the bytes the pool holds
-        self.kv_pool_bytes = self._pool.nbytes
+        # the draft's pool mirrors the target's page ids page for page
+        self._draft_pool = (
+            self.programs.make_draft_pool(self.device)
+            if self.num_draft_tokens > 0 else None
+        )
+        # values and, in int8, their scales, of both pools: the bytes the
+        # pools hold
+        self.kv_pool_bytes = self._pool.nbytes + (
+            self._draft_pool.nbytes if self._draft_pool is not None else 0
+        )
         # -- host page accounting (scheduler-thread-owned) --------------
         self._pagepool = PagePool(self.num_pages)
         self._radix = (
@@ -594,10 +800,15 @@ class DecodeEngine:
         # the logical window, so idle/retired rows write nothing
         self._cur_np = np.full((num_slots,), cfg.max_len, np.int32)
         self._slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
+        # leading prefix pages a slot maps and does not own (never freed
+        # by a rewind)
+        self._slot_shared = np.zeros((num_slots,), np.int32)
         self._slot_reserve = np.zeros((num_slots,), np.int32)
         self._slots: List[Optional[_Slot]] = [None] * num_slots
         self._tok_np = np.zeros((num_slots,), np.int64)
         self._seed_np = np.zeros((num_slots,), np.int64)
+        # each slot's draw counter: +1 a one-token step, +K+1 a verify
+        # iteration (consumed or not)
         self._cnt_np = np.zeros((num_slots,), np.int64)
         self._temp_np = np.zeros((num_slots,), np.float32)
         self._topk_np = np.zeros((num_slots,), np.int64)
@@ -607,6 +818,11 @@ class DecodeEngine:
         self._cv = threading.Condition()
         self._queue: deque = deque()
         self._stop = False
+        # drain(): admission refused from here on; `_admitting` counts
+        # requests popped from the queue and not yet resident, so drain's
+        # idle check never misses one mid-admission
+        self._draining = False
+        self._admitting = 0
 
         self._stats_lock = threading.Lock()
         self._admitted = 0
@@ -620,6 +836,12 @@ class DecodeEngine:
         self._cow_copies = 0
         self._prefill_compute_tokens = 0
         self._pages_allocated = 0
+        # speculation: proposals, accepted proposals, verify iterations,
+        # pages a rewind gave back
+        self._drafted = 0
+        self._accepted = 0
+        self._verifies = 0
+        self._rewind_pages_returned = 0
         # read-path evidence: window size (query rows per pool walk) ->
         # read path that served it
         self._attn_windows: Dict[int, str] = {}
@@ -647,6 +869,27 @@ class DecodeEngine:
         )
         self._pages_in_use_g = reg.gauge(
             "serving_kv_pages_in_use", "pool pages in use", ["model"]
+        )
+        self._draft_proposed_m = reg.counter(
+            "serving_draft_proposed_total",
+            "speculative tokens proposed by the draft", ["model"],
+        )
+        self._draft_accepted_m = reg.counter(
+            "serving_draft_accepted_total",
+            "speculative tokens accepted by the verify step", ["model"],
+        )
+        self._verify_steps_m = reg.counter(
+            "serving_verify_steps_total", "speculative verify iterations",
+            ["model"],
+        )
+        self._accept_rate_h = reg.histogram(
+            "serving_accept_rate",
+            "accepted / proposed drafted tokens per verify iteration",
+            ["model"], buckets=tuple(i / 10 for i in range(11)),
+        )
+        self._drain_h = reg.histogram(
+            "serving_drain_seconds", "drain() start to idle or deadline",
+            ["model"],
         )
         self._queue_depth_g.set(0, model=name)
         self._occupancy_g.set(0.0, model=name)
@@ -697,6 +940,14 @@ class DecodeEngine:
 
     def _enqueue(self, reqs: List[_Request]) -> None:
         with self._cv:
+            # draining outranks closed: drain() ends in close(), and a
+            # drained engine keeps answering 429 + Retry-After (retry
+            # another replica) until the server stops
+            if self._draining:
+                raise EngineDrainingError(
+                    f"engine {self.name} is draining for shutdown; "
+                    f"retry against another replica"
+                )
             if self._stop:
                 raise RuntimeError("engine is closed")
             if len(self._queue) + len(reqs) > self.max_queue:
@@ -755,6 +1006,14 @@ class DecodeEngine:
                     self._occupied_slot_steps / (steps * self.num_slots)
                     if steps else 0.0
                 ),
+                # speculation (0 at K = 0): a drafted engine's decode
+                # steps are its verify iterations
+                "draft_proposed": self._drafted,
+                "draft_accepted": self._accepted,
+                "verify_steps": self._verifies,
+                "accept_rate": (
+                    self._accepted / self._drafted if self._drafted else 0.0
+                ),
                 "prefix_lookups": self._prefix_lookups,
                 "prefix_hit_tokens": self._prefix_hit_tokens,
                 "prefix_cache_hit_rate": (
@@ -763,7 +1022,11 @@ class DecodeEngine:
                 "cow_copies": self._cow_copies,
                 "prefill_compute_tokens": self._prefill_compute_tokens,
                 "pages_allocated": self._pages_allocated,
+                "rewind_pages_returned": self._rewind_pages_returned,
                 "pages_in_use": self._pagepool.in_use,
+                # pages the prefix index holds: an idle engine's
+                # pages_in_use, when no page leaked
+                "prefix_index_pages": self._pagepool.tree_pages,
                 "pages_total": self.num_pages,
                 # which read path is live: "gather" or "kernel" (the CUDA
                 # page walk on a CUDA engine)
@@ -780,6 +1043,42 @@ class DecodeEngine:
                 "kv_pool_bytes": self.kv_pool_bytes,
                 "device": str(self.device),
             }
+
+    @property
+    def draining(self) -> bool:
+        """True once drain() flipped the admission gate (new submits get
+        429 + Retry-After): the /healthz "draining, not dead" signal."""
+        with self._cv:
+            return self._draining
+
+    def drain(self, deadline_s: float = 30.0) -> bool:
+        """Draining shutdown: refuse new submits (EngineDrainingError),
+        let every already accepted request, queued and resident, run to
+        completion, then close. Requests still live at `deadline_s` are
+        failed fast by close(): a drain can time out, it never strands a
+        caller. Returns True when everything finished in time."""
+        t0 = time.monotonic()
+        with self._cv:
+            self._draining = True
+            self._cv.notify_all()
+        deadline = t0 + max(0.0, float(deadline_s))
+        drained = False
+        while True:
+            with self._cv:
+                idle = (not self._queue and self._admitting == 0
+                        and all(s is None for s in self._slots))
+            if idle:
+                drained = True
+                break
+            if time.monotonic() >= deadline:
+                break
+            time.sleep(0.005)
+        self._drain_h.observe(time.monotonic() - t0, model=self.name)
+        if not drained:
+            log.warning("engine %s drain deadline (%.1fs) expired; failing "
+                        "the remaining requests fast", self.name, deadline_s)
+        self.close()
+        return drained
 
     def close(self) -> None:
         with self._cv:
@@ -810,9 +1109,11 @@ class DecodeEngine:
     def _reserve_pages(self, prompt_len: int, max_new: int) -> int:
         """Worst-case pages one request can ever hold: its prompt (plus
         the last chunk window's pad spill) and every token it may decode,
-        capped at the logical window."""
+        with the verify window's K overhang, capped at the logical
+        window."""
         tokens = min(
-            prompt_len + max(max_new, self.programs.chunk_len),
+            prompt_len + max(max_new + self.num_draft_tokens,
+                             self.programs.chunk_len),
             self.model.cfg.max_len,
         )
         return -(-tokens // self.page_size)
@@ -861,11 +1162,25 @@ class DecodeEngine:
             self._pt_np[i, len(pages)] = pg
             pages.append(pg)
 
+    def _free_tail_pages(self, i: int) -> int:
+        """Return slot i's pages past its resident ceiling to the pool
+        (the rewind's page give-back: a rejected verify tail may have
+        claimed a page the rewound cursor no longer reaches); a prefix
+        page the slot shares is never freed. Returns the pages freed."""
+        keep = max(-(-int(self._cur_np[i]) // self.page_size),
+                   int(self._slot_shared[i]))
+        pages = self._slot_pages[i]
+        freed = 0
+        while len(pages) > keep:
+            freed += self._pagepool.release([pages.pop()])
+        return freed
+
     def _release_slot_pages(self, i: int) -> None:
         pages = self._slot_pages[i]
         if pages:
             self._pagepool.release(pages)
         self._slot_pages[i] = []
+        self._slot_shared[i] = 0
         self._slot_reserve[i] = 0
         self._cur_np[i] = self.model.cfg.max_len
         self._pt_np[i, :] = 0
@@ -907,12 +1222,16 @@ class DecodeEngine:
             self._pt_np[slot_idx, len(pages)] = pg
             pages.append(pg)
         self._slot_pages[slot_idx] = pages
+        self._slot_shared[slot_idx] = q
         if r > 0:
             # copy-on-write at the divergence/extension boundary: this slot
             # will write into the page's tail, so it gets its own copy
             src = chain[q] if q < len(chain) else partial[0]
             dst = self._alloc_pages(1)[0]
             self.programs.cow(self._pool, src, dst)
+            if self._draft_pool is not None:
+                # the donor page's draft K/V was written with its chain
+                self.programs.cow(self._draft_pool, src, dst)
             with self._stats_lock:
                 self._cow_copies += 1
             self._pt_np[slot_idx, len(pages)] = dst
@@ -942,29 +1261,37 @@ class DecodeEngine:
             ids[0, :p] = prompt
             mask = np.zeros((1, bucket), bool)
             mask[0, :p] = True
-            cache_one, first_tok = self.programs.prefill(
-                self._to_dev(ids), self._to_dev(mask), *knobs
-            )
+            ids, mask = self._to_dev(ids), self._to_dev(mask)
+            cache_one, first_tok = self.programs.prefill(ids, mask, *knobs)
             self._ensure_pages(slot_idx, p)
             self.programs.insert(
                 self._pool, cache_one, self._slot_pages[slot_idx], p
             )
+            if self._draft_pool is not None:
+                self.programs.insert(
+                    self._draft_pool, self.programs.draft_prefill(ids, mask),
+                    self._slot_pages[slot_idx], p,
+                )
             computed = p
         else:
             pos = matched
             if matched == 0:
                 # long fresh prompt: the head rides ONE largest-bucket
                 # prefill, the rest chunk-prefills below
-                ids = prompt[:largest][None]
-                mask = np.ones((1, largest), bool)
-                cache_one, _ = self.programs.prefill(
-                    self._to_dev(ids), self._to_dev(mask), *knobs
-                )
+                ids = self._to_dev(prompt[:largest][None])
+                mask = self._to_dev(np.ones((1, largest), bool))
+                cache_one, _ = self.programs.prefill(ids, mask, *knobs)
                 self._ensure_pages(slot_idx, largest)
                 self.programs.insert(
                     self._pool, cache_one, self._slot_pages[slot_idx],
                     largest,
                 )
+                if self._draft_pool is not None:
+                    self.programs.insert(
+                        self._draft_pool,
+                        self.programs.draft_prefill(ids, mask),
+                        self._slot_pages[slot_idx], largest,
+                    )
                 pos = computed = largest
             # chunked prefill: page-aligned windows over the paged cache;
             # the tail attends to everything already resident, and window
@@ -976,13 +1303,18 @@ class DecodeEngine:
                 chunk[0, :nreal] = prompt[pos : pos + nreal]
                 self._ensure_pages(slot_idx, pos + clen)
                 final = pos + nreal >= p
+                chunk = self._to_dev(chunk)
+                prow = self._to_dev(self._pt_np[slot_idx][None])
+                cur = self._to_dev(np.asarray([pos], np.int32))
                 tok = self.programs.chunk(
-                    self._pool, self._to_dev(chunk),
-                    self._to_dev(self._pt_np[slot_idx][None]),
-                    self._to_dev(np.asarray([pos], np.int32)),
+                    self._pool, chunk, prow, cur,
                     (p - 1) - pos if final else 0, *knobs,
                 )
                 self._note_attn(clen)
+                if self._draft_pool is not None:
+                    self.programs.draft_chunk(self._draft_pool, chunk, prow,
+                                              cur)
+                    self._note_attn(clen)
                 if final:
                     first_tok = tok
                 computed += nreal
@@ -1051,8 +1383,12 @@ class DecodeEngine:
                     self._fail_resident(e)
 
     def _fail_resident(self, exc: BaseException) -> None:
-        """A decode step failed: fail every resident request and free its
-        pages (queued requests were never admitted and stay servable)."""
+        """A decode iteration failed: fail every resident request and free
+        its pages, in the target's pool and (one page id each) the
+        draft's; queued requests were never admitted and stay servable.
+        The pools are written in place, so nothing needs rebuilding: the
+        failed iteration wrote only past the residents' cursors, onto
+        pages they owned."""
         log.exception("engine %s decode iteration failed", self.name)
         err = RuntimeError(f"engine {self.name} decode step failed: {exc!r}")
         err.__cause__ = exc
@@ -1076,6 +1412,7 @@ class DecodeEngine:
                 if not self._queue or not self._can_admit(self._queue[0]):
                     break
                 req = self._queue.popleft()
+                self._admitting += 1
                 self._queue_depth_g.set(len(self._queue), model=self.name)
             try:
                 self._admit(i, req)
@@ -1084,12 +1421,19 @@ class DecodeEngine:
                 req.future.fail(e)
                 self._release_slot_pages(i)
                 continue
+            finally:
+                # resident or failed: drain's idle check sees it again
+                with self._cv:
+                    self._admitting -= 1
             if self._done(self._slots[i]):
                 # one-token request (or instant EOS): never steps
                 self._finish(i)
         active = [i for i, s in enumerate(self._slots) if s is not None]
         self._occupancy_g.set(len(active) / self.num_slots, model=self.name)
         if not active:
+            return
+        if self.num_draft_tokens > 0:
+            self._iterate_spec(active)
             return
         for i in active:  # host-only page mapping
             self._ensure_pages(i, int(self._cur_np[i]) + 1)
@@ -1113,3 +1457,69 @@ class DecodeEngine:
             self._tok_np[i] = toks[i]
             self._cnt_np[i] += 1
             self._cur_np[i] += 1
+
+    def _iterate_spec(self, active: List[int]) -> None:
+        """One draft-and-verify iteration: K+1 draft steps propose K
+        tokens a slot, one verify forward over all slots × (K+1) keeps
+        each slot's longest accepted prefix plus one replacement. Cursors
+        are host state, so the rejected tail's rollback is arithmetic
+        here, and the pages the overhang claimed go straight back to the
+        pool (`_free_tail_pages`). Emits 1..K+1 tokens per active slot; a
+        slot that reaches max_new_tokens or EOS inside the window keeps
+        only the prefix it asked for."""
+        kk = self.num_draft_tokens
+        for i in active:  # host-only page mapping
+            self._ensure_pages(i, int(self._cur_np[i]) + kk + 1)
+        t0 = time.monotonic()
+        tokens = self._to_dev(self._tok_np)
+        pt, curs = self._to_dev(self._pt_np), self._to_dev(self._cur_np)
+        knobs = (self._seed_np, self._cnt_np, self._temp_np, self._topk_np,
+                 self._topp_np)
+        proposals, qs = self.programs.draft(
+            self._draft_pool, tokens, pt, curs, *knobs
+        )
+        window = torch.cat([tokens[:, None], proposals], dim=1)
+        out_tok, out_len = self.programs.verify(
+            self._pool, window, qs, pt, curs, *knobs
+        )
+        out_tok, out_len = out_tok.cpu().numpy(), out_len.cpu().numpy()
+        elapsed = time.monotonic() - t0
+        self._cnt_np += kk + 1  # the window used K+1 draw positions
+        emitted = accepted = freed = 0
+        for i in active:
+            slot = self._slots[i]
+            req = slot.req
+            budget = req.max_new - len(slot.tokens)
+            toks = [int(t) for t in out_tok[i, : min(int(out_len[i]), budget)]]
+            if req.eos_id is not None and req.eos_id in toks:
+                toks = toks[: toks.index(req.eos_id) + 1]
+            slot.tokens.extend(toks)
+            self._tok_np[i] = toks[-1]
+            # resident K/V = prompt + emitted - 1: the window wrote K+1
+            # positions, only the kept prefix advances the cursor, the
+            # rest is invisible and overwritten by the next window
+            self._cur_np[i] += len(toks)
+            freed += self._free_tail_pages(i)
+            emitted += len(toks)
+            accepted += int(out_len[i]) - 1
+        proposed = kk * len(active)
+        # the draft walks the pool one query row at a time (K+1 steps);
+        # the verify reads it once at the K+1 window
+        self._note_attn(1)
+        self._note_attn(kk + 1)
+        self._decode_steps_m.inc(model=self.name)
+        self._verify_steps_m.inc(model=self.name)
+        self._tokens_m.inc(emitted, model=self.name)
+        self._draft_proposed_m.inc(proposed, model=self.name)
+        self._draft_accepted_m.inc(accepted, model=self.name)
+        self._accept_rate_h.observe(accepted / proposed, model=self.name)
+        self._pages_in_use_g.set(self._pagepool.in_use, model=self.name)
+        with self._stats_lock:
+            self._steps += 1
+            self._step_seconds += elapsed
+            self._emitted += emitted
+            self._occupied_slot_steps += len(active)
+            self._drafted += proposed
+            self._accepted += accepted
+            self._verifies += 1
+            self._rewind_pages_returned += freed

@@ -8,6 +8,9 @@ CUDA kernels on CUDA tensors (the counterpart of the JAX package's
 `pallas`) and through their plain version on CPU tensors.
 `KFT_SERVING_QUANTIZE` takes `none | int8`: int8 weights and int8 KV
 pages (the engine), or int8 weights on the static path (num_slots=0).
+`KFT_SERVING_DRAFT_MODEL` + `KFT_SERVING_DRAFT_TOKENS` turn on
+speculative decoding (a registry draft model, K tokens drafted per
+verify step). SIGTERM drains the engines before the process exits.
 
     python -m kubeflow_tpu_torch.serving.main --model gpt_small --port 8500
 """
@@ -42,7 +45,11 @@ def engine_knobs_from_env() -> dict:
     """KFT_SERVING_NUM_SLOTS (0 disables the engine), _MAX_QUEUE,
     _PREFILL_BUCKETS (comma-separated powers of two; empty = auto),
     _PAGE_SIZE, _NUM_PAGES (0 = auto), _PREFIX_CACHE (0 = off),
-    _PAGED_ATTENTION (gather | kernel) and _QUANTIZE (none | int8)."""
+    _PAGED_ATTENTION (gather | kernel), _QUANTIZE (none | int8),
+    _DRAFT_MODEL + _DRAFT_TOKENS (speculative decoding: registry draft
+    model and tokens drafted per verify step; 0 disables) and
+    _DRAFT_CHECKPOINT_DIR (not ported: build_server raises when it
+    would read it, at K > 0 without draft params)."""
     buckets_raw = os.environ.get("KFT_SERVING_PREFILL_BUCKETS", "")
     buckets = [int(b) for b in buckets_raw.split(",") if b.strip()]
     prefix_raw = os.environ.get("KFT_SERVING_PREFIX_CACHE", "").strip()
@@ -61,6 +68,11 @@ def engine_knobs_from_env() -> dict:
             os.environ.get("KFT_SERVING_QUANTIZE", "").strip()
             or DEFAULT_QUANTIZE
         ),
+        "draft_model": os.environ.get("KFT_SERVING_DRAFT_MODEL", "").strip(),
+        "num_draft_tokens": _env_int("KFT_SERVING_DRAFT_TOKENS", 0),
+        "draft_checkpoint_dir": os.environ.get(
+            "KFT_SERVING_DRAFT_CHECKPOINT_DIR", ""
+        ).strip(),
     }
 
 
@@ -78,9 +90,21 @@ def build_server(
     prefix_cache: Optional[bool] = None,
     paged_attention: Optional[str] = None,
     quantize: Optional[str] = None,
+    draft_model: Optional[str] = None,
+    num_draft_tokens: Optional[int] = None,
+    draft_params: Optional[Mapping[str, torch.Tensor]] = None,
+    draft_checkpoint_dir: Optional[str] = None,
 ):
     """Assemble the ModelServer for one registry model: the ServedLm
     plus (num_slots > 0) its continuous-batching DecodeEngine.
+
+    `num_draft_tokens` K > 0 drafts with the registry model
+    `draft_model`, built on the same device in the same dtype, with
+    `draft_params` (a state dict) or, without them, its seed-0 init (a
+    note says so: output stays right, acceptance is noise until trained
+    draft weights come). Loading them from `draft_checkpoint_dir` is not
+    ported yet (ROADMAP A12) and raises, where the reference would read
+    it: K > 0 and no `draft_params`.
 
     `quantize="int8"` with the engine on serves int8 weights and int8 KV
     pages through the engine while the ServedLm stays full width; with
@@ -111,6 +135,28 @@ def build_server(
         paged_attention = env["paged_attention"]
     if quantize is None:
         quantize = env["quantize"]
+    if draft_model is None:
+        draft_model = env["draft_model"]
+    if num_draft_tokens is None:
+        num_draft_tokens = env["num_draft_tokens"]
+    if draft_checkpoint_dir is None:
+        draft_checkpoint_dir = env["draft_checkpoint_dir"]
+    if num_draft_tokens > 0 and not draft_model:
+        raise ValueError(
+            "num_draft_tokens > 0 needs a draft model "
+            "(--draft-model / KFT_SERVING_DRAFT_MODEL)"
+        )
+    if num_draft_tokens > 0 and num_slots < 1:
+        raise ValueError(
+            "num_draft_tokens > 0 needs num_slots >= 1: speculation lives "
+            "inside the decode engine, and num_slots=0 disables it"
+        )
+    if num_draft_tokens > 0 and draft_params is None and draft_checkpoint_dir:
+        raise ValueError(
+            "draft params from a checkpoint (KFT_SERVING_DRAFT_CHECKPOINT_DIR"
+            ") are not ported yet (ROADMAP A12: checkpointing/manager.py); "
+            "pass draft_params"
+        )
     if quantize not in QUANTIZE_CHOICES:
         raise ValueError(
             f"quantize {quantize!r} must be one of {QUANTIZE_CHOICES}"
@@ -136,6 +182,16 @@ def build_server(
                   quantize=quantize if num_slots < 1 else "none")
     server.add_lm(lm)
     if num_slots > 0:
+        draft = None
+        if num_draft_tokens > 0:
+            draft = get_model(draft_model, **kwargs)
+            if draft_params is not None:
+                draft.load_state_dict(draft_params, strict=True)
+            else:
+                print(f"note: draft model {draft_model} initialized from "
+                      "seed 0 (no draft params given); output stays "
+                      "correct, accept rate will be noise until trained "
+                      "draft params are provided", flush=True)
         server.add_engine(
             DecodeEngine(
                 lm.name, lm_model, device=dev,
@@ -143,7 +199,8 @@ def build_server(
                 prefill_buckets=prefill_buckets,
                 page_size=page_size or None, num_pages=num_pages or None,
                 prefix_cache=prefix_cache, paged_attention=paged_attention,
-                quantize=quantize,
+                quantize=quantize, draft_model=draft,
+                num_draft_tokens=num_draft_tokens,
             )
         )
     return server
@@ -165,6 +222,12 @@ def main(argv=None) -> int:
                     default=None)
     ap.add_argument("--quantize", choices=QUANTIZE_CHOICES, default=None,
                     help="int8: int8 weights and int8 KV pages")
+    ap.add_argument("--draft-model", default=None,
+                    help="registry draft model for speculative decoding "
+                    "(default from KFT_SERVING_DRAFT_MODEL; empty disables)")
+    ap.add_argument("--draft-tokens", type=int, default=None,
+                    help="tokens drafted per verify step (default from "
+                    "KFT_SERVING_DRAFT_TOKENS, else 0)")
     args = ap.parse_args(argv)
 
     import signal
@@ -187,6 +250,7 @@ def main(argv=None) -> int:
             None if args.prefix_cache is None else bool(args.prefix_cache)
         ),
         paged_attention=args.paged_attention, quantize=args.quantize,
+        draft_model=args.draft_model, num_draft_tokens=args.draft_tokens,
     )
     httpd = Server(server.app, host=args.host, port=args.port)
     print(f"serving {args.model} on :{httpd.port}", flush=True)
@@ -196,11 +260,15 @@ def main(argv=None) -> int:
     try:
         while not stop.wait(1.0):
             pass
+        # scale-down: finish every accepted request, 429 + Retry-After
+        # for new ones, before the process exits
+        print("SIGTERM: draining engines", flush=True)
+        drained = server.close(drain=True)
+        print(f"drain {'complete' if drained else 'TIMED OUT'}", flush=True)
     except KeyboardInterrupt:
-        pass
+        server.close()
     finally:
         httpd.stop()
-        server.close()
     return 0
 
 

@@ -1,6 +1,6 @@
 """Sampling for every serving decode path (port of
 kubeflow_tpu/serving/sampling.py: `sample_logits`, `slot_filtered_logits`,
-`sample_slots`).
+`sample_slots`, `speculative_accept`).
 
 Composition contract (all paths): temperature scales first, top-k keeps
 the k highest scaled logits, and the top-p nucleus is a prefix of the
@@ -11,7 +11,12 @@ rows draw from a torch.Generator: JAX's threefry stream cannot be
 reproduced, so sampled output is held by its own determinism and its
 support, never against JAX's bits. In the engine, token n of a request
 is drawn with a generator seeded from (request seed, n), so a request's
-stream does not depend on admission timing or slot placement.
+stream does not depend on admission timing or slot placement. A
+speculative iteration draws at positions n..n+K on three more streams,
+one per salt (the draft's proposal, the accept test, the correction),
+as the JAX engine folds `fold_in(fold_in(key, n + j), salt)`: the draws
+at one position are independent, and no draw is reused across
+iterations.
 """
 
 from __future__ import annotations
@@ -21,6 +26,11 @@ from typing import Optional, Sequence
 import torch
 
 _NEG_INF = float("-inf")
+
+# the speculative positions' stream salts (salt 0 is the one-token
+# step's stream): the draft's proposal, the accept uniform, and the
+# correction or bonus token
+SALT_DRAFT, SALT_ACCEPT, SALT_CORRECT = 1, 2, 3
 
 
 def sample_logits(
@@ -78,9 +88,36 @@ def slot_filtered_logits(logits, temps, top_ks, top_ps):
     return torch.where(keep, scaled, _NEG_INF)
 
 
-def draw_seed(seed: int, counter: int) -> int:
-    """The generator seed of draw `counter` of a request seeded `seed`."""
-    return (int(seed) * 0x9E3779B1 + int(counter)) % (1 << 63)
+def draw_seed(seed: int, counter: int, salt: int = 0) -> int:
+    """The generator seed of draw `counter` on stream `salt` of a request
+    seeded `seed` (salt 0: the one-token step's stream)."""
+    return ((int(seed) * 0x9E3779B1 + int(counter))
+            ^ (int(salt) * 0xBF58476D1CE4E5B9)) % (1 << 63)
+
+
+def draw_generator(device, seed: int, counter: int,
+                   salt: int = 0) -> torch.Generator:
+    """A generator on `device` at draw (seed, counter, salt)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(draw_seed(seed, counter, salt))
+    return gen
+
+
+def slot_probs(logits, temps, top_ks, top_ps) -> torch.Tensor:
+    """[R, V] logits of sampled rows → their sampling distributions (the
+    softmax of `slot_filtered_logits`); knobs are per-row sequences."""
+    dev = logits.device
+    return torch.softmax(slot_filtered_logits(
+        logits.float(),
+        torch.as_tensor([float(t) for t in temps], device=dev),
+        torch.as_tensor([int(k) for k in top_ks], device=dev),
+        torch.as_tensor([float(p) for p in top_ps], device=dev),
+    ), dim=-1)
+
+
+def sampled_rows(temps) -> list:
+    """Indices of the rows that sample (temperature > 0)."""
+    return [i for i, t in enumerate(temps) if float(t) > 0.0]
 
 
 def sample_slots(
@@ -90,28 +127,50 @@ def sample_slots(
     temps: Sequence[float],
     top_ks: Sequence[int],
     top_ps: Sequence[float],
-) -> torch.Tensor:
+    salt: int = 0,
+    with_probs: bool = False,
+):
     """[S, V] logits → [S] int64 tokens with PER-SLOT sampling knobs
     (host sequences: the engine keeps them in numpy). temps <= 0 rows are
     the greedy f32 argmax; sampled row s draws from the filtered
-    distribution with a generator seeded `draw_seed(seeds[s],
-    counters[s])`. While no slot samples, only the argmax runs."""
+    distribution with the generator at `draw_seed(seeds[s], counters[s],
+    salt)`. While no slot samples, only the argmax runs.
+
+    `with_probs` also returns the sampled rows' distributions ([R, V] in
+    `sampled_rows(temps)` order, None when no row samples): the draft's
+    q of a speculative iteration."""
     logits = logits.float()
     out = logits.argmax(dim=-1)
-    sampled = [i for i, t in enumerate(temps) if float(t) > 0.0]
-    if not sampled:
-        return out
-    dev = logits.device
-    rows = torch.as_tensor(sampled, device=dev)
-    filtered = slot_filtered_logits(
-        logits[rows],
-        torch.as_tensor([float(temps[i]) for i in sampled], device=dev),
-        torch.as_tensor([int(top_ks[i]) for i in sampled], device=dev),
-        torch.as_tensor([float(top_ps[i]) for i in sampled], device=dev),
-    )
-    probs = torch.softmax(filtered, dim=-1)
-    for j, i in enumerate(sampled):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(draw_seed(seeds[i], counters[i]))
-        out[i] = torch.multinomial(probs[j], 1, generator=gen)[0]
-    return out
+    sampled = sampled_rows(temps)
+    probs = None
+    if sampled:
+        dev = logits.device
+        probs = slot_probs(
+            logits[torch.as_tensor(sampled, device=dev)],
+            [temps[i] for i in sampled], [top_ks[i] for i in sampled],
+            [top_ps[i] for i in sampled],
+        )
+        for j, i in enumerate(sampled):
+            gen = draw_generator(dev, seeds[i], counters[i], salt)
+            out[i] = torch.multinomial(probs[j], 1, generator=gen)[0]
+    return (out, probs) if with_probs else out
+
+
+def speculative_accept(p, q, drafted, uniforms):
+    """The Leviathan/Chen rejection-sampling acceptance rule over slots
+    and draft positions (port of the JAX function).
+
+    p [S, K, V] target and q [S, K, V] draft sampling distributions at
+    each position, drafted [S, K] proposals, uniforms [S, K] one U[0, 1)
+    draw each. Returns (accept [S, K] bool, residual [S, K, V]): position
+    j is accepted iff u·q(d) < p(d); on the first rejection the caller
+    resamples from residual = normalize(max(p − q, 0)). A row whose
+    residual is all zero (p == q) falls back to p."""
+    idx = drafted.long()[..., None]
+    p_d = torch.gather(p, -1, idx)[..., 0]
+    q_d = torch.gather(q, -1, idx)[..., 0]
+    accept = uniforms * q_d < p_d
+    residual = torch.clamp_min(p - q, 0.0)
+    total = residual.sum(dim=-1, keepdim=True)
+    residual = torch.where(total > 0.0, residual / total, p)
+    return accept, residual

@@ -5,12 +5,19 @@ Routes: `POST /v1/models/<name>:generate` (through the DecodeEngine when
 one is attached, else the static ServedLm path), `GET /v1/models` and
 `GET /v1/models/<name>` (model discovery, as the kft-router forwards
 them), `GET /healthz` and `GET /metrics` (Prometheus text). The bodies
-are the reference server's; this server never drains (`"draining":
-false`).
+are the reference server's.
+
+Draining shutdown: `close(drain=True)` drains every engine at once under
+one deadline. While the server or any engine drains, `/healthz` answers
+503 with `"draining": true` (readiness probes and the router tell
+draining from dead), and `:generate` through a draining engine answers
+429 with Retry-After; every request already accepted completes.
 """
 
 from __future__ import annotations
 
+import math
+import threading
 import time
 from typing import Any, Dict, List
 
@@ -23,8 +30,18 @@ from kubeflow_tpu_torch.api.wsgi import (
     NotFoundError,
     Response,
 )
-from kubeflow_tpu_torch.serving.engine import QueueFullError
+from kubeflow_tpu_torch.serving.engine import (
+    EngineDrainingError,
+    QueueFullError,
+)
+from kubeflow_tpu_torch.utils.logging import get_logger
 from kubeflow_tpu_torch.utils.metrics import default_registry
+
+log = get_logger(__name__)
+
+# the drain budget close(drain=True) gives the engines by default (the
+# reference's DEFAULT_DRAIN_DEADLINE_S)
+DEFAULT_DRAIN_DEADLINE_S = 30.0
 
 
 class ModelServer:
@@ -37,6 +54,9 @@ class ModelServer:
     def __init__(self) -> None:
         self._lms: Dict[str, Any] = {}      # ServedLm (serving/generate.py)
         self._engines: Dict[str, Any] = {}  # DecodeEngine (serving/engine.py)
+        # set as close(drain=True) starts, so /healthz reports the drain
+        # from its first moment
+        self._draining = False
         self.app = self._build()
 
     def add_lm(self, lm) -> None:
@@ -54,9 +74,42 @@ class ModelServer:
     def engine(self, name: str):
         return self._engines[name]
 
-    def close(self) -> None:
-        for engine in self._engines.values():
-            engine.close()
+    def close(self, drain: bool = False,
+              drain_deadline_s: float = DEFAULT_DRAIN_DEADLINE_S) -> bool:
+        """Stop the engines' scheduler threads (the shutdown hook).
+
+        `drain=True` is the scale-down/SIGTERM path: every engine stops
+        admitting (new `:generate` requests get 429 + Retry-After) while
+        everything already accepted runs to completion; what is still
+        live at the deadline fails fast. Engines drain concurrently, so
+        the whole shutdown is bounded by one deadline. Returns True when
+        every engine drained in time (always True without `drain`)."""
+        if not drain:
+            for engine in self._engines.values():
+                engine.close()
+            return True
+        self._draining = True
+        results: Dict[str, bool] = {}
+
+        def drain_one(name: str, engine) -> None:
+            try:
+                results[name] = engine.drain(drain_deadline_s)
+            except Exception:
+                # a drain that raised before its own close() would leave
+                # the scheduler running and every accepted future hung
+                log.exception("engine %s drain failed; closing", name)
+                engine.close()
+
+        workers = [
+            threading.Thread(target=drain_one, args=(name, engine),
+                             name=f"drain-{name}", daemon=True)
+            for name, engine in self._engines.items()
+        ]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join()
+        return all(results.get(name, False) for name in self._engines)
 
     def _generate_via_engine(self, engine, req, body, n: int):
         """One engine request per prompt row (row i seeded `seed + i`),
@@ -91,6 +144,13 @@ class ModelServer:
                 eos_id=eos_id,
                 seed=body.get("seed", 0),
             )
+        except EngineDrainingError as e:
+            # same 429 as queue-full, plus Retry-After: through the
+            # Service the retry lands on a replica that stays up
+            req.response_headers.append(
+                ("Retry-After", str(max(1, math.ceil(e.retry_after_s))))
+            )
+            raise HttpError(429, str(e))
         except QueueFullError as e:
             raise HttpError(429, str(e))
         except (ValueError, TypeError) as e:
@@ -115,8 +175,15 @@ class ModelServer:
 
         @app.get("/healthz")
         def healthz(req):
+            """{"ok", "draining", "models"}; 503 while the server or any
+            engine drains, so readiness drops a draining replica that
+            still answers (a dead one answers nothing)."""
             names = sorted(set(self._lms) | set(self._engines))
-            return {"ok": True, "draining": False, "models": names}
+            draining = self._draining or any(
+                e.draining for e in self._engines.values()
+            )
+            body = {"ok": True, "draining": draining, "models": names}
+            return (body, 503) if draining else body
 
         @app.get("/v1/models")
         def list_models(req):

@@ -234,3 +234,74 @@ def test_int8_pool_holds_more_pages_in_no_more_bytes(tiny):
         resolve_num_pages(0, 4, tmodel.cfg, 16, mesh_tensor=2)
     with pytest.raises(ValueError, match="quantize"):
         _engine(tmodel, "kernel", quantize="int4")
+
+
+# -- draining shutdown -----------------------------------------------------------
+
+
+def _drain_rows():
+    return [(np.arange(n) * (3 + 2 * i) + i + 1) % 512
+            for i, n in enumerate((4, 5, 6))]
+
+
+@pytest.mark.parametrize("k", [0, 3], ids=["k0", "drafted"])
+def test_drain_completes_in_flight_and_queued_and_rejects_new(tiny, k):
+    """Three requests through two slots (one still queued when drain
+    starts): new submits get EngineDrainingError at once, every accepted
+    request completes with generate()'s tokens, drafted ones too, and the
+    drain's duration lands in serving_drain_seconds."""
+    import threading
+    import time
+
+    from kubeflow_tpu_torch.serving.engine import EngineDrainingError
+    from kubeflow_tpu_torch.utils.metrics import default_registry
+
+    tmodel = tiny[2]
+    name = f"dr-{k}"
+    eng = DecodeEngine(name, tmodel, device="cpu", num_slots=2, page_size=8,
+                       paged_attention="kernel", max_queue=8,
+                       draft_model=tmodel, num_draft_tokens=k)
+    rows, n_new = _drain_rows(), [8, 9, 7]
+    futures = [eng.submit(r, n) for r, n in zip(rows, n_new)]
+    drained = []
+    t = threading.Thread(target=lambda: drained.append(eng.drain(60)))
+    t.start()
+    try:
+        deadline = time.monotonic() + 10
+        while not eng.draining:
+            assert time.monotonic() < deadline
+        with pytest.raises(EngineDrainingError) as err:
+            eng.submit(rows[0], 2)
+        assert err.value.retry_after_s >= 1.0
+    finally:
+        t.join(timeout=120)
+    assert drained == [True]
+    for r, n, f in zip(rows, n_new, futures):
+        want = generate(tmodel, r[None], n)[0, len(r):].tolist()
+        assert f.wait(5)["tokens"] == want
+    assert (f'serving_drain_seconds_count{{model="{name}"}} 1'
+            in default_registry().render())
+    if k:
+        assert eng.stats()["verify_steps"] > 0
+
+
+def test_drained_closed_engine_still_answers_draining(tiny):
+    """drain() ends in close(); a drained engine keeps refusing with
+    EngineDrainingError (429 + Retry-After), not a bare error."""
+    from kubeflow_tpu_torch.serving.engine import EngineDrainingError
+
+    eng = DecodeEngine("drc", tiny[2], device="cpu", num_slots=1)
+    assert eng.drain(deadline_s=5) is True  # idle: drains, then closes
+    assert eng.draining
+    with pytest.raises(EngineDrainingError):
+        eng.submit([1, 2, 3], 2)
+
+
+def test_drain_deadline_fails_stragglers_fast(tiny):
+    """deadline 0: the drain cannot wait, so close() fails the resident
+    request at once (failed fast, never hung)."""
+    eng = DecodeEngine("dr0", tiny[2], device="cpu", num_slots=1)
+    fut = eng.submit(np.arange(4), 100)
+    assert eng.drain(deadline_s=0.0) is False
+    with pytest.raises(RuntimeError, match="closed|failed"):
+        fut.wait(10)

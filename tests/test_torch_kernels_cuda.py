@@ -425,6 +425,69 @@ def test_int8_engine_through_the_kernels_equals_gather(cuda):
     assert not any(launches["gather"].values())
 
 
+# speculation's reads: the verify window (s = K+1) over 8 slots at
+# gpt_small's geometry (12 heads x 64, page 16, max_len 1024): cursor 0,
+# windows that cross a page (14, 15, 1019), one at max_len - 2 whose last
+# rows lie past the window, a parked slot, mid-view rows
+VERIFY_CURSORS = (0, 14, 15, 300, 1019, DECODE_MAX_LEN - 2, DECODE_MAX_LEN, 517)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_window_kernel_at_the_verify_windows(cuda, kind, k):
+    """Every row against the plain version: rows past max_len see the
+    whole view in both (their outputs are never emitted), the parked
+    slot is zeros."""
+    args, kw = _decode_case(cuda, kind, VERIFY_CURSORS, 16, h=12, s=k + 1)
+    got = _check_decode(args, kw)
+    assert not got[VERIFY_CURSORS.index(DECODE_MAX_LEN)].any()
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_decode_kernel_on_a_small_drafts_pool(cuda, kind):
+    """The draft steps of a gpt_tiny-wide draft (4 heads x 16) at 8 slots,
+    ragged cursors and a parked slot."""
+    args, kw = _decode_case(cuda, kind, VERIFY_CURSORS, 16, h=4, d=16)
+    got = _check_decode(args, kw)
+    assert not got[VERIFY_CURSORS.index(DECODE_MAX_LEN)].any()
+
+
+@pytest.mark.parametrize("draft", ["identical", "rolled"])
+def test_drafted_engine_through_the_kernels_equals_generate(cuda, draft):
+    """K = 3 through the kernels, f32: tokens equal `generate()` for a
+    draft with the target's weights (accepts everything) and one with a
+    rolled head (accepts nothing); every one-token read is a draft step
+    and every window read a verify or a chunk window of either model."""
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.generate import generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = get_model("gpt_tiny", dtype=torch.float32, device=cuda, seed=1)
+    d = model if draft == "identical" else smoke.rolled_draft(torch, model)
+    rng = np.random.default_rng(0)
+    rows = [rng.integers(0, 512, n) for n in (4, 7, 40)]
+    tpa.reset_launch_counts()
+    eng = DecodeEngine("tiny", model, device=cuda, num_slots=2, page_size=8,
+                       paged_attention="kernel", prefill_buckets=(8, 16),
+                       draft_model=d, num_draft_tokens=3)
+    try:
+        got = [f.wait(120)["tokens"]
+               for f in [eng.submit(r, 8) for r in rows]]
+        stats = eng.stats()
+    finally:
+        eng.close()
+    for r, toks in zip(rows, got):
+        assert toks == generate(model, r[None], 8)[0, len(r):].tolist()
+    assert stats["accept_rate"] == (1.0 if draft == "identical" else 0.0)
+    layers = model.cfg.num_layers
+    # the 40-token prompt: one chunk window of 64 on each model
+    assert tpa.launch_counts["paged_decode"] == stats["verify_steps"] * 4 * layers
+    assert tpa.launch_counts["paged_window"] == (stats["verify_steps"] + 2) * layers
+    assert stats["pages_in_use"] == stats["prefix_index_pages"]
+
+
 DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16"}
 
 

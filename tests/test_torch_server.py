@@ -146,6 +146,7 @@ def test_engine_knobs_from_env(monkeypatch):
         "num_slots": 3, "max_queue": 64, "prefill_buckets": [8, 32],
         "page_size": 8, "num_pages": 0, "prefix_cache": False,
         "paged_attention": "kernel", "quantize": "none",
+        "draft_model": "", "num_draft_tokens": 0, "draft_checkpoint_dir": "",
     }
     ms = build_server("gpt_tiny", device="cpu", dtype=torch.float32)
     try:
@@ -315,3 +316,87 @@ def test_chip_smoke_int8_serve_phase_rehearses_on_cpu():
     assert 0 < steps < stats["decode_steps"]
     assert stats["kv_pool_dtype"] == "int8" and stats["cow_copies"] == 1
     assert stats["paged_attention_windows"] == {1: "kernel", 64: "kernel"}
+
+
+# -- draining shutdown -----------------------------------------------------------
+
+
+def _tiny_model():
+    from kubeflow_tpu_torch.models import get_model
+
+    return get_model("gpt_tiny", dtype=torch.float32, device="cpu")
+
+
+def test_rest_429_with_retry_after_and_healthz_503_while_draining():
+    """While an engine drains, :generate answers 429 with Retry-After and
+    /healthz 503 with "draining": true; the resident request completes."""
+    ms = build_server("gpt_tiny", device="cpu", dtype=torch.float32,
+                      num_slots=1, page_size=8, paged_attention="kernel")
+    eng = ms.engine("gpt_tiny")
+    prompt = (np.arange(5) % 512).tolist()
+    resident = eng.submit(prompt, 40)
+    # flip the admission gate as drain() does (deterministic 429 window)
+    with eng._cv:
+        eng._draining = True
+    try:
+        status, body, headers = ms.app.handle_full(
+            "POST", "/v1/models/gpt_tiny:generate",
+            body={"prompt_ids": [prompt], "max_new_tokens": 4},
+        )
+        assert status == 429 and "draining" in body["log"]
+        assert int(dict(headers)["Retry-After"]) >= 1
+        status, body, _ = ms.app.handle_full("GET", "/healthz")
+        assert (status, body) == (503, {"ok": True, "draining": True,
+                                        "models": ["gpt_tiny"]})
+    finally:
+        assert ms.close(drain=True, drain_deadline_s=60) is True
+    assert len(resident.wait(5)["tokens"]) == 40
+
+
+@pytest.mark.parametrize("n_engines", [1, 2])
+def test_close_drain_finishes_every_engine(n_engines):
+    """close(drain=True): idle engines drain at once; with requests
+    resident on several engines, all drain concurrently and every
+    accepted request completes. /healthz answers 503 from the start."""
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    model = _tiny_model()
+    server = ModelServer()
+    engines = [DecodeEngine(f"e{i}", model, device="cpu", num_slots=1,
+                            page_size=8) for i in range(n_engines)]
+    for eng in engines:
+        server.add_engine(eng)
+    assert server.close(drain=True, drain_deadline_s=5.0) is True  # idle
+    assert server.app.handle_full("GET", "/healthz")[0] == 503
+    server = ModelServer()
+    engines = [DecodeEngine(f"f{i}", model, device="cpu", num_slots=1,
+                            page_size=8) for i in range(n_engines)]
+    for eng in engines:
+        server.add_engine(eng)
+    futures = [eng.submit(np.arange(4) % 512, 10) for eng in engines]
+    assert server.close(drain=True, drain_deadline_s=120.0) is True
+    for f in futures:
+        assert len(f.wait(5)["tokens"]) == 10
+
+
+def test_drain_exception_still_closes_engine():
+    """An engine whose drain() raises is still closed by the server: the
+    result is False and the resident request fails fast."""
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.serving.server import ModelServer
+
+    server = ModelServer()
+    eng = DecodeEngine("boom", _tiny_model(), device="cpu", num_slots=1,
+                       page_size=8)
+    server.add_engine(eng)
+    fut = eng.submit(np.arange(4) % 512, 100)
+
+    def broken_drain(deadline_s):
+        raise RuntimeError("drain bug")
+
+    eng.drain = broken_drain
+    assert server.close(drain=True, drain_deadline_s=60) is False
+    assert not eng._thread.is_alive()
+    with pytest.raises(RuntimeError, match="closed"):
+        fut.wait(10)
