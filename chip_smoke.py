@@ -95,6 +95,28 @@ Phases (any failure raises and the script exits non-zero):
    rewinds, no page leaked. Printed, not gated: each engine's accept
    rate, wall time per verify iteration and tokens per iteration, beside
    phase 5's K = 0 step time and tokens/s from the same call.
+12. Checkpoints: train, preempt, resume, serve (gpt_small at full width).
+   12a, bf16 through the flash kernels: `run_training` of CKPT_TRAIN_CFG
+   (phase 7's seq 1024 and batch 2, AdamW as phase 8) for 4 steps with a
+   save every 2; a second run in a fresh directory preempted during step
+   2 (it must commit step 2); `run_training(restore=True)` runs steps
+   3-4. The resumed run's losses and its step-4 checkpoint (params,
+   AdamW moments, counts: every shard file) must equal the uninterrupted
+   run's, bit for bit; flash launches equal 8 updates x 12 layers each.
+   Printed with the card's name and power limit:
+   checkpoint_blocked_seconds, checkpoint_save_seconds (means), the bytes
+   written and the resume's restore seconds. 12b, `build_server(...,
+   checkpoint_dir=<12a's>)`: f32, the served weights are the trainer's
+   step-4 params bit for bit and phase 4's requests equal `generate()`;
+   f32 with K = SPEC_K and the draft from the same checkpoint, tokens
+   equal `generate()` and accept at least ACCEPT_SAME; bf16 with K =
+   SPEC_K and `draft_checkpoint_dir` (no draft params), phase 5's traffic
+   under 11b's gates, its accept rate printed beside 11b's; int8, the
+   restored envelope is the port's quantize of the trainer's params bit
+   for bit, and phase 10's f32 token check holds (buckets up to 32, so
+   the int8 window kernel runs). The kernels line gives each row's
+   `checkpoint_launches` (12a for the flash rows, 12b for the paged
+   ones); a row at 0 fails.
 
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
@@ -109,6 +131,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -163,7 +186,7 @@ TRAIN_CFG = dict(
     model="gpt_small", seq_len=4096, global_batch_size=8, accum_steps=4,
     remat=True, loss_chunk=4096, assume_full_attention=True,
     learning_rate=3e-4, warmup_steps=2, weight_decay=0.1, steps=6,
-    dtype="bfloat16", attention_impl="flash",
+    dtype="bfloat16", attention_impl="flash", checkpoint={"enabled": False},
 )
 # phase 6's kernel shapes: one microbatch of TRAIN_CFG, gpt_small heads
 FB, FH, FD, FS = 2, 12, 64, 4096
@@ -221,6 +244,18 @@ SMALL_D = SMALL_DRAFT["hidden_size"] // SMALL_H
 # share of its proposals (one-token steps and the K+1 verify window differ
 # only in summation order)
 ACCEPT_SAME = 0.99
+# phase 12: gpt_small at phase 7's seq 1024 and global batch 2, AdamW as
+# phase 8, saved every CKPT_INTERVAL steps; the second run is preempted
+# during step CKPT_PREEMPT and resumed to the budget
+CKPT_TRAIN_CFG = dict(
+    model="gpt_small", seq_len=1024, global_batch_size=2, steps=4,
+    learning_rate=3e-4, warmup_steps=2, weight_decay=0.1, dtype="bfloat16",
+    attention_impl="flash",
+)
+CKPT_INTERVAL, CKPT_PREEMPT = 2, 2
+# 12b's int8 serve: phase 4's prompts with buckets up to 32, so the
+# 37-token prompt's tail is a chunk window (the int8 window kernel)
+CKPT_INT8_BUCKETS = (8, 16, 32)
 
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
@@ -533,11 +568,15 @@ def serve(model, dtype, device, paged_attention="kernel", **knobs):
 
 
 def phase_serve_f32(torch, model="gpt_small", device="cuda", prompts=None,
-                    max_new=16):
+                    max_new=16, **knobs):
+    """Phase 4 (12b's f32 serve with `checkpoint_dir` in `knobs`): the
+    engine's greedy tokens equal generate()'s. Returns the served model;
+    `pa.launch_counts` then hold the requests' launches."""
     from kubeflow_tpu_torch.ops import paged_attention as pa
     from kubeflow_tpu_torch.serving.generate import generate
 
-    ms, httpd = serve(model, torch.float32, device, num_slots=8, page_size=16)
+    ms, httpd = serve(model, torch.float32, device, num_slots=8, page_size=16,
+                      **knobs)
     try:
         rng = np.random.default_rng(1)
         lm = ms.lm(model)
@@ -680,43 +719,27 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         ms.close()
 
 
-def phase_serve_int8(torch, bf16_stats, model="gpt_small", device="cuda",
-                     f32_prompts=(12, 37), f32_max_new=16,
-                     accuracy_shape=(4, 256), **traffic):
-    """Phase 10: int8 serving (int8 weights, int8 KV pages). f32: the
+def int8_f32_tokens(torch, model, device, prompts, max_new, **knobs):
+    """Phase 10's f32 check (12b's with `checkpoint_dir` in `knobs`): the
     same greedy requests through the int8 kernels and through gather +
-    dequant_kv must give the same tokens (phase 4's requests:
-    `f32_prompts`, `f32_max_new`). bf16: phase 5's traffic
-    (`traffic` overrides it, as for phase_serve_bf16), rescored by the f32
-    model of the same int8 weights; the pool must hold the int8 capacity
-    ratio times phase 5's pages (`bf16_stats`) in no more bytes; then the
-    accuracy gate. Returns the bf16 run's (launches, stats, steps)."""
-    from kubeflow_tpu_torch.checkpointing.quantize import (
-        quantization_accuracy,
-        quantize_params_int8,
-    )
-    from kubeflow_tpu_torch.models.gpt import int8_model
-    from kubeflow_tpu_torch.models.registry import get_model
+    dequant_kv give the same tokens. Returns (the full-width f32 model
+    the ServedLm keeps, the kernel run's launches)."""
     from kubeflow_tpu_torch.ops import paged_attention as pa
-    from kubeflow_tpu_torch.serving.engine import (
-        auto_num_pages,
-        int8_page_capacity_ratio,
-    )
 
-    tokens = {}
+    tokens, kernel_launches = {}, {}
     for impl in ("kernel", "gather"):
         ms, httpd = serve(model, torch.float32, device, paged_attention=impl,
-                          num_slots=8, page_size=16, quantize="int8")
+                          num_slots=8, page_size=16, quantize="int8", **knobs)
         try:
             rng = np.random.default_rng(1)
             f32_full = ms.lm(model).model  # the ServedLm stays full width
             eng = ms.engine(model)
             pa.reset_launch_counts()
             tokens[impl] = []
-            for n in f32_prompts:
+            for n in prompts:
                 prompt = rng.integers(0, f32_full.cfg.vocab_size, n).tolist()
                 status, out = post(httpd.port, model, {
-                    "prompt_ids": [prompt], "max_new_tokens": f32_max_new})
+                    "prompt_ids": [prompt], "max_new_tokens": max_new})
                 if status != 200:
                     raise AssertionError(f"int8 f32 :generate answered {status}: {out}")
                 tokens[impl].append(out["sequences"][0][n:])
@@ -736,11 +759,40 @@ def phase_serve_int8(torch, bf16_stats, model="gpt_small", device="cuda",
                      or launches["paged_decode"] + launches["paged_window"])):
             raise AssertionError(f"the int8 f32 serve did not read through the "
                                  f"int8 decode kernel alone: {launches}")
+        if impl == "kernel":
+            kernel_launches = launches
     if tokens["kernel"] != tokens["gather"]:
         raise AssertionError(f"int8 f32 kernel tokens {tokens['kernel']} differ "
                              f"from gather's {tokens['gather']}")
     print("serve int8 f32: kernel tokens equal gather + dequant_kv tokens",
           flush=True)
+    return f32_full, kernel_launches
+
+
+def phase_serve_int8(torch, bf16_stats, model="gpt_small", device="cuda",
+                     f32_prompts=(12, 37), f32_max_new=16,
+                     accuracy_shape=(4, 256), **traffic):
+    """Phase 10: int8 serving (int8 weights, int8 KV pages). f32: the
+    same greedy requests through the int8 kernels and through gather +
+    dequant_kv must give the same tokens (phase 4's requests:
+    `f32_prompts`, `f32_max_new`). bf16: phase 5's traffic
+    (`traffic` overrides it, as for phase_serve_bf16), rescored by the f32
+    model of the same int8 weights; the pool must hold the int8 capacity
+    ratio times phase 5's pages (`bf16_stats`) in no more bytes; then the
+    accuracy gate. Returns the bf16 run's (launches, stats, steps)."""
+    from kubeflow_tpu_torch.checkpointing.quantize import (
+        quantization_accuracy,
+        quantize_params_int8,
+    )
+    from kubeflow_tpu_torch.models.gpt import int8_model
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.engine import (
+        auto_num_pages,
+        int8_page_capacity_ratio,
+    )
+
+    f32_full, _ = int8_f32_tokens(torch, model, device, f32_prompts,
+                                  f32_max_new)
 
     # the f32 model of the int8 weights: dequantized (into f32) at each use
     f32_int8 = int8_model(f32_full)
@@ -1176,16 +1228,19 @@ def spec_traffic(f32_model, short, long_len, hit_len):
 
 def phase_spec_serve(torch, f32_model, k0_stats, model="gpt_small", device="cuda",
                      short=(5, 17, 33, 64, 120), long_len=LONG_LEN,
-                     hit_len=HIT_LEN, max_new=32, buckets=BUCKETS, k=SPEC_K):
+                     hit_len=HIT_LEN, max_new=32, buckets=BUCKETS, k=SPEC_K,
+                     **knobs):
     """11b: the drafted bf16 server (the draft is the registry model's
     seed-0 init, the target's) on phase 5's traffic over REST; phase 5's
-    K = 0 tokens/s and step time (`k0_stats`) are printed beside. Returns
-    the run's launches."""
+    K = 0 tokens/s and step time (`k0_stats`) are printed beside. 12b's
+    with `checkpoint_dir` and `draft_checkpoint_dir` in `knobs`. Returns
+    the run's (launches, spec_summary)."""
     from kubeflow_tpu_torch.ops import paged_attention as pa
 
     os.environ["KFT_SERVING_PREFILL_BUCKETS"] = buckets
     ms, httpd = serve(model, torch.bfloat16, device, num_slots=8, page_size=16,
-                      draft_model=model, num_draft_tokens=k)
+                      draft_model=model, num_draft_tokens=k, **knobs)
+    tag = "spec bf16" + (" (checkpoint)" if knobs else "")
     largest = int(buckets.split(",")[-1])
     try:
         eng = ms.engine(model)
@@ -1226,17 +1281,17 @@ def phase_spec_serve(torch, f32_model, k0_stats, model="gpt_small", device="cuda
                 raise AssertionError(f"expected {max_new} tokens, got {len(tokens)}")
             worst = max(worst, rescore(torch, f32_model, prompt, tokens))
         gen_tokens = max_new * (len(prompts) - 1)
-        print(f"spec bf16 (REST, same-weights draft, K={k}): {len(results)} "
+        print(f"{tag} (REST, same-weights draft, K={k}): {len(results)} "
               f"requests answered 200; {gen_tokens} tokens in {wall:.3f} s of "
               f"concurrent load = {gen_tokens / wall:.1f} tokens/s; "
               f"{json.dumps(run_stats)}; K = 0 (phase 5, this call): "
               f"{k0_stats['load_tokens_per_s']:.1f} tokens/s, decode_step_ms "
               f"{k0_stats['load_decode_step_ms']:.3f}", flush=True)
-        print(f"spec bf16: stats {json.dumps(stats)}", flush=True)
-        print(f"spec bf16: worst f32 logit gap of an emitted token {worst:.4f} "
+        print(f"{tag}: stats {json.dumps(stats)}", flush=True)
+        print(f"{tag}: worst f32 logit gap of an emitted token {worst:.4f} "
               f"(delta {DELTA})", flush=True)
         layers = f32_model.cfg.num_layers
-        check_spec_launches("spec bf16", launches, run_stats, device,
+        check_spec_launches(tag, launches, run_stats, device,
                             main_windows(long_len, hit_len, largest), layers, layers)
         if not worst <= DELTA:
             raise AssertionError(f"an emitted token is {worst} below its "
@@ -1254,9 +1309,9 @@ def phase_spec_serve(torch, f32_model, k0_stats, model="gpt_small", device="cuda
         if any(st != 200 for st, _ in twice) or twice[0][1] != twice[1][1]:
             raise AssertionError(f"a sampled request sent twice with one seed "
                                  f"differs: {twice}")
-        print(f"spec bf16: a sampled request (temperature 0.8, top_k 50) sent "
+        print(f"{tag}: a sampled request (temperature 0.8, top_k 50) sent "
               f"twice with one seed returned the same {max_new} tokens", flush=True)
-        return launches
+        return launches, run_stats
     finally:
         os.environ.pop("KFT_SERVING_PREFILL_BUCKETS", None)
         httpd.stop()
@@ -1315,6 +1370,247 @@ def phase_spec_small_draft(torch, f32_model, model="gpt_small", device="cuda",
     if stats["pages_in_use"] != stats["prefix_index_pages"]:
         raise AssertionError(f"small-draft serve leaked pages: {stats}")
     return launches
+
+
+class StopAfter:
+    """A stop event read set from its (n+1)-th check on: `Trainer.fit`
+    checks once a step, so it is set during step n+1, deterministically.
+    `set()` (the SIGTERM handler's call) sets it at once."""
+
+    def __init__(self, n):
+        self.calls, self.n = 0, n
+
+    def is_set(self):
+        self.calls += 1
+        return self.calls > self.n
+
+    def set(self):
+        self.n = self.calls
+
+
+def same_step_files(a, b, step):
+    """Whether step `step` of checkpoint dirs `a` and `b` holds the same
+    shard files, byte for byte (the manifests differ in their timestamps
+    only); returns the number of files."""
+    import filecmp
+
+    from kubeflow_tpu_torch.checkpointing import layout
+
+    da, db = layout.step_dir(a, step), layout.step_dir(b, step)
+    files = sorted(f for f in os.listdir(da) if f.endswith(".bin"))
+    if files != sorted(f for f in os.listdir(db) if f.endswith(".bin")):
+        raise AssertionError(f"step {step}: the shard files differ in name")
+    _, mismatch, errors = filecmp.cmpfiles(da, db, files, shallow=False)
+    if mismatch or errors:
+        raise AssertionError(f"step {step}: shard files differ: "
+                             f"{(mismatch + errors)[:6]}")
+    ma, mb = (layout.read_manifest(d)["leaves"] for d in (da, db))
+    if ma != mb:
+        raise AssertionError(f"step {step}: the manifests list other leaves")
+    return len(files)
+
+
+def phase_ckpt_train(torch, root, overrides=None, device="cuda"):
+    """12a: an uninterrupted `run_training` of CKPT_TRAIN_CFG's steps, and
+    a second run in a fresh directory preempted during step CKPT_PREEMPT
+    and resumed (`restore=True`) to the budget, both saving every
+    CKPT_INTERVAL steps. The resumed run's losses and its saved params,
+    moments and counts must equal the uninterrupted run's, bit for bit.
+    Returns (flash launches, the uninterrupted run's trainer, the resumed
+    run's checkpoint dir)."""
+    from kubeflow_tpu_torch.checkpointing import layout
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+    from kubeflow_tpu_torch.utils.metrics import (
+        checkpoint_blocked_histogram,
+        checkpoint_bytes_counter,
+        checkpoint_save_histogram,
+    )
+
+    def cfg(name):
+        return TrainingConfig(
+            **{**CKPT_TRAIN_CFG, **(overrides or {})},
+            checkpoint=dict(directory=os.path.join(root, name),
+                            interval_steps=CKPT_INTERVAL),
+        )
+
+    whole_cfg = cfg("whole")
+    steps = whole_cfg.steps
+    cut_dir = cfg("cut").checkpoint.directory
+    layers = get_model(whole_cfg.model, device="meta", max_len=1).cfg.num_layers
+    blocked, saved = checkpoint_blocked_histogram(), checkpoint_save_histogram()
+    written = checkpoint_bytes_counter()
+    before = (blocked.count(), blocked.sum(), saved.count(), saved.sum(),
+              written.value())
+    # kept: its state after the run is the uninterrupted run's step 4
+    trainer = Trainer(whole_cfg, device=device)
+    # the main path's run: every launch count starts at 0 here
+    fa.reset_launch_counts()
+    by_run = []
+
+    def run(*args, **kw):
+        # each run's saves: (count, blocked seconds, save seconds)
+        b = (blocked.count(), blocked.sum(), saved.sum())
+        result = run_training(*args, device=device, log_every=steps, **kw)
+        by_run.append((blocked.count() - b[0], blocked.sum() - b[1],
+                       saved.sum() - b[2]))
+        return result
+
+    t0 = time.monotonic()
+    whole = run(whole_cfg, trainer=trainer)
+    cut = run(cfg("cut"), stop_event=StopAfter(CKPT_PREEMPT - 1))
+    committed_at_cut = layout.committed_steps(cut_dir)
+    resumed = run(cfg("cut"), restore=True)
+    wall = time.monotonic() - t0
+    launches = dict(fa.launch_counts)
+    n_saves = saved.count() - before[2]
+    stats = {
+        "saves": n_saves,
+        "checkpoint_blocked_seconds_mean": (blocked.sum() - before[1])
+        / max(blocked.count() - before[0], 1),
+        "checkpoint_save_seconds_mean": (saved.sum() - before[3])
+        / max(n_saves, 1),
+        "checkpoint_bytes_total": written.value() - before[4],
+        # (saves, blocked seconds, save seconds) of each run, in order
+        "by_run": by_run,
+    }
+    # the resumed run's restore of the step-CKPT_PREEMPT directory
+    stats["restore_seconds"] = resumed["restore_s"]
+    print(f"ckpt train: uninterrupted losses {whole['losses']}; preempted run "
+          f"{cut['losses']} (preempted {cut['preempted']}, final step "
+          f"{cut['final_step']}, committed {committed_at_cut}); resumed "
+          f"{resumed['losses']}; {wall:.3f} s for the three runs", flush=True)
+    if not cut["preempted"] or cut["final_step"] != CKPT_PREEMPT:
+        raise AssertionError(f"the second run did not stop at step "
+                             f"{CKPT_PREEMPT}: {cut}")
+    if committed_at_cut[-1:] != [CKPT_PREEMPT]:
+        raise AssertionError(f"the preempted run committed {committed_at_cut}")
+    if (resumed["final_step"] != steps
+            or resumed["losses"] != whole["losses"][CKPT_PREEMPT:]
+            or cut["losses"] != whole["losses"][:CKPT_PREEMPT]):
+        raise AssertionError(f"the resumed run's losses differ from the "
+                             f"uninterrupted run's: {resumed['losses']} vs "
+                             f"{whole['losses']}")
+    n_files = same_step_files(whole_cfg.checkpoint.directory, cut_dir, steps)
+    print(f"ckpt train: step {steps} of both runs holds the same {n_files} "
+          f"shard files (params, AdamW moments, counts), byte for byte",
+          flush=True)
+    state_bytes = stats["checkpoint_bytes_total"] / max(n_saves, 1)
+    print(f"ckpt train: {json.dumps(stats)}; {state_bytes:.0f} B a step "
+          f"directory | {smi_line() if device == 'cuda' else device}",
+          flush=True)
+    # three runs of steps: 4 + 2 + 2 updates, each layer's forward and
+    # backward once a step
+    updates = steps + CKPT_PREEMPT + (steps - CKPT_PREEMPT)
+    want = {name: updates * layers for name in launches}
+    print(f"ckpt train: launches {launches} (formula {want})", flush=True)
+    if device == "cuda" and launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    return launches, trainer, cut_dir
+
+
+def phase_ckpt_serve(torch, trainer, ckpt_dir, k0_stats, accept_11b,
+                     model="gpt_small", device="cuda", f32_prompts=(12, 37),
+                     f32_max_new=16, **traffic):
+    """12b: serve 12a's checkpoint. f32: the served weights are the
+    trainer's step-4 params, bit for bit, and phase 4's requests equal
+    generate(); a K = SPEC_K engine whose draft comes from the same
+    checkpoint equals generate() and accepts at least ACCEPT_SAME. bf16,
+    K = SPEC_K, draft from the checkpoint: phase 5's traffic over REST (11b's
+    gates). int8: the restored envelope is the port's quantize of the
+    trainer's params, bit for bit, and phase 10's f32 token check holds.
+    Returns every paged kernel's launches over these runs."""
+    from kubeflow_tpu_torch.checkpointing.quantize import quantize_params_int8
+    from kubeflow_tpu_torch.models.convert import quantized_params_from_jax
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serving.generate import generate
+    from kubeflow_tpu_torch.serving.main import build_server
+    from kubeflow_tpu_torch.serving.server import restore_checkpoint_params
+
+    total = {name: 0 for name in pa.launch_counts}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] += n
+
+    clock = [time.monotonic()]
+
+    def lap():
+        now = time.monotonic()
+        dt, clock[0] = now - clock[0], now
+        return f"{dt:.3f} s"
+
+    params = {n: p.detach() for n, p in trainer._final_state.params.items()}
+    f32_model = phase_serve_f32(torch, model=model, device=device,
+                                prompts=f32_prompts, max_new=f32_max_new,
+                                checkpoint_dir=ckpt_dir)
+    add(pa.launch_counts)
+    served = f32_model.state_dict()
+    differ = sorted(n for n in params if not torch.equal(served[n], params[n]))
+    if served.keys() != params.keys() or differ:
+        raise AssertionError(f"the served f32 weights are not the trainer's "
+                             f"step-{trainer._final_state.step} params: {differ[:4]}")
+    print(f"ckpt serve f32: the {len(params)} served tensors are the trainer's "
+          f"step-{trainer._final_state.step} params, bit for bit ({lap()})",
+          flush=True)
+
+    ms = build_server(model, ckpt_dir, device=device, dtype=torch.float32,
+                      num_slots=8, page_size=16, paged_attention="kernel",
+                      draft_model=model, num_draft_tokens=SPEC_K,
+                      draft_checkpoint_dir=ckpt_dir)
+    try:
+        eng = ms.engine(model)
+        rng = np.random.default_rng(1)  # phase 4's prompts
+        rows = [rng.integers(0, f32_model.cfg.vocab_size, n) for n in f32_prompts]
+        pa.reset_launch_counts()
+        futures = [eng.submit(r, f32_max_new) for r in rows]
+        got = [f.wait(600)["tokens"] for f in futures]
+        add(pa.launch_counts)
+        summary = spec_summary(eng.stats())
+    finally:
+        ms.close()
+    want = [generate(f32_model, r[None], f32_max_new)[0, len(r):].tolist()
+            for r in rows]
+    print(f"ckpt spec f32 (draft from the checkpoint, K={SPEC_K}): "
+          f"{json.dumps(summary)} ({lap()})", flush=True)
+    if got != want:
+        raise AssertionError(f"f32 drafted tokens differ from generate(): "
+                             f"{got} vs {want}")
+    if not summary["accept_rate"] >= ACCEPT_SAME:
+        raise AssertionError(f"the same-checkpoint f32 draft accepts "
+                             f"{summary['accept_rate']} < {ACCEPT_SAME}")
+
+    launches, run = phase_spec_serve(torch, f32_model, k0_stats, model=model,
+                                     device=device, checkpoint_dir=ckpt_dir,
+                                     draft_checkpoint_dir=ckpt_dir, **traffic)
+    add(launches)
+    print(f"ckpt spec bf16: accept_rate {run['accept_rate']:.4f} with the "
+          f"draft from the checkpoint; 11b's seed-0 draft in this call "
+          f"{accept_11b:.4f} ({lap()})", flush=True)
+    del f32_model
+
+    envelope = quantized_params_from_jax(restore_checkpoint_params(ckpt_dir, "int8"))
+    mine = quantize_params_int8(params)
+    for part in ("qvalues", "qscales"):
+        got_p, want_p = envelope[part], mine[part]
+        differ = sorted(n for n in want_p
+                        if not torch.equal(got_p[n], want_p[n].cpu()))
+        if got_p.keys() != want_p.keys() or differ:
+            raise AssertionError(f"the restored int8 {part} differ from the "
+                                 f"trainer's params quantized: {differ[:4]}")
+    print(f"ckpt int8: the restored envelope ({len(mine['qscales'])} quantized "
+          f"leaves) is the trainer's params quantized, bit for bit ({lap()})",
+          flush=True)
+    _, launches = int8_f32_tokens(torch, model, device, f32_prompts,
+                                  f32_max_new, checkpoint_dir=ckpt_dir,
+                                  prefill_buckets=list(CKPT_INT8_BUCKETS))
+    add(launches)
+    print(f"ckpt serve: int8 f32 tokens ({lap()}); paged launches {total}",
+          flush=True)
+    return total
 
 
 def main() -> int:
@@ -1404,7 +1700,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     f32_model = phase_spec_f32(torch)
-    spec_launches = phase_spec_serve(torch, f32_model, bf16_stats)
+    spec_launches, spec_run = phase_spec_serve(torch, f32_model, bf16_stats)
     small_launches = phase_spec_small_draft(torch, f32_model)
     del f32_model
     small_shapes = {
@@ -1424,6 +1720,18 @@ def main() -> int:
             (rec["name"], "bfloat16", "small_draft")]["max_abs_err"]
         if min(rec["spec_launches"], rec["small_draft_launches"]) < 1:
             raise AssertionError(f"the speculative path never launched {rec['name']}")
+    torch.cuda.empty_cache()
+
+    # this slice's path: train, preempt, resume, then serve the checkpoint
+    with tempfile.TemporaryDirectory(prefix="kft-ckpt-") as root:
+        flash_launches, trainer, ckpt_dir = phase_ckpt_train(torch, root)
+        paged_launches = phase_ckpt_serve(torch, trainer, ckpt_dir, bf16_stats,
+                                          spec_run["accept_rate"])
+        del trainer
+    for rec in kernels:
+        rec["checkpoint_launches"] = {**flash_launches, **paged_launches}[rec["name"]]
+        if rec["checkpoint_launches"] < 1:
+            raise AssertionError(f"the checkpoint path never launched {rec['name']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

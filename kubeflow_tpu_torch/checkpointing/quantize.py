@@ -37,7 +37,10 @@ def quantize_leaf_int8(w: torch.Tensor) -> tuple:
     it (as jnp.round), clipped to ±127."""
     w32 = w.float()
     amax = w32.abs().amax(dim=tuple(range(w.dim() - 1)))
-    scale = amax / 127.0
+    # a device tensor divisor: torch turns a division by a Python scalar
+    # into a multiply by its reciprocal on CUDA (not on the CPU), which
+    # rounds ~5 % of the scales one ulp off the IEEE quotient
+    scale = amax / amax.new_full((), 127.0)
     q = torch.round(w32 / torch.where(scale > 0.0, scale,
                                       torch.ones_like(scale)))
     return q.clamp(-127.0, 127.0).to(torch.int8), scale

@@ -1,6 +1,6 @@
 """Training configuration (copy of the subset of
-kubeflow_tpu/config/platform.py's `TrainingConfig` and `DataConfig` the
-port's training path honours).
+kubeflow_tpu/config/platform.py's `TrainingConfig`, `DataConfig` and
+`CheckpointConfig` the port's training path honours).
 
 Fields keep the JAX package's names and defaults. A field of the JAX
 config that the port does not honour yet is absent here, so passing it
@@ -18,7 +18,6 @@ from typing import Any, Mapping
 # wait for (ROADMAP.md)
 _UNPORTED_FIELDS = {
     "mesh": "A13 (parallelism: one card, no mesh)",
-    "checkpoint": "A12 (checkpointing)",
     "observability": "A14 (tracing spans)",
     "chaos": "A14 (fault injection)",
     "label_smoothing": "A13 item 6 (image classification)",
@@ -83,6 +82,51 @@ class DataConfig:
 
 
 @dataclasses.dataclass
+class CheckpointConfig:
+    """Knobs for the async checkpoint subsystem (checkpointing/), the JAX
+    package's fields and defaults. `KFT_CHECKPOINT_DIR` in the run's
+    environment overrides `directory` (runtime/train_run.py), so an
+    operator can repoint a job without editing its spec."""
+
+    enabled: bool = True
+    directory: str = "/tmp/kubeflow_tpu/checkpoints"
+    interval_steps: int = 1000
+    # last-N checkpoints retained
+    keep: int = 3
+    # additionally retain every k-th step forever (milestones that survive
+    # the keep-last-N sweep); 0 = off
+    keep_every: int = 0
+    # save on a background writer: the train loop blocks only for the
+    # host snapshot, never the shard writes or the commit
+    async_save: bool = True
+    # at most this many saves snapshot-resident/writing at once; save()
+    # blocks when full (bounds host memory at ~window x state size)
+    max_in_flight: int = 2
+    # non-empty: a fresh run (no checkpoint in `directory`) initializes
+    # its PARAMS from the latest committed checkpoint here (step and
+    # optimizer state start at zero)
+    warm_start_dir: str = ""
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.interval_steps < 1:
+            raise ConfigError("checkpoint.interval_steps must be >= 1")
+        if self.keep < 1:
+            raise ConfigError("checkpoint.keep must be >= 1")
+        if self.keep_every < 0:
+            raise ConfigError("checkpoint.keep_every must be >= 0")
+        if self.max_in_flight < 1:
+            raise ConfigError("checkpoint.max_in_flight must be >= 1")
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "CheckpointConfig":
+        _check_keys(raw, cls, {}, "checkpoint.")
+        return cls(**raw)
+
+
+@dataclasses.dataclass
 class TrainingConfig:
     """Per-job training knobs (the JAX `TrainingConfig` subset).
 
@@ -100,6 +144,9 @@ class TrainingConfig:
     dtype: str = "bfloat16"
     seed: int = 0
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    checkpoint: CheckpointConfig = dataclasses.field(
+        default_factory=CheckpointConfig
+    )
     remat: bool = False
     loss_chunk: int = 0
     assume_full_attention: bool = False
@@ -110,6 +157,8 @@ class TrainingConfig:
     def __post_init__(self):
         if isinstance(self.data, Mapping):
             self.data = DataConfig.from_dict(self.data)
+        if isinstance(self.checkpoint, Mapping):
+            self.checkpoint = CheckpointConfig.from_dict(self.checkpoint)
         self.validate()
 
     def validate(self) -> None:

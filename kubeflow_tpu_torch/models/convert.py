@@ -1,4 +1,4 @@
-"""Param bridge: flax GPT param trees → the port's state dicts.
+"""Param bridge: flax GPT param trees ↔ the port's state dicts.
 
 `params_from_jax` takes the flax tree as nested dicts of numpy arrays (or
 anything `np.asarray` reads), so nothing of JAX crosses into the port.
@@ -11,6 +11,13 @@ q/k/v [D, H, Dh], out [H, Dh, D]); the port's modules use flax's names.
 `quantized_params_from_jax` carries the JAX int8 envelope
 (checkpointing/quantize.py `quantize_params_int8`) across with its int8
 values and f32 scales unchanged.
+
+`params_to_jax` is the inverse of `params_from_jax`: a state dict → a
+flat `{flax path: np.ndarray}` ('/'-joined, e.g.
+`layer_0/attention/query/kernel`) in either layout, as the JAX package's
+checkpoints key them (`jax_path` names one leaf in the named layout).
+Leaves also come as torch tensors (a restored checkpoint's); any float
+dtype becomes f32, as in `params_from_jax`.
 """
 
 from __future__ import annotations
@@ -24,15 +31,22 @@ import torch
 
 def _leaves(tree: Mapping, path: Tuple[str, ...] = ()
             ) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    """(path, leaf) of a nested tree; a '/'-joined key (the flat form
+    `params_to_jax` returns) counts as its parts."""
     for key, sub in tree.items():
+        sub_path = path + tuple(str(key).split("/"))
         if isinstance(sub, Mapping):
-            yield from _leaves(sub, path + (str(key),))
+            yield from _leaves(sub, sub_path)
         else:
-            yield path + (str(key),), sub
+            yield sub_path, sub
 
 
 def _as_array(leaf) -> np.ndarray:
     """int8 leaves stay int8; every float leaf becomes f32."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        # numpy holds no bf16: a torch float leaf widens first (exact)
+        leaf = (leaf if leaf.dtype == torch.int8 else leaf.float()).numpy()
     arr = np.asarray(leaf)
     return arr.copy() if arr.dtype == np.int8 else arr.astype(np.float32)
 
@@ -55,9 +69,12 @@ def _port_entries(path: Sequence[str], arr: np.ndarray, num_layers: int,
 
 
 def _num_layers(params: Mapping) -> int:
-    if "layers" in params:
-        return next(_leaves(params["layers"]))[1].shape[0]
-    return sum(1 for k in params if str(k).startswith("layer_"))
+    tops = set()
+    for path, leaf in _leaves(params):
+        if path[0] == "layers":
+            return np.shape(leaf)[0]
+        tops.add(path[0])
+    return sum(1 for t in tops if t.startswith("layer_"))
 
 
 def _to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -65,7 +82,8 @@ def _to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax GPT params (named or scan-stacked layout) → state dict."""
+    """flax GPT params (named or scan-stacked layout; nested, or flat
+    with '/'-joined paths) → state dict."""
     n = _num_layers(params)
     flat: Dict[str, np.ndarray] = {}
     for path, leaf in _leaves(params):
@@ -91,6 +109,45 @@ def quantized_params_from_jax(qparams: Mapping) -> Dict[str, Any]:
                                      stacked_axis=False))
     return {"qvalues": params_from_jax(values),
             "qscales": _to_state_dict(qscales)}
+
+
+PARAM_LAYOUTS = ("named", "scan")
+
+
+def jax_path(name: str) -> str:
+    """The named-layout flax path of a state-dict name:
+    'layers.0.attention.query.kernel' → 'layer_0/attention/query/kernel'."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        parts = [f"layer_{parts[1]}"] + parts[2:]
+    return "/".join(parts)
+
+
+def params_to_jax(state_dict: Mapping[str, Any], layout: str = "named"
+                  ) -> Dict[str, np.ndarray]:
+    """State dict → flat {flax path: np.ndarray}, f32 (int8 stays int8):
+    the named layout (`layer_<i>/...`) or the scan-stacked one
+    (`layers/block/...`, every layer's leaf stacked on a leading [L]
+    axis). `params_from_jax` of the result gives `state_dict` back, bit for
+    bit."""
+    if layout not in PARAM_LAYOUTS:
+        raise ValueError(f"layout {layout!r} not in {PARAM_LAYOUTS}")
+    named = {jax_path(n): _as_array(v) for n, v in state_dict.items()}
+    if layout == "named":
+        return named
+    out: Dict[str, np.ndarray] = {}
+    per_layer: Dict[str, Dict[int, np.ndarray]] = {}
+    for path, arr in named.items():
+        top, _, rest = path.partition("/")
+        if top.startswith("layer_"):
+            per_layer.setdefault(rest, {})[int(top[len("layer_"):])] = arr
+        else:
+            out[path] = arr
+    for rest, layers in per_layer.items():
+        out[f"layers/block/{rest}"] = np.stack(
+            [layers[i] for i in range(len(layers))]
+        )
+    return out
 
 
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> None:

@@ -65,6 +65,7 @@ from kubeflow_tpu_torch.ops.attention import (
     paged_write,
     paged_write_index,
     quantize_kv,
+    row_stable_matmul,
 )
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.paged_attention import paged_attention
@@ -325,7 +326,10 @@ def _at_use(module: nn.Module, name: str, dtype) -> torch.Tensor:
 class _Dense(nn.Module):
     """flax Dense/DenseGeneral: `kernel` [*in, *out] (f32 at rest), an
     optional `bias` [*out]; x @ kernel then + bias, each in the compute
-    dtype (two roundings, as the flax module does)."""
+    dtype (two roundings, as the flax module does). The product is
+    `row_stable_matmul`: on the CPU a row's bits do not depend on how
+    many rows the call folds together (a decode step's row equals the
+    same row of a verify window)."""
 
     def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
                  dtype, use_bias: bool = True):
@@ -343,7 +347,9 @@ class _Dense(nn.Module):
         w = _at_use(self, "kernel", self.dtype).to(self.dtype).reshape(
             math.prod(self.in_shape), math.prod(self.out_shape)
         )
-        y = (x.reshape(lead + (-1,)) @ w).reshape(lead + self.out_shape)
+        y = row_stable_matmul(x.reshape(lead + (-1,)), w).reshape(
+            lead + self.out_shape
+        )
         if self.bias is not None:
             y = y + _at_use(self, "bias", self.dtype).to(self.dtype)
         return y

@@ -13,9 +13,33 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 # the JAX package masks with jnp.finfo(jnp.float32).min in every dtype
 _F32_MIN = torch.finfo(torch.float32).min
+# rows of one fixed-shape block of `row_stable_matmul` on the CPU
+ROW_BLOCK = 16
+
+
+def row_stable_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., M, K] @ b [..., K, N] (b's leading dims broadcast) whose
+    every row has the same bits whatever M is. On a CPU tensor the rows
+    are zero-padded to whole blocks of ROW_BLOCK and each block is its
+    own fixed-shape product: MKL rounds a row differently at M = 1 (its
+    GEMV path) than at M >= 2, so without the blocks a one-token decode
+    step and the same row of a K+1-row verify window would differ in the
+    last bits. On any other device this is `a @ b`."""
+    if a.device.type != "cpu":
+        return a @ b
+    m, k = a.shape[-2:]
+    pad = -m % ROW_BLOCK
+    if pad:
+        a = F.pad(a, (0, 0, 0, pad))
+    nb = (m + pad) // ROW_BLOCK
+    if nb == 1:  # one block: the product itself
+        return (a @ b)[..., :m, :]
+    out = a.reshape(a.shape[:-2] + (nb, ROW_BLOCK, k)) @ b.unsqueeze(-3)
+    return out.reshape(out.shape[:-3] + (nb * ROW_BLOCK, -1))[..., :m, :]
 
 
 def mask_value(dtype: torch.dtype) -> float:
@@ -47,7 +71,9 @@ def quantize_kv(x: torch.Tensor) -> tuple:
     even, as jnp.round does."""
     x32 = x.float()
     amax = x32.abs().amax(dim=-1, keepdim=True)
-    scale = (amax / 127.0).to(torch.bfloat16)
+    # a tensor divisor: the IEEE quotient on every device (on CUDA torch
+    # multiplies by the reciprocal of a Python-scalar divisor)
+    scale = (amax / amax.new_full((), 127.0)).to(torch.bfloat16)
     s = scale.float()
     q = torch.round(x32 / torch.where(s > 0.0, s, torch.ones_like(s)))
     return q.clamp(-127.0, 127.0).to(torch.int8), scale
@@ -76,10 +102,15 @@ def dense_attention(
 
     The order of operations is the JAX package's: QK^T in the compute
     dtype, `/ sqrt(D)` in the compute dtype, the mask, an f32 softmax
-    cast back to the compute dtype, then PV."""
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / scale_for(
-        q.shape[-1], dtype
-    )
+    cast back to the compute dtype, then PV. On CPU tensors both
+    products are `row_stable_matmul`'s, so a query row's output does not
+    depend on how many rows share the call."""
+    cpu = q.device.type == "cpu"
+    if cpu:
+        scores = row_stable_matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1))
+    else:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    scores = scores / scale_for(q.shape[-1], dtype)
     # f32-min written into a bf16 tensor rounds to -inf (the JAX package
     # rounds the same way). That is harmless: key position 0 is visible
     # to every query row, so no softmax row is all -inf.
@@ -92,6 +123,8 @@ def dense_attention(
         tri = torch.ones((s_q, s_k), dtype=torch.bool, device=q.device).tril()
         scores = torch.where(tri, scores, big_neg)
     probs = torch.softmax(scores.float(), dim=-1).to(dtype)
+    if cpu:
+        return row_stable_matmul(probs, v.transpose(1, 2)).transpose(1, 2)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 

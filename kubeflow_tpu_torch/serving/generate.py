@@ -1,5 +1,6 @@
 """Autoregressive generation over the slot-row KV cache (port of
-kubeflow_tpu/serving/generate.py: `generate` and a minimal `ServedLm`).
+kubeflow_tpu/serving/generate.py: `generate` and a minimal `ServedLm`,
+which `from_registry` builds from a platform checkpoint).
 
 One causal prefill over the prompt seeds the cache, then each new token
 costs one single-token decode step. Ragged batches pass `prompt_mask`
@@ -107,6 +108,59 @@ class ServedLm:
         self.max_batch = max_batch
         # one request at a time runs on the model
         self._lock = threading.Lock()
+
+    @classmethod
+    def from_registry(cls, model_name: str, checkpoint_dir: Optional[str] = None,
+                      params=None, served_name: Optional[str] = None,
+                      quantize: Optional[str] = None, device=None,
+                      dtype=None, **model_kwargs) -> "ServedLm":
+        """Build from the model registry on `device` (default "cuda"), in
+        `dtype`; params from `params` (a state dict, or an int8 envelope
+        of one) or else from the latest committed platform checkpoint in
+        `checkpoint_dir`, either layout (named `layer_<i>` or scan-stacked
+        `layers/block`, models/convert.py `params_from_jax`).
+
+        `quantize="int8"`: a named-layout checkpoint (the port's serving
+        layout) is restored THROUGH the int8 transform
+        (`restore_params(transform="int8")`, leaf by leaf), so the
+        full-width tree is transient assembly state, never resident. A
+        scan-stacked checkpoint needs its layers split first, and the
+        JAX quantizer's scales over a stacked leaf span every layer: it
+        is restored full width, split, and quantized per layer once
+        after, as the JAX package does for a restack."""
+        from kubeflow_tpu_torch.checkpointing.quantize import (
+            is_quantized_params,
+        )
+        from kubeflow_tpu_torch.models.convert import (
+            params_from_jax,
+            quantized_params_from_jax,
+        )
+        from kubeflow_tpu_torch.models.registry import get_model
+        from kubeflow_tpu_torch.serving.server import restore_checkpoint_params
+        from kubeflow_tpu_torch.utils.device import resolve_device
+
+        quantize = quantize or "none"
+        if dtype is not None:
+            model_kwargs["dtype"] = dtype
+        # shapes only, then memory on the device: every weight is loaded
+        # below, so the seeded init would be thrown away
+        model = get_model(model_name, device="meta", **model_kwargs).to_empty(
+            device=resolve_device(device)
+        )
+        if params is None:
+            params = restore_checkpoint_params(
+                checkpoint_dir, transform="int8" if quantize == "int8" else ""
+            )
+            if is_quantized_params(params) and "layers" in params["qvalues"]:
+                params = restore_checkpoint_params(checkpoint_dir)
+            params = (quantized_params_from_jax(params)
+                      if is_quantized_params(params)
+                      else params_from_jax(params))
+        if is_quantized_params(params):
+            model = int8_model(model, params)
+        else:
+            model.load_state_dict(params, strict=True)
+        return cls(served_name or model_name, model, quantize=quantize)
 
     def generate(
         self,

@@ -10,9 +10,13 @@ CUDA kernels on CUDA tensors (the counterpart of the JAX package's
 pages (the engine), or int8 weights on the static path (num_slots=0).
 `KFT_SERVING_DRAFT_MODEL` + `KFT_SERVING_DRAFT_TOKENS` turn on
 speculative decoding (a registry draft model, K tokens drafted per
-verify step). SIGTERM drains the engines before the process exits.
+verify step), its trained params from `KFT_SERVING_DRAFT_CHECKPOINT_DIR`.
+`--checkpoint-dir` serves the latest committed platform checkpoint of a
+training run (the port's or the JAX package's). SIGTERM drains the
+engines before the process exits.
 
-    python -m kubeflow_tpu_torch.serving.main --model gpt_small --port 8500
+    python -m kubeflow_tpu_torch.serving.main --model gpt_small \
+        --checkpoint-dir /data/checkpoints/run --port 8500
 """
 
 from __future__ import annotations
@@ -48,8 +52,8 @@ def engine_knobs_from_env() -> dict:
     _PAGED_ATTENTION (gather | kernel), _QUANTIZE (none | int8),
     _DRAFT_MODEL + _DRAFT_TOKENS (speculative decoding: registry draft
     model and tokens drafted per verify step; 0 disables) and
-    _DRAFT_CHECKPOINT_DIR (not ported: build_server raises when it
-    would read it, at K > 0 without draft params)."""
+    _DRAFT_CHECKPOINT_DIR (the platform checkpoint the draft's params
+    are restored from, at K > 0 without draft params)."""
     buckets_raw = os.environ.get("KFT_SERVING_PREFILL_BUCKETS", "")
     buckets = [int(b) for b in buckets_raw.split(",") if b.strip()]
     prefix_raw = os.environ.get("KFT_SERVING_PREFIX_CACHE", "").strip()
@@ -78,6 +82,7 @@ def engine_knobs_from_env() -> dict:
 
 def build_server(
     model: str,
+    checkpoint_dir: str = "",
     *,
     params: Optional[Mapping[str, torch.Tensor]] = None,
     device=None,
@@ -100,25 +105,30 @@ def build_server(
 
     `num_draft_tokens` K > 0 drafts with the registry model
     `draft_model`, built on the same device in the same dtype, with
-    `draft_params` (a state dict) or, without them, its seed-0 init (a
-    note says so: output stays right, acceptance is noise until trained
-    draft weights come). Loading them from `draft_checkpoint_dir` is not
-    ported yet (ROADMAP A12) and raises, where the reference would read
-    it: K > 0 and no `draft_params`.
+    `draft_params` (a state dict), else the params of the latest
+    committed checkpoint in `draft_checkpoint_dir`, else its seed-0 init
+    (a note says so: output stays right, acceptance is noise until
+    trained draft weights come).
 
     `quantize="int8"` with the engine on serves int8 weights and int8 KV
     pages through the engine while the ServedLm stays full width; with
     num_slots=0 the ServedLm itself is int8 (the static int8 path).
 
     `params` is a state dict for the model (e.g. from
-    models/convert.py `params_from_jax`); without one the model keeps
-    its seed-0 init. `device` defaults to "cuda" and raises
+    models/convert.py `params_from_jax`); without one the params come
+    from the latest committed platform checkpoint in `checkpoint_dir`
+    (`ServedLm.from_registry`), and without that the model keeps its
+    seed-0 init. `device` defaults to "cuda" and raises
     without CUDA unless "cpu" is asked for. Engine knobs default from
     `engine_knobs_from_env()`."""
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
+    from kubeflow_tpu_torch.models.convert import params_from_jax
     from kubeflow_tpu_torch.serving.generate import ServedLm
-    from kubeflow_tpu_torch.serving.server import ModelServer
+    from kubeflow_tpu_torch.serving.server import (
+        ModelServer,
+        restore_checkpoint_params,
+    )
     from kubeflow_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -151,12 +161,6 @@ def build_server(
             "num_draft_tokens > 0 needs num_slots >= 1: speculation lives "
             "inside the decode engine, and num_slots=0 disables it"
         )
-    if num_draft_tokens > 0 and draft_params is None and draft_checkpoint_dir:
-        raise ValueError(
-            "draft params from a checkpoint (KFT_SERVING_DRAFT_CHECKPOINT_DIR"
-            ") are not ported yet (ROADMAP A12: checkpointing/manager.py); "
-            "pass draft_params"
-        )
     if quantize not in QUANTIZE_CHOICES:
         raise ValueError(
             f"quantize {quantize!r} must be one of {QUANTIZE_CHOICES}"
@@ -174,20 +178,37 @@ def build_server(
     kwargs = {"device": dev}
     if dtype is not None:
         kwargs["dtype"] = dtype
-    lm_model = get_model(model, **kwargs)
-    if params is not None:
-        lm_model.load_state_dict(params, strict=True)
+    # num_slots=0 + quantize=int8 is the static int8 path: the ServedLm
+    # itself is int8. With the engine on, the ServedLm stays full width
+    # and the engine quantizes.
+    lm_quantize = quantize if num_slots < 1 else "none"
+    if params is None and checkpoint_dir:
+        lm = ServedLm.from_registry(model, checkpoint_dir=checkpoint_dir,
+                                    quantize=lm_quantize, **kwargs)
+    else:
+        lm_model = get_model(model, **kwargs)
+        if params is not None:
+            lm_model.load_state_dict(params, strict=True)
+        lm = ServedLm(model, lm_model, quantize=lm_quantize)
     server = ModelServer()
-    lm = ServedLm(model, lm_model,
-                  quantize=quantize if num_slots < 1 else "none")
     server.add_lm(lm)
+    lm_model = lm.model
     if num_slots > 0:
         draft = None
         if num_draft_tokens > 0:
-            draft = get_model(draft_model, **kwargs)
+            if draft_params is None and draft_checkpoint_dir:
+                # trained draft params from a platform checkpoint: the same
+                # manifest restore the target serves from
+                draft_params = params_from_jax(
+                    restore_checkpoint_params(draft_checkpoint_dir)
+                )
             if draft_params is not None:
+                # shapes only, then memory on the device, then the params
+                draft = get_model(draft_model, **{**kwargs, "device": "meta"})
+                draft = draft.to_empty(device=dev)
                 draft.load_state_dict(draft_params, strict=True)
             else:
+                draft = get_model(draft_model, **kwargs)
                 print(f"note: draft model {draft_model} initialized from "
                       "seed 0 (no draft params given); output stays "
                       "correct, accept rate will be noise until trained "
@@ -209,8 +230,12 @@ def build_server(
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="kubeflow-tpu torch model server")
     ap.add_argument("--model", required=True, help="registry model name")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="platform checkpoint dir (checkpointing/): its "
+                    "latest committed step's params are served")
     ap.add_argument("--weights", default="",
-                    help="torch.save'd state dict (default: seed-0 init)")
+                    help="torch.save'd state dict (default: the checkpoint, "
+                    "else seed-0 init)")
     ap.add_argument("--port", type=int, default=8500)
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--num-slots", type=int, default=None)
@@ -228,6 +253,10 @@ def main(argv=None) -> int:
     ap.add_argument("--draft-tokens", type=int, default=None,
                     help="tokens drafted per verify step (default from "
                     "KFT_SERVING_DRAFT_TOKENS, else 0)")
+    ap.add_argument("--draft-checkpoint-dir", default=None,
+                    help="platform checkpoint dir with the draft's trained "
+                    "params (default from KFT_SERVING_DRAFT_CHECKPOINT_DIR; "
+                    "empty = seed-0 init, accept rate will be noise)")
     args = ap.parse_args(argv)
 
     import signal
@@ -239,11 +268,11 @@ def main(argv=None) -> int:
     if args.weights:
         params = torch.load(args.weights, map_location="cpu",
                             weights_only=True)
-    else:
+    elif not args.checkpoint_dir:
         print(f"note: {args.model} serves its seed-0 init (no --weights "
-              "given)", flush=True)
+              "or --checkpoint-dir given)", flush=True)
     server = build_server(
-        args.model, params=params,
+        args.model, args.checkpoint_dir, params=params,
         num_slots=args.num_slots, max_queue=args.max_queue,
         page_size=args.page_size, num_pages=args.num_pages,
         prefix_cache=(
@@ -251,6 +280,7 @@ def main(argv=None) -> int:
         ),
         paged_attention=args.paged_attention, quantize=args.quantize,
         draft_model=args.draft_model, num_draft_tokens=args.draft_tokens,
+        draft_checkpoint_dir=args.draft_checkpoint_dir,
     )
     httpd = Server(server.app, host=args.host, port=args.port)
     print(f"serving {args.model} on :{httpd.port}", flush=True)

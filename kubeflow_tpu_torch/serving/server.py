@@ -7,6 +7,8 @@ one is attached, else the static ServedLm path), `GET /v1/models` and
 them), `GET /healthz` and `GET /metrics` (Prometheus text). The bodies
 are the reference server's.
 
+`restore_checkpoint_params` is the serving side's checkpoint load.
+
 Draining shutdown: `close(drain=True)` drains every engine at once under
 one deadline. While the server or any engine drains, `/healthz` answers
 503 with `"draining": true` (readiness probes and the router tell
@@ -19,7 +21,7 @@ from __future__ import annotations
 import math
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -42,6 +44,23 @@ log = get_logger(__name__)
 # the drain budget close(drain=True) gives the engines by default (the
 # reference's DEFAULT_DRAIN_DEADLINE_S)
 DEFAULT_DRAIN_DEADLINE_S = 30.0
+
+
+def restore_checkpoint_params(checkpoint_dir: Optional[str],
+                              transform: str = ""):
+    """Params from the latest committed platform checkpoint: the one
+    restore every serving loader uses. It reads the manifest training
+    saves through (checkpointing/), so a training run's checkpoints, the
+    port's or the JAX package's, serve directly; uncommitted (torn) saves
+    are invisible, and the shard layout that saved them is irrelevant.
+    Returns the nested flax tree of CPU tensors, or with
+    `transform="int8"` the JAX-shaped int8 envelope
+    (checkpointing/manager.py `restore_params`)."""
+    if checkpoint_dir is None:
+        raise ValueError("need checkpoint_dir or params")
+    from kubeflow_tpu_torch.checkpointing import restore_params
+
+    return restore_params(checkpoint_dir, transform=transform)
 
 
 class ModelServer:

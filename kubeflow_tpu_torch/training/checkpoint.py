@@ -1,0 +1,107 @@
+"""The port's TrainState ↔ the JAX package's checkpoint keys (the
+training side of kubeflow_tpu/training/checkpoint.py; the manager
+itself is checkpointing/manager.py).
+
+A JAX train state of the GPT recipe (`optax.chain(clip_by_global_norm,
+adamw)`) saves these manifest keys, named-layer flax paths throughout:
+
+    step                        () int32   updates done
+    params/<flax path>          f32        the master weights
+    opt_state/1/0/count         () int32   AdamW's update count
+    opt_state/1/0/mu/<path>     f32        first moments
+    opt_state/1/0/nu/<path>     f32        second moments
+    opt_state/1/2/count         () int32   the schedule's count
+
+(`clip_by_global_norm` and `add_decayed_weights` hold no leaves.) The
+port's state maps onto them BY PARAMETER NAME (models/convert.py
+`jax_path`), never by the optimizer's index order: AdamW's `exp_avg` is
+`mu`, `exp_avg_sq` is `nu`, and torch's per-parameter `step` (a float
+tensor) is both counts. Before its first update torch has no optimizer
+state: such a state saves zero moments and count 0, as the JAX package
+does, and a restore creates the state before loading it.
+
+The tree holds the live tensors; the manager makes the host copy.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from kubeflow_tpu_torch.checkpointing.manager import nest
+from kubeflow_tpu_torch.models.convert import jax_path
+
+
+def _get(tree: Dict[str, Any], path: str):
+    for p in path.split("/"):
+        tree = tree[p]
+    return tree
+
+
+def params_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """The model's parameters as the nested flax tree (live tensors)."""
+    return nest({jax_path(n): p for n, p in model.named_parameters()})
+
+
+def load_params_tree(model: torch.nn.Module, tree: Dict[str, Any]) -> None:
+    """Copy a nested flax tree into the model's parameters, in place."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.copy_(_get(tree, jax_path(name)))
+
+
+def _update_count(state) -> int:
+    """torch's per-parameter step, one value for the whole state (0
+    before the first update)."""
+    steps = {float(s["step"]) for s in state.optimizer.state.values()
+             if "step" in s}
+    if len(steps) > 1:
+        raise ValueError(f"AdamW parameters disagree on their update count: "
+                         f"{sorted(steps)}")
+    return int(steps.pop()) if steps else 0
+
+
+def train_state_tree(state) -> Dict[str, Any]:
+    """The JAX manifest's tree of a port `TrainState` (live tensors)."""
+    opt = state.optimizer
+    mu, nu = {}, {}
+    for name, p in state.model.named_parameters():
+        st = opt.state.get(p, {})
+        path = jax_path(name)
+        mu[path] = st["exp_avg"] if "exp_avg" in st else torch.zeros_like(p)
+        nu[path] = (st["exp_avg_sq"] if "exp_avg_sq" in st
+                    else torch.zeros_like(p))
+    count = _update_count(state)
+    return {
+        "step": torch.tensor(state.step, dtype=torch.int32),
+        "params": params_tree(state.model),
+        "opt_state": {"1": {
+            "0": {"count": torch.tensor(count, dtype=torch.int32),
+                  "mu": nest(mu), "nu": nest(nu)},
+            "2": {"count": torch.tensor(count, dtype=torch.int32)},
+        }},
+    }
+
+
+def load_train_state_tree(state, tree: Dict[str, Any]) -> None:
+    """Load a restored tree into a port `TrainState` in place: the step,
+    the parameters, and AdamW's state for every parameter (created here,
+    with the step torch's own AdamW would hold)."""
+    load_params_tree(state.model, tree["params"])
+    adam = tree["opt_state"]["1"]["0"]
+    count = int(adam["count"])
+    opt = state.optimizer
+    groups = {id(p): g for g in opt.param_groups for p in g["params"]}
+    with torch.no_grad():
+        for name, p in state.model.named_parameters():
+            group = groups[id(p)]
+            on_device = group.get("capturable") or group.get("fused")
+            path = jax_path(name)
+            opt.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32,
+                                     device=p.device if on_device else "cpu"),
+                "exp_avg": _get(adam["mu"], path).to(p, copy=True),
+                "exp_avg_sq": _get(adam["nu"], path).to(p, copy=True),
+            }
+    state.step = int(tree["step"])

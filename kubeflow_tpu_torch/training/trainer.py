@@ -10,7 +10,8 @@ optax's global-norm clip, the schedule's lr for this update, one AdamW
 step. `fit` is `_fit_loop`: the first-step fence (`compile_s`: in eager
 PyTorch it fences first-use kernel builds and library warm-up out of the
 throughput windows), the non-finite-loss stop, items/s, MFU and goodput
-per log window, and the `stop_event` preemption exit.
+per log window, the interval checkpoint saves, and the `stop_event`
+preemption exit.
 
 Unlike the JAX package's functional state, a `TrainState` here is
 updated IN PLACE: the model's parameters and the optimizer's moments are
@@ -76,6 +77,21 @@ class TrainState:
     @property
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
+
+    def checkpoint_tree(self) -> Dict[str, Any]:
+        """The JAX package's manifest tree of this state (live tensors;
+        training/checkpoint.py)."""
+        from kubeflow_tpu_torch.training.checkpoint import train_state_tree
+
+        return train_state_tree(self)
+
+    def load_checkpoint_tree(self, tree: Dict[str, Any]) -> None:
+        """Load a restored manifest tree in place."""
+        from kubeflow_tpu_torch.training.checkpoint import (
+            load_train_state_tree,
+        )
+
+        load_train_state_tree(self, tree)
 
 
 @dataclasses.dataclass
@@ -192,11 +208,17 @@ class Trainer:
 
     def fit(self, steps: Optional[int] = None, data=None,
             state: Optional[TrainState] = None, log_every: int = 10,
-            stop_event=None) -> Optional[StepMetrics]:
+            checkpoint_manager=None, stop_event=None) -> Optional[StepMetrics]:
         """Run the training loop; returns the last log window's metrics.
-        `stop_event` (a threading.Event) is the preemption hook: once set,
-        the loop finishes the step in flight and exits (unless that step
-        is the last anyway)."""
+        With `checkpoint_manager` (checkpointing/manager.py) the state is
+        saved after every `cfg.checkpoint.interval_steps`-th update; the
+        save blocks for its host copy only, and that time counts as
+        overhead in goodput. `stop_event` (a threading.Event) is the
+        preemption hook: once set, the loop finishes the step in flight
+        and exits (unless that step is the last anyway); the save of that
+        step is runtime/train_run.py's final forced save. Batches are read
+        by global step (`batch_at(state.step + i)`), so a resumed run sees
+        the batches an uninterrupted one would."""
         cfg = self.cfg
         steps = cfg.steps if steps is None else steps
         data = data if data is not None else self.task.synthetic_data()
@@ -251,6 +273,11 @@ class Trainer:
                 steps_since_log = 0
                 w_start = now
                 overhead_s = 0.0
+            if (checkpoint_manager is not None
+                    and (i + 1) % cfg.checkpoint.interval_steps == 0):
+                t_ckpt = time.monotonic()
+                checkpoint_manager.save(i + 1, state)
+                overhead_s += time.monotonic() - t_ckpt
             if (stop_event is not None and stop_event.is_set()
                     and not stop_reason and i != end - 1):
                 stop_reason = f"preempted at step {i + 1}"

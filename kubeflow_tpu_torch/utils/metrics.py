@@ -61,6 +61,11 @@ class _ValueMetric(_Metric):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
+    def value(self, **labels: str) -> float:
+        key = _validate_labels(self.label_names, labels)
+        with self._lock:
+            return self._values.get(key, 0.0)
+
     def _render_series(self) -> Iterable[str]:
         with self._lock:
             items = sorted(self._values.items())
@@ -119,6 +124,16 @@ class Histogram(_Metric):
                     counts[i] += 1
             self._sums[key] = self._sums.get(key, 0.0) + value
             self._totals[key] = self._totals.get(key, 0) + 1
+
+    def count(self, **labels: str) -> int:
+        key = _validate_labels(self.label_names, labels)
+        with self._lock:
+            return self._totals.get(key, 0)
+
+    def sum(self, **labels: str) -> float:
+        key = _validate_labels(self.label_names, labels)
+        with self._lock:
+            return self._sums.get(key, 0.0)
 
     def time(self, **labels: str) -> "_Timer":
         return _Timer(self, labels)
@@ -260,4 +275,51 @@ def training_goodput_gauge() -> Gauge:
         "training_goodput",
         "fraction of training wall time not lost to host-side overheads",
         ["model"],
+    )
+
+
+# -- checkpointing (checkpointing/manager.py) ---------------------------------
+
+# Blocked time spans µs (async enqueue) to seconds (sync save / full
+# in-flight window); save wall time spans ms (tiny CI states) to minutes
+# (multi-GB states on network volumes).
+CHECKPOINT_SECONDS_BUCKETS = (
+    0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+    1, 2.5, 5, 10, 30, 60, 120, 300,
+)
+
+
+def checkpoint_save_histogram() -> Histogram:
+    """End-to-end wall time of one checkpoint save: host snapshot through
+    the committed manifest rename (the async writer's cost)."""
+    return default_registry().histogram(
+        "checkpoint_save_seconds",
+        "wall seconds per checkpoint save (snapshot to committed manifest)",
+        buckets=CHECKPOINT_SECONDS_BUCKETS,
+    )
+
+
+def checkpoint_blocked_histogram() -> Histogram:
+    """Time the train loop itself blocked inside save(): the device→host
+    copy of every leaf (and a wait for an in-flight slot when the window
+    is full). Async saves keep the writes and the commit out of it."""
+    return default_registry().histogram(
+        "checkpoint_blocked_seconds",
+        "seconds the train loop blocked in checkpoint save()",
+        buckets=CHECKPOINT_SECONDS_BUCKETS,
+    )
+
+
+def checkpoint_bytes_counter() -> Counter:
+    """Shard bytes this process persisted across all saves."""
+    return default_registry().counter(
+        "checkpoint_bytes_total", "checkpoint shard bytes written"
+    )
+
+
+def checkpoint_restores_counter() -> Counter:
+    """Completed restores (full-state resumes, warm starts and serving
+    loads all count: each is one manifest-driven assembly)."""
+    return default_registry().counter(
+        "checkpoint_restores_total", "checkpoint restores completed"
     )

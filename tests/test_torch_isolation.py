@@ -1,5 +1,5 @@
 """The port stands alone: kubeflow_tpu_torch/ and chip_smoke.py import
-nothing of JAX, flax or the JAX package, and the port's entry points
+nothing of JAX, flax, ml_dtypes or the JAX package, and the port's entry points
 refuse to run quietly on the CPU when no device was asked for."""
 
 import ast
@@ -12,7 +12,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "kubeflow_tpu")
+# ml_dtypes is JAX's dtype package (the card has none): the port reads
+# bf16 checkpoints through torch dtypes
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "kubeflow_tpu", "ml_dtypes")
 
 
 def _port_sources():

@@ -595,3 +595,85 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
         tfa.flash_fwd(q, k, v, mask.long(), True, 0.1)
     with pytest.raises(ValueError, match="dtype"):
         tfa.flash_fwd(q.half(), k.half(), v.half(), None, True, 0.1)
+
+
+# -- checkpoints on the card ----------------------------------------------------
+
+
+def test_int8_quantizers_give_the_cpu_bits_on_the_card(cuda):
+    """The weight and KV quantizers on CUDA tensors equal their CPU
+    results bit for bit (the scale is an IEEE division on both)."""
+    from kubeflow_tpu_torch.checkpointing.quantize import quantize_leaf_int8
+    from kubeflow_tpu_torch.ops.attention import quantize_kv
+
+    g = torch.Generator().manual_seed(9)
+    w = torch.randn((768, 12, 64), generator=g) * 0.02
+    for fn in (quantize_leaf_int8, quantize_kv):
+        want = fn(w)
+        got = fn(w.to(cuda))
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+def _ckpt_cfg(directory, **over):
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+
+    cfg = dict(model="gpt_tiny", seq_len=128, global_batch_size=2, steps=4,
+               learning_rate=3e-4, warmup_steps=2, weight_decay=0.1,
+               dtype="bfloat16", attention_impl="flash")
+    cfg.update(over)
+    return TrainingConfig(**cfg, checkpoint=dict(directory=str(directory),
+                                                 interval_steps=2))
+
+
+def test_gpt_small_save_restore_round_trip_on_the_card(cuda, tmp_path):
+    """A gpt_small bf16 train state after one flash step: an async save,
+    then a step at once (it updates the state in place on the card); the
+    committed checkpoint restores onto the card as the pre-step state,
+    bit for bit, params, AdamW moments and counts."""
+    from kubeflow_tpu_torch.checkpointing import CheckpointManager
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    cfg = _ckpt_cfg(tmp_path, model="gpt_small", seq_len=256)
+    tr = Trainer(cfg, device=cuda)
+    state = tr.init_state()
+    data = tr.task.synthetic_data()
+    state, _ = tr.train_step(state, data.batch_at(0))
+    before = {k: v.clone() for k, v in _flat(state.checkpoint_tree())}
+    with CheckpointManager(str(tmp_path)) as mgr:
+        assert mgr.save(state.step, state)
+        state, _ = tr.train_step(state, data.batch_at(1))
+        mgr.wait()
+    fresh = Trainer(cfg, device=cuda).init_state()
+    restored = CheckpointManager(str(tmp_path)).restore(fresh)
+    assert restored.step == 1
+    got = dict(_flat(restored.checkpoint_tree()))
+    assert got.keys() == before.keys() and len(got) == 594
+    for k, v in before.items():
+        assert got[k].device == v.device and torch.equal(got[k], v), k
+
+
+def _flat(tree, prefix=""):
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            yield from _flat(v, key)
+        else:
+            yield key, v
+
+
+def test_preempted_run_resumes_bitwise_on_the_card(cuda, tmp_path):
+    """run_training through the flash kernels (bf16) preempted during
+    step 2 and resumed equals an uninterrupted run bit for bit: losses,
+    and every saved file of step 4."""
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+
+    whole = run_training(_ckpt_cfg(tmp_path / "whole"), device=cuda)
+    cut = run_training(_ckpt_cfg(tmp_path / "cut"), device=cuda,
+                       stop_event=smoke.StopAfter(1))
+    resumed = run_training(_ckpt_cfg(tmp_path / "cut"), restore=True,
+                           device=cuda)
+    assert cut["preempted"] and cut["final_step"] == 2
+    assert resumed["losses"] == whole["losses"][2:]
+    assert smoke.same_step_files(str(tmp_path / "whole"),
+                                 str(tmp_path / "cut"), 4) == 114

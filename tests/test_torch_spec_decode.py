@@ -378,6 +378,49 @@ def test_sampled_spec_deterministic_and_placement_independent(spec, draft):
     assert len(alone) == 6
 
 
+# -- the verify window against the one-token steps, bit for bit -------------------
+
+
+@pytest.mark.parametrize("impl", ["kernel", "gather"])
+@pytest.mark.parametrize("slots", [1, 2])
+def test_verify_window_is_bitwise_the_one_token_steps(spec, slots, impl):
+    """At gpt_tiny f32 on the CPU, a K+1-row paged forward (the verify)
+    gives the logits and writes the pool K/V that K+1 one-token steps
+    from the same state give and write, bit for bit (tolerance 0). Every
+    product on the path is a fixed-shape block (ops/attention.py
+    `row_stable_matmul`): MKL rounds a one-row product (its GEMV path)
+    differently from the same row of a taller one."""
+    from kubeflow_tpu_torch.models.gpt import KVPool, PagedState, make_paged_pool
+
+    target, k, ps = spec[0], 4, 8
+    mp = target.cfg.max_len // ps
+    pool = make_paged_pool(target.cfg, slots * mp + 1, ps, "cpu")
+    table = torch.tensor([[1 + b * mp + i for i in range(mp)]
+                          for b in range(slots)], dtype=torch.int32)
+    rng = np.random.default_rng(5)
+    prompt_len = (7, 12)[:slots]
+    with torch.inference_mode():
+        for b, n in enumerate(prompt_len):
+            target.paged_forward(
+                torch.from_numpy(rng.integers(0, 512, (1, n))), pool,
+                PagedState(table[b:b + 1], torch.zeros(1, dtype=torch.int32),
+                           impl))
+        cursors = torch.tensor(prompt_len, dtype=torch.int32)
+        window = torch.from_numpy(rng.integers(0, 512, (slots, k + 1)))
+        verify_pool = KVPool(pool.k.clone(), pool.v.clone())
+        steps = torch.stack([
+            target.paged_forward(window[:, j:j + 1], pool,
+                                 PagedState(table, cursors + j, impl))[:, 0]
+            for j in range(k + 1)
+        ], dim=1)
+        verify = target.paged_forward(window, verify_pool,
+                                      PagedState(table, cursors, impl))
+    assert verify.shape == steps.shape == (slots, k + 1, 512)
+    assert torch.equal(verify, steps)
+    assert torch.equal(verify_pool.k, pool.k)
+    assert torch.equal(verify_pool.v, pool.v)
+
+
 # -- configuration and wiring -------------------------------------------------------
 
 
@@ -431,28 +474,47 @@ def test_draft_env_knobs(monkeypatch):
     ({"num_draft_tokens": 2}, "draft model"),
     ({"num_draft_tokens": 2, "draft_model": "gpt_tiny", "num_slots": 0},
      "num_slots"),
+    # K > 0 without draft params: the draft's params are the checkpoint's
     ({"num_draft_tokens": 2, "draft_model": "gpt_tiny",
-      "draft_checkpoint_dir": "/ckpt/draft"}, "A12"),
+      "draft_checkpoint_dir": "ckpt"}, None),
     # the directory is read only at K > 0 without draft params, as the
     # reference reads it: a K = 0 server, or one given draft params, starts
+    # without it
     ({"num_draft_tokens": 0, "draft_checkpoint_dir": "/ckpt/draft"}, None),
     ({"num_draft_tokens": 2, "draft_model": "gpt_tiny", "draft_params": "seed0",
       "draft_checkpoint_dir": "/ckpt/draft"}, None),
 ])
-def test_build_server_draft_validation(monkeypatch, knobs, match):
+def test_build_server_draft_validation(monkeypatch, tmp_path, knobs, match):
     for knob in ("DRAFT_MODEL", "DRAFT_TOKENS", "DRAFT_CHECKPOINT_DIR"):
         monkeypatch.delenv(f"KFT_SERVING_{knob}", raising=False)
     if match is not None:
         with pytest.raises(ValueError, match=match):
             build_server("gpt_tiny", device="cpu", dtype=torch.float32, **knobs)
         return
+    trained = None
+    if knobs.get("draft_checkpoint_dir") == "ckpt":
+        # a draft checkpoint whose params are not the seed-0 init's
+        from kubeflow_tpu_torch.checkpointing import CheckpointManager
+        from kubeflow_tpu_torch.models.convert import params_to_jax
+
+        trained = get_model("gpt_tiny", device="cpu", dtype=torch.float32,
+                            seed=11).state_dict()
+        flat = params_to_jax(trained)
+        with CheckpointManager(str(tmp_path), async_save=False) as mgr:
+            mgr.save(1, {"params": {p: torch.from_numpy(a)
+                                    for p, a in flat.items()}})
+        knobs = dict(knobs, draft_checkpoint_dir=str(tmp_path))
     if knobs.get("draft_params") == "seed0":
         knobs = dict(knobs, draft_params=get_model(
             "gpt_tiny", device="cpu", dtype=torch.float32).state_dict())
     ms = build_server("gpt_tiny", device="cpu", dtype=torch.float32,
                       num_slots=2, page_size=8, **knobs)
     try:
-        assert ms.engine("gpt_tiny").num_draft_tokens == knobs["num_draft_tokens"]
+        eng = ms.engine("gpt_tiny")
+        assert eng.num_draft_tokens == knobs["num_draft_tokens"]
+        if trained is not None:
+            got = eng.draft_model.state_dict()
+            assert all(torch.equal(got[n], v) for n, v in trained.items())
     finally:
         ms.close()
 
@@ -540,9 +602,10 @@ def test_chip_smoke_spec_phases_rehearse_on_cpu(monkeypatch):
     traffic = dict(short=(3, 5, 9, 17, 30), long_len=90, hit_len=40,
                    max_new=16, buckets="8,16,32")
     k0 = {"load_tokens_per_s": 1.0, "load_decode_step_ms": 1.0}
-    launches = smoke.phase_spec_serve(torch, f32_model, k0, model="gpt_tiny",
-                                      device="cpu", **traffic)
-    assert not any(launches.values())
+    launches, run = smoke.phase_spec_serve(torch, f32_model, k0,
+                                           model="gpt_tiny", device="cpu",
+                                           **traffic)
+    assert not any(launches.values()) and run["accept_rate"] == 1.0
     launches = smoke.phase_spec_small_draft(torch, f32_model, model="gpt_tiny",
                                             device="cpu", **traffic)
     assert not any(launches.values())

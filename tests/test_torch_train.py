@@ -45,6 +45,7 @@ from kubeflow_tpu.training.tasks import (  # noqa: E402
 )
 from kubeflow_tpu.training.trainer import Trainer as JTrainer  # noqa: E402
 from kubeflow_tpu_torch.config.platform import (  # noqa: E402
+    CheckpointConfig,
     ConfigError,
     TrainingConfig,
 )
@@ -69,6 +70,9 @@ SEQ, BATCH, VOCAB = 64, 4, 512
 CFG = dict(model="gpt_tiny", global_batch_size=BATCH, steps=3,
            learning_rate=1e-3, warmup_steps=1, weight_decay=0.1,
            dtype="float32", seed=0)
+# run_training checkpoints by default (the JAX package's default): these
+# runs test other things and write nothing
+NO_CHECKPOINT = {"enabled": False}
 LEAVES = ("layers.0.attention.query.kernel", "layers.1.mlp_wo.kernel",
           "tok_emb.embedding", "head.kernel", "ln_final.scale")
 
@@ -190,7 +194,8 @@ def test_port_equivalences(over):
 
 def test_run_training_returns_the_jax_result_keys():
     cfg = TrainingConfig(**{**CFG, "seq_len": SEQ, "attention_impl": "flash",
-                            "accum_steps": 2, "remat": True, "loss_chunk": 16})
+                            "accum_steps": 2, "remat": True, "loss_chunk": 16,
+                            "checkpoint": NO_CHECKPOINT})
     res = run_training(cfg, device="cpu", log_every=1)
     assert {"final_step", "loss", "items_per_sec", "already_complete",
             "preempted", "compile_s"} <= set(res)
@@ -204,7 +209,7 @@ def test_fit_reads_every_steps_loss_in_its_windows_one_sync():
     """With one log window over the whole run, fit still returns every
     step's loss (read together at the window's end), equal to a run that
     reads the loss after every step."""
-    cfg = TrainingConfig(**{**CFG, "seq_len": SEQ})
+    cfg = TrainingConfig(**{**CFG, "seq_len": SEQ, "checkpoint": NO_CHECKPOINT})
     once = run_training(cfg, device="cpu", log_every=cfg.steps)
     each = run_training(cfg, device="cpu", log_every=1)
     assert [s for s, _ in once["losses"]] == [1, 2, 3]
@@ -214,7 +219,7 @@ def test_fit_reads_every_steps_loss_in_its_windows_one_sync():
 def test_stop_event_preempts_after_the_step_in_flight():
     stop = threading.Event()
     stop.set()
-    cfg = TrainingConfig(**{**CFG, "seq_len": SEQ})
+    cfg = TrainingConfig(**{**CFG, "seq_len": SEQ, "checkpoint": NO_CHECKPOINT})
     res = run_training(cfg, device="cpu", stop_event=stop)
     assert res["preempted"] and res["final_step"] == 1
 
@@ -265,9 +270,12 @@ def test_synthetic_batches_and_cross_entropy_match_jax():
 
 
 def test_config_refuses_what_it_does_not_honour():
-    with pytest.raises(ConfigError, match="A12"):
-        TrainingConfig.from_dict({"model": "gpt_tiny",
-                                  "checkpoint": {"enabled": False}})
+    cfg = TrainingConfig.from_dict({"model": "gpt_tiny",
+                                    "checkpoint": {"enabled": False}})
+    assert isinstance(cfg.checkpoint, CheckpointConfig)
+    assert not cfg.checkpoint.enabled and cfg.checkpoint.keep == 3
+    with pytest.raises(ConfigError, match="A13"):
+        TrainingConfig.from_dict({"model": "gpt_tiny", "mesh": {"data": 2}})
     with pytest.raises(ConfigError, match="unknown field"):
         TrainingConfig.from_dict({"model": "gpt_tiny", "bogus": 1})
     with pytest.raises(ConfigError, match="A11"):
@@ -373,6 +381,33 @@ def test_chip_smoke_train_phases_rehearse_on_cpu():
     assert launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
                         "flash_bwd_dkv": 0}
     assert result["final_step"] == 3 and "compile_s" in result
+
+
+def test_chip_smoke_checkpoint_phases_rehearse_on_cpu(tmp_path, monkeypatch):
+    """chip_smoke.py's phase 12 on the CPU at gpt_tiny size (seq 128 =
+    its max_len, so the checkpoint serves as the registry model): 12a's
+    preempted-and-resumed run equals the uninterrupted one bit for bit
+    (losses and every saved file), and 12b serves the checkpoint: f32
+    weights bit for bit the trainer's, tokens equal generate() with and
+    without a draft from the checkpoint, the drafted bf16 REST traffic,
+    the int8 envelope bit for bit the port's quantize and the int8
+    kernel tokens equal gather's (CPU tensors take the plain versions:
+    no launches)."""
+    for knob in ("DRAFT_MODEL", "DRAFT_TOKENS", "DRAFT_CHECKPOINT_DIR",
+                 "QUANTIZE", "NUM_SLOTS"):
+        monkeypatch.delenv(f"KFT_SERVING_{knob}", raising=False)
+    smoke = _chip_smoke()
+    launches, trainer, ckpt_dir = smoke.phase_ckpt_train(
+        torch, str(tmp_path), overrides=dict(model="gpt_tiny", seq_len=128),
+        device="cpu")
+    assert launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert trainer._final_state.step == smoke.CKPT_TRAIN_CFG["steps"]
+    k0 = {"load_tokens_per_s": 1.0, "load_decode_step_ms": 1.0}
+    paged = smoke.phase_ckpt_serve(
+        torch, trainer, ckpt_dir, k0, 1.0, model="gpt_tiny", device="cpu",
+        f32_prompts=(5, 37), f32_max_new=8, short=(3, 5, 9, 17, 30),
+        long_len=90, hit_len=40, max_new=16, buckets="8,16,32")
+    assert not any(paged.values())
 
 
 def test_mfu_counts_model_flops():
