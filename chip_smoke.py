@@ -117,6 +117,31 @@ Phases (any failure raises and the script exits non-zero):
    the int8 window kernel runs). The kernels line gives each row's
    `checkpoint_launches` (12a for the flash rows, 12b for the paged
    ones); a row at 0 fails.
+13. KV tiers and page handoff (gpt_small at full width, 8 slots, page
+   16, paged_attention=kernel, through build_server and REST). 13a: a
+   server whose pool of KV_POOL_PAGES pages sits above a host tier of
+   KV_HOST_BYTES, and an always-resident one (auto pool, no tier), both
+   serve a KV_SHARED-token prefix with a tail, KV_FILLS distinct fills
+   that evict its chain into the host tier, the prefix with a new tail
+   (a host-tier hit: uploads, then a chunk window), and the first
+   request again (its tail page re-admitted as the boundary upload); in
+   bf16 and with int8 KV pages (f32 compute): every reply's tokens equal
+   the always-resident server's, kv_spill_pages and kv_spill_hits > 0,
+   and at int8 the re-admitted first request's tokens equal its first
+   serve's. 13b: a bf16 server with a prefix store serves phase 5's
+   prompts (the 300-token one twice) and drains, which writes the final
+   persist; a new server on the directory preloads it, and its first
+   request (the 300-token prompt) is a prefix hit whose tokens equal the
+   first server's prefix hit's. 13c, f32, over localhost HTTP: `:prefill`
+   on a prefill server ships the prompt's pages to a decode server, whose
+   `:generate` is a prefix hit with the unified server's tokens; the
+   unified server's `/v1/kv/handoff` to two decode peers lands each chain
+   at `rendezvous_rank(first_page_key(...))[0]` alone, and the next
+   request there is a prefix hit with the same tokens. Printed with the
+   card's name and power limit: TTFT cold / HBM hit / host-tier hit,
+   spill and upload ms a page, the host tier's bytes, persist and
+   preload seconds and the bytes on disk, handoff ms a page. The kernels
+   line gives each paged row its `kv_tier_launches`; a row at 0 fails.
 
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
@@ -256,6 +281,18 @@ CKPT_INTERVAL, CKPT_PREEMPT = 2, 2
 # 12b's int8 serve: phase 4's prompts with buckets up to 32, so the
 # 37-token prompt's tail is a chunk window (the int8 window kernel)
 CKPT_INT8_BUCKETS = (8, 16, 32)
+# phase 13: 13a's pool is small enough that radix eviction must fire,
+# above a host tier of KV_HOST_BYTES; its traffic is a KV_SHARED-token
+# prefix with a KV_TAIL-token tail, KV_FILLS distinct KV_SHARED-token
+# fills (they evict the prefix's chain into the host tier), the prefix
+# with a new tail, then the first request again
+KV_POOL_PAGES, KV_HOST_BYTES = 128, 256 << 20
+KV_SHARED, KV_TAIL, KV_FILLS, KV_MAX_NEW = 512, 16, 4, 16
+# 13b: a persist keeps every page phase 5's prompts commit
+KV_PERSIST_CHAINS = 256
+# 13c: the prompt the prefill server hands off, and the two chains the
+# unified server hands to its peers (f32)
+HANDOFF_LEN = 300
 
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
@@ -1613,6 +1650,311 @@ def phase_ckpt_serve(torch, trainer, ckpt_dir, k0_stats, accept_11b,
     return total
 
 
+def post_json(port, path, body, binary=False, timeout=600):
+    """POST a JSON body (or raw bytes with `binary`) to any route:
+    (status, JSON reply, response headers)."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=body if binary else json.dumps(body).encode(), method="POST",
+        headers={"Content-Type": "application/octet-stream" if binary
+                 else "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+
+
+def tokens_of(port, model, prompt, max_new, tag):
+    """One greedy `:generate` over REST: (new tokens, TTFT ms)."""
+    status, out, headers = post_json(
+        port, f"/v1/models/{model}:generate",
+        {"prompt_ids": [prompt], "max_new_tokens": max_new})
+    if status != 200:
+        raise AssertionError(f"{tag} :generate answered {status}: {out}")
+    return out["sequences"][0][len(prompt):], float(headers["X-TTFT-Ms"])
+
+
+def spill_traffic(vocab, shared_len, tail_len, fills, seed=13):
+    """13a's requests: the shared prefix with a tail, `fills` distinct
+    prompts of the prefix's length, the prefix with a new tail, and the
+    first request again."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, vocab, shared_len).tolist()
+    first = shared + rng.integers(0, vocab, tail_len).tolist()
+    rows = [rng.integers(0, vocab, shared_len).tolist() for _ in range(fills)]
+    again = shared + rng.integers(0, vocab, tail_len).tolist()
+    return [first, *rows, again, first]
+
+
+def page_ms(torch, eng, device, batch=32):
+    """Wall ms a page of the host tier's device→host spill (into the
+    slots of a host page arena, as the engine's tier) and of its
+    host→device upload, one page a call (`*_1`) and `batch` pages in one
+    call (`*_batch`: an eviction's victims, an admission's uploads), over
+    the engine's first `batch` pool pages (written back with their own
+    bits)."""
+    from kubeflow_tpu_torch.serving.kv_tiers import HostPageArena
+
+    n = min(batch, eng.num_pages)
+    pages = list(range(n))
+    arena = HostPageArena(eng._page_template(eng._pool), None, n,
+                          pin=device == "cuda")
+    trees = [arena.pages(slot)[0] for slot in arena.alloc(n)]
+
+    def ms_a_page(fn):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    return {
+        "spill_1": ms_a_page(lambda: [
+            eng.programs.spill(eng._pool, [p], out=[tree])
+            for p, tree in zip(pages, trees)]),
+        "spill_batch": ms_a_page(lambda: eng.programs.spill(
+            eng._pool, pages, out=trees)),
+        "upload_1": ms_a_page(lambda: [
+            eng.programs.upload(eng._pool, [tree], [p])
+            for tree, p in zip(trees, pages)]),
+        "upload_batch": ms_a_page(lambda: eng.programs.upload(
+            eng._pool, trees, pages)),
+    }
+
+
+def phase_kv_spill(torch, model="gpt_small", device="cuda",
+                   pool_pages=KV_POOL_PAGES, host_bytes=KV_HOST_BYTES,
+                   shared_len=KV_SHARED, tail_len=KV_TAIL, fills=KV_FILLS,
+                   max_new=KV_MAX_NEW):
+    """13a: the spill traffic through a server whose pool of `pool_pages`
+    must evict into a host tier of `host_bytes`, and through an
+    always-resident server (auto pool, no tier), bf16 and int8 (int8 KV
+    pages, f32 compute): every reply's tokens equal, the tier spilled and
+    re-admitted pages, and at int8 the first request's tokens equal its
+    re-admission's. Prints TTFT cold / HBM hit / host-tier hit, the spill
+    and upload ms a page and the tier's bytes."""
+    rows = None
+    for dtype, quantize in ((torch.bfloat16, "none"), (torch.float32, "int8")):
+        tag = f"kv spill {'bf16' if quantize == 'none' else 'int8 (f32)'}"
+        got, ttft = {}, {}
+        for kind in ("resident", "tiered"):
+            knobs = ({"num_pages": pool_pages, "kv_host_bytes": host_bytes}
+                     if kind == "tiered" else {})
+            ms, httpd = serve(model, dtype, device, num_slots=8,
+                              page_size=16, quantize=quantize, **knobs)
+            try:
+                eng = ms.engine(model)
+                if rows is None:
+                    rows = spill_traffic(eng.model.cfg.vocab_size,
+                                         shared_len, tail_len, fills)
+                replies = [tokens_of(httpd.port, model, r, max_new, tag)
+                           for r in rows]
+                got[kind] = [toks for toks, _ in replies]
+                ttft[kind] = [t for _, t in replies]
+                stats = eng.stats()
+                if kind == "tiered":
+                    copy_ms = page_ms(torch, eng, device)
+            finally:
+                httpd.stop()
+                ms.close()
+        tier = stats["kv_host_tier"]
+        print(f"{tag}: TTFT ms cold {ttft['tiered'][0]:.3f}, HBM hit "
+              f"{ttft['resident'][-2]:.3f}, host-tier hit "
+              f"{ttft['tiered'][-2]:.3f}; ms a page "
+              f"{json.dumps({k: round(v, 4) for k, v in copy_ms.items()})}; "
+              f"kv_spill_pages "
+              f"{stats['kv_spill_pages']}, kv_spill_hits "
+              f"{stats['kv_spill_hits']}, host tier {json.dumps(tier)}; "
+              f"pages_total {stats['pages_total']}", flush=True)
+        if got["tiered"] != got["resident"]:
+            raise AssertionError(f"{tag}: the tiered server's tokens differ "
+                                 f"from the always-resident one's: "
+                                 f"{got['tiered']} vs {got['resident']}")
+        if stats["kv_spill_pages"] < 1 or stats["kv_spill_hits"] < 1:
+            raise AssertionError(f"{tag}: the host tier never spilled or "
+                                 f"re-admitted a page")
+        if quantize == "int8" and got["tiered"][-1] != got["tiered"][0]:
+            raise AssertionError(f"{tag}: the re-admitted first request's "
+                                 f"tokens {got['tiered'][-1]} differ from "
+                                 f"its first serve's {got['tiered'][0]}")
+
+
+def phase_kv_restart(torch, root, model="gpt_small", device="cuda",
+                     short=(5, 17, 33, 64, 120), long_len=LONG_LEN,
+                     hit_len=HIT_LEN, max_new=32, buckets=BUCKETS):
+    """13b: a bf16 server with a prefix store serves phase 5's prompts
+    (the 300-token one twice: the second is a prefix hit), then drains,
+    which writes the final persist; a new server on the same directory
+    preloads it, and its first request, the 300-token prompt again, is a
+    prefix hit whose tokens equal the first server's prefix hit's."""
+    store = os.path.join(root, "kv-store")
+    os.environ["KFT_SERVING_PREFILL_BUCKETS"] = buckets
+    knobs = dict(num_slots=8, page_size=16, kv_persist_dir=store,
+                 kv_persist_chains=KV_PERSIST_CHAINS)
+    try:
+        ms, httpd = serve(model, torch.bfloat16, device, **knobs)
+        try:
+            eng = ms.engine(model)
+            rng = np.random.default_rng(2)  # phase 5's prompts
+            prompts = [rng.integers(0, eng.model.cfg.vocab_size, n).tolist()
+                       for n in (*short, long_len, hit_len)]
+            for prompt in prompts:
+                tokens_of(httpd.port, model, prompt, max_new, "kv restart")
+            want, _ = tokens_of(httpd.port, model, prompts[-1], max_new,
+                                "kv restart")
+        finally:
+            httpd.stop()
+            if not ms.close(drain=True):
+                raise AssertionError("the first server's drain timed out")
+        first = eng.stats()
+        on_disk = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, files in os.walk(store) for f in files)
+        ms, httpd = serve(model, torch.bfloat16, device, **knobs)
+        try:
+            eng = ms.engine(model)
+            preload = eng.stats()
+            got, ttft = tokens_of(httpd.port, model, prompts[-1], max_new,
+                                  "kv restart")
+            stats = eng.stats()
+        finally:
+            httpd.stop()
+            ms.close()
+    finally:
+        os.environ.pop("KFT_SERVING_PREFILL_BUCKETS", None)
+    print(f"kv restart: persisted {first['kv_persisted_chains']} pages in "
+          f"{first['kv_persist_seconds']:.4f} s, {on_disk} B on disk; "
+          f"preloaded {preload['kv_persisted_chains']} pages in "
+          f"{preload['kv_preload_seconds']:.4f} s; the first request after "
+          f"the restart: {stats['prefix_hit_tokens']} prefix-hit tokens, "
+          f"TTFT {ttft:.3f} ms", flush=True)
+    if preload["kv_persisted_chains"] < 1 or stats["prefix_hit_tokens"] < 1:
+        raise AssertionError("the restarted server preloaded nothing or its "
+                             "first request missed the prefix cache")
+    if got != want:
+        raise AssertionError(f"kv restart: tokens after the restart {got} "
+                             f"differ from the first server's {want}")
+
+
+def handoff_ms(direction):
+    """(ms, pages) of every page handoff in `direction` so far."""
+    from kubeflow_tpu_torch.utils.metrics import (
+        serving_kv_handoff_ms_counter,
+        serving_kv_handoff_pages_counter,
+    )
+
+    return tuple(
+        sum(v for k, v in m.values_snapshot().items() if k[1] == direction)
+        for m in (serving_kv_handoff_ms_counter(),
+                  serving_kv_handoff_pages_counter())
+    )
+
+
+def phase_kv_handoff(torch, model="gpt_small", device="cuda",
+                     prompt_len=HANDOFF_LEN, max_new=KV_MAX_NEW):
+    """13c (f32): prefill, decode and unified servers over localhost
+    HTTP. `:prefill` with a handoff_url ships the prompt's pages and the
+    decode server's `:generate` is a prefix hit with the unified server's
+    tokens; then the unified server's `/v1/kv/handoff` to two decode
+    peers lands each chain at its first page's rendezvous home, where the
+    next request is a prefix hit with the same tokens."""
+    from kubeflow_tpu_torch.routing.affinity import (
+        first_page_key,
+        rendezvous_rank,
+    )
+
+    servers = {name: serve(model, torch.float32, device, num_slots=8,
+                           page_size=16)
+               for name in ("unified", "prefill", "d1", "d2")}
+    try:
+        port = {name: httpd.port for name, (_, httpd) in servers.items()}
+        eng = {name: ms.engine(model) for name, (ms, _) in servers.items()}
+        vocab = eng["unified"].model.cfg.vocab_size
+        rng = np.random.default_rng(17)
+        row = rng.integers(0, vocab, prompt_len).tolist()
+        in_before = handoff_ms("in")
+        status, doc, _ = post_json(
+            port["prefill"], f"/v1/models/{model}:prefill",
+            {"prompt_ids": [row],
+             "handoff_url": f"http://127.0.0.1:{port['d1']}/v1/kv/pages"})
+        if status != 200 or doc["handoff"].get("admitted") != doc["pages"]:
+            raise AssertionError(f":prefill answered {status}: {doc}")
+        hits = eng["d1"].stats()["prefix_hit_tokens"]
+        split, _ = tokens_of(port["d1"], model, row, max_new, "split")
+        unified, _ = tokens_of(port["unified"], model, row, max_new,
+                               "unified")
+        if eng["d1"].stats()["prefix_hit_tokens"] <= hits:
+            raise AssertionError("the decode server's :generate missed the "
+                                 "handed-off pages")
+        if split != unified:
+            raise AssertionError(f"split-path tokens {split} differ from the "
+                                 f"unified server's {unified}")
+        print(f"kv handoff: :prefill shipped {doc['pages']} pages, the "
+              f"decode server's tokens equal the unified server's", flush=True)
+
+        peers = {"d1": f"http://127.0.0.1:{port['d1']}",
+                 "d2": f"http://127.0.0.1:{port['d2']}"}
+        homed = {}
+        while len(homed) < 2:
+            cand = rng.integers(0, vocab, prompt_len).tolist()
+            home = rendezvous_rank(first_page_key(cand, 16), list(peers))[0]
+            homed.setdefault(home, cand)
+        want = {home: tokens_of(port["unified"], model, cand, max_new,
+                                "unified")[0] for home, cand in homed.items()}
+        out_before = handoff_ms("out")
+        status, doc, _ = post_json(port["unified"], "/v1/kv/handoff",
+                                   {"peers": peers})
+        out_ms, out_pages = (a - b for a, b in zip(handoff_ms("out"),
+                                                   out_before))
+        if status != 200 or any(doc["peers"].get(h, {}).get("admitted", 0) < 1
+                                for h in peers):
+            raise AssertionError(f"/v1/kv/handoff answered {status}: {doc}")
+        for home, cand in homed.items():
+            other = next(h for h in peers if h != home)
+            if (not eng[home].export_prefix_entries(cand)
+                    or eng[other].export_prefix_entries(cand)):
+                raise AssertionError(f"a chain homed at {home} did not land "
+                                     f"there alone")
+            hits = eng[home].stats()["prefix_hit_tokens"]
+            got, _ = tokens_of(port[home], model, cand, max_new, "handoff")
+            if eng[home].stats()["prefix_hit_tokens"] <= hits or got != want[home]:
+                raise AssertionError(f"the request at {home} missed the "
+                                     f"handed-off chain or its tokens differ")
+        in_ms, in_pages = (a - b for a, b in zip(handoff_ms("in"), in_before))
+        print(f"kv handoff: /v1/kv/handoff {json.dumps(doc['peers'])}; each "
+              f"chain at its rendezvous home, a prefix hit there; handoff out "
+              f"{out_ms / max(out_pages, 1):.4f} ms a page over {out_pages:g} "
+              f"pages (export + POST), in {in_ms / max(in_pages, 1):.4f} ms a "
+              f"page over {in_pages:g} pages (decode + upload + admit)",
+              flush=True)
+    finally:
+        for ms, httpd in servers.values():
+            httpd.stop()
+            ms.close()
+
+
+def phase_kv_tiers(torch, model="gpt_small", device="cuda", spill=None,
+                   restart=None, handoff=None):
+    """Phase 13: 13a, 13b and 13c (each takes its keyword overrides).
+    Returns every paged kernel's launches over the three."""
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    pa.reset_launch_counts()
+    t0 = time.monotonic()
+    phase_kv_spill(torch, model=model, device=device, **(spill or {}))
+    with tempfile.TemporaryDirectory(prefix="kft-kv-") as root:
+        phase_kv_restart(torch, root, model=model, device=device,
+                         **(restart or {}))
+    phase_kv_handoff(torch, model=model, device=device, **(handoff or {}))
+    launches = dict(pa.launch_counts)
+    print(f"kv tiers: paged launches {launches} in "
+          f"{time.monotonic() - t0:.3f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1732,6 +2074,16 @@ def main() -> int:
         rec["checkpoint_launches"] = {**flash_launches, **paged_launches}[rec["name"]]
         if rec["checkpoint_launches"] < 1:
             raise AssertionError(f"the checkpoint path never launched {rec['name']}")
+    torch.cuda.empty_cache()
+
+    # this slice's path: host spill, warm restart and page handoff
+    kv_launches = phase_kv_tiers(torch)
+    for rec in kernels:
+        if rec["name"] in kv_launches:
+            rec["kv_tier_launches"] = kv_launches[rec["name"]]
+            if rec["kv_tier_launches"] < 1:
+                raise AssertionError(f"the KV tier path never launched "
+                                     f"{rec['name']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

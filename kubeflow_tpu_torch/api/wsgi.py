@@ -2,7 +2,9 @@
 kubeflow_tpu/api/wsgi.py the port's model server uses).
 
 - path patterns with <named> segments,
-- JSON in/out, error envelope {"success": false, "log": msg},
+- JSON in/out, error envelope {"success": false, "log": msg}; a route
+  registered with `binary=True` takes an `application/octet-stream`
+  body as raw bytes, and every other route answers a binary body 400,
 - a threaded stdlib server on a background thread for real sockets
   (`App.handle_full` is the direct-call interface).
 """
@@ -79,6 +81,7 @@ _STATUS_TEXT = {
     405: "405 Method Not Allowed",
     429: "429 Too Many Requests",
     500: "500 Internal Server Error",
+    502: "502 Bad Gateway",
     503: "503 Service Unavailable",
 }
 
@@ -88,8 +91,8 @@ class App:
 
     def __init__(self, name: str):
         self.name = name
-        # (method, pattern, handler)
-        self._routes: List[Tuple[str, re.Pattern, Handler]] = []
+        # (method, pattern, handler, accepts a binary body)
+        self._routes: List[Tuple[str, re.Pattern, Handler, bool]] = []
         reg = default_registry()
         self._requests = reg.counter(
             "http_requests_total", "requests", ["app", "method", "status"]
@@ -98,14 +101,16 @@ class App:
             "http_request_seconds", "request latency", ["app"]
         )
 
-    def route(self, method: str, pattern: str):
-        # <name> matches one path segment
+    def route(self, method: str, pattern: str, binary: bool = False):
+        # <name> matches one path segment. binary=True opts the route into
+        # raw octet-stream bodies; other routes reject them with 400 (a
+        # JSON handler calling .get() on bytes would 500 otherwise).
         regex = re.compile(
             "^" + re.sub(r"<([a-zA-Z_]+)>", r"(?P<\1>[^/]+)", pattern) + "$"
         )
 
         def deco(fn: Handler):
-            self._routes.append((method.upper(), regex, fn))
+            self._routes.append((method.upper(), regex, fn, binary))
             return fn
 
         return deco
@@ -113,8 +118,8 @@ class App:
     def get(self, pattern: str):
         return self.route("GET", pattern)
 
-    def post(self, pattern: str):
-        return self.route("POST", pattern)
+    def post(self, pattern: str, binary: bool = False):
+        return self.route("POST", pattern, binary=binary)
 
     def handle_full(
         self, method: str, path: str, body: Any = None,
@@ -122,13 +127,20 @@ class App:
     ) -> Tuple[int, Any, List[Tuple[str, str]]]:
         headers = {k.lower(): v for k, v in (headers or {}).items()}
         matched_path = False
-        for m, regex, fn in self._routes:
+        for m, regex, fn, binary in self._routes:
             match = regex.match(path)
             if match is None:
                 continue
             matched_path = True
             if m != method.upper():
                 continue
+            if isinstance(body, (bytes, bytearray)) and not binary:
+                return (
+                    400,
+                    {"success": False,
+                     "log": "binary body not accepted by this endpoint"},
+                    [],
+                )
             req = Request(method.upper(), path, match.groupdict(), body, headers)
             try:
                 with self._latency.time(app=self.name):
@@ -173,15 +185,20 @@ class App:
             length = 0
         if length:
             raw = environ["wsgi.input"].read(length)
-            try:
-                body = json.loads(raw)
-            except json.JSONDecodeError:
-                start_response(
-                    _STATUS_TEXT[400], [("Content-Type", "application/json")]
-                )
-                return [
-                    json.dumps({"success": False, "log": "invalid JSON"}).encode()
-                ]
+            content_type = environ.get("CONTENT_TYPE", "") or ""
+            if content_type.startswith("application/octet-stream"):
+                body = raw  # binary routes (POST /v1/kv/pages)
+            else:
+                try:
+                    body = json.loads(raw)
+                except json.JSONDecodeError:
+                    start_response(
+                        _STATUS_TEXT[400],
+                        [("Content-Type", "application/json")],
+                    )
+                    return [json.dumps(
+                        {"success": False, "log": "invalid JSON"}
+                    ).encode()]
         status, result, extra_headers = self.handle_full(
             method, path, body, headers
         )

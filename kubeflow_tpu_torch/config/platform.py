@@ -1,6 +1,7 @@
-"""Training configuration (copy of the subset of
+"""Platform configuration (copy of the subset of
 kubeflow_tpu/config/platform.py's `TrainingConfig`, `DataConfig` and
-`CheckpointConfig` the port's training path honours).
+`CheckpointConfig` the port's training path honours, and of
+`DisaggConfig` the serving replica reads).
 
 Fields keep the JAX package's names and defaults. A field of the JAX
 config that the port does not honour yet is absent here, so passing it
@@ -193,3 +194,22 @@ class TrainingConfig:
         not honour raises, naming the ROADMAP item it waits for."""
         _check_keys(raw, cls, _UNPORTED_FIELDS, "")
         return cls(**raw)
+
+
+@dataclasses.dataclass
+class DisaggConfig:
+    """The disaggregated prefill/decode fleet, the field a serving
+    replica reads: `handoff_chains` bounds the committed radix pages a
+    draining replica ships to the keys' new rendezvous homes
+    (`POST /v1/kv/handoff` without a "chains" count; hottest first, the
+    host tier included). The fleet's other knobs (tiers, steering,
+    autoscale) wait for the router (ROADMAP A14)."""
+
+    handoff_chains: int = 64
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.handoff_chains < 1:
+            raise ConfigError("serving.disagg.handoff_chains must be >= 1")

@@ -112,6 +112,9 @@ def quantized_params_from_jax(qparams: Mapping) -> Dict[str, Any]:
 
 
 PARAM_LAYOUTS = ("named", "scan")
+# the scan-stacked layout's module path: flax's nn.scan over `block`
+# under `layers`, every leaf with a leading [L] axis
+SCAN_BLOCK = "layers/block"
 
 
 def jax_path(name: str) -> str:
@@ -144,7 +147,7 @@ def params_to_jax(state_dict: Mapping[str, Any], layout: str = "named"
         else:
             out[path] = arr
     for rest, layers in per_layer.items():
-        out[f"layers/block/{rest}"] = np.stack(
+        out[f"{SCAN_BLOCK}/{rest}"] = np.stack(
             [layers[i] for i in range(len(layers))]
         )
     return out

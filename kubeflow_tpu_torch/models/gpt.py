@@ -46,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -161,10 +161,16 @@ class KVPool:
     def quantized(self) -> bool:
         return self.k_scale is not None
 
+    def fields(self) -> dict:
+        """{field name: tensor} of every pool tensor: "k", "v", then
+        "k_scale", "v_scale" when int8."""
+        return {name: t for name, t in (
+            ("k", self.k), ("v", self.v), ("k_scale", self.k_scale),
+            ("v_scale", self.v_scale)) if t is not None}
+
     def tensors(self):
         """Every pool tensor: values, then scales when int8."""
-        return [t for t in (self.k, self.v, self.k_scale, self.v_scale)
-                if t is not None]
+        return list(self.fields().values())
 
     @property
     def nbytes(self) -> int:
@@ -636,6 +642,86 @@ def copy_pool_page(pool: KVPool, src: int, dst: int) -> KVPool:
     for t in pool.tensors():
         t[:, dst] = t[:, src]
     return pool
+
+
+def gather_pool_pages(pool: KVPool, pages: Sequence[int], device=None,
+                      out: Optional[Sequence[dict]] = None) -> List[dict]:
+    """Pages `pages` of every pool tensor as page-axis-free copies, one
+    dict a page ({field: [L, page_size, H, D]}, and an int8 pool's [L,
+    page_size, H, 1] bf16 scales): the spill tier's, the store's and the
+    handoff's device→host read. One gather per pool tensor; without
+    `out`, one copy moves all the pages to `device` (default: the
+    pool's; to the CPU through a pinned staging buffer) and the pages
+    are views of it; with `out` (page trees of preallocated host
+    tensors, e.g. the host tier's arena slots), each page is copied into
+    its tree. A copy to the CPU is complete when this returns, so the
+    engine may overwrite the pages right after. Pure data movement: the
+    gathered bits are the pool's."""
+    dev = torch.device(device) if device is not None else pool.k.device
+    idx = torch.as_tensor([int(p) for p in pages], dtype=torch.long,
+                          device=pool.k.device)
+    result = list(out) if out is not None else [{} for _ in pages]
+    for name, t in pool.fields().items():
+        block = t.index_select(1, idx).transpose(0, 1)  # [n, L, ps, H, D]
+        if out is not None:
+            for page, part in zip(result, block.contiguous().unbind(0)):
+                page[name].copy_(part)
+            continue
+        if block.device != dev:
+            staged = torch.empty(block.shape, dtype=block.dtype,
+                                 pin_memory=block.is_cuda and dev.type == "cpu")
+            staged.copy_(block)
+            block = staged
+        for page, part in zip(result, block.unbind(0)):
+            page[name] = part
+    return result
+
+
+def gather_pool_page(pool: KVPool, page: int, device=None) -> dict:
+    """One page of `gather_pool_pages`."""
+    return gather_pool_pages(pool, [page], device)[0]
+
+
+def scatter_pool_pages(pool: KVPool, page_trees: Sequence[dict],
+                       dsts: Sequence[int]) -> KVPool:
+    """Write gathered pages (`gather_pool_pages`' shape, any device)
+    onto pool pages `dsts`, in place: the host tier's upload and the
+    prefix store's preload. Each page is copied into one block on the
+    pool's device (asynchronously from pinned host pages, such as the
+    host tier's arena slots: the stream orders the copies before any
+    later write of their slots) and one indexed copy a pool tensor
+    places them all. The inverse of `gather_pool_pages`, so uploaded
+    bits equal the gathered ones. A page whose fields or shapes differ
+    from the pool's raises ValueError before anything is written."""
+    fields = pool.fields()
+    for page in page_trees:
+        if sorted(page) != sorted(fields):
+            raise ValueError(f"page fields {sorted(page)} do not match the "
+                             f"pool's {sorted(fields)}")
+        for name, t in fields.items():
+            want = t.shape[:1] + t.shape[2:]
+            if tuple(page[name].shape) != tuple(want):
+                raise ValueError(f"page field {name!r} has shape "
+                                 f"{tuple(page[name].shape)}, the pool's "
+                                 f"page is {tuple(want)}")
+    if len(page_trees) != len(dsts):
+        raise ValueError(f"{len(page_trees)} pages for {len(dsts)} "
+                         "destinations")
+    if not page_trees:
+        return pool
+    idx = torch.as_tensor([int(d) for d in dsts], dtype=torch.long,
+                          device=pool.k.device)
+    for name, t in fields.items():
+        block = t.new_empty((len(page_trees),) + t.shape[:1] + t.shape[2:])
+        for part, page in zip(block.unbind(0), page_trees):
+            part.copy_(page[name], non_blocking=True)
+        t.index_copy_(1, idx, block.transpose(0, 1))
+    return pool
+
+
+def scatter_pool_page(pool: KVPool, page_tree: dict, dst: int) -> KVPool:
+    """One page of `scatter_pool_pages`."""
+    return scatter_pool_pages(pool, [page_tree], [dst])
 
 
 def int8_model(model: Gpt, envelope: Optional[dict] = None) -> Gpt:

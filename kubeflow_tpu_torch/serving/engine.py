@@ -31,6 +31,19 @@ the `:generate` slice runs).
   or not, runs to completion under a deadline; stragglers then fail
   fast.
 
+- TIERED KV (serving/kv_tiers.py): with `kv_host_bytes` > 0, radix
+  eviction parks the last reference's page contents in a host-RAM LRU
+  tier instead of dropping them, and an admission whose prompt
+  continues the radix match into parked chunks uploads them instead of
+  prefilling them. With `kv_persist_dir`, the hottest committed chains
+  are written to a two-phase on-disk store (every
+  `kv_persist_interval_s`, and once as the scheduler stops) and a new
+  engine on the same directory preloads them before its first request.
+  The same pages move between replicas: `export_prefix_entries`,
+  `export_hot_entries` and `import_page_entries` (the server's
+  `/v1/kv/pages`, `:prefill` and `/v1/kv/handoff`). Every move is data
+  movement, so greedy output equals the always-resident engine's.
+
 `paged_attention` selects the read path: "gather" (a per-slot view plus
 dense attention) or "kernel" (the CUDA page-walk kernels of
 ops/paged_attention.py — the counterpart of the JAX engine's "pallas"):
@@ -44,8 +57,8 @@ donate the pool; here the pool tensors are updated in place. Greedy
 engine output equals `generate()` (serving/generate.py) over the same
 weights.
 
-Not ported yet: the serving mesh, MoE, the host/disk KV tiers, the
-pool rebuild of recover, and chaos.
+Not ported yet: the serving mesh, MoE, the pool rebuild of recover,
+chaos, trace spans and `/statusz`.
 """
 
 from __future__ import annotations
@@ -64,9 +77,21 @@ from kubeflow_tpu_torch.models.gpt import (
     KVPool,
     PagedState,
     copy_pool_page,
+    gather_pool_pages,
     insert_pages,
     int8_model,
     make_paged_pool,
+    scatter_pool_pages,
+)
+from kubeflow_tpu_torch.serving.kv_tiers import (
+    DEFAULT_KV_LAYOUT,
+    KV_LAYOUTS,
+    HostKVTier,
+    HostPageArena,
+    PageEntry,
+    PersistentPrefixStore,
+    page_from_flat,
+    page_to_flat,
 )
 from kubeflow_tpu_torch.serving.sampling import (
     SALT_ACCEPT,
@@ -80,7 +105,14 @@ from kubeflow_tpu_torch.serving.sampling import (
 )
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.utils.logging import get_logger
-from kubeflow_tpu_torch.utils.metrics import default_registry
+from kubeflow_tpu_torch.utils.metrics import (
+    default_registry,
+    serving_kv_handoff_ms_counter,
+    serving_kv_handoff_pages_counter,
+    serving_kv_persisted_chains_gauge,
+    serving_kv_spill_hits_counter,
+    serving_kv_spill_pages_counter,
+)
 
 log = get_logger(__name__)
 
@@ -163,6 +195,16 @@ def bucket_for(prompt_len: int, buckets: Sequence[int]) -> int:
     )
 
 
+def _copied(page: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {name: t.clone() for name, t in page.items()}
+
+
+def _prefix_key(tokens, n: int) -> tuple:
+    """The first `n` tokens (a numpy row) as the radix index's and the
+    host tier's key."""
+    return tuple(tokens[:n].tolist())
+
+
 # Chunk-prefill window floor: windows are page-aligned but never smaller
 # than this many tokens (a 16-token forward wastes most of a matmul's
 # width). Pad positions past the real tail are written onto pages the
@@ -183,17 +225,28 @@ def resolve_num_pages(num_pages, num_slots: int, model_cfg, page_size: int,
     """The pool-sizing rule: explicit num_pages wins; auto sizing takes
     `auto_num_pages` and, at quantize=int8, scales it by
     `int8_page_capacity_ratio` (the same bytes hold ~2x the pages).
-    Telemetry-driven sizing and the tensor-sharded mesh are not ported
-    and raise."""
-    if telemetry:
-        raise ValueError("pool sizing from telemetry is not ported yet "
-                         "(ROADMAP A10: serving/kv_tiers.py)")
+
+    `telemetry` (serving/kv_tiers.py `pool_sizing_telemetry`) feeds the
+    previous engine's live pressure into the auto fraction: low observed
+    utilization shrinks the pool toward 1/2 of the slot-row footprint,
+    high utilization or a hot prefix cache keeps the full 3/4. The
+    static 3/4 stays the ceiling and the one-full-request floor still
+    applies. The tensor-sharded mesh is not ported and raises."""
     if int(mesh_tensor) > 1:
         raise ValueError("mesh_tensor > 1 is not ported yet (ROADMAP A13: "
                          "the serving mesh)")
     if num_pages:
         return int(num_pages)
     pages = auto_num_pages(num_slots, model_cfg.max_len, page_size)
+    if telemetry:
+        util = float(telemetry.get("pages_utilization", 1.0))
+        hit = float(telemetry.get("prefix_hit_rate", 0.0))
+        # observed occupancy plus headroom for the reuse the prefix
+        # cache turns into residency, clamped to [1/2, 3/4] of the
+        # slot-row footprint
+        frac = min(0.75, max(0.5, util * 1.25 + 0.25 * hit))
+        per_slot = model_cfg.max_len // page_size
+        pages = max(per_slot, int(num_slots * per_slot * frac))
     if quantize == "int8":
         head_dim = model_cfg.hidden_size // model_cfg.num_heads
         itemsize = torch.finfo(model_cfg.dtype).bits // 8
@@ -295,9 +348,13 @@ class PagePool:
         if self._ref[page] > 1:
             self._tree_shared -= 1
 
+    def reset(self) -> None:
+        """Everything free again (a failed preload's cold start)."""
+        self.__init__(self.num_pages)
+
 
 class _RadixNode:
-    __slots__ = ("chunk", "page", "children", "parent", "last_used")
+    __slots__ = ("chunk", "page", "children", "parent", "last_used", "hits")
 
     def __init__(self, chunk, page, parent):
         self.chunk = chunk          # tuple of page_size token ids
@@ -305,6 +362,17 @@ class _RadixNode:
         self.parent = parent
         self.children: Dict[tuple, "_RadixNode"] = {}
         self.last_used = 0
+        self.hits = 0               # full-page matches: the persist rank
+
+    def key(self) -> tuple:
+        """The page-aligned token prefix this node commits: the host
+        tier's and the prefix store's entry key."""
+        parts = []
+        node = self
+        while node.chunk is not None:
+            parts.append(node.chunk)
+            node = node.parent
+        return tuple(t for chunk in reversed(parts) for t in chunk)
 
 
 class RadixPrefixIndex:
@@ -325,6 +393,14 @@ class RadixPrefixIndex:
         self._clock = 0
         # leaves maintained incrementally: eviction scans only these
         self._leaves: Dict[_RadixNode, None] = {}
+        # called with (token key, page, hits) just before eviction drops
+        # the LAST reference to a page: the engine's chance to park the
+        # contents in the host tier. None = no spill.
+        self.spill_hook = None
+
+    def reset(self) -> None:
+        self.root = _RadixNode(None, -1, None)
+        self._leaves = {}
 
     def match(self, tokens) -> Tuple[List[int], int, Optional[Tuple[int, int]]]:
         """Longest committed prefix of `tokens`: (full-page chain,
@@ -342,6 +418,7 @@ class RadixPrefixIndex:
             if child is None:
                 break
             child.last_used = self._clock
+            child.hits += 1
             pages.append(child.page)
             node = child
             i += ps
@@ -402,8 +479,44 @@ class RadixPrefixIndex:
             if not parent.children and parent is not self.root:
                 self._leaves[parent] = None
             self.pool.unmark_tree(victim.page)
+            if (self.spill_hook is not None
+                    and self.pool.refcount(victim.page) == 1):
+                # the release below frees the page (the tree held the
+                # last reference): park its contents first, keyed by
+                # the whole page-aligned prefix it committed
+                self.spill_hook(victim.key(), victim.page, victim.hits)
             freed += self.pool.release([victim.page])
         return freed
+
+    def hot_chains(self, limit: int) -> List[Tuple[tuple, int, int]]:
+        """The persist set: up to `limit` committed nodes as (token key,
+        page, hits), ranked by hits, each with every ancestor on its
+        chain, sorted parents first (the loader admits parents before
+        children). Walks the whole tree: persists come seconds apart,
+        not steps."""
+        nodes: List[_RadixNode] = []
+        stack = list(self.root.children.values())
+        while stack:
+            node = stack.pop()
+            nodes.append(node)
+            stack.extend(node.children.values())
+        nodes.sort(key=lambda n: n.hits, reverse=True)
+        chosen: Dict[_RadixNode, None] = {}
+        for node in nodes:
+            if len(chosen) >= limit:
+                break
+            chain = []
+            walk = node
+            while walk.chunk is not None and walk not in chosen:
+                chain.append(walk)
+                walk = walk.parent
+            if len(chosen) + len(chain) > limit:
+                continue
+            for n in chain:
+                chosen[n] = None
+        out = [(n.key(), n.page, n.hits) for n in chosen]
+        out.sort(key=lambda e: len(e[0]))
+        return out
 
 
 class EnginePrograms:
@@ -529,6 +642,19 @@ class EnginePrograms:
 
     def cow(self, pool: KVPool, src: int, dst: int):
         return copy_pool_page(pool, src, dst)
+
+    def spill(self, pool: KVPool, pages: Sequence[int],
+              out: Optional[Sequence[dict]] = None) -> List[dict]:
+        """Copy pages of `pool` (target's or draft's) to host memory, one
+        page tree each (into `out`'s trees when given): the host tier's,
+        the store's and the handoff's read. The copy is complete on
+        return, so the pages may be reused right after."""
+        return gather_pool_pages(pool, pages, device="cpu", out=out)
+
+    def upload(self, pool: KVPool, page_trees: Sequence[dict],
+               dsts: Sequence[int]):
+        """Write spilled pages onto pool pages `dsts` (in place)."""
+        return scatter_pool_pages(pool, page_trees, dsts)
 
     def step(self, pool: KVPool, tokens, page_table, cursors, seeds,
              counters, temps, top_ks, top_ps):
@@ -699,7 +825,18 @@ class DecodeEngine:
     `num_draft_tokens` K > 0 decodes speculatively with `draft_model`
     (a model with its own weights on the engine's device, the same
     vocabulary and at least the target's max_len; at int8 it becomes an
-    int8 model too). A drafted engine never runs the one-token step."""
+    int8 model too). A drafted engine never runs the one-token step.
+
+    KV tiers (serving/kv_tiers.py; both need the prefix cache):
+    `kv_host_bytes` > 0 parks evicted prefix pages in a host-RAM LRU of
+    that many bytes; `kv_persist_dir` keeps the `kv_persist_chains`
+    hottest committed pages in an on-disk store, written every
+    `kv_persist_interval_s` (0: only as the scheduler stops) and
+    preloaded by the next engine on the directory. `pool_telemetry`
+    (`kv_tiers.pool_sizing_telemetry()`) sizes an auto pool from an
+    earlier engine's pressure. Pages leave the engine (store, export)
+    as the JAX pool's leaves in `kv_layout`: "scan" (the JAX serving
+    entrypoint's models) or "named"; they come in from either."""
 
     def __init__(
         self,
@@ -718,8 +855,18 @@ class DecodeEngine:
         quantize: Optional[str] = None,
         draft_model=None,
         num_draft_tokens: int = 0,
+        kv_host_bytes: int = 0,
+        kv_persist_dir: Optional[str] = None,
+        kv_persist_interval_s: float = 0.0,
+        kv_persist_chains: int = 64,
+        pool_telemetry=None,
+        kv_layout: str = DEFAULT_KV_LAYOUT,
     ):
         self.device = resolve_device(device)
+        if kv_layout not in KV_LAYOUTS:
+            raise ValueError(
+                f"kv_layout {kv_layout!r} must be one of {KV_LAYOUTS}"
+            )
         if int(num_draft_tokens) <= 0:
             draft_model = None  # K = 0 ignores a draft, as the reference
         for role, m in (("model", model), ("draft model", draft_model)):
@@ -752,7 +899,8 @@ class DecodeEngine:
         self.paged_attention = paged_attention or DEFAULT_PAGED_ATTENTION
         ps = int(page_size) if page_size else DEFAULT_PAGE_SIZE
         pool_pages = resolve_num_pages(num_pages, num_slots, cfg, ps,
-                                       self.quantize)
+                                       self.quantize,
+                                       telemetry=pool_telemetry)
         self.programs = EnginePrograms(
             model, page_size=ps, num_pages=pool_pages,
             paged_attention=self.paged_attention, quantize=self.quantize,
@@ -795,6 +943,49 @@ class DecodeEngine:
             RadixPrefixIndex(ps, self._pagepool)
             if self.prefix_cache_enabled else None
         )
+        # -- KV tiers (serving/kv_tiers.py): host RAM below the pool, disk
+        # below that, both keyed by the radix index's token tuples; pages
+        # leave the engine as the JAX pool's leaves in `kv_layout`
+        self.kv_layout = kv_layout
+        self.kv_host_bytes = int(kv_host_bytes or 0)
+        self.kv_persist_dir = kv_persist_dir or None
+        self.kv_persist_interval_s = float(kv_persist_interval_s or 0.0)
+        self.kv_persist_chains = int(kv_persist_chains)
+        self._host_tier: Optional[HostKVTier] = None
+        self._persist_store: Optional[PersistentPrefixStore] = None
+        # eviction's victims, in the hook's order, waiting for their one
+        # batched device→host copy (_flush_spills)
+        self._pending_spills: List[Tuple[tuple, int, int]] = []
+        if self._radix is not None and self.kv_host_bytes > 0:
+            # the tier's pages live in an arena of page slots, allocated
+            # (and on the card pinned) once: the budget's pages, and one
+            # request's more for the pages an admission has taken out of
+            # the tier and is still uploading
+            template = self._page_template(self._pool)
+            dtemplate = (self._page_template(self._draft_pool)
+                         if self._draft_pool is not None else None)
+            self._host_page_bytes = sum(
+                t.numel() * t.element_size()
+                for page in (template, dtemplate or {}) for t in page.values()
+            )
+            self._host_capacity = self.kv_host_bytes // self._host_page_bytes
+            if self._host_capacity < 1:
+                raise ValueError(
+                    f"kv_host_bytes {self.kv_host_bytes} holds no page "
+                    f"({self._host_page_bytes} B a page)"
+                )
+            self._host_arena = HostPageArena(
+                template, dtemplate, self._host_capacity + self._max_pages,
+                pin=self.device.type == "cuda",
+            )
+            self._host_tier = HostKVTier(
+                self.kv_host_bytes,
+                on_drop=lambda entry: self._host_arena.release(entry.slot),
+            )
+            self._radix.spill_hook = self._spill_page
+        if self._radix is not None and self.kv_persist_dir:
+            self._persist_store = PersistentPrefixStore(self.kv_persist_dir)
+        self._last_persist = time.monotonic()
         self._pt_np = np.zeros((num_slots, self._max_pages), np.int32)
         # parked cursor = max_len: the paged write drops positions past
         # the logical window, so idle/retired rows write nothing
@@ -817,6 +1008,10 @@ class DecodeEngine:
         # -- shared state (condition-lock-guarded) ----------------------
         self._cv = threading.Condition()
         self._queue: deque = deque()
+        # control jobs (the page export/import surface): closures that
+        # touch scheduler-owned state, run between iterations on the
+        # scheduler thread (_run_on_scheduler)
+        self._control: deque = deque()
         self._stop = False
         # drain(): admission refused from here on; `_admitting` counts
         # requests popped from the queue and not yet resident, so drain's
@@ -842,6 +1037,14 @@ class DecodeEngine:
         self._accepted = 0
         self._verifies = 0
         self._rewind_pages_returned = 0
+        # KV tiers: pages parked in the host tier, pages re-admitted from
+        # it, pages in the last persisted (or preloaded) generation, and
+        # the wall time of the last persist and of the preload
+        self._spill_pages = 0
+        self._spill_hits = 0
+        self._persisted_chains = 0
+        self._persist_seconds = 0.0
+        self._preload_seconds = 0.0
         # read-path evidence: window size (query rows per pool walk) ->
         # read path that served it
         self._attn_windows: Dict[int, str] = {}
@@ -891,9 +1094,34 @@ class DecodeEngine:
             "serving_drain_seconds", "drain() start to idle or deadline",
             ["model"],
         )
+        self._pages_total_g = reg.gauge(
+            "serving_kv_pages_total", "configured KV pool page capacity",
+            ["model"],
+        )
+        self._prefix_hits_m = reg.counter(
+            "serving_prefix_cache_hit_tokens_total",
+            "prompt tokens mapped copy-free from the prefix cache", ["model"],
+        )
+        self._prefix_lookups_m = reg.counter(
+            "serving_prefix_cache_lookups_total",
+            "prefix-cache lookups at admission", ["model"],
+        )
+        self._spill_pages_m = serving_kv_spill_pages_counter()
+        self._spill_hits_m = serving_kv_spill_hits_counter()
+        self._persisted_chains_g = serving_kv_persisted_chains_gauge()
+        self._handoff_pages_m = serving_kv_handoff_pages_counter()
+        self._handoff_ms_m = serving_kv_handoff_ms_counter()
         self._queue_depth_g.set(0, model=name)
         self._occupancy_g.set(0.0, model=name)
         self._pages_in_use_g.set(0, model=name)
+        self._pages_total_g.set(self.num_pages, model=name)
+        self._persisted_chains_g.set(0, model=name)
+
+        # warm restart: the persisted hot chains land in the pool and the
+        # radix index BEFORE the scheduler starts, so the first request
+        # already sees them as prefix hits
+        if self._persist_store is not None:
+            self._preload_persisted()
 
         self._thread = threading.Thread(
             target=self._loop, daemon=True, name=f"decode-engine-{name}"
@@ -1023,6 +1251,19 @@ class DecodeEngine:
                 "prefill_compute_tokens": self._prefill_compute_tokens,
                 "pages_allocated": self._pages_allocated,
                 "rewind_pages_returned": self._rewind_pages_returned,
+                # KV tiers (serving/kv_tiers.py): pages parked in host RAM
+                # at eviction, pages re-admitted from there, the pages of
+                # the last persisted (or preloaded) generation, and the
+                # wall seconds of the last persist and of the preload
+                "kv_spill_pages": self._spill_pages,
+                "kv_spill_hits": self._spill_hits,
+                "kv_host_tier": (
+                    self._host_tier.stats()
+                    if self._host_tier is not None else None
+                ),
+                "kv_persisted_chains": self._persisted_chains,
+                "kv_persist_seconds": self._persist_seconds,
+                "kv_preload_seconds": self._preload_seconds,
                 "pages_in_use": self._pagepool.in_use,
                 # pages the prefix index holds: an idle engine's
                 # pages_in_use, when no page leaked
@@ -1098,6 +1339,10 @@ class DecodeEngine:
             log.warning("engine %s scheduler still running after close "
                         "timeout; leaving slot state to it", self.name)
             return
+        # a control job queued after the scheduler's last drain runs here,
+        # so its caller never waits out the job timeout
+        with torch.inference_mode():
+            self._drain_control()
         for i, slot in enumerate(self._slots):
             if slot is not None:
                 self._slots[i] = None
@@ -1140,6 +1385,9 @@ class DecodeEngine:
         short = n - self._pagepool.free_count
         if short > 0 and self._radix is not None:
             self._radix.evict(short)
+            # the victims' contents reach the host tier before any page
+            # is handed out, so no write can race their copy
+            self._flush_spills()
         pages = self._pagepool.alloc(n)
         if pages is None:
             # unreachable behind the admission gate
@@ -1199,16 +1447,34 @@ class DecodeEngine:
 
     def _prefix_lookup(self, slot_idx: int, prompt: np.ndarray) -> int:
         """Map the prompt's committed prefix onto slot `slot_idx`: full
-        pages copy-free, the partially matched boundary page through a
-        copy-on-write. Returns the matched token count (0 = miss)."""
+        pages copy-free, chunks parked in the host tier that continue the
+        radix match by upload, the partially matched boundary page by a
+        copy-on-write (from the host tier: by an upload, which is a
+        private copy already). Returns the matched token count (0 =
+        miss)."""
         ps = self.page_size
         p = int(prompt.size)
         with self._stats_lock:
             self._prefix_lookups += 1
+        self._prefix_lookups_m.inc(model=self.name)
         chain, full_m, partial = self._radix.match(prompt)
+        # host-tier probe: parked chunks that CONTINUE the radix match
+        # (`in` leaves the LRU order alone; the entries are pulled after
+        # the hit threshold's verdict)
+        tier_pages = 0
+        if self._host_tier is not None and len(self._host_tier):
+            while (full_m + (tier_pages + 1) * ps <= p
+                   and _prefix_key(prompt, full_m + (tier_pages + 1) * ps)
+                   in self._host_tier):
+                tier_pages += 1
         # never map the WHOLE prompt: the last real token must run through
-        # a chunk window to produce the first-token logits
-        m = min(full_m + (partial[1] if partial is not None else 0), p - 1)
+        # a chunk window to produce the first-token logits. Tier chunks
+        # reach past the radix frontier, so they supersede its partial.
+        if tier_pages:
+            m = min(full_m + tier_pages * ps, p - 1)
+        else:
+            m = min(full_m + (partial[1] if partial is not None else 0),
+                    p - 1)
         largest = self.prefill_buckets[-1]
         if not (m * 2 >= p or (p > largest and m >= largest)):
             # a small hit is slower than a miss: it routes the whole tail
@@ -1216,29 +1482,415 @@ class DecodeEngine:
             # prompt, or past the largest bucket the head prefill.
             return 0
         q, r = divmod(m, ps)
+        n_radix = min(q, len(chain))
+        # pull the host copies NOW, before a page alloc below can evict,
+        # spill and rotate the tier under the probe: full chunks leave
+        # the tier (the radix insert below commits them on the card
+        # again); the boundary chunk is peeked, since its upload is a
+        # private copy and the parked entry stays shared
+        tier_entries: List[PageEntry] = []
+        boundary = None
+        if tier_pages:
+            tier_entries = [
+                self._host_tier.take(_prefix_key(prompt, (c + 1) * ps))
+                for c in range(n_radix, q)
+            ]
+            if r > 0:
+                shared = self._host_tier.get(_prefix_key(prompt,
+                                                         (q + 1) * ps))
+                # a copy: the allocs below may evict the parked entry
+                # and hand its arena slot to a victim
+                boundary = PageEntry(
+                    _copied(shared.target),
+                    None if shared.draft is None else _copied(shared.draft),
+                )
         pages: List[int] = []
-        for pg in chain[:q]:
+        for pg in chain[:n_radix]:
             self._pagepool.retain([pg])
             self._pt_np[slot_idx, len(pages)] = pg
             pages.append(pg)
         self._slot_pages[slot_idx] = pages
+        if tier_entries:
+            dsts = self._alloc_pages(len(tier_entries))
+            self._upload_entries(tier_entries, dsts)
+            # taken pages left the tier: their slots are free once copied
+            for entry in tier_entries:
+                self._host_arena.release(entry.slot)
+            for dst in dsts:
+                self._pt_np[slot_idx, len(pages)] = dst
+                pages.append(dst)
+            # commit the promoted chunks: radix chunks keep their page,
+            # uploaded ones adopt theirs, and the next admission of this
+            # prefix matches on the card
+            self._radix.insert(prompt[: q * ps], pages[:q])
         self._slot_shared[slot_idx] = q
+        tier_hits = len(tier_entries)
         if r > 0:
-            # copy-on-write at the divergence/extension boundary: this slot
-            # will write into the page's tail, so it gets its own copy
-            src = chain[q] if q < len(chain) else partial[0]
+            # this slot writes into the boundary page's tail, so it gets
+            # its own copy; the donor page stays untouched
             dst = self._alloc_pages(1)[0]
-            self.programs.cow(self._pool, src, dst)
-            if self._draft_pool is not None:
-                # the donor page's draft K/V was written with its chain
-                self.programs.cow(self._draft_pool, src, dst)
-            with self._stats_lock:
-                self._cow_copies += 1
+            if boundary is not None:
+                self._upload_entries([boundary], [dst])
+                tier_hits += 1
+            else:
+                src = chain[q] if q < len(chain) else partial[0]
+                self.programs.cow(self._pool, src, dst)
+                if self._draft_pool is not None:
+                    # the donor page's draft K/V was written with its chain
+                    self.programs.cow(self._draft_pool, src, dst)
+                with self._stats_lock:
+                    self._cow_copies += 1
             self._pt_np[slot_idx, len(pages)] = dst
             pages.append(dst)
+        if tier_hits:
+            self._spill_hits_m.inc(tier_hits, model=self.name)
+        self._prefix_hits_m.inc(m, model=self.name)
         with self._stats_lock:
             self._prefix_hit_tokens += m
+            self._spill_hits += tier_hits
         return m
+
+    # -- KV tiers (serving/kv_tiers.py; scheduler thread only) -------------
+
+    def _spill_page(self, key, page: int, hits: int) -> None:
+        """Radix eviction's spill hook: the tree is about to drop the LAST
+        reference to `page`. Note it; `_flush_spills` parks the contents
+        of every victim of the eviction in the host tier (target and, at
+        K > 0, draft pools; int8 values with their scales), keyed by the
+        prefix each committed, in the hook's order."""
+        self._pending_spills.append((key, page, hits))
+
+    def _flush_spills(self) -> None:
+        """Copy the pending victims' pages into host-arena slots (one
+        gather a pool tensor) and park them in the host tier, in the
+        hook's order. The copy is complete when this returns, so the
+        pages' next writers cannot race it."""
+        pending, self._pending_spills = self._pending_spills, []
+        if not pending:
+            return
+        # a batch larger than the whole tier keeps its last victims: the
+        # puts of the later ones would evict the earlier ones again
+        pending = pending[-self._host_capacity:]
+        # the room the puts need, made first, so the slots are free before
+        # the copy: a key parked already is replaced, the rest evict the
+        # least recently used entries, as the puts would
+        for key, _, _ in pending:
+            self._host_tier.discard(key)
+        self._host_tier.make_room(len(pending) * self._host_page_bytes)
+        slots = self._host_arena.alloc(len(pending))
+        trees = [self._host_arena.pages(slot) for slot in slots]
+        pages = [page for _, page, _ in pending]
+        self.programs.spill(self._pool, pages, out=[t for t, _ in trees])
+        if self._draft_pool is not None:
+            self.programs.spill(self._draft_pool, pages,
+                                out=[d for _, d in trees])
+        parked = 0
+        for (key, _, hits), slot, (target, draft) in zip(pending, slots,
+                                                         trees):
+            parked += self._host_tier.put(
+                key, PageEntry(target, draft, hits=hits, slot=slot))
+        if parked:
+            with self._stats_lock:
+                self._spill_pages += parked
+            self._spill_pages_m.inc(parked, model=self.name)
+
+    def _upload_entries(self, entries: Sequence[PageEntry],
+                        dsts: Sequence[int]) -> None:
+        """Write host-tier pages onto pool pages `dsts`, one batched copy
+        a pool tensor: target and (K > 0) draft pools in lockstep, like
+        every other write path."""
+        self.programs.upload(self._pool, [e.target for e in entries], dsts)
+        if self._draft_pool is not None:
+            self.programs.upload(self._draft_pool,
+                                 [e.draft for e in entries], dsts)
+
+    @staticmethod
+    def _page_template(pool: KVPool) -> Dict[str, torch.Tensor]:
+        """One page of `pool`, shapes and dtypes only (meta tensors): what
+        a stored or shipped page must rebuild against."""
+        return {name: torch.empty(t.shape[:1] + t.shape[2:], dtype=t.dtype,
+                                  device="meta")
+                for name, t in pool.fields().items()}
+
+    def _page_leaves(self, page) -> Dict[str, torch.Tensor]:
+        """A port page as the JAX pool's leaves in this engine's layout:
+        the form the store and the wire carry."""
+        return page_to_flat(page, self.kv_layout)
+
+    def _export_entries(self, nodes) -> list:
+        """Committed pages out of the pool(s), (key, page, hits) each, as
+        (tokens, target, draft, hits) entries of JAX page leaves: the
+        spill's batched device→host copy, so a page re-uploads with the
+        same bits."""
+        pages = [page for _, page, _ in nodes]
+        if not pages:
+            return []
+        targets = self.programs.spill(self._pool, pages)
+        drafts = (self.programs.spill(self._draft_pool, pages)
+                  if self._draft_pool is not None else [None] * len(pages))
+        return [(key, self._page_leaves(target),
+                 None if draft is None else self._page_leaves(draft), hits)
+                for (key, _, hits), target, draft
+                in zip(nodes, targets, drafts)]
+
+    def _decode_entries(self, entries) -> List[Tuple[tuple, dict, Optional[dict], int]]:
+        """Rebuild stored or shipped entries (decode_page_entries /
+        PersistentPrefixStore.load output) as port pages against this
+        engine's pools: (tokens, target, draft or None, hits). Raises
+        KeyError/ValueError on any leaf of any entry that does not fit,
+        before anything touches the pool. An entry without draft leaves
+        gets draft None (a drafted engine skips it)."""
+        template = self._page_template(self._pool)
+        dtemplate = (self._page_template(self._draft_pool)
+                     if self._draft_pool is not None else None)
+        out = []
+        for ent in entries:
+            target = page_from_flat(template, ent["target"])
+            draft = (page_from_flat(dtemplate, ent["draft"])
+                     if dtemplate is not None and ent["draft"] is not None
+                     else None)
+            out.append((tuple(int(t) for t in ent["tokens"]), target, draft,
+                        int(ent["hits"])))
+        return out
+
+    def _admit_entries(self, entries) -> int:
+        """Admit decoded entries (parents first) into the pool and the
+        radix index as committed, evictable chains: each page lands
+        tree-only (refcount 1) and frees under eviction like any other.
+        A chain whose parent is neither in `entries` nor committed here
+        is an orphan and skipped; one already committed keeps its page
+        and merges the heat; a drafted engine skips entries without
+        draft pages; admission stops while one full request's pages
+        could not be free (the first admissions never queue behind it).
+        Returns the pages admitted."""
+        ps = self.page_size
+        admitted = 0
+        path_pages: Dict[tuple, List[int]] = {(): []}
+        for tokens, target, draft, hits in entries:
+            if len(tokens) < ps or len(tokens) % ps:
+                continue
+            parent_chain = path_pages.get(tokens[:-ps])
+            if parent_chain is None:
+                nodes = self._radix_walk(tokens[:-ps])
+                if nodes is None:
+                    continue
+                parent_chain = [n.page for n in nodes]
+            here = self._radix_walk(tokens)
+            if here is not None:
+                here[-1].hits = max(here[-1].hits, hits)
+                path_pages[tokens] = parent_chain + [here[-1].page]
+                continue
+            if self._draft_pool is not None and draft is None:
+                continue  # the sender ran no draft model: unusable here
+            if self._pagepool.free_count <= self._max_pages:
+                break
+            pg = self._alloc_pages(1)[0]
+            self._upload_entries([PageEntry(target, draft)], [pg])
+            chain = parent_chain + [pg]
+            self._radix.insert(np.asarray(tokens, np.int64), chain)
+            # drop the alloc's reference: the tree's keeps the page
+            self._pagepool.release([pg])
+            self._radix_walk(tokens)[-1].hits = hits
+            path_pages[tokens] = chain
+            admitted += 1
+        self._pages_in_use_g.set(self._pagepool.in_use, model=self.name)
+        return admitted
+
+    def _radix_walk(self, tokens):
+        """The node chain committing the page-aligned `tokens`, or None
+        where it breaks, without touching hits or recency (an export or
+        an import is not traffic)."""
+        ps = self.page_size
+        node = self._radix.root
+        chain = []
+        for i in range(0, len(tokens), ps):
+            node = node.children.get(tuple(int(t) for t in tokens[i : i + ps]))
+            if node is None:
+                return None
+            chain.append(node)
+        return chain
+
+    def _preload_persisted(self) -> None:
+        """Warm restart: load the persisted hot chains into the pool and
+        the radix index before the scheduler takes traffic. ANY defect
+        (a torn store, another shape, a failed upload) gives a cold
+        start, never a crash loop."""
+        t0 = time.monotonic()
+        entries = self._persist_store.load(self.page_size, self.quantize)
+        loaded = 0
+        if entries:
+            try:
+                loaded = self._admit_entries(self._decode_entries(entries))
+            except Exception:  # cold start beats a crash loop
+                log.exception("engine %s: persisted prefix preload failed; "
+                              "starting cold", self.name)
+                self._pagepool.reset()
+                self._radix.reset()
+                self._pages_in_use_g.set(0, model=self.name)
+                loaded = 0
+            if loaded:
+                log.info("engine %s: preloaded %d persisted prefix page(s)",
+                         self.name, loaded)
+        with self._stats_lock:
+            self._persisted_chains = loaded
+            self._preload_seconds = time.monotonic() - t0
+        self._persisted_chains_g.set(loaded, model=self.name)
+
+    def _maybe_persist(self, final: bool = False) -> None:
+        """Persist the hottest committed chains (by hits) to the two-phase
+        store: every `kv_persist_interval_s`, or now when `final` (the
+        scheduler's stop). A failed persist (disk full, permissions) logs
+        and keeps serving: persistence is an optimization, never a
+        liveness dependency."""
+        if self._persist_store is None:
+            return
+        now = time.monotonic()
+        if not final and (self.kv_persist_interval_s <= 0 or
+                          now - self._last_persist < self.kv_persist_interval_s):
+            return
+        self._last_persist = now
+        chains = self._radix.hot_chains(self.kv_persist_chains)
+        if not chains:
+            return
+        try:
+            entries = self._export_entries(chains)
+            self._persist_store.persist(entries, self.page_size,
+                                        self.quantize, model=self.name)
+        except Exception:  # persistence is best-effort
+            log.exception("engine %s: prefix-store persist failed; "
+                          "continuing without a fresh snapshot", self.name)
+            return
+        with self._stats_lock:
+            self._persisted_chains = len(entries)
+            self._persist_seconds = time.monotonic() - now
+        self._persisted_chains_g.set(len(entries), model=self.name)
+
+    # -- page handoff between replicas --------------------------------------
+    # A prefill replica exports a prompt's committed chain to the
+    # request's decode home; a draining replica exports its hottest
+    # chains to each key's new home. Both run ON the scheduler thread
+    # (_run_on_scheduler): export reads the pool, import writes it and
+    # the radix index, all scheduler-owned.
+
+    def _run_on_scheduler(self, fn, timeout_s: float = 600.0):
+        """Run `fn` on the scheduler thread between iterations and return
+        its result (or raise its exception). Runs inline when the
+        scheduler is not running (autostart=False, after close)."""
+        if not self._thread.is_alive():
+            with torch.inference_mode():
+                return fn()
+        job = {"fn": fn, "done": threading.Event(), "result": None,
+               "error": None}
+        with self._cv:
+            self._control.append(job)
+            self._cv.notify_all()
+        if not job["done"].wait(timeout_s):
+            raise TimeoutError(f"engine {self.name}: scheduler control job "
+                               f"did not complete within {timeout_s}s")
+        if job["error"] is not None:
+            raise job["error"]
+        return job["result"]
+
+    def _drain_control(self) -> None:
+        """Run every pending control job (scheduler thread only). A job
+        that raises fails its caller, never the loop; the pool is written
+        in place and an import checks every entry before it writes, so a
+        failed job leaves the pool as it was."""
+        while True:
+            with self._cv:
+                if not self._control:
+                    return
+                job = self._control.popleft()
+            try:
+                job["result"] = job["fn"]()
+            except Exception as e:  # per job: its caller gets it
+                job["error"] = e
+            finally:
+                job["done"].set()
+
+    def export_prefix_entries(self, prompt_ids) -> list:
+        """The committed chain covering `prompt_ids`' full pages as
+        (tokens, target, draft, hits) entries of JAX page leaves, parents
+        first: the prefill replica's side of the handoff
+        (`encode_page_entries` ships them). Empty when nothing is
+        committed."""
+        prompt = np.asarray(prompt_ids, dtype=np.int64).reshape(-1)
+
+        def job():
+            if self._radix is None:
+                return []
+            ps = self.page_size
+            nodes = []
+            node = self._radix.root
+            for i in range(0, (prompt.size // ps) * ps, ps):
+                node = node.children.get(_prefix_key(prompt[i:], ps))
+                if node is None:
+                    break
+                nodes.append((_prefix_key(prompt, i + ps), node.page,
+                              node.hits))
+            return self._export_entries(nodes)
+
+        return self._run_on_scheduler(job)
+
+    def export_hot_entries(self, limit: int) -> list:
+        """The hottest committed chains (by hits), the pool's first, then
+        the host tier's, as (tokens, target, draft, hits) entries of JAX
+        page leaves: what a draining replica ships to each key's new
+        rendezvous home."""
+        limit = int(limit)
+
+        def job():
+            out = []
+            seen = set()
+            if self._radix is not None:
+                chains = self._radix.hot_chains(limit)
+                out = self._export_entries(chains)
+                seen = {key for key, _, _ in chains}
+            if self._host_tier is not None:
+                for key in self._host_tier.keys():
+                    if len(out) >= limit or key in seen:
+                        continue
+                    ent = self._host_tier.get(key)
+                    if ent is not None:
+                        # copies: the arena slot is reused once this job
+                        # returns
+                        out.append((
+                            key, self._page_leaves(_copied(ent.target)),
+                            None if ent.draft is None
+                            else self._page_leaves(_copied(ent.draft)),
+                            ent.hits,
+                        ))
+            return out[:limit]
+
+        return self._run_on_scheduler(job)
+
+    def import_page_entries(self, entries) -> int:
+        """Admit decoded wire entries (`decode_page_entries` output) into
+        the pool and the radix index as committed, evictable chains: the
+        decode replica's side of the handoff. Orphans and duplicates are
+        skipped (a duplicate merges its heat) and pool headroom stops it
+        early, as the preload does; an entry whose leaves do not fit the
+        pools raises ValueError (the server answers 400) before any page
+        is written. Returns the pages admitted."""
+        return self._run_on_scheduler(lambda: self._import_entries(entries))
+
+    def _import_entries(self, entries) -> int:
+        if self._radix is None:
+            raise RuntimeError(f"engine {self.name} has prefix_cache "
+                               "disabled; handed-off pages have nowhere to "
+                               "land")
+        t0 = time.monotonic()
+        try:
+            decoded = self._decode_entries(entries)
+        except KeyError as e:
+            raise ValueError(f"missing page leaf {e}") from e
+        admitted = self._admit_entries(decoded)
+        if admitted:
+            self._handoff_pages_m.inc(admitted, model=self.name,
+                                      direction="in")
+        self._handoff_ms_m.inc((time.monotonic() - t0) * 1e3,
+                               model=self.name, direction="in")
+        return admitted
 
     def _admit(self, slot_idx: int, req: _Request) -> None:
         prompt = req.prompt
@@ -1366,21 +2018,36 @@ class DecodeEngine:
         return req.eos_id is not None and slot.tokens[-1] == req.eos_id
 
     def _loop(self) -> None:
+        # with the store on an interval, the idle wait is timed, so a
+        # quiet engine still takes its periodic snapshot
+        wait_s = (min(1.0, self.kv_persist_interval_s)
+                  if self._persist_store is not None
+                  and self.kv_persist_interval_s > 0 else None)
         # grad mode is thread-local: the scheduler thread sets its own
         with torch.inference_mode():
             while True:
                 with self._cv:
                     while (
                         not self._stop and not self._queue
+                        and not self._control
                         and not any(s is not None for s in self._slots)
                     ):
-                        self._cv.wait()
-                    if self._stop:
-                        return
+                        if not self._cv.wait(timeout=wait_s):
+                            break  # the idle persist tick
+                    stop = self._stop
+                # control jobs run between iterations, and once more on
+                # the way out, so a job that raced the stop still runs
+                self._drain_control()
+                if stop:
+                    # the shutdown snapshot: drain() and close() land here
+                    # with the radix warm, the set a restart preloads
+                    self._maybe_persist(final=True)
+                    return
                 try:
                     self._iterate()
                 except Exception as e:  # the thread must live
                     self._fail_resident(e)
+                self._maybe_persist()
 
     def _fail_resident(self, exc: BaseException) -> None:
         """A decode iteration failed: fail every resident request and free

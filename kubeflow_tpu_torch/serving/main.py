@@ -11,6 +11,12 @@ pages (the engine), or int8 weights on the static path (num_slots=0).
 `KFT_SERVING_DRAFT_MODEL` + `KFT_SERVING_DRAFT_TOKENS` turn on
 speculative decoding (a registry draft model, K tokens drafted per
 verify step), its trained params from `KFT_SERVING_DRAFT_CHECKPOINT_DIR`.
+`KFT_SERVING_KV_HOST_BYTES` gives the host-RAM tier its budget (evicted
+prefix pages are parked there and uploaded again on a hit),
+`KFT_SERVING_KV_PERSIST_DIR` the on-disk prefix store a restarted
+replica preloads (written every `KFT_SERVING_KV_PERSIST_INTERVAL_S`
+seconds when > 0, and at shutdown; its `KFT_SERVING_KV_PERSIST_CHAINS`
+hottest pages); both need the prefix cache.
 `--checkpoint-dir` serves the latest committed platform checkpoint of a
 training run (the port's or the JAX package's). SIGTERM drains the
 engines before the process exits.
@@ -45,6 +51,11 @@ def _env_int(name: str, default: int) -> int:
     return int(raw) if raw.strip() else default
 
 
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name, "")
+    return float(raw) if raw.strip() else default
+
+
 def engine_knobs_from_env() -> dict:
     """KFT_SERVING_NUM_SLOTS (0 disables the engine), _MAX_QUEUE,
     _PREFILL_BUCKETS (comma-separated powers of two; empty = auto),
@@ -53,7 +64,11 @@ def engine_knobs_from_env() -> dict:
     _DRAFT_MODEL + _DRAFT_TOKENS (speculative decoding: registry draft
     model and tokens drafted per verify step; 0 disables) and
     _DRAFT_CHECKPOINT_DIR (the platform checkpoint the draft's params
-    are restored from, at K > 0 without draft params)."""
+    are restored from, at K > 0 without draft params), and the KV tiers:
+    _KV_HOST_BYTES (host-RAM spill budget; 0 = off), _KV_PERSIST_DIR
+    (the on-disk prefix store; empty = off), _KV_PERSIST_INTERVAL_S
+    (seconds between persists; 0 = only at shutdown) and
+    _KV_PERSIST_CHAINS (pages a persist keeps, hottest first)."""
     buckets_raw = os.environ.get("KFT_SERVING_PREFILL_BUCKETS", "")
     buckets = [int(b) for b in buckets_raw.split(",") if b.strip()]
     prefix_raw = os.environ.get("KFT_SERVING_PREFIX_CACHE", "").strip()
@@ -77,6 +92,16 @@ def engine_knobs_from_env() -> dict:
         "draft_checkpoint_dir": os.environ.get(
             "KFT_SERVING_DRAFT_CHECKPOINT_DIR", ""
         ).strip(),
+        # tiered KV (serving/kv_tiers.py): the host-RAM spill budget and
+        # the on-disk prefix store a warm restart preloads
+        "kv_host_bytes": _env_int("KFT_SERVING_KV_HOST_BYTES", 0),
+        "kv_persist_dir": os.environ.get(
+            "KFT_SERVING_KV_PERSIST_DIR", ""
+        ).strip(),
+        "kv_persist_interval_s": _env_float(
+            "KFT_SERVING_KV_PERSIST_INTERVAL_S", 0.0
+        ),
+        "kv_persist_chains": _env_int("KFT_SERVING_KV_PERSIST_CHAINS", 64),
     }
 
 
@@ -99,6 +124,10 @@ def build_server(
     num_draft_tokens: Optional[int] = None,
     draft_params: Optional[Mapping[str, torch.Tensor]] = None,
     draft_checkpoint_dir: Optional[str] = None,
+    kv_host_bytes: Optional[int] = None,
+    kv_persist_dir: Optional[str] = None,
+    kv_persist_interval_s: Optional[float] = None,
+    kv_persist_chains: Optional[int] = None,
 ):
     """Assemble the ModelServer for one registry model: the ServedLm
     plus (num_slots > 0) its continuous-batching DecodeEngine.
@@ -113,6 +142,13 @@ def build_server(
     `quantize="int8"` with the engine on serves int8 weights and int8 KV
     pages through the engine while the ServedLm stays full width; with
     num_slots=0 the ServedLm itself is int8 (the static int8 path).
+
+    `kv_host_bytes`, `kv_persist_dir`, `kv_persist_interval_s` and
+    `kv_persist_chains` are the engine's KV tiers (serving/kv_tiers.py);
+    either tier needs the prefix cache. The pool is sized by the static
+    rule: several servers share one process in chip_smoke.py and the
+    tests, and a pool sized from another server's pressure
+    (`kv_tiers.pool_sizing_telemetry`) would change theirs.
 
     `params` is a state dict for the model (e.g. from
     models/convert.py `params_from_jax`); without one the params come
@@ -151,6 +187,21 @@ def build_server(
         num_draft_tokens = env["num_draft_tokens"]
     if draft_checkpoint_dir is None:
         draft_checkpoint_dir = env["draft_checkpoint_dir"]
+    if kv_host_bytes is None:
+        kv_host_bytes = env["kv_host_bytes"]
+    if kv_persist_dir is None:
+        kv_persist_dir = env["kv_persist_dir"]
+    if kv_persist_interval_s is None:
+        kv_persist_interval_s = env["kv_persist_interval_s"]
+    if kv_persist_chains is None:
+        kv_persist_chains = env["kv_persist_chains"]
+    if (kv_host_bytes or kv_persist_dir) and not prefix_cache:
+        raise ValueError(
+            "KFT_SERVING_KV_HOST_BYTES / KFT_SERVING_KV_PERSIST_DIR need "
+            "the prefix cache: both KV tiers key off the radix index's "
+            "committed chains; enable KFT_SERVING_PREFIX_CACHE or drop the "
+            "tier knobs"
+        )
     if num_draft_tokens > 0 and not draft_model:
         raise ValueError(
             "num_draft_tokens > 0 needs a draft model "
@@ -222,6 +273,10 @@ def build_server(
                 prefix_cache=prefix_cache, paged_attention=paged_attention,
                 quantize=quantize, draft_model=draft,
                 num_draft_tokens=num_draft_tokens,
+                kv_host_bytes=kv_host_bytes or 0,
+                kv_persist_dir=kv_persist_dir or None,
+                kv_persist_interval_s=kv_persist_interval_s or 0.0,
+                kv_persist_chains=kv_persist_chains or 64,
             )
         )
     return server

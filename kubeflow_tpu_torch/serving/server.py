@@ -9,6 +9,16 @@ are the reference server's.
 
 `restore_checkpoint_params` is the serving side's checkpoint load.
 
+Page handoff between replicas (the disaggregated prefill/decode fleet):
+`POST /v1/kv/pages` admits an `encode_page_entries` envelope
+(application/octet-stream) into the engine's pool and radix index (a
+shipment of another page geometry is rejected whole with 400);
+`POST /v1/models/<name>:prefill` prefills a prompt to page completion
+and ships its committed chain to `handoff_url`; `POST /v1/kv/handoff`
+ships each engine's hottest chains to each chain's first-page-key
+rendezvous home among `peers` (the scale-down drain window). Pages go
+out through `page_transport` (an HTTP POST by default).
+
 Draining shutdown: `close(drain=True)` drains every engine at once under
 one deadline. While the server or any engine drains, `/healthz` answers
 503 with `"draining": true` (readiness probes and the router tell
@@ -18,10 +28,11 @@ draining from dead), and `:generate` through a draining engine answers
 
 from __future__ import annotations
 
+import json
 import math
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -32,18 +43,62 @@ from kubeflow_tpu_torch.api.wsgi import (
     NotFoundError,
     Response,
 )
+from kubeflow_tpu_torch.config.platform import DisaggConfig
+from kubeflow_tpu_torch.routing.affinity import (
+    first_page_key,
+    rendezvous_rank,
+)
 from kubeflow_tpu_torch.serving.engine import (
     EngineDrainingError,
     QueueFullError,
 )
+from kubeflow_tpu_torch.serving.kv_tiers import (
+    decode_page_entries,
+    encode_page_entries,
+)
 from kubeflow_tpu_torch.utils.logging import get_logger
-from kubeflow_tpu_torch.utils.metrics import default_registry
+from kubeflow_tpu_torch.utils.metrics import (
+    default_registry,
+    serving_kv_handoff_ms_counter,
+    serving_kv_handoff_pages_counter,
+)
 
 log = get_logger(__name__)
 
 # the drain budget close(drain=True) gives the engines by default (the
 # reference's DEFAULT_DRAIN_DEADLINE_S)
 DEFAULT_DRAIN_DEADLINE_S = 30.0
+
+# one POST of committed pages to a peer replica: bounded well under the
+# drain deadline, so a dead peer cannot eat the whole drain window
+PAGE_SHIP_TIMEOUT_S = 60.0
+
+
+def _default_page_transport(url: str, data: bytes):
+    """POST one page envelope to a peer replica's /v1/kv/pages. Returns
+    (status, body bytes). ModelServer takes another (tests, fleets in
+    one process)."""
+    import urllib.error
+    import urllib.request
+
+    request = urllib.request.Request(
+        url, data=data, method="POST",
+        headers={"Content-Type": "application/octet-stream"},
+    )
+    try:
+        with urllib.request.urlopen(request,
+                                    timeout=PAGE_SHIP_TIMEOUT_S) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _retry_after(req, e: EngineDrainingError) -> None:
+    """429 + Retry-After for a draining engine: through the Service the
+    retry lands on a replica that stays up."""
+    req.response_headers.append(
+        ("Retry-After", str(max(1, math.ceil(e.retry_after_s))))
+    )
 
 
 def restore_checkpoint_params(checkpoint_dir: Optional[str],
@@ -70,9 +125,14 @@ class ModelServer:
     # admissions; a hung engine must surface as a 500, not a stuck socket
     ENGINE_WAIT_S = 600.0
 
-    def __init__(self) -> None:
+    def __init__(self, page_transport: Optional[
+            Callable[[str, bytes], Tuple[int, bytes]]] = None) -> None:
         self._lms: Dict[str, Any] = {}      # ServedLm (serving/generate.py)
         self._engines: Dict[str, Any] = {}  # DecodeEngine (serving/engine.py)
+        # how this replica POSTs page envelopes to a peer's /v1/kv/pages
+        self._page_transport = page_transport or _default_page_transport
+        self._handoff_pages_m = serving_kv_handoff_pages_counter()
+        self._handoff_ms_m = serving_kv_handoff_ms_counter()
         # set as close(drain=True) starts, so /healthz reports the drain
         # from its first moment
         self._draining = False
@@ -164,11 +224,7 @@ class ModelServer:
                 seed=body.get("seed", 0),
             )
         except EngineDrainingError as e:
-            # same 429 as queue-full, plus Retry-After: through the
-            # Service the retry lands on a replica that stays up
-            req.response_headers.append(
-                ("Retry-After", str(max(1, math.ceil(e.retry_after_s))))
-            )
+            _retry_after(req, e)
             raise HttpError(429, str(e))
         except QueueFullError as e:
             raise HttpError(429, str(e))
@@ -188,6 +244,46 @@ class ModelServer:
         ttft = max(r["ttft_s"] for r in results)
         req.response_headers.append(("X-TTFT-Ms", f"{ttft * 1e3:.2f}"))
         return {"sequences": sequences}
+
+    # -- page handoff between replicas -------------------------------------
+
+    def _engine_for_handoff(self, model: str):
+        """A shipment's engine: the manifest's model when loaded, else
+        the server's only engine (a one-model replica needs no name
+        match)."""
+        engine = self._engines.get(model)
+        if engine is None and len(self._engines) == 1:
+            engine = next(iter(self._engines.values()))
+        if engine is None:
+            raise NotFoundError(
+                f"no decode engine for handed-off model {model!r}"
+            )
+        return engine
+
+    def _ship_pages(self, engine, entries, url: str) -> Dict[str, Any]:
+        """Encode `entries` and POST them to a peer's /v1/kv/pages.
+        Returns the peer's verdict; raises HttpError(502) when the peer
+        is unreachable or rejects the shipment. Counts the pages out; the
+        caller counts the milliseconds (export and every ship)."""
+        data = encode_page_entries(entries, engine.page_size,
+                                   engine.quantize, model=engine.name)
+        try:
+            status, raw = self._page_transport(url, data)
+        except Exception as e:  # a dead peer is a 502
+            raise HttpError(502, f"page handoff to {url} failed: {e}") from e
+        try:
+            doc = json.loads(raw.decode() if isinstance(raw, (bytes, bytearray))
+                             else raw)
+        except (ValueError, AttributeError, TypeError):
+            doc = {}
+        if not isinstance(doc, dict):
+            doc = {}
+        if status >= 400:
+            raise HttpError(502, f"peer {url} rejected page handoff: "
+                                 f"{status} {doc.get('log', '')}".strip())
+        self._handoff_pages_m.inc(len(entries), model=engine.name,
+                                  direction="out")
+        return doc
 
     def _build(self) -> App:
         app = App("model-server")
@@ -276,5 +372,139 @@ class ModelServer:
             except (ValueError, TypeError) as e:
                 raise BadRequest(f"bad generate request: {e}")
             return {"sequences": sequences.tolist()}
+
+        @app.post("/v1/kv/pages", binary=True)
+        def kv_pages(req):
+            """The receiving side of a handoff: the body is one
+            `encode_page_entries` envelope (application/octet-stream);
+            its pages are admitted into the engine's pool and radix index
+            as committed chains, so the next request sharing the prefix
+            is a prefix hit. The page geometry (page_size, quantize) must
+            be the engine's: a mismatched shipment is rejected whole."""
+            if not isinstance(req.body, (bytes, bytearray)):
+                raise BadRequest(
+                    "send an encode_page_entries envelope with "
+                    "Content-Type: application/octet-stream"
+                )
+            try:
+                manifest, entries = decode_page_entries(bytes(req.body))
+            except ValueError as e:
+                raise BadRequest(f"bad page envelope: {e}")
+            engine = self._engine_for_handoff(str(manifest.get("model", "")))
+            if int(manifest.get("page_size", 0)) != engine.page_size:
+                raise BadRequest(
+                    f"envelope page_size {manifest.get('page_size')} does "
+                    f"not match engine page_size {engine.page_size}"
+                )
+            if str(manifest.get("quantize")) != str(engine.quantize):
+                raise BadRequest(
+                    f"envelope quantize {manifest.get('quantize')!r} does "
+                    f"not match engine quantize {engine.quantize!r}"
+                )
+            try:
+                admitted = engine.import_page_entries(entries)
+            except ValueError as e:
+                raise BadRequest(f"page envelope does not fit engine: {e}")
+            return {"model": engine.name, "entries": len(entries),
+                    "admitted": admitted}
+
+        @app.post("/v1/models/<name>:prefill")
+        def prefill(req):
+            """The prefill replica's side of a handoff: body {"prompt_ids":
+            [...]} plus an optional "handoff_url" (the decode home's
+            /v1/kv/pages). Prefills the prompt to page completion (greedy,
+            one token: prefill does not depend on sampling, so the
+            committed pages are the bits any engine computes), exports
+            its committed chain and ships it; the decode home then admits
+            the request as a prefix hit."""
+            name = req.params["name"]
+            engine = self._engines.get(name)
+            if engine is None:
+                raise NotFoundError(f"no decode engine for model {name}")
+            body = req.body or {}
+            if not isinstance(body, dict):
+                raise BadRequest("request body must be a JSON object")
+            prompt = body.get("prompt_ids")
+            if prompt is None:
+                raise BadRequest("request body must contain 'prompt_ids'")
+            try:
+                row = np.asarray(prompt, dtype=np.int64)
+            except (ValueError, TypeError) as e:
+                raise BadRequest(f"bad prefill request: {e}")
+            if row.ndim == 2 and row.shape[0] == 1:
+                row = row[0]  # routers forward the :generate row shape
+            if row.ndim != 1:
+                raise BadRequest(
+                    "bad prefill request: prompt_ids must be one row"
+                )
+            t0 = time.monotonic()
+            try:
+                future = engine.submit(row, 1, temperature=0.0)
+            except EngineDrainingError as e:
+                _retry_after(req, e)
+                raise HttpError(429, str(e))
+            except QueueFullError as e:
+                raise HttpError(429, str(e))
+            except (ValueError, TypeError) as e:
+                raise BadRequest(f"bad prefill request: {e}")
+            future.wait(self.ENGINE_WAIT_S)
+            entries = engine.export_prefix_entries(row)
+            shipped: Dict[str, Any] = {}
+            url = body.get("handoff_url")
+            if url and entries:
+                shipped = self._ship_pages(engine, entries, str(url))
+                self._handoff_ms_m.inc((time.monotonic() - t0) * 1e3,
+                                       model=engine.name, direction="out")
+            return {"model": engine.name, "pages": len(entries),
+                    "handoff": shipped}
+
+        @app.post("/v1/kv/handoff")
+        def kv_handoff(req):
+            """The scale-down side of a handoff: body {"peers":
+            {replica_id: base_url}, "chains": N?}. Exports each engine's
+            hottest committed chains (the pool's and the host tier's) and
+            ships every chain to its first-page key's rendezvous home
+            among `peers`: the replica the router sends that key to once
+            this one is gone. Failures are reported per peer, never
+            fatal: a drain window ships what it can."""
+            body = req.body or {}
+            if not isinstance(body, dict):
+                raise BadRequest("request body must be a JSON object")
+            peers = body.get("peers")
+            if not isinstance(peers, dict) or not peers:
+                raise BadRequest(
+                    "request body must carry 'peers': {replica_id: url}"
+                )
+            try:
+                chains = int(body.get("chains", 0))
+            except (ValueError, TypeError) as e:
+                raise BadRequest(f"bad handoff request: {e}")
+            if chains <= 0:
+                chains = DisaggConfig().handoff_chains
+            verdicts: Dict[str, Any] = {}
+            for engine in self._engines.values():
+                t0 = time.monotonic()
+                entries = engine.export_hot_entries(chains)
+                groups: Dict[str, list] = {}
+                for ent in entries:
+                    key = first_page_key(ent[0], engine.page_size)
+                    home = rendezvous_rank(key, list(peers))[0]
+                    groups.setdefault(home, []).append(ent)
+                for rid, ents in groups.items():
+                    url = str(peers[rid]).rstrip("/") + "/v1/kv/pages"
+                    verdict = verdicts.setdefault(
+                        rid, {"pages": 0, "admitted": 0}
+                    )
+                    try:
+                        doc = self._ship_pages(engine, ents, url)
+                    except HttpError as e:
+                        verdict["error"] = e.message
+                        continue
+                    verdict["pages"] += len(ents)
+                    verdict["admitted"] += int(doc.get("admitted", 0))
+                if entries:
+                    self._handoff_ms_m.inc((time.monotonic() - t0) * 1e3,
+                                           model=engine.name, direction="out")
+            return {"peers": verdicts}
 
         return app

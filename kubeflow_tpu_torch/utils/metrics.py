@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 LabelValues = Tuple[str, ...]
 
@@ -65,6 +65,13 @@ class _ValueMetric(_Metric):
         key = _validate_labels(self.label_names, labels)
         with self._lock:
             return self._values.get(key, 0.0)
+
+    def values_snapshot(self) -> Dict[LabelValues, float]:
+        """Every labelled series, copied under the metric's lock: how a
+        telemetry reader (serving/kv_tiers.py `pool_sizing_telemetry`)
+        scans the series while the engine updates them."""
+        with self._lock:
+            return dict(self._values)
 
     def _render_series(self) -> Iterable[str]:
         with self._lock:
@@ -209,6 +216,10 @@ class MetricsRegistry:
             self._metrics[name] = m
             return m
 
+    def get(self, name: str) -> Optional[_Metric]:
+        with self._lock:
+            return self._metrics.get(name)
+
     def render(self) -> str:
         with self._lock:
             metrics = [self._metrics[n] for n in sorted(self._metrics)]
@@ -322,4 +333,61 @@ def checkpoint_restores_counter() -> Counter:
     loads all count: each is one manifest-driven assembly)."""
     return default_registry().counter(
         "checkpoint_restores_total", "checkpoint restores completed"
+    )
+
+
+# -- tiered KV and the page handoff (serving/kv_tiers.py) ---------------------
+#
+# Spill pages against spill hits is the host tier's economy: pages parked
+# at eviction against pages whose re-admission skipped a prefill. Handoff
+# pages against handoff milliseconds is the page handoff's: what moved
+# between replicas against what the export, wire and upload cost.
+
+
+def serving_kv_spill_pages_counter() -> Counter:
+    """Pages parked in the host tier at radix eviction (copied
+    device→host instead of dropped): the spill tier's write side."""
+    return default_registry().counter(
+        "serving_kv_spill_pages_total",
+        "KV pages spilled to the host tier at eviction", ["model"],
+    )
+
+
+def serving_kv_spill_hits_counter() -> Counter:
+    """Pages re-admitted from the host tier (a host→device upload
+    instead of chunk-prefill compute)."""
+    return default_registry().counter(
+        "serving_kv_spill_hits_total",
+        "KV pages re-admitted from the host tier", ["model"],
+    )
+
+
+def serving_kv_persisted_chains_gauge() -> Gauge:
+    """Prefix pages in this engine's last committed on-disk generation
+    (or preloaded at start): the warm-restart set a replica hands its
+    successor."""
+    return default_registry().gauge(
+        "serving_kv_persisted_chains",
+        "prefix pages in the last persisted generation", ["model"],
+    )
+
+
+def serving_kv_handoff_pages_counter() -> Counter:
+    """KV pages moved between replicas, by direction: "out" (exported
+    and shipped to a peer) and "in" (decoded off the wire and admitted
+    into the pool and the radix index)."""
+    return default_registry().counter(
+        "serving_kv_handoff_pages_total",
+        "KV pages handed off between replicas", ["model", "direction"],
+    )
+
+
+def serving_kv_handoff_ms_counter() -> Counter:
+    """Milliseconds spent in page handoff, by direction: "out" covers the
+    export (device→host reads) and the POST to the peer, "in" the wire
+    decode, the host→device upload and the radix admission. A sum:
+    ms a page is this over the pages counter."""
+    return default_registry().counter(
+        "serving_kv_handoff_ms",
+        "milliseconds spent handing off KV pages", ["model", "direction"],
     )

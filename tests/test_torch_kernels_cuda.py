@@ -677,3 +677,91 @@ def test_preempted_run_resumes_bitwise_on_the_card(cuda, tmp_path):
     assert resumed["losses"] == whole["losses"][2:]
     assert smoke.same_step_files(str(tmp_path / "whole"),
                                  str(tmp_path / "cut"), 4) == 114
+
+
+# -- KV tiers on the card (serving/kv_tiers.py) ----------------------------------
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_spilled_page_round_trips_bitwise_on_the_card(cuda, quantize):
+    """A page gathered off a CUDA pool into host memory (bf16 values, or
+    int8 with bf16 scales) and written onto another page reads back bit
+    for bit, and the host copy is complete when the gather returns."""
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.models.gpt import (
+        gather_pool_page,
+        make_paged_pool,
+        scatter_pool_page,
+    )
+
+    cfg = get_model("gpt_tiny", dtype=torch.bfloat16, device="meta").cfg
+    pool = make_paged_pool(cfg, 8, 16, cuda, kv_quant=quantize)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for t in pool.tensors():
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-128, 128, t.shape, generator=g,
+                                  device=cuda))
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+    page = gather_pool_page(pool, 3, device="cpu")
+    for t in pool.tensors():
+        t[:, 3].zero_()  # the page's next writer: the host copy holds
+    scatter_pool_page(pool, page, 6)
+    for name, t in pool.fields().items():
+        assert page[name].device.type == "cpu"
+        assert torch.equal(t[:, 6].cpu(), page[name])
+
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_spill_readmit_through_the_kernels_equals_resident(cuda, quantize):
+    """A CUDA engine whose 24-page pool spills into a host tier gives the
+    always-resident engine's greedy f32 tokens through the kernels, with
+    pages re-admitted from the tier; then its store preloads into a new
+    engine whose first request is a prefix hit with the same tokens."""
+    import tempfile
+
+    from kubeflow_tpu_torch.models import get_model
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = get_model("gpt_tiny", dtype=torch.float32, device=cuda, seed=1)
+    rng = np.random.default_rng(0)
+    shared = rng.integers(0, 512, 24)
+    row_a = np.concatenate([shared, rng.integers(0, 512, 8)])
+    row_b = np.concatenate([shared, rng.integers(0, 512, 8)])
+    traffic = [row_a, *(rng.integers(0, 512, 32) for _ in range(6)), row_b,
+               row_a]
+
+    def engine(num_pages, **kw):
+        return DecodeEngine("tiny", model, device=cuda, num_slots=2,
+                            page_size=8, num_pages=num_pages,
+                            prefill_buckets=(8, 32), paged_attention="kernel",
+                            quantize=quantize, **kw)
+
+    got = {}
+    with tempfile.TemporaryDirectory() as store:
+        for kind, eng in (("resident", engine(128)),
+                          ("tiered", engine(24, kv_host_bytes=64 << 20,
+                                            kv_persist_dir=store))):
+            tpa.reset_launch_counts()
+            try:
+                got[kind] = [eng.generate_row(r, 6, timeout=120)["tokens"]
+                             for r in traffic]
+                stats = eng.stats()
+            finally:
+                eng.close()
+        launches = dict(tpa.launch_counts)
+        warm = engine(24, kv_persist_dir=store)
+        try:
+            again = warm.generate_row(row_b, 6, timeout=120)["tokens"]
+            warm_stats = warm.stats()
+        finally:
+            warm.close()
+    assert got["tiered"] == got["resident"]
+    assert stats["kv_spill_pages"] > 0 and stats["kv_spill_hits"] == 4
+    suffix = "_int8" if quantize == "int8" else ""
+    assert launches["paged_decode" + suffix] > 0
+    assert launches["paged_window" + suffix] > 0
+    assert warm_stats["kv_persisted_chains"] > 0
+    assert warm_stats["prefix_hit_tokens"] > 0
+    assert again == got["resident"][-2]

@@ -147,6 +147,8 @@ def test_engine_knobs_from_env(monkeypatch):
         "page_size": 8, "num_pages": 0, "prefix_cache": False,
         "paged_attention": "kernel", "quantize": "none",
         "draft_model": "", "num_draft_tokens": 0, "draft_checkpoint_dir": "",
+        "kv_host_bytes": 0, "kv_persist_dir": "", "kv_persist_interval_s": 0.0,
+        "kv_persist_chains": 64,
     }
     ms = build_server("gpt_tiny", device="cpu", dtype=torch.float32)
     try:
