@@ -142,6 +142,36 @@ Phases (any failure raises and the script exits non-zero):
    spill and upload ms a page, the host tier's bytes, persist and
    preload seconds and the bytes on disk, handoff ms a page. The kernels
    line gives each paged row its `kv_tier_launches`; a row at 0 fails.
+14. Observability and fault recovery (gpt_small at full width, 8 slots,
+   page 16, paged_attention=kernel, bf16, through build_server and REST,
+   the tracer configured from KFT_TRACE_* env). 14a: phase 5's traffic
+   (its prompts, the repeat after the others) on a fresh traced server,
+   each request with an X-Request-Id and one with a traceparent, then on
+   a fresh untraced one: every reply's tokens equal phase 5's bitwise;
+   each id is echoed and the traceparent's trace continued (its spans'
+   remote parent is the header's span); each request's
+   `/debug/trace?trace_id=` holds its request.queue_wait, request.prefill
+   and request.decode spans, with engine.step spans inside the decode
+   span; `/tracez` keeps every request; `/statusz` has its engines
+   section; the median engine.step span is within SPAN_STEP_REL of the
+   run's decode_step_ms. Printed: decode tokens/s traced and untraced.
+   14b: on a fresh traced server, `engine.step:after=CHAOS_STEP_AFTER,once`
+   armed under phase 5's concurrent traffic: every reply equals phase 5's
+   tokens or is a 500 naming "decode step failed", at least one is;
+   serving_engine_recoveries_total rises by exactly 1 and the trace holds
+   one engine.recover; once idle every page in use is the prefix index's
+   (none when every request failed); the failed requests resubmitted
+   give phase 5's tokens as prefix misses; the warm-up prompt, committed
+   before the fault, is a miss with its first tokens (the radix index
+   was reset); `engine.prefill:once` fails exactly one request and the
+   next succeeds. Printed: the time from the fault to the next
+   admission. 14c: phase 12's configuration through `run_training` with
+   KFT_CHAOS_POINTS=CHAOS_TRAIN_PLAN raises ChaosError after step 2's save
+   (the shard-write fault absorbed by the retry, step 2 committed, the
+   plan disarmed); a restart without the plan resumes from step 2, and its
+   losses and step-4 params equal phase 12's uninterrupted run's, bit for
+   bit; train.device_step spans are recorded. The kernels line gives each
+   bf16 paged and flash row its `chaos_launches`; a row at 0 fails.
 
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
@@ -294,6 +324,21 @@ KV_PERSIST_CHAINS = 256
 # unified server hands to its peers (f32)
 HANDOFF_LEN = 300
 
+# phase 14: 14b's plan fails phase 5's traffic's (CHAOS_STEP_AFTER + 1)-th
+# decode iteration, by when every request is resident; 14c's fails the
+# device step after step 2's save and that save's first shard write (its
+# retry absorbs it)
+CHAOS_STEP_AFTER = 6
+CHAOS_TRAIN_PLAN = ("trainer.device_step:after=2,once;"
+                    "checkpoint.shard_write:once")
+# 14a: the median engine.step span within this share of the same run's
+# decode_step_ms (a span that closed at the launches would read short)
+SPAN_STEP_REL = 0.25
+# 14a: the one request that arrives with a W3C traceparent
+TRACE_ID, PARENT_SPAN = "4bf92f3577b34da6a3ce929d0e0e4736", "00f067aa0ba902b7"
+# the kernels line's rows phase 14 runs (bf16 pages and bf16 flash)
+CHAOS_ROWS = ("paged_decode", "paged_window", "flash_fwd", "flash_bwd_dq",
+              "flash_bwd_dkv")
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
     """{(kernel, D): (registers, spill store bytes, spill load bytes)} of
@@ -576,16 +621,29 @@ def phase_kernels(torch, quantized=False):
 
 
 def post(port, name, body, timeout=600):
+    return post_h(port, name, body, {}, timeout)[:2]
+
+
+def post_h(port, name, body, headers, timeout=600):
+    """POST :generate with `headers` → (status, body, response headers)."""
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/v1/models/{name}:generate",
         data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"}, method="POST",
+        headers={"Content-Type": "application/json", **headers},
+        method="POST",
     )
     try:
         with urllib.request.urlopen(req, timeout=timeout) as resp:
-            return resp.status, json.loads(resp.read())
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
     except urllib.error.HTTPError as e:
-        return e.code, json.loads(e.read() or b"{}")
+        return e.code, json.loads(e.read() or b"{}"), dict(e.headers)
+
+
+def step_ms_between(before, after):
+    """decode_step_ms of the steps between two `stats()` readings."""
+    steps = after["decode_steps"] - before["decode_steps"]
+    return (after["decode_step_ms"] * after["decode_steps"]
+            - before["decode_step_ms"] * before["decode_steps"]) / max(steps, 1)
 
 
 def get(port, path):
@@ -713,8 +771,7 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         stats = ms.engine(model).stats()
         # decode steps of this run only (the warm-up's are subtracted)
         steps = stats["decode_steps"] - before["decode_steps"]
-        step_ms = (stats["decode_step_ms"] * stats["decode_steps"]
-                   - before["decode_step_ms"] * before["decode_steps"]) / max(steps, 1)
+        step_ms = step_ms_between(before, stats)
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
         worst = 0.0
         for prompt, res in zip(prompts, results):
@@ -746,9 +803,14 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         if not worst <= DELTA:
             raise AssertionError(f"an emitted token is {worst} below its "
                                  f"position's max f32 logit (> {DELTA})")
-        # the K = 0 numbers phase 11 prints beside its own
+        # the K = 0 numbers phase 11 prints beside its own, and the
+        # traffic with its tokens (phase 14 serves it again)
         stats = dict(stats, load_tokens_per_s=gen_tokens / wall,
-                     load_decode_step_ms=step_ms)
+                     load_decode_step_ms=step_ms, traffic={
+                         "prompts": prompts,
+                         "tokens": [res[1]["sequences"][0][len(prompt):]
+                                    for prompt, res in zip(prompts, results)],
+                     })
         return launches, stats, steps
     finally:
         os.environ.pop("KFT_SERVING_PREFILL_BUCKETS", None)
@@ -1955,6 +2017,370 @@ def phase_kv_tiers(torch, model="gpt_small", device="cuda", spill=None,
     return launches
 
 
+# -- phase 14: observability and fault recovery ---------------------------------
+
+
+def chaos_traffic(port, model, prompts, max_new, tag, rows, traceparent=None):
+    """`rows` of `prompts` sent concurrently, each with X-Request-Id
+    `<tag>-<i>` (row 0 also with `traceparent` when given) → ({row:
+    (status, body, headers)}, wall seconds)."""
+    replies = {}
+
+    def run(i):
+        headers = {"X-Request-Id": f"{tag}-{i}"}
+        if i == 0 and traceparent:
+            headers["traceparent"] = traceparent
+        replies[i] = post_h(port, model, {"prompt_ids": [prompts[i]],
+                                          "max_new_tokens": max_new}, headers)
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=run, args=(i,)) for i in rows]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return replies, time.monotonic() - t0
+
+
+def reply_tokens(prompt, reply):
+    status, body, _ = reply
+    return body["sequences"][0][len(prompt):] if status == 200 else None
+
+
+def warm_up(port, model, vocab, largest, seed=14):
+    """One request past the largest bucket (both kernels once, CUDA's lazy
+    loading paid), as phase 5 warms up; its pages commit. → (prompt,
+    tokens)."""
+    warm = np.random.default_rng(seed).integers(0, vocab, largest + 4).tolist()
+    reply = post_h(port, model, {"prompt_ids": [warm], "max_new_tokens": 2},
+                   {"X-Request-Id": "warm-up"})
+    if reply[0] != 200:
+        raise AssertionError(f"warm-up answered {reply[0]}: {reply[1]}")
+    return warm, reply_tokens(warm, reply)
+
+
+def phase_chaos_serve(torch, k0, model="gpt_small", device="cuda", max_new=32,
+                      buckets=BUCKETS, step_after=CHAOS_STEP_AFTER,
+                      span_rel=SPAN_STEP_REL):
+    """14a and 14b over phase 5's traffic (`k0["traffic"]`: its prompts and
+    tokens); returns the paged launches of both. `span_rel` None prints
+    the engine.step spans against decode_step_ms without gating them."""
+    from kubeflow_tpu_torch.chaos import default_chaos, parse_point
+    from kubeflow_tpu_torch.observability.trace import (
+        default_tracer,
+        format_traceparent,
+    )
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.utils.metrics import (
+        serving_engine_recoveries_counter,
+    )
+
+    prompts, want = k0["traffic"]["prompts"], k0["traffic"]["tokens"]
+    # every prompt but the last (the repeat of the 300-token one) goes out
+    # at once, then the repeat, as phase 5 sends them
+    concurrent = range(len(prompts) - 1)
+    largest = int(buckets.split(",")[-1])
+    tracer = default_tracer()
+    knobs = {"KFT_SERVING_PREFILL_BUCKETS": buckets,
+             "KFT_TRACE_BUFFER_SPANS": "65536",
+             "KFT_TRACE_SAMPLE_PROB": "1", "KFT_TRACE_SAMPLE_KEEP": "256"}
+    os.environ.update(knobs)
+    where = smi_line() if device == "cuda" else device
+    pa.reset_launch_counts()
+    t_phase = time.monotonic()
+    try:
+        # -- 14a: traced, then untraced, each on a fresh server ------------
+        tokens_per_s = {}
+        for traced in (True, False):
+            os.environ["KFT_TRACE_ENABLED"] = "1" if traced else "0"
+            ms, httpd = serve(model, torch.bfloat16, device, num_slots=8,
+                              page_size=16)
+            tag = "traced" if traced else "untraced"
+            try:
+                engine = ms.engine(model)
+                vocab = engine.model.cfg.vocab_size
+                warm_up(httpd.port, model, vocab, largest)
+                tracer.clear()
+                before = engine.stats()
+                replies, wall = chaos_traffic(
+                    httpd.port, model, prompts, max_new, tag, concurrent,
+                    traceparent=format_traceparent(TRACE_ID, PARENT_SPAN))
+                last = len(prompts) - 1
+                replies[last] = post_h(
+                    httpd.port, model, {"prompt_ids": [prompts[last]],
+                                        "max_new_tokens": max_new},
+                    {"X-Request-Id": f"{tag}-{last}"})
+                after = engine.stats()
+                step_ms = step_ms_between(before, after)
+                tokens_per_s[traced] = max_new * len(concurrent) / wall
+                for i, prompt in enumerate(prompts):
+                    got = reply_tokens(prompt, replies[i])
+                    if got != want[i]:
+                        raise AssertionError(
+                            f"14a {tag}: request {i} answered "
+                            f"{replies[i][0]} with tokens other than phase "
+                            f"5's: {got} vs {want[i]}")
+                if traced:
+                    check_traced_run(httpd.port, tracer, replies, tag,
+                                     step_ms, span_rel)
+                else:
+                    if tracer.snapshot():
+                        raise AssertionError("an untraced run recorded spans")
+            finally:
+                httpd.stop()
+                ms.close()
+        print(f"chaos 14a: phase 5's traffic, tokens equal phase 5's bitwise "
+              f"traced and untraced; decode tokens/s traced "
+              f"{tokens_per_s[True]:.1f}, untraced {tokens_per_s[False]:.1f} "
+              f"({tokens_per_s[True] / tokens_per_s[False]:.4f}x) | {where}",
+              flush=True)
+
+        # -- 14b: an engine.step fault with the traffic in flight -----------
+        os.environ["KFT_TRACE_ENABLED"] = "1"
+        ms, httpd = serve(model, torch.bfloat16, device, num_slots=8,
+                          page_size=16)
+        try:
+            engine = ms.engine(model)
+            vocab = engine.model.cfg.vocab_size
+            warm, warm_tokens = warm_up(httpd.port, model, vocab, largest)
+            recoveries = serving_engine_recoveries_counter()
+            rec0 = recoveries.value(model=model)
+            tracer.clear()
+            default_chaos().arm([parse_point(
+                f"engine.step:after={step_after},once")])
+            replies, _ = chaos_traffic(httpd.port, model, prompts, max_new,
+                                       "fault", concurrent)
+            default_chaos().disarm()
+            failed = []
+            for i in concurrent:
+                status, body, _ = replies[i]
+                if status == 500 and "decode step failed" in body.get("log", ""):
+                    failed.append(i)
+                elif reply_tokens(prompts[i], replies[i]) != want[i]:
+                    raise AssertionError(
+                        f"14b: request {i} answered {status} {body} and not "
+                        f"phase 5's tokens or a 500 naming the failed step")
+            idle = engine.stats()
+            records = tracer.snapshot()
+            recover = [r for r in records if r.name == "engine.recover"]
+            print(f"chaos 14b: the fault at decode iteration {step_after + 1} "
+                  f"failed requests {failed} (of {len(concurrent)}); "
+                  f"recoveries +{recoveries.value(model=model) - rec0}; "
+                  f"engine.recover {[r.attrs for r in recover]}; idle: "
+                  f"pages_in_use {idle['pages_in_use']}, prefix_index_pages "
+                  f"{idle['prefix_index_pages']} of {idle['pages_total']}",
+                  flush=True)
+            if not failed:
+                raise AssertionError("the engine.step fault failed no request")
+            if recoveries.value(model=model) - rec0 != 1 or len(recover) != 1:
+                raise AssertionError("not exactly one recovery for one fault")
+            # every page in use is the prefix index's (requests that were
+            # not resident at the fault finished and committed); with every
+            # request failed, the pool is all free
+            if idle["pages_in_use"] != idle["prefix_index_pages"] or (
+                    len(failed) == len(concurrent) and idle["pages_in_use"]):
+                raise AssertionError(f"pages leaked across the recovery: "
+                                     f"{idle}")
+            # the fault's cost: from the recovery to the next admission
+            t_fault = recover[0].t_start
+            nxt = min((r.t_start for r in records
+                       if r.name == "request.prefill" and r.t_start > t_fault),
+                      default=None)
+            # the failed requests again: misses on the reset pool, with
+            # phase 5's tokens
+            hits0 = engine.stats()["prefix_hit_tokens"]
+            again, _ = chaos_traffic(httpd.port, model, prompts, max_new,
+                                     "retry", failed)
+            for i in failed:
+                if reply_tokens(prompts[i], again[i]) != want[i]:
+                    raise AssertionError(
+                        f"14b: resubmitted request {i} answered "
+                        f"{again[i][0]} with tokens other than phase 5's")
+            if nxt is None:
+                nxt = min(r.t_start for r in tracer.snapshot()
+                          if r.name == "request.prefill"
+                          and r.t_start > t_fault)
+            hits1 = engine.stats()["prefix_hit_tokens"]
+            # the warm-up's pages were committed before the fault: the
+            # reset radix index has forgotten them
+            warm_again = post_h(httpd.port, model, {
+                "prompt_ids": [warm], "max_new_tokens": 2},
+                {"X-Request-Id": "warm-up-again"})
+            hits2 = engine.stats()["prefix_hit_tokens"]
+            print(f"chaos 14b: resubmitted {failed} → phase 5's tokens, "
+                  f"prefix hit tokens +{hits1 - hits0} (the "
+                  f"{len(prompts[-1])}-token prompt "
+                  f"{'among them' if len(prompts) - 2 in failed else 'not failed'}"
+                  f"); the warm-up prompt committed before the fault: hit "
+                  f"tokens +{hits2 - hits1}; fault → next admission "
+                  f"{(nxt - t_fault) * 1e3:.3f} ms | {where}", flush=True)
+            if hits1 != hits0 or hits2 != hits1:
+                raise AssertionError("a prefix hit after the recovery: the "
+                                     "radix index outlived the pools")
+            if reply_tokens(warm, warm_again) != warm_tokens:
+                raise AssertionError("the warm-up prompt's tokens changed "
+                                     "across the recovery")
+            # engine.prefill: exactly one request fails, the next succeeds
+            probe = np.random.default_rng(15).integers(0, vocab, 20).tolist()
+            default_chaos().arm([parse_point("engine.prefill:once")])
+            first = post_h(httpd.port, model, {"prompt_ids": [probe],
+                                               "max_new_tokens": 4}, {})
+            second = post_h(httpd.port, model, {"prompt_ids": [probe],
+                                                "max_new_tokens": 4}, {})
+            default_chaos().disarm()
+            print(f"chaos 14b: engine.prefill:once → {first[0]} "
+                  f"{first[1].get('log', '')!r}, then {second[0]}", flush=True)
+            if (first[0] != 500 or "engine.prefill" not in first[1]["log"]
+                    or second[0] != 200
+                    or len(reply_tokens(probe, second)) != 4):
+                raise AssertionError("engine.prefill:once did not fail "
+                                     "exactly one request")
+            if recoveries.value(model=model) - rec0 != 1:
+                raise AssertionError("a prefill fault ran the recovery")
+        finally:
+            default_chaos().disarm()
+            httpd.stop()
+            ms.close()
+    finally:
+        for key in (*knobs, "KFT_TRACE_ENABLED"):
+            os.environ.pop(key, None)
+        tracer.configure(enabled=True, capacity=4096, sample_keep=128)
+    launches = dict(pa.launch_counts)
+    print(f"chaos serve: paged launches {launches} in "
+          f"{time.monotonic() - t_phase:.3f} s", flush=True)
+    return launches
+
+
+def check_traced_run(port, tracer, replies, tag, step_ms, span_rel):
+    """14a's trace gates: ids echoed, the traceparent continued, each
+    request's spans in its /debug/trace dump with engine.step spans
+    inside its decode span, /tracez keeping every request, /statusz up,
+    and the median engine.step span within `span_rel` of the run's
+    decode_step_ms."""
+    ids = {}
+    for i, (_, _, headers) in replies.items():
+        want_id = TRACE_ID if i == 0 else f"{tag}-{i}"
+        if headers.get("X-Request-Id") != want_id:
+            raise AssertionError(f"request {i} echoed "
+                                 f"{headers.get('X-Request-Id')!r}, not "
+                                 f"{want_id!r}")
+        ids[i] = want_id
+    records = tracer.snapshot()
+    continued = [r for r in records if r.trace_id == f"{TRACE_ID}/0"]
+    if not continued or any(r.parent_span_id != PARENT_SPAN
+                            for r in continued):
+        raise AssertionError("the traceparent's trace was not continued")
+    _, body = get(port, "/debug/trace")
+    steps = [e for e in json.loads(body)["traceEvents"]
+             if e["name"] == "engine.step" and e["ph"] == "X"]
+    inside = {}
+    for i, rid in ids.items():
+        _, body = get(port, f"/debug/trace?trace_id={rid}")
+        events = [e for e in json.loads(body)["traceEvents"] if e["ph"] != "M"]
+        names = {e["name"] for e in events}
+        need = {"request.queue_wait", "request.prefill", "request.decode"}
+        if not need <= names:
+            raise AssertionError(f"/debug/trace for {rid} lacks "
+                                 f"{need - names}")
+        (decode,) = [e for e in events if e["name"] == "request.decode"]
+        end = decode["ts"] + decode["dur"]
+        inside[i] = sum(decode["ts"] <= e["ts"] and e["ts"] + e["dur"] <= end
+                        for e in steps)
+        if inside[i] < 1:
+            raise AssertionError(f"no engine.step span inside {rid}'s decode")
+    _, body = get(port, "/tracez")
+    kept = {t["trace_id"] for t in json.loads(body)["traces"]}
+    if not set(ids.values()) <= kept:
+        raise AssertionError(f"/tracez lacks {set(ids.values()) - kept}")
+    status, body = get(port, "/statusz")
+    if status != 200 or b"[engines]" not in body:
+        raise AssertionError("/statusz lacks its engines section")
+    durs = [r.dur_s * 1e3 for r in records if r.name == "engine.step"]
+    median = statistics.median(durs)
+    print(f"chaos 14a: {len(records)} records; engine.step spans "
+          f"{len(durs)}, median {median:.3f} ms, mean "
+          f"{statistics.mean(durs):.3f} ms against decode_step_ms "
+          f"{step_ms:.3f} ({median / step_ms:.4f}x); steps inside each "
+          f"request's decode span {inside}; /statusz:\n"
+          + body.decode().strip(), flush=True)
+    if span_rel is not None and abs(median / step_ms - 1.0) > span_rel:
+        raise AssertionError(f"the median engine.step span {median:.3f} ms "
+                             f"is not within {span_rel:.0%} of "
+                             f"decode_step_ms {step_ms:.3f}")
+
+
+def phase_chaos_train(torch, root, want_losses, want_params, overrides=None,
+                      device="cuda"):
+    """14c: phase 12's configuration through `run_training` with
+    CHAOS_TRAIN_PLAN: the run raises ChaosError after step 2's save (whose
+    first shard write the retry absorbed), a restart without the plan
+    resumes from step 2, and its losses and step-4 params equal phase
+    12's uninterrupted run's (`want_losses`, `want_params`: name → CPU
+    tensor), bit for bit. Returns the flash launches."""
+    from kubeflow_tpu_torch.chaos import ChaosError, default_chaos
+    from kubeflow_tpu_torch.checkpointing import latest_committed_step
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.observability.trace import default_tracer
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+    from kubeflow_tpu_torch.utils.metrics import faults_injected_counter
+
+    directory = os.path.join(root, "chaos")
+    cfg = TrainingConfig(**{**CKPT_TRAIN_CFG, **(overrides or {})},
+                         checkpoint=dict(directory=directory,
+                                         interval_steps=CKPT_INTERVAL))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("KFT_CHAOS_")}
+    faults = faults_injected_counter()
+    points = ("trainer.device_step", "checkpoint.shard_write")
+    before = {p: faults.value(point=p) for p in points}
+    tracer = default_tracer()
+    tracer.configure(enabled=True)
+    tracer.clear()
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        run_training(cfg, device=device, log_every=cfg.steps,
+                     environ={**env, "KFT_CHAOS_POINTS": CHAOS_TRAIN_PLAN})
+    except ChaosError as e:
+        raised = e
+    else:
+        raise AssertionError("the chaos plan did not fail the run")
+    fired = {p: faults.value(point=p) - before[p] for p in points}
+    committed = latest_committed_step(directory)
+    if (raised.point != "trainer.device_step" or fired != dict.fromkeys(points, 1)
+            or committed != CKPT_INTERVAL or default_chaos().enabled):
+        raise AssertionError(f"14c: {raised}, faults {fired}, committed "
+                             f"{committed}, armed {default_chaos().enabled}")
+    trainer = Trainer(cfg, device=device)
+    resumed = run_training(cfg, restore=True, device=device,
+                           log_every=cfg.steps, environ=env, trainer=trainer)
+    wall = time.monotonic() - t0
+    got = {name: p.detach().cpu()
+           for name, p in trainer._final_state.model.named_parameters()}
+    same = sorted(name for name in want_params
+                  if torch.equal(got[name], want_params[name]))
+    spans = [r for r in tracer.snapshot() if r.name == "train.device_step"]
+    launches = dict(fa.launch_counts)
+    print(f"chaos 14c: {raised} after step {committed}'s save (faults "
+          f"{fired}); resumed {resumed['losses']} (restore "
+          f"{resumed['restore_s']:.3f} s); {len(same)}/{len(want_params)} "
+          f"params bitwise phase 12's; {len(spans)} train.device_step spans; "
+          f"flash launches {launches}; {wall:.3f} s | "
+          f"{smi_line() if device == 'cuda' else device}", flush=True)
+    if resumed["final_step"] != cfg.steps or \
+            resumed["losses"] != want_losses[CKPT_INTERVAL:]:
+        raise AssertionError(f"the resumed losses {resumed['losses']} are not "
+                             f"phase 12's {want_losses[CKPT_INTERVAL:]}")
+    if len(same) != len(want_params) or got.keys() != want_params.keys():
+        raise AssertionError("the resumed step-4 params differ from phase "
+                             "12's uninterrupted run")
+    if len(spans) < cfg.steps:
+        raise AssertionError(f"{len(spans)} train.device_step spans")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2069,6 +2495,10 @@ def main() -> int:
         flash_launches, trainer, ckpt_dir = phase_ckpt_train(torch, root)
         paged_launches = phase_ckpt_serve(torch, trainer, ckpt_dir, bf16_stats,
                                           spec_run["accept_rate"])
+        # phase 14c resumes to these, bit for bit
+        ckpt_losses = list(trainer.losses)
+        ckpt_params = {name: p.detach().cpu().clone() for name, p
+                       in trainer._final_state.model.named_parameters()}
         del trainer
     for rec in kernels:
         rec["checkpoint_launches"] = {**flash_launches, **paged_launches}[rec["name"]]
@@ -2083,6 +2513,22 @@ def main() -> int:
             rec["kv_tier_launches"] = kv_launches[rec["name"]]
             if rec["kv_tier_launches"] < 1:
                 raise AssertionError(f"the KV tier path never launched "
+                                     f"{rec['name']}")
+    torch.cuda.empty_cache()
+
+    # this slice's path: traced serving, faults in serving and training
+    t14 = time.monotonic()
+    chaos_launches = phase_chaos_serve(torch, bf16_stats)
+    with tempfile.TemporaryDirectory(prefix="kft-chaos-") as root:
+        chaos_launches.update(phase_chaos_train(torch, root, ckpt_losses,
+                                                ckpt_params))
+    print(f"phase 14: {time.monotonic() - t14:.3f} s", flush=True)
+    for rec in kernels:
+        # the bf16 paged rows (14a, 14b) and the bf16 flash rows (14c)
+        if rec["name"] in CHAOS_ROWS:
+            rec["chaos_launches"] = chaos_launches[rec["name"]]
+            if rec["chaos_launches"] < 1:
+                raise AssertionError(f"the chaos path never launched "
                                      f"{rec['name']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Minimal WSGI micro-framework (copy of the subset of
 kubeflow_tpu/api/wsgi.py the port's model server uses).
 
-- path patterns with <named> segments,
+- path patterns with <named> segments, the query string as
+  `Request.query`,
 - JSON in/out, error envelope {"success": false, "log": msg}; a route
   registered with `binary=True` takes an `application/octet-stream`
   body as raw bytes, and every other route answers a binary body 400,
@@ -16,6 +17,7 @@ import re
 import threading
 import traceback
 from typing import Any, Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qsl
 
 from kubeflow_tpu_torch.utils.logging import get_logger
 from kubeflow_tpu_torch.utils.metrics import default_registry
@@ -50,12 +52,15 @@ class Request:
         params: Dict[str, str],
         body: Any,
         headers: Dict[str, str],
+        query: Optional[Dict[str, str]] = None,
     ):
         self.method = method
         self.path = path
         self.params = params
         self.body = body
         self.headers = headers
+        # the query string's parameters (?trace_id=...)
+        self.query = dict(query or {})
         # handlers may append (name, value) pairs to the response
         self.response_headers: List[Tuple[str, str]] = []
 
@@ -124,6 +129,7 @@ class App:
     def handle_full(
         self, method: str, path: str, body: Any = None,
         headers: Optional[Dict[str, str]] = None,
+        query: Optional[Dict[str, str]] = None,
     ) -> Tuple[int, Any, List[Tuple[str, str]]]:
         headers = {k.lower(): v for k, v in (headers or {}).items()}
         matched_path = False
@@ -141,7 +147,8 @@ class App:
                      "log": "binary body not accepted by this endpoint"},
                     [],
                 )
-            req = Request(method.upper(), path, match.groupdict(), body, headers)
+            req = Request(method.upper(), path, match.groupdict(), body, headers,
+                          query)
             try:
                 with self._latency.time(app=self.name):
                     result = fn(req)
@@ -199,8 +206,9 @@ class App:
                     return [json.dumps(
                         {"success": False, "log": "invalid JSON"}
                     ).encode()]
+        query = dict(parse_qsl(environ.get("QUERY_STRING", "")))
         status, result, extra_headers = self.handle_full(
-            method, path, body, headers
+            method, path, body, headers, query
         )
         if isinstance(result, Response):
             payload, content_type = result.body, result.content_type

@@ -46,6 +46,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.chaos import ChaosError, default_chaos
 from kubeflow_tpu_torch.checkpointing import layout
 from kubeflow_tpu_torch.utils.logging import get_logger
 from kubeflow_tpu_torch.utils.metrics import (
@@ -62,7 +63,9 @@ log = get_logger(__name__)
 _CLOSE = object()  # writer-queue sentinel
 
 # Transient-I/O retry policy for the shard-write / commit / restore
-# paths: network checkpoint volumes hiccup, and one flaky write must not
+# paths: network checkpoint volumes hiccup (and the kft-chaos points
+# checkpoint.{shard_write,commit,restore} inject exactly that class of
+# fault, so it rides the same retries), and one flaky write must not
 # fail a whole save. Bounded exponential backoff WITH jitter: every host
 # of a gang retries against the same volume, and lockstep retries would
 # re-collide. A fault that survives all attempts propagates: a
@@ -72,7 +75,7 @@ _IO_RETRY_ATTEMPTS = 3
 _IO_RETRY_DELAY_S = 0.05
 _IO_RETRY_MULTIPLIER = 2.0
 _IO_RETRY_JITTER = 0.5
-_IO_RETRY_ON = (OSError,)
+_IO_RETRY_ON = (OSError, ChaosError)
 
 
 def _io_retry(fn, what: str):
@@ -321,8 +324,7 @@ class CheckpointManager:
                 buf = host.reshape(-1).view(torch.uint8).numpy()
 
                 def _write_shard(path=path, buf=buf):
-                    # the chaos point checkpoint.shard_write waits for
-                    # the chaos port (ROADMAP A7 item 3)
+                    default_chaos().maybe_fail("checkpoint.shard_write")
                     layout.atomic_write_bytes(path, buf.data)
 
                 _io_retry(_write_shard, "shard write")
@@ -365,8 +367,9 @@ class CheckpointManager:
         }
 
         def _commit():
-            # the chaos point checkpoint.commit waits for the chaos port
-            # (ROADMAP A7 item 3)
+            # a persistent fault here leaves the step uncommitted: its
+            # shards are on disk, no manifest names them
+            default_chaos().maybe_fail("checkpoint.commit")
             layout.write_manifest(dirpath, manifest)
 
         _io_retry(_commit, "commit")
@@ -584,8 +587,7 @@ def restore_pytree(dirpath: str, target: Any) -> Any:
     Retried with bounded backoff: a transient I/O fault mid-assembly must
     not fail a resume that a second read would satisfy."""
     def once():
-        # the chaos point checkpoint.restore waits for the chaos port
-        # (ROADMAP A7 item 3)
+        default_chaos().maybe_fail("checkpoint.restore")
         return _restore_leaves(dirpath, _tree_of(target), "")
 
     tree = _io_retry(once, "restore")
@@ -661,8 +663,7 @@ def restore_params(
 
 
 def _restore_params_once(dirpath: str, prefix: str) -> Dict[str, Any]:
-    # the chaos point checkpoint.restore waits for the chaos port
-    # (ROADMAP A7 item 3)
+    default_chaos().maybe_fail("checkpoint.restore")
     entries = _manifest_entries(dirpath)
     want = prefix + "/"
     pairs = [

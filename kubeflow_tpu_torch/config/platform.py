@@ -1,7 +1,8 @@
 """Platform configuration (copy of the subset of
 kubeflow_tpu/config/platform.py's `TrainingConfig`, `DataConfig` and
-`CheckpointConfig` the port's training path honours, and of
-`DisaggConfig` the serving replica reads).
+`CheckpointConfig` the port's training path honours, of
+`ObservabilityConfig` and `ChaosConfig` both paths read, and of
+`ServingConfig`'s `observability`, `chaos` and `disagg` subtrees).
 
 Fields keep the JAX package's names and defaults. A field of the JAX
 config that the port does not honour yet is absent here, so passing it
@@ -13,14 +14,12 @@ ignored. `validate()` runs on construction.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping
+from typing import Any, List, Mapping
 
 # JAX TrainingConfig fields this port does not take yet, and what they
 # wait for (ROADMAP.md)
 _UNPORTED_FIELDS = {
     "mesh": "A13 (parallelism: one card, no mesh)",
-    "observability": "A14 (tracing spans)",
-    "chaos": "A14 (fault injection)",
     "label_smoothing": "A13 item 6 (image classification)",
     "profiler_logdir": "A14 (runtime profiler)",
     "compile_cache_dir": "A14 (nothing compiles ahead in eager PyTorch)",
@@ -35,6 +34,30 @@ _UNPORTED_DATA_FIELDS = {
     "shuffle": "A11 (real datasets)",
     "num_examples": "A11 (real datasets)",
     "augment": "A13 item 6 (image augmentation)",
+}
+
+# ObservabilityConfig fields that feed the fleet collector and its SLO
+# rules, which the port does not have yet
+_UNPORTED_OBSERVABILITY_FIELDS = {
+    "slo_rules": "A14 (fleet SLO rules)",
+    "fleet_scrape_interval_s": "A14 (the fleet collector)",
+    "fleet_straggler_zscore": "A14 (the fleet collector)",
+    "fleet_burn_window": "A14 (the fleet collector)",
+}
+# ServingConfig fields the port takes elsewhere or not yet: the engine and
+# tier knobs are build_server's arguments and its KFT_SERVING_* env
+_SERVING_KNOBS = "A14 (a rendered ServingConfig; the port takes this " \
+    "knob as a build_server argument or its KFT_SERVING_* env)"
+_UNPORTED_SERVING_FIELDS = {
+    **{name: _SERVING_KNOBS for name in (
+        "num_slots", "page_size", "num_pages", "prefix_cache",
+        "paged_attention", "quantize", "prefill_buckets", "max_queue",
+        "draft_model", "num_draft_tokens", "draft_checkpoint_dir",
+        "kv_host_bytes", "kv_persist_dir", "kv_persist_interval_s",
+        "kv_persist_chains", "drain_deadline_s")},
+    "mesh": "A13 item 2 (the serving mesh)",
+    "autoscale": "A14 (the router's autoscaler)",
+    "router": "A14 (the router)",
 }
 
 DTYPES = ("float32", "bfloat16")
@@ -128,6 +151,84 @@ class CheckpointConfig:
 
 
 @dataclasses.dataclass
+class ObservabilityConfig:
+    """kft-trace knobs (observability/trace.py), the JAX package's fields,
+    defaults and checks. Rendered as KFT_TRACE_* env and read through
+    `observability.trace.configure_from_env` by serving/main.py and
+    runtime/train_run.py. Tracing is on by default: the span layer is a
+    bounded ring, and off it is a shared no-op."""
+
+    # record spans into the in-process ring; off = the span API is a no-op
+    trace_enabled: bool = True
+    # ring capacity in span records; the oldest drop first
+    trace_buffer_spans: int = 4096
+    # serve /statusz, /debug/trace and /tracez; off = not mounted
+    statusz_enabled: bool = True
+    # tail-sampling keep probability for unremarkable completed request
+    # traces (error and slower-than-p99 traces are always kept)
+    trace_sample_prob: float = 1.0
+    # completed-traces ring capacity served by /tracez
+    trace_sample_keep: int = 128
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.trace_buffer_spans < 1:
+            raise ConfigError("observability.trace_buffer_spans must be >= 1")
+        if not 0.0 <= self.trace_sample_prob <= 1.0:
+            raise ConfigError(
+                "observability.trace_sample_prob must be in [0, 1]"
+            )
+        if self.trace_sample_keep < 1:
+            raise ConfigError("observability.trace_sample_keep must be >= 1")
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "ObservabilityConfig":
+        _check_keys(raw, cls, _UNPORTED_OBSERVABILITY_FIELDS,
+                    "observability.")
+        return cls(**raw)
+
+
+@dataclasses.dataclass
+class ChaosConfig:
+    """kft-chaos fault-injection knobs (chaos/core.py), the JAX package's
+    fields and checks. Rendered as KFT_CHAOS_* env and read through
+    `chaos.configure_from_env` by runtime/train_run.py and
+    serving/main.py; disabled (the default) every injection point is a
+    shared no-op."""
+
+    # arm the plan below in this job's or service's processes
+    enabled: bool = False
+    # '<point>[:qualifiers]' entries (p=<prob>, after=<n>, once,
+    # attempt=<n>) naming points of chaos.CATALOG
+    points: List[str] = dataclasses.field(default_factory=list)
+    # the plan's RNG seed: the same plan, seed and call sequence inject
+    # the same faults
+    seed: int = 0
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.seed < 0:
+            raise ConfigError("chaos.seed must be >= 0")
+        # parse NOW: an unknown point or a bad qualifier fails the
+        # config, never arms nothing quietly
+        from kubeflow_tpu_torch.chaos import ChaosSpecError, parse_points
+
+        try:
+            parse_points(self.points)
+        except ChaosSpecError as e:
+            raise ConfigError(f"chaos.points: {e}") from e
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "ChaosConfig":
+        _check_keys(raw, cls, {}, "chaos.")
+        return cls(**raw)
+
+
+@dataclasses.dataclass
 class TrainingConfig:
     """Per-job training knobs (the JAX `TrainingConfig` subset).
 
@@ -154,12 +255,22 @@ class TrainingConfig:
     seq_len: int = 0
     accum_steps: int = 1
     attention_impl: str = "dense"
+    observability: ObservabilityConfig = dataclasses.field(
+        default_factory=ObservabilityConfig
+    )
+    chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
 
     def __post_init__(self):
         if isinstance(self.data, Mapping):
             self.data = DataConfig.from_dict(self.data)
         if isinstance(self.checkpoint, Mapping):
             self.checkpoint = CheckpointConfig.from_dict(self.checkpoint)
+        if isinstance(self.observability, Mapping):
+            self.observability = ObservabilityConfig.from_dict(
+                self.observability
+            )
+        if isinstance(self.chaos, Mapping):
+            self.chaos = ChaosConfig.from_dict(self.chaos)
         self.validate()
 
     def validate(self) -> None:
@@ -213,3 +324,52 @@ class DisaggConfig:
     def validate(self) -> None:
         if self.handoff_chains < 1:
             raise ConfigError("serving.disagg.handoff_chains must be >= 1")
+
+
+@dataclasses.dataclass
+class ServingConfig:
+    """The serving config's subtrees a port replica reads (the JAX
+    `ServingConfig`'s `observability`, `chaos` and `disagg`). Its engine
+    and tier knobs are `build_server`'s arguments and KFT_SERVING_* env
+    here; `from_dict` refuses them naming where they wait."""
+
+    observability: ObservabilityConfig = dataclasses.field(
+        default_factory=ObservabilityConfig
+    )
+    chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
+    disagg: DisaggConfig = dataclasses.field(default_factory=DisaggConfig)
+
+    def __post_init__(self):
+        if isinstance(self.observability, Mapping):
+            self.observability = ObservabilityConfig.from_dict(
+                self.observability
+            )
+        if isinstance(self.chaos, Mapping):
+            self.chaos = ChaosConfig.from_dict(self.chaos)
+        if isinstance(self.disagg, Mapping):
+            self.disagg = DisaggConfig(**self.disagg)
+        self.validate()
+
+    def validate(self) -> None:
+        self.observability.validate()
+        self.disagg.validate()
+        # a programmatically built config must hit the same parse
+        # rejection from_dict applies
+        self.chaos.validate()
+        # serving replicas have no gang-incarnation counter: an
+        # attempt-qualified point would arm inert, so it fails here
+        from kubeflow_tpu_torch.chaos import parse_points
+
+        for spec in parse_points(self.chaos.points):
+            if spec.attempt is not None:
+                raise ConfigError(
+                    f"serving.chaos.points: {spec.spec_str()!r} uses "
+                    f"attempt=, which only gang pods support (the "
+                    f"TPUJob controller renders the incarnation "
+                    f"counter; serving replicas have none)"
+                )
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "ServingConfig":
+        _check_keys(raw, cls, _UNPORTED_SERVING_FIELDS, "serving.")
+        return cls(**raw)

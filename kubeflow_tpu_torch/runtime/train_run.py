@@ -17,8 +17,18 @@ already covers returns `already_complete` and trains nothing;
 not resume. SIGTERM sets the stop event (from the main thread), so a
 preempted run finishes its step in flight, saves it (forced) and exits
 cleanly; the manager is closed in `finally` with the SIGTERM handler
-still installed. Not ported yet (ROADMAP): the compile cache and chaos
-injection (A14).
+still installed.
+
+kft-chaos: the run's KFT_CHAOS_* env arms the process's injection
+points for THIS run only (no plan disarms them), the `gang.host_exit`
+point fires before anything is built, and the plan is disarmed on every
+exit path. The run's KFT_TRACE_* knobs configure the process tracer (the
+run's spans: `train.*`). As in the JAX package, only the env is read:
+the config's `chaos` and `observability` reach a run as the env its
+controller renders, and until that controller is ported a run that sets
+either is refused rather than run without it. Not ported yet (ROADMAP
+A14): the controllers' rendering, the compile cache and the training
+debug server.
 """
 
 from __future__ import annotations
@@ -57,6 +67,26 @@ def _install_preempt_handler(stop_event: threading.Event):
     return lambda: signal.signal(signal.SIGTERM, previous)
 
 
+def _refuse_unrendered(cfg: TrainingConfig) -> None:
+    """The config's `chaos` and `observability` take effect as the
+    KFT_CHAOS_*/KFT_TRACE_* env a controller renders into the run, and
+    that rendering is not ported yet: refuse a config that sets either
+    rather than run without it."""
+    from kubeflow_tpu_torch.config.platform import (
+        ChaosConfig,
+        ConfigError,
+        ObservabilityConfig,
+    )
+
+    for name, default in (("chaos", ChaosConfig()),
+                          ("observability", ObservabilityConfig())):
+        if getattr(cfg, name) != default:
+            raise ConfigError(
+                f"{name}: a controller renders it into the run's "
+                f"{'KFT_CHAOS_*' if name == 'chaos' else 'KFT_TRACE_*'} "
+                f"env, not ported yet (ROADMAP A14); set that env instead")
+
+
 def run_training(cfg: TrainingConfig, restore: bool = False,
                  steps_override: Optional[int] = None,
                  stop_event: Optional[threading.Event] = None,
@@ -66,12 +96,42 @@ def run_training(cfg: TrainingConfig, restore: bool = False,
     `steps_override`, counted from step 0: a resumed run takes only the
     remaining steps); returns the result metrics. `device` defaults to
     "cuda" and raises without CUDA unless "cpu" is asked for. `environ`
-    is the job's environment (default the process's). `trainer` runs the
-    job in place of a fresh `Trainer(cfg, device=device)`; its
+    is the job's environment (default the process's): its KFT_CHAOS_*
+    plan is armed for this run and disarmed on every exit, and its
+    KFT_TRACE_* knobs configure the tracer. `trainer`
+    runs the job in place of a fresh `Trainer(cfg, device=device)`; its
     `_final_state` is the run's state afterwards."""
+    from kubeflow_tpu_torch.chaos import (
+        configure_from_env as configure_chaos,
+        default_chaos,
+    )
+    from kubeflow_tpu_torch.observability.trace import (
+        configure_from_env as configure_tracer,
+    )
+
+    _refuse_unrendered(cfg)
+    env = os.environ if environ is None else environ
+    if any(key.startswith("KFT_TRACE_") for key in env):
+        configure_tracer(env)
+    chaos_armed = configure_chaos(environ=env)
+    try:
+        # the host-exit seam: a fault here is the process dying before
+        # the run trains at all
+        default_chaos().maybe_fail("gang.host_exit")
+        return _run_training_armed(cfg, restore, steps_override, stop_event,
+                                   device, log_every, env, trainer)
+    finally:
+        if chaos_armed:
+            default_chaos().disarm()
+
+
+def _run_training_armed(cfg: TrainingConfig, restore: bool,
+                        steps_override: Optional[int],
+                        stop_event: Optional[threading.Event],
+                        device: DeviceLike, log_every: int, env,
+                        trainer) -> Dict[str, Any]:
     from kubeflow_tpu_torch.training.trainer import Trainer
 
-    env = os.environ if environ is None else environ
     if trainer is None:
         trainer = Trainer(cfg, device=device)
     ckpt_mgr = None

@@ -57,8 +57,19 @@ donate the pool; here the pool tensors are updated in place. Greedy
 engine output equals `generate()` (serving/generate.py) over the same
 weights.
 
-Not ported yet: the serving mesh, MoE, the pool rebuild of recover,
-chaos, trace spans and `/statusz`.
+- OBSERVABILITY AND RECOVERY: every request carries a trace id (the
+  server's X-Request-Id or traceparent, else one minted) through its
+  kft-trace spans (`request.queue_wait` across threads, then
+  `request.prefill`, `request.decode`, the `request.retire` event) and
+  the scheduler's `engine.step` / `engine.draft` / `engine.verify` spans,
+  each closed after the host has read the step's tokens. `debug_state()`
+  feeds `/statusz`. The kft-chaos points `engine.prefill` (one
+  admission) and `engine.step` (the decode iteration) raise where a
+  device failure would; an iteration that raises runs `_recover`: the
+  residents fail fast, both pools are zeroed in place, the allocator and
+  the radix index start empty, the host tier stays.
+
+Not ported yet: the serving mesh and MoE (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -71,6 +82,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.chaos import default_chaos
 from kubeflow_tpu_torch.models.gpt import (
     PAGED_ATTENTION_IMPLS,
     QUANTIZE_CHOICES,
@@ -83,6 +95,8 @@ from kubeflow_tpu_torch.models.gpt import (
     make_paged_pool,
     scatter_pool_pages,
 )
+from kubeflow_tpu_torch.observability.trace import default_tracer
+from kubeflow_tpu_torch.routing.affinity import first_page_key
 from kubeflow_tpu_torch.serving.kv_tiers import (
     DEFAULT_KV_LAYOUT,
     KV_LAYOUTS,
@@ -107,11 +121,13 @@ from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.utils.logging import get_logger
 from kubeflow_tpu_torch.utils.metrics import (
     default_registry,
+    serving_engine_recoveries_counter,
     serving_kv_handoff_ms_counter,
     serving_kv_handoff_pages_counter,
     serving_kv_persisted_chains_gauge,
     serving_kv_spill_hits_counter,
     serving_kv_spill_pages_counter,
+    serving_phase_histogram,
 )
 
 log = get_logger(__name__)
@@ -121,6 +137,8 @@ DEFAULT_MAX_QUEUE = 64
 DEFAULT_PAGE_SIZE = 16
 DEFAULT_PAGED_ATTENTION = "gather"
 DEFAULT_QUANTIZE = "none"
+# bound on the distinct first-page affinity keys stats() counts
+FIRST_PAGE_KEYS_CAP = 4096
 
 
 class QueueFullError(RuntimeError):
@@ -390,6 +408,7 @@ class RadixPrefixIndex:
         self.page_size = int(page_size)
         self.pool = pool
         self.root = _RadixNode(None, -1, None)
+        self.nodes = 0  # committed pages in the tree (/statusz)
         self._clock = 0
         # leaves maintained incrementally: eviction scans only these
         self._leaves: Dict[_RadixNode, None] = {}
@@ -400,6 +419,7 @@ class RadixPrefixIndex:
 
     def reset(self) -> None:
         self.root = _RadixNode(None, -1, None)
+        self.nodes = 0
         self._leaves = {}
 
     def match(self, tokens) -> Tuple[List[int], int, Optional[Tuple[int, int]]]:
@@ -460,6 +480,7 @@ class RadixPrefixIndex:
                 self._leaves[child] = None
                 self.pool.retain([int(pg)])
                 self.pool.mark_tree(int(pg))
+                self.nodes += 1
             child.last_used = self._clock
             node = child
 
@@ -478,6 +499,7 @@ class RadixPrefixIndex:
             parent = victim.parent
             if not parent.children and parent is not self.root:
                 self._leaves[parent] = None
+            self.nodes -= 1
             self.pool.unmark_tree(victim.page)
             if (self.spill_hook is not None
                     and self.pool.refcount(victim.page) == 1):
@@ -779,11 +801,12 @@ class _Request:
 
     __slots__ = (
         "prompt", "max_new", "temperature", "top_k", "top_p", "eos_id",
-        "seed", "t_submit", "future",
+        "seed", "t_submit", "future", "trace_id", "parent_span_id",
+        "queue_span",
     )
 
     def __init__(self, prompt, max_new, temperature, top_k, top_p, eos_id,
-                 seed):
+                 seed, trace_id=None, parent_span_id=None):
         self.prompt = prompt  # np.int64 [P], real tokens only
         self.max_new = max_new
         self.temperature = temperature
@@ -794,17 +817,29 @@ class _Request:
         self.t_submit = time.monotonic()
         # completes with {"tokens": [...], "ttft_s": float}
         self.future = Completion()
+        # kft-trace: the request's id on every span it records, the
+        # remote parent of its spans (an inbound traceparent's span), and
+        # the open cross-thread queue span (ended at admission)
+        self.trace_id = trace_id
+        self.parent_span_id = parent_span_id
+        self.queue_span = None
 
 
 class _Slot:
     """Host bookkeeping for one occupied decode slot."""
 
-    __slots__ = ("req", "tokens", "ttft_s")
+    __slots__ = ("req", "tokens", "ttft_s", "queue_s", "t_admitted",
+                 "decode_span")
 
     def __init__(self, req: _Request):
         self.req = req
         self.tokens: List[int] = []
         self.ttft_s = 0.0
+        # phase accounting: submit → admission (queue), admission → first
+        # token (prefill: ttft_s - queue_s), then decode until retire
+        self.queue_s = 0.0
+        self.t_admitted = 0.0
+        self.decode_span = None
 
 
 class DecodeEngine:
@@ -1048,6 +1083,18 @@ class DecodeEngine:
         # read-path evidence: window size (query rows per pool walk) ->
         # read path that served it
         self._attn_windows: Dict[int, str] = {}
+        # distinct first-page affinity keys admitted (capped): this
+        # replica's slice of the router's key space
+        self._first_page_keys: set = set()
+
+        # kft-trace: request phases and scheduler iterations ride the
+        # process tracer (a disabled tracer makes every span a shared
+        # no-op); kft-chaos: the engine.{prefill,step} injection points
+        self._tracer = default_tracer()
+        self._chaos = default_chaos()
+        # recent finished requests' phase breakdowns for /statusz:
+        # appended by the scheduler, read by HTTP handlers
+        self._recent: deque = deque(maxlen=32)
 
         reg = default_registry()
         self._ttft = reg.histogram(
@@ -1090,6 +1137,12 @@ class DecodeEngine:
             "accepted / proposed drafted tokens per verify iteration",
             ["model"], buckets=tuple(i / 10 for i in range(11)),
         )
+        self._phase = serving_phase_histogram()
+        self._recoveries = serving_engine_recoveries_counter()
+        self._first_page_keys_g = reg.gauge(
+            "serving_first_page_keys",
+            "distinct first-page affinity keys admitted (capped)", ["model"],
+        )
         self._drain_h = reg.histogram(
             "serving_drain_seconds", "drain() start to idle or deadline",
             ["model"],
@@ -1116,6 +1169,7 @@ class DecodeEngine:
         self._pages_in_use_g.set(0, model=name)
         self._pages_total_g.set(self.num_pages, model=name)
         self._persisted_chains_g.set(0, model=name)
+        self._first_page_keys_g.set(0, model=name)
 
         # warm restart: the persisted hot chains land in the pool and the
         # radix index BEFORE the scheduler starts, so the first request
@@ -1135,7 +1189,7 @@ class DecodeEngine:
         return bucket_for(prompt_len, self.prefill_buckets)
 
     def _make_request(self, prompt_ids, max_new_tokens, temperature, top_k,
-                      top_p, eos_id, seed) -> _Request:
+                      top_p, eos_id, seed, trace_id=None) -> _Request:
         prompt = np.asarray(prompt_ids, dtype=np.int64).reshape(-1)
         if prompt.size < 1:
             raise ValueError("prompt must contain at least one token")
@@ -1163,8 +1217,11 @@ class DecodeEngine:
             eos_id = int(eos_id)
             if not 0 <= eos_id < vocab:
                 raise ValueError(f"eos_id must be in [0, {vocab})")
+        if trace_id is None and self._tracer.enabled:
+            trace_id = self._tracer.new_trace_id("req")
         return _Request(prompt, n, temperature, top_k, top_p, eos_id,
-                        int(seed))
+                        int(seed), trace_id=trace_id,
+                        parent_span_id=self._tracer.current_parent_span_id())
 
     def _enqueue(self, reqs: List[_Request]) -> None:
         with self._cv:
@@ -1183,30 +1240,55 @@ class DecodeEngine:
                     f"admission queue full ({len(self._queue)} waiting, "
                     f"capacity {self.max_queue})"
                 )
+            for req in reqs:
+                # cross-thread span: starts on the submitter's thread, ends
+                # when the scheduler pops the request for admission
+                req.queue_span = self._tracer.start_span(
+                    "request.queue_wait", trace_id=req.trace_id,
+                    parent_span_id=req.parent_span_id,
+                    model=self.name, prompt_len=int(req.prompt.size),
+                )
             self._queue.extend(reqs)
             self._queue_depth_g.set(len(self._queue), model=self.name)
             self._cv.notify_all()
+        with self._stats_lock:
+            for req in reqs:
+                if len(self._first_page_keys) < FIRST_PAGE_KEYS_CAP:
+                    self._first_page_keys.add(
+                        first_page_key(req.prompt, self.page_size)
+                    )
+            keys = len(self._first_page_keys)
+        self._first_page_keys_g.set(keys, model=self.name)
 
     def submit(self, prompt_ids, max_new_tokens: int, *,
                temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-               eos_id: Optional[int] = None, seed: int = 0) -> Completion:
+               eos_id: Optional[int] = None, seed: int = 0,
+               trace_id: Optional[str] = None) -> Completion:
         """Enqueue one UNPADDED prompt row; returns the request future
         (completes with {"tokens", "ttft_s"}). Raises QueueFullError when
-        the admission queue is at max_queue."""
+        the admission queue is at max_queue. `trace_id` tags the
+        request's spans (the server passes its X-Request-Id); one is
+        minted when absent and tracing is on."""
         req = self._make_request(prompt_ids, max_new_tokens, temperature,
-                                 top_k, top_p, eos_id, seed)
+                                 top_k, top_p, eos_id, seed,
+                                 trace_id=trace_id)
         self._enqueue([req])
         return req.future
 
     def submit_batch(self, rows, max_new_tokens: int, *,
                      temperature: float = 0.0, top_k: int = 0,
                      top_p: float = 1.0, eos_id: Optional[int] = None,
-                     seed: int = 0) -> List[Completion]:
+                     seed: int = 0,
+                     trace_id: Optional[str] = None) -> List[Completion]:
         """Atomic multi-row admission: every row enters the queue, or
-        none does. Row i's sampling stream is seeded `seed + i`."""
+        none does. Row i's sampling stream is seeded `seed + i`, and its
+        spans carry `<trace_id>/<i>` (one REST request's rows)."""
         reqs = [
-            self._make_request(row, max_new_tokens, temperature, top_k,
-                               top_p, eos_id, int(seed) + i)
+            self._make_request(
+                row, max_new_tokens, temperature, top_k, top_p, eos_id,
+                int(seed) + i,
+                trace_id=None if trace_id is None else f"{trace_id}/{i}",
+            )
             for i, row in enumerate(rows)
         ]
         if not reqs:
@@ -1247,6 +1329,8 @@ class DecodeEngine:
                 "prefix_cache_hit_rate": (
                     self._prefix_hit_tokens / seen if seen else 0.0
                 ),
+                # distinct first-page affinity keys admitted (capped)
+                "first_page_hashes": len(self._first_page_keys),
                 "cow_copies": self._cow_copies,
                 "prefill_compute_tokens": self._prefill_compute_tokens,
                 "pages_allocated": self._pages_allocated,
@@ -1284,6 +1368,56 @@ class DecodeEngine:
                 "kv_pool_bytes": self.kv_pool_bytes,
                 "device": str(self.device),
             }
+
+    def debug_state(self) -> dict:
+        """The /statusz snapshot: the slot map (with page footprints),
+        pool and prefix-cache occupancy, queue depth, the recent finished
+        requests' phase breakdowns and `stats()`. Slot reads are
+        lock-free snapshots of scheduler-owned state (a torn view across
+        slots is acceptable for a status page; no device state is read).
+        The port serves on one card: the mesh is 1 × 1 × 1 and a card
+        holds the whole pool."""
+        slots = []
+        for i, slot in enumerate(self._slots):
+            if slot is None:
+                slots.append(None)
+                continue
+            slots.append({
+                "slot": i,
+                "trace_id": slot.req.trace_id or "-",
+                "prompt_len": int(slot.req.prompt.size),
+                "tokens": len(slot.tokens),
+                "max_new": slot.req.max_new,
+                "pages": len(self._slot_pages[i]),
+                "shared_pages": int(self._slot_shared[i]),
+            })
+        with self._cv:
+            depth = len(self._queue)
+        with self._stats_lock:
+            recent = list(self._recent)
+        return {
+            "name": self.name,
+            "num_slots": self.num_slots,
+            "queue_depth": depth,
+            "page_size": self.page_size,
+            "pages_total": self.num_pages,
+            "pages_in_use": self._pagepool.in_use,
+            "attention_kernel": self.paged_attention,
+            "quantize": self.quantize,
+            "kv_pool_bytes": self.kv_pool_bytes,
+            "mesh": {"tensor": 1, "fsdp": 1, "expert": 1},
+            "kv_pool_bytes_per_chip": self.kv_pool_bytes,
+            "prefix_cache": self.prefix_cache_enabled,
+            "prefix_nodes": self._radix.nodes if self._radix else 0,
+            "kv_host_tier": (
+                self._host_tier.stats()
+                if self._host_tier is not None else None
+            ),
+            "kv_persist_dir": self.kv_persist_dir,
+            "slots": slots,
+            "recent": recent,
+            "stats": self.stats(),
+        }
 
     @property
     def draining(self) -> bool:
@@ -1893,8 +2027,22 @@ class DecodeEngine:
         return admitted
 
     def _admit(self, slot_idx: int, req: _Request) -> None:
+        # the queue phase ends the moment the scheduler owns the request
+        t_admit = time.monotonic()
+        if req.queue_span is not None:
+            req.queue_span.end(slot=slot_idx)
+            req.queue_span = None
+        # chaos seam: a device failure during THIS request's admission,
+        # failed per request by _iterate; after the queue span's end, so
+        # an injected fault never loses the request's queue phase
+        self._chaos.maybe_fail("engine.prefill")
         prompt = req.prompt
         p = int(prompt.size)
+        prefill_span = self._tracer.start_span(
+            "request.prefill", trace_id=req.trace_id,
+            parent_span_id=req.parent_span_id, model=self.name,
+            slot=slot_idx, prompt_len=p,
+        )
         self._slot_reserve[slot_idx] = self._reserve_pages(p, req.max_new)
         matched = (
             self._prefix_lookup(slot_idx, prompt)
@@ -1972,9 +2120,21 @@ class DecodeEngine:
                 computed += nreal
                 pos += clen
         self._cur_np[slot_idx] = p
+        # the host read of the first token: prefill ends, and TTFT with it
+        first = int(first_tok)
+        prefill_span.end()
         slot = _Slot(req)
-        slot.tokens.append(int(first_tok))
+        slot.tokens.append(first)
         slot.ttft_s = time.monotonic() - req.t_submit
+        slot.queue_s = t_admit - req.t_submit
+        slot.t_admitted = t_admit
+        # the rest of the request's life is its decode phase, ended by
+        # _finish (possibly many iterations later)
+        slot.decode_span = self._tracer.start_span(
+            "request.decode", trace_id=req.trace_id,
+            parent_span_id=req.parent_span_id, model=self.name,
+            slot=slot_idx,
+        )
         self._ttft.observe(slot.ttft_s, model=self.name)
         self._tokens_m.inc(model=self.name)
         self._tok_np[slot_idx] = slot.tokens[0]
@@ -2008,6 +2168,30 @@ class DecodeEngine:
                     seq[: fullp * self.page_size], pages[:fullp]
                 )
         self._release_slot_pages(slot_idx)
+        # the exact phase decomposition: queue + prefill == TTFT, and
+        # queue + prefill + decode == the request's wall time
+        prefill_s = slot.ttft_s - slot.queue_s
+        decode_s = time.monotonic() - slot.t_admitted - prefill_s
+        self._phase.observe(slot.queue_s, model=self.name, phase="queue")
+        self._phase.observe(prefill_s, model=self.name, phase="prefill")
+        self._phase.observe(decode_s, model=self.name, phase="decode")
+        if slot.decode_span is not None:
+            slot.decode_span.end(tokens=len(slot.tokens))
+            slot.decode_span = None
+        self._tracer.event(
+            "request.retire", trace_id=req.trace_id,
+            parent_span_id=req.parent_span_id, model=self.name,
+            slot=slot_idx, tokens=len(slot.tokens),
+        )
+        with self._stats_lock:
+            self._recent.append({
+                "trace_id": req.trace_id or "-",
+                "queue_s": slot.queue_s,
+                "prefill_s": prefill_s,
+                "decode_s": decode_s,
+                "ttft_s": slot.ttft_s,
+                "tokens": len(slot.tokens),
+            })
         req.future.set({"tokens": list(slot.tokens), "ttft_s": slot.ttft_s})
 
     @staticmethod
@@ -2046,24 +2230,66 @@ class DecodeEngine:
                 try:
                     self._iterate()
                 except Exception as e:  # the thread must live
-                    self._fail_resident(e)
+                    self._recover(e)
                 self._maybe_persist()
 
-    def _fail_resident(self, exc: BaseException) -> None:
-        """A decode iteration failed: fail every resident request and free
-        its pages, in the target's pool and (one page id each) the
-        draft's; queued requests were never admitted and stay servable.
-        The pools are written in place, so nothing needs rebuilding: the
-        failed iteration wrote only past the residents' cursors, onto
-        pages they owned."""
-        log.exception("engine %s decode iteration failed", self.name)
+    def _recover(self, exc: BaseException) -> None:
+        """A decode iteration raised: fail every resident request fast
+        (their slot state is gone), reset both K/V pools to zeros, reset
+        the page allocator and the radix prefix index (their page ids
+        described pages the failed iteration may have been writing), and
+        keep scheduling: queued requests were never admitted and stay
+        servable. The host KV tier is kept: its entries are token-keyed
+        host copies, independent of any pool page, and re-admit as
+        before.
+
+        The pools are zeroed in place (`zero_()`), never allocated again:
+        an auto pool is sized to a planned share of the card's memory,
+        and a second pool beside the live one could run out of memory
+        here. Fresh pools are zeros (int8 scales included), so the state
+        is a fresh engine's. The JAX engine also checks at admission for
+        a pool its donating programs deleted; programs here write the
+        pool in place, so there is no such pool to check for. A second
+        failure inside recover (a sticky CUDA error poisons the context)
+        is not caught: the JAX engine has no handling for its
+        equivalent either."""
+        residents = sum(s is not None for s in self._slots)
+        log.exception("engine %s decode iteration failed; failing %d "
+                      "resident request(s) and resetting the KV pool(s)",
+                      self.name, residents)
+        self._tracer.event("engine.recover", model=self.name,
+                           residents=residents, error=type(exc).__name__)
+        self._recoveries.inc(model=self.name)
+        failed = [slot for slot in self._slots if slot is not None]
+        self._slots = [None] * self.num_slots
         err = RuntimeError(f"engine {self.name} decode step failed: {exc!r}")
         err.__cause__ = exc
-        for i, slot in enumerate(self._slots):
-            if slot is not None:
-                self._slots[i] = None
-                self._temp_np[i] = 0.0
-                self._release_slot_pages(i)
+        try:
+            self._temp_np[:] = 0.0
+            for pool in (self._pool, self._draft_pool):
+                if pool is not None:
+                    for t in pool.tensors():
+                        t.zero_()
+            self._pagepool.reset()
+            if self._radix is not None:
+                self._radix.reset()
+            # victims noted by an eviction the failure interrupted: their
+            # pages are gone with the pools
+            self._pending_spills = []
+            for i in range(self.num_slots):
+                self._slot_pages[i] = []
+            self._slot_shared[:] = 0
+            self._slot_reserve[:] = 0
+            self._pt_np[:] = 0
+            self._cur_np[:] = self.model.cfg.max_len
+            self._occupancy_g.set(0.0, model=self.name)
+            self._pages_in_use_g.set(self._pagepool.in_use, model=self.name)
+        finally:
+            # after the reset, so a caller that sees its failure sees the
+            # engine reset; and also when the reset itself raises (the
+            # first zero_() on a poisoned context), so the residents fail
+            # at once while that second failure ends the scheduler thread
+            for slot in failed:
                 slot.req.future.fail(err)
 
     def _iterate(self) -> None:
@@ -2099,18 +2325,25 @@ class DecodeEngine:
         self._occupancy_g.set(len(active) / self.num_slots, model=self.name)
         if not active:
             return
+        # chaos seam: a device failure in the decode iteration raises into
+        # _loop's recovery as a real one would
+        self._chaos.maybe_fail("engine.step")
         if self.num_draft_tokens > 0:
             self._iterate_spec(active)
             return
         for i in active:  # host-only page mapping
             self._ensure_pages(i, int(self._cur_np[i]) + 1)
         t0 = time.monotonic()
-        toks = self.programs.step(
-            self._pool, self._to_dev(self._tok_np),
-            self._to_dev(self._pt_np), self._to_dev(self._cur_np),
-            self._seed_np, self._cnt_np, self._temp_np, self._topk_np,
-            self._topp_np,
-        ).cpu().numpy()
+        # the span closes after the host has read the tokens: it covers
+        # the step, not its launches
+        with self._tracer.span("engine.step", model=self.name,
+                               active=len(active)):
+            toks = self.programs.step(
+                self._pool, self._to_dev(self._tok_np),
+                self._to_dev(self._pt_np), self._to_dev(self._cur_np),
+                self._seed_np, self._cnt_np, self._temp_np, self._topk_np,
+                self._topp_np,
+            ).cpu().numpy()
         self._note_attn(1)
         self._decode_steps_m.inc(model=self.name)
         self._tokens_m.inc(len(active), model=self.name)
@@ -2142,15 +2375,26 @@ class DecodeEngine:
         pt, curs = self._to_dev(self._pt_np), self._to_dev(self._cur_np)
         knobs = (self._seed_np, self._cnt_np, self._temp_np, self._topk_np,
                  self._topp_np)
-        proposals, qs = self.programs.draft(
-            self._draft_pool, tokens, pt, curs, *knobs
-        )
+        # the draft span ends at its launches (the proposals stay on the
+        # card); the verify span closes after the host reads its tokens
+        with self._tracer.span("engine.draft", model=self.name,
+                               active=len(active), k=kk):
+            proposals, qs = self.programs.draft(
+                self._draft_pool, tokens, pt, curs, *knobs
+            )
         window = torch.cat([tokens[:, None], proposals], dim=1)
-        out_tok, out_len = self.programs.verify(
-            self._pool, window, qs, pt, curs, *knobs
-        )
-        out_tok, out_len = out_tok.cpu().numpy(), out_len.cpu().numpy()
+        with self._tracer.span("engine.verify", model=self.name,
+                               active=len(active), k=kk):
+            out_tok, out_len = self.programs.verify(
+                self._pool, window, qs, pt, curs, *knobs
+            )
+            out_tok, out_len = out_tok.cpu().numpy(), out_len.cpu().numpy()
         elapsed = time.monotonic() - t0
+        rolled = int(sum((kk + 1) - int(out_len[i]) for i in active))
+        if rolled:
+            # the host cursors rewind past the rejected tails below
+            self._tracer.event("engine.rewind", model=self.name,
+                               tokens=rolled)
         self._cnt_np += kk + 1  # the window used K+1 draw positions
         emitted = accepted = freed = 0
         for i in active:

@@ -1,6 +1,7 @@
 """Autoregressive generation over the slot-row KV cache (port of
-kubeflow_tpu/serving/generate.py: `generate` and a minimal `ServedLm`,
-which `from_registry` builds from a platform checkpoint).
+kubeflow_tpu/serving/generate.py: `generate`, `greedy_generate` and a
+minimal `ServedLm`, which `from_registry` builds from a platform
+checkpoint).
 
 One causal prefill over the prompt seeds the cache, then each new token
 costs one single-token decode step. Ragged batches pass `prompt_mask`
@@ -82,6 +83,11 @@ def generate(
             out.append(nxt)
             tok = nxt
         return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+
+
+def greedy_generate(model, prompt_ids, max_new_tokens: int) -> torch.Tensor:
+    """[B, P] prompt → [B, P + max_new_tokens] greedy continuation."""
+    return generate(model, prompt_ids, max_new_tokens)
 
 
 class ServedLm:

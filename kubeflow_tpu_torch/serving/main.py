@@ -17,6 +17,11 @@ prefix pages are parked there and uploaded again on a hit),
 replica preloads (written every `KFT_SERVING_KV_PERSIST_INTERVAL_S`
 seconds when > 0, and at shutdown; its `KFT_SERVING_KV_PERSIST_CHAINS`
 hottest pages); both need the prefix cache.
+`KFT_TRACE_ENABLED`, `_BUFFER_SPANS`, `_STATUSZ`, `_SAMPLE_PROB` and
+`_SAMPLE_KEEP` configure the process tracer and the /statusz,
+/debug/trace and /tracez routes (explicit arguments win);
+`KFT_CHAOS_POINTS` / `_SEED` arm the engine's fault-injection points
+(absent: disarmed).
 `--checkpoint-dir` serves the latest committed platform checkpoint of a
 training run (the port's or the JAX package's). SIGTERM drains the
 engines before the process exits.
@@ -128,6 +133,9 @@ def build_server(
     kv_persist_dir: Optional[str] = None,
     kv_persist_interval_s: Optional[float] = None,
     kv_persist_chains: Optional[int] = None,
+    trace_enabled: Optional[bool] = None,
+    trace_buffer_spans: Optional[int] = None,
+    statusz_enabled: Optional[bool] = None,
 ):
     """Assemble the ModelServer for one registry model: the ServedLm
     plus (num_slots > 0) its continuous-batching DecodeEngine.
@@ -156,7 +164,18 @@ def build_server(
     (`ServedLm.from_registry`), and without that the model keeps its
     seed-0 init. `device` defaults to "cuda" and raises
     without CUDA unless "cpu" is asked for. Engine knobs default from
-    `engine_knobs_from_env()`."""
+    `engine_knobs_from_env()`.
+
+    The KFT_CHAOS_* plan arms the process's injection points (absent, it
+    disarms them). `trace_enabled`, `trace_buffer_spans` and
+    `statusz_enabled` default from the KFT_TRACE_* env
+    (`observability.trace.knobs_from_env`), which also gives the tail
+    sampler's probability and ring size."""
+    from kubeflow_tpu_torch.chaos import configure_from_env as configure_chaos
+    from kubeflow_tpu_torch.observability.trace import (
+        default_tracer,
+        knobs_from_env,
+    )
     from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
     from kubeflow_tpu_torch.models.convert import params_from_jax
@@ -168,6 +187,20 @@ def build_server(
     from kubeflow_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
+    # the KFT_CHAOS_* plan: the env is the whole truth
+    configure_chaos()
+    obs = knobs_from_env()
+    if trace_enabled is None:
+        trace_enabled = obs["trace_enabled"]
+    if trace_buffer_spans is None:
+        trace_buffer_spans = obs["trace_buffer_spans"]
+    if statusz_enabled is None:
+        statusz_enabled = obs["statusz_enabled"]
+    default_tracer().configure(
+        enabled=trace_enabled, capacity=trace_buffer_spans,
+        sample_prob=obs["trace_sample_prob"],
+        sample_keep=obs["trace_sample_keep"],
+    )
     env = engine_knobs_from_env()
     num_slots = env["num_slots"] if num_slots is None else num_slots
     max_queue = env["max_queue"] if max_queue is None else max_queue
@@ -241,7 +274,7 @@ def build_server(
         if params is not None:
             lm_model.load_state_dict(params, strict=True)
         lm = ServedLm(model, lm_model, quantize=lm_quantize)
-    server = ModelServer()
+    server = ModelServer(statusz_enabled=statusz_enabled)
     server.add_lm(lm)
     lm_model = lm.model
     if num_slots > 0:

@@ -7,6 +7,14 @@ one is attached, else the static ServedLm path), `GET /v1/models` and
 them), `GET /healthz` and `GET /metrics` (Prometheus text). The bodies
 are the reference server's.
 
+Observability (`statusz_enabled`, on by default): `GET /statusz` (the
+models and engines sections: slot maps, pool, prefix cache, KV tiers,
+the recent requests' queue/prefill/decode breakdown), `GET /debug/trace`
+(the span ring as Chrome trace JSON, `?trace_id=` for one request) and
+`GET /tracez` (the tail sampler's kept traces). Every engine request
+carries a trace id: the trace-id half of an inbound `traceparent`, else
+`X-Request-Id`, else a minted one; the reply echoes it as `X-Request-Id`.
+
 `restore_checkpoint_params` is the serving side's checkpoint load.
 
 Page handoff between replicas (the disaggregated prefill/decode fleet):
@@ -44,6 +52,15 @@ from kubeflow_tpu_torch.api.wsgi import (
     Response,
 )
 from kubeflow_tpu_torch.config.platform import DisaggConfig
+from kubeflow_tpu_torch.observability.http import (
+    add_debug_routes,
+    format_phase_row,
+)
+from kubeflow_tpu_torch.observability.trace import (
+    TRACEPARENT_HEADER,
+    default_tracer,
+    parse_traceparent,
+)
 from kubeflow_tpu_torch.routing.affinity import (
     first_page_key,
     rendezvous_rank,
@@ -126,7 +143,8 @@ class ModelServer:
     ENGINE_WAIT_S = 600.0
 
     def __init__(self, page_transport: Optional[
-            Callable[[str, bytes], Tuple[int, bytes]]] = None) -> None:
+            Callable[[str, bytes], Tuple[int, bytes]]] = None,
+            statusz_enabled: bool = True) -> None:
         self._lms: Dict[str, Any] = {}      # ServedLm (serving/generate.py)
         self._engines: Dict[str, Any] = {}  # DecodeEngine (serving/engine.py)
         # how this replica POSTs page envelopes to a peer's /v1/kv/pages
@@ -137,6 +155,89 @@ class ModelServer:
         # from its first moment
         self._draining = False
         self.app = self._build()
+        if statusz_enabled:
+            add_debug_routes(
+                self.app,
+                statusz_sections=[
+                    ("models", self._statusz_models),
+                    ("engines", self._statusz_engines),
+                ],
+                role="serving",
+            )
+
+    def _statusz_models(self) -> List[str]:
+        lines = [
+            f"  {lm.name} (generate, "
+            f"{'engine' if lm.name in self._engines else 'static'})"
+            for lm in self._lms.values()
+        ]
+        lines += [
+            f"  {e.name} (generate, engine-only)"
+            for e in self._engines.values()
+            if e.name not in self._lms
+        ]
+        return lines or ["  <none>"]
+
+    def _statusz_engines(self) -> List[str]:
+        """The JAX server's engine lines (a dense engine has no MoE
+        line there either)."""
+        lines: List[str] = []
+        for engine in self._engines.values():
+            state = engine.debug_state()
+            st = state["stats"]
+            lines.append(
+                f"  {state['name']}: queue={state['queue_depth']} "
+                f"slots={sum(s is not None for s in state['slots'])}"
+                f"/{state['num_slots']} steps={st['decode_steps']} "
+                f"tokens={st['tokens']} "
+                f"occupancy={st['mean_occupancy']:.3f}"
+            )
+            mesh = state["mesh"]
+            windows = ",".join(
+                f"{w}={v}" for w, v in st["paged_attention_windows"].items()
+            ) or "-"
+            lines.append(
+                f"    kv pool: {state['pages_in_use']}"
+                f"/{state['pages_total']} pages of {state['page_size']} "
+                f"({st['kv_pool_dtype']}, {state['kv_pool_bytes']} B) | "
+                f"mesh: tensor={mesh['tensor']} fsdp={mesh['fsdp']} "
+                f"expert={mesh['expert']} "
+                f"({state['kv_pool_bytes_per_chip']} B/chip) | "
+                f"kernel: {st['attention_kernel']} windows: {windows}"
+                f" quantize: {st['quantize']} | "
+                f"prefix cache: {'on' if state['prefix_cache'] else 'off'} "
+                f"nodes={state['prefix_nodes']} "
+                f"hit_tokens={st['prefix_hit_tokens']} "
+                f"hit_rate={st['prefix_cache_hit_rate']:.3f} "
+                f"lookups={st['prefix_lookups']} "
+                f"cow={st['cow_copies']} "
+                f"first_page_hashes={st['first_page_hashes']}"
+            )
+            tier = state["kv_host_tier"]
+            if tier is not None or state["kv_persist_dir"]:
+                host = (f"{tier['entries']} entries "
+                        f"{tier['bytes_in_use']}/{tier['budget_bytes']} B"
+                        if tier is not None else "off")
+                lines.append(
+                    f"    kv tiers: host={host} "
+                    f"spilled={st['kv_spill_pages']} "
+                    f"spill_hits={st['kv_spill_hits']} | "
+                    f"store={state['kv_persist_dir'] or 'off'} "
+                    f"persisted_chains={st['kv_persisted_chains']}"
+                )
+            for s in state["slots"]:
+                if s is not None:
+                    lines.append(
+                        f"    slot {s['slot']}: {s['trace_id']} "
+                        f"prompt={s['prompt_len']} "
+                        f"tokens={s['tokens']}/{s['max_new']} "
+                        f"pages={s['pages']} (shared {s['shared_pages']})"
+                    )
+            if state["recent"]:
+                lines.append("    recent requests (newest last):")
+                lines.extend("  " + format_phase_row(r)
+                             for r in state["recent"])
+        return lines or ["  <none>"]
 
     def add_lm(self, lm) -> None:
         self._lms[lm.name] = lm
@@ -213,16 +314,36 @@ class ModelServer:
         else:
             mask = np.ones_like(x, dtype=bool)
         eos_id = body.get("eos_id")
+        # the request's trace id, in preference order: the trace-id half of
+        # a `traceparent` (its span-id half names the caller's span as the
+        # remote parent of every span recorded here), else X-Request-Id,
+        # else a minted one; echoed so the client can find its trace
+        tracer = default_tracer()
+        trace_id = remote_parent = None
+        if tracer.enabled:
+            inbound = parse_traceparent(req.headers.get(TRACEPARENT_HEADER))
+            if inbound is not None:
+                trace_id, remote_parent = inbound
+        if trace_id is None:
+            trace_id = req.headers.get("x-request-id") or None
+        if trace_id is None:
+            trace_id = tracer.new_trace_id("req")
+        req.response_headers.append(("X-Request-Id", trace_id))
         try:
-            futures = engine.submit_batch(
-                [x[i][mask[i]] for i in range(x.shape[0])],
-                n,
-                temperature=body.get("temperature", 0.0),
-                top_k=body.get("top_k", 0),
-                top_p=body.get("top_p", 1.0),
-                eos_id=eos_id,
-                seed=body.get("seed", 0),
-            )
+            # the queue spans submit_batch opens on THIS thread inherit
+            # the remote parent; the context is restored on exit, so a
+            # reused handler thread never carries it into the next request
+            with tracer.trace_context(trace_id, remote_parent):
+                futures = engine.submit_batch(
+                    [x[i][mask[i]] for i in range(x.shape[0])],
+                    n,
+                    temperature=body.get("temperature", 0.0),
+                    top_k=body.get("top_k", 0),
+                    top_p=body.get("top_p", 1.0),
+                    eos_id=eos_id,
+                    seed=body.get("seed", 0),
+                    trace_id=trace_id,
+                )
         except EngineDrainingError as e:
             _retry_after(req, e)
             raise HttpError(429, str(e))
@@ -231,10 +352,25 @@ class ModelServer:
         except (ValueError, TypeError) as e:
             # includes EngineCapacityError: prompt + n > max_len
             raise BadRequest(f"bad generate request: {e}")
-        deadline = time.monotonic() + self.ENGINE_WAIT_S
-        results = [
-            f.wait(max(0.0, deadline - time.monotonic())) for f in futures
-        ]
+        t_admit = time.monotonic()
+        deadline = t_admit + self.ENGINE_WAIT_S
+        error = False
+        try:
+            results = [
+                f.wait(max(0.0, deadline - time.monotonic())) for f in futures
+            ]
+        except RuntimeError as e:
+            # a failed row (a decode iteration that raised, an injected
+            # fault) 500s the request naming the engine's error; the tail
+            # sampler always keeps its trace
+            error = True
+            raise HttpError(500, str(e)) from e
+        except BaseException:
+            error = True  # a hung row: the deadline passed
+            raise
+        finally:
+            tracer.finish_trace(trace_id, error=error,
+                                dur_s=time.monotonic() - t_admit)
         sequences: List[List[int]] = []
         for i, r in enumerate(results):
             toks = r["tokens"]
@@ -243,6 +379,11 @@ class ModelServer:
             sequences.append(x[i].tolist() + toks)
         ttft = max(r["ttft_s"] for r in results)
         req.response_headers.append(("X-TTFT-Ms", f"{ttft * 1e3:.2f}"))
+        # metric→trace exemplar: the TTFT series' worst recent requests
+        # stay linked to their traces (/tracez)
+        tracer.observe_exemplar(
+            "serving_time_to_first_token_seconds", ttft, trace_id
+        )
         return {"sequences": sequences}
 
     # -- page handoff between replicas -------------------------------------

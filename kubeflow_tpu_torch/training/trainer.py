@@ -11,7 +11,11 @@ step. `fit` is `_fit_loop`: the first-step fence (`compile_s`: in eager
 PyTorch it fences first-use kernel builds and library warm-up out of the
 throughput windows), the non-finite-loss stop, items/s, MFU and goodput
 per log window, the interval checkpoint saves, and the `stop_event`
-preemption exit.
+preemption exit. The loop records the kft-trace spans `train.host_wait`,
+`train.device_step` and `train.checkpoint_block` and the
+`train.compile_fence` event, and calls the kft-chaos point
+`trainer.device_step` before each step (a host losing its card mid-run;
+disarmed, one bool check).
 
 Unlike the JAX package's functional state, a `TrainState` here is
 updated IN PLACE: the model's parameters and the optimizer's moments are
@@ -21,7 +25,7 @@ Batches come from `SyntheticData.batch_at` (the JAX numpy stream), copied
 host→device from pinned memory; `data.prefetch_depth` batches are made
 and enqueued ahead of the step that needs them. Not ported yet (ROADMAP
 A11): the on-device generator (`device_batch_fn`), the `DevicePrefetcher`
-thread, eval, and the mesh (one card).
+thread, eval (and its `train.eval` span), and the mesh (one card).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from kubeflow_tpu_torch.chaos import default_chaos
 from kubeflow_tpu_torch.config.platform import TrainingConfig
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.observability.mfu import (
@@ -43,6 +48,7 @@ from kubeflow_tpu_torch.observability.mfu import (
     mfu as mfu_fraction,
     peak_flops_per_chip,
 )
+from kubeflow_tpu_torch.observability.trace import default_tracer
 from kubeflow_tpu_torch.training.data import to_device
 from kubeflow_tpu_torch.training.tasks import (
     clip_by_global_norm,
@@ -146,6 +152,8 @@ class Trainer:
         self._stop_reason = ""
         # every step's loss fit ran, read on the host: (step, loss)
         self.losses: List[Tuple[int, float]] = []
+        # kft-chaos: the trainer.device_step injection point
+        self._chaos = default_chaos()
 
     # ---- state -----------------------------------------------------------
 
@@ -231,6 +239,7 @@ class Trainer:
         mfu_gauge = training_mfu_gauge()
         goodput_gauge = training_goodput_gauge()
         peak = peak_flops_per_chip(self.device)
+        tracer = default_tracer()
         # read-ahead: batches made and enqueued on the device before the
         # step that takes them (same step indices, so any depth trains on
         # the same sequence)
@@ -250,17 +259,23 @@ class Trainer:
         overhead_s = 0.0
         for i in range(start, end):
             t_wait = time.monotonic()
-            while next_fetch < end and (
-                not ahead or len(ahead) <= cfg.data.prefetch_depth
-            ):
-                batch_np = data.batch_at(next_fetch)
-                ahead.append((batch_np, to_device(batch_np, self.device)))
-                next_fetch += 1
-            batch_np, batch = ahead.popleft()
+            with tracer.span("train.host_wait", model=model_label, step=i):
+                while next_fetch < end and (
+                    not ahead or len(ahead) <= cfg.data.prefetch_depth
+                ):
+                    batch_np = data.batch_at(next_fetch)
+                    ahead.append((batch_np, to_device(batch_np, self.device)))
+                    next_fetch += 1
+                batch_np, batch = ahead.popleft()
             waited = time.monotonic() - t_wait
             host_wait.observe(waited, model=model_label)
             overhead_s += waited
-            state, metrics = self.train_step(state, batch)
+            # the span covers the step's launches (no sync is added); once
+            # the launch queue is full they wait on the step before, so at
+            # steady state it reads the step's time
+            with tracer.span("train.device_step", model=model_label, step=i):
+                self._chaos.maybe_fail("trainer.device_step")
+                state, metrics = self.train_step(state, batch)
             pending.append((i + 1, metrics["loss"]))
             steps_since_log += 1
             if i == start and steps > 1:
@@ -271,12 +286,17 @@ class Trainer:
                 compile_s = now - t_last
                 t_last = now
                 steps_since_log = 0
+                # where steady state begins, in a trace
+                tracer.event("train.compile_fence", model=model_label,
+                             step=i + 1, compile_s=round(compile_s, 4))
                 w_start = now
                 overhead_s = 0.0
             if (checkpoint_manager is not None
                     and (i + 1) % cfg.checkpoint.interval_steps == 0):
                 t_ckpt = time.monotonic()
-                checkpoint_manager.save(i + 1, state)
+                with tracer.span("train.checkpoint_block", model=model_label,
+                                 step=i + 1):
+                    checkpoint_manager.save(i + 1, state)
                 overhead_s += time.monotonic() - t_ckpt
             if (stop_event is not None and stop_event.is_set()
                     and not stop_reason and i != end - 1):

@@ -391,3 +391,79 @@ def serving_kv_handoff_ms_counter() -> Counter:
         "serving_kv_handoff_ms",
         "milliseconds spent handing off KV pages", ["model", "direction"],
     )
+
+
+# -- observability and fault injection (observability/, chaos/) ---------------
+#
+# The engine's per-phase request accounting and its recoveries, the
+# injected faults by point, the process identity line every /metrics
+# page carries, and the tail sampler's keep/drop counters: the JAX
+# package's series, names, labels and help text.
+
+SERVING_TTFT_BUCKETS = (
+    0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1, 2.5, 5,
+    10, 30, 60,
+)
+
+
+def serving_phase_histogram() -> Histogram:
+    """Wall seconds per request phase (phase ∈ queue|prefill|decode): the
+    exact decomposition of a request's life — TTFT = queue + prefill, full
+    latency = TTFT + decode."""
+    return default_registry().histogram(
+        "serving_request_phase_seconds",
+        "wall seconds a request spent in each engine phase",
+        ["model", "phase"],
+        buckets=SERVING_TTFT_BUCKETS,
+    )
+
+
+def serving_engine_recoveries_counter() -> Counter:
+    """Decode-engine scheduler recoveries: a decode iteration raised, the
+    resident requests were failed fast and the KV pool(s) reset
+    (engine._recover). A climbing rate is a sick device or an engine bug."""
+    return default_registry().counter(
+        "serving_engine_recoveries_total",
+        "decode-engine scheduler recoveries (residents failed, pool rebuilt)",
+        ["model"],
+    )
+
+
+def faults_injected_counter() -> Counter:
+    """kft-chaos faults actually injected, per named injection point
+    (chaos/core.py). Zero unless an operator armed a plan."""
+    return default_registry().counter(
+        "kft_faults_injected_total",
+        "chaos faults injected at named platform injection points",
+        ["point"],
+    )
+
+
+def instance_info_gauge() -> Gauge:
+    """Identity series every per-process /metrics page carries (value is
+    always 1): `instance` is the host/replica id (KFT_FLEET_INSTANCE,
+    hostname-pid fallback), `role` is serving|training."""
+    return default_registry().gauge(
+        "kft_instance_info",
+        "per-process identity marker (constant 1)",
+        ["instance", "role"],
+    )
+
+
+def trace_kept_counter() -> Counter:
+    """Completed request traces the tail sampler KEPT, by reason:
+    "error", "tail" (slower than the rolling p99) or "sampled"."""
+    return default_registry().counter(
+        "kft_trace_kept_total",
+        "request traces kept by the tail sampler",
+        ["reason"],
+    )
+
+
+def trace_sampled_out_counter() -> Counter:
+    """Completed request traces the tail sampler dropped (fast, healthy
+    and unlucky against sample_prob)."""
+    return default_registry().counter(
+        "kft_trace_sampled_out_total",
+        "request traces dropped by the tail sampler",
+    )
