@@ -180,6 +180,7 @@ turned off for matmuls and cuDNN below.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
@@ -339,6 +340,39 @@ TRACE_ID, PARENT_SPAN = "4bf92f3577b34da6a3ce929d0e0e4736", "00f067aa0ba902b7"
 # the kernels line's rows phase 14 runs (bf16 pages and bf16 flash)
 CHAOS_ROWS = ("paged_decode", "paged_window", "flash_fwd", "flash_bwd_dq",
               "flash_bwd_dkv")
+
+# phase 15a: resnet50 at one card's share of
+# configs/resnet50_imagenet_v5e16.yaml (global batch 1024 over data: 16):
+# 64 images of 224² a step, bf16, its recipe with the lr scaled linearly
+# (0.4 x 64 / 1024) and the warmup cut to the run, label smoothing 0.1,
+# crop_flip, synthetic batches made on the card
+RESNET_CFG = dict(
+    model="resnet50", global_batch_size=64, steps=22,
+    learning_rate=0.4 * 64 / 1024, warmup_steps=2, weight_decay=1e-4,
+    label_smoothing=0.1, dtype="bfloat16", data={"augment": "crop_flip"},
+    checkpoint={"enabled": False},
+)
+RESNET_PROFILED = 3
+# 15b: blobs (10 classes, 32 px) written as npz shards, trained through
+# the native shard reader until eval top-1 reaches the target
+BLOBS_TRAIN, BLOBS_VAL, BLOBS_SIZE, BLOBS_CLASSES = 2048, 512, 32, 10
+BLOBS_SHARDS = 4
+ACCURACY_CFG = dict(
+    model="resnet50", global_batch_size=64, steps=300, learning_rate=0.05,
+    warmup_steps=5, weight_decay=1e-4, dtype="bfloat16",
+    checkpoint={"enabled": False},
+)
+ACCURACY_TARGET, ACCURACY_EVERY = 0.9, 10
+# the bitwise resume: saved at step 2 of 4, restarted
+RESUME_STEPS, RESUME_AT = 4, 2
+# 15c: a reply's top-1 must equal the reference's wherever the
+# reference's margin (top logit over the runner-up) exceeds DELTA; served
+# accuracy within ACC_GAP of 15b's eval; bf16 serving logits within
+# PREDICT_LOGIT_REL of the largest |f32 CPU logit| (bf16 rounds to 2^-8
+# relative at each of ~50 layers: ~sqrt(50) x 2^-8 ~ 0.03)
+ACC_GAP, PREDICT_LOGIT_REL = 0.01, 0.05
+# the :predict_npy load: 4 clients, each 8 requests of 16 images of 224²
+PREDICT_CLIENTS, PREDICT_REQUESTS, PREDICT_ROWS = 4, 8, 16
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
     """{(kernel, D): (registers, spill store bytes, spill load bytes)} of
@@ -651,10 +685,28 @@ def get(port, path):
         return resp.status, resp.read()
 
 
+def static_num_pages(model, dtype, num_slots=8, page_size=16,
+                     quantize=None):
+    """The static rule's pool for a server of `model`. build_server sizes
+    an auto pool from an earlier engine's pressure in this process (as
+    the reference does), so every server here names its pool: phase 5's
+    384 pages, phase 10's 744 int8 pages."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.engine import resolve_num_pages
+
+    quantize = quantize or os.environ.get("KFT_SERVING_QUANTIZE", "") or "none"
+    cfg = get_model(model, dtype=dtype, device="meta").cfg
+    return resolve_num_pages(None, num_slots, cfg, page_size, quantize)
+
+
 def serve(model, dtype, device, paged_attention="kernel", **knobs):
     from kubeflow_tpu_torch.api.wsgi import Server
     from kubeflow_tpu_torch.serving.main import build_server
 
+    if not knobs.get("num_pages"):
+        knobs["num_pages"] = static_num_pages(
+            model, dtype, knobs.get("num_slots", 8),
+            knobs.get("page_size", 16), knobs.get("quantize"))
     ms = build_server(model, device=device, dtype=dtype,
                       paged_attention=paged_attention, **knobs)
     httpd = Server(ms.app, port=0)
@@ -1658,6 +1710,7 @@ def phase_ckpt_serve(torch, trainer, ckpt_dir, k0_stats, accept_11b,
 
     ms = build_server(model, ckpt_dir, device=device, dtype=torch.float32,
                       num_slots=8, page_size=16, paged_attention="kernel",
+                      num_pages=static_num_pages(model, torch.float32),
                       draft_model=model, num_draft_tokens=SPEC_K,
                       draft_checkpoint_dir=ckpt_dir)
     try:
@@ -2381,6 +2434,381 @@ def phase_chaos_train(torch, root, want_losses, want_params, overrides=None,
     return launches
 
 
+def phase_resnet_train(torch, device="cuda"):
+    """15a: run_training of resnet50 at RESNET_CFG. Gates: finite losses,
+    the BatchNorm running averages moved and finite, the synthetic and
+    augment streams on the card. Prints images/sec/card, step ms, MFU
+    and the device-busy share over RESNET_PROFILED profiled steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cudnn.benchmark = True
+    cfg = TrainingConfig(**RESNET_CFG)
+    trainer = Trainer(cfg, device=device)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    result = run_training(cfg, device=device, log_every=cfg.steps,
+                          trainer=trainer)
+    wall = time.monotonic() - t0
+    losses = [loss for _, loss in result["losses"]]
+    state = trainer._final_state
+    bufs = dict(state.model.named_buffers())
+    moved = sum(int(not torch.equal(b, torch.zeros_like(b) if n.endswith(
+        ".mean") else torch.ones_like(b))) for n, b in bufs.items())
+    finite = all(bool(torch.isfinite(b).all()) for b in bufs.values())
+    step_ms = result["step_time_s"] * 1e3
+    # the device's busy time a step: kernel time over profiled steps
+    busy, top = float("nan"), []
+    if cuda:
+        gen = trainer.task.synthetic_data().device_batch_fn(device)
+        step = state.step
+        state, _ = trainer.train_step(state, gen(step))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(RESNET_PROFILED):
+                state, _ = trainer.train_step(state, gen(step + 1 + i))
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e3 \
+            / RESNET_PROFILED
+        top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"resnet 15a ({smi_line() if cuda else 'cpu'}): resnet50 bf16 224² batch "
+          f"{cfg.global_batch_size}, {cfg.steps} steps in {wall:.3f} s; "
+          f"{result['items_per_sec']:.1f} images/sec/card; steady step "
+          f"{step_ms:.3f} ms (steps 2-{cfg.steps}, one host sync at their "
+          f"end); mfu {result.get('mfu')}; compile_s "
+          f"{result.get('compile_s')}; device busy {busy:.3f} ms a step = "
+          f"{100 * busy / step_ms:.1f} % of the steady step (idle "
+          f"{100 - 100 * busy / step_ms:.1f} %); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() if cuda else 0} B", flush=True)
+    print("resnet 15a: losses " + json.dumps(losses), flush=True)
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3 / RESNET_PROFILED:9.3f} ms "
+              f"a step {e.count / RESNET_PROFILED:7.1f}x  {e.key[:80]}",
+              flush=True)
+    if len(losses) != cfg.steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"15a: losses {losses}")
+    if not finite or moved != len(bufs):
+        raise AssertionError(f"15a: {moved} of {len(bufs)} BatchNorm "
+                             f"running averages moved (finite: {finite})")
+    if trainer.input_path != "device" or trainer.augment_device != device:
+        raise AssertionError(f"15a: batches {trainer.input_path}, augment "
+                             f"on {trainer.augment_device}")
+    del trainer, state
+    torch.cuda.empty_cache()
+
+
+def write_blob_shards(root):
+    """make_blobs (BLOBS_CLASSES classes, BLOBS_SIZE px) as BLOBS_SHARDS
+    train-*.npz shards and one val-0.npz under `root`; → the val arrays."""
+    from kubeflow_tpu_torch.training.datasets import make_blobs
+
+    arrays = make_blobs(BLOBS_TRAIN + BLOBS_VAL, image_size=BLOBS_SIZE,
+                        num_classes=BLOBS_CLASSES, seed=0)
+    per = BLOBS_TRAIN // BLOBS_SHARDS
+    for i in range(BLOBS_SHARDS):
+        np.savez(os.path.join(root, f"train-{i}.npz"),
+                 **{k: v[i * per:(i + 1) * per] for k, v in arrays.items()})
+    val = {k: v[BLOBS_TRAIN:] for k, v in arrays.items()}
+    np.savez(os.path.join(root, "val-0.npz"), **val)
+    return val
+
+
+def phase_resnet_accuracy(torch, root, device="cuda"):
+    """15b: resnet50 bf16 trained from npz shards (data.name=npz) through
+    the native ShardPrefetcher until eval top-1 reaches ACCURACY_TARGET
+    (an eval every ACCURACY_EVERY steps): the reader loaded natively,
+    top-1 reached and the run stopped before its budget. Then the resume
+    gate, with deterministic cuDNN (`torch.backends.cudnn.deterministic =
+    True`, `benchmark = False`: the backward algorithms then use no
+    atomics and every run picks the same ones): a run saved at step
+    RESUME_AT and restarted ends with the step-RESUME_STEPS params,
+    BatchNorm running averages and momentum buffers of an uninterrupted
+    run, bit for bit. → (the trained model, the val arrays, eval top-1)."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.native.shard_prefetch import native_loaded
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    data_dir = os.path.join(root, "blobs")
+    os.makedirs(data_dir)
+    val = write_blob_shards(data_dir)
+    if not native_loaded():
+        raise AssertionError("15b: the native shard reader did not load "
+                             "(python IO fallback)")
+    cfg = TrainingConfig(**ACCURACY_CFG, data={
+        "name": "npz", "path": data_dir, "eval_every_steps": ACCURACY_EVERY,
+        "target_accuracy": ACCURACY_TARGET})
+    trainer = Trainer(cfg, device=device)
+    t0 = time.monotonic()
+    result = run_training(cfg, device=device, log_every=ACCURACY_EVERY,
+                          trainer=trainer)
+    wall = time.monotonic() - t0
+    print(f"resnet 15b ({smi_line() if device == 'cuda' else 'cpu'}): npz shards through the native reader; "
+          f"eval top-1 {result.get('eval_top1')} (loss "
+          f"{result.get('eval_loss')}) at step {result['final_step']} of "
+          f"{cfg.steps} in {wall:.3f} s; {result['items_per_sec']:.1f} "
+          f"images/sec/card at {BLOBS_SIZE} px; input {trainer.input_path}",
+          flush=True)
+    if not result.get("target_reached") or result["final_step"] >= cfg.steps:
+        raise AssertionError(f"15b: target {ACCURACY_TARGET} not reached "
+                             f"early: {result}")
+    model = trainer._final_state.model
+    top1 = result["eval_top1"]
+    del trainer
+
+    # the resume gate: uninterrupted against saved-and-restarted
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        base = dict(ACCURACY_CFG, steps=RESUME_STEPS,
+                    data={"name": "npz", "path": data_dir})
+
+        def final(run_cfg, **kw):
+            t = Trainer(run_cfg, device=device)
+            run_training(run_cfg, device=device, trainer=t, **kw)
+            st = t._final_state
+            out = {f"params/{n}": p.detach().clone()
+                   for n, p in st.model.named_parameters()}
+            out.update({f"buffers/{n}": b.clone()
+                        for n, b in st.model.named_buffers()})
+            out.update({f"momentum/{n}": st.optimizer.state[p][
+                "momentum_buffer"].clone()
+                for n, p in st.model.named_parameters()})
+            return out
+
+        want = final(TrainingConfig(**base))
+        ckpt = {"enabled": True, "directory": os.path.join(root, "ckpt"),
+                "interval_steps": RESUME_AT, "async_save": False}
+        run_cfg = TrainingConfig(**{**base, "checkpoint": ckpt})
+        t = Trainer(run_cfg, device=device)
+        run_training(run_cfg, device=device, trainer=t,
+                     steps_override=RESUME_AT)
+        del t
+        got = final(run_cfg, restore=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    print(f"resnet 15b: resume at step {RESUME_AT} of {RESUME_STEPS} "
+          f"(deterministic cuDNN): {len(want) - len(differ)} of {len(want)} "
+          f"params, running averages and momentum buffers bit for bit",
+          flush=True)
+    if differ or len(got) != len(want):
+        raise AssertionError(f"15b: the resumed run differs in {differ[:6]}")
+    torch.cuda.empty_cache()
+    return model, val, top1
+
+
+def _margins(logits):
+    top2 = np.sort(logits, axis=-1)[:, -2:]
+    return top2[:, 1] - top2[:, 0]
+
+
+def post_npy(port, name, rows):
+    """POST rows to :predict_npy → (predictions, seconds, headers)."""
+    buf = io.BytesIO()
+    np.save(buf, rows, allow_pickle=False)
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/models/{name}:predict_npy",
+        data=buf.getvalue(), method="POST",
+        headers={"Content-Type": "application/octet-stream"})
+    t0 = time.monotonic()
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        body, headers = resp.read(), dict(resp.headers)
+    return (np.load(io.BytesIO(body), allow_pickle=False),
+            time.monotonic() - t0, headers)
+
+def npy_clients(port, name, chunks):
+    """PREDICT_CLIENTS threads post `chunks` between them → (replies in
+    order, wall seconds)."""
+    out = [None] * len(chunks)
+
+    def work(idx):
+        for i in idx:
+            out[i] = post_npy(port, name, chunks[i])
+
+    threads = [threading.Thread(target=work, args=(
+        range(c, len(chunks), PREDICT_CLIENTS),)) for c in range(
+            PREDICT_CLIENTS)]
+    t0 = time.monotonic()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if any(t.is_alive() for t in threads) or any(o is None for o in out):
+        raise AssertionError("15c: a client did not finish")
+    return out, time.monotonic() - t0
+
+
+def phase_resnet_predict(torch, model, val, eval_top1, device="cuda"):
+    """15c: 15b's trained resnet50 served over REST through
+    `ServedModel(name, apply_fn, variables)` with a 2 ms batch window:
+    :predict_npy of every val row (4 clients at once) and one :predict
+    JSON request. Gates: top-1 equals 15b's eval forward wherever its
+    bf16 margin exceeds DELTA, accuracy within ACC_GAP of 15b's eval
+    top-1; top-1 equals the f32 CPU forward of the same variables
+    wherever its margin exceeds DELTA, logits within PREDICT_LOGIT_REL of
+    its largest. Then seed-0 resnet50 at 224²/1000, every bucket warmed,
+    PREDICT_CLIENTS concurrent clients: images/sec, p50/p99 latency, the
+    batcher's fusion (fewer device batches than requests) and the
+    decomposition headers; `from_registry("resnet50")` must refuse."""
+    from kubeflow_tpu_torch.api.wsgi import Server
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.server import ModelServer, ServedModel
+
+    def apply_fn(m, x):
+        return m(x, train=False)
+
+    x, y = val["image"], val["label"].astype(np.int64)
+    # 15b's eval forward: its batches of 64 rows in eval mode
+    with torch.no_grad():
+        want = np.concatenate([
+            model(torch.from_numpy(x[i:i + 64]).to(device)).float().cpu().numpy()
+            for i in range(0, len(x), 64)])
+
+    served = ServedModel("resnet50-blobs", apply_fn, model,
+                         batch_window_ms=2.0, device=device)
+    ms = ModelServer()
+    ms.add(served)
+    httpd = Server(ms.app, port=0)
+    httpd.start()
+    try:
+        chunks = [x[i:i + PREDICT_ROWS] for i in range(0, len(x), PREDICT_ROWS)]
+        replies, _ = npy_clients(httpd.port, served.name, chunks)
+        got = np.concatenate([r[0] for r in replies])
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.port}/v1/models/{served.name}:predict",
+            data=json.dumps({"instances": x[:3].tolist()}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status = resp.status
+            json_rows = np.asarray(json.loads(resp.read())["predictions"],
+                                   np.float32)
+    finally:
+        httpd.stop()
+        ms.close()
+    f32 = get_model("resnet50", dtype=torch.float32, device="cpu")
+    f32.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        ref = f32(torch.from_numpy(x)).numpy()
+    del f32
+    pred, want_pred, ref_pred = got.argmax(-1), want.argmax(-1), ref.argmax(-1)
+    sure_eval = _margins(want) > DELTA
+    sure_f32 = _margins(ref) > DELTA
+    acc = float((pred == y).mean())
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    print(f"resnet 15c: {len(x)} val rows over :predict_npy; accuracy {acc:.4f} "
+          f"against 15b's eval top-1 {eval_top1:.4f}; top-1 equal to the eval "
+          f"forward on {int((pred == want_pred)[sure_eval].sum())} of "
+          f"{int(sure_eval.sum())} rows with margin > {DELTA} "
+          f"({int((pred == want_pred).sum())} of {len(x)} in all); equal to "
+          f"the f32 CPU forward on {int((pred == ref_pred)[sure_f32].sum())} "
+          f"of {int(sure_f32.sum())} sure rows; logits within {err:.4f} of "
+          f"the largest |f32 logit| (bound {PREDICT_LOGIT_REL}); :predict "
+          f"JSON status {status}", flush=True)
+    if (status != 200 or not (pred == want_pred)[sure_eval].all()
+            or abs(acc - eval_top1) > ACC_GAP
+            or not (pred == ref_pred)[sure_f32].all()
+            or err > PREDICT_LOGIT_REL
+            or np.abs(json_rows - got[:3]).max() > PREDICT_LOGIT_REL * np.abs(
+                ref).max()):
+        raise AssertionError("15c: served predictions disagree")
+
+    # throughput: seed-0 resnet50 at 224² / 1000 classes; from_registry
+    # (params only, as in the reference) refuses it first
+    model = get_model("resnet50", device=device)
+    try:
+        ServedModel.from_registry("resnet50", device=device,
+                                  params=dict(model.named_parameters()))
+    except ValueError as e:
+        if "batch_stats" not in str(e):
+            raise
+        print(f"resnet 15c: from_registry refused: {e}", flush=True)
+    else:
+        raise AssertionError("15c: from_registry served a BatchNorm model")
+    phase_predict_load(torch, model, device)
+
+
+def phase_predict_load(torch, model, device="cuda"):
+    """15c's load: seed-0 `model` (resnet50, 224², 1000 classes) served
+    with every bucket warmed, PREDICT_CLIENTS clients at once."""
+    from kubeflow_tpu_torch.api.wsgi import Server
+    from kubeflow_tpu_torch.serving.server import ModelServer, ServedModel
+
+    torch.backends.cudnn.benchmark = True
+    served = ServedModel("resnet50", lambda m, x: m(x, train=False), model,
+                         batch_window_ms=2.0, device=device)
+    t0 = time.monotonic()
+    served.warmup((224, 224, 3))
+    print(f"resnet 15c: every bucket warmed in {time.monotonic() - t0:.3f} s",
+          flush=True)
+    ms = ModelServer()
+    ms.add(served)
+    httpd = Server(ms.app, port=0)
+    httpd.start()
+    try:
+        rng = np.random.default_rng(15)
+        n = PREDICT_CLIENTS * PREDICT_REQUESTS
+        chunks = [rng.standard_normal((PREDICT_ROWS, 224, 224, 3),
+                                      dtype=np.float32) for _ in range(n)]
+        before = served.batch_stats()
+        replies, wall = npy_clients(httpd.port, served.name, chunks)
+        lat = sorted(r[1] * 1e3 for r in replies)
+        after = served.batch_stats()
+        # the load's own batches (the warm-up's ran through the batcher)
+        fused = after["fused_batches"] - before["fused_batches"]
+        stats = {"fused_batches": fused, "fused_rows_mean": (
+            after["fused_rows_mean"] * after["fused_batches"]
+            - before["fused_rows_mean"] * before["fused_batches"]) / fused}
+    finally:
+        httpd.stop()
+        ms.close()
+    heads = {k: v for k, v in replies[-1][2].items() if k.startswith("X-")}
+    p99 = lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]
+    for r in sorted(replies, key=lambda r: -r[1])[:3]:
+        print(f"resnet 15c: a slowest request {r[1] * 1e3:.3f} ms: " + json.dumps(
+            {k: v for k, v in r[2].items() if k.startswith("X-")}), flush=True)
+    print(f"resnet 15c ({smi_line() if device == 'cuda' else 'cpu'}): :predict_npy resnet50 bf16 224², "
+          f"{PREDICT_CLIENTS} clients x {PREDICT_REQUESTS} requests of "
+          f"{PREDICT_ROWS} images: {n * PREDICT_ROWS / wall:.1f} images/sec; "
+          f"latency p50 {statistics.median(lat):.3f} ms p99 {p99:.3f} ms; "
+          f"{json.dumps(stats)} for {n} requests; last reply's headers "
+          f"{json.dumps(heads)}", flush=True)
+    if not stats or stats["fused_batches"] >= n:
+        raise AssertionError(f"15c: {stats} device batches for {n} requests")
+    if not all(r[0].shape == (PREDICT_ROWS, 1000) and np.isfinite(r[0]).all()
+               for r in replies):
+        raise AssertionError("15c: a reply is not finite [16, 1000] logits")
+    del model, served
+    torch.cuda.empty_cache()
+
+
+def phase_image(torch, device="cuda"):
+    """Phase 15: the image path (15a, 15b, 15c); none of the attention
+    kernels runs in it."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    fa.reset_launch_counts()
+    pa.reset_launch_counts()
+    t15 = time.monotonic()
+    phase_resnet_train(torch, device)
+    with tempfile.TemporaryDirectory(prefix="kft-resnet-") as root:
+        model, val, top1 = phase_resnet_accuracy(torch, root, device)
+        phase_resnet_predict(torch, model, val, top1, device)
+    launched = {**fa.launch_counts, **pa.launch_counts}
+    print(f"phase 15: {time.monotonic() - t15:.3f} s; attention kernel "
+          f"launches {json.dumps(launched)}", flush=True)
+    if any(launched.values()):
+        raise AssertionError(f"the image path launched {launched}")
+
+
 def main() -> int:
     import torch
 
@@ -2530,6 +2958,8 @@ def main() -> int:
             if rec["chaos_launches"] < 1:
                 raise AssertionError(f"the chaos path never launched "
                                      f"{rec['name']}")
+    # this slice's path: ResNet-50 training, train to accuracy, :predict
+    phase_image(torch)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

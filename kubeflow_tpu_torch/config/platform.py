@@ -19,21 +19,10 @@ from typing import Any, List, Mapping
 # JAX TrainingConfig fields this port does not take yet, and what they
 # wait for (ROADMAP.md)
 _UNPORTED_FIELDS = {
-    "mesh": "A13 (parallelism: one card, no mesh)",
-    "label_smoothing": "A13 item 6 (image classification)",
+    "mesh": "A13 item 1 (parallelism: one card, no mesh)",
     "profiler_logdir": "A14 (runtime profiler)",
     "compile_cache_dir": "A14 (nothing compiles ahead in eager PyTorch)",
     "pipeline_schedule": "A13 item 4 (pipeline parallelism)",
-}
-_UNPORTED_DATA_FIELDS = {
-    "path": "A11 (real datasets)",
-    "eval_fraction": "A11 (eval)",
-    "eval_every_steps": "A11 (eval)",
-    "eval_batch_size": "A11 (eval)",
-    "target_accuracy": "A11 (eval)",
-    "shuffle": "A11 (real datasets)",
-    "num_examples": "A11 (real datasets)",
-    "augment": "A13 item 6 (image augmentation)",
 }
 
 # ObservabilityConfig fields that feed the fleet collector and its SLO
@@ -61,6 +50,8 @@ _UNPORTED_SERVING_FIELDS = {
 }
 
 DTYPES = ("float32", "bfloat16")
+DATASETS = ("synthetic", "blobs", "npz")
+AUGMENTS = ("none", "crop_flip")
 ATTENTION_IMPLS = ("dense", "flash")
 
 
@@ -81,10 +72,31 @@ def _check_keys(raw: Mapping, cls, unported: Mapping[str, str], path: str):
 
 @dataclasses.dataclass
 class DataConfig:
-    """Input pipeline: the synthetic LM stream, read ahead `prefetch_depth`
-    batches (already copied to the device) while the current step runs."""
+    """Input pipeline (training/datasets.py `build_data`): synthetic
+    batches, generated `blobs`, or `npz` shards / `.npy` mmap files under
+    `path`; the eval loop's knobs (a pass over the held-out split every
+    `eval_every_steps` and at the end, an early stop at
+    `target_accuracy`); the training augmentation; and `prefetch_depth`
+    host batches made and copied to the device ahead of their step."""
 
+    # synthetic | blobs | npz
     name: str = "synthetic"
+    # a file or directory for npz datasets
+    path: str = ""
+    # held-out fraction split from train when there is no eval split
+    eval_fraction: float = 0.0
+    # eval period; 0 = only at the end of training
+    eval_every_steps: int = 0
+    # 0 = global_batch_size
+    eval_batch_size: int = 0
+    # stop once eval top-1 reaches this (0 = off)
+    target_accuracy: float = 0.0
+    shuffle: bool = True
+    # generated dataset size (blobs)
+    num_examples: int = 4096
+    # none | crop_flip (random-resized-crop + horizontal flip on the
+    # device, training/augment.py)
+    augment: str = "none"
     prefetch_depth: int = 2
 
     def __post_init__(self):
@@ -93,15 +105,32 @@ class DataConfig:
     def validate(self) -> None:
         if self.prefetch_depth < 0:
             raise ConfigError("data.prefetch_depth must be >= 0")
-        if self.name != "synthetic":
+        if self.name not in DATASETS:
             raise ConfigError(
-                f"data.name {self.name!r} is not ported yet: only synthetic "
-                f"(ROADMAP A11: real datasets)"
-            )
+                f"data.name must be synthetic|blobs|npz, got {self.name!r}")
+        if not 0.0 <= self.eval_fraction < 1.0:
+            raise ConfigError("data.eval_fraction must be in [0, 1)")
+        if self.augment not in AUGMENTS:
+            raise ConfigError(
+                f"data.augment must be none|crop_flip, got {self.augment!r}")
+        if not 0.0 <= self.target_accuracy <= 1.0:
+            raise ConfigError("data.target_accuracy must be in [0, 1]")
+        if self.name == "npz" and not self.path:
+            raise ConfigError("data.name=npz requires data.path")
+        # the eval knobs must be reachable: skipping a configured
+        # train-to-accuracy contract would burn the whole step budget
+        wants_eval = self.target_accuracy > 0 or self.eval_every_steps > 0
+        if wants_eval and self.name == "synthetic":
+            raise ConfigError(
+                "eval (target_accuracy/eval_every_steps) requires a real "
+                "dataset; data.name=synthetic has no held-out split")
+        if wants_eval and self.name == "blobs" and self.eval_fraction == 0:
+            raise ConfigError(
+                "data.name=blobs with eval requires data.eval_fraction > 0")
 
     @classmethod
     def from_dict(cls, raw: Mapping[str, Any]) -> "DataConfig":
-        _check_keys(raw, cls, _UNPORTED_DATA_FIELDS, "data.")
+        _check_keys(raw, cls, {}, "data.")
         return cls(**raw)
 
 
@@ -250,6 +279,9 @@ class TrainingConfig:
         default_factory=CheckpointConfig
     )
     remat: bool = False
+    # label-smoothing epsilon of the classification loss (0.1 in the
+    # ImageNet recipe)
+    label_smoothing: float = 0.0
     loss_chunk: int = 0
     assume_full_attention: bool = False
     seq_len: int = 0
@@ -297,6 +329,21 @@ class TrainingConfig:
             raise ConfigError(
                 f"attention_impl must be one of {ATTENTION_IMPLS}, got "
                 f"{self.attention_impl!r}"
+            )
+        if not 0.0 <= self.label_smoothing < 1.0:
+            raise ConfigError("label_smoothing must be in [0, 1)")
+        # read only by the image-classification task: an LM config
+        # carrying them would train without either
+        is_image = self.model.startswith(("resnet", "mlp"))
+        if self.label_smoothing > 0 and not is_image:
+            raise ConfigError(
+                f"label_smoothing applies to image-classification models "
+                f"only (model={self.model!r})"
+            )
+        if self.data.augment != "none" and not is_image:
+            raise ConfigError(
+                f"data.augment applies to image-classification models only "
+                f"(model={self.model!r})"
             )
 
     @classmethod

@@ -1,4 +1,5 @@
-"""Models of the port: the GPT decoder family and its param bridge."""
+"""Models of the port: the GPT decoder family, ResNet, the mlp and the
+param bridge."""
 
 from kubeflow_tpu_torch.models.registry import get_model
 

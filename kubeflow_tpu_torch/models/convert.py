@@ -1,4 +1,5 @@
-"""Param bridge: flax GPT param trees ↔ the port's state dicts.
+"""Param bridge: flax param trees ↔ the port's state dicts (GPT, ResNet,
+mlp).
 
 `params_from_jax` takes the flax tree as nested dicts of numpy arrays (or
 anything `np.asarray` reads), so nothing of JAX crosses into the port.
@@ -7,6 +8,14 @@ Both layouts the JAX package writes are accepted: named blocks
 with a leading [L] axis, kubeflow_tpu/models/gpt.py
 `stack_layer_params`). Kernel shapes carry over unchanged (DenseGeneral
 q/k/v [D, H, Dh], out [H, Dh, D]); the port's modules use flax's names.
+
+The image models keep flax's names and shapes too (a conv kernel is
+HWIO, a Dense kernel [in, out]; models/resnet.py permutes to torch's
+layout at use), so the same name-for-name bridge carries them. Their
+BatchNorm running averages are the flax `batch_stats` collection
+(`.../mean`, `.../var`) and the port's buffers of those names:
+`params_from_jax(params, batch_stats)` takes both trees, and
+`is_batch_stat` tells the two apart in a `params_to_jax` result.
 
 `quantized_params_from_jax` carries the JAX int8 envelope
 (checkpointing/quantize.py `quantize_params_int8`) across with its int8
@@ -23,7 +32,7 @@ dtype becomes f32, as in `params_from_jax`.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Mapping, Sequence, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,14 +90,33 @@ def _to_state_dict(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in flat.items()}
 
 
-def params_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """flax GPT params (named or scan-stacked layout; nested, or flat
-    with '/'-joined paths) → state dict."""
+def params_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """flax params (GPT: named or scan-stacked layout; nested, or flat
+    with '/'-joined paths) → state dict; with `batch_stats` (the flax
+    collection of a BatchNorm model) its running averages join it as the
+    port's buffers."""
     n = _num_layers(params)
     flat: Dict[str, np.ndarray] = {}
     for path, leaf in _leaves(params):
         flat.update(_port_entries(path, _as_array(leaf), n, stacked_axis=True))
+    for path, leaf in _leaves(batch_stats or {}):
+        if path[-1] not in BATCH_STAT_LEAVES:
+            raise ValueError(f"batch_stats leaf {'/'.join(path)} is not a "
+                             f"running {BATCH_STAT_LEAVES}")
+        flat[".".join(path)] = _as_array(leaf)
     return _to_state_dict(flat)
+
+
+# the leaves of flax's `batch_stats` collection (BatchNorm's running
+# averages): the port's BatchNorm buffers of the same names
+BATCH_STAT_LEAVES = ("mean", "var")
+
+
+def is_batch_stat(name: str) -> bool:
+    """Is this state-dict name (or flax path) a BatchNorm running
+    average?"""
+    return name.replace("/", ".").rsplit(".", 1)[-1] in BATCH_STAT_LEAVES
 
 
 def quantized_params_from_jax(qparams: Mapping) -> Dict[str, Any]:
@@ -119,7 +147,8 @@ SCAN_BLOCK = "layers/block"
 
 def jax_path(name: str) -> str:
     """The named-layout flax path of a state-dict name:
-    'layers.0.attention.query.kernel' → 'layer_0/attention/query/kernel'."""
+    'layers.0.attention.query.kernel' → 'layer_0/attention/query/kernel',
+    'BottleneckBlock_0.Conv_0.kernel' → 'BottleneckBlock_0/Conv_0/kernel'."""
     parts = name.split(".")
     if parts[0] == "layers":
         parts = [f"layer_{parts[1]}"] + parts[2:]

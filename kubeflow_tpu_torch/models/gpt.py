@@ -483,6 +483,10 @@ class Gpt(nn.Module):
         return sum(t.numel() * t.element_size()
                    for t in self.state_dict().values())
 
+    def init_params(self, seed: int) -> None:
+        """The seeded init, in place (`init_params` above)."""
+        init_params(self, seed)
+
     def trainable(self) -> "Gpt":
         """Make the f32 master weights trainable (train mode); returns
         self. Serving keeps the frozen model the constructor builds."""

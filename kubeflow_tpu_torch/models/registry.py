@@ -21,12 +21,15 @@ def register_model(name: str):
 
 def _import_builtin_models() -> None:
     import kubeflow_tpu_torch.models.gpt  # noqa: F401
+    import kubeflow_tpu_torch.models.mlp  # noqa: F401
+    import kubeflow_tpu_torch.models.resnet  # noqa: F401
 
 
 def get_model(name: str, **kwargs):
     """Build registry model `name`. kwargs override config fields (e.g.
-    `dtype`, `max_len`, `attention_impl`, `remat`, as the trainer passes
-    them) and take `device` (default "cuda"; raises without CUDA unless
+    `dtype`, `max_len`, `attention_impl`, `remat` of a GPT as the trainer
+    passes them, `num_classes` and `num_filters` of a ResNet, `hidden`
+    and `in_features` of the mlp) and take `device` (default "cuda"; raises without CUDA unless
     "cpu") and `seed` (the seeded init's torch.Generator seed)."""
     _import_builtin_models()
     if name not in _REGISTRY:

@@ -1,1 +1,2 @@
-"""Build and load the port's hand-written CUDA kernels."""
+"""Build and load the port's hand-written CUDA kernels and the repo's C++
+shard reader."""

@@ -14,6 +14,14 @@ reused by later processes in the same checkout. Pointer and stream
 arguments go through ctypes as `c_void_p`; every C entry point returns
 `cudaGetLastError()` and the caller raises when it is not 0. A failed
 build raises with nvcc's output. Nothing here runs at import time.
+
+`shard_loader_lib_path` builds the repo's C++ shard reader
+(native/shard_loader/shard_loader.cc, where the JAX package's build
+also finds it) with g++ and the flags of its Makefile into
+build/native_torch/ (the JAX package's build writes build/ itself, so
+the two never share a file), under a name hashed like a kernel's. The
+library is written to a temporary name and renamed into place, so
+processes building at once (test workers) never load a half-written one.
 """
 
 from __future__ import annotations
@@ -47,6 +55,41 @@ build_logs: Dict[str, str] = {}
 
 class KernelBuildError(RuntimeError):
     pass
+
+
+SHARD_LOADER_SRC = os.path.join(REPO_ROOT, "native", "shard_loader",
+                                "shard_loader.cc")
+NATIVE_BUILD_DIR = os.path.join(REPO_ROOT, "build", "native_torch")
+# native/shard_loader/Makefile's CXXFLAGS and -shared
+GXX_FLAGS = ("-O2", "-std=c++17", "-Wall", "-Wextra", "-fPIC", "-pthread",
+             "-shared")
+
+
+class NativeBuildError(RuntimeError):
+    pass
+
+
+def shard_loader_lib_path() -> str:
+    """The built shard reader library, building it first when needed.
+    Raises NativeBuildError without g++ or when the build fails."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise NativeBuildError("g++ not available")
+    with open(SHARD_LOADER_SRC, "rb") as fh:
+        digest = hashlib.sha256(" ".join(GXX_FLAGS).encode() + b"\0"
+                                + fh.read()).hexdigest()[:16]
+    out = os.path.join(NATIVE_BUILD_DIR, f"libshard_loader-{digest}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(NATIVE_BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    proc = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, SHARD_LOADER_SRC],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise NativeBuildError(
+            f"building shard_loader failed:\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
 
 
 def nvcc_path() -> str:

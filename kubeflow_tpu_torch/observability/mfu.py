@@ -14,6 +14,11 @@ is the analytic model-FLOPs count of a decoder-only LM train step
 
 Recomputation under remat is NOT counted (it is work the model does not
 need), and neither are embeddings, layernorms, softmax or the optimizer.
+Other models (ResNet, the mlp) take the count of
+`torch.utils.flop_counter.FlopCounterMode` over one forward and backward
+of the task's loss at the step's shapes, on a meta-device twin of the
+model (training/trainer.py `Trainer.step_flops`): the convolutions and
+matmuls, as XLA's cost model counts them.
 
 The denominator is the card's published dense bf16 peak (the JAX
 package's convention: the per-chip peak whatever the step's dtype), from

@@ -7,7 +7,10 @@ when a warm start ran, and `compile_s` when the first step was fenced),
 plus the last window's `step_time_s`, `mfu` (on a listed card) and
 `goodput`, `restore_s` (the resume's restore, wall seconds, when one
 ran), and `losses`: every step's (step, loss), read on the host at the
-first-step fence and at each log window (one sync a window).
+first-step fence and at each log window (one sync a window). A run with
+eval data (the config's `data`: blobs or npz with a held-out split) adds
+the JAX keys `eval_top1`, `eval_loss` and `target_reached`. Every
+registry model trains here: the GPT family, ResNet and the mlp.
 
 The restore gate is the JAX package's: `KFT_CHECKPOINT_DIR` overrides
 `cfg.checkpoint.directory`; `restore=True` resumes from the latest
@@ -256,4 +259,10 @@ def _run_training_armed(cfg: TrainingConfig, restore: bool,
         for key in ("compile_s", "mfu", "goodput"):
             if key in metrics.aux:
                 result[key] = metrics.aux[key]
+        if "eval_top1" in metrics.aux:
+            result["eval_top1"] = metrics.aux["eval_top1"]
+            result["eval_loss"] = metrics.aux["eval_loss"]
+            target = cfg.data.target_accuracy
+            result["target_reached"] = bool(
+                target and metrics.aux["eval_top1"] >= target)
     return result

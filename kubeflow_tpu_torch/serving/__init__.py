@@ -1,2 +1,3 @@
-"""Serving: sampling, the generate oracle, the paged decode engine and
-the REST model server."""
+"""Serving: sampling, the generate oracle, the paged decode engine, the
+`:predict` path (ServedModel and the micro-batcher) and the REST model
+server."""

@@ -97,6 +97,7 @@ from kubeflow_tpu_torch.models.gpt import (
 )
 from kubeflow_tpu_torch.observability.trace import default_tracer
 from kubeflow_tpu_torch.routing.affinity import first_page_key
+from kubeflow_tpu_torch.serving.batching import Completion
 from kubeflow_tpu_torch.serving.kv_tiers import (
     DEFAULT_KV_LAYOUT,
     KV_LAYOUTS,
@@ -159,33 +160,6 @@ class EngineDrainingError(QueueFullError):
 class EngineCapacityError(ValueError):
     """The request exceeds the MODEL's window: prompt + max_new_tokens >
     max_len (a 400, as on the static path)."""
-
-
-class Completion:
-    """One waiter's completion slot: a value or an error behind an event
-    (the worker calls exactly one of set()/fail(); the caller waits)."""
-
-    __slots__ = ("_event", "value", "error")
-
-    def __init__(self):
-        self._event = threading.Event()
-        self.value = None
-        self.error: Optional[BaseException] = None
-
-    def set(self, value) -> None:
-        self.value = value
-        self._event.set()
-
-    def fail(self, error: BaseException) -> None:
-        self.error = error
-        self._event.set()
-
-    def wait(self, timeout: Optional[float] = None):
-        if not self._event.wait(timeout):
-            raise TimeoutError(f"no completion within {timeout}s")
-        if self.error is not None:
-            raise self.error
-        return self.value
 
 
 def default_prefill_buckets(max_len: int, smallest: int = 8) -> Tuple[int, ...]:

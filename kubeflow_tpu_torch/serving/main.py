@@ -1,5 +1,8 @@
 """Model-server entrypoint (port of kubeflow_tpu/serving/main.py): build a
-registry model on the card, attach the decode engine, serve REST.
+registry model on the card and serve REST. A causal LM (the GPT family)
+serves `:generate` through the decode engine; every other model (ResNet,
+the mlp) serves `:predict` and `:predict_npy` through a `ServedModel`
+with the micro-batcher (`--batch-window-ms`, default 2 ms).
 
 Engine knobs default from the controller-rendered KFT_SERVING_* env (the
 subset this port honours). `KFT_SERVING_PAGED_ATTENTION` takes
@@ -110,10 +113,20 @@ def engine_knobs_from_env() -> dict:
     }
 
 
+def is_causal_family(model_name: str) -> bool:
+    """Does this registry model serve :generate (a decoder-only LM)?
+    Decided by the model's type (a shapes-only build), not its name."""
+    from kubeflow_tpu_torch.models.gpt import Gpt
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    return isinstance(get_model(model_name, device="meta"), Gpt)
+
+
 def build_server(
     model: str,
     checkpoint_dir: str = "",
     *,
+    batch_window_ms: Optional[float] = None,
     params: Optional[Mapping[str, torch.Tensor]] = None,
     device=None,
     dtype: Optional[torch.dtype] = None,
@@ -137,8 +150,13 @@ def build_server(
     trace_buffer_spans: Optional[int] = None,
     statusz_enabled: Optional[bool] = None,
 ):
-    """Assemble the ModelServer for one registry model: the ServedLm
-    plus (num_slots > 0) its continuous-batching DecodeEngine.
+    """Assemble the ModelServer for one registry model. A causal LM gets
+    the ServedLm plus (num_slots > 0) its continuous-batching
+    DecodeEngine; any other model a `ServedModel.from_registry` (params
+    only, as in the reference, so a BatchNorm model is refused there)
+    with `batch_window_ms` of micro-batching (default 2.0; the engine
+    batches :generate by tokens, so a window given for an LM is noted
+    and ignored).
 
     `num_draft_tokens` K > 0 drafts with the registry model
     `draft_model`, built on the same device in the same dtype, with
@@ -153,10 +171,11 @@ def build_server(
 
     `kv_host_bytes`, `kv_persist_dir`, `kv_persist_interval_s` and
     `kv_persist_chains` are the engine's KV tiers (serving/kv_tiers.py);
-    either tier needs the prefix cache. The pool is sized by the static
-    rule: several servers share one process in chip_smoke.py and the
-    tests, and a pool sized from another server's pressure
-    (`kv_tiers.pool_sizing_telemetry`) would change theirs.
+    either tier needs the prefix cache. An auto-sized pool (`num_pages`
+    0 or None) follows the pressure an earlier engine of this process
+    left in the metrics registry (`kv_tiers.pool_sizing_telemetry`), as
+    in the reference: a caller that builds several servers in one
+    process and needs a pool size of its own passes `num_pages`.
 
     `params` is a state dict for the model (e.g. from
     models/convert.py `params_from_jax`); without one the params come
@@ -180,8 +199,10 @@ def build_server(
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
     from kubeflow_tpu_torch.models.convert import params_from_jax
     from kubeflow_tpu_torch.serving.generate import ServedLm
+    from kubeflow_tpu_torch.serving.kv_tiers import pool_sizing_telemetry
     from kubeflow_tpu_torch.serving.server import (
         ModelServer,
+        ServedModel,
         restore_checkpoint_params,
     )
     from kubeflow_tpu_torch.utils.device import resolve_device
@@ -201,6 +222,17 @@ def build_server(
         sample_prob=obs["trace_sample_prob"],
         sample_keep=obs["trace_sample_keep"],
     )
+    if not is_causal_family(model):
+        server = ModelServer(statusz_enabled=statusz_enabled)
+        server.add(ServedModel.from_registry(
+            model, checkpoint_dir=checkpoint_dir or None, params=params,
+            batch_window_ms=2.0 if batch_window_ms is None else batch_window_ms,
+            device=dev, **({"dtype": dtype} if dtype is not None else {}),
+        ))
+        return server
+    if batch_window_ms:
+        print("note: batch_window_ms does not apply to the :generate path "
+              "(the decode engine batches at token granularity)", flush=True)
     env = engine_knobs_from_env()
     num_slots = env["num_slots"] if num_slots is None else num_slots
     max_queue = env["max_queue"] if max_queue is None else max_queue
@@ -310,6 +342,10 @@ def build_server(
                 kv_persist_dir=kv_persist_dir or None,
                 kv_persist_interval_s=kv_persist_interval_s or 0.0,
                 kv_persist_chains=kv_persist_chains or 64,
+                # an auto-sized pool follows an earlier engine's pressure
+                # (None on a fresh process: the static rule)
+                pool_telemetry=(None if num_pages
+                                else pool_sizing_telemetry()),
             )
         )
     return server
@@ -325,6 +361,9 @@ def main(argv=None) -> int:
                     help="torch.save'd state dict (default: the checkpoint, "
                     "else seed-0 init)")
     ap.add_argument("--port", type=int, default=8500)
+    ap.add_argument("--batch-window-ms", type=float, default=None,
+                    help="cross-request micro-batch window for :predict "
+                    "(default 2; 0 disables)")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--num-slots", type=int, default=None)
     ap.add_argument("--max-queue", type=int, default=None)
@@ -361,6 +400,7 @@ def main(argv=None) -> int:
               "or --checkpoint-dir given)", flush=True)
     server = build_server(
         args.model, args.checkpoint_dir, params=params,
+        batch_window_ms=args.batch_window_ms,
         num_slots=args.num_slots, max_queue=args.max_queue,
         page_size=args.page_size, num_pages=args.num_pages,
         prefix_cache=(

@@ -1,11 +1,23 @@
-"""Model server speaking the TF-Serving-shaped REST contract (port of the
-`:generate` part of kubeflow_tpu/serving/server.py).
+"""Model server speaking the TF-Serving REST contract (port of
+kubeflow_tpu/serving/server.py).
 
-Routes: `POST /v1/models/<name>:generate` (through the DecodeEngine when
-one is attached, else the static ServedLm path), `GET /v1/models` and
+Routes: `POST /v1/models/<name>:predict` (JSON `{"instances": [...]}` →
+`{"predictions": [...]}`) and `:predict_npy` (one .npy body each way,
+with the latency decomposition headers) for `ServedModel`s;
+`POST /v1/models/<name>:generate` (through the DecodeEngine when one is
+attached, else the static ServedLm path); `GET /v1/models` and
 `GET /v1/models/<name>` (model discovery, as the kft-router forwards
 them), `GET /healthz` and `GET /metrics` (Prometheus text). The bodies
-are the reference server's.
+and error codes are the reference server's.
+
+`ServedModel` serves any `apply_fn(params, x)` on the card: requests are
+padded to the batch buckets (1, 2, 4 … 128), a request past the largest
+is chunked through it, and with `batch_window_ms` > 0 concurrent
+requests fuse into one device call a window (serving/batching.py). Its
+device call runs under a lock (the batcher's thread and the WSGI
+threads share the card) and reports its decomposition: transfer in,
+device, transfer out, each closed by `torch.cuda.synchronize()` where
+the reference blocks until ready.
 
 Observability (`statusz_enabled`, on by default): `GET /statusz` (the
 models and engines sections: slot maps, pool, prefix cache, KV tiers,
@@ -36,13 +48,15 @@ draining from dead), and `:generate` through a draining engine answers
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from kubeflow_tpu_torch.api.wsgi import (
     App,
@@ -74,10 +88,13 @@ from kubeflow_tpu_torch.serving.kv_tiers import (
     encode_page_entries,
 )
 from kubeflow_tpu_torch.utils.logging import get_logger
+from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 from kubeflow_tpu_torch.utils.metrics import (
     default_registry,
     serving_kv_handoff_ms_counter,
     serving_kv_handoff_pages_counter,
+    serving_predict_histogram,
+    serving_requests_counter,
 )
 
 log = get_logger(__name__)
@@ -89,6 +106,16 @@ DEFAULT_DRAIN_DEADLINE_S = 30.0
 # one POST of committed pages to a peer replica: bounded well under the
 # drain deadline, so a dead peer cannot eat the whole drain window
 PAGE_SHIP_TIMEOUT_S = 60.0
+
+# the padded batch sizes of a ServedModel's device calls
+BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def bucket_for(n: int) -> int:
+    for b in BATCH_BUCKETS:
+        if n <= b:
+            return b
+    return BATCH_BUCKETS[-1]
 
 
 def _default_page_transport(url: str, data: bytes):
@@ -135,8 +162,192 @@ def restore_checkpoint_params(checkpoint_dir: Optional[str],
     return restore_params(checkpoint_dir, transform=transform)
 
 
+class ServedModel:
+    """One named, versioned model: `apply_fn(params, x)` on the device over
+    bucket-padded batches. `x` reaches it as a tensor on `device`
+    (default "cuda"; raises without CUDA unless "cpu"); it returns the
+    predictions [N, ...] as a tensor."""
+
+    def __init__(self, name: str, apply_fn: Callable[[Any, torch.Tensor],
+                                                     torch.Tensor],
+                 params: Any, version: str = "1",
+                 postprocess: Optional[Callable[[np.ndarray], Any]] = None,
+                 batch_window_ms: float = 0.0, device: DeviceLike = None):
+        self.name = name
+        self.version = version
+        self.params = params
+        self.postprocess = postprocess
+        self.device = resolve_device(device)
+        self._apply = apply_fn
+        self._lock = threading.Lock()
+        self._latency = serving_predict_histogram()
+        self._requests = serving_requests_counter()
+        # concurrent requests fuse into one device call a window; 0 = off
+        self._batcher = None
+        if batch_window_ms > 0:
+            from kubeflow_tpu_torch.serving.batching import MicroBatcher
+
+            self._batcher = MicroBatcher(
+                self._device_predict, max_rows=BATCH_BUCKETS[-1],
+                window_ms=batch_window_ms, name=name,
+            )
+
+    def close(self) -> None:
+        if self._batcher is not None:
+            self._batcher.close()
+
+    @classmethod
+    def from_registry(cls, model_name: str,
+                      checkpoint_dir: Optional[str] = None, params: Any = None,
+                      served_name: Optional[str] = None,
+                      batch_window_ms: float = 0.0, device: DeviceLike = None,
+                      **model_kwargs) -> "ServedModel":
+        """A registry model with params only, as the reference has it:
+        `params` (a flax tree, nested as `restore_checkpoint_params`
+        returns it, or a state dict), else the latest committed
+        checkpoint in `checkpoint_dir`. A model with BatchNorm running
+        averages cannot be served from params alone (the reference
+        fails the same way at its first apply: flax finds no
+        `batch_stats`): this raises ValueError naming them; serve such a
+        model through `ServedModel(name, apply_fn, variables)`."""
+        from kubeflow_tpu_torch.models.convert import (
+            is_batch_stat,
+            params_from_jax,
+        )
+        from kubeflow_tpu_torch.models.registry import get_model
+
+        model = get_model(model_name, device=device, **model_kwargs)
+        if params is None:
+            params = restore_checkpoint_params(checkpoint_dir)
+        if any(isinstance(v, Mapping) for v in params.values()):
+            params = params_from_jax(params)
+        missing, unexpected = model.load_state_dict(params, strict=False)
+        stats = [k for k in missing if is_batch_stat(k)]
+        if stats:
+            raise ValueError(
+                f"model {model_name} reads BatchNorm running averages "
+                f"(batch_stats: {stats[:2]} and {len(stats) - 2} more) that "
+                f"from_registry's params do not carry; serve it through "
+                f"ServedModel(name, apply_fn, variables) with its batch_stats"
+            )
+        if missing or unexpected:
+            raise ValueError(f"params do not match model {model_name}: "
+                             f"missing {missing[:4]}, unexpected "
+                             f"{unexpected[:4]}")
+
+        def apply_fn(m, x):
+            return m(x, train=False)
+
+        return cls(served_name or model_name, apply_fn, model,
+                   batch_window_ms=batch_window_ms, device=model.device)
+
+    def predict_array(self, x: np.ndarray) -> np.ndarray:
+        """Array in, array out: bucket pad, the device call, unpad (the
+        :predict_npy path). With micro-batching on, concurrent calls fuse
+        into one device batch a window."""
+        return self.predict_array_with_decomp(x)[0]
+
+    def predict_array_with_decomp(self, x: np.ndarray):
+        """predict_array plus the decomposition of the device call THIS
+        request rode (through the batcher's aux channel when batching),
+        never a concurrent neighbour's."""
+        n = x.shape[0]
+        if n == 0:
+            # a prediction-shaped empty reply: one padded row's shape
+            y, _ = self._device_predict(np.zeros((1,) + x.shape[1:], x.dtype))
+            return np.zeros((0,) + y.shape[1:], y.dtype), {}
+        if n > BATCH_BUCKETS[-1]:
+            # chunk through the largest bucket (the decomposition reported
+            # is the last chunk's: one device call's worth)
+            chunks = [self.predict_array_with_decomp(x[i:i + BATCH_BUCKETS[-1]])
+                      for i in range(0, n, BATCH_BUCKETS[-1])]
+            return np.concatenate([c[0] for c in chunks], axis=0), chunks[-1][1]
+        self._requests.inc(model=self.name)
+        with self._latency.time(model=self.name):
+            if self._batcher is not None:
+                y, decomp = self._batcher.submit_with_aux(x)
+                return y, decomp or {}
+            return self._device_predict(x)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _device_predict(self, x: np.ndarray):
+        """Padded, locked device call(s) → (rows, decomposition); chunks
+        past the largest bucket (a fused batch can exceed it when submits
+        race the window)."""
+        n = x.shape[0]
+        if n > BATCH_BUCKETS[-1]:
+            chunks = [self._device_predict(x[i:i + BATCH_BUCKETS[-1]])
+                      for i in range(0, n, BATCH_BUCKETS[-1])]
+            return np.concatenate([c[0] for c in chunks], axis=0), chunks[-1][1]
+        padded_n = bucket_for(n)
+        if padded_n != n:
+            x = np.concatenate([x, np.repeat(x[:1], padded_n - n, axis=0)])
+        with self._lock, torch.no_grad():
+            t0 = time.monotonic()
+            xd = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            self._sync()
+            t1 = time.monotonic()
+            y = self._apply(self.params, xd)
+            self._sync()
+            t2 = time.monotonic()
+            out = y.cpu().numpy()
+            t3 = time.monotonic()
+            decomp = {
+                "rows": float(padded_n),
+                "transfer_in_ms": (t1 - t0) * 1e3,
+                "device_ms": (t2 - t1) * 1e3,
+                "transfer_out_ms": (t3 - t2) * 1e3,
+            }
+        return out[:n], decomp
+
+    def warmup(self, element_shape: Sequence[int], dtype: Any = np.float32,
+               max_rows: Optional[int] = None) -> None:
+        """One device call at every bucket up to the one `max_rows` rows
+        run on (all by default): the batcher fuses requests into buckets
+        no single request hits, and an unwarmed bucket pays its library
+        warm-up (cuDNN's algorithm choice) inside some client's request.
+        With micro-batching on, the calls go through the batcher's thread,
+        the thread that serves: PyTorch keeps cuDNN's chosen plans per
+        thread, so a warm-up on another thread leaves the serving thread
+        cold (measured on an H100: its first 64-row call then took 1.5 s
+        with `cudnn.benchmark` on, later ones ~10 ms)."""
+        limit = bucket_for(max_rows if max_rows is not None
+                           else BATCH_BUCKETS[-1])
+        run = (self._device_predict if self._batcher is None
+               else self._batcher.submit)
+        for b in BATCH_BUCKETS:
+            if b > limit:
+                break
+            run(np.zeros((b,) + tuple(element_shape), dtype))
+
+    def batch_stats(self) -> Dict[str, float]:
+        """Micro-batcher evidence: device batches run and the mean rows a
+        batch (proof that concurrent requests fused)."""
+        if self._batcher is None:
+            return {}
+        hist = self._batcher._fused
+        count = hist.count(model=self.name)
+        return {
+            "fused_batches": float(count),
+            "fused_rows_mean": (hist.sum(model=self.name) / count
+                                if count else 0.0),
+        }
+
+    def predict(self, instances: Sequence) -> List:
+        if len(instances) == 0:
+            return []
+        y = self.predict_array(np.asarray(instances, dtype=np.float32))
+        if self.postprocess is not None:
+            return [self.postprocess(row) for row in y]
+        return [row.tolist() for row in y]
+
+
 class ModelServer:
-    """Generative-model server: ServedLm models and their engines."""
+    """Multi-model server: ServedModels (`:predict`), ServedLms and their
+    engines (`:generate`)."""
 
     # generous bound: an engine request waits behind at most max_queue
     # admissions; a hung engine must surface as a 500, not a stuck socket
@@ -145,6 +356,7 @@ class ModelServer:
     def __init__(self, page_transport: Optional[
             Callable[[str, bytes], Tuple[int, bytes]]] = None,
             statusz_enabled: bool = True) -> None:
+        self._models: Dict[str, ServedModel] = {}
         self._lms: Dict[str, Any] = {}      # ServedLm (serving/generate.py)
         self._engines: Dict[str, Any] = {}  # DecodeEngine (serving/engine.py)
         # how this replica POSTs page envelopes to a peer's /v1/kv/pages
@@ -166,7 +378,9 @@ class ModelServer:
             )
 
     def _statusz_models(self) -> List[str]:
-        lines = [
+        lines = [f"  {m.name} (predict, version {m.version})"
+                 for m in self._models.values()]
+        lines += [
             f"  {lm.name} (generate, "
             f"{'engine' if lm.name in self._engines else 'static'})"
             for lm in self._lms.values()
@@ -239,6 +453,17 @@ class ModelServer:
                              for r in state["recent"])
         return lines or ["  <none>"]
 
+    def add(self, model: ServedModel) -> None:
+        """Register a ServedModel for :predict and :predict_npy."""
+        self._models[model.name] = model
+
+    def remove(self, name: str) -> None:
+        self._models.pop(name, None)
+        self._lms.pop(name, None)
+        engine = self._engines.pop(name, None)
+        if engine is not None:
+            engine.close()
+
     def add_lm(self, lm) -> None:
         self._lms[lm.name] = lm
 
@@ -264,6 +489,8 @@ class ModelServer:
         live at the deadline fails fast. Engines drain concurrently, so
         the whole shutdown is bounded by one deadline. Returns True when
         every engine drained in time (always True without `drain`)."""
+        for model in self._models.values():
+            model.close()
         if not drain:
             for engine in self._engines.values():
                 engine.close()
@@ -434,7 +661,8 @@ class ModelServer:
             """{"ok", "draining", "models"}; 503 while the server or any
             engine drains, so readiness drops a draining replica that
             still answers (a dead one answers nothing)."""
-            names = sorted(set(self._lms) | set(self._engines))
+            names = sorted(set(self._models) | set(self._lms)
+                           | set(self._engines))
             draining = self._draining or any(
                 e.draining for e in self._engines.values()
             )
@@ -443,11 +671,14 @@ class ModelServer:
 
         @app.get("/v1/models")
         def list_models(req):
-            """Every model, ServedLm ones first, then engine-only ones:
-            each generative, with continuous batching when an engine
-            serves it."""
+            """Every model: ServedModels, then ServedLms, then
+            engine-only ones; each generative one with continuous
+            batching when an engine serves it."""
             return {
                 "models": [
+                    {"name": m.name, "version": m.version}
+                    for m in self._models.values()
+                ] + [
                     {"name": lm.name, "version": "1", "generative": True,
                      "continuous_batching": lm.name in self._engines}
                     for lm in self._lms.values()
@@ -462,11 +693,14 @@ class ModelServer:
         @app.get("/v1/models/<name>")
         def model_status(req):
             name = req.params["name"]
-            if name not in self._lms and name not in self._engines:
+            model = self._models.get(name)
+            if (model is None and name not in self._lms
+                    and name not in self._engines):
                 raise NotFoundError(f"model {name} not loaded")
             return {
                 "model_version_status": [{
-                    "version": "1", "state": "AVAILABLE",
+                    "version": model.version if model is not None else "1",
+                    "state": "AVAILABLE",
                     "status": {"error_code": "OK", "error_message": ""},
                 }]
             }
@@ -477,6 +711,69 @@ class ModelServer:
                 default_registry().render(),
                 "text/plain; version=0.0.4; charset=utf-8",
             )
+
+        @app.post("/v1/models/<name>:predict")
+        def predict(req):
+            model = self._models.get(req.params["name"])
+            if model is None:
+                raise NotFoundError(f"model {req.params['name']} not loaded")
+            instances = (req.body or {}).get("instances")
+            if instances is None:
+                raise BadRequest("request body must contain 'instances'")
+            try:
+                predictions = model.predict(instances)
+            except (ValueError, TypeError) as e:
+                raise BadRequest(f"bad instances: {e}")
+            return {"predictions": predictions}
+
+        @app.post("/v1/models/<name>:predict_npy", binary=True)
+        def predict_npy(req):
+            """The binary path: the request body is one .npy array (the
+            instances), the reply one .npy array of predictions, with the
+            server's latency split in headers: parse, compute (transfer
+            in, device, transfer out of the batch this request rode, and
+            its padded rows) and serialize."""
+            model = self._models.get(req.params["name"])
+            if model is None:
+                raise NotFoundError(f"model {req.params['name']} not loaded")
+            if model.postprocess is not None:
+                # per-row Python objects have no .npy encoding
+                raise BadRequest(
+                    f"model {model.name} has a postprocessor; use :predict")
+            if not isinstance(req.body, (bytes, bytearray)):
+                raise BadRequest(
+                    "send the instances tensor as one .npy body with "
+                    "Content-Type: application/octet-stream")
+            t0 = time.monotonic()
+            try:
+                x = np.load(io.BytesIO(req.body), allow_pickle=False)
+            except (ValueError, OSError, EOFError) as e:
+                raise BadRequest(f"bad npy payload: {e}")
+            if getattr(x, "ndim", 0) < 1:
+                raise BadRequest("instances tensor must be at least rank 1")
+            t1 = time.monotonic()
+            try:
+                y, decomp = model.predict_array_with_decomp(
+                    np.asarray(x, dtype=np.float32))
+            except (ValueError, TypeError) as e:
+                raise BadRequest(f"bad instances: {e}")
+            t2 = time.monotonic()
+            buf = io.BytesIO()
+            np.save(buf, y, allow_pickle=False)
+            t3 = time.monotonic()
+            headers = [
+                ("X-Parse-Ms", f"{(t1 - t0) * 1e3:.2f}"),
+                ("X-Compute-Ms", f"{(t2 - t1) * 1e3:.2f}"),
+                ("X-Serialize-Ms", f"{(t3 - t2) * 1e3:.2f}"),
+            ]
+            for key, hdr in (("transfer_in_ms", "X-Transfer-In-Ms"),
+                             ("device_ms", "X-Device-Ms"),
+                             ("transfer_out_ms", "X-Transfer-Out-Ms"),
+                             ("rows", "X-Device-Batch-Rows")):
+                if key in decomp:
+                    headers.append((hdr, f"{decomp[key]:.2f}"))
+            req.response_headers.extend(headers)
+            return Response(buf.getvalue(), "application/octet-stream")
 
         @app.post("/v1/models/<name>:generate")
         def generate(req):

@@ -1,2 +1,3 @@
-"""Training: the synthetic LM stream, the causal-LM task and optimizer,
-and the train-step engine."""
+"""Training: the synthetic streams and the datasets, the augmentation,
+the causal-LM and image-classification tasks and their optimizers, and
+the train-step engine."""

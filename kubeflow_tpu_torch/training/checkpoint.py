@@ -2,8 +2,9 @@
 training side of kubeflow_tpu/training/checkpoint.py; the manager
 itself is checkpointing/manager.py).
 
-A JAX train state of the GPT recipe (`optax.chain(clip_by_global_norm,
-adamw)`) saves these manifest keys, named-layer flax paths throughout:
+A JAX train state of the transformer recipe (`optax.chain(
+clip_by_global_norm, adamw)`) saves these manifest keys, named-layer
+flax paths throughout:
 
     step                        () int32   updates done
     params/<flax path>          f32        the master weights
@@ -12,13 +13,27 @@ adamw)`) saves these manifest keys, named-layer flax paths throughout:
     opt_state/1/0/nu/<path>     f32        second moments
     opt_state/1/2/count         () int32   the schedule's count
 
-(`clip_by_global_norm` and `add_decayed_weights` hold no leaves.) The
-port's state maps onto them BY PARAMETER NAME (models/convert.py
-`jax_path`), never by the optimizer's index order: AdamW's `exp_avg` is
-`mu`, `exp_avg_sq` is `nu`, and torch's per-parameter `step` (a float
-tensor) is both counts. Before its first update torch has no optimizer
-state: such a state saves zero moments and count 0, as the JAX package
-does, and a restore creates the state before loading it.
+and one of the convnet recipe (`optax.chain(add_decayed_weights, sgd(
+schedule, momentum=0.9, nesterov=True))`, a BatchNorm model):
+
+    step                                  () int32
+    params/<flax path>                    f32
+    extra_vars/batch_stats/<path>/mean    f32   running averages
+    extra_vars/batch_stats/<path>/var     f32
+    opt_state/1/0/trace/<path>            f32   the momentum trace
+    opt_state/1/1/count                   () int32   the schedule's count
+
+(`clip_by_global_norm`, `add_decayed_weights` and the chain's empty
+states hold no leaves.) The port's state maps onto them BY NAME
+(models/convert.py `jax_path`), never by the optimizer's index order:
+AdamW's `exp_avg` is `mu`, `exp_avg_sq` is `nu`, and torch's
+per-parameter `step` (a float tensor) is both counts; SGD's
+`momentum_buffer` is `trace` (optax's trace from zeros and torch's first
+buffer are both the first gradient), the state's step is the schedule's
+count, and the model's BatchNorm buffers are `batch_stats`. Before its
+first update torch has no optimizer state: such a state saves zero
+moments (a zero trace) and count 0, as the JAX package does, and a
+restore creates the optimizer state before loading it.
 
 The tree holds the live tensors; the manager makes the host copy.
 """
@@ -30,7 +45,7 @@ from typing import Any, Dict
 import torch
 
 from kubeflow_tpu_torch.checkpointing.manager import nest
-from kubeflow_tpu_torch.models.convert import jax_path
+from kubeflow_tpu_torch.models.convert import is_batch_stat, jax_path
 
 
 def _get(tree: Dict[str, Any], path: str):
@@ -51,6 +66,17 @@ def load_params_tree(model: torch.nn.Module, tree: Dict[str, Any]) -> None:
             p.copy_(_get(tree, jax_path(name)))
 
 
+def batch_stats_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """The model's BatchNorm running averages as the nested flax
+    `batch_stats` tree (live tensors; empty for a model without)."""
+    return nest({jax_path(n): b for n, b in model.named_buffers()
+                 if is_batch_stat(n)})
+
+
+def _is_sgd(state) -> bool:
+    return isinstance(state.optimizer, torch.optim.SGD)
+
+
 def _update_count(state) -> int:
     """torch's per-parameter step, one value for the whole state (0
     before the first update)."""
@@ -65,6 +91,23 @@ def _update_count(state) -> int:
 def train_state_tree(state) -> Dict[str, Any]:
     """The JAX manifest's tree of a port `TrainState` (live tensors)."""
     opt = state.optimizer
+    tree: Dict[str, Any] = {
+        "step": torch.tensor(state.step, dtype=torch.int32),
+        "params": params_tree(state.model),
+    }
+    stats = batch_stats_tree(state.model)
+    if stats:
+        tree["extra_vars"] = {"batch_stats": stats}
+    if _is_sgd(state):
+        trace = {}
+        for name, p in state.model.named_parameters():
+            buf = opt.state.get(p, {}).get("momentum_buffer")
+            trace[jax_path(name)] = buf if buf is not None else torch.zeros_like(p)
+        tree["opt_state"] = {"1": {
+            "0": {"trace": nest(trace)},
+            "1": {"count": torch.tensor(state.step, dtype=torch.int32)},
+        }}
+        return tree
     mu, nu = {}, {}
     for name, p in state.model.named_parameters():
         st = opt.state.get(p, {})
@@ -73,25 +116,35 @@ def train_state_tree(state) -> Dict[str, Any]:
         nu[path] = (st["exp_avg_sq"] if "exp_avg_sq" in st
                     else torch.zeros_like(p))
     count = _update_count(state)
-    return {
-        "step": torch.tensor(state.step, dtype=torch.int32),
-        "params": params_tree(state.model),
-        "opt_state": {"1": {
-            "0": {"count": torch.tensor(count, dtype=torch.int32),
-                  "mu": nest(mu), "nu": nest(nu)},
-            "2": {"count": torch.tensor(count, dtype=torch.int32)},
-        }},
-    }
+    tree["opt_state"] = {"1": {
+        "0": {"count": torch.tensor(count, dtype=torch.int32),
+              "mu": nest(mu), "nu": nest(nu)},
+        "2": {"count": torch.tensor(count, dtype=torch.int32)},
+    }}
+    return tree
 
 
 def load_train_state_tree(state, tree: Dict[str, Any]) -> None:
     """Load a restored tree into a port `TrainState` in place: the step,
-    the parameters, and AdamW's state for every parameter (created here,
-    with the step torch's own AdamW would hold)."""
+    the parameters, the BatchNorm running averages, and the optimizer's
+    state for every parameter (created here: AdamW's with the step
+    torch's own AdamW would hold, SGD's momentum buffer from the trace)."""
     load_params_tree(state.model, tree["params"])
+    with torch.no_grad():
+        for name, b in state.model.named_buffers():
+            if is_batch_stat(name):
+                b.copy_(_get(tree["extra_vars"]["batch_stats"], jax_path(name)))
+    opt = state.optimizer
+    if _is_sgd(state):
+        trace = tree["opt_state"]["1"]["0"]["trace"]
+        with torch.no_grad():
+            for name, p in state.model.named_parameters():
+                opt.state[p] = {"momentum_buffer": _get(
+                    trace, jax_path(name)).to(p, copy=True)}
+        state.step = int(tree["step"])
+        return
     adam = tree["opt_state"]["1"]["0"]
     count = int(adam["count"])
-    opt = state.optimizer
     groups = {id(p): g for g in opt.param_groups for p in g["params"]}
     with torch.no_grad():
         for name, p in state.model.named_parameters():

@@ -1,41 +1,63 @@
-"""Input pipeline (port of the synthetic-LM part of
-kubeflow_tpu/training/data.py).
+"""Input pipeline (port of kubeflow_tpu/training/data.py): the synthetic
+streams and the host→device copy.
 
 `SyntheticData.batch_at(step)` is the JAX package's numpy stream, bit for
-bit: a run of the port and a run of the JAX trainer fed from `batch_at`
-see identical batches. `to_device` moves a numpy batch onto the training
-device: through pinned host memory with a non-blocking copy on the card,
-a plain tensor on the CPU.
+bit, for the causal-LM ("lm") and image ("image") tasks: a run of the
+port and a run of the JAX trainer fed from `batch_at` see identical
+batches. `device_batch_fn` makes the image task's batches on the card
+(a 64-image 224² f32 batch is 38.5 MB of host normals a step): one
+`torch.Generator` on the batch's device seeded by (seed, step), so
+deterministic and resume-safe, though its stream differs from
+`batch_at`'s, as the JAX package's own device stream differs from its
+host stream. `to_device` moves a numpy batch onto the training device:
+through pinned host memory with a non-blocking copy on the card, a plain
+tensor on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+TASKS = ("lm", "image")
+
 
 class SyntheticData:
-    """Deterministic synthetic causal-LM batches (task "lm"); the image
-    and MLM streams wait for their models (ROADMAP A13 item 6)."""
+    """Deterministic synthetic batches of the causal-LM or image task
+    (the MLM stream waits for its model, ROADMAP A13 item 6)."""
 
     def __init__(self, task: str, global_batch_size: int, seed: int = 0,
+                 image_size: int = 224, num_classes: int = 1000,
                  seq_len: int = 128, vocab_size: int = 30522):
-        if task != "lm":
+        if task not in TASKS:
             raise ValueError(
-                f"synthetic task {task!r} is not ported yet (only 'lm'; "
-                f"ROADMAP A13 item 6)"
+                f"synthetic task {task!r} is not ported yet (only "
+                f"{TASKS}; ROADMAP A13 item 6)"
             )
         self.task = task
         self.global_batch_size = global_batch_size
         self.seed = seed
+        self.image_size = image_size
+        self.num_classes = num_classes
         self.seq_len = seq_len
         self.vocab_size = vocab_size
 
+    def _step_seed(self, step: int) -> int:
+        return self.seed * 1_000_003 + step
+
     def batch_at(self, step: int) -> Dict[str, np.ndarray]:
-        rng = np.random.default_rng(self.seed * 1_000_003 + step)
+        rng = np.random.default_rng(self._step_seed(step))
         b = self.global_batch_size
+        if self.task == "image":
+            return {
+                "image": rng.standard_normal(
+                    (b, self.image_size, self.image_size, 3), dtype=np.float32
+                ),
+                "label": rng.integers(0, self.num_classes, (b,),
+                                      dtype=np.int32),
+            }
         # causal LM: next-token prediction over the full sequence
         ids = rng.integers(0, self.vocab_size, (b, self.seq_len), dtype=np.int32)
         return {
@@ -43,16 +65,36 @@ class SyntheticData:
             "attention_mask": np.ones((b, self.seq_len), dtype=np.int32),
         }
 
+    def device_batch_fn(self, device) -> Optional[Callable[[int], Dict[str, torch.Tensor]]]:
+        """step → a batch made on `device` (image task; None for the LM
+        stream, which the trainer feeds from `batch_at`, ROADMAP A11)."""
+        if self.task != "image":
+            return None
+        dev = torch.device(device)
+        b, s = self.global_batch_size, self.image_size
+
+        def fn(step: int) -> Dict[str, torch.Tensor]:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(self._step_seed(step))
+            return {
+                "image": torch.randn((b, s, s, 3), generator=gen, device=dev),
+                "label": torch.randint(0, self.num_classes, (b,),
+                                       generator=gen, device=dev),
+            }
+
+        return fn
+
 
 def to_device(batch: Dict[str, np.ndarray],
               device: torch.device) -> Dict[str, torch.Tensor]:
-    """numpy batch → int64 tensors on `device`. On the card each array
-    goes through pinned memory with a non-blocking copy (the caching host
-    allocator keeps the pinned block until the copy has run), so the host
-    returns at once."""
+    """numpy batch → tensors on `device`: integer arrays as int64, float
+    arrays as f32. On the card each array goes through pinned memory
+    with a non-blocking copy (the caching host allocator keeps the pinned
+    block until the copy has run), so the host returns at once."""
     out = {}
     for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v)).long()
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        t = t.float() if t.is_floating_point() else t.long()
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t

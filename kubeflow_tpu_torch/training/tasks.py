@@ -1,18 +1,28 @@
-"""Task adapter and optimizer (port of the causal-LM parts of
-kubeflow_tpu/training/tasks.py): `cross_entropy`, `CausalLmTask` (the
-full-logits and the chunked-head losses), `task_for_model` and the
-optimizer.
+"""Task adapters and optimizers (port of kubeflow_tpu/training/tasks.py
+but the MLM task): `cross_entropy` (with label smoothing),
+`ImageClassificationTask` (ResNet and the mlp), `CausalLmTask` (the
+full-logits and the chunked-head losses), `task_for_model` and the two
+optimizer recipes.
 
-The JAX package's `optax.chain(clip_by_global_norm(1.0),
-adamw(warmup_cosine_decay_schedule(...), weight_decay=wd))` is three
-pieces here, which the trainer applies in that order:
-`clip_by_global_norm`, `make_schedule` and `make_optimizer`.
+The convnet recipe (`resnet*`), `optax.chain(add_decayed_weights(wd),
+sgd(schedule, momentum=0.9, nesterov=True))`, is `torch.optim.SGD(
+momentum=0.9, nesterov=True, dampening=0, weight_decay=wd)`: optax's
+trace t = g + 0.9·t and update g + 0.9·t over g + wd·p are torch's
+buffer and nesterov step, and its first trace (from zeros) is torch's
+first buffer (the gradient). It has no gradient clip.
+
+The transformer recipe (every other model), `optax.chain(
+clip_by_global_norm(1.0), adamw(warmup_cosine_decay_schedule(...),
+weight_decay=wd))`, is three pieces here, which the trainer applies in
+that order: `clip_by_global_norm`, `make_schedule` and `make_optimizer`.
 `torch.optim.AdamW(eps=1e-8, weight_decay=wd)` is optax.adamw's
 arithmetic (b1 0.9, b2 0.999, eps outside the sqrt, decoupled decay on
 every leaf times the lr); the schedule is a function of the update count,
 evaluated at the count BEFORE the update as optax does (so the first
 update runs at lr = schedule(0) = 0); `clip_by_global_norm` is optax's
-formula (scale by max_norm / norm only when norm >= max_norm).
+formula (scale by max_norm / norm only when norm >= max_norm). Both
+recipes set each update's lr to `make_schedule(cfg)(updates done)` before
+`step()`.
 """
 
 from __future__ import annotations
@@ -31,15 +41,85 @@ IGNORE = -100
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore: int = -1000000) -> torch.Tensor:
-    """Mean CE over labels != ignore; logits float32 [..., C], labels int."""
+                  ignore: int = -1000000,
+                  label_smoothing: float = 0.0) -> torch.Tensor:
+    """Mean CE over labels != ignore; logits float32 [..., C], labels int.
+    With label_smoothing ε the target is (1-ε)·onehot + ε/K uniform:
+    loss = (1-ε)·NLL + ε·mean over classes of -log p."""
     valid = labels != ignore
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = F.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    if label_smoothing:
+        ll = (1.0 - label_smoothing) * ll + label_smoothing * logp.mean(-1)
     ll = torch.where(valid, ll, torch.zeros_like(ll))
     count = valid.sum().clamp_min(1)
     return -ll.sum() / count
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position negative log-likelihood (no reduction)."""
+    logp = F.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, labels[..., None])[..., 0]
+
+
+class ImageClassificationTask:
+    """ResNet and the mlp: batch {image [B, H, W, 3], label [B]}; the
+    model's BatchNorm running averages move in its training forward."""
+
+    name = "image"
+
+    def __init__(self, cfg: TrainingConfig, image_size: int = 224,
+                 num_classes: int = 1000):
+        self.cfg = cfg
+        self.image_size = image_size
+        self.num_classes = num_classes
+
+    def synthetic_data(self, batch_size: Optional[int] = None) -> SyntheticData:
+        return SyntheticData(
+            "image", batch_size or self.cfg.global_batch_size,
+            seed=self.cfg.seed, image_size=self.image_size,
+            num_classes=self.num_classes,
+        )
+
+    def augment_batch(self, batch: Dict[str, torch.Tensor], step: int
+                      ) -> Dict[str, torch.Tensor]:
+        """The training augmentation of the batch of update `step`: a
+        pure function of (cfg.seed, step, image index), on the batch's
+        device (training/augment.py); "none" returns it unchanged."""
+        from kubeflow_tpu_torch.training.augment import augment_image_batch
+
+        return augment_image_batch(batch, self.cfg.data.augment,
+                                   self.cfg.seed, step)
+
+    def loss(self, model, batch: Dict[str, torch.Tensor], train: bool = True):
+        """(loss, {"aux": {"accuracy"}}); label smoothing in training only.
+        The caller augments a training batch first (`augment_batch`)."""
+        logits = model(batch["image"], train=train)
+        labels = batch["label"]
+        loss = cross_entropy(
+            logits, labels,
+            label_smoothing=self.cfg.label_smoothing if train else 0.0,
+        )
+        acc = (logits.argmax(-1) == labels).float().mean()
+        return loss, {"aux": {"accuracy": acc.detach()}}
+
+    def count_items(self, batch) -> int:
+        return batch["image"].shape[0]
+
+    def eval_stats(self, model, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """Summable eval statistics of one batch (top-1 numerator and
+        denominator, loss sum); `eval_mask` marks the real rows of a
+        padded final batch."""
+        logits = model(batch["image"], train=False).float()
+        labels = batch["label"]
+        valid = batch.get("eval_mask")
+        if valid is None:
+            valid = torch.ones(labels.shape[0], device=logits.device)
+        correct = ((logits.argmax(-1) == labels).float() * valid).sum()
+        loss_sum = (_nll(logits, labels) * valid).sum()
+        return {"correct": correct, "count": valid.sum(), "loss_sum": loss_sum}
 
 
 def _chunk_nll_sum(h_c, t_c, kernel, compute_dtype):
@@ -145,12 +225,24 @@ class CausalLmTask:
 
 
 def task_for_model(model_name: str, cfg: TrainingConfig, **kwargs):
+    if model_name.startswith("resnet"):
+        return ImageClassificationTask(cfg, **kwargs)
     if model_name.startswith("gpt"):
         return CausalLmTask(cfg, **kwargs)
+    if model_name.startswith("mlp"):
+        kwargs.setdefault("image_size", 8)
+        kwargs.setdefault("num_classes", 10)
+        return ImageClassificationTask(cfg, **kwargs)
     raise KeyError(
-        f"no task adapter for model {model_name!r} in the port (only the "
-        f"GPT family; ROADMAP A13 item 6)"
+        f"no task adapter for model {model_name!r} in the port (the BERT "
+        f"family waits for ROADMAP A13 item 6)"
     )
+
+
+def uses_sgd(model_name: str) -> bool:
+    """The convnet recipe (SGD-momentum, no clip) or the transformer one
+    (clipped AdamW)."""
+    return model_name.startswith("resnet")
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -203,12 +295,15 @@ def make_schedule(cfg: TrainingConfig) -> Callable[[int], float]:
 
 
 def make_optimizer(cfg: TrainingConfig, model_name: str,
-                   params: Iterable[torch.nn.Parameter]) -> torch.optim.AdamW:
-    """AdamW over `params`: the JAX package's transformer recipe. The
-    caller sets each update's lr to make_schedule(cfg)(updates done so
-    far) before `step()` and clips the gradients first."""
-    if model_name.startswith("resnet"):
-        raise KeyError("the SGD-momentum convnet recipe is not ported yet "
-                       "(ROADMAP A13 item 6)")
+                   params: Iterable[torch.nn.Parameter]
+                   ) -> torch.optim.Optimizer:
+    """The JAX package's recipe over `params`: SGD-momentum (nesterov,
+    weight decay on every parameter, BatchNorm's included) for convnets,
+    AdamW for the rest. The caller sets each update's lr to
+    make_schedule(cfg)(updates done so far) before `step()`, and clips
+    the gradients first under AdamW (`uses_sgd`)."""
+    if uses_sgd(model_name):
+        return torch.optim.SGD(params, lr=0.0, momentum=0.9, nesterov=True,
+                               dampening=0.0, weight_decay=cfg.weight_decay)
     return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=cfg.weight_decay)

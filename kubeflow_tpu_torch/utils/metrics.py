@@ -279,6 +279,13 @@ def training_mfu_gauge() -> Gauge:
     )
 
 
+def training_eval_top1_gauge() -> Gauge:
+    """Held-out top-1 accuracy of the last eval pass (`Trainer.fit`)."""
+    return default_registry().gauge(
+        "training_eval_top1", "held-out top-1 accuracy", ["model"]
+    )
+
+
 def training_goodput_gauge() -> Gauge:
     """Fraction of the training wall window spent feeding the device:
     1 minus the host input-wait share per logging window."""
@@ -286,6 +293,35 @@ def training_goodput_gauge() -> Gauge:
         "training_goodput",
         "fraction of training wall time not lost to host-side overheads",
         ["model"],
+    )
+
+
+# -- the :predict path (serving/server.py, serving/batching.py) ---------------
+
+FUSED_BATCH_ROWS_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def serving_predict_histogram() -> Histogram:
+    """Wall seconds of one `ServedModel` predict call (a fused batch's
+    wait included)."""
+    return default_registry().histogram(
+        "serving_predict_seconds", "predict latency", ["model"]
+    )
+
+
+def serving_requests_counter() -> Counter:
+    """`ServedModel` predict calls (each chunk of a request past the
+    largest bucket counts)."""
+    return default_registry().counter(
+        "serving_requests_total", "predict requests", ["model"]
+    )
+
+
+def serving_fused_rows_histogram() -> Histogram:
+    """Rows of each device batch the micro-batcher fused."""
+    return default_registry().histogram(
+        "serving_fused_batch_rows", "rows per fused device batch", ["model"],
+        buckets=FUSED_BATCH_ROWS_BUCKETS,
     )
 
 

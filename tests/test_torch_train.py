@@ -278,14 +278,18 @@ def test_config_refuses_what_it_does_not_honour():
         TrainingConfig.from_dict({"model": "gpt_tiny", "mesh": {"data": 2}})
     with pytest.raises(ConfigError, match="unknown field"):
         TrainingConfig.from_dict({"model": "gpt_tiny", "bogus": 1})
-    with pytest.raises(ConfigError, match="A11"):
+    with pytest.raises(ConfigError, match="A14"):
+        TrainingConfig.from_dict({"model": "gpt_tiny",
+                                  "profiler_logdir": "/tmp/prof"})
+    # eval without a held-out split is refused as in the JAX config
+    with pytest.raises(ConfigError, match="requires a real dataset"):
         TrainingConfig.from_dict({"model": "gpt_tiny",
                                   "data": {"eval_every_steps": 5}})
     with pytest.raises(TypeError):
         TrainingConfig(model="gpt_tiny", mesh={"data": 2})
     with pytest.raises(ConfigError, match="accum_steps"):
         TrainingConfig(model="gpt_tiny", global_batch_size=6, accum_steps=4)
-    with pytest.raises(ConfigError, match="synthetic"):
+    with pytest.raises(ConfigError, match="requires data.path"):
         TrainingConfig(model="gpt_tiny", data={"name": "npz"})
     cfg = TrainingConfig.from_dict({
         "model": "gpt_small", "seq_len": 4096, "global_batch_size": 8,
