@@ -172,6 +172,29 @@ Phases (any failure raises and the script exits non-zero):
    losses and step-4 params equal phase 12's uninterrupted run's, bit for
    bit; train.device_step spans are recorded. The kernels line gives each
    bf16 paged and flash row its `chaos_launches`; a row at 0 fails.
+15. Images (resnet50, bf16): 15a `run_training` at one card's share of
+   configs/resnet50_imagenet_v5e16.yaml (RESNET_CFG), 15b train to
+   accuracy from npz shards through the native reader and a bitwise
+   resume, 15c `:predict_npy` under concurrent clients. None of the
+   attention kernels launches in it (checked).
+16. BERT-base pretraining (BERT_CFG: bert_base bf16, S=512, batch 32,
+   dropout 0.1, AdamW lr 1e-4 with warmup 1, the mlm stream made on the
+   card). Phase 6 also holds the three flash kernels at BERT's call
+   (B=32, S=512, H=12, D=64, bidirectional, unmasked and with a ragged
+   key mask) and times them beside their bound and SDPA (`is_causal=
+   False`, a boolean key mask). 16a: `Trainer.fit` through the flash
+   kernels for 10 steps: every loss finite, input made on the device,
+   each flash kernel launched exactly steps x 12 times; printed:
+   tokens/sec/card, step ms, MFU (`encoder_train_flops`), device busy ms
+   a step and peak memory. 16b: the same weights and batches at dropout
+   0 through flash and dense: one forward and backward on ragged key
+   masks (loss and gradient norm), then 4 steps' losses, within
+   BERT_LOSS_REL / BERT_GRAD_REL; both step times and "auto"'s choice
+   printed. 16c: `run_training` cut to 4 steps with a save every 2,
+   preempted during step 2 and resumed: losses and the step-4 checkpoint
+   bit for bit with dropout 0.1 on. The kernels line gives each flash
+   row its `bert_launches` (16a; a row at 0 fails) and its BERT-call
+   timings (`bert_call`, `bert_call_unmasked`).
 
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
@@ -373,6 +396,40 @@ RESUME_STEPS, RESUME_AT = 4, 2
 ACC_GAP, PREDICT_LOGIT_REL = 0.01, 0.05
 # the :predict_npy load: 4 clients, each 8 requests of 16 images of 224²
 PREDICT_CLIENTS, PREDICT_REQUESTS, PREDICT_ROWS = 4, 8, 16
+# phase 16: bert_base pretraining at the JAX package's own BERT-base step
+# (bench.py:290-316: seq 512, 32 sequences a chip, lr 1e-4, warmup 1,
+# the synthetic mlm stream), bf16, the preset's dropout 0.1, AdamW; the
+# stream is made on the card
+BERT_CFG = dict(
+    model="bert_base", seq_len=512, global_batch_size=32, steps=10,
+    learning_rate=1e-4, warmup_steps=1, dtype="bfloat16",
+    attention_impl="flash", checkpoint={"enabled": False},
+)
+BERT_PROFILED = 3
+# the flash kernels at BERT's call (one layer of a BERT_CFG step), and the
+# ragged key mask's kept lengths: a full row, a row of one key, the rest
+# drawn from a seed (each row keeps at least one key, so flash and dense
+# agree on every row)
+BB, BS, BH, BD = 32, 512, 12, 64
+BERT_LENGTHS = tuple([BS, 1] + [int(n) for n in np.random.default_rng(16)
+                                .integers(1, BS + 1, BB - 2)])
+# 16b: BERT_PARITY_STEPS steps of flash and of dense from one init on the
+# same batches, dropout 0: losses within BERT_LOSS_REL, and one forward
+# and backward on a ragged-mask batch within it (loss) and
+# BERT_GRAD_REL (global gradient norm). bf16: dense rounds QKᵀ and the
+# 1/sqrt(D) scale to bf16 (2^-9 relative each) where flash keeps them in
+# f32, so a score of size |s| moves by up to ~2^-8 |s| and its
+# probability by as much relative; over 12 layers that reaches the logits
+# as noise of a few 2^-8, and the mean over ~2,500 masked tokens and 32
+# NSP rows keeps ~1/sqrt(2,500) of it. The bounds leave that room
+# several times over; a gradient norm sums every element's noise.
+BERT_PARITY_STEPS = 4
+BERT_LOSS_REL, BERT_GRAD_REL = 2e-3, 2e-2
+# 16c: 16a's configuration cut to 4 steps, a save every 2, the second run
+# preempted during step 2 and resumed, at bert_base's dropout
+BERT_CKPT_STEPS, BERT_CKPT_INTERVAL, BERT_CKPT_PREEMPT = 4, 2, 2
+BERT_DROPOUT = 0.1
+
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
     """{(kernel, D): (registers, spill store bytes, spill load bytes)} of
@@ -984,15 +1041,21 @@ def phase_serve_int8(torch, bf16_stats, model="gpt_small", device="cuda",
     return launches, stats, steps
 
 
-def flash_case(torch, dtype, s, with_mask, dev="cuda", seed=0):
-    """q/k/v/dO [FB, s, FH, FD]; with a mask, row 1 keeps its first 3/4."""
+def flash_case(torch, dtype, s, with_mask, dev="cuda", seed=0, b=FB, h=FH,
+               d=FD, lengths=None):
+    """q/k/v/dO [b, s, h, d]; with a mask, row 1 keeps its first 3/4, or
+    with `lengths` row i keeps its first lengths[i] keys."""
     g = torch.Generator().manual_seed(seed)
-    q, k, v, do = (torch.randn((FB, s, FH, FD), generator=g).to(dtype).to(dev)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g).to(dtype).to(dev)
                    for _ in range(4))
     mask = None
     if with_mask:
-        mask = torch.ones((FB, s), dtype=torch.int32)
-        mask[1, (3 * s) // 4:] = 0
+        mask = torch.ones((b, s), dtype=torch.int32)
+        if lengths is None:
+            mask[1, (3 * s) // 4:] = 0
+        else:
+            for row, n in enumerate(lengths):
+                mask[row, n:] = 0
         mask = mask.to(dev)
     return q, k, v, do, mask
 
@@ -1016,60 +1079,73 @@ def flash_err(torch, got, want, name, key):
     return diff.max().item(), worst, typical
 
 
-def flash_bound(kname, mask, s, itemsize, dtype_name):
-    """(bound_ms, bound_by, bytes, ops) of one causal call: ops = c·H·D per
+def flash_bound(kname, mask, s, itemsize, dtype_name, causal=True, b=FB,
+                h=FH, d=FD):
+    """(bound_ms, bound_by, bytes, ops) of one call: ops = c·h·d per
     visible (query, key) pair, c = 4 (QKᵀ, PV), 6 (+dO·Vᵀ, dS·K) or 8
     (QKᵀ, dO·Vᵀ, Pᵀ·dO, dSᵀ·Q); bytes = each input read once and each
-    output written once."""
+    output written once. A causal query sees the keys up to its own, a
+    bidirectional one every key; a key mask hides the padded keys."""
     if mask is None:
-        pairs = FB * s * (s + 1) // 2
+        pairs = b * s * (s + 1) // 2 if causal else b * s * s
     else:
-        # key j is seen by queries j..s-1 when it is not padding
-        m = mask.cpu().numpy()
-        pairs = int(sum((s - np.arange(s))[m[b] != 0].sum() for b in range(FB)))
-    elems = FB * s * FH * FD
-    mask_bytes = 0 if mask is None else 4 * FB * s
-    rows = 4 * FB * FH * s  # one f32 per (b, h, row): lse, delta
+        # key j is seen by queries j..s-1 (causal) or by all s queries
+        # when it is not padding
+        m = mask.cpu().numpy() != 0
+        seen_by = s - np.arange(s) if causal else np.full(s, s)
+        pairs = int(sum(seen_by[m[row]].sum() for row in range(b)))
+    elems = b * s * h * d
+    mask_bytes = 0 if mask is None else 4 * b * s
+    rows = 4 * b * h * s  # one f32 per (b, h, row): lse, delta
     c, n_in, n_out, f32_rows = {
         "flash_fwd": (4, 3, 1, 1),        # q k v → o, lse
         "flash_bwd_dq": (6, 4, 1, 2),     # q k v dO lse delta → dq
         "flash_bwd_dkv": (8, 4, 2, 2),    # q k v dO lse delta → dk dv
     }[kname]
     nbytes = (n_in + n_out) * elems * itemsize + f32_rows * rows + mask_bytes
-    ops = c * pairs * FH * FD
+    ops = c * pairs * h * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
 
 
-def library_flash(torch, q, k, v):
-    """scaled_dot_product_attention(is_causal=True) on [B, H, S, D]: a
-    yardstick timed beside the kernels, never called by the port."""
+def library_flash(torch, q, k, v, causal=True, mask=None):
+    """scaled_dot_product_attention on [B, H, S, D] (`is_causal`, or a
+    boolean key mask broadcast over heads and queries): a yardstick timed
+    beside the kernels, never called by the port."""
+    attn_mask = None if mask is None else (mask != 0)[:, None, None, :]
     return torch.nn.functional.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        attn_mask=attn_mask, is_causal=causal,
     ).transpose(1, 2)
 
 
-def measure_flash(torch, fa, flush, dtype, s, with_mask):
-    """The three flash kernels at (dtype, s, mask) against their plain
-    versions on the same inputs, then their times, bounds and the library
-    yardstick (no-mask calls only: the library's causal call takes no key
-    mask)."""
+def measure_flash(torch, fa, flush, dtype, s, with_mask, causal=True, b=FB,
+                  h=FH, d=FD, lengths=None):
+    """The three flash kernels at (dtype, s, mask, causal, b, h, d)
+    against their plain versions on the same inputs, then their times,
+    bounds and the library yardstick (none for a causal call with a key
+    mask: the library's causal call takes no mask)."""
     name = str(dtype).replace("torch.", "")
     tol = FLASH_ATOL[name]
-    q, k, v, do, mask = flash_case(torch, dtype, s, with_mask)
-    scale = fa.default_scale(FD)
-    o, lse = fa.flash_fwd(q, k, v, mask, True, scale)
-    ro, rlse = fa.flash_attention_reference(q, k, v, mask, True, scale)
+    q, k, v, do, mask = flash_case(torch, dtype, s, with_mask, b=b, h=h, d=d,
+                                   lengths=lengths)
+    scale = fa.default_scale(d)
+    o, lse = fa.flash_fwd(q, k, v, mask, causal, scale)
+    ro, rlse = fa.flash_attention_reference(q, k, v, mask, causal, scale)
     delta = fa.flash_attention_delta(ro, do)
-    dq = fa.flash_bwd_dq(q, k, v, mask, do, rlse, delta, True, scale)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, mask, do, rlse, delta, True, scale)
-    rdq = fa.flash_bwd_dq_reference(q, k, v, mask, do, rlse, delta, True, scale)
-    rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, mask, do, rlse, delta, True,
-                                          scale)
+    dq = fa.flash_bwd_dq(q, k, v, mask, do, rlse, delta, causal, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, mask, do, rlse, delta, causal, scale)
+    rdq = fa.flash_bwd_dq_reference(q, k, v, mask, do, rlse, delta, causal,
+                                    scale)
+    rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, mask, do, rlse, delta,
+                                          causal, scale)
     torch.cuda.synchronize()
-    label = f"{name} B={FB} S={s} H={FH} D={FD} causal mask={with_mask}"
+    form = "causal" if causal else "bidirectional"
+    mask_text = ("ragged key mask" if lengths is not None else
+                 "key mask" if with_mask else "no mask")
+    label = f"{name} B={b} S={s} H={h} D={d} {form} {mask_text}"
     lse_err = (lse - rlse).abs().max().item()
     print(f"flash {label}: lse max_abs_err {lse_err:.3e} (atol {tol['lse']:g})",
           flush=True)
@@ -1094,23 +1170,26 @@ def measure_flash(torch, fa, flush, dtype, s, with_mask):
         errs[kname] = max(errs.get(kname, 0.0), e)
     calls = {
         "flash_fwd": (
-            lambda: fa.flash_fwd(q, k, v, mask, True, scale),
-            lambda: fa.flash_attention_reference(q, k, v, mask, True, scale)),
+            lambda: fa.flash_fwd(q, k, v, mask, causal, scale),
+            lambda: fa.flash_attention_reference(q, k, v, mask, causal,
+                                                 scale)),
         "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(q, k, v, mask, do, rlse, delta, True, scale),
+            lambda: fa.flash_bwd_dq(q, k, v, mask, do, rlse, delta, causal,
+                                    scale),
             lambda: fa.flash_bwd_dq_reference(q, k, v, mask, do, rlse, delta,
-                                              True, scale)),
+                                              causal, scale)),
         "flash_bwd_dkv": (
-            lambda: fa.flash_bwd_dkv(q, k, v, mask, do, rlse, delta, True, scale),
+            lambda: fa.flash_bwd_dkv(q, k, v, mask, do, rlse, delta, causal,
+                                     scale),
             lambda: fa.flash_bwd_dkv_reference(q, k, v, mask, do, rlse, delta,
-                                               True, scale)),
+                                               causal, scale)),
     }
     library = {"flash_fwd": None, "flash_bwd_dq": None, "flash_bwd_dkv": None}
-    if mask is None:
-        library["flash_fwd"] = time_ms(torch, lambda: library_flash(torch, q, k, v),
-                                       flush)
+    if mask is None or not causal:
+        library["flash_fwd"] = time_ms(
+            torch, lambda: library_flash(torch, q, k, v, causal, mask), flush)
         qs, ks, vs = (t.clone().requires_grad_() for t in (q, k, v))
-        out = library_flash(torch, qs, ks, vs)
+        out = library_flash(torch, qs, ks, vs, causal, mask)
         pair = time_ms(torch, lambda: torch.autograd.grad(
             out, (qs, ks, vs), do, retain_graph=True), flush)
         library["flash_bwd_dq"] = library["flash_bwd_dkv"] = pair
@@ -1119,8 +1198,8 @@ def measure_flash(torch, fa, flush, dtype, s, with_mask):
     for kname, (kernel, plain) in calls.items():
         ms = time_ms(torch, kernel, flush)
         plain_ms = time_ms(torch, plain, flush, iters=10)
-        bound_ms, bound_by, nbytes, ops = flash_bound(kname, mask, s,
-                                                      q.element_size(), name)
+        bound_ms, bound_by, nbytes, ops = flash_bound(
+            kname, mask, s, q.element_size(), name, causal, b, h, d)
         lib_ms = library[kname]
         print(f"flash {kname} {label}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)} "
@@ -1137,8 +1216,7 @@ def measure_flash(torch, fa, flush, dtype, s, with_mask):
             "launches": 0, "max_abs_err": errs[kname], "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "dtype": name, "bytes": nbytes, "ops": ops,
-            "shape": (f"B={FB} S={s} H={FH} D={FD} causal, "
-                      f"{'key mask' if with_mask else 'no mask'}"
+            "shape": (f"B={b} S={s} H={h} D={d} {form}, {mask_text}"
                       + ("; library_ms is SDPA's whole backward (dQ, dK, dV)"
                          if kname != "flash_fwd" and lib_ms is not None else "")),
         }
@@ -1148,7 +1226,9 @@ def measure_flash(torch, fa, flush, dtype, s, with_mask):
 def phase_flash(torch):
     """Phase 6: each flash kernel against its plain version at the main
     path's microbatch shape (bf16, S=4096, no mask as the config runs, and
-    with a key mask) and in f32 at S=1024."""
+    with a key mask), in f32 at S=1024, and at BERT's call (bf16, B=32,
+    S=512, bidirectional, without and with a ragged key mask) → (the
+    main path's records, {"bert_call", "bert_call_unmasked": records})."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
 
     flush = torch.empty(2 << 30, dtype=torch.uint8, device="cuda")
@@ -1156,9 +1236,20 @@ def phase_flash(torch):
     measure_flash(torch, fa, flush, torch.bfloat16, FS, True)
     measure_flash(torch, fa, flush, torch.float32, 1024, False)
     measure_flash(torch, fa, flush, torch.float32, 1024, True)
+    # BERT's call (phase 16): bidirectional, unmasked and with a ragged
+    # key mask (phase 16a's batches pass their all-ones mask: the masked
+    # form)
+    bert = {
+        "bert_call_unmasked": measure_flash(
+            torch, fa, flush, torch.bfloat16, BS, False, causal=False, b=BB,
+            h=BH, d=BD),
+        "bert_call": measure_flash(
+            torch, fa, flush, torch.bfloat16, BS, True, causal=False, b=BB,
+            h=BH, d=BD, lengths=BERT_LENGTHS),
+    }
     del flush
     torch.cuda.empty_cache()
-    return main
+    return main, bert
 
 
 def phase_train_f32(torch, model="gpt_small", seq=1024, device="cuda"):
@@ -2809,6 +2900,233 @@ def phase_image(torch, device="cuda"):
         raise AssertionError(f"the image path launched {launched}")
 
 
+# -- phase 16: BERT-base pretraining ----------------------------------------
+
+
+def device_busy_ms(torch, trainer, state, steps, top=6):
+    """(device busy ms a step, the top kernels by device time) over
+    `steps` profiled train steps on the synthetic stream's next batches,
+    after one unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = trainer.task.synthetic_data().device_batch_fn(trainer.device)
+    step = state.step
+    state, _ = trainer.train_step(state, gen(step))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            state, _ = trainer.train_step(state, gen(step + 1 + i))
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    return busy, sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+
+
+def phase_bert_train(torch, overrides=None, device="cuda"):
+    """16a, the main path: `Trainer.fit` of BERT_CFG (bert_base through
+    the flash kernels, dropout 0.1, the mlm stream on the card). Gates:
+    every loss finite, the input made on the device, each flash kernel
+    launched exactly once per layer a step. Prints tokens/sec/card, step
+    ms, MFU, device busy ms a step and peak memory → the launches."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    cfg = TrainingConfig(**{**BERT_CFG, **(overrides or {})})
+    trainer = Trainer(cfg, device=device)
+    layers = trainer.model.cfg.num_layers
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # the main path's run: every launch count starts at 0 here
+    fa.reset_launch_counts()
+    t0 = time.monotonic()
+    metrics = trainer.fit(log_every=cfg.steps)
+    wall = time.monotonic() - t0
+    launches = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    losses = [loss for _, loss in trainer.losses]
+    busy, top = float("nan"), []
+    if cuda:
+        busy, top = device_busy_ms(torch, trainer, trainer._final_state,
+                                   BERT_PROFILED)
+    step_ms = metrics.step_time_s * 1e3
+    print(f"bert 16a ({smi_line() if cuda else device}): {cfg.model} "
+          f"{cfg.dtype} S={cfg.seq_len} batch {cfg.global_batch_size} "
+          f"dropout {trainer.model.cfg.dropout_rate} "
+          f"{cfg.attention_impl}, {cfg.steps} steps in {wall:.3f} s; "
+          f"{metrics.items_per_sec:.1f} tokens/sec/card; steady step "
+          f"{step_ms:.3f} ms (steps 2-{cfg.steps}, one host sync at their "
+          f"end); mfu {metrics.aux.get('mfu')}; compile_s "
+          f"{metrics.aux.get('compile_s')}; device busy {busy:.3f} ms a step "
+          f"= {100 * busy / step_ms:.1f} % of the steady step (idle "
+          f"{100 - 100 * busy / step_ms:.1f} %); max_memory_allocated {peak} B; "
+          f"input {trainer.input_path}", flush=True)
+    print("bert 16a: losses " + json.dumps(losses), flush=True)
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3 / BERT_PROFILED:9.3f} ms "
+              f"a step {e.count / BERT_PROFILED:7.1f}x  {e.key[:80]}",
+              flush=True)
+    want = {name: cfg.steps * layers for name in launches}
+    print(f"bert 16a: launches {launches} (one per layer a step: {want})",
+          flush=True)
+    if len(losses) != cfg.steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"16a: losses {losses}")
+    if trainer.input_path != "device":
+        raise AssertionError(f"16a: batches from {trainer.input_path}")
+    if cuda and launches != want:
+        raise AssertionError(f"16a: launches {launches} != {want}")
+    del trainer, metrics
+    return launches
+
+
+def ragged_batch(torch, batch, lengths):
+    """`batch` with row i's attention mask keeping its first lengths[i]
+    keys."""
+    mask = batch["attention_mask"].clone()
+    for row, n in enumerate(lengths[:mask.shape[0]]):
+        mask[row, n:] = 0
+    return {**batch, "attention_mask": mask}
+
+
+def bert_trainer(torch, cfg, device, dropout_rate):
+    """A Trainer of `cfg` whose model is the config's at `dropout_rate`
+    (the factory's kwargs the trainer would pass, and this rate)."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    model = get_model(cfg.model, dtype=dtype, max_len=cfg.seq_len,
+                      attention_impl=cfg.attention_impl,
+                      dropout_rate=dropout_rate, device=device, seed=cfg.seed)
+    return Trainer(cfg, model=model, device=device)
+
+
+def phase_bert_parity(torch, overrides=None, device="cuda"):
+    """16b: BERT_CFG at dropout 0 through flash and dense from one seeded
+    init: first one forward and backward on a batch with ragged key
+    masks (loss and global gradient norm), then BERT_PARITY_STEPS steps
+    of `Trainer.fit` on the same batches (per-step losses); both within
+    BERT_LOSS_REL / BERT_GRAD_REL. Prints both step times and what
+    "auto" picks at this shape."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops.attention import auto_attention_impl
+
+    runs = {}
+    for impl in ("flash", "dense"):
+        cfg = TrainingConfig(**{**BERT_CFG, "steps": BERT_PARITY_STEPS,
+                                **(overrides or {}), "attention_impl": impl})
+        trainer = bert_trainer(torch, cfg, device, dropout_rate=0.0)
+        state = trainer.init_state()
+        gen = trainer.task.synthetic_data().device_batch_fn(device)
+        # a batch of the stream that no step of the run trains on
+        batch = ragged_batch(torch, gen(10_000), BERT_LENGTHS)
+        fa.reset_launch_counts()
+        loss, _ = trainer.task.loss(state.model, batch)
+        loss.backward()
+        grads = [p.grad.float() for p in state.model.parameters()]
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        ragged = (loss.item(), norm.item())
+        state.optimizer.zero_grad(set_to_none=True)
+        metrics = trainer.fit(state=state, log_every=cfg.steps)
+        runs[impl] = {"ragged": ragged,
+                      "losses": [x for _, x in trainer.losses],
+                      "step_ms": metrics.step_time_s * 1e3,
+                      "launches": dict(fa.launch_counts)}
+        print(f"bert 16b {impl}: ragged-mask loss {ragged[0]!r} grad norm "
+              f"{ragged[1]!r}; losses {runs[impl]['losses']}; steady step "
+              f"{runs[impl]['step_ms']:.3f} ms; launches "
+              f"{runs[impl]['launches']}", flush=True)
+        del trainer, state, batch, grads
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    f, d = runs["flash"], runs["dense"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in
+                   zip(f["losses"] + [f["ragged"][0]],
+                       d["losses"] + [d["ragged"][0]]))
+    grad_gap = abs(f["ragged"][1] - d["ragged"][1]) / abs(d["ragged"][1])
+    b, s = BERT_CFG["global_batch_size"], BERT_CFG["seq_len"]
+    auto = auto_attention_impl(b, s, BH, torch.bfloat16, device=device)
+    print(f"bert 16b ({smi_line() if device == 'cuda' else device}): worst "
+          f"relative loss gap flash vs dense {loss_gap:.3e} (rel "
+          f"{BERT_LOSS_REL:g}); ragged grad norm gap {grad_gap:.3e} (rel "
+          f"{BERT_GRAD_REL:g}); steady step flash {f['step_ms']:.3f} ms, "
+          f"dense {d['step_ms']:.3f} ms; auto picks {auto!r} at B={b} "
+          f"S={s} H={BH}", flush=True)
+    if len(f["losses"]) != len(d["losses"]) or not loss_gap <= BERT_LOSS_REL:
+        raise AssertionError(f"16b: flash and dense losses disagree: {runs}")
+    if not grad_gap <= BERT_GRAD_REL:
+        raise AssertionError(f"16b: flash and dense gradient norms disagree: "
+                             f"{runs}")
+    if device == "cuda" and (min(f["launches"].values()) < 1
+                             or any(d["launches"].values())):
+        raise AssertionError(f"16b: flash launches wrong: {runs}")
+    return auto
+
+
+def phase_bert_ckpt(torch, root, overrides=None, device="cuda"):
+    """16c: `run_training` of BERT_CFG cut to BERT_CKPT_STEPS steps with
+    a save every BERT_CKPT_INTERVAL, once uninterrupted and once
+    preempted during step BERT_CKPT_PREEMPT and resumed. With dropout 0.1
+    on, the resumed run's losses and its last checkpoint (params, AdamW
+    moments, counts) must equal the uninterrupted run's, bit for bit."""
+    from kubeflow_tpu_torch.checkpointing import layout
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+
+    def cfg(name):
+        return TrainingConfig(**{
+            **BERT_CFG, "steps": BERT_CKPT_STEPS, **(overrides or {}),
+            "checkpoint": dict(directory=os.path.join(root, name),
+                               interval_steps=BERT_CKPT_INTERVAL)})
+
+    def run(name, **kw):
+        c = cfg(name)
+        return run_training(c, device=device, log_every=steps, trainer=(
+            bert_trainer(torch, c, device, BERT_DROPOUT)), **kw)
+
+    steps, cut_dir = BERT_CKPT_STEPS, cfg("cut").checkpoint.directory
+    t0 = time.monotonic()
+    whole = run("whole")
+    cut = run("cut", stop_event=StopAfter(BERT_CKPT_PREEMPT - 1))
+    committed = layout.committed_steps(cut_dir)
+    resumed = run("cut", restore=True)
+    print(f"bert 16c: uninterrupted losses {whole['losses']}; preempted "
+          f"{cut['losses']} (final step {cut['final_step']}, committed "
+          f"{committed}); resumed {resumed['losses']}; "
+          f"{time.monotonic() - t0:.3f} s for the three runs", flush=True)
+    if not cut["preempted"] or cut["final_step"] != BERT_CKPT_PREEMPT:
+        raise AssertionError(f"16c: the second run did not stop at step "
+                             f"{BERT_CKPT_PREEMPT}: {cut}")
+    if committed[-1:] != [BERT_CKPT_PREEMPT]:
+        raise AssertionError(f"16c: the preempted run committed {committed}")
+    if (resumed["final_step"] != steps
+            or resumed["losses"] != whole["losses"][BERT_CKPT_PREEMPT:]
+            or cut["losses"] != whole["losses"][:BERT_CKPT_PREEMPT]):
+        raise AssertionError(f"16c: the resumed run's losses differ: "
+                             f"{resumed['losses']} vs {whole['losses']}")
+    n_files = same_step_files(cfg("whole").checkpoint.directory, cut_dir, steps)
+    print(f"bert 16c: step {steps} of both runs holds the same {n_files} "
+          f"shard files (params, AdamW moments, counts), byte for byte, "
+          f"with dropout {BERT_DROPOUT} on", flush=True)
+
+
+def phase_bert(torch, device="cuda"):
+    """Phase 16: BERT-base pretraining (16a, 16b, 16c) → 16a's flash
+    launches."""
+    t16 = time.monotonic()
+    launches = phase_bert_train(torch, device=device)
+    phase_bert_parity(torch, device=device)
+    with tempfile.TemporaryDirectory(prefix="kft-bert-") as root:
+        phase_bert_ckpt(torch, root, device=device)
+    print(f"phase 16: {time.monotonic() - t16:.3f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2863,12 +3181,16 @@ def main() -> int:
         kernels.append(rec)
     torch.cuda.empty_cache()
 
-    flash_records = phase_flash(torch)
+    flash_records, bert_records = phase_flash(torch)
     phase_train_f32(torch)
     torch.cuda.empty_cache()
     train_launches, _ = phase_train_bf16(torch)
     for kname, rec in flash_records.items():
         rec = dict(rec)
+        for key, bert in bert_records.items():
+            rec[key] = {k: bert[kname][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "bytes", "ops", "shape")}
         rec["launches"] = train_launches[kname]
         if rec["launches"] < 1:
             raise AssertionError(f"the training main path never launched {kname}")
@@ -2958,8 +3280,18 @@ def main() -> int:
             if rec["chaos_launches"] < 1:
                 raise AssertionError(f"the chaos path never launched "
                                      f"{rec['name']}")
-    # this slice's path: ResNet-50 training, train to accuracy, :predict
+    # ResNet-50 training, train to accuracy, :predict
     phase_image(torch)
+    torch.cuda.empty_cache()
+    # this slice's path: BERT-base pretraining through the flash kernels'
+    # bidirectional, key-masked calls
+    bert_launches = phase_bert(torch)
+    for rec in kernels:
+        if rec["name"] in bert_launches:
+            rec["bert_launches"] = bert_launches[rec["name"]]
+            if rec["bert_launches"] < 1:
+                raise AssertionError(f"the BERT path never launched "
+                                     f"{rec['name']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

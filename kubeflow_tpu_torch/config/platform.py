@@ -52,7 +52,7 @@ _UNPORTED_SERVING_FIELDS = {
 DTYPES = ("float32", "bfloat16")
 DATASETS = ("synthetic", "blobs", "npz")
 AUGMENTS = ("none", "crop_flip")
-ATTENTION_IMPLS = ("dense", "flash")
+ATTENTION_IMPLS = ("dense", "flash", "auto")
 
 
 class ConfigError(ValueError):
@@ -264,7 +264,8 @@ class TrainingConfig:
     `attention_impl` is the port's own field: the JAX trainer takes the
     model's default ("dense") unless a `sequence` mesh axis switches it
     to ring attention; a one-card port has no mesh, so the choice between
-    "dense" and "flash" (the CUDA kernels) is named here."""
+    "dense", "flash" (the CUDA kernels) and "auto" (ops/attention.py
+    `auto_attention_impl`) is named here."""
 
     model: str = "resnet50"
     global_batch_size: int = 256

@@ -1,0 +1,341 @@
+"""BERT encoder with MLM and next-sentence heads (port of
+kubeflow_tpu/models/bert.py): the source system's BERT-base pretrain
+vehicle.
+
+Parameter names and shapes are the flax tree's (`layers.<i>` for
+`layer_<i>`), so `models/convert.py` moves JAX weights across by name:
+`tok_emb`, `pos_emb`, `seg_emb`, `ln_emb`, per layer
+`attention/{query,key,value,out}` (q/k/v kernels [D, H, Dh] with [H, Dh]
+biases, `out` [H, Dh, D]), `ln_att`, `mlp/{wi,wo}`, `ln_mlp`, then
+`mlm_transform`, `mlm_ln`, `mlm_out`, `pooler` and `nsp_out`.
+
+The dtype flow is the JAX module's. The three embedding lookups sum in
+the compute dtype; `ln_emb` normalizes in f32 and its output is cast to
+the compute dtype before layer 0. Every later LayerNorm returns f32, so
+`x + y` promotes and the residual stream between layers is f32; each
+layer's projections cast it back down. The MLM head runs in the compute
+dtype and casts its logits to f32; `nsp_out` is an f32 Dense on the
+pooled CLS row (returned as `pooled`, in the compute dtype).
+
+Attention is `cfg.attention_impl`: "dense" (`ops/attention.py
+dense_attention`), "flash" (`ops/flash_attention.py`, bidirectional: the
+CUDA forward and backward kernels on the card, their plain versions on
+the CPU) or "auto" (`ops/attention.py auto_attention_impl` at the call's
+shape). `attention_mask=None` stays None down to the kernel, which then
+runs unmasked; a given mask is cast to bool (the kernel takes it as
+int32). Flash and dense differ only on a row with no visible key (flash
+gives 0, dense a uniform mix). `cfg.remat` recomputes each layer in the
+backward, and in train mode `cfg.dropout_rate` drops the attention and
+MLP outputs (`models/layers.py`), drawing masks from the caller's
+`dropout_generator`.
+
+The seeded init follows flax's initializers' distributions from an
+explicit CPU `torch.Generator` (the same weights on every device):
+Dense kernels lecun-normal (a normal truncated at two standard
+deviations, variance 1 / fan-in), `nn.Embed` tables normal with variance
+1 / width, zero biases, LayerNorm scale 1 and bias 0. Like the GPT
+family a model is built frozen in eval mode; `trainable()` turns the f32
+master weights trainable.
+
+Not ported yet: "ring" and "ulysses" attention (ROADMAP A13 item 5),
+the MoE presets (`num_experts > 0`, A13 item 3) and `PipelinedEncoder`
+(`pipeline_stages > 1`, A13 item 4); each raises naming its item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kubeflow_tpu_torch.models.layers import (
+    Dense,
+    Embed,
+    LayerNorm,
+    dropout,
+    remat as remat_fn,
+)
+from kubeflow_tpu_torch.models.registry import register_model
+from kubeflow_tpu_torch.ops.attention import (
+    auto_attention_impl,
+    dense_attention,
+)
+from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
+
+ATTENTION_IMPLS = ("dense", "flash", "auto")
+# the JAX package's other impls, and what they wait for
+_UNPORTED_IMPLS = {
+    "ring": "ROADMAP A13 item 5 (sequence parallelism)",
+    "ulysses": "ROADMAP A13 item 5 (sequence parallelism)",
+}
+# the JAX config's pipeline and expert knobs: only their defaults are
+# ported, anything else raises naming what it waits for
+_PIPELINE = "ROADMAP A13 item 4 (PipelinedEncoder)"
+_MOE = "ROADMAP A13 item 3 (MoE)"
+_UNPORTED_FIELDS = {
+    "pipeline_stages": (1, _PIPELINE), "num_microbatches": (0, _PIPELINE),
+    "pipeline_schedule": ("gpipe", _PIPELINE), "num_experts": (0, _MOE),
+    "moe_top_k": (1, _MOE), "expert_capacity_factor": (1.25, _MOE),
+    "moe_aux_weight": (0.01, _MOE),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_dim: int = 3072
+    max_len: int = 512
+    type_vocab_size: int = 2
+    dropout_rate: float = 0.1
+    dtype: torch.dtype = torch.bfloat16
+    # "dense" | "flash" | "auto"
+    attention_impl: str = "dense"
+    remat: bool = False
+    # the JAX package's pipeline and expert knobs (_UNPORTED_FIELDS)
+    pipeline_stages: int = 1
+    num_microbatches: int = 0
+    pipeline_schedule: str = "gpipe"
+    num_experts: int = 0
+    moe_top_k: int = 1
+    expert_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+
+    def __post_init__(self):
+        if self.attention_impl in _UNPORTED_IMPLS:
+            raise ValueError(
+                f"attention_impl {self.attention_impl!r} is not ported yet "
+                f"({_UNPORTED_IMPLS[self.attention_impl]})"
+            )
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(
+                f"unknown attention_impl {self.attention_impl!r}; known: "
+                f"{ATTENTION_IMPLS}"
+            )
+        for name, (default, item) in _UNPORTED_FIELDS.items():
+            if getattr(self, name) != default:
+                raise ValueError(f"{name}={getattr(self, name)!r} is not "
+                                 f"ported yet ({item})")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+@dataclasses.dataclass
+class _Call:
+    """What every layer of one forward shares: the bool key mask (or
+    None), the resolved attention, and dropout's generator and mode."""
+
+    mask: Optional[torch.Tensor]
+    impl: str
+    generator: Optional[torch.Generator]
+    train: bool
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        d, h, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
+        self.cfg = cfg
+        self.query = Dense((d,), (h, hd), cfg.dtype)
+        self.key = Dense((d,), (h, hd), cfg.dtype)
+        self.value = Dense((d,), (h, hd), cfg.dtype)
+        self.out = Dense((h, hd), (d,), cfg.dtype)
+
+    def forward(self, x, call: _Call):
+        dtype = self.cfg.dtype
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        if call.impl == "flash":
+            out = flash_attention(q, k, v, mask=call.mask).to(dtype)
+        else:
+            out = dense_attention(q, k, v, mask=call.mask, dtype=dtype)
+        return dropout(self.out(out), self.cfg.dropout_rate, call.generator,
+                       not call.train)
+
+
+class Mlp(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.wi = Dense((cfg.hidden_size,), (cfg.mlp_dim,), cfg.dtype)
+        self.wo = Dense((cfg.mlp_dim,), (cfg.hidden_size,), cfg.dtype)
+
+    def forward(self, x, call: _Call):
+        h = self.wo(F.gelu(self.wi(x), approximate="tanh"))
+        return dropout(h, self.cfg.dropout_rate, call.generator,
+                       not call.train)
+
+
+class EncoderLayer(nn.Module):
+    """Post-LN residual layer: f32 LayerNorms over x + y (layer 0's x is
+    in the compute dtype, every later one's f32)."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.attention = SelfAttention(cfg)
+        self.ln_att = LayerNorm(cfg.hidden_size, cfg.dtype)
+        self.mlp = Mlp(cfg)
+        self.ln_mlp = LayerNorm(cfg.hidden_size, cfg.dtype)
+
+    def forward(self, x, call: _Call):
+        x = self.ln_att(x + self.attention(x, call))
+        return self.ln_mlp(x + self.mlp(x, call))
+
+
+def _truncated_normal(shape, gen: torch.Generator) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2] (jax.random.truncated_normal's
+    inverse-CDF construction)."""
+    lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+    u = torch.rand(shape, generator=gen)
+    return math.sqrt(2) * torch.erfinv(lo + (hi - lo) * u)
+
+
+def init_params(model: nn.Module, seed: int) -> None:
+    """flax's initializers' distributions (module docstring), from an
+    explicit CPU torch.Generator."""
+    gen = torch.Generator().manual_seed(int(seed))
+    with torch.no_grad():
+        for module in model.modules():
+            if isinstance(module, Dense):
+                # lecun_normal: variance_scaling(1, fan_in, truncated_normal)
+                std = math.sqrt(1.0 / module.fan_in) / 0.87962566103423978
+                module.kernel.copy_(
+                    _truncated_normal(module.kernel.shape, gen) * std)
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, Embed):
+                # nn.Embed: variance_scaling(1, fan_in, normal, out_axis=0)
+                num, dim = module.embedding.shape
+                module.embedding.copy_(
+                    torch.randn((num, dim), generator=gen) / math.sqrt(dim))
+            elif isinstance(module, LayerNorm):
+                module.scale.fill_(1.0)
+                module.bias.zero_()
+
+
+class Bert(nn.Module):
+    """BERT encoder: embeddings → N post-LN layers → MLM and NSP heads."""
+
+    def __init__(self, cfg: BertConfig, *, device: DeviceLike = None,
+                 seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        d = cfg.hidden_size
+        self.tok_emb = Embed(cfg.vocab_size, d, cfg.dtype)
+        self.pos_emb = Embed(cfg.max_len, d, cfg.dtype)
+        self.seg_emb = Embed(cfg.type_vocab_size, d, cfg.dtype)
+        self.ln_emb = LayerNorm(d, cfg.dtype)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg) for _ in range(cfg.num_layers))
+        self.mlm_transform = Dense((d,), (d,), cfg.dtype)
+        self.mlm_ln = LayerNorm(d, cfg.dtype)
+        self.mlm_out = Dense((d,), (cfg.vocab_size,), cfg.dtype)
+        self.pooler = Dense((d,), (d,), cfg.dtype)
+        self.nsp_out = Dense((d,), (2,), torch.float32)
+        if dev.type != "meta":  # a meta model has shapes only
+            init_params(self, seed)
+        self.to(dev)
+        self.requires_grad_(False)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.mlm_out.kernel.device
+
+    def init_params(self, seed: int) -> None:
+        """The seeded init, in place (`init_params` above)."""
+        init_params(self, seed)
+
+    def trainable(self) -> "Bert":
+        """Make the f32 master weights trainable (train mode); returns
+        self."""
+        self.requires_grad_(True)
+        self.train()
+        return self
+
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                dropout_generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """input_ids [B, S] → {"mlm_logits" f32 [B, S, V], "nsp_logits"
+        f32 [B, 2], "pooled" [B, D] in the compute dtype}.
+        `attention_mask` [B, S] marks the keys to attend (None: all);
+        `token_type_ids` [B, S] default to segment 0. In train mode with
+        `cfg.dropout_rate > 0` dropout draws its masks from
+        `dropout_generator` (on the model's device); under `cfg.remat`
+        and grad mode every layer is recomputed in the backward."""
+        cfg = self.cfg
+        b, s = input_ids.shape
+        mask = None if attention_mask is None else attention_mask.bool()
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        impl = cfg.attention_impl
+        if impl == "auto":
+            impl = auto_attention_impl(b, s, cfg.num_heads, cfg.dtype,
+                                       device=input_ids.device)
+        call = _Call(mask, impl, dropout_generator, self.training)
+        positions = torch.arange(s, device=input_ids.device)[None, :]
+        x = self.tok_emb(input_ids) + self.pos_emb(positions)
+        x = self.ln_emb(x + self.seg_emb(token_type_ids)).to(cfg.dtype)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                x = remat_fn(layer, dropout_generator, x, call)
+            else:
+                x = layer(x, call)
+        h = F.gelu(self.mlm_transform(x), approximate="tanh")
+        logits = self.mlm_out(self.mlm_ln(h)).float()
+        pooled = torch.tanh(self.pooler(x[:, 0]))
+        return {"mlm_logits": logits, "nsp_logits": self.nsp_out(pooled),
+                "pooled": pooled}
+
+
+# -- registry ------------------------------------------------------------------
+
+
+def _build(defaults: dict, kwargs: dict) -> Bert:
+    device = kwargs.pop("device", None)
+    seed = kwargs.pop("seed", 0)
+    cfg = BertConfig(**{**defaults, **kwargs})
+    return Bert(cfg, device=device, seed=seed)
+
+
+@register_model("bert_base")
+def bert_base(**kwargs) -> Bert:
+    return _build({}, kwargs)
+
+
+@register_model("bert_large")
+def bert_large(**kwargs) -> Bert:
+    return _build(dict(hidden_size=1024, num_layers=24, num_heads=16,
+                       mlp_dim=4096), kwargs)
+
+
+@register_model("bert_base_moe")
+def bert_base_moe(**kwargs) -> Bert:
+    """BERT-base with every MLP a Switch MoE: raises (ROADMAP A13 item 3)."""
+    return _build(dict(num_experts=8), kwargs)
+
+
+@register_model("bert_tiny")
+def bert_tiny(**kwargs) -> Bert:
+    """Test-scale config."""
+    return _build(dict(vocab_size=512, hidden_size=64, num_layers=2,
+                       num_heads=4, mlp_dim=128, max_len=128,
+                       dropout_rate=0.0), kwargs)
+
+
+@register_model("bert_tiny_moe")
+def bert_tiny_moe(**kwargs) -> Bert:
+    """Test-scale MoE config: raises (ROADMAP A13 item 3)."""
+    return _build(dict(vocab_size=512, hidden_size=64, num_layers=2,
+                       num_heads=4, mlp_dim=128, max_len=128,
+                       dropout_rate=0.0, num_experts=4), kwargs)

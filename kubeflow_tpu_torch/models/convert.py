@@ -1,5 +1,5 @@
-"""Param bridge: flax param trees ↔ the port's state dicts (GPT, ResNet,
-mlp).
+"""Param bridge: flax param trees ↔ the port's state dicts (GPT, BERT,
+ResNet, mlp).
 
 `params_from_jax` takes the flax tree as nested dicts of numpy arrays (or
 anything `np.asarray` reads), so nothing of JAX crosses into the port.
@@ -8,6 +8,8 @@ Both layouts the JAX package writes are accepted: named blocks
 with a leading [L] axis, kubeflow_tpu/models/gpt.py
 `stack_layer_params`). Kernel shapes carry over unchanged (DenseGeneral
 q/k/v [D, H, Dh], out [H, Dh, D]); the port's modules use flax's names.
+BERT has only the named layout (`layer_<i>/attention/...`, `ln_att`,
+`mlp/{wi,wo}`, `ln_mlp`, and the top-level embeddings and heads).
 
 The image models keep flax's names and shapes too (a conv kernel is
 HWIO, a Dense kernel [in, out]; models/resnet.py permutes to torch's

@@ -9,11 +9,14 @@ names and shapes are the flax tree's (`layers.<i>` for `layer_<i>`), so
 Three forward paths, mirroring the JAX module's three branches:
 
 - `forward`: the full causal pass, the training path. Its attention is
-  `cfg.attention_impl`: "dense" (`ops/attention.py::dense_attention`) or
+  `cfg.attention_impl`: "dense" (`ops/attention.py::dense_attention`),
   "flash" (`ops/flash_attention.py`, the CUDA forward/backward kernels on
-  the card). `cfg.remat` recomputes each block in the backward
-  (`torch.utils.checkpoint`, the JAX `nn.remat`), and `return_hidden`
-  hands the post-LN hidden states to a chunked loss.
+  the card) or "auto" (`ops/attention.py::auto_attention_impl` at the
+  call's shape). `cfg.remat` recomputes each block in the backward
+  (`models/layers.py remat`, the JAX `nn.remat`), `return_hidden` hands
+  the post-LN hidden states to a chunked loss, and in train mode
+  `cfg.dropout_rate` drops attention and MLP outputs (`models/layers.py
+  dropout`, masks from the caller's `dropout_generator`).
 - `prefill` / `decode`: the slot-row KV cache (`SlotCache`) that
   `serving/generate.py` runs — a causal prefill seeds the cache, then
   each decode step writes at the shared cursor and attends over the real
@@ -45,27 +48,30 @@ the JAX package's mixed precision.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from kubeflow_tpu_torch.checkpointing.quantize import (
-    dequantize_leaf,
-    quantize_params_int8,
+from kubeflow_tpu_torch.checkpointing.quantize import quantize_params_int8
+from kubeflow_tpu_torch.models.layers import (
+    QSCALE,
+    Dense,
+    Embed,
+    LayerNorm,
+    dropout,
+    remat as remat_fn,
 )
 from kubeflow_tpu_torch.models.registry import register_model
 from kubeflow_tpu_torch.ops.attention import (
+    auto_attention_impl,
     dense_attention,
     dequant_kv,
     paged_kv_view,
     paged_write,
     paged_write_index,
     quantize_kv,
-    row_stable_matmul,
 )
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.paged_attention import paged_attention
@@ -73,10 +79,9 @@ from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
 PAGED_ATTENTION_IMPLS = ("gather", "kernel")
 QUANTIZE_CHOICES = ("none", "int8")
-GPT_ATTENTION_IMPLS = ("dense", "flash")
+GPT_ATTENTION_IMPLS = ("dense", "flash", "auto")
 # the JAX package's other full-causal impls, and what they wait for
 _UNPORTED_IMPLS = {
-    "auto": "ROADMAP A1: re-measure the dense/flash thresholds on the H100",
     "ring": "ROADMAP A13 item 5 (sequence parallelism)",
     "ulysses": "ROADMAP A13 item 5 (sequence parallelism)",
 }
@@ -92,8 +97,9 @@ class GptConfig:
     max_len: int = 1024
     dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16
-    # "dense" | "flash" (full causal pass only; serving's cached paths
-    # read through their own kernels)
+    # "dense" | "flash" | "auto" (`ops/attention.py auto_attention_impl`
+    # at each forward's shape; full causal pass only: serving's cached
+    # paths read through their own kernels)
     attention_impl: str = "dense"
     remat: bool = False
 
@@ -107,12 +113,6 @@ class GptConfig:
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r}; known: "
                 f"{GPT_ATTENTION_IMPLS}"
-            )
-        if self.dropout_rate > 0:
-            # every GPT preset trains at 0, and the JAX dropout stream
-            # (threefry) cannot be reproduced here
-            raise ValueError(
-                "dropout_rate > 0 is not ported (ROADMAP A11: dropout)"
             )
 
     @property
@@ -198,6 +198,12 @@ class PagedState:
 
 
 class _Causal:
+    """The full causal pass. `train`: dropout draws its masks from
+    `dropout_gen`; the serving contexts below never train."""
+
+    train = False
+    dropout_gen: Optional[torch.Generator] = None
+
     def __init__(self, mask: Optional[torch.Tensor], dtype,
                  impl: str = "dense"):
         self.mask, self.dtype, self.impl = mask, dtype, impl
@@ -230,6 +236,9 @@ class _SlotDecode:
     """Decode step(s) at the shared cursor: write the s new K/V vectors at
     index..index+s-1, attend over real positions <= each query's own."""
 
+    train = False
+    dropout_gen = None
+
     def __init__(self, cache: SlotCache, s: int, dtype):
         self.cache, self.dtype = cache, dtype
         max_len = cache.k.shape[2]
@@ -259,6 +268,9 @@ class _SlotDecode:
 
 class _Paged:
     """Block-paged read/write (the JAX module's paged branch)."""
+
+    train = False
+    dropout_gen = None
 
     def __init__(self, pool: KVPool, paged: PagedState, s: int, dtype):
         if paged.attn_impl not in PAGED_ATTENTION_IMPLS:
@@ -314,99 +326,14 @@ class _Paged:
 
 # -- modules -------------------------------------------------------------------
 
-# suffix of the f32 per-channel scale buffer beside an int8 leaf
-_QSCALE = "_qscale"
-
-
-def _at_use(module: nn.Module, name: str, dtype) -> torch.Tensor:
-    """Leaf `name` of `module` as its point of use reads it: the stored
-    tensor (f32 at rest; the caller casts as before), or on an int8 model
-    the int8 leaf dequantized into the compute dtype with
-    `dequantize_params`' arithmetic."""
-    leaf = getattr(module, name)
-    scale = module._buffers.get(name + _QSCALE)
-    return leaf if scale is None else dequantize_leaf(leaf, scale, dtype)
-
-
-
-class _Dense(nn.Module):
-    """flax Dense/DenseGeneral: `kernel` [*in, *out] (f32 at rest), an
-    optional `bias` [*out]; x @ kernel then + bias, each in the compute
-    dtype (two roundings, as the flax module does). The product is
-    `row_stable_matmul`: on the CPU a row's bits do not depend on how
-    many rows the call folds together (a decode step's row equals the
-    same row of a verify window)."""
-
-    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
-                 dtype, use_bias: bool = True):
-        super().__init__()
-        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
-        self.dtype = dtype
-        self.kernel = nn.Parameter(torch.empty(self.in_shape + self.out_shape))
-        self.bias = (
-            nn.Parameter(torch.empty(self.out_shape)) if use_bias else None
-        )
-
-    def forward(self, x):
-        n_in = len(self.in_shape)
-        lead = x.shape[: x.dim() - n_in]
-        w = _at_use(self, "kernel", self.dtype).to(self.dtype).reshape(
-            math.prod(self.in_shape), math.prod(self.out_shape)
-        )
-        y = row_stable_matmul(x.reshape(lead + (-1,)), w).reshape(
-            lead + self.out_shape
-        )
-        if self.bias is not None:
-            y = y + _at_use(self, "bias", self.dtype).to(self.dtype)
-        return y
-
-
-class _LayerNorm(nn.Module):
-    """flax LayerNorm(dtype=float32): epsilon 1e-6, statistics in f32 by
-    the fast variance (E[x^2] - E[x]^2, floored at 0), f32 output. Its
-    leaves are quantized only when an int8 envelope from the JAX
-    package's scan-stacked layout brings them (there they are [L, D]);
-    dequantized into `dtype`, they enter the f32 math exactly."""
-
-    def __init__(self, dim: int, dtype=torch.float32):
-        super().__init__()
-        self.dtype = dtype
-        self.scale = nn.Parameter(torch.empty(dim))
-        self.bias = nn.Parameter(torch.empty(dim))
-
-    def forward(self, x):
-        x = x.float()
-        mean = x.mean(-1, keepdim=True)
-        var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
-        scale = _at_use(self, "scale", self.dtype).float()
-        bias = _at_use(self, "bias", self.dtype).float()
-        return (x - mean) * (torch.rsqrt(var + 1e-6) * scale) + bias
-
-
-class _Embed(nn.Module):
-    def __init__(self, num: int, dim: int, dtype):
-        super().__init__()
-        self.dtype = dtype
-        self.embedding = nn.Parameter(torch.empty(num, dim))
-
-    def forward(self, ids):
-        scale = self._buffers.get("embedding" + _QSCALE)
-        if scale is not None:
-            # gather the int8 rows, then dequantize: the scale is per
-            # column, so this is the dequantized table's gather, bit for bit
-            return dequantize_leaf(self.embedding[ids], scale, self.dtype)
-        # gather then cast == flax's cast-table-then-gather, bit for bit
-        return F.embedding(ids, self.embedding).to(self.dtype)
-
-
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: GptConfig):
         super().__init__()
         d, h, hd = cfg.hidden_size, cfg.num_heads, cfg.head_dim
-        self.query = _Dense((d,), (h, hd), cfg.dtype)
-        self.key = _Dense((d,), (h, hd), cfg.dtype)
-        self.value = _Dense((d,), (h, hd), cfg.dtype)
-        self.out = _Dense((h, hd), (d,), cfg.dtype)
+        self.query = Dense((d,), (h, hd), cfg.dtype)
+        self.key = Dense((d,), (h, hd), cfg.dtype)
+        self.value = Dense((d,), (h, hd), cfg.dtype)
+        self.out = Dense((h, hd), (d,), cfg.dtype)
 
     def forward(self, x, ctx, layer: int):
         q, k, v = self.query(x), self.key(x), self.value(x)
@@ -419,18 +346,20 @@ class DecoderBlock(nn.Module):
     def __init__(self, cfg: GptConfig):
         super().__init__()
         self.dtype = cfg.dtype
-        self.ln_att = _LayerNorm(cfg.hidden_size, cfg.dtype)
+        self.dropout_rate = cfg.dropout_rate
+        self.ln_att = LayerNorm(cfg.hidden_size, cfg.dtype)
         self.attention = CausalSelfAttention(cfg)
-        self.ln_mlp = _LayerNorm(cfg.hidden_size, cfg.dtype)
-        self.mlp_wi = _Dense((cfg.hidden_size,), (cfg.mlp_dim,), cfg.dtype)
-        self.mlp_wo = _Dense((cfg.mlp_dim,), (cfg.hidden_size,), cfg.dtype)
+        self.ln_mlp = LayerNorm(cfg.hidden_size, cfg.dtype)
+        self.mlp_wi = Dense((cfg.hidden_size,), (cfg.mlp_dim,), cfg.dtype)
+        self.mlp_wo = Dense((cfg.mlp_dim,), (cfg.hidden_size,), cfg.dtype)
 
     def forward(self, x, ctx, layer: int):
         h = self.ln_att(x)
-        x = x + self.attention(h.to(self.dtype), ctx, layer)
+        h = self.attention(h.to(self.dtype), ctx, layer)
+        x = x + dropout(h, self.dropout_rate, ctx.dropout_gen, not ctx.train)
         h = self.mlp_wi(self.ln_mlp(x).to(self.dtype))
         h = self.mlp_wo(F.gelu(h, approximate="tanh"))
-        return x + h
+        return x + dropout(h, self.dropout_rate, ctx.dropout_gen, not ctx.train)
 
 
 def init_params(model: nn.Module, seed: int) -> None:
@@ -457,13 +386,13 @@ class Gpt(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.tok_emb = _Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype)
-        self.pos_emb = _Embed(cfg.max_len, cfg.hidden_size, cfg.dtype)
+        self.tok_emb = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype)
+        self.pos_emb = Embed(cfg.max_len, cfg.hidden_size, cfg.dtype)
         self.layers = nn.ModuleList(
             DecoderBlock(cfg) for _ in range(cfg.num_layers)
         )
-        self.ln_final = _LayerNorm(cfg.hidden_size, cfg.dtype)
-        self.head = _Dense(
+        self.ln_final = LayerNorm(cfg.hidden_size, cfg.dtype)
+        self.head = Dense(
             (cfg.hidden_size,), (cfg.vocab_size,), cfg.dtype, use_bias=False
         )
         # "int8" once `int8_model` has loaded an envelope
@@ -501,26 +430,40 @@ class Gpt(nn.Module):
         )
         for i, block in enumerate(self.layers):
             if remat:
-                x = checkpoint(block, x, ctx, i, use_reentrant=False)
+                x = remat_fn(block, ctx.dropout_gen, x, ctx, i)
             else:
                 x = block(x, ctx, i)
         return self.ln_final(x)
+
+    def _attention_impl(self, input_ids) -> str:
+        """The config's attention, "auto" resolved at this call's shape
+        (`auto_attention_impl`, causal)."""
+        impl = self.cfg.attention_impl
+        if impl != "auto":
+            return impl
+        b, s = input_ids.shape
+        return auto_attention_impl(b, s, self.cfg.num_heads, self.cfg.dtype,
+                                   causal=True, device=input_ids.device)
 
     def _run(self, input_ids, positions, ctx):
         x = self._hidden(input_ids, positions, ctx)
         return self.head(x.to(self.cfg.dtype)).float()
 
-    def forward(self, input_ids, attention_mask=None, return_hidden=False):
+    def forward(self, input_ids, attention_mask=None, return_hidden=False,
+                dropout_generator: Optional[torch.Generator] = None):
         """Full causal pass → f32 logits [B, S, V]. `attention_mask`
         [B, S] marks real tokens (None = no padding, so the flash kernel
         runs unmasked). `return_hidden=True` returns the post-LN f32
         hidden states [B, S, D] instead (the chunked loss streams the
         head itself). Under `cfg.remat` and grad mode every block is
-        recomputed in the backward."""
+        recomputed in the backward. In train mode with
+        `cfg.dropout_rate > 0` dropout draws its masks from
+        `dropout_generator` (on the model's device)."""
         s = input_ids.shape[1]
         mask = None if attention_mask is None else attention_mask.bool()
         positions = torch.arange(s, device=input_ids.device)[None, :]
-        ctx = _Causal(mask, self.cfg.dtype, self.cfg.attention_impl)
+        ctx = _Causal(mask, self.cfg.dtype, self._attention_impl(input_ids))
+        ctx.train, ctx.dropout_gen = self.training, dropout_generator
         remat = self.cfg.remat and torch.is_grad_enabled()
         x = self._hidden(input_ids, positions, ctx, remat=remat)
         if return_hidden:
@@ -557,7 +500,8 @@ class Gpt(nn.Module):
         cache.index = s
         logits = self._run(
             input_ids, positions,
-            _SlotPrefill(cache, mask, self.cfg.dtype, self.cfg.attention_impl),
+            _SlotPrefill(cache, mask, self.cfg.dtype,
+                         self._attention_impl(input_ids)),
         )
         return logits, cache
 
@@ -759,7 +703,7 @@ def int8_model(model: Gpt, envelope: Optional[dict] = None) -> Gpt:
                 raise ValueError(f"int8 envelope: {name} is {value.dtype}")
             module.register_buffer(leaf, value.to(dev, copy=True))
             module.register_buffer(
-                leaf + _QSCALE, scales[name].to(dev, torch.float32, copy=True)
+                leaf + QSCALE, scales[name].to(dev, torch.float32, copy=True)
             )
         else:
             module.register_parameter(leaf, nn.Parameter(

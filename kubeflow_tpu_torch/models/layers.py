@@ -1,0 +1,188 @@
+"""Layers both transformer families share (the port's counterpart of
+kubeflow_tpu/models/layers.py, which holds the JAX package's shared
+layer code): flax's `Dense`/`DenseGeneral`, `LayerNorm` and `Embed` with
+their parameter names, shapes and mixed-precision arithmetic, and
+flax's `Dropout`.
+
+Weights are f32 at rest and cast to the compute dtype at use, as flax's
+`dtype=` does. A GPT serving model may hold a leaf as int8 with an f32
+per-channel scale buffer beside it (`QSCALE`; models/gpt.py
+`int8_model`): `at_use` dequantizes it where it is read.
+
+`dropout` keeps flax's semantics, keep with probability 1 - rate and
+`where(keep, x / (1 - rate), 0)`, and draws its keep mask from an
+explicit `torch.Generator` on x's device (`F.dropout` takes none), so a
+training run is a pure function of (seed, step). JAX's threefry stream
+is not reproduced: the masks are held by distribution and by the port's
+own determinism.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from kubeflow_tpu_torch.checkpointing.quantize import dequantize_leaf
+from kubeflow_tpu_torch.ops.attention import row_stable_matmul
+
+# suffix of the f32 per-channel scale buffer beside an int8 leaf
+QSCALE = "_qscale"
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator],
+            deterministic: bool = False) -> torch.Tensor:
+    """flax `nn.Dropout(rate)(x, deterministic=...)`: the identity when
+    `deterministic` (eval) or `rate == 0`; else each element is kept
+    with probability 1 - rate, scaled by 1 / (1 - rate), and zeroed
+    otherwise. The mask is drawn from `generator` (on x's device), which
+    a training forward must pass."""
+    if deterministic or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError(
+            "dropout needs a torch.Generator in training: pass the "
+            "model's dropout_generator (a run is a function of its seed)")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def at_use(module: nn.Module, name: str, dtype) -> torch.Tensor:
+    """Leaf `name` of `module` as its point of use reads it: the stored
+    tensor (f32 at rest; the caller casts as before), or on an int8 model
+    the int8 leaf dequantized into the compute dtype with
+    `dequantize_params`' arithmetic."""
+    leaf = getattr(module, name)
+    scale = module._buffers.get(name + QSCALE)
+    return leaf if scale is None else dequantize_leaf(leaf, scale, dtype)
+
+
+class Dense(nn.Module):
+    """flax Dense/DenseGeneral: `kernel` [*in, *out] (f32 at rest), an
+    optional `bias` [*out]; the input cast to the compute dtype (flax's
+    `promote_dtype`), x @ kernel then + bias, each in the compute dtype
+    (two roundings, as the flax module does). The product is
+    `row_stable_matmul`: on the CPU a row's bits do not depend on how
+    many rows the call folds together (a decode step's row equals the
+    same row of a verify window)."""
+
+    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
+                 dtype, use_bias: bool = True):
+        super().__init__()
+        self.in_shape, self.out_shape = tuple(in_shape), tuple(out_shape)
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.empty(self.in_shape + self.out_shape))
+        self.bias = (
+            nn.Parameter(torch.empty(self.out_shape)) if use_bias else None
+        )
+
+    @property
+    def fan_in(self) -> int:
+        return math.prod(self.in_shape)
+
+    def forward(self, x):
+        n_in = len(self.in_shape)
+        lead = x.shape[: x.dim() - n_in]
+        w = at_use(self, "kernel", self.dtype).to(self.dtype).reshape(
+            math.prod(self.in_shape), math.prod(self.out_shape)
+        )
+        y = row_stable_matmul(x.to(self.dtype).reshape(lead + (-1,)),
+                              w).reshape(lead + self.out_shape)
+        if self.bias is not None:
+            y = y + at_use(self, "bias", self.dtype).to(self.dtype)
+        return y
+
+
+class LayerNorm(nn.Module):
+    """flax LayerNorm(dtype=float32): epsilon 1e-6, statistics in f32 by
+    the fast variance (E[x^2] - E[x]^2, floored at 0), f32 output. Its
+    leaves are quantized only when an int8 envelope from the JAX
+    package's scan-stacked layout brings them (there they are [L, D]);
+    dequantized into `dtype`, they enter the f32 math exactly."""
+
+    def __init__(self, dim: int, dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.scale = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+
+    def forward(self, x):
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        scale = at_use(self, "scale", self.dtype).float()
+        bias = at_use(self, "bias", self.dtype).float()
+        return (x - mean) * (torch.rsqrt(var + 1e-6) * scale) + bias
+
+
+# a table of at most this many rows takes `_SmallTableLookup`'s gradient
+SMALL_TABLE_ROWS = 16
+
+
+class _SmallTableLookup(torch.autograd.Function):
+    """`F.embedding` whose weight gradient sums each row's positions by
+    a masked reduction, one pass a row. CUDA's embedding backward is not
+    bit for bit reproducible when one row is looked up thousands of
+    times (measured on the H100: BERT's segment table, whose 16,384
+    positions a step all read row 0, gave other bits in 20 of 20
+    repeats), and a resumed run must replay an uninterrupted one bit for
+    bit."""
+
+    @staticmethod
+    def forward(ctx, ids, table):
+        ctx.save_for_backward(ids)
+        ctx.num = table.shape[0]
+        return F.embedding(ids, table)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        flat, rows = ids.reshape(-1, 1), grad.reshape(-1, grad.shape[-1])
+        return None, torch.stack([
+            torch.where(flat == r, rows, torch.zeros_like(rows)).sum(0)
+            for r in range(ctx.num)])
+
+
+class Embed(nn.Module):
+    """flax Embed(dtype=...): `embedding` [num, dim] (f32 at rest); a
+    lookup returns the rows in the compute dtype. A table of at most
+    SMALL_TABLE_ROWS rows takes a reproducible gradient
+    (`_SmallTableLookup`)."""
+
+    def __init__(self, num: int, dim: int, dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = nn.Parameter(torch.empty(num, dim))
+
+    def forward(self, ids):
+        scale = self._buffers.get("embedding" + QSCALE)
+        if scale is not None:
+            # gather the int8 rows, then dequantize: the scale is per
+            # column, so this is the dequantized table's gather, bit for bit
+            return dequantize_leaf(self.embedding[ids], scale, self.dtype)
+        # gather then cast == flax's cast-table-then-gather, bit for bit
+        if self.embedding.shape[0] <= SMALL_TABLE_ROWS:
+            return _SmallTableLookup.apply(ids, self.embedding).to(self.dtype)
+        return F.embedding(ids, self.embedding).to(self.dtype)
+
+
+def remat(fn, generator: Optional[torch.Generator], *args):
+    """`torch.utils.checkpoint` of fn(*args) (the JAX `nn.remat`): fn
+    runs again in the backward, drawing the same dropout masks. The
+    checkpoint's own RNG preservation covers only the default
+    generators, so the explicit `generator`'s state at this call is
+    restored before each run of fn."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    state = generator.get_state()
+
+    def replay(*a):
+        generator.set_state(state)
+        return fn(*a)
+
+    return checkpoint(replay, *args, use_reentrant=False)

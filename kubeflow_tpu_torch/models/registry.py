@@ -20,6 +20,7 @@ def register_model(name: str):
 
 
 def _import_builtin_models() -> None:
+    import kubeflow_tpu_torch.models.bert  # noqa: F401
     import kubeflow_tpu_torch.models.gpt  # noqa: F401
     import kubeflow_tpu_torch.models.mlp  # noqa: F401
     import kubeflow_tpu_torch.models.resnet  # noqa: F401
@@ -27,8 +28,8 @@ def _import_builtin_models() -> None:
 
 def get_model(name: str, **kwargs):
     """Build registry model `name`. kwargs override config fields (e.g.
-    `dtype`, `max_len`, `attention_impl`, `remat` of a GPT as the trainer
-    passes them, `num_classes` and `num_filters` of a ResNet, `hidden`
+    `dtype`, `max_len`, `attention_impl`, `remat` of a GPT or BERT as the
+    trainer passes them, `dropout_rate`, `num_classes` and `num_filters` of a ResNet, `hidden`
     and `in_features` of the mlp) and take `device` (default "cuda"; raises without CUDA unless
     "cpu") and `seed` (the seeded init's torch.Generator seed)."""
     _import_builtin_models()

@@ -12,6 +12,12 @@ is the analytic model-FLOPs count of a decoder-only LM train step
   4·B·H·S²·D forward over the full square, half of it under the causal
   mask, and the backward is twice the forward.
 
+An encoder (BERT) train step (`encoder_train_flops`) counts the same
+way (bench.py's `causal=False` convention): 6 × (the layers' matmul
+parameters, the MLM transform and the MLM head) × tokens, plus
+12·B·H·S²·D per layer for bidirectional attention (the full square).
+The pooler and NSP head (one row a sequence) are not counted.
+
 Recomputation under remat is NOT counted (it is work the model does not
 need), and neither are embeddings, layernorms, softmax or the optimizer.
 Other models (ResNet, the mlp) take the count of
@@ -64,6 +70,16 @@ def lm_train_flops(cfg, batch: int, seq: int) -> float:
     tokens = batch * seq
     attention = 6 * batch * cfg.num_heads * seq * seq * cfg.head_dim
     return 6.0 * matmul_params * tokens + cfg.num_layers * attention
+
+
+def encoder_train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step of a BERT config over batch × seq
+    tokens (the module docstring's count)."""
+    d, f, v = cfg.hidden_size, cfg.mlp_dim, cfg.vocab_size
+    per_layer = 4 * d * d + 2 * d * f  # query, key, value, out + wi, wo
+    matmul_params = cfg.num_layers * per_layer + d * d + d * v  # + MLM head
+    attention = 12 * batch * cfg.num_heads * seq * seq * cfg.head_dim
+    return 6.0 * matmul_params * batch * seq + cfg.num_layers * attention
 
 
 def mfu(flops_per_step: Optional[float], step_time_s: float,

@@ -1,5 +1,6 @@
-"""Dense attention and the paged-KV primitives (port of
-kubeflow_tpu/ops/attention.py: `dense_attention`, `paged_kv_view`,
+"""Dense attention, the "auto" attention policy and the paged-KV
+primitives (port of kubeflow_tpu/ops/attention.py: `dense_attention`,
+`auto_attention_impl`, `paged_kv_view`,
 `paged_kv_update`, `quantize_kv`, `dequant_kv`).
 
 Layouts follow the JAX package: activations [B, S, H, D]; the engine's
@@ -126,6 +127,38 @@ def dense_attention(
     if cpu:
         return row_stable_matmul(probs, v.transpose(1, 2)).transpose(1, 2)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+# the "auto" policy's thresholds, from scripts/torch_attention_sweep.py on
+# an NVIDIA H100 80GB HBM3 at 700 W (fwd+bwd, bf16, [1, S, 12, 64]; the
+# hand-written flash kernels against `dense_attention`): bidirectional
+# flash/dense = 1.51x @512, 2.31x @1k, 3.62x @2k, 5.72x @4k, 10.6x @8k,
+# 11.2x @16k, dense out of memory @32k; causal 1.81x @512 up to 25.7x
+# @16k; at BERT-base's call [32, 512, 12, 64] 4.03x (causal 5.43x).
+# Flash wins at every measured length, so both thresholds sit at the
+# shortest one; below it the choice is unmeasured and stays dense unless
+# the scores outgrow the memory gate.
+_FLASH_MIN_SEQ = 512
+_CAUSAL_FLASH_MIN_SEQ = 512
+# dense's [B, H, S, S] scores (forward + the backward's copy) past this
+# many bytes: flash, as the only memory-feasible choice
+_SCORE_BYTES_LIMIT = 2 << 30
+
+
+def auto_attention_impl(batch: int, seq_len: int, num_heads: int, dtype,
+                        causal: bool = False, device="cuda") -> str:
+    """The "auto" attention policy (the JAX package's, re-measured on the
+    H100; thresholds above): "flash" or "dense" for a call of `batch` x
+    `seq_len` x `num_heads` in `dtype`. Off a CUDA device "dense", as the
+    JAX policy picks dense off its accelerator (the flash kernels exist
+    only on the card)."""
+    if torch.device(device).type != "cuda":
+        return "dense"
+    if seq_len >= (_CAUSAL_FLASH_MIN_SEQ if causal else _FLASH_MIN_SEQ):
+        return "flash"
+    itemsize = max(2, torch.finfo(dtype).bits // 8)
+    score_bytes = 2 * batch * num_heads * seq_len * seq_len * itemsize
+    return "flash" if score_bytes > _SCORE_BYTES_LIMIT else "dense"
 
 
 def paged_kv_view(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:

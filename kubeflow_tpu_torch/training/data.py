@@ -2,11 +2,12 @@
 streams and the host→device copy.
 
 `SyntheticData.batch_at(step)` is the JAX package's numpy stream, bit for
-bit, for the causal-LM ("lm") and image ("image") tasks: a run of the
-port and a run of the JAX trainer fed from `batch_at` see identical
-batches. `device_batch_fn` makes the image task's batches on the card
-(a 64-image 224² f32 batch is 38.5 MB of host normals a step): one
-`torch.Generator` on the batch's device seeded by (seed, step), so
+bit, for the causal-LM ("lm"), masked-LM ("mlm") and image ("image")
+tasks: a run of the port and a run of the JAX trainer fed from
+`batch_at` see identical batches. `device_batch_fn` makes the image and
+MLM tasks' batches on the card (a 64-image 224² f32 batch is 38.5 MB of
+host normals a step): one `torch.Generator` on the batch's device
+seeded by (seed, step), so
 deterministic and resume-safe, though its stream differs from
 `batch_at`'s, as the JAX package's own device stream differs from its
 host stream. `to_device` moves a numpy batch onto the training device:
@@ -21,21 +22,22 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-TASKS = ("lm", "image")
+TASKS = ("lm", "mlm", "image")
+# the MLM stream's masking: a position is masked with this probability,
+# and a masked position's input id becomes MASK_ID ([MASK]-like)
+MLM_MASK_RATE = 0.15
+MASK_ID = 1
 
 
 class SyntheticData:
-    """Deterministic synthetic batches of the causal-LM or image task
-    (the MLM stream waits for its model, ROADMAP A13 item 6)."""
+    """Deterministic synthetic batches of the causal-LM, masked-LM or
+    image task."""
 
     def __init__(self, task: str, global_batch_size: int, seed: int = 0,
                  image_size: int = 224, num_classes: int = 1000,
                  seq_len: int = 128, vocab_size: int = 30522):
         if task not in TASKS:
-            raise ValueError(
-                f"synthetic task {task!r} is not ported yet (only "
-                f"{TASKS}; ROADMAP A13 item 6)"
-            )
+            raise ValueError(f"unknown synthetic task {task!r}; known: {TASKS}")
         self.task = task
         self.global_batch_size = global_batch_size
         self.seed = seed
@@ -58,24 +60,59 @@ class SyntheticData:
                 "label": rng.integers(0, self.num_classes, (b,),
                                       dtype=np.int32),
             }
-        # causal LM: next-token prediction over the full sequence
+        # both LM streams start from uniform ids; the causal LM predicts
+        # the next token over the full sequence
         ids = rng.integers(0, self.vocab_size, (b, self.seq_len), dtype=np.int32)
+        if self.task == "lm":
+            return {
+                "input_ids": ids,
+                "attention_mask": np.ones((b, self.seq_len), dtype=np.int32),
+            }
+        labels = ids.copy()
+        # mask 15 % of positions; unmasked labels are -100 (ignored)
+        mask = rng.random((b, self.seq_len)) < MLM_MASK_RATE
+        labels[~mask] = -100
+        ids[mask] = MASK_ID
         return {
             "input_ids": ids,
             "attention_mask": np.ones((b, self.seq_len), dtype=np.int32),
+            "labels": labels,
+            "nsp_labels": rng.integers(0, 2, (b,), dtype=np.int32),
+        }
+
+    def _generator(self, device: torch.device, step: int) -> torch.Generator:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(self._step_seed(step))
+        return gen
+
+    def _mlm_batch(self, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        """The MLM batch of `batch_at`'s rule, drawn from `gen` on its
+        device."""
+        b = self.global_batch_size
+        dev, shape = gen.device, (b, self.seq_len)
+        ids = torch.randint(0, self.vocab_size, shape, generator=gen, device=dev)
+        mask = torch.rand(shape, generator=gen, device=dev) < MLM_MASK_RATE
+        return {
+            "input_ids": torch.where(mask, MASK_ID, ids),
+            "attention_mask": torch.ones(shape, dtype=torch.long, device=dev),
+            "labels": torch.where(mask, ids, -100),
+            "nsp_labels": torch.randint(0, 2, (b,), generator=gen, device=dev),
         }
 
     def device_batch_fn(self, device) -> Optional[Callable[[int], Dict[str, torch.Tensor]]]:
-        """step → a batch made on `device` (image task; None for the LM
-        stream, which the trainer feeds from `batch_at`, ROADMAP A11)."""
+        """step → a batch made on `device` (image and MLM tasks; None for
+        the LM stream, which the trainer feeds from `batch_at`, ROADMAP
+        A11). Integer arrays come as int64, as `to_device` gives them."""
+        dev = torch.device(device)
+        b = self.global_batch_size
+        if self.task == "mlm":
+            return lambda step: self._mlm_batch(self._generator(dev, step))
         if self.task != "image":
             return None
-        dev = torch.device(device)
-        b, s = self.global_batch_size, self.image_size
+        s = self.image_size
 
         def fn(step: int) -> Dict[str, torch.Tensor]:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(self._step_seed(step))
+            gen = self._generator(dev, step)
             return {
                 "image": torch.randn((b, s, s, 3), generator=gen, device=dev),
                 "label": torch.randint(0, self.num_classes, (b,),

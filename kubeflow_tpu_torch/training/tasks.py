@@ -1,8 +1,13 @@
-"""Task adapters and optimizers (port of kubeflow_tpu/training/tasks.py
-but the MLM task): `cross_entropy` (with label smoothing),
-`ImageClassificationTask` (ResNet and the mlp), `CausalLmTask` (the
-full-logits and the chunked-head losses), `task_for_model` and the two
-optimizer recipes.
+"""Task adapters and optimizers (port of kubeflow_tpu/training/tasks.py):
+`cross_entropy` (with label smoothing), `ImageClassificationTask`
+(ResNet and the mlp), `MlmTask` (BERT's masked-LM + next-sentence
+pretraining), `CausalLmTask` (the full-logits and the chunked-head
+losses), the shared eval statistics of the two LM tasks,
+`task_for_model` and the two optimizer recipes.
+
+A task whose model has dropout takes the step's `dropout_generator` in
+its `loss` and hands it to the model (training/trainer.py makes one a
+step, or one a microbatch, from (seed, step)).
 
 The convnet recipe (`resnet*`), `optax.chain(add_decayed_weights(wd),
 sgd(schedule, momentum=0.9, nesterov=True))`, is `torch.optim.SGD(
@@ -63,6 +68,28 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, labels[..., None])[..., 0]
 
 
+def _masked_token_stats(logits: torch.Tensor, labels: torch.Tensor,
+                        row_valid: torch.Tensor, ignore: int
+                        ) -> Dict[str, torch.Tensor]:
+    """Summable eval statistics over labels != ignore (the MLM and
+    causal-LM tasks'): top-1 numerator and denominator and the loss sum,
+    with `row_valid` masking the padded rows of a ragged final batch."""
+    valid = (labels != ignore).float() * row_valid.float()[:, None]
+    safe = torch.where(labels == ignore, torch.zeros_like(labels), labels)
+    logits = logits.float()
+    correct = ((logits.argmax(-1) == safe).float() * valid).sum()
+    loss_sum = (_nll(logits, safe) * valid).sum()
+    return {"correct": correct, "count": valid.sum(), "loss_sum": loss_sum}
+
+
+def _row_valid(batch: Dict[str, torch.Tensor], rows: int,
+               device) -> torch.Tensor:
+    """The batch's `eval_mask` (real rows of a padded final batch), or
+    every row."""
+    valid = batch.get("eval_mask")
+    return valid if valid is not None else torch.ones(rows, device=device)
+
+
 class ImageClassificationTask:
     """ResNet and the mlp: batch {image [B, H, W, 3], label [B]}; the
     model's BatchNorm running averages move in its training forward."""
@@ -114,12 +141,66 @@ class ImageClassificationTask:
         padded final batch."""
         logits = model(batch["image"], train=False).float()
         labels = batch["label"]
-        valid = batch.get("eval_mask")
-        if valid is None:
-            valid = torch.ones(labels.shape[0], device=logits.device)
+        valid = _row_valid(batch, labels.shape[0], logits.device)
         correct = ((logits.argmax(-1) == labels).float() * valid).sum()
         loss_sum = (_nll(logits, labels) * valid).sum()
         return {"correct": correct, "count": valid.sum(), "loss_sum": loss_sum}
+
+
+class MlmTask:
+    """BERT pretrain: masked-LM + next-sentence losses. Batch
+    {input_ids, attention_mask, labels (-100 off the masked positions),
+    nsp_labels}."""
+
+    name = "mlm"
+
+    def __init__(self, cfg: TrainingConfig, seq_len: int = 128,
+                 vocab_size: int = 30522):
+        self.cfg = cfg
+        self.seq_len = seq_len
+        self.vocab_size = vocab_size
+        # the causal-LM task's contract: a packed batch's all-ones mask
+        # is not passed, so the flash kernel runs unmasked
+        self.assume_full_attention = bool(cfg.assume_full_attention)
+
+    def synthetic_data(self, batch_size: Optional[int] = None) -> SyntheticData:
+        return SyntheticData(
+            "mlm", batch_size or self.cfg.global_batch_size,
+            seed=self.cfg.seed, seq_len=self.seq_len,
+            vocab_size=self.vocab_size,
+        )
+
+    def loss(self, model, batch: Dict[str, torch.Tensor],
+             dropout_generator: Optional[torch.Generator] = None):
+        """(mlm + nsp, {"aux": {mlm_loss, nsp_loss}, "loss_items": 1}).
+        The JAX task reports no item count (the loss mixes two
+        denominators, masked tokens and rows), so the trainer weighs its
+        microbatches equally, as the JAX trainer does."""
+        out = model(
+            batch["input_ids"],
+            attention_mask=None if self.assume_full_attention
+            else batch["attention_mask"],
+            dropout_generator=dropout_generator,
+        )
+        mlm = cross_entropy(out["mlm_logits"], batch["labels"], ignore=IGNORE)
+        nsp = cross_entropy(out["nsp_logits"], batch["nsp_labels"])
+        return mlm + nsp, {
+            "aux": {"mlm_loss": mlm.detach(), "nsp_loss": nsp.detach()},
+            "loss_items": torch.ones((), device=mlm.device),
+        }
+
+    def count_items(self, batch) -> int:
+        # tokens a step: BERT's throughput unit
+        return batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
+
+    def eval_stats(self, model, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """Masked-token top-1 and loss over labels != -100."""
+        out = model(batch["input_ids"], attention_mask=batch["attention_mask"])
+        labels = batch["labels"]
+        return _masked_token_stats(
+            out["mlm_logits"], labels,
+            _row_valid(batch, labels.shape[0], labels.device), IGNORE)
 
 
 def _chunk_nll_sum(h_c, t_c, kernel, compute_dtype):
@@ -202,12 +283,14 @@ class CausalLmTask:
         count = (targets != IGNORE).sum()
         return total / count.clamp_min(1), count
 
-    def loss(self, model, batch: Dict[str, torch.Tensor]):
+    def loss(self, model, batch: Dict[str, torch.Tensor],
+             dropout_generator: Optional[torch.Generator] = None):
         """(loss, {"aux": {}, "loss_items": valid pairs as f32})."""
         chunked = self.loss_chunk and self.loss_chunk > 0
         ids, mask = batch["input_ids"], batch["attention_mask"]
         out = model(ids, attention_mask=None if self.assume_full_attention
-                    else mask, return_hidden=bool(chunked))
+                    else mask, return_hidden=bool(chunked),
+                    dropout_generator=dropout_generator)
         if chunked:
             targets = self._shift_full(ids, mask)
             loss, n_items = self._chunked_lm_loss(
@@ -223,20 +306,29 @@ class CausalLmTask:
     def count_items(self, batch) -> int:
         return batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
 
+    def eval_stats(self, model, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """Next-token top-1 and loss over the valid pairs."""
+        ids, mask = batch["input_ids"], batch["attention_mask"]
+        logits, targets = self._shift(model(ids, attention_mask=mask), ids,
+                                      mask)
+        return _masked_token_stats(
+            logits, targets, _row_valid(batch, targets.shape[0], ids.device),
+            IGNORE)
+
 
 def task_for_model(model_name: str, cfg: TrainingConfig, **kwargs):
     if model_name.startswith("resnet"):
         return ImageClassificationTask(cfg, **kwargs)
+    if model_name.startswith("bert"):
+        return MlmTask(cfg, **kwargs)
     if model_name.startswith("gpt"):
         return CausalLmTask(cfg, **kwargs)
     if model_name.startswith("mlp"):
         kwargs.setdefault("image_size", 8)
         kwargs.setdefault("num_classes", 10)
         return ImageClassificationTask(cfg, **kwargs)
-    raise KeyError(
-        f"no task adapter for model {model_name!r} in the port (the BERT "
-        f"family waits for ROADMAP A13 item 6)"
-    )
+    raise KeyError(f"no task adapter for model {model_name!r}")
 
 
 def uses_sgd(model_name: str) -> bool:

@@ -2,19 +2,23 @@
 card.
 
 `Trainer` builds the model (f32 master weights, trainable, compute in
-`cfg.dtype`), its task (causal LM for the GPT family, image
-classification for ResNet and the mlp) and the recipe's optimizer
-(AdamW, or SGD-momentum for convnets). `train_step` is the JAX
-`step_fn`: the task's augmentation of the batch (a pure function of
-(seed, step), so a resumed run replays the crops), forward and backward
-(gradient accumulation over `accum_steps` microbatches as a Python loop,
-each weighted by its valid next-token count, so the result is the
-full-batch token-mean gradient; refused for a model with batch
-statistics, as in the JAX package), optax's global-norm clip (AdamW
-only), the schedule's lr for this update, one optimizer step. A
-BatchNorm model's running averages move in the training forward (the
-JAX `var_updates`). `evaluate` is a pass over `eval_batches` → top1,
-loss, count. `fit` is `_fit_loop`: the first-step fence (`compile_s`: in
+`cfg.dtype`), its task (causal LM for the GPT family, masked LM for
+BERT, image classification for ResNet and the mlp) and the recipe's
+optimizer (AdamW, or SGD-momentum for convnets). `train_step` is the JAX
+`step_fn`: the model in train mode, the task's augmentation of the
+batch (a pure function of (seed, step), so a resumed run replays the
+crops), forward and backward (gradient accumulation over `accum_steps`
+microbatches as a Python loop, each weighted by the task's item count:
+the causal LM's valid next-token pairs, so the result is the full-batch
+token-mean gradient; refused for a model with batch statistics, as in
+the JAX package), optax's global-norm clip (AdamW only), the schedule's
+lr for this update, one optimizer step. A model with dropout draws its
+masks from one `torch.Generator` on the device a step, or a microbatch,
+seeded by (seed, step, microbatch) (`dropout_seed`; the JAX `fold_in`s
+of the step and the microbatch), so a resumed run replays the same
+masks. A BatchNorm model's running averages move in the training
+forward (the JAX `var_updates`). `evaluate` is a pass over
+`eval_batches` in eval mode → top1, loss, count. `fit` is `_fit_loop`: the first-step fence (`compile_s`: in
 eager PyTorch it fences first-use kernel builds and library warm-up out
 of the throughput windows), the non-finite-loss stop, eval every
 `data.eval_every_steps` and at the end with the early stop at
@@ -34,10 +38,11 @@ Data comes from `datasets.build_data` (synthetic, blobs, npz). Synthetic
 image batches are made on the card (`SyntheticData.device_batch_fn`);
 every other stream is read by step (`batch_at`) and copied host→device
 from pinned memory, `data.prefetch_depth` batches made and enqueued
-ahead of the step that needs them. MFU is the LM's analytic FLOPs, or
-for other models the FLOPs `FlopCounterMode` counts once over one
-forward and backward of the model's shapes on the meta device. Not
-ported yet (ROADMAP A11): `device_batch_fn` for the LM streams, the
+ahead of the step that needs them. Synthetic MLM batches are made on
+the card too. MFU is the LM's or the encoder's analytic FLOPs, or for
+other models the FLOPs `FlopCounterMode` counts once over one forward
+and backward of the model's shapes on the meta device. Not ported yet
+(ROADMAP A11): `device_batch_fn` for the causal-LM stream, the
 `DevicePrefetcher` thread, and the mesh (one card).
 """
 
@@ -57,6 +62,7 @@ from kubeflow_tpu_torch.config.platform import TrainingConfig
 from kubeflow_tpu_torch.models.convert import is_batch_stat
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.observability.mfu import (
+    encoder_train_flops,
     goodput as goodput_fraction,
     lm_train_flops,
     mfu as mfu_fraction,
@@ -85,6 +91,15 @@ from kubeflow_tpu_torch.utils.metrics import (
 log = get_logger(__name__)
 
 MAX_GRAD_NORM = 1.0
+# tags the dropout stream's seeds apart from the data streams'
+_DROPOUT_STREAM = 0x64726F70
+
+
+def dropout_seed(seed: int, step: int, micro: int = 0) -> int:
+    """The 64-bit seed of update `step`'s dropout generator (microbatch
+    `micro` under accumulation): a pure function of (seed, step, micro)."""
+    ss = np.random.SeedSequence([_DROPOUT_STREAM, seed, step, micro])
+    return int(ss.generate_state(1, np.uint64)[0])
 
 
 @dataclasses.dataclass
@@ -140,7 +155,7 @@ class Trainer:
             kwargs: Dict[str, Any] = {}
             if cfg.remat:
                 kwargs["remat"] = True
-            if cfg.model.startswith("gpt"):
+            if cfg.model.startswith(("gpt", "bert")):
                 kwargs["attention_impl"] = cfg.attention_impl
             if cfg.seq_len > 0:
                 kwargs["max_len"] = cfg.seq_len
@@ -181,6 +196,8 @@ class Trainer:
         self.augment_device: Optional[str] = None
         # kft-chaos: the trainer.device_step injection point
         self._chaos = default_chaos()
+        # dropout draws from a generator made for each step
+        self._dropout = getattr(self.model.cfg, "dropout_rate", 0.0) > 0
 
     # ---- state -----------------------------------------------------------
 
@@ -199,6 +216,15 @@ class Trainer:
         rows = next(iter(batch.values())).shape[0] // a
         return [{k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
                 for i in range(a)]
+
+    def _loss_kwargs(self, step: int, micro: int = 0) -> Dict[str, Any]:
+        """The task loss's dropout generator for (step, micro), on the
+        device; nothing for a model without dropout."""
+        if not self._dropout:
+            return {}
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(dropout_seed(self.cfg.seed, step, micro))
+        return {"dropout_generator": gen}
 
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         """One update, in place → (state, {"loss": device scalar}). `batch`
@@ -222,6 +248,7 @@ class Trainer:
             # run replays the same crops
             batch = augment(batch, state.step)
             self.augment_device = batch["image"].device.type
+        model.train()
         params = [p for p in model.parameters() if p.requires_grad]
         opt.zero_grad(set_to_none=True)
         if self.cfg.accum_steps > 1:
@@ -229,8 +256,9 @@ class Trainer:
             # full-batch token-mean gradient even under ragged masks
             loss_sum = torch.zeros((), device=self.device)
             w_sum = torch.zeros((), device=self.device)
-            for sub in self._microbatches(batch):
-                loss_i, out_i = self.task.loss(model, sub)
+            for i, sub in enumerate(self._microbatches(batch)):
+                loss_i, out_i = self.task.loss(
+                    model, sub, **self._loss_kwargs(state.step, i))
                 # tasks without an item count weight microbatches equally
                 w_i = out_i.get("loss_items", torch.ones((), device=self.device))
                 (loss_i * w_i).backward()
@@ -241,7 +269,8 @@ class Trainer:
                 p.grad.div_(w_sum)
             loss = loss_sum / w_sum
         else:
-            loss, _ = self.task.loss(model, batch)
+            loss, _ = self.task.loss(model, batch,
+                                     **self._loss_kwargs(state.step))
             loss.backward()
             loss = loss.detach()
         if self._clip:
@@ -262,6 +291,7 @@ class Trainer:
         mode) → {top1, loss, count}. Each batch's three sums are read on
         the host, as the JAX package reads them."""
         correct = count = loss_sum = 0.0
+        state.model.eval()
         with torch.no_grad():
             for batch_np in eval_data.eval_batches():
                 stats = self.task.eval_stats(
@@ -271,6 +301,7 @@ class Trainer:
                 correct += values[0]
                 count += values[1]
                 loss_sum += values[2]
+        state.model.train()
         count = max(count, 1.0)
         return {"top1": correct / count, "loss": loss_sum / count,
                 "count": count}
@@ -279,8 +310,8 @@ class Trainer:
         """FLOPs of one training step of this model at `batch`'s shapes
         (forward and backward of the task's loss), counted once by
         `FlopCounterMode` on a meta-device twin of the model, so nothing
-        runs on the card and no state moves. The LM keeps its analytic
-        count (`lm_train_flops`)."""
+        runs on the card and no state moves. The LM and the encoder keep
+        their analytic counts (`lm_train_flops`, `encoder_train_flops`)."""
         if self._step_flops is None:
             from torch.utils.flop_counter import FlopCounterMode
 
@@ -446,7 +477,10 @@ class Trainer:
                 t_acct = time.monotonic()
                 if peak is None:
                     flops = None  # no MFU off a listed card
-                elif hasattr(self.task, "vocab_size"):
+                elif getattr(self.task, "name", "") == "mlm":
+                    flops = encoder_train_flops(self.model.cfg,
+                                                *batch_np["input_ids"].shape)
+                elif getattr(self.task, "name", "") == "lm":
                     flops = lm_train_flops(self.model.cfg,
                                            *batch_np["input_ids"].shape)
                 else:

@@ -304,10 +304,25 @@ def test_config_refuses_what_it_does_not_honour():
 
 @pytest.mark.parametrize("impl", ["auto", "ring", "ulysses"])
 def test_unported_attention_and_dropout_raise(impl):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        GptConfig(attention_impl=impl)
-    with pytest.raises(ValueError, match="dropout"):
-        GptConfig(dropout_rate=0.1)
+    """The "auto" policy and dropout are ported: both build and train
+    (through the trainer's per-step generator); ring and ulysses still
+    raise naming ROADMAP."""
+    if impl != "auto":
+        with pytest.raises(ValueError, match="ROADMAP"):
+            GptConfig(attention_impl=impl)
+        return
+    assert GptConfig(attention_impl=impl).attention_impl == "auto"
+    assert GptConfig(dropout_rate=0.1).dropout_rate == 0.1
+    model = get_model("gpt_tiny", dtype=torch.float32, device="cpu",
+                      attention_impl="auto", dropout_rate=0.1)
+    cfg = TrainingConfig(**{**CFG, "steps": 2, "seq_len": SEQ,
+                            "attention_impl": "auto"})
+    tr = Trainer(cfg, model=model, device="cpu")
+    state = tr.init_state()
+    data = tr.task.synthetic_data()
+    losses = [float(tr.train_step(state, data.batch_at(i))[1]["loss"])
+              for i in range(2)]
+    assert all(np.isfinite(losses))
 
 
 def _chip_smoke():
@@ -321,7 +336,8 @@ def _chip_smoke():
 
 def test_chip_smoke_flash_bound_counts_visible_pairs():
     """The bound counts the (query, key) pairs a causal call sees, and
-    under a key mask only the unpadded keys' pairs."""
+    under a key mask only the unpadded keys' pairs; a bidirectional call
+    (BERT's) sees every unpadded key from every query."""
     smoke = _chip_smoke()
     elems = smoke.FB * smoke.FS * smoke.FH * smoke.FD
     want_ms = {"flash_fwd": 0.052, "flash_bwd_dq": 0.078,
@@ -340,6 +356,26 @@ def test_chip_smoke_flash_bound_counts_visible_pairs():
     seen = np.tril(np.ones((s, s), bool))[None] & m[:, None, :]
     _, _, _, ops = smoke.flash_bound("flash_fwd", mask, s, 4, "float32")
     assert ops == 4 * int(seen.sum()) * smoke.FH * smoke.FD
+    # bidirectional (BERT's call): every query sees every unpadded key
+    b, h, d = smoke.BB, smoke.BH, smoke.BD
+    _, _, _, _, ragged = smoke.flash_case(
+        torch, torch.float32, s, True, "cpu", b=b, h=h, d=d,
+        lengths=[min(n, s) for n in smoke.BERT_LENGTHS])
+    keys = int((ragged.numpy() != 0).sum())
+    assert keys == sum(min(n, s) for n in smoke.BERT_LENGTHS)
+    _, _, _, ops = smoke.flash_bound("flash_fwd", ragged, s, 4, "float32",
+                                     causal=False, b=b, h=h, d=d)
+    assert ops == 4 * s * keys * h * d
+    elems = b * smoke.BS * h * d
+    want = {"flash_fwd": (4, 0.03028, "bytes"),
+            "flash_bwd_dq": (6, 0.03908, "operations"),
+            "flash_bwd_dkv": (8, 0.05211, "operations")}
+    for kname, (c, want_ms, want_by) in want.items():
+        ms, by, nbytes, ops = smoke.flash_bound(
+            kname, None, smoke.BS, 2, "bfloat16", causal=False, b=b, h=h, d=d)
+        assert ops == c * b * smoke.BS * smoke.BS * h * d
+        assert by == want_by and nbytes > 4 * elems * 2
+        assert ms == pytest.approx(want_ms, abs=1e-5)
 
 
 def test_chip_smoke_flash_check_holds_each_row_at_its_own_scale():
