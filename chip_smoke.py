@@ -195,6 +195,35 @@ Phases (any failure raises and the script exits non-zero):
    bit for bit with dropout 0.1 on. The kernels line gives each flash
    row its `bert_launches` (16a; a row at 0 fails) and its BERT-call
    timings (`bert_call`, `bert_call_unmasked`).
+17. Data-parallel training through the gang launcher: ranks are
+   subprocesses (`python3 chip_smoke.py --gang-rank`, env from
+   `render_gang_env` on 127.0.0.1 and a free port, each with its own
+   time limit, every rank killed on a failure). 17a: GANG_RESNET_CFG
+   (15a's one-card share of configs/resnet50_imagenet_v5e16.yaml with
+   `mesh: {data: 1}`) through `runtime/launcher.py main` at world 1 over
+   NCCL, 20 steps: the process group's backend nccl, one gradient
+   all-reduce a step, finite losses; images/sec/card and step ms of its
+   last log window (steps 11-20) and device busy (a second, 4-step run,
+   steps 2-4, CUDA activity traced) printed beside 15a's in-process
+   numbers from the same call. 17b: GANG_GPT_CFG (phase 8's configuration, the lm stream
+   made on the card) through the launcher, world 1 over NCCL, 10 steps:
+   nccl, one all-reduce a step, each flash kernel launched its formula's
+   count; tokens/sec/card and MFU beside phase 8's. 17c: two ranks on
+   the one card over gloo (`initialize_from_env(backend="gloo")`; NCCL
+   refuses two ranks on one device): resnet50 at a global batch of 128
+   saved at step 2, and gpt_small at a global batch of 2 at seq 1024,
+   3 steps each, against world-1 runs of the same global batches in
+   this process: losses within GANG_LOSS_REL, the ranks' losses,
+   weights and BatchNorm running averages equal bit for bit, the final
+   weights within GANG_STEP_REL of world 1's as a share of world 1's
+   update over every leaf and GANG_LEAF_STEP_REL at the worst leaf, the
+   averages within GANG_BN_REL of world 1's, the step-2 checkpoint
+   (process_count 2) resumed at world 1 to a step-3 loss within
+   GANG_LOSS_REL of the gang's. 17d: 15b's npz blobs host-fed at prefetch depth 0 and
+   PREFETCH_DEPTH (the DevicePrefetcher's thread and side stream),
+   twice each, deterministic cuDNN: losses and weights bit for bit; the
+   train.host_wait share of each run printed. The kernels line gives
+   each flash row its `dp_launches` (17b; a row at 0 fails).
 
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
@@ -207,6 +236,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -429,6 +459,50 @@ BERT_LOSS_REL, BERT_GRAD_REL = 2e-3, 2e-2
 # preempted during step 2 and resumed, at bert_base's dropout
 BERT_CKPT_STEPS, BERT_CKPT_INTERVAL, BERT_CKPT_PREEMPT = 4, 2, 2
 BERT_DROPOUT = 0.1
+# phase 17: the gang launcher (runtime/launcher.py, one subprocess a rank,
+# render_gang_env's env on 127.0.0.1). 17a: 15a's configuration (one
+# card's share of configs/resnet50_imagenet_v5e16.yaml) and 17b: phase
+# 8's (configs/gpt_longcontext_v5e16.yaml), at world 1
+# over NCCL. The launcher logs a window every 10 steps and reports the
+# last: 17a runs 20 (steps 11-20 reported; a second run of 4 steps is
+# profiled), 17b 10 (2-10)
+GANG_RESNET_CFG = dict(RESNET_CFG, steps=20, mesh={"data": 1})
+GANG_GPT_CFG = dict(TRAIN_CFG, steps=10, mesh={"data": 1})
+# a rank's own time limit (its process's start, kernel loads and run)
+GANG_RANK_TIMEOUT_S = 300
+# 17c: two ranks on the one card over gloo (NCCL refuses two ranks on one
+# device): resnet50 at a global batch of 128 (64 a rank; 15a's recipe,
+# its lr scaled to the batch) saved at step 2, and gpt_small at a global
+# batch of 2 at seq 1024 (one sequence a rank, dropout 0), 3 steps each,
+# against world-1 runs of the same global batches. bf16 rounds each
+# activation to 2^-8 relative, and the gang's batch statistics and
+# gradient sums add in another order than one card's. Read on an H100
+# 80GB HBM3 at 700 W (the same in two calls): losses within 2.2e-05
+# (resnet50) and 3.1e-05 (gpt_small) of world 1's, a restored run's
+# step-3 loss within 1.3e-06; the final weights' gap to world 1's over
+# world 1's update 1.4e-02 (resnet50) and 3.3e-02 (gpt_small) over every
+# leaf, 0.20 at resnet50's worst leaf (a late BatchNorm bias, whose
+# gradient is a sum that nearly cancels) and 0.12 at gpt_small's; running
+# averages within 1.1e-03 of a leaf's largest. A wrong gradient step
+# reads far wider: a rank that skips the all-reduce steps on half the
+# batch (and the ranks differ), a doubled or halved SGD step, or a leaf
+# whose update is lost, read 0.5 or more of the update
+GANG2_STEPS, GANG2_SAVE = 3, 2
+GANG2_RESNET_CFG = dict(
+    model="resnet50", global_batch_size=128, steps=GANG2_STEPS,
+    learning_rate=0.4 * 128 / 1024, warmup_steps=1, weight_decay=1e-4,
+    label_smoothing=0.1, dtype="bfloat16", data={"augment": "crop_flip"},
+)
+GANG2_GPT_CFG = dict(
+    model="gpt_small", seq_len=1024, global_batch_size=2, steps=GANG2_STEPS,
+    learning_rate=3e-4, warmup_steps=1, weight_decay=0.1, dtype="bfloat16",
+    attention_impl="flash", checkpoint={"enabled": False},
+)
+GANG_LOSS_REL, GANG_BN_REL = 1e-3, 5e-2
+GANG_STEP_REL, GANG_LEAF_STEP_REL = 0.1, 0.5
+# 17d: 15b's npz blobs host-fed at depth 0 and PREFETCH_DEPTH
+PREFETCH_DEPTH = 2
+PREFETCH_CFG = dict(ACCURACY_CFG, steps=20)
 
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
@@ -2593,6 +2667,8 @@ def phase_resnet_train(torch, device="cuda"):
                              f"on {trainer.augment_device}")
     del trainer, state
     torch.cuda.empty_cache()
+    return {"images_per_sec": result["items_per_sec"], "step_ms": step_ms,
+            "busy_ms": busy}
 
 
 def write_blob_shards(root):
@@ -2882,14 +2958,14 @@ def phase_predict_load(torch, model, device="cuda"):
 
 def phase_image(torch, device="cuda"):
     """Phase 15: the image path (15a, 15b, 15c); none of the attention
-    kernels runs in it."""
+    kernels runs in it. → 15a's images/sec, step and busy ms."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.ops import paged_attention as pa
 
     fa.reset_launch_counts()
     pa.reset_launch_counts()
     t15 = time.monotonic()
-    phase_resnet_train(torch, device)
+    resnet = phase_resnet_train(torch, device)
     with tempfile.TemporaryDirectory(prefix="kft-resnet-") as root:
         model, val, top1 = phase_resnet_accuracy(torch, root, device)
         phase_resnet_predict(torch, model, val, top1, device)
@@ -2898,6 +2974,7 @@ def phase_image(torch, device="cuda"):
           f"launches {json.dumps(launched)}", flush=True)
     if any(launched.values()):
         raise AssertionError(f"the image path launched {launched}")
+    return resnet
 
 
 # -- phase 16: BERT-base pretraining ----------------------------------------
@@ -3127,6 +3204,426 @@ def phase_bert(torch, device="cuda"):
     return launches
 
 
+# -- phase 17: data-parallel training through the gang launcher ------------
+
+
+def gang_rank() -> int:
+    """One rank of a phase-17 gang (`python3 chip_smoke.py --gang-rank`,
+    the rendered KFT_* env, the job in KFT_SMOKE_JOB). mode "launcher":
+    `runtime/launcher.py main --config <job config>` with the flash launch
+    counts set to 0 just before and read just after (and, with "profile",
+    the device's kernel time over steps 2..1+RESNET_PROFILED, CUDA
+    activity only). mode
+    "trainer": `initialize_from_env(backend=...)` (gloo: two ranks on one
+    card), then the launcher's own steps, `Trainer` and `run_training`,
+    and this rank's BatchNorm running averages saved beside "out".
+    Prints one line "GANG {...}" after the launcher's result line."""
+    import torch
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import distributed as gd
+
+    job = json.loads(os.environ["KFT_SMOKE_JOB"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = bool(job.get("cudnn_benchmark"))
+    report = {"rank": int(os.environ.get("KFT_PROCESS_ID", "0"))}
+    if job["mode"] == "launcher":
+        from kubeflow_tpu_torch.runtime import launcher
+        from kubeflow_tpu_torch.training.trainer import Trainer
+
+        prof, calls = None, [0]
+        if job.get("profile"):
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            first_step = Trainer.train_step
+
+            def train_step(self, state, batch):
+                out = first_step(self, state, batch)
+                calls[0] += 1
+                if calls[0] in (1, 1 + RESNET_PROFILED):
+                    # steps 2..1+RESNET_PROFILED, after the first
+                    torch.cuda.synchronize()
+                    (prof.start if calls[0] == 1 else prof.stop)()
+                return out
+
+            Trainer.train_step = train_step
+        # the main path's run: every launch count starts at 0 here
+        fa.reset_launch_counts()
+        rc = launcher.main(["--config", job["config"]])
+        report["launches"] = dict(fa.launch_counts)
+        if prof is not None:
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            report["busy_ms"] = (sum(e.self_device_time_total for e in events)
+                                 / 1e3 / RESNET_PROFILED)
+    else:
+        from kubeflow_tpu_torch.config.platform import TrainingConfig
+        from kubeflow_tpu_torch.runtime.train_run import run_training
+        from kubeflow_tpu_torch.training.trainer import Trainer
+
+        gd.initialize_from_env(backend=job["backend"])
+        report["backend"] = torch.distributed.get_backend()
+        dev = gd.gang_device()
+        with open(job["config"]) as f:
+            cfg = TrainingConfig.from_dict(json.load(f))
+        trainer = Trainer(cfg, device=dev)
+        fa.reset_launch_counts()
+        result = run_training(cfg, device=dev, trainer=trainer,
+                              log_every=cfg.steps)
+        report["launches"] = dict(fa.launch_counts)
+        report["result"] = result
+        report["device"] = str(dev)
+        model = trainer._final_state.model
+        torch.save(model_arrays(model), f"{job['out']}.{report['rank']}.pt")
+        gd.shutdown()
+        rc = 0
+    print("GANG " + json.dumps(report), flush=True)
+    return rc
+
+
+def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
+    """Start `world` ranks of `python3 chip_smoke.py --gang-rank` with
+    render_gang_env's env (127.0.0.1 and a free port), each with its own
+    time limit; → [(launcher result or None, GANG report)] in rank order.
+    Any failure kills every rank and raises."""
+    import socket
+
+    from kubeflow_tpu_torch.parallel.distributed import render_gang_env
+
+    root = job.pop("root")
+    cfg_path = os.path.join(root, f"{name}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    envs = render_gang_env(name, hosts or ["127.0.0.1"] * world,
+                           coordinator_port=port)
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, outs = [], []
+    t0 = time.monotonic()
+    try:
+        for e in envs:
+            env = dict(os.environ, **e, KFT_SMOKE_JOB=json.dumps(
+                {"mode": mode, "config": cfg_path,
+                 "out": os.path.join(root, name), **job}))
+            env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(here, "chip_smoke.py"),
+                 "--gang-rank"], env=env, cwd=here, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        for p in procs:
+            out, err = p.communicate(timeout=GANG_RANK_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"17 {name}: a rank exited "
+                                     f"{p.returncode}:\n{err[-6000:]}")
+            lines = out.splitlines()
+            result = [json.loads(ln) for ln in lines if ln.startswith('{"job"')]
+            gang = [json.loads(ln[5:]) for ln in lines if ln.startswith("GANG ")]
+            outs.append((result[-1] if result else None, gang[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"gang 17 {name}: {world} rank(s) in {time.monotonic() - t0:.3f} s "
+          f"(process start to exit)", flush=True)
+    return outs
+
+
+def phase_gang_world1(torch, root, image_ref, lm_ref, layers):
+    """17a and 17b: the launcher at world 1 over NCCL. → 17b's launches.
+    17a's throughput comes from an unprofiled run and its device busy
+    time from a second, short one: a window after a profiled one ran
+    slower (CUPTI stays attached), so one run cannot give both."""
+    (res, _), = run_gang(torch, "resnet", GANG_RESNET_CFG, 1, root=root,
+                         cudnn_benchmark=True)
+    (_, rep), = run_gang(torch, "resnet-profiled", dict(
+        GANG_RESNET_CFG, steps=1 + RESNET_PROFILED), 1, root=root,
+        profile=True, cudnn_benchmark=True)
+    steps = GANG_RESNET_CFG["steps"]
+    step_ms = res["step_time_s"] * 1e3
+    print(f"gang 17a ({smi_line()}): resnet50 bf16 224² batch "
+          f"{GANG_RESNET_CFG['global_batch_size']} through the launcher, world "
+          f"{res['world_size']} over {res['backend']}: "
+          f"{res['items_per_sec']:.1f} images/sec/card, steady step "
+          f"{step_ms:.3f} ms (steps 11-{steps}), device busy "
+          f"{rep['busy_ms']:.3f} ms a step (a second run's steps "
+          f"2-{1 + RESNET_PROFILED}, CUDA activity traced) = "
+          f"{100 * rep['busy_ms'] / step_ms:.1f} %, mfu {res.get('mfu')}; "
+          f"in process (15a, this call): {image_ref['images_per_sec']:.1f} "
+          f"images/sec/card, step {image_ref['step_ms']:.3f} ms, busy "
+          f"{image_ref['busy_ms']:.3f} ms; the launcher's run over the "
+          f"in-process one: {res['items_per_sec'] / image_ref['images_per_sec']:.4f}x "
+          f"images/sec; gradient all-reduces {res['grad_allreduces']}",
+          flush=True)
+    if res["backend"] != "nccl" or res["world_size"] != 1:
+        raise AssertionError(f"17a: backend {res['backend']}, world "
+                             f"{res['world_size']}")
+    if res["grad_allreduces"] != steps or res["final_step"] != steps:
+        raise AssertionError(f"17a: {res['grad_allreduces']} all-reduces in "
+                             f"{res['final_step']} of {steps} steps")
+    if not all(np.isfinite(loss) for _, loss in res["losses"]):
+        raise AssertionError(f"17a: losses {res['losses']}")
+
+    (res, rep), = run_gang(torch, "gpt", GANG_GPT_CFG, 1, root=root)
+    cfg = GANG_GPT_CFG
+    a, r = cfg["accum_steps"], 2 if cfg["remat"] else 1
+    want = {"flash_fwd": cfg["steps"] * layers * a * r,
+            "flash_bwd_dq": cfg["steps"] * layers * a,
+            "flash_bwd_dkv": cfg["steps"] * layers * a}
+    launches = rep["launches"]
+    print(f"gang 17b ({smi_line()}): gpt_small bf16 seq {cfg['seq_len']} batch "
+          f"{cfg['global_batch_size']} in {a} microbatches, the lm stream made "
+          f"on the card, through the launcher, world {res['world_size']} over "
+          f"{res['backend']}: {res['items_per_sec']:.1f} tokens/sec/card, "
+          f"steady step {res['step_time_s'] * 1e3:.3f} ms, mfu "
+          f"{res.get('mfu')}; in process (phase 8, this call): "
+          f"{lm_ref['items_per_sec']:.1f} tokens/sec/card, step "
+          f"{lm_ref['step_time_s'] * 1e3:.3f} ms, mfu {lm_ref.get('mfu')}; "
+          f"gradient all-reduces {res['grad_allreduces']}; flash launches "
+          f"{launches} (formula {want})", flush=True)
+    if res["backend"] != "nccl" or res["grad_allreduces"] != cfg["steps"]:
+        raise AssertionError(f"17b: backend {res['backend']}, "
+                             f"{res['grad_allreduces']} all-reduces")
+    if launches != want:
+        raise AssertionError(f"17b: launches {launches} != {want}")
+    if not all(np.isfinite(loss) for _, loss in res["losses"]):
+        raise AssertionError(f"17b: losses {res['losses']}")
+    return launches
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def model_arrays(model):
+    """{"params", "buffers"}: a model's leaves, on the host."""
+    return {"params": {n: p.detach().cpu() for n, p in
+                       model.named_parameters()},
+            "buffers": {n: b.detach().cpu() for n, b in
+                        model.named_buffers()}}
+
+
+def ranks_equal(torch, ranks):
+    """Whether every rank's parameters and buffers are bit for bit rank
+    0's."""
+    return all(torch.equal(r[k][n], ranks[0][k][n]) for r in ranks[1:]
+               for k in ("params", "buffers") for n in ranks[0][k])
+
+
+def update_gap(gang, one, init, skip=()):
+    """How far the gang's final weights stray from world 1's, as a share
+    of world 1's own update (Frobenius norms): (over every leaf at once,
+    the worst leaf's, that leaf)."""
+    worst, leaf, gaps, moves = 0.0, None, 0.0, 0.0
+    for n, w in one.items():
+        if n.endswith(skip):
+            continue
+        gap = float((gang[n] - w).norm())
+        moved = float((w - init[n]).norm())
+        gaps, moves = gaps + gap ** 2, moves + moved ** 2
+        rel = gap / moved if moved else (0.0 if gap == 0 else float("inf"))
+        if rel >= worst:
+            worst, leaf = rel, n
+    return (gaps / moves) ** 0.5, worst, leaf
+
+
+def phase_gang_two_ranks(torch, root):
+    """17c: two ranks on the one card over gloo (`initialize_from_env(
+    backend="gloo")`; the two "hosts" name the same machine, so each rank
+    is local rank 0 on cuda:0) against world-1 runs of the same global
+    batches in this process."""
+    from kubeflow_tpu_torch.checkpointing import layout
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    hosts = ["127.0.0.1", "localhost"]
+    ckpt = os.path.join(root, "gang-ckpt")
+    gang_cfg = dict(GANG2_RESNET_CFG, mesh={"data": 2}, checkpoint={
+        "directory": ckpt, "interval_steps": GANG2_SAVE, "keep": 10,
+        "async_save": False})
+    outs = run_gang(torch, "resnet2", gang_cfg, 2, mode="trainer",
+                    hosts=hosts, root=root, backend="gloo")
+    reps = [rep for _, rep in outs]
+    gang_losses = [loss for _, loss in reps[0]["result"]["losses"]]
+    ranks = [torch.load(os.path.join(root, f"resnet2.{r}.pt")) for r in (0, 1)]
+    bufs = ranks[0]["buffers"]
+    # world 1, the same global batch of 128, in this process
+    cfg1 = TrainingConfig(**dict(GANG2_RESNET_CFG,
+                                 checkpoint={"enabled": False}))
+    tr1 = Trainer(cfg1, device="cuda")
+    init = model_arrays(tr1.init_state().model)["params"]
+    one = run_training(cfg1, device="cuda", trainer=tr1,
+                       log_every=cfg1.steps)
+    one_losses = [loss for _, loss in one["losses"]]
+    one_arrays = model_arrays(tr1._final_state.model)
+    one_bufs = one_arrays["buffers"]
+    del tr1
+    torch.cuda.empty_cache()
+    # world 1 restores the gang's step-2 checkpoint (rank 0 wrote it)
+    only2 = os.path.join(root, "gang-ckpt-2")
+    shutil.copytree(ckpt, only2)
+    for s in layout.committed_steps(only2):
+        if s != GANG2_SAVE:
+            shutil.rmtree(layout.step_dir(only2, s))
+    manifest = layout.read_manifest(layout.step_dir(only2, GANG2_SAVE))
+    cfg_r = TrainingConfig(**dict(GANG2_RESNET_CFG, checkpoint={
+        "directory": only2, "async_save": False}))
+    resumed = run_training(cfg_r, restore=True, device="cuda",
+                           log_every=cfg_r.steps)
+    torch.cuda.empty_cache()
+    same_ranks = ranks_equal(torch, ranks)
+    bn_gap = max(float((bufs[n] - one_bufs[n]).abs().max()
+                       / one_bufs[n].abs().max().clamp_min(1e-12))
+                 for n in one_bufs)
+    step_gap, leaf_gap, step_leaf = update_gap(
+        ranks[0]["params"], one_arrays["params"], init)
+    loss_gap = max(_rel(a, b) for a, b in zip(gang_losses, one_losses))
+    resume_gap = _rel(resumed["losses"][0][1], gang_losses[-1])
+    print(f"gang 17c ({smi_line()}): resnet50 bf16 global batch "
+          f"{GANG2_RESNET_CFG['global_batch_size']} on 2 ranks of one card "
+          f"over {reps[0]['backend']} ({reps[0]['device']}, "
+          f"{reps[1]['device']}): losses {gang_losses} against world 1's "
+          f"{one_losses} (worst rel {loss_gap:.3e}, bound {GANG_LOSS_REL:g}); "
+          f"weights and BatchNorm running averages equal across the ranks: "
+          f"{same_ranks}; final weights' gap to world 1's over world 1's "
+          f"update {step_gap:.3e} over every leaf (bound {GANG_STEP_REL:g}), "
+          f"{leaf_gap:.3e} at the worst leaf ({step_leaf}; bound "
+          f"{GANG_LEAF_STEP_REL:g}); running averages' worst gap to world 1 "
+          f"{bn_gap:.3e} of a leaf's largest (bound {GANG_BN_REL:g}); checkpoint of step {GANG2_SAVE}: process_count "
+          f"{manifest['process_count']}, resumed at world 1 to step-3 loss "
+          f"{resumed['losses'][0][1]} against the gang's {gang_losses[-1]} "
+          f"(rel {resume_gap:.3e}); gradient all-reduces "
+          f"{[rep['result']['grad_allreduces'] for rep in reps]}", flush=True)
+    if [rep["backend"] for rep in reps] != ["gloo", "gloo"]:
+        raise AssertionError(f"17c: backends {[r['backend'] for r in reps]}")
+    if reps[0]["result"]["losses"] != reps[1]["result"]["losses"]:
+        raise AssertionError("17c: the ranks' losses differ")
+    if len(gang_losses) != GANG2_STEPS or not loss_gap <= GANG_LOSS_REL:
+        raise AssertionError(f"17c resnet: losses {gang_losses} vs {one_losses}")
+    if not same_ranks or not bn_gap <= GANG_BN_REL:
+        raise AssertionError(f"17c: weights and running averages (ranks "
+                             f"equal {same_ranks}, gap {bn_gap})")
+    if not (step_gap <= GANG_STEP_REL and leaf_gap <= GANG_LEAF_STEP_REL):
+        raise AssertionError(f"17c resnet: weights {step_gap} of the update "
+                             f"from world 1's, {leaf_gap} at {step_leaf}")
+    if manifest["process_count"] != 2 or not resume_gap <= GANG_LOSS_REL:
+        raise AssertionError(f"17c: checkpoint resume {resumed['losses']}")
+
+    gpt_cfg = dict(GANG2_GPT_CFG, mesh={"data": 2})
+    outs = run_gang(torch, "gpt2", gpt_cfg, 2, mode="trainer", hosts=hosts,
+                    root=root, backend="gloo")
+    reps = [rep for _, rep in outs]
+    gang_losses = [loss for _, loss in reps[0]["result"]["losses"]]
+    ranks = [torch.load(os.path.join(root, f"gpt2.{r}.pt")) for r in (0, 1)]
+    cfg1 = TrainingConfig(**GANG2_GPT_CFG)
+    tr1 = Trainer(cfg1, device="cuda")
+    init = model_arrays(tr1.init_state().model)["params"]
+    one = run_training(cfg1, device="cuda", trainer=tr1,
+                       log_every=cfg1.steps)
+    one_params = model_arrays(tr1._final_state.model)["params"]
+    del tr1
+    torch.cuda.empty_cache()
+    one_losses = [loss for _, loss in one["losses"]]
+    loss_gap = max(_rel(a, b) for a, b in zip(gang_losses, one_losses))
+    same_ranks = ranks_equal(torch, ranks)
+    # the attention key bias's true gradient is 0 (softmax ignores a
+    # shift shared by a query's keys): AdamW steps it on summation noise
+    step_gap, leaf_gap, step_leaf = update_gap(
+        ranks[0]["params"], one_params, init, skip=("attention.key.bias",))
+    del ranks, init, one_params
+    print(f"gang 17c: gpt_small bf16 seq {GANG2_GPT_CFG['seq_len']} global "
+          f"batch {GANG2_GPT_CFG['global_batch_size']} on 2 ranks over gloo: "
+          f"losses {gang_losses} against world 1's {one_losses} (worst rel "
+          f"{loss_gap:.3e}, bound {GANG_LOSS_REL:g}); weights equal across "
+          f"the ranks: {same_ranks}; final weights' gap to world 1's over "
+          f"world 1's update {step_gap:.3e} over every leaf (bound "
+          f"{GANG_STEP_REL:g}), {leaf_gap:.3e} at the worst leaf "
+          f"({step_leaf}; bound {GANG_LEAF_STEP_REL:g}); flash launches a rank "
+          f"{[rep['launches'] for rep in reps]}", flush=True)
+    if reps[0]["result"]["losses"] != reps[1]["result"]["losses"]:
+        raise AssertionError("17c gpt: the ranks' losses differ")
+    if not (same_ranks and step_gap <= GANG_STEP_REL
+            and leaf_gap <= GANG_LEAF_STEP_REL):
+        raise AssertionError(f"17c gpt: weights (ranks equal {same_ranks}, "
+                             f"{step_gap} of the update from world 1's, "
+                             f"{leaf_gap} at {step_leaf})")
+    if len(gang_losses) != GANG2_STEPS or not loss_gap <= GANG_LOSS_REL:
+        raise AssertionError(f"17c gpt: losses {gang_losses} vs {one_losses}")
+
+
+def phase_prefetch(torch, root):
+    """17d: phase 15b's npz blobs host-fed at prefetch depth 0 (read in
+    the loop) and 2 (the DevicePrefetcher's thread and side stream),
+    deterministic cuDNN: every step's loss and the final weights bit for
+    bit; the train.host_wait share of each run's wall time printed."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+    from kubeflow_tpu_torch.utils.metrics import host_wait_histogram
+
+    data_dir = os.path.join(root, "blobs")
+    os.makedirs(data_dir)
+    write_blob_shards(data_dir)
+    hist = host_wait_histogram()
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        for depth in (0, PREFETCH_DEPTH, 0, PREFETCH_DEPTH):
+            cfg = TrainingConfig(**dict(PREFETCH_CFG, data={
+                "name": "npz", "path": data_dir, "prefetch_depth": depth}))
+            trainer = Trainer(cfg, device="cuda")
+            before = hist.sum(model=cfg.model)
+            t0 = time.monotonic()
+            result = run_training(cfg, device="cuda", trainer=trainer,
+                                  log_every=cfg.steps)
+            wall = time.monotonic() - t0
+            waited = hist.sum(model=cfg.model) - before
+            params = {n: p.detach().clone() for n, p in
+                      trainer._final_state.model.named_parameters()}
+            runs.setdefault(depth, []).append(
+                (result["losses"], params, waited / wall,
+                 result["items_per_sec"], trainer.input_path))
+            del trainer
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l0, p0, _, _, path0), (l2, p2, _, _, path2) = runs[0][0], runs[
+        PREFETCH_DEPTH][0]
+    same = l0 == l2 and all(torch.equal(p0[n], p2[n]) for n in p0)
+    shares = {d: [r[2] for r in rs] for d, rs in runs.items()}
+    speeds = {d: [r[3] for r in rs] for d, rs in runs.items()}
+    print(f"prefetch 17d ({smi_line()}): resnet50 bf16 on npz blobs of "
+          f"{BLOBS_SIZE} px, batch {PREFETCH_CFG['global_batch_size']}, "
+          f"{PREFETCH_CFG['steps']} steps, host-fed ({path0}, {path2}): depth "
+          f"0 and depth {PREFETCH_DEPTH} bit for bit: {same}; train.host_wait "
+          f"share of the run's wall time, runs in order 0, {PREFETCH_DEPTH}, "
+          f"0, {PREFETCH_DEPTH}: depth 0 {shares[0]}, depth {PREFETCH_DEPTH} "
+          f"{shares[PREFETCH_DEPTH]}; images/sec/card depth 0 {speeds[0]}, "
+          f"depth {PREFETCH_DEPTH} {speeds[PREFETCH_DEPTH]}", flush=True)
+    if not same or path0 != "host" or path2 != "host":
+        raise AssertionError(f"17d: depth 0 and {PREFETCH_DEPTH} differ "
+                             f"(losses {l0} vs {l2})")
+
+
+def phase_gang(torch, image_ref, lm_ref, layers):
+    """Phase 17: 17a and 17b (the launcher at world 1 over NCCL), 17c (two
+    ranks on one card over gloo), 17d (the DevicePrefetcher) → 17b's
+    flash launches."""
+    t17 = time.monotonic()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="kft-gang-") as root:
+        launches = phase_gang_world1(torch, root, image_ref, lm_ref, layers)
+        phase_gang_two_ranks(torch, root)
+        phase_prefetch(torch, root)
+    print(f"phase 17: {time.monotonic() - t17:.3f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3184,7 +3681,7 @@ def main() -> int:
     flash_records, bert_records = phase_flash(torch)
     phase_train_f32(torch)
     torch.cuda.empty_cache()
-    train_launches, _ = phase_train_bf16(torch)
+    train_launches, train_result = phase_train_bf16(torch)
     for kname, rec in flash_records.items():
         rec = dict(rec)
         for key, bert in bert_records.items():
@@ -3281,7 +3778,7 @@ def main() -> int:
                 raise AssertionError(f"the chaos path never launched "
                                      f"{rec['name']}")
     # ResNet-50 training, train to accuracy, :predict
-    phase_image(torch)
+    image_ref = phase_image(torch)
     torch.cuda.empty_cache()
     # this slice's path: BERT-base pretraining through the flash kernels'
     # bidirectional, key-masked calls
@@ -3291,6 +3788,15 @@ def main() -> int:
             rec["bert_launches"] = bert_launches[rec["name"]]
             if rec["bert_launches"] < 1:
                 raise AssertionError(f"the BERT path never launched "
+                                     f"{rec['name']}")
+    torch.cuda.empty_cache()
+    # this slice's path: data-parallel training through the gang launcher
+    dp_launches = phase_gang(torch, image_ref, train_result, layers)
+    for rec in kernels:
+        if rec["name"] in dp_launches:
+            rec["dp_launches"] = dp_launches[rec["name"]]
+            if rec["dp_launches"] < 1:
+                raise AssertionError(f"the data-parallel path never launched "
                                      f"{rec['name']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -3302,4 +3808,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--gang-rank"]:
+        sys.exit(gang_rank())
     sys.exit(main())

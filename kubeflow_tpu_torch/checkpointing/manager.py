@@ -22,10 +22,16 @@ checkpoint either package writes is read by the other:
   global index range, and `_ShardReader.region` assembles any region from
   the overlapping files, which is what reads a checkpoint the JAX package
   saved sharded over a mesh.
-- **one process**: the port saves from one process (`process_index` 0 of
-  a `process_count` of 1), so it writes every leaf whole. The multi-host
-  commit barrier is kept and waits only on this host's files; saves from
-  several processes come with torch.distributed (ROADMAP A13).
+- **a gang's saves**: `process_index` / `process_count` are the
+  `torch.distributed` rank and world size (0 and 1 without a group).
+  Every leaf of a data-parallel state is replicated, so, as the JAX
+  package writes a replicated leaf, process 0 owns each leaf whole: it
+  alone copies it to host memory, writes it and commits the manifest,
+  which records the gang's `process_count`; the other ranks' saves write
+  nothing. The commit barrier waits on the expected files whoever wrote
+  them. Every rank restores from the shared directory, and a checkpoint
+  restores under any world size (and in the JAX package) because leaves
+  are stored whole with their global index ranges.
 
 A state is a nested mapping of leaves (torch tensors, numpy arrays or
 Python scalars) keyed by strings, or an object with `checkpoint_tree()`
@@ -175,14 +181,30 @@ def _host_copies(leaves: List[Any]) -> List[torch.Tensor]:
     return out
 
 
+def _leaf_meta(leaf) -> Tuple[Tuple[int, ...], torch.dtype]:
+    """(shape, dtype) a leaf is stored with, without copying it."""
+    if isinstance(leaf, torch.Tensor):
+        return tuple(leaf.shape), leaf.dtype
+    t = torch.from_numpy(np.array(leaf))
+    return tuple(t.shape), t.dtype
+
+
 def _snapshot(state: Any, process_index: int) -> List[_LeafSnapshot]:
     pairs = _flatten_with_keys(_tree_of(state))
     out = []
+    if process_index != 0:
+        # replicated leaves are process 0's to write: nothing to copy
+        for key, leaf in pairs:
+            shape, dtype = _leaf_meta(leaf)
+            ranges = tuple((0, int(d)) for d in shape)
+            out.append(_LeafSnapshot(key, torch.Size(shape), dtype,
+                                     [ranges], []))
+        return out
     for (key, _), host in zip(pairs, _host_copies([leaf for _, leaf in pairs])):
         ranges = tuple((0, int(d)) for d in host.shape)
-        # one process owns every leaf whole
-        mine = [(ranges, host)] if process_index == 0 else []
-        out.append(_LeafSnapshot(key, host.shape, host.dtype, [ranges], mine))
+        # process 0 owns every (replicated) leaf whole
+        out.append(_LeafSnapshot(key, host.shape, host.dtype, [ranges],
+                                 [(ranges, host)]))
     return out
 
 
@@ -690,9 +712,10 @@ def restore_subtree(
 
 
 def _process_index() -> int:
-    # one process until torch.distributed saves (ROADMAP A13)
-    return 0
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 def _process_count() -> int:
-    return 1
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_initialized() else 1

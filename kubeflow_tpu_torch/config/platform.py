@@ -1,6 +1,6 @@
 """Platform configuration (copy of the subset of
-kubeflow_tpu/config/platform.py's `TrainingConfig`, `DataConfig` and
-`CheckpointConfig` the port's training path honours, of
+kubeflow_tpu/config/platform.py's `TrainingConfig`, `MeshConfig`,
+`DataConfig` and `CheckpointConfig` the port's training path honours, of
 `ObservabilityConfig` and `ChaosConfig` both paths read, and of
 `ServingConfig`'s `observability`, `chaos` and `disagg` subtrees).
 
@@ -8,18 +8,18 @@ Fields keep the JAX package's names and defaults. A field of the JAX
 config that the port does not honour yet is absent here, so passing it
 raises (a `TypeError` from the constructor, a `ValueError` naming the
 ROADMAP item from `from_dict`): no field is accepted and silently
-ignored. `validate()` runs on construction.
+ignored. `validate()` runs on construction. A mesh axis the port does
+not run yet (any but `data` above 1) raises naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Mapping
+from typing import Any, Dict, List, Mapping
 
 # JAX TrainingConfig fields this port does not take yet, and what they
 # wait for (ROADMAP.md)
 _UNPORTED_FIELDS = {
-    "mesh": "A13 item 1 (parallelism: one card, no mesh)",
     "profiler_logdir": "A14 (runtime profiler)",
     "compile_cache_dir": "A14 (nothing compiles ahead in eager PyTorch)",
     "pipeline_schedule": "A13 item 4 (pipeline parallelism)",
@@ -49,6 +49,16 @@ _UNPORTED_SERVING_FIELDS = {
     "router": "A14 (the router)",
 }
 
+MESH_AXES = ("data", "fsdp", "tensor", "pipeline", "sequence", "expert")
+# mesh axes above 1 the port does not run yet, and their ROADMAP items
+_UNPORTED_MESH_AXES = {
+    "fsdp": "A13 item 1 (fsdp)",
+    "tensor": "A13 item 2 (tensor parallelism)",
+    "expert": "A13 item 3 (expert parallelism)",
+    "pipeline": "A13 item 4 (pipeline parallelism)",
+    "sequence": "A13 item 5 (sequence parallelism)",
+}
+
 DTYPES = ("float32", "bfloat16")
 DATASETS = ("synthetic", "blobs", "npz")
 AUGMENTS = ("none", "crop_flip")
@@ -68,6 +78,52 @@ def _check_keys(raw: Mapping, cls, unported: Mapping[str, str], path: str):
             raise ConfigError(f"{path}{key} is not ported yet: ROADMAP "
                               f"{unported[key]}")
         raise ConfigError(f"unknown field {path}{key}")
+
+
+@dataclasses.dataclass
+class MeshConfig:
+    """Logical parallelism mesh, axis name → size (the JAX package's
+    fields and check). The product of the axes is the gang's device
+    count: one process per rank, one card a process
+    (parallel/mesh.py `build_mesh` checks it against the world size).
+    The port runs the `data` axis; any other axis above 1 raises naming
+    the ROADMAP item it waits for."""
+
+    data: int = 1
+    fsdp: int = 1
+    tensor: int = 1
+    pipeline: int = 1
+    sequence: int = 1
+    expert: int = 1
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        for axis in MESH_AXES:
+            v = getattr(self, axis)
+            if not isinstance(v, int) or v < 1:
+                raise ConfigError(
+                    f"mesh.{axis} must be a positive int, got {v!r}")
+        for axis, item in _UNPORTED_MESH_AXES.items():
+            if getattr(self, axis) > 1:
+                raise ConfigError(f"mesh.{axis} > 1 is not ported yet: "
+                                  f"ROADMAP {item}")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for axis in MESH_AXES:
+            n *= getattr(self, axis)
+        return n
+
+    def axis_sizes(self) -> Dict[str, int]:
+        return {a: getattr(self, a) for a in MESH_AXES}
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "MeshConfig":
+        _check_keys(raw, cls, {}, "mesh.")
+        return cls(**raw)
 
 
 @dataclasses.dataclass
@@ -263,9 +319,9 @@ class TrainingConfig:
 
     `attention_impl` is the port's own field: the JAX trainer takes the
     model's default ("dense") unless a `sequence` mesh axis switches it
-    to ring attention; a one-card port has no mesh, so the choice between
-    "dense", "flash" (the CUDA kernels) and "auto" (ops/attention.py
-    `auto_attention_impl`) is named here."""
+    to ring attention; the port runs no sequence axis, so the choice
+    between "dense", "flash" (the CUDA kernels) and "auto"
+    (ops/attention.py `auto_attention_impl`) is named here."""
 
     model: str = "resnet50"
     global_batch_size: int = 256
@@ -275,6 +331,7 @@ class TrainingConfig:
     warmup_steps: int = 5
     dtype: str = "bfloat16"
     seed: int = 0
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     checkpoint: CheckpointConfig = dataclasses.field(
         default_factory=CheckpointConfig
@@ -294,6 +351,8 @@ class TrainingConfig:
     chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
 
     def __post_init__(self):
+        if isinstance(self.mesh, Mapping):
+            self.mesh = MeshConfig.from_dict(self.mesh)
         if isinstance(self.data, Mapping):
             self.data = DataConfig.from_dict(self.data)
         if isinstance(self.checkpoint, Mapping):
@@ -345,6 +404,13 @@ class TrainingConfig:
             raise ConfigError(
                 f"data.augment applies to image-classification models only "
                 f"(model={self.model!r})"
+            )
+        self.mesh.validate()
+        dp = self.mesh.data * self.mesh.fsdp
+        if self.global_batch_size % dp != 0:
+            raise ConfigError(
+                f"global_batch_size {self.global_batch_size} not divisible by "
+                f"data*fsdp axes {dp}"
             )
 
     @classmethod

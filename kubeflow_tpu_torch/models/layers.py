@@ -19,8 +19,10 @@ own determinism.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +36,25 @@ from kubeflow_tpu_torch.ops.attention import row_stable_matmul
 QSCALE = "_qscale"
 
 
+# (first row, global rows) of the batch a dropout draws for: set by a
+# data-parallel step, so a rank's masks are rows of the global batch's
+_DROPOUT_ROWS: contextvars.ContextVar[Optional[Tuple[int, int]]] = \
+    contextvars.ContextVar("dropout_rows", default=None)
+
+
+@contextlib.contextmanager
+def dropout_rows(first: int, total: int):
+    """Inside, every `dropout` draws its mask for a batch of `total` rows
+    and keeps rows [first, first + its own rows): a data-parallel rank's
+    share of the global batch draws the masks a world-1 run draws for
+    those rows."""
+    token = _DROPOUT_ROWS.set((first, total))
+    try:
+        yield
+    finally:
+        _DROPOUT_ROWS.reset(token)
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator],
             deterministic: bool = False) -> torch.Tensor:
@@ -41,14 +62,22 @@ def dropout(x: torch.Tensor, rate: float,
     `deterministic` (eval) or `rate == 0`; else each element is kept
     with probability 1 - rate, scaled by 1 / (1 - rate), and zeroed
     otherwise. The mask is drawn from `generator` (on x's device), which
-    a training forward must pass."""
+    a training forward must pass; inside `dropout_rows` it is the rows of
+    the global batch's mask that x holds (x's leading dim is the batch)."""
     if deterministic or rate == 0.0:
         return x
     if generator is None:
         raise ValueError(
             "dropout needs a torch.Generator in training: pass the "
             "model's dropout_generator (a run is a function of its seed)")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    rows = _DROPOUT_ROWS.get()
+    if rows is None:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        first, total = rows
+        u = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
+                       device=x.device)[first:first + x.shape[0]]
+    keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

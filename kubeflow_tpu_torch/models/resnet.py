@@ -31,6 +31,16 @@ The flax model's arithmetic and names, on cuDNN:
   `train=False` it reads them.
 - The last BatchNorm of every block starts with scale 0 (the residual
   branch starts as identity).
+- Data parallelism: the JAX BatchNorm under a batch split over
+  ("data", "fsdp") reduces its statistics over every rank (GSPMD). Here a
+  model given a data group (`sync_batch_stats`) does the same in
+  training: each BatchNorm sums x and x² per channel and counts its
+  elements in f32, all-reduces the three with a differentiable
+  all-reduce (so the backward reduces too) and normalises by the global
+  mean and biased variance E[x²] - E[x]² (flax's fast variance); the
+  running averages move identically on every rank. Without a group (one
+  rank) the path is the single-card one above. `nn.SyncBatchNorm` is not
+  used: it refuses CPU tensors, where the gang tests run.
 """
 
 from __future__ import annotations
@@ -99,11 +109,37 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        # the data-parallel group training statistics reduce over (None:
+        # this rank's batch is the whole batch)
+        self.group = None
+
+    def _global_forward(self, x):
+        """Training under a data group: the global batch's statistics."""
+        from kubeflow_tpu_torch.parallel.distributed import all_reduce_sum
+
+        xf = x.float()
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() / c)
+        stats = all_reduce_sum(torch.cat([
+            xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)), count]), self.group)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean * mean).clamp_min(0.0)
+        shape = (1, c, 1, 1)
+        y = ((xf - mean.view(shape)) * torch.rsqrt(var + BN_EPS).view(shape)
+             * self.scale.view(shape) + self.bias.view(shape))
+        with torch.no_grad():
+            self.mean.copy_(BN_MOMENTUM * self.mean
+                            + (1.0 - BN_MOMENTUM) * mean)
+            self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
+        return y.to(self.dtype)
 
     def forward(self, x, train: bool):
         if not train:
             return F.batch_norm(x, self.mean, self.var, self.scale,
                                 self.bias, False, 0.0, BN_EPS).to(self.dtype)
+        if self.group is not None:
+            return self._global_forward(x)
         # the batch's statistics in f32 (the saved mean and 1/sqrt(var +
         # eps) of the op that normalises with them), the variance biased
         y, mean, invstd = torch.native_batch_norm(
@@ -114,6 +150,14 @@ class BatchNorm(nn.Module):
                             + (1.0 - BN_MOMENTUM) * mean.float())
             self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
         return y.to(self.dtype)
+
+
+def sync_batch_stats(model: nn.Module, group) -> None:
+    """Make every BatchNorm of `model` reduce its training statistics over
+    `group` (None: back to this rank's batch alone)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
 
 
 class ResNetBlock(nn.Module):

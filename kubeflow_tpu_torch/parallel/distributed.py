@@ -1,0 +1,217 @@
+"""Distributed gang wiring (port of kubeflow_tpu/parallel/distributed.py):
+the KFT_* env a gang controller renders into every process, and the
+in-process bring-up of `torch.distributed` from it.
+
+Every process of a gang needs (coordinator address, number of processes,
+process id). `render_gang_env` and `GangEnv` are the JAX package's, so a
+controller renders one env for either package. `initialize_from_env`
+turns that env into `torch.distributed.init_process_group`: the
+rendezvous is `tcp://<KFT_COORDINATOR_ADDRESS>`, the rank
+`KFT_PROCESS_ID`, the world size `KFT_NUM_PROCESSES`. The backend
+follows the device, as the JAX package picks gloo collectives for the
+CPU platform: `nccl` for CUDA, `gloo` for the CPU.
+
+A process without a rendered coordinator runs alone: no group, a no-op
+(the JAX package's single-process rule). A rendered gang joins its group
+at any size, one process included, so a gang of one runs the same
+collectives as a gang of many.
+
+Each process drives one card, `cuda:<local rank>`; the local rank is the
+process's position among the gang's processes that share its hostname
+(`TPU_WORKER_HOSTNAMES`), so a host that runs four ranks drives four
+cards. A rank whose card does not exist raises: it never runs on the CPU
+instead.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from datetime import timedelta
+from typing import Dict, List, Optional
+
+import torch
+
+from kubeflow_tpu_torch.utils.device import DeviceLike
+from kubeflow_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+ENV_COORDINATOR = "KFT_COORDINATOR_ADDRESS"
+ENV_NUM_PROCESSES = "KFT_NUM_PROCESSES"
+ENV_PROCESS_ID = "KFT_PROCESS_ID"
+ENV_SLICE_ID = "KFT_SLICE_ID"
+ENV_NUM_SLICES = "KFT_NUM_SLICES"
+ENV_WORKER_HOSTNAMES = "TPU_WORKER_HOSTNAMES"
+ENV_JOB_NAME = "KFT_JOB_NAME"
+DEFAULT_COORDINATOR_PORT = 8476
+# how long a rank waits for its peers at the rendezvous and in a collective
+DEFAULT_TIMEOUT_S = 600.0
+
+
+@dataclasses.dataclass(frozen=True)
+class GangEnv:
+    """Per-process view of the gang (parsed from env)."""
+
+    job_name: str
+    coordinator_address: str
+    num_processes: int
+    process_id: int
+    slice_id: int = 0
+    num_slices: int = 1
+
+    @classmethod
+    def from_env(cls, environ: Optional[Dict[str, str]] = None) -> "GangEnv":
+        env = os.environ if environ is None else environ
+        return cls(
+            job_name=env.get(ENV_JOB_NAME, "local"),
+            coordinator_address=env.get(ENV_COORDINATOR, ""),
+            num_processes=int(env.get(ENV_NUM_PROCESSES, "1")),
+            process_id=int(env.get(ENV_PROCESS_ID, "0")),
+            slice_id=int(env.get(ENV_SLICE_ID, "0")),
+            num_slices=int(env.get(ENV_NUM_SLICES, "1")),
+        )
+
+    @property
+    def is_coordinator(self) -> bool:
+        return self.process_id == 0
+
+    @property
+    def single_process(self) -> bool:
+        return self.num_processes <= 1
+
+
+def render_gang_env(
+    job_name: str,
+    hostnames: List[str],
+    num_slices: int = 1,
+    coordinator_port: int = DEFAULT_COORDINATOR_PORT,
+) -> List[Dict[str, str]]:
+    """Render the env block for each process of a gang.
+
+    `hostnames[i]` is the stable DNS name of process i. Process 0 is the
+    coordinator. Slices are contiguous, hosts_per_slice = len(hostnames)
+    / num_slices."""
+    n = len(hostnames)
+    if n < 1:
+        raise ValueError("gang needs at least one host")
+    if n % num_slices:
+        raise ValueError(f"{n} hosts not divisible into {num_slices} slices")
+    hosts_per_slice = n // num_slices
+    coord = f"{hostnames[0]}:{coordinator_port}"
+    envs = []
+    for i, _host in enumerate(hostnames):
+        envs.append(
+            {
+                ENV_JOB_NAME: job_name,
+                ENV_COORDINATOR: coord,
+                ENV_NUM_PROCESSES: str(n),
+                ENV_PROCESS_ID: str(i),
+                ENV_SLICE_ID: str(i // hosts_per_slice),
+                ENV_NUM_SLICES: str(num_slices),
+                ENV_WORKER_HOSTNAMES: ",".join(hostnames),
+            }
+        )
+    return envs
+
+
+def local_rank(environ: Optional[Dict[str, str]] = None) -> int:
+    """This process's position among the gang's processes on its host:
+    how many processes before it share its hostname (0 without a
+    hostname list)."""
+    env = os.environ if environ is None else environ
+    gang = GangEnv.from_env(env)
+    hosts = [h for h in env.get(ENV_WORKER_HOSTNAMES, "").split(",") if h]
+    if gang.process_id >= len(hosts):
+        return 0
+    return hosts[:gang.process_id].count(hosts[gang.process_id])
+
+
+def gang_device(device: DeviceLike = None,
+                environ: Optional[Dict[str, str]] = None) -> torch.device:
+    """The device this rank drives: the CPU when asked for, else
+    `cuda:<local rank>`. Raises when that card is not there."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        return dev
+    from kubeflow_tpu_torch.utils.device import local_rank_device
+
+    return local_rank_device(local_rank(environ))
+
+
+def backend_for(device: torch.device) -> str:
+    """The collective backend of a rank on `device`."""
+    return "nccl" if device.type == "cuda" else "gloo"
+
+
+def initialize_from_env(environ: Optional[Dict[str, str]] = None,
+                        device: DeviceLike = None,
+                        backend: Optional[str] = None) -> GangEnv:
+    """In-process entry point: parse GangEnv and join the gang's
+    process group. `device` is the rank's device (default the card;
+    "cpu" runs the gang on gloo); `backend` overrides the device's
+    backend (gloo for ranks that share one card, which NCCL refuses).
+    A no-op without a rendered coordinator, and once a group exists."""
+    gang = GangEnv.from_env(environ)
+    if not gang.coordinator_address:
+        log.info("no gang coordinator rendered; running as one process")
+        return gang
+    if torch.distributed.is_initialized():
+        return gang
+    dev = gang_device(device, environ)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = backend or backend_for(dev)
+    log.info("initializing torch.distributed: coordinator=%s procs=%d id=%d "
+             "backend=%s device=%s", gang.coordinator_address,
+             gang.num_processes, gang.process_id, backend, dev)
+    torch.distributed.init_process_group(
+        backend=backend,
+        init_method=f"tcp://{gang.coordinator_address}",
+        world_size=gang.num_processes,
+        rank=gang.process_id,
+        timeout=timedelta(seconds=DEFAULT_TIMEOUT_S),
+    )
+    return gang
+
+
+def world_size() -> int:
+    """Processes in the gang's group (1 without one)."""
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def rank() -> int:
+    """This process's rank in the gang's group (0 without one)."""
+    dist = torch.distributed
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def shutdown() -> None:
+    """Leave the gang's group (a no-op without one)."""
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the group in the forward; the backward sums the
+    cotangents over the group too (every rank's loss reads the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable SUM all-reduce of `x` over `group`: a new tensor,
+    `x` untouched."""
+    return _AllReduceSum.apply(x, group)

@@ -1,0 +1,179 @@
+"""Mesh / topology layer (port of kubeflow_tpu/parallel/mesh.py).
+
+The JAX package lays the gang's devices out as a `jax.sharding.Mesh`
+and XLA inserts the collectives; here the same named axes form a
+`torch.distributed.device_mesh.DeviceMesh` over the gang's ranks (one
+rank a card), whose per-axis process groups carry the collectives the
+training step issues itself (training/trainer.py).
+
+Axis placement is the JAX package's: outermost the axes that may ride
+the slow links between slices (pure data parallelism), innermost the
+ones that communicate every layer (tensor). Ranks are numbered slice
+by slice (`render_gang_env`), so the row-major layout of the ranks over
+MESH_AXIS_ORDER puts the data axis across slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from kubeflow_tpu_torch.config.platform import MeshConfig
+
+# Outer → inner. Communication intensity increases left → right.
+MESH_AXIS_ORDER: Tuple[str, ...] = (
+    "data",
+    "fsdp",
+    "pipeline",
+    "expert",
+    "sequence",
+    "tensor",
+)
+
+# Axes that may span slices without destroying step time.
+DCN_FRIENDLY_AXES: Tuple[str, ...] = ("data", "pipeline")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """A resolved mesh: ordered (axis, size) pairs covering all gang devices."""
+
+    axis_sizes: Tuple[Tuple[str, int], ...]
+
+    @classmethod
+    def from_config(cls, cfg: MeshConfig) -> "MeshSpec":
+        return cls(tuple((a, getattr(cfg, a)) for a in MESH_AXIS_ORDER))
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return tuple(a for a, _ in self.axis_sizes)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(s for _, s in self.axis_sizes)
+
+    @property
+    def num_devices(self) -> int:
+        return math.prod(self.shape)
+
+    def size(self, axis: str) -> int:
+        for a, s in self.axis_sizes:
+            if a == axis:
+                return s
+        raise KeyError(axis)
+
+    def nontrivial_axes(self) -> List[str]:
+        return [a for a, s in self.axis_sizes if s > 1]
+
+    def dcn_split(self, num_slices: int) -> Tuple[Dict[str, int], Dict[str, int]]:
+        """Split axis sizes into (per-slice sizes, across-slice sizes).
+
+        Only DCN-friendly axes are allowed to span slices; the outermost such
+        axis absorbs the slice count. Raises if the mesh can't be laid out.
+        """
+        ici = dict(self.axis_sizes)
+        dcn = {a: 1 for a, _ in self.axis_sizes}
+        if num_slices == 1:
+            return ici, dcn
+        remaining = num_slices
+        for axis in DCN_FRIENDLY_AXES:
+            size = ici[axis]
+            g = math.gcd(size, remaining)
+            take = min(remaining, size)
+            if size % take == 0:
+                g = take
+            if g > 1:
+                ici[axis] = size // g
+                dcn[axis] = g
+                remaining //= g
+            if remaining == 1:
+                break
+        if remaining != 1:
+            raise ValueError(
+                f"cannot lay {num_slices} slices across DCN-friendly axes "
+                f"{DCN_FRIENDLY_AXES} of mesh {dict(self.axis_sizes)}; "
+                f"increase data/pipeline parallelism to a multiple of the "
+                f"slice count"
+            )
+        return ici, dcn
+
+
+def _world_size() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def build_mesh(spec: MeshSpec, device_type: str = "cuda",
+               num_slices: int = 1):
+    """A `DeviceMesh` over the gang's ranks with `spec`'s axes as its
+    `mesh_dim_names` (MESH_AXIS_ORDER), ranks laid out row-major. The
+    spec must cover exactly the world's ranks; under several slices it
+    must also lay out across them (`dcn_split`). Without a process group
+    (one process) the mesh is the one rank's, with no groups behind it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    world = _world_size()
+    if spec.num_devices != world:
+        raise ValueError(
+            f"mesh spec needs {spec.num_devices} devices "
+            f"({dict(spec.axis_sizes)}), got {world}"
+        )
+    if num_slices > 1:
+        spec.dcn_split(num_slices)
+    ranks = torch.arange(world).reshape(spec.shape)
+    if torch.distributed.is_initialized():
+        return DeviceMesh(device_type, ranks, mesh_dim_names=spec.axis_names)
+    try:
+        return DeviceMesh(device_type, ranks, mesh_dim_names=spec.axis_names,
+                          _init_backend=False, _rank=0)
+    except TypeError:  # a torch whose DeviceMesh takes no `_rank`
+        return DeviceMesh(device_type, ranks, mesh_dim_names=spec.axis_names,
+                          _init_backend=False)
+
+
+def mesh_from_config(cfg: MeshConfig, device_type: str = "cuda",
+                     num_slices: int = 1):
+    return build_mesh(MeshSpec.from_config(cfg), device_type=device_type,
+                      num_slices=num_slices)
+
+
+def single_device_mesh(device_type: str = "cuda"):
+    """A one-rank mesh with the full axis vocabulary (every size 1), for
+    single-card paths that share the distributed path's code."""
+    return build_mesh(MeshSpec.from_config(MeshConfig()),
+                      device_type=device_type)
+
+
+def default_mesh_for(num_devices: int, tensor: int = 1, pipeline: int = 1,
+                     sequence: int = 1, expert: int = 1, fsdp: int = 1,
+                     device_type: str = "cuda"):
+    """Convenience: fill the data axis with whatever devices remain."""
+    denom = tensor * pipeline * sequence * expert * fsdp
+    if num_devices % denom:
+        raise ValueError(f"{num_devices} devices not divisible by {denom}")
+    cfg = MeshConfig(
+        data=num_devices // denom,
+        fsdp=fsdp,
+        tensor=tensor,
+        pipeline=pipeline,
+        sequence=sequence,
+        expert=expert,
+    )
+    return mesh_from_config(cfg, device_type=device_type)
+
+
+def data_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
+    """The process group of the mesh's data axis (None without a process
+    group): the ranks whose gradients, BatchNorm statistics and item
+    counts are summed."""
+    if mesh is None or not torch.distributed.is_initialized():
+        return None
+    return mesh.get_group("data")
+
+
+def mesh_shape(mesh) -> Dict[str, int]:
+    """{axis: size} of a DeviceMesh (the JAX `Mesh.shape`)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))

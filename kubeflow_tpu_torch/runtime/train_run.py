@@ -6,8 +6,9 @@ config → Trainer → (resume, fit, final save) → the result dict.
 when a warm start ran, and `compile_s` when the first step was fenced),
 plus the last window's `step_time_s`, `mfu` (on a listed card) and
 `goodput`, `restore_s` (the resume's restore, wall seconds, when one
-ran), and `losses`: every step's (step, loss), read on the host at the
-first-step fence and at each log window (one sync a window). A run with
+ran), `losses`: every step's (step, loss), read on the host at the
+first-step fence and at each log window (one sync a window), and the
+gang's `world_size` and `grad_allreduces` (0 off a gang). A run with
 eval data (the config's `data`: blobs or npz with a held-out split) adds
 the JAX keys `eval_top1`, `eval_loss` and `target_reached`. Every
 registry model trains here: the GPT family, ResNet and the mlp.
@@ -21,6 +22,15 @@ not resume. SIGTERM sets the stop event (from the main thread), so a
 preempted run finishes its step in flight, saves it (forced) and exits
 cleanly; the manager is closed in `finally` with the SIGTERM handler
 still installed.
+
+In a `torch.distributed` group (runtime/launcher.py starts one process a
+rank) the run builds `cfg.mesh` as a DeviceMesh over the group's ranks
+(its size must be the world's) and trains data-parallel
+(training/trainer.py). Every rank restores from the one checkpoint
+directory; only rank 0 writes and commits (checkpointing/manager.py),
+and only rank 0 logs the result. A preemption stops every rank at the
+step its SIGTERM lands on; as in the JAX package there is no
+cross-rank stop protocol (each process of a gang receives the signal).
 
 kft-chaos: the run's KFT_CHAOS_* env arms the process's injection
 points for THIS run only (no plan disarms them), the `gang.host_exit`
@@ -133,6 +143,7 @@ def _run_training_armed(cfg: TrainingConfig, restore: bool,
                         stop_event: Optional[threading.Event],
                         device: DeviceLike, log_every: int, env,
                         trainer) -> Dict[str, Any]:
+    from kubeflow_tpu_torch.parallel.distributed import rank
     from kubeflow_tpu_torch.training.trainer import Trainer
 
     if trainer is None:
@@ -249,6 +260,8 @@ def _run_training_armed(cfg: TrainingConfig, restore: bool,
         "already_complete": False,
         "preempted": preempted,
         "losses": list(trainer.losses),
+        "world_size": trainer.world,
+        "grad_allreduces": trainer.grad_allreduces,
     }
     if warm_started:
         result["warm_started"] = True
@@ -265,4 +278,8 @@ def _run_training_armed(cfg: TrainingConfig, restore: bool,
             target = cfg.data.target_accuracy
             result["target_reached"] = bool(
                 target and metrics.aux["eval_top1"] >= target)
+    if rank() == 0:
+        log.info("training result: final_step=%d loss=%s items/s=%.1f "
+                 "preempted=%s world=%d", final_step, result["loss"],
+                 result["items_per_sec"], preempted, trainer.world)
     return result

@@ -27,7 +27,7 @@ Labels are untouched. Eval stays un-augmented.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -100,23 +100,34 @@ def resample(images: torch.Tensor, crop_h, crop_w, off_y, off_x, flip
 def random_resized_crop_flip(images: torch.Tensor, seed: int, step: int,
                              scale: Tuple[float, float] = SCALE,
                              ratio: Tuple[float, float] = RATIO,
-                             flip_prob: float = FLIP_PROB) -> torch.Tensor:
+                             flip_prob: float = FLIP_PROB,
+                             rows: Optional[np.ndarray] = None
+                             ) -> torch.Tensor:
     """Batched random-resized-crop + flip of [B, H, W, C] images at
-    (seed, step), on the images' device."""
+    (seed, step), on the images' device. `rows` are the images' indices
+    in the step's global batch (a data-parallel rank's share; default
+    0..B-1): image i crops as row rows[i] of the global batch would."""
     b, h, w, _ = images.shape
-    u = torch.from_numpy(crop_params(seed, step, b))
+    if rows is None:
+        u = crop_params(seed, step, b)
+    else:
+        u = crop_params(seed, step, int(rows.max()) + 1)[rows]
+    u = torch.from_numpy(np.ascontiguousarray(u))
     if images.device.type == "cuda":
         u = u.pin_memory().to(images.device, non_blocking=True)
     return resample(images, *crop_boxes(u, h, w, scale, ratio, flip_prob))
 
 
-def augment_image_batch(batch: dict, kind: str, seed: int, step: int) -> dict:
+def augment_image_batch(batch: dict, kind: str, seed: int, step: int,
+                        rows: Optional[np.ndarray] = None) -> dict:
     """The configured augmentation of an {image, label} batch: "none"
-    passes it through, "crop_flip" is the recipe above."""
+    passes it through, "crop_flip" is the recipe above (`rows`: the
+    images' global indices)."""
     if kind == "none" or "image" not in batch:
         return batch
     if kind != "crop_flip":
         raise ValueError(f"unknown augmentation {kind!r}")
     out = dict(batch)
-    out["image"] = random_resized_crop_flip(batch["image"], seed, step)
+    out["image"] = random_resized_crop_flip(batch["image"], seed, step,
+                                            rows=rows)
     return out

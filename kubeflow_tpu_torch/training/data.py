@@ -10,14 +10,26 @@ host normals a step): one `torch.Generator` on the batch's device
 seeded by (seed, step), so
 deterministic and resume-safe, though its stream differs from
 `batch_at`'s, as the JAX package's own device stream differs from its
-host stream. `to_device` moves a numpy batch onto the training device:
-through pinned host memory with a non-blocking copy on the card, a plain
-tensor on the CPU.
+host stream. The causal-LM stream is made on the card too: ids uniform
+over the vocabulary and an all-ones mask. `to_device` moves a numpy
+batch onto the training device: through pinned host memory with a
+non-blocking copy on the card, a plain tensor on the CPU.
+
+Data parallelism (a gang of `world` ranks on the mesh's data axis): every
+stream, host or device, makes the GLOBAL batch of a step and each rank
+keeps its rows (`local_rows`, `shard_batch`), so a rank's rows are the
+rows a world-1 run gives them whatever the gang's size: the JAX
+package's layout-invariant RNG (`ensure_layout_invariant_rng`) by
+construction. Under accumulation the rows are taken microbatch by
+microbatch, so microbatch i of every rank is its share of the global
+microbatch i, as the JAX step reshards each microbatch over the data
+axis. `batch_spec` is the JAX package's one batch-layout policy: every
+array splits its leading dim over (data, fsdp).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Union
 
 import numpy as np
 import torch
@@ -99,16 +111,25 @@ class SyntheticData:
             "nsp_labels": torch.randint(0, 2, (b,), generator=gen, device=dev),
         }
 
-    def device_batch_fn(self, device) -> Optional[Callable[[int], Dict[str, torch.Tensor]]]:
-        """step → a batch made on `device` (image and MLM tasks; None for
-        the LM stream, which the trainer feeds from `batch_at`, ROADMAP
-        A11). Integer arrays come as int64, as `to_device` gives them."""
+    def _lm_batch(self, gen: torch.Generator) -> Dict[str, torch.Tensor]:
+        """The causal-LM batch of `batch_at`'s rule (uniform ids, all-ones
+        mask), drawn from `gen` on its device."""
+        dev, shape = gen.device, (self.global_batch_size, self.seq_len)
+        return {
+            "input_ids": torch.randint(0, self.vocab_size, shape,
+                                       generator=gen, device=dev),
+            "attention_mask": torch.ones(shape, dtype=torch.long, device=dev),
+        }
+
+    def device_batch_fn(self, device) -> Callable[[int], Dict[str, torch.Tensor]]:
+        """step → the global batch made on `device` (every task).
+        Integer arrays come as int64, as `to_device` gives them."""
         dev = torch.device(device)
         b = self.global_batch_size
         if self.task == "mlm":
             return lambda step: self._mlm_batch(self._generator(dev, step))
-        if self.task != "image":
-            return None
+        if self.task == "lm":
+            return lambda step: self._lm_batch(self._generator(dev, step))
         s = self.image_size
 
         def fn(step: int) -> Dict[str, torch.Tensor]:
@@ -135,4 +156,51 @@ def to_device(batch: Dict[str, np.ndarray],
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
         out[k] = t
+    return out
+
+
+def batch_spec(batch: Dict[str, Any]) -> Dict[str, tuple]:
+    """Batch arrays split along (data, fsdp) on their leading dim (the
+    JAX `PartitionSpec(("data", "fsdp"))` as a tuple)."""
+    return {k: (("data", "fsdp"),) for k in batch}
+
+
+Rows = Union[slice, np.ndarray]
+
+
+def local_rows(global_batch_size: int, rank: int, world: int,
+               accum_steps: int = 1) -> Rows:
+    """The rows of the global batch that `rank` of `world` feeds: a
+    contiguous block, or under accumulation its block of every
+    microbatch, in microbatch order (an index array)."""
+    if global_batch_size % (world * accum_steps):
+        raise ValueError(
+            f"global_batch_size {global_batch_size} not divisible by "
+            f"data*fsdp axes {world} x accum_steps {accum_steps}")
+    micro = global_batch_size // accum_steps
+    share = micro // world
+    if accum_steps == 1:
+        return slice(rank * share, (rank + 1) * share)
+    return np.concatenate([i * micro + rank * share + np.arange(share)
+                           for i in range(accum_steps)])
+
+
+def row_indices(rows: Rows) -> np.ndarray:
+    """`local_rows`' rows as an index array."""
+    if isinstance(rows, slice):
+        return np.arange(rows.start, rows.stop)
+    return rows
+
+
+def shard_batch(batch: Dict[str, Any], rows: Rows) -> Dict[str, Any]:
+    """The rank's rows of a global batch (numpy arrays, lazy dataset
+    columns, which read and decode only these rows, or tensors). A slice
+    of a tensor is a view."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = v[rows if isinstance(rows, slice)
+                       else torch.from_numpy(rows).to(v.device)]
+        else:
+            out[k] = np.asarray(v[rows])
     return out

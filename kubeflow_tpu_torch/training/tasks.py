@@ -9,6 +9,17 @@ A task whose model has dropout takes the step's `dropout_generator` in
 its `loss` and hands it to the model (training/trainer.py makes one a
 step, or one a microbatch, from (seed, step)).
 
+Data parallelism: the JAX step computes each loss over the GLOBAL batch
+(GSPMD), so each of its means divides by a global count. A task's
+`item_counts(batch)` gives the denominators of its loss from the batch
+alone (the causal LM's valid next-token pairs; MLM's masked positions
+and its rows; the image count), the trainer sums them over the data
+group before the backward, and `loss(..., counts=)` divides this rank's
+sums by them: the ranks' losses then sum to the global loss, and their
+summed gradients are its gradient. A mean of per-rank means (DDP's
+average) would be another gradient wherever ranks hold different
+counts (ragged masks, MLM's random 15 %).
+
 The convnet recipe (`resnet*`), `optax.chain(add_decayed_weights(wd),
 sgd(schedule, momentum=0.9, nesterov=True))`, is `torch.optim.SGD(
 momentum=0.9, nesterov=True, dampening=0, weight_decay=wd)`: optax's
@@ -35,6 +46,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -47,10 +59,13 @@ IGNORE = -100
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore: int = -1000000,
-                  label_smoothing: float = 0.0) -> torch.Tensor:
+                  label_smoothing: float = 0.0,
+                  count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean CE over labels != ignore; logits float32 [..., C], labels int.
     With label_smoothing ε the target is (1-ε)·onehot + ε/K uniform:
-    loss = (1-ε)·NLL + ε·mean over classes of -log p."""
+    loss = (1-ε)·NLL + ε·mean over classes of -log p. `count` replaces
+    the denominator (the valid labels here) with a given one, such as
+    the global batch's."""
     valid = labels != ignore
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     logp = F.log_softmax(logits, dim=-1)
@@ -58,8 +73,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if label_smoothing:
         ll = (1.0 - label_smoothing) * ll + label_smoothing * logp.mean(-1)
     ll = torch.where(valid, ll, torch.zeros_like(ll))
-    count = valid.sum().clamp_min(1)
-    return -ll.sum() / count
+    if count is None:
+        count = valid.sum()
+    return -ll.sum() / count.clamp_min(1)
 
 
 def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -109,24 +125,36 @@ class ImageClassificationTask:
             num_classes=self.num_classes,
         )
 
-    def augment_batch(self, batch: Dict[str, torch.Tensor], step: int
+    def augment_batch(self, batch: Dict[str, torch.Tensor], step: int,
+                      rows: Optional[np.ndarray] = None
                       ) -> Dict[str, torch.Tensor]:
         """The training augmentation of the batch of update `step`: a
         pure function of (cfg.seed, step, image index), on the batch's
-        device (training/augment.py); "none" returns it unchanged."""
+        device (training/augment.py); "none" returns it unchanged. `rows`
+        are the images' indices in the global batch (a data-parallel
+        rank's share), default 0..B-1."""
         from kubeflow_tpu_torch.training.augment import augment_image_batch
 
         return augment_image_batch(batch, self.cfg.data.augment,
-                                   self.cfg.seed, step)
+                                   self.cfg.seed, step, rows=rows)
 
-    def loss(self, model, batch: Dict[str, torch.Tensor], train: bool = True):
+    def item_counts(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """[images]: the loss's denominator, f32 on the batch's device."""
+        labels = batch["label"]
+        return torch.full((1,), float(labels.shape[0]), device=labels.device)
+
+    def loss(self, model, batch: Dict[str, torch.Tensor], train: bool = True,
+             counts: Optional[torch.Tensor] = None):
         """(loss, {"aux": {"accuracy"}}); label smoothing in training only.
-        The caller augments a training batch first (`augment_batch`)."""
+        The caller augments a training batch first (`augment_batch`).
+        `counts` (`item_counts` summed over the data group) divides this
+        rank's sum instead of its own count."""
         logits = model(batch["image"], train=train)
         labels = batch["label"]
         loss = cross_entropy(
             logits, labels,
             label_smoothing=self.cfg.label_smoothing if train else 0.0,
+            count=None if counts is None else counts[0],
         )
         acc = (logits.argmax(-1) == labels).float().mean()
         return loss, {"aux": {"accuracy": acc.detach()}}
@@ -170,20 +198,31 @@ class MlmTask:
             vocab_size=self.vocab_size,
         )
 
+    def item_counts(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """[masked positions, rows]: the two denominators of the loss."""
+        labels = batch["labels"]
+        return torch.stack([(labels != IGNORE).sum().float(),
+                            labels.new_tensor(float(labels.shape[0]),
+                                              dtype=torch.float32)])
+
     def loss(self, model, batch: Dict[str, torch.Tensor],
-             dropout_generator: Optional[torch.Generator] = None):
+             dropout_generator: Optional[torch.Generator] = None,
+             counts: Optional[torch.Tensor] = None):
         """(mlm + nsp, {"aux": {mlm_loss, nsp_loss}, "loss_items": 1}).
         The JAX task reports no item count (the loss mixes two
         denominators, masked tokens and rows), so the trainer weighs its
-        microbatches equally, as the JAX trainer does."""
+        microbatches equally, as the JAX trainer does. `counts` (summed
+        `item_counts`) divides the two sums instead of their own counts."""
         out = model(
             batch["input_ids"],
             attention_mask=None if self.assume_full_attention
             else batch["attention_mask"],
             dropout_generator=dropout_generator,
         )
-        mlm = cross_entropy(out["mlm_logits"], batch["labels"], ignore=IGNORE)
-        nsp = cross_entropy(out["nsp_logits"], batch["nsp_labels"])
+        mlm = cross_entropy(out["mlm_logits"], batch["labels"], ignore=IGNORE,
+                            count=None if counts is None else counts[0])
+        nsp = cross_entropy(out["nsp_logits"], batch["nsp_labels"],
+                            count=None if counts is None else counts[1])
         return mlm + nsp, {
             "aux": {"mlm_loss": mlm.detach(), "nsp_loss": nsp.detach()},
             "loss_items": torch.ones((), device=mlm.device),
@@ -263,11 +302,13 @@ class CausalLmTask:
 
     @staticmethod
     def _chunked_lm_loss(head_kernel, hidden, targets, chunk: int,
-                         compute_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+                         compute_dtype, count: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Streamed LM head + CE: each sequence chunk's [B, chunk, V]
         logits live only inside its chunk and are recomputed in the
         backward (`torch.utils.checkpoint`, the JAX `jax.checkpoint`).
-        Returns (mean loss, valid count)."""
+        Returns (mean loss, valid count); `count` replaces the
+        denominator."""
         s = hidden.shape[1]
         kernel = head_kernel.to(compute_dtype)
         total = hidden.new_zeros((), dtype=torch.float32)
@@ -280,14 +321,25 @@ class CausalLmTask:
             else:
                 part = _chunk_nll_sum(h_c, t_c, kernel, compute_dtype)
             total = total + part
-        count = (targets != IGNORE).sum()
+        if count is None:
+            count = (targets != IGNORE).sum()
         return total / count.clamp_min(1), count
 
+    def item_counts(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """[valid next-token pairs]: the loss's denominator, f32."""
+        mask = batch["attention_mask"]
+        valid = (mask[:, 1:] != 0) & (mask[:, :-1] != 0)
+        return valid.sum().float().reshape(1)
+
     def loss(self, model, batch: Dict[str, torch.Tensor],
-             dropout_generator: Optional[torch.Generator] = None):
-        """(loss, {"aux": {}, "loss_items": valid pairs as f32})."""
+             dropout_generator: Optional[torch.Generator] = None,
+             counts: Optional[torch.Tensor] = None):
+        """(loss, {"aux": {}, "loss_items": valid pairs as f32}). `counts`
+        (summed `item_counts`) is the denominator, and the item count
+        reported, in place of this batch's own."""
         chunked = self.loss_chunk and self.loss_chunk > 0
         ids, mask = batch["input_ids"], batch["attention_mask"]
+        count = None if counts is None else counts[0]
         out = model(ids, attention_mask=None if self.assume_full_attention
                     else mask, return_hidden=bool(chunked),
                     dropout_generator=dropout_generator)
@@ -295,12 +347,12 @@ class CausalLmTask:
             targets = self._shift_full(ids, mask)
             loss, n_items = self._chunked_lm_loss(
                 model.head.kernel, out, targets, int(self.loss_chunk),
-                model.cfg.dtype,
+                model.cfg.dtype, count,
             )
         else:
             logits, targets = self._shift(out, ids, mask)
-            loss = cross_entropy(logits, targets, ignore=IGNORE)
-            n_items = (targets != IGNORE).sum()
+            loss = cross_entropy(logits, targets, ignore=IGNORE, count=count)
+            n_items = (targets != IGNORE).sum() if count is None else count
         return loss, {"aux": {}, "loss_items": n_items.float()}
 
     def count_items(self, batch) -> int:

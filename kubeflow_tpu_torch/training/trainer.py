@@ -1,5 +1,5 @@
-"""The train-step engine (port of kubeflow_tpu/training/trainer.py) for one
-card.
+"""The train-step engine (port of kubeflow_tpu/training/trainer.py): one
+card, or one card of each rank of a data-parallel gang.
 
 `Trainer` builds the model (f32 master weights, trainable, compute in
 `cfg.dtype`), its task (causal LM for the GPT family, masked LM for
@@ -35,20 +35,40 @@ updated IN PLACE: the model's parameters and buffers and the optimizer's
 state are the state, and `train_step` returns the same object one step on.
 
 Data comes from `datasets.build_data` (synthetic, blobs, npz). Synthetic
-image batches are made on the card (`SyntheticData.device_batch_fn`);
-every other stream is read by step (`batch_at`) and copied host→device
-from pinned memory, `data.prefetch_depth` batches made and enqueued
-ahead of the step that needs them. Synthetic MLM batches are made on
-the card too. MFU is the LM's or the encoder's analytic FLOPs, or for
-other models the FLOPs `FlopCounterMode` counts once over one forward
-and backward of the model's shapes on the meta device. Not ported yet
-(ROADMAP A11): `device_batch_fn` for the causal-LM stream, the
-`DevicePrefetcher` thread, and the mesh (one card).
+batches of every task are made on the card (`SyntheticData.
+device_batch_fn`); every other stream is read by step (`batch_at`) and
+copied host→device from pinned memory, with `data.prefetch_depth` > 0 by
+a `DevicePrefetcher` thread on a side stream that makes and copies the
+batches ahead of the step that needs them (training/prefetch.py; 0 reads
+each batch in the loop). MFU is the LM's or the encoder's analytic
+FLOPs, or for other models the FLOPs `FlopCounterMode` counts once over
+one forward and backward of the model's shapes on the meta device.
+
+Data parallelism (`cfg.mesh.data` ranks in a `torch.distributed` group,
+parallel/distributed.py; one process a rank). The step is the JAX
+package's GSPMD step written out: every rank holds the whole state, the
+same from the same seed, and feeds its rows of the global batch
+(training/data.py `local_rows`: every stream makes the global batch and
+the rank keeps its rows, so the data, the crops and the dropout masks
+are a world-1 run's whatever the gang's size). Before the backward the
+step's item counts (`task.item_counts`) are summed over the data group,
+each rank's loss is its sum over those global counts, and after the
+last microbatch the gradients are summed over the group: one flat
+bucket a dtype (the f32 master grads, with the loss), one all-reduce a
+step, counted in `grad_allreduces`. Clip, schedule and update then run
+on identical gradients, so the ranks' states stay identical. BatchNorm
+reduces its statistics over the group (models/resnet.py
+`sync_batch_stats`). `evaluate` splits each eval batch (padded to a
+multiple of the ranks, `eval_mask` marking the real rows) and sums its
+three statistics over the group. Log windows count global items; MFU is
+a rank's FLOPs (the global step's over the ranks) over the card's peak.
+A gang of one (a group of size 1) takes the same path, all-reduces
+included; without a group the step is the single-card one above.
 """
 
 from __future__ import annotations
 
-import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -69,7 +89,15 @@ from kubeflow_tpu_torch.observability.mfu import (
     peak_flops_per_chip,
 )
 from kubeflow_tpu_torch.observability.trace import default_tracer
-from kubeflow_tpu_torch.training.data import to_device
+from kubeflow_tpu_torch.parallel import distributed as gang
+from kubeflow_tpu_torch.parallel.mesh import data_group, mesh_from_config
+from kubeflow_tpu_torch.training.data import (
+    local_rows,
+    row_indices,
+    shard_batch,
+    to_device,
+)
+from kubeflow_tpu_torch.training.prefetch import DevicePrefetcher
 from kubeflow_tpu_torch.training.tasks import (
     clip_by_global_norm,
     make_optimizer,
@@ -143,12 +171,38 @@ class StepMetrics:
 class Trainer:
     """Builds the model, task and optimizer for one (model, config) on
     one device. `device` defaults to "cuda" and raises without CUDA
-    unless "cpu" is asked for."""
+    unless "cpu" is asked for. In a `torch.distributed` group the trainer
+    is this rank's: `self.mesh` is the DeviceMesh of `cfg.mesh` over the
+    group's ranks, and names the data group."""
 
     def __init__(self, cfg: TrainingConfig, model=None, task=None,
                  device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        # the gang: a group (of any size, one included) takes the
+        # data-parallel step; without one the mesh must be one device
+        self.distributed = torch.distributed.is_initialized()
+        self.world, self.rank = gang.world_size(), gang.rank()
+        self.mesh = None
+        self._group = None
+        if self.distributed:
+            backend = torch.distributed.get_backend()
+            self.mesh = mesh_from_config(
+                cfg.mesh, device_type="cuda" if backend == "nccl" else "cpu")
+            self._group = data_group(self.mesh)
+        elif cfg.mesh.num_devices != 1:
+            raise ValueError(
+                f"mesh spec needs {cfg.mesh.num_devices} devices "
+                f"({cfg.mesh.axis_sizes()}), got 1: start the gang's "
+                f"processes (runtime/launcher.py) with its rendered env")
+        # this rank's rows of each global batch, and their indices
+        self._rows = (local_rows(cfg.global_batch_size, self.rank,
+                                 self.world, cfg.accum_steps)
+                      if self.distributed else None)
+        self._row_index = (row_indices(self._rows) if self.world > 1
+                           else None)
+        # gradient all-reduces issued (one a data-parallel step)
+        self.grad_allreduces = 0
         if model is None:
             # the config's context window, remat and attention reach an
             # LM's factory (JAX trainer.py:97-124)
@@ -166,6 +220,12 @@ class Trainer:
             raise ValueError(f"model is on {model.device}, the trainer on "
                              f"{self.device}")
         self.model = model.trainable()
+        if self.distributed:
+            self._check_replicated()
+        if self.world > 1:
+            from kubeflow_tpu_torch.models.resnet import sync_batch_stats
+
+            sync_batch_stats(self.model, self._group)
         self.task = task if task is not None else task_for_model(cfg.model, cfg)
         mcfg = self.model.cfg
         if task is None and hasattr(self.task, "vocab_size"):
@@ -199,6 +259,27 @@ class Trainer:
         # dropout draws from a generator made for each step
         self._dropout = getattr(self.model.cfg, "dropout_rate", 0.0) > 0
 
+    def _check_replicated(self) -> None:
+        """Every parameter's spec on the mesh (training/annotations.py over
+        parallel/sharding.py) must be replicated: the data-parallel step
+        keeps whole leaves on every rank."""
+        from kubeflow_tpu_torch.parallel.mesh import mesh_shape
+        from kubeflow_tpu_torch.parallel.sharding import (
+            is_replicated,
+            param_specs,
+        )
+        from kubeflow_tpu_torch.training.annotations import logical_axes_for
+
+        sizes = mesh_shape(self.mesh)
+        specs = param_specs(logical_axes_for(
+            self.model, fsdp_size=sizes.get("fsdp", 1),
+            mesh_axis_sizes=sizes), mesh=sizes)
+        sharded = sorted(n for n, spec in specs.items()
+                         if not is_replicated(spec))
+        if sharded:
+            raise ValueError(f"mesh {sizes} shards {sharded[:3]}...; the "
+                             f"port's step runs the data axis only")
+
     # ---- state -----------------------------------------------------------
 
     def init_state(self) -> TrainState:
@@ -226,11 +307,16 @@ class Trainer:
         gen.manual_seed(dropout_seed(self.cfg.seed, step, micro))
         return {"dropout_generator": gen}
 
+    def local_batch(self, batch):
+        """This rank's rows of a global batch (the batch itself without a
+        gang)."""
+        return batch if self._rows is None else shard_batch(batch, self._rows)
+
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         """One update, in place → (state, {"loss": device scalar}). `batch`
         is the task's (numpy or device tensors): [B, S]
-        input_ids/attention_mask, or image [B, H, W, 3] and label [B]. No
-        host sync."""
+        input_ids/attention_mask, or image [B, H, W, 3] and label [B]; in
+        a gang, this rank's rows (`local_batch`). No host sync."""
         model, opt = state.model, state.optimizer
         if self.cfg.accum_steps > 1 and any(
                 is_batch_stat(n) for n, _ in model.named_buffers()):
@@ -245,34 +331,51 @@ class Trainer:
         augment = getattr(self.task, "augment_batch", None)
         if augment is not None and self.cfg.data.augment != "none":
             # every stream is a pure function of (seed, step): a resumed
-            # run replays the same crops
-            batch = augment(batch, state.step)
+            # run replays the same crops; a rank crops its rows as a
+            # world-1 run would
+            batch = augment(batch, state.step, rows=self._row_index)
             self.augment_device = batch["image"].device.type
         model.train()
         params = [p for p in model.parameters() if p.requires_grad]
         opt.zero_grad(set_to_none=True)
-        if self.cfg.accum_steps > 1:
-            # Σ w_i·g_i / Σ w_i with w_i the microbatch's valid pairs: the
-            # full-batch token-mean gradient even under ragged masks
+        a = self.cfg.accum_steps
+        micro = self._microbatches(batch) if a > 1 else [batch]
+        counts = None
+        if self.distributed:
+            # the global batch's denominators, before any backward
+            counts = torch.stack([self.task.item_counts(sub) for sub in micro])
+            torch.distributed.all_reduce(counts, group=self._group)
+        loss_sum = w_sum = None
+        if a > 1:
             loss_sum = torch.zeros((), device=self.device)
             w_sum = torch.zeros((), device=self.device)
-            for i, sub in enumerate(self._microbatches(batch)):
-                loss_i, out_i = self.task.loss(
-                    model, sub, **self._loss_kwargs(state.step, i))
-                # tasks without an item count weight microbatches equally
-                w_i = out_i.get("loss_items", torch.ones((), device=self.device))
+        for i, sub in enumerate(micro):
+            kwargs = self._loss_kwargs(state.step, i)
+            if counts is not None:
+                kwargs["counts"] = counts[i]
+            with self._dropout_rows(sub):
+                loss_i, out_i = self.task.loss(model, sub, **kwargs)
+                if a == 1:
+                    loss_i.backward()
+                    loss_sum = loss_i.detach()
+                    continue
+                # Σ w_i·g_i / Σ w_i with w_i the microbatch's valid pairs:
+                # the full-batch token-mean gradient even under ragged
+                # masks (tasks without an item count weight equally)
+                w_i = out_i.get("loss_items",
+                                torch.ones((), device=self.device))
                 (loss_i * w_i).backward()
-                loss_sum = loss_sum + loss_i.detach() * w_i
-                w_sum = w_sum + w_i
+            loss_sum = loss_sum + loss_i.detach() * w_i
+            w_sum = w_sum + w_i
+        if self.distributed:
+            loss_sum = self._all_reduce_grads(params, loss_sum)
+        if a > 1:
             w_sum = w_sum.clamp_min(1e-9)
             for p in params:
                 p.grad.div_(w_sum)
             loss = loss_sum / w_sum
         else:
-            loss, _ = self.task.loss(model, batch,
-                                     **self._loss_kwargs(state.step))
-            loss.backward()
-            loss = loss.detach()
+            loss = loss_sum
         if self._clip:
             clip_by_global_norm([p.grad for p in params], MAX_GRAD_NORM)
         # optax evaluates the schedule at the update count BEFORE this
@@ -284,20 +387,72 @@ class Trainer:
         state.step += 1
         return state, {"loss": loss}
 
+    def _dropout_rows(self, sub):
+        """In a gang of several ranks, dropout draws the global
+        microbatch's masks and keeps this rank's rows."""
+        if self.world == 1 or not self._dropout:
+            return contextlib.nullcontext()
+        from kubeflow_tpu_torch.models.layers import dropout_rows
+
+        rows = next(iter(sub.values())).shape[0]
+        return dropout_rows(self.rank * rows, self.world * rows)
+
+    def _all_reduce_grads(self, params, loss_part: torch.Tensor
+                          ) -> torch.Tensor:
+        """Sum every gradient (and the loss's partial sum) over the data
+        group in one flat bucket a dtype, in place; returns the summed
+        loss."""
+        for p in params:
+            if p.grad is None:  # a leaf this step did not reach
+                p.grad = torch.zeros_like(p)
+        # the f32 bucket (the master weights' grads) carries the loss last
+        buckets: Dict[torch.dtype, List[torch.Tensor]] = {torch.float32: []}
+        for p in params:
+            buckets.setdefault(p.grad.dtype, []).append(p.grad)
+        for dtype, grads in buckets.items():
+            parts = [g.reshape(-1) for g in grads]
+            if dtype == torch.float32:
+                parts.append(loss_part.reshape(1).float())
+            flat = torch.cat(parts)
+            torch.distributed.all_reduce(flat, group=self._group)
+            offset = 0
+            for g in grads:
+                n = g.numel()
+                g.copy_(flat[offset:offset + n].view_as(g))
+                offset += n
+            if dtype == torch.float32:
+                # a copy: a view would keep the bucket alive while the
+                # log window holds the loss
+                loss = flat[offset].clone()
+        self.grad_allreduces += 1
+        return loss
+
     # ---- eval ------------------------------------------------------------
 
     def evaluate(self, state: TrainState, eval_data) -> Dict[str, float]:
         """A pass over the eval split (`eval_batches`, the model in eval
         mode) → {top1, loss, count}. Each batch's three sums are read on
-        the host, as the JAX package reads them."""
+        the host, as the JAX package reads them; in a gang each rank
+        takes its rows of the batch (padded to a multiple of the ranks,
+        the padding masked by `eval_mask`) and the sums are summed over
+        the data group first."""
         correct = count = loss_sum = 0.0
         state.model.eval()
+        batches = (eval_data.eval_batches(pad_to_multiple=self.world)
+                   if self.distributed else eval_data.eval_batches())
         with torch.no_grad():
-            for batch_np in eval_data.eval_batches():
+            for batch_np in batches:
+                if self.distributed:
+                    rows = next(iter(batch_np.values())).shape[0]
+                    batch_np = shard_batch(batch_np, local_rows(
+                        rows, self.rank, self.world))
                 stats = self.task.eval_stats(
                     state.model, to_device(batch_np, self.device))
-                values = torch.stack([stats["correct"], stats["count"],
-                                      stats["loss_sum"]]).tolist()
+                sums = torch.stack([stats["correct"], stats["count"],
+                                    stats["loss_sum"]])
+                if self.distributed:
+                    torch.distributed.all_reduce(sums, group=self._group)
+                values = sums.tolist()
                 correct += values[0]
                 count += values[1]
                 loss_sum += values[2]
@@ -358,12 +513,45 @@ class Trainer:
                 eval_data = built_eval
         state = state if state is not None else self.init_state()
         start, end = state.step, state.step + steps
-        # synthetic image batches are made on the card: no host normals
-        # and no host→device copy a step
+        # several ranks: each reads and decodes only its rows of a batch
+        get_batch = data.batch_at
+        if self.world > 1 and hasattr(data, "lazy_batch_at"):
+            get_batch = data.lazy_batch_at
+        # synthetic batches are made on the card: no host arrays and no
+        # host→device copy a step
         device_gen = None
         if cfg.data.name == "synthetic" and hasattr(data, "device_batch_fn"):
-            device_gen = data.device_batch_fn(self.device)
+            gen_fn = data.device_batch_fn(self.device)
+            device_gen = lambda i: self.local_batch(gen_fn(i))  # noqa: E731
         self.input_path = "device" if device_gen is not None else "host"
+        # host-fed: batches made and copied ahead of their step on the
+        # prefetcher's thread (same step indices, so any depth trains on
+        # the same sequence); depth 0 reads each in the loop
+        prefetcher: Optional[DevicePrefetcher] = None
+        if device_gen is None and cfg.data.prefetch_depth > 0 and steps > 0:
+            prefetcher = DevicePrefetcher(
+                lambda i: self.local_batch(get_batch(i)),
+                lambda b: to_device(b, self.device),
+                start_step=start, end_step=end,
+                depth=cfg.data.prefetch_depth, model_label=cfg.model,
+                device=self.device,
+            ).start()
+        try:
+            return self._fit_loop(state, start, end, get_batch, device_gen,
+                                  prefetcher, eval_data, checkpoint_manager,
+                                  log_every, stop_event)
+        finally:
+            # every exit (normal, early stop, a non-finite loss, a data
+            # error) reaps the worker thread
+            if prefetcher is not None:
+                prefetcher.close()
+
+    def _fit_loop(self, state: TrainState, start: int, end: int, get_batch,
+                  device_gen, prefetcher: Optional[DevicePrefetcher],
+                  eval_data, checkpoint_manager, log_every: int,
+                  stop_event) -> Optional[StepMetrics]:
+        cfg = self.cfg
+        steps = end - start
         model_label = cfg.model
         step_hist = training_step_histogram()
         thpt = training_items_gauge()
@@ -376,11 +564,6 @@ class Trainer:
         eval_every = cfg.data.eval_every_steps if eval_data is not None else 0
         target = cfg.data.target_accuracy if eval_data is not None else 0.0
         eval_metrics: Dict[str, float] = {}
-        # read-ahead: batches made and enqueued on the device before the
-        # step that takes them (same step indices, so any depth trains on
-        # the same sequence)
-        ahead: collections.deque = collections.deque()
-        next_fetch = start
 
         last: Optional[StepMetrics] = None
         # this window's (step, device loss): all read with the window's one
@@ -398,14 +581,11 @@ class Trainer:
             with tracer.span("train.host_wait", model=model_label, step=i):
                 if device_gen is not None:
                     batch = batch_np = device_gen(i)
+                elif prefetcher is not None:
+                    batch_np, batch = prefetcher.get(i)
                 else:
-                    while next_fetch < end and (
-                        not ahead or len(ahead) <= cfg.data.prefetch_depth
-                    ):
-                        host = data.batch_at(next_fetch)
-                        ahead.append((host, to_device(host, self.device)))
-                        next_fetch += 1
-                    batch_np, batch = ahead.popleft()
+                    batch_np = self.local_batch(get_batch(i))
+                    batch = to_device(batch_np, self.device)
             waited = time.monotonic() - t_wait
             host_wait.observe(waited, model=model_label)
             overhead_s += waited
@@ -469,7 +649,8 @@ class Trainer:
                       else max(compile_s, 1e-9))
                 t_last = now
                 steps_since_log = 0
-                items = self.task.count_items(batch_np)
+                # the global step's items: every rank feeds as many
+                items = self.task.count_items(batch_np) * self.world
                 step_hist.observe(dt, model=model_label)
                 thpt.set(items / dt, model=model_label)
                 aux: Dict[str, float] = {}
@@ -516,7 +697,10 @@ class Trainer:
     def _read_losses(self, pending: List[Tuple[int, torch.Tensor]]) -> float:
         """Read the window's losses in one host sync into `self.losses`;
         returns the last. A non-finite one stops the run: a "succeeded"
-        run with a NaN loss is a silent failure."""
+        run with a NaN loss is a silent failure. Nothing pending (a run
+        stopping at its fenced first step): the last loss read."""
+        if not pending:
+            return self.losses[-1][1]
         values = torch.stack([loss for _, loss in pending]).tolist()
         for (step, _), loss in zip(pending, values):
             self.losses.append((step, loss))

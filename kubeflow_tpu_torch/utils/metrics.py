@@ -296,6 +296,15 @@ def training_goodput_gauge() -> Gauge:
     )
 
 
+def prefetch_queue_depth_gauge() -> Gauge:
+    """Device-ready batches sitting in the DevicePrefetcher's queue."""
+    return default_registry().gauge(
+        "training_prefetch_queue_depth",
+        "device-ready batches buffered ahead of the train step",
+        ["model"],
+    )
+
+
 # -- the :predict path (serving/server.py, serving/batching.py) ---------------
 
 FUSED_BATCH_ROWS_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)

@@ -133,11 +133,11 @@ def test_sgd_nesterov_recipe_equals_optax():
 def test_resnet50_yaml_parses_into_equal_configs():
     with open("configs/resnet50_imagenet_v5e16.yaml") as f:
         training = yaml.safe_load(f)["training"]
-    with pytest.raises(ConfigError, match="A13 item 1"):
-        TrainingConfig.from_dict(training)
-    training = {k: v for k, v in training.items() if k != "mesh"}
+    # the config's pure data-parallel mesh (data: 16) is ported
     port = TrainingConfig.from_dict(training)
     ref = jfrom_dict(JTrainingConfig, training)
+    assert port.mesh.axis_sizes() == ref.mesh.axis_sizes()
+    assert port.mesh.data == 16 and port.mesh.num_devices == 16
     for f in ("model", "global_batch_size", "steps", "learning_rate",
               "warmup_steps", "weight_decay", "label_smoothing", "dtype"):
         assert getattr(port, f) == getattr(ref, f), f

@@ -112,7 +112,11 @@ def test_device_mlm_stream_is_deterministic_with_the_streams_statistics():
     assert (batch["attention_mask"] == 1).all()
     assert set(batch["nsp_labels"].tolist()) == {0, 1}
     assert batch["nsp_labels"].shape == (64,)
-    assert SyntheticData("lm", 2).device_batch_fn("cpu") is None
+    # the causal-LM stream is made on the device too (its own tests:
+    # test_torch_lm_stream.py)
+    lm = SyntheticData("lm", 2, seq_len=8, vocab_size=VOCAB).device_batch_fn(
+        "cpu")(0)
+    assert set(lm) == {"input_ids", "attention_mask"}
 
 
 @pytest.fixture(scope="module")

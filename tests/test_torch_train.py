@@ -274,8 +274,12 @@ def test_config_refuses_what_it_does_not_honour():
                                     "checkpoint": {"enabled": False}})
     assert isinstance(cfg.checkpoint, CheckpointConfig)
     assert not cfg.checkpoint.enabled and cfg.checkpoint.keep == 3
-    with pytest.raises(ConfigError, match="A13"):
-        TrainingConfig.from_dict({"model": "gpt_tiny", "mesh": {"data": 2}})
+    # the data axis is ported; an fsdp axis still names its ROADMAP item
+    assert TrainingConfig.from_dict(
+        {"model": "gpt_tiny", "global_batch_size": 4,
+         "mesh": {"data": 2}}).mesh.data == 2
+    with pytest.raises(ConfigError, match="A13 item 1"):
+        TrainingConfig.from_dict({"model": "gpt_tiny", "mesh": {"fsdp": 2}})
     with pytest.raises(ConfigError, match="unknown field"):
         TrainingConfig.from_dict({"model": "gpt_tiny", "bogus": 1})
     with pytest.raises(ConfigError, match="A14"):
@@ -286,7 +290,7 @@ def test_config_refuses_what_it_does_not_honour():
         TrainingConfig.from_dict({"model": "gpt_tiny",
                                   "data": {"eval_every_steps": 5}})
     with pytest.raises(TypeError):
-        TrainingConfig(model="gpt_tiny", mesh={"data": 2})
+        TrainingConfig(model="gpt_tiny", profiler_logdir="/tmp/prof")
     with pytest.raises(ConfigError, match="accum_steps"):
         TrainingConfig(model="gpt_tiny", global_batch_size=6, accum_steps=4)
     with pytest.raises(ConfigError, match="requires data.path"):
