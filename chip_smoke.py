@@ -224,6 +224,37 @@ Phases (any failure raises and the script exits non-zero):
    twice each, deterministic cuDNN: losses and weights bit for bit; the
    train.host_wait share of each run printed. The kernels line gives
    each flash row its `dp_launches` (17b; a row at 0 fails).
+18. MoE (MOE_MODEL: gpt_small_moe, gpt_small with every MLP a Switch
+   MoE of 8 experts, top-1, capacity factor 1.25; seeded weights; the
+   serving geometry of phase 5). 18a, f32 over REST: two greedy
+   requests (one past the largest bucket) through the paged kernels and
+   through gather give the same tokens. 18b, bf16 (the MoE main path):
+   phase 5's traffic; every reply 200; each request that took no prefix
+   hit is served again alone by a fresh engine of the same geometry
+   (the same tokens, its routes recorded) and replayed in f32 fed its
+   tokens and routed as the engine routed it: each emitted token's f32
+   logit within DELTA of its position's max (the phase-5 rescore, which
+   routes in f32 on its own, is printed: a route that rounding flips
+   moves a token by a whole expert); no choice dropped at a decode
+   step; routed + dropped positions = the positions fed x layers x k;
+   both paged kernels launched. Printed: decode_step_ms beside phase
+   5's, a profiled decode window's device busy and copy/cast share, the
+   `moe:` statusz line. 18c, int8: two greedy requests answer 200
+   through the int8 kernels alone; phase 10's accuracy gate on the int8
+   envelope (the [E, ...] stacks included), bf16 and f32, with both
+   forwards routed alike; each routing on its own, the loss delta is
+   gated and the logit error and flipped routes printed. 18d:
+   gpt_small_moe through phase 7 (f32 flash against dense, losses rel
+   1e-5, MOE_TRAIN_LEAVES' updates rel 1e-4), moe_aux_loss finite.
+   18e: `run_training` of MOE_TRAIN_CFG (configs/gpt_moe_v5e16.yaml at
+   one card's share, `mesh: {data: 1}`): finite losses, flash launches
+   equal the formula; printed: tokens/sec/card, step ms, MFU
+   (`lm_train_flops`' MoE count), device busy, the dispatch and combine
+   einsums' share of it (timed alone at the step's shapes), peak
+   memory. 18f: bert_base_moe through 16a's step for 3 steps: finite
+   losses, one flash launch per layer a step. The kernels line gives
+   each row its `moe_launches` (18b, 18c, 18e; a row at 0 fails) and
+   the flash rows their `moe_bert_launches` (18f).
 
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
@@ -232,6 +263,7 @@ turned off for matmuls and cuDNN below.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -459,6 +491,32 @@ BERT_LOSS_REL, BERT_GRAD_REL = 2e-3, 2e-2
 # preempted during step 2 and resumed, at bert_base's dropout
 BERT_CKPT_STEPS, BERT_CKPT_INTERVAL, BERT_CKPT_PREEMPT = 4, 2, 2
 BERT_DROPOUT = 0.1
+# phase 18: gpt_small_moe (gpt_small with every MLP a Switch MoE of 8
+# experts, top-1, capacity factor 1.25, aux weight 0.01; ~559M
+# parameters; seeded weights) and bert_base_moe. 18a/18c: two greedy
+# prompts, the second past the largest bucket (a head prefill and chunk
+# windows); 18b's decode profile: every slot decoding a 300-token prompt
+MOE_MODEL, MOE_SEED = "gpt_small_moe", 0
+MOE_PROMPTS, MOE_NEW = (37, 300), 16
+MOE_PROFILE_PROMPT, MOE_PROFILE_NEW, MOE_PROFILE_S = 300, 200, 0.5
+# 18d: phase 7's leaves, the MLP's replaced by an expert stack
+MOE_TRAIN_LEAVES = ("layers.0.attention.query.kernel",
+                    "layers.1.attention.key.kernel", "layers.1.moe.wi",
+                    "head.kernel")
+# 18e: configs/gpt_moe_v5e16.yaml at one card's share: its global batch of
+# 64 over data 8 is 8 sequences of 1024 a card, with `mesh: {data: 1}` in
+# place of `{data: 8, expert: 4}` (the expert axis is not ported); cut to
+# 8 steps, warmup 2 (the config's 2000 of 20000)
+MOE_TRAIN_CFG = dict(
+    model=MOE_MODEL, seq_len=1024, global_batch_size=8, remat=True,
+    loss_chunk=1024, assume_full_attention=True, learning_rate=3e-4,
+    warmup_steps=2, weight_decay=0.1, steps=8, dtype="bfloat16",
+    attention_impl="flash", mesh={"data": 1}, checkpoint={"enabled": False},
+)
+MOE_PROFILED = 3
+# 18f: phase 16's BERT-base step (bf16, S=512, batch 32, dropout 0.1) on
+# bert_base_moe, 3 steps
+MOE_BERT_CFG = dict(model="bert_base_moe", steps=3)
 # phase 17: the gang launcher (runtime/launcher.py, one subprocess a rank,
 # render_gang_env's env on 127.0.0.1). 17a: 15a's configuration (one
 # card's share of configs/resnet50_imagenet_v5e16.yaml) and 17b: phase
@@ -892,13 +950,24 @@ def phase_serve_f32(torch, model="gpt_small", device="cuda", prompts=None,
 def rescore(torch, f32_model, prompt, tokens):
     """Largest gap, over the emitted tokens, between a position's max f32
     logit and the emitted token's (teacher-forced, non-paged forward)."""
+    return rescore_gaps(torch, f32_model, prompt, tokens).max().item()
+
+
+def rescore_gaps(torch, f32_model, prompt, tokens):
+    """Each emitted token's gap below its position's max f32 logit
+    (teacher-forced, non-paged forward)."""
     seq = torch.tensor([prompt + tokens], device=f32_model.device)
     with torch.inference_mode():
         logits = f32_model(seq)[0]
     p = len(prompt)
-    rows = logits[p - 1 : p - 1 + len(tokens)]
-    picked = rows[torch.arange(len(tokens)), torch.tensor(tokens, device=rows.device)]
-    return (rows.max(dim=-1).values - picked).max().item()
+    return logit_gaps(torch, logits[p - 1 : p - 1 + len(tokens)], tokens)
+
+
+def logit_gaps(torch, rows, tokens):
+    """rows [n, V] f32 logits: each row's max minus token i's logit."""
+    picked = rows[torch.arange(len(tokens)),
+                  torch.tensor(tokens, device=rows.device)]
+    return rows.max(dim=-1).values - picked
 
 
 def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
@@ -1326,15 +1395,17 @@ def phase_flash(torch):
     return main, bert
 
 
-def phase_train_f32(torch, model="gpt_small", seq=1024, device="cuda"):
-    """Phase 7: the same 3 f32 steps (`Trainer.fit`) through the flash
-    kernels and dense, from one seeded init on the same batches: per-step
-    losses and the updates of TRAIN_LEAVES must agree."""
+def phase_train_f32(torch, model="gpt_small", seq=1024, device="cuda",
+                    leaves=TRAIN_LEAVES, tag="train f32"):
+    """Phase 7 (18d with an MoE `model` and its `leaves`): the same 3 f32
+    steps (`Trainer.fit`) through the flash kernels and dense, from one
+    seeded init on the same batches: per-step losses and the updates of
+    `leaves` must agree. Returns each run's last log window's aux."""
     from kubeflow_tpu_torch.config.platform import TrainingConfig
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.training.trainer import Trainer
 
-    losses, launches, updates = {}, {}, {}
+    losses, launches, updates, auxes = {}, {}, {}, {}
     for impl in ("flash", "dense"):
         cfg = TrainingConfig(
             model=model, seq_len=seq, global_batch_size=2, steps=3,
@@ -1343,20 +1414,21 @@ def phase_train_f32(torch, model="gpt_small", seq=1024, device="cuda"):
         )
         trainer = Trainer(cfg, device=device)
         state = trainer.init_state()
-        init = {n: state.params[n].detach().clone() for n in TRAIN_LEAVES}
+        init = {n: state.params[n].detach().clone() for n in leaves}
         fa.reset_launch_counts()
-        trainer.fit(state=state, log_every=cfg.steps)
+        last = trainer.fit(state=state, log_every=cfg.steps)
         launches[impl] = dict(fa.launch_counts)
         losses[impl] = [loss for _, loss in trainer.losses]
+        auxes[impl] = dict(last.aux)
         updates[impl] = {n: state.params[n].detach() - init[n]
-                         for n in TRAIN_LEAVES}
-        print(f"train f32 {impl}: losses {losses[impl]} launches "
+                         for n in leaves}
+        print(f"{tag} {impl}: losses {losses[impl]} launches "
               f"{launches[impl]}", flush=True)
         del trainer, state, init
     worst = max(abs(a - b) / abs(b) for a, b in zip(losses["flash"], losses["dense"]))
     gaps = {n: ((updates["flash"][n] - updates["dense"][n]).norm()
-                / updates["dense"][n].norm()).item() for n in TRAIN_LEAVES}
-    print(f"train f32: worst relative loss gap flash vs dense {worst:.3e} "
+                / updates["dense"][n].norm()).item() for n in leaves}
+    print(f"{tag}: worst relative loss gap flash vs dense {worst:.3e} "
           f"(rel {TRAIN_LOSS_REL:g}); relative gap of each leaf's 3-step "
           f"update {json.dumps(gaps)} (rel {TRAIN_UPDATE_REL:g}); update "
           f"norms {json.dumps({n: u.norm().item() for n, u in updates['dense'].items()})}",
@@ -1368,6 +1440,7 @@ def phase_train_f32(torch, model="gpt_small", seq=1024, device="cuda"):
     if device == "cuda" and (min(launches["flash"].values()) < 1
                              or any(launches["dense"].values())):
         raise AssertionError(f"flash launches wrong: {launches}")
+    return auxes
 
 
 def phase_train_bf16(torch, overrides=None, device="cuda"):
@@ -3000,7 +3073,7 @@ def device_busy_ms(torch, trainer, state, steps, top=6):
     return busy, sorted(events, key=lambda e: -e.self_device_time_total)[:top]
 
 
-def phase_bert_train(torch, overrides=None, device="cuda"):
+def phase_bert_train(torch, overrides=None, device="cuda", tag="bert 16a"):
     """16a, the main path: `Trainer.fit` of BERT_CFG (bert_base through
     the flash kernels, dropout 0.1, the mlm stream on the card). Gates:
     every loss finite, the input made on the device, each flash kernel
@@ -3030,7 +3103,7 @@ def phase_bert_train(torch, overrides=None, device="cuda"):
         busy, top = device_busy_ms(torch, trainer, trainer._final_state,
                                    BERT_PROFILED)
     step_ms = metrics.step_time_s * 1e3
-    print(f"bert 16a ({smi_line() if cuda else device}): {cfg.model} "
+    print(f"{tag} ({smi_line() if cuda else device}): {cfg.model} "
           f"{cfg.dtype} S={cfg.seq_len} batch {cfg.global_batch_size} "
           f"dropout {trainer.model.cfg.dropout_rate} "
           f"{cfg.attention_impl}, {cfg.steps} steps in {wall:.3f} s; "
@@ -3041,20 +3114,20 @@ def phase_bert_train(torch, overrides=None, device="cuda"):
           f"= {100 * busy / step_ms:.1f} % of the steady step (idle "
           f"{100 - 100 * busy / step_ms:.1f} %); max_memory_allocated {peak} B; "
           f"input {trainer.input_path}", flush=True)
-    print("bert 16a: losses " + json.dumps(losses), flush=True)
+    print(f"{tag}: losses " + json.dumps(losses), flush=True)
     for e in top:
         print(f"  {e.self_device_time_total / 1e3 / BERT_PROFILED:9.3f} ms "
               f"a step {e.count / BERT_PROFILED:7.1f}x  {e.key[:80]}",
               flush=True)
     want = {name: cfg.steps * layers for name in launches}
-    print(f"bert 16a: launches {launches} (one per layer a step: {want})",
+    print(f"{tag}: launches {launches} (one per layer a step: {want})",
           flush=True)
     if len(losses) != cfg.steps or not all(np.isfinite(losses)):
-        raise AssertionError(f"16a: losses {losses}")
+        raise AssertionError(f"{tag}: losses {losses}")
     if trainer.input_path != "device":
-        raise AssertionError(f"16a: batches from {trainer.input_path}")
+        raise AssertionError(f"{tag}: batches from {trainer.input_path}")
     if cuda and launches != want:
-        raise AssertionError(f"16a: launches {launches} != {want}")
+        raise AssertionError(f"{tag}: launches {launches} != {want}")
     del trainer, metrics
     return launches
 
@@ -3624,6 +3697,612 @@ def phase_gang(torch, image_ref, lm_ref, layers):
     return launches
 
 
+# -- phase 18: MoE (gpt_small_moe serving and training, bert_base_moe) -------
+
+
+@contextlib.contextmanager
+def route_patch(fn):
+    """Inside, every MoeMlp routes through `fn` (it takes
+    `parallel/moe.py topk_route`'s arguments): the engine's thread too."""
+    from kubeflow_tpu_torch.models import layers
+
+    orig = layers.topk_route
+    layers.topk_route = fn
+    try:
+        yield
+    finally:
+        layers.topk_route = orig
+
+
+def recording_route(torch, log):
+    """`topk_route` that appends each call's choices [B, S, k] to `log`:
+    the same softmax, choices and assignment, so the same bits."""
+    from kubeflow_tpu_torch.parallel import moe
+
+    def route(logits, capacity, k=1):
+        probs = torch.softmax(logits.float(), dim=-1)
+        _, top_i = moe.top_k_choices(probs, k)
+        log.append(top_i)
+        return moe.assign(probs, top_i, capacity)
+
+    return route
+
+
+def forced_route(torch, calls):
+    """`topk_route` that takes each call's choices from `calls` (recorded
+    by `recording_route`, in call order) instead of its own top-k: the
+    gates and capacity are this call's. A recorded call over more rows
+    (the engine's 8-slot decode step) gives its first rows (slot 0)."""
+    from kubeflow_tpu_torch.parallel import moe
+
+    it = iter(calls)
+
+    def route(logits, capacity, k=1):
+        probs = torch.softmax(logits.float(), dim=-1)
+        top_i = next(it)[: logits.shape[0]].to(logits.device)
+        if tuple(top_i.shape) != tuple(probs.shape[:2]) + (k,):
+            raise AssertionError(f"a forced route of shape {tuple(top_i.shape)} "
+                                 f"for logits {tuple(logits.shape)}")
+        return moe.assign(probs, top_i, capacity)
+
+    return route
+
+
+def record_then_force(torch, n, log):
+    """`topk_route` whose first `n` calls record into `log` and whose next
+    `n` replay those choices: two forwards over the same input (a
+    reference and a perturbed model) routed alike."""
+    record, force = recording_route(torch, log), forced_route(torch, log)
+    calls = [0]
+
+    def route(logits, capacity, k=1):
+        calls[0] += 1
+        return (record if calls[0] <= n else force)(logits, capacity, k)
+
+    return route
+
+
+def moe_replay_gaps(torch, f32_model, prompt, tokens, routes, buckets,
+                    chunk):
+    """Each emitted token's gap below its position's max f32 logit, from
+    a replay of one engine request in the engine's geometry (its prefill
+    bucket, or the largest bucket's head prefill and the chunk windows;
+    then one-token decode steps fed the emitted tokens), every MoE layer
+    routed as the engine routed it (`routes`, recorded in call order)."""
+    from kubeflow_tpu_torch.serving.engine import bucket_for
+
+    dev, p, largest = f32_model.device, len(prompt), buckets[-1]
+    rows = []
+    with route_patch(forced_route(torch, routes)), torch.inference_mode():
+        if p <= largest:
+            ids = torch.zeros((1, bucket_for(p, buckets)), dtype=torch.long)
+            ids[0, :p] = torch.tensor(prompt)
+            mask = torch.zeros(ids.shape, dtype=torch.bool)
+            mask[0, :p] = True
+            logits, cache = f32_model.prefill(ids.to(dev), mask.to(dev))
+            rows.append(logits[0, p - 1])
+        else:
+            ids = torch.tensor([prompt[:largest]], device=dev)
+            _, cache = f32_model.prefill(ids, torch.ones_like(ids,
+                                                              dtype=torch.bool))
+            pos = largest
+            while pos < p:
+                nreal = min(chunk, p - pos)
+                window = torch.zeros((1, chunk), dtype=torch.long)
+                window[0, :nreal] = torch.tensor(prompt[pos:pos + nreal])
+                logits = f32_model.decode(window.to(dev), cache)
+                if pos + nreal >= p:
+                    rows.append(logits[0, p - 1 - pos])
+                pos += chunk
+            # the engine's cursor: the window's pad tail stays invisible
+            # and is overwritten by the decode steps
+            cache.index = p
+            cache.position = torch.full_like(cache.position, p)
+        for t in tokens[:-1]:
+            rows.append(f32_model.decode(
+                torch.tensor([[t]], device=dev), cache)[0, 0])
+    return logit_gaps(torch, torch.stack(rows), tokens)
+
+
+def moe_weights(torch, model, dtype, state, device):
+    """`model` built in `dtype` on `device` with the weights `state`."""
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    m = get_model(model, device="meta", dtype=dtype).to_empty(device=device)
+    m.load_state_dict(state)
+    return m
+
+
+def phase_moe_serve_f32(torch, f32_model, model=MOE_MODEL, device="cuda",
+                        prompts=MOE_PROMPTS, max_new=MOE_NEW, buckets=BUCKETS):
+    """18a: `model` f32 behind the REST server (8 slots, page 16, phase
+    5's buckets), two greedy requests (the second past the largest
+    bucket: a head prefill and chunk windows), once through the paged
+    kernels and once through gather: the tokens must be equal. → the
+    kernel run's launches."""
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    params = f32_model.state_dict()
+    rng = np.random.default_rng(18)
+    rows = [rng.integers(0, f32_model.cfg.vocab_size, n).tolist()
+            for n in prompts]
+    tokens, launches = {}, {}
+    os.environ["KFT_SERVING_PREFILL_BUCKETS"] = buckets
+    try:
+        for impl in ("kernel", "gather"):
+            ms, httpd = serve(model, torch.float32, device,
+                              paged_attention=impl, num_slots=8,
+                              page_size=16, params=params)
+            try:
+                pa.reset_launch_counts()
+                tokens[impl] = []
+                for prompt in rows:
+                    status, out = post(httpd.port, model, {
+                        "prompt_ids": [prompt], "max_new_tokens": max_new})
+                    if status != 200:
+                        raise AssertionError(f"18a {impl}: {status} {out}")
+                    tokens[impl].append(out["sequences"][0][len(prompt):])
+                launches[impl] = dict(pa.launch_counts)
+                moe = ms.engine(model).stats()["moe"]
+            finally:
+                httpd.stop()
+                ms.close()
+            print(f"moe 18a f32 {impl}: tokens {tokens[impl]}; launches "
+                  f"{launches[impl]}; router {json.dumps(moe)}", flush=True)
+    finally:
+        os.environ.pop("KFT_SERVING_PREFILL_BUCKETS", None)
+    if tokens["kernel"] != tokens["gather"]:
+        raise AssertionError(f"18a: kernel tokens {tokens['kernel']} differ "
+                             f"from gather's {tokens['gather']}")
+    if device == "cuda" and (min(launches["kernel"]["paged_decode"],
+                                 launches["kernel"]["paged_window"]) < 1
+                             or any(launches["gather"].values())):
+        raise AssertionError(f"18a: launches {launches}")
+    print("moe 18a: f32 kernel tokens equal gather tokens", flush=True)
+    return launches["kernel"]
+
+
+def moe_decode_profile(torch, eng, vocab, layers, prompt=MOE_PROFILE_PROMPT,
+                       max_new=MOE_PROFILE_NEW, window_s=MOE_PROFILE_S):
+    """Every slot of `eng` decoding: (unprofiled ms a decode step, device
+    busy ms a step, the copy/cast kernels' ms a step, the top kernels),
+    as scripts/torch_decode_profile.py reads them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(181)
+    admitted = eng.stats()["admitted"]
+    futures = [eng.submit(rng.integers(0, vocab, prompt), max_new)
+               for _ in range(eng.num_slots)]
+    while eng.stats()["admitted"] < admitted + eng.num_slots:
+        time.sleep(0.01)
+    time.sleep(0.2)
+    s0 = eng.stats()
+    time.sleep(window_s)
+    s1 = eng.stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(window_s)
+        torch.cuda.synchronize()
+    for f in futures:
+        f.wait(600)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    steps = max(sum(e.count for e in events if "paged_decode_kernel" in e.key)
+                / layers, 1)
+    busy = sum(e.self_device_time_total for e in events) / 1e3 / steps
+    casts = sum(e.self_device_time_total for e in events
+                if "copy" in e.key) / 1e3 / steps
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return step_ms_between(s0, s1), busy, casts, steps, top
+
+
+def phase_moe_serve_bf16(torch, f32_model, dense_stats, model=MOE_MODEL,
+                         device="cuda", short=(5, 17, 33, 64, 120),
+                         long_len=LONG_LEN, hit_len=HIT_LEN, max_new=32,
+                         buckets=BUCKETS):
+    """18b, the MoE main path: `model` in bf16 behind the REST server on
+    phase 5's geometry and traffic. Gates: every reply 200; every
+    request that took no prefix hit is served again alone by a fresh
+    engine of the same geometry, its routes recorded, with the same
+    tokens, and replayed in f32 with those tokens and routes: each
+    emitted token's f32 logit within DELTA of its position's max; no
+    drop at a decode step; routed + dropped positions = positions fed ×
+    layers × k; both paged kernels launched. → (launches, summary)."""
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serving.engine import DecodeEngine
+
+    cuda = device == "cuda"
+    os.environ["KFT_SERVING_PREFILL_BUCKETS"] = buckets
+    ms, httpd = serve(model, torch.bfloat16, device, num_slots=8,
+                      page_size=16, params=f32_model.state_dict())
+    try:
+        eng = ms.engine(model)
+        cfg = eng.model.cfg
+        layers, k, vocab = cfg.num_layers, cfg.moe_top_k, cfg.vocab_size
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(0, vocab, n).tolist()
+                   for n in (*short, long_len, hit_len)]
+        results = [None] * len(prompts)
+
+        def run(i):
+            results[i] = post(httpd.port, model, {"prompt_ids": [prompts[i]],
+                                                  "max_new_tokens": max_new})
+
+        warm = rng.integers(0, vocab, eng.prefill_buckets[-1] + 4).tolist()
+        if post(httpd.port, model, {"prompt_ids": [warm],
+                                    "max_new_tokens": 2})[0] != 200:
+            raise AssertionError("18b warm-up failed")
+        # the positions fed to the router, and each decode step's drops
+        progs = eng.programs
+        orig = (progs.prefill, progs.chunk, progs.step)
+        fed, decode_dropped = [0], []
+
+        def prefill(ids, *a):
+            fed[0] += ids.numel()
+            return orig[0](ids, *a)
+
+        def chunk(pool, ids, *a):
+            fed[0] += ids.numel()
+            return orig[1](pool, ids, *a)
+
+        def step(pool, tokens, *a):
+            fed[0] += tokens.numel()
+            out = orig[2](pool, tokens, *a)
+            decode_dropped.append(out[1][1])
+            return out
+
+        progs.prefill, progs.chunk, progs.step = prefill, chunk, step
+        before = eng.stats()
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        # the main path's run: every launch count starts at 0 here
+        pa.reset_launch_counts()
+        t0 = time.monotonic()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.monotonic() - t0
+        prompts.append(prompts[-1])  # the prefix hit with copy-on-write
+        results.append(post(httpd.port, model, {
+            "prompt_ids": [prompts[-1]], "max_new_tokens": max_new}))
+        launches = dict(pa.launch_counts)
+        stats = eng.stats()
+        progs.prefill, progs.chunk, progs.step = orig
+        peak = torch.cuda.max_memory_allocated() if cuda else 0
+        replies = []
+        for prompt, res in zip(prompts, results):
+            if res is None or res[0] != 200:
+                raise AssertionError(f"18b :generate failed: {res}")
+            replies.append(res[1]["sequences"][0][len(prompt):])
+        routed = (stats["moe"]["routed_positions"]
+                  - before["moe"]["routed_positions"])
+        dropped = stats["moe"]["dropped"] - before["moe"]["dropped"]
+        dec_drop = float(torch.stack(decode_dropped).sum()) if decode_dropped else 0.0
+        steps = stats["decode_steps"] - before["decode_steps"]
+        step_ms = step_ms_between(before, stats)
+        gen = max_new * (len(prompts) - 1)
+        print(f"moe 18b ({smi_line() if cuda else device}): "
+              f"{len(results)} requests answered 200; {gen} tokens in "
+              f"{wall:.3f} s = {gen / wall:.1f} tokens/s; decode_step_ms "
+              f"{step_ms:.3f} over {steps} steps (phase 5, dense, this call: "
+              f"{dense_stats['load_decode_step_ms']:.3f} ms, "
+              f"{dense_stats['load_tokens_per_s']:.1f} tokens/s); "
+              f"max_memory_allocated {peak} B", flush=True)
+        print(f"moe 18b: router positions fed {fed[0]} x {layers} layers x "
+              f"k {k} = {fed[0] * layers * k}; routed {routed:g} + dropped "
+              f"{dropped:g} (at decode steps {dec_drop:g}); launches "
+              f"{launches}", flush=True)
+        print(f"moe 18b: hit request ({stats['prefix_hit_tokens']} hit "
+              f"tokens, {stats['cow_copies']} COW) tokens {replies[-1]}",
+              flush=True)
+
+        # every request but the hit, alone on a fresh engine of the same
+        # geometry (a row's bits do not depend on the other slots), its
+        # routes recorded; then the f32 replay with its tokens and routes
+        solo = DecodeEngine("moe-solo", eng.model, device=device,
+                            num_slots=8, page_size=16,
+                            num_pages=stats["pages_total"],
+                            prefill_buckets=eng.prefill_buckets,
+                            prefix_cache=False, paged_attention="kernel")
+        forced, free = [], []
+        largest = eng.prefill_buckets[-1]
+        chunk_len = eng.programs.chunk_len
+        try:
+            for prompt, tokens in zip(prompts[:-1], replies[:-1]):
+                log = []
+                with route_patch(recording_route(torch, log)):
+                    again = solo.generate_row(prompt, max_new)["tokens"]
+                if again != tokens:
+                    raise AssertionError(
+                        f"18b: a {len(prompt)}-token request served alone "
+                        f"gave {again}, in the traffic {tokens}")
+                windows = (0 if len(prompt) <= largest
+                           else -(-(len(prompt) - largest) // chunk_len))
+                if len(log) != layers * (1 + windows + max_new - 1):
+                    raise AssertionError(f"18b: {len(log)} routing calls")
+                forced.append(moe_replay_gaps(
+                    torch, f32_model, prompt, tokens, log,
+                    eng.prefill_buckets, chunk_len).max().item())
+                free.append(rescore_gaps(torch, f32_model, prompt, tokens))
+        finally:
+            solo.close()
+        free = torch.cat(free)
+        worst = max(forced)
+        print(f"moe 18b: worst f32 logit gap of an emitted token, replayed "
+              f"with the engine's tokens and routes, by request {forced} "
+              f"(delta {DELTA}); rescored as phase 5 (a full-sequence "
+              f"forward routing in f32 on its own): worst "
+              f"{free.max().item():.4f}, {int((free > DELTA).sum())} of "
+              f"{free.numel()} tokens over delta", flush=True)
+        status, body = get(httpd.port, "/statusz")
+        moe_line = [ln.strip() for ln in body.decode().splitlines()
+                    if ln.strip().startswith("moe:")]
+        print(f"moe 18b: /statusz {moe_line}", flush=True)
+        summary = {"decode_step_ms": step_ms, "tokens_per_s": gen / wall,
+                   "peak_bytes": peak}
+        if cuda:
+            prof_ms, busy, casts, psteps, top = moe_decode_profile(
+                torch, eng, vocab, layers)
+            print(f"moe 18b decode profile: {prof_ms:.3f} ms a step (8 "
+                  f"slots, unprofiled); device busy {busy:.3f} ms a step "
+                  f"over {psteps:.1f} traced steps = "
+                  f"{100 * busy / prof_ms:.1f} % (idle "
+                  f"{100 - 100 * busy / prof_ms:.1f} %); copy/cast kernels "
+                  f"{casts:.3f} ms a step = {100 * casts / busy:.1f} % of "
+                  f"busy", flush=True)
+            for e in top:
+                print(f"  {e.self_device_time_total / 1e3 / psteps:8.4f} ms "
+                      f"a step {e.count / psteps:6.1f}x  {e.key[:90]}",
+                      flush=True)
+            summary.update(profile_step_ms=prof_ms, busy_ms=busy,
+                           cast_ms=casts)
+        if stats["cow_copies"] < 1 or stats["prefix_hit_tokens"] < 1:
+            raise AssertionError("18b: the repeat did not hit the prefix cache")
+        if not worst <= DELTA:
+            raise AssertionError(f"18b: an emitted token is {worst} below its "
+                                 f"position's max f32 logit (> {DELTA})")
+        if dec_drop != 0.0:
+            raise AssertionError(f"18b: {dec_drop} choices dropped at decode")
+        if routed + dropped != fed[0] * layers * k:
+            raise AssertionError(f"18b: routed {routed} + dropped {dropped} "
+                                 f"!= {fed[0]} x {layers} x {k}")
+        if cuda and min(launches["paged_decode"], launches["paged_window"]) < 1:
+            raise AssertionError(f"18b: launches {launches}")
+        return launches, summary
+    finally:
+        os.environ.pop("KFT_SERVING_PREFILL_BUCKETS", None)
+        httpd.stop()
+        ms.close()
+
+
+def phase_moe_serve_int8(torch, f32_model, model=MOE_MODEL, device="cuda",
+                         prompts=MOE_PROMPTS, max_new=MOE_NEW,
+                         buckets=BUCKETS, accuracy_shape=(4, 256)):
+    """18c: `model` served int8 (int8 weights, the [E, ...] stacks
+    included, dequantized at use; int8 KV pages) in bf16: two greedy
+    requests answer 200 through the kernels' int8 variants alone. Then
+    phase 10's accuracy gate on the int8 envelope, bf16 and f32, with
+    both forwards routed alike (the full-width run's choices replayed in
+    the int8 run): a flipped route moves a token's output by a whole
+    expert, which says nothing of the quantization. The same gate with
+    each forward routing on its own is printed, with the share of
+    (token, layer) routes the int8 weights flip. → the launches."""
+    from kubeflow_tpu_torch.checkpointing.quantize import (
+        quantization_accuracy,
+        quantize_params_int8,
+    )
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    os.environ["KFT_SERVING_PREFILL_BUCKETS"] = buckets
+    state = f32_model.state_dict()
+    try:
+        ms, httpd = serve(model, torch.bfloat16, device, num_slots=8,
+                          page_size=16, quantize="int8", params=state)
+        try:
+            rng = np.random.default_rng(18)
+            pa.reset_launch_counts()
+            for n in prompts:
+                prompt = rng.integers(0, f32_model.cfg.vocab_size, n).tolist()
+                status, out = post(httpd.port, model, {
+                    "prompt_ids": [prompt], "max_new_tokens": max_new})
+                if status != 200:
+                    raise AssertionError(f"18c: {status} {out}")
+            launches = dict(pa.launch_counts)
+            stats = ms.engine(model).stats()
+        finally:
+            httpd.stop()
+            ms.close()
+    finally:
+        os.environ.pop("KFT_SERVING_PREFILL_BUCKETS", None)
+    print(f"moe 18c int8: {len(prompts)} requests answered 200; kv pool "
+          f"{stats['kv_pool_dtype']} x {stats['pages_total']} pages; "
+          f"launches {launches}; router {json.dumps(stats['moe'])}",
+          flush=True)
+    if device == "cuda" and (launches["paged_decode"] or launches["paged_window"]
+                             or min(launches["paged_decode_int8"],
+                                    launches["paged_window_int8"]) < 1):
+        raise AssertionError(f"18c: launches {launches}")
+    cfg = f32_model.cfg
+    ids = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, accuracy_shape)).to(device)
+    for dtype in (torch.bfloat16, torch.float32):
+        full = (f32_model if dtype == torch.float32
+                else moe_weights(torch, model, dtype, state, device))
+        params = full.state_dict()
+        qparams = quantize_params_int8(params)
+        log = []
+        with route_patch(record_then_force(torch, cfg.num_layers, log)):
+            routed = quantization_accuracy(full, params, qparams, ids)
+        free_log = []
+        with route_patch(recording_route(torch, free_log)):
+            free = quantization_accuracy(full, params, qparams, ids)
+        n = cfg.num_layers
+        flips = sum(int((a != b).sum()) for a, b in zip(free_log[:n],
+                                                        free_log[n:]))
+        total = sum(a.numel() for a in free_log[:n])
+        print(f"moe 18c int8 accuracy {str(dtype)[6:]} over "
+              f"{list(accuracy_shape)} held-out tokens, routed alike: "
+              f"{json.dumps(routed)} (limits {json.dumps(ACCURACY)}); each "
+              f"forward routing on its own: {json.dumps(free)}, "
+              f"{flips} of {total} (token, layer) routes flipped", flush=True)
+        if not all(routed[key] <= ACCURACY[key] for key in ACCURACY):
+            raise AssertionError(f"18c: int8 accuracy {routed} above {ACCURACY}")
+        if not free["loss_delta"] <= ACCURACY["loss_delta"]:
+            raise AssertionError(f"18c: int8 loss delta {free} above "
+                                 f"{ACCURACY['loss_delta']}")
+        del full, params, qparams
+    return launches
+
+
+def moe_einsum_ms(torch, b, s, e, c, d, dtype, device):
+    """(forward ms, forward + backward ms) of one MoE layer's dispatch
+    (`bsec,bsd->ebcd`) and combine (`bsec,ebcd->bsd`) einsums at these
+    shapes, medians over CUDA events."""
+    g = torch.Generator(device=device).manual_seed(0)
+    dispatch = (torch.rand((b, s, e, c), generator=g, device=device)
+                < 1.0 / e).to(dtype)
+    combine = (dispatch * 0.5).requires_grad_()
+    x = torch.randn((b, s, d), generator=g, device=device,
+                    dtype=dtype).requires_grad_()
+    out_e = torch.randn((e, b, c, d), generator=g, device=device,
+                        dtype=dtype).requires_grad_()
+    gx = torch.randn((e, b, c, d), generator=g, device=device, dtype=dtype)
+    gy = torch.randn((b, s, d), generator=g, device=device, dtype=dtype)
+
+    def fwd():
+        return (torch.einsum("bsec,bsd->ebcd", dispatch, x),
+                torch.einsum("bsec,ebcd->bsd", combine, out_e))
+
+    def both():
+        torch.autograd.backward(fwd(), (gx, gy))
+
+    def timed(fn):
+        times = []
+        for i in range(8):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    with torch.no_grad():
+        f = timed(fwd)
+    return f, timed(both)
+
+
+def phase_moe_train_bf16(torch, overrides=None, device="cuda"):
+    """18e, the MoE training main path: `run_training` of MOE_TRAIN_CFG
+    (one card's share of configs/gpt_moe_v5e16.yaml) through the flash
+    kernels. Gates: every loss finite, the flash launches equal the
+    config's formula. Prints tokens/sec/card, step ms, MFU, device busy,
+    the dispatch/combine einsums' share of it and peak memory. → the
+    launches."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel.moe import expert_capacity
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    cfg = TrainingConfig(**{**MOE_TRAIN_CFG, **(overrides or {})})
+    trainer = Trainer(cfg, device=device)
+    mcfg = trainer.model.cfg
+    layers = mcfg.num_layers
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    # the main path's run: every launch count starts at 0 here
+    fa.reset_launch_counts()
+    result = run_training(cfg, device=device, log_every=cfg.steps,
+                          trainer=trainer)
+    launches = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    losses = result["losses"]
+    a, r = cfg.accum_steps, 2 if cfg.remat else 1
+    want = {"flash_fwd": cfg.steps * layers * a * r,
+            "flash_bwd_dq": cfg.steps * layers * a,
+            "flash_bwd_dkv": cfg.steps * layers * a}
+    step_ms = result["step_time_s"] * 1e3
+    print(f"moe 18e ({smi_line() if cuda else device}): {cfg.model} "
+          f"{cfg.dtype} seq {cfg.seq_len} batch {cfg.global_batch_size}, "
+          f"{cfg.steps} steps; {result['items_per_sec']:.1f} tokens/sec/card; "
+          f"steady step {step_ms:.3f} ms; mfu {result.get('mfu')}; "
+          f"max_memory_allocated {peak} B; losses {losses}; launches "
+          f"{launches} (formula {want})", flush=True)
+    if cuda:
+        busy, top = device_busy_ms(torch, trainer, trainer._final_state,
+                                   MOE_PROFILED)
+        b = cfg.global_batch_size // a
+        c = expert_capacity(cfg.seq_len * mcfg.moe_top_k, mcfg.num_experts,
+                            mcfg.expert_capacity_factor)
+        fwd, both = moe_einsum_ms(torch, b, cfg.seq_len, mcfg.num_experts, c,
+                                  mcfg.hidden_size, torch.bfloat16, device)
+        # under remat each layer's forward runs twice, its backward once
+        einsums = layers * a * (both + (fwd if cfg.remat else 0.0))
+        print(f"moe 18e: device busy {busy:.3f} ms a step = "
+              f"{100 * busy / step_ms:.1f} % of the steady step (idle "
+              f"{100 - 100 * busy / step_ms:.1f} %); the dispatch and "
+              f"combine einsums, timed alone at the step's shapes (B={b} "
+              f"S={cfg.seq_len} E={mcfg.num_experts} C={c} D="
+              f"{mcfg.hidden_size}: forward {fwd:.3f} ms, forward + backward "
+              f"{both:.3f} ms a layer), {einsums:.3f} ms a step = "
+              f"{100 * einsums / busy:.1f} % of busy", flush=True)
+        for e in top:
+            print(f"  {e.self_device_time_total / 1e3 / MOE_PROFILED:9.3f} ms "
+                  f"a step {e.count / MOE_PROFILED:7.1f}x  {e.key[:80]}",
+                  flush=True)
+    if [st for st, _ in losses] != list(range(1, cfg.steps + 1)):
+        raise AssertionError(f"18e: not every step's loss was read: {losses}")
+    if not all(np.isfinite(loss) for _, loss in losses):
+        raise AssertionError(f"18e: a non-finite loss: {losses}")
+    if cuda and launches != want:
+        raise AssertionError(f"18e: launches {launches} != {want}")
+    del trainer
+    return launches
+
+
+def phase_moe(torch, dense_stats, device="cuda"):
+    """Phase 18: 18a-18c serve gpt_small_moe (f32 on both read paths,
+    bf16 on phase 5's traffic, int8), 18d trains it in f32 flash against
+    dense, 18e in bf16 at one card's share of configs/gpt_moe_v5e16.yaml,
+    18f trains bert_base_moe. → each kernel row's launches on its MoE
+    path (18b, 18c, 18e)."""
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    t18 = time.monotonic()
+    f32_model = get_model(MOE_MODEL, device=device, dtype=torch.float32,
+                          seed=MOE_SEED)
+    phase_moe_serve_f32(torch, f32_model, device=device)
+    launches, _ = phase_moe_serve_bf16(torch, f32_model, dense_stats,
+                                       device=device)
+    launches.update({name: n for name, n in phase_moe_serve_int8(
+        torch, f32_model, device=device).items() if name.endswith("_int8")})
+    del f32_model
+    torch.cuda.empty_cache()
+    auxes = phase_train_f32(torch, model=MOE_MODEL, device=device,
+                            leaves=MOE_TRAIN_LEAVES, tag="moe 18d f32")
+    print(f"moe 18d: moe_aux_loss {json.dumps({k: v.get('moe_aux_loss') for k, v in auxes.items()})}",
+          flush=True)
+    if not all(np.isfinite(v.get("moe_aux_loss", float("nan")))
+               for v in auxes.values()):
+        raise AssertionError(f"18d: moe_aux_loss {auxes}")
+    torch.cuda.empty_cache()
+    launches.update(phase_moe_train_bf16(torch, device=device))
+    torch.cuda.empty_cache()
+    bert = phase_bert_train(torch, overrides=MOE_BERT_CFG, device=device,
+                            tag="moe 18f")
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.monotonic() - t18:.3f} s", flush=True)
+    return launches, bert
+
+
 def main() -> int:
     import torch
 
@@ -3798,6 +4477,16 @@ def main() -> int:
             if rec["dp_launches"] < 1:
                 raise AssertionError(f"the data-parallel path never launched "
                                      f"{rec['name']}")
+    torch.cuda.empty_cache()
+    # this slice's path: MoE serving (18b bf16, 18c int8) and training (18e;
+    # 18f's BERT launches beside them)
+    moe_launches, moe_bert_launches = phase_moe(torch, bf16_stats)
+    for rec in kernels:
+        rec["moe_launches"] = moe_launches[rec["name"]]
+        if rec["name"] in moe_bert_launches:
+            rec["moe_bert_launches"] = moe_bert_launches[rec["name"]]
+        if rec["moe_launches"] < 1:
+            raise AssertionError(f"the MoE path never launched {rec['name']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -54,7 +54,7 @@ MESH_AXES = ("data", "fsdp", "tensor", "pipeline", "sequence", "expert")
 _UNPORTED_MESH_AXES = {
     "fsdp": "A13 item 1 (fsdp)",
     "tensor": "A13 item 2 (tensor parallelism)",
-    "expert": "A13 item 3 (expert parallelism)",
+    "expert": "A13 item 3 (the expert axis above 1; MoE runs at 1)",
     "pipeline": "A13 item 4 (pipeline parallelism)",
     "sequence": "A13 item 5 (sequence parallelism)",
 }

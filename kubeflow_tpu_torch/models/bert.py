@@ -37,9 +37,17 @@ deviations, variance 1 / fan-in), `nn.Embed` tables normal with variance
 family a model is built frozen in eval mode; `trainable()` turns the f32
 master weights trainable.
 
-Not ported yet: "ring" and "ulysses" attention (ROADMAP A13 item 5),
-the MoE presets (`num_experts > 0`, A13 item 3) and `PipelinedEncoder`
-(`pipeline_stages > 1`, A13 item 4); each raises naming its item.
+With `num_experts > 0` every layer's MLP is the routed `moe`
+(`models/layers.py MoeMlp`, param tree `moe/{router,wi,wo}`; the
+`bert_base_moe` and `bert_tiny_moe` presets), fed the f32 residual
+stream as the JAX layer feeds it, so its expert products run in f32;
+its reports go to the forward's `moe` collector. Its init: the router
+normal(0.02), the expert stacks variance-scaled truncated normals over
+their fan-in (flax's initializers).
+
+Not ported yet: "ring" and "ulysses" attention (ROADMAP A13 item 5) and
+`PipelinedEncoder` (`pipeline_stages > 1`, A13 item 4); each raises
+naming its item.
 """
 
 from __future__ import annotations
@@ -56,6 +64,8 @@ from kubeflow_tpu_torch.models.layers import (
     Dense,
     Embed,
     LayerNorm,
+    MoeCollector,
+    MoeMlp,
     dropout,
     remat as remat_fn,
 )
@@ -73,15 +83,12 @@ _UNPORTED_IMPLS = {
     "ring": "ROADMAP A13 item 5 (sequence parallelism)",
     "ulysses": "ROADMAP A13 item 5 (sequence parallelism)",
 }
-# the JAX config's pipeline and expert knobs: only their defaults are
-# ported, anything else raises naming what it waits for
+# the JAX config's pipeline knobs: only their defaults are ported,
+# anything else raises naming what it waits for
 _PIPELINE = "ROADMAP A13 item 4 (PipelinedEncoder)"
-_MOE = "ROADMAP A13 item 3 (MoE)"
 _UNPORTED_FIELDS = {
     "pipeline_stages": (1, _PIPELINE), "num_microbatches": (0, _PIPELINE),
-    "pipeline_schedule": ("gpipe", _PIPELINE), "num_experts": (0, _MOE),
-    "moe_top_k": (1, _MOE), "expert_capacity_factor": (1.25, _MOE),
-    "moe_aux_weight": (0.01, _MOE),
+    "pipeline_schedule": ("gpipe", _PIPELINE),
 }
 
 
@@ -99,10 +106,11 @@ class BertConfig:
     # "dense" | "flash" | "auto"
     attention_impl: str = "dense"
     remat: bool = False
-    # the JAX package's pipeline and expert knobs (_UNPORTED_FIELDS)
+    # the JAX package's pipeline knobs (_UNPORTED_FIELDS)
     pipeline_stages: int = 1
     num_microbatches: int = 0
     pipeline_schedule: str = "gpipe"
+    # > 0 makes every MLP a routed MoE of this many experts
     num_experts: int = 0
     moe_top_k: int = 1
     expert_capacity_factor: float = 1.25
@@ -132,12 +140,14 @@ class BertConfig:
 @dataclasses.dataclass
 class _Call:
     """What every layer of one forward shares: the bool key mask (or
-    None), the resolved attention, and dropout's generator and mode."""
+    None), the resolved attention, dropout's generator and mode, and the
+    MoE layers' collector."""
 
     mask: Optional[torch.Tensor]
     impl: str
     generator: Optional[torch.Generator]
     train: bool
+    moe: Optional[MoeCollector] = None
 
 
 class SelfAttention(nn.Module):
@@ -182,11 +192,23 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.attention = SelfAttention(cfg)
         self.ln_att = LayerNorm(cfg.hidden_size, cfg.dtype)
-        self.mlp = Mlp(cfg)
+        self.routed = cfg.num_experts > 0
+        if self.routed:
+            self.moe = MoeMlp(
+                cfg.hidden_size, cfg.mlp_dim, cfg.num_experts, cfg.dtype,
+                top_k=cfg.moe_top_k,
+                capacity_factor=cfg.expert_capacity_factor,
+                aux_weight=cfg.moe_aux_weight, dropout_rate=cfg.dropout_rate,
+            )
+        else:
+            self.mlp = Mlp(cfg)
         self.ln_mlp = LayerNorm(cfg.hidden_size, cfg.dtype)
 
     def forward(self, x, call: _Call):
         x = self.ln_att(x + self.attention(x, call))
+        if self.routed:
+            return self.ln_mlp(x + self.moe(x, call.moe, call.generator,
+                                            call.train))
         return self.ln_mlp(x + self.mlp(x, call))
 
 
@@ -219,6 +241,14 @@ def init_params(model: nn.Module, seed: int) -> None:
             elif isinstance(module, LayerNorm):
                 module.scale.fill_(1.0)
                 module.bias.zero_()
+            elif isinstance(module, MoeMlp):
+                module.router.copy_(
+                    torch.randn(module.router.shape, generator=gen) * 0.02)
+                for w in (module.wi, module.wo):
+                    # variance_scaling(1, fan_in, truncated_normal) over
+                    # [E, in, out]: the fan-in is the in axis
+                    std = math.sqrt(1.0 / w.shape[-2]) / 0.87962566103423978
+                    w.copy_(_truncated_normal(w.shape, gen) * std)
 
 
 class Bert(nn.Module):
@@ -263,7 +293,8 @@ class Bert(nn.Module):
         return self
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
-                dropout_generator: Optional[torch.Generator] = None
+                dropout_generator: Optional[torch.Generator] = None,
+                moe: Optional[MoeCollector] = None
                 ) -> Dict[str, torch.Tensor]:
         """input_ids [B, S] → {"mlm_logits" f32 [B, S, V], "nsp_logits"
         f32 [B, 2], "pooled" [B, D] in the compute dtype}.
@@ -271,7 +302,8 @@ class Bert(nn.Module):
         `token_type_ids` [B, S] default to segment 0. In train mode with
         `cfg.dropout_rate > 0` dropout draws its masks from
         `dropout_generator` (on the model's device); under `cfg.remat`
-        and grad mode every layer is recomputed in the backward."""
+        and grad mode every layer is recomputed in the backward. An MoE
+        model's layers report to `moe`."""
         cfg = self.cfg
         b, s = input_ids.shape
         mask = None if attention_mask is None else attention_mask.bool()
@@ -281,7 +313,7 @@ class Bert(nn.Module):
         if impl == "auto":
             impl = auto_attention_impl(b, s, cfg.num_heads, cfg.dtype,
                                        device=input_ids.device)
-        call = _Call(mask, impl, dropout_generator, self.training)
+        call = _Call(mask, impl, dropout_generator, self.training, moe)
         positions = torch.arange(s, device=input_ids.device)[None, :]
         x = self.tok_emb(input_ids) + self.pos_emb(positions)
         x = self.ln_emb(x + self.seg_emb(token_type_ids)).to(cfg.dtype)
@@ -321,7 +353,7 @@ def bert_large(**kwargs) -> Bert:
 
 @register_model("bert_base_moe")
 def bert_base_moe(**kwargs) -> Bert:
-    """BERT-base with every MLP a Switch MoE: raises (ROADMAP A13 item 3)."""
+    """BERT-base with every MLP a Switch MoE (8 experts by default)."""
     return _build(dict(num_experts=8), kwargs)
 
 
@@ -335,7 +367,7 @@ def bert_tiny(**kwargs) -> Bert:
 
 @register_model("bert_tiny_moe")
 def bert_tiny_moe(**kwargs) -> Bert:
-    """Test-scale MoE config: raises (ROADMAP A13 item 3)."""
+    """Test-scale MoE config (4 experts)."""
     return _build(dict(vocab_size=512, hidden_size=64, num_layers=2,
                        num_heads=4, mlp_dim=128, max_len=128,
                        dropout_rate=0.0, num_experts=4), kwargs)

@@ -39,6 +39,12 @@ scale buffer and dequantized at its point of use with
 tree at program entry; dequantizing each leaf where it is used gives
 the same bits and keeps the resident weights int8.
 
+With `cfg.num_experts > 0` every block's MLP is the routed `moe`
+(`models/layers.py MoeMlp`; the `gpt_small_moe` and `gpt_tiny_moe`
+presets) on every path; each forward takes an optional `moe` collector
+that its layers report to (routed slots an expert, drops, the
+load-balance loss): the LM task and the engine pass one.
+
 A model is built frozen, for serving (`requires_grad_(False)`, eval
 mode). `trainable()` turns the f32 master weights trainable: every module
 casts them to the compute dtype at use, so gradients land in f32, as in
@@ -60,6 +66,8 @@ from kubeflow_tpu_torch.models.layers import (
     Dense,
     Embed,
     LayerNorm,
+    MoeCollector,
+    MoeMlp,
     dropout,
     remat as remat_fn,
 )
@@ -102,6 +110,12 @@ class GptConfig:
     # paths read through their own kernels)
     attention_impl: str = "dense"
     remat: bool = False
+    # > 0 makes every MLP a routed MoE of this many experts
+    # (models/layers.py MoeMlp, expert-parallel degree 1)
+    num_experts: int = 0
+    moe_top_k: int = 1
+    expert_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
 
     def __post_init__(self):
         if self.attention_impl in _UNPORTED_IMPLS:
@@ -203,6 +217,8 @@ class _Causal:
 
     train = False
     dropout_gen: Optional[torch.Generator] = None
+    # the forward's MoE reports (models/layers.py MoeCollector), or None
+    moe: Optional[MoeCollector] = None
 
     def __init__(self, mask: Optional[torch.Tensor], dtype,
                  impl: str = "dense"):
@@ -238,6 +254,7 @@ class _SlotDecode:
 
     train = False
     dropout_gen = None
+    moe: Optional[MoeCollector] = None
 
     def __init__(self, cache: SlotCache, s: int, dtype):
         self.cache, self.dtype = cache, dtype
@@ -271,6 +288,7 @@ class _Paged:
 
     train = False
     dropout_gen = None
+    moe: Optional[MoeCollector] = None
 
     def __init__(self, pool: KVPool, paged: PagedState, s: int, dtype):
         if paged.attn_impl not in PAGED_ATTENTION_IMPLS:
@@ -341,7 +359,9 @@ class CausalSelfAttention(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """Pre-LN residual block."""
+    """Pre-LN residual block; with `cfg.num_experts > 0` its MLP is the
+    routed `moe` (MoeMlp) on every path, reporting to the call's
+    collector (`ctx.moe`)."""
 
     def __init__(self, cfg: GptConfig):
         super().__init__()
@@ -350,15 +370,26 @@ class DecoderBlock(nn.Module):
         self.ln_att = LayerNorm(cfg.hidden_size, cfg.dtype)
         self.attention = CausalSelfAttention(cfg)
         self.ln_mlp = LayerNorm(cfg.hidden_size, cfg.dtype)
-        self.mlp_wi = Dense((cfg.hidden_size,), (cfg.mlp_dim,), cfg.dtype)
-        self.mlp_wo = Dense((cfg.mlp_dim,), (cfg.hidden_size,), cfg.dtype)
+        self.routed = cfg.num_experts > 0
+        if self.routed:
+            self.moe = MoeMlp(
+                cfg.hidden_size, cfg.mlp_dim, cfg.num_experts, cfg.dtype,
+                top_k=cfg.moe_top_k,
+                capacity_factor=cfg.expert_capacity_factor,
+                aux_weight=cfg.moe_aux_weight, dropout_rate=cfg.dropout_rate,
+            )
+        else:
+            self.mlp_wi = Dense((cfg.hidden_size,), (cfg.mlp_dim,), cfg.dtype)
+            self.mlp_wo = Dense((cfg.mlp_dim,), (cfg.hidden_size,), cfg.dtype)
 
     def forward(self, x, ctx, layer: int):
         h = self.ln_att(x)
         h = self.attention(h.to(self.dtype), ctx, layer)
         x = x + dropout(h, self.dropout_rate, ctx.dropout_gen, not ctx.train)
-        h = self.mlp_wi(self.ln_mlp(x).to(self.dtype))
-        h = self.mlp_wo(F.gelu(h, approximate="tanh"))
+        h = self.ln_mlp(x).to(self.dtype)
+        if self.routed:
+            return x + self.moe(h, ctx.moe, ctx.dropout_gen, ctx.train)
+        h = self.mlp_wo(F.gelu(self.mlp_wi(h), approximate="tanh"))
         return x + dropout(h, self.dropout_rate, ctx.dropout_gen, not ctx.train)
 
 
@@ -445,12 +476,14 @@ class Gpt(nn.Module):
         return auto_attention_impl(b, s, self.cfg.num_heads, self.cfg.dtype,
                                    causal=True, device=input_ids.device)
 
-    def _run(self, input_ids, positions, ctx):
+    def _run(self, input_ids, positions, ctx, moe=None):
+        ctx.moe = moe
         x = self._hidden(input_ids, positions, ctx)
         return self.head(x.to(self.cfg.dtype)).float()
 
     def forward(self, input_ids, attention_mask=None, return_hidden=False,
-                dropout_generator: Optional[torch.Generator] = None):
+                dropout_generator: Optional[torch.Generator] = None,
+                moe: Optional[MoeCollector] = None):
         """Full causal pass → f32 logits [B, S, V]. `attention_mask`
         [B, S] marks real tokens (None = no padding, so the flash kernel
         runs unmasked). `return_hidden=True` returns the post-LN f32
@@ -458,12 +491,14 @@ class Gpt(nn.Module):
         head itself). Under `cfg.remat` and grad mode every block is
         recomputed in the backward. In train mode with
         `cfg.dropout_rate > 0` dropout draws its masks from
-        `dropout_generator` (on the model's device)."""
+        `dropout_generator` (on the model's device). An MoE model's
+        layers report to `moe` (every forward path takes one)."""
         s = input_ids.shape[1]
         mask = None if attention_mask is None else attention_mask.bool()
         positions = torch.arange(s, device=input_ids.device)[None, :]
         ctx = _Causal(mask, self.cfg.dtype, self._attention_impl(input_ids))
         ctx.train, ctx.dropout_gen = self.training, dropout_generator
+        ctx.moe = moe
         remat = self.cfg.remat and torch.is_grad_enabled()
         x = self._hidden(input_ids, positions, ctx, remat=remat)
         if return_hidden:
@@ -483,7 +518,8 @@ class Gpt(nn.Module):
             position=torch.zeros((batch,), dtype=torch.long, device=dev),
         )
 
-    def prefill(self, input_ids, attention_mask=None):
+    def prefill(self, input_ids, attention_mask=None,
+                moe: Optional[MoeCollector] = None):
         """One causal pass over the prompt that also seeds a fresh slot
         cache → (f32 logits [B, S, V], SlotCache). Padded prompt
         positions stay invisible to later decode steps, and each row's
@@ -501,11 +537,12 @@ class Gpt(nn.Module):
         logits = self._run(
             input_ids, positions,
             _SlotPrefill(cache, mask, self.cfg.dtype,
-                         self._attention_impl(input_ids)),
+                         self._attention_impl(input_ids)), moe,
         )
         return logits, cache
 
-    def decode(self, input_ids, cache: SlotCache):
+    def decode(self, input_ids, cache: SlotCache,
+               moe: Optional[MoeCollector] = None):
         """Decode step(s) over the slot cache (updated in place) → f32
         logits [B, s, V]."""
         s = input_ids.shape[1]
@@ -513,12 +550,13 @@ class Gpt(nn.Module):
         positions = cache.position[:, None] + torch.arange(
             s, device=input_ids.device
         )[None, :]
-        logits = self._run(input_ids, positions, ctx)
+        logits = self._run(input_ids, positions, ctx, moe)
         cache.index += s
         cache.position = cache.position + s
         return logits
 
-    def paged_forward(self, input_ids, pool: KVPool, paged: PagedState):
+    def paged_forward(self, input_ids, pool: KVPool, paged: PagedState,
+                      moe: Optional[MoeCollector] = None):
         """A window of s tokens per slot over the block-paged pool
         (updated in place) → f32 logits [B, s, V]. Positions come off the
         cursor, clamped to max_len - 1 (an overrun window tail's writes
@@ -529,7 +567,7 @@ class Gpt(nn.Module):
             + torch.arange(s, device=input_ids.device)[None, :]
         ).clamp_max(self.cfg.max_len - 1)
         return self._run(
-            input_ids, positions, _Paged(pool, paged, s, self.cfg.dtype)
+            input_ids, positions, _Paged(pool, paged, s, self.cfg.dtype), moe
         )
 
 
@@ -738,11 +776,28 @@ def gpt_medium(**kwargs) -> Gpt:
     )
 
 
+@register_model("gpt_small_moe")
+def gpt_small_moe(**kwargs) -> Gpt:
+    """GPT-2-small with every MLP a Switch MoE (8 experts by default;
+    ~559M params)."""
+    return _build(dict(num_experts=8), kwargs)
+
+
 @register_model("gpt_tiny")
 def gpt_tiny(**kwargs) -> Gpt:
     """Test-scale config."""
     return _build(
         dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
              mlp_dim=128, max_len=128),
+        kwargs,
+    )
+
+
+@register_model("gpt_tiny_moe")
+def gpt_tiny_moe(**kwargs) -> Gpt:
+    """Test-scale MoE config (4 experts)."""
+    return _build(
+        dict(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
+             mlp_dim=128, max_len=128, num_experts=4),
         kwargs,
     )

@@ -1,8 +1,10 @@
 """Layers both transformer families share (the port's counterpart of
 kubeflow_tpu/models/layers.py, which holds the JAX package's shared
 layer code): flax's `Dense`/`DenseGeneral`, `LayerNorm` and `Embed` with
-their parameter names, shapes and mixed-precision arithmetic, and
-flax's `Dropout`.
+their parameter names, shapes and mixed-precision arithmetic, flax's
+`Dropout`, and the routed expert MLP `MoeMlp` (the JAX `MoeMlp` at
+expert-parallel degree 1) with `MoeCollector`, which carries one
+forward's MoE reports (the JAX `moe_stats` and `losses` sows).
 
 Weights are f32 at rest and cast to the compute dtype at use, as flax's
 `dtype=` does. A GPT serving model may hold a leaf as int8 with an f32
@@ -21,8 +23,9 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.checkpointing.quantize import dequantize_leaf
 from kubeflow_tpu_torch.ops.attention import row_stable_matmul
+from kubeflow_tpu_torch.parallel.moe import expert_capacity, topk_route
 
 # suffix of the f32 per-channel scale buffer beside an int8 leaf
 QSCALE = "_qscale"
@@ -198,6 +202,144 @@ class Embed(nn.Module):
         if self.embedding.shape[0] <= SMALL_TABLE_ROWS:
             return _SmallTableLookup.apply(ids, self.embedding).to(self.dtype)
         return F.embedding(ids, self.embedding).to(self.dtype)
+
+
+@dataclasses.dataclass
+class MoeLayerStats:
+    """What one `MoeMlp` call reports: `expert_tokens` [E] (routed
+    slots an expert filled, summed over the call's tokens and choices),
+    `dropped` (choices dropped at capacity), the load-balance loss's
+    sums (`first_choice`, `prob_sum` [E]) over `tokens`, and
+    `aux` = aux_weight · the call's load-balance loss."""
+
+    expert_tokens: torch.Tensor
+    dropped: torch.Tensor
+    first_choice: torch.Tensor
+    prob_sum: torch.Tensor
+    tokens: int
+    aux_weight: float
+    aux: torch.Tensor
+
+
+class MoeCollector:
+    """The MoE reports of one forward (the JAX package's sown
+    `moe_stats` and `losses` collections), passed down that forward
+    only: a model shared by an engine thread and a trainer keeps no
+    per-call state. Layers append in call order. Reading seals it: a
+    remat recompute in the backward runs the layers again, and their
+    second reports are ignored."""
+
+    def __init__(self):
+        self.layers: List[MoeLayerStats] = []
+        self._sealed = False
+
+    def add(self, stats: MoeLayerStats) -> None:
+        if not self._sealed:
+            self.layers.append(stats)
+
+    def _read(self) -> List[MoeLayerStats]:
+        self._sealed = True
+        return self.layers
+
+    def serving_stats(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(expert_tokens [E] f32, dropped f32 scalar) summed over the
+        layers, on the device: the engine's router evidence."""
+        layers = self._read()
+        tokens = torch.stack([s.expert_tokens for s in layers]).sum(0)
+        dropped = torch.stack([s.dropped for s in layers]).sum()
+        return tokens.detach(), dropped.detach()
+
+    def aux_loss(self, group=None) -> Optional[torch.Tensor]:
+        """The summed weighted load-balance loss of every layer (None
+        without MoE layers). With a data-parallel `group`, each layer's
+        first-choice counts, probability sums and token count are summed
+        over the group first (the probabilities through the
+        differentiable `all_reduce_sum`), so every rank gets the global
+        batch's loss, as the JAX package's GSPMD program computes it."""
+        layers = self._read()
+        if not layers:
+            return None
+        if group is None:
+            return torch.stack([s.aux for s in layers]).sum()
+        from kubeflow_tpu_torch.parallel.distributed import all_reduce_sum
+        from kubeflow_tpu_torch.parallel.moe import load_balance_loss
+
+        first = torch.stack([s.first_choice for s in layers]).detach()
+        tokens = first.new_tensor([[float(s.tokens)] for s in layers])
+        counts = torch.cat([first, tokens], dim=1)
+        torch.distributed.all_reduce(counts, group=group)
+        prob_sum = all_reduce_sum(
+            torch.stack([s.prob_sum for s in layers]), group)
+        weights = first.new_tensor([s.aux_weight for s in layers])
+        per_layer = load_balance_loss(counts[:, :-1], prob_sum,
+                                      counts[:, -1:], first.shape[-1])
+        return (weights * per_layer).sum()
+
+
+class MoeMlp(nn.Module):
+    """Routed expert MLP at expert-parallel degree 1 (the JAX `MoeMlp`'s
+    ep = 1 body; `parallel/moe.py` routes). Parameters `router` [D, E]
+    (f32, applied to x in f32: a route flipped by rounding would change
+    the output discontinuously), `wi` [E, D, F] and `wo` [E, F, D] (f32
+    at rest, cast to the compute dtype at use; int8 on an int8 model,
+    dequantized there).
+
+    Capacity is `expert_capacity(s · top_k, E, capacity_factor)` a batch
+    row (the row is the routing group). The dispatch and combine tensors
+    are cast to the compute dtype, then the one-hot contractions
+    `bsec,bsd->ebcd`, `ebcd,edf->ebcf`, tanh-GELU, `ebcf,efd->ebcd`,
+    `bsec,ebcd->bsd` run in the type the JAX einsums promote to: the
+    compute dtype, or f32 when x is f32 (BERT's f32 residual stream).
+    A dropped choice contributes nothing. Each call reports to the
+    forward's `MoeCollector`, when one is passed."""
+
+    def __init__(self, dim: int, mlp_dim: int, num_experts: int, dtype,
+                 top_k: int = 1, capacity_factor: float = 1.25,
+                 aux_weight: float = 0.01, dropout_rate: float = 0.0):
+        super().__init__()
+        self.num_experts, self.top_k = num_experts, top_k
+        self.capacity_factor, self.aux_weight = capacity_factor, aux_weight
+        self.dtype, self.dropout_rate = dtype, dropout_rate
+        self.router = nn.Parameter(torch.empty(dim, num_experts))
+        self.wi = nn.Parameter(torch.empty(num_experts, dim, mlp_dim))
+        self.wo = nn.Parameter(torch.empty(num_experts, mlp_dim, dim))
+
+    def forward(self, x, collector: Optional[MoeCollector] = None,
+                generator: Optional[torch.Generator] = None,
+                train: bool = False):
+        b, s, _ = x.shape
+        e = self.num_experts
+        # top-2 tokens take two slots each: capacity scales with k
+        c = expert_capacity(s * self.top_k, e, self.capacity_factor)
+        router = at_use(self, "router", self.dtype).float()
+        route = topk_route(torch.einsum("bsd,de->bse", x.float(), router),
+                           c, k=self.top_k)
+        cd = torch.promote_types(self.dtype, x.dtype)
+
+        def cast(t):
+            return t.to(self.dtype).to(cd)
+
+        dispatch, combine = cast(route.dispatch), cast(route.combine)
+        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x.to(cd))
+        h = torch.einsum("ebcd,edf->ebcf", expert_in,
+                         cast(at_use(self, "wi", self.dtype)))
+        h = F.gelu(h, approximate="tanh")
+        out_e = torch.einsum("ebcf,efd->ebcd", h,
+                             cast(at_use(self, "wo", self.dtype)))
+        y = torch.einsum("bsec,ebcd->bsd", combine, out_e)
+        if collector is not None:
+            # counts are over POSITIONS fed to the router (idle decode
+            # slots and prefill pad tails route too): a load-balance
+            # signal, not token billing
+            expert_tokens = route.dispatch.detach().sum(dim=(0, 1, 3))
+            collector.add(MoeLayerStats(
+                expert_tokens=expert_tokens,
+                dropped=float(b * s * self.top_k) - expert_tokens.sum(),
+                first_choice=route.first_choice, prob_sum=route.prob_sum,
+                tokens=b * s, aux_weight=self.aux_weight,
+                aux=self.aux_weight * route.aux_loss,
+            ))
+        return dropout(y, self.dropout_rate, generator, not train)
 
 
 def remat(fn, generator: Optional[torch.Generator], *args):

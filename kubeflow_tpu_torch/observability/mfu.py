@@ -18,6 +18,15 @@ parameters, the MLM transform and the MLM head) × tokens, plus
 12·B·H·S²·D per layer for bidirectional attention (the full square).
 The pooler and NSP head (one row a sequence) are not counted.
 
+A routed (MoE) layer (`cfg.num_experts` E > 0) replaces the MLP's
+2·D·F a token by the router's D·E a token and the expert products at
+capacity: each routing group (a batch row) fills E·C expert slots
+(C = `parallel/moe.py expert_capacity(S·k, E, capacity_factor)`), and
+the batched products compute every slot, used or not, so a layer's
+expert matmul parameters count 2·D·F per slot: 6 × 2·D·F × B·E·C a
+step. The one-hot dispatch and combine contractions move data and are
+not counted.
+
 Recomputation under remat is NOT counted (it is work the model does not
 need), and neither are embeddings, layernorms, softmax or the optimizer.
 Other models (ResNet, the mlp) take the count of
@@ -61,25 +70,41 @@ def peak_flops_per_chip(device=None) -> Optional[float]:
     return H100_PEAK_OPS["bfloat16"]
 
 
+def _mlp_train_flops(cfg, batch: int, seq: int) -> float:
+    """One layer's MLP FLOPs a train step: 6 × 2·D·F a token, or for a
+    routed layer 6 × D·E a token (the router) plus 6 × 2·D·F a slot over
+    the B·E·C slots the batched expert products compute."""
+    d, f = cfg.hidden_size, cfg.mlp_dim
+    e = getattr(cfg, "num_experts", 0)
+    if e <= 0:
+        return 6.0 * 2 * d * f * batch * seq
+    from kubeflow_tpu_torch.parallel.moe import expert_capacity
+
+    c = expert_capacity(seq * cfg.moe_top_k, e, cfg.expert_capacity_factor)
+    return 6.0 * (d * e * batch * seq + 2 * d * f * batch * e * c)
+
+
 def lm_train_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one train step of a GPT config over batch × seq
     tokens (the module docstring's count)."""
-    d, f, v = cfg.hidden_size, cfg.mlp_dim, cfg.vocab_size
-    per_layer = 4 * d * d + 2 * d * f  # q, k, v, out + mlp_wi, mlp_wo
+    d, v = cfg.hidden_size, cfg.vocab_size
+    per_layer = 4 * d * d  # q, k, v, out
     matmul_params = cfg.num_layers * per_layer + d * v  # + the LM head
     tokens = batch * seq
     attention = 6 * batch * cfg.num_heads * seq * seq * cfg.head_dim
-    return 6.0 * matmul_params * tokens + cfg.num_layers * attention
+    return (6.0 * matmul_params * tokens
+            + cfg.num_layers * (attention + _mlp_train_flops(cfg, batch, seq)))
 
 
 def encoder_train_flops(cfg, batch: int, seq: int) -> float:
     """Model FLOPs of one train step of a BERT config over batch × seq
     tokens (the module docstring's count)."""
-    d, f, v = cfg.hidden_size, cfg.mlp_dim, cfg.vocab_size
-    per_layer = 4 * d * d + 2 * d * f  # query, key, value, out + wi, wo
+    d, v = cfg.hidden_size, cfg.vocab_size
+    per_layer = 4 * d * d  # query, key, value, out
     matmul_params = cfg.num_layers * per_layer + d * d + d * v  # + MLM head
     attention = 12 * batch * cfg.num_heads * seq * seq * cfg.head_dim
-    return 6.0 * matmul_params * batch * seq + cfg.num_layers * attention
+    return (6.0 * matmul_params * batch * seq
+            + cfg.num_layers * (attention + _mlp_train_flops(cfg, batch, seq)))
 
 
 def mfu(flops_per_step: Optional[float], step_time_s: float,

@@ -69,7 +69,21 @@ weights.
   residents fail fast, both pools are zeroed in place, the allocator and
   the radix index start empty, the host tier stays.
 
-Not ported yet: the serving mesh and MoE (ROADMAP A13).
+- MoE TARGETS (`num_experts > 0`, expert-parallel degree 1): every
+  target program (prefill, chunk, step, verify) passes a
+  `MoeCollector` down its forward and returns the folded (expert_tokens
+  [E] f32, dropped) pair beside its tokens; the scheduler reads the pair
+  in the same device-to-host copy as the tokens (`_fetch`), folds it
+  into `stats()["moe"]` and the `serving_moe_*` series. Counts are
+  router POSITIONS (idle decode slots and prefill pad tails route too):
+  a load-balance signal, not token billing. Dense engines carry no MoE
+  state and emit no MoE series. Capacity routing sees the engine's
+  padded prefill buckets, so MoE engine tokens follow the engine's
+  geometry (buckets, page size, chunking, prefix hits), as in the
+  reference, not `generate()`'s.
+
+Not ported yet: the serving mesh, the expert axis above 1 included
+(ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -95,6 +109,7 @@ from kubeflow_tpu_torch.models.gpt import (
     make_paged_pool,
     scatter_pool_pages,
 )
+from kubeflow_tpu_torch.models.layers import MoeCollector
 from kubeflow_tpu_torch.observability.trace import default_tracer
 from kubeflow_tpu_torch.routing.affinity import first_page_key
 from kubeflow_tpu_torch.serving.batching import Completion
@@ -128,6 +143,9 @@ from kubeflow_tpu_torch.utils.metrics import (
     serving_kv_persisted_chains_gauge,
     serving_kv_spill_hits_counter,
     serving_kv_spill_pages_counter,
+    serving_moe_capacity_overflow_counter,
+    serving_moe_expert_tokens_counter,
+    serving_moe_load_imbalance_gauge,
     serving_phase_histogram,
 )
 
@@ -185,6 +203,20 @@ def bucket_for(prompt_len: int, buckets: Sequence[int]) -> int:
         f"prompt length {prompt_len} exceeds the largest prefill "
         f"bucket {buckets[-1]}"
     )
+
+
+def _fetch(parts: Sequence[torch.Tensor]) -> List[np.ndarray]:
+    """Read device tensors to the host in ONE copy: each flattened into
+    an f64 buffer (token ids and counts are exact in it), then split
+    back into numpy arrays of the parts' shapes."""
+    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in parts])
+    host = flat.cpu().numpy()
+    out, offset = [], 0
+    for t in parts:
+        n = t.numel()
+        out.append(host[offset:offset + n].reshape(tuple(t.shape)))
+        offset += n
+    return out
 
 
 def _copied(page: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -532,6 +564,9 @@ class EnginePrograms:
                  draft_model=None, num_draft_tokens: int = 0):
         cfg = model.cfg
         self.model = model
+        # an MoE target's programs return their (expert_tokens [E],
+        # dropped) pair beside their tokens
+        self.moe = getattr(cfg, "num_experts", 0) > 0
         if paged_attention not in PAGED_ATTENTION_IMPLS:
             raise ValueError(
                 f"paged_attention {paged_attention!r} must be one of "
@@ -603,14 +638,21 @@ class EnginePrograms:
     def _paged(self, page_table, cursors) -> PagedState:
         return PagedState(page_table, cursors, attn_impl=self.paged_attention)
 
+    def _collector(self) -> Optional[MoeCollector]:
+        return MoeCollector() if self.moe else None
+
     def prefill(self, ids, mask, seed, temp, top_k, top_p):
-        """Batch-1 bucketed prefill → (slot cache, first token)."""
-        logits, cache = self.model.prefill(ids, mask)
+        """Batch-1 bucketed prefill → (slot cache, first token[, MoE
+        pair])."""
+        moe = self._collector()
+        logits, cache = self.model.prefill(ids, mask, moe=moe)
         last = int(mask[0].sum()) - 1
         tok = sample_slots(
             logits[:, max(last, 0)], [seed], [0], [temp], [top_k], [top_p]
         )
-        return cache, tok[0]
+        if moe is None:
+            return cache, tok[0]
+        return cache, tok[0], moe.serving_stats()
 
     def make_pool(self, device) -> KVPool:
         return make_paged_pool(self.model.cfg, self.num_pages,
@@ -626,15 +668,17 @@ class EnginePrograms:
         """One page-aligned prefill window through the paged path: writes
         the window's K/V into the slot's pages and samples the token after
         window position `sample_idx` (meaningful only for the chunk
-        holding the prompt's last real token)."""
+        holding the prompt's last real token); an MoE target returns
+        (token, MoE pair)."""
+        moe = self._collector()
         logits = self.model.paged_forward(
-            ids, pool, self._paged(page_table, cursor)
+            ids, pool, self._paged(page_table, cursor), moe=moe
         )
         tok = sample_slots(
             logits[0, sample_idx][None], [seed], [0], [temp], [top_k],
             [top_p],
         )
-        return tok[0]
+        return tok[0] if moe is None else (tok[0], moe.serving_stats())
 
     def cow(self, pool: KVPool, src: int, dst: int):
         return copy_pool_page(pool, src, dst)
@@ -654,13 +698,16 @@ class EnginePrograms:
 
     def step(self, pool: KVPool, tokens, page_table, cursors, seeds,
              counters, temps, top_ks, top_ps):
-        """One single-token decode step over all slots → [S] tokens."""
+        """One single-token decode step over all slots → [S] tokens (an
+        MoE target: ([S] tokens, MoE pair))."""
+        moe = self._collector()
         logits = self.model.paged_forward(
-            tokens[:, None], pool, self._paged(page_table, cursors)
+            tokens[:, None], pool, self._paged(page_table, cursors), moe=moe
         )
-        return sample_slots(
+        toks = sample_slots(
             logits[:, 0], seeds, counters, temps, top_ks, top_ps
         )
+        return toks if moe is None else (toks, moe.serving_stats())
 
     # -- the speculative draft-and-verify family (K > 0) -------------------
 
@@ -723,10 +770,11 @@ class EnginePrograms:
         SALT_CORRECT stream from the residual at the first rejection, or
         after a clean sweep from the (K+1)-th target distribution (the
         bonus token). Only that one draw is made: the others would be
-        discarded."""
+        discarded. An MoE target appends its MoE pair."""
         kk = window.shape[1] - 1
+        moe = self._collector()
         logits = self.model.paged_forward(
-            window, pool, self._paged(page_table, cursors)
+            window, pool, self._paged(page_table, cursors), moe=moe
         )
         greedy = logits.argmax(dim=-1)  # [S, K+1]
         drafted = window[:, 1:]
@@ -767,7 +815,9 @@ class EnginePrograms:
         padded = torch.cat([drafted, torch.zeros_like(drafted[:, :1])], 1)
         pos = torch.arange(kk + 1, device=acc.device)
         tokens = torch.where(pos[None, :] < acc[:, None], padded, replacement)
-        return tokens, acc + 1
+        if moe is None:
+            return tokens, acc + 1
+        return tokens, acc + 1, moe.serving_stats()
 
 
 class _Request:
@@ -1138,6 +1188,17 @@ class DecodeEngine:
         self._persisted_chains_g = serving_kv_persisted_chains_gauge()
         self._handoff_pages_m = serving_kv_handoff_pages_counter()
         self._handoff_ms_m = serving_kv_handoff_ms_counter()
+        # MoE router evidence (MoE targets only): cumulative routed
+        # positions an expert, capacity drops, and their series
+        self._moe = self.programs.moe
+        self._moe_tokens_np: Optional[np.ndarray] = None
+        self._moe_dropped = 0.0
+        if self._moe:
+            self._moe_tokens_np = np.zeros((cfg.num_experts,), np.float64)
+            self._moe_expert_tokens_m = serving_moe_expert_tokens_counter()
+            self._moe_overflow_m = serving_moe_capacity_overflow_counter()
+            self._moe_imbalance_g = serving_moe_load_imbalance_gauge()
+            self._moe_imbalance_g.set(0.0, model=name)
         self._queue_depth_g.set(0, model=name)
         self._occupancy_g.set(0.0, model=name)
         self._pages_in_use_g.set(0, model=name)
@@ -1341,7 +1402,48 @@ class DecodeEngine:
                 ),
                 "kv_pool_bytes": self.kv_pool_bytes,
                 "device": str(self.device),
+                # MoE router evidence (None on dense engines): cumulative
+                # routed positions an expert, capacity drops, and the
+                # max/mean occupancy imbalance (1.0 = balanced)
+                "moe": self._moe_snapshot(),
             }
+
+    def _moe_snapshot(self) -> Optional[dict]:
+        """Caller holds _stats_lock (stats() does)."""
+        if not self._moe:
+            return None
+        tokens = self._moe_tokens_np
+        mean = float(tokens.mean())
+        return {
+            "expert_tokens": [float(v) for v in tokens],
+            "routed_positions": float(tokens.sum()),
+            "dropped": float(self._moe_dropped),
+            "load_imbalance": (float(tokens.max()) / mean if mean > 0.0
+                               else 0.0),
+        }
+
+    def _note_moe(self, entries) -> None:
+        """Fold host-read (expert_tokens [E], dropped) pairs, read in the
+        copy of the tokens they came with, into the cumulative counters
+        and the exported series."""
+        if not entries:
+            return
+        with self._stats_lock:
+            for tokens_e, dropped in entries:
+                arr = np.asarray(tokens_e, np.float64).reshape(-1)
+                self._moe_tokens_np += arr
+                d = float(dropped)
+                self._moe_dropped += d
+                for ei in range(arr.shape[0]):
+                    if arr[ei]:
+                        self._moe_expert_tokens_m.inc(
+                            float(arr[ei]), model=self.name, expert=str(ei))
+                if d:
+                    self._moe_overflow_m.inc(d, model=self.name)
+            mean = float(self._moe_tokens_np.mean())
+            imbalance = (float(self._moe_tokens_np.max()) / mean
+                         if mean > 0.0 else 0.0)
+        self._moe_imbalance_g.set(imbalance, model=self.name)
 
     def debug_state(self) -> dict:
         """The /statusz snapshot: the slot map (with page footprints),
@@ -2027,6 +2129,9 @@ class DecodeEngine:
         largest = self.prefill_buckets[-1]
         computed = 0
         first_tok = None
+        # an MoE target's (expert_tokens, dropped) pairs, read with the
+        # first token in its one host copy
+        moe_acc = []
         if matched == 0 and p <= largest:
             # fresh short prompt: one bucketed batch-1 prefill, copied into
             # this slot's pages at the prompt's REAL length
@@ -2036,7 +2141,9 @@ class DecodeEngine:
             mask = np.zeros((1, bucket), bool)
             mask[0, :p] = True
             ids, mask = self._to_dev(ids), self._to_dev(mask)
-            cache_one, first_tok = self.programs.prefill(ids, mask, *knobs)
+            cache_one, first_tok, *ms = self.programs.prefill(ids, mask,
+                                                              *knobs)
+            moe_acc += ms
             self._ensure_pages(slot_idx, p)
             self.programs.insert(
                 self._pool, cache_one, self._slot_pages[slot_idx], p
@@ -2054,7 +2161,8 @@ class DecodeEngine:
                 # prefill, the rest chunk-prefills below
                 ids = self._to_dev(prompt[:largest][None])
                 mask = self._to_dev(np.ones((1, largest), bool))
-                cache_one, _ = self.programs.prefill(ids, mask, *knobs)
+                cache_one, _, *ms = self.programs.prefill(ids, mask, *knobs)
+                moe_acc += ms
                 self._ensure_pages(slot_idx, largest)
                 self.programs.insert(
                     self._pool, cache_one, self._slot_pages[slot_idx],
@@ -2084,6 +2192,9 @@ class DecodeEngine:
                     self._pool, chunk, prow, cur,
                     (p - 1) - pos if final else 0, *knobs,
                 )
+                if self._moe:
+                    tok, ms = tok
+                    moe_acc.append(ms)
                 self._note_attn(clen)
                 if self._draft_pool is not None:
                     self.programs.draft_chunk(self._draft_pool, chunk, prow,
@@ -2095,7 +2206,12 @@ class DecodeEngine:
                 pos += clen
         self._cur_np[slot_idx] = p
         # the host read of the first token: prefill ends, and TTFT with it
-        first = int(first_tok)
+        if moe_acc:
+            host = _fetch([first_tok] + [t for pair in moe_acc for t in pair])
+            first = int(host[0])
+            self._note_moe(list(zip(host[1::2], host[2::2])))
+        else:
+            first = int(first_tok)
         prefill_span.end()
         slot = _Slot(req)
         slot.tokens.append(first)
@@ -2312,12 +2428,19 @@ class DecodeEngine:
         # the step, not its launches
         with self._tracer.span("engine.step", model=self.name,
                                active=len(active)):
-            toks = self.programs.step(
+            out = self.programs.step(
                 self._pool, self._to_dev(self._tok_np),
                 self._to_dev(self._pt_np), self._to_dev(self._cur_np),
                 self._seed_np, self._cnt_np, self._temp_np, self._topk_np,
                 self._topp_np,
-            ).cpu().numpy()
+            )
+            if self._moe:
+                # one copy: the tokens and the step's MoE pair
+                toks, moe_tokens, moe_dropped = _fetch([out[0], *out[1]])
+                toks = toks.astype(np.int64)
+                self._note_moe([(moe_tokens, moe_dropped)])
+            else:
+                toks = out.cpu().numpy()
         self._note_attn(1)
         self._decode_steps_m.inc(model=self.name)
         self._tokens_m.inc(len(active), model=self.name)
@@ -2359,10 +2482,18 @@ class DecodeEngine:
         window = torch.cat([tokens[:, None], proposals], dim=1)
         with self._tracer.span("engine.verify", model=self.name,
                                active=len(active), k=kk):
-            out_tok, out_len = self.programs.verify(
+            out_tok, out_len, *ms = self.programs.verify(
                 self._pool, window, qs, pt, curs, *knobs
             )
-            out_tok, out_len = out_tok.cpu().numpy(), out_len.cpu().numpy()
+            if ms:
+                # one copy: the tokens, their lengths and the MoE pair
+                out_tok, out_len, moe_tokens, moe_dropped = _fetch(
+                    [out_tok, out_len, *ms[0]])
+                out_tok = out_tok.astype(np.int64)
+                out_len = out_len.astype(np.int64)
+                self._note_moe([(moe_tokens, moe_dropped)])
+            else:
+                out_tok, out_len = out_tok.cpu().numpy(), out_len.cpu().numpy()
         elapsed = time.monotonic() - t0
         rolled = int(sum((kk + 1) - int(out_len[i]) for i in active))
         if rolled:

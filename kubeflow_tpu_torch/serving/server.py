@@ -393,8 +393,8 @@ class ModelServer:
         return lines or ["  <none>"]
 
     def _statusz_engines(self) -> List[str]:
-        """The JAX server's engine lines (a dense engine has no MoE
-        line there either)."""
+        """The JAX server's engine lines: an MoE engine's `moe:` line
+        follows its kv pool line; a dense engine has none."""
         lines: List[str] = []
         for engine in self._engines.values():
             state = engine.debug_state()
@@ -427,6 +427,15 @@ class ModelServer:
                 f"cow={st['cow_copies']} "
                 f"first_page_hashes={st['first_page_hashes']}"
             )
+            moe = st["moe"]
+            if moe is not None:
+                occ = " ".join(f"e{i}={v:g}"
+                               for i, v in enumerate(moe["expert_tokens"]))
+                lines.append(
+                    f"    moe: routed={moe['routed_positions']:g} "
+                    f"dropped={moe['dropped']:g} "
+                    f"imbalance={moe['load_imbalance']:.3f} [{occ}]"
+                )
             tier = state["kv_host_tier"]
             if tier is not None or state["kv_persist_dir"]:
                 host = (f"{tier['entries']} entries "

@@ -24,7 +24,14 @@ schedule, momentum=0.9, nesterov=True))`, a BatchNorm model):
     opt_state/1/1/count                   () int32   the schedule's count
 
 (`clip_by_global_norm`, `add_decayed_weights` and the chain's empty
-states hold no leaves.) The port's state maps onto them BY NAME
+states hold no leaves.) An MoE model's JAX state also carries the
+`moe_stats` its init forward sowed, which its step never reads:
+
+    extra_vars/moe_stats/<layer>/moe/expert_tokens  [E] f32
+    extra_vars/moe_stats/<layer>/moe/dropped        () f32
+
+The port saves zeros there, so the JAX trainer restores a port state,
+and ignores them on restore. The port's state maps onto them BY NAME
 (models/convert.py `jax_path`), never by the optimizer's index order:
 AdamW's `exp_avg` is `mu`, `exp_avg_sq` is `nu`, and torch's
 per-parameter `step` (a float tensor) is both counts; SGD's
@@ -73,6 +80,22 @@ def batch_stats_tree(model: torch.nn.Module) -> Dict[str, Any]:
                  if is_batch_stat(n)})
 
 
+def moe_stats_tree(model: torch.nn.Module) -> Dict[str, Any]:
+    """Zeroed `moe_stats` leaves of each routed layer, in the JAX
+    state's shapes (empty for a dense model)."""
+    from kubeflow_tpu_torch.models.layers import MoeMlp
+
+    leaves = {}
+    for name, module in model.named_modules():
+        if isinstance(module, MoeMlp):
+            dev = module.router.device
+            path = jax_path(name)
+            leaves[f"{path}/expert_tokens"] = torch.zeros(
+                module.num_experts, device=dev)
+            leaves[f"{path}/dropped"] = torch.zeros((), device=dev)
+    return nest(leaves)
+
+
 def _is_sgd(state) -> bool:
     return isinstance(state.optimizer, torch.optim.SGD)
 
@@ -98,6 +121,9 @@ def train_state_tree(state) -> Dict[str, Any]:
     stats = batch_stats_tree(state.model)
     if stats:
         tree["extra_vars"] = {"batch_stats": stats}
+    moe = moe_stats_tree(state.model)
+    if moe:
+        tree.setdefault("extra_vars", {})["moe_stats"] = moe
     if _is_sgd(state):
         trace = {}
         for name, p in state.model.named_parameters():

@@ -9,6 +9,15 @@ A task whose model has dropout takes the step's `dropout_generator` in
 its `loss` and hands it to the model (training/trainer.py makes one a
 step, or one a microbatch, from (seed, step)).
 
+MoE models (`num_experts > 0`): the LM tasks pass a `MoeCollector`
+down the forward and add the layers' summed weighted load-balance loss
+to the task loss, reporting it as `aux["moe_aux_loss"]` (the JAX tasks'
+sown "losses"). In a data-parallel gang the loss is the global batch's:
+each layer's first-choice counts and router probability sums are summed
+over the data `group` before the product (`MoeCollector.aux_loss`), and
+each rank adds its 1/world share, so the ranks' losses sum to the
+global loss and their summed gradients are its gradient.
+
 Data parallelism: the JAX step computes each loss over the GLOBAL batch
 (GSPMD), so each of its means divides by a global count. A task's
 `item_counts(batch)` gives the denominators of its loss from the batch
@@ -52,6 +61,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.config.platform import TrainingConfig
+from kubeflow_tpu_torch.models.layers import MoeCollector
 from kubeflow_tpu_torch.training.data import SyntheticData
 
 IGNORE = -100
@@ -106,6 +116,26 @@ def _row_valid(batch: Dict[str, torch.Tensor], rows: int,
     return valid if valid is not None else torch.ones(rows, device=device)
 
 
+def _moe_collector(model) -> Optional[MoeCollector]:
+    """A collector for a model with routed layers, else None."""
+    routed = getattr(getattr(model, "cfg", None), "num_experts", 0) > 0
+    return MoeCollector() if routed else None
+
+
+def _add_moe_aux(loss: torch.Tensor, aux: Dict[str, torch.Tensor],
+                 collector: Optional[MoeCollector], group) -> torch.Tensor:
+    """loss + this rank's share of the MoE load-balance loss (the whole
+    of it without a group); the global value lands in
+    aux["moe_aux_loss"]."""
+    moe_aux = None if collector is None else collector.aux_loss(group)
+    if moe_aux is None:
+        return loss
+    aux["moe_aux_loss"] = moe_aux.detach()
+    if group is not None:
+        moe_aux = moe_aux / torch.distributed.get_world_size(group)
+    return loss + moe_aux
+
+
 class ImageClassificationTask:
     """ResNet and the mlp: batch {image [B, H, W, 3], label [B]}; the
     model's BatchNorm running averages move in its training forward."""
@@ -144,11 +174,12 @@ class ImageClassificationTask:
         return torch.full((1,), float(labels.shape[0]), device=labels.device)
 
     def loss(self, model, batch: Dict[str, torch.Tensor], train: bool = True,
-             counts: Optional[torch.Tensor] = None):
+             counts: Optional[torch.Tensor] = None, group=None):
         """(loss, {"aux": {"accuracy"}}); label smoothing in training only.
         The caller augments a training batch first (`augment_batch`).
         `counts` (`item_counts` summed over the data group) divides this
-        rank's sum instead of its own count."""
+        rank's sum instead of its own count; `group` (the data group) is
+        unused: an image model has no routed layers."""
         logits = model(batch["image"], train=train)
         labels = batch["label"]
         loss = cross_entropy(
@@ -207,26 +238,30 @@ class MlmTask:
 
     def loss(self, model, batch: Dict[str, torch.Tensor],
              dropout_generator: Optional[torch.Generator] = None,
-             counts: Optional[torch.Tensor] = None):
-        """(mlm + nsp, {"aux": {mlm_loss, nsp_loss}, "loss_items": 1}).
-        The JAX task reports no item count (the loss mixes two
-        denominators, masked tokens and rows), so the trainer weighs its
-        microbatches equally, as the JAX trainer does. `counts` (summed
-        `item_counts`) divides the two sums instead of their own counts."""
+             counts: Optional[torch.Tensor] = None, group=None):
+        """(mlm + nsp [+ MoE aux], {"aux": {mlm_loss, nsp_loss[,
+        moe_aux_loss]}, "loss_items": 1}). The JAX task reports no item
+        count (the loss mixes two denominators, masked tokens and rows),
+        so the trainer weighs its microbatches equally, as the JAX
+        trainer does. `counts` (summed `item_counts`) divides the two
+        sums instead of their own counts; `group` is the data group an
+        MoE model's load-balance loss is summed over."""
+        moe = _moe_collector(model)
         out = model(
             batch["input_ids"],
             attention_mask=None if self.assume_full_attention
             else batch["attention_mask"],
             dropout_generator=dropout_generator,
+            **({} if moe is None else {"moe": moe}),
         )
         mlm = cross_entropy(out["mlm_logits"], batch["labels"], ignore=IGNORE,
                             count=None if counts is None else counts[0])
         nsp = cross_entropy(out["nsp_logits"], batch["nsp_labels"],
                             count=None if counts is None else counts[1])
-        return mlm + nsp, {
-            "aux": {"mlm_loss": mlm.detach(), "nsp_loss": nsp.detach()},
-            "loss_items": torch.ones((), device=mlm.device),
-        }
+        aux = {"mlm_loss": mlm.detach(), "nsp_loss": nsp.detach()}
+        loss = _add_moe_aux(mlm + nsp, aux, moe, group)
+        return loss, {"aux": aux,
+                      "loss_items": torch.ones((), device=mlm.device)}
 
     def count_items(self, batch) -> int:
         # tokens a step: BERT's throughput unit
@@ -333,16 +368,20 @@ class CausalLmTask:
 
     def loss(self, model, batch: Dict[str, torch.Tensor],
              dropout_generator: Optional[torch.Generator] = None,
-             counts: Optional[torch.Tensor] = None):
-        """(loss, {"aux": {}, "loss_items": valid pairs as f32}). `counts`
-        (summed `item_counts`) is the denominator, and the item count
-        reported, in place of this batch's own."""
+             counts: Optional[torch.Tensor] = None, group=None):
+        """(loss [+ MoE aux], {"aux": {[moe_aux_loss]}, "loss_items":
+        valid pairs as f32}). `counts` (summed `item_counts`) is the
+        denominator, and the item count reported, in place of this
+        batch's own; `group` is the data group an MoE model's
+        load-balance loss is summed over."""
         chunked = self.loss_chunk and self.loss_chunk > 0
         ids, mask = batch["input_ids"], batch["attention_mask"]
         count = None if counts is None else counts[0]
+        moe = _moe_collector(model)
         out = model(ids, attention_mask=None if self.assume_full_attention
                     else mask, return_hidden=bool(chunked),
-                    dropout_generator=dropout_generator)
+                    dropout_generator=dropout_generator,
+                    **({} if moe is None else {"moe": moe}))
         if chunked:
             targets = self._shift_full(ids, mask)
             loss, n_items = self._chunked_lm_loss(
@@ -353,7 +392,9 @@ class CausalLmTask:
             logits, targets = self._shift(out, ids, mask)
             loss = cross_entropy(logits, targets, ignore=IGNORE, count=count)
             n_items = (targets != IGNORE).sum() if count is None else count
-        return loss, {"aux": {}, "loss_items": n_items.float()}
+        aux: Dict[str, torch.Tensor] = {}
+        loss = _add_moe_aux(loss, aux, moe, group)
+        return loss, {"aux": aux, "loss_items": n_items.float()}
 
     def count_items(self, batch) -> int:
         return batch["input_ids"].shape[0] * batch["input_ids"].shape[1]

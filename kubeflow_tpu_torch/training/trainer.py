@@ -24,7 +24,11 @@ of the throughput windows), the non-finite-loss stop, eval every
 `data.eval_every_steps` and at the end with the early stop at
 `data.target_accuracy` (eval time kept out of the step timing), items/s,
 MFU and goodput per log window, the interval checkpoint saves, and the
-`stop_event` preemption exit. The loop records the kft-trace spans
+`stop_event` preemption exit. The task's global aux values
+(`STEP_AUX`: an MoE model's `moe_aux_loss`, averaged over the
+microbatches) ride each step's metrics, and a log window reports its
+last step's, as the JAX trainer logs them. The loop records the
+kft-trace spans
 `train.host_wait`, `train.device_step`, `train.eval` and
 `train.checkpoint_block` and the `train.compile_fence` event, and calls
 the kft-chaos point `trainer.device_step` before each step (a host
@@ -121,6 +125,9 @@ log = get_logger(__name__)
 MAX_GRAD_NORM = 1.0
 # tags the dropout stream's seeds apart from the data streams'
 _DROPOUT_STREAM = 0x64726F70
+# task aux values a step returns and the log window reports, as the JAX
+# step's metrics carry them: each is the global batch's on every rank
+STEP_AUX = ("moe_aux_loss",)
 
 
 def dropout_seed(seed: int, step: int, micro: int = 0) -> int:
@@ -349,12 +356,18 @@ class Trainer:
         if a > 1:
             loss_sum = torch.zeros((), device=self.device)
             w_sum = torch.zeros((), device=self.device)
+        # the task's global aux values (STEP_AUX), one a microbatch
+        step_aux: Dict[str, List[torch.Tensor]] = {}
         for i, sub in enumerate(micro):
             kwargs = self._loss_kwargs(state.step, i)
             if counts is not None:
                 kwargs["counts"] = counts[i]
+                kwargs["group"] = self._group
             with self._dropout_rows(sub):
                 loss_i, out_i = self.task.loss(model, sub, **kwargs)
+                for key in STEP_AUX:
+                    if key in out_i["aux"]:
+                        step_aux.setdefault(key, []).append(out_i["aux"][key])
                 if a == 1:
                     loss_i.backward()
                     loss_sum = loss_i.detach()
@@ -385,7 +398,9 @@ class Trainer:
             group["lr"] = lr
         opt.step()
         state.step += 1
-        return state, {"loss": loss}
+        # averaged over the microbatches, as the JAX step averages aux
+        return state, {"loss": loss, **{
+            key: torch.stack(vals).mean() for key, vals in step_aux.items()}}
 
     def _dropout_rows(self, sub):
         """In a gang of several ranks, dropout draws the global
@@ -596,6 +611,7 @@ class Trainer:
                 self._chaos.maybe_fail("trainer.device_step")
                 state, metrics = self.train_step(state, batch)
             pending.append((i + 1, metrics["loss"]))
+            step_aux = {k: v for k, v in metrics.items() if k != "loss"}
             steps_since_log += 1
             if i == start and steps > 1:
                 # the first step pays kernel builds and library warm-up:
@@ -653,7 +669,9 @@ class Trainer:
                 items = self.task.count_items(batch_np) * self.world
                 step_hist.observe(dt, model=model_label)
                 thpt.set(items / dt, model=model_label)
-                aux: Dict[str, float] = {}
+                # the window's last step's aux, read after the losses' sync
+                aux: Dict[str, float] = {k: float(v)
+                                         for k, v in step_aux.items()}
                 # the one-time FLOP count is fenced out of the next window
                 t_acct = time.monotonic()
                 if peak is None:

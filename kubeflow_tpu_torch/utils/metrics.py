@@ -438,6 +438,46 @@ def serving_kv_handoff_ms_counter() -> Counter:
     )
 
 
+# -- MoE serving (serving/engine.py on an MoE target) -------------------------
+#
+# Counts are router POSITIONS (idle decode slots and pad tails route
+# too): the load-balance evidence, not token billing. Dense engines emit
+# none of these series. The JAX package's names, labels and help text.
+
+
+def serving_moe_expert_tokens_counter() -> Counter:
+    """Positions the MoE router dispatched to each expert (summed over
+    layers): the per-expert occupancy whose max/mean ratio is the
+    load-imbalance gauge below."""
+    return default_registry().counter(
+        "serving_moe_expert_tokens_total",
+        "router positions dispatched to each expert",
+        ["model", "expert"],
+    )
+
+
+def serving_moe_capacity_overflow_counter() -> Counter:
+    """Router (position, k) assignments dropped at the capacity-factor
+    ceiling: each one is a token whose expert contribution was zeroed.
+    Nonzero at decode steps would be a routing bug (s = 1 top-1 always
+    fits); prefill overflow tracks the capacity_factor knob."""
+    return default_registry().counter(
+        "serving_moe_capacity_overflow_total",
+        "router assignments dropped at the expert capacity ceiling",
+        ["model"],
+    )
+
+
+def serving_moe_load_imbalance_gauge() -> Gauge:
+    """Max/mean cumulative expert occupancy for this engine (1.0 =
+    perfectly balanced routing; E = everything on one expert)."""
+    return default_registry().gauge(
+        "serving_moe_load_imbalance",
+        "max/mean cumulative expert occupancy of the MoE router",
+        ["model"],
+    )
+
+
 # -- observability and fault injection (observability/, chaos/) ---------------
 #
 # The engine's per-phase request accounting and its recoveries, the

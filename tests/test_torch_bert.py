@@ -201,17 +201,10 @@ def test_seeded_init_follows_flaxs_distributions():
 
 @pytest.mark.parametrize("bad", [
     dict(attention_impl="ring"), dict(attention_impl="ulysses"),
-    dict(num_experts=4), dict(pipeline_stages=2), dict(moe_top_k=2),
-    dict(pipeline_schedule="1f1b")])
+    dict(pipeline_stages=2), dict(pipeline_schedule="1f1b")])
 def test_unported_options_raise_naming_roadmap(bad):
     with pytest.raises(ValueError, match="ROADMAP"):
         BertConfig(**bad)
-
-
-@pytest.mark.parametrize("name", ["bert_base_moe", "bert_tiny_moe"])
-def test_moe_presets_raise_naming_roadmap(name):
-    with pytest.raises(ValueError, match="ROADMAP A13 item 3"):
-        get_model(name, device="meta")
 
 
 def test_bert_needs_cuda_unless_the_cpu_is_asked_for():

@@ -4,7 +4,8 @@ global BatchNorm, the rank's rows of every stream) against the JAX
 
 A port gang is 2 or 4 processes over gloo (`render_gang_env` on
 127.0.0.1, `initialize_from_env(device="cpu")`), each running
-`run_training` on its rank; the JAX trainer runs on 4 of the conftest's
+`run_training` on its rank (gpt_tiny_moe's too, whose load-balance
+loss is the global batch's); the JAX trainer runs on 4 of the conftest's
 8 virtual CPU devices. Both start from the JAX trainer's own init: it
 saves a step-0 checkpoint, and every rank of the port gang restores it
 (`restore=True`). Both read identical batches: blobs (`ArrayDataset`)
@@ -88,6 +89,10 @@ RUNS = {
                  dict(num_filters=8, num_classes=CLASSES), "blobs"),
     "gpt_tiny": (dict(model="gpt_tiny", learning_rate=1e-3,
                       weight_decay=0.1), {}, "lm"),
+    # the load-balance loss over the global batch: each rank sums its
+    # routing statistics with the others' before the product
+    "gpt_tiny_moe": (dict(model="gpt_tiny_moe", learning_rate=1e-3,
+                          weight_decay=0.1), {}, "lm"),
     "bert_tiny": (dict(model="bert_tiny", learning_rate=1e-3,
                        weight_decay=0.1), {}, "mlm"),
 }
