@@ -255,6 +255,30 @@ Phases (any failure raises and the script exits non-zero):
    losses, one flash launch per layer a step. The kernels line gives
    each row its `moe_launches` (18b, 18c, 18e; a row at 0 fails) and
    the flash rows their `moe_bert_launches` (18f).
+19. Sequence parallelism (configs/gpt_longcontext_v5e16.yaml's sequence
+   axis at a two-rank share on one card: SEQ_CFG, gpt_small bf16,
+   remat, loss_chunk 4096, seq 8192 = two shards of the config's 4096,
+   global batch 2). 19a: `mesh: {sequence: 2}` by ring attention, two
+   ranks of `chip_smoke.py --gang-rank` over gloo on the one card (as
+   17c), against world 1 in this process (attention "flash" over all
+   8192 positions): every step's loss within GANG_LOSS_REL of world
+   1's, the final weights bit for bit equal across the ranks, and each
+   rank's flash launches the formula (rank i a layer: i + 1 forwards,
+   twice under remat, i + 1 of each backward kernel; an invisible block
+   launches nothing). 19b: the same cell by Ulysses attention (6 heads
+   a rank; the H100 auto policy takes the flash kernels at S = 8192):
+   the same gates, one of each kernel a layer (the forward twice).
+   Printed: losses, the gap, launches and step ms per rank (two
+   processes share the card: for the record). 19c: ranks 0 and 7 of
+   the config's 8-rank ring at its own geometry (q, k, v [2, 32768, 12,
+   64] bf16 in 8 blocks), through `parallel/ring_attention.py
+   ring_pass` on blocks it already holds, forward and forward plus
+   backward as CUDA-event medians after the L2 flush, beside one causal
+   flash call over 32,768 positions and its balanced eighth; the
+   merges timed alone at those shapes; launches against the formula;
+   peak memory. Gate: rank 7's output and gradients against the full
+   causal call within FLASH_REL, row by row. The kernels line gives
+   each flash row its `seq_launches` (19a-19c; a row at 0 fails).
 
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
@@ -561,6 +585,22 @@ GANG_STEP_REL, GANG_LEAF_STEP_REL = 0.1, 0.5
 # 17d: 15b's npz blobs host-fed at depth 0 and PREFETCH_DEPTH
 PREFETCH_DEPTH = 2
 PREFETCH_CFG = dict(ACCURACY_CFG, steps=20)
+# phase 19: configs/gpt_longcontext_v5e16.yaml's sequence axis at a
+# two-rank share on one card. Each rank holds 4096 positions, the
+# config's per-chip shard of 32,768 over its 8 ranks, and the global
+# batch is 2, the config's microbatch of one data rank (16 / 2 / 4);
+# phase 8's learning-rate overrides, 3 steps. 19a rings it, 19b runs
+# Ulysses (12 heads, 6 a rank); world 1 is the same cell in-process with
+# the flash kernels over all 8192 positions: the function both compute.
+# Bounds: every step's loss within GANG_LOSS_REL (17c's bf16 bound) of
+# world 1's, the ranks' final weights equal bit for bit. Read on an H100
+# 80GB HBM3 at 700 W: worst rel 1.564e-06 (ring) and 2.954e-06 (Ulysses)
+SEQ_RANKS = 2
+SEQ_CFG = dict(TRAIN_CFG, seq_len=2 * 4096, global_batch_size=2,
+               accum_steps=1, steps=3)
+# 19c: one ring rank's block loop at the config's own geometry: q, k, v
+# [2, 32768, 12, 64] bf16 in 8 blocks of 4096 (ranks 0 and 7)
+RING_B, RING_S, RING_N = 2, 32768, 8
 
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
@@ -3336,9 +3376,13 @@ def gang_rank() -> int:
         from kubeflow_tpu_torch.runtime.train_run import run_training
         from kubeflow_tpu_torch.training.trainer import Trainer
 
-        gd.initialize_from_env(backend=job["backend"])
+        if job.get("device") == "cpu":
+            # ranks sharing the host's cores (a CPU rehearsal)
+            torch.set_num_threads(1)
+        gd.initialize_from_env(device=job.get("device"),
+                               backend=job["backend"])
         report["backend"] = torch.distributed.get_backend()
-        dev = gd.gang_device()
+        dev = gd.gang_device(job.get("device"))
         with open(job["config"]) as f:
             cfg = TrainingConfig.from_dict(json.load(f))
         trainer = Trainer(cfg, device=dev)
@@ -3401,7 +3445,7 @@ def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    print(f"gang 17 {name}: {world} rank(s) in {time.monotonic() - t0:.3f} s "
+    print(f"gang {name}: {world} rank(s) in {time.monotonic() - t0:.3f} s "
           f"(process start to exit)", flush=True)
     return outs
 
@@ -4303,6 +4347,230 @@ def phase_moe(torch, dense_stats, device="cuda"):
     return launches, bert
 
 
+def _ring_rank(torch, rp, q_blocks, kv_blocks, idx, grad=None):
+    """Ring rank `idx`'s block loop (`ring_pass`) on blocks it already
+    holds, in the ring's order (no rotation): → its output, and with
+    `grad` (the output's cotangent) the gradients of its query block and
+    of every K/V block."""
+    n = len(kv_blocks)
+
+    def rotate(t, _kv, mask):
+        return kv_blocks[(idx - t - 1) % n], mask
+
+    q = q_blocks[idx]
+    o = rp.ring_pass(q, kv_blocks[idx], None, idx, n, rotate,
+                     dtype=q.dtype, causal=True, impl="flash")
+    if grad is None:
+        return o
+    return o, torch.autograd.grad(o, [q] + list(kv_blocks), grad,
+                                  allow_unused=True)
+
+
+def phase_ring_cost(torch, device="cuda", b=RING_B, s=RING_S, n=RING_N,
+                    h=FH, d=FD, dtype=None):
+    """19c: ranks 0 and n-1 of an n-rank ring at one rank's geometry,
+    beside one causal flash call over all s positions and its balanced
+    n-th. → the flash launches of one forward and backward of both
+    ranks (the gated pass)."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import ring_attention as rp
+
+    dtype = torch.bfloat16 if dtype is None else dtype
+    name = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    cuda = device == "cuda"
+    g = torch.Generator().manual_seed(19)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g).to(dtype).to(device)
+                   for _ in range(4))
+    sb = s // n
+    q_blocks = [q[:, i * sb:(i + 1) * sb].contiguous().requires_grad_()
+                for i in range(n)]
+    kv_blocks = [torch.stack([k[:, i * sb:(i + 1) * sb],
+                              v[:, i * sb:(i + 1) * sb]]).requires_grad_()
+                 for i in range(n)]
+    last = n - 1
+    do_last = do[:, last * sb:].contiguous()
+    # the gated pass: one forward and backward of ranks 0 and n-1
+    fa.reset_launch_counts()
+    o0, g0 = _ring_rank(torch, rp, q_blocks, kv_blocks, 0,
+                        do[:, :sb].contiguous())
+    counted = {"rank0": dict(fa.launch_counts)}
+    fa.reset_launch_counts()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    o7, g7 = _ring_rank(torch, rp, q_blocks, kv_blocks, last, do_last)
+    counted[f"rank{last}"] = dict(fa.launch_counts)
+    peak = torch.cuda.max_memory_allocated() - base if cuda else 0
+    launches = {kname: counted["rank0"][kname] + counted[f"rank{last}"][kname]
+                for kname in counted["rank0"]}
+    # rank i: i + 1 visible blocks, one forward and one of each backward
+    # kernel each; invisible blocks launch nothing
+    want = {f"rank{i}": {"flash_fwd": i + 1, "flash_bwd_dq": i + 1,
+                         "flash_bwd_dkv": i + 1} for i in (0, last)}
+    # against the full causal call, its cotangent on rank n-1's rows only
+    qf, kf, vf = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    full = fa.flash_attention(qf, kf, vf, causal=True)
+    cot = torch.zeros_like(do)
+    cot[:, last * sb:] = do_last
+    dq_full, dk_full, dv_full = torch.autograd.grad(full, [qf, kf, vf], cot)
+    errs = {"o": flash_err(torch, o7, full[:, last * sb:], name, "o"),
+            "dq": flash_err(torch, g7[0], dq_full[:, last * sb:], name,
+                            "grad")}
+    dk7 = torch.cat([gk[0] for gk in g7[1:]], 1)
+    dv7 = torch.cat([gk[1] for gk in g7[1:]], 1)
+    errs["dk"] = flash_err(torch, dk7, dk_full, name, "grad")
+    errs["dv"] = flash_err(torch, dv7, dv_full, name, "grad")
+    del full, dq_full, dk_full, dv_full, qf, kf, vf, o0, g0
+    print(f"seq 19c: ring ranks 0 and {last} of {n} at B={b} S={s} H={h} "
+          f"D={d} {name}: launches {counted} (formula {want}); rank {last} "
+          f"against one causal flash call over {s} (max_abs_err, worst "
+          f"row over its limit, typical |value|): {errs}; rank {last}'s "
+          f"forward and backward peak {peak} B above its inputs",
+          flush=True)
+    if cuda and counted != want:
+        raise AssertionError(f"19c launches {counted} != {want}")
+    bad = {k_: e for k_, e in errs.items() if not e[1] <= 1.0}
+    if bad:
+        raise AssertionError(f"19c: rank {last} against the full causal "
+                             f"call: {bad}")
+    if not cuda:
+        return launches
+    # the times (CUDA events, medians, L2 flushed before each)
+    flush = torch.empty(2 << 30, dtype=torch.uint8, device="cuda")
+    times = {}
+    with torch.no_grad():
+        for idx in (0, last):
+            times[f"rank{idx}_fwd"] = time_ms(
+                torch, lambda: _ring_rank(torch, rp, q_blocks, kv_blocks,
+                                          idx), flush, iters=20)
+        times["full_fwd"] = time_ms(
+            torch, lambda: fa.flash_attention(q, k, v, causal=True), flush,
+            iters=20)
+    for idx in (0, last):
+        cot_i = do[:, idx * sb:(idx + 1) * sb].contiguous()
+        times[f"rank{idx}_fwd_bwd"] = time_ms(
+            torch, lambda: _ring_rank(torch, rp, q_blocks, kv_blocks, idx,
+                                      cot_i), flush, iters=20)
+
+    def full_fwd_bwd():
+        o = fa.flash_attention(qf2, kf2, vf2, causal=True)
+        return torch.autograd.grad(o, [qf2, kf2, vf2], do)
+
+    qf2, kf2, vf2 = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    times["full_fwd_bwd"] = time_ms(torch, full_fwd_bwd, flush, iters=20)
+    # the merges alone, at a block's shapes: rank n-1 merges n blocks
+    acc = torch.randn((b, sb, h, d), generator=g).to(device)
+    bo = torch.randn((b, sb, h, d), generator=g).to(device)
+    lse_a = torch.randn((b, h, sb), generator=g).to(device)
+    lse_b = torch.randn((b, h, sb), generator=g).to(device)
+    with torch.no_grad():
+        times["merge_fwd"] = time_ms(
+            torch, lambda: rp.merge(acc, lse_a, bo, lse_b), flush, iters=20)
+    acc_g, bo_g, la_g, lb_g = (t.clone().requires_grad_()
+                               for t in (acc, bo, lse_a, lse_b))
+    cot_m = torch.randn((b, sb, h, d), generator=g).to(device)
+
+    def merge_fwd_bwd():
+        o, lse = rp.merge(acc_g, la_g, bo_g, lb_g)
+        return torch.autograd.grad((o, lse), [acc_g, la_g, bo_g, lb_g],
+                                   (cot_m, torch.ones_like(lse)))
+
+    times["merge_fwd_bwd"] = time_ms(torch, merge_fwd_bwd, flush, iters=20)
+    del flush
+    torch.cuda.empty_cache()
+    share = {kind: times[f"full_{kind}"] / n for kind in ("fwd", "fwd_bwd")}
+    ratio = {kind: times[f"rank{last}_{kind}"] / share[kind]
+             for kind in ("fwd", "fwd_bwd")}
+    merges = {kind: n * times[f"merge_{kind}"] / times[f"rank{last}_{kind}"]
+              for kind in ("fwd", "fwd_bwd")}
+    print(f"seq 19c ({smi_line()}): ms {json.dumps(times)}; balanced "
+          f"share (the full causal call / {n}) {json.dumps(share)}; rank "
+          f"{last} over the balanced share {json.dumps(ratio)}; rank {last}'s "
+          f"{n} merges' share of its time {json.dumps(merges)}", flush=True)
+    return launches
+
+
+def phase_sequence(torch, device="cuda", overrides=None, ranks=SEQ_RANKS,
+                   ring_cost=None):
+    """Phase 19: 19a the ring and 19b Ulysses over `mesh: {sequence:
+    ranks}` as gloo ranks on the one card, against world 1 in this
+    process; 19c one ring rank's cost (`ring_cost`: phase_ring_cost's
+    keyword overrides). → each flash kernel's launches over 19a-19c."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    t19 = time.monotonic()
+    smi = smi_line() if device == "cuda" else "the CPU"
+    base = {**SEQ_CFG, **(overrides or {})}
+    cfg1 = TrainingConfig(**dict(base, attention_impl="flash"))
+    layers = get_model(cfg1.model, device="meta", max_len=1).cfg.num_layers
+    # world 1: the function the ring and Ulysses compute, over every
+    # position at once
+    tr1 = Trainer(cfg1, device=device)
+    one = run_training(cfg1, device=device, trainer=tr1,
+                       log_every=cfg1.steps)
+    one_losses = [loss for _, loss in one["losses"]]
+    del tr1
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    hosts = (["127.0.0.1", "localhost"] + ["127.0.0.1"] * (ranks - 2)
+             if device == "cuda" else ["127.0.0.1"] * ranks)
+    job = {} if device == "cuda" else {"device": "cpu"}
+    total = {name: 0 for name in fa.launch_counts}
+    steps, r = cfg1.steps, 2 if cfg1.remat else 1
+    with tempfile.TemporaryDirectory(prefix="kft-seq-") as root:
+        for tag, impl in (("19a", "ring"), ("19b", "ulysses")):
+            cfg = dict(base, attention_impl=impl, mesh={"sequence": ranks})
+            outs = run_gang(torch, f"seq_{impl}", cfg, ranks, mode="trainer",
+                            hosts=hosts, root=root, backend="gloo", **job)
+            reps = [rep for _, rep in outs]
+            losses = [loss for _, loss in reps[0]["result"]["losses"]]
+            arrays = [torch.load(os.path.join(root, f"seq_{impl}.{i}.pt"))
+                      for i in range(ranks)]
+            same = ranks_equal(torch, arrays)
+            del arrays
+            gap = max(_rel(a, b) for a, b in zip(losses, one_losses))
+            launches = [rep["launches"] for rep in reps]
+            # ring rank i: i + 1 visible blocks a layer; Ulysses: one
+            # full-sequence call a layer on every rank
+            blocks = [i + 1 if impl == "ring" else 1 for i in range(ranks)]
+            want = [{"flash_fwd": steps * layers * nb * r,
+                     "flash_bwd_dq": steps * layers * nb,
+                     "flash_bwd_dkv": steps * layers * nb} for nb in blocks]
+            step_ms = [rep["result"]["step_time_s"] * 1e3 for rep in reps]
+            print(f"seq {tag} ({smi}): {cfg1.model} {cfg1.dtype} seq "
+                  f"{cfg1.seq_len} global batch {cfg1.global_batch_size} by "
+                  f"{impl} on {ranks} ranks over {reps[0]['backend']} "
+                  f"({[rep['device'] for rep in reps]}): losses {losses} "
+                  f"against world 1's {one_losses} (worst rel {gap:.3e}, "
+                  f"bound {GANG_LOSS_REL:g}); weights equal across the "
+                  f"ranks: {same}; flash launches a rank {launches} "
+                  f"(formula {want}); step ms a rank {step_ms} (the ranks "
+                  f"share the card)", flush=True)
+            if any(rep["result"]["losses"] != reps[0]["result"]["losses"]
+                   for rep in reps):
+                raise AssertionError(f"{tag}: the ranks' losses differ")
+            if len(losses) != steps or not gap <= GANG_LOSS_REL:
+                raise AssertionError(f"{tag}: losses {losses} vs {one_losses}")
+            if not same:
+                raise AssertionError(f"{tag}: the ranks' weights differ")
+            if device == "cuda" and launches != want:
+                raise AssertionError(f"{tag}: launches {launches} != {want}")
+            for rep in reps:
+                for name, count in rep["launches"].items():
+                    total[name] += count
+    for name, count in phase_ring_cost(torch, device=device,
+                                       **(ring_cost or {})).items():
+        total[name] += count
+    print(f"phase 19: {time.monotonic() - t19:.3f} s; flash launches "
+          f"{total}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4487,6 +4755,16 @@ def main() -> int:
             rec["moe_bert_launches"] = moe_bert_launches[rec["name"]]
         if rec["moe_launches"] < 1:
             raise AssertionError(f"the MoE path never launched {rec['name']}")
+    torch.cuda.empty_cache()
+    # this slice's path: sequence parallelism (19a ring, 19b Ulysses, 19c
+    # a ring rank's block loop at the config's geometry)
+    seq_launches = phase_sequence(torch)
+    for rec in kernels:
+        if rec["name"] in seq_launches:
+            rec["seq_launches"] = seq_launches[rec["name"]]
+            if rec["seq_launches"] < 1:
+                raise AssertionError(f"the sequence-parallel path never "
+                                     f"launched {rec['name']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ Fields keep the JAX package's names and defaults. A field of the JAX
 config that the port does not honour yet is absent here, so passing it
 raises (a `TypeError` from the constructor, a `ValueError` naming the
 ROADMAP item from `from_dict`): no field is accepted and silently
-ignored. `validate()` runs on construction. A mesh axis the port does
-not run yet (any but `data` above 1) raises naming its ROADMAP item.
+ignored. `validate()` runs on construction. The port runs the `data`
+and `sequence` axes; any other axis above 1 raises naming its ROADMAP
+item. A `sequence` axis above 1 trains an LM by ring or Ulysses
+attention over sequence shards, and its `seq_len` must divide over it.
 """
 
 from __future__ import annotations
@@ -56,13 +58,15 @@ _UNPORTED_MESH_AXES = {
     "tensor": "A13 item 2 (tensor parallelism)",
     "expert": "A13 item 3 (the expert axis above 1; MoE runs at 1)",
     "pipeline": "A13 item 4 (pipeline parallelism)",
-    "sequence": "A13 item 5 (sequence parallelism)",
 }
 
 DTYPES = ("float32", "bfloat16")
 DATASETS = ("synthetic", "blobs", "npz")
 AUGMENTS = ("none", "crop_flip")
-ATTENTION_IMPLS = ("dense", "flash", "auto")
+ATTENTION_IMPLS = ("dense", "flash", "auto", "ring", "ulysses")
+# the attentions a sequence axis can run ("dense", the default, becomes
+# "ring" there, as the JAX trainer defaults it)
+SEQUENCE_ATTENTION_IMPLS = ("dense", "ring", "ulysses")
 
 
 class ConfigError(ValueError):
@@ -86,8 +90,8 @@ class MeshConfig:
     fields and check). The product of the axes is the gang's device
     count: one process per rank, one card a process
     (parallel/mesh.py `build_mesh` checks it against the world size).
-    The port runs the `data` axis; any other axis above 1 raises naming
-    the ROADMAP item it waits for."""
+    The port runs the `data` and `sequence` axes; any other axis above 1
+    raises naming the ROADMAP item it waits for."""
 
     data: int = 1
     fsdp: int = 1
@@ -319,9 +323,13 @@ class TrainingConfig:
 
     `attention_impl` is the port's own field: the JAX trainer takes the
     model's default ("dense") unless a `sequence` mesh axis switches it
-    to ring attention; the port runs no sequence axis, so the choice
-    between "dense", "flash" (the CUDA kernels) and "auto"
-    (ops/attention.py `auto_attention_impl`) is named here."""
+    to ring attention, and its model kwargs name any other. Here the
+    config names it: "dense", "flash" (the CUDA kernels), "auto"
+    (ops/attention.py `auto_attention_impl`), "ring" or "ulysses". With
+    `mesh.sequence > 1` the default "dense" becomes "ring" (the JAX
+    trainer's default), "ulysses" is kept, and "flash" or "auto", which
+    attend within a shard only, raise; the model must be an LM and
+    `seq_len` must divide over the axis."""
 
     model: str = "resnet50"
     global_batch_size: int = 256
@@ -406,6 +414,19 @@ class TrainingConfig:
                 f"(model={self.model!r})"
             )
         self.mesh.validate()
+        sp = self.mesh.sequence
+        if sp > 1:
+            if not self.model.startswith(("bert", "gpt")):
+                raise ConfigError(f"mesh.sequence applies to LM models only "
+                                  f"(model={self.model!r})")
+            if self.attention_impl not in SEQUENCE_ATTENTION_IMPLS:
+                raise ConfigError(
+                    f"attention_impl {self.attention_impl!r} runs no "
+                    f"sequence axis; mesh.sequence {sp} takes one of "
+                    f"{SEQUENCE_ATTENTION_IMPLS}")
+            if self.seq_len % sp:
+                raise ConfigError(f"seq_len {self.seq_len} not divisible by "
+                                  f"the sequence mesh axis {sp}")
         dp = self.mesh.data * self.mesh.fsdp
         if self.global_batch_size % dp != 0:
             raise ConfigError(

@@ -20,8 +20,15 @@ pooled CLS row (returned as `pooled`, in the compute dtype).
 Attention is `cfg.attention_impl`: "dense" (`ops/attention.py
 dense_attention`), "flash" (`ops/flash_attention.py`, bidirectional: the
 CUDA forward and backward kernels on the card, their plain versions on
-the CPU) or "auto" (`ops/attention.py auto_attention_impl` at the call's
-shape). `attention_mask=None` stays None down to the kernel, which then
+the CPU), "auto" (`ops/attention.py auto_attention_impl` at the call's
+shape), or the sequence-parallel "ring" (`parallel/ring_attention.py`)
+and "ulysses" (`parallel/ulysses.py`). Under a sequence axis
+(`parallel/mesh.py active_sequence()`, set by the training step)
+`input_ids` is this rank's shard of the sequence, its positions start
+at rank × shard length, and `pooled` / `nsp_logits` are the [CLS] row's
+on sequence rank 0 only (another rank's row 0 is not [CLS]: the MLM task
+counts next-sentence prediction on rank 0 alone). Without a sequence
+axis ring and ulysses are dense attention, as in the JAX package. `attention_mask=None` stays None down to the kernel, which then
 runs unmasked; a given mask is cast to bool (the kernel takes it as
 int32). Flash and dense differ only on a row with no visible key (flash
 gives 0, dense a uniform mix). `cfg.remat` recomputes each layer in the
@@ -45,9 +52,8 @@ its reports go to the forward's `moe` collector. Its init: the router
 normal(0.02), the expert stacks variance-scaled truncated normals over
 their fan-in (flax's initializers).
 
-Not ported yet: "ring" and "ulysses" attention (ROADMAP A13 item 5) and
-`PipelinedEncoder` (`pipeline_stages > 1`, A13 item 4); each raises
-naming its item.
+Not ported yet: `PipelinedEncoder` (`pipeline_stages > 1`, ROADMAP A13
+item 4); it raises naming its item.
 """
 
 from __future__ import annotations
@@ -75,14 +81,13 @@ from kubeflow_tpu_torch.ops.attention import (
     dense_attention,
 )
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+from kubeflow_tpu_torch.parallel.mesh import SequenceShard, forward_sequence
+from kubeflow_tpu_torch.parallel.ring_attention import ring_attention
+from kubeflow_tpu_torch.parallel.ulysses import ulysses_attention
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
-ATTENTION_IMPLS = ("dense", "flash", "auto")
-# the JAX package's other impls, and what they wait for
-_UNPORTED_IMPLS = {
-    "ring": "ROADMAP A13 item 5 (sequence parallelism)",
-    "ulysses": "ROADMAP A13 item 5 (sequence parallelism)",
-}
+ATTENTION_IMPLS = ("dense", "ring", "ulysses", "flash", "auto")
+SEQUENCE_IMPLS = ("ring", "ulysses")
 # the JAX config's pipeline knobs: only their defaults are ported,
 # anything else raises naming what it waits for
 _PIPELINE = "ROADMAP A13 item 4 (PipelinedEncoder)"
@@ -103,7 +108,8 @@ class BertConfig:
     type_vocab_size: int = 2
     dropout_rate: float = 0.1
     dtype: torch.dtype = torch.bfloat16
-    # "dense" | "flash" | "auto"
+    # "dense" | "ring" (SP: KV rotation) | "ulysses" (SP: head
+    # all_to_all) | "flash" | "auto"
     attention_impl: str = "dense"
     remat: bool = False
     # the JAX package's pipeline knobs (_UNPORTED_FIELDS)
@@ -117,11 +123,6 @@ class BertConfig:
     moe_aux_weight: float = 0.01
 
     def __post_init__(self):
-        if self.attention_impl in _UNPORTED_IMPLS:
-            raise ValueError(
-                f"attention_impl {self.attention_impl!r} is not ported yet "
-                f"({_UNPORTED_IMPLS[self.attention_impl]})"
-            )
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r}; known: "
@@ -148,6 +149,8 @@ class _Call:
     generator: Optional[torch.Generator]
     train: bool
     moe: Optional[MoeCollector] = None
+    # the sequence axis this forward's tokens are sharded over, or None
+    seq: Optional[SequenceShard] = None
 
 
 class SelfAttention(nn.Module):
@@ -165,6 +168,12 @@ class SelfAttention(nn.Module):
         q, k, v = self.query(x), self.key(x), self.value(x)
         if call.impl == "flash":
             out = flash_attention(q, k, v, mask=call.mask).to(dtype)
+        elif call.impl == "ring":
+            out = ring_attention(q, k, v, mask=call.mask, dtype=dtype,
+                                 shard=call.seq)
+        elif call.impl == "ulysses":
+            out = ulysses_attention(q, k, v, mask=call.mask, dtype=dtype,
+                                    shard=call.seq)
         else:
             out = dense_attention(q, k, v, mask=call.mask, dtype=dtype)
         return dropout(self.out(out), self.cfg.dropout_rate, call.generator,
@@ -313,8 +322,11 @@ class Bert(nn.Module):
         if impl == "auto":
             impl = auto_attention_impl(b, s, cfg.num_heads, cfg.dtype,
                                        device=input_ids.device)
-        call = _Call(mask, impl, dropout_generator, self.training, moe)
-        positions = torch.arange(s, device=input_ids.device)[None, :]
+        seq = forward_sequence(impl, SEQUENCE_IMPLS)
+        call = _Call(mask, impl, dropout_generator, self.training, moe, seq)
+        first = 0 if seq is None else seq.offset(s)
+        positions = torch.arange(first, first + s,
+                                 device=input_ids.device)[None, :]
         x = self.tok_emb(input_ids) + self.pos_emb(positions)
         x = self.ln_emb(x + self.seg_emb(token_type_ids)).to(cfg.dtype)
         remat = cfg.remat and torch.is_grad_enabled()

@@ -11,8 +11,16 @@ Three forward paths, mirroring the JAX module's three branches:
 - `forward`: the full causal pass, the training path. Its attention is
   `cfg.attention_impl`: "dense" (`ops/attention.py::dense_attention`),
   "flash" (`ops/flash_attention.py`, the CUDA forward/backward kernels on
-  the card) or "auto" (`ops/attention.py::auto_attention_impl` at the
-  call's shape). `cfg.remat` recomputes each block in the backward
+  the card), "auto" (`ops/attention.py::auto_attention_impl` at the
+  call's shape), or the sequence-parallel "ring"
+  (`parallel/ring_attention.py`: K/V rotation with global-position
+  causal masking) and "ulysses" (`parallel/ulysses.py`: the heads'
+  all-to-all). Under a sequence axis (`parallel/mesh.py
+  active_sequence()`, set by the training step) `input_ids` is this
+  rank's shard of the sequence and its positions start at
+  rank × shard length; the shard is kept in the call's context, so a
+  remat recompute in the backward runs the same ring. Without one, ring
+  and ulysses are dense attention, as in the JAX package. `cfg.remat` recomputes each block in the backward
   (`models/layers.py remat`, the JAX `nn.remat`), `return_hidden` hands
   the post-LN hidden states to a chunked loss, and in train mode
   `cfg.dropout_rate` drops attention and MLP outputs (`models/layers.py
@@ -29,6 +37,9 @@ Three forward paths, mirroring the JAX module's three branches:
   one bf16 scale per written vector: writes quantize (`quantize_kv`),
   reads dequantize (`dequant_kv` on the gathered view, or fused into the
   kernels' page walk).
+
+The serving paths (`prefill`, `decode`, `paged_forward`) run no sequence
+axis, as the JAX engine takes none: under one they raise.
 
 Caches are updated IN PLACE (the JAX programs donate and replace them).
 
@@ -83,16 +94,21 @@ from kubeflow_tpu_torch.ops.attention import (
 )
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.ops.paged_attention import paged_attention
+from kubeflow_tpu_torch.parallel.mesh import (
+    SequenceShard,
+    active_sequence,
+    forward_sequence,
+)
+from kubeflow_tpu_torch.parallel.ring_attention import ring_attention
+from kubeflow_tpu_torch.parallel.ulysses import ulysses_attention
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
 PAGED_ATTENTION_IMPLS = ("gather", "kernel")
 QUANTIZE_CHOICES = ("none", "int8")
-GPT_ATTENTION_IMPLS = ("dense", "flash", "auto")
-# the JAX package's other full-causal impls, and what they wait for
-_UNPORTED_IMPLS = {
-    "ring": "ROADMAP A13 item 5 (sequence parallelism)",
-    "ulysses": "ROADMAP A13 item 5 (sequence parallelism)",
-}
+# "ring" (SP: KV rotation with global-position causal masking) and
+# "ulysses" (SP: head all_to_all) complete the causal family's menu
+GPT_ATTENTION_IMPLS = ("dense", "flash", "auto", "ring", "ulysses")
+SEQUENCE_IMPLS = ("ring", "ulysses")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +122,9 @@ class GptConfig:
     dropout_rate: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     # "dense" | "flash" | "auto" (`ops/attention.py auto_attention_impl`
-    # at each forward's shape; full causal pass only: serving's cached
-    # paths read through their own kernels)
+    # at each forward's shape) | "ring" | "ulysses" (sequence parallel);
+    # full causal pass only: serving's cached paths read through their
+    # own kernels
     attention_impl: str = "dense"
     remat: bool = False
     # > 0 makes every MLP a routed MoE of this many experts
@@ -118,11 +135,6 @@ class GptConfig:
     moe_aux_weight: float = 0.01
 
     def __post_init__(self):
-        if self.attention_impl in _UNPORTED_IMPLS:
-            raise ValueError(
-                f"attention_impl {self.attention_impl!r} is not ported yet "
-                f"({_UNPORTED_IMPLS[self.attention_impl]})"
-            )
         if self.attention_impl not in GPT_ATTENTION_IMPLS:
             raise ValueError(
                 f"unknown attention_impl {self.attention_impl!r}; known: "
@@ -219,6 +231,8 @@ class _Causal:
     dropout_gen: Optional[torch.Generator] = None
     # the forward's MoE reports (models/layers.py MoeCollector), or None
     moe: Optional[MoeCollector] = None
+    # the sequence axis this forward's tokens are sharded over, or None
+    seq: Optional[SequenceShard] = None
 
     def __init__(self, mask: Optional[torch.Tensor], dtype,
                  impl: str = "dense"):
@@ -229,6 +243,13 @@ class _Causal:
             return flash_attention(
                 q, k, v, mask=self.mask, causal=True
             ).to(self.dtype)
+        if self.impl == "ring":
+            return ring_attention(q, k, v, mask=self.mask, dtype=self.dtype,
+                                  causal=True, shard=self.seq)
+        if self.impl == "ulysses":
+            return ulysses_attention(q, k, v, mask=self.mask,
+                                     dtype=self.dtype, causal=True,
+                                     shard=self.seq)
         return dense_attention(
             q, k, v, mask=self.mask, dtype=self.dtype, causal=True
         )
@@ -393,6 +414,13 @@ class DecoderBlock(nn.Module):
         return x + dropout(h, self.dropout_rate, ctx.dropout_gen, not ctx.train)
 
 
+def _no_sequence_axis(path: str) -> None:
+    seq = active_sequence()
+    if seq is not None:
+        raise ValueError(f"the {path} paths run no sequence axis (shard "
+                         f"{seq.rank} of {seq.size} is active)")
+
+
 def init_params(model: nn.Module, seed: int) -> None:
     """Seeded init from an explicit CPU torch.Generator (the same weights
     on every device): layernorm scales 1, biases 0, every kernel and
@@ -477,6 +505,7 @@ class Gpt(nn.Module):
                                    causal=True, device=input_ids.device)
 
     def _run(self, input_ids, positions, ctx, moe=None):
+        _no_sequence_axis("serving")
         ctx.moe = moe
         x = self._hidden(input_ids, positions, ctx)
         return self.head(x.to(self.cfg.dtype)).float()
@@ -495,8 +524,11 @@ class Gpt(nn.Module):
         layers report to `moe` (every forward path takes one)."""
         s = input_ids.shape[1]
         mask = None if attention_mask is None else attention_mask.bool()
-        positions = torch.arange(s, device=input_ids.device)[None, :]
         ctx = _Causal(mask, self.cfg.dtype, self._attention_impl(input_ids))
+        ctx.seq = forward_sequence(ctx.impl, SEQUENCE_IMPLS)
+        first = 0 if ctx.seq is None else ctx.seq.offset(s)
+        positions = torch.arange(first, first + s,
+                                 device=input_ids.device)[None, :]
         ctx.train, ctx.dropout_gen = self.training, dropout_generator
         ctx.moe = moe
         remat = self.cfg.remat and torch.is_grad_enabled()

@@ -40,19 +40,24 @@ from kubeflow_tpu_torch.parallel.moe import expert_capacity, topk_route
 QSCALE = "_qscale"
 
 
-# (first row, global rows) of the batch a dropout draws for: set by a
-# data-parallel step, so a rank's masks are rows of the global batch's
-_DROPOUT_ROWS: contextvars.ContextVar[Optional[Tuple[int, int]]] = \
+# (first row, global rows, first column, global columns) of the batch a
+# dropout draws for: set by a data- or sequence-parallel step, so a
+# rank's masks are its block of the global batch's
+_DROPOUT_ROWS: contextvars.ContextVar[
+    Optional[Tuple[int, int, int, Optional[int]]]] = \
     contextvars.ContextVar("dropout_rows", default=None)
 
 
 @contextlib.contextmanager
-def dropout_rows(first: int, total: int):
+def dropout_rows(first: int, total: int, first_col: int = 0,
+                 total_cols: Optional[int] = None):
     """Inside, every `dropout` draws its mask for a batch of `total` rows
     and keeps rows [first, first + its own rows): a data-parallel rank's
     share of the global batch draws the masks a world-1 run draws for
-    those rows."""
-    token = _DROPOUT_ROWS.set((first, total))
+    those rows. With `total_cols` the mask is drawn for sequences of
+    that many positions and the columns [first_col, first_col + its
+    own) are kept: a sequence shard's (x's dim 1 is the sequence)."""
+    token = _DROPOUT_ROWS.set((first, total, first_col, total_cols))
     try:
         yield
     finally:
@@ -78,9 +83,13 @@ def dropout(x: torch.Tensor, rate: float,
     if rows is None:
         u = torch.rand(x.shape, generator=generator, device=x.device)
     else:
-        first, total = rows
-        u = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
+        first, total, col, cols = rows
+        inner = tuple(x.shape[1:]) if cols is None else (
+            (cols,) + tuple(x.shape[2:]))
+        u = torch.rand((total,) + inner, generator=generator,
                        device=x.device)[first:first + x.shape[0]]
+        if cols is not None:
+            u = u[:, col:col + x.shape[1]]
     keep = u >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 

@@ -27,6 +27,13 @@ expert matmul parameters count 2·D·F per slot: 6 × 2·D·F × B·E·C a
 step. The one-hot dispatch and combine contractions move data and are
 not counted.
 
+Under data and sequence parallelism a rank's count is the global
+step's over the ranks (`rank_train_flops`): the analytic count at the
+global batch and the GLOBAL sequence length (attention grows with S²,
+so a shard's own S/n would undercount it n times) divided by data ×
+sequence, as the JAX package divides its global program's count by the
+chips.
+
 Recomputation under remat is NOT counted (it is work the model does not
 need), and neither are embeddings, layernorms, softmax or the optimizer.
 Other models (ResNet, the mlp) take the count of
@@ -105,6 +112,19 @@ def encoder_train_flops(cfg, batch: int, seq: int) -> float:
     attention = 12 * batch * cfg.num_heads * seq * seq * cfg.head_dim
     return (6.0 * matmul_params * batch * seq
             + cfg.num_layers * (attention + _mlp_train_flops(cfg, batch, seq)))
+
+
+def rank_train_flops(count, cfg, local_batch: int, local_seq: int,
+                     data: int = 1, sequence: int = 1) -> float:
+    """One rank's share of a train step's model FLOPs: `count`
+    (`lm_train_flops` or `encoder_train_flops`) of the global step, the
+    rank's local_batch × local_seq tokens scaled by the data and
+    sequence axes, over data × sequence. Without a sequence axis the
+    count is linear in the batch, so a rank's is its own rows'."""
+    if sequence == 1:
+        return count(cfg, local_batch, local_seq)
+    return (count(cfg, local_batch * data, local_seq * sequence)
+            / (data * sequence))
 
 
 def mfu(flops_per_step: Optional[float], step_time_s: float,

@@ -96,10 +96,14 @@ def dense_attention(
     mask: Optional[torch.Tensor] = None,
     dtype: torch.dtype = torch.bfloat16,
     causal: bool = False,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Plain attention over [B, S, H, D]. `mask` is a [B, S_k] key-padding
     mask (True = attend) or a [B, S_q, S_k] per-query visibility mask;
-    `causal` adds the autoregressive triangle.
+    `causal` adds the autoregressive triangle. `q_offset` is the key
+    position of query row 0 (a sequence shard's queries against the
+    whole sequence's keys: query i sees keys <= q_offset + i); 0 is the
+    JAX function.
 
     The order of operations is the JAX package's: QK^T in the compute
     dtype, `/ sqrt(D)` in the compute dtype, the mask, an f32 softmax
@@ -121,7 +125,8 @@ def dense_attention(
         scores = torch.where(bmask, scores, big_neg)
     if causal:
         s_q, s_k = scores.shape[-2], scores.shape[-1]
-        tri = torch.ones((s_q, s_k), dtype=torch.bool, device=q.device).tril()
+        tri = torch.ones((s_q, s_k), dtype=torch.bool,
+                         device=q.device).tril(q_offset)
         scores = torch.where(tri, scores, big_neg)
     probs = torch.softmax(scores.float(), dim=-1).to(dtype)
     if cpu:

@@ -215,3 +215,148 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Differentiable SUM all-reduce of `x` over `group`: a new tensor,
     `x` untouched."""
     return _AllReduceSum.apply(x, group)
+
+
+# -- the sequence axis's collectives -------------------------------------------
+# Differentiable forms of the JAX collectives ring and Ulysses attention
+# use (`ppermute`, tiled `all_to_all` and `all_gather`), each over a
+# process group (None: the default group). Each backward is the JAX
+# transpose: the cotangent goes back the way the value came, so a K/V
+# block's gradient reaches the rank that owns the block.
+#
+# gloo carries host tensors only for these (NCCL refuses two ranks on
+# one card, so the ranks of a one-card gang talk over gloo): on a gloo
+# group a CUDA tensor is staged through host memory, the transport of
+# that backend. The kernels still run on the card.
+
+
+def _group(group):
+    return group if group is not None else torch.distributed.group.WORLD
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    return (x.device.type == "cuda"
+            and torch.distributed.get_backend(group) == "gloo")
+
+
+def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """This rank's x to group rank (r + shift) mod n, and rank
+    (r − shift) mod n's to here: one `batch_isend_irecv` of a send and a
+    receive, so every rank posts the pair in the same order."""
+    dist = torch.distributed
+    group = _group(group)
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    stage = _staged(x, group)
+    src = x.detach().contiguous()
+    src = src.cpu() if stage else src
+    out = torch.empty_like(src)
+    ops = [dist.P2POp(dist.isend, src, dist.get_global_rank(
+               group, (r + shift) % n), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(
+               group, (r - shift) % n), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out.to(x.device) if stage else out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _shift(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _shift(grad, ctx.group, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, group=None, shift: int = 1) -> torch.Tensor:
+    """The ring rotation: group rank r's `x` lands on rank (r + shift)
+    mod n (the JAX `ppermute` with perm [(j, (j + shift) % n)]); the
+    backward sends the cotangent the other way. A new contiguous
+    tensor."""
+    return _PPermute.apply(x, group, shift)
+
+
+def _all_to_all(x: torch.Tensor, group, split_dim: int,
+                concat_dim: int) -> torch.Tensor:
+    dist = torch.distributed
+    group = _group(group)
+    n = dist.get_world_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    send = torch.stack(x.detach().chunk(n, split_dim))
+    stage = _staged(send, group)
+    send = send.cpu() if stage else send
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    recv = recv.to(x.device) if stage else recv
+    return torch.cat(recv.unbind(0), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.args = (group, split_dim, concat_dim)
+        return _all_to_all(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, split_dim, concat_dim = ctx.args
+        return _all_to_all(grad, group, concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group=None, split_dim: int = 0,
+               concat_dim: int = 0) -> torch.Tensor:
+    """The tiled all-to-all (JAX `all_to_all(..., tiled=True)`): `x` is
+    cut into n blocks along `split_dim`, block j goes to group rank j,
+    and the blocks received (in rank order) are joined along
+    `concat_dim`. The backward is the inverse all-to-all."""
+    return _AllToAll.apply(x, group, split_dim, concat_dim)
+
+
+def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    dist = torch.distributed
+    group = _group(group)
+    n = dist.get_world_size(group)
+    src = x.detach().contiguous()
+    stage = _staged(src, group)
+    src = src.cpu() if stage else src
+    # the output is the ranks' tensors one after another along dim 0
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    dist.all_gather_into_tensor(out, src, group=group)
+    out = out.to(x.device) if stage else out
+    return torch.cat(out.chunk(n), dim=dim)
+
+
+def _reduce_scatter(grad: torch.Tensor, group, dim: int) -> torch.Tensor:
+    dist = torch.distributed
+    group = _group(group)
+    n = dist.get_world_size(group)
+    # the input is the ranks' blocks one after another along dim 0
+    send = torch.cat(grad.chunk(n, dim))
+    stage = _staged(send, group)
+    send = send.cpu() if stage else send
+    out = send.new_empty((send.shape[0] // n,) + tuple(send.shape[1:]))
+    dist.reduce_scatter_tensor(out, send, group=group)
+    return out.to(grad.device) if stage else out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.group, ctx.dim), None, None
+
+
+def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The tiled all-gather (JAX `all_gather(..., tiled=True)`): every
+    group rank's `x` joined along `dim` in rank order. The backward is a
+    reduce-scatter: each rank gets the sum over ranks of its block's
+    cotangent."""
+    return _AllGather.apply(x, group, dim)

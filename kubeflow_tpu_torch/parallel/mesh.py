@@ -10,14 +10,24 @@ Axis placement is the JAX package's: outermost the axes that may ride
 the slow links between slices (pure data parallelism), innermost the
 ones that communicate every layer (tensor). Ranks are numbered slice
 by slice (`render_gang_env`), so the row-major layout of the ranks over
-MESH_AXIS_ORDER puts the data axis across slices.
+MESH_AXIS_ORDER puts the data axis across slices, and the sequence
+axis, inner to data, makes each ring of consecutive ranks: rank
+d·S + i holds sequence shard i of data shard d.
+
+The JAX package's models find the sequence axis on the ambient mesh
+(`active_mesh()`); here a training step names this rank's place on it
+with `sequence_parallel(SequenceShard(...))`, and the models read
+`active_sequence()` at each forward (and keep it for a remat recompute,
+which runs outside the step's context).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -177,3 +187,108 @@ def data_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
 def mesh_shape(mesh) -> Dict[str, int]:
     """{axis: size} of a DeviceMesh (the JAX `Mesh.shape`)."""
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def mesh_coordinate(mesh, axis: str) -> int:
+    """This rank's position along `axis` (0 without a process group)."""
+    if mesh is None or not torch.distributed.is_initialized():
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+def sequence_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
+    """The process group of the mesh's sequence axis (None without a
+    process group): the ranks of one ring, in ring order (group rank =
+    position along the axis)."""
+    if mesh is None or not torch.distributed.is_initialized():
+        return None
+    return mesh.get_group("sequence")
+
+
+def reduce_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
+    """The group a step's gradients, item counts and BatchNorm statistics
+    are summed over: data × sequence (parameters are replicated over
+    both). The data axis's own group when the sequence axis is 1, the
+    sequence axis's when the data axis is; else one `new_group` for
+    each block of ranks that share every other coordinate. Every rank
+    creates every block's group (torch requires it), so call this once a
+    mesh, on every rank."""
+    if mesh is None or not torch.distributed.is_initialized():
+        return None
+    sizes = mesh_shape(mesh)
+    if sizes["sequence"] == 1:
+        return mesh.get_group("data")
+    if sizes["data"] == 1:
+        return mesh.get_group("sequence")
+    names = list(mesh.mesh_dim_names)
+    d, s = names.index("data"), names.index("sequence")
+    others = [i for i in range(len(names)) if i not in (d, s)]
+    blocks = mesh.mesh.permute(*others, d, s).reshape(
+        -1, sizes["data"] * sizes["sequence"])
+    me, mine = torch.distributed.get_rank(), None
+    for ranks in blocks.tolist():
+        group = torch.distributed.new_group(ranks)
+        if me in ranks:
+            mine = group
+    return mine
+
+
+@dataclasses.dataclass(frozen=True)
+class SequenceShard:
+    """This rank's place on the sequence axis: its ring's process group,
+    its position (`rank`, which is also its sequence shard's index) and
+    the ring's size. A rank holds positions [rank·s, (rank + 1)·s) of
+    every sequence of s·size positions."""
+
+    group: Optional["torch.distributed.ProcessGroup"]
+    rank: int
+    size: int
+
+    def offset(self, local_len: int) -> int:
+        """Global position of this shard's first position."""
+        return self.rank * local_len
+
+
+def sequence_shard(mesh) -> Optional[SequenceShard]:
+    """The mesh's SequenceShard for this rank; None when the sequence
+    axis is 1 or there is no process group."""
+    group = sequence_group(mesh)
+    if group is None or mesh_shape(mesh)["sequence"] == 1:
+        return None
+    return SequenceShard(group, torch.distributed.get_rank(group),
+                         torch.distributed.get_world_size(group))
+
+
+_ACTIVE_SEQUENCE: contextvars.ContextVar[Optional[SequenceShard]] = \
+    contextvars.ContextVar("sequence_shard", default=None)
+
+
+@contextlib.contextmanager
+def sequence_parallel(shard: Optional[SequenceShard]) -> Iterator[None]:
+    """Inside, `active_sequence()` is `shard` (None: no sequence axis)."""
+    token = _ACTIVE_SEQUENCE.set(shard)
+    try:
+        yield
+    finally:
+        _ACTIVE_SEQUENCE.reset(token)
+
+
+def active_sequence() -> Optional[SequenceShard]:
+    """The sequence shard of the step being traced (the JAX package's
+    `active_mesh()` sequence axis); None outside `sequence_parallel` or
+    with a ring of one."""
+    shard = _ACTIVE_SEQUENCE.get()
+    return shard if shard is not None and shard.size > 1 else None
+
+
+def forward_sequence(impl: str, sequence_impls) -> Optional[SequenceShard]:
+    """A model forward's sequence axis (`active_sequence()`), which only
+    the sequence-parallel attentions (`sequence_impls`) can run: any
+    other attention would attend within the shard alone, so it raises."""
+    seq = active_sequence()
+    if seq is not None and impl not in sequence_impls:
+        raise ValueError(
+            f"attention {impl!r} runs no sequence axis (this forward holds "
+            f"shard {seq.rank} of {seq.size}): use one of "
+            f"{tuple(sequence_impls)}")
+    return seq

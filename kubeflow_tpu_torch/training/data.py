@@ -25,6 +25,15 @@ microbatch, so microbatch i of every rank is its share of the global
 microbatch i, as the JAX step reshards each microbatch over the data
 axis. `batch_spec` is the JAX package's one batch-layout policy: every
 array splits its leading dim over (data, fsdp).
+
+Sequence parallelism (the mesh's sequence axis, `n` ranks a ring): a
+rank keeps its rows and then its columns [r·s, (r+1)·s) of every
+[B, S] array (`shard_columns`), s = S / n, still cut from the global
+batch. The causal LM's last position of a shard predicts the first
+token of the next shard, so the ids and the mask also keep ONE
+lookahead column, position (r+1)·s, as `next_input_ids` and
+`next_attention_mask` ([B, 1]); the last rank's is a masked column.
+The JAX task shifts the global array, which GSPMD keeps global.
 """
 
 from __future__ import annotations
@@ -39,6 +48,9 @@ TASKS = ("lm", "mlm", "image")
 # and a masked position's input id becomes MASK_ID ([MASK]-like)
 MLM_MASK_RATE = 0.15
 MASK_ID = 1
+# the lookahead column a sequence shard keeps of each of these arrays
+LOOKAHEAD = ("input_ids", "attention_mask")
+NEXT = "next_"
 
 
 class SyntheticData:
@@ -203,4 +215,38 @@ def shard_batch(batch: Dict[str, Any], rows: Rows) -> Dict[str, Any]:
                        else torch.from_numpy(rows).to(v.device)]
         else:
             out[k] = np.asarray(v[rows])
+    return out
+
+
+def local_columns(seq_len: int, rank: int, size: int) -> slice:
+    """The columns sequence rank `rank` of `size` holds."""
+    if seq_len % size:
+        raise ValueError(f"sequence parallelism needs seq_len {seq_len} "
+                         f"divisible by the sequence mesh axis {size}")
+    s = seq_len // size
+    return slice(rank * s, (rank + 1) * s)
+
+
+def shard_columns(batch: Dict[str, Any], rank: int, size: int
+                  ) -> Dict[str, Any]:
+    """Sequence rank `rank` of `size`'s columns of a batch (numpy arrays
+    or tensors): every [B, S] array (S the ids' length) cut to its
+    columns, other arrays unchanged, plus the lookahead column of each
+    LOOKAHEAD array as NEXT + its name (zeros on the last rank)."""
+    seq_len = batch["input_ids"].shape[1]
+    cols = local_columns(seq_len, rank, size)
+    out = {}
+    for k, v in batch.items():
+        out[k] = (v[:, cols] if v.ndim == 2 and v.shape[1] == seq_len
+                  else v)
+    for k in LOOKAHEAD:
+        if k not in batch:
+            continue
+        v = batch[k]
+        if cols.stop < seq_len:
+            out[NEXT + k] = v[:, cols.stop:cols.stop + 1]
+        elif isinstance(v, torch.Tensor):
+            out[NEXT + k] = torch.zeros_like(v[:, :1])
+        else:
+            out[NEXT + k] = np.zeros_like(v[:, :1])
     return out

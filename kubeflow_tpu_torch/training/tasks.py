@@ -29,6 +29,16 @@ summed gradients are its gradient. A mean of per-rank means (DDP's
 average) would be another gradient wherever ranks hold different
 counts (ragged masks, MLM's random 15 %).
 
+Sequence parallelism: a rank holds a shard of each sequence's columns
+(training/data.py `shard_columns`) and the trainer sums the counts over
+data × sequence. The causal LM's next-token pairs include the one that
+crosses into the next shard, whose target is the batch's lookahead
+column (`next_input_ids`, `next_attention_mask`), so the pairs of all
+shards are the unsharded sequence's; the streamed head runs over the
+local shard. MLM counts its masked positions on every shard and the
+next-sentence rows on sequence rank 0 only, which alone holds [CLS]
+(`parallel/mesh.py active_sequence()`, set by the step).
+
 The convnet recipe (`resnet*`), `optax.chain(add_decayed_weights(wd),
 sgd(schedule, momentum=0.9, nesterov=True))`, is `torch.optim.SGD(
 momentum=0.9, nesterov=True, dampening=0, weight_decay=wd)`: optax's
@@ -62,7 +72,8 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.config.platform import TrainingConfig
 from kubeflow_tpu_torch.models.layers import MoeCollector
-from kubeflow_tpu_torch.training.data import SyntheticData
+from kubeflow_tpu_torch.parallel.mesh import active_sequence
+from kubeflow_tpu_torch.training.data import NEXT, SyntheticData
 
 IGNORE = -100
 
@@ -230,11 +241,12 @@ class MlmTask:
         )
 
     def item_counts(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """[masked positions, rows]: the two denominators of the loss."""
+        """[masked positions, rows]: the two denominators of the loss
+        (the rows on sequence rank 0 alone under a sequence axis)."""
         labels = batch["labels"]
+        rows = float(labels.shape[0]) if _holds_cls() else 0.0
         return torch.stack([(labels != IGNORE).sum().float(),
-                            labels.new_tensor(float(labels.shape[0]),
-                                              dtype=torch.float32)])
+                            labels.new_tensor(rows, dtype=torch.float32)])
 
     def loss(self, model, batch: Dict[str, torch.Tensor],
              dropout_generator: Optional[torch.Generator] = None,
@@ -256,8 +268,11 @@ class MlmTask:
         )
         mlm = cross_entropy(out["mlm_logits"], batch["labels"], ignore=IGNORE,
                             count=None if counts is None else counts[0])
-        nsp = cross_entropy(out["nsp_logits"], batch["nsp_labels"],
-                            count=None if counts is None else counts[1])
+        if _holds_cls():
+            nsp = cross_entropy(out["nsp_logits"], batch["nsp_labels"],
+                                count=None if counts is None else counts[1])
+        else:  # another shard's row 0 is not [CLS]
+            nsp = torch.zeros((), device=mlm.device)
         aux = {"mlm_loss": mlm.detach(), "nsp_loss": nsp.detach()}
         loss = _add_moe_aux(mlm + nsp, aux, moe, group)
         return loss, {"aux": aux,
@@ -275,6 +290,22 @@ class MlmTask:
         return _masked_token_stats(
             out["mlm_logits"], labels,
             _row_valid(batch, labels.shape[0], labels.device), IGNORE)
+
+
+def _holds_cls() -> bool:
+    """Whether this rank's shard holds each sequence's first position."""
+    seq = active_sequence()
+    return seq is None or seq.rank == 0
+
+
+def _extended(batch: Dict[str, torch.Tensor]):
+    """(ids, mask) with the lookahead column appended when the batch is
+    a sequence shard's; else the batch's own."""
+    ids, mask = batch["input_ids"], batch["attention_mask"]
+    if NEXT + "input_ids" not in batch:
+        return ids, mask
+    return (torch.cat([ids, batch[NEXT + "input_ids"]], 1),
+            torch.cat([mask, batch[NEXT + "attention_mask"]], 1))
 
 
 def _chunk_nll_sum(h_c, t_c, kernel, compute_dtype):
@@ -336,6 +367,17 @@ class CausalLmTask:
         return torch.where(valid, targets, torch.full_like(targets, IGNORE))
 
     @staticmethod
+    def _shard_targets(batch):
+        """A sequence shard's targets [B, s]: position i predicts column
+        i + 1 of the ids extended by the lookahead column, so the last
+        position predicts the next shard's first token (the last shard's
+        lookahead column is masked: no pair)."""
+        ids, mask = _extended(batch)
+        valid = (mask[:, 1:] != 0) & (mask[:, :-1] != 0)
+        return torch.where(valid, ids[:, 1:], torch.full_like(ids[:, 1:],
+                                                              IGNORE))
+
+    @staticmethod
     def _chunked_lm_loss(head_kernel, hidden, targets, chunk: int,
                          compute_dtype, count: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -361,8 +403,9 @@ class CausalLmTask:
         return total / count.clamp_min(1), count
 
     def item_counts(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """[valid next-token pairs]: the loss's denominator, f32."""
-        mask = batch["attention_mask"]
+        """[valid next-token pairs]: the loss's denominator, f32 (a
+        sequence shard's include the pair into the next shard)."""
+        _, mask = _extended(batch)
         valid = (mask[:, 1:] != 0) & (mask[:, :-1] != 0)
         return valid.sum().float().reshape(1)
 
@@ -382,14 +425,17 @@ class CausalLmTask:
                     else mask, return_hidden=bool(chunked),
                     dropout_generator=dropout_generator,
                     **({} if moe is None else {"moe": moe}))
+        sharded = NEXT + "input_ids" in batch
         if chunked:
-            targets = self._shift_full(ids, mask)
+            targets = (self._shard_targets(batch) if sharded
+                       else self._shift_full(ids, mask))
             loss, n_items = self._chunked_lm_loss(
                 model.head.kernel, out, targets, int(self.loss_chunk),
                 model.cfg.dtype, count,
             )
         else:
-            logits, targets = self._shift(out, ids, mask)
+            logits, targets = ((out, self._shard_targets(batch)) if sharded
+                               else self._shift(out, ids, mask))
             loss = cross_entropy(logits, targets, ignore=IGNORE, count=count)
             n_items = (targets != IGNORE).sum() if count is None else count
         aux: Dict[str, torch.Tensor] = {}
@@ -401,10 +447,14 @@ class CausalLmTask:
 
     def eval_stats(self, model, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        """Next-token top-1 and loss over the valid pairs."""
+        """Next-token top-1 and loss over the valid pairs (a sequence
+        shard's include the pair into the next shard)."""
         ids, mask = batch["input_ids"], batch["attention_mask"]
-        logits, targets = self._shift(model(ids, attention_mask=mask), ids,
-                                      mask)
+        logits = model(ids, attention_mask=mask)
+        if NEXT + "input_ids" in batch:
+            targets = self._shard_targets(batch)
+        else:
+            logits, targets = self._shift(logits, ids, mask)
         return _masked_token_stats(
             logits, targets, _row_valid(batch, targets.shape[0], ids.device),
             IGNORE)

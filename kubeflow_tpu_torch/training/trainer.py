@@ -68,6 +68,23 @@ three statistics over the group. Log windows count global items; MFU is
 a rank's FLOPs (the global step's over the ranks) over the card's peak.
 A gang of one (a group of size 1) takes the same path, all-reduces
 included; without a group the step is the single-card one above.
+
+Sequence parallelism (`cfg.mesh.sequence` ranks a ring, inner to the
+data axis: the JAX package's sequence mesh axis). A rank keeps its
+rows, then its columns of every sequence, with one lookahead column for
+the causal LM's pair across the shard boundary (training/data.py
+`shard_columns`); dropout draws the global microbatch's masks and keeps
+the rank's block of them. The step runs inside `sequence_parallel`
+(parallel/mesh.py), where the model offsets its positions and attends
+by ring or Ulysses attention over the ring's process group, and the
+MLM task counts next-sentence rows on sequence rank 0. Item counts,
+the loss and the gradients are summed over data × sequence
+(`reduce_group`): parameters are replicated over both. Without an
+explicit model a sequence axis turns the default attention ("dense")
+into "ring", as the JAX trainer defaults it; an MoE model is refused
+(its routing capacity is a whole sequence's). MFU is a rank's share of
+the global step's FLOPs, attention counted at the global length
+(observability/mfu.py `rank_train_flops`).
 """
 
 from __future__ import annotations
@@ -91,14 +108,22 @@ from kubeflow_tpu_torch.observability.mfu import (
     lm_train_flops,
     mfu as mfu_fraction,
     peak_flops_per_chip,
+    rank_train_flops,
 )
 from kubeflow_tpu_torch.observability.trace import default_tracer
 from kubeflow_tpu_torch.parallel import distributed as gang
-from kubeflow_tpu_torch.parallel.mesh import data_group, mesh_from_config
+from kubeflow_tpu_torch.parallel.mesh import (
+    mesh_coordinate,
+    mesh_from_config,
+    reduce_group,
+    sequence_parallel,
+    sequence_shard,
+)
 from kubeflow_tpu_torch.training.data import (
     local_rows,
     row_indices,
     shard_batch,
+    shard_columns,
     to_device,
 )
 from kubeflow_tpu_torch.training.prefetch import DevicePrefetcher
@@ -180,7 +205,9 @@ class Trainer:
     one device. `device` defaults to "cuda" and raises without CUDA
     unless "cpu" is asked for. In a `torch.distributed` group the trainer
     is this rank's: `self.mesh` is the DeviceMesh of `cfg.mesh` over the
-    group's ranks, and names the data group."""
+    group's ranks; it names the data × sequence group the step sums over
+    and `self.seq`, this rank's place on the sequence axis (None at
+    1)."""
 
     def __init__(self, cfg: TrainingConfig, model=None, task=None,
                  device: DeviceLike = None):
@@ -192,21 +219,26 @@ class Trainer:
         self.world, self.rank = gang.world_size(), gang.rank()
         self.mesh = None
         self._group = None
+        self.seq = None
         if self.distributed:
             backend = torch.distributed.get_backend()
             self.mesh = mesh_from_config(
                 cfg.mesh, device_type="cuda" if backend == "nccl" else "cpu")
-            self._group = data_group(self.mesh)
+            self._group = reduce_group(self.mesh)
+            self.seq = sequence_shard(self.mesh)
         elif cfg.mesh.num_devices != 1:
             raise ValueError(
                 f"mesh spec needs {cfg.mesh.num_devices} devices "
                 f"({cfg.mesh.axis_sizes()}), got 1: start the gang's "
                 f"processes (runtime/launcher.py) with its rendered env")
-        # this rank's rows of each global batch, and their indices
-        self._rows = (local_rows(cfg.global_batch_size, self.rank,
-                                 self.world, cfg.accum_steps)
+        # this rank's place on the data axis: its rows of each global
+        # batch, and their indices
+        self.data_world = self.world // cfg.mesh.sequence
+        self.data_rank = mesh_coordinate(self.mesh, "data")
+        self._rows = (local_rows(cfg.global_batch_size, self.data_rank,
+                                 self.data_world, cfg.accum_steps)
                       if self.distributed else None)
-        self._row_index = (row_indices(self._rows) if self.world > 1
+        self._row_index = (row_indices(self._rows) if self.data_world > 1
                            else None)
         # gradient all-reduces issued (one a data-parallel step)
         self.grad_allreduces = 0
@@ -217,7 +249,12 @@ class Trainer:
             if cfg.remat:
                 kwargs["remat"] = True
             if cfg.model.startswith(("gpt", "bert")):
-                kwargs["attention_impl"] = cfg.attention_impl
+                impl = cfg.attention_impl
+                if cfg.mesh.sequence > 1 and impl == "dense":
+                    # a sequence mesh axis means sequence parallelism:
+                    # ring attention, as the JAX trainer defaults it
+                    impl = "ring"
+                kwargs["attention_impl"] = impl
             if cfg.seq_len > 0:
                 kwargs["max_len"] = cfg.seq_len
             dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -227,6 +264,10 @@ class Trainer:
             raise ValueError(f"model is on {model.device}, the trainer on "
                              f"{self.device}")
         self.model = model.trainable()
+        if self.seq is not None and getattr(model.cfg, "num_experts", 0):
+            raise ValueError(
+                "an MoE model under a sequence axis is not ported: its "
+                "expert capacity is a whole sequence's (ROADMAP A13 item 3)")
         if self.distributed:
             self._check_replicated()
         if self.world > 1:
@@ -315,9 +356,15 @@ class Trainer:
         return {"dropout_generator": gen}
 
     def local_batch(self, batch):
-        """This rank's rows of a global batch (the batch itself without a
+        """This rank's rows of a global batch, and under a sequence axis
+        its columns and lookahead column (the batch itself without a
         gang)."""
-        return batch if self._rows is None else shard_batch(batch, self._rows)
+        if self._rows is None:
+            return batch
+        batch = shard_batch(batch, self._rows)
+        if self.seq is not None:
+            batch = shard_columns(batch, self.seq.rank, self.seq.size)
+        return batch
 
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         """One update, in place → (state, {"loss": device scalar}). `batch`
@@ -347,6 +394,35 @@ class Trainer:
         opt.zero_grad(set_to_none=True)
         a = self.cfg.accum_steps
         micro = self._microbatches(batch) if a > 1 else [batch]
+        with sequence_parallel(self.seq):
+            loss_sum, w_sum, step_aux = self._forward_backward(
+                state, model, micro)
+        if self.distributed:
+            loss_sum = self._all_reduce_grads(params, loss_sum)
+        if a > 1:
+            w_sum = w_sum.clamp_min(1e-9)
+            for p in params:
+                p.grad.div_(w_sum)
+            loss = loss_sum / w_sum
+        else:
+            loss = loss_sum
+        if self._clip:
+            clip_by_global_norm([p.grad for p in params], MAX_GRAD_NORM)
+        # optax evaluates the schedule at the update count BEFORE this
+        # update: the first update runs at schedule(0)
+        lr = self.schedule(state.step)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        state.step += 1
+        # averaged over the microbatches, as the JAX step averages aux
+        return state, {"loss": loss, **{
+            key: torch.stack(vals).mean() for key, vals in step_aux.items()}}
+
+    def _forward_backward(self, state: TrainState, model, micro):
+        """Every microbatch's loss and backward → (loss sum, weight sum
+        (None without accumulation), aux values)."""
+        a = len(micro)
         counts = None
         if self.distributed:
             # the global batch's denominators, before any backward
@@ -380,43 +456,29 @@ class Trainer:
                 (loss_i * w_i).backward()
             loss_sum = loss_sum + loss_i.detach() * w_i
             w_sum = w_sum + w_i
-        if self.distributed:
-            loss_sum = self._all_reduce_grads(params, loss_sum)
-        if a > 1:
-            w_sum = w_sum.clamp_min(1e-9)
-            for p in params:
-                p.grad.div_(w_sum)
-            loss = loss_sum / w_sum
-        else:
-            loss = loss_sum
-        if self._clip:
-            clip_by_global_norm([p.grad for p in params], MAX_GRAD_NORM)
-        # optax evaluates the schedule at the update count BEFORE this
-        # update: the first update runs at schedule(0)
-        lr = self.schedule(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        state.step += 1
-        # averaged over the microbatches, as the JAX step averages aux
-        return state, {"loss": loss, **{
-            key: torch.stack(vals).mean() for key, vals in step_aux.items()}}
+        return loss_sum, w_sum, step_aux
 
     def _dropout_rows(self, sub):
         """In a gang of several ranks, dropout draws the global
-        microbatch's masks and keeps this rank's rows."""
+        microbatch's masks and keeps this rank's rows (and under a
+        sequence axis its columns)."""
         if self.world == 1 or not self._dropout:
             return contextlib.nullcontext()
         from kubeflow_tpu_torch.models.layers import dropout_rows
 
         rows = next(iter(sub.values())).shape[0]
-        return dropout_rows(self.rank * rows, self.world * rows)
+        cols = ()
+        if self.seq is not None:
+            s = sub["input_ids"].shape[1]
+            cols = (self.seq.rank * s, self.seq.size * s)
+        return dropout_rows(self.data_rank * rows, self.data_world * rows,
+                            *cols)
 
     def _all_reduce_grads(self, params, loss_part: torch.Tensor
                           ) -> torch.Tensor:
         """Sum every gradient (and the loss's partial sum) over the data
-        group in one flat bucket a dtype, in place; returns the summed
-        loss."""
+        × sequence group in one flat bucket a dtype, in place; returns
+        the summed loss."""
         for p in params:
             if p.grad is None:  # a leaf this step did not reach
                 p.grad = torch.zeros_like(p)
@@ -448,19 +510,23 @@ class Trainer:
         """A pass over the eval split (`eval_batches`, the model in eval
         mode) → {top1, loss, count}. Each batch's three sums are read on
         the host, as the JAX package reads them; in a gang each rank
-        takes its rows of the batch (padded to a multiple of the ranks,
-        the padding masked by `eval_mask`) and the sums are summed over
-        the data group first."""
+        takes its rows of the batch (padded to a multiple of the data
+        ranks, the padding masked by `eval_mask`) and under a sequence
+        axis its columns, and the sums are summed over the data ×
+        sequence group first."""
         correct = count = loss_sum = 0.0
         state.model.eval()
-        batches = (eval_data.eval_batches(pad_to_multiple=self.world)
+        batches = (eval_data.eval_batches(pad_to_multiple=self.data_world)
                    if self.distributed else eval_data.eval_batches())
-        with torch.no_grad():
+        with torch.no_grad(), sequence_parallel(self.seq):
             for batch_np in batches:
                 if self.distributed:
                     rows = next(iter(batch_np.values())).shape[0]
                     batch_np = shard_batch(batch_np, local_rows(
-                        rows, self.rank, self.world))
+                        rows, self.data_rank, self.data_world))
+                if self.seq is not None:
+                    batch_np = shard_columns(batch_np, self.seq.rank,
+                                             self.seq.size)
                 stats = self.task.eval_stats(
                     state.model, to_device(batch_np, self.device))
                 sums = torch.stack([stats["correct"], stats["count"],
@@ -475,6 +541,17 @@ class Trainer:
         count = max(count, 1.0)
         return {"top1": correct / count, "loss": loss_sum / count,
                 "count": count}
+
+    def rank_flops(self, batch) -> float:
+        """This rank's share of an LM train step's model FLOPs at this
+        rank's `batch` (observability/mfu.py `rank_train_flops`: the
+        global step's count over data × sequence)."""
+        count = (encoder_train_flops if self.task.name == "mlm"
+                 else lm_train_flops)
+        seq = 1 if self.seq is None else self.seq.size
+        return rank_train_flops(count, self.model.cfg,
+                                *batch["input_ids"].shape,
+                                data=self.data_world, sequence=seq)
 
     def step_flops(self, batch) -> float:
         """FLOPs of one training step of this model at `batch`'s shapes
@@ -676,12 +753,8 @@ class Trainer:
                 t_acct = time.monotonic()
                 if peak is None:
                     flops = None  # no MFU off a listed card
-                elif getattr(self.task, "name", "") == "mlm":
-                    flops = encoder_train_flops(self.model.cfg,
-                                                *batch_np["input_ids"].shape)
-                elif getattr(self.task, "name", "") == "lm":
-                    flops = lm_train_flops(self.model.cfg,
-                                           *batch_np["input_ids"].shape)
+                elif getattr(self.task, "name", "") in ("mlm", "lm"):
+                    flops = self.rank_flops(batch_np)
                 else:
                     flops = self.step_flops(batch_np)
                 mfu_val = mfu_fraction(flops, dt, peak)

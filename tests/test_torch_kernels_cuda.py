@@ -570,6 +570,54 @@ def test_flash_autograd_with_lse_cotangent_matches_plain(cuda, dtype):
         _assert_rows_close(g_, w_, dtype, "grad", name)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ring_rank_through_the_kernels_matches_plain(cuda, dtype):
+    """A causal ring rank's block loop (parallel/ring_attention.py
+    `ring_pass`, rank 2 of 4: its diagonal, two full blocks and an
+    invisible one) through the kernels against the same loop on the
+    plain versions (CPU tensors): the output and the q and K/V block
+    gradients row by row. Each visible block's lse feeds the merge, so
+    its cotangent is live in the kernels' backward; block 1's keys are
+    all masked in row 1 (its lse about -1e30 merged beside visible
+    blocks); the invisible block launches nothing and gets a zero
+    cotangent."""
+    from kubeflow_tpu_torch.parallel import ring_attention as rp
+
+    n, idx, sb = 4, 2, 128
+    g = torch.Generator().manual_seed(7)
+    q, do = (torch.randn((2, sb, 3, 64), generator=g) for _ in range(2))
+    kv = [torch.randn((2, 2, sb, 3, 64), generator=g) for _ in range(n)]
+    masks = [torch.ones((2, sb), dtype=torch.int32) for _ in range(n)]
+    masks[1][1] = 0
+
+    def run(dev):
+        qd = q.to(dtype).to(dev).requires_grad_()
+        kvd = [t.to(dtype).to(dev).requires_grad_() for t in kv]
+        md = [m.to(dev) for m in masks]
+
+        def rotate(t, _kv, _m):
+            src = (idx - t - 1) % n
+            return kvd[src], md[src]
+
+        o = rp.ring_pass(qd, kvd[idx], md[idx], idx, n, rotate, dtype=dtype,
+                         causal=True, impl="flash")
+        return o, torch.autograd.grad(o, [qd] + kvd, do.to(dtype).to(dev))
+
+    tfa.reset_launch_counts()
+    o, grads = run(cuda)
+    torch.cuda.synchronize()
+    launches = dict(tfa.launch_counts)
+    want_o, want_grads = run("cpu")
+    assert launches == {"flash_fwd": 3, "flash_bwd_dq": 3,
+                        "flash_bwd_dkv": 3}
+    _assert_rows_close(o.cpu(), want_o, dtype, "o", "o")
+    names = ["dq"] + [f"dkv{j}" for j in range(n)]
+    for name, g_, w_ in zip(names, grads, want_grads):
+        _assert_rows_close(g_.cpu(), w_, dtype, "grad", name)
+    assert not grads[1 + 3].any()
+
+
 def test_flash_forward_refuses_unaligned_tensors(cuda):
     """TMA reads the bf16 tiles, and it needs 16-byte aligned addresses: a
     contiguous q that starts 2 bytes into its buffer raises before any

@@ -309,11 +309,16 @@ def test_config_refuses_what_it_does_not_honour():
 @pytest.mark.parametrize("impl", ["auto", "ring", "ulysses"])
 def test_unported_attention_and_dropout_raise(impl):
     """The "auto" policy and dropout are ported: both build and train
-    (through the trainer's per-step generator); ring and ulysses still
-    raise naming ROADMAP."""
+    (through the trainer's per-step generator); ring and ulysses are
+    ported too (parallel/): their configs build, and without a sequence
+    axis their forward is dense attention's."""
     if impl != "auto":
-        with pytest.raises(ValueError, match="ROADMAP"):
-            GptConfig(attention_impl=impl)
+        assert GptConfig(attention_impl=impl).attention_impl == impl
+        ids = torch.arange(16).reshape(2, 8) % 64
+        sp = get_model("gpt_tiny", dtype=torch.float32, device="cpu",
+                       attention_impl=impl)
+        dense = get_model("gpt_tiny", dtype=torch.float32, device="cpu")
+        assert torch.equal(sp(ids), dense(ids))
         return
     assert GptConfig(attention_impl=impl).attention_impl == "auto"
     assert GptConfig(dropout_rate=0.1).dropout_rate == 0.1
