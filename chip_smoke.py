@@ -279,6 +279,29 @@ Phases (any failure raises and the script exits non-zero):
    peak memory. Gate: rank 7's output and gradients against the full
    causal call within FLASH_REL, row by row. The kernels line gives
    each flash row its `seq_launches` (19a-19c; a row at 0 fails).
+20. Expert parallelism (configs/gpt_moe_v5e16.yaml's `expert: 4` on one
+   of its data shards: its training block loaded by
+   `TrainingConfig.from_dict` as it is, then cut by EXPERT_CUT). 20a:
+   `mesh: {expert: 4}`, gpt_small_moe bf16, remat, flash, 8 sequences of
+   1024, 3 steps, four ranks of `chip_smoke.py --gang-rank` over gloo on
+   the one card, against world 1 (18e's cell at 3 steps) in this
+   process. Gates: the ranks' losses bit for bit equal and within
+   GANG_LOSS_REL of world 1's, every replicated leaf bit for bit equal
+   across the ranks (sha256 digests), each rank's expert-stack bytes
+   (parameters and AdamW moments) exactly a quarter of world 1's, and
+   each rank's flash launches the formula (steps x layers x 2 forwards
+   under remat, steps x layers of each backward kernel). Printed: each
+   rank's state bytes, max_memory_allocated and step ms (a record: the
+   ranks share the card and gloo stages every collective through the
+   host). 20c: the gang saves at step EXPERT_SAVE, each stack's blocks
+   written by their rank (4 writers); world 1 restores that step: its
+   stacks are the ranks' blocks at that step joined, bit for bit, and it
+   resumes to the gang's step-3 loss within GANG_LOSS_REL. 20b:
+   gpt_small_moe on `{sequence: 2}` at seq 2048 by ring attention (the
+   router logits gathered over the ring, each rank routing whole rows),
+   two ranks against world 1's flash over 2048: the same loss gates,
+   ring launch formula as 19a. The kernels line gives each flash row
+   its `ep_launches` (20a, 20b; a row at 0 fails).
 
 The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
@@ -528,9 +551,9 @@ MOE_TRAIN_LEAVES = ("layers.0.attention.query.kernel",
                     "layers.1.attention.key.kernel", "layers.1.moe.wi",
                     "head.kernel")
 # 18e: configs/gpt_moe_v5e16.yaml at one card's share: its global batch of
-# 64 over data 8 is 8 sequences of 1024 a card, with `mesh: {data: 1}` in
-# place of `{data: 8, expert: 4}` (the expert axis is not ported); cut to
-# 8 steps, warmup 2 (the config's 2000 of 20000)
+# 64 over data 8 is 8 sequences of 1024 a card, every expert on the one
+# card (`mesh: {data: 1}`; phase 20 runs the config's `expert: 4` on one
+# data shard); cut to 8 steps, warmup 2 (the config's 2000 of 20000)
 MOE_TRAIN_CFG = dict(
     model=MOE_MODEL, seq_len=1024, global_batch_size=8, remat=True,
     loss_chunk=1024, assume_full_attention=True, learning_rate=3e-4,
@@ -601,6 +624,22 @@ SEQ_CFG = dict(TRAIN_CFG, seq_len=2 * 4096, global_batch_size=2,
 # 19c: one ring rank's block loop at the config's own geometry: q, k, v
 # [2, 32768, 12, 64] bf16 in 8 blocks of 4096 (ranks 0 and 7)
 RING_B, RING_S, RING_N = 2, 32768, 8
+# phase 20: configs/gpt_moe_v5e16.yaml's expert axis on the one card. 20a:
+# its training block loaded as it is, cut to one of its 8 data shards:
+# `mesh: {expert: 4}` (its own degree, 2 of gpt_small_moe's 8 experts a
+# rank), its global batch of 64 over data 8 = 8 sequences of 1024, bf16,
+# remat, loss_chunk 1024, flash, 3 steps with warmup 2 (its 2000 of
+# 20000), 4 gloo ranks against world 1 (18e's cell at 3 steps). 20c: the
+# gang saves at EXPERT_SAVE (the config's checkpoint block, interval cut)
+# and world 1 restores that step. 20b: gpt_small_moe on `{sequence: 2}`
+# at seq 2048 (1024 a rank), batch 2, ring, 3 steps, against world 1's
+# flash over 2048. Bounds: GANG_LOSS_REL (17c's bf16 bound)
+EXPERT_CONFIG = os.path.join("configs", "gpt_moe_v5e16.yaml")
+EXPERT_RANKS, EXPERT_SAVE = 4, 2
+EXPERT_CUT = dict(steps=3, warmup_steps=2, seq_len=1024,
+                  attention_impl="flash")
+EXPERT_SEQ_CFG = dict(MOE_TRAIN_CFG, seq_len=2048, global_batch_size=2,
+                      steps=3, attention_impl="ring", mesh={"sequence": 2})
 
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
@@ -3386,6 +3425,21 @@ def gang_rank() -> int:
         with open(job["config"]) as f:
             cfg = TrainingConfig.from_dict(json.load(f))
         trainer = Trainer(cfg, device=dev)
+        at = {}
+        if job.get("digest_step"):
+            # the expert blocks' digests as update `digest_step` leaves
+            # them (the step a checkpoint saves)
+            step_fn = trainer.train_step
+
+            def train_step(state, batch):
+                state, metrics = step_fn(state, batch)
+                if state.step == job["digest_step"]:
+                    at.update(leaf_digests(torch, state.model)[1])
+                return state, metrics
+
+            trainer.train_step = train_step
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         fa.reset_launch_counts()
         result = run_training(cfg, device=dev, trainer=trainer,
                               log_every=cfg.steps)
@@ -3393,7 +3447,20 @@ def gang_rank() -> int:
         report["result"] = result
         report["device"] = str(dev)
         model = trainer._final_state.model
-        torch.save(model_arrays(model), f"{job['out']}.{report['rank']}.pt")
+        if job.get("digests"):
+            # digests, not arrays: the ranks' leaves compared bit for bit
+            # without writing each rank's weights to disk
+            replicated, blocks = leaf_digests(torch, model)
+            report.update(
+                replicated=replicated, blocks=blocks, blocks_at=at,
+                coords={a: trainer.mesh.get_local_rank(a)
+                        for a in ("data", "expert", "sequence")},
+                bytes=state_bytes(trainer._final_state),
+                max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                      if dev.type == "cuda" else 0))
+        else:
+            torch.save(model_arrays(model),
+                       f"{job['out']}.{report['rank']}.pt")
         gd.shutdown()
         rc = 0
     print("GANG " + json.dumps(report), flush=True)
@@ -3419,22 +3486,40 @@ def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
     envs = render_gang_env(name, hosts or ["127.0.0.1"] * world,
                            coordinator_port=port)
     here = os.path.dirname(os.path.abspath(__file__))
-    procs, outs = [], []
+    procs, logs, outs = [], [], []
     t0 = time.monotonic()
     try:
-        for e in envs:
+        for i, e in enumerate(envs):
             env = dict(os.environ, **e, KFT_SMOKE_JOB=json.dumps(
                 {"mode": mode, "config": cfg_path,
                  "out": os.path.join(root, name), **job}))
             env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+            logs.append(tuple(open(os.path.join(root, f"{name}.{i}.{k}"),
+                                   "w+") for k in ("out", "err")))
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.join(here, "chip_smoke.py"),
-                 "--gang-rank"], env=env, cwd=here, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True))
-        for p in procs:
-            out, err = p.communicate(timeout=GANG_RANK_TIMEOUT_S)
+                 "--gang-rank"], env=env, cwd=here, stdout=logs[-1][0],
+                stderr=logs[-1][1], text=True))
+        # every rank polled: the first to fail fails the gang at once
+        # (its peers would wait at their next collective until killed)
+        deadline = time.monotonic() + GANG_RANK_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            bad = [i for i, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                i = bad[0] if bad else next(
+                    i for i, p in enumerate(procs) if p.poll() is None)
+                logs[i][1].seek(0)
+                raise AssertionError(
+                    f"gang {name}: rank {i} "
+                    f"{'exited ' + str(procs[i].returncode) if bad else 'timed out'}"
+                    f":\n{logs[i][1].read()[-6000:]}")
+            time.sleep(0.2)
+        for p, (out_f, err_f) in zip(procs, logs):
+            out_f.seek(0)
+            err_f.seek(0)
+            out, err = out_f.read(), err_f.read()
             if p.returncode != 0:
-                raise AssertionError(f"17 {name}: a rank exited "
+                raise AssertionError(f"gang {name}: a rank exited "
                                      f"{p.returncode}:\n{err[-6000:]}")
             lines = out.splitlines()
             result = [json.loads(ln) for ln in lines if ln.startswith('{"job"')]
@@ -3445,6 +3530,8 @@ def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        for f in (f for pair in logs for f in pair):
+            f.close()
     print(f"gang {name}: {world} rank(s) in {time.monotonic() - t0:.3f} s "
           f"(process start to exit)", flush=True)
     return outs
@@ -3529,6 +3616,44 @@ def ranks_equal(torch, ranks):
     0's."""
     return all(torch.equal(r[k][n], ranks[0][k][n]) for r in ranks[1:]
                for k in ("params", "buffers") for n in ranks[0][k])
+
+
+def is_stack(name):
+    """Is this parameter name an MoE expert stack ([E, ...] wi / wo)?"""
+    return name.endswith(("moe.wi", "moe.wo"))
+
+
+def digest(torch, t):
+    """sha256 of a tensor's bytes: a bit-for-bit fingerprint."""
+    import hashlib
+
+    raw = t.detach().cpu().contiguous().view(torch.uint8).numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()
+
+
+def leaf_digests(torch, model):
+    """({name: digest} of the replicated parameters, {name: digest} of the
+    expert stacks' blocks this model holds)."""
+    out = ({}, {})
+    for name, p in model.named_parameters():
+        out[1 if is_stack(name) else 0][name] = digest(torch, p)
+    return out
+
+
+def state_bytes(state):
+    """Resident bytes of a train state: its parameters, its optimizer's
+    moments, and the expert stacks' share of both."""
+    out = {"params": 0, "optimizer": 0, "stacks": 0}
+    for name, p in state.model.named_parameters():
+        own = p.numel() * p.element_size()
+        moments = sum(t.numel() * t.element_size() for t in
+                      state.optimizer.state.get(p, {}).values()
+                      if t.dim() > 0)
+        out["params"] += own
+        out["optimizer"] += moments
+        if is_stack(name):
+            out["stacks"] += own + moments
+    return out
 
 
 def update_gap(gang, one, init, skip=()):
@@ -4571,6 +4696,199 @@ def phase_sequence(torch, device="cuda", overrides=None, ranks=SEQ_RANKS,
     return total
 
 
+def one_card_hosts(ranks):
+    """Hostnames that make every rank of a gang local rank 0 (so each
+    drives cuda:0): one loopback address a rank, the coordinator's
+    first."""
+    return [f"127.0.0.{i + 1}" for i in range(ranks)]
+
+
+def moe_config_cut(root, overrides=None):
+    """20a's cell: configs/gpt_moe_v5e16.yaml's `training` block, loaded
+    as it is (`TrainingConfig.from_dict` must take it unedited), cut to
+    one data shard of it (module constants EXPERT_*). → (the gang's
+    config dict, the world-1 config dict)."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.runtime.launcher import load_spec
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    training = load_spec(os.path.join(here, EXPERT_CONFIG))
+    full = TrainingConfig.from_dict(training)
+    cut = dict(training, **EXPERT_CUT)
+    cut["global_batch_size"] = full.global_batch_size // full.mesh.data
+    cut["mesh"] = {"expert": full.mesh.expert}
+    cut["checkpoint"] = dict(training["checkpoint"], directory=os.path.join(
+        root, "ckpt"), interval_steps=EXPERT_SAVE)
+    cut.update(overrides or {})
+    one = dict(cut, mesh={"data": 1}, checkpoint={"enabled": False})
+    return cut, one
+
+
+def expert_gang_report(tag, reps, one_losses, steps, smi):
+    """The gates every phase-20 gang shares: the ranks' losses bit for bit
+    equal and within GANG_LOSS_REL of world 1's, every replicated leaf bit
+    for bit equal across the ranks. Prints each rank's step ms (the ranks
+    share the card and gloo stages every collective through the host: a
+    record, not a speed) and memory. → the losses."""
+    losses = [loss for _, loss in reps[0]["result"]["losses"]]
+    gap = max(_rel(a, b) for a, b in zip(losses, one_losses))
+    same = all(rep["replicated"] == reps[0]["replicated"] for rep in reps)
+    step_ms = [rep["result"]["step_time_s"] * 1e3 for rep in reps]
+    print(f"expert {tag} ({smi}): losses {losses} against world 1's "
+          f"{one_losses} (worst rel {gap:.3e}, bound {GANG_LOSS_REL:g}); "
+          f"replicated leaves equal across the ranks: {same}; flash "
+          f"launches a rank {[rep['launches'] for rep in reps]}; step ms a "
+          f"rank {step_ms} (a record, not a speed: the ranks share the card "
+          f"and gloo stages each collective through the host); "
+          f"max_memory_allocated a rank "
+          f"{[rep['max_memory_allocated'] for rep in reps]} B", flush=True)
+    if any(rep["result"]["losses"] != reps[0]["result"]["losses"]
+           for rep in reps):
+        raise AssertionError(f"{tag}: the ranks' losses differ")
+    if len(losses) != steps or not gap <= GANG_LOSS_REL:
+        raise AssertionError(f"{tag}: losses {losses} vs {one_losses}")
+    if not same:
+        raise AssertionError(f"{tag}: the ranks' replicated leaves differ")
+    return losses
+
+
+def phase_expert(torch, device="cuda", overrides=None, seq_overrides=None,
+                 ranks=EXPERT_RANKS):
+    """Phase 20: 20a configs/gpt_moe_v5e16.yaml's expert layout on one
+    data shard (`mesh: {expert: ranks}`, gloo ranks on the one card)
+    against world 1 in this process; 20b MoE under a sequence axis; 20c
+    20a's checkpoint restored at world 1. → each flash kernel's launches
+    over the 20a and 20b gangs."""
+    from kubeflow_tpu_torch.checkpointing import restore_latest
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    t20 = time.monotonic()
+    cuda = device == "cuda"
+    smi = smi_line() if cuda else "the CPU"
+    job = {} if cuda else {"device": "cpu"}
+    total = {name: 0 for name in fa.launch_counts}
+
+    def world1(cfg_dict):
+        """→ (losses, state bytes, layers, the trainer)."""
+        cfg = TrainingConfig(**cfg_dict)
+        tr = Trainer(cfg, device=device)
+        res = run_training(cfg, device=device, trainer=tr,
+                           log_every=cfg.steps)
+        return ([loss for _, loss in res["losses"]], state_bytes(
+            tr._final_state), tr.model.cfg.num_layers, tr)
+
+    with tempfile.TemporaryDirectory(prefix="kft-expert-") as root:
+        cut, one = moe_config_cut(root, overrides)
+        steps, r = cut["steps"], 2 if cut.get("remat") else 1
+        one_losses, one_bytes, layers, tr = world1(one)
+        hosts = one_card_hosts(ranks) if cuda else ["127.0.0.1"] * ranks
+        outs = run_gang(torch, "expert", cut, ranks, mode="trainer",
+                        hosts=hosts, root=root, backend="gloo", digests=True,
+                        digest_step=EXPERT_SAVE, **job)
+        reps = [rep for _, rep in outs]
+        losses = expert_gang_report("20a", reps, one_losses, steps, smi)
+        a = cut.get("accum_steps", 1)
+        want = {"flash_fwd": steps * layers * a * r,
+                "flash_bwd_dq": steps * layers * a,
+                "flash_bwd_dkv": steps * layers * a}
+        print(f"expert 20a: {cut['model']} {cut['dtype']} seq "
+              f"{cut.get('seq_len')} global batch {cut['global_batch_size']} "
+              f"on mesh {cut['mesh']}; world 1's state bytes {one_bytes}; a "
+              f"rank's {[rep['bytes'] for rep in reps]} (stacks: a quarter "
+              f"of world 1's each); flash launches formula a rank {want}",
+              flush=True)
+        for rep in reps:
+            if rep["bytes"]["stacks"] * ranks != one_bytes["stacks"]:
+                raise AssertionError(
+                    f"20a: rank {rep['rank']} holds {rep['bytes']['stacks']} "
+                    f"B of stacks, not 1/{ranks} of world 1's "
+                    f"{one_bytes['stacks']}")
+            if cuda and rep["launches"] != want:
+                raise AssertionError(f"20a: rank {rep['rank']} launches "
+                                     f"{rep['launches']} != {want}")
+            for name, count in rep["launches"].items():
+                total[name] += count
+        # 20c: world 1 restores the gang's step-EXPERT_SAVE checkpoint
+        # (each stack's blocks written by its rank) and resumes from it
+        from kubeflow_tpu_torch.checkpointing import layout as ck_layout
+
+        # (into world 1's own trainer: its state is overwritten in place)
+        ckpt = cut["checkpoint"]["directory"]
+        tr.losses.clear()
+        state = restore_latest(ckpt, tr._final_state, step=EXPERT_SAVE)
+        by_block = {rep["coords"]["expert"]: rep for rep in reps}
+        joined = {}
+        for name, p in state.model.named_parameters():
+            if is_stack(name):
+                n = p.shape[0] // ranks
+                joined[name] = all(
+                    digest(torch, p[x * n:(x + 1) * n])
+                    == by_block[x]["blocks_at"][name] for x in range(ranks))
+        tr.fit(steps=steps - EXPERT_SAVE, state=state, log_every=steps)
+        resumed = [loss for _, loss in tr.losses]
+        gap_c = max(_rel(x, y) for x, y in zip(resumed, losses[EXPERT_SAVE:]))
+        manifest = ck_layout.read_manifest(ck_layout.step_dir(ckpt,
+                                                              EXPERT_SAVE))
+        shards = {e["key"]: len(e["shards"]) for e in manifest["leaves"]
+                  if e["key"].endswith(("moe/wi", "moe/wo"))}
+        print(f"expert 20c ({smi}): the step-{EXPERT_SAVE} checkpoint of "
+              f"{manifest['process_count']} processes, each stack in "
+              f"{sorted(set(shards.values()))} block(s) over {len(shards)} "
+              f"stack leaves, restored at world 1: stacks equal the ranks' "
+              f"blocks joined, bit for bit: {all(joined.values())}; resumed "
+              f"to losses {resumed} against the gang's {losses[EXPERT_SAVE:]} "
+              f"(worst rel {gap_c:.3e})", flush=True)
+        del tr, state
+        if cuda:
+            torch.cuda.empty_cache()
+        if not joined or not all(joined.values()):
+            raise AssertionError(f"20c: stacks differ from the blocks: "
+                                 f"{[k for k, v in joined.items() if not v]}")
+        if set(shards.values()) != {ranks}:
+            raise AssertionError(f"20c: stacks not written in {ranks} blocks: "
+                                 f"{shards}")
+        if len(resumed) != steps - EXPERT_SAVE or not gap_c <= GANG_LOSS_REL:
+            raise AssertionError(f"20c: resumed losses {resumed}")
+    # 20b: MoE under a sequence axis (the router logits gathered over the
+    # ring, each rank routing whole rows)
+    with tempfile.TemporaryDirectory(prefix="kft-expert-seq-") as root:
+        base = {**EXPERT_SEQ_CFG, **(seq_overrides or {})}
+        one_losses, _, layers, tr = world1(dict(
+            base, attention_impl="flash", mesh={"data": 1}))
+        del tr
+        if cuda:
+            torch.cuda.empty_cache()
+        seq_ranks = base["mesh"]["sequence"]
+        hosts = (one_card_hosts(seq_ranks) if cuda
+                 else ["127.0.0.1"] * seq_ranks)
+        outs = run_gang(torch, "expert_seq", base, seq_ranks, mode="trainer",
+                        hosts=hosts, root=root, backend="gloo", digests=True,
+                        **job)
+        reps = [rep for _, rep in outs]
+        steps, r = base["steps"], 2 if base.get("remat") else 1
+        expert_gang_report("20b", reps, one_losses, steps, smi)
+        want = [{"flash_fwd": steps * layers * (i + 1) * r,
+                 "flash_bwd_dq": steps * layers * (i + 1),
+                 "flash_bwd_dkv": steps * layers * (i + 1)}
+                for i in range(seq_ranks)]
+        got = [rep["launches"] for rep in reps]
+        print(f"expert 20b: {base['model']} {base['dtype']} seq "
+              f"{base['seq_len']} global batch {base['global_batch_size']} "
+              f"by ring on mesh {base['mesh']}; flash launches {got} "
+              f"(formula {want})", flush=True)
+        if cuda and got != want:
+            raise AssertionError(f"20b: launches {got} != {want}")
+        for rep in reps:
+            for name, count in rep["launches"].items():
+                total[name] += count
+    print(f"phase 20: {time.monotonic() - t20:.3f} s; flash launches "
+          f"{total}", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -4764,6 +5082,16 @@ def main() -> int:
             rec["seq_launches"] = seq_launches[rec["name"]]
             if rec["seq_launches"] < 1:
                 raise AssertionError(f"the sequence-parallel path never "
+                                     f"launched {rec['name']}")
+    torch.cuda.empty_cache()
+    # this slice's path: the expert axis (20a, 20c) and MoE under a
+    # sequence axis (20b)
+    ep_launches = phase_expert(torch)
+    for rec in kernels:
+        if rec["name"] in ep_launches:
+            rec["ep_launches"] = ep_launches[rec["name"]]
+            if rec["ep_launches"] < 1:
+                raise AssertionError(f"the expert-parallel path never "
                                      f"launched {rec['name']}")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -22,16 +22,20 @@ checkpoint either package writes is read by the other:
   global index range, and `_ShardReader.region` assembles any region from
   the overlapping files, which is what reads a checkpoint the JAX package
   saved sharded over a mesh.
-- **a gang's saves**: `process_index` / `process_count` are the
-  `torch.distributed` rank and world size (0 and 1 without a group).
-  Every leaf of a data-parallel state is replicated, so, as the JAX
-  package writes a replicated leaf, process 0 owns each leaf whole: it
-  alone copies it to host memory, writes it and commits the manifest,
-  which records the gang's `process_count`; the other ranks' saves write
-  nothing. The commit barrier waits on the expected files whoever wrote
-  them. Every rank restores from the shared directory, and a checkpoint
-  restores under any world size (and in the JAX package) because leaves
-  are stored whole with their global index ranges.
+- **a gang's saves** (the JAX package's `_snapshot_leaf`):
+  `process_index` / `process_count` are the `torch.distributed` rank and
+  world size (0 and 1 without a group). A replicated leaf is process
+  0's: as the JAX package writes one, it alone copies it to host memory
+  and writes it whole. A leaf split over ranks comes as a `ShardedLeaf`
+  (an expert stack's block, or its AdamW moments'): the one rank that
+  writes each block (`writer`) copies and writes it with its global
+  index ranges, and the manifest lists every block. Process 0 commits
+  the manifest, which records the gang's `process_count`, once the
+  commit barrier has seen every expected file, whoever wrote it. No
+  block is gathered to one rank. Every rank restores from the shared
+  directory, reading its own region of each leaf, and a checkpoint
+  restores under any world size and layout (and in the JAX package)
+  because every file carries its global index ranges.
 
 A state is a nested mapping of leaves (torch tensors, numpy arrays or
 Python scalars) keyed by strings, or an object with `checkpoint_tree()`
@@ -181,6 +185,27 @@ def _host_copies(leaves: List[Any]) -> List[torch.Tensor]:
     return out
 
 
+class ShardedLeaf:
+    """This process's block of a leaf split over ranks: `local` (the
+    block's live tensor), the whole leaf's `shape`, the block's global
+    `index` ranges, `regions` (every block's ranges: the manifest's
+    shards) and `writer` (this process writes the block: exactly one
+    rank holding each block does). A restore reads `index` of the saved
+    leaf into a tensor like `local`."""
+
+    __slots__ = ("local", "shape", "index", "regions", "writer")
+
+    def __init__(self, local: torch.Tensor, shape, index, regions,
+                 writer: bool):
+        self.local = local
+        self.shape = tuple(int(d) for d in shape)
+        self.index: layout.IndexRanges = tuple(
+            (int(a), int(b)) for a, b in index)
+        self.regions: List[layout.IndexRanges] = [
+            tuple((int(a), int(b)) for a, b in r) for r in regions]
+        self.writer = bool(writer)
+
+
 def _leaf_meta(leaf) -> Tuple[Tuple[int, ...], torch.dtype]:
     """(shape, dtype) a leaf is stored with, without copying it."""
     if isinstance(leaf, torch.Tensor):
@@ -190,22 +215,23 @@ def _leaf_meta(leaf) -> Tuple[Tuple[int, ...], torch.dtype]:
 
 
 def _snapshot(state: Any, process_index: int) -> List[_LeafSnapshot]:
-    pairs = _flatten_with_keys(_tree_of(state))
-    out = []
-    if process_index != 0:
-        # replicated leaves are process 0's to write: nothing to copy
-        for key, leaf in pairs:
-            shape, dtype = _leaf_meta(leaf)
-            ranges = tuple((0, int(d)) for d in shape)
-            out.append(_LeafSnapshot(key, torch.Size(shape), dtype,
-                                     [ranges], []))
-        return out
-    for (key, _), host in zip(pairs, _host_copies([leaf for _, leaf in pairs])):
-        ranges = tuple((0, int(d)) for d in host.shape)
-        # process 0 owns every (replicated) leaf whole
-        out.append(_LeafSnapshot(key, host.shape, host.dtype, [ranges],
-                                 [(ranges, host)]))
-    return out
+    """Every leaf's manifest entry, and host copies of what this process
+    writes: a replicated leaf whole on process 0, a `ShardedLeaf`'s block
+    on its writer."""
+    plans = []  # (key, shape, dtype, expected regions, ranges, source)
+    for key, leaf in _flatten_with_keys(_tree_of(state)):
+        if isinstance(leaf, ShardedLeaf):
+            plans.append((key, leaf.shape, leaf.local.dtype, leaf.regions,
+                          leaf.index, leaf.local if leaf.writer else None))
+            continue
+        shape, dtype = _leaf_meta(leaf)
+        ranges = tuple((0, int(d)) for d in shape)
+        plans.append((key, shape, dtype, [ranges], ranges,
+                      leaf if process_index == 0 else None))
+    hosts = iter(_host_copies([p[5] for p in plans if p[5] is not None]))
+    return [_LeafSnapshot(key, torch.Size(shape), dtype, expected,
+                          [] if src is None else [(ranges, next(hosts))])
+            for key, shape, dtype, expected, ranges, src in plans]
 
 
 class CheckpointManager:
@@ -574,8 +600,16 @@ def _manifest_entries(dirpath: str) -> Dict[str, Dict[str, Any]]:
 
 
 def _materialize(reader: _ShardReader, target) -> torch.Tensor:
-    """One leaf in the target's dtype on its device (a tensor target), or
-    in the saved dtype on the CPU."""
+    """One leaf in the target's dtype on its device (a tensor target; a
+    `ShardedLeaf` reads its own region), or in the saved dtype on the
+    CPU."""
+    if isinstance(target, ShardedLeaf):
+        if reader.shape != target.shape:
+            raise ValueError(
+                f"checkpoint leaf {reader.key!r} shape {reader.shape} != "
+                f"target shape {target.shape}")
+        return reader.region(target.index).to(device=target.local.device,
+                                              dtype=target.local.dtype)
     if not isinstance(target, torch.Tensor):
         return reader.full()
     if reader.shape != tuple(target.shape):

@@ -8,10 +8,14 @@ Fields keep the JAX package's names and defaults. A field of the JAX
 config that the port does not honour yet is absent here, so passing it
 raises (a `TypeError` from the constructor, a `ValueError` naming the
 ROADMAP item from `from_dict`): no field is accepted and silently
-ignored. `validate()` runs on construction. The port runs the `data`
-and `sequence` axes; any other axis above 1 raises naming its ROADMAP
-item. A `sequence` axis above 1 trains an LM by ring or Ulysses
+ignored. `validate()` runs on construction. The port runs the `data`,
+`sequence` and `expert` axes; any other axis above 1 raises naming its
+ROADMAP item. A `sequence` axis above 1 trains an LM by ring or Ulysses
 attention over sequence shards, and its `seq_len` must divide over it.
+An `expert` axis above 1 shards an MoE model's expert stacks, E/ep
+experts a rank: the model's `num_experts` must divide over it (the JAX
+package's GSPMD would pad the stacks; the port refuses). A dense model
+on an expert axis trains as replicas.
 """
 
 from __future__ import annotations
@@ -56,7 +60,6 @@ MESH_AXES = ("data", "fsdp", "tensor", "pipeline", "sequence", "expert")
 _UNPORTED_MESH_AXES = {
     "fsdp": "A13 item 1 (fsdp)",
     "tensor": "A13 item 2 (tensor parallelism)",
-    "expert": "A13 item 3 (the expert axis above 1; MoE runs at 1)",
     "pipeline": "A13 item 4 (pipeline parallelism)",
 }
 
@@ -90,8 +93,8 @@ class MeshConfig:
     fields and check). The product of the axes is the gang's device
     count: one process per rank, one card a process
     (parallel/mesh.py `build_mesh` checks it against the world size).
-    The port runs the `data` and `sequence` axes; any other axis above 1
-    raises naming the ROADMAP item it waits for."""
+    The port runs the `data`, `sequence` and `expert` axes; any other
+    axis above 1 raises naming the ROADMAP item it waits for."""
 
     data: int = 1
     fsdp: int = 1
@@ -427,6 +430,14 @@ class TrainingConfig:
             if self.seq_len % sp:
                 raise ConfigError(f"seq_len {self.seq_len} not divisible by "
                                   f"the sequence mesh axis {sp}")
+        ep = self.mesh.expert
+        if ep > 1:
+            experts = _num_experts(self.model)
+            if experts and experts % ep:
+                raise ConfigError(
+                    f"{self.model}'s {experts} experts do not divide over "
+                    f"the expert mesh axis {ep} (each rank holds E/ep "
+                    f"whole experts)")
         dp = self.mesh.data * self.mesh.fsdp
         if self.global_batch_size % dp != 0:
             raise ConfigError(
@@ -440,6 +451,17 @@ class TrainingConfig:
         not honour raises, naming the ROADMAP item it waits for."""
         _check_keys(raw, cls, _UNPORTED_FIELDS, "")
         return cls(**raw)
+
+
+def _num_experts(model: str) -> int:
+    """The registry preset's `num_experts` (0 for a dense or an unknown
+    model; the trainer checks a model built with other kwargs again)."""
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    try:
+        return getattr(get_model(model, device="meta").cfg, "num_experts", 0)
+    except (KeyError, TypeError):
+        return 0
 
 
 @dataclasses.dataclass

@@ -50,7 +50,9 @@ With `num_experts > 0` every layer's MLP is the routed `moe`
 stream as the JAX layer feeds it, so its expert products run in f32;
 its reports go to the forward's `moe` collector. Its init: the router
 normal(0.02), the expert stacks variance-scaled truncated normals over
-their fan-in (flax's initializers).
+their fan-in (flax's initializers). Built with `expert=` (an
+`ExpertShard`), a routed layer holds this rank's block of the experts,
+drawn as world 1 draws the whole stack.
 
 Not ported yet: `PipelinedEncoder` (`pipeline_stages > 1`, ROADMAP A13
 item 4); it raises naming its item.
@@ -67,11 +69,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from kubeflow_tpu_torch.models.layers import (
+    EXPERT_STACKS,
     Dense,
     Embed,
     LayerNorm,
     MoeCollector,
     MoeMlp,
+    draw_leaf,
     dropout,
     remat as remat_fn,
 )
@@ -195,9 +199,11 @@ class Mlp(nn.Module):
 
 class EncoderLayer(nn.Module):
     """Post-LN residual layer: f32 LayerNorms over x + y (layer 0's x is
-    in the compute dtype, every later one's f32)."""
+    in the compute dtype, every later one's f32); `expert` (an
+    `ExpertShard`) makes a routed layer this rank's block of the
+    experts."""
 
-    def __init__(self, cfg: BertConfig):
+    def __init__(self, cfg: BertConfig, expert=None):
         super().__init__()
         self.attention = SelfAttention(cfg)
         self.ln_att = LayerNorm(cfg.hidden_size, cfg.dtype)
@@ -208,6 +214,7 @@ class EncoderLayer(nn.Module):
                 top_k=cfg.moe_top_k,
                 capacity_factor=cfg.expert_capacity_factor,
                 aux_weight=cfg.moe_aux_weight, dropout_rate=cfg.dropout_rate,
+                expert=expert,
             )
         else:
             self.mlp = Mlp(cfg)
@@ -217,7 +224,7 @@ class EncoderLayer(nn.Module):
         x = self.ln_att(x + self.attention(x, call))
         if self.routed:
             return self.ln_mlp(x + self.moe(x, call.moe, call.generator,
-                                            call.train))
+                                            call.train, call.seq))
         return self.ln_mlp(x + self.mlp(x, call))
 
 
@@ -253,18 +260,23 @@ def init_params(model: nn.Module, seed: int) -> None:
             elif isinstance(module, MoeMlp):
                 module.router.copy_(
                     torch.randn(module.router.shape, generator=gen) * 0.02)
-                for w in (module.wi, module.wo):
+                for leaf in EXPERT_STACKS:
                     # variance_scaling(1, fan_in, truncated_normal) over
-                    # [E, in, out]: the fan-in is the in axis
-                    std = math.sqrt(1.0 / w.shape[-2]) / 0.87962566103423978
-                    w.copy_(_truncated_normal(w.shape, gen) * std)
+                    # [E, in, out]: the fan-in is the in axis; a sharded
+                    # stack draws the whole [E, ...] and keeps its block
+                    std = math.sqrt(1.0 / getattr(module, leaf).shape[-2]
+                                    ) / 0.87962566103423978
+                    draw_leaf(module, leaf, lambda shape: (
+                        _truncated_normal(shape, gen) * std))
 
 
 class Bert(nn.Module):
-    """BERT encoder: embeddings → N post-LN layers → MLM and NSP heads."""
+    """BERT encoder: embeddings → N post-LN layers → MLM and NSP heads.
+    `expert` (an `ExpertShard` of the expert mesh axis) builds an MoE
+    model's routed layers for this rank's block of the experts."""
 
     def __init__(self, cfg: BertConfig, *, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, expert=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -274,7 +286,7 @@ class Bert(nn.Module):
         self.seg_emb = Embed(cfg.type_vocab_size, d, cfg.dtype)
         self.ln_emb = LayerNorm(d, cfg.dtype)
         self.layers = nn.ModuleList(
-            EncoderLayer(cfg) for _ in range(cfg.num_layers))
+            EncoderLayer(cfg, expert) for _ in range(cfg.num_layers))
         self.mlm_transform = Dense((d,), (d,), cfg.dtype)
         self.mlm_ln = LayerNorm(d, cfg.dtype)
         self.mlm_out = Dense((d,), (cfg.vocab_size,), cfg.dtype)
@@ -348,8 +360,9 @@ class Bert(nn.Module):
 def _build(defaults: dict, kwargs: dict) -> Bert:
     device = kwargs.pop("device", None)
     seed = kwargs.pop("seed", 0)
+    expert = kwargs.pop("expert", None)
     cfg = BertConfig(**{**defaults, **kwargs})
-    return Bert(cfg, device=device, seed=seed)
+    return Bert(cfg, device=device, seed=seed, expert=expert)
 
 
 @register_model("bert_base")

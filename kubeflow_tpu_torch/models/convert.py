@@ -23,6 +23,10 @@ BatchNorm running averages are the flax `batch_stats` collection
 (checkpointing/quantize.py `quantize_params_int8`) across with its int8
 values and f32 scales unchanged.
 
+`load_jax_params` loads a flax tree into a model in place; a model
+built for one expert-axis rank (models/layers.py `MoeMlp`'s `expert`)
+keeps its block of each whole [E, ...] expert stack.
+
 `params_to_jax` is the inverse of `params_from_jax`: a state dict → a
 flat `{flax path: np.ndarray}` ('/'-joined, e.g.
 `layer_0/attention/query/kernel`) in either layout, as the JAX package's
@@ -186,5 +190,9 @@ def params_to_jax(state_dict: Mapping[str, Any], layout: str = "named"
 
 def load_jax_params(model: torch.nn.Module, params: Mapping) -> None:
     """Copy flax params into `model` in place (strict: every name must
-    match both ways)."""
-    model.load_state_dict(params_from_jax(params), strict=True)
+    match both ways). A model built for an expert block (`expert=`)
+    takes its block of each whole [E, ...] stack."""
+    from kubeflow_tpu_torch.models.layers import expert_blocks
+
+    model.load_state_dict(expert_blocks(model, params_from_jax(params)),
+                          strict=True)

@@ -54,7 +54,10 @@ With `cfg.num_experts > 0` every block's MLP is the routed `moe`
 (`models/layers.py MoeMlp`; the `gpt_small_moe` and `gpt_tiny_moe`
 presets) on every path; each forward takes an optional `moe` collector
 that its layers report to (routed slots an expert, drops, the
-load-balance loss): the LM task and the engine pass one.
+load-balance loss): the LM task and the engine pass one. Built with
+`expert=` (an `ExpertShard` of the expert mesh axis), a routed layer
+holds this rank's block of the experts, drawn as world 1 draws the
+whole stack (models/layers.py `MoeMlp`, `draw_leaf`).
 
 A model is built frozen, for serving (`requires_grad_(False)`, eval
 mode). `trainable()` turns the f32 master weights trainable: every module
@@ -79,6 +82,7 @@ from kubeflow_tpu_torch.models.layers import (
     LayerNorm,
     MoeCollector,
     MoeMlp,
+    draw_leaf,
     dropout,
     remat as remat_fn,
 )
@@ -128,7 +132,7 @@ class GptConfig:
     attention_impl: str = "dense"
     remat: bool = False
     # > 0 makes every MLP a routed MoE of this many experts
-    # (models/layers.py MoeMlp, expert-parallel degree 1)
+    # (models/layers.py MoeMlp)
     num_experts: int = 0
     moe_top_k: int = 1
     expert_capacity_factor: float = 1.25
@@ -276,6 +280,8 @@ class _SlotDecode:
     train = False
     dropout_gen = None
     moe: Optional[MoeCollector] = None
+    # the serving paths run no sequence axis
+    seq = None
 
     def __init__(self, cache: SlotCache, s: int, dtype):
         self.cache, self.dtype = cache, dtype
@@ -310,6 +316,8 @@ class _Paged:
     train = False
     dropout_gen = None
     moe: Optional[MoeCollector] = None
+    # the serving paths run no sequence axis
+    seq = None
 
     def __init__(self, pool: KVPool, paged: PagedState, s: int, dtype):
         if paged.attn_impl not in PAGED_ATTENTION_IMPLS:
@@ -382,9 +390,10 @@ class CausalSelfAttention(nn.Module):
 class DecoderBlock(nn.Module):
     """Pre-LN residual block; with `cfg.num_experts > 0` its MLP is the
     routed `moe` (MoeMlp) on every path, reporting to the call's
-    collector (`ctx.moe`)."""
+    collector (`ctx.moe`); `expert` (an `ExpertShard`) makes it this
+    rank's block of the experts."""
 
-    def __init__(self, cfg: GptConfig):
+    def __init__(self, cfg: GptConfig, expert=None):
         super().__init__()
         self.dtype = cfg.dtype
         self.dropout_rate = cfg.dropout_rate
@@ -398,6 +407,7 @@ class DecoderBlock(nn.Module):
                 top_k=cfg.moe_top_k,
                 capacity_factor=cfg.expert_capacity_factor,
                 aux_weight=cfg.moe_aux_weight, dropout_rate=cfg.dropout_rate,
+                expert=expert,
             )
         else:
             self.mlp_wi = Dense((cfg.hidden_size,), (cfg.mlp_dim,), cfg.dtype)
@@ -409,7 +419,8 @@ class DecoderBlock(nn.Module):
         x = x + dropout(h, self.dropout_rate, ctx.dropout_gen, not ctx.train)
         h = self.ln_mlp(x).to(self.dtype)
         if self.routed:
-            return x + self.moe(h, ctx.moe, ctx.dropout_gen, ctx.train)
+            return x + self.moe(h, ctx.moe, ctx.dropout_gen, ctx.train,
+                                ctx.seq)
         h = self.mlp_wo(F.gelu(self.mlp_wi(h), approximate="tanh"))
         return x + dropout(h, self.dropout_rate, ctx.dropout_gen, not ctx.train)
 
@@ -424,31 +435,35 @@ def _no_sequence_axis(path: str) -> None:
 def init_params(model: nn.Module, seed: int) -> None:
     """Seeded init from an explicit CPU torch.Generator (the same weights
     on every device): layernorm scales 1, biases 0, every kernel and
-    embedding N(0, 0.02)."""
+    embedding N(0, 0.02). A sharded expert stack draws its whole value
+    and keeps its block (`layers.draw_leaf`): world 1's weights."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
+            owner, _, leaf = name.rpartition(".")
             if leaf == "scale":
                 p.fill_(1.0)
             elif leaf == "bias":
                 p.zero_()
             else:
-                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+                draw_leaf(model.get_submodule(owner), leaf, lambda shape: (
+                    torch.randn(shape, generator=gen) * 0.02))
 
 
 class Gpt(nn.Module):
-    """Decoder-only LM: token+position embeddings → N blocks → LM head."""
+    """Decoder-only LM: token+position embeddings → N blocks → LM head.
+    `expert` (an `ExpertShard` of the expert mesh axis) builds an MoE
+    model's routed layers for this rank's block of the experts."""
 
     def __init__(self, cfg: GptConfig, *, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, expert=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         self.tok_emb = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype)
         self.pos_emb = Embed(cfg.max_len, cfg.hidden_size, cfg.dtype)
         self.layers = nn.ModuleList(
-            DecoderBlock(cfg) for _ in range(cfg.num_layers)
+            DecoderBlock(cfg, expert) for _ in range(cfg.num_layers)
         )
         self.ln_final = LayerNorm(cfg.hidden_size, cfg.dtype)
         self.head = Dense(
@@ -789,8 +804,9 @@ def int8_model(model: Gpt, envelope: Optional[dict] = None) -> Gpt:
 def _build(defaults: dict, kwargs: dict) -> Gpt:
     device = kwargs.pop("device", None)
     seed = kwargs.pop("seed", 0)
+    expert = kwargs.pop("expert", None)
     cfg = GptConfig(**{**defaults, **kwargs})
-    return Gpt(cfg, device=device, seed=seed)
+    return Gpt(cfg, device=device, seed=seed, expert=expert)
 
 
 @register_model("gpt_small")

@@ -2,9 +2,10 @@
 kubeflow_tpu/models/layers.py, which holds the JAX package's shared
 layer code): flax's `Dense`/`DenseGeneral`, `LayerNorm` and `Embed` with
 their parameter names, shapes and mixed-precision arithmetic, flax's
-`Dropout`, and the routed expert MLP `MoeMlp` (the JAX `MoeMlp` at
-expert-parallel degree 1) with `MoeCollector`, which carries one
-forward's MoE reports (the JAX `moe_stats` and `losses` sows).
+`Dropout`, and the routed expert MLP `MoeMlp` (the JAX `MoeMlp`, whole
+or sharded over the expert mesh axis) with `MoeCollector`, which
+carries one forward's MoE reports (the JAX `moe_stats` and `losses`
+sows).
 
 Weights are f32 at rest and cast to the compute dtype at use, as flax's
 `dtype=` does. A GPT serving model may hold a leaf as int8 with an f32
@@ -25,7 +26,7 @@ import contextlib
 import contextvars
 import dataclasses
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +35,11 @@ from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.checkpointing.quantize import dequantize_leaf
 from kubeflow_tpu_torch.ops.attention import row_stable_matmul
+from kubeflow_tpu_torch.parallel.distributed import (
+    all_gather,
+    copy_to_group,
+    reduce_from_group,
+)
 from kubeflow_tpu_torch.parallel.moe import expert_capacity, topk_route
 
 # suffix of the f32 per-channel scale buffer beside an int8 leaf
@@ -285,70 +291,173 @@ class MoeCollector:
         return (weights * per_layer).sum()
 
 
-class MoeMlp(nn.Module):
-    """Routed expert MLP at expert-parallel degree 1 (the JAX `MoeMlp`'s
-    ep = 1 body; `parallel/moe.py` routes). Parameters `router` [D, E]
-    (f32, applied to x in f32: a route flipped by rounding would change
-    the output discontinuously), `wi` [E, D, F] and `wo` [E, F, D] (f32
-    at rest, cast to the compute dtype at use; int8 on an int8 model,
-    dequantized there).
+# the expert stacks of a routed layer: [E, ...] leaves an expert axis splits
+EXPERT_STACKS = ("wi", "wo")
 
-    Capacity is `expert_capacity(s · top_k, E, capacity_factor)` a batch
-    row (the row is the routing group). The dispatch and combine tensors
-    are cast to the compute dtype, then the one-hot contractions
-    `bsec,bsd->ebcd`, `ebcd,edf->ebcf`, tanh-GELU, `ebcf,efd->ebcd`,
-    `bsec,ebcd->bsd` run in the type the JAX einsums promote to: the
-    compute dtype, or f32 when x is f32 (BERT's f32 residual stream).
-    A dropped choice contributes nothing. Each call reports to the
-    forward's `MoeCollector`, when one is passed."""
+
+class MoeMlp(nn.Module):
+    """Routed expert MLP (the JAX `MoeMlp`; `parallel/moe.py` routes).
+    Parameters `router` [D, E] (f32, applied to x in f32: a route flipped
+    by rounding would change the output discontinuously), `wi` [E, D, F]
+    and `wo` [E, F, D] (f32 at rest, cast to the compute dtype at use;
+    int8 on an int8 model, dequantized there).
+
+    Capacity is `expert_capacity(S · top_k, E, capacity_factor)` a batch
+    row (the row is the routing group, S its length). The dispatch and
+    combine tensors are cast to the compute dtype, then the one-hot
+    contractions `bsec,bsd->ebcd`, `ebcd,edf->ebcf`, tanh-GELU,
+    `ebcf,efd->ebcd`, `bsec,ebcd->bsd` run in the type the JAX einsums
+    promote to: the compute dtype, or f32 when x is f32 (BERT's f32
+    residual stream). A dropped choice contributes nothing. Each call
+    reports to the forward's `MoeCollector`, when one is passed.
+
+    Expert-sharded (`expert`, an `ExpertShard` of the expert mesh axis;
+    the JAX `_expert_parallel`'s form): `wi`/`wo` hold only this rank's
+    block of E/ep experts, the router stays whole, and every rank routes
+    alike. x and the whole combine tensor enter through `copy_to_group`
+    (so the gradients of x, of the router and of everything upstream are
+    whole and equal on every rank of the group), dispatch and combine are
+    cut to the block's experts, the four einsums run on the block, and
+    one `reduce_from_group` over the expert group sums the partial
+    outputs. Under top-1 each output element has at most one nonzero
+    term, so the sum is world 1's up to the batching of the expert GEMMs.
+
+    Under a sequence axis (`seq`, the forward's `SequenceShard`, which
+    the model keeps in its call's context: a remat recompute may run on
+    autograd's device thread, outside the step's `sequence_parallel`) a
+    rank holds S/n positions of each row, but the routing group is still
+    the whole row: the f32 router logits are gathered over the sequence
+    group (`all_gather`, whose backward is a reduce-scatter), every
+    sequence rank routes the whole row (capacity from the global S, queue
+    slots in global token order), keeps its own columns of dispatch and
+    combine and runs the experts on its own tokens. The whole row's load-balance
+    sums are then equal on every sequence rank: sequence rank 0 alone
+    reports them (as it alone counts BERT's next-sentence rows)."""
 
     def __init__(self, dim: int, mlp_dim: int, num_experts: int, dtype,
                  top_k: int = 1, capacity_factor: float = 1.25,
-                 aux_weight: float = 0.01, dropout_rate: float = 0.0):
+                 aux_weight: float = 0.01, dropout_rate: float = 0.0,
+                 expert=None):
         super().__init__()
         self.num_experts, self.top_k = num_experts, top_k
         self.capacity_factor, self.aux_weight = capacity_factor, aux_weight
         self.dtype, self.dropout_rate = dtype, dropout_rate
+        # this rank's ExpertShard (parallel/mesh.py), or None: every expert
+        self.expert = expert
+        self.first, local = (0, num_experts) if expert is None else \
+            expert.block(num_experts)
         self.router = nn.Parameter(torch.empty(dim, num_experts))
-        self.wi = nn.Parameter(torch.empty(num_experts, dim, mlp_dim))
-        self.wo = nn.Parameter(torch.empty(num_experts, mlp_dim, dim))
+        self.wi = nn.Parameter(torch.empty(local, dim, mlp_dim))
+        self.wo = nn.Parameter(torch.empty(local, mlp_dim, dim))
+
+    def stack_shape(self, leaf: str) -> Tuple[int, ...]:
+        """The whole [E, ...] shape of leaf `leaf` (its own shape when it
+        is not an expert stack)."""
+        shape = tuple(getattr(self, leaf).shape)
+        return (self.num_experts,) + shape[1:] if leaf in EXPERT_STACKS \
+            else shape
+
+    def block_of(self, leaf: str, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole [E, ...] value of leaf `leaf` (the
+        value itself when the leaf is not a stack or nothing is sharded)."""
+        if leaf not in EXPERT_STACKS or self.expert is None:
+            return whole
+        return whole[self.first:self.first + self.wi.shape[0]]
 
     def forward(self, x, collector: Optional[MoeCollector] = None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False):
+                train: bool = False, seq=None):
         b, s, _ = x.shape
         e = self.num_experts
+        # the routing group is the whole row: S positions over the ring
+        s_row = s if seq is None else s * seq.size
         # top-2 tokens take two slots each: capacity scales with k
-        c = expert_capacity(s * self.top_k, e, self.capacity_factor)
+        c = expert_capacity(s_row * self.top_k, e, self.capacity_factor)
         router = at_use(self, "router", self.dtype).float()
-        route = topk_route(torch.einsum("bsd,de->bse", x.float(), router),
-                           c, k=self.top_k)
+        logits = torch.einsum("bsd,de->bse", x.float(), router)
+        if seq is not None:
+            logits = all_gather(logits, seq.group, dim=1)
+        route = topk_route(logits, c, k=self.top_k)
         cd = torch.promote_types(self.dtype, x.dtype)
 
         def cast(t):
             return t.to(self.dtype).to(cd)
 
-        dispatch, combine = cast(route.dispatch), cast(route.combine)
-        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, x.to(cd))
+        dispatch, combine = route.dispatch, route.combine
+        if seq is not None:
+            cols = slice(seq.offset(s), seq.offset(s) + s)
+            dispatch, combine = dispatch[:, cols], combine[:, cols]
+        dispatch, combine = cast(dispatch), cast(combine)
+        group = None if self.expert is None else self.expert.group
+        xe = x.to(cd)
+        if self.expert is not None:
+            xe, combine = copy_to_group(xe, group), copy_to_group(combine,
+                                                                  group)
+            block = slice(self.first, self.first + self.wi.shape[0])
+            dispatch, combine = dispatch[:, :, block], combine[:, :, block]
+        expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, xe)
         h = torch.einsum("ebcd,edf->ebcf", expert_in,
                          cast(at_use(self, "wi", self.dtype)))
         h = F.gelu(h, approximate="tanh")
         out_e = torch.einsum("ebcf,efd->ebcd", h,
                              cast(at_use(self, "wo", self.dtype)))
         y = torch.einsum("bsec,ebcd->bsd", combine, out_e)
+        if self.expert is not None:
+            y = reduce_from_group(y, group)
         if collector is not None:
             # counts are over POSITIONS fed to the router (idle decode
             # slots and prefill pad tails route too): a load-balance
-            # signal, not token billing
-            expert_tokens = route.dispatch.detach().sum(dim=(0, 1, 3))
+            # signal, not token billing; a sequence rank counts its own
+            local_dispatch = route.dispatch if seq is None else \
+                route.dispatch[:, seq.offset(s):seq.offset(s) + s]
+            expert_tokens = local_dispatch.detach().sum(dim=(0, 1, 3))
+            first_choice, prob_sum, tokens = (route.first_choice,
+                                              route.prob_sum, b * s_row)
+            if seq is not None and seq.rank != 0:
+                # the whole row's sums: counted once, on sequence rank 0
+                # (a zero product keeps the graph, so every rank runs the
+                # aux loss's collective backward)
+                first_choice = torch.zeros_like(first_choice)
+                prob_sum, tokens = prob_sum * 0.0, 0
             collector.add(MoeLayerStats(
                 expert_tokens=expert_tokens,
                 dropped=float(b * s * self.top_k) - expert_tokens.sum(),
-                first_choice=route.first_choice, prob_sum=route.prob_sum,
-                tokens=b * s, aux_weight=self.aux_weight,
+                first_choice=first_choice, prob_sum=prob_sum,
+                tokens=tokens, aux_weight=self.aux_weight,
                 aux=self.aux_weight * route.aux_loss,
             ))
         return dropout(y, self.dropout_rate, generator, not train)
+
+
+def draw_leaf(module: nn.Module, leaf: str, draw) -> None:
+    """Copy `draw(shape)` into parameter `leaf` of `module`: an expert
+    stack of a sharded `MoeMlp` draws its whole [E, ...] value and keeps
+    this rank's block, so a seeded init gives world 1's weights whatever
+    the expert axis."""
+    p = getattr(module, leaf)
+    if isinstance(module, MoeMlp):
+        p.copy_(module.block_of(leaf, draw(module.stack_shape(leaf))))
+    else:
+        p.copy_(draw(tuple(p.shape)))
+
+
+def sharded_stacks(model: nn.Module) -> Dict[str, Tuple[MoeMlp, str]]:
+    """{parameter name: (its MoeMlp, leaf)} of the expert stacks `model`
+    holds a block of (empty off an expert axis and for a dense model)."""
+    return {f"{name}.{leaf}": (module, leaf)
+            for name, module in model.named_modules()
+            if isinstance(module, MoeMlp) and module.expert is not None
+            for leaf in EXPERT_STACKS}
+
+
+def expert_blocks(model: nn.Module, state_dict):
+    """A whole-model state dict (every [E, ...] stack whole, as world 1
+    and the JAX package hold it) cut to `model`'s expert blocks."""
+    out = dict(state_dict)
+    for key, (module, leaf) in sharded_stacks(model).items():
+        if key in out:
+            out[key] = module.block_of(leaf, out[key])
+    return out
 
 
 def remat(fn, generator: Optional[torch.Generator], *args):

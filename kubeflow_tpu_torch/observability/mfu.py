@@ -32,7 +32,12 @@ step's over the ranks (`rank_train_flops`): the analytic count at the
 global batch and the GLOBAL sequence length (attention grows with S²,
 so a shard's own S/n would undercount it n times) divided by data ×
 sequence, as the JAX package divides its global program's count by the
-chips.
+chips. An expert axis of ep ranks splits each data shard's count ep
+ways: a rank runs its E/ep share of the expert products (exactly 1/ep
+of them: every expert computes all C slots of every row), and the dense
+and attention work of its rows, which every expert rank of the shard
+repeats, counts once over the ep of them, so the ranks' counts still sum
+to the global step's.
 
 Recomputation under remat is NOT counted (it is work the model does not
 need), and neither are embeddings, layernorms, softmax or the optimizer.
@@ -115,16 +120,19 @@ def encoder_train_flops(cfg, batch: int, seq: int) -> float:
 
 
 def rank_train_flops(count, cfg, local_batch: int, local_seq: int,
-                     data: int = 1, sequence: int = 1) -> float:
+                     data: int = 1, sequence: int = 1,
+                     expert: int = 1) -> float:
     """One rank's share of a train step's model FLOPs: `count`
     (`lm_train_flops` or `encoder_train_flops`) of the global step, the
     rank's local_batch × local_seq tokens scaled by the data and
-    sequence axes, over data × sequence. Without a sequence axis the
-    count is linear in the batch, so a rank's is its own rows'."""
+    sequence axes, over data × sequence × expert. Without a sequence
+    axis the count is linear in the batch, so a rank's is its own rows'
+    over the expert axis (its E/ep share of the expert products, and the
+    rows' dense work split over the expert ranks that repeat it)."""
     if sequence == 1:
-        return count(cfg, local_batch, local_seq)
+        return count(cfg, local_batch, local_seq) / expert
     return (count(cfg, local_batch * data, local_seq * sequence)
-            / (data * sequence))
+            / (data * sequence * expert))
 
 
 def mfu(flops_per_step: Optional[float], step_time_s: float,

@@ -217,6 +217,61 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
+# -- the expert axis's pair -------------------------------------------------------
+# Every expert rank of a data shard computes the same loss from the same
+# rows, so the sum of the group's losses is NOT the loss: `all_reduce_sum`
+# (both directions summed) would multiply an expert block's gradient by the
+# group's size. A block's partial output enters the replicated stream
+# through `reduce_from_group` (summed forward, passed back unchanged), and
+# a replicated tensor enters the blocks through `copy_to_group` (passed
+# forward unchanged, its cotangent summed back: each rank holds only its
+# blocks' share). With `group` None (this process alone) both are the
+# identity.
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    if group is None:
+        return x
+    out = x.contiguous().clone()
+    torch.distributed.all_reduce(out, group=group)
+    return out
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """`x` unchanged (a view) in the forward; the backward sums its
+    cotangent over `group`: a tensor every rank of the group holds whole,
+    read by each rank's own share of the work."""
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group=None) -> torch.Tensor:
+    """SUM all-reduce of `x` over `group` in the forward (a new tensor);
+    the backward passes the cotangent on unchanged: each rank's partial
+    result joins a stream every rank then holds whole."""
+    return _ReduceFromGroup.apply(x, group)
+
+
 # -- the sequence axis's collectives -------------------------------------------
 # Differentiable forms of the JAX collectives ring and Ulysses attention
 # use (`ppermute`, tiled `all_to_all` and `all_gather`), each over a

@@ -19,6 +19,12 @@ The JAX package's models find the sequence axis on the ambient mesh
 with `sequence_parallel(SequenceShard(...))`, and the models read
 `active_sequence()` at each forward (and keep it for a remat recompute,
 which runs outside the step's context).
+
+The expert axis sits between them: rank d·(X·S) + x·S + i holds expert
+block x of data shard d (sequence shard i). An MoE model is built for
+its block (`ExpertShard`, from `expert_shard(mesh)`): its routed layers
+hold only their E/ep experts and combine their partial outputs over
+`expert_group(mesh)`.
 """
 
 from __future__ import annotations
@@ -207,12 +213,16 @@ def sequence_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
 
 def reduce_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
     """The group a step's gradients, item counts and BatchNorm statistics
-    are summed over: data × sequence (parameters are replicated over
-    both). The data axis's own group when the sequence axis is 1, the
-    sequence axis's when the data axis is; else one `new_group` for
-    each block of ranks that share every other coordinate. Every rank
-    creates every block's group (torch requires it), so call this once a
-    mesh, on every rank."""
+    are summed over: data × sequence at this rank's coordinate on every
+    other axis (the expert axis's included). Parameters are replicated
+    over data × sequence, an expert stack's block too, so every leaf's
+    gradient is summed over this group and no other: the expert ranks of
+    one data shard compute the same loss from the same rows, and their
+    replicated leaves' gradients are already equal. The data axis's own
+    group when the sequence axis is 1, the sequence axis's when the data
+    axis is; else one `new_group` for each block of ranks that share
+    every other coordinate. Every rank creates every block's group
+    (torch requires it), so call this once a mesh, on every rank."""
     if mesh is None or not torch.distributed.is_initialized():
         return None
     sizes = mesh_shape(mesh)
@@ -231,6 +241,51 @@ def reduce_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
         if me in ranks:
             mine = group
     return mine
+
+
+def expert_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
+    """The process group of the mesh's expert axis (None without a
+    process group): the ranks whose expert blocks make up every stack of
+    one data (and sequence) shard, in block order."""
+    if mesh is None or not torch.distributed.is_initialized():
+        return None
+    return mesh.get_group("expert")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """This rank's place on the expert axis: the axis's process group
+    (None: this process alone, and a caller that sums the blocks' partial
+    outputs itself), its position `rank` (its block of experts) and the
+    axis's `size`. `writer`: this rank writes its blocks of a checkpoint
+    (its coordinate on every other axis is 0, so each block is written
+    once)."""
+
+    group: Optional["torch.distributed.ProcessGroup"]
+    rank: int
+    size: int
+    writer: bool = True
+
+    def block(self, num_experts: int) -> Tuple[int, int]:
+        """(first expert, experts) of this rank's block."""
+        if num_experts % self.size:
+            raise ValueError(f"{num_experts} experts do not divide over "
+                             f"the expert mesh axis {self.size}")
+        n = num_experts // self.size
+        return self.rank * n, n
+
+
+def expert_shard(mesh) -> Optional[ExpertShard]:
+    """The mesh's ExpertShard for this rank; None when the expert axis is
+    1 or there is no process group."""
+    group = expert_group(mesh)
+    if group is None or mesh_shape(mesh)["expert"] == 1:
+        return None
+    others = [a for a in mesh.mesh_dim_names if a != "expert"]
+    return ExpertShard(group, mesh.get_local_rank("expert"),
+                       mesh_shape(mesh)["expert"],
+                       writer=all(mesh.get_local_rank(a) == 0
+                                  for a in others))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,7 +14,10 @@ configures the tracer from KFT_TRACE_*, serves the debug surface when
 KFT_DEBUG_PORT is set, runs `run_training` (KFT_RESTORE_DIR set turns on
 the resume) and prints the JAX launcher's result line, `{"job": ...,
 "backend": <the group's backend or null>, **result}`, then leaves the
-group and exits 0 (1 on an error). The
+group and exits 0 (1 on an error). A config runs as it is: its mesh's
+axes multiply to the gang's world size, one process a rank (e.g.
+configs/gpt_moe_v5e16.yaml's `{data: 8, expert: 4}` is a gang of 32).
+The
 profiler endpoint (KFT_PROFILER_*) is not ported (ROADMAP A14): a set
 knob raises rather than being ignored.
 """
@@ -82,18 +85,21 @@ def maybe_start_debug_server(environ=None):
 def load_spec(config_path: Optional[str] = None, environ=None) -> dict:
     """The job's TrainingConfig mapping: `config_path` (JSON, or YAML
     through PyYAML where it is installed) or the KFT_TRAINING_SPEC JSON
-    env."""
+    env. A job spec file (a `training:` block beside `slice_spec:` and
+    the rest, as configs/*.yaml hold one) gives its `training` block: a
+    TrainingConfig has no field of that name."""
     env = os.environ if environ is None else environ
     if not config_path:
         return json.loads(env.get(ENV_TRAINING_SPEC, "{}"))
     with open(config_path) as f:
         text = f.read()
     try:
-        return json.loads(text)
+        spec = json.loads(text)
     except ValueError:
         import yaml
 
-        return yaml.safe_load(text) or {}
+        spec = yaml.safe_load(text) or {}
+    return spec.get("training", spec)
 
 
 def run(config_path: Optional[str] = None, steps: Optional[int] = None,

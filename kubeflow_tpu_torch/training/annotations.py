@@ -11,8 +11,12 @@ are matched in their flax form (models/convert.py `jax_path`:
 so both packages annotate every leaf alike.
 
 On a data-only mesh every leaf's spec is replicated (what the
-data-parallel trainer assumes); the fsdp slice will shard by these
-annotations.
+data-parallel trainer assumes). On an expert axis the MoE stacks' specs
+put `expert` on dim 0 (the router stays replicated), which is the
+layout the trainer builds (training/trainer.py); the fsdp slice will
+shard by these annotations too. A model's leaves are annotated at their
+whole shapes: an expert-sharded stack as the [E, ...] leaf it is a
+block of (models/layers.py `MoeMlp.stack_shape`).
 """
 
 from __future__ import annotations
@@ -110,8 +114,22 @@ def logical_axes_for(
     With `mesh_axis_sizes`, a dim whose size the mapped mesh axes do not
     divide is degraded to replicated (None) instead of failing sharding,
     as in the JAX package."""
-    if isinstance(params, torch.nn.Module):
-        params = dict(params.named_parameters())
-    return {name: _annotate(jax_path(name), tuple(t.shape), fsdp_size,
+    shapes = (whole_shapes(params) if isinstance(params, torch.nn.Module)
+              else {name: tuple(t.shape) for name, t in params.items()})
+    return {name: _annotate(jax_path(name), shape, fsdp_size,
                             mesh_axis_sizes)
-            for name, t in params.items()}
+            for name, shape in shapes.items()}
+
+
+def whole_shapes(model: torch.nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """{parameter name: its whole shape}: a parameter's own, or for an
+    expert stack's block the [E, ...] stack's."""
+    from kubeflow_tpu_torch.models.layers import MoeMlp
+
+    out = {}
+    for owner, module in model.named_modules():
+        for leaf, p in module.named_parameters(recurse=False):
+            name = f"{owner}.{leaf}" if owner else leaf
+            out[name] = (module.stack_shape(leaf) if isinstance(module, MoeMlp)
+                         else tuple(p.shape))
+    return out

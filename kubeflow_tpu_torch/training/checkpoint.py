@@ -42,6 +42,13 @@ first update torch has no optimizer state: such a state saves zero
 moments (a zero trace) and count 0, as the JAX package does, and a
 restore creates the optimizer state before loading it.
 
+Under an expert mesh axis a rank holds only its block of each expert
+stack (models/layers.py `MoeMlp`): the stack's parameter and its two
+moments enter the tree as `ShardedLeaf`s with their global index ranges,
+written by one rank a block (checkpointing/manager.py) and read back by
+region, so the manifest names the whole [E, ...] leaf as a JAX state or
+a world-1 port state names it.
+
 The tree holds the live tensors; the manager makes the host copy.
 """
 
@@ -51,8 +58,9 @@ from typing import Any, Dict
 
 import torch
 
-from kubeflow_tpu_torch.checkpointing.manager import nest
+from kubeflow_tpu_torch.checkpointing.manager import ShardedLeaf, nest
 from kubeflow_tpu_torch.models.convert import is_batch_stat, jax_path
+from kubeflow_tpu_torch.models.layers import sharded_stacks
 
 
 def _get(tree: Dict[str, Any], path: str):
@@ -61,16 +69,39 @@ def _get(tree: Dict[str, Any], path: str):
     return tree
 
 
+def _leaf(stacks, name: str, t: torch.Tensor):
+    """`t` (a parameter or a moment of parameter `name`), or its block of
+    an expert stack as a `ShardedLeaf`."""
+    if name not in stacks:
+        return t
+    module, leaf = stacks[name]
+    shape = module.stack_shape(leaf)
+    n, rest = t.shape[0], tuple((0, d) for d in shape[1:])
+    regions = [((r * n, (r + 1) * n),) + rest
+               for r in range(module.expert.size)]
+    return ShardedLeaf(t, shape, regions[module.expert.rank], regions,
+                       module.expert.writer)
+
+
 def params_tree(model: torch.nn.Module) -> Dict[str, Any]:
-    """The model's parameters as the nested flax tree (live tensors)."""
-    return nest({jax_path(n): p for n, p in model.named_parameters()})
+    """The model's parameters as the nested flax tree (live tensors; an
+    expert stack's block as a `ShardedLeaf`)."""
+    stacks = sharded_stacks(model)
+    return nest({jax_path(n): _leaf(stacks, n, p)
+                 for n, p in model.named_parameters()})
 
 
 def load_params_tree(model: torch.nn.Module, tree: Dict[str, Any]) -> None:
-    """Copy a nested flax tree into the model's parameters, in place."""
+    """Copy a nested flax tree into the model's parameters, in place (an
+    expert-sharded model takes its block of a whole stack)."""
+    stacks = sharded_stacks(model)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            p.copy_(_get(tree, jax_path(name)))
+            value = _get(tree, jax_path(name))
+            if name in stacks and tuple(value.shape) != tuple(p.shape):
+                module, leaf = stacks[name]
+                value = module.block_of(leaf, value)
+            p.copy_(value)
 
 
 def batch_stats_tree(model: torch.nn.Module) -> Dict[str, Any]:
@@ -135,12 +166,14 @@ def train_state_tree(state) -> Dict[str, Any]:
         }}
         return tree
     mu, nu = {}, {}
+    stacks = sharded_stacks(state.model)
     for name, p in state.model.named_parameters():
         st = opt.state.get(p, {})
         path = jax_path(name)
-        mu[path] = st["exp_avg"] if "exp_avg" in st else torch.zeros_like(p)
-        nu[path] = (st["exp_avg_sq"] if "exp_avg_sq" in st
-                    else torch.zeros_like(p))
+        mu[path] = _leaf(stacks, name, st["exp_avg"] if "exp_avg" in st
+                         else torch.zeros_like(p))
+        nu[path] = _leaf(stacks, name, st["exp_avg_sq"] if "exp_avg_sq" in st
+                         else torch.zeros_like(p))
     count = _update_count(state)
     tree["opt_state"] = {"1": {
         "0": {"count": torch.tensor(count, dtype=torch.int32),

@@ -14,9 +14,12 @@ down the forward and add the layers' summed weighted load-balance loss
 to the task loss, reporting it as `aux["moe_aux_loss"]` (the JAX tasks'
 sown "losses"). In a data-parallel gang the loss is the global batch's:
 each layer's first-choice counts and router probability sums are summed
-over the data `group` before the product (`MoeCollector.aux_loss`), and
-each rank adds its 1/world share, so the ranks' losses sum to the
-global loss and their summed gradients are its gradient.
+over the step's `group` (data × sequence at the rank's expert
+coordinate) before the product (`MoeCollector.aux_loss`), and each rank
+adds its 1/|group| share, so the group's losses sum to the global loss
+and their summed gradients are its gradient. The expert ranks of one
+data shard route alike and compute the same loss: none of them is
+summed over the expert axis.
 
 Data parallelism: the JAX step computes each loss over the GLOBAL batch
 (GSPMD), so each of its means divides by a global count. A task's
@@ -503,16 +506,28 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
     return schedule
 
 
-def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float,
+                        sharded: Iterable[torch.Tensor] = (),
+                        group=None) -> torch.Tensor:
     """optax.clip_by_global_norm, in place: g ← g / norm · max_norm when
     the global norm is >= max_norm, else unchanged. No host sync.
-    Returns the global norm (before clipping)."""
+    Returns the global norm (before clipping). `sharded` are the
+    gradients of this rank's blocks of leaves split over `group` (an
+    expert stack's, over the expert axis): their squared norms are summed
+    over the group, and every other leaf counts once, so every rank
+    clips at the whole state's norm and the replicas stay equal."""
     grads = [g for g in grads if g is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
-    )
+    sharded = [g for g in sharded if g is not None]
+    norms = [torch.linalg.vector_norm(g.float()) for g in grads]
+    if sharded:
+        sq = torch.stack([torch.linalg.vector_norm(g.float())
+                          for g in sharded]).square().sum()
+        if group is not None:
+            torch.distributed.all_reduce(sq, group=group)
+        norms.append(sq.sqrt())
+    norm = torch.linalg.vector_norm(torch.stack(norms))
     trigger = norm < max_norm
-    for g in grads:
+    for g in grads + sharded:
         g.copy_(torch.where(trigger, g, g / norm * max_norm))
     return norm
 

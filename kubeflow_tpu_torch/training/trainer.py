@@ -81,10 +81,28 @@ MLM task counts next-sentence rows on sequence rank 0. Item counts,
 the loss and the gradients are summed over data × sequence
 (`reduce_group`): parameters are replicated over both. Without an
 explicit model a sequence axis turns the default attention ("dense")
-into "ring", as the JAX trainer defaults it; an MoE model is refused
-(its routing capacity is a whole sequence's). MFU is a rank's share of
-the global step's FLOPs, attention counted at the global length
-(observability/mfu.py `rank_train_flops`).
+into "ring", as the JAX trainer defaults it. An MoE model routes each
+whole row: its router logits are gathered over the ring (models/
+layers.py `MoeMlp`). MFU is a rank's share of the global step's FLOPs,
+attention counted at the global length (observability/mfu.py
+`rank_train_flops`).
+
+Expert parallelism (`cfg.mesh.expert` ranks, between the data and the
+sequence axes: the JAX package's `expert` mesh axis and its rules
+table). An MoE model is built for this rank's `ExpertShard`: each routed
+layer holds E/ep experts of every stack, and so do the AdamW moments;
+the router and every other leaf stay whole. The expert ranks of one
+data shard take the same rows (the data world is world / (sequence ×
+expert)), draw the same dropout masks and route alike; each runs its
+experts and one all-reduce over the expert axis sums the partial
+outputs. The counts, the loss and the gradient bucket are still summed
+over `reduce_group` (data × sequence at this expert coordinate), never
+the world: replicated leaves' gradients are already equal within the
+expert group, and a stack's block is summed over the ranks that hold
+it. The clip's global norm sums the blocks' squares over the expert
+group and counts every replicated leaf once, so every rank clips alike.
+Checkpoints write each block from one rank (training/checkpoint.py). A
+dense model on an expert axis trains as replicas.
 """
 
 from __future__ import annotations
@@ -101,6 +119,7 @@ from torch import nn
 from kubeflow_tpu_torch.chaos import default_chaos
 from kubeflow_tpu_torch.config.platform import TrainingConfig
 from kubeflow_tpu_torch.models.convert import is_batch_stat
+from kubeflow_tpu_torch.models.layers import sharded_stacks
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.observability.mfu import (
     encoder_train_flops,
@@ -113,6 +132,7 @@ from kubeflow_tpu_torch.observability.mfu import (
 from kubeflow_tpu_torch.observability.trace import default_tracer
 from kubeflow_tpu_torch.parallel import distributed as gang
 from kubeflow_tpu_torch.parallel.mesh import (
+    expert_shard,
     mesh_coordinate,
     mesh_from_config,
     reduce_group,
@@ -205,12 +225,15 @@ class Trainer:
     one device. `device` defaults to "cuda" and raises without CUDA
     unless "cpu" is asked for. In a `torch.distributed` group the trainer
     is this rank's: `self.mesh` is the DeviceMesh of `cfg.mesh` over the
-    group's ranks; it names the data × sequence group the step sums over
-    and `self.seq`, this rank's place on the sequence axis (None at
-    1)."""
+    group's ranks; it names the data × sequence group the step sums over,
+    `self.seq`, this rank's place on the sequence axis, and
+    `self.expert`, its place on the expert axis (each None at 1).
+    `model_kwargs` reach the registry factory of a model the trainer
+    builds (the JAX trainer's argument, e.g. `{"moe_top_k": 2}`)."""
 
     def __init__(self, cfg: TrainingConfig, model=None, task=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 model_kwargs: Optional[Dict[str, Any]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         # the gang: a group (of any size, one included) takes the
@@ -220,20 +243,23 @@ class Trainer:
         self.mesh = None
         self._group = None
         self.seq = None
+        self.expert = None
         if self.distributed:
             backend = torch.distributed.get_backend()
             self.mesh = mesh_from_config(
                 cfg.mesh, device_type="cuda" if backend == "nccl" else "cpu")
             self._group = reduce_group(self.mesh)
             self.seq = sequence_shard(self.mesh)
+            self.expert = expert_shard(self.mesh)
         elif cfg.mesh.num_devices != 1:
             raise ValueError(
                 f"mesh spec needs {cfg.mesh.num_devices} devices "
                 f"({cfg.mesh.axis_sizes()}), got 1: start the gang's "
                 f"processes (runtime/launcher.py) with its rendered env")
         # this rank's place on the data axis: its rows of each global
-        # batch, and their indices
-        self.data_world = self.world // cfg.mesh.sequence
+        # batch (the same for every expert rank of the shard), and their
+        # indices
+        self.data_world = self.world // (cfg.mesh.sequence * cfg.mesh.expert)
         self.data_rank = mesh_coordinate(self.mesh, "data")
         self._rows = (local_rows(cfg.global_batch_size, self.data_rank,
                                  self.data_world, cfg.accum_steps)
@@ -245,7 +271,7 @@ class Trainer:
         if model is None:
             # the config's context window, remat and attention reach an
             # LM's factory (JAX trainer.py:97-124)
-            kwargs: Dict[str, Any] = {}
+            kwargs: Dict[str, Any] = dict(model_kwargs or {})
             if cfg.remat:
                 kwargs["remat"] = True
             if cfg.model.startswith(("gpt", "bert")):
@@ -255,6 +281,9 @@ class Trainer:
                     # ring attention, as the JAX trainer defaults it
                     impl = "ring"
                 kwargs["attention_impl"] = impl
+                if self.expert is not None:
+                    # an MoE model's routed layers: this rank's experts
+                    kwargs["expert"] = self.expert
             if cfg.seq_len > 0:
                 kwargs["max_len"] = cfg.seq_len
             dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -264,12 +293,8 @@ class Trainer:
             raise ValueError(f"model is on {model.device}, the trainer on "
                              f"{self.device}")
         self.model = model.trainable()
-        if self.seq is not None and getattr(model.cfg, "num_experts", 0):
-            raise ValueError(
-                "an MoE model under a sequence axis is not ported: its "
-                "expert capacity is a whole sequence's (ROADMAP A13 item 3)")
         if self.distributed:
-            self._check_replicated()
+            self._check_layout()
         if self.world > 1:
             from kubeflow_tpu_torch.models.resnet import sync_batch_stats
 
@@ -307,26 +332,48 @@ class Trainer:
         # dropout draws from a generator made for each step
         self._dropout = getattr(self.model.cfg, "dropout_rate", 0.0) > 0
 
-    def _check_replicated(self) -> None:
+    def _check_layout(self) -> None:
         """Every parameter's spec on the mesh (training/annotations.py over
-        parallel/sharding.py) must be replicated: the data-parallel step
-        keeps whole leaves on every rank."""
+        parallel/sharding.py) must be one the step runs: replicated, or
+        split on dim 0 over the expert axis alone (an expert stack), and
+        then the model must hold exactly this rank's block of it."""
         from kubeflow_tpu_torch.parallel.mesh import mesh_shape
         from kubeflow_tpu_torch.parallel.sharding import (
             is_replicated,
             param_specs,
         )
-        from kubeflow_tpu_torch.training.annotations import logical_axes_for
+        from kubeflow_tpu_torch.training.annotations import (
+            logical_axes_for,
+            whole_shapes,
+        )
 
         sizes = mesh_shape(self.mesh)
         specs = param_specs(logical_axes_for(
             self.model, fsdp_size=sizes.get("fsdp", 1),
             mesh_axis_sizes=sizes), mesh=sizes)
-        sharded = sorted(n for n, spec in specs.items()
-                         if not is_replicated(spec))
-        if sharded:
-            raise ValueError(f"mesh {sizes} shards {sharded[:3]}...; the "
-                             f"port's step runs the data axis only")
+        experts = getattr(self.model.cfg, "num_experts", 0)
+        if experts and experts % sizes["expert"]:
+            raise ValueError(
+                f"the model's {experts} experts do not divide over the "
+                f"expert mesh axis {sizes['expert']}")
+        whole = whole_shapes(self.model)
+        params = dict(self.model.named_parameters())
+        bad = []
+        for name, spec in specs.items():
+            if is_replicated(spec):
+                ok = tuple(params[name].shape) == whole[name]
+            else:
+                ok = (spec[0] == "expert" and is_replicated(spec[1:])
+                      and params[name].shape[0] * sizes["expert"]
+                      == whole[name][0])
+            if not ok:
+                bad.append(name)
+        if bad:
+            raise ValueError(
+                f"mesh {sizes} lays out {sorted(bad)[:3]}... in a way the "
+                f"port's step does not run (it keeps leaves whole, or an "
+                f"expert stack's block of E/ep experts a rank: build the "
+                f"model with this rank's `expert` shard)")
 
     # ---- state -----------------------------------------------------------
 
@@ -407,7 +454,13 @@ class Trainer:
         else:
             loss = loss_sum
         if self._clip:
-            clip_by_global_norm([p.grad for p in params], MAX_GRAD_NORM)
+            blocks = {id(model.get_parameter(n))
+                      for n in sharded_stacks(model)}
+            clip_by_global_norm(
+                [p.grad for p in params if id(p) not in blocks],
+                MAX_GRAD_NORM,
+                sharded=[p.grad for p in params if id(p) in blocks],
+                group=None if self.expert is None else self.expert.group)
         # optax evaluates the schedule at the update count BEFORE this
         # update: the first update runs at schedule(0)
         lr = self.schedule(state.step)
@@ -461,7 +514,8 @@ class Trainer:
     def _dropout_rows(self, sub):
         """In a gang of several ranks, dropout draws the global
         microbatch's masks and keeps this rank's rows (and under a
-        sequence axis its columns)."""
+        sequence axis its columns): the expert ranks of a data shard
+        draw the same masks."""
         if self.world == 1 or not self._dropout:
             return contextlib.nullcontext()
         from kubeflow_tpu_torch.models.layers import dropout_rows
@@ -545,13 +599,14 @@ class Trainer:
     def rank_flops(self, batch) -> float:
         """This rank's share of an LM train step's model FLOPs at this
         rank's `batch` (observability/mfu.py `rank_train_flops`: the
-        global step's count over data × sequence)."""
+        global step's count over data × sequence × expert)."""
         count = (encoder_train_flops if self.task.name == "mlm"
                  else lm_train_flops)
         seq = 1 if self.seq is None else self.seq.size
         return rank_train_flops(count, self.model.cfg,
                                 *batch["input_ids"].shape,
-                                data=self.data_world, sequence=seq)
+                                data=self.data_world, sequence=seq,
+                                expert=self.cfg.mesh.expert)
 
     def step_flops(self, batch) -> float:
         """FLOPs of one training step of this model at `batch`'s shapes
@@ -742,8 +797,10 @@ class Trainer:
                       else max(compile_s, 1e-9))
                 t_last = now
                 steps_since_log = 0
-                # the global step's items: every rank feeds as many
-                items = self.task.count_items(batch_np) * self.world
+                # the global step's items: every rank feeds as many, and
+                # the expert ranks of a data shard feed the same ones
+                items = (self.task.count_items(batch_np) * self.world
+                         // self.cfg.mesh.expert)
                 step_hist.observe(dt, model=model_label)
                 thpt.set(items / dt, model=model_label)
                 # the window's last step's aux, read after the losses' sync

@@ -270,11 +270,13 @@ UNPORTED = [("fsdp", "A13 item 1 (fsdp)"), ("tensor", "A13 item 2"),
 @pytest.mark.parametrize("axis,item", UNPORTED, ids=[a for a, _ in UNPORTED])
 def test_config_refuses_each_unported_axis_naming_its_item(axis, item):
     """Each axis still unported raises naming its item; the sequence axis
-    (A13 item 5) is ported, so its configs are accepted."""
-    if axis == "sequence":
+    (A13 item 5) and the expert axis (A13 item 3) are ported, so their
+    configs are accepted."""
+    if axis in ("sequence", "expert"):
         cfg = TrainingConfig.from_dict({"model": "gpt_tiny",
                                         "mesh": {axis: 2}})
-        assert cfg.mesh.sequence == 2 and MeshConfig(sequence=2).sequence == 2
+        assert getattr(cfg.mesh, axis) == 2
+        assert getattr(MeshConfig(**{axis: 2}), axis) == 2
         return
     with pytest.raises(ConfigError, match=item.replace("(", r"\(").replace(
             ")", r"\)")):

@@ -18,7 +18,9 @@ a rank's FLOP count is world 1's count of the global step over the
 ranks, and the trainer turns the default attention into "ring". A
 held-out split evaluates as world 1 does, and a `{sequence: 2}` gang's
 step-2 checkpoint resumes at world 1 and in the
-JAX trainer to the gang's own step-3 and step-4 losses. The last test
+JAX trainer to the gang's own step-3 and step-4 losses. The long-context
+config's step fields (two microbatches, the streamed head, no attention
+mask) train in both gangs as the JAX trainer does. The last test
 rehearses chip_smoke.py's phase 19 at gpt_tiny size.
 """
 
@@ -85,6 +87,9 @@ CKPT_STEPS, CKPT_SAVE = 4, 2
 # a held-out split evaluated after each step (a padded tail batch)
 EVAL_DATA = {"eval_fraction": 0.25, "eval_every_steps": 1,
              "eval_batch_size": 5}
+# configs/gpt_longcontext_v5e16.yaml's step fields at test size: two
+# microbatches, the streamed head, no attention mask
+LONG = dict(accum_steps=2, loss_chunk=8, assume_full_attention=True)
 
 # One rank: every job of the gang in turn (each a fresh Trainer built by
 # the trainer itself, so its attention default is the trainer's): the
@@ -132,12 +137,12 @@ def main():
 '''
 
 
-def _jax_trainer(name, data, devices, steps=STEPS):
+def _jax_trainer(name, data, devices, steps=STEPS, **over):
     """The JAX trainer on data: 2, sequence: 4 (Ulysses: the heads divide
     over 4; the JAX ring computes the same function). `steps` sets the
-    schedule's length."""
-    fields = {k: v for k, v in cfg_dict(name, data, steps=steps).items()
-              if k != "data"}
+    schedule's length; `over` are more TrainingConfig fields."""
+    fields = {k: v for k, v in cfg_dict(name, data, steps=steps,
+                                        **over).items() if k != "data"}
     cfg = JTrainingConfig(mesh=JMeshConfig(data=2, sequence=4),
                           data=JDataConfig(**data), **fields)
     mesh = mesh_from_config(cfg.mesh, devices=devices[:8])
@@ -175,13 +180,29 @@ def jax_runs(devices8, tmp_path_factory):
     return runs
 
 
-def _job(data, ckpt, root, name, mesh, impl=None, steps=STEPS, **ckpt_kw):
-    """A gang job restoring from a copy of `ckpt`."""
-    own = str(root / f"{name}-{impl}-{steps}")
+@pytest.fixture(scope="module")
+def jax_long_runs(jax_runs, devices8):
+    """{model: 3 steps' losses} of the JAX trainer with the LONG fields,
+    from the same step-0 checkpoint."""
+    runs = {}
+    for name in MODELS:
+        data, ckpt, _ = jax_runs[name]
+        jtr, mesh = _jax_trainer(name, data, devices8, **LONG)
+        state = JCheckpointManager(ckpt).restore(jtr.init_state(), step=0)
+        _, runs[name] = _jax_steps(jtr, mesh, state, 0, STEPS)
+    return runs
+
+
+def _job(data, ckpt, root, name, mesh, impl=None, steps=STEPS, extra=None,
+         **ckpt_kw):
+    """A gang job restoring from a copy of `ckpt` (`extra`: more
+    TrainingConfig fields)."""
+    own = str(root / f"{name}-{impl}-{steps}{'-x' if extra else ''}")
     shutil.copytree(ckpt, own)
     over = {} if impl is None else {"attention_impl": impl}
     return {"cfg": cfg_dict(name, data, steps=steps, mesh=mesh, checkpoint={
-        "directory": own, "async_save": False, **ckpt_kw}, **over)}
+        "directory": own, "async_save": False, **ckpt_kw}, **over,
+        **(extra or {}))}
 
 
 @pytest.fixture(scope="module")
@@ -202,6 +223,8 @@ def gangs(jax_runs, tmp_path_factory):
                 named = None if (name, impl) == ("gpt_tiny", "ring") else impl
                 jobs[f"{name}/{impl}"] = _job(data, ckpt, root, name,
                                               MESHES[world], named)
+            jobs[f"{name}/long"] = _job(data, ckpt, root, name,
+                                        MESHES[world], extra=LONG)
         ckpt_dir = None
         if world == 2:
             data, ckpt, _ = jax_runs["gpt_tiny"]
@@ -241,6 +264,23 @@ def test_a_sequence_gang_equals_the_jax_trainer(gang, jax_runs, name, impl):
         assert _losses(res) == _losses(results[0])
         assert res["attention"] == impl
     np.testing.assert_allclose(_losses(results[0]), jlosses, rtol=LOSS_REL)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_the_long_context_step_fields_under_a_sequence_axis(
+        gang, jax_long_runs, name):
+    """accum_steps 2, loss_chunk 8 and assume_full_attention (the
+    long-context config's step fields) in a sequence gang, against the
+    JAX trainer with the same fields: losses within rel 1e-5, every
+    rank's bit for bit equal."""
+    world, outs, _ = gang
+    results = [o["jobs"][f"{name}/long"] for o in outs]
+    for res in results:
+        assert res["result"]["world_size"] == world
+        assert _losses(res) == _losses(results[0])
+        assert res["columns"] == [BATCH * 2 // world, SEQ // 2]
+    np.testing.assert_allclose(_losses(results[0]), jax_long_runs[name],
+                               rtol=LOSS_REL)
 
 
 def _world1_counts(name, data):
