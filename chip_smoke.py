@@ -203,17 +203,20 @@ Phases (any failure raises and the script exits non-zero):
    `mesh: {data: 1}`) through `runtime/launcher.py main` at world 1 over
    NCCL, 20 steps: the process group's backend nccl, one gradient
    all-reduce a step, finite losses; images/sec/card and step ms of its
-   last log window (steps 11-20) and device busy (a second, 4-step run,
-   steps 2-4, CUDA activity traced) printed beside 15a's in-process
-   numbers from the same call. 17b: GANG_GPT_CFG (phase 8's configuration, the lm stream
+   last log window (steps 11-20) and device busy (a 4-step run after
+   17b's, steps 2-4, CUDA activity traced) printed beside 15a's
+   in-process numbers from the same call; 17a's two launches and 17b's
+   run in turn in one rank process (a process start is ~20 s, more
+   than their steps). 17b: GANG_GPT_CFG (phase 8's configuration, the lm stream
    made on the card) through the launcher, world 1 over NCCL, 10 steps:
    nccl, one all-reduce a step, each flash kernel launched its formula's
    count; tokens/sec/card and MFU beside phase 8's. 17c: two ranks on
    the one card over gloo (`initialize_from_env(backend="gloo")`; NCCL
    refuses two ranks on one device): resnet50 at a global batch of 128
    saved at step 2, and gpt_small at a global batch of 2 at seq 1024,
-   3 steps each, against world-1 runs of the same global batches in
-   this process: losses within GANG_LOSS_REL, the ranks' losses,
+   3 steps each (one pair of rank processes runs both in turn),
+   against world-1 runs of the same global batches in this process:
+   losses within GANG_LOSS_REL, the ranks' losses,
    weights and BatchNorm running averages equal bit for bit, the final
    weights within GANG_STEP_REL of world 1's as a share of world 1's
    update over every leaf and GANG_LEAF_STEP_REL at the worst leaf, the
@@ -258,9 +261,10 @@ Phases (any failure raises and the script exits non-zero):
 19. Sequence parallelism (configs/gpt_longcontext_v5e16.yaml's sequence
    axis at a two-rank share on one card: SEQ_CFG, gpt_small bf16,
    remat, loss_chunk 4096, seq 8192 = two shards of the config's 4096,
-   global batch 2). 19a: `mesh: {sequence: 2}` by ring attention, two
-   ranks of `chip_smoke.py --gang-rank` over gloo on the one card (as
-   17c), against world 1 in this process (attention "flash" over all
+   global batch 2, 2 steps). 19a: `mesh: {sequence: 2}` by ring
+   attention, two ranks of `chip_smoke.py --gang-rank` over gloo on the
+   one card (as 17c; the same two processes then run 19b), against
+   world 1 in this process (attention "flash" over all
    8192 positions): every step's loss within GANG_LOSS_REL of world
    1's, the final weights bit for bit equal across the ranks, and each
    rank's flash launches the formula (rank i a layer: i + 1 forwards,
@@ -299,11 +303,37 @@ Phases (any failure raises and the script exits non-zero):
    resumes to the gang's step-3 loss within GANG_LOSS_REL. 20b:
    gpt_small_moe on `{sequence: 2}` at seq 2048 by ring attention (the
    router logits gathered over the ring, each rank routing whole rows),
-   two ranks against world 1's flash over 2048: the same loss gates,
-   ring launch formula as 19a. The kernels line gives each flash row
-   its `ep_launches` (20a, 20b; a row at 0 fails).
+   two ranks against world 1's flash over 2048 (2 steps): the same loss
+   gates, ring launch formula as 19a. The kernels line gives each flash
+   row its `ep_launches` (20a, 20b; a row at 0 fails).
+21. Pipeline parallelism (configs/gpt_pipeline_1f1b_v5e16.yaml's
+   `pipeline: 4` on one of its data shards: its training block loaded
+   by `TrainingConfig.from_dict` as it is, then cut by PIPELINE_CUT).
+   21a: `mesh: {pipeline: 4}`, gpt_small bf16, remat, flash, 16
+   sequences of 1024, 1f1b over M = 4, 3 steps, four ranks of
+   `chip_smoke.py --gang-rank` over gloo on the one card (3 layers a
+   stage), against world 1 (the same cell at `{pipeline: 1}`) in this
+   process. Gates: the stages' losses bit for bit equal and within
+   GANG_LOSS_REL of world 1's, each stage's parameter bytes the
+   formula's (its layers, the embeddings on stage 0, the final
+   LayerNorm and head on the last), each stage's flash launches the
+   formula (steps x 3 layers x M x 2 forwards under remat, steps x 3 x M
+   of each backward kernel), each stage's live microbatches S − s, and
+   the stage blocks joined within GANG_STEP_REL / GANG_LEAF_STEP_REL of
+   world 1's weights (17c's bounds). 21b: the same four processes at M =
+   PIPELINE_WIDE_M, one step under GPipe and one under 1F1B: live
+   microbatches M on every stage against S − s, the two losses within
+   GANG_LOSS_REL; each stage's max_memory_allocated printed under each.
+   21c: the gang saves at step PIPELINE_SAVE (each stacked layer leaf in
+   4 stage blocks, each written by its stage); world 1 restores that
+   step into its model without stages: its leaves are the stage blocks
+   joined, bit for bit, and it resumes to the gang's step-3 loss within
+   GANG_LOSS_REL. The kernels line gives each flash row its
+   `pp_launches` (21a; a row at 0 fails).
 
-The last lines are the nvidia-smi line, a {"kernels": [...]} JSON line,
+Every phase prints its seconds, and the line before the nvidia-smi line
+the whole run's. The last lines are the nvidia-smi line, a {"kernels":
+[...]} JSON line,
 and {"ok": true, "device": {...}}. f32 matmuls run in full f32: TF32 is
 turned off for matmuls and cuDNN below.
 """
@@ -612,15 +642,21 @@ PREFETCH_CFG = dict(ACCURACY_CFG, steps=20)
 # two-rank share on one card. Each rank holds 4096 positions, the
 # config's per-chip shard of 32,768 over its 8 ranks, and the global
 # batch is 2, the config's microbatch of one data rank (16 / 2 / 4);
-# phase 8's learning-rate overrides, 3 steps. 19a rings it, 19b runs
+# phase 8's learning-rate overrides, 2 steps. 19a rings it, 19b runs
 # Ulysses (12 heads, 6 a rank); world 1 is the same cell in-process with
 # the flash kernels over all 8192 positions: the function both compute.
 # Bounds: every step's loss within GANG_LOSS_REL (17c's bf16 bound) of
-# world 1's, the ranks' final weights equal bit for bit. Read on an H100
-# 80GB HBM3 at 700 W: worst rel 1.564e-06 (ring) and 2.954e-06 (Ulysses)
+# world 1's, the ranks' final weights equal bit for bit, and rank 0's
+# final weights against world 1's under 17c's GANG_STEP_REL and
+# GANG_LEAF_STEP_REL. Under warmup 2 the first update runs at lr 0, so
+# both losses are read at the initial weights: the second update (lr >
+# 0) is what the weight gate holds, the gradients of the ring and of
+# Ulysses. Read on an H100 80GB HBM3 at 700 W: losses within 1.564e-06
+# (ring) and 2.954e-06 (Ulysses); weights 3.855e-02 / 9.734e-02 (ring)
+# and 2.115e-03 / 1.287e-02 (Ulysses) of world 1's update
 SEQ_RANKS = 2
 SEQ_CFG = dict(TRAIN_CFG, seq_len=2 * 4096, global_batch_size=2,
-               accum_steps=1, steps=3)
+               accum_steps=1, steps=2)
 # 19c: one ring rank's block loop at the config's own geometry: q, k, v
 # [2, 32768, 12, 64] bf16 in 8 blocks of 4096 (ranks 0 and 7)
 RING_B, RING_S, RING_N = 2, 32768, 8
@@ -632,14 +668,32 @@ RING_B, RING_S, RING_N = 2, 32768, 8
 # 20000), 4 gloo ranks against world 1 (18e's cell at 3 steps). 20c: the
 # gang saves at EXPERT_SAVE (the config's checkpoint block, interval cut)
 # and world 1 restores that step. 20b: gpt_small_moe on `{sequence: 2}`
-# at seq 2048 (1024 a rank), batch 2, ring, 3 steps, against world 1's
-# flash over 2048. Bounds: GANG_LOSS_REL (17c's bf16 bound)
+# at seq 2048 (1024 a rank), batch 2, ring, 3 steps (the third loss
+# after an update at lr > 0), against world 1's flash over 2048, its
+# rank 0's final weights against world 1's as 19's are, the routers and
+# expert stacks by the worst-leaf bound alone (`update_gate`). Bounds:
+# GANG_LOSS_REL (17c's bf16 bound), GANG_STEP_REL and GANG_LEAF_STEP_REL
 EXPERT_CONFIG = os.path.join("configs", "gpt_moe_v5e16.yaml")
 EXPERT_RANKS, EXPERT_SAVE = 4, 2
 EXPERT_CUT = dict(steps=3, warmup_steps=2, seq_len=1024,
                   attention_impl="flash")
 EXPERT_SEQ_CFG = dict(MOE_TRAIN_CFG, seq_len=2048, global_batch_size=2,
                       steps=3, attention_impl="ring", mesh={"sequence": 2})
+# phase 21: configs/gpt_pipeline_1f1b_v5e16.yaml's pipeline axis on the
+# one card. 21a: its training block loaded as it is, cut to one of its 4
+# data shards: `mesh: {pipeline: 4}` (its own degree, 3 of gpt_small's 12
+# layers a rank), its global batch of 64 over data 4 = 16 sequences of
+# 1024, bf16, remat, 1f1b over M = 4 microbatches (its default: one a
+# stage), flash, 3 steps with warmup 2 (its 2000 of 20000), four gloo
+# ranks against world 1 (the same cell at `{pipeline: 1}`) in this
+# process. 21b: the same ranks at M = PIPELINE_WIDE_M, one step under
+# each schedule. 21c: the gang saves at PIPELINE_SAVE (the config's
+# checkpoint block, interval cut) and world 1 restores that step.
+# Bounds: GANG_LOSS_REL (17c's bf16 bound); the stage blocks joined
+# against world 1's weights, 17c's GANG_STEP_REL and GANG_LEAF_STEP_REL
+PIPELINE_CONFIG = os.path.join("configs", "gpt_pipeline_1f1b_v5e16.yaml")
+PIPELINE_SAVE, PIPELINE_WIDE_M = 2, 8
+PIPELINE_CUT = dict(steps=3, warmup_steps=2, attention_impl="flash")
 
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
@@ -3360,20 +3414,16 @@ def phase_bert(torch, device="cuda"):
 
 
 def gang_rank() -> int:
-    """One rank of a phase-17 gang (`python3 chip_smoke.py --gang-rank`,
-    the rendered KFT_* env, the job in KFT_SMOKE_JOB). mode "launcher":
-    `runtime/launcher.py main --config <job config>` with the flash launch
-    counts set to 0 just before and read just after (and, with "profile",
-    the device's kernel time over steps 2..1+RESNET_PROFILED, CUDA
-    activity only). mode
-    "trainer": `initialize_from_env(backend=...)` (gloo: two ranks on one
-    card), then the launcher's own steps, `Trainer` and `run_training`,
-    and this rank's BatchNorm running averages saved beside "out".
-    Prints one line "GANG {...}" after the launcher's result line."""
+    """One rank of a gang of phases 17, 19, 20 or 21 (`python3
+    chip_smoke.py --gang-rank`, the rendered KFT_* env, the job in
+    KFT_SMOKE_JOB). mode "launcher": `runtime/launcher.py main --config
+    <job config>` at world 1 (or each of the job's "runs" in turn,
+    `launcher_runs`). mode "runs": `initialize_from_env(backend=...)`
+    (gloo: several ranks on one card), then a `Trainer` and
+    `run_training` for each of the job's "runs" in turn in this process
+    (`rank_runs`). Prints one line "GANG {...}" after the launcher's
+    result lines."""
     import torch
-
-    from kubeflow_tpu_torch.ops import flash_attention as fa
-    from kubeflow_tpu_torch.parallel import distributed as gd
 
     job = json.loads(os.environ["KFT_SMOKE_JOB"])
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3381,90 +3431,181 @@ def gang_rank() -> int:
     torch.backends.cudnn.benchmark = bool(job.get("cudnn_benchmark"))
     report = {"rank": int(os.environ.get("KFT_PROCESS_ID", "0"))}
     if job["mode"] == "launcher":
-        from kubeflow_tpu_torch.runtime import launcher
-        from kubeflow_tpu_torch.training.trainer import Trainer
+        report["runs"] = launcher_runs(torch, job)
+        report.update(report["runs"][-1])
+        rc = report.pop("rc")
+    elif job["mode"] == "runs":
+        report["runs"] = rank_runs(torch, job)
+        rc = 0
+    else:
+        raise ValueError(f"unknown gang mode {job['mode']!r}")
+    print("GANG " + json.dumps(report), flush=True)
+    return rc
 
+
+def launcher_runs(torch, job):
+    """A world-1 rank of mode "launcher": `launcher.main --config` for the
+    job's config, or for each of its "runs" in turn in this process (the
+    launcher joins and leaves the gang's group each time) → each run's
+    {"launches", "result" (the launcher's result line), "rc", and with
+    "profile" "busy_ms": the device's kernel time a step over steps
+    2..1+RESNET_PROFILED, CUDA activity only}. A profiled run goes last:
+    a window after a profiled one runs slower (CUPTI stays attached)."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime import launcher
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    import gc
+
+    runs = job.get("runs") or [{"config": job["config"],
+                                "profile": job.get("profile")}]
+    out = []
+    first_step = Trainer.train_step
+    for run in runs:
         prof, calls = None, [0]
-        if job.get("profile"):
+        if run.get("profile"):
             from torch.profiler import ProfilerActivity, profile
 
             prof = profile(activities=[ProfilerActivity.CUDA])
-            first_step = Trainer.train_step
 
             def train_step(self, state, batch):
-                out = first_step(self, state, batch)
+                result = first_step(self, state, batch)
                 calls[0] += 1
                 if calls[0] in (1, 1 + RESNET_PROFILED):
                     # steps 2..1+RESNET_PROFILED, after the first
                     torch.cuda.synchronize()
                     (prof.start if calls[0] == 1 else prof.stop)()
-                return out
+                return result
 
             Trainer.train_step = train_step
         # the main path's run: every launch count starts at 0 here
         fa.reset_launch_counts()
-        rc = launcher.main(["--config", job["config"]])
-        report["launches"] = dict(fa.launch_counts)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = launcher.main(["--config", run["config"]] + (
+                    ["--device", job["device"]] if job.get("device") else []))
+        finally:
+            Trainer.train_step = first_step
+            sys.stdout.write(buf.getvalue())
+            sys.stdout.flush()
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith('{"job"')]
+        rep = {"launches": dict(fa.launch_counts), "rc": rc,
+               "result": json.loads(lines[-1]) if lines else None}
         if prof is not None:
             events = [e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA]
-            report["busy_ms"] = (sum(e.self_device_time_total for e in events)
-                                 / 1e3 / RESNET_PROFILED)
-    else:
-        from kubeflow_tpu_torch.config.platform import TrainingConfig
-        from kubeflow_tpu_torch.runtime.train_run import run_training
-        from kubeflow_tpu_torch.training.trainer import Trainer
+            rep["busy_ms"] = (sum(e.self_device_time_total for e in events)
+                              / 1e3 / RESNET_PROFILED)
+        out.append(rep)
+        if rc:
+            break
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
-        if job.get("device") == "cpu":
-            # ranks sharing the host's cores (a CPU rehearsal)
-            torch.set_num_threads(1)
-        gd.initialize_from_env(device=job.get("device"),
-                               backend=job["backend"])
-        report["backend"] = torch.distributed.get_backend()
-        dev = gd.gang_device(job.get("device"))
-        with open(job["config"]) as f:
+
+def rank_runs(torch, job):
+    """A gang rank of mode "runs": join the gang (gloo: ranks sharing one
+    card), then each of the job's "runs" in turn (a config file, model
+    kwargs): a fresh `Trainer` and `run_training` with the flash launch
+    counts set to 0 just before and read just after → each run's result,
+    launches, backend, device, state bytes, max_memory_allocated, (with
+    "digest_step") every parameter's digest as that update leaves it,
+    (with "digests") the final leaves' digests, replicated and expert
+    blocks apart, and the rank's coordinates, and on a pipeline axis the
+    rank's stage, microbatches, schedule and live-activation peak. With
+    "out" the rank's final parameters and buffers are saved as
+    `<out>.<rank>.pt` (by the ranks "out_ranks" lists; by default every
+    rank). One process start serves every run."""
+    import gc
+
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.parallel import distributed as gd
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    if job.get("device") == "cpu":
+        # ranks sharing the host's cores (a CPU rehearsal)
+        torch.set_num_threads(1)
+    gd.initialize_from_env(device=job.get("device"), backend=job["backend"])
+    dev = gd.gang_device(job.get("device"))
+    rank = torch.distributed.get_rank()
+    out = []
+    for run in job["runs"]:
+        t0 = time.monotonic()
+        with open(run["config"]) as f:
             cfg = TrainingConfig.from_dict(json.load(f))
-        trainer = Trainer(cfg, device=dev)
+        trainer = Trainer(cfg, device=dev,
+                          model_kwargs=run.get("model_kwargs"))
         at = {}
-        if job.get("digest_step"):
-            # the expert blocks' digests as update `digest_step` leaves
-            # them (the step a checkpoint saves)
-            step_fn = trainer.train_step
+        step_fn = trainer.train_step
 
-            def train_step(state, batch):
-                state, metrics = step_fn(state, batch)
-                if state.step == job["digest_step"]:
-                    at.update(leaf_digests(torch, state.model)[1])
-                return state, metrics
+        def train_step(state, batch, step_fn=step_fn, at=at, run=run):
+            state, metrics = step_fn(state, batch)
+            if state.step == run.get("digest_step"):
+                at.update({n: digest(torch, p) for n, p in
+                           state.model.named_parameters()})
+            return state, metrics
 
-            trainer.train_step = train_step
+        trainer.train_step = train_step
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
+        built = time.monotonic() - t0
+        # the main path's run: every launch count starts at 0 here
         fa.reset_launch_counts()
         result = run_training(cfg, device=dev, trainer=trainer,
                               log_every=cfg.steps)
-        report["launches"] = dict(fa.launch_counts)
-        report["result"] = result
-        report["device"] = str(dev)
-        model = trainer._final_state.model
-        if job.get("digests"):
+        rep = {"rank": rank, "result": result,
+               "launches": dict(fa.launch_counts),
+               "backend": torch.distributed.get_backend(),
+               "device": str(dev), "bytes": state_bytes(trainer._final_state),
+               "max_memory_allocated": (torch.cuda.max_memory_allocated(dev)
+                                        if dev.type == "cuda" else 0),
+               "digests_at": at}
+        if run.get("digests"):
             # digests, not arrays: the ranks' leaves compared bit for bit
             # without writing each rank's weights to disk
-            replicated, blocks = leaf_digests(torch, model)
-            report.update(
-                replicated=replicated, blocks=blocks, blocks_at=at,
-                coords={a: trainer.mesh.get_local_rank(a)
-                        for a in ("data", "expert", "sequence")},
-                bytes=state_bytes(trainer._final_state),
-                max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
-                                      if dev.type == "cuda" else 0))
-        else:
-            torch.save(model_arrays(model),
-                       f"{job['out']}.{report['rank']}.pt")
-        gd.shutdown()
-        rc = 0
-    print("GANG " + json.dumps(report), flush=True)
-    return rc
+            replicated, blocks = leaf_digests(torch,
+                                              trainer._final_state.model)
+            rep.update(replicated=replicated, blocks=blocks, blocks_at=at,
+                       coords={a: trainer.mesh.get_local_rank(a)
+                               for a in ("data", "expert", "sequence")})
+        if trainer.pipe is not None:
+            rep.update(stage=trainer.pipe.rank,
+                       live=trainer.stage_live.peak,
+                       microbatches=trainer.pipeline_microbatches,
+                       schedule=trainer.model.cfg.pipeline_schedule)
+        if run.get("out") and rank in run.get("out_ranks", [rank]):
+            torch.save(model_arrays(trainer._final_state.model),
+                       f"{run['out']}.{rank}.pt")
+        rep["seconds"] = {"build": built, "run": time.monotonic() - t0}
+        out.append(rep)
+        # the step closure refers to the trainer: free the run's state
+        # before the next one's peak is read
+        del trainer, step_fn, train_step
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    gd.shutdown()
+    return out
+
+
+def run_gang_runs(torch, name, runs, world, root, **job):
+    """One gang of `world` ranks (mode "runs") running each (config dict,
+    run options) of `runs` in turn in the same processes → for each run,
+    the ranks' reports in rank order."""
+    specs = []
+    for i, (cfg, opts) in enumerate(runs):
+        path = os.path.join(root, f"{name}-run{i}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        specs.append({"config": path, **opts})
+    outs = run_gang(torch, name, runs[0][0], world, mode="runs", root=root,
+                    runs=specs, **job)
+    return [[rep["runs"][i] for _, rep in outs] for i in range(len(specs))]
 
 
 def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
@@ -3538,15 +3679,26 @@ def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
 
 
 def phase_gang_world1(torch, root, image_ref, lm_ref, layers):
-    """17a and 17b: the launcher at world 1 over NCCL. → 17b's launches.
-    17a's throughput comes from an unprofiled run and its device busy
-    time from a second, short one: a window after a profiled one ran
-    slower (CUPTI stays attached), so one run cannot give both."""
-    (res, _), = run_gang(torch, "resnet", GANG_RESNET_CFG, 1, root=root,
-                         cudnn_benchmark=True)
-    (_, rep), = run_gang(torch, "resnet-profiled", dict(
-        GANG_RESNET_CFG, steps=1 + RESNET_PROFILED), 1, root=root,
-        profile=True, cudnn_benchmark=True)
+    """17a and 17b: the launcher at world 1 over NCCL, one rank process
+    running three launches in turn (17a's resnet50, 17b's gpt_small, then
+    17a's profiled resnet50). → 17b's launches. 17a's throughput comes
+    from an unprofiled run and its device busy time from a second, short
+    one, run last: a window after a profiled one ran slower (CUPTI stays
+    attached), so one run cannot give both."""
+    runs = []
+    for name, cfg, profiled in (
+            ("resnet", GANG_RESNET_CFG, False),
+            ("gpt", GANG_GPT_CFG, False),
+            ("resnet-profiled", dict(GANG_RESNET_CFG,
+                                     steps=1 + RESNET_PROFILED), True)):
+        path = os.path.join(root, f"world1-{name}.json")
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        runs.append({"config": path, "profile": profiled})
+    (_, gang), = run_gang(torch, "world1", GANG_RESNET_CFG, 1, root=root,
+                          cudnn_benchmark=True, runs=runs)
+    res, (gpt_res, gpt_rep), rep = (gang["runs"][0]["result"], (
+        gang["runs"][1]["result"], gang["runs"][1]), gang["runs"][2])
     steps = GANG_RESNET_CFG["steps"]
     step_ms = res["step_time_s"] * 1e3
     print(f"gang 17a ({smi_line()}): resnet50 bf16 224² batch "
@@ -3572,7 +3724,7 @@ def phase_gang_world1(torch, root, image_ref, lm_ref, layers):
     if not all(np.isfinite(loss) for _, loss in res["losses"]):
         raise AssertionError(f"17a: losses {res['losses']}")
 
-    (res, rep), = run_gang(torch, "gpt", GANG_GPT_CFG, 1, root=root)
+    res, rep = gpt_res, gpt_rep
     cfg = GANG_GPT_CFG
     a, r = cfg["accum_steps"], 2 if cfg["remat"] else 1
     want = {"flash_fwd": cfg["steps"] * layers * a * r,
@@ -3604,10 +3756,10 @@ def _rel(a, b):
 
 
 def model_arrays(model):
-    """{"params", "buffers"}: a model's leaves, on the host."""
-    return {"params": {n: p.detach().cpu() for n, p in
+    """{"params", "buffers"}: copies of a model's leaves, on the host."""
+    return {"params": {n: p.detach().to("cpu", copy=True) for n, p in
                        model.named_parameters()},
-            "buffers": {n: b.detach().cpu() for n, b in
+            "buffers": {n: b.detach().to("cpu", copy=True) for n, b in
                         model.named_buffers()}}
 
 
@@ -3688,9 +3840,12 @@ def phase_gang_two_ranks(torch, root):
     gang_cfg = dict(GANG2_RESNET_CFG, mesh={"data": 2}, checkpoint={
         "directory": ckpt, "interval_steps": GANG2_SAVE, "keep": 10,
         "async_save": False})
-    outs = run_gang(torch, "resnet2", gang_cfg, 2, mode="trainer",
-                    hosts=hosts, root=root, backend="gloo")
-    reps = [rep for _, rep in outs]
+    gpt_cfg = dict(GANG2_GPT_CFG, mesh={"data": 2})
+    # one gang runs both cells in turn (one process start a rank)
+    reps, gpt_reps = run_gang_runs(
+        torch, "gang2", [(gang_cfg, {"out": os.path.join(root, "resnet2")}),
+                         (gpt_cfg, {"out": os.path.join(root, "gpt2")})],
+        2, root, hosts=hosts, backend="gloo")
     gang_losses = [loss for _, loss in reps[0]["result"]["losses"]]
     ranks = [torch.load(os.path.join(root, f"resnet2.{r}.pt")) for r in (0, 1)]
     bufs = ranks[0]["buffers"]
@@ -3756,10 +3911,7 @@ def phase_gang_two_ranks(torch, root):
     if manifest["process_count"] != 2 or not resume_gap <= GANG_LOSS_REL:
         raise AssertionError(f"17c: checkpoint resume {resumed['losses']}")
 
-    gpt_cfg = dict(GANG2_GPT_CFG, mesh={"data": 2})
-    outs = run_gang(torch, "gpt2", gpt_cfg, 2, mode="trainer", hosts=hosts,
-                    root=root, backend="gloo")
-    reps = [rep for _, rep in outs]
+    reps = gpt_reps
     gang_losses = [loss for _, loss in reps[0]["result"]["losses"]]
     ranks = [torch.load(os.path.join(root, f"gpt2.{r}.pt")) for r in (0, 1)]
     cfg1 = TrainingConfig(**GANG2_GPT_CFG)
@@ -4616,78 +4768,141 @@ def phase_ring_cost(torch, device="cuda", b=RING_B, s=RING_S, n=RING_N,
     return launches
 
 
-def phase_sequence(torch, device="cuda", overrides=None, ranks=SEQ_RANKS,
-                   ring_cost=None):
-    """Phase 19: 19a the ring and 19b Ulysses over `mesh: {sequence:
-    ranks}` as gloo ranks on the one card, against world 1 in this
-    process; 19c one ring rank's cost (`ring_cost`: phase_ring_cost's
-    keyword overrides). → each flash kernel's launches over 19a-19c."""
+SEQ_IMPLS = (("19a", "ring"), ("19b", "ulysses"))
+
+
+def sequence_plan(root, overrides=None, ranks=SEQ_RANKS):
+    """19a's and 19b's gang runs, (config, run options) each: SEQ_CFG
+    with `overrides` on `mesh: {sequence: ranks}`, each rank's final
+    weights saved."""
+    base = {**SEQ_CFG, **(overrides or {})}
+    return [(dict(base, attention_impl=impl, mesh={"sequence": ranks}),
+             {"out": os.path.join(root, f"seq_{impl}")})
+            for _, impl in SEQ_IMPLS]
+
+
+def update_gate(gang, one, init, apart=()):
+    """`update_gap` of a gang's final weights against world 1's, with
+    GPT's attention key bias left out (its true gradient is 0: softmax
+    ignores a shift shared by a query's keys, so AdamW steps it on
+    summation noise) → (the phase line's text, whether it is within
+    GANG_STEP_REL over every leaf and GANG_LEAF_STEP_REL at the worst).
+    The leaves whose names end with `apart` (MoE's routers and expert
+    stacks) are held by the worst-leaf bound alone, their gap over all
+    of them printed: bf16 rounding flips a share of the routes (~4.7 %
+    of gpt_small_moe's, phase 18), a flipped token moves its whole
+    contribution from one expert to another, and AdamW's first updates
+    (about lr · sign(g) an element) turn that into sign flips of the
+    stacks' small elements."""
+    apart = tuple(apart)
+    rest = {n: w for n, w in one.items() if not n.endswith(apart)}
+    step_gap, leaf_gap, leaf = update_gap(gang, rest, init,
+                                          skip=("attention.key.bias",))
+    text = (f"final weights' gap to world 1's over world 1's update "
+            f"{step_gap:.3e} over every leaf"
+            f"{' but the routers and stacks' if apart else ''} (bound "
+            f"{GANG_STEP_REL:g})")
+    if apart:
+        own_gap, own_leaf_gap, own_leaf = update_gap(
+            gang, {n: w for n, w in one.items() if n.endswith(apart)}, init)
+        if own_leaf_gap >= leaf_gap:
+            leaf_gap, leaf = own_leaf_gap, own_leaf
+        text += f", {own_gap:.3e} over the routers and stacks"
+    text += (f", {leaf_gap:.3e} at the worst leaf ({leaf}; bound "
+             f"{GANG_LEAF_STEP_REL:g})")
+    return text, step_gap <= GANG_STEP_REL and leaf_gap <= GANG_LEAF_STEP_REL
+
+
+def device_params(model):
+    """Copies of a model's parameters, on its device."""
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def world1_run(torch, cfg_dict, device, model_kwargs=None):
+    """A world-1 run of a gang's cell in this process → (result, trainer,
+    copies of the initial parameters on the device, of the final
+    ones)."""
     from kubeflow_tpu_torch.config.platform import TrainingConfig
-    from kubeflow_tpu_torch.models.registry import get_model
-    from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.runtime.train_run import run_training
     from kubeflow_tpu_torch.training.trainer import Trainer
 
+    cfg = TrainingConfig(**cfg_dict)
+    tr = Trainer(cfg, device=device, model_kwargs=model_kwargs)
+    init = device_params(tr.init_state().model)
+    res = run_training(cfg, device=device, trainer=tr, log_every=cfg.steps)
+    return res, tr, init, device_params(tr._final_state.model)
+
+
+def world1_cell(cut):
+    """The world-1 cell of a gang's config cut: its mesh one device, no
+    checkpoints."""
+    return dict(cut, mesh={"data": 1}, checkpoint={"enabled": False})
+
+
+def phase_sequence(torch, gang, device="cuda", ring_cost=None):
+    """Phase 19: 19a the ring and 19b Ulysses over `mesh: {sequence:
+    ranks}` as gloo ranks on the one card (`gang`: phase_gangs' "seq"
+    entry), against world 1 in this process; 19c one ring rank's cost
+    (`ring_cost`: phase_ring_cost's keyword overrides). → each flash
+    kernel's launches over 19a-19c."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
     t19 = time.monotonic()
     smi = smi_line() if device == "cuda" else "the CPU"
-    base = {**SEQ_CFG, **(overrides or {})}
-    cfg1 = TrainingConfig(**dict(base, attention_impl="flash"))
-    layers = get_model(cfg1.model, device="meta", max_len=1).cfg.num_layers
+    root, plan, reports = gang
+    ranks = plan[0][0]["mesh"]["sequence"]
     # world 1: the function the ring and Ulysses compute, over every
     # position at once
-    tr1 = Trainer(cfg1, device=device)
-    one = run_training(cfg1, device=device, trainer=tr1,
-                       log_every=cfg1.steps)
+    one, tr1, init, one_params = world1_run(
+        torch, dict(plan[0][0], attention_impl="flash", mesh={"data": 1}),
+        device)
+    cfg1, layers = tr1.cfg, tr1.model.cfg.num_layers
     one_losses = [loss for _, loss in one["losses"]]
     del tr1
     if device == "cuda":
         torch.cuda.empty_cache()
-    hosts = (["127.0.0.1", "localhost"] + ["127.0.0.1"] * (ranks - 2)
-             if device == "cuda" else ["127.0.0.1"] * ranks)
-    job = {} if device == "cuda" else {"device": "cpu"}
     total = {name: 0 for name in fa.launch_counts}
     steps, r = cfg1.steps, 2 if cfg1.remat else 1
-    with tempfile.TemporaryDirectory(prefix="kft-seq-") as root:
-        for tag, impl in (("19a", "ring"), ("19b", "ulysses")):
-            cfg = dict(base, attention_impl=impl, mesh={"sequence": ranks})
-            outs = run_gang(torch, f"seq_{impl}", cfg, ranks, mode="trainer",
-                            hosts=hosts, root=root, backend="gloo", **job)
-            reps = [rep for _, rep in outs]
-            losses = [loss for _, loss in reps[0]["result"]["losses"]]
-            arrays = [torch.load(os.path.join(root, f"seq_{impl}.{i}.pt"))
-                      for i in range(ranks)]
-            same = ranks_equal(torch, arrays)
-            del arrays
-            gap = max(_rel(a, b) for a, b in zip(losses, one_losses))
-            launches = [rep["launches"] for rep in reps]
-            # ring rank i: i + 1 visible blocks a layer; Ulysses: one
-            # full-sequence call a layer on every rank
-            blocks = [i + 1 if impl == "ring" else 1 for i in range(ranks)]
-            want = [{"flash_fwd": steps * layers * nb * r,
-                     "flash_bwd_dq": steps * layers * nb,
-                     "flash_bwd_dkv": steps * layers * nb} for nb in blocks]
-            step_ms = [rep["result"]["step_time_s"] * 1e3 for rep in reps]
-            print(f"seq {tag} ({smi}): {cfg1.model} {cfg1.dtype} seq "
-                  f"{cfg1.seq_len} global batch {cfg1.global_batch_size} by "
-                  f"{impl} on {ranks} ranks over {reps[0]['backend']} "
-                  f"({[rep['device'] for rep in reps]}): losses {losses} "
-                  f"against world 1's {one_losses} (worst rel {gap:.3e}, "
-                  f"bound {GANG_LOSS_REL:g}); weights equal across the "
-                  f"ranks: {same}; flash launches a rank {launches} "
-                  f"(formula {want}); step ms a rank {step_ms} (the ranks "
-                  f"share the card)", flush=True)
-            if any(rep["result"]["losses"] != reps[0]["result"]["losses"]
-                   for rep in reps):
-                raise AssertionError(f"{tag}: the ranks' losses differ")
-            if len(losses) != steps or not gap <= GANG_LOSS_REL:
-                raise AssertionError(f"{tag}: losses {losses} vs {one_losses}")
-            if not same:
-                raise AssertionError(f"{tag}: the ranks' weights differ")
-            if device == "cuda" and launches != want:
-                raise AssertionError(f"{tag}: launches {launches} != {want}")
-            for rep in reps:
-                for name, count in rep["launches"].items():
-                    total[name] += count
+    for (tag, impl), reps in zip(SEQ_IMPLS, reports):
+        losses = [loss for _, loss in reps[0]["result"]["losses"]]
+        arrays = [torch.load(os.path.join(root, f"seq_{impl}.{i}.pt"),
+                             map_location=device) for i in range(ranks)]
+        same = ranks_equal(torch, arrays)
+        gate, held = update_gate(arrays[0]["params"], one_params, init)
+        del arrays
+        gap = max(_rel(a, b) for a, b in zip(losses, one_losses))
+        launches = [rep["launches"] for rep in reps]
+        # ring rank i: i + 1 visible blocks a layer; Ulysses: one
+        # full-sequence call a layer on every rank
+        blocks = [i + 1 if impl == "ring" else 1 for i in range(ranks)]
+        want = [{"flash_fwd": steps * layers * nb * r,
+                 "flash_bwd_dq": steps * layers * nb,
+                 "flash_bwd_dkv": steps * layers * nb} for nb in blocks]
+        step_ms = [rep["result"]["step_time_s"] * 1e3 for rep in reps]
+        print(f"seq {tag} ({smi}): {cfg1.model} {cfg1.dtype} seq "
+              f"{cfg1.seq_len} global batch {cfg1.global_batch_size} by "
+              f"{impl} on {ranks} ranks over {reps[0]['backend']} "
+              f"({[rep['device'] for rep in reps]}): losses {losses} "
+              f"against world 1's {one_losses} (worst rel {gap:.3e}, "
+              f"bound {GANG_LOSS_REL:g}); weights equal across the "
+              f"ranks: {same}; {gate}; flash launches a rank {launches} "
+              f"(formula {want}); step ms a rank {step_ms} (the ranks "
+              f"share the card)", flush=True)
+        if any(rep["result"]["losses"] != reps[0]["result"]["losses"]
+               for rep in reps):
+            raise AssertionError(f"{tag}: the ranks' losses differ")
+        if len(losses) != steps or not gap <= GANG_LOSS_REL:
+            raise AssertionError(f"{tag}: losses {losses} vs {one_losses}")
+        if not same:
+            raise AssertionError(f"{tag}: the ranks' weights differ")
+        if not held:
+            raise AssertionError(f"{tag}: {gate}")
+        if device == "cuda" and launches != want:
+            raise AssertionError(f"{tag}: launches {launches} != {want}")
+        for rep in reps:
+            for name, count in rep["launches"].items():
+                total[name] += count
+    del init, one_params
     for name, count in phase_ring_cost(torch, device=device,
                                        **(ring_cost or {})).items():
         total[name] += count
@@ -4706,8 +4921,8 @@ def one_card_hosts(ranks):
 def moe_config_cut(root, overrides=None):
     """20a's cell: configs/gpt_moe_v5e16.yaml's `training` block, loaded
     as it is (`TrainingConfig.from_dict` must take it unedited), cut to
-    one data shard of it (module constants EXPERT_*). → (the gang's
-    config dict, the world-1 config dict)."""
+    one data shard of it (module constants EXPERT_*). → the gang's
+    config dict."""
     from kubeflow_tpu_torch.config.platform import TrainingConfig
     from kubeflow_tpu_torch.runtime.launcher import load_spec
 
@@ -4720,8 +4935,7 @@ def moe_config_cut(root, overrides=None):
     cut["checkpoint"] = dict(training["checkpoint"], directory=os.path.join(
         root, "ckpt"), interval_steps=EXPERT_SAVE)
     cut.update(overrides or {})
-    one = dict(cut, mesh={"data": 1}, checkpoint={"enabled": False})
-    return cut, one
+    return cut
 
 
 def expert_gang_report(tag, reps, one_losses, steps, smi):
@@ -4752,144 +4966,398 @@ def expert_gang_report(tag, reps, one_losses, steps, smi):
     return losses
 
 
-def phase_expert(torch, device="cuda", overrides=None, seq_overrides=None,
-                 ranks=EXPERT_RANKS):
+def expert_plan(root, overrides=None, seq_overrides=None):
+    """20a's and 20b's gang runs, (config, run options) each: (20a's,
+    20b's; rank 0's final weights saved)."""
+    cut = moe_config_cut(root, overrides)
+    return ((cut, {"digests": True, "digest_step": EXPERT_SAVE}),
+            ({**EXPERT_SEQ_CFG, **(seq_overrides or {})},
+             {"digests": True, "out": os.path.join(root, "expert_seq"),
+              "out_ranks": [0]}))
+
+
+def phase_expert(torch, gang, device="cuda"):
     """Phase 20: 20a configs/gpt_moe_v5e16.yaml's expert layout on one
     data shard (`mesh: {expert: ranks}`, gloo ranks on the one card)
     against world 1 in this process; 20b MoE under a sequence axis; 20c
-    20a's checkpoint restored at world 1. → each flash kernel's launches
-    over the 20a and 20b gangs."""
+    20a's checkpoint restored at world 1. `gang`: phase_gangs' "expert"
+    entry. → each flash kernel's launches over the 20a and 20b gangs."""
+    from kubeflow_tpu_torch.checkpointing import layout as ck_layout
     from kubeflow_tpu_torch.checkpointing import restore_latest
-    from kubeflow_tpu_torch.config.platform import TrainingConfig
     from kubeflow_tpu_torch.ops import flash_attention as fa
-    from kubeflow_tpu_torch.runtime.train_run import run_training
-    from kubeflow_tpu_torch.training.trainer import Trainer
 
     t20 = time.monotonic()
     cuda = device == "cuda"
     smi = smi_line() if cuda else "the CPU"
-    job = {} if cuda else {"device": "cpu"}
     total = {name: 0 for name in fa.launch_counts}
-
-    def world1(cfg_dict):
-        """→ (losses, state bytes, layers, the trainer)."""
-        cfg = TrainingConfig(**cfg_dict)
-        tr = Trainer(cfg, device=device)
-        res = run_training(cfg, device=device, trainer=tr,
-                           log_every=cfg.steps)
-        return ([loss for _, loss in res["losses"]], state_bytes(
-            tr._final_state), tr.model.cfg.num_layers, tr)
-
-    with tempfile.TemporaryDirectory(prefix="kft-expert-") as root:
-        cut, one = moe_config_cut(root, overrides)
-        steps, r = cut["steps"], 2 if cut.get("remat") else 1
-        one_losses, one_bytes, layers, tr = world1(one)
-        hosts = one_card_hosts(ranks) if cuda else ["127.0.0.1"] * ranks
-        outs = run_gang(torch, "expert", cut, ranks, mode="trainer",
-                        hosts=hosts, root=root, backend="gloo", digests=True,
-                        digest_step=EXPERT_SAVE, **job)
-        reps = [rep for _, rep in outs]
-        losses = expert_gang_report("20a", reps, one_losses, steps, smi)
-        a = cut.get("accum_steps", 1)
-        want = {"flash_fwd": steps * layers * a * r,
-                "flash_bwd_dq": steps * layers * a,
-                "flash_bwd_dkv": steps * layers * a}
-        print(f"expert 20a: {cut['model']} {cut['dtype']} seq "
-              f"{cut.get('seq_len')} global batch {cut['global_batch_size']} "
-              f"on mesh {cut['mesh']}; world 1's state bytes {one_bytes}; a "
-              f"rank's {[rep['bytes'] for rep in reps]} (stacks: a quarter "
-              f"of world 1's each); flash launches formula a rank {want}",
-              flush=True)
-        for rep in reps:
-            if rep["bytes"]["stacks"] * ranks != one_bytes["stacks"]:
-                raise AssertionError(
-                    f"20a: rank {rep['rank']} holds {rep['bytes']['stacks']} "
-                    f"B of stacks, not 1/{ranks} of world 1's "
-                    f"{one_bytes['stacks']}")
-            if cuda and rep["launches"] != want:
-                raise AssertionError(f"20a: rank {rep['rank']} launches "
-                                     f"{rep['launches']} != {want}")
-            for name, count in rep["launches"].items():
-                total[name] += count
-        # 20c: world 1 restores the gang's step-EXPERT_SAVE checkpoint
-        # (each stack's blocks written by its rank) and resumes from it
-        from kubeflow_tpu_torch.checkpointing import layout as ck_layout
-
-        # (into world 1's own trainer: its state is overwritten in place)
-        ckpt = cut["checkpoint"]["directory"]
-        tr.losses.clear()
-        state = restore_latest(ckpt, tr._final_state, step=EXPERT_SAVE)
-        by_block = {rep["coords"]["expert"]: rep for rep in reps}
-        joined = {}
-        for name, p in state.model.named_parameters():
-            if is_stack(name):
-                n = p.shape[0] // ranks
-                joined[name] = all(
-                    digest(torch, p[x * n:(x + 1) * n])
-                    == by_block[x]["blocks_at"][name] for x in range(ranks))
-        tr.fit(steps=steps - EXPERT_SAVE, state=state, log_every=steps)
-        resumed = [loss for _, loss in tr.losses]
-        gap_c = max(_rel(x, y) for x, y in zip(resumed, losses[EXPERT_SAVE:]))
-        manifest = ck_layout.read_manifest(ck_layout.step_dir(ckpt,
-                                                              EXPERT_SAVE))
-        shards = {e["key"]: len(e["shards"]) for e in manifest["leaves"]
-                  if e["key"].endswith(("moe/wi", "moe/wo"))}
-        print(f"expert 20c ({smi}): the step-{EXPERT_SAVE} checkpoint of "
-              f"{manifest['process_count']} processes, each stack in "
-              f"{sorted(set(shards.values()))} block(s) over {len(shards)} "
-              f"stack leaves, restored at world 1: stacks equal the ranks' "
-              f"blocks joined, bit for bit: {all(joined.values())}; resumed "
-              f"to losses {resumed} against the gang's {losses[EXPERT_SAVE:]} "
-              f"(worst rel {gap_c:.3e})", flush=True)
-        del tr, state
-        if cuda:
-            torch.cuda.empty_cache()
-        if not joined or not all(joined.values()):
-            raise AssertionError(f"20c: stacks differ from the blocks: "
-                                 f"{[k for k, v in joined.items() if not v]}")
-        if set(shards.values()) != {ranks}:
-            raise AssertionError(f"20c: stacks not written in {ranks} blocks: "
-                                 f"{shards}")
-        if len(resumed) != steps - EXPERT_SAVE or not gap_c <= GANG_LOSS_REL:
-            raise AssertionError(f"20c: resumed losses {resumed}")
+    root, plan, (reps, seq_reps) = gang
+    cut = plan[0][0]
+    ranks = cut["mesh"]["expert"]
+    steps, r = cut["steps"], 2 if cut.get("remat") else 1
+    res, tr, _, _ = world1_run(torch, world1_cell(cut), device)
+    one_losses = [loss for _, loss in res["losses"]]
+    one_bytes, layers = state_bytes(tr._final_state), tr.model.cfg.num_layers
+    losses = expert_gang_report("20a", reps, one_losses, steps, smi)
+    a = cut.get("accum_steps", 1)
+    want = {"flash_fwd": steps * layers * a * r,
+            "flash_bwd_dq": steps * layers * a,
+            "flash_bwd_dkv": steps * layers * a}
+    print(f"expert 20a: {cut['model']} {cut['dtype']} seq "
+          f"{cut.get('seq_len')} global batch {cut['global_batch_size']} "
+          f"on mesh {cut['mesh']}; world 1's state bytes {one_bytes}; a "
+          f"rank's {[rep['bytes'] for rep in reps]} (stacks: a quarter "
+          f"of world 1's each); flash launches formula a rank {want}",
+          flush=True)
+    for rep in reps:
+        if rep["bytes"]["stacks"] * ranks != one_bytes["stacks"]:
+            raise AssertionError(
+                f"20a: rank {rep['rank']} holds {rep['bytes']['stacks']} "
+                f"B of stacks, not 1/{ranks} of world 1's "
+                f"{one_bytes['stacks']}")
+        if cuda and rep["launches"] != want:
+            raise AssertionError(f"20a: rank {rep['rank']} launches "
+                                 f"{rep['launches']} != {want}")
+        for name, count in rep["launches"].items():
+            total[name] += count
+    # 20c: world 1 restores the gang's step-EXPERT_SAVE checkpoint (each
+    # stack's blocks written by its rank) into its own trainer (its state
+    # is overwritten in place) and resumes from it
+    ckpt = cut["checkpoint"]["directory"]
+    tr.losses.clear()
+    state = restore_latest(ckpt, tr._final_state, step=EXPERT_SAVE)
+    by_block = {rep["coords"]["expert"]: rep for rep in reps}
+    joined = {}
+    for name, p in state.model.named_parameters():
+        if is_stack(name):
+            n = p.shape[0] // ranks
+            joined[name] = all(
+                digest(torch, p[x * n:(x + 1) * n])
+                == by_block[x]["blocks_at"][name] for x in range(ranks))
+    tr.fit(steps=steps - EXPERT_SAVE, state=state, log_every=steps)
+    resumed = [loss for _, loss in tr.losses]
+    gap_c = max(_rel(x, y) for x, y in zip(resumed, losses[EXPERT_SAVE:]))
+    manifest = ck_layout.read_manifest(ck_layout.step_dir(ckpt,
+                                                          EXPERT_SAVE))
+    shards = {e["key"]: len(e["shards"]) for e in manifest["leaves"]
+              if e["key"].endswith(("moe/wi", "moe/wo"))}
+    print(f"expert 20c ({smi}): the step-{EXPERT_SAVE} checkpoint of "
+          f"{manifest['process_count']} processes, each stack in "
+          f"{sorted(set(shards.values()))} block(s) over {len(shards)} "
+          f"stack leaves, restored at world 1: stacks equal the ranks' "
+          f"blocks joined, bit for bit: {all(joined.values())}; resumed "
+          f"to losses {resumed} against the gang's {losses[EXPERT_SAVE:]} "
+          f"(worst rel {gap_c:.3e})", flush=True)
+    del tr, state
+    if cuda:
+        torch.cuda.empty_cache()
+    if not joined or not all(joined.values()):
+        raise AssertionError(f"20c: stacks differ from the blocks: "
+                             f"{[k for k, v in joined.items() if not v]}")
+    if set(shards.values()) != {ranks}:
+        raise AssertionError(f"20c: stacks not written in {ranks} blocks: "
+                             f"{shards}")
+    if len(resumed) != steps - EXPERT_SAVE or not gap_c <= GANG_LOSS_REL:
+        raise AssertionError(f"20c: resumed losses {resumed}")
     # 20b: MoE under a sequence axis (the router logits gathered over the
     # ring, each rank routing whole rows)
-    with tempfile.TemporaryDirectory(prefix="kft-expert-seq-") as root:
-        base = {**EXPERT_SEQ_CFG, **(seq_overrides or {})}
-        one_losses, _, layers, tr = world1(dict(
-            base, attention_impl="flash", mesh={"data": 1}))
-        del tr
-        if cuda:
-            torch.cuda.empty_cache()
-        seq_ranks = base["mesh"]["sequence"]
-        hosts = (one_card_hosts(seq_ranks) if cuda
-                 else ["127.0.0.1"] * seq_ranks)
-        outs = run_gang(torch, "expert_seq", base, seq_ranks, mode="trainer",
-                        hosts=hosts, root=root, backend="gloo", digests=True,
-                        **job)
-        reps = [rep for _, rep in outs]
-        steps, r = base["steps"], 2 if base.get("remat") else 1
-        expert_gang_report("20b", reps, one_losses, steps, smi)
-        want = [{"flash_fwd": steps * layers * (i + 1) * r,
-                 "flash_bwd_dq": steps * layers * (i + 1),
-                 "flash_bwd_dkv": steps * layers * (i + 1)}
-                for i in range(seq_ranks)]
-        got = [rep["launches"] for rep in reps]
-        print(f"expert 20b: {base['model']} {base['dtype']} seq "
-              f"{base['seq_len']} global batch {base['global_batch_size']} "
-              f"by ring on mesh {base['mesh']}; flash launches {got} "
-              f"(formula {want})", flush=True)
-        if cuda and got != want:
-            raise AssertionError(f"20b: launches {got} != {want}")
-        for rep in reps:
-            for name, count in rep["launches"].items():
-                total[name] += count
+    base, opts = plan[1]
+    res, tr, init, one_params = world1_run(torch, dict(
+        base, attention_impl="flash", mesh={"data": 1}), device)
+    one_losses = [loss for _, loss in res["losses"]]
+    layers = tr.model.cfg.num_layers
+    del tr
+    if cuda:
+        torch.cuda.empty_cache()
+    seq_ranks = base["mesh"]["sequence"]
+    steps, r = base["steps"], 2 if base.get("remat") else 1
+    expert_gang_report("20b", seq_reps, one_losses, steps, smi)
+    gate, held = update_gate(
+        torch.load(f"{opts['out']}.0.pt", map_location=device)["params"],
+        one_params, init, apart=("moe.router", "moe.wi", "moe.wo"))
+    del init, one_params
+    want = [{"flash_fwd": steps * layers * (i + 1) * r,
+             "flash_bwd_dq": steps * layers * (i + 1),
+             "flash_bwd_dkv": steps * layers * (i + 1)}
+            for i in range(seq_ranks)]
+    got = [rep["launches"] for rep in seq_reps]
+    print(f"expert 20b: {base['model']} {base['dtype']} seq "
+          f"{base['seq_len']} global batch {base['global_batch_size']} "
+          f"by ring on mesh {base['mesh']}; rank 0's {gate}; flash "
+          f"launches {got} (formula {want})", flush=True)
+    if not held:
+        raise AssertionError(f"20b: rank 0's {gate}")
+    if cuda and got != want:
+        raise AssertionError(f"20b: launches {got} != {want}")
+    for rep in seq_reps:
+        for name, count in rep["launches"].items():
+            total[name] += count
     print(f"phase 20: {time.monotonic() - t20:.3f} s; flash launches "
           f"{total}", flush=True)
     return total
 
 
+def pipeline_config_cut(root, overrides=None):
+    """21a's cell: configs/gpt_pipeline_1f1b_v5e16.yaml's `training`
+    block, loaded as it is (`TrainingConfig.from_dict` must take it
+    unedited), cut to one data shard of it (PIPELINE_CUT). → the gang's
+    config dict."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.runtime.launcher import load_spec
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    training = load_spec(os.path.join(here, PIPELINE_CONFIG))
+    full = TrainingConfig.from_dict(training)
+    if (full.mesh.pipeline, full.pipeline_schedule) != (4, "1f1b"):
+        raise AssertionError(f"{PIPELINE_CONFIG}: mesh {full.mesh}, "
+                             f"schedule {full.pipeline_schedule}")
+    cut = dict(training, **PIPELINE_CUT)
+    cut["global_batch_size"] = full.global_batch_size // full.mesh.data
+    cut["mesh"] = {"pipeline": full.mesh.pipeline}
+    cut["checkpoint"] = dict(training["checkpoint"], directory=os.path.join(
+        root, "ckpt"), interval_steps=PIPELINE_SAVE)
+    cut.update(overrides or {})
+    return cut
+
+
+def stage_param_bytes(mcfg, stage, stages):
+    """f32 bytes of a GPT pipeline stage's parameters, from the config's
+    widths alone: its L/S layers (q, k, v and out with biases, two
+    LayerNorms, the MLP), the two embeddings on stage 0, the final
+    LayerNorm and the head on the last."""
+    d, f, v = mcfg.hidden_size, mcfg.mlp_dim, mcfg.vocab_size
+    n = mcfg.num_layers // stages * (4 * d * d + 2 * d * f + 9 * d + f)
+    if stage == 0:
+        n += v * d + mcfg.max_len * d
+    if stage == stages - 1:
+        n += 2 * d + d * v
+    return 4 * n
+
+
+def pipeline_plan(root, overrides=None, model_kwargs=None):
+    """21a's and 21b's gang runs, (config, run options) each: 21a, then
+    one step at M = PIPELINE_WIDE_M under GPipe and under 1F1B."""
+    cut = pipeline_config_cut(root, overrides)
+    kw = dict(model_kwargs or {})
+    runs = [(cut, {"model_kwargs": kw, "digest_step": PIPELINE_SAVE,
+                   "out": os.path.join(root, "final")})]
+    for schedule in ("gpipe", "1f1b"):
+        runs.append((dict(cut, steps=1, pipeline_schedule=schedule,
+                          checkpoint={"enabled": False}),
+                     {"model_kwargs": dict(
+                         kw, num_microbatches=PIPELINE_WIDE_M)}))
+    return runs
+
+
+def phase_pipeline(torch, gang, device="cuda"):
+    """Phase 21: 21a configs/gpt_pipeline_1f1b_v5e16.yaml's pipeline axis on
+    one data shard (`mesh: {pipeline: 4}`, four gloo ranks on the one
+    card, 1f1b) against world 1 in this process; 21b the same ranks at
+    M = PIPELINE_WIDE_M under each schedule; 21c 21a's checkpoint restored
+    at world 1. `gang`: phase_gangs' "pipeline" entry. → each flash
+    kernel's launches over 21a's ranks."""
+    from kubeflow_tpu_torch.checkpointing import layout as ck_layout
+    from kubeflow_tpu_torch.checkpointing import restore_latest
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    t21 = time.monotonic()
+    cuda = device == "cuda"
+    smi = smi_line() if cuda else "the CPU"
+    total = {name: 0 for name in fa.launch_counts}
+    root, plan, reps = gang
+    cut, kw = plan[0][0], plan[0][1]["model_kwargs"]
+    ranks, steps = cut["mesh"]["pipeline"], cut["steps"]
+    # world 1: the same cell without the pipeline axis
+    res, tr, init, one_params = world1_run(torch, world1_cell(cut), device,
+                                           model_kwargs=kw)
+    one_losses = [loss for _, loss in res["losses"]]
+    mcfg = tr.model.cfg
+    by_stage = {rep["stage"]: [run[r] for run in reps]
+                for r, rep in enumerate(reps[0])}
+    a = [by_stage[s][0] for s in range(ranks)]
+    losses = [loss for _, loss in a[0]["result"]["losses"]]
+    gap = max(_rel(x, y) for x, y in zip(losses, one_losses))
+    m = a[0]["microbatches"]
+    per = mcfg.num_layers // ranks
+    r = 2 if cut.get("remat") else 1
+    want = {"flash_fwd": steps * per * m * r,
+            "flash_bwd_dq": steps * per * m,
+            "flash_bwd_dkv": steps * per * m}
+    got_bytes = [rep["bytes"]["params"] for rep in a]
+    want_bytes = [stage_param_bytes(mcfg, s, ranks) for s in range(ranks)]
+    joined = {}
+    for s in range(ranks):
+        joined.update(torch.load(os.path.join(root, f"final.{s}.pt"),
+                                 map_location=device)["params"])
+    gate, held = update_gate(joined, one_params, init)
+    del joined, init, one_params
+    step_ms = [rep["result"]["step_time_s"] * 1e3 for rep in a]
+    seconds = [tuple(round(v, 3) for v in run["seconds"].values())
+               for run in by_stage[0]]
+    print(f"pipeline 21a ({smi}): {cut['model']} {cut['dtype']} seq "
+          f"{mcfg.max_len} global batch {cut['global_batch_size']} on "
+          f"mesh {cut['mesh']}, {a[0]['schedule']} over M = {m}: losses "
+          f"{losses} against world 1's {one_losses} (worst rel "
+          f"{gap:.3e}, bound {GANG_LOSS_REL:g}); the stage blocks joined: "
+          f"{gate}; parameter bytes a stage {got_bytes} (formula "
+          f"{want_bytes}); flash launches a stage "
+          f"{[rep['launches'] for rep in a]} (formula {want}); live "
+          f"microbatches a stage {[rep['live'] for rep in a]}; step ms a "
+          f"stage {step_ms} (a record, not a speed: the ranks share the "
+          f"card and gloo stages each transfer through the host); "
+          f"max_memory_allocated a stage "
+          f"{[rep['max_memory_allocated'] for rep in a]} B; stage 0's "
+          f"runs (build, build + run) s {seconds}", flush=True)
+    if any(rep["result"]["losses"] != a[0]["result"]["losses"] for rep in a):
+        raise AssertionError("21a: the stages' losses differ")
+    if len(losses) != steps or not gap <= GANG_LOSS_REL:
+        raise AssertionError(f"21a: losses {losses} vs {one_losses}")
+    if got_bytes != want_bytes:
+        raise AssertionError(f"21a: parameter bytes {got_bytes} != "
+                             f"{want_bytes}")
+    if not held:
+        raise AssertionError(f"21a: {gate}")
+    if [rep["live"] for rep in a] != [min(ranks - s, m)
+                                      for s in range(ranks)]:
+        raise AssertionError(f"21a: live {[rep['live'] for rep in a]}")
+    for rep in a:
+        if cuda and rep["launches"] != want:
+            raise AssertionError(f"21a: stage {rep['stage']} launches "
+                                 f"{rep['launches']} != {want}")
+        for name, count in rep["launches"].items():
+            total[name] += count
+    # 21b: M = PIPELINE_WIDE_M, one step under each schedule
+    wide = {sched: [by_stage[s][i] for s in range(ranks)]
+            for i, sched in ((1, "gpipe"), (2, "1f1b"))}
+    live = {k: [rep["live"] for rep in v] for k, v in wide.items()}
+    live_want = {"gpipe": [PIPELINE_WIDE_M] * ranks,
+                 "1f1b": [ranks - s for s in range(ranks)]}
+    mem = {k: [rep["max_memory_allocated"] for rep in v]
+           for k, v in wide.items()}
+    wide_losses = {k: v[0]["result"]["losses"] for k, v in wide.items()}
+    print(f"pipeline 21b ({smi}): M = {PIPELINE_WIDE_M}, one step: live "
+          f"microbatches a stage {live} (formula {live_want}); "
+          f"max_memory_allocated a stage {mem} B; step-1 losses "
+          f"{wide_losses}, equal bit for bit: "
+          f"{wide_losses['gpipe'] == wide_losses['1f1b']}", flush=True)
+    if live != live_want:
+        raise AssertionError(f"21b: live {live} != {live_want}")
+    if not _rel(wide_losses["1f1b"][0][1],
+                wide_losses["gpipe"][0][1]) <= GANG_LOSS_REL:
+        raise AssertionError(f"21b: losses {wide_losses}")
+    # 21c: world 1 restores the gang's step-PIPELINE_SAVE checkpoint (each
+    # stacked layer leaf written as 4 stage blocks) into its own trainer,
+    # its layers read off the stacked leaves
+    ckpt = cut["checkpoint"]["directory"]
+    tr.losses.clear()
+    state = restore_latest(ckpt, tr._final_state, step=PIPELINE_SAVE)
+    digests = {}
+    for rep in a:
+        digests.update(rep["digests_at"])
+    same = {name: digest(torch, p) == digests.get(name)
+            for name, p in state.model.named_parameters()}
+    tr.fit(steps=steps - PIPELINE_SAVE, state=state, log_every=steps)
+    resumed = [loss for _, loss in tr.losses]
+    gap_c = max(_rel(x, y) for x, y in zip(resumed, losses[PIPELINE_SAVE:]))
+    manifest = ck_layout.read_manifest(ck_layout.step_dir(
+        ckpt, PIPELINE_SAVE))
+    shards = {e["key"]: len(e["shards"]) for e in manifest["leaves"]
+              if e["key"].startswith("params/")}
+    stacked = {k: v for k, v in shards.items() if "/stages/" in k}
+    print(f"pipeline 21c ({smi}): the step-{PIPELINE_SAVE} checkpoint "
+          f"of {manifest['process_count']} processes, {len(stacked)} "
+          f"stacked layer leaves in {sorted(set(stacked.values()))} "
+          f"block(s) each, {len(shards) - len(stacked)} other leaves in "
+          f"{sorted({v for k, v in shards.items() if k not in stacked})}"
+          f"; restored at world 1: its layers are the stage blocks "
+          f"joined, bit for bit: {all(same.values())}; resumed to losses "
+          f"{resumed} against the gang's {losses[PIPELINE_SAVE:]} (worst "
+          f"rel {gap_c:.3e})", flush=True)
+    del tr, state
+    if cuda:
+        torch.cuda.empty_cache()
+    if not same or not all(same.values()):
+        raise AssertionError(
+            f"21c: leaves differ from the blocks: "
+            f"{[k for k, v in same.items() if not v][:4]}")
+    if set(stacked.values()) != {ranks} or not stacked:
+        raise AssertionError(f"21c: stacked leaves not written in "
+                             f"{ranks} blocks: {stacked}")
+    if len(resumed) != steps - PIPELINE_SAVE or not gap_c <= GANG_LOSS_REL:
+        raise AssertionError(f"21c: resumed losses {resumed}")
+    print(f"phase 21: {time.monotonic() - t21:.3f} s; flash launches "
+          f"{total}", flush=True)
+    return total
+
+
+def phase_gangs(torch, root, device="cuda", seq=None, expert=None,
+                pipeline=None):
+    """The gang runs of phases 19-21, before the phases read them. One
+    pair of rank processes runs 19a, 19b and 20b in turn, one quartet
+    21a, 21b and 20a (a rank process's start costs ~20 s, more than a
+    cell's steps; 21 before 20a, whose process kept ~1.9 GB allocated
+    after its run, which would read in 21's peaks). `seq`, `expert`,
+    `pipeline`: the keyword arguments of that phase's plan
+    (`sequence_plan`, `expert_plan`, `pipeline_plan`; {} for none), or
+    None to leave its cells out. → {"seq" | "expert" | "pipeline": (its
+    directory, its plan, its runs' reports in plan order, each the ranks'
+    reports in rank order)}, the `gang` of phase_sequence, phase_expert
+    and phase_pipeline."""
+    plans = {}
+    for name, fn, kw in (("seq", sequence_plan, seq),
+                         ("expert", expert_plan, expert),
+                         ("pipeline", pipeline_plan, pipeline)):
+        if kw is not None:
+            os.makedirs(os.path.join(root, name))
+            plans[name] = (os.path.join(root, name),
+                           list(fn(os.path.join(root, name), **kw)))
+    # (gang, world, [(phase, its plan's runs)]) in run order
+    layout = (("two", 2, [("seq", slice(0, 2)), ("expert", slice(1, 2))]),
+              ("four", 4, [("pipeline", slice(0, 3)),
+                           ("expert", slice(0, 1))]))
+    reports = {name: [None] * len(plan) for name, (_, plan) in plans.items()}
+    for gang, world, parts in layout:
+        runs, at = [], []
+        for name, cut in parts:
+            if name not in plans:
+                continue
+            plan = plans[name][1]
+            for i in range(len(plan))[cut]:
+                axes = plan[i][0]["mesh"]
+                if int(np.prod(list(axes.values()))) != world:
+                    raise AssertionError(f"gang {gang} of {world} ranks: "
+                                         f"{name} run {i} on mesh {axes}")
+                runs.append(plan[i])
+                at.append((name, i))
+        if not runs:
+            continue
+        hosts = one_card_hosts(world) if device == "cuda" else None
+        outs = run_gang_runs(torch, gang, runs, world, root, hosts=hosts,
+                             backend="gloo",
+                             **({} if device == "cuda" else {"device": "cpu"}))
+        for (name, i), reps in zip(at, outs):
+            reports[name][i] = reps
+    return {name: (path, plan, reports[name])
+            for name, (path, plan) in plans.items()}
+
+
+class PhaseClock:
+    """Seconds from one lap to the next (phases that print their own
+    seconds are timed inside), and since the start."""
+
+    def __init__(self):
+        self.start = self.last = time.monotonic()
+
+    def lap(self, label):
+        now = time.monotonic()
+        print(f"{label}: {now - self.last:.3f} s", flush=True)
+        self.last = now
+
+    def total(self):
+        return time.monotonic() - self.start
+
+
 def main() -> int:
+    clock = PhaseClock()
     import torch
 
     if not torch.cuda.is_available():
@@ -4917,8 +5385,11 @@ def main() -> int:
               f"{k} D={d} {r[0]}" for (k, d), r in sorted(report.items())),
           flush=True)
 
+    clock.lap("phases 1-2")
     records = phase_kernels(torch)
+    clock.lap("phase 3")
     f32_model = phase_serve_f32(torch)
+    clock.lap("phase 4")
     launches, bf16_stats, steps = phase_serve_bf16(torch, f32_model)
     layers = f32_model.cfg.num_layers
     del f32_model
@@ -4942,10 +5413,13 @@ def main() -> int:
             raise AssertionError(f"the main path never launched {key[0]}")
         kernels.append(rec)
     torch.cuda.empty_cache()
+    clock.lap("phase 5")
 
     flash_records, bert_records = phase_flash(torch)
+    clock.lap("phase 6")
     phase_train_f32(torch)
     torch.cuda.empty_cache()
+    clock.lap("phase 7")
     train_launches, train_result = phase_train_bf16(torch)
     for kname, rec in flash_records.items():
         rec = dict(rec)
@@ -4959,7 +5433,9 @@ def main() -> int:
         kernels.append(rec)
     torch.cuda.empty_cache()
 
+    clock.lap("phase 8")
     int8_records = phase_kernels(torch, quantized=True)
+    clock.lap("phase 9")
     int8_launches, _, int8_steps = phase_serve_int8(torch, bf16_stats)
     print(f"int8 launches per decode step: "
           f"{int8_launches['paged_decode_int8'] / max(int8_steps, 1):.2f} "
@@ -4978,6 +5454,7 @@ def main() -> int:
             raise AssertionError(f"the int8 main path never launched {key[0]}")
         kernels.append(rec)
     torch.cuda.empty_cache()
+    clock.lap("phase 10")
 
     f32_model = phase_spec_f32(torch)
     spec_launches, spec_run = phase_spec_serve(torch, f32_model, bf16_stats)
@@ -5001,6 +5478,7 @@ def main() -> int:
         if min(rec["spec_launches"], rec["small_draft_launches"]) < 1:
             raise AssertionError(f"the speculative path never launched {rec['name']}")
     torch.cuda.empty_cache()
+    clock.lap("phase 11")
 
     # this slice's path: train, preempt, resume, then serve the checkpoint
     with tempfile.TemporaryDirectory(prefix="kft-ckpt-") as root:
@@ -5017,6 +5495,7 @@ def main() -> int:
         if rec["checkpoint_launches"] < 1:
             raise AssertionError(f"the checkpoint path never launched {rec['name']}")
     torch.cuda.empty_cache()
+    clock.lap("phase 12")
 
     # this slice's path: host spill, warm restart and page handoff
     kv_launches = phase_kv_tiers(torch)
@@ -5027,6 +5506,7 @@ def main() -> int:
                 raise AssertionError(f"the KV tier path never launched "
                                      f"{rec['name']}")
     torch.cuda.empty_cache()
+    clock.lap("phase 13")
 
     # this slice's path: traced serving, faults in serving and training
     t14 = time.monotonic()
@@ -5074,25 +5554,42 @@ def main() -> int:
         if rec["moe_launches"] < 1:
             raise AssertionError(f"the MoE path never launched {rec['name']}")
     torch.cuda.empty_cache()
-    # this slice's path: sequence parallelism (19a ring, 19b Ulysses, 19c
-    # a ring rank's block loop at the config's geometry)
-    seq_launches = phase_sequence(torch)
+    clock.lap("phases 14-18")
+    with tempfile.TemporaryDirectory(prefix="kft-gangs-") as root:
+        # the gangs of phases 19-21 run first; each phase then runs its
+        # world 1 and its gates on its gang's reports
+        gangs = phase_gangs(torch, root, seq={}, expert={}, pipeline={})
+        clock.lap("the gangs of phases 19-21")
+        # this slice's path: sequence parallelism (19a ring, 19b Ulysses,
+        # 19c a ring rank's block loop at the config's geometry)
+        seq_launches = phase_sequence(torch, gangs["seq"])
+        for rec in kernels:
+            if rec["name"] in seq_launches:
+                rec["seq_launches"] = seq_launches[rec["name"]]
+                if rec["seq_launches"] < 1:
+                    raise AssertionError(f"the sequence-parallel path never "
+                                         f"launched {rec['name']}")
+        torch.cuda.empty_cache()
+        # this slice's path: the expert axis (20a, 20c) and MoE under a
+        # sequence axis (20b)
+        ep_launches = phase_expert(torch, gangs["expert"])
+        for rec in kernels:
+            if rec["name"] in ep_launches:
+                rec["ep_launches"] = ep_launches[rec["name"]]
+                if rec["ep_launches"] < 1:
+                    raise AssertionError(f"the expert-parallel path never "
+                                         f"launched {rec['name']}")
+        torch.cuda.empty_cache()
+        # this slice's path: the pipeline axis (21a; 21b and 21c beside it)
+        pp_launches = phase_pipeline(torch, gangs["pipeline"])
     for rec in kernels:
-        if rec["name"] in seq_launches:
-            rec["seq_launches"] = seq_launches[rec["name"]]
-            if rec["seq_launches"] < 1:
-                raise AssertionError(f"the sequence-parallel path never "
+        if rec["name"] in pp_launches:
+            rec["pp_launches"] = pp_launches[rec["name"]]
+            if rec["pp_launches"] < 1:
+                raise AssertionError(f"the pipeline-parallel path never "
                                      f"launched {rec['name']}")
-    torch.cuda.empty_cache()
-    # this slice's path: the expert axis (20a, 20c) and MoE under a
-    # sequence axis (20b)
-    ep_launches = phase_expert(torch)
-    for rec in kernels:
-        if rec["name"] in ep_launches:
-            rec["ep_launches"] = ep_launches[rec["name"]]
-            if rec["ep_launches"] < 1:
-                raise AssertionError(f"the expert-parallel path never "
-                                     f"launched {rec['name']}")
+    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-21, "
+          f"after the interpreter's start)", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

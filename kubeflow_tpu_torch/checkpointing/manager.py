@@ -27,9 +27,12 @@ checkpoint either package writes is read by the other:
   world size (0 and 1 without a group). A replicated leaf is process
   0's: as the JAX package writes one, it alone copies it to host memory
   and writes it whole. A leaf split over ranks comes as a `ShardedLeaf`
-  (an expert stack's block, or its AdamW moments'): the one rank that
-  writes each block (`writer`) copies and writes it with its global
-  index ranges, and the manifest lists every block. Process 0 commits
+  (an expert stack's block, a pipeline stage's slice of a stacked
+  layer leaf, or their AdamW moments'; a leaf one stage owns is one
+  whole block, and the ranks that do not hold it name it with an empty
+  block that writes and reads nothing): the one rank that writes each
+  block (`writer`) copies and writes it with its global index ranges,
+  and the manifest lists every block. Process 0 commits
   the manifest, which records the gang's `process_count`, once the
   commit barrier has seen every expected file, whoever wrote it. No
   block is gathered to one rank. Every rank restores from the shared
@@ -40,8 +43,11 @@ checkpoint either package writes is read by the other:
 A state is a nested mapping of leaves (torch tensors, numpy arrays or
 Python scalars) keyed by strings, or an object with `checkpoint_tree()`
 (the mapping to save) and `load_checkpoint_tree(tree)` (restore in
-place), as training/trainer.py's `TrainState` has. Manifest keys are the
-'/'-joined key paths.
+place), as training/trainer.py's `TrainState` has; with
+`restore_tree(entries)` too, a restore reads the tree that method makes
+from the checkpoint's manifest entries (a state that restores from
+another param layout than it saves, such as a pipelined run's).
+Manifest keys are the '/'-joined key paths.
 """
 
 from __future__ import annotations
@@ -644,7 +650,9 @@ def restore_pytree(dirpath: str, target: Any) -> Any:
     not fail a resume that a second read would satisfy."""
     def once():
         default_chaos().maybe_fail("checkpoint.restore")
-        return _restore_leaves(dirpath, _tree_of(target), "")
+        tree = (target.restore_tree(_manifest_entries(dirpath))
+                if hasattr(target, "restore_tree") else _tree_of(target))
+        return _restore_leaves(dirpath, tree, "")
 
     tree = _io_retry(once, "restore")
     if hasattr(target, "load_checkpoint_tree"):

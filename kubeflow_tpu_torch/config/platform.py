@@ -9,13 +9,17 @@ config that the port does not honour yet is absent here, so passing it
 raises (a `TypeError` from the constructor, a `ValueError` naming the
 ROADMAP item from `from_dict`): no field is accepted and silently
 ignored. `validate()` runs on construction. The port runs the `data`,
-`sequence` and `expert` axes; any other axis above 1 raises naming its
-ROADMAP item. A `sequence` axis above 1 trains an LM by ring or Ulysses
-attention over sequence shards, and its `seq_len` must divide over it.
+`sequence`, `expert` and `pipeline` axes (pipeline and sequence not
+together); any other axis above 1 raises naming its ROADMAP item. A
+`sequence` axis above 1 trains an LM by ring or Ulysses attention over
+sequence shards, and its `seq_len` must divide over it.
 An `expert` axis above 1 shards an MoE model's expert stacks, E/ep
 experts a rank: the model's `num_experts` must divide over it (the JAX
 package's GSPMD would pad the stacks; the port refuses). A dense model
-on an expert axis trains as replicas.
+on an expert axis trains as replicas. A `pipeline` axis above 1 cuts an
+LM's layers into that many stages (the model's layer count must divide
+over it), run by `pipeline_schedule` ("gpipe" or "1f1b"); the trainer
+refuses a model without stages (training/trainer.py).
 """
 
 from __future__ import annotations
@@ -28,7 +32,6 @@ from typing import Any, Dict, List, Mapping
 _UNPORTED_FIELDS = {
     "profiler_logdir": "A14 (runtime profiler)",
     "compile_cache_dir": "A14 (nothing compiles ahead in eager PyTorch)",
-    "pipeline_schedule": "A13 item 4 (pipeline parallelism)",
 }
 
 # ObservabilityConfig fields that feed the fleet collector and its SLO
@@ -60,8 +63,12 @@ MESH_AXES = ("data", "fsdp", "tensor", "pipeline", "sequence", "expert")
 _UNPORTED_MESH_AXES = {
     "fsdp": "A13 item 1 (fsdp)",
     "tensor": "A13 item 2 (tensor parallelism)",
-    "pipeline": "A13 item 4 (pipeline parallelism)",
 }
+# pairs of axes each ported alone that the port does not run together yet
+_UNPORTED_MESH_PAIRS = {
+    ("pipeline", "sequence"): "A13 item 7 (pipeline × sequence)",
+}
+PIPELINE_SCHEDULES = ("gpipe", "1f1b")
 
 DTYPES = ("float32", "bfloat16")
 DATASETS = ("synthetic", "blobs", "npz")
@@ -93,8 +100,9 @@ class MeshConfig:
     fields and check). The product of the axes is the gang's device
     count: one process per rank, one card a process
     (parallel/mesh.py `build_mesh` checks it against the world size).
-    The port runs the `data`, `sequence` and `expert` axes; any other
-    axis above 1 raises naming the ROADMAP item it waits for."""
+    The port runs the `data`, `sequence`, `expert` and `pipeline` axes
+    (a pipeline axis with a sequence axis is refused); any other axis
+    above 1 raises naming the ROADMAP item it waits for."""
 
     data: int = 1
     fsdp: int = 1
@@ -116,6 +124,10 @@ class MeshConfig:
             if getattr(self, axis) > 1:
                 raise ConfigError(f"mesh.{axis} > 1 is not ported yet: "
                                   f"ROADMAP {item}")
+        for (a, b), item in _UNPORTED_MESH_PAIRS.items():
+            if getattr(self, a) > 1 and getattr(self, b) > 1:
+                raise ConfigError(f"mesh.{a} > 1 with mesh.{b} > 1 is not "
+                                  f"ported yet: ROADMAP {item}")
 
     @property
     def num_devices(self) -> int:
@@ -354,6 +366,9 @@ class TrainingConfig:
     loss_chunk: int = 0
     assume_full_attention: bool = False
     seq_len: int = 0
+    # microbatch schedule when mesh.pipeline > 1: "gpipe" or "1f1b"
+    # (parallel/pipeline.py); ignored without a pipeline axis
+    pipeline_schedule: str = "gpipe"
     accum_steps: int = 1
     attention_impl: str = "dense"
     observability: ObservabilityConfig = dataclasses.field(
@@ -396,6 +411,11 @@ class TrainingConfig:
             )
         if self.dtype not in DTYPES:
             raise ConfigError(f"dtype must be float32|bfloat16, got {self.dtype}")
+        if self.pipeline_schedule not in PIPELINE_SCHEDULES:
+            raise ConfigError(
+                f"pipeline_schedule must be gpipe|1f1b, "
+                f"got {self.pipeline_schedule!r}"
+            )
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ConfigError(
                 f"attention_impl must be one of {ATTENTION_IMPLS}, got "

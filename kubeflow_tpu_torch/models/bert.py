@@ -54,8 +54,15 @@ their fan-in (flax's initializers). Built with `expert=` (an
 `ExpertShard`), a routed layer holds this rank's block of the experts,
 drawn as world 1 draws the whole stack.
 
-Not ported yet: `PipelinedEncoder` (`pipeline_stages > 1`, ROADMAP A13
-item 4); it raises naming its item.
+With `pipeline_stages > 1` (the JAX `PipelinedEncoder`) the layers form
+stages of L/S consecutive layers, as in models/gpt.py: built without
+`pipeline` the model runs the microbatches through every stage in turn
+on one process (each stage's output crossing in the compute dtype, the
+JAX schedule's roll), and built with `pipeline` (a `PipelineShard`) it
+holds only its stage's layers under their flat names, the embeddings
+(`tok_emb`, `pos_emb`, `seg_emb`, `ln_emb`) on stage 0 and the MLM and
+next-sentence heads on the last stage, for the training step's schedule
+(`embed`, `stage`, `heads`).
 """
 
 from __future__ import annotations
@@ -73,11 +80,16 @@ from kubeflow_tpu_torch.models.layers import (
     Dense,
     Embed,
     LayerNorm,
+    LayerStack,
     MoeCollector,
     MoeMlp,
-    draw_leaf,
+    draw_value,
     dropout,
+    held_layers,
+    microbatch_rows,
+    model_device,
     remat as remat_fn,
+    whole_model,
 )
 from kubeflow_tpu_torch.models.registry import register_model
 from kubeflow_tpu_torch.ops.attention import (
@@ -86,19 +98,17 @@ from kubeflow_tpu_torch.ops.attention import (
 )
 from kubeflow_tpu_torch.ops.flash_attention import flash_attention
 from kubeflow_tpu_torch.parallel.mesh import SequenceShard, forward_sequence
+from kubeflow_tpu_torch.parallel.pipeline import (
+    check_schedule,
+    clamp_microbatches,
+    pipeline_stage_slices,
+)
 from kubeflow_tpu_torch.parallel.ring_attention import ring_attention
 from kubeflow_tpu_torch.parallel.ulysses import ulysses_attention
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
 ATTENTION_IMPLS = ("dense", "ring", "ulysses", "flash", "auto")
 SEQUENCE_IMPLS = ("ring", "ulysses")
-# the JAX config's pipeline knobs: only their defaults are ported,
-# anything else raises naming what it waits for
-_PIPELINE = "ROADMAP A13 item 4 (PipelinedEncoder)"
-_UNPORTED_FIELDS = {
-    "pipeline_stages": (1, _PIPELINE), "num_microbatches": (0, _PIPELINE),
-    "pipeline_schedule": ("gpipe", _PIPELINE),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +126,7 @@ class BertConfig:
     # all_to_all) | "flash" | "auto"
     attention_impl: str = "dense"
     remat: bool = False
-    # the JAX package's pipeline knobs (_UNPORTED_FIELDS)
+    # pipeline parallelism (the JAX fields; models/gpt.py GptConfig)
     pipeline_stages: int = 1
     num_microbatches: int = 0
     pipeline_schedule: str = "gpipe"
@@ -132,10 +142,8 @@ class BertConfig:
                 f"unknown attention_impl {self.attention_impl!r}; known: "
                 f"{ATTENTION_IMPLS}"
             )
-        for name, (default, item) in _UNPORTED_FIELDS.items():
-            if getattr(self, name) != default:
-                raise ValueError(f"{name}={getattr(self, name)!r} is not "
-                                 f"ported yet ({item})")
+        check_schedule(self.pipeline_schedule)
+        pipeline_stage_slices(self.num_layers, self.pipeline_stages)
 
     @property
     def head_dim(self) -> int:
@@ -203,6 +211,9 @@ class EncoderLayer(nn.Module):
     `ExpertShard`) makes a routed layer this rank's block of the
     experts."""
 
+    # dropout masks a training forward draws (attention out, MLP out)
+    DROPOUT_DRAWS = 2
+
     def __init__(self, cfg: BertConfig, expert=None):
         super().__init__()
         self.attention = SelfAttention(cfg)
@@ -238,60 +249,80 @@ def _truncated_normal(shape, gen: torch.Generator) -> torch.Tensor:
 
 def init_params(model: nn.Module, seed: int) -> None:
     """flax's initializers' distributions (module docstring), from an
-    explicit CPU torch.Generator."""
+    explicit CPU torch.Generator. A pipeline stage draws every stage's
+    leaves and keeps its own: world 1's weights."""
     gen = torch.Generator().manual_seed(int(seed))
+    own = dict(model.named_modules())
     with torch.no_grad():
-        for module in model.modules():
+        for name, module in whole_model(model).named_modules():
+            mine = own.get(name)
             if isinstance(module, Dense):
                 # lecun_normal: variance_scaling(1, fan_in, truncated_normal)
                 std = math.sqrt(1.0 / module.fan_in) / 0.87962566103423978
-                module.kernel.copy_(
-                    _truncated_normal(module.kernel.shape, gen) * std)
-                if module.bias is not None:
-                    module.bias.zero_()
+                value = _truncated_normal(module.kernel.shape, gen) * std
+                if mine is not None:
+                    mine.kernel.copy_(value)
+                    if mine.bias is not None:
+                        mine.bias.zero_()
             elif isinstance(module, Embed):
                 # nn.Embed: variance_scaling(1, fan_in, normal, out_axis=0)
                 num, dim = module.embedding.shape
-                module.embedding.copy_(
-                    torch.randn((num, dim), generator=gen) / math.sqrt(dim))
+                value = torch.randn((num, dim), generator=gen) / math.sqrt(dim)
+                if mine is not None:
+                    mine.embedding.copy_(value)
             elif isinstance(module, LayerNorm):
-                module.scale.fill_(1.0)
-                module.bias.zero_()
+                if mine is not None:
+                    mine.scale.fill_(1.0)
+                    mine.bias.zero_()
             elif isinstance(module, MoeMlp):
-                module.router.copy_(
-                    torch.randn(module.router.shape, generator=gen) * 0.02)
+                value = torch.randn(module.router.shape, generator=gen) * 0.02
+                if mine is not None:
+                    mine.router.copy_(value)
                 for leaf in EXPERT_STACKS:
                     # variance_scaling(1, fan_in, truncated_normal) over
                     # [E, in, out]: the fan-in is the in axis; a sharded
                     # stack draws the whole [E, ...] and keeps its block
                     std = math.sqrt(1.0 / getattr(module, leaf).shape[-2]
                                     ) / 0.87962566103423978
-                    draw_leaf(module, leaf, lambda shape: (
+                    value = draw_value(module, leaf, lambda shape: (
                         _truncated_normal(shape, gen) * std))
+                    if mine is not None:
+                        getattr(mine, leaf).copy_(value)
 
 
 class Bert(nn.Module):
     """BERT encoder: embeddings → N post-LN layers → MLM and NSP heads.
     `expert` (an `ExpertShard` of the expert mesh axis) builds an MoE
-    model's routed layers for this rank's block of the experts."""
+    model's routed layers for this rank's block of the experts;
+    `pipeline` (a `PipelineShard`) builds this rank's pipeline stage."""
+
+    # the JAX pipelined tree's stacked module, and the model-level
+    # leaves the first and the last stage hold
+    STAGE_PREFIX = "encoder"
+    FIRST_STAGE = ("tok_emb", "pos_emb", "seg_emb", "ln_emb")
+    LAST_STAGE = ("mlm_transform", "mlm_ln", "mlm_out", "pooler", "nsp_out")
 
     def __init__(self, cfg: BertConfig, *, device: DeviceLike = None,
-                 seed: int = 0, expert=None):
+                 seed: int = 0, expert=None, pipeline=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.expert, self.pipeline = expert, pipeline
         d = cfg.hidden_size
-        self.tok_emb = Embed(cfg.vocab_size, d, cfg.dtype)
-        self.pos_emb = Embed(cfg.max_len, d, cfg.dtype)
-        self.seg_emb = Embed(cfg.type_vocab_size, d, cfg.dtype)
-        self.ln_emb = LayerNorm(d, cfg.dtype)
-        self.layers = nn.ModuleList(
-            EncoderLayer(cfg, expert) for _ in range(cfg.num_layers))
-        self.mlm_transform = Dense((d,), (d,), cfg.dtype)
-        self.mlm_ln = LayerNorm(d, cfg.dtype)
-        self.mlm_out = Dense((d,), (cfg.vocab_size,), cfg.dtype)
-        self.pooler = Dense((d,), (d,), cfg.dtype)
-        self.nsp_out = Dense((d,), (2,), torch.float32)
+        if pipeline is None or pipeline.first:
+            self.tok_emb = Embed(cfg.vocab_size, d, cfg.dtype)
+            self.pos_emb = Embed(cfg.max_len, d, cfg.dtype)
+            self.seg_emb = Embed(cfg.type_vocab_size, d, cfg.dtype)
+            self.ln_emb = LayerNorm(d, cfg.dtype)
+        self.layers = LayerStack({
+            i: EncoderLayer(cfg, expert) for i in held_layers(
+                cfg.num_layers, cfg.pipeline_stages, pipeline)})
+        if pipeline is None or pipeline.last:
+            self.mlm_transform = Dense((d,), (d,), cfg.dtype)
+            self.mlm_ln = LayerNorm(d, cfg.dtype)
+            self.mlm_out = Dense((d,), (cfg.vocab_size,), cfg.dtype)
+            self.pooler = Dense((d,), (d,), cfg.dtype)
+            self.nsp_out = Dense((d,), (2,), torch.float32)
         if dev.type != "meta":  # a meta model has shapes only
             init_params(self, seed)
         self.to(dev)
@@ -300,7 +331,7 @@ class Bert(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.mlm_out.kernel.device
+        return model_device(self)
 
     def init_params(self, seed: int) -> None:
         """The seeded init, in place (`init_params` above)."""
@@ -325,28 +356,99 @@ class Bert(nn.Module):
         `dropout_generator` (on the model's device); under `cfg.remat`
         and grad mode every layer is recomputed in the backward. An MoE
         model's layers report to `moe`."""
-        cfg = self.cfg
         b, s = input_ids.shape
-        mask = None if attention_mask is None else attention_mask.bool()
-        if token_type_ids is None:
-            token_type_ids = torch.zeros_like(input_ids)
-        impl = cfg.attention_impl
+        call = self._call(attention_mask, b, s, input_ids.device,
+                          dropout_generator, moe)
+        first = 0 if call.seq is None else call.seq.offset(s)
+        x = self.embed(input_ids, token_type_ids, first)
+        remat = self.cfg.remat and torch.is_grad_enabled()
+        if self.cfg.pipeline_stages > 1:
+            x = self._pipelined(x, call, remat)
+        else:
+            x = self._layers(x, call, remat)
+        return self.heads(x)
+
+    def _call(self, attention_mask, b: int, s: int, device,
+              dropout_generator, moe) -> _Call:
+        impl = self.cfg.attention_impl
         if impl == "auto":
-            impl = auto_attention_impl(b, s, cfg.num_heads, cfg.dtype,
-                                       device=input_ids.device)
-        seq = forward_sequence(impl, SEQUENCE_IMPLS)
-        call = _Call(mask, impl, dropout_generator, self.training, moe, seq)
-        first = 0 if seq is None else seq.offset(s)
+            impl = auto_attention_impl(b, s, self.cfg.num_heads,
+                                       self.cfg.dtype, device=device)
+        mask = None if attention_mask is None else attention_mask.bool()
+        return _Call(mask, impl, dropout_generator, self.training, moe,
+                     forward_sequence(impl, SEQUENCE_IMPLS))
+
+    def embed(self, input_ids, token_type_ids=None, first: int = 0):
+        """The embeddings and `ln_emb` (stage 0 of a pipeline) → [B, S, D]
+        in the compute dtype; positions start at `first`."""
+        s = input_ids.shape[1]
         positions = torch.arange(first, first + s,
                                  device=input_ids.device)[None, :]
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
         x = self.tok_emb(input_ids) + self.pos_emb(positions)
-        x = self.ln_emb(x + self.seg_emb(token_type_ids)).to(cfg.dtype)
-        remat = cfg.remat and torch.is_grad_enabled()
-        for layer in self.layers:
+        return self.ln_emb(x + self.seg_emb(token_type_ids)).to(
+            self.cfg.dtype)
+
+    def _layers(self, x, call: _Call, remat: bool, first: int = 0,
+                count: Optional[int] = None):
+        """x through the held layers [first, first + count) of this
+        model's run (all of them by default)."""
+        layers = list(self.layers)
+        for layer in layers[first:None if count is None else first + count]:
             if remat:
-                x = remat_fn(layer, dropout_generator, x, call)
+                x = remat_fn(layer, call.generator, x, call)
             else:
                 x = layer(x, call)
+        return x
+
+    def _pipelined(self, x, call: _Call, remat: bool):
+        """The stages in turn on one process, microbatch by microbatch
+        (the JAX `PipelinedEncoder`'s math; models/gpt.py `_pipelined`)."""
+        if self.pipeline is not None:
+            raise ValueError(
+                f"this model holds pipeline stage {self.pipeline.rank} of "
+                f"{self.pipeline.size}: the training step's schedule drives "
+                f"it (embed, stage, heads)")
+        cfg = self.cfg
+        per, stages = pipeline_stage_slices(cfg.num_layers,
+                                            cfg.pipeline_stages)
+        b = x.shape[0]
+        m = clamp_microbatches(cfg.num_microbatches, stages, b)
+        rows = b // m
+        gen = call.generator
+        state = None if gen is None else gen.get_state()
+        outs = []
+        for j in range(m):
+            if gen is not None:
+                gen.set_state(state)
+            sub = dataclasses.replace(call, mask=None if call.mask is None
+                                      else call.mask[j * rows:(j + 1) * rows])
+            h = x[j * rows:(j + 1) * rows]
+            with microbatch_rows(j * rows, b):
+                for s in range(stages):
+                    h = self._layers(h, sub, remat, s * per, per)
+                    if s < stages - 1:
+                        h = h.to(cfg.dtype)
+            outs.append(h)
+        return torch.cat(outs)
+
+    # -- a pipeline stage's parts (training/trainer.py runs them) ------------
+
+    def stage(self, x, attention_mask=None,
+              dropout_generator: Optional[torch.Generator] = None,
+              moe: Optional[MoeCollector] = None):
+        """x through this model's layers (a stage's run), remat and
+        dropout as in `forward` (f32 out of every layer)."""
+        b, s = x.shape[:2]
+        call = self._call(attention_mask, b, s, x.device, dropout_generator,
+                          moe)
+        return self._layers(x, call, self.cfg.remat and
+                            torch.is_grad_enabled())
+
+    def heads(self, x) -> Dict[str, torch.Tensor]:
+        """The last stage: the MLM and next-sentence heads on the final
+        hidden states (`forward`'s dict)."""
         h = F.gelu(self.mlm_transform(x), approximate="tanh")
         logits = self.mlm_out(self.mlm_ln(h)).float()
         pooled = torch.tanh(self.pooler(x[:, 0]))
@@ -361,8 +463,10 @@ def _build(defaults: dict, kwargs: dict) -> Bert:
     device = kwargs.pop("device", None)
     seed = kwargs.pop("seed", 0)
     expert = kwargs.pop("expert", None)
+    pipeline = kwargs.pop("pipeline", None)
     cfg = BertConfig(**{**defaults, **kwargs})
-    return Bert(cfg, device=device, seed=seed, expert=expert)
+    return Bert(cfg, device=device, seed=seed, expert=expert,
+                pipeline=pipeline)
 
 
 @register_model("bert_base")

@@ -23,9 +23,18 @@ BatchNorm running averages are the flax `batch_stats` collection
 (checkpointing/quantize.py `quantize_params_int8`) across with its int8
 values and f32 scales unchanged.
 
+The JAX pipelined models' layout (`PipelinedDecoder` / `PipelinedEncoder`)
+stacks each stage's j-th layer on a leading [S] axis under
+`decoder/stages/layer_<j>/...` (BERT: `encoder/stages/...`): stage s's
+j-th layer is the port's `layers.<s·L/S + j>`. `params_from_jax` reads
+it, `params_to_jax(sd, layout=StageLayout(...))` writes it, and
+`StageLayout.path` names one leaf in it.
+
 `load_jax_params` loads a flax tree into a model in place; a model
 built for one expert-axis rank (models/layers.py `MoeMlp`'s `expert`)
-keeps its block of each whole [E, ...] expert stack.
+keeps its block of each whole [E, ...] expert stack, and a model built
+for one pipeline stage keeps its stage's layers (and the model-level
+leaves its stage holds).
 
 `params_to_jax` is the inverse of `params_from_jax`: a state dict → a
 flat `{flax path: np.ndarray}` ('/'-joined, e.g.
@@ -37,8 +46,10 @@ dtype becomes f32, as in `params_from_jax`.
 
 from __future__ import annotations
 
+import dataclasses
 import re
-from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -66,14 +77,56 @@ def _as_array(leaf) -> np.ndarray:
     return arr.copy() if arr.dtype == np.int8 else arr.astype(np.float32)
 
 
+# the JAX pipelined models' stacked modules
+STAGE_PREFIXES = ("decoder", "encoder")
+
+
+@dataclasses.dataclass(frozen=True)
+class StageLayout:
+    """The JAX pipelined param layout: `<prefix>/stages/layer_<j>/...`
+    leaves stacked [stages, ...], index s holding stage s's j-th layer
+    (the port's `layers.<s·layers_per_stage + j>`)."""
+
+    prefix: str
+    stages: int
+    layers_per_stage: int
+
+    def path(self, name: str) -> Tuple[str, Optional[int]]:
+        """(flax path, stage) of a state-dict name; the stage is None for
+        a leaf outside the layers (`jax_path`'s)."""
+        parts = name.split(".")
+        if parts[0] != "layers":
+            return jax_path(name), None
+        i = int(parts[1])
+        j, s = i % self.layers_per_stage, i // self.layers_per_stage
+        return "/".join([self.prefix, "stages", f"layer_{j}"]
+                        + parts[2:]), s
+
+
+def _stage_layers(params: Mapping) -> int:
+    """Layers a stage of a JAX pipelined tree (0: not pipelined)."""
+    js = {path[2] for path, _ in _leaves(params)
+          if len(path) > 2 and path[0] in STAGE_PREFIXES
+          and path[1] == "stages"}
+    return len(js)
+
+
 def _port_entries(path: Sequence[str], arr: np.ndarray, num_layers: int,
-                  stacked_axis: bool) -> Iterator[Tuple[str, np.ndarray]]:
+                  stacked_axis: bool, per_stage: int = 0
+                  ) -> Iterator[Tuple[str, np.ndarray]]:
     """The port's state-dict entries of one flax leaf: a scan-stacked
     leaf (`layers/block/...`) splits into one entry per layer — along
     its leading [L] axis, or, for a scale shared by every layer
-    (`stacked_axis=False`), the same array in each."""
+    (`stacked_axis=False`), the same array in each; a stage-stacked leaf
+    (`<prefix>/stages/layer_<j>/...`, `per_stage` layers a stage) into
+    one entry per stage."""
     top = path[0]
-    if top == "layers":
+    if top in STAGE_PREFIXES and len(path) > 2 and path[1] == "stages":
+        j = int(path[2][len("layer_"):])
+        rest = ".".join(path[3:])
+        for st in range(arr.shape[0]):
+            yield f"layers.{st * per_stage + j}.{rest}", arr[st]
+    elif top == "layers":
         rest = ".".join(path[2:])  # path[1] is the scanned "block"
         for i in range(num_layers):
             yield f"layers.{i}.{rest}", arr[i] if stacked_axis else arr
@@ -103,9 +156,11 @@ def params_from_jax(params: Mapping, batch_stats: Optional[Mapping] = None
     collection of a BatchNorm model) its running averages join it as the
     port's buffers."""
     n = _num_layers(params)
+    per = _stage_layers(params)
     flat: Dict[str, np.ndarray] = {}
     for path, leaf in _leaves(params):
-        flat.update(_port_entries(path, _as_array(leaf), n, stacked_axis=True))
+        flat.update(_port_entries(path, _as_array(leaf), n, stacked_axis=True,
+                                  per_stage=per))
     for path, leaf in _leaves(batch_stats or {}):
         if path[-1] not in BATCH_STAT_LEAVES:
             raise ValueError(f"batch_stats leaf {'/'.join(path)} is not a "
@@ -161,13 +216,22 @@ def jax_path(name: str) -> str:
     return "/".join(parts)
 
 
-def params_to_jax(state_dict: Mapping[str, Any], layout: str = "named"
+def params_to_jax(state_dict: Mapping[str, Any],
+                  layout: Union[str, StageLayout] = "named"
                   ) -> Dict[str, np.ndarray]:
     """State dict → flat {flax path: np.ndarray}, f32 (int8 stays int8):
-    the named layout (`layer_<i>/...`) or the scan-stacked one
+    the named layout (`layer_<i>/...`), the scan-stacked one
     (`layers/block/...`, every layer's leaf stacked on a leading [L]
-    axis). `params_from_jax` of the result gives `state_dict` back, bit for
-    bit."""
+    axis) or a `StageLayout` (the JAX pipelined tree). `params_from_jax`
+    of the result gives `state_dict` back, bit for bit."""
+    if isinstance(layout, StageLayout):
+        stacked: Dict[str, Dict[int, np.ndarray]] = {}
+        for n, v in state_dict.items():
+            path, st = layout.path(n)
+            stacked.setdefault(path, {})[st] = _as_array(v)
+        return {path: (parts[None] if None in parts else
+                       np.stack([parts[i] for i in range(layout.stages)]))
+                for path, parts in stacked.items()}
     if layout not in PARAM_LAYOUTS:
         raise ValueError(f"layout {layout!r} not in {PARAM_LAYOUTS}")
     named = {jax_path(n): _as_array(v) for n, v in state_dict.items()}
@@ -194,5 +258,9 @@ def load_jax_params(model: torch.nn.Module, params: Mapping) -> None:
     takes its block of each whole [E, ...] stack."""
     from kubeflow_tpu_torch.models.layers import expert_blocks
 
-    model.load_state_dict(expert_blocks(model, params_from_jax(params)),
-                          strict=True)
+    sd = expert_blocks(model, params_from_jax(params))
+    if getattr(model, "pipeline", None) is not None:
+        # a pipeline stage takes its own leaves of the whole tree
+        own = model.state_dict()
+        sd = {k: v for k, v in sd.items() if k in own}
+    model.load_state_dict(sd, strict=True)

@@ -57,7 +57,20 @@ that its layers report to (routed slots an expert, drops, the
 load-balance loss): the LM task and the engine pass one. Built with
 `expert=` (an `ExpertShard` of the expert mesh axis), a routed layer
 holds this rank's block of the experts, drawn as world 1 draws the
-whole stack (models/layers.py `MoeMlp`, `draw_leaf`).
+whole stack (models/layers.py `MoeMlp`, `draw_value`).
+
+With `cfg.pipeline_stages > 1` (the JAX `PipelinedDecoder`) the blocks
+form stages of L/S consecutive layers. Built without `pipeline` the model
+holds them all and `forward` runs the microbatches through the stages in
+turn on one process (the JAX schedule's math; each stage's output
+crosses in the compute dtype, and dropout draws each microbatch's rows
+of the masks the unpipelined forward draws). Built with `pipeline` (a
+`PipelineShard` of the pipeline mesh axis) it holds only its stage's
+layers, keeping their flat `layers.<i>` names so that the seeded init
+draws every layer as world 1 does, plus the embeddings on stage 0 and
+`ln_final` and `head` on the last stage; the training step drives it a
+stage at a time (`embed`, `stage`, `finish`; parallel/pipeline.py).
+The serving paths raise on a pipelined model, as the JAX module does.
 
 A model is built frozen, for serving (`requires_grad_(False)`, eval
 mode). `trainable()` turns the f32 master weights trainable: every module
@@ -80,11 +93,16 @@ from kubeflow_tpu_torch.models.layers import (
     Dense,
     Embed,
     LayerNorm,
+    LayerStack,
     MoeCollector,
     MoeMlp,
-    draw_leaf,
+    draw_value,
     dropout,
+    held_layers,
+    microbatch_rows,
+    model_device,
     remat as remat_fn,
+    whole_model,
 )
 from kubeflow_tpu_torch.models.registry import register_model
 from kubeflow_tpu_torch.ops.attention import (
@@ -102,6 +120,11 @@ from kubeflow_tpu_torch.parallel.mesh import (
     SequenceShard,
     active_sequence,
     forward_sequence,
+)
+from kubeflow_tpu_torch.parallel.pipeline import (
+    check_schedule,
+    clamp_microbatches,
+    pipeline_stage_slices,
 )
 from kubeflow_tpu_torch.parallel.ring_attention import ring_attention
 from kubeflow_tpu_torch.parallel.ulysses import ulysses_attention
@@ -137,6 +160,13 @@ class GptConfig:
     moe_top_k: int = 1
     expert_capacity_factor: float = 1.25
     moe_aux_weight: float = 0.01
+    # pipeline parallelism (the JAX fields): > 1 cuts the blocks into
+    # stages of num_layers / pipeline_stages layers, run over
+    # num_microbatches microbatches (0: one a stage) by the schedule
+    # (parallel/pipeline.py: "gpipe" | "1f1b")
+    pipeline_stages: int = 1
+    num_microbatches: int = 0
+    pipeline_schedule: str = "gpipe"
 
     def __post_init__(self):
         if self.attention_impl not in GPT_ATTENTION_IMPLS:
@@ -144,6 +174,8 @@ class GptConfig:
                 f"unknown attention_impl {self.attention_impl!r}; known: "
                 f"{GPT_ATTENTION_IMPLS}"
             )
+        check_schedule(self.pipeline_schedule)
+        pipeline_stage_slices(self.num_layers, self.pipeline_stages)
 
     @property
     def head_dim(self) -> int:
@@ -393,6 +425,9 @@ class DecoderBlock(nn.Module):
     collector (`ctx.moe`); `expert` (an `ExpertShard`) makes it this
     rank's block of the experts."""
 
+    # dropout masks a training forward draws (attention out, MLP out)
+    DROPOUT_DRAWS = 2
+
     def __init__(self, cfg: GptConfig, expert=None):
         super().__init__()
         self.dtype = cfg.dtype
@@ -436,39 +471,59 @@ def init_params(model: nn.Module, seed: int) -> None:
     """Seeded init from an explicit CPU torch.Generator (the same weights
     on every device): layernorm scales 1, biases 0, every kernel and
     embedding N(0, 0.02). A sharded expert stack draws its whole value
-    and keeps its block (`layers.draw_leaf`): world 1's weights."""
+    and keeps its block (`layers.draw_value`), and a pipeline stage
+    draws every stage's leaves and keeps its own: world 1's weights."""
     gen = torch.Generator().manual_seed(int(seed))
+    whole = whole_model(model)
+    own = dict(model.named_parameters())
     with torch.no_grad():
-        for name, p in model.named_parameters():
+        for name, p in whole.named_parameters():
             owner, _, leaf = name.rpartition(".")
-            if leaf == "scale":
-                p.fill_(1.0)
-            elif leaf == "bias":
-                p.zero_()
-            else:
-                draw_leaf(model.get_submodule(owner), leaf, lambda shape: (
-                    torch.randn(shape, generator=gen) * 0.02))
+            mine = own.get(name)
+            if leaf in ("scale", "bias"):
+                if mine is not None:
+                    mine.fill_(1.0 if leaf == "scale" else 0.0)
+                continue
+            value = draw_value(whole.get_submodule(owner), leaf,
+                               lambda shape: (
+                                   torch.randn(shape, generator=gen) * 0.02))
+            if mine is not None:
+                mine.copy_(value)
 
 
 class Gpt(nn.Module):
     """Decoder-only LM: token+position embeddings → N blocks → LM head.
     `expert` (an `ExpertShard` of the expert mesh axis) builds an MoE
-    model's routed layers for this rank's block of the experts."""
+    model's routed layers for this rank's block of the experts;
+    `pipeline` (a `PipelineShard` of the pipeline mesh axis) builds this
+    rank's stage of a pipelined model (module docstring)."""
+
+    # the JAX pipelined tree's stacked module, and the model-level
+    # leaves the first and the last stage hold
+    STAGE_PREFIX = "decoder"
+    FIRST_STAGE = ("tok_emb", "pos_emb")
+    LAST_STAGE = ("ln_final", "head")
 
     def __init__(self, cfg: GptConfig, *, device: DeviceLike = None,
-                 seed: int = 0, expert=None):
+                 seed: int = 0, expert=None, pipeline=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.tok_emb = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype)
-        self.pos_emb = Embed(cfg.max_len, cfg.hidden_size, cfg.dtype)
-        self.layers = nn.ModuleList(
-            DecoderBlock(cfg, expert) for _ in range(cfg.num_layers)
-        )
-        self.ln_final = LayerNorm(cfg.hidden_size, cfg.dtype)
-        self.head = Dense(
-            (cfg.hidden_size,), (cfg.vocab_size,), cfg.dtype, use_bias=False
-        )
+        self.expert, self.pipeline = expert, pipeline
+        first = pipeline is None or pipeline.first
+        last = pipeline is None or pipeline.last
+        if first:
+            self.tok_emb = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype)
+            self.pos_emb = Embed(cfg.max_len, cfg.hidden_size, cfg.dtype)
+        self.layers = LayerStack({
+            i: DecoderBlock(cfg, expert) for i in held_layers(
+                cfg.num_layers, cfg.pipeline_stages, pipeline)})
+        if last:
+            self.ln_final = LayerNorm(cfg.hidden_size, cfg.dtype)
+            self.head = Dense(
+                (cfg.hidden_size,), (cfg.vocab_size,), cfg.dtype,
+                use_bias=False
+            )
         # "int8" once `int8_model` has loaded an envelope
         self.quantize = "none"
         if dev.type != "meta":  # a meta model has shapes only
@@ -479,7 +534,7 @@ class Gpt(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.head.kernel.device
+        return model_device(self)
 
     def weight_bytes(self) -> int:
         """Bytes of the resident weights (parameters and int8 buffers)."""
@@ -497,33 +552,98 @@ class Gpt(nn.Module):
         self.train()
         return self
 
-    def _hidden(self, input_ids, positions, ctx, remat: bool = False):
-        """Embeddings → blocks → ln_final: f32 hidden states [B, S, D]."""
-        x = (self.tok_emb(input_ids) + self.pos_emb(positions)).to(
-            self.cfg.dtype
-        )
-        for i, block in enumerate(self.layers):
+    def _blocks(self, x, ctx, remat: bool = False, first: int = 0,
+                count: Optional[int] = None):
+        """x through the held blocks [first, first + count) of this
+        model's run (all of them by default)."""
+        blocks = self.layers.items()
+        for i, block in blocks[first:None if count is None
+                               else first + count]:
             if remat:
                 x = remat_fn(block, ctx.dropout_gen, x, ctx, i)
             else:
                 x = block(x, ctx, i)
+        return x
+
+    def _embed(self, input_ids, positions):
+        return (self.tok_emb(input_ids) + self.pos_emb(positions)).to(
+            self.cfg.dtype)
+
+    def _hidden(self, input_ids, positions, ctx, remat: bool = False):
+        """Embeddings → blocks → ln_final: f32 hidden states [B, S, D]."""
+        x = self._embed(input_ids, positions)
+        if self.cfg.pipeline_stages > 1:
+            x = self._pipelined(x, ctx, remat)
+        else:
+            x = self._blocks(x, ctx, remat)
         return self.ln_final(x)
 
-    def _attention_impl(self, input_ids) -> str:
+    def _pipelined(self, x, ctx, remat: bool):
+        """The stages in turn on one process, microbatch by microbatch
+        (the JAX `PipelinedDecoder`'s math): each stage's output crosses
+        in the compute dtype, and each microbatch's dropout masks are its
+        rows of the unpipelined forward's (the generator replayed from
+        its state at the first layer)."""
+        if self.pipeline is not None:
+            raise ValueError(
+                f"this model holds pipeline stage {self.pipeline.rank} of "
+                f"{self.pipeline.size}: the training step's schedule drives "
+                f"it (embed, stage, finish)")
+        cfg = self.cfg
+        per, stages = pipeline_stage_slices(cfg.num_layers,
+                                            cfg.pipeline_stages)
+        b = x.shape[0]
+        m = clamp_microbatches(cfg.num_microbatches, stages, b)
+        rows = b // m
+        gen = ctx.dropout_gen
+        state = None if gen is None else gen.get_state()
+        outs = []
+        for j in range(m):
+            if gen is not None:
+                gen.set_state(state)
+            sub = _Causal(None if ctx.mask is None
+                          else ctx.mask[j * rows:(j + 1) * rows],
+                          ctx.dtype, ctx.impl)
+            sub.train, sub.dropout_gen = ctx.train, gen
+            sub.moe, sub.seq = ctx.moe, ctx.seq
+            h = x[j * rows:(j + 1) * rows]
+            with microbatch_rows(j * rows, b):
+                for s in range(stages):
+                    h = self._blocks(h, sub, remat, s * per, per)
+                    if s < stages - 1:
+                        h = h.to(cfg.dtype)
+            outs.append(h)
+        return torch.cat(outs)
+
+    def _attention_impl(self, b: int, s: int, device) -> str:
         """The config's attention, "auto" resolved at this call's shape
         (`auto_attention_impl`, causal)."""
         impl = self.cfg.attention_impl
         if impl != "auto":
             return impl
-        b, s = input_ids.shape
         return auto_attention_impl(b, s, self.cfg.num_heads, self.cfg.dtype,
-                                   causal=True, device=input_ids.device)
+                                   causal=True, device=device)
 
     def _run(self, input_ids, positions, ctx, moe=None):
         _no_sequence_axis("serving")
+        if self.cfg.pipeline_stages > 1:
+            raise ValueError(
+                "pipelined decoding is not supported: serve with "
+                "pipeline_stages=1 (the KV-cache decode path has no "
+                "microbatch schedule)")
         ctx.moe = moe
         x = self._hidden(input_ids, positions, ctx)
         return self.head(x.to(self.cfg.dtype)).float()
+
+    def _causal(self, mask, b: int, s: int, device, dropout_generator,
+                moe) -> _Causal:
+        """The full causal pass's per-call context."""
+        ctx = _Causal(None if mask is None else mask.bool(), self.cfg.dtype,
+                      self._attention_impl(b, s, device))
+        ctx.seq = forward_sequence(ctx.impl, SEQUENCE_IMPLS)
+        ctx.train, ctx.dropout_gen = self.training, dropout_generator
+        ctx.moe = moe
+        return ctx
 
     def forward(self, input_ids, attention_mask=None, return_hidden=False,
                 dropout_generator: Optional[torch.Generator] = None,
@@ -537,17 +657,42 @@ class Gpt(nn.Module):
         `cfg.dropout_rate > 0` dropout draws its masks from
         `dropout_generator` (on the model's device). An MoE model's
         layers report to `moe` (every forward path takes one)."""
-        s = input_ids.shape[1]
-        mask = None if attention_mask is None else attention_mask.bool()
-        ctx = _Causal(mask, self.cfg.dtype, self._attention_impl(input_ids))
-        ctx.seq = forward_sequence(ctx.impl, SEQUENCE_IMPLS)
+        b, s = input_ids.shape
+        ctx = self._causal(attention_mask, b, s, input_ids.device,
+                           dropout_generator, moe)
         first = 0 if ctx.seq is None else ctx.seq.offset(s)
         positions = torch.arange(first, first + s,
                                  device=input_ids.device)[None, :]
-        ctx.train, ctx.dropout_gen = self.training, dropout_generator
-        ctx.moe = moe
         remat = self.cfg.remat and torch.is_grad_enabled()
         x = self._hidden(input_ids, positions, ctx, remat=remat)
+        if return_hidden:
+            return x
+        return self.head(x.to(self.cfg.dtype)).float()
+
+    # -- a pipeline stage's parts (training/trainer.py runs them) ------------
+
+    def embed(self, input_ids, token_type_ids=None):
+        """Stage 0: token + position embeddings → [B, S, D] in the
+        compute dtype (`token_type_ids` is BERT's; ignored)."""
+        s = input_ids.shape[1]
+        return self._embed(input_ids, torch.arange(
+            s, device=input_ids.device)[None, :])
+
+    def stage(self, x, attention_mask=None,
+              dropout_generator: Optional[torch.Generator] = None,
+              moe: Optional[MoeCollector] = None):
+        """x through this model's blocks (a stage's run), remat and
+        dropout as in `forward` → [B, S, D] in the compute dtype."""
+        b, s = x.shape[:2]
+        ctx = self._causal(attention_mask, b, s, x.device,
+                           dropout_generator, moe)
+        return self._blocks(x, ctx, self.cfg.remat and
+                            torch.is_grad_enabled())
+
+    def finish(self, x, return_hidden: bool = False):
+        """The last stage: ln_final → f32 hidden states, or with the head
+        f32 logits."""
+        x = self.ln_final(x)
         if return_hidden:
             return x
         return self.head(x.to(self.cfg.dtype)).float()
@@ -584,7 +729,7 @@ class Gpt(nn.Module):
         logits = self._run(
             input_ids, positions,
             _SlotPrefill(cache, mask, self.cfg.dtype,
-                         self._attention_impl(input_ids)), moe,
+                         self._attention_impl(b, s, input_ids.device)), moe,
         )
         return logits, cache
 
@@ -805,8 +950,10 @@ def _build(defaults: dict, kwargs: dict) -> Gpt:
     device = kwargs.pop("device", None)
     seed = kwargs.pop("seed", 0)
     expert = kwargs.pop("expert", None)
+    pipeline = kwargs.pop("pipeline", None)
     cfg = GptConfig(**{**defaults, **kwargs})
-    return Gpt(cfg, device=device, seed=seed, expert=expert)
+    return Gpt(cfg, device=device, seed=seed, expert=expert,
+               pipeline=pipeline)
 
 
 @register_model("gpt_small")

@@ -100,6 +100,19 @@ def dropout(x: torch.Tensor, rate: float,
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
+def advance_dropout(generator: Optional[torch.Generator], draws: int,
+                    shape: Sequence[int]) -> None:
+    """Draw and drop `draws` dropout masks of `shape` (the whole batch's
+    activations, as `dropout` draws them): a pipeline stage's generator
+    then stands where a world-1 forward's stands at the stage's first
+    layer (each block draws its class's DROPOUT_DRAWS masks)."""
+    if generator is None:
+        return
+    for _ in range(draws):
+        torch.rand(tuple(shape), generator=generator,
+                   device=generator.device)
+
+
 def at_use(module: nn.Module, name: str, dtype) -> torch.Tensor:
     """Leaf `name` of `module` as its point of use reads it: the stored
     tensor (f32 at rest; the caller casts as before), or on an int8 model
@@ -429,16 +442,14 @@ class MoeMlp(nn.Module):
         return dropout(y, self.dropout_rate, generator, not train)
 
 
-def draw_leaf(module: nn.Module, leaf: str, draw) -> None:
-    """Copy `draw(shape)` into parameter `leaf` of `module`: an expert
-    stack of a sharded `MoeMlp` draws its whole [E, ...] value and keeps
-    this rank's block, so a seeded init gives world 1's weights whatever
-    the expert axis."""
-    p = getattr(module, leaf)
+def draw_value(module: nn.Module, leaf: str, draw) -> torch.Tensor:
+    """`draw(shape)` for parameter `leaf` of `module`: an expert stack of
+    a sharded `MoeMlp` draws its whole [E, ...] value and keeps this
+    rank's block, so a seeded init gives world 1's weights whatever the
+    expert axis."""
     if isinstance(module, MoeMlp):
-        p.copy_(module.block_of(leaf, draw(module.stack_shape(leaf))))
-    else:
-        p.copy_(draw(tuple(p.shape)))
+        return module.block_of(leaf, draw(module.stack_shape(leaf)))
+    return draw(tuple(getattr(module, leaf).shape))
 
 
 def sharded_stacks(model: nn.Module) -> Dict[str, Tuple[MoeMlp, str]]:
@@ -465,13 +476,119 @@ def remat(fn, generator: Optional[torch.Generator], *args):
     runs again in the backward, drawing the same dropout masks. The
     checkpoint's own RNG preservation covers only the default
     generators, so the explicit `generator`'s state at this call is
-    restored before each run of fn."""
+    restored before each run of fn, and so are the `dropout_rows` in
+    force at the call: a CUDA backward recomputes on autograd's device
+    thread, outside the caller's context."""
     if generator is None:
         return checkpoint(fn, *args, use_reentrant=False)
-    state = generator.get_state()
+    state, rows = generator.get_state(), _DROPOUT_ROWS.get()
 
     def replay(*a):
         generator.set_state(state)
-        return fn(*a)
+        token = _DROPOUT_ROWS.set(rows)
+        try:
+            return fn(*a)
+        finally:
+            _DROPOUT_ROWS.reset(token)
 
     return checkpoint(replay, *args, use_reentrant=False)
+
+
+@contextlib.contextmanager
+def microbatch_rows(first: int, total: int):
+    """Inside, dropout draws for a batch of `total` rows of which x holds
+    rows [first, first + its own): a pipeline microbatch's rows of the
+    batch a world-1 forward draws its masks for, composed with any
+    `dropout_rows` already in force (a data-parallel rank's share)."""
+    outer = _DROPOUT_ROWS.get()
+    rows = ((first, total, 0, None) if outer is None
+            else (outer[0] + first,) + tuple(outer[1:]))
+    token = _DROPOUT_ROWS.set(rows)
+    try:
+        yield
+    finally:
+        _DROPOUT_ROWS.reset(token)
+
+
+class LayerStack(nn.Module):
+    """A model's blocks under their global indices (`layers.<i>`, the
+    flax `layer_<i>`): every block, or a pipeline stage's run of them.
+    Indexed by global index, iterated and sized as an `nn.ModuleList`;
+    `items()` gives (index, block) in order."""
+
+    def __init__(self, blocks: Dict[int, nn.Module]):
+        super().__init__()
+        for i, block in blocks.items():
+            self.add_module(str(i), block)
+
+    def __getitem__(self, i: int) -> nn.Module:
+        return self._modules[str(int(i))]
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def items(self) -> List[Tuple[int, nn.Module]]:
+        return [(int(k), m) for k, m in self._modules.items()]
+
+
+def held_layers(num_layers: int, stages: int, pipeline) -> range:
+    """The layer indices a model holds: all of them, or with `pipeline`
+    (a `PipelineShard` of the pipeline mesh axis) its stage's run
+    [s·L/S, (s+1)·L/S)."""
+    from kubeflow_tpu_torch.parallel.pipeline import pipeline_stage_slices
+
+    per, stages = pipeline_stage_slices(num_layers, stages)
+    if pipeline is None:
+        return range(num_layers)
+    if pipeline.size != stages or not 0 <= pipeline.rank < stages:
+        raise ValueError(f"pipeline stage {pipeline.rank} of "
+                         f"{pipeline.size} does not fit the model's "
+                         f"{stages} stages")
+    return range(pipeline.rank * per, (pipeline.rank + 1) * per)
+
+
+def model_device(model: nn.Module) -> torch.device:
+    """The device of a model's first parameter or buffer (whichever
+    leaves its stage holds)."""
+    for t in model.parameters():
+        return t.device
+    for t in model.buffers():
+        return t.device
+    raise ValueError("the model holds no tensors")
+
+
+def whole_model(model: nn.Module) -> nn.Module:
+    """`model` itself, or for a model holding one pipeline stage its
+    whole twin on the meta device (every stage's layers and every
+    owned leaf, in the model family's order; the same expert blocks)."""
+    if getattr(model, "pipeline", None) is None:
+        return model
+    return type(model)(model.cfg, device="meta", expert=model.expert)
+
+
+def stage_layout(model: nn.Module):
+    """The JAX pipelined param layout of `model` (models/convert.py
+    `StageLayout`), or None when it runs no pipeline stages."""
+    from kubeflow_tpu_torch.models.convert import StageLayout
+
+    cfg = getattr(model, "cfg", None)
+    stages = getattr(cfg, "pipeline_stages", 1)
+    if stages <= 1:
+        return None
+    return StageLayout(model.STAGE_PREFIX, stages,
+                       cfg.num_layers // stages)
+
+
+def leaf_owner(model: nn.Module, name: str) -> Optional[int]:
+    """The pipeline stage that holds a model-level leaf (0 for the
+    embeddings, the last for the final LayerNorm and the heads; the
+    model's FIRST_STAGE and LAST_STAGE), or None for a layer's leaf."""
+    top = name.split(".", 1)[0]
+    if top == "layers":
+        return None
+    if top in model.FIRST_STAGE:
+        return 0
+    return model.cfg.pipeline_stages - 1

@@ -37,7 +37,9 @@ ways: a rank runs its E/ep share of the expert products (exactly 1/ep
 of them: every expert computes all C slots of every row), and the dense
 and attention work of its rows, which every expert rank of the shard
 repeats, counts once over the ep of them, so the ranks' counts still sum
-to the global step's.
+to the global step's. A pipeline axis of S stages splits it by layers: a
+stage counts its L/S layers' work on its data shard's tokens, and the
+last stage also the head, so the stages' counts sum to the shard's.
 
 Recomputation under remat is NOT counted (it is work the model does not
 need), and neither are embeddings, layernorms, softmax or the optimizer.
@@ -56,6 +58,7 @@ takes its kernel bounds from the same H100 figures.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Optional
 
@@ -121,14 +124,26 @@ def encoder_train_flops(cfg, batch: int, seq: int) -> float:
 
 def rank_train_flops(count, cfg, local_batch: int, local_seq: int,
                      data: int = 1, sequence: int = 1,
-                     expert: int = 1) -> float:
+                     expert: int = 1, stage: Optional[int] = None,
+                     stages: int = 1) -> float:
     """One rank's share of a train step's model FLOPs: `count`
     (`lm_train_flops` or `encoder_train_flops`) of the global step, the
     rank's local_batch × local_seq tokens scaled by the data and
     sequence axes, over data × sequence × expert. Without a sequence
     axis the count is linear in the batch, so a rank's is its own rows'
     over the expert axis (its E/ep share of the expert products, and the
-    rows' dense work split over the expert ranks that repeat it)."""
+    rows' dense work split over the expert ranks that repeat it). As
+    pipeline `stage` of `stages` (no sequence axis with it) a rank counts
+    its cfg.num_layers / stages layers, and the head on the last stage."""
+    if stages > 1:
+        def at(layers: int) -> float:
+            part = dataclasses.replace(cfg, num_layers=layers,
+                                       pipeline_stages=1)
+            return count(part, local_batch, local_seq) / expert
+
+        head = at(0)
+        layers = at(cfg.num_layers // stages) - head
+        return layers + (head if stage == stages - 1 else 0.0)
     if sequence == 1:
         return count(cfg, local_batch, local_seq) / expert
     return (count(cfg, local_batch * data, local_seq * sequence)

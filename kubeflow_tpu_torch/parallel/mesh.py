@@ -25,6 +25,14 @@ block x of data shard d (sequence shard i). An MoE model is built for
 its block (`ExpertShard`, from `expert_shard(mesh)`): its routed layers
 hold only their E/ep experts and combine their partial outputs over
 `expert_group(mesh)`.
+
+The pipeline axis sits between fsdp and expert: its ranks are the
+stages of one pipeline (`PipelineShard`, from `pipeline_shard(mesh)`),
+each holding its run of layers; a stage's neighbours are the ranks one
+step along the axis with every other coordinate the same, and they
+exchange activations point to point (parallel/pipeline.py). The groups
+a step sums over (`reduce_group`, `expert_group`) hold one pipeline
+coordinate each: no sum spans stages.
 """
 
 from __future__ import annotations
@@ -214,7 +222,8 @@ def sequence_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
 def reduce_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
     """The group a step's gradients, item counts and BatchNorm statistics
     are summed over: data × sequence at this rank's coordinate on every
-    other axis (the expert axis's included). Parameters are replicated
+    other axis (the expert and pipeline axes' included: a stage's leaves
+    are summed over the ranks of its stage only). Parameters are replicated
     over data × sequence, an expert stack's block too, so every leaf's
     gradient is summed over this group and no other: the expert ranks of
     one data shard compute the same loss from the same rows, and their
@@ -246,7 +255,7 @@ def reduce_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
 def expert_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
     """The process group of the mesh's expert axis (None without a
     process group): the ranks whose expert blocks make up every stack of
-    one data (and sequence) shard, in block order."""
+    one data (and sequence) shard and pipeline stage, in block order."""
     if mesh is None or not torch.distributed.is_initialized():
         return None
     return mesh.get_group("expert")
@@ -347,3 +356,64 @@ def forward_sequence(impl: str, sequence_impls) -> Optional[SequenceShard]:
             f"shard {seq.rank} of {seq.size}): use one of "
             f"{tuple(sequence_impls)}")
     return seq
+
+
+def pipeline_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
+    """The process group of the mesh's pipeline axis (None without a
+    process group): the stages of one pipeline, in stage order."""
+    if mesh is None or not torch.distributed.is_initialized():
+        return None
+    return mesh.get_group("pipeline")
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineShard:
+    """This rank's place on the pipeline axis: the axis's process group
+    (None: this process alone), its stage `rank`, the axis's `size`, the
+    global ranks of the previous and next stages of its pipeline (None
+    at the ends) and `writer`: this rank writes its stage's blocks of a
+    checkpoint (its coordinate on every axis but pipeline and expert is
+    0, so each block is written once)."""
+
+    group: Optional["torch.distributed.ProcessGroup"]
+    rank: int
+    size: int
+    prev: Optional[int] = None
+    next: Optional[int] = None
+    writer: bool = True
+
+    @property
+    def first(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def last(self) -> bool:
+        return self.rank == self.size - 1
+
+
+def pipeline_shard(mesh) -> Optional[PipelineShard]:
+    """The mesh's PipelineShard for this rank; None when the pipeline
+    axis is 1 or there is no process group. The neighbours are read off
+    the DeviceMesh's layout (MESH_AXIS_ORDER): the ranks at pipeline
+    coordinate ± 1 with every other coordinate this rank's."""
+    group = pipeline_group(mesh)
+    if group is None or mesh_shape(mesh)["pipeline"] == 1:
+        return None
+    names = list(mesh.mesh_dim_names)
+    axis = names.index("pipeline")
+    me = torch.distributed.get_rank()
+    coord = [int(c) for c in (mesh.mesh == me).nonzero()[0]]
+    size = mesh_shape(mesh)["pipeline"]
+
+    def at(stage: int) -> Optional[int]:
+        if not 0 <= stage < size:
+            return None
+        c = list(coord)
+        c[axis] = stage
+        return int(mesh.mesh[tuple(c)])
+
+    stage = coord[axis]
+    writer = all(c == 0 for i, c in enumerate(coord)
+                 if names[i] not in ("pipeline", "expert"))
+    return PipelineShard(group, stage, size, at(stage - 1), at(stage + 1),
+                         writer)

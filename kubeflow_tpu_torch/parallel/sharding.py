@@ -11,7 +11,9 @@ compare equal as tuples.
 There is no GSPMD in eager PyTorch: `shard_constraint` is a no-op that
 returns its input. The data axis's collectives are issued by the
 training step itself (training/trainer.py); the spec tables say which
-leaves a later fsdp slice shards.
+leaves a later fsdp slice shards, which an expert rank holds a block of
+("expert") and, through a pipelined model's leading "stage" axis
+(→ `pipeline`), which stage holds a layer (training/annotations.py).
 """
 
 from __future__ import annotations

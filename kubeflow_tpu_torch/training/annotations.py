@@ -16,7 +16,11 @@ put `expert` on dim 0 (the router stays replicated), which is the
 layout the trainer builds (training/trainer.py); the fsdp slice will
 shard by these annotations too. A model's leaves are annotated at their
 whole shapes: an expert-sharded stack as the [E, ...] leaf it is a
-block of (models/layers.py `MoeMlp.stack_shape`).
+block of (models/layers.py `MoeMlp.stack_shape`). A pipelined model's
+layer leaves are annotated as the JAX pipelined tree holds them
+(`<prefix>/stages/layer_<j>/...`, models/convert.py `StageLayout`),
+stacked [S, ...] with the leading "stage" axis (→ `pipeline`): a
+pipeline rank holds its stage's slice.
 """
 
 from __future__ import annotations
@@ -114,22 +118,33 @@ def logical_axes_for(
     With `mesh_axis_sizes`, a dim whose size the mapped mesh axes do not
     divide is degraded to replicated (None) instead of failing sharding,
     as in the JAX package."""
-    shapes = (whole_shapes(params) if isinstance(params, torch.nn.Module)
-              else {name: tuple(t.shape) for name, t in params.items()})
-    return {name: _annotate(jax_path(name), shape, fsdp_size,
+    layout = None
+    if isinstance(params, torch.nn.Module):
+        from kubeflow_tpu_torch.models.layers import stage_layout
+
+        shapes, layout = whole_shapes(params), stage_layout(params)
+    else:
+        shapes = {name: tuple(t.shape) for name, t in params.items()}
+    return {name: _annotate(jax_path(name) if layout is None
+                            else layout.path(name)[0], shape, fsdp_size,
                             mesh_axis_sizes)
             for name, shape in shapes.items()}
 
 
 def whole_shapes(model: torch.nn.Module) -> Dict[str, Tuple[int, ...]]:
-    """{parameter name: its whole shape}: a parameter's own, or for an
-    expert stack's block the [E, ...] stack's."""
-    from kubeflow_tpu_torch.models.layers import MoeMlp
+    """{parameter name: its whole shape}: a parameter's own, for an
+    expert stack's block the [E, ...] stack's, and for a pipelined
+    model's layer leaf the [S, ...] stage stack's."""
+    from kubeflow_tpu_torch.models.layers import MoeMlp, stage_layout
 
+    layout = stage_layout(model)
     out = {}
     for owner, module in model.named_modules():
         for leaf, p in module.named_parameters(recurse=False):
             name = f"{owner}.{leaf}" if owner else leaf
-            out[name] = (module.stack_shape(leaf) if isinstance(module, MoeMlp)
-                         else tuple(p.shape))
+            shape = (module.stack_shape(leaf) if isinstance(module, MoeMlp)
+                     else tuple(p.shape))
+            if layout is not None and name.startswith("layers."):
+                shape = (layout.stages,) + shape
+            out[name] = shape
     return out

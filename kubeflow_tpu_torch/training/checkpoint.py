@@ -49,18 +49,35 @@ written by one rank a block (checkpointing/manager.py) and read back by
 region, so the manifest names the whole [E, ...] leaf as a JAX state or
 a world-1 port state names it.
 
+A pipelined model (`pipeline_stages > 1`) saves the JAX pipelined
+state's keys: each stage's j-th layer is index s of the stacked leaf
+`params/<decoder|encoder>/stages/layer_<j>/...` [S, ...] (models/
+convert.py `StageLayout`), and so are its moments; the JAX state carries
+no `moe_stats` then. A model holding one pipeline stage enters its
+layers and their moments as `ShardedLeaf` blocks [s:s+1] of the stacked
+leaves (and of the expert axis's blocks for an expert stack), written by
+the stage's rank at every other coordinate 0 (`PipelineShard.writer`);
+a leaf of the embeddings or the heads is one whole-leaf block written
+by its owning stage, and every other rank names it with an empty block
+that writes and reads nothing, so every rank's tree has the same keys
+in the same order (the manifest's leaf ids).
+
 The tree holds the live tensors; the manager makes the host copy.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 
 from kubeflow_tpu_torch.checkpointing.manager import ShardedLeaf, nest
 from kubeflow_tpu_torch.models.convert import is_batch_stat, jax_path
-from kubeflow_tpu_torch.models.layers import sharded_stacks
+from kubeflow_tpu_torch.models.layers import (
+    sharded_stacks,
+    stage_layout,
+    whole_model,
+)
 
 
 def _get(tree: Dict[str, Any], path: str):
@@ -83,21 +100,144 @@ def _leaf(stacks, name: str, t: torch.Tensor):
                        module.expert.writer)
 
 
-def params_tree(model: torch.nn.Module) -> Dict[str, Any]:
+def _full(shape) -> Tuple[Tuple[int, int], ...]:
+    return tuple((0, int(d)) for d in shape)
+
+
+def _stage_tree(model: torch.nn.Module, layout,
+                value: Callable[[str], torch.Tensor]) -> Dict[str, Any]:
+    """{flax path: leaf} of one family of the model's tensors (`value`
+    of a parameter name: the parameter or one of its moments) in the JAX
+    pipelined layout, every path of the whole model in its order."""
+    from kubeflow_tpu_torch.training.annotations import whole_shapes
+
+    pipe, expert = model.pipeline, model.expert
+    stacks = sharded_stacks(model)
+    own = dict(model.named_parameters())
+    per = layout.layers_per_stage
+    stages = ([(pipe.rank, pipe.rank + 1)] if pipe is not None
+              else [(0, layout.stages)])
+    all_stages = ([(r, r + 1) for r in range(layout.stages)]
+                  if pipe is not None else stages)
+    stacked = stage_layout(model) is not None
+    out: Dict[str, Any] = {}
+    for name, shape in whole_shapes(whole_model(model)).items():
+        path, st = layout.path(name)
+        if path in out:
+            continue
+        if st is not None:  # a layer's leaf: stacked [S, ...]
+            shape = (layout.stages,) + (shape[1:] if stacked else shape)
+        else:  # a leaf of the embeddings or the heads
+            if pipe is None:
+                out[path] = value(name)
+            elif name in own:
+                out[path] = ShardedLeaf(
+                    value(name), shape, _full(shape), [_full(shape)],
+                    pipe.writer and (expert is None or expert.rank == 0))
+            else:  # another stage's: an empty block, never written
+                out[path] = ShardedLeaf(
+                    torch.empty((0,) * len(shape)), shape,
+                    ((0, 0),) * len(shape), [_full(shape)], False)
+            continue
+        j, rest = int(name.split(".")[1]) % per, name.split(".", 2)[2]
+        names = [f"layers.{s * per + j}.{rest}"
+                 for s in range(*stages[0])]
+        local = (value(names[0]).unsqueeze(0) if len(names) == 1
+                 else torch.stack([value(n) for n in names]))
+        if pipe is None and names[0] not in stacks:
+            out[path] = local
+            continue
+        inner = [_full(shape[1:])]
+        if names[0] in stacks:  # an expert stack's block
+            n = local.shape[1]
+            inner = [((r * n, (r + 1) * n),) + _full(shape[2:])
+                     for r in range(expert.size)]
+            mine = inner[expert.rank]
+            writer = pipe.writer if pipe is not None else expert.writer
+        else:
+            mine = inner[0]
+            writer = pipe.writer and (expert is None or expert.rank == 0)
+        out[path] = ShardedLeaf(local, shape, (stages[0],) + mine,
+                                [(sr,) + r for sr in all_stages
+                                 for r in inner], writer)
+    return out
+
+
+def _read(tree: Dict[str, Any], model: torch.nn.Module, layout,
+          name: str) -> torch.Tensor:
+    """Parameter `name`'s value in a restored tree of the model's
+    layout: a pipelined layer's index of the stacked [S, ...] leaf, or
+    the one-stage block [1, ...] a stage's tree reads."""
+    if layout is None:
+        return _get(tree, jax_path(name))
+    path, st = layout.path(name)
+    value = _get(tree, path)
+    if st is None:
+        return value
+    return value[0] if model.pipeline is not None else value[st]
+
+
+# `layout` default: the model's own (models/layers.py `stage_layout`)
+_OWN = object()
+
+
+def params_tree(model: torch.nn.Module, layout=_OWN) -> Dict[str, Any]:
     """The model's parameters as the nested flax tree (live tensors; an
-    expert stack's block as a `ShardedLeaf`)."""
+    expert stack's block as a `ShardedLeaf`) in `layout`: the named one
+    (None), or a `StageLayout` (a pipelined model's own: its layers
+    stacked a stage)."""
+    if layout is _OWN:
+        layout = stage_layout(model)
+    if layout is not None:
+        own = dict(model.named_parameters())
+        return nest(_stage_tree(model, layout, own.__getitem__))
     stacks = sharded_stacks(model)
     return nest({jax_path(n): _leaf(stacks, n, p)
                  for n, p in model.named_parameters()})
 
 
+def tree_layout(params: Dict[str, Any]):
+    """The `StageLayout` of a nested params tree (None: the named
+    layout); its `stages` is the stacked leaves' leading dim as read."""
+    from kubeflow_tpu_torch.models.convert import STAGE_PREFIXES, StageLayout
+
+    for prefix in STAGE_PREFIXES:
+        stages = params.get(prefix, {}).get("stages")
+        if stages:
+            leaf = stages["layer_0"]
+            while isinstance(leaf, dict):
+                leaf = next(iter(leaf.values()))
+            return StageLayout(prefix, int(leaf.shape[0]), len(stages))
+    return None
+
+
+def manifest_layout(entries: Dict[str, Any]):
+    """The `StageLayout` of a checkpoint's params from its manifest
+    entries ({key: entry with "shape"}), or None (named)."""
+    from kubeflow_tpu_torch.models.convert import STAGE_PREFIXES, StageLayout
+
+    found: Dict[str, Any] = {}
+    for key, entry in entries.items():
+        parts = key.split("/")
+        if (len(parts) > 4 and parts[0] == "params"
+                and parts[1] in STAGE_PREFIXES and parts[2] == "stages"):
+            j = int(parts[3][len("layer_"):])
+            found[parts[1]] = (max(found.get(parts[1], (-1, 0))[0], j),
+                               int(entry["shape"][0]))
+    for prefix, (last, stages) in found.items():
+        return StageLayout(prefix, stages, last + 1)
+    return None
+
+
 def load_params_tree(model: torch.nn.Module, tree: Dict[str, Any]) -> None:
-    """Copy a nested flax tree into the model's parameters, in place (an
-    expert-sharded model takes its block of a whole stack)."""
+    """Copy a nested flax tree (either layout) into the model's
+    parameters, in place (an expert-sharded model takes its block of a
+    whole stack, a pipeline stage its layers)."""
     stacks = sharded_stacks(model)
+    layout = tree_layout(tree)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            value = _get(tree, jax_path(name))
+            value = _read(tree, model, layout, name)
             if name in stacks and tuple(value.shape) != tuple(p.shape):
                 module, leaf = stacks[name]
                 value = module.block_of(leaf, value)
@@ -113,10 +253,13 @@ def batch_stats_tree(model: torch.nn.Module) -> Dict[str, Any]:
 
 def moe_stats_tree(model: torch.nn.Module) -> Dict[str, Any]:
     """Zeroed `moe_stats` leaves of each routed layer, in the JAX
-    state's shapes (empty for a dense model)."""
+    state's shapes (empty for a dense model, and for a pipelined one:
+    the JAX pipeline sows none)."""
     from kubeflow_tpu_torch.models.layers import MoeMlp
 
     leaves = {}
+    if stage_layout(model) is not None:
+        return leaves
     for name, module in model.named_modules():
         if isinstance(module, MoeMlp):
             dev = module.router.device
@@ -142,17 +285,20 @@ def _update_count(state) -> int:
     return int(steps.pop()) if steps else 0
 
 
-def train_state_tree(state) -> Dict[str, Any]:
-    """The JAX manifest's tree of a port `TrainState` (live tensors)."""
+def train_state_tree(state, layout=_OWN) -> Dict[str, Any]:
+    """The JAX manifest's tree of a port `TrainState` (live tensors), in
+    the model's own param layout or `layout` (`params_tree`'s)."""
+    if layout is _OWN:
+        layout = stage_layout(state.model)
     opt = state.optimizer
     tree: Dict[str, Any] = {
         "step": torch.tensor(state.step, dtype=torch.int32),
-        "params": params_tree(state.model),
+        "params": params_tree(state.model, layout),
     }
     stats = batch_stats_tree(state.model)
     if stats:
         tree["extra_vars"] = {"batch_stats": stats}
-    moe = moe_stats_tree(state.model)
+    moe = moe_stats_tree(state.model) if layout is None else {}
     if moe:
         tree.setdefault("extra_vars", {})["moe_stats"] = moe
     if _is_sgd(state):
@@ -167,13 +313,23 @@ def train_state_tree(state) -> Dict[str, Any]:
         return tree
     mu, nu = {}, {}
     stacks = sharded_stacks(state.model)
+    own = dict(state.model.named_parameters())
+
+    def moment(key):
+        def get(name):
+            st = opt.state.get(own[name], {})
+            return st[key] if key in st else torch.zeros_like(own[name])
+        return get
+
+    if layout is not None:
+        mu = _stage_tree(state.model, layout, moment("exp_avg"))
+        nu = _stage_tree(state.model, layout, moment("exp_avg_sq"))
     for name, p in state.model.named_parameters():
-        st = opt.state.get(p, {})
+        if layout is not None:
+            break
         path = jax_path(name)
-        mu[path] = _leaf(stacks, name, st["exp_avg"] if "exp_avg" in st
-                         else torch.zeros_like(p))
-        nu[path] = _leaf(stacks, name, st["exp_avg_sq"] if "exp_avg_sq" in st
-                         else torch.zeros_like(p))
+        mu[path] = _leaf(stacks, name, moment("exp_avg")(name))
+        nu[path] = _leaf(stacks, name, moment("exp_avg_sq")(name))
     count = _update_count(state)
     tree["opt_state"] = {"1": {
         "0": {"count": torch.tensor(count, dtype=torch.int32),
@@ -183,11 +339,25 @@ def train_state_tree(state) -> Dict[str, Any]:
     return tree
 
 
+def restore_tree(state, entries: Dict[str, Any]) -> Dict[str, Any]:
+    """The tree a restore reads into `state`, in the layout of the
+    checkpoint whose manifest entries are `entries`: a pipelined
+    checkpoint restores into a model without stages (its layers read off
+    the stacked leaves), a named one into a pipeline stage; a pipelined
+    model takes a pipelined checkpoint of its own stage count only."""
+    layout, own = manifest_layout(entries), stage_layout(state.model)
+    if layout is not None and own is not None and layout != own:
+        raise ValueError(f"checkpoint layout {layout} does not fit the "
+                         f"model's {own}")
+    return train_state_tree(state, layout)
+
+
 def load_train_state_tree(state, tree: Dict[str, Any]) -> None:
     """Load a restored tree into a port `TrainState` in place: the step,
     the parameters, the BatchNorm running averages, and the optimizer's
     state for every parameter (created here: AdamW's with the step
-    torch's own AdamW would hold, SGD's momentum buffer from the trace)."""
+    torch's own AdamW would hold, SGD's momentum buffer from the trace).
+    The tree is in either param layout (`tree_layout`)."""
     load_params_tree(state.model, tree["params"])
     with torch.no_grad():
         for name, b in state.model.named_buffers():
@@ -205,15 +375,17 @@ def load_train_state_tree(state, tree: Dict[str, Any]) -> None:
     adam = tree["opt_state"]["1"]["0"]
     count = int(adam["count"])
     groups = {id(p): g for g in opt.param_groups for p in g["params"]}
+    layout = tree_layout(tree["params"])
     with torch.no_grad():
         for name, p in state.model.named_parameters():
             group = groups[id(p)]
             on_device = group.get("capturable") or group.get("fused")
-            path = jax_path(name)
             opt.state[p] = {
                 "step": torch.tensor(float(count), dtype=torch.float32,
                                      device=p.device if on_device else "cpu"),
-                "exp_avg": _get(adam["mu"], path).to(p, copy=True),
-                "exp_avg_sq": _get(adam["nu"], path).to(p, copy=True),
+                "exp_avg": _read(adam["mu"], state.model, layout,
+                                 name).to(p, copy=True),
+                "exp_avg_sq": _read(adam["nu"], state.model, layout,
+                                    name).to(p, copy=True),
             }
     state.step = int(tree["step"])

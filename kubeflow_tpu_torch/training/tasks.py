@@ -42,6 +42,16 @@ local shard. MLM counts its masked positions on every shard and the
 next-sentence rows on sequence rank 0 only, which alone holds [CLS]
 (`parallel/mesh.py active_sequence()`, set by the step).
 
+Pipeline parallelism: a stage's forward is the model's own (training/
+trainer.py runs the schedule); the LM tasks give the parts it needs:
+`model_mask` (what the model's attention takes), `head_loss` (the last
+stage's loss from its hidden states, divided by the global counts of
+the whole accumulation microbatch, so the pipeline microbatches' losses
+sum to the batch's), `head_eval_stats`, and `loss_weight` (a
+microbatch's weight under accumulation, known before its forward).
+`moe_aux_share` is each stage's MoE load-balance loss over its own
+layers' calls.
+
 The convnet recipe (`resnet*`), `optax.chain(add_decayed_weights(wd),
 sgd(schedule, momentum=0.9, nesterov=True))`, is `torch.optim.SGD(
 momentum=0.9, nesterov=True, dampening=0, weight_decay=wd)`: optax's
@@ -136,18 +146,31 @@ def _moe_collector(model) -> Optional[MoeCollector]:
     return MoeCollector() if routed else None
 
 
+def moe_aux_share(collector: Optional[MoeCollector], group
+                  ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """(this rank's share of the MoE load-balance loss of the
+    collector's layers, the global value detached), or None without
+    routed layers: the whole loss without a group, else 1/|group| of the
+    group's global loss."""
+    moe_aux = None if collector is None else collector.aux_loss(group)
+    if moe_aux is None:
+        return None
+    value = moe_aux.detach()
+    if group is not None:
+        moe_aux = moe_aux / torch.distributed.get_world_size(group)
+    return moe_aux, value
+
+
 def _add_moe_aux(loss: torch.Tensor, aux: Dict[str, torch.Tensor],
                  collector: Optional[MoeCollector], group) -> torch.Tensor:
     """loss + this rank's share of the MoE load-balance loss (the whole
     of it without a group); the global value lands in
     aux["moe_aux_loss"]."""
-    moe_aux = None if collector is None else collector.aux_loss(group)
-    if moe_aux is None:
+    share = moe_aux_share(collector, group)
+    if share is None:
         return loss
-    aux["moe_aux_loss"] = moe_aux.detach()
-    if group is not None:
-        moe_aux = moe_aux / torch.distributed.get_world_size(group)
-    return loss + moe_aux
+    aux["moe_aux_loss"] = share[1]
+    return loss + share[0]
 
 
 class ImageClassificationTask:
@@ -263,12 +286,24 @@ class MlmTask:
         MoE model's load-balance loss is summed over."""
         moe = _moe_collector(model)
         out = model(
-            batch["input_ids"],
-            attention_mask=None if self.assume_full_attention
-            else batch["attention_mask"],
+            batch["input_ids"], attention_mask=self.model_mask(batch),
             dropout_generator=dropout_generator,
             **({} if moe is None else {"moe": moe}),
         )
+        loss, extra = self._head_loss(out, batch, counts)
+        loss = _add_moe_aux(loss, extra["aux"], moe, group)
+        return loss, extra
+
+    def model_mask(self, batch: Dict[str, torch.Tensor]
+                   ) -> Optional[torch.Tensor]:
+        """The attention mask the model takes (None: all ones)."""
+        return None if self.assume_full_attention else batch["attention_mask"]
+
+    def loss_weight(self, counts: torch.Tensor) -> torch.Tensor:
+        """A microbatch's weight under accumulation: equal (`loss`)."""
+        return torch.ones((), device=counts.device)
+
+    def _head_loss(self, out, batch, counts):
         mlm = cross_entropy(out["mlm_logits"], batch["labels"], ignore=IGNORE,
                             count=None if counts is None else counts[0])
         if _holds_cls():
@@ -277,9 +312,15 @@ class MlmTask:
         else:  # another shard's row 0 is not [CLS]
             nsp = torch.zeros((), device=mlm.device)
         aux = {"mlm_loss": mlm.detach(), "nsp_loss": nsp.detach()}
-        loss = _add_moe_aux(mlm + nsp, aux, moe, group)
-        return loss, {"aux": aux,
-                      "loss_items": torch.ones((), device=mlm.device)}
+        return mlm + nsp, {"aux": aux,
+                           "loss_items": torch.ones((), device=mlm.device)}
+
+    def head_loss(self, model, hidden: torch.Tensor,
+                  batch: Dict[str, torch.Tensor],
+                  counts: Optional[torch.Tensor] = None):
+        """The last pipeline stage's loss: the heads on its final hidden
+        states, (mlm + nsp, `loss`'s extras) without the MoE aux."""
+        return self._head_loss(model.heads(hidden), batch, counts)
 
     def count_items(self, batch) -> int:
         # tokens a step: BERT's throughput unit
@@ -289,6 +330,15 @@ class MlmTask:
                    ) -> Dict[str, torch.Tensor]:
         """Masked-token top-1 and loss over labels != -100."""
         out = model(batch["input_ids"], attention_mask=batch["attention_mask"])
+        return self._stats(out, batch)
+
+    def head_eval_stats(self, model, hidden: torch.Tensor,
+                        batch: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """`eval_stats` from the last pipeline stage's hidden states."""
+        return self._stats(model.heads(hidden), batch)
+
+    def _stats(self, out, batch):
         labels = batch["labels"]
         return _masked_token_stats(
             out["mlm_logits"], labels,
@@ -420,14 +470,41 @@ class CausalLmTask:
         denominator, and the item count reported, in place of this
         batch's own; `group` is the data group an MoE model's
         load-balance loss is summed over."""
-        chunked = self.loss_chunk and self.loss_chunk > 0
-        ids, mask = batch["input_ids"], batch["attention_mask"]
-        count = None if counts is None else counts[0]
         moe = _moe_collector(model)
-        out = model(ids, attention_mask=None if self.assume_full_attention
-                    else mask, return_hidden=bool(chunked),
+        out = model(batch["input_ids"], attention_mask=self.model_mask(batch),
+                    return_hidden=self._chunked(),
                     dropout_generator=dropout_generator,
                     **({} if moe is None else {"moe": moe}))
+        loss, extra = self._head_loss(model, out, batch, counts)
+        loss = _add_moe_aux(loss, extra["aux"], moe, group)
+        return loss, extra
+
+    def _chunked(self) -> bool:
+        return bool(self.loss_chunk and self.loss_chunk > 0)
+
+    def model_mask(self, batch: Dict[str, torch.Tensor]
+                   ) -> Optional[torch.Tensor]:
+        """The attention mask the model takes (None: all ones)."""
+        return None if self.assume_full_attention else batch["attention_mask"]
+
+    def loss_weight(self, counts: torch.Tensor) -> torch.Tensor:
+        """A microbatch's weight under accumulation: its (global) valid
+        pairs, `loss`'s item count."""
+        return counts[0].float()
+
+    def head_loss(self, model, hidden: torch.Tensor,
+                  batch: Dict[str, torch.Tensor],
+                  counts: Optional[torch.Tensor] = None):
+        """The last pipeline stage's loss from its final hidden states
+        (ln_final, then the streamed or the full head): `loss` without
+        the MoE aux."""
+        out = model.finish(hidden, return_hidden=self._chunked())
+        return self._head_loss(model, out, batch, counts)
+
+    def _head_loss(self, model, out, batch, counts):
+        chunked = self._chunked()
+        ids, mask = batch["input_ids"], batch["attention_mask"]
+        count = None if counts is None else counts[0]
         sharded = NEXT + "input_ids" in batch
         if chunked:
             targets = (self._shard_targets(batch) if sharded
@@ -441,9 +518,7 @@ class CausalLmTask:
                                else self._shift(out, ids, mask))
             loss = cross_entropy(logits, targets, ignore=IGNORE, count=count)
             n_items = (targets != IGNORE).sum() if count is None else count
-        aux: Dict[str, torch.Tensor] = {}
-        loss = _add_moe_aux(loss, aux, moe, group)
-        return loss, {"aux": aux, "loss_items": n_items.float()}
+        return loss, {"aux": {}, "loss_items": n_items.float()}
 
     def count_items(self, batch) -> int:
         return batch["input_ids"].shape[0] * batch["input_ids"].shape[1]
@@ -452,8 +527,18 @@ class CausalLmTask:
                    ) -> Dict[str, torch.Tensor]:
         """Next-token top-1 and loss over the valid pairs (a sequence
         shard's include the pair into the next shard)."""
+        return self._stats(model(batch["input_ids"],
+                                 attention_mask=batch["attention_mask"]),
+                           batch)
+
+    def head_eval_stats(self, model, hidden: torch.Tensor,
+                        batch: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """`eval_stats` from the last pipeline stage's hidden states."""
+        return self._stats(model.finish(hidden), batch)
+
+    def _stats(self, logits, batch):
         ids, mask = batch["input_ids"], batch["attention_mask"]
-        logits = model(ids, attention_mask=mask)
         if NEXT + "input_ids" in batch:
             targets = self._shard_targets(batch)
         else:
@@ -508,14 +593,16 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
 
 def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float,
                         sharded: Iterable[torch.Tensor] = (),
-                        group=None) -> torch.Tensor:
+                        group=None, stage_group=None) -> torch.Tensor:
     """optax.clip_by_global_norm, in place: g ← g / norm · max_norm when
     the global norm is >= max_norm, else unchanged. No host sync.
     Returns the global norm (before clipping). `sharded` are the
     gradients of this rank's blocks of leaves split over `group` (an
     expert stack's, over the expert axis): their squared norms are summed
     over the group, and every other leaf counts once, so every rank
-    clips at the whole state's norm and the replicas stay equal."""
+    clips at the whole state's norm and the replicas stay equal. With
+    `stage_group` (the pipeline axis's) each rank holds only its stage's
+    leaves: the squared norms are summed over the stages too."""
     grads = [g for g in grads if g is not None]
     sharded = [g for g in sharded if g is not None]
     norms = [torch.linalg.vector_norm(g.float()) for g in grads]
@@ -526,6 +613,10 @@ def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float,
             torch.distributed.all_reduce(sq, group=group)
         norms.append(sq.sqrt())
     norm = torch.linalg.vector_norm(torch.stack(norms))
+    if stage_group is not None:
+        sq = norm.square()
+        torch.distributed.all_reduce(sq, group=stage_group)
+        norm = sq.sqrt()
     trigger = norm < max_norm
     for g in grads + sharded:
         g.copy_(torch.where(trigger, g, g / norm * max_norm))

@@ -103,6 +103,34 @@ it. The clip's global norm sums the blocks' squares over the expert
 group and counts every replicated leaf once, so every rank clips alike.
 Checkpoints write each block from one rank (training/checkpoint.py). A
 dense model on an expert axis trains as replicas.
+
+Pipeline parallelism (`cfg.mesh.pipeline` ranks, between fsdp and
+expert: the JAX package's `pipeline` mesh axis). The LM is built with
+`pipeline_stages` = the axis and the config's `pipeline_schedule` (the
+JAX trainer's factory kwargs; a model without stages raises TypeError),
+and for this rank's `PipelineShard`: it holds its stage's L/S layers,
+stage 0 the embeddings, the last stage the final LayerNorm and the heads
+(models/gpt.py, models/bert.py). Each accumulation microbatch is cut
+into M pipeline microbatches (`num_microbatches`, clamped as the JAX
+model clamps it against the global rows); a data shard holds its block
+of every microbatch's global rows, as the reference's unsharded
+microbatch dim lays them out (`local_rows` over accum × M blocks). The
+step runs the schedule (parallel/pipeline.py `run_schedule`: GPipe or
+1F1B, activations sent point to point in the compute dtype): stage 0
+embeds, every stage runs its layers, the last computes the loss of its
+microbatch over the global item counts (all-reduced before any
+backward), and each backward is `torch.autograd.backward(stage_out,
+grad_from_next)`. An MoE stage adds its own layers' load-balance loss to
+its backward: the router's gradient reaches earlier stages through the
+activation gradient, and the reported `moe_aux_loss` is the sum over the
+real (microbatch, stage) calls. Dropout draws each microbatch's rows of
+the masks world 1 draws for its batch, from the generator a world-1 run
+holds at the stage's first layer (`advance_dropout`). Gradients are
+summed over `reduce_group` (the ranks of this stage), the loss and aux
+are then summed over the pipeline group (so every rank's `losses`
+agree, the last stage's value), and the clip's norm sums every stage's
+leaves once. `evaluate` is a forward-only pass through the stages;
+`stage_live` keeps the live-activation counter of the last step.
 """
 
 from __future__ import annotations
@@ -135,9 +163,15 @@ from kubeflow_tpu_torch.parallel.mesh import (
     expert_shard,
     mesh_coordinate,
     mesh_from_config,
+    pipeline_shard,
     reduce_group,
     sequence_parallel,
     sequence_shard,
+)
+from kubeflow_tpu_torch.parallel.pipeline import (
+    clamp_microbatches,
+    run_forward,
+    run_schedule,
 )
 from kubeflow_tpu_torch.training.data import (
     local_rows,
@@ -148,9 +182,11 @@ from kubeflow_tpu_torch.training.data import (
 )
 from kubeflow_tpu_torch.training.prefetch import DevicePrefetcher
 from kubeflow_tpu_torch.training.tasks import (
+    _moe_collector,
     clip_by_global_norm,
     make_optimizer,
     make_schedule,
+    moe_aux_share,
     task_for_model,
     uses_sgd,
 )
@@ -202,6 +238,13 @@ class TrainState:
 
         return train_state_tree(self)
 
+    def restore_tree(self, entries: Dict[str, Any]) -> Dict[str, Any]:
+        """The tree to restore into, in the layout of the checkpoint whose
+        manifest entries are `entries` (training/checkpoint.py)."""
+        from kubeflow_tpu_torch.training.checkpoint import restore_tree
+
+        return restore_tree(self, entries)
+
     def load_checkpoint_tree(self, tree: Dict[str, Any]) -> None:
         """Load a restored manifest tree in place."""
         from kubeflow_tpu_torch.training.checkpoint import (
@@ -227,9 +270,10 @@ class Trainer:
     is this rank's: `self.mesh` is the DeviceMesh of `cfg.mesh` over the
     group's ranks; it names the data × sequence group the step sums over,
     `self.seq`, this rank's place on the sequence axis, and
-    `self.expert`, its place on the expert axis (each None at 1).
-    `model_kwargs` reach the registry factory of a model the trainer
-    builds (the JAX trainer's argument, e.g. `{"moe_top_k": 2}`)."""
+    `self.expert`, its place on the expert axis, and `self.pipe`, its
+    stage of the pipeline axis (each None at 1). `model_kwargs` reach the
+    registry factory of a model the trainer builds (the JAX trainer's
+    argument, e.g. `{"moe_top_k": 2}`)."""
 
     def __init__(self, cfg: TrainingConfig, model=None, task=None,
                  device: DeviceLike = None,
@@ -244,6 +288,7 @@ class Trainer:
         self._group = None
         self.seq = None
         self.expert = None
+        self.pipe = None
         if self.distributed:
             backend = torch.distributed.get_backend()
             self.mesh = mesh_from_config(
@@ -251,23 +296,21 @@ class Trainer:
             self._group = reduce_group(self.mesh)
             self.seq = sequence_shard(self.mesh)
             self.expert = expert_shard(self.mesh)
+            self.pipe = pipeline_shard(self.mesh)
         elif cfg.mesh.num_devices != 1:
             raise ValueError(
                 f"mesh spec needs {cfg.mesh.num_devices} devices "
                 f"({cfg.mesh.axis_sizes()}), got 1: start the gang's "
                 f"processes (runtime/launcher.py) with its rendered env")
-        # this rank's place on the data axis: its rows of each global
-        # batch (the same for every expert rank of the shard), and their
-        # indices
-        self.data_world = self.world // (cfg.mesh.sequence * cfg.mesh.expert)
+        # this rank's place on the data axis (the same for every expert
+        # rank and pipeline stage of the shard)
+        self.data_world = self.world // (cfg.mesh.sequence * cfg.mesh.expert
+                                         * cfg.mesh.pipeline)
         self.data_rank = mesh_coordinate(self.mesh, "data")
-        self._rows = (local_rows(cfg.global_batch_size, self.data_rank,
-                                 self.data_world, cfg.accum_steps)
-                      if self.distributed else None)
-        self._row_index = (row_indices(self._rows) if self.data_world > 1
-                           else None)
         # gradient all-reduces issued (one a data-parallel step)
         self.grad_allreduces = 0
+        # the last pipelined step's live-activation counter
+        self.stage_live = None
         if model is None:
             # the config's context window, remat and attention reach an
             # LM's factory (JAX trainer.py:97-124)
@@ -284,6 +327,14 @@ class Trainer:
                 if self.expert is not None:
                     # an MoE model's routed layers: this rank's experts
                     kwargs["expert"] = self.expert
+            if cfg.mesh.pipeline > 1:
+                # the JAX trainer's pipeline kwargs, for any model: a
+                # factory without stages raises TypeError on them, as the
+                # JAX factories do; this rank's stage
+                kwargs.setdefault("pipeline_stages", cfg.mesh.pipeline)
+                kwargs.setdefault("pipeline_schedule", cfg.pipeline_schedule)
+                if self.pipe is not None:
+                    kwargs["pipeline"] = self.pipe
             if cfg.seq_len > 0:
                 kwargs["max_len"] = cfg.seq_len
             dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -293,6 +344,21 @@ class Trainer:
             raise ValueError(f"model is on {model.device}, the trainer on "
                              f"{self.device}")
         self.model = model.trainable()
+        # the pipeline's microbatches a step's accumulation microbatch
+        # (the JAX model's clamp against its global rows)
+        self.pipeline_microbatches = 1
+        if self.pipe is not None:
+            self.pipeline_microbatches = clamp_microbatches(
+                self.model.cfg.num_microbatches, self.pipe.size,
+                cfg.global_batch_size // cfg.accum_steps)
+        # this rank's rows of each global batch: a block of every
+        # (accumulation, pipeline) microbatch, and their indices
+        self._rows = (local_rows(cfg.global_batch_size, self.data_rank,
+                                 self.data_world,
+                                 cfg.accum_steps * self.pipeline_microbatches)
+                      if self.distributed else None)
+        self._row_index = (row_indices(self._rows) if self.data_world > 1
+                           else None)
         if self.distributed:
             self._check_layout()
         if self.world > 1:
@@ -336,7 +402,15 @@ class Trainer:
         """Every parameter's spec on the mesh (training/annotations.py over
         parallel/sharding.py) must be one the step runs: replicated, or
         split on dim 0 over the expert axis alone (an expert stack), and
-        then the model must hold exactly this rank's block of it."""
+        then the model must hold exactly this rank's block of it. On a
+        pipeline axis a layer's leaf is split on its stage dim over the
+        axis (then as above), and the model holds exactly its stage's
+        layers and the leaves its stage owns."""
+        from kubeflow_tpu_torch.models.layers import (
+            held_layers,
+            leaf_owner,
+            whole_model,
+        )
         from kubeflow_tpu_torch.parallel.mesh import mesh_shape
         from kubeflow_tpu_torch.parallel.sharding import (
             is_replicated,
@@ -351,29 +425,53 @@ class Trainer:
         specs = param_specs(logical_axes_for(
             self.model, fsdp_size=sizes.get("fsdp", 1),
             mesh_axis_sizes=sizes), mesh=sizes)
-        experts = getattr(self.model.cfg, "num_experts", 0)
+        mcfg = self.model.cfg
+        experts = getattr(mcfg, "num_experts", 0)
         if experts and experts % sizes["expert"]:
             raise ValueError(
                 f"the model's {experts} experts do not divide over the "
                 f"expert mesh axis {sizes['expert']}")
         whole = whole_shapes(self.model)
         params = dict(self.model.named_parameters())
+        stages = getattr(mcfg, "pipeline_stages", 1)
         bad = []
+        if sizes["pipeline"] > 1:
+            if self.pipe is None or stages != sizes["pipeline"] or \
+                    getattr(self.model, "pipeline", None) != self.pipe:
+                raise ValueError(
+                    f"mesh {sizes} needs the model built for this rank's "
+                    f"stage of {sizes['pipeline']} (`pipeline=`), got "
+                    f"{stages} stages")
+            held = set(held_layers(mcfg.num_layers, stages, self.pipe))
+            want = {n for n in whole_shapes(whole_model(self.model))
+                    if (int(n.split(".")[1]) in held
+                        if n.startswith("layers.")
+                        else leaf_owner(self.model, n) == self.pipe.rank)}
+            bad += sorted(want ^ set(params))
         for name, spec in specs.items():
+            shape, full = tuple(params[name].shape), whole[name]
+            if stages > 1 and name.startswith("layers."):
+                # a stage stack's leaf: this rank holds one stage of it
+                # (the model holding every stage holds each whole)
+                if sizes["pipeline"] > 1 and spec[:1] != ("pipeline",):
+                    bad.append(name)
+                    continue
+                spec, full = spec[1:], full[1:]
             if is_replicated(spec):
-                ok = tuple(params[name].shape) == whole[name]
+                ok = shape == full
             else:
                 ok = (spec[0] == "expert" and is_replicated(spec[1:])
-                      and params[name].shape[0] * sizes["expert"]
-                      == whole[name][0])
+                      and shape[0] * sizes["expert"] == full[0]
+                      and shape[1:] == full[1:])
             if not ok:
                 bad.append(name)
         if bad:
             raise ValueError(
                 f"mesh {sizes} lays out {sorted(bad)[:3]}... in a way the "
-                f"port's step does not run (it keeps leaves whole, or an "
-                f"expert stack's block of E/ep experts a rank: build the "
-                f"model with this rank's `expert` shard)")
+                f"port's step does not run (it keeps leaves whole, an "
+                f"expert stack's block of E/ep experts a rank, or a "
+                f"pipeline stage's layers: build the model with this "
+                f"rank's `expert` and `pipeline` shards)")
 
     # ---- state -----------------------------------------------------------
 
@@ -441,11 +539,19 @@ class Trainer:
         opt.zero_grad(set_to_none=True)
         a = self.cfg.accum_steps
         micro = self._microbatches(batch) if a > 1 else [batch]
-        with sequence_parallel(self.seq):
-            loss_sum, w_sum, step_aux = self._forward_backward(
+        if self.pipe is not None:
+            loss_sum, w_sum, step_aux = self._pipeline_forward_backward(
                 state, model, micro)
+        else:
+            with sequence_parallel(self.seq):
+                loss_sum, w_sum, step_aux = self._forward_backward(
+                    state, model, micro)
         if self.distributed:
             loss_sum = self._all_reduce_grads(params, loss_sum)
+        if self.pipe is not None:
+            # the stages' partial losses and aux values (the last stage's
+            # loss; each stage's layers' aux), summed: every rank's
+            loss_sum, step_aux = self._pipeline_sum(loss_sum, step_aux)
         if a > 1:
             w_sum = w_sum.clamp_min(1e-9)
             for p in params:
@@ -460,7 +566,8 @@ class Trainer:
                 [p.grad for p in params if id(p) not in blocks],
                 MAX_GRAD_NORM,
                 sharded=[p.grad for p in params if id(p) in blocks],
-                group=None if self.expert is None else self.expert.group)
+                group=None if self.expert is None else self.expert.group,
+                stage_group=None if self.pipe is None else self.pipe.group)
         # optax evaluates the schedule at the update count BEFORE this
         # update: the first update runs at schedule(0)
         lr = self.schedule(state.step)
@@ -528,6 +635,140 @@ class Trainer:
         return dropout_rows(self.data_rank * rows, self.data_world * rows,
                             *cols)
 
+    def _pipeline_forward_backward(self, state: TrainState, model, micro):
+        """This stage's part of every accumulation microbatch's pipelined
+        forward and backward (parallel/pipeline.py `run_schedule`) →
+        (this stage's partial loss sum, weight sum (None without
+        accumulation), this stage's aux values)."""
+        pipe, group = self.pipe, self._group
+        a, m = len(micro), self.pipeline_microbatches
+        # the global batch's denominators, before any backward
+        counts = torch.stack([self.task.item_counts(sub) for sub in micro])
+        torch.distributed.all_reduce(counts, group=group)
+        loss_sum = torch.zeros((), device=self.device)
+        w_sum = torch.zeros((), device=self.device) if a > 1 else None
+        step_aux: Dict[str, List[torch.Tensor]] = {}
+        routed = _moe_collector(model) is not None
+        dtype = model.cfg.dtype
+        for i, sub in enumerate(micro):
+            w = self.task.loss_weight(counts[i]) if a > 1 else None
+            rows = next(iter(sub.values())).shape[0] // m
+            parts = [{k: v[j * rows:(j + 1) * rows] for k, v in sub.items()}
+                     for j in range(m)]
+            gen_state = self._stage_dropout_state(state.step, i, sub)
+            saved: Dict[int, Tuple] = {}
+            partial = torch.zeros((), device=self.device)
+            aux = torch.zeros((), device=self.device)
+
+            def forward(j, x, i=i, w=w, parts=parts, gen_state=gen_state,
+                        saved=saved):
+                nonlocal partial, aux
+                part = parts[j]
+                gen = None
+                if gen_state is not None:
+                    gen = torch.Generator(device=self.device)
+                    gen.set_state(gen_state)
+                with self._microbatch_rows(j, rows):
+                    if pipe.first:
+                        x = model.embed(part["input_ids"],
+                                        part.get("token_type_ids"))
+                    else:
+                        x.requires_grad_()
+                    moe = _moe_collector(model) if routed else None
+                    y = model.stage(x, attention_mask=self.task.model_mask(
+                        part), dropout_generator=gen, moe=moe)
+                objective = None
+                share = moe_aux_share(moe, group)
+                if share is not None:
+                    objective = share[0]
+                    aux = aux + share[1]
+                if pipe.last:
+                    head, _ = self.task.head_loss(model, y, part,
+                                                  counts=counts[i])
+                    objective = head if objective is None else \
+                        head + objective
+                    y = None
+                else:
+                    y = y.to(dtype)
+                if objective is not None:
+                    partial = partial + objective.detach()
+                    if w is not None:
+                        objective = objective * w
+                saved[j] = (x, y, objective)
+                return y
+
+            def backward(j, g, saved=saved):
+                x, y, objective = saved.pop(j)
+                if y is None:
+                    torch.autograd.backward(objective)
+                elif objective is None:
+                    torch.autograd.backward(y, g)
+                else:
+                    torch.autograd.backward(
+                        [y, objective], [g, torch.ones_like(objective)])
+                return None if pipe.first else x.grad
+
+            like = torch.empty(
+                (rows, sub["input_ids"].shape[1], model.cfg.hidden_size),
+                dtype=dtype, device=self.device)
+            self.stage_live = run_schedule(pipe, model.cfg.pipeline_schedule,
+                                           m, forward, backward, like)
+            if w is None:
+                loss_sum = partial
+            else:
+                loss_sum = loss_sum + partial * w
+                w_sum = w_sum + w
+            if routed:
+                step_aux.setdefault("moe_aux_loss", []).append(aux)
+        return loss_sum, w_sum, step_aux
+
+    def _pipeline_sum(self, loss: torch.Tensor,
+                      step_aux: Dict[str, List[torch.Tensor]]):
+        """Sum the stages' partial loss and aux values over the pipeline
+        group (one all-reduce): every rank gets the step's."""
+        keys = sorted(step_aux)
+        flat = torch.stack([loss.float()] + [v.float() for k in keys
+                                             for v in step_aux[k]])
+        torch.distributed.all_reduce(flat, group=self.pipe.group)
+        out: Dict[str, List[torch.Tensor]] = {}
+        off = 1
+        for k in keys:
+            n = len(step_aux[k])
+            out[k] = list(flat[off:off + n].clone().unbind(0))
+            off += n
+        return flat[0].clone(), out
+
+    def _stage_dropout_state(self, step: int, micro: int, sub):
+        """The state this stage's dropout generator starts each pipeline
+        microbatch from (None without dropout): accumulation microbatch
+        `micro`'s world-1 generator after the earlier stages' layers have
+        drawn their masks for the whole (global) microbatch."""
+        kwargs = self._loss_kwargs(step, micro)
+        gen = kwargs.get("dropout_generator")
+        if gen is None:
+            return None
+        from kubeflow_tpu_torch.models.layers import advance_dropout
+
+        rows, seq = sub["input_ids"].shape
+        layers = self.pipe.rank * (self.model.cfg.num_layers
+                                   // self.pipe.size)
+        draws = layers * type(next(iter(self.model.layers))).DROPOUT_DRAWS
+        advance_dropout(gen, draws, (rows * self.data_world, seq,
+                                     self.model.cfg.hidden_size))
+        return gen.get_state()
+
+    def _microbatch_rows(self, j: int, rows: int):
+        """Pipeline microbatch j's rows (`rows` on this rank) of the
+        global accumulation microbatch a world-1 dropout draws for: its
+        data shard's block of global microbatch j."""
+        if not self._dropout:
+            return contextlib.nullcontext()
+        from kubeflow_tpu_torch.models.layers import dropout_rows
+
+        shard = rows * self.data_world
+        return dropout_rows(j * shard + self.data_rank * rows,
+                            shard * self.pipeline_microbatches)
+
     def _all_reduce_grads(self, params, loss_part: torch.Tensor
                           ) -> torch.Tensor:
         """Sum every gradient (and the loss's partial sum) over the data
@@ -581,12 +822,17 @@ class Trainer:
                 if self.seq is not None:
                     batch_np = shard_columns(batch_np, self.seq.rank,
                                              self.seq.size)
-                stats = self.task.eval_stats(
-                    state.model, to_device(batch_np, self.device))
-                sums = torch.stack([stats["correct"], stats["count"],
-                                    stats["loss_sum"]])
+                batch = to_device(batch_np, self.device)
+                if self.pipe is not None:
+                    sums = self._pipeline_eval_sums(state.model, batch)
+                else:
+                    stats = self.task.eval_stats(state.model, batch)
+                    sums = torch.stack([stats["correct"], stats["count"],
+                                        stats["loss_sum"]])
                 if self.distributed:
                     torch.distributed.all_reduce(sums, group=self._group)
+                if self.pipe is not None:
+                    torch.distributed.all_reduce(sums, group=self.pipe.group)
                 values = sums.tolist()
                 correct += values[0]
                 count += values[1]
@@ -596,6 +842,29 @@ class Trainer:
         return {"top1": correct / count, "loss": loss_sum / count,
                 "count": count}
 
+    def _pipeline_eval_sums(self, model, batch) -> torch.Tensor:
+        """One eval batch's three sums through the stages (forward only;
+        zeros on every stage but the last)."""
+        out = []
+
+        def forward(x):
+            if self.pipe.first:
+                x = model.embed(batch["input_ids"],
+                                batch.get("token_type_ids"))
+            y = model.stage(x, attention_mask=batch["attention_mask"])
+            if self.pipe.last:
+                stats = self.task.head_eval_stats(model, y, batch)
+                out.append(torch.stack([stats["correct"], stats["count"],
+                                        stats["loss_sum"]]))
+                return None
+            return y.to(model.cfg.dtype)
+
+        ids = batch["input_ids"]
+        like = torch.empty(tuple(ids.shape) + (model.cfg.hidden_size,),
+                           dtype=model.cfg.dtype, device=self.device)
+        run_forward(self.pipe, forward, like)
+        return out[0] if out else torch.zeros(3, device=self.device)
+
     def rank_flops(self, batch) -> float:
         """This rank's share of an LM train step's model FLOPs at this
         rank's `batch` (observability/mfu.py `rank_train_flops`: the
@@ -603,10 +872,13 @@ class Trainer:
         count = (encoder_train_flops if self.task.name == "mlm"
                  else lm_train_flops)
         seq = 1 if self.seq is None else self.seq.size
+        stage = (None, 1) if self.pipe is None else (self.pipe.rank,
+                                                     self.pipe.size)
         return rank_train_flops(count, self.model.cfg,
                                 *batch["input_ids"].shape,
                                 data=self.data_world, sequence=seq,
-                                expert=self.cfg.mesh.expert)
+                                expert=self.cfg.mesh.expert,
+                                stage=stage[0], stages=stage[1])
 
     def step_flops(self, batch) -> float:
         """FLOPs of one training step of this model at `batch`'s shapes
@@ -798,9 +1070,10 @@ class Trainer:
                 t_last = now
                 steps_since_log = 0
                 # the global step's items: every rank feeds as many, and
-                # the expert ranks of a data shard feed the same ones
+                # the expert ranks and stages of a data shard feed the
+                # same ones
                 items = (self.task.count_items(batch_np) * self.world
-                         // self.cfg.mesh.expert)
+                         // (self.cfg.mesh.expert * self.cfg.mesh.pipeline))
                 step_hist.observe(dt, model=model_label)
                 thpt.set(items / dt, model=model_label)
                 # the window's last step's aux, read after the losses' sync

@@ -203,13 +203,13 @@ def test_seeded_init_follows_flaxs_distributions():
     dict(attention_impl="ring"), dict(attention_impl="ulysses"),
     dict(pipeline_stages=2), dict(pipeline_schedule="1f1b")])
 def test_unported_options_raise_naming_roadmap(bad):
-    """The pipeline knobs still raise naming ROADMAP; ring and ulysses
-    attention are ported (parallel/), so those configs build."""
-    if "attention_impl" in bad:
-        assert BertConfig(**bad).attention_impl == bad["attention_impl"]
-        return
-    with pytest.raises(ValueError, match="ROADMAP"):
-        BertConfig(**bad)
+    """Ring and ulysses attention (parallel/) and the pipeline knobs
+    (`PipelinedEncoder`'s, parallel/pipeline.py) are ported, so those
+    configs build; an unknown schedule still raises."""
+    for name, value in bad.items():
+        assert getattr(BertConfig(**bad), name) == value
+    with pytest.raises(ValueError, match="schedule"):
+        BertConfig(pipeline_schedule="rolling")
 
 
 def test_bert_needs_cuda_unless_the_cpu_is_asked_for():

@@ -25,7 +25,6 @@ gang's own losses. The ranks' FLOP counts sum to world 1's. The last test
 rehearses chip_smoke.py's phase 20 at gpt_tiny_moe size.
 """
 
-import importlib.util
 import os
 import shutil
 
@@ -79,7 +78,12 @@ from test_torch_data_parallel import (  # noqa: E402
     VOCAB,
     write_token_data,
 )
-from torch_gangs import REPO, run_gang  # noqa: E402
+from torch_gangs import (  # noqa: E402
+    REPO,
+    SMOKE_EXPERT,
+    rehearse_smoke,
+    run_gang,
+)
 
 # model → (TrainingConfig fields, the data stream)
 MODELS = {
@@ -559,7 +563,8 @@ def test_an_expert_gangs_checkpoint_restores_at_world_1_and_in_jax(
 def test_the_moe_config_loads_as_it_is():
     """configs/gpt_moe_v5e16.yaml's training block loads unedited; an
     expert axis that does not divide the experts raises naming both
-    numbers; the pipeline config still raises naming its item."""
+    numbers; the pipeline config loads unedited too (its axis is
+    ported)."""
     import yaml
 
     with open(os.path.join(REPO, "configs", "gpt_moe_v5e16.yaml")) as f:
@@ -575,8 +580,9 @@ def test_the_moe_config_loads_as_it_is():
     with open(os.path.join(REPO, "configs",
                            "gpt_pipeline_1f1b_v5e16.yaml")) as f:
         spec = yaml.safe_load(f)
-    with pytest.raises(ConfigError, match="A13 item 4"):
-        TrainingConfig.from_dict(spec["training"])
+    cfg = TrainingConfig.from_dict(spec["training"])
+    assert cfg.mesh.pipeline == 4
+    assert cfg.pipeline_schedule == "1f1b"
 
 
 def test_the_launcher_takes_the_moe_config_file_as_it_is():
@@ -678,20 +684,13 @@ def test_the_bridge_loads_a_whole_stack_into_a_block():
                                        rtol=0, atol=0)
 
 
-def test_chip_smoke_phase_20_rehearsal():
-    """Phase 20 of chip_smoke.py on the CPU at gpt_tiny_moe size: 20a's
-    `{expert: 4}` gang against world 1 (losses, replicated leaves bit for
-    bit, a quarter of the stack bytes a rank), 20b's `{sequence: 2}`
-    gang, 20c's checkpoint restored at world 1 (the blocks joined)."""
-    path = os.path.join(REPO, "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    launches = smoke.phase_expert(
-        torch, device="cpu",
-        overrides=dict(model="gpt_tiny_moe", seq_len=32, dtype="float32",
-                       loss_chunk=16, attention_impl="dense"),
-        seq_overrides=dict(model="gpt_tiny_moe", seq_len=64,
-                           dtype="float32", loss_chunk=16))
-    assert launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                        "flash_bwd_dkv": 0}
+def test_chip_smoke_phase_20_rehearsal(tmp_path):
+    """Phase 20 of chip_smoke.py on the CPU at gpt_tiny_moe size, through
+    `phase_gangs` as main runs it: 20a's `{expert: 4}` gang against world
+    1 (losses, replicated leaves bit for bit, a quarter of the stack bytes
+    a rank), 20b's `{sequence: 2}` gang (and rank 0's final weights
+    against world 1's update), 20c's checkpoint restored at world 1 (the
+    blocks joined)."""
+    launches = rehearse_smoke(tmp_path, expert=SMOKE_EXPERT)
+    assert launches == {"expert": {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                   "flash_bwd_dkv": 0}}

@@ -270,13 +270,24 @@ UNPORTED = [("fsdp", "A13 item 1 (fsdp)"), ("tensor", "A13 item 2"),
 @pytest.mark.parametrize("axis,item", UNPORTED, ids=[a for a, _ in UNPORTED])
 def test_config_refuses_each_unported_axis_naming_its_item(axis, item):
     """Each axis still unported raises naming its item; the sequence axis
-    (A13 item 5) and the expert axis (A13 item 3) are ported, so their
-    configs are accepted."""
-    if axis in ("sequence", "expert"):
+    (A13 item 5), the expert axis (A13 item 3) and the pipeline axis (A13
+    item 4) are ported, so their configs are accepted: the pipeline
+    config's training block loads unedited."""
+    if axis in ("sequence", "expert", "pipeline"):
         cfg = TrainingConfig.from_dict({"model": "gpt_tiny",
                                         "mesh": {axis: 2}})
         assert getattr(cfg.mesh, axis) == 2
         assert getattr(MeshConfig(**{axis: 2}), axis) == 2
+        if axis == "pipeline":
+            import yaml
+
+            with open(os.path.join(os.path.dirname(os.path.dirname(
+                    os.path.abspath(__file__))), "configs",
+                    "gpt_pipeline_1f1b_v5e16.yaml")) as f:
+                spec = yaml.safe_load(f)
+            cfg = TrainingConfig.from_dict(spec["training"])
+            assert cfg.mesh.pipeline == 4
+            assert cfg.pipeline_schedule == "1f1b"
         return
     with pytest.raises(ConfigError, match=item.replace("(", r"\(").replace(
             ")", r"\)")):

@@ -277,9 +277,8 @@ def test_the_presets_build_with_the_reference_shapes():
     assert tuple(sd["layers.0.moe.router"].shape) == (768, 8)
     assert "layers.0.mlp_wi.kernel" not in sd
     assert sum(t.numel() for t in sd.values()) == 559_426_560
-    # the pipeline knobs still raise, naming their item
-    with pytest.raises(ValueError, match="ROADMAP A13 item 4"):
-        BertConfig(num_experts=4, pipeline_stages=2)
+    # the pipeline knobs build (the pipeline axis is ported)
+    assert BertConfig(num_experts=4, pipeline_stages=2).pipeline_stages == 2
 
 
 def test_bert_moe_init_follows_flax_initializers():

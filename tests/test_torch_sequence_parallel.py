@@ -24,7 +24,6 @@ mask) train in both gangs as the JAX trainer does. The last test
 rehearses chip_smoke.py's phase 19 at gpt_tiny size.
 """
 
-import importlib.util
 import json
 import os
 import shutil
@@ -78,7 +77,14 @@ from test_torch_data_parallel import (  # noqa: E402
     data_cfg,
     task_kw,
 )
-from torch_gangs import REPO, RANK_TIMEOUT_S, free_port, run_gang  # noqa: E402
+from torch_gangs import (  # noqa: E402
+    REPO,
+    RANK_TIMEOUT_S,
+    SMOKE_SEQ,
+    free_port,
+    rehearse_smoke,
+    run_gang,
+)
 
 MODELS = ("gpt_tiny", "bert_tiny")
 IMPLS = ("ring", "ulysses")
@@ -458,18 +464,12 @@ def test_a_model_refuses_a_shard_it_cannot_attend_across():
             gpt.prefill(ids)
 
 
-def test_chip_smoke_phase_19_rehearsal():
-    """Phase 19 of chip_smoke.py on the CPU at gpt_tiny size: 19a's and
-    19b's two-rank gangs (ring, Ulysses) against world 1 (losses, equal
-    weights across the ranks), 19c's ring ranks 0 and 7 against one
-    causal call over the whole sequence."""
-    path = os.path.join(REPO, "chip_smoke.py")
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    launches = smoke.phase_sequence(
-        torch, device="cpu",
-        overrides=dict(model="gpt_tiny", seq_len=64, dtype="float32",
-                       loss_chunk=16),
-        ring_cost=dict(b=1, s=64, n=8, h=4, d=16, dtype=torch.float32))
-    assert launches == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+def test_chip_smoke_phase_19_rehearsal(tmp_path):
+    """Phase 19 of chip_smoke.py on the CPU at gpt_tiny size, through
+    `phase_gangs` as main runs it: 19a's and 19b's two-rank gangs (ring,
+    Ulysses) against world 1 (losses, equal weights across the ranks,
+    rank 0's final weights against world 1's update), 19c's ring ranks 0
+    and 7 against one causal call over the whole sequence."""
+    launches = rehearse_smoke(tmp_path, seq=SMOKE_SEQ)
+    assert launches == {"seq": {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                "flash_bwd_dkv": 0}}

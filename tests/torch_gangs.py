@@ -1,7 +1,8 @@
-"""Shared by the port's sequence-parallel tests: start a gang of the
-port's ranks on the CPU (one process a rank, gloo over 127.0.0.1, the
-env `render_gang_env` gives each) running a worker's source, and read
-each rank's result line. Imports no JAX."""
+"""Shared by the port's gang tests: start a gang of the port's ranks on
+the CPU (one process a rank, gloo over 127.0.0.1, the env
+`render_gang_env` gives each) running a worker's source, and read each
+rank's result line; rehearse chip_smoke.py's gang phases (19-21) on the
+CPU. Imports no JAX."""
 
 import json
 import os
@@ -53,3 +54,54 @@ def run_gang(worker: str, job: dict, world: int, name: str = "sp-test"):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+
+
+def chip_smoke():
+    """chip_smoke.py, loaded as a module."""
+    import importlib.util
+
+    path = os.path.join(REPO, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# the cells of chip_smoke.py's phases 19-21 at test size, f32 on the CPU:
+# each phase's plan keywords (its `phase_gangs` argument)
+SMOKE_SEQ = {"overrides": dict(model="gpt_tiny", seq_len=64,
+                               dtype="float32", loss_chunk=16)}
+SMOKE_EXPERT = {
+    "overrides": dict(model="gpt_tiny_moe", seq_len=32, dtype="float32",
+                      loss_chunk=16, attention_impl="dense"),
+    "seq_overrides": dict(model="gpt_tiny_moe", seq_len=64,
+                          dtype="float32", loss_chunk=16)}
+SMOKE_PIPELINE = {"overrides": dict(model="gpt_tiny", seq_len=32,
+                                    dtype="float32", attention_impl="dense"),
+                  "model_kwargs": {"num_layers": 4}}
+# 19c's ring ranks at test size (phase_ring_cost's keywords, but dtype)
+SMOKE_RING_COST = dict(b=1, s=64, n=8, h=4, d=16)
+
+
+def rehearse_smoke(root, seq=None, expert=None, pipeline=None):
+    """chip_smoke.py's phases 19-21 as `main` runs them, on the CPU:
+    `phase_gangs` (the same gangs, the given phases' cells), then each
+    given phase's world 1 and gates on its gang's reports → {phase:
+    its flash launches}."""
+    import torch
+
+    smoke = chip_smoke()
+    gangs = smoke.phase_gangs(torch, str(root), device="cpu", seq=seq,
+                              expert=expert, pipeline=pipeline)
+    out = {}
+    if seq is not None:
+        out["seq"] = smoke.phase_sequence(
+            torch, gangs["seq"], device="cpu",
+            ring_cost=dict(SMOKE_RING_COST, dtype=torch.float32))
+    if expert is not None:
+        out["expert"] = smoke.phase_expert(torch, gangs["expert"],
+                                           device="cpu")
+    if pipeline is not None:
+        out["pipeline"] = smoke.phase_pipeline(torch, gangs["pipeline"],
+                                               device="cpu")
+    return out
