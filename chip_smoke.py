@@ -197,7 +197,7 @@ Phases (any failure raises and the script exits non-zero):
    timings (`bert_call`, `bert_call_unmasked`).
 17. Data-parallel training through the gang launcher: ranks are
    subprocesses (`python3 chip_smoke.py --gang-rank`, env from
-   `render_gang_env` on 127.0.0.1 and a free port, each with its own
+   `render_gang_env` on 127.0.0.1 and a held port, each with its own
    time limit, every rank killed on a failure). 17a: GANG_RESNET_CFG
    (15a's one-card share of configs/resnet50_imagenet_v5e16.yaml with
    `mesh: {data: 1}`) through `runtime/launcher.py main` at world 1 over
@@ -330,6 +330,28 @@ Phases (any failure raises and the script exits non-zero):
    joined, bit for bit, and it resumes to the gang's step-3 loss within
    GANG_LOSS_REL. The kernels line gives each flash row its
    `pp_launches` (21a; a row at 0 fails).
+22. The job path (cluster/, controllers/gpujob.py and studyjob.py,
+   runtime/executor.py), the control plane in its background mode (the
+   ControllerManager's threads and the PodExecutor's loop). 22a:
+   bench.py's LR sweep as a StudyJob: STUDY_TRIAL (resnet50, global batch
+   128, 10 steps) over STUDY_RATES, each trial a GPUTrainJob on h100-1
+   run in this process by InProcessTrainerRunner, parallelism 1,
+   maximize items_per_sec. Gates: Completed with every trial succeeded,
+   bestTrial the argmax of the trials' trainingMetrics, each trial's pod
+   env carrying its own rate, finite losses, trial 0's final loss within
+   GANG_LOSS_REL of a direct `run_training` here. Printed: trials/hr,
+   each trial's wall s, items/sec and loss, the best trial. 22b:
+   GANG_GPT_CFG at JOB_STEPS steps, a commit every JOB_SAVE, as a
+   GPUTrainJob (maxRestarts 1) through SubprocessPodRunner (one
+   `runtime/launcher.py` child a pod, world 1 over NCCL); the spec's
+   chaos plan JOB_PLAN, rendered by the controller, fails attempt 0 at
+   step JOB_SAVE + 1. Gates: Restarting then Succeeded with restarts 1,
+   attempt 0 failed at the plan, the second pod's env with
+   KFT_RESTORE_DIR, attempt 1 resumed at step JOB_SAVE to JOB_STEPS,
+   its losses within JOB_LOSS_REL (bit for bit) of an uninterrupted run
+   here, each attempt's flash launches (its launcher line's
+   `kernel_launches`) the formula. The kernels line gives each flash
+   row its `job_launches` (both attempts; a row at 0 fails).
 
 Every phase prints its seconds, and the line before the nvidia-smi line
 the whole run's. The last lines are the nvidia-smi line, a {"kernels":
@@ -694,6 +716,28 @@ EXPERT_SEQ_CFG = dict(MOE_TRAIN_CFG, seq_len=2048, global_batch_size=2,
 PIPELINE_CONFIG = os.path.join("configs", "gpt_pipeline_1f1b_v5e16.yaml")
 PIPELINE_SAVE, PIPELINE_WIDE_M = 2, 8
 PIPELINE_CUT = dict(steps=3, warmup_steps=2, attention_impl="flash")
+# phase 22: the job path (cluster/, controllers/gpujob.py and studyjob.py,
+# runtime/executor.py). 22a: bench.py's `bench_studyjob_trials`, the
+# BASELINE's "Katib StudyJob HP sweep over tf-cnn learning rate", as a
+# StudyJob of GPUTrainJob trials (h100-1, `mesh: {data: 1}`): resnet50 at
+# a global batch of 128, 10 steps, checkpoints off, learning_rate over
+# STUDY_RATES, parallelism 1, objective maximize items_per_sec, each trial
+# run in this process by PodExecutor(InProcessTrainerRunner()). 22b:
+# GANG_GPT_CFG (phase 8's cell) at JOB_STEPS steps with a commit every
+# JOB_SAVE, one GPUTrainJob (h100-1, maxRestarts 1) through
+# SubprocessPodRunner: one launcher child a pod, world 1 over NCCL. Its
+# spec's chaos plan JOB_PLAN fails attempt 0 at the device step after the
+# step-JOB_SAVE commit; the restart resumes from that step. Its final loss
+# against an uninterrupted in-process run of the same config: JOB_LOSS_REL
+# (0: bit for bit, as phase 12's resume)
+STUDY_RATES = (0.1, 0.03, 0.01, 0.003)
+STUDY_TRIAL = dict(model="resnet50", global_batch_size=128, steps=10,
+                   mesh={"data": 1}, checkpoint={"enabled": False})
+JOB_STEPS, JOB_SAVE = 4, 2
+JOB_PLAN = f"trainer.device_step:after={JOB_SAVE},once,attempt=0"
+JOB_LOSS_REL = 0.0
+# the whole phase's time limit for each of 22a's study and 22b's job
+JOB_TIMEOUT_S = 2 * GANG_RANK_TIMEOUT_S
 
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
@@ -3610,22 +3654,22 @@ def run_gang_runs(torch, name, runs, world, root, **job):
 
 def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
     """Start `world` ranks of `python3 chip_smoke.py --gang-rank` with
-    render_gang_env's env (127.0.0.1 and a free port), each with its own
-    time limit; → [(launcher result or None, GANG report)] in rank order.
-    Any failure kills every rank and raises."""
-    import socket
-
-    from kubeflow_tpu_torch.parallel.distributed import render_gang_env
+    render_gang_env's env (127.0.0.1 and a port held until the gang
+    ends: `reserve_port`), each with its own time limit; → [(launcher
+    result or None, GANG report)] in rank order. Any failure kills every
+    rank and raises."""
+    from kubeflow_tpu_torch.parallel.distributed import (
+        render_gang_env,
+        reserve_port,
+    )
 
     root = job.pop("root")
     cfg_path = os.path.join(root, f"{name}.json")
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    held = reserve_port()
     envs = render_gang_env(name, hosts or ["127.0.0.1"] * world,
-                           coordinator_port=port)
+                           coordinator_port=held.getsockname()[1])
     here = os.path.dirname(os.path.abspath(__file__))
     procs, logs, outs = [], [], []
     t0 = time.monotonic()
@@ -3673,6 +3717,7 @@ def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
                 p.wait()
         for f in (f for pair in logs for f in pair):
             f.close()
+        held.close()
     print(f"gang {name}: {world} rank(s) in {time.monotonic() - t0:.3f} s "
           f"(process start to exit)", flush=True)
     return outs
@@ -5340,6 +5385,245 @@ def phase_gangs(torch, root, device="cuda", seq=None, expert=None,
             for name, (path, plan) in plans.items()}
 
 
+# -- phase 22: the job path (GPUTrainJob, the pod executor, the StudyJob) ------
+
+
+def job_harness(runner_fn, study=False):
+    """A StateStore, a ControllerManager with the GPUTrainJob controller
+    (and the StudyJob's with `study`), and a PodExecutor over
+    `runner_fn(store)` → (store, cm, executor, runner)."""
+    from kubeflow_tpu_torch.cluster.reconciler import ControllerManager
+    from kubeflow_tpu_torch.cluster.store import StateStore
+    from kubeflow_tpu_torch.controllers.gpujob import GPUTrainJobController
+    from kubeflow_tpu_torch.controllers.studyjob import StudyJobController
+    from kubeflow_tpu_torch.runtime.executor import PodExecutor
+
+    store = StateStore()
+    cm = ControllerManager(store)
+    cm.register(GPUTrainJobController())
+    if study:
+        cm.register(StudyJobController())
+    runner = runner_fn(store)
+    return store, cm, PodExecutor(store, runner), runner
+
+
+def run_to_end(store, cm, executor, kind, name, terminal, timeout_s):
+    """The control plane in its background mode, as a user runs it: the
+    ControllerManager's threads and the PodExecutor's loop, until `kind`
+    `name` holds one of the `terminal` conditions (its status returned);
+    raise at `timeout_s`. Both are stopped on every exit."""
+    cm.start()
+    executor.start()
+    try:
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            status = store.get(kind, name).get("status") or {}
+            if any(c["type"] in terminal and c["status"] == "True"
+                   for c in status.get("conditions", [])):
+                return status
+            time.sleep(0.1)
+        raise AssertionError(f"{kind} {name} did not end in {timeout_s} s: "
+                             f"{store.get(kind, name).get('status')}")
+    finally:
+        executor.stop()
+        cm.stop()
+
+
+def phase_job_study(torch, device="cuda", trial=None):
+    """22a: the LR sweep as a StudyJob of GPUTrainJob trials, run in this
+    process by the in-process pod runner. Gates: the study Completed with
+    every trial succeeded, bestTrial the argmax of the trials'
+    trainingMetrics items_per_sec, each trial's pod env carrying its own
+    rate, every trial's losses finite, and trial 0's final loss within
+    GANG_LOSS_REL of a direct `run_training` of its config here. → the
+    study's seconds."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.controllers.studyjob import new_study_job
+    from kubeflow_tpu_torch.runtime.executor import (
+        InProcessTrainerRunner,
+        pod_env,
+    )
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+
+    trial = dict(STUDY_TRIAL if trial is None else trial)
+    rates = STUDY_RATES
+    dev = None if device == "cuda" else device
+    store, cm, executor, runner = job_harness(
+        lambda store: InProcessTrainerRunner(device=dev), study=True)
+    store.create(new_study_job(
+        "sweep", objective={"type": "maximize", "metric": "items_per_sec"},
+        parameters=[{"name": "training.learning_rate", "type": "double",
+                     "list": list(rates)}],
+        trial_template={"slice": {"topology": "h100-1"}, "training": trial,
+                        "runPolicy": {"maxRestarts": 0,
+                                      "cleanPodPolicy": "None"}},
+        max_trials=len(rates), parallelism=1))
+    t0 = time.monotonic()
+    status = run_to_end(store, cm, executor, "StudyJob", "sweep",
+                        ("Completed", "Failed"), JOB_TIMEOUT_S)
+    seconds = time.monotonic() - t0
+    if status.get("trialsSucceeded") != len(rates) or not any(
+            c["type"] == "Completed" and c["status"] == "True"
+            for c in status["conditions"]):
+        raise AssertionError(f"22a: the study did not complete every trial: "
+                             f"{status}")
+    metrics = [store.get("GPUTrainJob", f"sweep-trial-{i}")["status"][
+        "trainingMetrics"] for i in range(len(rates))]
+    best = status["bestTrial"]
+    argmax = int(np.argmax([m["items_per_sec"] for m in metrics]))
+    if best["index"] != argmax or best["metric"]["items_per_sec"] != metrics[
+            argmax]["items_per_sec"]:
+        raise AssertionError(f"22a: bestTrial {best} is not the argmax "
+                             f"({argmax}) of {metrics}")
+    runs = {r["pod"]: r for r in runner.runs}
+    for i, rate in enumerate(rates):
+        pod = f"sweep-trial-{i}-worker-0"
+        spec = json.loads(pod_env(store.get("Pod", pod))["KFT_TRAINING_SPEC"])
+        res = runs[pod]["result"]
+        if spec["learning_rate"] != rate:
+            raise AssertionError(f"22a: trial {i}'s pod runs rate "
+                                 f"{spec['learning_rate']}, not {rate}")
+        if not all(np.isfinite(loss) for _, loss in res["losses"]) or len(
+                res["losses"]) != trial["steps"]:
+            raise AssertionError(f"22a: trial {i}'s losses {res['losses']}")
+    direct = run_training(TrainingConfig.from_dict(
+        dict(trial, learning_rate=rates[0])), device=dev)
+    first = runs["sweep-trial-0-worker-0"]["result"]["loss"]
+    gap = _rel(first, direct["loss"])
+    print(f"job 22a ({smi_line() if dev is None else dev}): StudyJob of "
+          f"{len(rates)} GPUTrainJob "
+          f"trials ({trial['model']}, global batch "
+          f"{trial['global_batch_size']}, {trial['steps']} steps, "
+          f"learning_rate {list(rates)}) in {seconds:.3f} s = "
+          f"{3600.0 * len(rates) / seconds:.1f} trials/hr; per trial "
+          + ", ".join(
+              f"{i}: {runs[f'sweep-trial-{i}-worker-0']['wall_s']:.3f} s "
+              f"{m['items_per_sec']:.1f} items/s loss "
+              f"{runs[f'sweep-trial-{i}-worker-0']['result']['loss']:.5f}"
+              for i, m in enumerate(metrics))
+          + f"; best trial {best['index']} ({best['parameters']}); trial 0's "
+          f"final loss {first!r} against a direct run's {direct['loss']!r}: "
+          f"rel {gap:.3e}", flush=True)
+    if gap > GANG_LOSS_REL:
+        raise AssertionError(f"22a: trial 0's final loss {first} is {gap:.3e} "
+                             f"from the direct run's {direct['loss']}")
+    return seconds
+
+
+def flash_formula(cfg, steps, layers):
+    """Each flash kernel's launches in `steps` steps of a gpt `cfg`."""
+    a, r = cfg.get("accum_steps", 1), 2 if cfg.get("remat") else 1
+    return {"flash_fwd": steps * layers * a * r,
+            "flash_bwd_dq": steps * layers * a,
+            "flash_bwd_dkv": steps * layers * a}
+
+
+def phase_job_resume(torch, root, layers):
+    """22b: a GPUTrainJob of GANG_GPT_CFG (at JOB_STEPS steps, a
+    commit every JOB_SAVE) through SubprocessPodRunner, its chaos plan
+    JOB_PLAN rendered by the controller. Gates: Restarting then Succeeded
+    with restarts 1; attempt 0 fails at the planned point after the
+    commit; the second pod's env has KFT_RESTORE_DIR and attempt 1; it
+    resumes at step JOB_SAVE and ends at JOB_STEPS within JOB_LOSS_REL of
+    an uninterrupted run here; each attempt's flash launches (its
+    launcher line) the formula. → the job's flash launches, both
+    attempts."""
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.controllers.gpujob import new_gpu_train_job
+    from kubeflow_tpu_torch.runtime.executor import (
+        SubprocessPodRunner,
+        pod_env,
+    )
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+
+    base = dict(GANG_GPT_CFG, steps=JOB_STEPS)
+    ckpt = os.path.join(root, "job-ckpt")
+    spec = dict(base, checkpoint={"directory": ckpt,
+                                  "interval_steps": JOB_SAVE},
+                chaos={"enabled": True, "points": [JOB_PLAN]})
+    store, cm, executor, runner = job_harness(
+        lambda store: SubprocessPodRunner(store))
+    store.create(new_gpu_train_job("resume", max_restarts=1, training=spec,
+                                   slice_spec={"topology": "h100-1"}))
+    # attempt 0's pod as the controller renders it, before any pod runs
+    cm.run_until_idle(max_seconds=10)
+    env0 = pod_env(store.get("Pod", "resume-worker-0"))
+    t0 = time.monotonic()
+    try:
+        status = run_to_end(store, cm, executor, "GPUTrainJob", "resume",
+                            ("Succeeded", "Failed"), JOB_TIMEOUT_S)
+    finally:
+        runner.stop_all()
+    seconds = time.monotonic() - t0
+    env1 = pod_env(store.get("Pod", "resume-worker-0"))
+    conds = {c["type"]: c for c in status["conditions"]}
+    if (env0.get("KFT_CHAOS_POINTS") != JOB_PLAN
+            or env0.get("KFT_CHAOS_ATTEMPT") != "0"
+            or "KFT_RESTORE_DIR" in env0):
+        raise AssertionError(f"22b: attempt 0's env {env0}")
+    if (conds.get("Succeeded", {}).get("status") != "True"
+            or conds.get("Restarting", {}).get("status") != "True"
+            or status.get("restarts") != 1):
+        raise AssertionError(f"22b: the job did not restart once and "
+                             f"succeed: {status}")
+    if env1.get("KFT_RESTORE_DIR") != ckpt or env1.get(
+            "KFT_CHAOS_ATTEMPT") != "1":
+        raise AssertionError(f"22b: attempt 1's env {env1}")
+    by_attempt = {r["attempt"]: r for r in runner.results}
+    first, last = by_attempt[0], by_attempt[1]
+    if first["rc"] == 0 or "trainer.device_step" not in (
+            first["line"] or {}).get("error", ""):
+        raise AssertionError(f"22b: attempt 0 did not fail at the plan: "
+                             f"{first}")
+    res = last["line"]
+    if (last["rc"] != 0 or res["backend"] != "nccl"
+            or res["world_size"] != 1 or "restore_s" not in res
+            or [s for s, _ in res["losses"]] != list(
+                range(JOB_SAVE + 1, JOB_STEPS + 1))
+            or res["final_step"] != JOB_STEPS):
+        raise AssertionError(f"22b: attempt 1 did not resume at step "
+                             f"{JOB_SAVE}: {last}")
+    launches = {}
+    for attempt, steps in ((first, JOB_SAVE), (last, JOB_STEPS - JOB_SAVE)):
+        want = flash_formula(base, steps, layers)
+        got = (attempt["line"] or {}).get("kernel_launches")
+        if got != want:
+            raise AssertionError(f"22b: attempt {attempt['attempt']}'s flash "
+                                 f"launches {got} != {want}")
+        for k, n in got.items():
+            launches[k] = launches.get(k, 0) + n
+    whole = run_training(TrainingConfig.from_dict(base))
+    by_step = dict(whole["losses"])
+    gaps = [_rel(loss, by_step[s]) for s, loss in res["losses"]]
+    print(f"job 22b ({smi_line()}): GPUTrainJob of "
+          f"{base['model']} through SubprocessPodRunner, world 1 over "
+          f"{res['backend']}: attempt 0 failed at {JOB_PLAN!r} after the "
+          f"step-{JOB_SAVE} commit ({first['wall_s']:.3f} s, rc "
+          f"{first['rc']}); attempt 1 resumed with KFT_RESTORE_DIR (restore "
+          f"{res['restore_s']:.3f} s), ran steps {JOB_SAVE + 1}-{JOB_STEPS} "
+          f"({last['wall_s']:.3f} s) to loss {res['loss']!r} against the "
+          f"uninterrupted run's {whole['loss']!r} (rel gaps by step "
+          f"{['%.3e' % g for g in gaps]}); flash launches a attempt "
+          f"{first['line']['kernel_launches']} / "
+          f"{res['kernel_launches']}; the job {seconds:.3f} s", flush=True)
+    if max(gaps) > JOB_LOSS_REL:
+        raise AssertionError(f"22b: the resumed losses {res['losses']} are "
+                             f"{max(gaps):.3e} from the uninterrupted run's "
+                             f"{whole['losses']}")
+    return launches
+
+
+def phase_jobs(torch, layers):
+    """Phase 22: 22a and 22b → 22b's flash launches (both attempts)."""
+    t22 = time.monotonic()
+    phase_job_study(torch)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="kft-job-") as root:
+        launches = phase_job_resume(torch, root, layers)
+    print(f"phase 22: {time.monotonic() - t22:.3f} s", flush=True)
+    return launches
+
+
 class PhaseClock:
     """Seconds from one lap to the next (phases that print their own
     seconds are timed inside), and since the start."""
@@ -5588,7 +5872,17 @@ def main() -> int:
             if rec["pp_launches"] < 1:
                 raise AssertionError(f"the pipeline-parallel path never "
                                      f"launched {rec['name']}")
-    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-21, "
+    torch.cuda.empty_cache()
+    # this slice's path: the job path (22a a StudyJob of GPUTrainJob
+    # trials in process, 22b a GPUTrainJob's pods as launcher children)
+    job_launches = phase_jobs(torch, layers)
+    for rec in kernels:
+        if rec["name"] in job_launches:
+            rec["job_launches"] = job_launches[rec["name"]]
+            if rec["job_launches"] < 1:
+                raise AssertionError(f"the job path never launched "
+                                     f"{rec['name']}")
+    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-22, "
           f"after the interpreter's start)", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,7 @@ is that lever:
   rendered `KFT_CHAOS_POINTS` / `KFT_CHAOS_SEED` / `KFT_CHAOS_ATTEMPT`
   env → `configure_from_env()` in the entrypoints (runtime/train_run.py,
   serving/main.py), exactly like every other platform knob family (the
-  port's controllers that render it wait for ROADMAP A14).
+  port's GPUTrainJob controller, controllers/gpujob.py, renders it).
   `attempt=N` pins a point to one gang incarnation (the TPUJob
   controller renders the generation counter as KFT_CHAOS_ATTEMPT), which
   is what lets "kill the host once, mid-training" be expressed as config
@@ -58,7 +58,7 @@ log = get_logger(__name__)
 # controllers/inference.py) and consumed here via configure_from_env().
 ENV_CHAOS_POINTS = "KFT_CHAOS_POINTS"
 ENV_CHAOS_SEED = "KFT_CHAOS_SEED"
-# The gang incarnation this process runs as (TPUJob controller renders
+# The gang incarnation this process runs as (the GPUTrainJob controller renders
 # its generation counter; absent = 0): `attempt=N` specs fire only when
 # they match, so a fault can target exactly one gang generation — the
 # restarted/reshaped gang re-arms the same plan but its incarnation has

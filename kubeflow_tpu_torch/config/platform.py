@@ -2,7 +2,9 @@
 kubeflow_tpu/config/platform.py's `TrainingConfig`, `MeshConfig`,
 `DataConfig` and `CheckpointConfig` the port's training path honours, of
 `ObservabilityConfig` and `ChaosConfig` both paths read, and of
-`ServingConfig`'s `observability`, `chaos` and `disagg` subtrees).
+`ServingConfig`'s `observability`, `chaos` and `disagg` subtrees), and
+`SliceConfig`, the GPU counterpart of the JAX package's TPU slice request:
+an H100 topology from `GPU_TOPOLOGIES`, one pod a card.
 
 Fields keep the JAX package's names and defaults. A field of the JAX
 config that the port does not honour yet is absent here, so passing it
@@ -83,6 +85,17 @@ class ConfigError(ValueError):
     pass
 
 
+# H100 gangs by card count (the counterpart of the JAX package's
+# TPU_TOPOLOGIES). The port runs one process a rank and one card a
+# process, so a gang is one pod a card; up to 8 share a node.
+GPU_TOPOLOGIES: Dict[str, int] = {
+    f"h100-{n}": n for n in (1, 2, 4, 8, 16, 32, 64)
+}
+GPU_RESOURCE = "nvidia.com/gpu"
+GPU_ACCELERATOR_LABEL = "cloud.google.com/gke-accelerator"
+H100_ACCELERATOR = "nvidia-h100-80gb"
+
+
 def _check_keys(raw: Mapping, cls, unported: Mapping[str, str], path: str):
     known = {f.name for f in dataclasses.fields(cls)}
     for key in raw:
@@ -92,6 +105,58 @@ def _check_keys(raw: Mapping, cls, unported: Mapping[str, str], path: str):
             raise ConfigError(f"{path}{key} is not ported yet: ROADMAP "
                               f"{unported[key]}")
         raise ConfigError(f"unknown field {path}{key}")
+
+
+@dataclasses.dataclass
+class SliceConfig:
+    """The gang's GPU request (the JAX `SliceConfig`'s fields, with H100
+    topologies in place of TPU slices). A "chip" in the controller's
+    vocabulary is one card: `total_chips` is the gang's card count and
+    `total_hosts` its pod count, the same number, as each pod runs one
+    rank on one card (`nvidia.com/gpu: "1"`). `num_slices` groups of the
+    topology join over the network, as TPU slices join over DCN."""
+
+    topology: str = "h100-8"
+    num_slices: int = 1
+    reserved: bool = False
+    spot: bool = False
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.topology not in GPU_TOPOLOGIES:
+            raise ConfigError(
+                f"unknown GPU topology {self.topology!r}; the port "
+                f"schedules H100 gangs: {list(GPU_TOPOLOGIES)}")
+        if not isinstance(self.num_slices, int) or self.num_slices < 1:
+            raise ConfigError("num_slices must be >= 1")
+        if self.reserved and self.spot:
+            raise ConfigError("reserved and spot are mutually exclusive")
+
+    @property
+    def chips_per_slice(self) -> int:
+        return GPU_TOPOLOGIES[self.topology]
+
+    @property
+    def total_chips(self) -> int:
+        return self.chips_per_slice * self.num_slices
+
+    @property
+    def total_hosts(self) -> int:
+        """Pods: one a card."""
+        return self.total_chips
+
+    def node_selectors(self) -> Dict[str, str]:
+        return {GPU_ACCELERATOR_LABEL: H100_ACCELERATOR}
+
+    def resource_requests(self) -> Dict[str, str]:
+        return {GPU_RESOURCE: "1"}
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "SliceConfig":
+        _check_keys(raw, cls, {}, "slice.")
+        return cls(**raw)
 
 
 @dataclasses.dataclass
@@ -542,7 +607,7 @@ class ServingConfig:
                 raise ConfigError(
                     f"serving.chaos.points: {spec.spec_str()!r} uses "
                     f"attempt=, which only gang pods support (the "
-                    f"TPUJob controller renders the incarnation "
+                    f"GPUTrainJob controller renders the incarnation "
                     f"counter; serving replicas have none)"
                 )
 

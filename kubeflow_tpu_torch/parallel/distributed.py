@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 from datetime import timedelta
 from typing import Dict, List, Optional
 
@@ -113,6 +114,21 @@ def render_gang_env(
             }
         )
     return envs
+
+
+def reserve_port(host: str = "127.0.0.1") -> socket.socket:
+    """A coordinator port held for a gang until the returned socket is
+    closed: bound with SO_REUSEADDR and never listening. Rank 0's
+    TCPStore (which binds with SO_REUSEADDR too) listens on it, while the
+    kernel hands it to no other bind(0) or outgoing connection, so no
+    other gang's store or gloo socket can take it between the choice and
+    the rendezvous. (A port bound to probe it and closed at once can be
+    taken in that gap: rank 0 then fails with EADDRINUSE.) The number
+    is `sock.getsockname()[1]`."""
+    sock = socket.socket()
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind((host, 0))
+    return sock
 
 
 def local_rank(environ: Optional[Dict[str, str]] = None) -> int:

@@ -14,12 +14,14 @@ configures the tracer from KFT_TRACE_*, serves the debug surface when
 KFT_DEBUG_PORT is set, runs `run_training` (KFT_RESTORE_DIR set turns on
 the resume) and prints the JAX launcher's result line, `{"job": ...,
 "backend": <the group's backend or null>, **result}`, then leaves the
-group and exits 0 (1 on an error). A config runs as it is: its mesh's
-axes multiply to the gang's world size, one process a rank (e.g.
-configs/gpt_moe_v5e16.yaml's `{data: 8, expert: 4}` is a gang of 32).
-The
-profiler endpoint (KFT_PROFILER_*) is not ported (ROADMAP A14): a set
-knob raises rather than being ignored.
+group and exits 0. A run that raises prints `{"job": ..., "error":
+"<type>: <message>"}` and exits 1. Both lines carry `kernel_launches`,
+the process's flash-kernel launch counts (ops/flash_attention.py; one
+process runs one job, so they are this run's). A config runs as it is:
+its mesh's axes multiply to the gang's world size, one process a rank
+(e.g. configs/gpt_moe_v5e16.yaml's `{data: 8, expert: 4}` is a gang of
+32). The profiler endpoint (KFT_PROFILER_*) is not ported (ROADMAP
+A14): a set knob raises rather than being ignored.
 """
 
 from __future__ import annotations
@@ -106,6 +108,7 @@ def run(config_path: Optional[str] = None, steps: Optional[int] = None,
         device: Optional[str] = None) -> int:
     from kubeflow_tpu_torch.config.platform import TrainingConfig
     from kubeflow_tpu_torch.observability.trace import configure_from_env
+    from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.parallel.distributed import (
         gang_device,
         initialize_from_env,
@@ -129,6 +132,12 @@ def run(config_path: Optional[str] = None, steps: Optional[int] = None,
             steps_override=steps,
             device=dev,
         )
+    except Exception as e:
+        print(json.dumps({"job": gang.job_name,
+                          "error": f"{type(e).__name__}: {e}",
+                          "kernel_launches": dict(fa.launch_counts)}),
+              flush=True)
+        raise
     finally:
         if debug_server is not None:
             debug_server.stop()
@@ -136,7 +145,8 @@ def run(config_path: Optional[str] = None, steps: Optional[int] = None,
 
     dist = torch.distributed
     backend = dist.get_backend() if dist.is_initialized() else None
-    print(json.dumps({"job": gang.job_name, "backend": backend, **result}),
+    print(json.dumps({"job": gang.job_name, "backend": backend, **result,
+                      "kernel_launches": dict(fa.launch_counts)}),
           flush=True)
     shutdown()
     return 0

@@ -37,11 +37,10 @@ points for THIS run only (no plan disarms them), the `gang.host_exit`
 point fires before anything is built, and the plan is disarmed on every
 exit path. The run's KFT_TRACE_* knobs configure the process tracer (the
 run's spans: `train.*`). As in the JAX package, only the env is read:
-the config's `chaos` and `observability` reach a run as the env its
-controller renders, and until that controller is ported a run that sets
-either is refused rather than run without it. Not ported yet (ROADMAP
-A14): the controllers' rendering, the compile cache and the training
-debug server.
+the config's `chaos` and `observability` reach a run as the KFT_CHAOS_*
+and KFT_TRACE_* env the GPUTrainJob controller renders into its pods
+(controllers/gpujob.py); a run given the config alone carries them and
+ignores them. Not ported yet (ROADMAP A14): the compile cache.
 """
 
 from __future__ import annotations
@@ -57,7 +56,7 @@ from kubeflow_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
 
-# Rendered by the TPUJob controller into every gang pod whenever the job
+# Rendered by the GPUTrainJob controller into every gang pod whenever the job
 # checkpoints: the one directory both the periodic saves and the
 # restart-resume path read. Wins over the config knob.
 ENV_CHECKPOINT_DIR = "KFT_CHECKPOINT_DIR"
@@ -78,26 +77,6 @@ def _install_preempt_handler(stop_event: threading.Event):
     except ValueError:  # no signal support in this context
         return lambda: None
     return lambda: signal.signal(signal.SIGTERM, previous)
-
-
-def _refuse_unrendered(cfg: TrainingConfig) -> None:
-    """The config's `chaos` and `observability` take effect as the
-    KFT_CHAOS_*/KFT_TRACE_* env a controller renders into the run, and
-    that rendering is not ported yet: refuse a config that sets either
-    rather than run without it."""
-    from kubeflow_tpu_torch.config.platform import (
-        ChaosConfig,
-        ConfigError,
-        ObservabilityConfig,
-    )
-
-    for name, default in (("chaos", ChaosConfig()),
-                          ("observability", ObservabilityConfig())):
-        if getattr(cfg, name) != default:
-            raise ConfigError(
-                f"{name}: a controller renders it into the run's "
-                f"{'KFT_CHAOS_*' if name == 'chaos' else 'KFT_TRACE_*'} "
-                f"env, not ported yet (ROADMAP A14); set that env instead")
 
 
 def run_training(cfg: TrainingConfig, restore: bool = False,
@@ -122,7 +101,6 @@ def run_training(cfg: TrainingConfig, restore: bool = False,
         configure_from_env as configure_tracer,
     )
 
-    _refuse_unrendered(cfg)
     env = os.environ if environ is None else environ
     if any(key.startswith("KFT_TRACE_") for key in env):
         configure_tracer(env)

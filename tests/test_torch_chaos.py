@@ -11,7 +11,9 @@ CPU.
 - Training: `trainer.device_step` faults a run after its step-2 save and
   a restart resumes to the uninterrupted run's losses and params, bit for
   bit; `gang.host_exit` fails `run_training` before step 1, and the plan
-  is disarmed on every exit path.
+  is disarmed on every exit path. A config's `chaos` and `observability`
+  act only as the KFT_CHAOS_* / KFT_TRACE_* env the GPUTrainJob
+  controller renders from them, as in the JAX package.
 - The engine: an `engine.step` fault fails the residents and runs the
   recovery, which resets the pools, the allocator and the radix index,
   as the JAX engine's does. After it, the same prompt is a prefix MISS in
@@ -53,10 +55,7 @@ from kubeflow_tpu_torch.checkpointing import (  # noqa: E402
     restore_latest,
     restore_params,
 )
-from kubeflow_tpu_torch.config.platform import (  # noqa: E402
-    ConfigError,
-    TrainingConfig,
-)
+from kubeflow_tpu_torch.config.platform import TrainingConfig  # noqa: E402
 from kubeflow_tpu_torch.models import get_model  # noqa: E402
 from kubeflow_tpu_torch.models.convert import load_jax_params  # noqa: E402
 from kubeflow_tpu_torch.observability.trace import (  # noqa: E402
@@ -312,20 +311,46 @@ def test_a_device_step_fault_after_the_step_2_save_resumes_bitwise(tmp_path):
             "train.checkpoint_block", "train.compile_fence"} <= spans
 
 
+def _rendered_env(training):
+    """The env GPUTrainJobController renders into the pod of a one-card
+    job with this training spec (controllers/gpujob.py)."""
+    from kubeflow_tpu_torch.cluster.reconciler import ControllerManager
+    from kubeflow_tpu_torch.cluster.store import StateStore
+    from kubeflow_tpu_torch.controllers.gpujob import (
+        GPUTrainJobController,
+        new_gpu_train_job,
+    )
+    from kubeflow_tpu_torch.runtime.executor import pod_env
+
+    store = StateStore()
+    cm = ControllerManager(store)
+    cm.register(GPUTrainJobController())
+    store.create(new_gpu_train_job("c", training=training,
+                                   slice_spec={"topology": "h100-1"}))
+    cm.run_until_idle(max_seconds=5)
+    return pod_env(store.get("Pod", "c-worker-0"))
+
+
 @pytest.mark.parametrize("source", ["env", "config"])
 def test_gang_host_exit_fails_the_run_before_step_1(tmp_path, source):
     if source == "env":
         cfg = _train_cfg(tmp_path / "c", steps=1)
         environ = {"KFT_CHAOS_POINTS": "gang.host_exit"}
-        error, match = ChaosError, "gang.host_exit"
     else:
-        # only the env is read, as in the JAX package; the config's plan
-        # waits for the controller that renders it, and is refused
-        cfg = _train_cfg(tmp_path / "c", steps=1,
-                         chaos={"enabled": True, "points": ["gang.host_exit"]})
-        environ = {}
-        error, match = ConfigError, "A14"
-    with pytest.raises(error, match=match):
+        # only the env is read, as in the JAX package: the config's plan
+        # alone neither fires nor is refused; the controller renders it
+        # into the pod's env, and that env fires it
+        plan = {"enabled": True, "points": ["gang.host_exit"]}
+        alone = run_training(
+            _train_cfg(tmp_path / "alone", steps=1, chaos=plan,
+                       checkpoint={"enabled": False}),
+            device="cpu", environ={})
+        assert alone["final_step"] == 1
+        cfg = _train_cfg(tmp_path / "c", steps=1, chaos=plan)
+        environ = _rendered_env({**TRAIN, "steps": 1, "chaos": plan})
+        assert environ["KFT_CHAOS_POINTS"] == "gang.host_exit"
+        assert environ["KFT_CHAOS_ATTEMPT"] == "0"
+    with pytest.raises(ChaosError, match="gang.host_exit"):
         run_training(cfg, device="cpu", environ=environ)
     assert default_chaos().enabled is False
     assert latest_committed_step(str(tmp_path / "c")) is None
@@ -333,10 +358,29 @@ def test_gang_host_exit_fails_the_run_before_step_1(tmp_path, source):
 
 def test_a_config_observability_is_refused_until_a_controller_renders_it(
         tmp_path):
-    cfg = _train_cfg(tmp_path / "o", steps=1,
-                     observability={"trace_sample_prob": 0.5})
-    with pytest.raises(ConfigError, match="KFT_TRACE_.*A14"):
-        run_training(cfg, device="cpu", environ={})
+    """The controller renders a config's `observability` (the JAX
+    package's behaviour): the run given the config alone neither refuses
+    it nor applies it, and the pod env GPUTrainJobController renders
+    carries it as KFT_TRACE_*, which the run applies to the tracer."""
+    obs = {"trace_sample_prob": 0.5, "trace_buffer_spans": 64}
+    tracer = default_tracer()
+    before = (tracer._sample_prob, tracer._capacity)
+    cfg = _train_cfg(tmp_path / "o", steps=1, observability=obs,
+                     checkpoint={"enabled": False})
+    try:
+        assert run_training(cfg, device="cpu", environ={})["final_step"] == 1
+        assert (tracer._sample_prob, tracer._capacity) == before
+        environ = _rendered_env({**TRAIN, "steps": 1, "observability": obs,
+                                 "checkpoint": {"enabled": False}})
+        assert {k: v for k, v in environ.items()
+                if k.startswith("KFT_TRACE_")} == {
+            "KFT_TRACE_ENABLED": "1", "KFT_TRACE_BUFFER_SPANS": "64",
+            "KFT_TRACE_STATUSZ": "1", "KFT_TRACE_SAMPLE_PROB": "0.5",
+            "KFT_TRACE_SAMPLE_KEEP": "128"}
+        run_training(cfg, device="cpu", environ=environ)
+        assert (tracer._sample_prob, tracer._capacity) == (0.5, 64)
+    finally:
+        tracer.configure(sample_prob=before[0], capacity=before[1])
     assert latest_committed_step(str(tmp_path / "o")) is None
 
 

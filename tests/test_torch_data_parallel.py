@@ -37,7 +37,6 @@ rel 1e-6, summation order).
 import json
 import os
 import shutil
-import socket
 import subprocess
 import sys
 
@@ -72,6 +71,7 @@ from kubeflow_tpu.training.tasks import (  # noqa: E402
 from kubeflow_tpu.training.trainer import Trainer as JTrainer  # noqa: E402
 from kubeflow_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from kubeflow_tpu_torch.parallel.distributed import render_gang_env  # noqa: E402
+from torch_gangs import free_port  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_REL, PARAM_ATOL, BN_REL = 1e-5, 2e-5, 1e-5
@@ -158,12 +158,6 @@ def main():
     out = run_job(json.loads(os.environ["KFT_TEST_JOB"]))
     print("RESULT " + json.dumps(out), flush=True)
 '''
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def run_gang(job, world):

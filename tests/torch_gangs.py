@@ -6,7 +6,6 @@ CPU. Imports no JAX."""
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -15,10 +14,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANK_TIMEOUT_S = 240
 
 
+# the coordinator ports handed out, each held for the life of this process
+_HELD_PORTS = []
+
+
 def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    """A coordinator port for one gang, held (bound with SO_REUSEADDR,
+    never listening: `reserve_port`) until this process exits. Rank 0's
+    store listens on it, and no other gang's store or gloo socket can be
+    given it in between: a port probed and released at once could be
+    (rank 0 then failed with EADDRINUSE under pytest-xdist)."""
+    from kubeflow_tpu_torch.parallel.distributed import reserve_port
+
+    _HELD_PORTS.append(reserve_port())
+    return _HELD_PORTS[-1].getsockname()[1]
 
 
 def run_gang(worker: str, job: dict, world: int, name: str = "sp-test"):
