@@ -214,8 +214,10 @@ Phases (any failure raises and the script exits non-zero):
    the one card over gloo (`initialize_from_env(backend="gloo")`; NCCL
    refuses two ranks on one device): resnet50 at a global batch of 128
    saved at step 2, and gpt_small at a global batch of 2 at seq 1024,
-   3 steps each (one pair of rank processes runs both in turn),
-   against world-1 runs of the same global batches in this process:
+   3 steps each (the first runs of phase 19's pair of rank processes,
+   started with the gangs of phases 19-23, after phase 18; its gates
+   read after them), against world-1 runs of the same global batches in
+   this process:
    losses within GANG_LOSS_REL, the ranks' losses,
    weights and BatchNorm running averages equal bit for bit, the final
    weights within GANG_STEP_REL of world 1's as a share of world 1's
@@ -263,7 +265,8 @@ Phases (any failure raises and the script exits non-zero):
    remat, loss_chunk 4096, seq 8192 = two shards of the config's 4096,
    global batch 2, 2 steps). 19a: `mesh: {sequence: 2}` by ring
    attention, two ranks of `chip_smoke.py --gang-rank` over gloo on the
-   one card (as 17c; the same two processes then run 19b), against
+   one card (after 17c's runs in the same two processes, which then
+   run 19b; the quartet of phases 20-23 runs at the same time), against
    world 1 in this process (attention "flash" over all
    8192 positions): every step's loss within GANG_LOSS_REL of world
    1's, the final weights bit for bit equal across the ranks, and each
@@ -352,6 +355,26 @@ Phases (any failure raises and the script exits non-zero):
    here, each attempt's flash launches (its launcher line's
    `kernel_launches`) the formula. The kernels line gives each flash
    row its `job_launches` (both attempts; a row at 0 fails).
+23. The fsdp axis (FSDP_CFG: gpt_small at full width, bf16, remat,
+   flash, seq 1024, global batch 8, loss_chunk 1024, 3 steps with warmup
+   2). 23a: `mesh: {fsdp: 4}`, four ranks of `chip_smoke.py --gang-rank`
+   over gloo on the one card (in the quartet of phases 20-21, before
+   20a), each holding its quarter of every leaf whose spec names fsdp,
+   gathered at its use and reduce-scattered back; against world 1 (the
+   same cell at `{data: 1}`) in this process. Gates: the ranks' losses
+   bit for bit equal and within GANG_LOSS_REL of world 1's, the whole
+   leaves bit for bit equal across the ranks, rank 0's gathered final
+   weights within GANG_STEP_REL / GANG_LEAF_STEP_REL of world 1's update,
+   each rank's parameter bytes the specs' formula (`fsdp_param_bytes`)
+   and its AdamW moments twice that, its flash launches, gathers,
+   reduce-scatters and bucket all-reduces their formulas. Printed: the
+   bytes against world 1's, max_memory_allocated a rank against world
+   1's, step ms a rank (a record). 23b: the same on `{data: 2, fsdp:
+   2}`. 23c: 23a's step-FSDP_SAVE checkpoint (each split leaf in 4
+   blocks, written by its rank) restored at world 1: its leaves are the
+   ranks' blocks joined, bit for bit, and it resumes to the gang's
+   step-3 loss within GANG_LOSS_REL. The kernels line gives each flash
+   row its `fsdp_launches` (23a, 23b; a row at 0 fails).
 
 Every phase prints its seconds, and the line before the nvidia-smi line
 the whole run's. The last lines are the nvidia-smi line, a {"kernels":
@@ -716,6 +739,26 @@ EXPERT_SEQ_CFG = dict(MOE_TRAIN_CFG, seq_len=2048, global_batch_size=2,
 PIPELINE_CONFIG = os.path.join("configs", "gpt_pipeline_1f1b_v5e16.yaml")
 PIPELINE_SAVE, PIPELINE_WIDE_M = 2, 8
 PIPELINE_CUT = dict(steps=3, warmup_steps=2, attention_impl="flash")
+# phase 23: the fsdp axis on the one card. 23a: gpt_small at full width
+# (768/12/12/3072/50257), bf16, flash, remat, seq 1024, a global batch of 8
+# (20a's: 8 sequences of 1024, 2 a rank), loss_chunk 1024, 3 steps with
+# warmup 2, on `{fsdp: 4}`: four gloo ranks on the one card, each holding
+# its quarter of every leaf whose spec names fsdp (every kernel on its
+# embed dim, `pos_emb` and the head's kernel; the 50,257-row `tok_emb` and
+# the 1-D leaves whole), saving at FSDP_SAVE. 23b: the same cell on
+# `{data: 2, fsdp: 2}`. Each against world 1 (the same cell at `{data: 1}`)
+# in this process. 23c: 23a's step-FSDP_SAVE checkpoint restored at world
+# 1. Bounds: GANG_LOSS_REL (17c's bf16 bound), rank 0's gathered final
+# weights against world 1's update by GANG_STEP_REL and GANG_LEAF_STEP_REL,
+# a rank's parameter and moment bytes the specs' formula
+# (`fsdp_param_bytes`), the flash launches, gathers, reduce-scatters and
+# bucket all-reduces their formulas
+FSDP_SAVE = 2
+FSDP_CFG = dict(TRAIN_CFG, seq_len=1024, global_batch_size=8, accum_steps=1,
+                loss_chunk=1024, steps=3)
+FSDP_MESHES = (("23a", {"fsdp": 4}), ("23b", {"data": 2, "fsdp": 2}))
+# a gang of phase_gangs: its ranks' time limit (the gangs run at once)
+GANGS_TIMEOUT_S = 600
 # phase 22: the job path (cluster/, controllers/gpujob.py and studyjob.py,
 # runtime/executor.py). 22a: bench.py's `bench_studyjob_trials`, the
 # BASELINE's "Katib StudyJob HP sweep over tf-cnn learning rate", as a
@@ -3559,13 +3602,16 @@ def rank_runs(torch, job):
     "digest_step") every parameter's digest as that update leaves it,
     (with "digests") the final leaves' digests, replicated and expert
     blocks apart, and the rank's coordinates, and on a pipeline axis the
-    rank's stage, microbatches, schedule and live-activation peak. With
-    "out" the rank's final parameters and buffers are saved as
-    `<out>.<rank>.pt` (by the ranks "out_ranks" lists; by default every
-    rank). One process start serves every run."""
+    rank's stage, microbatches, schedule and live-activation peak, and on
+    an fsdp axis its gathers and reduce-scatters. With "out" the rank's
+    final parameters and buffers are saved as `<out>.<rank>.pt` (by the
+    ranks "out_ranks" lists; by default every rank; on an fsdp axis the
+    whole parameters, every rank gathering the blocks). One process start
+    serves every run."""
     import gc
 
     from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.models.layers import gather_fsdp_params
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.parallel import distributed as gd
     from kubeflow_tpu_torch.runtime.train_run import run_training
@@ -3616,15 +3662,23 @@ def rank_runs(torch, job):
                                               trainer._final_state.model)
             rep.update(replicated=replicated, blocks=blocks, blocks_at=at,
                        coords={a: trainer.mesh.get_local_rank(a)
-                               for a in ("data", "expert", "sequence")})
+                               for a in ("data", "fsdp", "expert",
+                                         "sequence")})
         if trainer.pipe is not None:
             rep.update(stage=trainer.pipe.rank,
                        live=trainer.stage_live.peak,
                        microbatches=trainer.pipeline_microbatches,
                        schedule=trainer.model.cfg.pipeline_schedule)
-        if run.get("out") and rank in run.get("out_ranks", [rank]):
-            torch.save(model_arrays(trainer._final_state.model),
-                       f"{run['out']}.{rank}.pt")
+        if run.get("out"):
+            model = trainer._final_state.model
+            if trainer.fsdp is not None:
+                # a collective: every rank gathers the whole parameters
+                arrays = {"params": {n: t.cpu() for n, t in
+                                     gather_fsdp_params(model).items()},
+                          "buffers": model_arrays(model)["buffers"]}
+            if rank in run.get("out_ranks", [rank]):
+                torch.save(arrays if trainer.fsdp is not None
+                           else model_arrays(model), f"{run['out']}.{rank}.pt")
         rep["seconds"] = {"build": built, "run": time.monotonic() - t0}
         out.append(rep)
         # the step closure refers to the trainer: free the run's state
@@ -3641,15 +3695,30 @@ def run_gang_runs(torch, name, runs, world, root, **job):
     """One gang of `world` ranks (mode "runs") running each (config dict,
     run options) of `runs` in turn in the same processes → for each run,
     the ranks' reports in rank order."""
+    return finish_gang_runs(start_gang_runs(torch, name, runs, world, root,
+                                            **job))
+
+
+def start_gang_runs(torch, name, runs, world, root, **job):
+    """`run_gang_runs`' gang started, not waited for (`start_gang`) → its
+    handle for `finish_gang_runs`."""
     specs = []
     for i, (cfg, opts) in enumerate(runs):
         path = os.path.join(root, f"{name}-run{i}.json")
         with open(path, "w") as f:
             json.dump(cfg, f)
         specs.append({"config": path, **opts})
-    outs = run_gang(torch, name, runs[0][0], world, mode="runs", root=root,
-                    runs=specs, **job)
-    return [[rep["runs"][i] for _, rep in outs] for i in range(len(specs))]
+    gang = start_gang(torch, name, runs[0][0], world, mode="runs", root=root,
+                      runs=specs, **job)
+    gang["runs"] = len(specs)
+    return gang
+
+
+def finish_gang_runs(gang):
+    """Wait for a `start_gang_runs` gang → for each run, the ranks'
+    reports in rank order."""
+    outs = finish_gang(gang)
+    return [[rep["runs"][i] for _, rep in outs] for i in range(gang["runs"])]
 
 
 def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
@@ -3658,6 +3727,15 @@ def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
     ends: `reserve_port`), each with its own time limit; → [(launcher
     result or None, GANG report)] in rank order. Any failure kills every
     rank and raises."""
+    return finish_gang(start_gang(torch, name, cfg, world, mode=mode,
+                                  hosts=hosts, **job))
+
+
+def start_gang(torch, name, cfg, world, mode="launcher", hosts=None,
+               timeout_s=GANG_RANK_TIMEOUT_S, **job):
+    """`run_gang`'s processes started, not waited for → the gang's handle
+    for `finish_gang` (which reads it) or `stop_gang` (which kills it).
+    Several gangs may run at once: each holds its own port."""
     from kubeflow_tpu_torch.parallel.distributed import (
         render_gang_env,
         reserve_port,
@@ -3671,26 +3749,52 @@ def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
     envs = render_gang_env(name, hosts or ["127.0.0.1"] * world,
                            coordinator_port=held.getsockname()[1])
     here = os.path.dirname(os.path.abspath(__file__))
-    procs, logs, outs = [], [], []
-    t0 = time.monotonic()
+    gang = {"name": name, "world": world, "procs": [], "logs": [],
+            "held": held, "t0": time.monotonic(),
+            "deadline": time.monotonic() + timeout_s}
     try:
         for i, e in enumerate(envs):
             env = dict(os.environ, **e, KFT_SMOKE_JOB=json.dumps(
                 {"mode": mode, "config": cfg_path,
                  "out": os.path.join(root, name), **job}))
             env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
-            logs.append(tuple(open(os.path.join(root, f"{name}.{i}.{k}"),
-                                   "w+") for k in ("out", "err")))
-            procs.append(subprocess.Popen(
+            gang["logs"].append(tuple(open(os.path.join(
+                root, f"{name}.{i}.{k}"), "w+") for k in ("out", "err")))
+            gang["procs"].append(subprocess.Popen(
                 [sys.executable, os.path.join(here, "chip_smoke.py"),
-                 "--gang-rank"], env=env, cwd=here, stdout=logs[-1][0],
-                stderr=logs[-1][1], text=True))
-        # every rank polled: the first to fail fails the gang at once
-        # (its peers would wait at their next collective until killed)
-        deadline = time.monotonic() + GANG_RANK_TIMEOUT_S
+                 "--gang-rank"], env=env, cwd=here,
+                stdout=gang["logs"][-1][0], stderr=gang["logs"][-1][1],
+                text=True))
+    except BaseException:
+        stop_gang(gang)
+        raise
+    return gang
+
+
+def stop_gang(gang):
+    """Kill a gang's live ranks, close its logs and release its port (a
+    gang already stopped: nothing)."""
+    for p in gang["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    for f in (f for pair in gang["logs"] for f in pair):
+        if not f.closed:
+            f.close()
+    gang["held"].close()
+
+
+def finish_gang(gang):
+    """Wait for a started gang's ranks → [(launcher result or None, GANG
+    report)] in rank order. Every rank is polled: the first to fail (or a
+    rank past the gang's time limit) fails the gang at once, its peers
+    killed (they would wait at their next collective until killed)."""
+    name, procs, logs = gang["name"], gang["procs"], gang["logs"]
+    outs = []
+    try:
         while any(p.poll() is None for p in procs):
             bad = [i for i, p in enumerate(procs) if p.poll() not in (None, 0)]
-            if bad or time.monotonic() > deadline:
+            if bad or time.monotonic() > gang["deadline"]:
                 i = bad[0] if bad else next(
                     i for i, p in enumerate(procs) if p.poll() is None)
                 logs[i][1].seek(0)
@@ -3708,18 +3812,14 @@ def run_gang(torch, name, cfg, world, mode="launcher", hosts=None, **job):
                                      f"{p.returncode}:\n{err[-6000:]}")
             lines = out.splitlines()
             result = [json.loads(ln) for ln in lines if ln.startswith('{"job"')]
-            gang = [json.loads(ln[5:]) for ln in lines if ln.startswith("GANG ")]
-            outs.append((result[-1] if result else None, gang[-1]))
+            reports = [json.loads(ln[5:]) for ln in lines
+                       if ln.startswith("GANG ")]
+            outs.append((result[-1] if result else None, reports[-1]))
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for f in (f for pair in logs for f in pair):
-            f.close()
-        held.close()
-    print(f"gang {name}: {world} rank(s) in {time.monotonic() - t0:.3f} s "
-          f"(process start to exit)", flush=True)
+        stop_gang(gang)
+    print(f"gang {name}: {gang['world']} rank(s) in "
+          f"{time.monotonic() - gang['t0']:.3f} s (process start to exit)",
+          flush=True)
     return outs
 
 
@@ -3830,10 +3930,14 @@ def digest(torch, t):
 
 def leaf_digests(torch, model):
     """({name: digest} of the replicated parameters, {name: digest} of the
-    expert stacks' blocks this model holds)."""
+    blocks this model holds: the expert stacks', the fsdp leaves')."""
+    from kubeflow_tpu_torch.models.layers import fsdp_leaves
+
+    held = fsdp_leaves(model)
     out = ({}, {})
     for name, p in model.named_parameters():
-        out[1 if is_stack(name) else 0][name] = digest(torch, p)
+        out[1 if is_stack(name) or name in held else 0][name] = digest(
+            torch, p)
     return out
 
 
@@ -3853,6 +3957,18 @@ def state_bytes(state):
     return out
 
 
+def fsdp_param_bytes(model, size):
+    """f32 bytes of one fsdp rank's parameters from the specs alone: Σ
+    numel / size over the leaves whose spec names fsdp (models/layers.py
+    `fsdp_leaf_dims` of `model`, a model holding every leaf whole), Σ
+    numel over the rest."""
+    from kubeflow_tpu_torch.models.layers import fsdp_leaf_dims
+
+    split = fsdp_leaf_dims(model, size)
+    return 4 * sum(p.numel() // (size if n in split else 1)
+                   for n, p in model.named_parameters())
+
+
 def update_gap(gang, one, init, skip=()):
     """How far the gang's final weights stray from world 1's, as a share
     of world 1's own update (Frobenius norms): (over every leaf at once,
@@ -3870,27 +3986,32 @@ def update_gap(gang, one, init, skip=()):
     return (gaps / moves) ** 0.5, worst, leaf
 
 
-def phase_gang_two_ranks(torch, root):
-    """17c: two ranks on the one card over gloo (`initialize_from_env(
-    backend="gloo")`; the two "hosts" name the same machine, so each rank
-    is local rank 0 on cuda:0) against world-1 runs of the same global
-    batches in this process."""
-    from kubeflow_tpu_torch.checkpointing import layout
-    from kubeflow_tpu_torch.config.platform import TrainingConfig
-    from kubeflow_tpu_torch.runtime.train_run import run_training
-    from kubeflow_tpu_torch.training.trainer import Trainer
-
-    hosts = ["127.0.0.1", "localhost"]
+def data_plan(root):
+    """17c's gang runs, (config, run options) each: resnet50 on `{data:
+    2}` saving at GANG2_SAVE, then gpt_small; every rank's final weights
+    saved."""
     ckpt = os.path.join(root, "gang-ckpt")
     gang_cfg = dict(GANG2_RESNET_CFG, mesh={"data": 2}, checkpoint={
         "directory": ckpt, "interval_steps": GANG2_SAVE, "keep": 10,
         "async_save": False})
     gpt_cfg = dict(GANG2_GPT_CFG, mesh={"data": 2})
-    # one gang runs both cells in turn (one process start a rank)
-    reps, gpt_reps = run_gang_runs(
-        torch, "gang2", [(gang_cfg, {"out": os.path.join(root, "resnet2")}),
-                         (gpt_cfg, {"out": os.path.join(root, "gpt2")})],
-        2, root, hosts=hosts, backend="gloo")
+    return [(gang_cfg, {"out": os.path.join(root, "resnet2")}),
+            (gpt_cfg, {"out": os.path.join(root, "gpt2")})]
+
+
+def phase_gang_two_ranks(torch, gang):
+    """17c: two ranks on the one card over gloo (`initialize_from_env(
+    backend="gloo")`; each rank's "host" a loopback address of the same
+    machine, so each is local rank 0 on cuda:0; `gang`: phase_gangs'
+    "data" entry, the two-rank gang's first runs) against world-1 runs of
+    the same global batches in this process."""
+    from kubeflow_tpu_torch.checkpointing import layout
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+
+    root, plan, (reps, gpt_reps) = gang
+    ckpt = plan[0][0]["checkpoint"]["directory"]
     gang_losses = [loss for _, loss in reps[0]["result"]["losses"]]
     ranks = [torch.load(os.path.join(root, f"resnet2.{r}.pt")) for r in (0, 1)]
     bufs = ranks[0]["buffers"]
@@ -4050,14 +4171,14 @@ def phase_prefetch(torch, root):
 
 
 def phase_gang(torch, image_ref, lm_ref, layers):
-    """Phase 17: 17a and 17b (the launcher at world 1 over NCCL), 17c (two
-    ranks on one card over gloo), 17d (the DevicePrefetcher) → 17b's
-    flash launches."""
+    """Phase 17: 17a and 17b (the launcher at world 1 over NCCL), 17d (the
+    DevicePrefetcher) → 17b's flash launches. 17c (two ranks on one card
+    over gloo) runs in phase_gangs' two-rank gang, its gates in
+    `phase_gang_two_ranks`."""
     t17 = time.monotonic()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="kft-gang-") as root:
         launches = phase_gang_world1(torch, root, image_ref, lm_ref, layers)
-        phase_gang_two_ranks(torch, root)
         phase_prefetch(torch, root)
     print(f"phase 17: {time.monotonic() - t17:.3f} s", flush=True)
     return launches
@@ -5334,53 +5455,238 @@ def phase_pipeline(torch, gang, device="cuda"):
     return total
 
 
-def phase_gangs(torch, root, device="cuda", seq=None, expert=None,
-                pipeline=None):
-    """The gang runs of phases 19-21, before the phases read them. One
-    pair of rank processes runs 19a, 19b and 20b in turn, one quartet
-    21a, 21b and 20a (a rank process's start costs ~20 s, more than a
-    cell's steps; 21 before 20a, whose process kept ~1.9 GB allocated
-    after its run, which would read in 21's peaks). `seq`, `expert`,
-    `pipeline`: the keyword arguments of that phase's plan
-    (`sequence_plan`, `expert_plan`, `pipeline_plan`; {} for none), or
-    None to leave its cells out. → {"seq" | "expert" | "pipeline": (its
+def fsdp_plan(root, overrides=None):
+    """23a's and 23b's gang runs, (config, run options) each: FSDP_CFG
+    with `overrides` on each of FSDP_MESHES, rank 0's gathered final
+    weights saved; 23a saves its checkpoint at FSDP_SAVE and its ranks
+    record their blocks' digests there."""
+    base = {**FSDP_CFG, **(overrides or {})}
+    runs = []
+    for tag, mesh in FSDP_MESHES:
+        cfg = dict(base, mesh=mesh)
+        opts = {"digests": True, "out": os.path.join(root, f"fsdp_{tag}"),
+                "out_ranks": [0]}
+        if tag == FSDP_MESHES[0][0]:
+            cfg["checkpoint"] = {"directory": os.path.join(root, "ckpt"),
+                                 "interval_steps": FSDP_SAVE, "keep": 10,
+                                 "async_save": False}
+            opts["digest_step"] = FSDP_SAVE
+        runs.append((cfg, opts))
+    return runs
+
+
+def phase_fsdp(torch, gang, device="cuda"):
+    """Phase 23: 23a gpt_small on `{fsdp: 4}` and 23b on `{data: 2, fsdp:
+    2}` (gloo ranks on the one card; `gang`: phase_gangs' "fsdp" entry)
+    against world 1 in this process; 23c 23a's checkpoint restored at
+    world 1. → each flash kernel's launches over 23a's and 23b's ranks."""
+    from kubeflow_tpu_torch.checkpointing import layout as ck_layout
+    from kubeflow_tpu_torch.checkpointing import restore_latest
+    from kubeflow_tpu_torch.models.layers import fsdp_leaf_dims
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    t23 = time.monotonic()
+    cuda = device == "cuda"
+    smi = smi_line() if cuda else "the CPU"
+    total = {name: 0 for name in fa.launch_counts}
+    root, plan, reports = gang
+    base = plan[0][0]
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    res, tr, init, one_params = world1_run(torch, world1_cell(base), device)
+    one_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    one_losses = [loss for _, loss in res["losses"]]
+    one_bytes = state_bytes(tr._final_state)
+    layers = tr.model.cfg.num_layers
+    steps, a = base["steps"], base.get("accum_steps", 1)
+    r = 2 if base.get("remat") else 1
+    want = {"flash_fwd": steps * layers * a * r,
+            "flash_bwd_dq": steps * layers * a,
+            "flash_bwd_dkv": steps * layers * a}
+    losses_23a = None
+    for (cfg, opts), reps, (tag, _) in zip(plan, reports, FSDP_MESHES):
+        mesh, size = cfg["mesh"], cfg["mesh"]["fsdp"]
+        split = fsdp_leaf_dims(tr.model, size)
+        in_layers = sum(1 for n in split if n.startswith("layers."))
+        # a gather a use (a layer's leaves again in the remat recompute),
+        # a reduce-scatter a gathered use; one bucket all-reduce a step,
+        # two when the blocks meet a data axis above 1
+        collectives = {"all_gather": steps * a * (len(split)
+                                                  + in_layers * (r - 1)),
+                       "reduce_scatter": steps * a * len(split)}
+        buckets = steps * (1 + (mesh.get("data", 1) > 1))
+        want_bytes = fsdp_param_bytes(tr.model, size)
+        losses = [loss for _, loss in reps[0]["result"]["losses"]]
+        gap = max(_rel(x, y) for x, y in zip(losses, one_losses))
+        same = all(rep["replicated"] == reps[0]["replicated"]
+                   for rep in reps)
+        gate, held = update_gate(torch.load(
+            f"{opts['out']}.0.pt", map_location=device)["params"],
+            one_params, init)
+        got_bytes = [rep["bytes"]["params"] for rep in reps]
+        got_opt = [rep["bytes"]["optimizer"] for rep in reps]
+        got_coll = [rep["result"].get("fsdp_collectives") for rep in reps]
+        got_buckets = [rep["result"]["grad_allreduces"] for rep in reps]
+        print(f"fsdp {tag} ({smi}): {cfg['model']} {cfg['dtype']} seq "
+              f"{cfg['seq_len']} global batch {cfg['global_batch_size']} on "
+              f"mesh {mesh}: losses {losses} against world 1's "
+              f"{one_losses} (worst rel {gap:.3e}, bound "
+              f"{GANG_LOSS_REL:g}); whole leaves equal across the ranks: "
+              f"{same}; rank 0's gathered {gate}; parameter bytes a rank "
+              f"{got_bytes} (formula {want_bytes}: {len(split)} leaves "
+              f"split in {size}; world 1's {one_bytes['params']}, "
+              f"{want_bytes / one_bytes['params']:.4f}x), optimizer bytes "
+              f"{got_opt} (world 1's {one_bytes['optimizer']}); "
+              f"max_memory_allocated a rank "
+              f"{[rep['max_memory_allocated'] for rep in reps]} B against "
+              f"world 1's {one_peak} B; flash launches a rank "
+              f"{[rep['launches'] for rep in reps]} (formula {want}); "
+              f"gathers and reduce-scatters a rank {got_coll} (formula "
+              f"{collectives}); bucket all-reduces {got_buckets} (formula "
+              f"{buckets}); step ms a rank "
+              f"{[rep['result']['step_time_s'] * 1e3 for rep in reps]} (a "
+              f"record, not a speed: the ranks share the card and gloo "
+              f"stages each collective through the host)", flush=True)
+        if any(rep["result"]["losses"] != reps[0]["result"]["losses"]
+               for rep in reps):
+            raise AssertionError(f"{tag}: the ranks' losses differ")
+        if len(losses) != steps or not gap <= GANG_LOSS_REL:
+            raise AssertionError(f"{tag}: losses {losses} vs {one_losses}")
+        if not same:
+            raise AssertionError(f"{tag}: the ranks' whole leaves differ")
+        if not held:
+            raise AssertionError(f"{tag}: rank 0's {gate}")
+        if got_bytes != [want_bytes] * len(reps) or \
+                got_opt != [2 * want_bytes] * len(reps):
+            raise AssertionError(f"{tag}: bytes a rank {got_bytes}, "
+                                 f"{got_opt} != {want_bytes} (x2)")
+        if got_coll != [collectives] * len(reps) or \
+                got_buckets != [buckets] * len(reps):
+            raise AssertionError(f"{tag}: collectives {got_coll}, "
+                                 f"{got_buckets} != {collectives}, "
+                                 f"{buckets}")
+        for rep in reps:
+            if cuda and rep["launches"] != want:
+                raise AssertionError(f"{tag}: rank {rep['rank']} launches "
+                                     f"{rep['launches']} != {want}")
+            for name, count in rep["launches"].items():
+                total[name] += count
+        if losses_23a is None:
+            losses_23a, reps_23a, size_23a = losses, reps, size
+    del init, one_params
+    # 23c: world 1 restores 23a's step-FSDP_SAVE checkpoint (each split
+    # leaf written as its blocks by the ranks at data coordinate 0) into
+    # its own trainer (its state is overwritten in place) and resumes
+    ckpt = base["checkpoint"]["directory"]
+    tr.losses.clear()
+    state = restore_latest(ckpt, tr._final_state, step=FSDP_SAVE)
+    split = fsdp_leaf_dims(tr.model, size_23a)
+    by_block = {rep["coords"]["fsdp"]: rep for rep in reps_23a}
+    joined = {}
+    for name, p in state.model.named_parameters():
+        if name in split:
+            dim = split[name]
+            n = p.shape[dim] // size_23a
+            joined[name] = all(
+                digest(torch, p.narrow(dim, f * n, n))
+                == by_block[f]["blocks_at"][name] for f in range(size_23a))
+        else:
+            joined[name] = (digest(torch, p)
+                            == by_block[0]["blocks_at"][name])
+    tr.fit(steps=steps - FSDP_SAVE, state=state, log_every=steps)
+    resumed = [loss for _, loss in tr.losses]
+    gap_c = max(_rel(x, y) for x, y in zip(resumed,
+                                           losses_23a[FSDP_SAVE:]))
+    manifest = ck_layout.read_manifest(ck_layout.step_dir(ckpt, FSDP_SAVE))
+    shards = {e["key"]: len(e["shards"]) for e in manifest["leaves"]
+              if e["key"].startswith("params/")}
+    blocked = {k: v for k, v in shards.items() if v > 1}
+    print(f"fsdp 23c ({smi}): the step-{FSDP_SAVE} checkpoint of "
+          f"{manifest['process_count']} processes, {len(blocked)} params "
+          f"leaves in {sorted(set(blocked.values()))} block(s), "
+          f"{len(shards) - len(blocked)} whole; restored at world 1: its "
+          f"leaves are the ranks' blocks joined, bit for bit: "
+          f"{all(joined.values())}; resumed to losses {resumed} against "
+          f"the gang's {losses_23a[FSDP_SAVE:]} (worst rel {gap_c:.3e})",
+          flush=True)
+    del tr, state
+    if cuda:
+        torch.cuda.empty_cache()
+    if not joined or not all(joined.values()):
+        raise AssertionError(f"23c: leaves differ from the blocks: "
+                             f"{[k for k, v in joined.items() if not v][:4]}")
+    if set(blocked.values()) != {size_23a} or len(blocked) != len(split):
+        raise AssertionError(f"23c: split leaves not written in "
+                             f"{size_23a} blocks: {blocked}")
+    if len(resumed) != steps - FSDP_SAVE or not gap_c <= GANG_LOSS_REL:
+        raise AssertionError(f"23c: resumed losses {resumed}")
+    print(f"phase 23: {time.monotonic() - t23:.3f} s; flash launches "
+          f"{total}", flush=True)
+    return total
+
+
+def phase_gangs(torch, root, device="cuda", data=None, seq=None,
+                expert=None, pipeline=None, fsdp=None):
+    """The gang runs of phases 17c and 19-23, before the phases read them.
+    One pair of rank processes runs 17c's two cells, 19a, 19b and 20b in
+    turn, one quartet 21a, 21b, 23a, 23b and 20a (a rank process's start
+    costs ~20 s, more than a cell's steps; 20a last, whose process kept
+    ~1.9 GB allocated after its run, which would read in the others'
+    peaks). The pair and the quartet run at once (their ranks share the
+    card and the host: the arithmetic and the memory, not the speed).
+    `data`, `seq`, `expert`, `pipeline`, `fsdp`: the keyword arguments
+    of that phase's plan (`data_plan`, `sequence_plan`, `expert_plan`,
+    `pipeline_plan`, `fsdp_plan`; {} for none), or None to leave its
+    cells out. → {"data" | "seq" | "expert" | "pipeline" | "fsdp": (its
     directory, its plan, its runs' reports in plan order, each the ranks'
-    reports in rank order)}, the `gang` of phase_sequence, phase_expert
-    and phase_pipeline."""
+    reports in rank order)}, the `gang` of phase_gang_two_ranks,
+    phase_sequence, phase_expert, phase_pipeline and phase_fsdp."""
     plans = {}
-    for name, fn, kw in (("seq", sequence_plan, seq),
+    for name, fn, kw in (("data", data_plan, data),
+                         ("seq", sequence_plan, seq),
                          ("expert", expert_plan, expert),
-                         ("pipeline", pipeline_plan, pipeline)):
+                         ("pipeline", pipeline_plan, pipeline),
+                         ("fsdp", fsdp_plan, fsdp)):
         if kw is not None:
             os.makedirs(os.path.join(root, name))
             plans[name] = (os.path.join(root, name),
                            list(fn(os.path.join(root, name), **kw)))
     # (gang, world, [(phase, its plan's runs)]) in run order
-    layout = (("two", 2, [("seq", slice(0, 2)), ("expert", slice(1, 2))]),
-              ("four", 4, [("pipeline", slice(0, 3)),
+    layout = (("two", 2, [("data", slice(0, 2)), ("seq", slice(0, 2)),
+                          ("expert", slice(1, 2))]),
+              ("four", 4, [("pipeline", slice(0, 3)), ("fsdp", slice(0, 2)),
                            ("expert", slice(0, 1))]))
     reports = {name: [None] * len(plan) for name, (_, plan) in plans.items()}
-    for gang, world, parts in layout:
-        runs, at = [], []
-        for name, cut in parts:
-            if name not in plans:
+    started = []
+    try:
+        for gang, world, parts in layout:
+            runs, at = [], []
+            for name, cut in parts:
+                if name not in plans:
+                    continue
+                plan = plans[name][1]
+                for i in range(len(plan))[cut]:
+                    axes = plan[i][0]["mesh"]
+                    if int(np.prod(list(axes.values()))) != world:
+                        raise AssertionError(f"gang {gang} of {world} "
+                                             f"ranks: {name} run {i} on "
+                                             f"mesh {axes}")
+                    runs.append(plan[i])
+                    at.append((name, i))
+            if not runs:
                 continue
-            plan = plans[name][1]
-            for i in range(len(plan))[cut]:
-                axes = plan[i][0]["mesh"]
-                if int(np.prod(list(axes.values()))) != world:
-                    raise AssertionError(f"gang {gang} of {world} ranks: "
-                                         f"{name} run {i} on mesh {axes}")
-                runs.append(plan[i])
-                at.append((name, i))
-        if not runs:
-            continue
-        hosts = one_card_hosts(world) if device == "cuda" else None
-        outs = run_gang_runs(torch, gang, runs, world, root, hosts=hosts,
-                             backend="gloo",
-                             **({} if device == "cuda" else {"device": "cpu"}))
-        for (name, i), reps in zip(at, outs):
-            reports[name][i] = reps
+            hosts = one_card_hosts(world) if device == "cuda" else None
+            started.append((at, start_gang_runs(
+                torch, gang, runs, world, root, hosts=hosts,
+                backend="gloo", timeout_s=GANGS_TIMEOUT_S,
+                **({} if device == "cuda" else {"device": "cpu"}))))
+        for at, handle in started:
+            for (name, i), reps in zip(at, finish_gang_runs(handle)):
+                reports[name][i] = reps
+    finally:
+        for _, handle in started:
+            stop_gang(handle)
     return {name: (path, plan, reports[name])
             for name, (path, plan) in plans.items()}
 
@@ -5840,10 +6146,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.lap("phases 14-18")
     with tempfile.TemporaryDirectory(prefix="kft-gangs-") as root:
-        # the gangs of phases 19-21 run first; each phase then runs its
-        # world 1 and its gates on its gang's reports
-        gangs = phase_gangs(torch, root, seq={}, expert={}, pipeline={})
-        clock.lap("the gangs of phases 19-21")
+        # the gangs of phases 17c and 19-23 run first (the pair and the
+        # quartet at once); each phase then runs its world 1 and its gates
+        # on its gang's reports
+        gangs = phase_gangs(torch, root, data={}, seq={}, expert={},
+                            pipeline={}, fsdp={})
+        clock.lap("the gangs of phases 17c and 19-23")
+        # 17c: two data-parallel ranks on the one card over gloo
+        phase_gang_two_ranks(torch, gangs["data"])
+        torch.cuda.empty_cache()
+        clock.lap("phase 17c")
         # this slice's path: sequence parallelism (19a ring, 19b Ulysses,
         # 19c a ring rank's block loop at the config's geometry)
         seq_launches = phase_sequence(torch, gangs["seq"])
@@ -5866,12 +6178,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         # this slice's path: the pipeline axis (21a; 21b and 21c beside it)
         pp_launches = phase_pipeline(torch, gangs["pipeline"])
+        torch.cuda.empty_cache()
+        # this slice's path: the fsdp axis (23a, 23b; 23c beside them)
+        fsdp_launches = phase_fsdp(torch, gangs["fsdp"])
     for rec in kernels:
         if rec["name"] in pp_launches:
             rec["pp_launches"] = pp_launches[rec["name"]]
             if rec["pp_launches"] < 1:
                 raise AssertionError(f"the pipeline-parallel path never "
                                      f"launched {rec['name']}")
+        if rec["name"] in fsdp_launches:
+            rec["fsdp_launches"] = fsdp_launches[rec["name"]]
+            if rec["fsdp_launches"] < 1:
+                raise AssertionError(f"the fsdp path never launched "
+                                     f"{rec['name']}")
     torch.cuda.empty_cache()
     # this slice's path: the job path (22a a StudyJob of GPUTrainJob
     # trials in process, 22b a GPUTrainJob's pods as launcher children)
@@ -5882,7 +6202,7 @@ def main() -> int:
             if rec["job_launches"] < 1:
                 raise AssertionError(f"the job path never launched "
                                      f"{rec['name']}")
-    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-22, "
+    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-23, "
           f"after the interpreter's start)", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

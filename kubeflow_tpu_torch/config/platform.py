@@ -63,12 +63,14 @@ _UNPORTED_SERVING_FIELDS = {
 MESH_AXES = ("data", "fsdp", "tensor", "pipeline", "sequence", "expert")
 # mesh axes above 1 the port does not run yet, and their ROADMAP items
 _UNPORTED_MESH_AXES = {
-    "fsdp": "A13 item 1 (fsdp)",
     "tensor": "A13 item 2 (tensor parallelism)",
 }
 # pairs of axes each ported alone that the port does not run together yet
 _UNPORTED_MESH_PAIRS = {
     ("pipeline", "sequence"): "A13 item 7 (pipeline × sequence)",
+    ("fsdp", "sequence"): "A13 item 8 (fsdp with the other axes)",
+    ("fsdp", "expert"): "A13 item 8 (fsdp with the other axes)",
+    ("fsdp", "pipeline"): "A13 item 8 (fsdp with the other axes)",
 }
 PIPELINE_SCHEDULES = ("gpipe", "1f1b")
 

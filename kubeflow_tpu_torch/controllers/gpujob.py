@@ -95,8 +95,8 @@ STRAGGLER_TRIP_SWEEPS = 3
 # stays bitwise. tensor/pipeline/sequence/expert stay untouched: shrinking
 # them would change the model partitioning itself (pipeline_stages is a
 # model-construction knob), which is a migration, not a degradation.
-# fsdp is kept for parity with the reference: the port's config refuses
-# that axis until ROADMAP A13 item 1 lands, so no job here reaches it.
+# An fsdp leaf's blocks are regions of the whole leaf in a checkpoint, so
+# a gang reshaped to a smaller fsdp axis reads its new blocks back.
 _SHRINK_AXES = ("data", "fsdp")
 
 

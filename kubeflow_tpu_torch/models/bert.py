@@ -89,6 +89,8 @@ from kubeflow_tpu_torch.models.layers import (
     microbatch_rows,
     model_device,
     remat as remat_fn,
+    shard_fsdp,
+    whole_leaf_shape,
     whole_model,
 )
 from kubeflow_tpu_torch.models.registry import register_model
@@ -250,7 +252,8 @@ def _truncated_normal(shape, gen: torch.Generator) -> torch.Tensor:
 def init_params(model: nn.Module, seed: int) -> None:
     """flax's initializers' distributions (module docstring), from an
     explicit CPU torch.Generator. A pipeline stage draws every stage's
-    leaves and keeps its own: world 1's weights."""
+    leaves and keeps its own, and an fsdp block draws its whole leaf and
+    keeps the block: world 1's weights."""
     gen = torch.Generator().manual_seed(int(seed))
     own = dict(model.named_modules())
     with torch.no_grad():
@@ -259,15 +262,17 @@ def init_params(model: nn.Module, seed: int) -> None:
             if isinstance(module, Dense):
                 # lecun_normal: variance_scaling(1, fan_in, truncated_normal)
                 std = math.sqrt(1.0 / module.fan_in) / 0.87962566103423978
-                value = _truncated_normal(module.kernel.shape, gen) * std
+                value = draw_value(module, "kernel", lambda shape: (
+                    _truncated_normal(shape, gen) * std))
                 if mine is not None:
                     mine.kernel.copy_(value)
                     if mine.bias is not None:
                         mine.bias.zero_()
             elif isinstance(module, Embed):
                 # nn.Embed: variance_scaling(1, fan_in, normal, out_axis=0)
-                num, dim = module.embedding.shape
-                value = torch.randn((num, dim), generator=gen) / math.sqrt(dim)
+                dim = whole_leaf_shape(module, "embedding")[1]
+                value = draw_value(module, "embedding", lambda shape: (
+                    torch.randn(shape, generator=gen) / math.sqrt(dim)))
                 if mine is not None:
                     mine.embedding.copy_(value)
             elif isinstance(module, LayerNorm):
@@ -275,15 +280,17 @@ def init_params(model: nn.Module, seed: int) -> None:
                     mine.scale.fill_(1.0)
                     mine.bias.zero_()
             elif isinstance(module, MoeMlp):
-                value = torch.randn(module.router.shape, generator=gen) * 0.02
+                value = draw_value(module, "router", lambda shape: (
+                    torch.randn(shape, generator=gen) * 0.02))
                 if mine is not None:
                     mine.router.copy_(value)
                 for leaf in EXPERT_STACKS:
                     # variance_scaling(1, fan_in, truncated_normal) over
                     # [E, in, out]: the fan-in is the in axis; a sharded
                     # stack draws the whole [E, ...] and keeps its block
-                    std = math.sqrt(1.0 / getattr(module, leaf).shape[-2]
-                                    ) / 0.87962566103423978
+                    std = math.sqrt(
+                        1.0 / whole_leaf_shape(module, leaf)[-2]
+                    ) / 0.87962566103423978
                     value = draw_value(module, leaf, lambda shape: (
                         _truncated_normal(shape, gen) * std))
                     if mine is not None:
@@ -294,7 +301,9 @@ class Bert(nn.Module):
     """BERT encoder: embeddings → N post-LN layers → MLM and NSP heads.
     `expert` (an `ExpertShard` of the expert mesh axis) builds an MoE
     model's routed layers for this rank's block of the experts;
-    `pipeline` (a `PipelineShard`) builds this rank's pipeline stage."""
+    `pipeline` (a `PipelineShard`) builds this rank's pipeline stage,
+    `fsdp` (an `FsdpShard`) its blocks of the fsdp leaves (each gathered
+    at its use: models/layers.py `shard_fsdp`)."""
 
     # the JAX pipelined tree's stacked module, and the model-level
     # leaves the first and the last stage hold
@@ -303,11 +312,11 @@ class Bert(nn.Module):
     LAST_STAGE = ("mlm_transform", "mlm_ln", "mlm_out", "pooler", "nsp_out")
 
     def __init__(self, cfg: BertConfig, *, device: DeviceLike = None,
-                 seed: int = 0, expert=None, pipeline=None):
+                 seed: int = 0, expert=None, pipeline=None, fsdp=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.expert, self.pipeline = expert, pipeline
+        self.expert, self.pipeline, self.fsdp = expert, pipeline, None
         d = cfg.hidden_size
         if pipeline is None or pipeline.first:
             self.tok_emb = Embed(cfg.vocab_size, d, cfg.dtype)
@@ -323,6 +332,7 @@ class Bert(nn.Module):
             self.mlm_out = Dense((d,), (cfg.vocab_size,), cfg.dtype)
             self.pooler = Dense((d,), (d,), cfg.dtype)
             self.nsp_out = Dense((d,), (2,), torch.float32)
+        shard_fsdp(self, fsdp)
         if dev.type != "meta":  # a meta model has shapes only
             init_params(self, seed)
         self.to(dev)
@@ -464,9 +474,10 @@ def _build(defaults: dict, kwargs: dict) -> Bert:
     seed = kwargs.pop("seed", 0)
     expert = kwargs.pop("expert", None)
     pipeline = kwargs.pop("pipeline", None)
+    fsdp = kwargs.pop("fsdp", None)
     cfg = BertConfig(**{**defaults, **kwargs})
     return Bert(cfg, device=device, seed=seed, expert=expert,
-                pipeline=pipeline)
+                pipeline=pipeline, fsdp=fsdp)
 
 
 @register_model("bert_base")

@@ -59,6 +59,14 @@ load-balance loss): the LM task and the engine pass one. Built with
 holds this rank's block of the experts, drawn as world 1 draws the
 whole stack (models/layers.py `MoeMlp`, `draw_value`).
 
+Built with `fsdp=` (an `FsdpShard` of the fsdp mesh axis) the model
+holds each leaf whose spec names `fsdp` as this rank's block along that
+dim: every kernel on its embed dim, `pos_emb` and a `tok_emb` whose rows
+the axis divides on their rows (gpt_small's 50,257 stay whole, as in the
+JAX package), the head's kernel on its embed dim. Each block is gathered
+at its use (models/layers.py `at_use`, `shard_fsdp`); the seeded init
+draws every whole leaf as world 1 does and keeps the block.
+
 With `cfg.pipeline_stages > 1` (the JAX `PipelinedDecoder`) the blocks
 form stages of L/S consecutive layers. Built without `pipeline` the model
 holds them all and `forward` runs the microbatches through the stages in
@@ -102,6 +110,7 @@ from kubeflow_tpu_torch.models.layers import (
     microbatch_rows,
     model_device,
     remat as remat_fn,
+    shard_fsdp,
     whole_model,
 )
 from kubeflow_tpu_torch.models.registry import register_model
@@ -471,8 +480,9 @@ def init_params(model: nn.Module, seed: int) -> None:
     """Seeded init from an explicit CPU torch.Generator (the same weights
     on every device): layernorm scales 1, biases 0, every kernel and
     embedding N(0, 0.02). A sharded expert stack draws its whole value
-    and keeps its block (`layers.draw_value`), and a pipeline stage
-    draws every stage's leaves and keeps its own: world 1's weights."""
+    and keeps its block (`layers.draw_value`), so does an fsdp block,
+    and a pipeline stage draws every stage's leaves and keeps its own:
+    world 1's weights."""
     gen = torch.Generator().manual_seed(int(seed))
     whole = whole_model(model)
     own = dict(model.named_parameters())
@@ -496,7 +506,8 @@ class Gpt(nn.Module):
     `expert` (an `ExpertShard` of the expert mesh axis) builds an MoE
     model's routed layers for this rank's block of the experts;
     `pipeline` (a `PipelineShard` of the pipeline mesh axis) builds this
-    rank's stage of a pipelined model (module docstring)."""
+    rank's stage of a pipelined model, `fsdp` (an `FsdpShard`) this
+    rank's blocks of the fsdp leaves (module docstring)."""
 
     # the JAX pipelined tree's stacked module, and the model-level
     # leaves the first and the last stage hold
@@ -505,11 +516,11 @@ class Gpt(nn.Module):
     LAST_STAGE = ("ln_final", "head")
 
     def __init__(self, cfg: GptConfig, *, device: DeviceLike = None,
-                 seed: int = 0, expert=None, pipeline=None):
+                 seed: int = 0, expert=None, pipeline=None, fsdp=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.expert, self.pipeline = expert, pipeline
+        self.expert, self.pipeline, self.fsdp = expert, pipeline, None
         first = pipeline is None or pipeline.first
         last = pipeline is None or pipeline.last
         if first:
@@ -526,6 +537,7 @@ class Gpt(nn.Module):
             )
         # "int8" once `int8_model` has loaded an envelope
         self.quantize = "none"
+        shard_fsdp(self, fsdp)
         if dev.type != "meta":  # a meta model has shapes only
             init_params(self, seed)
         self.to(dev)
@@ -951,9 +963,10 @@ def _build(defaults: dict, kwargs: dict) -> Gpt:
     seed = kwargs.pop("seed", 0)
     expert = kwargs.pop("expert", None)
     pipeline = kwargs.pop("pipeline", None)
+    fsdp = kwargs.pop("fsdp", None)
     cfg = GptConfig(**{**defaults, **kwargs})
     return Gpt(cfg, device=device, seed=seed, expert=expert,
-               pipeline=pipeline)
+               pipeline=pipeline, fsdp=fsdp)
 
 
 @register_model("gpt_small")

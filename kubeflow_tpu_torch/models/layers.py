@@ -12,6 +12,15 @@ Weights are f32 at rest and cast to the compute dtype at use, as flax's
 per-channel scale buffer beside it (`QSCALE`; models/gpt.py
 `int8_model`): `at_use` dequantizes it where it is read.
 
+On an fsdp mesh axis (`shard_fsdp`, with this rank's `FsdpShard`) a
+module holds each leaf whose spec names `fsdp` as its block along that
+dim (the JAX `state_shardings`' layout; `_fsdp_dims` maps the leaf to
+the dim), and `at_use` gathers the f32 block over the axis just before
+the use: the whole leaf lives only in that use's graph (a remat
+recompute gathers again), the cast to the compute dtype comes after the
+gather, and the gather's backward reduce-scatters the f32 gradient back
+to the block. A module without blocks reads its leaves as before.
+
 `dropout` keeps flax's semantics, keep with probability 1 - rate and
 `where(keep, x / (1 - rate), 0)`, and draws its keep mask from an
 explicit `torch.Generator` on x's device (`F.dropout` takes none), so a
@@ -115,12 +124,18 @@ def advance_dropout(generator: Optional[torch.Generator], draws: int,
 
 def at_use(module: nn.Module, name: str, dtype) -> torch.Tensor:
     """Leaf `name` of `module` as its point of use reads it: the stored
-    tensor (f32 at rest; the caller casts as before), or on an int8 model
-    the int8 leaf dequantized into the compute dtype with
-    `dequantize_params`' arithmetic."""
+    tensor (f32 at rest; the caller casts as before), an fsdp block
+    gathered into the whole f32 leaf (the caller casts after the
+    gather), or on an int8 model the int8 leaf dequantized into the
+    compute dtype with `dequantize_params`' arithmetic."""
     leaf = getattr(module, name)
     scale = module._buffers.get(name + QSCALE)
-    return leaf if scale is None else dequantize_leaf(leaf, scale, dtype)
+    if scale is not None:
+        return dequantize_leaf(leaf, scale, dtype)
+    dims = module.__dict__.get("_fsdp_dims")
+    if dims is None or name not in dims:
+        return leaf
+    return module.fsdp.gather(leaf, dims[name])
 
 
 class Dense(nn.Module):
@@ -226,10 +241,12 @@ class Embed(nn.Module):
             # gather the int8 rows, then dequantize: the scale is per
             # column, so this is the dequantized table's gather, bit for bit
             return dequantize_leaf(self.embedding[ids], scale, self.dtype)
+        # an fsdp block of rows is gathered into the whole table first
+        table = at_use(self, "embedding", self.dtype)
         # gather then cast == flax's cast-table-then-gather, bit for bit
-        if self.embedding.shape[0] <= SMALL_TABLE_ROWS:
-            return _SmallTableLookup.apply(ids, self.embedding).to(self.dtype)
-        return F.embedding(ids, self.embedding).to(self.dtype)
+        if table.shape[0] <= SMALL_TABLE_ROWS:
+            return _SmallTableLookup.apply(ids, table).to(self.dtype)
+        return F.embedding(ids, table).to(self.dtype)
 
 
 @dataclasses.dataclass
@@ -442,14 +459,37 @@ class MoeMlp(nn.Module):
         return dropout(y, self.dropout_rate, generator, not train)
 
 
-def draw_value(module: nn.Module, leaf: str, draw) -> torch.Tensor:
-    """`draw(shape)` for parameter `leaf` of `module`: an expert stack of
-    a sharded `MoeMlp` draws its whole [E, ...] value and keeps this
-    rank's block, so a seeded init gives world 1's weights whatever the
-    expert axis."""
+def whole_leaf_shape(module: nn.Module, leaf: str) -> Tuple[int, ...]:
+    """The whole shape of parameter `leaf` of `module`: its own, an
+    expert stack's [E, ...], an fsdp block's whole leaf's."""
+    shape = list(module.stack_shape(leaf) if isinstance(module, MoeMlp)
+                 else getattr(module, leaf).shape)
+    dim = module.__dict__.get("_fsdp_dims", {}).get(leaf)
+    if dim is not None:
+        shape[dim] *= module.fsdp.size
+    return tuple(shape)
+
+
+def held_block(module: nn.Module, leaf: str,
+               whole: torch.Tensor) -> torch.Tensor:
+    """The block of a whole value of parameter `leaf` that `module` holds:
+    its expert block of a stack, its fsdp block along the leaf's dim, or
+    the value itself."""
     if isinstance(module, MoeMlp):
-        return module.block_of(leaf, draw(module.stack_shape(leaf)))
-    return draw(tuple(getattr(module, leaf).shape))
+        whole = module.block_of(leaf, whole)
+    dim = module.__dict__.get("_fsdp_dims", {}).get(leaf)
+    if dim is not None:
+        first, n = module.fsdp.block(whole.shape[dim])
+        whole = whole.narrow(dim, first, n)
+    return whole
+
+
+def draw_value(module: nn.Module, leaf: str, draw) -> torch.Tensor:
+    """`draw(shape)` for parameter `leaf` of `module`: a sharded leaf (an
+    expert stack of a sharded `MoeMlp`, an fsdp block) draws its whole
+    value and keeps this rank's block, so a seeded init gives world 1's
+    weights whatever the expert and fsdp axes."""
+    return held_block(module, leaf, draw(whole_leaf_shape(module, leaf)))
 
 
 def sharded_stacks(model: nn.Module) -> Dict[str, Tuple[MoeMlp, str]]:
@@ -461,14 +501,92 @@ def sharded_stacks(model: nn.Module) -> Dict[str, Tuple[MoeMlp, str]]:
             for leaf in EXPERT_STACKS}
 
 
-def expert_blocks(model: nn.Module, state_dict):
-    """A whole-model state dict (every [E, ...] stack whole, as world 1
-    and the JAX package hold it) cut to `model`'s expert blocks."""
-    out = dict(state_dict)
-    for key, (module, leaf) in sharded_stacks(model).items():
-        if key in out:
-            out[key] = module.block_of(leaf, out[key])
+def fsdp_leaves(model: nn.Module) -> Dict[str, Tuple[nn.Module, str, int]]:
+    """{parameter name: (its module, leaf, dim)} of the fsdp blocks
+    `model` holds (empty off an fsdp axis)."""
+    out = {}
+    for name, module in model.named_modules():
+        for leaf, dim in module.__dict__.get("_fsdp_dims", {}).items():
+            out[f"{name}.{leaf}" if name else leaf] = (module, leaf, dim)
     return out
+
+
+def fsdp_leaf_dims(model: nn.Module, size: int) -> Dict[str, int]:
+    """{parameter name: the dim its spec splits over an fsdp axis of
+    `size`} for the model's leaves whose spec names `fsdp` (the JAX
+    trainer's `state_shardings`: `logical_to_spec(logical_axes_for(
+    params, fsdp_size, mesh sizes))`, the fallback's largest divisible
+    dim included; a dim the axis does not divide stays whole)."""
+    from kubeflow_tpu_torch.parallel.sharding import fsdp_dim, param_specs
+    from kubeflow_tpu_torch.training.annotations import logical_axes_for
+
+    sizes = {"fsdp": size}
+    specs = param_specs(logical_axes_for(model, fsdp_size=size,
+                                         mesh_axis_sizes=sizes), mesh=sizes)
+    return {name: dim for name, spec in specs.items()
+            if (dim := fsdp_dim(spec)) is not None}
+
+
+def shard_fsdp(model: nn.Module, fsdp) -> None:
+    """Hold every leaf of `model` whose spec names `fsdp` as this rank's
+    block along its dim (`fsdp`: an `FsdpShard` of the fsdp mesh axis;
+    None leaves the model as it is, bit for bit). Run on a model whose
+    leaves are whole, before its init: `draw_value` then draws each whole
+    leaf and keeps the block."""
+    if fsdp is None:
+        return
+    model.fsdp = fsdp
+    for name, dim in fsdp_leaf_dims(model, fsdp.size).items():
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner)
+        p = getattr(module, leaf)
+        first, n = fsdp.block(p.shape[dim])
+        setattr(module, leaf, nn.Parameter(
+            p.detach().narrow(dim, first, n).clone(),
+            requires_grad=p.requires_grad))
+        module.__dict__.setdefault("_fsdp_dims", {})[leaf] = dim
+        module.fsdp = fsdp
+
+
+def held_blocks(model: nn.Module, state_dict):
+    """A whole-model state dict (every [E, ...] stack and fsdp leaf whole,
+    as world 1 and the JAX package hold them) cut to the blocks `model`
+    holds."""
+    out = dict(state_dict)
+    owners = {key: (module, leaf)
+              for key, (module, leaf) in sharded_stacks(model).items()}
+    owners.update({key: (module, leaf) for key, (module, leaf, _)
+                   in fsdp_leaves(model).items()})
+    for key, (module, leaf) in owners.items():
+        if key in out:
+            out[key] = held_block(module, leaf, out[key])
+    return out
+
+
+def join_fsdp_blocks(model: nn.Module, blocks: Sequence[Dict[str, torch.Tensor]]
+                     ) -> Dict[str, torch.Tensor]:
+    """The whole state dict from every fsdp rank's state dict of `model`'s
+    layout (`blocks`, in fsdp order): each fsdp leaf's blocks joined along
+    its dim, every other entry rank 0's."""
+    dims = {key: dim for key, (_, _, dim) in fsdp_leaves(model).items()}
+    return {key: (torch.cat([b[key] for b in blocks], dims[key])
+                  if key in dims else value)
+            for key, value in blocks[0].items()}
+
+
+def gather_fsdp_params(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """{name: whole parameter} of `model`, each fsdp block gathered over
+    its axis (a collective: every rank of the axis calls it, in the same
+    order); detached copies, the whole leaves as they are."""
+    with torch.no_grad():
+        out = {}
+        for name, p in model.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            module = model.get_submodule(owner)
+            dim = module.__dict__.get("_fsdp_dims", {}).get(leaf)
+            out[name] = (p.detach().clone() if dim is None
+                         else module.fsdp.gather(p.detach(), dim))
+        return out
 
 
 def remat(fn, generator: Optional[torch.Generator], *args):

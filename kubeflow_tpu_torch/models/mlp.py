@@ -11,12 +11,14 @@ head computes in f32.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kubeflow_tpu_torch.models.layers import at_use, draw_value, shard_fsdp
 from kubeflow_tpu_torch.models.registry import register_model
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -32,7 +34,8 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(features_out))
 
     def forward(self, x):
-        return (x.to(self.dtype) @ self.kernel.to(self.dtype)
+        return (x.to(self.dtype)
+                @ at_use(self, "kernel", self.dtype).to(self.dtype)
                 + self.bias.to(self.dtype))
 
 
@@ -41,14 +44,17 @@ def init_params(model: nn.Module, seed: int, zero_scales=()) -> None:
     on every device), flax's defaults in distribution: every kernel
     N(0, 1/fan_in) (lecun normal; fan_in is every axis but the last of a
     flax kernel), biases 0, BatchNorm scales 1 (0 for the modules named
-    in `zero_scales`), running means 0 and variances 1."""
+    in `zero_scales`), running means 0 and variances 1. An fsdp block
+    draws its whole kernel and keeps the block."""
     gen = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
             owner, _, leaf = name.rpartition(".")
             if leaf == "kernel":
-                fan_in = p[..., 0].numel()
-                p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
+                p.copy_(draw_value(
+                    model.get_submodule(owner), leaf, lambda shape: (
+                        torch.randn(shape, generator=gen)
+                        * math.prod(shape[:-1]) ** -0.5)))
             elif leaf == "scale":
                 p.fill_(0.0 if owner in zero_scales else 1.0)
             else:
@@ -68,17 +74,21 @@ class MlpConfig:
 
 
 class Mlp(nn.Module):
-    """flatten → (Dense + ReLU) per hidden layer → f32 head."""
+    """flatten → (Dense + ReLU) per hidden layer → f32 head. `fsdp` (an
+    `FsdpShard`) holds this rank's blocks of the fsdp leaves, each
+    gathered at its use (models/layers.py `shard_fsdp`)."""
 
     def __init__(self, cfg: MlpConfig, *, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, fsdp=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.fsdp = None
         widths = (cfg.in_features,) + tuple(cfg.hidden)
         for i, (a, b) in enumerate(zip(widths, widths[1:])):
             self.add_module(f"dense_{i}", Dense(a, b, cfg.dtype))
         self.head = Dense(widths[-1], cfg.num_classes, torch.float32)
+        shard_fsdp(self, fsdp)
         if dev.type != "meta":
             self.init_params(seed)
         self.to(dev)
@@ -108,6 +118,7 @@ class Mlp(nn.Module):
 def mlp(**kwargs) -> Mlp:
     device = kwargs.pop("device", None)
     seed = kwargs.pop("seed", 0)
+    fsdp = kwargs.pop("fsdp", None)
     if "hidden" in kwargs:
         kwargs["hidden"] = tuple(kwargs["hidden"])
-    return Mlp(MlpConfig(**kwargs), device=device, seed=seed)
+    return Mlp(MlpConfig(**kwargs), device=device, seed=seed, fsdp=fsdp)

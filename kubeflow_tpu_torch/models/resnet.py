@@ -40,7 +40,10 @@ The flax model's arithmetic and names, on cuDNN:
   mean and biased variance E[x²] - E[x]² (flax's fast variance); the
   running averages move identically on every rank. Without a group (one
   rank) the path is the single-card one above. `nn.SyncBatchNorm` is not
-  used: it refuses CPU tensors, where the gang tests run.
+  used: it refuses CPU tensors, where the gang tests run. On an fsdp
+  axis the group is data × fsdp, and a model built with `fsdp=` holds
+  its blocks of the kernels the specs split (the convs' fallback dim,
+  the head's embed dim), each gathered at its use.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kubeflow_tpu_torch.models.layers import at_use, shard_fsdp
 from kubeflow_tpu_torch.models.mlp import Dense, init_params
 from kubeflow_tpu_torch.models.registry import register_model
 from kubeflow_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -91,7 +95,7 @@ class Conv(nn.Module):
             torch.empty(*kernel_size, features_in, features_out))
 
     def forward(self, x):
-        w = self.kernel.permute(3, 2, 0, 1).to(
+        w = at_use(self, "kernel", self.dtype).permute(3, 2, 0, 1).to(
             dtype=self.dtype, memory_format=torch.channels_last)
         x, pad = _pad_same(x.to(self.dtype), self.k, self.s)
         return F.conv2d(x, w, stride=self.s, padding=pad)
@@ -234,10 +238,11 @@ class ResNet(nn.Module):
     mean pool → f32 head. `forward(x [B, H, W, 3], train)` → f32 logits."""
 
     def __init__(self, cfg: ResNetConfig, *, device: DeviceLike = None,
-                 seed: int = 0):
+                 seed: int = 0, fsdp=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
+        self.fsdp = None
         block_cls = BLOCKS[cfg.block]
         f = cfg.num_filters
         self.conv_init = Conv(3, f, (7, 7), (2, 2), cfg.dtype)
@@ -253,6 +258,7 @@ class ResNet(nn.Module):
                 self.block_names.append(name)
                 width = f * 2 ** i * block_cls.expansion
         self.head = Dense(width, cfg.num_classes, torch.float32)
+        shard_fsdp(self, fsdp)
         if dev.type != "meta":
             self.init_params(seed)
         self.to(dev)
@@ -296,8 +302,9 @@ def _make_factory(variant: str):
     def factory(**kwargs):
         device = kwargs.pop("device", None)
         seed = kwargs.pop("seed", 0)
+        fsdp = kwargs.pop("fsdp", None)
         cfg = ResNetConfig(**{**_VARIANTS[variant], **kwargs})
-        return ResNet(cfg, device=device, seed=seed)
+        return ResNet(cfg, device=device, seed=seed, fsdp=fsdp)
 
     factory.__name__ = variant
     return factory

@@ -125,11 +125,13 @@ def encoder_train_flops(cfg, batch: int, seq: int) -> float:
 def rank_train_flops(count, cfg, local_batch: int, local_seq: int,
                      data: int = 1, sequence: int = 1,
                      expert: int = 1, stage: Optional[int] = None,
-                     stages: int = 1) -> float:
+                     stages: int = 1, fsdp: int = 1) -> float:
     """One rank's share of a train step's model FLOPs: `count`
     (`lm_train_flops` or `encoder_train_flops`) of the global step, the
-    rank's local_batch × local_seq tokens scaled by the data and
-    sequence axes, over data × sequence × expert. Without a sequence
+    rank's local_batch × local_seq tokens scaled by the batch's axes
+    (data × fsdp) and the sequence axis, over data × fsdp × sequence ×
+    expert. An fsdp rank computes its own rows through whole (gathered)
+    leaves, so it counts as a data rank does. Without a sequence
     axis the count is linear in the batch, so a rank's is its own rows'
     over the expert axis (its E/ep share of the expert products, and the
     rows' dense work split over the expert ranks that repeat it). As
@@ -146,8 +148,9 @@ def rank_train_flops(count, cfg, local_batch: int, local_seq: int,
         return layers + (head if stage == stages - 1 else 0.0)
     if sequence == 1:
         return count(cfg, local_batch, local_seq) / expert
-    return (count(cfg, local_batch * data, local_seq * sequence)
-            / (data * sequence * expert))
+    rows = data * fsdp
+    return (count(cfg, local_batch * rows, local_seq * sequence)
+            / (rows * sequence * expert))
 
 
 def mfu(flops_per_step: Optional[float], step_time_s: float,

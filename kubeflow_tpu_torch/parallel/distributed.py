@@ -416,18 +416,21 @@ def _reduce_scatter(grad: torch.Tensor, group, dim: int) -> torch.Tensor:
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
+    def forward(ctx, x, group, dim, counts):
+        ctx.group, ctx.dim, ctx.counts = group, dim, counts
         return _all_gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return _reduce_scatter(grad, ctx.group, ctx.dim), None, None
+        if ctx.counts is not None:
+            ctx.counts["reduce_scatter"] += 1
+        return _reduce_scatter(grad, ctx.group, ctx.dim), None, None, None
 
 
-def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group=None, dim: int = 0,
+               counts: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """The tiled all-gather (JAX `all_gather(..., tiled=True)`): every
     group rank's `x` joined along `dim` in rank order. The backward is a
     reduce-scatter: each rank gets the sum over ranks of its block's
-    cotangent."""
-    return _AllGather.apply(x, group, dim)
+    cotangent (and `counts["reduce_scatter"]`, when given, one more)."""
+    return _AllGather.apply(x, group, dim, counts)

@@ -26,6 +26,14 @@ its block (`ExpertShard`, from `expert_shard(mesh)`): its routed layers
 hold only their E/ep experts and combine their partial outputs over
 `expert_group(mesh)`.
 
+The fsdp axis sits between data and pipeline: rank d·F + f holds
+block f of every leaf whose spec names `fsdp` (training/annotations.py
+over parallel/sharding.py), split along that dim (`FsdpShard`, from
+`fsdp_shard(mesh)`; models/layers.py `shard_fsdp`), and its rows of the
+global batch are data × fsdp block d·F + f. A leaf's block is gathered
+over `fsdp_group(mesh)` at its use; the gather's backward reduce-scatters
+its gradient back to the block.
+
 The pipeline axis sits between fsdp and expert: its ranks are the
 stages of one pipeline (`PipelineShard`, from `pipeline_shard(mesh)`),
 each holding its run of layers; a stage's neighbours are the ranks one
@@ -219,37 +227,121 @@ def sequence_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
     return mesh.get_group("sequence")
 
 
-def reduce_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
-    """The group a step's gradients, item counts and BatchNorm statistics
-    are summed over: data × sequence at this rank's coordinate on every
-    other axis (the expert and pipeline axes' included: a stage's leaves
-    are summed over the ranks of its stage only). Parameters are replicated
-    over data × sequence, an expert stack's block too, so every leaf's
-    gradient is summed over this group and no other: the expert ranks of
-    one data shard compute the same loss from the same rows, and their
-    replicated leaves' gradients are already equal. The data axis's own
-    group when the sequence axis is 1, the sequence axis's when the data
-    axis is; else one `new_group` for each block of ranks that share
-    every other coordinate. Every rank creates every block's group
-    (torch requires it), so call this once a mesh, on every rank."""
+def axes_group(mesh, axes: Tuple[str, ...]
+               ) -> Optional["torch.distributed.ProcessGroup"]:
+    """The process group of the ranks that share this rank's coordinate
+    on every axis but `axes` (None without a process group): the one axis
+    of `axes` above 1's own group (the first's when none is), else one
+    `new_group` for each block of ranks that share every other
+    coordinate. Every rank creates every block's group (torch requires
+    it), so call this once a mesh and axes, on every rank, in the same
+    order."""
     if mesh is None or not torch.distributed.is_initialized():
         return None
     sizes = mesh_shape(mesh)
-    if sizes["sequence"] == 1:
-        return mesh.get_group("data")
-    if sizes["data"] == 1:
-        return mesh.get_group("sequence")
+    live = [a for a in axes if sizes[a] > 1]
+    if len(live) <= 1:
+        return mesh.get_group(live[0] if live else axes[0])
     names = list(mesh.mesh_dim_names)
-    d, s = names.index("data"), names.index("sequence")
-    others = [i for i in range(len(names)) if i not in (d, s)]
-    blocks = mesh.mesh.permute(*others, d, s).reshape(
-        -1, sizes["data"] * sizes["sequence"])
+    idx = [names.index(a) for a in axes]
+    others = [i for i in range(len(names)) if i not in idx]
+    blocks = mesh.mesh.permute(*others, *idx).reshape(
+        -1, math.prod(sizes[a] for a in axes))
     me, mine = torch.distributed.get_rank(), None
     for ranks in blocks.tolist():
         group = torch.distributed.new_group(ranks)
         if me in ranks:
             mine = group
     return mine
+
+
+def reduce_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
+    """The group a parameter's gradient is summed over once the step's
+    backward has run: data × sequence at this rank's coordinate on every
+    other axis (the expert, pipeline and fsdp axes' included: a stage's
+    leaves are summed over the ranks of its stage only). A leaf held
+    whole or as an expert stack's block is replicated over data ×
+    sequence, so its gradient is summed over this group: the expert
+    ranks of one data shard compute the same loss from the same rows,
+    and their replicated leaves' gradients are already equal. An fsdp
+    block's gradient has been reduce-scattered over the fsdp axis by the
+    backward of its gather, so it too is summed over this group, at this
+    rank's fsdp coordinate. A leaf held whole on an fsdp axis sums over
+    `batch_group` instead. The data axis's own group when the sequence
+    axis is 1, the sequence axis's when the data axis is (`axes_group`)."""
+    return axes_group(mesh, ("data", "sequence"))
+
+
+def batch_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
+    """The group the global batch is split over: data × fsdp × sequence
+    at this rank's coordinate on every other axis. A step's item counts,
+    its loss, BatchNorm's statistics and the gradients of the leaves held
+    whole are summed over it. `reduce_group`'s own group when the fsdp
+    axis is 1 (no second set of groups is made)."""
+    if mesh is None or not torch.distributed.is_initialized():
+        return None
+    if mesh_shape(mesh)["fsdp"] == 1:
+        return reduce_group(mesh)
+    return axes_group(mesh, ("data", "fsdp", "sequence"))
+
+
+def fsdp_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
+    """The process group of the mesh's fsdp axis (None without a process
+    group): the ranks whose blocks make up every fsdp leaf, in block
+    order."""
+    if mesh is None or not torch.distributed.is_initialized():
+        return None
+    return mesh.get_group("fsdp")
+
+
+@dataclasses.dataclass(frozen=True)
+class FsdpShard:
+    """This rank's place on the fsdp axis: the axis's process group, its
+    position `rank` (its block of every fsdp leaf) and the axis's `size`.
+    `writer`: this rank writes its blocks of a checkpoint (its coordinate
+    on every other axis is 0, so each block is written once). `counts`
+    tallies the collectives of its leaves: `all_gather` (a gather at a
+    use, a remat recompute's included) and `reduce_scatter` (a gather's
+    backward)."""
+
+    group: Optional["torch.distributed.ProcessGroup"]
+    rank: int
+    size: int
+    writer: bool = True
+    counts: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"all_gather": 0, "reduce_scatter": 0},
+        compare=False, repr=False)
+
+    def block(self, length: int) -> Tuple[int, int]:
+        """(first index, length) of this rank's block of a dim of
+        `length`."""
+        if length % self.size:
+            raise ValueError(f"a dim of {length} does not split over the "
+                             f"fsdp mesh axis {self.size}")
+        n = length // self.size
+        return self.rank * n, n
+
+    def gather(self, block: torch.Tensor, dim: int) -> torch.Tensor:
+        """The whole leaf from every rank's `block`, joined along `dim` in
+        rank order (`distributed.all_gather`: its backward reduce-scatters
+        the leaf's gradient back to the blocks)."""
+        from kubeflow_tpu_torch.parallel.distributed import all_gather
+
+        self.counts["all_gather"] += 1
+        return all_gather(block, self.group, dim, counts=self.counts)
+
+
+def fsdp_shard(mesh) -> Optional[FsdpShard]:
+    """The mesh's FsdpShard for this rank; None when the fsdp axis is 1
+    or there is no process group."""
+    group = fsdp_group(mesh)
+    if group is None or mesh_shape(mesh)["fsdp"] == 1:
+        return None
+    others = [a for a in mesh.mesh_dim_names if a != "fsdp"]
+    return FsdpShard(group, mesh.get_local_rank("fsdp"),
+                     mesh_shape(mesh)["fsdp"],
+                     writer=all(mesh.get_local_rank(a) == 0
+                                for a in others))
 
 
 def expert_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:

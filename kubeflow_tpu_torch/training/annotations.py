@@ -12,11 +12,13 @@ so both packages annotate every leaf alike.
 
 On a data-only mesh every leaf's spec is replicated (what the
 data-parallel trainer assumes). On an expert axis the MoE stacks' specs
-put `expert` on dim 0 (the router stays replicated), which is the
-layout the trainer builds (training/trainer.py); the fsdp slice will
-shard by these annotations too. A model's leaves are annotated at their
-whole shapes: an expert-sharded stack as the [E, ...] leaf it is a
-block of (models/layers.py `MoeMlp.stack_shape`). A pipelined model's
+put `expert` on dim 0 (the router stays replicated), and on an fsdp axis
+a leaf whose spec names `fsdp` is split along that dim
+(parallel/sharding.py `fsdp_dim`): the layouts the trainer builds
+(training/trainer.py, models/layers.py `shard_fsdp`). A model's leaves
+are annotated at their whole shapes: an expert-sharded stack as the
+[E, ...] leaf it is a block of, an fsdp block as its whole leaf
+(models/layers.py `whole_leaf_shape`). A pipelined model's
 layer leaves are annotated as the JAX pipelined tree holds them
 (`<prefix>/stages/layer_<j>/...`, models/convert.py `StageLayout`),
 stacked [S, ...] with the leading "stage" axis (→ `pipeline`): a
@@ -133,17 +135,18 @@ def logical_axes_for(
 
 def whole_shapes(model: torch.nn.Module) -> Dict[str, Tuple[int, ...]]:
     """{parameter name: its whole shape}: a parameter's own, for an
-    expert stack's block the [E, ...] stack's, and for a pipelined
-    model's layer leaf the [S, ...] stage stack's."""
-    from kubeflow_tpu_torch.models.layers import MoeMlp, stage_layout
+    expert stack's block the [E, ...] stack's, for an fsdp block its
+    whole leaf's, and for a pipelined model's layer leaf the [S, ...]
+    stage stack's."""
+    from kubeflow_tpu_torch.models.layers import stage_layout, \
+        whole_leaf_shape
 
     layout = stage_layout(model)
     out = {}
     for owner, module in model.named_modules():
-        for leaf, p in module.named_parameters(recurse=False):
+        for leaf, _ in module.named_parameters(recurse=False):
             name = f"{owner}.{leaf}" if owner else leaf
-            shape = (module.stack_shape(leaf) if isinstance(module, MoeMlp)
-                     else tuple(p.shape))
+            shape = whole_leaf_shape(module, leaf)
             if layout is not None and name.startswith("layers."):
                 shape = (layout.stages,) + shape
             out[name] = shape

@@ -43,11 +43,13 @@ moments (a zero trace) and count 0, as the JAX package does, and a
 restore creates the optimizer state before loading it.
 
 Under an expert mesh axis a rank holds only its block of each expert
-stack (models/layers.py `MoeMlp`): the stack's parameter and its two
-moments enter the tree as `ShardedLeaf`s with their global index ranges,
-written by one rank a block (checkpointing/manager.py) and read back by
-region, so the manifest names the whole [E, ...] leaf as a JAX state or
-a world-1 port state names it.
+stack (models/layers.py `MoeMlp`), and under an fsdp axis its block of
+each fsdp leaf along the leaf's dim (models/layers.py `shard_fsdp`): the
+parameter and its two moments enter the tree as `ShardedLeaf`s with
+their global index ranges, written by one rank a block (the block's rank
+at every other coordinate 0; checkpointing/manager.py) and read back by
+region, so the manifest names the whole leaf as a JAX state or a world-1
+port state names it, and a checkpoint restores at any fsdp size.
 
 A pipelined model (`pipeline_stages > 1`) saves the JAX pipelined
 state's keys: each stage's j-th layer is index s of the stacked leaf
@@ -74,8 +76,11 @@ import torch
 from kubeflow_tpu_torch.checkpointing.manager import ShardedLeaf, nest
 from kubeflow_tpu_torch.models.convert import is_batch_stat, jax_path
 from kubeflow_tpu_torch.models.layers import (
+    fsdp_leaves,
+    held_block,
     sharded_stacks,
     stage_layout,
+    whole_leaf_shape,
     whole_model,
 )
 
@@ -86,22 +91,51 @@ def _get(tree: Dict[str, Any], path: str):
     return tree
 
 
-def _leaf(stacks, name: str, t: torch.Tensor):
-    """`t` (a parameter or a moment of parameter `name`), or its block of
-    an expert stack as a `ShardedLeaf`."""
-    if name not in stacks:
-        return t
-    module, leaf = stacks[name]
-    shape = module.stack_shape(leaf)
-    n, rest = t.shape[0], tuple((0, d) for d in shape[1:])
-    regions = [((r * n, (r + 1) * n),) + rest
-               for r in range(module.expert.size)]
-    return ShardedLeaf(t, shape, regions[module.expert.rank], regions,
-                       module.expert.writer)
-
-
 def _full(shape) -> Tuple[Tuple[int, int], ...]:
     return tuple((0, int(d)) for d in shape)
+
+
+def _blocks(model: torch.nn.Module) -> Dict[str, Tuple]:
+    """{parameter name: (whole shape, every block's index ranges, this
+    rank's block, writer)} of the leaves `model` holds a block of: the
+    expert stacks' blocks along dim 0, the fsdp blocks along their
+    dim."""
+    out = {}
+    for name, (module, leaf) in sharded_stacks(model).items():
+        shape, shard = module.stack_shape(leaf), module.expert
+        n = shape[0] // shard.size
+        out[name] = (shape, [((r * n, (r + 1) * n),) + _full(shape[1:])
+                             for r in range(shard.size)],
+                     shard.rank, shard.writer)
+    for name, (module, leaf, dim) in fsdp_leaves(model).items():
+        shape, shard = whole_leaf_shape(module, leaf), module.fsdp
+        n = shape[dim] // shard.size
+        out[name] = (shape, [tuple((r * n, (r + 1) * n) if i == dim
+                                   else (0, d) for i, d in enumerate(shape))
+                             for r in range(shard.size)],
+                     shard.rank, shard.writer)
+    return out
+
+
+def _leaf(blocks, name: str, t: torch.Tensor):
+    """`t` (a parameter or a moment of parameter `name`), or its block of
+    an expert stack or an fsdp leaf as a `ShardedLeaf`."""
+    if name not in blocks:
+        return t
+    shape, regions, rank, writer = blocks[name]
+    return ShardedLeaf(t, shape, regions[rank], regions, writer)
+
+
+def _held(model: torch.nn.Module, name: str,
+          value: torch.Tensor) -> torch.Tensor:
+    """A restored value of parameter `name` (or of its moment) as the
+    model holds it: a whole leaf's value cut to its block (a restore
+    reads the block's region itself)."""
+    p = model.get_parameter(name)
+    if tuple(value.shape) == tuple(p.shape):
+        return value
+    owner, _, leaf = name.rpartition(".")
+    return held_block(model.get_submodule(owner), leaf, value)
 
 
 def _stage_tree(model: torch.nn.Module, layout,
@@ -191,8 +225,8 @@ def params_tree(model: torch.nn.Module, layout=_OWN) -> Dict[str, Any]:
     if layout is not None:
         own = dict(model.named_parameters())
         return nest(_stage_tree(model, layout, own.__getitem__))
-    stacks = sharded_stacks(model)
-    return nest({jax_path(n): _leaf(stacks, n, p)
+    blocks = _blocks(model)
+    return nest({jax_path(n): _leaf(blocks, n, p)
                  for n, p in model.named_parameters()})
 
 
@@ -231,17 +265,12 @@ def manifest_layout(entries: Dict[str, Any]):
 
 def load_params_tree(model: torch.nn.Module, tree: Dict[str, Any]) -> None:
     """Copy a nested flax tree (either layout) into the model's
-    parameters, in place (an expert-sharded model takes its block of a
-    whole stack, a pipeline stage its layers)."""
-    stacks = sharded_stacks(model)
+    parameters, in place (an expert-sharded or fsdp model takes its block
+    of a whole leaf, a pipeline stage its layers)."""
     layout = tree_layout(tree)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            value = _read(tree, model, layout, name)
-            if name in stacks and tuple(value.shape) != tuple(p.shape):
-                module, leaf = stacks[name]
-                value = module.block_of(leaf, value)
-            p.copy_(value)
+            p.copy_(_held(model, name, _read(tree, model, layout, name)))
 
 
 def batch_stats_tree(model: torch.nn.Module) -> Dict[str, Any]:
@@ -302,17 +331,18 @@ def train_state_tree(state, layout=_OWN) -> Dict[str, Any]:
     if moe:
         tree.setdefault("extra_vars", {})["moe_stats"] = moe
     if _is_sgd(state):
-        trace = {}
+        trace, blocks = {}, _blocks(state.model)
         for name, p in state.model.named_parameters():
             buf = opt.state.get(p, {}).get("momentum_buffer")
-            trace[jax_path(name)] = buf if buf is not None else torch.zeros_like(p)
+            trace[jax_path(name)] = _leaf(blocks, name, buf if buf is not None
+                                          else torch.zeros_like(p))
         tree["opt_state"] = {"1": {
             "0": {"trace": nest(trace)},
             "1": {"count": torch.tensor(state.step, dtype=torch.int32)},
         }}
         return tree
     mu, nu = {}, {}
-    stacks = sharded_stacks(state.model)
+    blocks = _blocks(state.model)
     own = dict(state.model.named_parameters())
 
     def moment(key):
@@ -328,8 +358,8 @@ def train_state_tree(state, layout=_OWN) -> Dict[str, Any]:
         if layout is not None:
             break
         path = jax_path(name)
-        mu[path] = _leaf(stacks, name, moment("exp_avg")(name))
-        nu[path] = _leaf(stacks, name, moment("exp_avg_sq")(name))
+        mu[path] = _leaf(blocks, name, moment("exp_avg")(name))
+        nu[path] = _leaf(blocks, name, moment("exp_avg_sq")(name))
     count = _update_count(state)
     tree["opt_state"] = {"1": {
         "0": {"count": torch.tensor(count, dtype=torch.int32),
@@ -368,8 +398,9 @@ def load_train_state_tree(state, tree: Dict[str, Any]) -> None:
         trace = tree["opt_state"]["1"]["0"]["trace"]
         with torch.no_grad():
             for name, p in state.model.named_parameters():
-                opt.state[p] = {"momentum_buffer": _get(
-                    trace, jax_path(name)).to(p, copy=True)}
+                opt.state[p] = {"momentum_buffer": _held(
+                    state.model, name, _get(trace, jax_path(name))).to(
+                        p, copy=True)}
         state.step = int(tree["step"])
         return
     adam = tree["opt_state"]["1"]["0"]
@@ -383,9 +414,9 @@ def load_train_state_tree(state, tree: Dict[str, Any]) -> None:
             opt.state[p] = {
                 "step": torch.tensor(float(count), dtype=torch.float32,
                                      device=p.device if on_device else "cpu"),
-                "exp_avg": _read(adam["mu"], state.model, layout,
-                                 name).to(p, copy=True),
-                "exp_avg_sq": _read(adam["nu"], state.model, layout,
-                                    name).to(p, copy=True),
+                "exp_avg": _held(state.model, name, _read(
+                    adam["mu"], state.model, layout, name)).to(p, copy=True),
+                "exp_avg_sq": _held(state.model, name, _read(
+                    adam["nu"], state.model, layout, name)).to(p, copy=True),
             }
     state.step = int(tree["step"])

@@ -84,7 +84,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.config.platform import TrainingConfig
-from kubeflow_tpu_torch.models.layers import MoeCollector
+from kubeflow_tpu_torch.models.layers import MoeCollector, at_use
 from kubeflow_tpu_torch.parallel.mesh import active_sequence
 from kubeflow_tpu_torch.training.data import NEXT, SyntheticData
 
@@ -509,9 +509,11 @@ class CausalLmTask:
         if chunked:
             targets = (self._shard_targets(batch) if sharded
                        else self._shift_full(ids, mask))
+            # the head's kernel as its use reads it (an fsdp block gathered
+            # once; every chunk reads the one cast)
             loss, n_items = self._chunked_lm_loss(
-                model.head.kernel, out, targets, int(self.loss_chunk),
-                model.cfg.dtype, count,
+                at_use(model.head, "kernel", model.cfg.dtype), out, targets,
+                int(self.loss_chunk), model.cfg.dtype, count,
             )
         else:
             logits, targets = ((out, self._shard_targets(batch)) if sharded
@@ -598,7 +600,8 @@ def clip_by_global_norm(grads: Iterable[torch.Tensor], max_norm: float,
     the global norm is >= max_norm, else unchanged. No host sync.
     Returns the global norm (before clipping). `sharded` are the
     gradients of this rank's blocks of leaves split over `group` (an
-    expert stack's, over the expert axis): their squared norms are summed
+    expert stack's over the expert axis, an fsdp leaf's over the fsdp
+    axis): their squared norms are summed
     over the group, and every other leaf counts once, so every rank
     clips at the whole state's norm and the replicas stay equal. With
     `stage_group` (the pipeline axis's) each rank holds only its stage's

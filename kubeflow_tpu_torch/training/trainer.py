@@ -131,6 +131,31 @@ are then summed over the pipeline group (so every rank's `losses`
 agree, the last stage's value), and the clip's norm sums every stage's
 leaves once. `evaluate` is a forward-only pass through the stages;
 `stage_live` keeps the live-activation counter of the last step.
+
+FSDP (`cfg.mesh.fsdp` ranks, between data and pipeline: the JAX
+package's `fsdp` mesh axis and its rules table). The model is built for
+this rank's `FsdpShard`: every leaf whose spec (`logical_to_spec(
+logical_axes_for(params, fsdp, mesh sizes))`, the JAX trainer's
+`state_shardings`) names `fsdp` on dim d is held as this rank's 1/fsdp
+block along d, drawn from the same seeded whole init, and so are its
+two AdamW moments; every other leaf (the 1-D ones, a dim the axis does
+not divide: gpt_small's 50,257-row `tok_emb`) is whole on every rank.
+A block is gathered in f32 over the fsdp group at its use, and the
+gather's backward reduce-scatters its gradient over the fsdp group
+(models/layers.py `at_use`). The batch rows split over data × fsdp
+(rank d·F + f feeds block d·F + f, its dropout masks that block's rows
+of the global masks), and the item counts, the loss, BatchNorm's
+statistics and the whole leaves' gradients are summed over data × fsdp
+(`batch_group`); a block's gradient, already summed over fsdp, is summed
+over data (`reduce_group`, at this rank's fsdp coordinate) in a bucket
+of its own. `grad_allreduces` counts the buckets' all-reduces: one a
+step, two when the fsdp blocks meet a data axis above 1; the fsdp
+shard's `counts` the gathers (one a use, a remat recompute's included)
+and the reduce-scatters (one a gathered use in the backward's graph).
+The clip sums the blocks' squares over the fsdp group and counts every
+whole leaf once. Checkpoints write each block from the rank at data
+coordinate 0 (training/checkpoint.py). MFU is a rank's share of the
+global step's FLOPs over data × fsdp.
 """
 
 from __future__ import annotations
@@ -147,7 +172,7 @@ from torch import nn
 from kubeflow_tpu_torch.chaos import default_chaos
 from kubeflow_tpu_torch.config.platform import TrainingConfig
 from kubeflow_tpu_torch.models.convert import is_batch_stat
-from kubeflow_tpu_torch.models.layers import sharded_stacks
+from kubeflow_tpu_torch.models.layers import fsdp_leaves, sharded_stacks
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.observability.mfu import (
     encoder_train_flops,
@@ -160,7 +185,9 @@ from kubeflow_tpu_torch.observability.mfu import (
 from kubeflow_tpu_torch.observability.trace import default_tracer
 from kubeflow_tpu_torch.parallel import distributed as gang
 from kubeflow_tpu_torch.parallel.mesh import (
+    batch_group,
     expert_shard,
+    fsdp_shard,
     mesh_coordinate,
     mesh_from_config,
     pipeline_shard,
@@ -268,10 +295,11 @@ class Trainer:
     one device. `device` defaults to "cuda" and raises without CUDA
     unless "cpu" is asked for. In a `torch.distributed` group the trainer
     is this rank's: `self.mesh` is the DeviceMesh of `cfg.mesh` over the
-    group's ranks; it names the data × sequence group the step sums over,
-    `self.seq`, this rank's place on the sequence axis, and
-    `self.expert`, its place on the expert axis, and `self.pipe`, its
-    stage of the pipeline axis (each None at 1). `model_kwargs` reach the
+    group's ranks; it names the data × fsdp × sequence group the step
+    sums over, `self.seq`, this rank's place on the sequence axis,
+    `self.expert`, its place on the expert axis, `self.pipe`, its stage
+    of the pipeline axis, and `self.fsdp`, its place on the fsdp axis
+    (each None at 1). `model_kwargs` reach the
     registry factory of a model the trainer builds (the JAX trainer's
     argument, e.g. `{"moe_top_k": 2}`)."""
 
@@ -285,29 +313,36 @@ class Trainer:
         self.distributed = torch.distributed.is_initialized()
         self.world, self.rank = gang.world_size(), gang.rank()
         self.mesh = None
-        self._group = None
+        # the batch's group (counts, loss, BatchNorm, whole leaves' grads)
+        # and the fsdp blocks' (data × sequence at this fsdp coordinate)
+        self._group = self._block_group = None
         self.seq = None
         self.expert = None
         self.pipe = None
+        self.fsdp = None
         if self.distributed:
             backend = torch.distributed.get_backend()
             self.mesh = mesh_from_config(
                 cfg.mesh, device_type="cuda" if backend == "nccl" else "cpu")
-            self._group = reduce_group(self.mesh)
+            self._block_group = reduce_group(self.mesh)
+            self._group = batch_group(self.mesh)
             self.seq = sequence_shard(self.mesh)
             self.expert = expert_shard(self.mesh)
             self.pipe = pipeline_shard(self.mesh)
+            self.fsdp = fsdp_shard(self.mesh)
         elif cfg.mesh.num_devices != 1:
             raise ValueError(
                 f"mesh spec needs {cfg.mesh.num_devices} devices "
                 f"({cfg.mesh.axis_sizes()}), got 1: start the gang's "
                 f"processes (runtime/launcher.py) with its rendered env")
-        # this rank's place on the data axis (the same for every expert
-        # rank and pipeline stage of the shard)
+        # this rank's place on the batch's data × fsdp split (the same for
+        # every expert rank and pipeline stage of the shard)
         self.data_world = self.world // (cfg.mesh.sequence * cfg.mesh.expert
                                          * cfg.mesh.pipeline)
-        self.data_rank = mesh_coordinate(self.mesh, "data")
-        # gradient all-reduces issued (one a data-parallel step)
+        self.data_rank = (mesh_coordinate(self.mesh, "data") * cfg.mesh.fsdp
+                          + mesh_coordinate(self.mesh, "fsdp"))
+        # gradient buckets' all-reduces issued (one a data-parallel step,
+        # two when fsdp blocks are summed over a data axis too)
         self.grad_allreduces = 0
         # the last pipelined step's live-activation counter
         self.stage_live = None
@@ -335,6 +370,9 @@ class Trainer:
                 kwargs.setdefault("pipeline_schedule", cfg.pipeline_schedule)
                 if self.pipe is not None:
                     kwargs["pipeline"] = self.pipe
+            if self.fsdp is not None:
+                # this rank's blocks of the fsdp leaves, any model family
+                kwargs["fsdp"] = self.fsdp
             if cfg.seq_len > 0:
                 kwargs["max_len"] = cfg.seq_len
             dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -344,6 +382,10 @@ class Trainer:
             raise ValueError(f"model is on {model.device}, the trainer on "
                              f"{self.device}")
         self.model = model.trainable()
+        # the parameters held as fsdp blocks (their gradients are summed
+        # over the fsdp axis by their gathers' backward)
+        self._fsdp_blocks = {id(self.model.get_parameter(n))
+                             for n in fsdp_leaves(self.model)}
         # the pipeline's microbatches a step's accumulation microbatch
         # (the JAX model's clamp against its global rows)
         self.pipeline_microbatches = 1
@@ -400,9 +442,10 @@ class Trainer:
 
     def _check_layout(self) -> None:
         """Every parameter's spec on the mesh (training/annotations.py over
-        parallel/sharding.py) must be one the step runs: replicated, or
-        split on dim 0 over the expert axis alone (an expert stack), and
-        then the model must hold exactly this rank's block of it. On a
+        parallel/sharding.py) must be one the step runs: replicated, split
+        on dim 0 over the expert axis alone (an expert stack) or on one
+        dim over the fsdp axis alone (held as that dim's block), and then
+        the model must hold exactly this rank's block of it. On a
         pipeline axis a layer's leaf is split on its stage dim over the
         axis (then as above), and the model holds exactly its stage's
         layers and the leaves its stage owns."""
@@ -413,6 +456,7 @@ class Trainer:
         )
         from kubeflow_tpu_torch.parallel.mesh import mesh_shape
         from kubeflow_tpu_torch.parallel.sharding import (
+            fsdp_dim,
             is_replicated,
             param_specs,
         )
@@ -433,6 +477,7 @@ class Trainer:
                 f"expert mesh axis {sizes['expert']}")
         whole = whole_shapes(self.model)
         params = dict(self.model.named_parameters())
+        held = {n: dim for n, (_, _, dim) in fsdp_leaves(self.model).items()}
         stages = getattr(mcfg, "pipeline_stages", 1)
         bad = []
         if sizes["pipeline"] > 1:
@@ -442,9 +487,9 @@ class Trainer:
                     f"mesh {sizes} needs the model built for this rank's "
                     f"stage of {sizes['pipeline']} (`pipeline=`), got "
                     f"{stages} stages")
-            held = set(held_layers(mcfg.num_layers, stages, self.pipe))
+            layers = set(held_layers(mcfg.num_layers, stages, self.pipe))
             want = {n for n in whole_shapes(whole_model(self.model))
-                    if (int(n.split(".")[1]) in held
+                    if (int(n.split(".")[1]) in layers
                         if n.startswith("layers.")
                         else leaf_owner(self.model, n) == self.pipe.rank)}
             bad += sorted(want ^ set(params))
@@ -458,20 +503,29 @@ class Trainer:
                     continue
                 spec, full = spec[1:], full[1:]
             if is_replicated(spec):
-                ok = shape == full
-            else:
-                ok = (spec[0] == "expert" and is_replicated(spec[1:])
+                ok = shape == full and name not in held
+            elif spec[0] == "expert":
+                ok = (is_replicated(spec[1:]) and name not in held
                       and shape[0] * sizes["expert"] == full[0]
                       and shape[1:] == full[1:])
+            else:
+                # one dim split over the fsdp axis: the model's block
+                dim = fsdp_dim(spec)
+                ok = (dim is not None and spec[dim] == "fsdp"
+                      and is_replicated(spec[:dim] + spec[dim + 1:])
+                      and held.get(name) == dim
+                      and shape == full[:dim] + (full[dim] // sizes["fsdp"],)
+                      + full[dim + 1:])
             if not ok:
                 bad.append(name)
         if bad:
             raise ValueError(
                 f"mesh {sizes} lays out {sorted(bad)[:3]}... in a way the "
                 f"port's step does not run (it keeps leaves whole, an "
-                f"expert stack's block of E/ep experts a rank, or a "
-                f"pipeline stage's layers: build the model with this "
-                f"rank's `expert` and `pipeline` shards)")
+                f"expert stack's block of E/ep experts a rank, an fsdp "
+                f"leaf's block along its spec's dim, or a pipeline "
+                f"stage's layers: build the model with this rank's "
+                f"`expert`, `fsdp` and `pipeline` shards)")
 
     # ---- state -----------------------------------------------------------
 
@@ -560,13 +614,16 @@ class Trainer:
         else:
             loss = loss_sum
         if self._clip:
-            blocks = {id(model.get_parameter(n))
-                      for n in sharded_stacks(model)}
+            # the blocks of leaves split over one axis (expert or fsdp;
+            # the config refuses the two together)
+            blocks = self._fsdp_blocks | {id(model.get_parameter(n))
+                                          for n in sharded_stacks(model)}
+            shard = self.expert or self.fsdp
             clip_by_global_norm(
                 [p.grad for p in params if id(p) not in blocks],
                 MAX_GRAD_NORM,
                 sharded=[p.grad for p in params if id(p) in blocks],
-                group=None if self.expert is None else self.expert.group,
+                group=None if shard is None else shard.group,
                 stage_group=None if self.pipe is None else self.pipe.group)
         # optax evaluates the schedule at the update count BEFORE this
         # update: the first update runs at schedule(0)
@@ -771,28 +828,48 @@ class Trainer:
 
     def _all_reduce_grads(self, params, loss_part: torch.Tensor
                           ) -> torch.Tensor:
-        """Sum every gradient (and the loss's partial sum) over the data
-        × sequence group in one flat bucket a dtype, in place; returns
-        the summed loss."""
+        """Sum every gradient (and the loss's partial sum) in place: the
+        whole leaves' and the loss over the batch's group (data × fsdp ×
+        sequence) in one flat bucket a dtype; the fsdp blocks' (summed
+        over fsdp by their gathers' backward) over data × sequence, when
+        that group holds more than this rank. Returns the summed loss."""
         for p in params:
             if p.grad is None:  # a leaf this step did not reach
                 p.grad = torch.zeros_like(p)
-        # the f32 bucket (the master weights' grads) carries the loss last
+        blocks = self._fsdp_blocks
+        loss = self._all_reduce_bucket(
+            [p.grad for p in params if id(p) not in blocks], self._group,
+            loss_part)
+        grads = [p.grad for p in params if id(p) in blocks]
+        if grads and torch.distributed.get_world_size(self._block_group) > 1:
+            self._all_reduce_bucket(grads, self._block_group)
+        return loss
+
+    def _all_reduce_bucket(self, grads: List[torch.Tensor], group,
+                           loss_part: Optional[torch.Tensor] = None
+                           ) -> Optional[torch.Tensor]:
+        """SUM `grads` over `group` in one flat bucket a dtype, in place,
+        the f32 bucket (the master weights' grads) carrying `loss_part`
+        last → the summed loss (None without one). One all-reduce counted
+        in `grad_allreduces`."""
         buckets: Dict[torch.dtype, List[torch.Tensor]] = {torch.float32: []}
-        for p in params:
-            buckets.setdefault(p.grad.dtype, []).append(p.grad)
-        for dtype, grads in buckets.items():
-            parts = [g.reshape(-1) for g in grads]
-            if dtype == torch.float32:
+        for g in grads:
+            buckets.setdefault(g.dtype, []).append(g)
+        loss = None
+        for dtype, part in buckets.items():
+            parts = [g.reshape(-1) for g in part]
+            if dtype == torch.float32 and loss_part is not None:
                 parts.append(loss_part.reshape(1).float())
+            if not parts:
+                continue
             flat = torch.cat(parts)
-            torch.distributed.all_reduce(flat, group=self._group)
+            torch.distributed.all_reduce(flat, group=group)
             offset = 0
-            for g in grads:
+            for g in part:
                 n = g.numel()
                 g.copy_(flat[offset:offset + n].view_as(g))
                 offset += n
-            if dtype == torch.float32:
+            if dtype == torch.float32 and loss_part is not None:
                 # a copy: a view would keep the bucket alive while the
                 # log window holds the loss
                 loss = flat[offset].clone()
@@ -868,16 +945,17 @@ class Trainer:
     def rank_flops(self, batch) -> float:
         """This rank's share of an LM train step's model FLOPs at this
         rank's `batch` (observability/mfu.py `rank_train_flops`: the
-        global step's count over data × sequence × expert)."""
+        global step's count over data × fsdp × sequence × expert)."""
         count = (encoder_train_flops if self.task.name == "mlm"
                  else lm_train_flops)
         seq = 1 if self.seq is None else self.seq.size
         stage = (None, 1) if self.pipe is None else (self.pipe.rank,
                                                      self.pipe.size)
+        fsdp = self.cfg.mesh.fsdp
         return rank_train_flops(count, self.model.cfg,
                                 *batch["input_ids"].shape,
-                                data=self.data_world, sequence=seq,
-                                expert=self.cfg.mesh.expert,
+                                data=self.data_world // fsdp, fsdp=fsdp,
+                                sequence=seq, expert=self.cfg.mesh.expert,
                                 stage=stage[0], stages=stage[1])
 
     def step_flops(self, batch) -> float:

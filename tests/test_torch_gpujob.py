@@ -392,6 +392,40 @@ class TestElasticResume:
         assert store.try_get("Pod", "train1-worker-3", "team-a") is None
         assert job["spec"]["slice"]["topology"] == "h100-4"
 
+    def test_an_fsdp_gang_reshapes_its_fsdp_axis(self, tmp_path):
+        """A GPUTrainJob on `{data: 1, fsdp: 2}` (h100-2) validates and
+        renders its mesh into every pod's KFT_TRAINING_SPEC; after losing
+        a member for good it reshapes to h100-1 with `{fsdp: 1}` (the
+        fsdp branch of `shrink_mesh`, end to end) and succeeds."""
+        runner = FakePodRunner()
+        store, cm, executor = make_harness(runner)
+        ckpt = commit_checkpoint(tmp_path / "ckpt")
+        submit(store, max_restarts=1,
+               slice_spec={"topology": "h100-2", "num_slices": 1},
+               training=training(mesh={"data": 1, "fsdp": 2},
+                                 checkpoint={"enabled": True,
+                                             "directory": ckpt}))
+        cm.run_until_idle(max_seconds=5)
+        pods = store.list("Pod", "team-a")
+        assert len(pods) == 2
+        for pod in pods:
+            mesh = json.loads(pod_env(pod)["KFT_TRAINING_SPEC"])["mesh"]
+            assert (mesh["data"], mesh["fsdp"]) == (1, 2)
+        runner.fail_next("train1-worker-1", times=5)
+        drive(cm, executor, rounds=30)
+        job = wait_for_condition(store, KIND, "train1", "team-a",
+                                 COND_SUCCEEDED, timeout_s=5)
+        status = job["status"]
+        assert status["reshapes"] == 1
+        assert status["degraded"]["topology"] == "h100-1"
+        assert (status["degraded"]["mesh"]["data"],
+                status["degraded"]["mesh"]["fsdp"]) == (1, 1)
+        env = pod_env(store.get("Pod", "train1-worker-0", "team-a"))
+        mesh = json.loads(env["KFT_TRAINING_SPEC"])["mesh"]
+        assert (mesh["data"], mesh["fsdp"]) == (1, 1)
+        assert env["KFT_RESTORE_DIR"] == ckpt
+        assert store.try_get("Pod", "train1-worker-1", "team-a") is None
+
     def test_budget_exhaustion_reshape_resets_straggler_strikes(self, tmp_path):
         fleet = FakeFleet()
         runner = FakePodRunner()

@@ -269,11 +269,11 @@ UNPORTED = [("fsdp", "A13 item 1 (fsdp)"), ("tensor", "A13 item 2"),
 
 @pytest.mark.parametrize("axis,item", UNPORTED, ids=[a for a, _ in UNPORTED])
 def test_config_refuses_each_unported_axis_naming_its_item(axis, item):
-    """Each axis still unported raises naming its item; the sequence axis
-    (A13 item 5), the expert axis (A13 item 3) and the pipeline axis (A13
-    item 4) are ported, so their configs are accepted: the pipeline
-    config's training block loads unedited."""
-    if axis in ("sequence", "expert", "pipeline"):
+    """Each axis still unported raises naming its item; the fsdp axis (A13
+    item 1), the sequence axis (A13 item 5), the expert axis (A13 item 3)
+    and the pipeline axis (A13 item 4) are ported, so their configs are
+    accepted: the pipeline config's training block loads unedited."""
+    if axis in ("fsdp", "sequence", "expert", "pipeline"):
         cfg = TrainingConfig.from_dict({"model": "gpt_tiny",
                                         "mesh": {axis: 2}})
         assert getattr(cfg.mesh, axis) == 2
@@ -294,6 +294,22 @@ def test_config_refuses_each_unported_axis_naming_its_item(axis, item):
         TrainingConfig.from_dict({"model": "gpt_tiny", "mesh": {axis: 2}})
     with pytest.raises(ConfigError, match="not ported yet"):
         MeshConfig(**{axis: 2})
+
+
+FSDP_PAIRS = ["sequence", "expert", "pipeline"]
+
+
+@pytest.mark.parametrize("other", FSDP_PAIRS)
+def test_config_refuses_fsdp_with_another_axis_naming_its_item(other):
+    """fsdp with the sequence, expert or pipeline axis is not ported yet:
+    each pair raises naming A13 item 8 (each axis alone loads)."""
+    with pytest.raises(ConfigError, match=r"A13 item 8 \(fsdp with the "
+                                          r"other axes\)"):
+        TrainingConfig.from_dict({"model": "gpt_tiny_moe",
+                                  "global_batch_size": 8,
+                                  "mesh": {"fsdp": 2, other: 2}})
+    with pytest.raises(ConfigError, match="not ported yet"):
+        MeshConfig(fsdp=2, **{other: 2})
 
 
 def test_config_takes_a_data_mesh_and_checks_it():

@@ -274,12 +274,21 @@ def test_config_refuses_what_it_does_not_honour():
                                     "checkpoint": {"enabled": False}})
     assert isinstance(cfg.checkpoint, CheckpointConfig)
     assert not cfg.checkpoint.enabled and cfg.checkpoint.keep == 3
-    # the data axis is ported; an fsdp axis still names its ROADMAP item
+    # the data and fsdp axes are ported; fsdp beside the expert axis
+    # still names its ROADMAP item
     assert TrainingConfig.from_dict(
         {"model": "gpt_tiny", "global_batch_size": 4,
          "mesh": {"data": 2}}).mesh.data == 2
-    with pytest.raises(ConfigError, match="A13 item 1"):
-        TrainingConfig.from_dict({"model": "gpt_tiny", "mesh": {"fsdp": 2}})
+    assert TrainingConfig.from_dict(
+        {"model": "gpt_tiny", "mesh": {"fsdp": 2}}).mesh.fsdp == 2
+    assert TrainingConfig.from_dict(
+        {"model": "gpt_tiny", "global_batch_size": 8,
+         "mesh": {"data": 2, "fsdp": 2}}).mesh.num_devices == 4
+    with pytest.raises(ConfigError, match="A13 item 8"):
+        TrainingConfig.from_dict({"model": "gpt_tiny",
+                                  "mesh": {"fsdp": 2, "expert": 2}})
+    with pytest.raises(ConfigError, match="A13 item 2"):
+        TrainingConfig.from_dict({"model": "gpt_tiny", "mesh": {"tensor": 2}})
     with pytest.raises(ConfigError, match="unknown field"):
         TrainingConfig.from_dict({"model": "gpt_tiny", "bogus": 1})
     with pytest.raises(ConfigError, match="A14"):

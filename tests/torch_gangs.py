@@ -1,8 +1,8 @@
 """Shared by the port's gang tests: start a gang of the port's ranks on
 the CPU (one process a rank, gloo over 127.0.0.1, the env
 `render_gang_env` gives each) running a worker's source, and read each
-rank's result line; rehearse chip_smoke.py's gang phases (19-21) on the
-CPU. Imports no JAX."""
+rank's result line; rehearse chip_smoke.py's gang phases (19-21, 23) on
+the CPU. Imports no JAX."""
 
 import json
 import os
@@ -76,7 +76,8 @@ def chip_smoke():
     return smoke
 
 
-# the cells of chip_smoke.py's phases 19-21 at test size, f32 on the CPU:
+# the cells of chip_smoke.py's phases 19-21 and 23 at test size, f32 on
+# the CPU:
 # each phase's plan keywords (its `phase_gangs` argument)
 SMOKE_SEQ = {"overrides": dict(model="gpt_tiny", seq_len=64,
                                dtype="float32", loss_chunk=16)}
@@ -88,20 +89,23 @@ SMOKE_EXPERT = {
 SMOKE_PIPELINE = {"overrides": dict(model="gpt_tiny", seq_len=32,
                                     dtype="float32", attention_impl="dense"),
                   "model_kwargs": {"num_layers": 4}}
+SMOKE_FSDP = {"overrides": dict(model="gpt_tiny", seq_len=32,
+                                dtype="float32", loss_chunk=16,
+                                attention_impl="dense")}
 # 19c's ring ranks at test size (phase_ring_cost's keywords, but dtype)
 SMOKE_RING_COST = dict(b=1, s=64, n=8, h=4, d=16)
 
 
-def rehearse_smoke(root, seq=None, expert=None, pipeline=None):
-    """chip_smoke.py's phases 19-21 as `main` runs them, on the CPU:
-    `phase_gangs` (the same gangs, the given phases' cells), then each
-    given phase's world 1 and gates on its gang's reports → {phase:
+def rehearse_smoke(root, seq=None, expert=None, pipeline=None, fsdp=None):
+    """chip_smoke.py's phases 19-21 and 23 as `main` runs them, on the
+    CPU: `phase_gangs` (the same gangs, the given phases' cells), then
+    each given phase's world 1 and gates on its gang's reports → {phase:
     its flash launches}."""
     import torch
 
     smoke = chip_smoke()
     gangs = smoke.phase_gangs(torch, str(root), device="cpu", seq=seq,
-                              expert=expert, pipeline=pipeline)
+                              expert=expert, pipeline=pipeline, fsdp=fsdp)
     out = {}
     if seq is not None:
         out["seq"] = smoke.phase_sequence(
@@ -113,4 +117,6 @@ def rehearse_smoke(root, seq=None, expert=None, pipeline=None):
     if pipeline is not None:
         out["pipeline"] = smoke.phase_pipeline(torch, gangs["pipeline"],
                                                device="cpu")
+    if fsdp is not None:
+        out["fsdp"] = smoke.phase_fsdp(torch, gangs["fsdp"], device="cpu")
     return out
