@@ -355,11 +355,11 @@ Phases (any failure raises and the script exits non-zero):
    here, each attempt's flash launches (its launcher line's
    `kernel_launches`) the formula. The kernels line gives each flash
    row its `job_launches` (both attempts; a row at 0 fails).
-23. The fsdp axis (FSDP_CFG: gpt_small at full width, bf16, remat,
-   flash, seq 1024, global batch 8, loss_chunk 1024, 3 steps with warmup
-   2). 23a: `mesh: {fsdp: 4}`, four ranks of `chip_smoke.py --gang-rank`
-   over gloo on the one card (in the quartet of phases 20-21, before
-   20a), each holding its quarter of every leaf whose spec names fsdp,
+23. The fsdp axis (FSDP_CFG: gpt_small at full width, FSDP_DEPTH's 6
+   of its 12 layers, bf16, remat, flash, seq 1024, global batch 8,
+   loss_chunk 1024, 3 steps with warmup 2). 23a: `mesh: {fsdp: 4}`,
+   four ranks of `chip_smoke.py --gang-rank` over gloo on the one card
+   (in the quartet of phases 20-21, before 20a), each holding its quarter of every leaf whose spec names fsdp,
    gathered at its use and reduce-scattered back; against world 1 (the
    same cell at `{data: 1}`) in this process. Gates: the ranks' losses
    bit for bit equal and within GANG_LOSS_REL of world 1's, the whole
@@ -375,6 +375,18 @@ Phases (any failure raises and the script exits non-zero):
    ranks' blocks joined, bit for bit, and it resumes to the gang's
    step-3 loss within GANG_LOSS_REL. The kernels line gives each flash
    row its `fsdp_launches` (23a, 23b; a row at 0 fails).
+24. The serving mesh (SERVE_CELLS on SERVE_TRAFFIC, phase 5's seeded
+   weights and traffic): 24a gpt_small on `{tensor: 2}` in bf16 and 24b
+   in int8 (in the pair), 24c on `{tensor: 2, fsdp: 2}` and 24d
+   gpt_small_moe on `{tensor: 2, expert: 2}` (in the quartet). Rank 0
+   serves the traffic behind its REST server, every other rank runs the
+   relayed programs on its shard; each rank builds its model on the host
+   and copies only its blocks to the card. Gates: the tokens bit for bit
+   those of the 1×1 reference (phase 5's, 10's, 5's, 18b's), a rank's
+   pool bytes, weight bytes and a decode step's gathers their formulas,
+   rank 0's paged launches the reference's, rank 0's build and every
+   worker's peak card memory within the formula (SERVE_MEM_SLACK). The
+   kernels line gives the paged rows their `mesh_launches`.
 
 Every phase prints its seconds, and the line before the nvidia-smi line
 the whole run's. The last lines are the nvidia-smi line, a {"kernels":
@@ -464,8 +476,10 @@ WINDOW_HOPPER_KERNELS = {
     "paged_window_int8_bf16": r"paged_window_kernelI13__nv_bfloat16aLi(?P<d>\d+)E",
 }
 
-# gpt_small serving geometry (engine defaults: 8 slots, page 16)
+# gpt_small serving geometry (engine defaults: 8 slots, page 16); a
+# serving-mesh rank's heads at tensor 2 (phase 24)
 B, H, D, PS, MP, NUM_PAGES = 8, 12, 64, 16, 64, 384
+MESH_H = H // 2
 # ragged cursors of the 8-slot calls; 1024 = max_len is a parked slot
 CURSORS = (0, 15, 16, 1023, 1024, 300, 517, 64)
 # the decode kernel's split edges (a split is 128 keys at page 16) and its
@@ -756,7 +770,38 @@ PIPELINE_CUT = dict(steps=3, warmup_steps=2, attention_impl="flash")
 FSDP_SAVE = 2
 FSDP_CFG = dict(TRAIN_CFG, seq_len=1024, global_batch_size=8, accum_steps=1,
                 loss_chunk=1024, steps=3)
+# 23a's and 23b's depth: 6 of gpt_small's 12 layers (every width and
+# every gate kept), so the quartet, the long pole of `phase_gangs`, keeps
+# phase 24's cells inside the script's time limit
+FSDP_DEPTH = {"num_layers": 6}
 FSDP_MESHES = (("23a", {"fsdp": 4}), ("23b", {"data": 2, "fsdp": 2}))
+# phase 24: the serving mesh on the one card (parallel/serving_mesh.py,
+# serving/relay.py). Each cell serves phase 5's seeded weights (build_server's
+# seed-0 init) at full width behind rank 0's REST server on phase 5's
+# geometry and traffic (8 slots, page 16, the prefix cache, the seven
+# concurrent greedy requests of 5-700 tokens with 32 new, then the
+# 300-token request again), its pool auto-sized by the tensor rule (the
+# 1×1 static pages times tensor), the ranks gloo ranks sharing the card.
+# 24a: gpt_small on {tensor: 2}, bf16; 24b: the same in int8; 24c:
+# gpt_small on {tensor: 2, fsdp: 2}, bf16; 24d: gpt_small_moe on {tensor:
+# 2, expert: 2}, bf16. Gates: each cell's tokens equal its 1×1 reference
+# bit for bit (phase 5's, phase 10's, phase 5's, 18b's); a rank's pool
+# bytes the 1×1 pool's at tensor times the pages, its weight bytes and a
+# step's gathers their specs' formulas; rank 0's paged launches phase 5's
+# (744 decode, 108 window, at H = 6 a rank)
+SERVE_CELLS = (("24a", "gpt_small", {"tensor": 2}, "none"),
+               ("24b", "gpt_small", {"tensor": 2}, "int8"),
+               ("24c", "gpt_small", {"tensor": 2, "fsdp": 2}, "none"),
+               ("24d", MOE_MODEL, {"tensor": 2, "expert": 2}, "none"))
+SERVE_TRAFFIC = dict(lens=(5, 17, 33, 64, 120, LONG_LEN, HIT_LEN),
+                     max_new=32, buckets=BUCKETS, dtype="bfloat16")
+# a rank's card memory against its formula (the ranks build their models
+# on the host and copy only their blocks to the card): rank 0's build
+# holds its weights (the specs' formula) and its pools plus at most
+# SERVE_MEM_SLACK (allocator rounding, small buffers); a worker's peak,
+# its build and the traffic, holds the same plus the activations rank 0's
+# traffic read (rank 0's peak less its weights and pools), plus the slack
+SERVE_MEM_SLACK = 64 << 20
 # a gang of phase_gangs: its ranks' time limit (the gangs run at once)
 GANGS_TIMEOUT_S = 600
 # phase 22: the job path (cluster/, controllers/gpujob.py and studyjob.py,
@@ -1034,10 +1079,27 @@ def phase_kernels(torch, quantized=False):
           f"call {b8['ms']:.4f} ms ({b8['bound_ms'] / b8['ms']:.1%} of bound)",
           flush=True)
     # the main path's window calls (bf16, batch 1): each distinct cursor
-    # measured once, then averaged over the calls phase 5 (10) makes
+    # measured once, then averaged over the calls phase 5 (10) makes; then
+    # both kernels at a serving-mesh rank's shape (phase 24: H / 2 heads a
+    # rank at tensor 2), the B=8 decode call and the same windows
     window = pa.kernel_name(CHUNK, quantized)
+    records[(window, "bfloat16", "main")] = main_windows_record(
+        torch, pa, flush, window, quantized, H)
+    records[(decode, "bfloat16", "B8_rank")] = measure(
+        torch, pa, flush, torch.bfloat16, 1, CURSORS, quantized, h=MESH_H)
+    records[(window, "bfloat16", "main_rank")] = main_windows_record(
+        torch, pa, flush, window, quantized, MESH_H)
+    del flush
+    return records
+
+
+def main_windows_record(torch, pa, flush, window, quantized, h):
+    """The window kernel at the main path's batch-1 bf16 windows with `h`
+    heads: each distinct cursor measured once, averaged over the calls
+    phase 5 (10) makes."""
     per_cursor = {
-        c: measure(torch, pa, flush, torch.bfloat16, CHUNK, (c,), quantized)
+        c: measure(torch, pa, flush, torch.bfloat16, CHUNK, (c,), quantized,
+                   h=h)
         for c in sorted(set(MAIN_WINDOWS))
     }
     calls = [per_cursor[c] for c in MAIN_WINDOWS]
@@ -1051,16 +1113,14 @@ def phase_kernels(torch, quantized=False):
         "bytes" if main["bytes"] / HBM_BYTES_PER_S
         >= main["ops"] / PEAK_OPS["bfloat16"] else "operations"
     )
-    main["shape"] = (f"B=1 s={CHUNK} H={H} D={D} ps={PS} MP={MP} "
+    main["shape"] = (f"B=1 s={CHUNK} H={h} D={D} ps={PS} MP={MP} "
                      f"P={NUM_PAGES}; mean over the main path's windows at "
                      f"cursors {list(MAIN_WINDOWS)}")
-    print(f"kernel {window} bf16 main-path windows (mean of "
+    print(f"kernel {window} bf16 main-path windows at H={h} (mean of "
           f"{len(calls)} calls): ms {main['ms']:.4f} plain_ms "
           f"{main['plain_ms']:.4f} library_ms {main['library_ms']:.4f} "
           f"bound_ms {main['bound_ms']:.5f} ({main['bound_by']})", flush=True)
-    records[(window, "bfloat16", "main")] = main
-    del flush
-    return records
+    return main
 
 
 def post(port, name, body, timeout=600):
@@ -1203,10 +1263,9 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
                       quantize=quantize)
     tag = "bf16" if quantize == "none" else f"{quantize} bf16"
     try:
-        vocab = f32_model.cfg.vocab_size
-        rng = np.random.default_rng(2)
-        prompts = [rng.integers(0, vocab, n).tolist()
-                   for n in (*short, long_len, hit_len)]
+        prompts, warm = serve_traffic(f32_model.cfg.vocab_size,
+                                      (*short, long_len, hit_len),
+                                      int(buckets.split(",")[-1]))
         results = [None] * len(prompts)
 
         def run(i):
@@ -1216,7 +1275,6 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         # warm-up (not timed, not counted): the first bf16 call of each
         # shape pays CUDA's lazy module loading and library heuristics;
         # a prompt past the largest bucket runs both kernels once
-        warm = rng.integers(0, vocab, int(buckets.split(",")[-1]) + 4).tolist()
         status, _ = post(httpd.port, model, {"prompt_ids": [warm],
                                              "max_new_tokens": 2})
         if status != 200:
@@ -1278,7 +1336,7 @@ def phase_serve_bf16(torch, f32_model, model="gpt_small", device="cuda",
         # the K = 0 numbers phase 11 prints beside its own, and the
         # traffic with its tokens (phase 14 serves it again)
         stats = dict(stats, load_tokens_per_s=gen_tokens / wall,
-                     load_decode_step_ms=step_ms, traffic={
+                     load_decode_step_ms=step_ms, peak_bytes=peak, traffic={
                          "prompts": prompts,
                          "tokens": [res[1]["sequences"][0][len(prompt):]
                                     for prompt, res in zip(prompts, results)],
@@ -3603,7 +3661,8 @@ def rank_runs(torch, job):
     (with "digests") the final leaves' digests, replicated and expert
     blocks apart, and the rank's coordinates, and on a pipeline axis the
     rank's stage, microbatches, schedule and live-activation peak, and on
-    an fsdp axis its gathers and reduce-scatters. With "out" the rank's
+    an fsdp axis its gathers and reduce-scatters. A run with "serve" is a
+    serving-mesh cell of phase 24 (`serve_cell`). With "out" the rank's
     final parameters and buffers are saved as `<out>.<rank>.pt` (by the
     ranks "out_ranks" lists; by default every rank; on an fsdp axis the
     whole parameters, every rank gathering the blocks). One process start
@@ -3626,6 +3685,16 @@ def rank_runs(torch, job):
     out = []
     for run in job["runs"]:
         t0 = time.monotonic()
+        if run.get("serve"):
+            # phase 24: a serving-mesh cell, rank 0's server or a worker
+            with open(run["config"]) as f:
+                rep = serve_cell(torch, json.load(f), dev)
+            rep["seconds"] = {"run": time.monotonic() - t0}
+            out.append(rep)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            continue
         with open(run["config"]) as f:
             cfg = TrainingConfig.from_dict(json.load(f))
         trainer = Trainer(cfg, device=dev,
@@ -4405,16 +4474,14 @@ def phase_moe_serve_bf16(torch, f32_model, dense_stats, model=MOE_MODEL,
         eng = ms.engine(model)
         cfg = eng.model.cfg
         layers, k, vocab = cfg.num_layers, cfg.moe_top_k, cfg.vocab_size
-        rng = np.random.default_rng(2)
-        prompts = [rng.integers(0, vocab, n).tolist()
-                   for n in (*short, long_len, hit_len)]
+        prompts, warm = serve_traffic(vocab, (*short, long_len, hit_len),
+                                      eng.prefill_buckets[-1])
         results = [None] * len(prompts)
 
         def run(i):
             results[i] = post(httpd.port, model, {"prompt_ids": [prompts[i]],
                                                   "max_new_tokens": max_new})
 
-        warm = rng.integers(0, vocab, eng.prefill_buckets[-1] + 4).tolist()
         if post(httpd.port, model, {"prompt_ids": [warm],
                                     "max_new_tokens": 2})[0] != 200:
             raise AssertionError("18b warm-up failed")
@@ -4529,7 +4596,9 @@ def phase_moe_serve_bf16(torch, f32_model, dense_stats, model=MOE_MODEL,
                     if ln.strip().startswith("moe:")]
         print(f"moe 18b: /statusz {moe_line}", flush=True)
         summary = {"decode_step_ms": step_ms, "tokens_per_s": gen / wall,
-                   "peak_bytes": peak}
+                   "peak_bytes": peak, "tokens": replies,
+                   "launches": dict(launches),
+                   "kv_pool_bytes": stats["kv_pool_bytes"]}
         if cuda:
             prof_ms, busy, casts, psteps, top = moe_decode_profile(
                 torch, eng, vocab, layers)
@@ -4759,16 +4828,17 @@ def phase_moe(torch, dense_stats, device="cuda"):
     """Phase 18: 18a-18c serve gpt_small_moe (f32 on both read paths,
     bf16 on phase 5's traffic, int8), 18d trains it in f32 flash against
     dense, 18e in bf16 at one card's share of configs/gpt_moe_v5e16.yaml,
-    18f trains bert_base_moe. → each kernel row's launches on its MoE
-    path (18b, 18c, 18e)."""
+    18f trains bert_base_moe. → (each kernel row's launches on its MoE
+    path (18b, 18c, 18e), 18f's BERT launches, 18b's summary: its tokens
+    and paged launches are phase 24d's reference)."""
     from kubeflow_tpu_torch.models.registry import get_model
 
     t18 = time.monotonic()
     f32_model = get_model(MOE_MODEL, device=device, dtype=torch.float32,
                           seed=MOE_SEED)
     phase_moe_serve_f32(torch, f32_model, device=device)
-    launches, _ = phase_moe_serve_bf16(torch, f32_model, dense_stats,
-                                       device=device)
+    launches, served = phase_moe_serve_bf16(torch, f32_model, dense_stats,
+                                            device=device)
     launches.update({name: n for name, n in phase_moe_serve_int8(
         torch, f32_model, device=device).items() if name.endswith("_int8")})
     del f32_model
@@ -4787,7 +4857,7 @@ def phase_moe(torch, dense_stats, device="cuda"):
                             tag="moe 18f")
     torch.cuda.empty_cache()
     print(f"phase 18: {time.monotonic() - t18:.3f} s", flush=True)
-    return launches, bert
+    return launches, bert, served
 
 
 def _ring_rank(torch, rp, q_blocks, kv_blocks, idx, grad=None):
@@ -5455,17 +5525,18 @@ def phase_pipeline(torch, gang, device="cuda"):
     return total
 
 
-def fsdp_plan(root, overrides=None):
+def fsdp_plan(root, overrides=None, model_kwargs=FSDP_DEPTH):
     """23a's and 23b's gang runs, (config, run options) each: FSDP_CFG
-    with `overrides` on each of FSDP_MESHES, rank 0's gathered final
-    weights saved; 23a saves its checkpoint at FSDP_SAVE and its ranks
-    record their blocks' digests there."""
+    with `overrides` on each of FSDP_MESHES, the model built with
+    `model_kwargs` (its depth), rank 0's gathered final weights saved;
+    23a saves its checkpoint at FSDP_SAVE and its ranks record their
+    blocks' digests there."""
     base = {**FSDP_CFG, **(overrides or {})}
     runs = []
     for tag, mesh in FSDP_MESHES:
         cfg = dict(base, mesh=mesh)
         opts = {"digests": True, "out": os.path.join(root, f"fsdp_{tag}"),
-                "out_ranks": [0]}
+                "out_ranks": [0], "model_kwargs": dict(model_kwargs)}
         if tag == FSDP_MESHES[0][0]:
             cfg["checkpoint"] = {"directory": os.path.join(root, "ckpt"),
                                  "interval_steps": FSDP_SAVE, "keep": 10,
@@ -5494,7 +5565,9 @@ def phase_fsdp(torch, gang, device="cuda"):
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    res, tr, init, one_params = world1_run(torch, world1_cell(base), device)
+    res, tr, init, one_params = world1_run(
+        torch, world1_cell(base), device,
+        model_kwargs=plan[0][1]["model_kwargs"])
     one_peak = torch.cuda.max_memory_allocated() if cuda else 0
     one_losses = [loss for _, loss in res["losses"]]
     one_bytes = state_bytes(tr._final_state)
@@ -5626,36 +5699,338 @@ def phase_fsdp(torch, gang, device="cuda"):
     return total
 
 
+# -- phase 24: the serving mesh ------------------------------------------------
+
+
+def serve_plan(root, overrides=None, cells=SERVE_CELLS):
+    """Phase 24's gang runs, (cell spec, run options) each: every cell of
+    `cells` on SERVE_TRAFFIC with `overrides` (a model name map "models"
+    and traffic fields)."""
+    over = dict(overrides or {})
+    models = over.pop("models", {})
+    return [({"cell": cell, "model": models.get(model, model), "mesh": mesh,
+              "quantize": quantize, **SERVE_TRAFFIC, **over},
+             {"serve": True}) for cell, model, mesh, quantize in cells]
+
+
+def serve_traffic(vocab, lens, largest):
+    """Phase 5's prompts (drawn in its order: the requests, then the
+    warm-up's `largest` + 4 tokens)."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in lens]
+    return prompts, rng.integers(0, vocab, largest + 4).tolist()
+
+
+def mesh_formulas(torch, model, mesh, quantize, dtype="bfloat16"):
+    """(weight bytes a rank holds, collectives and bytes a decode step's
+    weight gathers bring in, the expert stacks' whole bytes) by the
+    specs' formulas for registry `model` computing in `dtype` on serving
+    mesh `mesh`: each leaf's bytes at rest (f32; an int8 leaf, ndim >=
+    2, at one byte an element plus its f32 scale, held whole) over the
+    product of its spec's axes; a transformer block's leaves gathered at
+    once, one collective an axis they split over (a leaf outside the
+    blocks alone, one an axis), each leaf bringing in its whole bytes
+    less its block's in its wire dtype (int8, else `dtype`); an expert
+    stack on an expert axis never."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.parallel.serving_mesh import (
+        is_moe_expert_kernel_path,
+        serving_leaf_specs,
+        spec_bytes,
+    )
+
+    sizes = {a: mesh.get(a, 1) for a in ("tensor", "fsdp", "expert")}
+    whole = get_model(model, device="meta", dtype=getattr(torch, dtype))
+    shapes = {n: tuple(t.shape) for n, t in whole.state_dict().items()}
+    int8 = {n for n in shapes if quantize == "int8" and len(shapes[n]) >= 2}
+    wire = getattr(torch, dtype).itemsize
+    specs = serving_leaf_specs(shapes, **sizes)
+    held = spec_bytes(shapes, {n: 1 if n in int8 else 4 for n in shapes},
+                      specs, sizes) + sum(4 * shapes[n][-1] for n in int8)
+    units, moved = {}, 0
+    for n, spec in specs.items():
+        if sizes["expert"] > 1 and is_moe_expert_kernel_path(n):
+            continue
+        axes = {a for entry in spec for a in (
+            (entry,) if isinstance(entry, str) else (entry or ()))
+            if a in ("fsdp", "tensor") and sizes[a] > 1}
+        if axes:
+            unit = ".".join(n.split(".")[:2]) if n.startswith("layers.") \
+                else n
+            units.setdefault(unit, set()).update(axes)
+            parts = int(np.prod([sizes[a] for a in axes]))
+            nbytes = int(np.prod(shapes[n])) * (1 if n in int8 else wire)
+            moved += nbytes - nbytes // parts
+    stacks = sum(int(np.prod(shapes[n])) * 4 for n in shapes
+                 if is_moe_expert_kernel_path(n))
+    return held, sum(len(a) for a in units.values()), moved, stacks
+
+
+def serve_cell(torch, spec, dev):
+    """One rank's side of a phase-24 cell (`serve_plan`). Rank 0 (or a
+    process without a gang, at mesh 1×1×1: the CPU rehearsal's 1×1
+    reference) serves the cell through build_server behind the REST
+    server: the warm-up, then phase 5's seven concurrent requests and the
+    repeat with the paged launch counts set to 0 just before and read
+    just after; a relayed decode step over parked slots counts a step's
+    gathers. Every other rank runs serve_mesh_worker. → the rank's
+    report."""
+    from kubeflow_tpu_torch.api.wsgi import Server
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.parallel.distributed import rank
+    from kubeflow_tpu_torch.serving.engine import resolve_num_pages
+    from kubeflow_tpu_torch.serving.main import (
+        build_server,
+        serve_mesh_worker,
+    )
+
+    mesh, model, quantize = spec["mesh"], spec["model"], spec["quantize"]
+    knobs = {f"mesh_{a}": mesh.get(a, 1) for a in ("tensor", "fsdp", "expert")}
+    dtype = getattr(torch, spec["dtype"])
+    cuda = dev.type == "cuda"
+    # what the rank process's earlier runs left allocated
+    leftover = torch.cuda.memory_allocated(dev) if cuda else 0
+    os.environ["KFT_SERVING_PREFILL_BUCKETS"] = spec["buckets"]
+    try:
+        if rank() > 0:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            calls = serve_mesh_worker(model, device=dev, dtype=dtype, **knobs)
+            return {"calls": calls, "leftover": leftover,
+                    "max_memory_allocated": (
+                        torch.cuda.max_memory_allocated(dev) if cuda else 0)}
+        cfg = get_model(model, device="meta", dtype=dtype).cfg
+        # the tensor rule's auto pool: the 1×1 static pages times tensor
+        pages = resolve_num_pages(None, 8, cfg, 16, quantize,
+                                  knobs["mesh_tensor"])
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        ms = build_server(model, device=dev, dtype=dtype, num_slots=8,
+                          page_size=16, num_pages=pages, quantize=quantize,
+                          paged_attention="kernel", **knobs)
+        # what the build held on the card at its most
+        build_peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+        httpd = Server(ms.app, port=0)
+        httpd.start()
+        try:
+            eng = ms.engine(model)
+            largest = eng.prefill_buckets[-1]
+            prompts, warm = serve_traffic(cfg.vocab_size, spec["lens"],
+                                          largest)
+            results = [None] * len(prompts)
+
+            def run(i):
+                results[i] = post(httpd.port, model, {
+                    "prompt_ids": [prompts[i]],
+                    "max_new_tokens": spec["max_new"]})
+
+            if post(httpd.port, model, {"prompt_ids": [warm],
+                                        "max_new_tokens": 2})[0] != 200:
+                raise AssertionError(f"{spec['cell']} warm-up failed")
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+            # the main path's run: every launch count starts at 0 here
+            pa.reset_launch_counts()
+            t0 = time.monotonic()
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(prompts))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=900)
+            wall = time.monotonic() - t0
+            prompts.append(prompts[-1])
+            results.append(post(httpd.port, model, {
+                "prompt_ids": [prompts[-1]],
+                "max_new_tokens": spec["max_new"]}))
+            launches = dict(pa.launch_counts)
+            stats = eng.stats()
+            peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            tokens = []
+            for prompt, res in zip(prompts, results):
+                if res is None or res[0] != 200:
+                    raise AssertionError(f"{spec['cell']} :generate: {res}")
+                tokens.append(res[1]["sequences"][0][len(prompt):])
+            gathers = step_gathers(torch, eng)
+            own_stacks = sum(t.numel() * t.element_size() for n, t in
+                             eng.model.state_dict().items() if is_stack(n))
+        finally:
+            httpd.stop()
+            ms.close()
+        held, collectives, moved, stacks = mesh_formulas(
+            torch, model, mesh, quantize, spec["dtype"])
+        return {"tokens": tokens, "launches": launches, "stats": stats,
+                "gathers": gathers, "wall_s": wall, "leftover": leftover,
+                "stack_bytes": own_stacks,
+                "max_memory_allocated": peak, "build_peak": build_peak,
+                "formula": {"weight_bytes": held, "all_gather": collectives,
+                            "bytes": moved, "stacks": stacks}}
+    finally:
+        os.environ.pop("KFT_SERVING_PREFILL_BUCKETS", None)
+
+
+def step_gathers(torch, eng):
+    """One decode step over parked slots, relayed as the engine relays
+    its own: the weight gathers it makes on this rank (collectives, bytes
+    brought in) and its attention-output gathers."""
+    mesh = eng.mesh
+    if mesh is None:
+        return {"all_gather": 0, "bytes": 0, "heads": 0}
+    s, before = eng.num_slots, dict(mesh.weights.counts)
+    heads = 0 if mesh.heads is None else mesh.heads.counts["all_gather"]
+
+    def job():
+        eng.programs.step(
+            eng._pool, eng._to_dev(np.zeros((s,), np.int64)),
+            eng._to_dev(np.zeros((s, eng._max_pages), np.int32)),
+            eng._to_dev(np.full((s,), eng.model.cfg.max_len, np.int32)),
+            np.zeros((s,), np.int64), np.zeros((s,), np.int64),
+            np.zeros((s,), np.float32), np.zeros((s,), np.int64),
+            np.ones((s,), np.float32))
+
+    eng._run_on_scheduler(job)
+    return {"all_gather": mesh.weights.counts["all_gather"]
+            - before["all_gather"],
+            "bytes": mesh.weights.counts["bytes"] - before["bytes"],
+            "heads": (0 if mesh.heads is None
+                      else mesh.heads.counts["all_gather"] - heads)}
+
+
+def phase_serving_mesh(torch, gang, refs=None, device="cuda"):
+    """Phase 24's gates on its gang's reports (`gang`: phase_gangs'
+    "serve" entry). `refs`: {cell: its 1×1 reference's {"tokens",
+    "kv_pool_bytes", "launches" (paged)}} (phase 5's run for 24a and
+    24c, phase 10's for 24b, 18b's for 24d), or None to serve each cell's
+    1×1 reference here (the CPU rehearsal) → {cell: rank 0's report}."""
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    t24 = time.monotonic()
+    _, plan, reports = gang
+    where = smi_line() if device == "cuda" else device
+    out = {}
+    for (spec, _), reps in zip(plan, reports):
+        cell, mesh = spec["cell"], spec["mesh"]
+        rep, workers = reps[0], reps[1:]
+        ref = (refs or {}).get(cell)
+        if ref is None:
+            solo = serve_cell(torch, dict(spec, mesh={}), torch.device(device))
+            ref = {"tokens": solo["tokens"], "launches": solo["launches"],
+                   "kv_pool_bytes": solo["stats"]["kv_pool_bytes"],
+                   "peak_bytes": solo["max_memory_allocated"]}
+        st, f, g = rep["stats"], rep["formula"], rep["gathers"]
+        t = mesh.get("tensor", 1)
+        # a rank's card bytes by the formula: its weights and its pools
+        held = st["weight_bytes_per_chip"] + st["kv_pool_bytes_per_chip"]
+        acts = rep["max_memory_allocated"] - rep["leftover"] - held
+        worker_peaks = [w["max_memory_allocated"] - w["leftover"]
+                        for w in workers]
+        print(f"serving mesh {cell} ({where}): {spec['model']} "
+              f"{spec['quantize'] if spec['quantize'] != 'none' else spec['dtype']} "
+              f"on {mesh}: {len(rep['tokens'])} requests, tokens equal the "
+              f"1×1 reference's: {rep['tokens'] == ref['tokens']}; "
+              f"{spec['max_new'] * (len(rep['tokens']) - 1)} "
+              f"tokens of concurrent load in {rep['wall_s']:.3f} s; pool "
+              f"{st['pages_total']} pages, {st['kv_pool_bytes_per_chip']} B a "
+              f"rank ({st['kv_pool_bytes']} B whole; the 1×1 pool "
+              f"{ref['kv_pool_bytes']} B); weights "
+              f"{st['weight_bytes_per_chip']} B a rank (the specs' formula: "
+              f"each leaf's bytes over its spec's axes = {f['weight_bytes']} "
+              f"B; expert stacks {rep['stack_bytes']} B a rank of "
+              f"{f['stacks']} B whole); a decode step's "
+              f"gathers {g['all_gather']} of {g['bytes']} B (formula "
+              f"{f['all_gather']} of {f['bytes']} B) and {g['heads']} "
+              f"attention outputs; rank 0's paged launches "
+              f"{rep['launches']}; max_memory_allocated by rank "
+              f"{[r['max_memory_allocated'] for r in reps]} B (rank 0 over "
+              f"the traffic, the workers' from their build; left allocated "
+              f"by the rank process's earlier runs "
+              f"{[r['leftover'] for r in reps]} B), the 1×1 engine's "
+              f"{ref['peak_bytes']} B; rank 0's build "
+              f"{rep['build_peak'] - rep['leftover']} B (its weights and "
+              f"pools {held} B + at most {SERVE_MEM_SLACK} B); the workers' "
+              f"{worker_peaks} B (bound: {held} B + rank 0's activations "
+              f"{acts} B + {SERVE_MEM_SLACK} B); worker calls "
+              f"{[sum(w['calls'].values()) for w in workers]}",
+              flush=True)
+        if rep["tokens"] != ref["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(rep["tokens"],
+                                                    ref["tokens"])) if a != b]
+            raise AssertionError(f"{cell}: requests {bad} answered other "
+                                 f"tokens than the 1×1 reference's")
+        if st["mesh_tensor"] != t or st["kv_pool_bytes"] != \
+                t * st["kv_pool_bytes_per_chip"] or \
+                st["kv_pool_bytes_per_chip"] != ref["kv_pool_bytes"]:
+            raise AssertionError(f"{cell}: pool {st}, the 1×1 pool's "
+                                 f"{ref['kv_pool_bytes']} B")
+        if st["weight_bytes_per_chip"] != f["weight_bytes"]:
+            raise AssertionError(f"{cell}: {st['weight_bytes_per_chip']} "
+                                 f"weight bytes a rank, formula "
+                                 f"{f['weight_bytes']}")
+        if rep["stack_bytes"] * mesh.get("expert", 1) != f["stacks"]:
+            raise AssertionError(f"{cell}: {rep['stack_bytes']} expert "
+                                 f"stack bytes a rank of {f['stacks']}")
+        if (g["all_gather"], g["bytes"]) != (f["all_gather"], f["bytes"]):
+            raise AssertionError(f"{cell}: gathers {g}, formula {f}")
+        layers = get_model(spec["model"], device="meta").cfg.num_layers
+        if g["heads"] != (layers if t > 1 else 0):
+            raise AssertionError(f"{cell}: {g['heads']} attention gathers")
+        if not all(sum(w["calls"].values()) > 0 for w in workers):
+            raise AssertionError(f"{cell}: a worker ran no call")
+        if device == "cuda":
+            want = {k: v for k, v in ref["launches"].items() if v}
+            got = {k: v for k, v in rep["launches"].items() if v}
+            if got != want:
+                raise AssertionError(f"{cell}: launches {got}, the 1×1 "
+                                     f"reference's {want}")
+            if rep["build_peak"] - rep["leftover"] > held + SERVE_MEM_SLACK:
+                raise AssertionError(f"{cell}: rank 0's build held "
+                                     f"{rep['build_peak'] - rep['leftover']}"
+                                     f" B on the card, formula {held} B")
+            if max(worker_peaks) > held + acts + SERVE_MEM_SLACK:
+                raise AssertionError(f"{cell}: worker peaks {worker_peaks} "
+                                     f"B, bound {held} + {acts} B")
+        out[cell] = rep
+    print(f"phase 24: {time.monotonic() - t24:.3f} s (gates; the cells ran "
+          f"in the gangs)", flush=True)
+    return out
+
+
 def phase_gangs(torch, root, device="cuda", data=None, seq=None,
-                expert=None, pipeline=None, fsdp=None):
-    """The gang runs of phases 17c and 19-23, before the phases read them.
-    One pair of rank processes runs 17c's two cells, 19a, 19b and 20b in
-    turn, one quartet 21a, 21b, 23a, 23b and 20a (a rank process's start
-    costs ~20 s, more than a cell's steps; 20a last, whose process kept
-    ~1.9 GB allocated after its run, which would read in the others'
-    peaks). The pair and the quartet run at once (their ranks share the
-    card and the host: the arithmetic and the memory, not the speed).
-    `data`, `seq`, `expert`, `pipeline`, `fsdp`: the keyword arguments
-    of that phase's plan (`data_plan`, `sequence_plan`, `expert_plan`,
-    `pipeline_plan`, `fsdp_plan`; {} for none), or None to leave its
-    cells out. → {"data" | "seq" | "expert" | "pipeline" | "fsdp": (its
-    directory, its plan, its runs' reports in plan order, each the ranks'
-    reports in rank order)}, the `gang` of phase_gang_two_ranks,
-    phase_sequence, phase_expert, phase_pipeline and phase_fsdp."""
+                expert=None, pipeline=None, fsdp=None, serve=None):
+    """The gang runs of phases 17c and 19-24, before the phases read them.
+    One pair of rank processes runs 17c's two cells, 19a, 19b, 24a, 24b
+    and 20b in turn, one quartet 21a, 21b, 23a, 23b, 24c, 24d and 20a (a
+    rank process's start costs ~20 s, more than a cell's steps; 20a and
+    20b last, whose processes kept ~1.9 GB allocated after their runs,
+    which would read in the others' peaks). The pair and the quartet run
+    at once (their ranks share the card and the host: the arithmetic and
+    the memory, not the speed). `data`, `seq`, `expert`, `pipeline`,
+    `fsdp`, `serve`: the keyword arguments of that phase's plan
+    (`data_plan`, `sequence_plan`, `expert_plan`, `pipeline_plan`,
+    `fsdp_plan`, `serve_plan`; {} for none), or None to leave its cells
+    out. → {"data" | "seq" | "expert" | "pipeline" | "fsdp" | "serve":
+    (its directory, its plan, its runs' reports in plan order, each the
+    ranks' reports in rank order)}, the `gang` of phase_gang_two_ranks,
+    phase_sequence, phase_expert, phase_pipeline, phase_fsdp and
+    phase_serving_mesh."""
     plans = {}
     for name, fn, kw in (("data", data_plan, data),
                          ("seq", sequence_plan, seq),
                          ("expert", expert_plan, expert),
                          ("pipeline", pipeline_plan, pipeline),
-                         ("fsdp", fsdp_plan, fsdp)):
+                         ("fsdp", fsdp_plan, fsdp),
+                         ("serve", serve_plan, serve)):
         if kw is not None:
             os.makedirs(os.path.join(root, name))
             plans[name] = (os.path.join(root, name),
                            list(fn(os.path.join(root, name), **kw)))
     # (gang, world, [(phase, its plan's runs)]) in run order
     layout = (("two", 2, [("data", slice(0, 2)), ("seq", slice(0, 2)),
-                          ("expert", slice(1, 2))]),
+                          ("serve", slice(0, 2)), ("expert", slice(1, 2))]),
               ("four", 4, [("pipeline", slice(0, 3)), ("fsdp", slice(0, 2)),
+                           ("serve", slice(2, 4)),
                            ("expert", slice(0, 1))]))
     reports = {name: [None] * len(plan) for name, (_, plan) in plans.items()}
     started = []
@@ -5930,6 +6305,14 @@ def phase_jobs(torch, layers):
     return launches
 
 
+def rank_shape(records, key):
+    """A paged kernel row's numbers at a serving-mesh rank's shape (H =
+    MESH_H): the B=8 decode call or the main path's windows."""
+    rec = records[(key[0], key[1], key[2] + "_rank")]
+    return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "max_abs_err", "shape")}
+
+
 class PhaseClock:
     """Seconds from one lap to the next (phases that print their own
     seconds are timed inside), and since the start."""
@@ -5998,6 +6381,7 @@ def main() -> int:
     for key in (("paged_decode", "bfloat16", "B8"),
                 ("paged_window", "bfloat16", "main")):
         rec = dict(records[key])
+        rec["mesh_rank"] = rank_shape(records, key)
         rec["launches"] = launches[key[0]]
         if rec["launches"] < 1:
             raise AssertionError(f"the main path never launched {key[0]}")
@@ -6026,7 +6410,8 @@ def main() -> int:
     clock.lap("phase 8")
     int8_records = phase_kernels(torch, quantized=True)
     clock.lap("phase 9")
-    int8_launches, _, int8_steps = phase_serve_int8(torch, bf16_stats)
+    int8_launches, int8_stats, int8_steps = phase_serve_int8(torch,
+                                                             bf16_stats)
     print(f"int8 launches per decode step: "
           f"{int8_launches['paged_decode_int8'] / max(int8_steps, 1):.2f} "
           f"(one per layer, {layers})", flush=True)
@@ -6039,6 +6424,7 @@ def main() -> int:
     for key in (("paged_decode_int8", "bfloat16", "B8"),
                 ("paged_window_int8", "bfloat16", "main")):
         rec = dict(int8_records[key])
+        rec["mesh_rank"] = rank_shape(int8_records, key)
         rec["launches"] = int8_launches[key[0]]
         if rec["launches"] < 1:
             raise AssertionError(f"the int8 main path never launched {key[0]}")
@@ -6136,7 +6522,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # this slice's path: MoE serving (18b bf16, 18c int8) and training (18e;
     # 18f's BERT launches beside them)
-    moe_launches, moe_bert_launches = phase_moe(torch, bf16_stats)
+    moe_launches, moe_bert_launches, moe_served = phase_moe(torch,
+                                                            bf16_stats)
     for rec in kernels:
         rec["moe_launches"] = moe_launches[rec["name"]]
         if rec["name"] in moe_bert_launches:
@@ -6146,12 +6533,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.lap("phases 14-18")
     with tempfile.TemporaryDirectory(prefix="kft-gangs-") as root:
-        # the gangs of phases 17c and 19-23 run first (the pair and the
+        # the gangs of phases 17c and 19-24 run first (the pair and the
         # quartet at once); each phase then runs its world 1 and its gates
         # on its gang's reports
         gangs = phase_gangs(torch, root, data={}, seq={}, expert={},
-                            pipeline={}, fsdp={})
-        clock.lap("the gangs of phases 17c and 19-23")
+                            pipeline={}, fsdp={}, serve={})
+        clock.lap("the gangs of phases 17c and 19-24")
         # 17c: two data-parallel ranks on the one card over gloo
         phase_gang_two_ranks(torch, gangs["data"])
         torch.cuda.empty_cache()
@@ -6181,6 +6568,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         # this slice's path: the fsdp axis (23a, 23b; 23c beside them)
         fsdp_launches = phase_fsdp(torch, gangs["fsdp"])
+        torch.cuda.empty_cache()
+        # this slice's path: the serving mesh (24a-24d), each cell against
+        # its 1×1 reference run above
+        dense_ref = {"tokens": bf16_stats["traffic"]["tokens"],
+                     "kv_pool_bytes": bf16_stats["kv_pool_bytes"],
+                     "peak_bytes": bf16_stats["peak_bytes"],
+                     "launches": launches}
+        served = phase_serving_mesh(torch, gangs["serve"], {
+            "24a": dense_ref, "24c": dense_ref,
+            "24b": {"tokens": int8_stats["traffic"]["tokens"],
+                    "kv_pool_bytes": int8_stats["kv_pool_bytes"],
+                    "peak_bytes": int8_stats["peak_bytes"],
+                    "launches": int8_launches},
+            "24d": moe_served})
     for rec in kernels:
         if rec["name"] in pp_launches:
             rec["pp_launches"] = pp_launches[rec["name"]]
@@ -6192,6 +6593,14 @@ def main() -> int:
             if rec["fsdp_launches"] < 1:
                 raise AssertionError(f"the fsdp path never launched "
                                      f"{rec['name']}")
+        if rec["name"].startswith("paged_"):
+            rec["mesh_launches"] = {
+                cell: rep["launches"][rec["name"]]
+                for cell, rep in served.items()
+                if rep["launches"].get(rec["name"])}
+            if not rec["mesh_launches"]:
+                raise AssertionError(f"the serving mesh never launched "
+                                     f"{rec['name']}")
     torch.cuda.empty_cache()
     # this slice's path: the job path (22a a StudyJob of GPUTrainJob
     # trials in process, 22b a GPUTrainJob's pods as launcher children)
@@ -6202,7 +6611,7 @@ def main() -> int:
             if rec["job_launches"] < 1:
                 raise AssertionError(f"the job path never launched "
                                      f"{rec['name']}")
-    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-23, "
+    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-24, "
           f"after the interpreter's start)", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -84,6 +84,24 @@ def dequantize_params(qparams: Mapping[str, Any],
     }
 
 
+def pack_quantized_params(qparams: Mapping[str, Any]) -> Dict[str, Any]:
+    """Envelope → per-leaf packed dict for dequantization at each use:
+    every quantized leaf becomes {"qvalue": int8, "qscale": f32} under
+    its name, every other leaf rides through. The module that owns a
+    leaf holds both (models/gpt.py `int8_model`), gathers the int8 value
+    whole on a serving mesh and dequantizes after the gather with
+    `dequantize_leaf`: the same bits as the whole envelope's dequant,
+    a quarter of an f32 leaf's bytes on the wire. The port holds every
+    layer as its own module (`layers.<i>.…`), so no leaf is stacked and
+    each scale stays the one per-channel vector of its leaf."""
+    scales = qparams["qscales"]
+    out: Dict[str, Any] = {}
+    for name, leaf in qparams["qvalues"].items():
+        s = scales.get(name)
+        out[name] = leaf if s is None else {"qvalue": leaf, "qscale": s}
+    return out
+
+
 def apply_transform(params, transform: str):
     """"" / None is identity, "int8" the per-channel weight quantization
     above; unknown names raise rather than serve full width."""

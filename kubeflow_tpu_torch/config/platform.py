@@ -55,7 +55,6 @@ _UNPORTED_SERVING_FIELDS = {
         "draft_model", "num_draft_tokens", "draft_checkpoint_dir",
         "kv_host_bytes", "kv_persist_dir", "kv_persist_interval_s",
         "kv_persist_chains", "drain_deadline_s")},
-    "mesh": "A13 item 2 (the serving mesh)",
     "autoscale": "A14 (the router's autoscaler)",
     "router": "A14 (the router)",
 }
@@ -571,19 +570,65 @@ class DisaggConfig:
 
 
 @dataclasses.dataclass
+class ServingMeshConfig:
+    """The decode engine's serving mesh (the JAX `ServingMeshConfig`;
+    parallel/serving_mesh.py): `tensor × fsdp × expert` ranks a replica,
+    one card a rank. 1×1×1 (the default) is the one-card engine, the
+    bitwise baseline. `tensor` splits the KV pools on heads (a card's
+    pool bytes divide by it), `fsdp` the resident weights on their embed
+    dims, gathered at use, `expert` an MoE model's expert stacks, never
+    gathered. The model's divisibility (heads and mlp by tensor, hidden
+    by fsdp, num_experts by expert, top-1 routing at expert > 1) is
+    checked where the model is known: the engine's construction."""
+
+    tensor: int = 1
+    fsdp: int = 1
+    expert: int = 1
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        for axis in ("tensor", "fsdp", "expert"):
+            v = getattr(self, axis)
+            if not isinstance(v, int) or v < 1:
+                raise ConfigError(
+                    f"serving.mesh.{axis} must be a positive int, got {v!r}"
+                )
+
+    def env(self) -> Dict[str, str]:
+        """The KFT_SERVING_MESH_* env a controller renders into every
+        rank of a serving replica (serving/main.py reads it)."""
+        return {"KFT_SERVING_MESH_TENSOR": str(self.tensor),
+                "KFT_SERVING_MESH_FSDP": str(self.fsdp),
+                "KFT_SERVING_MESH_EXPERT": str(self.expert)}
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "ServingMeshConfig":
+        _check_keys(raw, cls, {}, "serving.mesh.")
+        return cls(**raw)
+
+
+@dataclasses.dataclass
 class ServingConfig:
     """The serving config's subtrees a port replica reads (the JAX
-    `ServingConfig`'s `observability`, `chaos` and `disagg`). Its engine
-    and tier knobs are `build_server`'s arguments and KFT_SERVING_* env
-    here; `from_dict` refuses them naming where they wait."""
+    `ServingConfig`'s `observability`, `chaos`, `disagg` and `mesh`).
+    Its engine and tier knobs are `build_server`'s arguments and
+    KFT_SERVING_* env here; `from_dict` refuses them naming where they
+    wait. `mesh.env()` is the KFT_SERVING_MESH_* env of its mesh."""
 
     observability: ObservabilityConfig = dataclasses.field(
         default_factory=ObservabilityConfig
     )
     chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
     disagg: DisaggConfig = dataclasses.field(default_factory=DisaggConfig)
+    mesh: ServingMeshConfig = dataclasses.field(
+        default_factory=ServingMeshConfig
+    )
 
     def __post_init__(self):
+        if isinstance(self.mesh, Mapping):
+            self.mesh = ServingMeshConfig.from_dict(self.mesh)
         if isinstance(self.observability, Mapping):
             self.observability = ObservabilityConfig.from_dict(
                 self.observability
@@ -597,6 +642,7 @@ class ServingConfig:
     def validate(self) -> None:
         self.observability.validate()
         self.disagg.validate()
+        self.mesh.validate()
         # a programmatically built config must hit the same parse
         # rejection from_dict applies
         self.chaos.validate()

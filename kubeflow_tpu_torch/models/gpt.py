@@ -95,7 +95,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from kubeflow_tpu_torch.checkpointing.quantize import quantize_params_int8
+from kubeflow_tpu_torch.checkpointing.quantize import (
+    pack_quantized_params,
+    quantize_params_int8,
+)
 from kubeflow_tpu_torch.models.layers import (
     QSCALE,
     Dense,
@@ -106,6 +109,7 @@ from kubeflow_tpu_torch.models.layers import (
     MoeMlp,
     draw_value,
     dropout,
+    gathered,
     held_layers,
     microbatch_rows,
     model_device,
@@ -128,6 +132,7 @@ from kubeflow_tpu_torch.ops.paged_attention import paged_attention
 from kubeflow_tpu_torch.parallel.mesh import (
     SequenceShard,
     active_sequence,
+    all_gather_bits,
     forward_sequence,
 )
 from kubeflow_tpu_torch.parallel.pipeline import (
@@ -258,11 +263,17 @@ class PagedState:
     `attn_impl`: "gather" materializes a per-slot view through the page
     table and runs `dense_attention`; "kernel" walks the table in place
     (`ops/paged_attention.py` — the CUDA kernel on CUDA tensors, its
-    plain version on CPU tensors), the counterpart of the JAX "pallas"."""
+    plain version on CPU tensors), the counterpart of the JAX "pallas".
+
+    `heads` (a serving mesh's `HeadShard`, parallel/serving_mesh.py; the
+    JAX `PagedState.mesh`): the pool holds this rank's heads, so q, k and
+    v are cut to them before the writes and the read, and the attention
+    output is gathered on heads before the out projection."""
 
     page_table: torch.Tensor
     cache_index: torch.Tensor
     attn_impl: str = "gather"
+    heads: Optional[object] = None
 
 
 # -- per-call attention contexts: what each layer does with its q/k/v --------
@@ -386,6 +397,20 @@ class _Paged:
                 self.visible = ar[None, None, :] <= q_pos[:, :, None]
 
     def attend(self, layer, q, k, v):
+        heads = self.paged.heads
+        if heads is not None:
+            # the new K/V vectors enter the pool's layout before the
+            # writes, so each rank writes and reads its own heads (a
+            # slice: bits unchanged)
+            q, k, v = heads.local(q), heads.local(k), heads.local(v)
+        out = self._attend_local(layer, q, k, v)
+        if heads is not None:
+            # every head before the out projection, whose contraction is
+            # the heads dim: split, it would sum in another order
+            out = heads.gather(out)
+        return out
+
+    def _attend_local(self, layer, q, k, v):
         pool = self.pool
         pk, pv = pool.k[layer], pool.v[layer]
         pt, idx = self.paged.page_table, self.paged.cache_index
@@ -458,6 +483,11 @@ class DecoderBlock(nn.Module):
             self.mlp_wo = Dense((cfg.mlp_dim,), (cfg.hidden_size,), cfg.dtype)
 
     def forward(self, x, ctx, layer: int):
+        # on a serving mesh the block's leaves are gathered here, at once
+        with gathered(self):
+            return self._forward(x, ctx, layer)
+
+    def _forward(self, x, ctx, layer: int):
         h = self.ln_att(x)
         h = self.attention(h.to(self.dtype), ctx, layer)
         x = x + dropout(h, self.dropout_rate, ctx.dropout_gen, not ctx.train)
@@ -779,14 +809,16 @@ class Gpt(nn.Module):
 
 
 def make_paged_pool(cfg: GptConfig, num_pages: int, page_size: int,
-                    device, kv_quant: str = "none") -> KVPool:
+                    device, kv_quant: str = "none", heads=None) -> KVPool:
     """Zeroed K/V pool [L, num_pages, page_size, H, D] per side, in the
     compute dtype; `kv_quant="int8"` stores int8 values plus zeroed bf16
-    scales [L, num_pages, page_size, H, 1] per side."""
+    scales [L, num_pages, page_size, H, 1] per side. With `heads` (a
+    serving mesh's `HeadShard`) H is this rank's share of the heads."""
     if kv_quant not in QUANTIZE_CHOICES:
         raise ValueError(f"kv_quant {kv_quant!r} not in {QUANTIZE_CHOICES}")
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_heads,
-             cfg.head_dim)
+    num_heads = cfg.num_heads if heads is None \
+        else heads.heads(cfg.num_heads)[1]
+    shape = (cfg.num_layers, num_pages, page_size, num_heads, cfg.head_dim)
     if kv_quant == "none":
         return KVPool(
             k=torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -801,14 +833,17 @@ def make_paged_pool(cfg: GptConfig, num_pages: int, page_size: int,
     )
 
 
-def insert_pages(pool: KVPool, cache_one: SlotCache, page_ids, real_len: int):
+def insert_pages(pool: KVPool, cache_one: SlotCache, page_ids, real_len: int,
+                 heads=None):
     """Copy a batch-1 prefill cache's K/V rows [0, real_len) into the
     pool pages `page_ids` (in place): cache rows [c*ps, (c+1)*ps) land
     on page page_ids[c] for every chunk holding at least one real row.
     Pad rows inside the last chunk land past the cursor, stay invisible,
     and are overwritten by decode. An int8 pool gets the copied rows
     quantized (JAX `quantize_kv_cache`; quantization is per vector, so
-    quantizing only these rows gives the bits of quantizing all)."""
+    quantizing only these rows gives the bits of quantizing all). With
+    `heads` (a serving mesh's `HeadShard`) the whole cache's rows are cut
+    to this rank's heads, the pool's."""
     ps = pool.page_size
     n = -(-int(real_len) // ps)
     ids = torch.as_tensor(
@@ -817,6 +852,8 @@ def insert_pages(pool: KVPool, cache_one: SlotCache, page_ids, real_len: int):
     )
     lead = pool.k.shape[0]
     rows = [cache_one.k[:, 0, : n * ps], cache_one.v[:, 0, : n * ps]]
+    if heads is not None:
+        rows = [heads.local(r) for r in rows]
     if pool.quantized:
         (qk, sk), (qv, sv) = quantize_kv(rows[0]), quantize_kv(rows[1])
         rows = [qk, qv, sk, sv]
@@ -835,7 +872,8 @@ def copy_pool_page(pool: KVPool, src: int, dst: int) -> KVPool:
 
 
 def gather_pool_pages(pool: KVPool, pages: Sequence[int], device=None,
-                      out: Optional[Sequence[dict]] = None) -> List[dict]:
+                      out: Optional[Sequence[dict]] = None,
+                      heads=None) -> List[dict]:
     """Pages `pages` of every pool tensor as page-axis-free copies, one
     dict a page ({field: [L, page_size, H, D]}, and an int8 pool's [L,
     page_size, H, 1] bf16 scales): the spill tier's, the store's and the
@@ -846,13 +884,17 @@ def gather_pool_pages(pool: KVPool, pages: Sequence[int], device=None,
     tensors, e.g. the host tier's arena slots), each page is copied into
     its tree. A copy to the CPU is complete when this returns, so the
     engine may overwrite the pages right after. Pure data movement: the
-    gathered bits are the pool's."""
+    gathered bits are the pool's. With `heads` (a serving mesh's
+    `HeadShard`; a collective of the tensor group) each rank's heads
+    are gathered first: the pages come out whole."""
     dev = torch.device(device) if device is not None else pool.k.device
     idx = torch.as_tensor([int(p) for p in pages], dtype=torch.long,
                           device=pool.k.device)
     result = list(out) if out is not None else [{} for _ in pages]
     for name, t in pool.fields().items():
         block = t.index_select(1, idx).transpose(0, 1)  # [n, L, ps, H, D]
+        if heads is not None:
+            block = all_gather_bits(block, heads.axis.group, block.dim() - 2)
         if out is not None:
             for page, part in zip(result, block.contiguous().unbind(0)):
                 page[name].copy_(part)
@@ -873,7 +915,7 @@ def gather_pool_page(pool: KVPool, page: int, device=None) -> dict:
 
 
 def scatter_pool_pages(pool: KVPool, page_trees: Sequence[dict],
-                       dsts: Sequence[int]) -> KVPool:
+                       dsts: Sequence[int], heads=None) -> KVPool:
     """Write gathered pages (`gather_pool_pages`' shape, any device)
     onto pool pages `dsts`, in place: the host tier's upload and the
     prefix store's preload. Each page is copied into one block on the
@@ -882,14 +924,16 @@ def scatter_pool_pages(pool: KVPool, page_trees: Sequence[dict],
     later write of their slots) and one indexed copy a pool tensor
     places them all. The inverse of `gather_pool_pages`, so uploaded
     bits equal the gathered ones. A page whose fields or shapes differ
-    from the pool's raises ValueError before anything is written."""
+    from the pool's raises ValueError before anything is written. With
+    `heads` (a serving mesh's `HeadShard`) the pages are whole and each
+    rank writes its own heads of them."""
     fields = pool.fields()
     for page in page_trees:
         if sorted(page) != sorted(fields):
             raise ValueError(f"page fields {sorted(page)} do not match the "
                              f"pool's {sorted(fields)}")
         for name, t in fields.items():
-            want = t.shape[:1] + t.shape[2:]
+            want = pool_page_shape(t, heads)
             if tuple(page[name].shape) != tuple(want):
                 raise ValueError(f"page field {name!r} has shape "
                                  f"{tuple(page[name].shape)}, the pool's "
@@ -904,9 +948,21 @@ def scatter_pool_pages(pool: KVPool, page_trees: Sequence[dict],
     for name, t in fields.items():
         block = t.new_empty((len(page_trees),) + t.shape[:1] + t.shape[2:])
         for part, page in zip(block.unbind(0), page_trees):
-            part.copy_(page[name], non_blocking=True)
+            part.copy_(page[name] if heads is None else
+                       page[name].narrow(-2, *heads.heads(
+                           page[name].shape[-2])), non_blocking=True)
         t.index_copy_(1, idx, block.transpose(0, 1))
     return pool
+
+
+def pool_page_shape(t: torch.Tensor, heads=None) -> tuple:
+    """The shape of one page of pool tensor `t` ([L, P, ps, H, D] → [L,
+    ps, H, D]), whole over a serving mesh's `heads` when given (the
+    pages that leave and enter the engine are whole)."""
+    shape = list(t.shape[:1] + t.shape[2:])
+    if heads is not None:
+        shape[-2] *= heads.size
+    return tuple(shape)
 
 
 def scatter_pool_page(pool: KVPool, page_tree: dict, dst: int) -> KVPool:
@@ -924,6 +980,9 @@ def int8_model(model: Gpt, envelope: Optional[dict] = None) -> Gpt:
     an int8 `model` is returned as it is."""
     if model.quantize == "int8":
         return model
+    if getattr(model, "serving_mesh", None) is not None:
+        raise ValueError("int8_model quantizes whole weights: build it "
+                         "before the serving mesh cuts the model's leaves")
     if envelope is None:
         envelope = quantize_params_int8(model.state_dict())
     values, scales = envelope["qvalues"], envelope["qscales"]
@@ -936,17 +995,17 @@ def int8_model(model: Gpt, envelope: Optional[dict] = None) -> Gpt:
         )
     dev = model.device
     out = Gpt(model.cfg, device="meta")
-    for name, value in values.items():
+    for name, value in pack_quantized_params(envelope).items():
         owner, _, leaf = name.rpartition(".")
         module = out.get_submodule(owner)
         del module._parameters[leaf]
-        if name in scales:
-            if value.dtype != torch.int8:
-                raise ValueError(f"int8 envelope: {name} is {value.dtype}")
-            module.register_buffer(leaf, value.to(dev, copy=True))
-            module.register_buffer(
-                leaf + QSCALE, scales[name].to(dev, torch.float32, copy=True)
-            )
+        if isinstance(value, dict):
+            if value["qvalue"].dtype != torch.int8:
+                raise ValueError(
+                    f"int8 envelope: {name} is {value['qvalue'].dtype}")
+            module.register_buffer(leaf, value["qvalue"].to(dev, copy=True))
+            module.register_buffer(leaf + QSCALE, value["qscale"].to(
+                dev, torch.float32, copy=True))
         else:
             module.register_parameter(leaf, nn.Parameter(
                 value.to(dev, torch.float32, copy=True), requires_grad=False

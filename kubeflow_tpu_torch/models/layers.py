@@ -35,7 +35,7 @@ import contextlib
 import contextvars
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -122,13 +122,69 @@ def advance_dropout(generator: Optional[torch.Generator], draws: int,
                    device=generator.device)
 
 
+# the whole leaves of the serving-mesh unit whose forward is running
+# (`gathered`), by (id(module), leaf)
+_GATHERED: contextvars.ContextVar[Optional[Dict[Tuple[int, str],
+                                                torch.Tensor]]] = \
+    contextvars.ContextVar("mesh_gathered", default=None)
+
+
+def _on_wire(module: nn.Module, name: str) -> torch.Tensor:
+    """Leaf `name` of `module` as a serving mesh gathers it: in its use's
+    compute dtype when the use casts it there first (`_mesh_wire`; the
+    cast is elementwise, so gathering then casting gives the same
+    bits), else as stored."""
+    leaf = getattr(module, name)
+    wire = module.__dict__.get("_mesh_wire", {}).get(name)
+    return leaf if wire is None else leaf.to(wire)
+
+
+def held_whole(module: nn.Module, name: str) -> torch.Tensor:
+    """Leaf `name` of `module` whole: a serving mesh's block
+    (parallel/serving_mesh.py, the spec in `_mesh_specs`) taken from its
+    unit's batched gather (`gathered`) or gathered alone over the mesh's
+    fsdp and tensor axes, in its wire dtype (`_on_wire`); any other leaf
+    as it is stored (f32, or int8 on an int8 model)."""
+    specs = module.__dict__.get("_mesh_specs")
+    if specs is None or name not in specs:
+        return getattr(module, name)
+    whole = (_GATHERED.get() or {}).get((id(module), name))
+    if whole is not None:
+        return whole
+    return module.mesh_shard.gather(_on_wire(module, name), specs[name])
+
+
+@contextlib.contextmanager
+def gathered(unit: nn.Module) -> Iterator[None]:
+    """Inside, every leaf a serving mesh holds as a block in `unit` (a
+    transformer block: `_mesh_unit`, set by parallel/serving_mesh.py
+    `shard_model`) is whole, from one batched gather an axis
+    (`MeshShard.gather_many`): the unit gathers only its own layer's
+    weights, as the JAX serving mesh does. A no-op for any other
+    module."""
+    leaves = unit.__dict__.get("_mesh_unit")
+    if not leaves:
+        yield
+        return
+    wholes = leaves[0][0].mesh_shard.gather_many(
+        [(_on_wire(m, a), m._mesh_specs[a]) for m, a in leaves])
+    token = _GATHERED.set({**(_GATHERED.get() or {}), **{
+        (id(m), a): w for (m, a), w in zip(leaves, wholes)}})
+    try:
+        yield
+    finally:
+        _GATHERED.reset(token)
+
+
 def at_use(module: nn.Module, name: str, dtype) -> torch.Tensor:
     """Leaf `name` of `module` as its point of use reads it: the stored
     tensor (f32 at rest; the caller casts as before), an fsdp block
     gathered into the whole f32 leaf (the caller casts after the
-    gather), or on an int8 model the int8 leaf dequantized into the
+    gather), a serving mesh's block gathered whole (`held_whole`; in the
+    compute dtype where the caller casts to it), or on an int8 model the
+    int8 leaf (gathered as int8 on a serving mesh) dequantized into the
     compute dtype with `dequantize_params`' arithmetic."""
-    leaf = getattr(module, name)
+    leaf = held_whole(module, name)
     scale = module._buffers.get(name + QSCALE)
     if scale is not None:
         return dequantize_leaf(leaf, scale, dtype)
@@ -240,7 +296,8 @@ class Embed(nn.Module):
         if scale is not None:
             # gather the int8 rows, then dequantize: the scale is per
             # column, so this is the dequantized table's gather, bit for bit
-            return dequantize_leaf(self.embedding[ids], scale, self.dtype)
+            return dequantize_leaf(held_whole(self, "embedding")[ids], scale,
+                                   self.dtype)
         # an fsdp block of rows is gathered into the whole table first
         table = at_use(self, "embedding", self.dtype)
         # gather then cast == flax's cast-table-then-gather, bit for bit

@@ -297,12 +297,23 @@ def reduce_from_group(x: torch.Tensor, group=None) -> torch.Tensor:
 #
 # gloo carries host tensors only for these (NCCL refuses two ranks on
 # one card, so the ranks of a one-card gang talk over gloo): on a gloo
-# group a CUDA tensor is staged through host memory, the transport of
-# that backend. The kernels still run on the card.
+# group a CUDA tensor is staged through pinned host memory, the
+# transport of that backend. The kernels still run on the card.
 
 
 def _group(group):
     return group if group is not None else torch.distributed.group.WORLD
+
+
+def _pinned(shape, dtype) -> torch.Tensor:
+    """An empty host tensor in pinned memory (torch's caching host
+    allocator): a copy to or from the card moves it once, with no pass
+    through the CUDA runtime's own staging buffer."""
+    return torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+
+
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    return _pinned(x.shape, x.dtype).copy_(x)
 
 
 def _staged(x: torch.Tensor, group) -> bool:
@@ -319,15 +330,15 @@ def _shift(x: torch.Tensor, group, shift: int) -> torch.Tensor:
     n, r = dist.get_world_size(group), dist.get_rank(group)
     stage = _staged(x, group)
     src = x.detach().contiguous()
-    src = src.cpu() if stage else src
-    out = torch.empty_like(src)
+    src = _to_host(src) if stage else src
+    out = _pinned(src.shape, src.dtype) if stage else torch.empty_like(src)
     ops = [dist.P2POp(dist.isend, src, dist.get_global_rank(
                group, (r + shift) % n), group),
            dist.P2POp(dist.irecv, out, dist.get_global_rank(
                group, (r - shift) % n), group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    return out.to(x.device) if stage else out
+    return out.to(x.device, non_blocking=True) if stage else out
 
 
 class _PPermute(torch.autograd.Function):
@@ -359,10 +370,11 @@ def _all_to_all(x: torch.Tensor, group, split_dim: int,
                          f"does not split over {n} ranks")
     send = torch.stack(x.detach().chunk(n, split_dim))
     stage = _staged(send, group)
-    send = send.cpu() if stage else send
-    recv = torch.empty_like(send)
+    send = _to_host(send) if stage else send
+    recv = (_pinned(send.shape, send.dtype) if stage
+            else torch.empty_like(send))
     dist.all_to_all_single(recv, send, group=group)
-    recv = recv.to(x.device) if stage else recv
+    recv = recv.to(x.device, non_blocking=True) if stage else recv
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 
@@ -393,12 +405,13 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     n = dist.get_world_size(group)
     src = x.detach().contiguous()
     stage = _staged(src, group)
-    src = src.cpu() if stage else src
+    src = _to_host(src) if stage else src
     # the output is the ranks' tensors one after another along dim 0
-    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    shape = (n * src.shape[0],) + tuple(src.shape[1:])
+    out = _pinned(shape, src.dtype) if stage else src.new_empty(shape)
     dist.all_gather_into_tensor(out, src, group=group)
-    out = out.to(x.device) if stage else out
-    return torch.cat(out.chunk(n), dim=dim)
+    out = out.to(x.device, non_blocking=True) if stage else out
+    return out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
 
 
 def _reduce_scatter(grad: torch.Tensor, group, dim: int) -> torch.Tensor:
@@ -408,10 +421,11 @@ def _reduce_scatter(grad: torch.Tensor, group, dim: int) -> torch.Tensor:
     # the input is the ranks' blocks one after another along dim 0
     send = torch.cat(grad.chunk(n, dim))
     stage = _staged(send, group)
-    send = send.cpu() if stage else send
-    out = send.new_empty((send.shape[0] // n,) + tuple(send.shape[1:]))
+    send = _to_host(send) if stage else send
+    shape = (send.shape[0] // n,) + tuple(send.shape[1:])
+    out = _pinned(shape, send.dtype) if stage else send.new_empty(shape)
     dist.reduce_scatter_tensor(out, send, group=group)
-    return out.to(grad.device) if stage else out
+    return out.to(grad.device, non_blocking=True) if stage else out
 
 
 class _AllGather(torch.autograd.Function):

@@ -344,6 +344,138 @@ def fsdp_shard(mesh) -> Optional[FsdpShard]:
                                 for a in others))
 
 
+@dataclasses.dataclass(frozen=True)
+class AxisShard:
+    """This rank's place on one mesh axis: the axis's process group, its
+    position `rank` and the axis's `size`."""
+
+    group: Optional["torch.distributed.ProcessGroup"]
+    rank: int
+    size: int
+
+
+def axis_shard(mesh, axis: str) -> Optional[AxisShard]:
+    """The mesh's AxisShard of `axis` for this rank; None when the axis
+    is 1 or there is no process group."""
+    if mesh is None or not torch.distributed.is_initialized() \
+            or mesh_shape(mesh)[axis] == 1:
+        return None
+    return AxisShard(mesh.get_group(axis), mesh.get_local_rank(axis),
+                     mesh_shape(mesh)[axis])
+
+
+def all_gather_bits(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every group rank's `x` joined along `dim` in rank order, moved as
+    its bytes (its last dim viewed as uint8, which every backend
+    carries; gloo has no 16-bit integer type): the bits arrive exactly,
+    whatever the backend makes of the float type (gloo stages a CUDA
+    tensor through host memory)."""
+    from kubeflow_tpu_torch.parallel.distributed import all_gather
+
+    wire = x.contiguous().view(torch.uint8)
+    return all_gather(wire, group, dim % x.dim()).view(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShard:
+    """This rank's place on the axes that split a leaf at rest (`axes`:
+    {axis: AxisShard} in gather order, e.g. a serving mesh's fsdp and
+    tensor). A leaf's spec (parallel/sharding.py: one entry a dim, None,
+    an axis or a tuple of axes) names the axes each dim is split over; a
+    dim split over a tuple (a1, a2) is cut into size(a1)·size(a2)
+    blocks, and this rank holds block rank(a1)·size(a2) + rank(a2) (the
+    first axis major, as a JAX PartitionSpec lays them out). An axis this
+    shard does not hold (size 1) leaves its dims whole.
+
+    `gather_many` joins the blocks of several leaves into the whole
+    leaves in rounds, one all-gather a round over one axis for every
+    leaf that has a step on it (a tuple's last axis first), each leaf's
+    bytes one span of the round's buffer: the whole leaves' bits are
+    every rank's blocks, moved exactly, at one collective an axis for
+    all of them. `counts` tallies the rounds (`all_gather`) and the
+    bytes each brought from the other ranks (`bytes`)."""
+
+    axes: Dict[str, AxisShard]
+    counts: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"all_gather": 0, "bytes": 0},
+        compare=False, repr=False)
+
+    def split(self, spec) -> List[Tuple[int, Tuple[AxisShard, ...]]]:
+        """[(dim, its AxisShards, major first)] of the dims `spec`
+        splits over this shard's axes."""
+        out = []
+        for dim, entry in enumerate(spec):
+            names = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            shards = tuple(self.axes[a] for a in names if a in self.axes)
+            if shards:
+                out.append((dim, shards))
+        return out
+
+    def block(self, whole: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block of a whole leaf (a view)."""
+        for dim, shards in self.split(spec):
+            parts = math.prod(s.size for s in shards)
+            if whole.shape[dim] % parts:
+                raise ValueError(f"dim {dim} of {tuple(whole.shape)} does "
+                                 f"not split over {parts} ranks")
+            index = 0
+            for s in shards:
+                index = index * s.size + s.rank
+            n = whole.shape[dim] // parts
+            whole = whole.narrow(dim, index * n, n)
+        return whole
+
+    def gather(self, block: torch.Tensor, spec) -> torch.Tensor:
+        """The whole leaf from every rank's `block` (a collective: every
+        rank of each axis calls it, in the same order)."""
+        return self.gather_many([(block, spec)])[0]
+
+    def gather_many(self, items) -> List[torch.Tensor]:
+        """The whole leaves of [(block, spec)] `items` (a collective:
+        every rank calls it with the same specs, in the same order). A
+        round takes the first axis (in `axes`' order) that a leaf's next
+        step is on; a leaf's steps are its dims', each dim's tuple last
+        axis first."""
+        parts = [block for block, _ in items]
+        todo = [{dim: list(reversed(shards)) for dim, shards in
+                 self.split(spec)} for _, spec in items]
+        while any(q for t in todo for q in t.values()):
+            shard = next(s for s in self.axes.values()
+                         if any(q and q[0] is s for t in todo
+                                for q in t.values()))
+            batch = [(i, dim) for i, t in enumerate(todo)
+                     for dim, q in t.items() if q and q[0] is shard]
+            wholes = self._round(shard, [(parts[i], dim) for i, dim in batch])
+            for (i, dim), whole in zip(batch, wholes):
+                parts[i] = whole
+                todo[i][dim].pop(0)
+        return parts
+
+    def _round(self, shard: AxisShard, pairs) -> List[torch.Tensor]:
+        """One all-gather over `shard`'s group of every (tensor, dim) of
+        `pairs`: their bytes in one buffer (each span padded to 16
+        bytes), every rank's spans joined along each tensor's dim."""
+        spans, offsets, at = [], [], 0
+        for t, _ in pairs:
+            raw = t.contiguous().view(torch.uint8).reshape(-1)
+            pad = -raw.numel() % 16
+            spans.append(torch.cat([raw, raw.new_zeros(pad)]) if pad
+                         else raw)
+            offsets.append(at)
+            at += spans[-1].numel()
+        got = all_gather_bits(torch.cat(spans), shard.group, 0).view(
+            shard.size, at)
+        out = []
+        for (t, dim), first in zip(pairs, offsets):
+            n = t.numel() * t.element_size()
+            out.append(torch.cat([got[r, first:first + n].view(t.dtype)
+                                  .view(t.shape)
+                                  for r in range(shard.size)], dim))
+            self.counts["bytes"] += (shard.size - 1) * n
+        self.counts["all_gather"] += 1
+        return out
+
+
 def expert_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
     """The process group of the mesh's expert axis (None without a
     process group): the ranks whose expert blocks make up every stack of

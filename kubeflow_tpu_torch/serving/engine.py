@@ -69,7 +69,7 @@ weights.
   residents fail fast, both pools are zeroed in place, the allocator and
   the radix index start empty, the host tier stays.
 
-- MoE TARGETS (`num_experts > 0`, expert-parallel degree 1): every
+- MoE TARGETS (`num_experts > 0`): every
   target program (prefill, chunk, step, verify) passes a
   `MoeCollector` down its forward and returns the folded (expert_tokens
   [E] f32, dropped) pair beside its tokens; the scheduler reads the pair
@@ -82,8 +82,16 @@ weights.
   geometry (buckets, page size, chunking, prefix hits), as in the
   reference, not `generate()`'s.
 
-Not ported yet: the serving mesh, the expert axis above 1 included
-(ROADMAP A13).
+- THE SERVING MESH (`mesh_tensor`, `mesh_fsdp`, `mesh_expert`;
+  parallel/serving_mesh.py): a gang of tensor × fsdp × expert ranks, one
+  process a rank. Rank 0 runs this engine and relays every program call
+  to the other ranks (serving/relay.py), which run `serve_worker`: the
+  same programs on their shard. Weights are held as each rank's blocks
+  and gathered at use, the pools by head shard (auto sizing multiplies
+  the pages by tensor, so a card's pool bytes stay the 1×1 engine's),
+  the expert stacks as E/ep blocks; greedy output is the 1×1 engine's
+  bit for bit. Pages leave and enter the engine whole (a spill gathers
+  every rank's heads, an upload gives each rank its own).
 """
 
 from __future__ import annotations
@@ -107,12 +115,24 @@ from kubeflow_tpu_torch.models.gpt import (
     insert_pages,
     int8_model,
     make_paged_pool,
+    pool_page_shape,
     scatter_pool_pages,
 )
 from kubeflow_tpu_torch.models.layers import MoeCollector
 from kubeflow_tpu_torch.observability.trace import default_tracer
+from kubeflow_tpu_torch.parallel.serving_mesh import (
+    build_serving_mesh,
+    resident_bytes,
+    validate_serving_mesh,
+)
 from kubeflow_tpu_torch.routing.affinity import first_page_key
 from kubeflow_tpu_torch.serving.batching import Completion
+from kubeflow_tpu_torch.serving.relay import (
+    HEARTBEAT_S,
+    ProgramRelay,
+    receive_geometry,
+    run_worker,
+)
 from kubeflow_tpu_torch.serving.kv_tiers import (
     DEFAULT_KV_LAYOUT,
     KV_LAYOUTS,
@@ -141,6 +161,7 @@ from kubeflow_tpu_torch.utils.metrics import (
     serving_kv_handoff_ms_counter,
     serving_kv_handoff_pages_counter,
     serving_kv_persisted_chains_gauge,
+    serving_kv_pool_bytes_per_chip_gauge,
     serving_kv_spill_hits_counter,
     serving_kv_spill_pages_counter,
     serving_moe_capacity_overflow_counter,
@@ -255,10 +276,10 @@ def resolve_num_pages(num_pages, num_slots: int, model_cfg, page_size: int,
     utilization shrinks the pool toward 1/2 of the slot-row footprint,
     high utilization or a hot prefix cache keeps the full 3/4. The
     static 3/4 stays the ceiling and the one-full-request floor still
-    applies. The tensor-sharded mesh is not ported and raises."""
-    if int(mesh_tensor) > 1:
-        raise ValueError("mesh_tensor > 1 is not ported yet (ROADMAP A13: "
-                         "the serving mesh)")
+    applies. On a serving mesh of `mesh_tensor` > 1 every rank holds
+    1/mesh_tensor of each page (the pools split on heads), so the same
+    bytes a card hold mesh_tensor times the pages: auto sizing multiplies
+    by it, and a card's pool bytes stay the 1×1 engine's."""
     if num_pages:
         return int(num_pages)
     pages = auto_num_pages(num_slots, model_cfg.max_len, page_size)
@@ -275,7 +296,7 @@ def resolve_num_pages(num_pages, num_slots: int, model_cfg, page_size: int,
         head_dim = model_cfg.hidden_size // model_cfg.num_heads
         itemsize = torch.finfo(model_cfg.dtype).bits // 8
         pages = int(pages * int8_page_capacity_ratio(head_dim, itemsize))
-    return pages
+    return pages * max(1, int(mesh_tensor))
 
 
 def int8_page_capacity_ratio(head_dim: int, itemsize: int = 2) -> float:
@@ -557,11 +578,19 @@ class EnginePrograms:
     Paged geometry (`page_size`, `num_pages`), `quantize` (int8 pools
     follow the weights) and the draft (`draft_model`, `num_draft_tokens`)
     are construction state. The draft's pool has the target's geometry:
-    the engine maps one page id onto both."""
+    the engine maps one page id onto both.
+
+    On a serving mesh (`mesh`, parallel/serving_mesh.py) the target and
+    the draft are validated against the mesh and held as this rank's
+    blocks (their leaves are cut in place), the pools hold this rank's
+    heads, and every program runs on the shard: the page writes and the
+    paged kernels on the local heads, the weights gathered at use. A
+    spill gathers every rank's heads (whole pages come out on rank 0, the
+    `leader`), and an upload writes each rank's heads of whole pages."""
 
     def __init__(self, model, *, page_size: int, num_pages: int,
                  paged_attention: str, quantize: str = DEFAULT_QUANTIZE,
-                 draft_model=None, num_draft_tokens: int = 0):
+                 draft_model=None, num_draft_tokens: int = 0, mesh=None):
         cfg = model.cfg
         self.model = model
         # an MoE target's programs return their (expert_tokens [E],
@@ -634,9 +663,19 @@ class EnginePrograms:
                 f"request ({self.max_pages_per_slot} pages of "
                 f"{self.page_size})"
             )
+        self.mesh = mesh
+        self.heads = None if mesh is None else mesh.heads
+        self.leader = mesh is None or mesh.leader
+        if mesh is not None:
+            # the models were validated against the mesh before it was
+            # built (DecodeEngine, serve_worker)
+            mesh.shard_model(model)
+            if self.draft_model is not None:
+                mesh.shard_model(self.draft_model)
 
     def _paged(self, page_table, cursors) -> PagedState:
-        return PagedState(page_table, cursors, attn_impl=self.paged_attention)
+        return PagedState(page_table, cursors, attn_impl=self.paged_attention,
+                          heads=self.heads)
 
     def _collector(self) -> Optional[MoeCollector]:
         return MoeCollector() if self.moe else None
@@ -656,12 +695,22 @@ class EnginePrograms:
 
     def make_pool(self, device) -> KVPool:
         return make_paged_pool(self.model.cfg, self.num_pages,
-                               self.page_size, device, kv_quant=self.quantize)
+                               self.page_size, device, kv_quant=self.quantize,
+                               heads=self.heads)
+
+    def page_template(self, pool: KVPool) -> Dict[str, torch.Tensor]:
+        """One whole page of `pool` (every head, on a mesh too), shapes
+        and dtypes only (meta tensors): what a spilled, stored or shipped
+        page holds."""
+        return {name: torch.empty(pool_page_shape(t, self.heads),
+                                  dtype=t.dtype, device="meta")
+                for name, t in pool.fields().items()}
 
     def insert(self, pool: KVPool, cache_one, page_ids, real_len: int):
         """Copy the prefill rows into the slot's pages (quantized on the
         way into an int8 pool)."""
-        return insert_pages(pool, cache_one, page_ids, real_len)
+        return insert_pages(pool, cache_one, page_ids, real_len,
+                            heads=self.heads)
 
     def chunk(self, pool: KVPool, ids, page_table, cursor, sample_idx: int,
               seed, temp, top_k, top_p):
@@ -688,13 +737,35 @@ class EnginePrograms:
         """Copy pages of `pool` (target's or draft's) to host memory, one
         page tree each (into `out`'s trees when given): the host tier's,
         the store's and the handoff's read. The copy is complete on
-        return, so the pages may be reused right after."""
-        return gather_pool_pages(pool, pages, device="cpu", out=out)
+        return, so the pages may be reused right after. On a mesh the
+        pages are whole: every rank's heads are gathered, and a rank but
+        the leader keeps nothing."""
+        if not self.leader:
+            if self.heads is not None:
+                gather_pool_pages(pool, pages, heads=self.heads)
+            return []
+        return gather_pool_pages(pool, pages, device="cpu", out=out,
+                                 heads=self.heads)
 
     def upload(self, pool: KVPool, page_trees: Sequence[dict],
                dsts: Sequence[int]):
-        """Write spilled pages onto pool pages `dsts` (in place)."""
-        return scatter_pool_pages(pool, page_trees, dsts)
+        """Write spilled pages onto pool pages `dsts` (in place; on a
+        mesh each rank its heads of the whole pages)."""
+        return scatter_pool_pages(pool, page_trees, dsts, heads=self.heads)
+
+    def reset(self, pool: KVPool) -> None:
+        """Zero `pool` in place (recovery): a fresh pool's state, int8
+        scales included."""
+        for t in pool.tensors():
+            t.zero_()
+
+    def heartbeat(self) -> None:
+        """Nothing to keep alive in one process (`ProgramRelay` pings
+        its workers)."""
+
+    def close(self) -> None:
+        """Nothing to end in one process (`ProgramRelay` ends its
+        workers)."""
 
     def step(self, pool: KVPool, tokens, page_table, cursors, seeds,
              counters, temps, top_ks, top_ps):
@@ -713,7 +784,8 @@ class EnginePrograms:
 
     def make_draft_pool(self, device) -> KVPool:
         return make_paged_pool(self.draft_model.cfg, self.num_pages,
-                               self.page_size, device, kv_quant=self.quantize)
+                               self.page_size, device, kv_quant=self.quantize,
+                               heads=self.heads)
 
     def draft_prefill(self, ids, mask):
         """Seed the draft's batch-1 cache over the same bucketed prompt
@@ -755,11 +827,11 @@ class EnginePrograms:
                 qs.append(q)
         return torch.stack(proposals, 1), (torch.stack(qs, 1) if qs else None)
 
-    def verify(self, pool: KVPool, window, qs, page_table, cursors, seeds,
-               counters, temps, top_ks, top_ps):
-        """ONE target forward over all slots × (K+1) positions (window[:,
-        0] is each slot's last emitted token, window[:, 1:] the draft's
-        proposals), then each slot's longest accepted prefix plus one
+    def verify(self, pool: KVPool, tokens, proposals, qs, page_table,
+               cursors, seeds, counters, temps, top_ks, top_ps):
+        """ONE target forward over all slots × (K+1) positions (the
+        window: each slot's last emitted token `tokens`, then the draft's
+        `proposals`), then each slot's longest accepted prefix plus one
         replacement → (tokens [S, K+1], lengths [S]): a slot emits
         tokens[s, :lengths[s]], 1..K+1 of them.
 
@@ -771,6 +843,7 @@ class EnginePrograms:
         after a clean sweep from the (K+1)-th target distribution (the
         bonus token). Only that one draw is made: the others would be
         discarded. An MoE target appends its MoE pair."""
+        window = torch.cat([tokens[:, None], proposals], dim=1)
         kk = window.shape[1] - 1
         moe = self._collector()
         logits = self.model.paged_forward(
@@ -895,7 +968,18 @@ class DecodeEngine:
     (`kv_tiers.pool_sizing_telemetry()`) sizes an auto pool from an
     earlier engine's pressure. Pages leave the engine (store, export)
     as the JAX pool's leaves in `kv_layout`: "scan" (the JAX serving
-    entrypoint's models) or "named"; they come in from either."""
+    entrypoint's models) or "named"; they come in from either.
+
+    `mesh_tensor`, `mesh_fsdp`, `mesh_expert` above 1 serve on a
+    `tensor × fsdp × expert` serving mesh (parallel/serving_mesh.py): a
+    gang of that many ranks, one process a rank, whose rank 0 builds
+    this engine while every other rank runs `serve_worker` with the same
+    model (and draft). The engine takes its model over: its leaves
+    become this rank's blocks (an int8 engine's int8 model's). Every
+    program call is relayed to the workers (serving/relay.py), so the
+    host state (the page allocator, the radix index, the host tier, the
+    slot table) stays this rank's alone, as in the JAX engine; `close()`
+    ends the workers. Greedy tokens are bit for bit the 1×1 engine's."""
 
     def __init__(
         self,
@@ -920,6 +1004,9 @@ class DecodeEngine:
         kv_persist_chains: int = 64,
         pool_telemetry=None,
         kv_layout: str = DEFAULT_KV_LAYOUT,
+        mesh_tensor: Optional[int] = None,
+        mesh_fsdp: Optional[int] = None,
+        mesh_expert: Optional[int] = None,
     ):
         self.device = resolve_device(device)
         if kv_layout not in KV_LAYOUTS:
@@ -928,12 +1015,9 @@ class DecodeEngine:
             )
         if int(num_draft_tokens) <= 0:
             draft_model = None  # K = 0 ignores a draft, as the reference
-        for role, m in (("model", model), ("draft model", draft_model)):
-            if m is not None and m.device != self.device:
-                raise ValueError(
-                    f"{role} weights live on {m.device}, engine device is "
-                    f"{self.device}"
-                )
+        meshed = max(int(mesh_tensor or 1), int(mesh_fsdp or 1),
+                     int(mesh_expert or 1)) > 1
+        check_model_devices(self.device, meshed, model, draft_model)
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if max_queue < 1:
@@ -944,13 +1028,25 @@ class DecodeEngine:
             raise ValueError(
                 f"quantize {self.quantize!r} must be one of {QUANTIZE_CHOICES}"
             )
+        # the serving mesh: validated before anything is built, the
+        # draft too (a dense draft rides an MoE target's expert axis whole)
+        self.mesh_tensor = int(mesh_tensor or 1)
+        self.mesh_fsdp = int(mesh_fsdp or 1)
+        self.mesh_expert = int(mesh_expert or 1)
+        mesh_sizes = {"tensor": self.mesh_tensor, "fsdp": self.mesh_fsdp,
+                      "expert": self.mesh_expert}
+        validate_serving_mesh(cfg, **mesh_sizes)
+        if draft_model is not None:
+            validate_serving_mesh(draft_model.cfg, **mesh_sizes,
+                                  role="draft")
+        same_draft = draft_model is model
         if self.quantize == "int8":
             # the resident weights become int8 + per-channel scales, once;
             # a draft that is the target shares the target's int8 model
-            same = draft_model is model
             model = int8_model(model)
             if draft_model is not None:
-                draft_model = model if same else int8_model(draft_model)
+                draft_model = model if same_draft else int8_model(
+                    draft_model)
         self.name = name
         self.model = model
         self.num_slots = num_slots
@@ -958,13 +1054,56 @@ class DecodeEngine:
         self.paged_attention = paged_attention or DEFAULT_PAGED_ATTENTION
         ps = int(page_size) if page_size else DEFAULT_PAGE_SIZE
         pool_pages = resolve_num_pages(num_pages, num_slots, cfg, ps,
-                                       self.quantize,
+                                       self.quantize, self.mesh_tensor,
                                        telemetry=pool_telemetry)
-        self.programs = EnginePrograms(
+        # None on the 1×1 engine (no gang needed); a gang collective else
+        self.mesh = build_serving_mesh(**mesh_sizes, device=self.device)
+        if self.mesh is not None and not self.mesh.leader:
+            raise ValueError("rank 0 of a serving mesh builds the engine; "
+                             "every other rank runs serve_worker")
+        self.programs = None
+        try:
+            self._build(name, model, cfg, ps, pool_pages, num_slots,
+                        prefill_buckets, prefix_cache, draft_model,
+                        num_draft_tokens, same_draft, kv_host_bytes,
+                        kv_persist_dir, kv_persist_interval_s,
+                        kv_persist_chains, kv_layout, autostart)
+        except BaseException:
+            if self.mesh is not None:
+                # the workers wait for their build or their next call
+                relay = self.programs
+                if not isinstance(relay, ProgramRelay):
+                    relay = ProgramRelay(None, self.mesh)
+                relay.close()
+            raise
+
+    def _build(self, name, model, cfg, ps, pool_pages, num_slots,
+               prefill_buckets, prefix_cache, draft_model, num_draft_tokens,
+               same_draft, kv_host_bytes, kv_persist_dir,
+               kv_persist_interval_s, kv_persist_chains, kv_layout,
+               autostart) -> None:
+        """The engine past its mesh: programs (on a mesh, handed to the
+        workers once they are built here: a build that raises ends them
+        unbuilt), pools, host state, metrics, the warm restart and the
+        scheduler thread."""
+        programs = EnginePrograms(
             model, page_size=ps, num_pages=pool_pages,
             paged_attention=self.paged_attention, quantize=self.quantize,
             draft_model=draft_model, num_draft_tokens=num_draft_tokens,
+            mesh=self.mesh,
         )
+        if self.mesh is not None:
+            ProgramRelay.build(self.mesh, {
+                "cfg": cfg, "page_size": ps, "num_pages": pool_pages,
+                "paged_attention": self.paged_attention,
+                "quantize": self.quantize,
+                "num_draft_tokens": programs.num_draft_tokens,
+                "draft_cfg": (None if programs.draft_model is None
+                              else programs.draft_model.cfg),
+                "draft_is_target": same_draft,
+            })
+            programs = ProgramRelay(programs, self.mesh)
+        self.programs = programs
         self.num_draft_tokens = self.programs.num_draft_tokens
         self.draft_model = self.programs.draft_model
         self.page_size = ps
@@ -992,9 +1131,17 @@ class DecodeEngine:
             if self.num_draft_tokens > 0 else None
         )
         # values and, in int8, their scales, of both pools: the bytes the
-        # pools hold
-        self.kv_pool_bytes = self._pool.nbytes + (
+        # pools hold (on a tensor mesh every rank holds 1/tensor of each
+        # page: the whole pools are tensor times this rank's)
+        self.kv_pool_bytes_per_chip = self._pool.nbytes + (
             self._draft_pool.nbytes if self._draft_pool is not None else 0
+        )
+        self.kv_pool_bytes = self.kv_pool_bytes_per_chip * self.mesh_tensor
+        # the weights this rank holds (its blocks on a mesh)
+        self.weight_bytes_per_chip = resident_bytes(self.model) + (
+            resident_bytes(self.draft_model)
+            if self.draft_model is not None
+            and self.draft_model is not self.model else 0
         )
         # -- host page accounting (scheduler-thread-owned) --------------
         self._pagepool = PagePool(self.num_pages)
@@ -1077,6 +1224,9 @@ class DecodeEngine:
         # idle check never misses one mid-admission
         self._draining = False
         self._admitting = 0
+        # a serving mesh whose relayed call failed once sent (_fail_mesh):
+        # the engine is dead for good
+        self._failed: Optional[BaseException] = None
 
         self._stats_lock = threading.Lock()
         self._admitted = 0
@@ -1203,6 +1353,8 @@ class DecodeEngine:
         self._occupancy_g.set(0.0, model=name)
         self._pages_in_use_g.set(0, model=name)
         self._pages_total_g.set(self.num_pages, model=name)
+        serving_kv_pool_bytes_per_chip_gauge().set(
+            self.kv_pool_bytes_per_chip, model=name)
         self._persisted_chains_g.set(0, model=name)
         self._first_page_keys_g.set(0, model=name)
 
@@ -1268,6 +1420,9 @@ class DecodeEngine:
                     f"engine {self.name} is draining for shutdown; "
                     f"retry against another replica"
                 )
+            if self._failed is not None:
+                raise RuntimeError(f"engine {self.name} failed: "
+                                   f"{self._failed.__cause__!r}")
             if self._stop:
                 raise RuntimeError("engine is closed")
             if len(self._queue) + len(reqs) > self.max_queue:
@@ -1401,6 +1556,13 @@ class DecodeEngine:
                     "torch.", ""
                 ),
                 "kv_pool_bytes": self.kv_pool_bytes,
+                # the serving mesh the programs run on, and what one rank
+                # holds of the pools and the weights
+                "mesh_tensor": self.mesh_tensor,
+                "mesh_fsdp": self.mesh_fsdp,
+                "mesh_expert": self.mesh_expert,
+                "kv_pool_bytes_per_chip": self.kv_pool_bytes_per_chip,
+                "weight_bytes_per_chip": self.weight_bytes_per_chip,
                 "device": str(self.device),
                 # MoE router evidence (None on dense engines): cumulative
                 # routed positions an expert, capacity drops, and the
@@ -1451,8 +1613,9 @@ class DecodeEngine:
         requests' phase breakdowns and `stats()`. Slot reads are
         lock-free snapshots of scheduler-owned state (a torn view across
         slots is acceptable for a status page; no device state is read).
-        The port serves on one card: the mesh is 1 × 1 × 1 and a card
-        holds the whole pool."""
+        `mesh` is the serving mesh the programs run on (1 × 1 × 1 on one
+        card) and `kv_pool_bytes_per_chip` what one rank holds of the
+        pools."""
         slots = []
         for i, slot in enumerate(self._slots):
             if slot is None:
@@ -1481,8 +1644,9 @@ class DecodeEngine:
             "attention_kernel": self.paged_attention,
             "quantize": self.quantize,
             "kv_pool_bytes": self.kv_pool_bytes,
-            "mesh": {"tensor": 1, "fsdp": 1, "expert": 1},
-            "kv_pool_bytes_per_chip": self.kv_pool_bytes,
+            "mesh": {"tensor": self.mesh_tensor, "fsdp": self.mesh_fsdp,
+                     "expert": self.mesh_expert},
+            "kv_pool_bytes_per_chip": self.kv_pool_bytes_per_chip,
             "prefix_cache": self.prefix_cache_enabled,
             "prefix_nodes": self._radix.nodes if self._radix else 0,
             "kv_host_tier": (
@@ -1501,6 +1665,14 @@ class DecodeEngine:
         429 + Retry-After): the /healthz "draining, not dead" signal."""
         with self._cv:
             return self._draining
+
+    @property
+    def failed(self) -> Optional[BaseException]:
+        """The error that ended a serving mesh's engine (`_fail_mesh`),
+        else None: /healthz answers 503, and the serving entry point
+        exits, ending the gang."""
+        with self._cv:
+            return self._failed
 
     def drain(self, deadline_s: float = 30.0) -> bool:
         """Draining shutdown: refuse new submits (EngineDrainingError),
@@ -1558,6 +1730,8 @@ class DecodeEngine:
                 self._slots[i] = None
                 slot.req.future.fail(err)
         self._occupancy_g.set(0.0, model=self.name)
+        # a serving mesh's workers end with the scheduler (once)
+        self.programs.close()
 
     # -- page accounting (scheduler thread only) ---------------------------
 
@@ -1647,7 +1821,12 @@ class DecodeEngine:
     # -- scheduler ---------------------------------------------------------
 
     def _to_dev(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        out = host.to(self.device)
+        if self.mesh is not None and out is not host:
+            # the relay sends the host copy it came from (no copy back)
+            out.relay_host = host
+        return out
 
     def _note_attn(self, window: int) -> None:
         """Record one pool-reading dispatch at `window` query rows."""
@@ -1814,13 +1993,10 @@ class DecodeEngine:
             self.programs.upload(self._draft_pool,
                                  [e.draft for e in entries], dsts)
 
-    @staticmethod
-    def _page_template(pool: KVPool) -> Dict[str, torch.Tensor]:
-        """One page of `pool`, shapes and dtypes only (meta tensors): what
-        a stored or shipped page must rebuild against."""
-        return {name: torch.empty(t.shape[:1] + t.shape[2:], dtype=t.dtype,
-                                  device="meta")
-                for name, t in pool.fields().items()}
+    def _page_template(self, pool: KVPool) -> Dict[str, torch.Tensor]:
+        """One whole page of `pool`, shapes and dtypes only (meta
+        tensors): what a stored or shipped page must rebuild against."""
+        return self.programs.page_template(pool)
 
     def _page_leaves(self, page) -> Dict[str, torch.Tensor]:
         """A port page as the JAX pool's leaves in this engine's layout:
@@ -2297,6 +2473,10 @@ class DecodeEngine:
         wait_s = (min(1.0, self.kv_persist_interval_s)
                   if self._persist_store is not None
                   and self.kv_persist_interval_s > 0 else None)
+        if self.mesh is not None:
+            # a serving mesh's idle workers are pinged inside the relay's
+            # time limit
+            wait_s = min(wait_s or HEARTBEAT_S, HEARTBEAT_S)
         # grad mode is thread-local: the scheduler thread sets its own
         with torch.inference_mode():
             while True:
@@ -2314,18 +2494,22 @@ class DecodeEngine:
                 self._drain_control()
                 if stop:
                     # the shutdown snapshot: drain() and close() land here
-                    # with the radix warm, the set a restart preloads
-                    self._maybe_persist(final=True)
+                    # with the radix warm, the set a restart preloads (a
+                    # failed mesh's pools cannot be read)
+                    if self._failed is None:
+                        self._maybe_persist(final=True)
                     return
                 try:
                     self._iterate()
+                    self.programs.heartbeat()
                 except Exception as e:  # the thread must live
                     self._recover(e)
                 self._maybe_persist()
 
     def _recover(self, exc: BaseException) -> None:
         """A decode iteration raised: fail every resident request fast
-        (their slot state is gone), reset both K/V pools to zeros, reset
+        (their slot state is gone), reset both K/V pools to zeros (on a
+        serving mesh every rank's: the reset is relayed), reset
         the page allocator and the radix prefix index (their page ids
         described pages the failed iteration may have been writing), and
         keep scheduling: queued requests were never admitted and stay
@@ -2342,7 +2526,13 @@ class DecodeEngine:
         pool in place, so there is no such pool to check for. A second
         failure inside recover (a sticky CUDA error poisons the context)
         is not caught: the JAX engine has no handling for its
-        equivalent either."""
+        equivalent either.
+
+        On a serving mesh whose relayed call failed once sent, no reset
+        can reach the workers: the engine fails instead (`_fail_mesh`)."""
+        if getattr(self.programs, "broken", None) is not None:
+            self._fail_mesh(exc)
+            return
         residents = sum(s is not None for s in self._slots)
         log.exception("engine %s decode iteration failed; failing %d "
                       "resident request(s) and resetting the KV pool(s)",
@@ -2358,8 +2548,8 @@ class DecodeEngine:
             self._temp_np[:] = 0.0
             for pool in (self._pool, self._draft_pool):
                 if pool is not None:
-                    for t in pool.tensors():
-                        t.zero_()
+                    # every rank's pool on a mesh (a relayed call)
+                    self.programs.reset(pool)
             self._pagepool.reset()
             if self._radix is not None:
                 self._radix.reset()
@@ -2381,6 +2571,35 @@ class DecodeEngine:
             # at once while that second failure ends the scheduler thread
             for slot in failed:
                 slot.req.future.fail(err)
+
+    def _fail_mesh(self, exc: BaseException) -> None:
+        """A relayed call failed once sent (serving/relay.py): the
+        workers may be waiting inside the program's collectives, out of
+        step with rank 0, and no relayed reset can reach them. Fail
+        every queued and resident request, refuse new ones and stop the
+        scheduler: the engine is dead (`failed`), and the serving entry
+        point exits, which fails the workers' collectives and ends the
+        gang."""
+        log.error("engine %s serving mesh failed in a relayed call (%r); "
+                  "failing every request and stopping", self.name, exc)
+        self._tracer.event("engine.mesh_failed", model=self.name,
+                           error=type(exc).__name__)
+        err = RuntimeError(f"engine {self.name} serving mesh failed: "
+                           f"{exc!r}")
+        err.__cause__ = exc
+        with self._cv:
+            self._failed = err
+            self._stop = True
+            leftover = list(self._queue)
+            self._queue.clear()
+            self._queue_depth_g.set(0, model=self.name)
+        failed = [slot for slot in self._slots if slot is not None]
+        self._slots = [None] * self.num_slots
+        self._occupancy_g.set(0.0, model=self.name)
+        for req in leftover:
+            req.future.fail(err)
+        for slot in failed:
+            slot.req.future.fail(err)
 
     def _iterate(self) -> None:
         # retire finished slots, then refill FIFO from the queue — each
@@ -2479,11 +2698,10 @@ class DecodeEngine:
             proposals, qs = self.programs.draft(
                 self._draft_pool, tokens, pt, curs, *knobs
             )
-        window = torch.cat([tokens[:, None], proposals], dim=1)
         with self._tracer.span("engine.verify", model=self.name,
                                active=len(active), k=kk):
             out_tok, out_len, *ms = self.programs.verify(
-                self._pool, window, qs, pt, curs, *knobs
+                self._pool, tokens, proposals, qs, pt, curs, *knobs
             )
             if ms:
                 # one copy: the tokens, their lengths and the MoE pair
@@ -2539,3 +2757,65 @@ class DecodeEngine:
             self._accepted += accepted
             self._verifies += 1
             self._rewind_pages_returned += freed
+
+
+def check_model_devices(device, meshed: bool, model, draft_model) -> None:
+    """Each model's weights live on the engine's `device`. On a serving
+    mesh they may live on the host too: the mesh cuts each leaf there and
+    copies only this rank's block to the device
+    (`ServingMesh.shard_model`), so no rank's card holds the whole
+    model."""
+    for role, m in (("model", model), ("draft model", draft_model)):
+        if m is None or m.device == device or (
+                meshed and m.device.type == "cpu"):
+            continue
+        raise ValueError(f"{role} weights live on {m.device}, engine "
+                         f"device is {device}")
+
+
+def serve_worker(model, draft_model=None, *, device: DeviceLike = None,
+                 mesh_tensor: int = 1, mesh_fsdp: int = 1,
+                 mesh_expert: int = 1) -> Dict[str, int]:
+    """A serving mesh's rank above 0 (serving/relay.py): build the mesh
+    with rank 0 (every rank calls it, in the same order), take rank 0's
+    engine geometry, build the same programs over `model` (and
+    `draft_model`, when rank 0's engine drafts: the same models rank 0
+    was given, whole, on the host or this rank's device; int8 is applied
+    here as rank 0 applies it) and run every relayed call until rank 0's engine
+    closes → {call: times run}. Raises when the models are not rank 0's or
+    a call fails (the gang ends with it)."""
+    dev = resolve_device(device)
+    sizes = {"tensor": int(mesh_tensor or 1), "fsdp": int(mesh_fsdp or 1),
+             "expert": int(mesh_expert or 1)}
+    validate_serving_mesh(model.cfg, **sizes)
+    check_model_devices(dev, True, model, draft_model)
+    mesh = build_serving_mesh(**sizes, device=dev)
+    if mesh is None:
+        raise ValueError("serve_worker serves a mesh above 1x1x1")
+    if mesh.leader:
+        raise ValueError("rank 0 of a serving mesh builds the DecodeEngine; "
+                         "serve_worker runs on every other rank")
+    geo = receive_geometry(mesh)
+    if geo["cfg"] != model.cfg:
+        raise ValueError(f"this rank's model {model.cfg} is not rank 0's "
+                         f"{geo['cfg']}")
+    kk = int(geo["num_draft_tokens"])
+    if kk <= 0:
+        draft_model = None
+    elif geo["draft_is_target"]:
+        draft_model = model
+    elif draft_model is None or draft_model.cfg != geo["draft_cfg"]:
+        mine = None if draft_model is None else draft_model.cfg
+        raise ValueError(f"rank 0 drafts with {geo['draft_cfg']}, this "
+                         f"rank has {mine}")
+    if geo["quantize"] == "int8":
+        same = draft_model is model
+        model = int8_model(model)
+        if draft_model is not None:
+            draft_model = model if same else int8_model(draft_model)
+    programs = EnginePrograms(
+        model, page_size=geo["page_size"], num_pages=geo["num_pages"],
+        paged_attention=geo["paged_attention"], quantize=geo["quantize"],
+        draft_model=draft_model, num_draft_tokens=kk, mesh=mesh,
+    )
+    return run_worker(programs, mesh, dev)

@@ -29,6 +29,15 @@ hottest pages); both need the prefix cache.
 training run (the port's or the JAX package's). SIGTERM drains the
 engines before the process exits.
 
+`KFT_SERVING_MESH_TENSOR`, `_FSDP` and `_EXPERT` (or `--mesh-tensor`,
+`--mesh-fsdp`, `--mesh-expert`) serve the engine on a `tensor × fsdp ×
+expert` serving mesh (parallel/serving_mesh.py): a gang of that many
+processes, one a card, each started with the gang env a controller
+renders (parallel/distributed.py `render_gang_env`) and the same
+arguments. Rank 0 builds the model and the engine and serves REST;
+every other rank builds the same model and runs the engine's relayed
+programs on its shard (`serve_mesh_worker`) until rank 0 closes.
+
     python -m kubeflow_tpu_torch.serving.main --model gpt_small \
         --checkpoint-dir /data/checkpoints/run --port 8500
 """
@@ -38,7 +47,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -76,7 +85,11 @@ def engine_knobs_from_env() -> dict:
     _KV_HOST_BYTES (host-RAM spill budget; 0 = off), _KV_PERSIST_DIR
     (the on-disk prefix store; empty = off), _KV_PERSIST_INTERVAL_S
     (seconds between persists; 0 = only at shutdown) and
-    _KV_PERSIST_CHAINS (pages a persist keeps, hottest first)."""
+    _KV_PERSIST_CHAINS (pages a persist keeps, hottest first), and the
+    serving mesh: _MESH_TENSOR (ranks splitting the KV pools' heads and
+    the heads/mlp/vocab dims of the weights), _MESH_FSDP (ranks
+    splitting the weights' embed dims) and _MESH_EXPERT (ranks splitting
+    an MoE model's expert stacks); 1/1/1 is the one-card engine."""
     buckets_raw = os.environ.get("KFT_SERVING_PREFILL_BUCKETS", "")
     buckets = [int(b) for b in buckets_raw.split(",") if b.strip()]
     prefix_raw = os.environ.get("KFT_SERVING_PREFIX_CACHE", "").strip()
@@ -110,6 +123,9 @@ def engine_knobs_from_env() -> dict:
             "KFT_SERVING_KV_PERSIST_INTERVAL_S", 0.0
         ),
         "kv_persist_chains": _env_int("KFT_SERVING_KV_PERSIST_CHAINS", 64),
+        "mesh_tensor": _env_int("KFT_SERVING_MESH_TENSOR", 1),
+        "mesh_fsdp": _env_int("KFT_SERVING_MESH_FSDP", 1),
+        "mesh_expert": _env_int("KFT_SERVING_MESH_EXPERT", 1),
     }
 
 
@@ -149,6 +165,9 @@ def build_server(
     trace_enabled: Optional[bool] = None,
     trace_buffer_spans: Optional[int] = None,
     statusz_enabled: Optional[bool] = None,
+    mesh_tensor: Optional[int] = None,
+    mesh_fsdp: Optional[int] = None,
+    mesh_expert: Optional[int] = None,
 ):
     """Assemble the ModelServer for one registry model. A causal LM gets
     the ServedLm plus (num_slots > 0) its continuous-batching
@@ -185,6 +204,16 @@ def build_server(
     without CUDA unless "cpu" is asked for. Engine knobs default from
     `engine_knobs_from_env()`.
 
+    `mesh_tensor`, `mesh_fsdp` and `mesh_expert` (default from the
+    KFT_SERVING_MESH_* env) above 1 serve the engine on a serving mesh:
+    this process must be rank 0 of a gang of tensor·fsdp·expert ranks
+    (joined here from the gang env when no group exists yet), every
+    other rank running `serve_mesh_worker` with the same arguments. The
+    model is built on the host and the engine takes it over (its leaves
+    become rank 0's blocks on `device`, the card holding no whole leaf
+    it splits);
+    `:generate` is the engine's, so the ServedLm's own path is not used.
+
     The KFT_CHAOS_* plan arms the process's injection points (absent, it
     disarms them). `trace_enabled`, `trace_buffer_spans` and
     `statusz_enabled` default from the KFT_TRACE_* env
@@ -195,16 +224,9 @@ def build_server(
         default_tracer,
         knobs_from_env,
     )
-    from kubeflow_tpu_torch.models.registry import get_model
     from kubeflow_tpu_torch.serving.engine import DecodeEngine
-    from kubeflow_tpu_torch.models.convert import params_from_jax
-    from kubeflow_tpu_torch.serving.generate import ServedLm
     from kubeflow_tpu_torch.serving.kv_tiers import pool_sizing_telemetry
-    from kubeflow_tpu_torch.serving.server import (
-        ModelServer,
-        ServedModel,
-        restore_checkpoint_params,
-    )
+    from kubeflow_tpu_torch.serving.server import ModelServer, ServedModel
     from kubeflow_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -260,6 +282,13 @@ def build_server(
         kv_persist_interval_s = env["kv_persist_interval_s"]
     if kv_persist_chains is None:
         kv_persist_chains = env["kv_persist_chains"]
+    mesh = _mesh_knobs(env, mesh_tensor, mesh_fsdp, mesh_expert)
+    if num_slots < 1 and max(mesh.values()) > 1:
+        raise ValueError(
+            "a serving mesh needs num_slots >= 1: the mesh shards the "
+            "decode engine's programs, and num_slots=0 disables the "
+            "engine (the static path would silently serve one card)"
+        )
     if (kv_host_bytes or kv_persist_dir) and not prefix_cache:
         raise ValueError(
             "KFT_SERVING_KV_HOST_BYTES / KFT_SERVING_KV_PERSIST_DIR need "
@@ -291,44 +320,29 @@ def build_server(
             "paged_attention=kernel needs num_slots >= 1: the kernel "
             "serves the engine, and num_slots=0 disables the engine"
         )
-    kwargs = {"device": dev}
-    if dtype is not None:
-        kwargs["dtype"] = dtype
+    if max(mesh.values()) > 1:
+        from kubeflow_tpu_torch.parallel.distributed import (
+            initialize_from_env,
+        )
+
+        # rank 0 of the serving gang (a no-op when this process joined it
+        # already, or runs without a rendered gang: the mesh then raises)
+        initialize_from_env(device=dev)
     # num_slots=0 + quantize=int8 is the static int8 path: the ServedLm
     # itself is int8. With the engine on, the ServedLm stays full width
     # and the engine quantizes.
     lm_quantize = quantize if num_slots < 1 else "none"
-    if params is None and checkpoint_dir:
-        lm = ServedLm.from_registry(model, checkpoint_dir=checkpoint_dir,
-                                    quantize=lm_quantize, **kwargs)
-    else:
-        lm_model = get_model(model, **kwargs)
-        if params is not None:
-            lm_model.load_state_dict(params, strict=True)
-        lm = ServedLm(model, lm_model, quantize=lm_quantize)
+    # on a serving mesh the models are built on the host: the engine's
+    # mesh copies only this rank's blocks to the card
+    build_dev = torch.device("cpu") if max(mesh.values()) > 1 else dev
+    lm = _served_lm(model, checkpoint_dir, params, build_dev, dtype,
+                    lm_quantize)
     server = ModelServer(statusz_enabled=statusz_enabled)
     server.add_lm(lm)
     lm_model = lm.model
     if num_slots > 0:
-        draft = None
-        if num_draft_tokens > 0:
-            if draft_params is None and draft_checkpoint_dir:
-                # trained draft params from a platform checkpoint: the same
-                # manifest restore the target serves from
-                draft_params = params_from_jax(
-                    restore_checkpoint_params(draft_checkpoint_dir)
-                )
-            if draft_params is not None:
-                # shapes only, then memory on the device, then the params
-                draft = get_model(draft_model, **{**kwargs, "device": "meta"})
-                draft = draft.to_empty(device=dev)
-                draft.load_state_dict(draft_params, strict=True)
-            else:
-                draft = get_model(draft_model, **kwargs)
-                print(f"note: draft model {draft_model} initialized from "
-                      "seed 0 (no draft params given); output stays "
-                      "correct, accept rate will be noise until trained "
-                      "draft params are provided", flush=True)
+        draft = _draft_lm(draft_model, num_draft_tokens, draft_params,
+                          draft_checkpoint_dir, build_dev, dtype)
         server.add_engine(
             DecodeEngine(
                 lm.name, lm_model, device=dev,
@@ -346,9 +360,115 @@ def build_server(
                 # (None on a fresh process: the static rule)
                 pool_telemetry=(None if num_pages
                                 else pool_sizing_telemetry()),
+                mesh_tensor=mesh["tensor"], mesh_fsdp=mesh["fsdp"],
+                mesh_expert=mesh["expert"],
             )
         )
     return server
+
+
+def _mesh_knobs(env: dict, tensor, fsdp, expert) -> dict:
+    """The serving mesh's sizes: the arguments, else the env's."""
+    return {"tensor": env["mesh_tensor"] if tensor is None else int(tensor),
+            "fsdp": env["mesh_fsdp"] if fsdp is None else int(fsdp),
+            "expert": env["mesh_expert"] if expert is None else int(expert)}
+
+
+def _served_lm(model: str, checkpoint_dir, params, dev, dtype, quantize):
+    """The ServedLm of registry model `model` on `dev`: `params` (a state
+    dict), else the latest committed checkpoint in `checkpoint_dir`,
+    else the seed-0 init."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.generate import ServedLm
+
+    kwargs = {"device": dev}
+    if dtype is not None:
+        kwargs["dtype"] = dtype
+    if params is None and checkpoint_dir:
+        return ServedLm.from_registry(model, checkpoint_dir=checkpoint_dir,
+                                      quantize=quantize, **kwargs)
+    lm_model = get_model(model, **kwargs)
+    if params is not None:
+        lm_model.load_state_dict(params, strict=True)
+    return ServedLm(model, lm_model, quantize=quantize)
+
+
+def _draft_lm(draft_model, num_draft_tokens, draft_params,
+              draft_checkpoint_dir, dev, dtype):
+    """The draft model at K > 0 (None at K = 0): registry model
+    `draft_model` on `dev` with `draft_params`, else the params of the
+    latest committed checkpoint in `draft_checkpoint_dir`, else its
+    seed-0 init (a note says so)."""
+    from kubeflow_tpu_torch.models.convert import params_from_jax
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.serving.server import restore_checkpoint_params
+
+    if not num_draft_tokens or num_draft_tokens <= 0:
+        return None
+    kwargs = {"device": dev}
+    if dtype is not None:
+        kwargs["dtype"] = dtype
+    if draft_params is None and draft_checkpoint_dir:
+        # trained draft params from a platform checkpoint: the same
+        # manifest restore the target serves from
+        draft_params = params_from_jax(
+            restore_checkpoint_params(draft_checkpoint_dir)
+        )
+    if draft_params is not None:
+        # shapes only, then memory on the device, then the params
+        draft = get_model(draft_model, **{**kwargs, "device": "meta"})
+        draft = draft.to_empty(device=dev)
+        draft.load_state_dict(draft_params, strict=True)
+        return draft
+    print(f"note: draft model {draft_model} initialized from seed 0 (no "
+          "draft params given); output stays correct, accept rate will be "
+          "noise until trained draft params are provided", flush=True)
+    return get_model(draft_model, **kwargs)
+
+
+def serve_mesh_worker(
+    model: str,
+    checkpoint_dir: str = "",
+    *,
+    params: Optional[Mapping[str, torch.Tensor]] = None,
+    device=None,
+    dtype: Optional[torch.dtype] = None,
+    draft_model: Optional[str] = None,
+    num_draft_tokens: Optional[int] = None,
+    draft_params: Optional[Mapping[str, torch.Tensor]] = None,
+    draft_checkpoint_dir: Optional[str] = None,
+    mesh_tensor: Optional[int] = None,
+    mesh_fsdp: Optional[int] = None,
+    mesh_expert: Optional[int] = None,
+) -> Dict[str, int]:
+    """A serving mesh's rank above 0: the models `build_server` builds
+    from the same arguments (and the same KFT_SERVING_* env), then
+    serving/engine.py `serve_worker` until rank 0's engine closes →
+    {relayed call: times run}. Joins the gang from its env when no group exists
+    yet."""
+    from kubeflow_tpu_torch.parallel.distributed import initialize_from_env
+    from kubeflow_tpu_torch.serving.engine import serve_worker
+    from kubeflow_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    env = engine_knobs_from_env()
+    mesh = _mesh_knobs(env, mesh_tensor, mesh_fsdp, mesh_expert)
+    if draft_model is None:
+        draft_model = env["draft_model"]
+    if num_draft_tokens is None:
+        num_draft_tokens = env["num_draft_tokens"]
+    if draft_checkpoint_dir is None:
+        draft_checkpoint_dir = env["draft_checkpoint_dir"]
+    initialize_from_env(device=dev)
+    # built on the host, as rank 0 builds them: the mesh copies only this
+    # rank's blocks to the card
+    cpu = torch.device("cpu")
+    lm = _served_lm(model, checkpoint_dir, params, cpu, dtype, "none")
+    draft = _draft_lm(draft_model, num_draft_tokens, draft_params,
+                      draft_checkpoint_dir, cpu, dtype)
+    return serve_worker(lm.model, draft, device=dev,
+                        mesh_tensor=mesh["tensor"], mesh_fsdp=mesh["fsdp"],
+                        mesh_expert=mesh["expert"])
 
 
 def main(argv=None) -> int:
@@ -384,6 +504,20 @@ def main(argv=None) -> int:
                     help="platform checkpoint dir with the draft's trained "
                     "params (default from KFT_SERVING_DRAFT_CHECKPOINT_DIR; "
                     "empty = seed-0 init, accept rate will be noise)")
+    ap.add_argument("--mesh-tensor", type=int, default=None,
+                    help="serving mesh ranks splitting the KV pools' heads "
+                    "(must divide the model's num_heads and mlp_dim; "
+                    "default from KFT_SERVING_MESH_TENSOR, else 1)")
+    ap.add_argument("--mesh-fsdp", type=int, default=None,
+                    help="serving mesh ranks splitting the resident "
+                    "weights' embed dims, gathered at use (must divide "
+                    "hidden_size; default from KFT_SERVING_MESH_FSDP, "
+                    "else 1)")
+    ap.add_argument("--mesh-expert", type=int, default=None,
+                    help="serving mesh ranks splitting an MoE model's "
+                    "expert stacks (never gathered; must divide "
+                    "num_experts, top-1 routing only; default from "
+                    "KFT_SERVING_MESH_EXPERT, else 1)")
     args = ap.parse_args(argv)
 
     import signal
@@ -398,6 +532,25 @@ def main(argv=None) -> int:
     elif not args.checkpoint_dir:
         print(f"note: {args.model} serves its seed-0 init (no --weights "
               "or --checkpoint-dir given)", flush=True)
+    mesh = _mesh_knobs(engine_knobs_from_env(), args.mesh_tensor,
+                       args.mesh_fsdp, args.mesh_expert)
+    if max(mesh.values()) > 1:
+        from kubeflow_tpu_torch.parallel.distributed import (
+            initialize_from_env,
+            rank,
+        )
+
+        initialize_from_env()
+        if rank() > 0:
+            # a serving mesh's worker: no server of its own
+            serve_mesh_worker(
+                args.model, args.checkpoint_dir, params=params,
+                draft_model=args.draft_model,
+                num_draft_tokens=args.draft_tokens,
+                draft_checkpoint_dir=args.draft_checkpoint_dir,
+                mesh_tensor=mesh["tensor"], mesh_fsdp=mesh["fsdp"],
+                mesh_expert=mesh["expert"])
+            return 0
     server = build_server(
         args.model, args.checkpoint_dir, params=params,
         batch_window_ms=args.batch_window_ms,
@@ -409,6 +562,8 @@ def main(argv=None) -> int:
         paged_attention=args.paged_attention, quantize=args.quantize,
         draft_model=args.draft_model, num_draft_tokens=args.draft_tokens,
         draft_checkpoint_dir=args.draft_checkpoint_dir,
+        mesh_tensor=mesh["tensor"], mesh_fsdp=mesh["fsdp"],
+        mesh_expert=mesh["expert"],
     )
     httpd = Server(server.app, host=args.host, port=args.port)
     print(f"serving {args.model} on :{httpd.port}", flush=True)
@@ -417,7 +572,14 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
     try:
         while not stop.wait(1.0):
-            pass
+            failed = server.failed_engines()
+            if failed:
+                # a serving mesh out of step: exiting ends the gang (the
+                # workers' collectives fail) and the pod restarts
+                print(f"engine(s) {', '.join(failed)} failed; exiting",
+                      flush=True)
+                server.close()
+                return 1
         # scale-down: finish every accepted request, 429 + Retry-After
         # for new ones, before the process exits
         print("SIGTERM: draining engines", flush=True)

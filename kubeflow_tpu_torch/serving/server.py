@@ -662,6 +662,12 @@ class ModelServer:
                                   direction="out")
         return doc
 
+    def failed_engines(self) -> list:
+        """Names of the engines that failed for good (`DecodeEngine.
+        failed`)."""
+        return sorted(n for n, e in self._engines.items()
+                      if e.failed is not None)
+
     def _build(self) -> App:
         app = App("model-server")
 
@@ -669,14 +675,17 @@ class ModelServer:
         def healthz(req):
             """{"ok", "draining", "models"}; 503 while the server or any
             engine drains, so readiness drops a draining replica that
-            still answers (a dead one answers nothing)."""
+            still answers (a dead one answers nothing), and with "ok"
+            false once an engine failed for good (a serving mesh out of
+            step: `DecodeEngine.failed`)."""
             names = sorted(set(self._models) | set(self._lms)
                            | set(self._engines))
             draining = self._draining or any(
                 e.draining for e in self._engines.values()
             )
-            body = {"ok": True, "draining": draining, "models": names}
-            return (body, 503) if draining else body
+            ok = not self.failed_engines()
+            body = {"ok": ok, "draining": draining, "models": names}
+            return (body, 503) if draining or not ok else body
 
         @app.get("/v1/models")
         def list_models(req):

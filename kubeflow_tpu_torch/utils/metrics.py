@@ -389,6 +389,18 @@ def checkpoint_restores_counter() -> Counter:
 # between replicas against what the export, wire and upload cost.
 
 
+def serving_kv_pool_bytes_per_chip_gauge() -> Gauge:
+    """What one rank of the serving mesh holds of the pools:
+    `serving_kv_pool_bytes / mesh_tensor` (the pools split on heads
+    under `tensor` and are whole under `fsdp` and `expert`); the total
+    on the 1×1 engine."""
+    return default_registry().gauge(
+        "serving_kv_pool_bytes_per_chip",
+        "resident KV pool bytes per mesh chip",
+        ["model"],
+    )
+
+
 def serving_kv_spill_pages_counter() -> Counter:
     """Pages parked in the host tier at radix eviction (copied
     device→host instead of dropped): the spill tier's write side."""

@@ -232,8 +232,11 @@ def test_int8_pool_holds_more_pages_in_no_more_bytes(tiny):
     # in it means full pressure, the static 3/4
     assert resolve_num_pages(0, 4, tmodel.cfg, 16, telemetry={"x": 1}) == \
         resolve_num_pages(0, 4, tmodel.cfg, 16)
-    with pytest.raises(ValueError, match="A13"):
-        resolve_num_pages(0, 4, tmodel.cfg, 16, mesh_tensor=2)
+    # the serving mesh's tensor rule: every rank holds 1/tensor of each
+    # page, so auto sizing multiplies the pages (explicit pages win)
+    assert resolve_num_pages(0, 4, tmodel.cfg, 16, mesh_tensor=2) == \
+        2 * resolve_num_pages(0, 4, tmodel.cfg, 16)
+    assert resolve_num_pages(40, 4, tmodel.cfg, 16, mesh_tensor=2) == 40
     with pytest.raises(ValueError, match="quantize"):
         _engine(tmodel, "kernel", quantize="int4")
 

@@ -222,6 +222,30 @@ def test_decode_kernel_is_deterministic(cuda):
     assert not tickets.any()
 
 
+@pytest.mark.parametrize("s", [1, 5, 64], ids=["decode", "verify", "chunk"])
+@pytest.mark.parametrize("kind", DECODE_KINDS)
+def test_a_ranks_heads_give_the_whole_pools_bits(cuda, kind, s):
+    """The serving mesh's head shard (parallel/serving_mesh.py): each
+    half of the heads of q and of the pool (values and int8 scales),
+    walked by the kernel on its own, gives exactly those heads of the
+    whole-pool call, bit for bit, at gpt_small's H = 12 (6 a rank). The
+    grid's head coordinate and the splits, which follow only the page
+    size and the table's width, do not move a head's bits."""
+    args, kw = _decode_case(cuda, kind, _window_cursors(s), 16, h=12, s=s)
+    whole = tpa.paged_attention(*args, **kw)
+    q, pk, pv, table, cur = args
+    for first in (0, 6):
+        heads = slice(first, first + 6)
+        part = {n: (t[:, :, heads].contiguous() if n.endswith("scale") else t)
+                for n, t in kw.items()}
+        got = tpa.paged_attention(q[:, :, heads].contiguous(),
+                                  pk[:, :, heads].contiguous(),
+                                  pv[:, :, heads].contiguous(), table, cur,
+                                  **part)
+        torch.cuda.synchronize()
+        assert torch.equal(got, whole[:, :, heads])
+
+
 # the window kernel: tiles of 64 query rows against splits of 128 keys
 # (128 / page_size pages) folded by the tile's last live split
 WINDOW_S = (5, 64, 65, 130)

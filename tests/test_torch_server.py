@@ -149,6 +149,7 @@ def test_engine_knobs_from_env(monkeypatch):
         "draft_model": "", "num_draft_tokens": 0, "draft_checkpoint_dir": "",
         "kv_host_bytes": 0, "kv_persist_dir": "", "kv_persist_interval_s": 0.0,
         "kv_persist_chains": 64,
+        "mesh_tensor": 1, "mesh_fsdp": 1, "mesh_expert": 1,
     }
     ms = build_server("gpt_tiny", device="cpu", dtype=torch.float32)
     try:
