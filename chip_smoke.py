@@ -387,6 +387,32 @@ Phases (any failure raises and the script exits non-zero):
    rank 0's paged launches the reference's, rank 0's build and every
    worker's peak card memory within the formula (SERVE_MEM_SLACK). The
    kernels line gives the paged rows their `mesh_launches`.
+25. The tensor axis in the trainer (models/layers.py `shard_tensor`: each
+   rank holds its half of every leaf whose spec names tensor, never
+   gathered; q/k/v and the first MLP product column-parallel, `out` and
+   the second row-parallel, their partial sums all-reduced over the
+   tensor group; vocab-split tables and heads with a vocab-parallel
+   loss). 25a: FSDP_CFG's cell (gpt_small at full width, FSDP_DEPTH's 6
+   layers, bf16, remat, flash, seq 1024, global batch 8, loss_chunk 1024,
+   3 steps, warmup 2) on `{tensor: 2}`, two ranks of the pair (before
+   20b); 25b: the same on `{data: 2, tensor: 2}`, four ranks of the
+   quartet (before 20a); 25c: phase 16a's BERT-base cell cut to 8 rows
+   and 3 steps (TENSOR_BERT_CFG: 30,522 `mlm_out` rows, the 512-row
+   `pos_emb` and the 2-row `seg_emb` split, dropout 0.1) on `{tensor: 2}`
+   in the pair. Each against world 1 (the same cell at `{data: 1}`; 25a
+   and 25b read phase 23's world-1 run of their cell) in this process.
+   Gates: the ranks' losses bit for bit equal and within GANG_LOSS_REL
+   of world 1's, the replicated leaves bit for bit equal across the
+   ranks, rank 0's joined final weights within GANG_STEP_REL /
+   GANG_LEAF_STEP_REL of world 1's update, each rank's parameter bytes
+   the specs' formula (`tensor_param_bytes`) and its moments twice that,
+   its flash launches, tensor all-reduces (`tensor_allreduces`) and
+   bucket all-reduces their formulas. Printed: the bytes against world
+   1's, max_memory_allocated a rank against world 1's, step ms a rank (a
+   record). Phase 6 holds the three bf16 flash kernels at a tensor
+   rank's call ([TB, TS, TH, 64], causal: rows 3t-5t, `tp_call`), and
+   the kernels line gives each flash row its `tp_launches` (25a, 25b,
+   25c; a row at 0 in 25a or 25b fails).
 
 Every phase prints its seconds, and the line before the nvidia-smi line
 the whole run's. The last lines are the nvidia-smi line, a {"kernels":
@@ -775,6 +801,28 @@ FSDP_CFG = dict(TRAIN_CFG, seq_len=1024, global_batch_size=8, accum_steps=1,
 # phase 24's cells inside the script's time limit
 FSDP_DEPTH = {"num_layers": 6}
 FSDP_MESHES = (("23a", {"fsdp": 4}), ("23b", {"data": 2, "fsdp": 2}))
+# phase 25: the tensor axis. 25a: FSDP_CFG's cell (gpt_small at full width,
+# FSDP_DEPTH's 6 layers, bf16, remat, flash, seq 1024, global batch 8,
+# loss_chunk 1024, 3 steps, warmup 2) on `{tensor: 2}` (in the pair);
+# 25b: the same on `{data: 2, tensor: 2}` (in the quartet); 25c: phase
+# 16a's BERT-base cell (S=512, dropout 0.1, flash) cut to 8 rows and 3
+# steps on `{tensor: 2}` (in the pair). Each rank holds its half of
+# every leaf whose spec names tensor (q/k/v and their biases on heads,
+# `out` and the MLP on their mlp dim, `pos_emb` and BERT's tables and
+# `mlm_out` on their rows; gpt_small's 50,257-row `tok_emb` and head
+# whole), never gathered; each cell against world 1 (the same cell at
+# `{data: 1}`; 25a/25b share 23's, the same cell) in this process.
+# Bounds: 17c's GANG_LOSS_REL, GANG_STEP_REL and GANG_LEAF_STEP_REL, a
+# rank's parameter and moment bytes the specs' formula
+# (`tensor_param_bytes`), the flash launches and the tensor all-reduces
+# their formulas (`tensor_allreduces`)
+TENSOR_BERT_CFG = dict(BERT_CFG, global_batch_size=8, steps=3)
+TENSOR_CELLS = (("25a", "gpt", {"tensor": 2}),
+                ("25b", "gpt", {"data": 2, "tensor": 2}),
+                ("25c", "bert", {"tensor": 2}))
+# rows 3t-5t: the flash kernels at a tensor rank's call in 25a/25b
+# (FSDP_CFG's batch, 8 rows of 1024, causal, a rank's 6 of 12 heads)
+TB, TS, TH = 8, 1024, FH // 2
 # phase 24: the serving mesh on the one card (parallel/serving_mesh.py,
 # serving/relay.py). Each cell serves phase 5's seeded weights (build_server's
 # seed-0 init) at full width behind rank 0's REST server on phase 5's
@@ -1647,9 +1695,11 @@ def measure_flash(torch, fa, flush, dtype, s, with_mask, causal=True, b=FB,
 def phase_flash(torch):
     """Phase 6: each flash kernel against its plain version at the main
     path's microbatch shape (bf16, S=4096, no mask as the config runs, and
-    with a key mask), in f32 at S=1024, and at BERT's call (bf16, B=32,
-    S=512, bidirectional, without and with a ragged key mask) → (the
-    main path's records, {"bert_call", "bert_call_unmasked": records})."""
+    with a key mask), in f32 at S=1024, at BERT's call (bf16, B=32,
+    S=512, bidirectional, without and with a ragged key mask) and at a
+    tensor rank's call of phase 25 (bf16, [TB, TS, TH, 64], causal, no
+    mask: rows 3t-5t) → (the main path's records, {"bert_call",
+    "bert_call_unmasked", "tp_call": records})."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
 
     flush = torch.empty(2 << 30, dtype=torch.uint8, device="cuda")
@@ -1667,6 +1717,9 @@ def phase_flash(torch):
         "bert_call": measure_flash(
             torch, fa, flush, torch.bfloat16, BS, True, causal=False, b=BB,
             h=BH, d=BD, lengths=BERT_LENGTHS),
+        # phase 25's tensor ranks: their H/t heads of FSDP_CFG's batch
+        "tp_call": measure_flash(torch, fa, flush, torch.bfloat16, TS,
+                                 False, b=TB, h=TH, d=FD),
     }
     del flush
     torch.cuda.empty_cache()
@@ -3661,16 +3714,17 @@ def rank_runs(torch, job):
     (with "digests") the final leaves' digests, replicated and expert
     blocks apart, and the rank's coordinates, and on a pipeline axis the
     rank's stage, microbatches, schedule and live-activation peak, and on
-    an fsdp axis its gathers and reduce-scatters. A run with "serve" is a
+    an fsdp axis its gathers and reduce-scatters, on a tensor axis its
+    all-reduces over the tensor group. A run with "serve" is a
     serving-mesh cell of phase 24 (`serve_cell`). With "out" the rank's
     final parameters and buffers are saved as `<out>.<rank>.pt` (by the
-    ranks "out_ranks" lists; by default every rank; on an fsdp axis the
-    whole parameters, every rank gathering the blocks). One process start
-    serves every run."""
+    ranks "out_ranks" lists; by default every rank; on an fsdp or a tensor
+    axis the whole parameters, every rank joining the blocks). One process
+    start serves every run."""
     import gc
 
     from kubeflow_tpu_torch.config.platform import TrainingConfig
-    from kubeflow_tpu_torch.models.layers import gather_fsdp_params
+    from kubeflow_tpu_torch.models.layers import gather_held_params
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.parallel import distributed as gd
     from kubeflow_tpu_torch.runtime.train_run import run_training
@@ -3732,7 +3786,7 @@ def rank_runs(torch, job):
             rep.update(replicated=replicated, blocks=blocks, blocks_at=at,
                        coords={a: trainer.mesh.get_local_rank(a)
                                for a in ("data", "fsdp", "expert",
-                                         "sequence")})
+                                         "sequence", "tensor")})
         if trainer.pipe is not None:
             rep.update(stage=trainer.pipe.rank,
                        live=trainer.stage_live.peak,
@@ -3740,14 +3794,15 @@ def rank_runs(torch, job):
                        schedule=trainer.model.cfg.pipeline_schedule)
         if run.get("out"):
             model = trainer._final_state.model
-            if trainer.fsdp is not None:
-                # a collective: every rank gathers the whole parameters
+            blocked = trainer.fsdp is not None or trainer.tensor is not None
+            if blocked:
+                # a collective: every rank joins the whole parameters
                 arrays = {"params": {n: t.cpu() for n, t in
-                                     gather_fsdp_params(model).items()},
+                                     gather_held_params(model).items()},
                           "buffers": model_arrays(model)["buffers"]}
             if rank in run.get("out_ranks", [rank]):
-                torch.save(arrays if trainer.fsdp is not None
-                           else model_arrays(model), f"{run['out']}.{rank}.pt")
+                torch.save(arrays if blocked else model_arrays(model),
+                           f"{run['out']}.{rank}.pt")
         rep["seconds"] = {"build": built, "run": time.monotonic() - t0}
         out.append(rep)
         # the step closure refers to the trainer: free the run's state
@@ -3999,10 +4054,11 @@ def digest(torch, t):
 
 def leaf_digests(torch, model):
     """({name: digest} of the replicated parameters, {name: digest} of the
-    blocks this model holds: the expert stacks', the fsdp leaves')."""
-    from kubeflow_tpu_torch.models.layers import fsdp_leaves
+    blocks this model holds: the expert stacks', the fsdp and the tensor
+    leaves')."""
+    from kubeflow_tpu_torch.models.layers import held_leaves
 
-    held = fsdp_leaves(model)
+    held = held_leaves(model)
     out = ({}, {})
     for name, p in model.named_parameters():
         out[1 if is_stack(name) or name in held else 0][name] = digest(
@@ -5546,11 +5602,14 @@ def fsdp_plan(root, overrides=None, model_kwargs=FSDP_DEPTH):
     return runs
 
 
-def phase_fsdp(torch, gang, device="cuda"):
+def phase_fsdp(torch, gang, device="cuda", ref=None):
     """Phase 23: 23a gpt_small on `{fsdp: 4}` and 23b on `{data: 2, fsdp:
     2}` (gloo ranks on the one card; `gang`: phase_gangs' "fsdp" entry)
     against world 1 in this process; 23c 23a's checkpoint restored at
-    world 1. → each flash kernel's launches over 23a's and 23b's ranks."""
+    world 1. → each flash kernel's launches over 23a's and 23b's ranks.
+    `ref` (a dict), when given, receives the world-1 run's record
+    (`world1_record`), which phase 25 reads for its cells of the same
+    cell."""
     from kubeflow_tpu_torch.checkpointing import layout as ck_layout
     from kubeflow_tpu_torch.checkpointing import restore_latest
     from kubeflow_tpu_torch.models.layers import fsdp_leaf_dims
@@ -5571,6 +5630,10 @@ def phase_fsdp(torch, gang, device="cuda"):
     one_peak = torch.cuda.max_memory_allocated() if cuda else 0
     one_losses = [loss for _, loss in res["losses"]]
     one_bytes = state_bytes(tr._final_state)
+    if ref is not None:
+        ref.update(world1_record(world1_cell(base),
+                                 plan[0][1]["model_kwargs"], res, tr, init,
+                                 one_params, one_peak))
     layers = tr.model.cfg.num_layers
     steps, a = base["steps"], base.get("accum_steps", 1)
     r = 2 if base.get("remat") else 1
@@ -5697,6 +5760,180 @@ def phase_fsdp(torch, gang, device="cuda"):
     print(f"phase 23: {time.monotonic() - t23:.3f} s; flash launches "
           f"{total}", flush=True)
     return total
+
+
+# -- phase 25: the tensor axis ------------------------------------------------
+
+
+def tensor_plan(root, overrides=None, bert_overrides=None,
+                model_kwargs=FSDP_DEPTH):
+    """25a's, 25b's and 25c's gang runs, (config, run options) each:
+    FSDP_CFG with `overrides` (the model built with `model_kwargs`, its
+    depth) on 25a's and 25b's meshes, TENSOR_BERT_CFG with
+    `bert_overrides` on 25c's; every rank's digests recorded, rank 0's
+    joined final weights saved."""
+    runs = []
+    for tag, family, mesh in TENSOR_CELLS:
+        opts = {"digests": True, "out": os.path.join(root, f"tensor_{tag}"),
+                "out_ranks": [0]}
+        if family == "gpt":
+            cfg = dict(FSDP_CFG, **(overrides or {}), mesh=mesh)
+            opts["model_kwargs"] = dict(model_kwargs)
+        else:
+            cfg = dict(TENSOR_BERT_CFG, **(bert_overrides or {}), mesh=mesh)
+        runs.append((cfg, opts))
+    return runs
+
+
+def world1_record(cfg, model_kwargs, res, tr, init, params, peak):
+    """What a gang phase reads off a world-1 run: its cell (`cfg`,
+    `model_kwargs`), losses, state bytes, peak, initial and final
+    parameters, and the model's config and flash formula inputs."""
+    return {"cell": json.dumps([cfg, model_kwargs], sort_keys=True),
+            "losses": [loss for _, loss in res["losses"]],
+            "bytes": state_bytes(tr._final_state), "peak": peak,
+            "init": init, "params": params, "mcfg": tr.model.cfg}
+
+
+def tensor_param_bytes(model, size):
+    """f32 bytes of one tensor rank's parameters from the specs alone: Σ
+    numel / size over the leaves whose spec names tensor (models/layers.py
+    `tensor_leaf_dims` of `model`, a model holding every leaf whole), Σ
+    numel over the rest."""
+    from kubeflow_tpu_torch.models.layers import tensor_leaf_dims
+
+    split = tensor_leaf_dims(model, size)
+    return 4 * sum(p.numel() // (size if n in split else 1)
+                   for n, p in model.named_parameters())
+
+
+def tensor_allreduces(model, size, steps, remat, chunks):
+    """A run's all-reduces over the tensor group, from the specs of
+    `model` (every leaf whole) on a tensor axis of `size`: each layer's
+    two column inputs (their cotangents, in the backward) and two
+    row-parallel sums (again in a remat recompute), a vocab-split table's
+    lookup, a vocab-split head's input cotangent and its loss's max and
+    sums (each of `chunks` chunks twice under the chunk's checkpoint; 0:
+    the whole logits once), and the clip's norm, a step."""
+    from kubeflow_tpu_torch.models.layers import tensor_leaf_dims
+
+    split = tensor_leaf_dims(model, size)
+    tables = sum(1 for n in split if n.endswith("emb.embedding"))
+    head = "head.kernel" in split or "mlm_out.kernel" in split
+    loss = 2 * (2 * chunks if chunks else 1)
+    return steps * (model.cfg.num_layers * (4 + 2 * remat) + tables
+                    + head * (1 + loss) + 1)
+
+
+def phase_tensor(torch, gang, device="cuda", ref=None):
+    """Phase 25: 25a gpt_small on `{tensor: 2}`, 25b on `{data: 2,
+    tensor: 2}` and 25c bert_base on `{tensor: 2}` (gloo ranks on the one
+    card; `gang`: phase_gangs' "tensor" entry) against world 1 in this
+    process (`ref`: phase 23's world-1 record, used for a cell it ran) →
+    {cell: each flash kernel's launches over its ranks}."""
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    t25 = time.monotonic()
+    cuda = device == "cuda"
+    smi = smi_line() if cuda else "the CPU"
+    root, plan, reports = gang
+    launches = {}
+    one = ref
+    for (cfg, opts), reps, (tag, _, mesh) in zip(plan, reports,
+                                                 TENSOR_CELLS):
+        kwargs = opts.get("model_kwargs")
+        cell = world1_cell(cfg)
+        if one is None or one["cell"] != json.dumps([cell, kwargs],
+                                                    sort_keys=True):
+            one = None
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            res, tr, init, params = world1_run(torch, cell, device,
+                                               model_kwargs=kwargs)
+            one = world1_record(cell, kwargs, res, tr, init, params,
+                                torch.cuda.max_memory_allocated()
+                                if cuda else 0)
+            del tr, res, init, params
+        size = mesh["tensor"]
+        # the world-1 model's shapes: the trainer builds it at seq_len
+        whole = get_model(cfg["model"], device="meta", **(kwargs or {}),
+                          **({"max_len": cfg["seq_len"]}
+                             if cfg.get("seq_len") else {}))
+        want_bytes = tensor_param_bytes(whole, size)
+        layers = one["mcfg"].num_layers
+        steps, remat = cfg["steps"], bool(cfg.get("remat"))
+        chunk = cfg.get("loss_chunk", 0)
+        chunks = -(-cfg["seq_len"] // chunk) if chunk else 0
+        want_ar = tensor_allreduces(whole, size, steps, remat, chunks)
+        want = {"flash_fwd": steps * layers * (1 + remat),
+                "flash_bwd_dq": steps * layers,
+                "flash_bwd_dkv": steps * layers}
+        losses = [loss for _, loss in reps[0]["result"]["losses"]]
+        gap = max(_rel(x, y) for x, y in zip(losses, one["losses"]))
+        same = all(rep["replicated"] == reps[0]["replicated"]
+                   for rep in reps)
+        gate, held = update_gate(torch.load(
+            f"{opts['out']}.0.pt", map_location=device)["params"],
+            one["params"], one["init"])
+        got_bytes = [rep["bytes"]["params"] for rep in reps]
+        got_opt = [rep["bytes"]["optimizer"] for rep in reps]
+        got_ar = [rep["result"].get("tensor_collectives", {}).get(
+            "all_reduce") for rep in reps]
+        got_buckets = [rep["result"]["grad_allreduces"] for rep in reps]
+        whole_bytes = one["bytes"]["params"]
+        print(f"tensor {tag} ({smi}): {cfg['model']} {cfg['dtype']} seq "
+              f"{cfg['seq_len']} global batch {cfg['global_batch_size']} "
+              f"{layers} layers on mesh {mesh}: losses {losses} against "
+              f"world 1's {one['losses']} (worst rel {gap:.3e}, bound "
+              f"{GANG_LOSS_REL:g}); replicated leaves equal across the "
+              f"ranks: {same}; rank 0's joined {gate}; parameter bytes a "
+              f"rank {got_bytes} (formula {want_bytes}; world 1's "
+              f"{whole_bytes}, {want_bytes / whole_bytes:.4f}x), optimizer "
+              f"bytes {got_opt} (world 1's {one['bytes']['optimizer']}); "
+              f"max_memory_allocated a rank "
+              f"{[rep['max_memory_allocated'] for rep in reps]} B against "
+              f"world 1's {one['peak']} B; flash launches a rank "
+              f"{[rep['launches'] for rep in reps]} (formula {want}); "
+              f"tensor all-reduces a rank {got_ar} (formula {want_ar}, "
+              f"{want_ar // steps} a step); bucket all-reduces "
+              f"{got_buckets} (formula {steps}); step ms a rank "
+              f"{[rep['result']['step_time_s'] * 1e3 for rep in reps]} (a "
+              f"record, not a speed: the ranks share the card and gloo "
+              f"stages each collective through the host)", flush=True)
+        if any(rep["result"]["losses"] != reps[0]["result"]["losses"]
+               for rep in reps):
+            raise AssertionError(f"{tag}: the ranks' losses differ")
+        if len(losses) != steps or not gap <= GANG_LOSS_REL:
+            raise AssertionError(f"{tag}: losses {losses} vs "
+                                 f"{one['losses']}")
+        if not same:
+            raise AssertionError(f"{tag}: the ranks' replicated leaves "
+                                 f"differ")
+        if not held:
+            raise AssertionError(f"{tag}: rank 0's {gate}")
+        if got_bytes != [want_bytes] * len(reps) or \
+                got_opt != [2 * want_bytes] * len(reps):
+            raise AssertionError(f"{tag}: bytes a rank {got_bytes}, "
+                                 f"{got_opt} != {want_bytes} (x2)")
+        if got_ar != [want_ar] * len(reps) or \
+                got_buckets != [steps] * len(reps):
+            raise AssertionError(f"{tag}: all-reduces {got_ar}, "
+                                 f"{got_buckets} != {want_ar}, {steps}")
+        launches[tag] = {name: 0 for name in fa.launch_counts}
+        for rep in reps:
+            if cuda and rep["launches"] != want:
+                raise AssertionError(f"{tag}: rank {rep['rank']} launches "
+                                     f"{rep['launches']} != {want}")
+            for name, count in rep["launches"].items():
+                launches[tag][name] += count
+    del one
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"phase 25: {time.monotonic() - t25:.3f} s; flash launches "
+          f"{launches}", flush=True)
+    return launches
 
 
 # -- phase 24: the serving mesh ------------------------------------------------
@@ -5998,39 +6235,43 @@ def phase_serving_mesh(torch, gang, refs=None, device="cuda"):
 
 
 def phase_gangs(torch, root, device="cuda", data=None, seq=None,
-                expert=None, pipeline=None, fsdp=None, serve=None):
-    """The gang runs of phases 17c and 19-24, before the phases read them.
-    One pair of rank processes runs 17c's two cells, 19a, 19b, 24a, 24b
-    and 20b in turn, one quartet 21a, 21b, 23a, 23b, 24c, 24d and 20a (a
-    rank process's start costs ~20 s, more than a cell's steps; 20a and
-    20b last, whose processes kept ~1.9 GB allocated after their runs,
-    which would read in the others' peaks). The pair and the quartet run
-    at once (their ranks share the card and the host: the arithmetic and
-    the memory, not the speed). `data`, `seq`, `expert`, `pipeline`,
-    `fsdp`, `serve`: the keyword arguments of that phase's plan
-    (`data_plan`, `sequence_plan`, `expert_plan`, `pipeline_plan`,
-    `fsdp_plan`, `serve_plan`; {} for none), or None to leave its cells
-    out. → {"data" | "seq" | "expert" | "pipeline" | "fsdp" | "serve":
-    (its directory, its plan, its runs' reports in plan order, each the
-    ranks' reports in rank order)}, the `gang` of phase_gang_two_ranks,
-    phase_sequence, phase_expert, phase_pipeline, phase_fsdp and
-    phase_serving_mesh."""
+                expert=None, pipeline=None, fsdp=None, serve=None,
+                tensor=None):
+    """The gang runs of phases 17c and 19-25, before the phases read them.
+    One pair of rank processes runs 17c's two cells, 19a, 19b, 24a, 24b,
+    25a, 25c and 20b in turn, one quartet 21a, 21b, 23a, 23b, 24c, 24d,
+    25b and 20a (a rank process's start costs ~20 s, more than a cell's
+    steps; 20a and 20b last, whose processes kept ~1.9 GB allocated after
+    their runs, which would read in the others' peaks). The pair and the
+    quartet run at once (their ranks share the card and the host: the
+    arithmetic and the memory, not the speed). `data`, `seq`, `expert`,
+    `pipeline`, `fsdp`, `serve`, `tensor`: the keyword arguments of that
+    phase's plan (`data_plan`, `sequence_plan`, `expert_plan`,
+    `pipeline_plan`, `fsdp_plan`, `serve_plan`, `tensor_plan`; {} for
+    none), or None to leave its cells out. → {"data" | "seq" | "expert" |
+    "pipeline" | "fsdp" | "serve" | "tensor": (its directory, its plan,
+    its runs' reports in plan order, each the ranks' reports in rank
+    order)}, the `gang` of phase_gang_two_ranks, phase_sequence,
+    phase_expert, phase_pipeline, phase_fsdp, phase_serving_mesh and
+    phase_tensor."""
     plans = {}
     for name, fn, kw in (("data", data_plan, data),
                          ("seq", sequence_plan, seq),
                          ("expert", expert_plan, expert),
                          ("pipeline", pipeline_plan, pipeline),
                          ("fsdp", fsdp_plan, fsdp),
-                         ("serve", serve_plan, serve)):
+                         ("serve", serve_plan, serve),
+                         ("tensor", tensor_plan, tensor)):
         if kw is not None:
             os.makedirs(os.path.join(root, name))
             plans[name] = (os.path.join(root, name),
                            list(fn(os.path.join(root, name), **kw)))
     # (gang, world, [(phase, its plan's runs)]) in run order
     layout = (("two", 2, [("data", slice(0, 2)), ("seq", slice(0, 2)),
-                          ("serve", slice(0, 2)), ("expert", slice(1, 2))]),
+                          ("serve", slice(0, 2)), ("tensor", slice(0, 3, 2)),
+                          ("expert", slice(1, 2))]),
               ("four", 4, [("pipeline", slice(0, 3)), ("fsdp", slice(0, 2)),
-                           ("serve", slice(2, 4)),
+                           ("serve", slice(2, 4)), ("tensor", slice(1, 2)),
                            ("expert", slice(0, 1))]))
     reports = {name: [None] * len(plan) for name, (_, plan) in plans.items()}
     started = []
@@ -6533,12 +6774,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     clock.lap("phases 14-18")
     with tempfile.TemporaryDirectory(prefix="kft-gangs-") as root:
-        # the gangs of phases 17c and 19-24 run first (the pair and the
+        # the gangs of phases 17c and 19-25 run first (the pair and the
         # quartet at once); each phase then runs its world 1 and its gates
         # on its gang's reports
         gangs = phase_gangs(torch, root, data={}, seq={}, expert={},
-                            pipeline={}, fsdp={}, serve={})
-        clock.lap("the gangs of phases 17c and 19-24")
+                            pipeline={}, fsdp={}, serve={}, tensor={})
+        clock.lap("the gangs of phases 17c and 19-25")
         # 17c: two data-parallel ranks on the one card over gloo
         phase_gang_two_ranks(torch, gangs["data"])
         torch.cuda.empty_cache()
@@ -6567,7 +6808,13 @@ def main() -> int:
         pp_launches = phase_pipeline(torch, gangs["pipeline"])
         torch.cuda.empty_cache()
         # this slice's path: the fsdp axis (23a, 23b; 23c beside them)
-        fsdp_launches = phase_fsdp(torch, gangs["fsdp"])
+        fsdp_ref = {}
+        fsdp_launches = phase_fsdp(torch, gangs["fsdp"], ref=fsdp_ref)
+        torch.cuda.empty_cache()
+        # this slice's path: the tensor axis (25a, 25b, 25c; 25a and 25b
+        # against 23's world 1, the same cell)
+        tp_launches = phase_tensor(torch, gangs["tensor"], ref=fsdp_ref)
+        del fsdp_ref
         torch.cuda.empty_cache()
         # this slice's path: the serving mesh (24a-24d), each cell against
         # its 1×1 reference run above
@@ -6593,6 +6840,12 @@ def main() -> int:
             if rec["fsdp_launches"] < 1:
                 raise AssertionError(f"the fsdp path never launched "
                                      f"{rec['name']}")
+        if rec["name"] in tp_launches["25a"]:
+            rec["tp_launches"] = {cell: counts[rec["name"]]
+                                  for cell, counts in tp_launches.items()}
+            if min(rec["tp_launches"]["25a"], rec["tp_launches"]["25b"]) < 1:
+                raise AssertionError(f"the tensor-parallel path never "
+                                     f"launched {rec['name']}")
         if rec["name"].startswith("paged_"):
             rec["mesh_launches"] = {
                 cell: rep["launches"][rec["name"]]
@@ -6611,7 +6864,7 @@ def main() -> int:
             if rec["job_launches"] < 1:
                 raise AssertionError(f"the job path never launched "
                                      f"{rec['name']}")
-    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-24, "
+    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-25, "
           f"after the interpreter's start)", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

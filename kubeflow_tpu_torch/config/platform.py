@@ -60,17 +60,22 @@ _UNPORTED_SERVING_FIELDS = {
 }
 
 MESH_AXES = ("data", "fsdp", "tensor", "pipeline", "sequence", "expert")
-# mesh axes above 1 the port does not run yet, and their ROADMAP items
-_UNPORTED_MESH_AXES = {
-    "tensor": "A13 item 2 (tensor parallelism)",
-}
-# pairs of axes each ported alone that the port does not run together yet
+# pairs of axes (each ported alone) that the port does not run together
+# yet, and their ROADMAP items
 _UNPORTED_MESH_PAIRS = {
     ("pipeline", "sequence"): "A13 item 7 (pipeline × sequence)",
     ("fsdp", "sequence"): "A13 item 8 (fsdp with the other axes)",
     ("fsdp", "expert"): "A13 item 8 (fsdp with the other axes)",
     ("fsdp", "pipeline"): "A13 item 8 (fsdp with the other axes)",
+    ("tensor", "fsdp"): "A13 item 9 (tensor with the other axes)",
+    ("tensor", "sequence"): "A13 item 9 (tensor with the other axes)",
+    ("tensor", "expert"): "A13 item 9 (tensor with the other axes)",
+    ("tensor", "pipeline"): "A13 item 9 (tensor with the other axes)",
 }
+# the models whose tensor-split leaves (conv_out, the classifier head)
+# the port's trainer does not hold as blocks yet
+_TENSOR_IMAGE_MODELS = ("resnet", "mlp")
+_TENSOR_IMAGE_ITEM = "A13 item 10 (the image models under the tensor axis)"
 PIPELINE_SCHEDULES = ("gpipe", "1f1b")
 
 DTYPES = ("float32", "bfloat16")
@@ -166,9 +171,9 @@ class MeshConfig:
     fields and check). The product of the axes is the gang's device
     count: one process per rank, one card a process
     (parallel/mesh.py `build_mesh` checks it against the world size).
-    The port runs the `data`, `sequence`, `expert` and `pipeline` axes
-    (a pipeline axis with a sequence axis is refused); any other axis
-    above 1 raises naming the ROADMAP item it waits for."""
+    The port runs every axis alone; a pair it does not run together
+    (`_UNPORTED_MESH_PAIRS`: pipeline × sequence, fsdp or tensor beside
+    another model axis) raises naming the ROADMAP item it waits for."""
 
     data: int = 1
     fsdp: int = 1
@@ -186,10 +191,6 @@ class MeshConfig:
             if not isinstance(v, int) or v < 1:
                 raise ConfigError(
                     f"mesh.{axis} must be a positive int, got {v!r}")
-        for axis, item in _UNPORTED_MESH_AXES.items():
-            if getattr(self, axis) > 1:
-                raise ConfigError(f"mesh.{axis} > 1 is not ported yet: "
-                                  f"ROADMAP {item}")
         for (a, b), item in _UNPORTED_MESH_PAIRS.items():
             if getattr(self, a) > 1 and getattr(self, b) > 1:
                 raise ConfigError(f"mesh.{a} > 1 with mesh.{b} > 1 is not "
@@ -516,6 +517,11 @@ class TrainingConfig:
             if self.seq_len % sp:
                 raise ConfigError(f"seq_len {self.seq_len} not divisible by "
                                   f"the sequence mesh axis {sp}")
+        if self.mesh.tensor > 1 and self.model.startswith(
+                _TENSOR_IMAGE_MODELS):
+            raise ConfigError(
+                f"mesh.tensor > 1 with model {self.model!r} is not ported "
+                f"yet: ROADMAP {_TENSOR_IMAGE_ITEM}")
         ep = self.mesh.expert
         if ep > 1:
             experts = _num_experts(self.model)

@@ -63,6 +63,16 @@ holds only its stage's layers under their flat names, the embeddings
 (`tok_emb`, `pos_emb`, `seg_emb`, `ln_emb`) on stage 0 and the MLM and
 next-sentence heads on the last stage, for the training step's schedule
 (`embed`, `stage`, `heads`).
+
+Built with `tensor=` (a `TensorShard` of the tensor mesh axis) the model
+holds each leaf whose spec names `tensor` as this rank's block, never
+gathered (models/layers.py `shard_tensor`), as models/gpt.py does: the
+attention column-parallel over heads with `out` row-parallel, `mlp/wi`
+column- and `mlp/wo` row-parallel, `mlm_out` vocab-split (its logits
+this rank's columns, for training/tasks.py's vocab-parallel loss), and
+the `tok_emb`, `pos_emb` and `seg_emb` tables split on their rows and
+looked up by mask (bert_base's 2-row `seg_emb` a row a rank at tensor
+2). Both dropout sites follow a row-parallel sum.
 """
 
 from __future__ import annotations
@@ -90,6 +100,8 @@ from kubeflow_tpu_torch.models.layers import (
     model_device,
     remat as remat_fn,
     shard_fsdp,
+    shard_tensor,
+    tensor_copy,
     whole_leaf_shape,
     whole_model,
 )
@@ -179,6 +191,9 @@ class SelfAttention(nn.Module):
 
     def forward(self, x, call: _Call):
         dtype = self.cfg.dtype
+        # on a tensor axis q, k and v are this rank's heads and `out` sums
+        # their partial products (before the dropout: a replicated site)
+        x = tensor_copy(self.query, x)
         q, k, v = self.query(x), self.key(x), self.value(x)
         if call.impl == "flash":
             out = flash_attention(q, k, v, mask=call.mask).to(dtype)
@@ -202,6 +217,7 @@ class Mlp(nn.Module):
         self.wo = Dense((cfg.mlp_dim,), (cfg.hidden_size,), cfg.dtype)
 
     def forward(self, x, call: _Call):
+        x = tensor_copy(self.wi, x)
         h = self.wo(F.gelu(self.wi(x), approximate="tanh"))
         return dropout(h, self.cfg.dropout_rate, call.generator,
                        not call.train)
@@ -312,11 +328,13 @@ class Bert(nn.Module):
     LAST_STAGE = ("mlm_transform", "mlm_ln", "mlm_out", "pooler", "nsp_out")
 
     def __init__(self, cfg: BertConfig, *, device: DeviceLike = None,
-                 seed: int = 0, expert=None, pipeline=None, fsdp=None):
+                 seed: int = 0, expert=None, pipeline=None, fsdp=None,
+                 tensor=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.expert, self.pipeline, self.fsdp = expert, pipeline, None
+        self.expert, self.pipeline = expert, pipeline
+        self.fsdp = self.tensor = None
         d = cfg.hidden_size
         if pipeline is None or pipeline.first:
             self.tok_emb = Embed(cfg.vocab_size, d, cfg.dtype)
@@ -333,6 +351,7 @@ class Bert(nn.Module):
             self.pooler = Dense((d,), (d,), cfg.dtype)
             self.nsp_out = Dense((d,), (2,), torch.float32)
         shard_fsdp(self, fsdp)
+        shard_tensor(self, tensor)
         if dev.type != "meta":  # a meta model has shapes only
             init_params(self, seed)
         self.to(dev)
@@ -460,7 +479,8 @@ class Bert(nn.Module):
         """The last stage: the MLM and next-sentence heads on the final
         hidden states (`forward`'s dict)."""
         h = F.gelu(self.mlm_transform(x), approximate="tanh")
-        logits = self.mlm_out(self.mlm_ln(h)).float()
+        logits = self.mlm_out(tensor_copy(self.mlm_out,
+                                          self.mlm_ln(h))).float()
         pooled = torch.tanh(self.pooler(x[:, 0]))
         return {"mlm_logits": logits, "nsp_logits": self.nsp_out(pooled),
                 "pooled": pooled}
@@ -475,9 +495,10 @@ def _build(defaults: dict, kwargs: dict) -> Bert:
     expert = kwargs.pop("expert", None)
     pipeline = kwargs.pop("pipeline", None)
     fsdp = kwargs.pop("fsdp", None)
+    tensor = kwargs.pop("tensor", None)
     cfg = BertConfig(**{**defaults, **kwargs})
     return Bert(cfg, device=device, seed=seed, expert=expert,
-                pipeline=pipeline, fsdp=fsdp)
+                pipeline=pipeline, fsdp=fsdp, tensor=tensor)
 
 
 @register_model("bert_base")

@@ -33,11 +33,12 @@ it, `params_to_jax(sd, layout=StageLayout(...))` writes it, and
 `load_jax_params` loads a flax tree into a model in place; a model
 built for one expert-axis rank (models/layers.py `MoeMlp`'s `expert`)
 keeps its block of each whole [E, ...] expert stack, a model built for
-one fsdp rank (`fsdp=`, models/layers.py `shard_fsdp`) its block of each
-fsdp leaf, and a model built for one pipeline stage keeps its stage's
-layers (and the model-level leaves its stage holds). `params_to_jax` of
-`models/layers.py join_fsdp_blocks` of every fsdp rank's state dict is
-the whole tree again.
+one fsdp or tensor rank (`fsdp=`, `tensor=`; models/layers.py
+`shard_fsdp`, `shard_tensor`) its block of each fsdp or tensor leaf, and
+a model built for one pipeline stage keeps its stage's layers (and the
+model-level leaves its stage holds). `params_to_jax` of
+`models/layers.py join_blocks` of every fsdp (or tensor) rank's state
+dict is the whole tree again.
 
 `params_to_jax` is the inverse of `params_from_jax`: a state dict → a
 flat `{flax path: np.ndarray}` ('/'-joined, e.g.
@@ -259,7 +260,8 @@ def load_jax_params(model: torch.nn.Module, params: Mapping) -> None:
     """Copy flax params into `model` in place (strict: every name must
     match both ways). A model built for an expert block (`expert=`)
     takes its block of each whole [E, ...] stack, one built for an fsdp
-    rank (`fsdp=`) its block of each fsdp leaf."""
+    or a tensor rank (`fsdp=`, `tensor=`) its block of each fsdp or
+    tensor leaf."""
     from kubeflow_tpu_torch.models.layers import held_blocks
 
     sd = held_blocks(model, params_from_jax(params))

@@ -67,6 +67,20 @@ JAX package), the head's kernel on its embed dim. Each block is gathered
 at its use (models/layers.py `at_use`, `shard_fsdp`); the seeded init
 draws every whole leaf as world 1 does and keeps the block.
 
+Built with `tensor=` (a `TensorShard` of the tensor mesh axis) the model
+holds each leaf whose spec names `tensor` as this rank's block, never
+gathered (models/layers.py `shard_tensor`): `query`, `key` and `value`
+are column-parallel over the heads, so a rank's attention (flash, dense,
+or "auto", decided at the whole head count as world 1 decides it) runs
+on its H/t heads, `out` and `mlp_wo` are row-parallel (their partial
+products summed over the tensor group, the bias added once), `mlp_wi`
+is column-parallel, an MoE block's stacks hold their mlp block, the
+tables and the head are vocab-split where the axis divides their rows
+(gpt_tiny's 512; gpt_small's 50,257 stay whole, by the JAX degradation
+rule), the head's logits this rank's columns for a vocab-parallel loss
+(training/tasks.py). Every dropout site sits after a row-parallel sum,
+on the replicated stream, so every tensor rank draws world 1's masks.
+
 With `cfg.pipeline_stages > 1` (the JAX `PipelinedDecoder`) the blocks
 form stages of L/S consecutive layers. Built without `pipeline` the model
 holds them all and `forward` runs the microbatches through the stages in
@@ -115,6 +129,8 @@ from kubeflow_tpu_torch.models.layers import (
     model_device,
     remat as remat_fn,
     shard_fsdp,
+    shard_tensor,
+    tensor_copy,
     whole_model,
 )
 from kubeflow_tpu_torch.models.registry import register_model
@@ -449,6 +465,9 @@ class CausalSelfAttention(nn.Module):
         self.out = Dense((h, hd), (d,), cfg.dtype)
 
     def forward(self, x, ctx, layer: int):
+        # on a tensor axis q, k and v are this rank's heads (column
+        # blocks) and `out` sums the heads' partial products (a row block)
+        x = tensor_copy(self.query, x)
         q, k, v = self.query(x), self.key(x), self.value(x)
         return self.out(ctx.attend(layer, q, k, v))
 
@@ -495,6 +514,7 @@ class DecoderBlock(nn.Module):
         if self.routed:
             return x + self.moe(h, ctx.moe, ctx.dropout_gen, ctx.train,
                                 ctx.seq)
+        h = tensor_copy(self.mlp_wi, h)
         h = self.mlp_wo(F.gelu(self.mlp_wi(h), approximate="tanh"))
         return x + dropout(h, self.dropout_rate, ctx.dropout_gen, not ctx.train)
 
@@ -546,11 +566,13 @@ class Gpt(nn.Module):
     LAST_STAGE = ("ln_final", "head")
 
     def __init__(self, cfg: GptConfig, *, device: DeviceLike = None,
-                 seed: int = 0, expert=None, pipeline=None, fsdp=None):
+                 seed: int = 0, expert=None, pipeline=None, fsdp=None,
+                 tensor=None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.expert, self.pipeline, self.fsdp = expert, pipeline, None
+        self.expert, self.pipeline = expert, pipeline
+        self.fsdp = self.tensor = None
         first = pipeline is None or pipeline.first
         last = pipeline is None or pipeline.last
         if first:
@@ -568,6 +590,7 @@ class Gpt(nn.Module):
         # "int8" once `int8_model` has loaded an envelope
         self.quantize = "none"
         shard_fsdp(self, fsdp)
+        shard_tensor(self, tensor)
         if dev.type != "meta":  # a meta model has shapes only
             init_params(self, seed)
         self.to(dev)
@@ -675,7 +698,13 @@ class Gpt(nn.Module):
                 "microbatch schedule)")
         ctx.moe = moe
         x = self._hidden(input_ids, positions, ctx)
-        return self.head(x.to(self.cfg.dtype)).float()
+        return self._logits(x)
+
+    def _logits(self, x):
+        """f32 logits of f32 hidden states: the head in the compute dtype
+        (this rank's vocab columns when the head is vocab-split)."""
+        return self.head(tensor_copy(self.head, x.to(self.cfg.dtype))
+                         ).float()
 
     def _causal(self, mask, b: int, s: int, device, dropout_generator,
                 moe) -> _Causal:
@@ -709,7 +738,7 @@ class Gpt(nn.Module):
         x = self._hidden(input_ids, positions, ctx, remat=remat)
         if return_hidden:
             return x
-        return self.head(x.to(self.cfg.dtype)).float()
+        return self._logits(x)
 
     # -- a pipeline stage's parts (training/trainer.py runs them) ------------
 
@@ -737,7 +766,7 @@ class Gpt(nn.Module):
         x = self.ln_final(x)
         if return_hidden:
             return x
-        return self.head(x.to(self.cfg.dtype)).float()
+        return self._logits(x)
 
     def new_slot_cache(self, batch: int) -> SlotCache:
         cfg = self.cfg
@@ -1023,9 +1052,10 @@ def _build(defaults: dict, kwargs: dict) -> Gpt:
     expert = kwargs.pop("expert", None)
     pipeline = kwargs.pop("pipeline", None)
     fsdp = kwargs.pop("fsdp", None)
+    tensor = kwargs.pop("tensor", None)
     cfg = GptConfig(**{**defaults, **kwargs})
     return Gpt(cfg, device=device, seed=seed, expert=expert,
-               pipeline=pipeline, fsdp=fsdp)
+               pipeline=pipeline, fsdp=fsdp, tensor=tensor)
 
 
 @register_model("gpt_small")

@@ -21,6 +21,15 @@ recompute gathers again), the cast to the compute dtype comes after the
 gather, and the gather's backward reduce-scatters the f32 gradient back
 to the block. A module without blocks reads its leaves as before.
 
+On a tensor axis (`shard_tensor`, with this rank's `TensorShard`) a
+module holds each leaf whose spec names `tensor` as its block along
+that dim (`_tensor_dims`), and never gathers it: `Dense` runs column-
+or row-parallel by the dim its kernel is split on, `Embed` looks up a
+vocab-split table's rows by mask, `MoeMlp` runs its stacks' mlp block.
+The replicated activation enters the column blocks through
+`tensor_copy` (once for all the products that read it), and a row
+block's partial output is summed over the tensor group before its bias.
+
 `dropout` keeps flax's semantics, keep with probability 1 - rate and
 `where(keep, x / (1 - rate), 0)`, and draws its keep mask from an
 explicit `torch.Generator` on x's device (`F.dropout` takes none), so a
@@ -201,7 +210,15 @@ class Dense(nn.Module):
     (two roundings, as the flax module does). The product is
     `row_stable_matmul`: on the CPU a row's bits do not depend on how
     many rows the call folds together (a decode step's row equals the
-    same row of a verify window)."""
+    same row of a verify window).
+
+    On a tensor axis (`shard_tensor`) the kernel is this rank's block:
+    split on an output dim it is column-parallel (the bias is split
+    alike; x, replicated, entered through `tensor_copy` upstream, and
+    the output is this rank's columns), split on an input dim it is
+    row-parallel (x is this rank's block of those dims; the partial
+    product is summed over the tensor group, then the replicated bias is
+    added once, in the compute dtype)."""
 
     def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
                  dtype, use_bias: bool = True):
@@ -220,11 +237,15 @@ class Dense(nn.Module):
     def forward(self, x):
         n_in = len(self.in_shape)
         lead = x.shape[: x.dim() - n_in]
-        w = at_use(self, "kernel", self.dtype).to(self.dtype).reshape(
-            math.prod(self.in_shape), math.prod(self.out_shape)
-        )
+        w = at_use(self, "kernel", self.dtype).to(self.dtype)
+        out_shape = tuple(w.shape[n_in:])
+        w = w.reshape(math.prod(w.shape[:n_in]), math.prod(out_shape))
         y = row_stable_matmul(x.to(self.dtype).reshape(lead + (-1,)),
-                              w).reshape(lead + self.out_shape)
+                              w).reshape(lead + out_shape)
+        dim = self.__dict__.get("_tensor_dims", {}).get("kernel")
+        if dim is not None and dim < n_in:
+            # row-parallel: the partial products summed over the group
+            y = self.tensor.reduce(y)
         if self.bias is not None:
             y = y + at_use(self, "bias", self.dtype).to(self.dtype)
         return y
@@ -284,7 +305,11 @@ class Embed(nn.Module):
     """flax Embed(dtype=...): `embedding` [num, dim] (f32 at rest); a
     lookup returns the rows in the compute dtype. A table of at most
     SMALL_TABLE_ROWS rows takes a reproducible gradient
-    (`_SmallTableLookup`)."""
+    (`_SmallTableLookup`; its rows are the rank's block's on a tensor
+    axis). A table split over a tensor axis on its rows (`shard_tensor`)
+    looks up the ids in this rank's block, zeroes the rows of every other
+    id and sums the lookups over the tensor group (one row and zeros: the
+    whole table's lookup, bit for bit)."""
 
     def __init__(self, num: int, dim: int, dtype):
         super().__init__()
@@ -300,10 +325,21 @@ class Embed(nn.Module):
                                    self.dtype)
         # an fsdp block of rows is gathered into the whole table first
         table = at_use(self, "embedding", self.dtype)
+        mine = None
+        if "embedding" in self.__dict__.get("_tensor_dims", {}):
+            first, n = self.tensor.block(table.shape[0] * self.tensor.size)
+            ids = ids - first
+            mine = (ids >= 0) & (ids < n)
+            ids = torch.where(mine, ids, torch.zeros_like(ids))
         # gather then cast == flax's cast-table-then-gather, bit for bit
         if table.shape[0] <= SMALL_TABLE_ROWS:
-            return _SmallTableLookup.apply(ids, table).to(self.dtype)
-        return F.embedding(ids, table).to(self.dtype)
+            rows = _SmallTableLookup.apply(ids, table)
+        else:
+            rows = F.embedding(ids, table)
+        if mine is None:
+            return rows.to(self.dtype)
+        rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+        return self.tensor.reduce(rows.to(self.dtype))
 
 
 @dataclasses.dataclass
@@ -419,7 +455,13 @@ class MoeMlp(nn.Module):
     slots in global token order), keeps its own columns of dispatch and
     combine and runs the experts on its own tokens. The whole row's load-balance
     sums are then equal on every sequence rank: sequence rank 0 alone
-    reports them (as it alone counts BERT's next-sentence rows)."""
+    reports them (as it alone counts BERT's next-sentence rows).
+
+    On a tensor axis (`shard_tensor`) the stacks hold this rank's block
+    of their `mlp` dim ([E, D, F/t], [E, F/t, D]); every rank routes
+    alike, x enters the blocks through `copy_to_group` and the experts'
+    partial outputs [E, B, C, D] are summed over the tensor group before
+    the combine, so the combine's gradient is whole on every rank."""
 
     def __init__(self, dim: int, mlp_dim: int, num_experts: int, dtype,
                  top_k: int = 1, capacity_factor: float = 1.25,
@@ -482,12 +524,17 @@ class MoeMlp(nn.Module):
                                                                   group)
             block = slice(self.first, self.first + self.wi.shape[0])
             dispatch, combine = dispatch[:, :, block], combine[:, :, block]
+        split = "wi" in self.__dict__.get("_tensor_dims", {})
+        if split:
+            xe = self.tensor.copy(xe)
         expert_in = torch.einsum("bsec,bsd->ebcd", dispatch, xe)
         h = torch.einsum("ebcd,edf->ebcf", expert_in,
                          cast(at_use(self, "wi", self.dtype)))
         h = F.gelu(h, approximate="tanh")
         out_e = torch.einsum("ebcf,efd->ebcd", h,
                              cast(at_use(self, "wo", self.dtype)))
+        if split:
+            out_e = self.tensor.reduce(out_e)
         y = torch.einsum("bsec,ebcd->bsd", combine, out_e)
         if self.expert is not None:
             y = reduce_from_group(y, group)
@@ -516,36 +563,46 @@ class MoeMlp(nn.Module):
         return dropout(y, self.dropout_rate, generator, not train)
 
 
+# the axes a module may hold a leaf's block on, by its attributes: the
+# {leaf: dim} map and the shard (models hold at most one of them a leaf)
+_BLOCK_AXES = (("_fsdp_dims", "fsdp"), ("_tensor_dims", "tensor"))
+
+
+def _block_dims(module: nn.Module, leaf: str):
+    """[(dim, shard)] of the axes `module` holds leaf `leaf`'s block on."""
+    return [(dims[leaf], getattr(module, shard))
+            for attr, shard in _BLOCK_AXES
+            if leaf in (dims := module.__dict__.get(attr, {}))]
+
+
 def whole_leaf_shape(module: nn.Module, leaf: str) -> Tuple[int, ...]:
     """The whole shape of parameter `leaf` of `module`: its own, an
-    expert stack's [E, ...], an fsdp block's whole leaf's."""
+    expert stack's [E, ...], an fsdp or a tensor block's whole leaf's."""
     shape = list(module.stack_shape(leaf) if isinstance(module, MoeMlp)
                  else getattr(module, leaf).shape)
-    dim = module.__dict__.get("_fsdp_dims", {}).get(leaf)
-    if dim is not None:
-        shape[dim] *= module.fsdp.size
+    for dim, shard in _block_dims(module, leaf):
+        shape[dim] *= shard.size
     return tuple(shape)
 
 
 def held_block(module: nn.Module, leaf: str,
                whole: torch.Tensor) -> torch.Tensor:
     """The block of a whole value of parameter `leaf` that `module` holds:
-    its expert block of a stack, its fsdp block along the leaf's dim, or
-    the value itself."""
+    its expert block of a stack, its fsdp or tensor block along the
+    leaf's dim, or the value itself."""
     if isinstance(module, MoeMlp):
         whole = module.block_of(leaf, whole)
-    dim = module.__dict__.get("_fsdp_dims", {}).get(leaf)
-    if dim is not None:
-        first, n = module.fsdp.block(whole.shape[dim])
+    for dim, shard in _block_dims(module, leaf):
+        first, n = shard.block(whole.shape[dim])
         whole = whole.narrow(dim, first, n)
     return whole
 
 
 def draw_value(module: nn.Module, leaf: str, draw) -> torch.Tensor:
     """`draw(shape)` for parameter `leaf` of `module`: a sharded leaf (an
-    expert stack of a sharded `MoeMlp`, an fsdp block) draws its whole
-    value and keeps this rank's block, so a seeded init gives world 1's
-    weights whatever the expert and fsdp axes."""
+    expert stack of a sharded `MoeMlp`, an fsdp or a tensor block) draws
+    its whole value and keeps this rank's block, so a seeded init gives
+    world 1's weights whatever the expert, fsdp and tensor axes."""
     return held_block(module, leaf, draw(whole_leaf_shape(module, leaf)))
 
 
@@ -558,14 +615,45 @@ def sharded_stacks(model: nn.Module) -> Dict[str, Tuple[MoeMlp, str]]:
             for leaf in EXPERT_STACKS}
 
 
+def _held_leaves(model: nn.Module, attr: str
+                 ) -> Dict[str, Tuple[nn.Module, str, int]]:
+    """{parameter name: (its module, leaf, dim)} of the blocks `model`
+    holds on one axis (`attr`: its modules' {leaf: dim} map)."""
+    out = {}
+    for name, module in model.named_modules():
+        for leaf, dim in module.__dict__.get(attr, {}).items():
+            out[f"{name}.{leaf}" if name else leaf] = (module, leaf, dim)
+    return out
+
+
 def fsdp_leaves(model: nn.Module) -> Dict[str, Tuple[nn.Module, str, int]]:
     """{parameter name: (its module, leaf, dim)} of the fsdp blocks
     `model` holds (empty off an fsdp axis)."""
-    out = {}
-    for name, module in model.named_modules():
-        for leaf, dim in module.__dict__.get("_fsdp_dims", {}).items():
-            out[f"{name}.{leaf}" if name else leaf] = (module, leaf, dim)
-    return out
+    return _held_leaves(model, "_fsdp_dims")
+
+
+def tensor_leaves(model: nn.Module) -> Dict[str, Tuple[nn.Module, str, int]]:
+    """{parameter name: (its module, leaf, dim)} of the tensor blocks
+    `model` holds (empty off a tensor axis)."""
+    return _held_leaves(model, "_tensor_dims")
+
+
+def held_leaves(model: nn.Module) -> Dict[str, Tuple[nn.Module, str, int]]:
+    """The fsdp and the tensor blocks `model` holds (`fsdp_leaves`,
+    `tensor_leaves`)."""
+    return {**fsdp_leaves(model), **tensor_leaves(model)}
+
+
+def _axis_leaf_dims(model: nn.Module, axis: str, size: int,
+                    fsdp_size: int = 1) -> Dict[str, int]:
+    from kubeflow_tpu_torch.parallel.sharding import axis_dim, param_specs
+    from kubeflow_tpu_torch.training.annotations import logical_axes_for
+
+    sizes = {axis: size}
+    specs = param_specs(logical_axes_for(model, fsdp_size=fsdp_size,
+                                         mesh_axis_sizes=sizes), mesh=sizes)
+    return {name: dim for name, spec in specs.items()
+            if (dim := axis_dim(spec, axis)) is not None}
 
 
 def fsdp_leaf_dims(model: nn.Module, size: int) -> Dict[str, int]:
@@ -574,14 +662,32 @@ def fsdp_leaf_dims(model: nn.Module, size: int) -> Dict[str, int]:
     trainer's `state_shardings`: `logical_to_spec(logical_axes_for(
     params, fsdp_size, mesh sizes))`, the fallback's largest divisible
     dim included; a dim the axis does not divide stays whole)."""
-    from kubeflow_tpu_torch.parallel.sharding import fsdp_dim, param_specs
-    from kubeflow_tpu_torch.training.annotations import logical_axes_for
+    return _axis_leaf_dims(model, "fsdp", size, fsdp_size=size)
 
-    sizes = {"fsdp": size}
-    specs = param_specs(logical_axes_for(model, fsdp_size=size,
-                                         mesh_axis_sizes=sizes), mesh=sizes)
-    return {name: dim for name, spec in specs.items()
-            if (dim := fsdp_dim(spec)) is not None}
+
+def tensor_leaf_dims(model: nn.Module, size: int) -> Dict[str, int]:
+    """{parameter name: the dim its spec splits over a tensor axis of
+    `size`} for the model's leaves whose spec names `tensor` (the rules'
+    heads, mlp, vocab and vocab_table dims; a dim the axis does not
+    divide stays whole: gpt_small's 50,257-row `tok_emb` and head)."""
+    return _axis_leaf_dims(model, "tensor", size)
+
+
+def _shard_leaves(model: nn.Module, shard, dims: Dict[str, int],
+                  attr: str, name: str) -> None:
+    """Hold each leaf of `dims` as `shard`'s block along its dim, noting
+    it in its module's `attr` map and the shard as the module's `name`."""
+    setattr(model, name, shard)
+    for key, dim in dims.items():
+        owner, _, leaf = key.rpartition(".")
+        module = model.get_submodule(owner)
+        p = getattr(module, leaf)
+        first, n = shard.block(p.shape[dim])
+        setattr(module, leaf, nn.Parameter(
+            p.detach().narrow(dim, first, n).clone(),
+            requires_grad=p.requires_grad))
+        module.__dict__.setdefault(attr, {})[leaf] = dim
+        setattr(module, name, shard)
 
 
 def shard_fsdp(model: nn.Module, fsdp) -> None:
@@ -590,59 +696,96 @@ def shard_fsdp(model: nn.Module, fsdp) -> None:
     None leaves the model as it is, bit for bit). Run on a model whose
     leaves are whole, before its init: `draw_value` then draws each whole
     leaf and keeps the block."""
-    if fsdp is None:
-        return
-    model.fsdp = fsdp
-    for name, dim in fsdp_leaf_dims(model, fsdp.size).items():
-        owner, _, leaf = name.rpartition(".")
-        module = model.get_submodule(owner)
-        p = getattr(module, leaf)
-        first, n = fsdp.block(p.shape[dim])
-        setattr(module, leaf, nn.Parameter(
-            p.detach().narrow(dim, first, n).clone(),
-            requires_grad=p.requires_grad))
-        module.__dict__.setdefault("_fsdp_dims", {})[leaf] = dim
-        module.fsdp = fsdp
+    if fsdp is not None:
+        _shard_leaves(model, fsdp, fsdp_leaf_dims(model, fsdp.size),
+                      "_fsdp_dims", "fsdp")
+
+
+def shard_tensor(model: nn.Module, tensor) -> None:
+    """Hold every leaf of `model` whose spec names `tensor` as this rank's
+    block along its dim (`tensor`: a `TensorShard` of the tensor mesh
+    axis; None leaves the model as it is, bit for bit), never gathered:
+    its `Dense` products turn column- or row-parallel, its `Embed` tables
+    vocab-split, its `MoeMlp` stacks split on their mlp dim. Run on a
+    model whose leaves are whole, before its init (`draw_value` draws
+    each whole leaf and keeps the block)."""
+    if tensor is not None:
+        _shard_leaves(model, tensor, tensor_leaf_dims(model, tensor.size),
+                      "_tensor_dims", "tensor")
+
+
+def tensor_copy(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """x (replicated) as it enters `module`'s column-parallel products:
+    `copy_to_group` over the tensor group (its cotangent is each rank's
+    share of the products' and is summed there), once for every product
+    that reads it; x itself when the module's kernel is not split on an
+    output dim (a whole head's cotangent is already whole)."""
+    dims = module.__dict__.get("_tensor_dims", {})
+    if "kernel" not in dims or dims["kernel"] < len(module.in_shape):
+        return x
+    return module.tensor.copy(x)
+
+
+def vocab_shard(module: Optional[nn.Module]
+                ) -> Optional[Tuple[object, int]]:
+    """(the TensorShard, this rank's first column) of a head `module`
+    (a `Dense` [D, V]) whose vocabulary is split over a tensor axis, or
+    None when its logits are whole (or there is no such module)."""
+    if module is None or "kernel" not in module.__dict__.get(
+            "_tensor_dims", {}):
+        return None
+    shard = module.tensor
+    return shard, shard.rank * module.kernel.shape[-1]
 
 
 def held_blocks(model: nn.Module, state_dict):
-    """A whole-model state dict (every [E, ...] stack and fsdp leaf whole,
-    as world 1 and the JAX package hold them) cut to the blocks `model`
-    holds."""
+    """A whole-model state dict (every [E, ...] stack, fsdp and tensor
+    leaf whole, as world 1 and the JAX package hold them) cut to the
+    blocks `model` holds."""
     out = dict(state_dict)
     owners = {key: (module, leaf)
               for key, (module, leaf) in sharded_stacks(model).items()}
     owners.update({key: (module, leaf) for key, (module, leaf, _)
-                   in fsdp_leaves(model).items()})
+                   in held_leaves(model).items()})
     for key, (module, leaf) in owners.items():
         if key in out:
             out[key] = held_block(module, leaf, out[key])
     return out
 
 
-def join_fsdp_blocks(model: nn.Module, blocks: Sequence[Dict[str, torch.Tensor]]
-                     ) -> Dict[str, torch.Tensor]:
-    """The whole state dict from every fsdp rank's state dict of `model`'s
-    layout (`blocks`, in fsdp order): each fsdp leaf's blocks joined along
-    its dim, every other entry rank 0's."""
-    dims = {key: dim for key, (_, _, dim) in fsdp_leaves(model).items()}
+def join_blocks(model: nn.Module, blocks: Sequence[Dict[str, torch.Tensor]]
+                ) -> Dict[str, torch.Tensor]:
+    """The whole state dict from every rank's state dict of `model`'s
+    layout along its one blocked axis (`blocks`, in fsdp or tensor
+    order): each held leaf's blocks joined along its dim, every other
+    entry rank 0's."""
+    dims = {key: dim for key, (_, _, dim) in held_leaves(model).items()}
     return {key: (torch.cat([b[key] for b in blocks], dims[key])
                   if key in dims else value)
             for key, value in blocks[0].items()}
 
 
-def gather_fsdp_params(model: nn.Module) -> Dict[str, torch.Tensor]:
+def gather_held_params(model: nn.Module) -> Dict[str, torch.Tensor]:
     """{name: whole parameter} of `model`, each fsdp block gathered over
-    its axis (a collective: every rank of the axis calls it, in the same
-    order); detached copies, the whole leaves as they are."""
+    its axis and each tensor block's bits joined over its group (a
+    collective: every rank of the axis calls it, in the same order);
+    detached copies, the whole leaves as they are."""
+    from kubeflow_tpu_torch.parallel.mesh import all_gather_bits
+
     with torch.no_grad():
         out = {}
         for name, p in model.named_parameters():
             owner, _, leaf = name.rpartition(".")
             module = model.get_submodule(owner)
-            dim = module.__dict__.get("_fsdp_dims", {}).get(leaf)
-            out[name] = (p.detach().clone() if dim is None
-                         else module.fsdp.gather(p.detach(), dim))
+            fsdp = module.__dict__.get("_fsdp_dims", {}).get(leaf)
+            tensor = module.__dict__.get("_tensor_dims", {}).get(leaf)
+            if fsdp is not None:
+                out[name] = module.fsdp.gather(p.detach(), fsdp)
+            elif tensor is not None:
+                out[name] = all_gather_bits(p.detach(), module.tensor.group,
+                                            tensor)
+            else:
+                out[name] = p.detach().clone()
         return out
 
 
@@ -653,9 +796,16 @@ def remat(fn, generator: Optional[torch.Generator], *args):
     generators, so the explicit `generator`'s state at this call is
     restored before each run of fn, and so are the `dropout_rows` in
     force at the call: a CUDA backward recomputes on autograd's device
-    thread, outside the caller's context."""
+    thread, outside the caller's context. A block holding tensor blocks
+    recomputes its whole forward (no early stop), so the recompute issues
+    every all-reduce its forward issued, on every rank: torch's early
+    stop would end it once the backward's saved tensors are made again,
+    before or after a row-parallel sum depending on what follows it."""
+    full = isinstance(fn, nn.Module) and any(
+        "_tensor_dims" in m.__dict__ for m in fn.modules())
+    kwargs = {"early_stop": False} if full else {}
     if generator is None:
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
     state, rows = generator.get_state(), _DROPOUT_ROWS.get()
 
     def replay(*a):
@@ -666,7 +816,7 @@ def remat(fn, generator: Optional[torch.Generator], *args):
         finally:
             _DROPOUT_ROWS.reset(token)
 
-    return checkpoint(replay, *args, use_reentrant=False)
+    return checkpoint(replay, *args, use_reentrant=False, **kwargs)
 
 
 @contextlib.contextmanager

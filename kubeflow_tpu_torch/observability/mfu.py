@@ -125,7 +125,8 @@ def encoder_train_flops(cfg, batch: int, seq: int) -> float:
 def rank_train_flops(count, cfg, local_batch: int, local_seq: int,
                      data: int = 1, sequence: int = 1,
                      expert: int = 1, stage: Optional[int] = None,
-                     stages: int = 1, fsdp: int = 1) -> float:
+                     stages: int = 1, fsdp: int = 1,
+                     tensor: int = 1) -> float:
     """One rank's share of a train step's model FLOPs: `count`
     (`lm_train_flops` or `encoder_train_flops`) of the global step, the
     rank's local_batch × local_seq tokens scaled by the batch's axes
@@ -136,7 +137,10 @@ def rank_train_flops(count, cfg, local_batch: int, local_seq: int,
     over the expert axis (its E/ep share of the expert products, and the
     rows' dense work split over the expert ranks that repeat it). As
     pipeline `stage` of `stages` (no sequence axis with it) a rank counts
-    its cfg.num_layers / stages layers, and the head on the last stage."""
+    its cfg.num_layers / stages layers, and the head on the last stage.
+    The tensor ranks of a data shard split its rows' work (their heads,
+    MLP columns and vocab): a rank counts 1/tensor of it, so the ranks'
+    counts sum to world 1's."""
     if stages > 1:
         def at(layers: int) -> float:
             part = dataclasses.replace(cfg, num_layers=layers,
@@ -147,10 +151,10 @@ def rank_train_flops(count, cfg, local_batch: int, local_seq: int,
         layers = at(cfg.num_layers // stages) - head
         return layers + (head if stage == stages - 1 else 0.0)
     if sequence == 1:
-        return count(cfg, local_batch, local_seq) / expert
+        return count(cfg, local_batch, local_seq) / (expert * tensor)
     rows = data * fsdp
     return (count(cfg, local_batch * rows, local_seq * sequence)
-            / (rows * sequence * expert))
+            / (rows * sequence * expert * tensor))
 
 
 def mfu(flops_per_step: Optional[float], step_time_s: float,

@@ -233,59 +233,115 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
-# -- the expert axis's pair -------------------------------------------------------
-# Every expert rank of a data shard computes the same loss from the same
-# rows, so the sum of the group's losses is NOT the loss: `all_reduce_sum`
-# (both directions summed) would multiply an expert block's gradient by the
-# group's size. A block's partial output enters the replicated stream
-# through `reduce_from_group` (summed forward, passed back unchanged), and
-# a replicated tensor enters the blocks through `copy_to_group` (passed
-# forward unchanged, its cotangent summed back: each rank holds only its
-# blocks' share). With `group` None (this process alone) both are the
-# identity.
+# -- the expert and tensor axes' pair ----------------------------------------
+# Every expert (or tensor) rank of a data shard computes the same loss from
+# the same rows, so the sum of the group's losses is NOT the loss:
+# `all_reduce_sum` (both directions summed) would multiply a block's
+# gradient by the group's size. A block's partial output enters the
+# replicated stream through `reduce_from_group` (summed forward, passed
+# back unchanged), and a replicated tensor enters the blocks through
+# `copy_to_group` (passed forward unchanged, its cotangent summed back:
+# each rank holds only its blocks' share). With `group` None (this process
+# alone) both are the identity. `counts["all_reduce"]`, when given, counts
+# each all-reduce they issue. On a gloo group a CUDA tensor is staged
+# through pinned host memory, as the sequence axis's collectives below.
 
 
-def _summed(x: torch.Tensor, group) -> torch.Tensor:
+def _summed(x: torch.Tensor, group, op=None) -> torch.Tensor:
+    """A new tensor: `x` all-reduced over `group` (SUM, or `op`)."""
     if group is None:
         return x
-    out = x.contiguous().clone()
-    torch.distributed.all_reduce(out, group=group)
-    return out
+    out = x.detach().contiguous()
+    stage = _staged(out, group)
+    out = _to_host(out) if stage else out.clone()
+    torch.distributed.all_reduce(
+        out, op=torch.distributed.ReduceOp.SUM if op is None else op,
+        group=group)
+    return out.to(x.device, non_blocking=True) if stage else out
+
+
+def _count(counts: Optional[Dict[str, int]], group) -> None:
+    if counts is not None and group is not None:
+        counts["all_reduce"] += 1
 
 
 class _CopyToGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
+    def forward(ctx, x, group, counts):
+        ctx.group, ctx.counts = group, counts
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, grad):
-        return _summed(grad, ctx.group), None
+        _count(ctx.counts, ctx.group)
+        return _summed(grad, ctx.group), None, None
 
 
 class _ReduceFromGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, counts):
+        _count(counts, group)
         return _summed(x, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return grad, None, None
 
 
-def copy_to_group(x: torch.Tensor, group=None) -> torch.Tensor:
+def copy_to_group(x: torch.Tensor, group=None,
+                  counts: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """`x` unchanged (a view) in the forward; the backward sums its
     cotangent over `group`: a tensor every rank of the group holds whole,
     read by each rank's own share of the work."""
-    return _CopyToGroup.apply(x, group)
+    return _CopyToGroup.apply(x, group, counts)
 
 
-def reduce_from_group(x: torch.Tensor, group=None) -> torch.Tensor:
+def reduce_from_group(x: torch.Tensor, group=None,
+                      counts: Optional[Dict[str, int]] = None
+                      ) -> torch.Tensor:
     """SUM all-reduce of `x` over `group` in the forward (a new tensor);
     the backward passes the cotangent on unchanged: each rank's partial
     result joins a stream every rank then holds whole."""
-    return _ReduceFromGroup.apply(x, group)
+    return _ReduceFromGroup.apply(x, group, counts)
+
+
+def all_reduce_max(x: torch.Tensor, group=None,
+                   counts: Optional[Dict[str, int]] = None) -> torch.Tensor:
+    """MAX all-reduce of `x` over `group`, detached (no gradient): a new
+    tensor, `x` itself without a group."""
+    _count(counts, group)
+    return _summed(x.detach(), group, op=torch.distributed.ReduceOp.MAX
+                   if group is not None else None)
+
+
+def vocab_parallel_terms(logits: torch.Tensor, targets: torch.Tensor,
+                         first: int, group=None,
+                         counts: Optional[Dict[str, int]] = None,
+                         with_sum: bool = False):
+    """The cross-entropy's terms over a vocabulary split across `group`:
+    `logits` [..., V/t] f32 are this rank's columns [first, first + V/t)
+    of the whole row, `targets` [...] whole-vocabulary ids (in range).
+    → (log Σ_v exp(z_v − m), z_target − m[, Σ_v (z_v − m)]) over the
+    whole row, every rank's the same: m is the row's max over the group
+    (no gradient: the terms do not depend on it but through rounding),
+    and the sum of exponentials, the target's logit (zero on every rank
+    but the one holding the target's column) and the logits' sum are
+    summed over the group in one all-reduce whose backward hands each
+    rank the whole cotangent. Without a group `first` must be 0 and the
+    row is whole."""
+    m = all_reduce_max(logits.amax(-1), group, counts)
+    z = logits - m[..., None]
+    n = logits.shape[-1]
+    local = targets - first
+    mine = (local >= 0) & (local < n)
+    picked = torch.gather(z, -1, torch.where(
+        mine, local, torch.zeros_like(local))[..., None])[..., 0]
+    terms = [z.exp().sum(-1), torch.where(mine, picked,
+                                          torch.zeros_like(picked))]
+    if with_sum:
+        terms.append(z.sum(-1))
+    summed = reduce_from_group(torch.stack(terms, -1), group, counts)
+    return (summed[..., 0].log(),) + tuple(summed[..., 1:].unbind(-1))
 
 
 # -- the sequence axis's collectives -------------------------------------------

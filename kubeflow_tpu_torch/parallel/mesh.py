@@ -258,8 +258,9 @@ def axes_group(mesh, axes: Tuple[str, ...]
 def reduce_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
     """The group a parameter's gradient is summed over once the step's
     backward has run: data × sequence at this rank's coordinate on every
-    other axis (the expert, pipeline and fsdp axes' included: a stage's
-    leaves are summed over the ranks of its stage only). A leaf held
+    other axis (the expert, pipeline, fsdp and tensor axes' included: a
+    stage's leaves are summed over the ranks of its stage only, a tensor
+    block's over the ranks that hold that block). A leaf held
     whole or as an expert stack's block is replicated over data ×
     sequence, so its gradient is summed over this group: the expert
     ranks of one data shard compute the same loss from the same rows,
@@ -283,6 +284,72 @@ def batch_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
     if mesh_shape(mesh)["fsdp"] == 1:
         return reduce_group(mesh)
     return axes_group(mesh, ("data", "fsdp", "sequence"))
+
+
+def tensor_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:
+    """The process group of the mesh's tensor axis (None without a process
+    group): the ranks whose blocks make up every tensor leaf of one data
+    shard, in block order."""
+    if mesh is None or not torch.distributed.is_initialized():
+        return None
+    return mesh.get_group("tensor")
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorShard:
+    """This rank's place on the tensor axis: the axis's process group
+    (None: this process alone, holding its blocks without peers), its
+    position `rank` (its block of every tensor leaf) and the axis's
+    `size`. `writer`: this rank writes its blocks of a checkpoint (its
+    coordinate on every other axis is 0, so each block is written once).
+    `counts["all_reduce"]` tallies every all-reduce over the group: a
+    row-parallel product's or a vocab-split lookup's partial sums (a
+    remat recompute's included), a column-parallel input's cotangent in
+    the backward, the vocab-parallel loss's, and the clip's norm."""
+
+    group: Optional["torch.distributed.ProcessGroup"]
+    rank: int
+    size: int
+    writer: bool = True
+    counts: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"all_reduce": 0},
+        compare=False, repr=False)
+
+    def block(self, length: int) -> Tuple[int, int]:
+        """(first index, length) of this rank's block of a dim of
+        `length`."""
+        if length % self.size:
+            raise ValueError(f"a dim of {length} does not split over the "
+                             f"tensor mesh axis {self.size}")
+        n = length // self.size
+        return self.rank * n, n
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated `x` entering this rank's column blocks
+        (`copy_to_group`: its cotangent summed over the group)."""
+        from kubeflow_tpu_torch.parallel.distributed import copy_to_group
+
+        return copy_to_group(x, self.group, counts=self.counts)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's partial sum joining the replicated stream
+        (`reduce_from_group`)."""
+        from kubeflow_tpu_torch.parallel.distributed import reduce_from_group
+
+        return reduce_from_group(x, self.group, counts=self.counts)
+
+
+def tensor_shard(mesh) -> Optional[TensorShard]:
+    """The mesh's TensorShard for this rank; None when the tensor axis is
+    1 or there is no process group."""
+    group = tensor_group(mesh)
+    if group is None or mesh_shape(mesh)["tensor"] == 1:
+        return None
+    others = [a for a in mesh.mesh_dim_names if a != "tensor"]
+    return TensorShard(group, mesh.get_local_rank("tensor"),
+                       mesh_shape(mesh)["tensor"],
+                       writer=all(mesh.get_local_rank(a) == 0
+                                  for a in others))
 
 
 def fsdp_group(mesh) -> Optional["torch.distributed.ProcessGroup"]:

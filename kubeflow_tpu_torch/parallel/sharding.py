@@ -11,10 +11,10 @@ compare equal as tuples.
 There is no GSPMD in eager PyTorch: `shard_constraint` is a no-op that
 returns its input. The data axis's collectives are issued by the
 training step itself (training/trainer.py); the spec tables say which
-leaves an fsdp rank holds a block of, and along which dim (`fsdp_dim`),
-which an expert rank holds a block of ("expert") and, through a
-pipelined model's leading "stage" axis (→ `pipeline`), which stage holds
-a layer (training/annotations.py).
+leaves an fsdp or a tensor rank holds a block of, and along which dim
+(`fsdp_dim`, `axis_dim`), which an expert rank holds a block of
+("expert") and, through a pipelined model's leading "stage" axis (→
+`pipeline`), which stage holds a layer (training/annotations.py).
 """
 
 from __future__ import annotations
@@ -118,10 +118,16 @@ def param_specs(annotations: Mapping[str, Tuple[Optional[str], ...]],
     return {k: logical_to_spec(ax, mesh=mesh) for k, ax in annotations.items()}
 
 
+def axis_dim(spec: Spec, axis: str) -> Optional[int]:
+    """The dim a spec splits over mesh axis `axis` (alone, or with other
+    axes in a tuple), or None when it names no `axis`."""
+    for i, axes in enumerate(spec):
+        if axes == axis or (isinstance(axes, tuple) and axis in axes):
+            return i
+    return None
+
+
 def fsdp_dim(spec: Spec) -> Optional[int]:
     """The dim a spec splits over the fsdp mesh axis (alone, or with
     other axes in a tuple), or None when it names no fsdp."""
-    for i, axes in enumerate(spec):
-        if axes == "fsdp" or (isinstance(axes, tuple) and "fsdp" in axes):
-            return i
-    return None
+    return axis_dim(spec, "fsdp")

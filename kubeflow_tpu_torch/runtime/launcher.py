@@ -20,8 +20,9 @@ the process's flash-kernel launch counts (ops/flash_attention.py; one
 process runs one job, so they are this run's). A config runs as it is:
 its mesh's axes multiply to the gang's world size, one process a rank
 (e.g. configs/gpt_moe_v5e16.yaml's `{data: 8, expert: 4}` is a gang of
-32, and `mesh: {data: 2, fsdp: 2}` one of 4 whose ranks hold blocks of
-the fsdp leaves). The profiler endpoint (KFT_PROFILER_*) is not ported (ROADMAP
+32, `mesh: {data: 2, fsdp: 2}` one of 4 whose ranks hold blocks of the
+fsdp leaves, and `mesh: {tensor: 2}` one of 2 whose ranks hold blocks of
+the tensor leaves). The profiler endpoint (KFT_PROFILER_*) is not ported (ROADMAP
 A14): a set knob raises rather than being ignored.
 """
 

@@ -10,8 +10,9 @@ ran), `losses`: every step's (step, loss), read on the host at the
 first-step fence and at each log window (one sync a window), and the
 gang's `world_size` and `grad_allreduces` (0 off a gang), and on an
 fsdp mesh axis `fsdp_collectives` (the rank's gathers and
-reduce-scatters of its fsdp blocks, the trainer's `FsdpShard.counts`).
-A run with
+reduce-scatters of its fsdp blocks, the trainer's `FsdpShard.counts`),
+and on a tensor mesh axis `tensor_collectives` (the rank's all-reduces
+over the tensor group, `TensorShard.counts`). A run with
 eval data (the config's `data`: blobs or npz with a held-out split) adds
 the JAX keys `eval_top1`, `eval_loss` and `target_reached`. Every
 registry model trains here: the GPT family, ResNet and the mlp.
@@ -246,6 +247,8 @@ def _run_training_armed(cfg: TrainingConfig, restore: bool,
     }
     if trainer.fsdp is not None:
         result["fsdp_collectives"] = dict(trainer.fsdp.counts)
+    if trainer.tensor is not None:
+        result["tensor_collectives"] = dict(trainer.tensor.counts)
     if warm_started:
         result["warm_started"] = True
     if restore_s is not None:

@@ -43,8 +43,9 @@ moments (a zero trace) and count 0, as the JAX package does, and a
 restore creates the optimizer state before loading it.
 
 Under an expert mesh axis a rank holds only its block of each expert
-stack (models/layers.py `MoeMlp`), and under an fsdp axis its block of
-each fsdp leaf along the leaf's dim (models/layers.py `shard_fsdp`): the
+stack (models/layers.py `MoeMlp`), and under an fsdp or a tensor axis
+its block of each fsdp or tensor leaf along the leaf's dim
+(models/layers.py `shard_fsdp`, `shard_tensor`): the
 parameter and its two moments enter the tree as `ShardedLeaf`s with
 their global index ranges, written by one rank a block (the block's rank
 at every other coordinate 0; checkpointing/manager.py) and read back by
@@ -76,8 +77,8 @@ import torch
 from kubeflow_tpu_torch.checkpointing.manager import ShardedLeaf, nest
 from kubeflow_tpu_torch.models.convert import is_batch_stat, jax_path
 from kubeflow_tpu_torch.models.layers import (
-    fsdp_leaves,
     held_block,
+    held_leaves,
     sharded_stacks,
     stage_layout,
     whole_leaf_shape,
@@ -98,8 +99,9 @@ def _full(shape) -> Tuple[Tuple[int, int], ...]:
 def _blocks(model: torch.nn.Module) -> Dict[str, Tuple]:
     """{parameter name: (whole shape, every block's index ranges, this
     rank's block, writer)} of the leaves `model` holds a block of: the
-    expert stacks' blocks along dim 0, the fsdp blocks along their
-    dim."""
+    expert stacks' blocks along dim 0, the fsdp and the tensor blocks
+    along their dim (written by the rank at every other coordinate 0:
+    on a tensor axis, data coordinate 0 of each tensor coordinate)."""
     out = {}
     for name, (module, leaf) in sharded_stacks(model).items():
         shape, shard = module.stack_shape(leaf), module.expert
@@ -107,8 +109,10 @@ def _blocks(model: torch.nn.Module) -> Dict[str, Tuple]:
         out[name] = (shape, [((r * n, (r + 1) * n),) + _full(shape[1:])
                              for r in range(shard.size)],
                      shard.rank, shard.writer)
-    for name, (module, leaf, dim) in fsdp_leaves(model).items():
-        shape, shard = whole_leaf_shape(module, leaf), module.fsdp
+    for name, (module, leaf, dim) in held_leaves(model).items():
+        shape = whole_leaf_shape(module, leaf)
+        shard = module.fsdp if leaf in module.__dict__.get(
+            "_fsdp_dims", {}) else module.tensor
         n = shape[dim] // shard.size
         out[name] = (shape, [tuple((r * n, (r + 1) * n) if i == dim
                                    else (0, d) for i, d in enumerate(shape))

@@ -42,6 +42,15 @@ local shard. MLM counts its masked positions on every shard and the
 next-sentence rows on sequence rank 0 only, which alone holds [CLS]
 (`parallel/mesh.py active_sequence()`, set by the step).
 
+Tensor parallelism: the tensor ranks of a data shard see the same rows
+and the trainer sums the counts over data alone. A vocab-split head
+(`mlm_out`, or the LM head where the axis divides the vocabulary) gives
+this rank's columns of the logits: the cross-entropy (label smoothing
+included), the chunked LM loss and the eval top-1 are taken over the
+tensor group (`_log_likelihood`, `_argmax`; parallel/distributed.py
+`vocab_parallel_terms`), and the hidden states enter the head's columns
+through `copy_to_group` once.
+
 Pipeline parallelism: a stage's forward is the model's own (training/
 trainer.py runs the schedule); the LM tasks give the parts it needs:
 `model_mask` (what the model's attention takes), `head_loss` (the last
@@ -84,52 +93,108 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from kubeflow_tpu_torch.config.platform import TrainingConfig
-from kubeflow_tpu_torch.models.layers import MoeCollector, at_use
+from kubeflow_tpu_torch.models.layers import (
+    MoeCollector,
+    at_use,
+    tensor_copy,
+    vocab_shard,
+)
+from kubeflow_tpu_torch.parallel.distributed import (
+    all_reduce_max,
+    vocab_parallel_terms,
+)
 from kubeflow_tpu_torch.parallel.mesh import active_sequence
 from kubeflow_tpu_torch.training.data import NEXT, SyntheticData
 
 IGNORE = -100
 
 
+def _log_likelihood(logits: torch.Tensor, labels: torch.Tensor,
+                    label_smoothing: float = 0.0, vocab=None
+                    ) -> torch.Tensor:
+    """Per-position log p(label) (labels in range), with label smoothing
+    ε: (1-ε)·log p(label) + ε·mean over classes of log p. `vocab` (a
+    vocab-split head's (TensorShard, first column): models/layers.py
+    `vocab_shard`) makes `logits` this rank's columns of the row, and
+    the log-normalizer, the label's logit and the row's sum are taken
+    over the tensor group (`vocab_parallel_terms`); None: the whole
+    row's log-softmax."""
+    if vocab is None:
+        logp = F.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+        if label_smoothing:
+            ll = (1.0 - label_smoothing) * ll + label_smoothing * logp.mean(-1)
+        return ll
+    shard, first = vocab
+    lse, picked, *rest = vocab_parallel_terms(
+        logits, labels, first, shard.group, shard.counts,
+        with_sum=bool(label_smoothing))
+    ll = picked - lse
+    if label_smoothing:
+        mean = rest[0] / (logits.shape[-1] * shard.size) - lse
+        ll = (1.0 - label_smoothing) * ll + label_smoothing * mean
+    return ll
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   ignore: int = -1000000,
                   label_smoothing: float = 0.0,
-                  count: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  count: Optional[torch.Tensor] = None,
+                  vocab=None) -> torch.Tensor:
     """Mean CE over labels != ignore; logits float32 [..., C], labels int.
     With label_smoothing ε the target is (1-ε)·onehot + ε/K uniform:
     loss = (1-ε)·NLL + ε·mean over classes of -log p. `count` replaces
     the denominator (the valid labels here) with a given one, such as
-    the global batch's."""
+    the global batch's. `vocab`: the logits are this rank's columns of a
+    vocab-split head (`_log_likelihood`)."""
     valid = labels != ignore
     safe = torch.where(valid, labels, torch.zeros_like(labels))
-    logp = F.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
-    if label_smoothing:
-        ll = (1.0 - label_smoothing) * ll + label_smoothing * logp.mean(-1)
+    ll = _log_likelihood(logits, safe, label_smoothing, vocab)
     ll = torch.where(valid, ll, torch.zeros_like(ll))
     if count is None:
         count = valid.sum()
     return -ll.sum() / count.clamp_min(1)
 
 
-def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Per-position negative log-likelihood (no reduction)."""
-    logp = F.log_softmax(logits, dim=-1)
-    return -torch.gather(logp, -1, labels[..., None])[..., 0]
+def _nll(logits: torch.Tensor, labels: torch.Tensor,
+         vocab=None) -> torch.Tensor:
+    """Per-position negative log-likelihood (no reduction); `vocab` as in
+    `cross_entropy`."""
+    return -_log_likelihood(logits, labels, vocab=vocab)
+
+
+def _argmax(logits: torch.Tensor, vocab=None) -> torch.Tensor:
+    """The row's argmax; over a vocab-split head's columns (`vocab`) the
+    whole row's: the lowest column holding the group's max."""
+    if vocab is None:
+        return logits.argmax(-1)
+    shard, first = vocab
+    best, idx = logits.max(-1)
+    top = all_reduce_max(best, shard.group, shard.counts)
+    whole = logits.shape[-1] * shard.size
+    mine = torch.where(best == top, idx + first, torch.full_like(idx, whole))
+    return -all_reduce_max(-mine, shard.group, shard.counts)
 
 
 def _masked_token_stats(logits: torch.Tensor, labels: torch.Tensor,
-                        row_valid: torch.Tensor, ignore: int
+                        row_valid: torch.Tensor, ignore: int, vocab=None
                         ) -> Dict[str, torch.Tensor]:
     """Summable eval statistics over labels != ignore (the MLM and
     causal-LM tasks'): top-1 numerator and denominator and the loss sum,
-    with `row_valid` masking the padded rows of a ragged final batch."""
+    with `row_valid` masking the padded rows of a ragged final batch;
+    `vocab` as in `cross_entropy` (the top-1 across the shards)."""
     valid = (labels != ignore).float() * row_valid.float()[:, None]
     safe = torch.where(labels == ignore, torch.zeros_like(labels), labels)
     logits = logits.float()
-    correct = ((logits.argmax(-1) == safe).float() * valid).sum()
-    loss_sum = (_nll(logits, safe) * valid).sum()
+    correct = ((_argmax(logits, vocab) == safe).float() * valid).sum()
+    loss_sum = (_nll(logits, safe, vocab) * valid).sum()
     return {"correct": correct, "count": valid.sum(), "loss_sum": loss_sum}
+
+
+def _vocab(model, head: str):
+    """The model's `head` module's vocab split (models/layers.py
+    `vocab_shard`), None when its logits are whole."""
+    return vocab_shard(getattr(model, head, None))
 
 
 def _row_valid(batch: Dict[str, torch.Tensor], rows: int,
@@ -290,7 +355,7 @@ class MlmTask:
             dropout_generator=dropout_generator,
             **({} if moe is None else {"moe": moe}),
         )
-        loss, extra = self._head_loss(out, batch, counts)
+        loss, extra = self._head_loss(model, out, batch, counts)
         loss = _add_moe_aux(loss, extra["aux"], moe, group)
         return loss, extra
 
@@ -303,9 +368,11 @@ class MlmTask:
         """A microbatch's weight under accumulation: equal (`loss`)."""
         return torch.ones((), device=counts.device)
 
-    def _head_loss(self, out, batch, counts):
+    def _head_loss(self, model, out, batch, counts):
+        # a vocab-split `mlm_out` gives this rank's columns of the logits
         mlm = cross_entropy(out["mlm_logits"], batch["labels"], ignore=IGNORE,
-                            count=None if counts is None else counts[0])
+                            count=None if counts is None else counts[0],
+                            vocab=_vocab(model, "mlm_out"))
         if _holds_cls():
             nsp = cross_entropy(out["nsp_logits"], batch["nsp_labels"],
                                 count=None if counts is None else counts[1])
@@ -320,7 +387,7 @@ class MlmTask:
                   counts: Optional[torch.Tensor] = None):
         """The last pipeline stage's loss: the heads on its final hidden
         states, (mlm + nsp, `loss`'s extras) without the MoE aux."""
-        return self._head_loss(model.heads(hidden), batch, counts)
+        return self._head_loss(model, model.heads(hidden), batch, counts)
 
     def count_items(self, batch) -> int:
         # tokens a step: BERT's throughput unit
@@ -330,19 +397,20 @@ class MlmTask:
                    ) -> Dict[str, torch.Tensor]:
         """Masked-token top-1 and loss over labels != -100."""
         out = model(batch["input_ids"], attention_mask=batch["attention_mask"])
-        return self._stats(out, batch)
+        return self._stats(model, out, batch)
 
     def head_eval_stats(self, model, hidden: torch.Tensor,
                         batch: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
         """`eval_stats` from the last pipeline stage's hidden states."""
-        return self._stats(model.heads(hidden), batch)
+        return self._stats(model, model.heads(hidden), batch)
 
-    def _stats(self, out, batch):
+    def _stats(self, model, out, batch):
         labels = batch["labels"]
         return _masked_token_stats(
             out["mlm_logits"], labels,
-            _row_valid(batch, labels.shape[0], labels.device), IGNORE)
+            _row_valid(batch, labels.shape[0], labels.device), IGNORE,
+            _vocab(model, "mlm_out"))
 
 
 def _holds_cls() -> bool:
@@ -361,13 +429,13 @@ def _extended(batch: Dict[str, torch.Tensor]):
             torch.cat([mask, batch[NEXT + "attention_mask"]], 1))
 
 
-def _chunk_nll_sum(h_c, t_c, kernel, compute_dtype):
-    """Sum of -log p(target) over one chunk's valid positions."""
+def _chunk_nll_sum(h_c, t_c, kernel, compute_dtype, vocab=None):
+    """Sum of -log p(target) over one chunk's valid positions (`vocab`:
+    the kernel is this rank's vocab columns, as in `cross_entropy`)."""
     logits = (h_c.to(compute_dtype) @ kernel).float()
     valid = t_c != IGNORE
     safe = torch.where(valid, t_c, torch.zeros_like(t_c))
-    logp = F.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    ll = _log_likelihood(logits, safe, vocab=vocab)
     return -torch.where(valid, ll, torch.zeros_like(ll)).sum()
 
 
@@ -432,13 +500,15 @@ class CausalLmTask:
 
     @staticmethod
     def _chunked_lm_loss(head_kernel, hidden, targets, chunk: int,
-                         compute_dtype, count: Optional[torch.Tensor] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         compute_dtype, count: Optional[torch.Tensor] = None,
+                         vocab=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Streamed LM head + CE: each sequence chunk's [B, chunk, V]
         logits live only inside its chunk and are recomputed in the
         backward (`torch.utils.checkpoint`, the JAX `jax.checkpoint`).
         Returns (mean loss, valid count); `count` replaces the
-        denominator."""
+        denominator. `vocab`: `head_kernel` is this rank's columns of a
+        vocab-split head, each chunk's loss vocab-parallel (its
+        collectives run again in the recompute)."""
         s = hidden.shape[1]
         kernel = head_kernel.to(compute_dtype)
         total = hidden.new_zeros((), dtype=torch.float32)
@@ -447,9 +517,9 @@ class CausalLmTask:
             h_c, t_c = hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
             if grad:
                 part = checkpoint(_chunk_nll_sum, h_c, t_c, kernel,
-                                  compute_dtype, use_reentrant=False)
+                                  compute_dtype, vocab, use_reentrant=False)
             else:
-                part = _chunk_nll_sum(h_c, t_c, kernel, compute_dtype)
+                part = _chunk_nll_sum(h_c, t_c, kernel, compute_dtype, vocab)
             total = total + part
         if count is None:
             count = (targets != IGNORE).sum()
@@ -506,19 +576,24 @@ class CausalLmTask:
         ids, mask = batch["input_ids"], batch["attention_mask"]
         count = None if counts is None else counts[0]
         sharded = NEXT + "input_ids" in batch
+        # a vocab-split head's logits are this rank's columns
+        vocab = _vocab(model, "head")
         if chunked:
             targets = (self._shard_targets(batch) if sharded
                        else self._shift_full(ids, mask))
             # the head's kernel as its use reads it (an fsdp block gathered
-            # once; every chunk reads the one cast)
+            # once; every chunk reads the one cast), the hidden states
+            # entering a vocab-split head's columns once
             loss, n_items = self._chunked_lm_loss(
-                at_use(model.head, "kernel", model.cfg.dtype), out, targets,
-                int(self.loss_chunk), model.cfg.dtype, count,
+                at_use(model.head, "kernel", model.cfg.dtype),
+                tensor_copy(model.head, out), targets,
+                int(self.loss_chunk), model.cfg.dtype, count, vocab,
             )
         else:
             logits, targets = ((out, self._shard_targets(batch)) if sharded
                                else self._shift(out, ids, mask))
-            loss = cross_entropy(logits, targets, ignore=IGNORE, count=count)
+            loss = cross_entropy(logits, targets, ignore=IGNORE, count=count,
+                                 vocab=vocab)
             n_items = (targets != IGNORE).sum() if count is None else count
         return loss, {"aux": {}, "loss_items": n_items.float()}
 
@@ -529,17 +604,17 @@ class CausalLmTask:
                    ) -> Dict[str, torch.Tensor]:
         """Next-token top-1 and loss over the valid pairs (a sequence
         shard's include the pair into the next shard)."""
-        return self._stats(model(batch["input_ids"],
-                                 attention_mask=batch["attention_mask"]),
-                           batch)
+        logits = model(batch["input_ids"],
+                       attention_mask=batch["attention_mask"])
+        return self._stats(model, logits, batch)
 
     def head_eval_stats(self, model, hidden: torch.Tensor,
                         batch: Dict[str, torch.Tensor]
                         ) -> Dict[str, torch.Tensor]:
         """`eval_stats` from the last pipeline stage's hidden states."""
-        return self._stats(model.finish(hidden), batch)
+        return self._stats(model, model.finish(hidden), batch)
 
-    def _stats(self, logits, batch):
+    def _stats(self, model, logits, batch):
         ids, mask = batch["input_ids"], batch["attention_mask"]
         if NEXT + "input_ids" in batch:
             targets = self._shard_targets(batch)
@@ -547,7 +622,7 @@ class CausalLmTask:
             logits, targets = self._shift(logits, ids, mask)
         return _masked_token_stats(
             logits, targets, _row_valid(batch, targets.shape[0], ids.device),
-            IGNORE)
+            IGNORE, _vocab(model, "head"))
 
 
 def task_for_model(model_name: str, cfg: TrainingConfig, **kwargs):

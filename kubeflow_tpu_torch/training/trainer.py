@@ -156,6 +156,30 @@ The clip sums the blocks' squares over the fsdp group and counts every
 whole leaf once. Checkpoints write each block from the rank at data
 coordinate 0 (training/checkpoint.py). MFU is a rank's share of the
 global step's FLOPs over data × fsdp.
+
+Tensor parallelism (`cfg.mesh.tensor` ranks, innermost: the JAX
+package's `tensor` axis and its rules' heads, mlp, vocab and
+vocab_table entries). A GPT or BERT model (and their MoE variants) is
+built for this rank's `TensorShard`: each leaf whose spec names `tensor`
+is held as its 1/t block along that dim, drawn from the same seeded
+whole init, and so are its AdamW moments; blocks are never gathered.
+q/k/v and the MLP's first product are column-parallel, `out` and the
+MLP's second row-parallel (their partial sums all-reduced over the
+tensor group, the bias added once), the tables and the head vocab-split
+where the axis divides their rows, with a vocab-parallel loss
+(models/layers.py `shard_tensor`, training/tasks.py). The tensor ranks
+of a data shard feed the same rows and draw the same dropout masks
+(every site follows a row-parallel sum), so the data world is world /
+tensor, and the counts, the loss and one gradient bucket (the blocks'
+and the replicated leaves') are summed over `batch_group`, the data
+axis at this tensor coordinate: a replicated leaf's gradient is already
+equal across the tensor ranks (`copy_to_group` sums its input's
+cotangent) and is never all-reduced over tensor. The clip sums the
+blocks' squares over the tensor group and counts every replicated leaf
+once; `TensorShard.counts` tallies the tensor group's all-reduces.
+Checkpoints write each block from the rank at data coordinate 0 of its
+tensor coordinate. MFU is a rank's share of the global step's FLOPs over
+data × tensor.
 """
 
 from __future__ import annotations
@@ -172,7 +196,11 @@ from torch import nn
 from kubeflow_tpu_torch.chaos import default_chaos
 from kubeflow_tpu_torch.config.platform import TrainingConfig
 from kubeflow_tpu_torch.models.convert import is_batch_stat
-from kubeflow_tpu_torch.models.layers import fsdp_leaves, sharded_stacks
+from kubeflow_tpu_torch.models.layers import (
+    fsdp_leaves,
+    sharded_stacks,
+    tensor_leaves,
+)
 from kubeflow_tpu_torch.models.registry import get_model
 from kubeflow_tpu_torch.observability.mfu import (
     encoder_train_flops,
@@ -194,6 +222,7 @@ from kubeflow_tpu_torch.parallel.mesh import (
     reduce_group,
     sequence_parallel,
     sequence_shard,
+    tensor_shard,
 )
 from kubeflow_tpu_torch.parallel.pipeline import (
     clamp_microbatches,
@@ -298,8 +327,9 @@ class Trainer:
     group's ranks; it names the data × fsdp × sequence group the step
     sums over, `self.seq`, this rank's place on the sequence axis,
     `self.expert`, its place on the expert axis, `self.pipe`, its stage
-    of the pipeline axis, and `self.fsdp`, its place on the fsdp axis
-    (each None at 1). `model_kwargs` reach the
+    of the pipeline axis, `self.fsdp`, its place on the fsdp axis, and
+    `self.tensor`, on the tensor axis (each None at 1). `model_kwargs`
+    reach the
     registry factory of a model the trainer builds (the JAX trainer's
     argument, e.g. `{"moe_top_k": 2}`)."""
 
@@ -320,6 +350,7 @@ class Trainer:
         self.expert = None
         self.pipe = None
         self.fsdp = None
+        self.tensor = None
         if self.distributed:
             backend = torch.distributed.get_backend()
             self.mesh = mesh_from_config(
@@ -330,15 +361,17 @@ class Trainer:
             self.expert = expert_shard(self.mesh)
             self.pipe = pipeline_shard(self.mesh)
             self.fsdp = fsdp_shard(self.mesh)
+            self.tensor = tensor_shard(self.mesh)
         elif cfg.mesh.num_devices != 1:
             raise ValueError(
                 f"mesh spec needs {cfg.mesh.num_devices} devices "
                 f"({cfg.mesh.axis_sizes()}), got 1: start the gang's "
                 f"processes (runtime/launcher.py) with its rendered env")
         # this rank's place on the batch's data × fsdp split (the same for
-        # every expert rank and pipeline stage of the shard)
+        # every expert and tensor rank and pipeline stage of the shard)
         self.data_world = self.world // (cfg.mesh.sequence * cfg.mesh.expert
-                                         * cfg.mesh.pipeline)
+                                         * cfg.mesh.pipeline
+                                         * cfg.mesh.tensor)
         self.data_rank = (mesh_coordinate(self.mesh, "data") * cfg.mesh.fsdp
                           + mesh_coordinate(self.mesh, "fsdp"))
         # gradient buckets' all-reduces issued (one a data-parallel step,
@@ -373,6 +406,10 @@ class Trainer:
             if self.fsdp is not None:
                 # this rank's blocks of the fsdp leaves, any model family
                 kwargs["fsdp"] = self.fsdp
+            if self.tensor is not None:
+                # this rank's blocks of the tensor leaves (the config
+                # refuses the families that take none)
+                kwargs["tensor"] = self.tensor
             if cfg.seq_len > 0:
                 kwargs["max_len"] = cfg.seq_len
             dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
@@ -386,6 +423,9 @@ class Trainer:
         # over the fsdp axis by their gathers' backward)
         self._fsdp_blocks = {id(self.model.get_parameter(n))
                              for n in fsdp_leaves(self.model)}
+        # and as tensor blocks (summed with the whole leaves: over data)
+        self._tensor_blocks = {id(self.model.get_parameter(n))
+                               for n in tensor_leaves(self.model)}
         # the pipeline's microbatches a step's accumulation microbatch
         # (the JAX model's clamp against its global rows)
         self.pipeline_microbatches = 1
@@ -444,8 +484,9 @@ class Trainer:
         """Every parameter's spec on the mesh (training/annotations.py over
         parallel/sharding.py) must be one the step runs: replicated, split
         on dim 0 over the expert axis alone (an expert stack) or on one
-        dim over the fsdp axis alone (held as that dim's block), and then
-        the model must hold exactly this rank's block of it. On a
+        dim over the fsdp or the tensor axis alone (held as that dim's
+        block), and then the model must hold exactly this rank's block of
+        it. On a
         pipeline axis a layer's leaf is split on its stage dim over the
         axis (then as above), and the model holds exactly its stage's
         layers and the leaves its stage owns."""
@@ -456,7 +497,7 @@ class Trainer:
         )
         from kubeflow_tpu_torch.parallel.mesh import mesh_shape
         from kubeflow_tpu_torch.parallel.sharding import (
-            fsdp_dim,
+            axis_dim,
             is_replicated,
             param_specs,
         )
@@ -478,6 +519,8 @@ class Trainer:
         whole = whole_shapes(self.model)
         params = dict(self.model.named_parameters())
         held = {n: dim for n, (_, _, dim) in fsdp_leaves(self.model).items()}
+        split = {n: dim for n, (_, _, dim)
+                 in tensor_leaves(self.model).items()}
         stages = getattr(mcfg, "pipeline_stages", 1)
         bad = []
         if sizes["pipeline"] > 1:
@@ -502,19 +545,23 @@ class Trainer:
                     bad.append(name)
                     continue
                 spec, full = spec[1:], full[1:]
+            blocked = name in held or name in split
             if is_replicated(spec):
-                ok = shape == full and name not in held
+                ok = shape == full and not blocked
             elif spec[0] == "expert":
-                ok = (is_replicated(spec[1:]) and name not in held
+                ok = (is_replicated(spec[1:]) and not blocked
                       and shape[0] * sizes["expert"] == full[0]
                       and shape[1:] == full[1:])
             else:
-                # one dim split over the fsdp axis: the model's block
-                dim = fsdp_dim(spec)
-                ok = (dim is not None and spec[dim] == "fsdp"
+                # one dim split over the fsdp or the tensor axis alone:
+                # the model's block of it along that dim
+                axis = "fsdp" if axis_dim(spec, "fsdp") is not None \
+                    else "tensor"
+                dim = axis_dim(spec, axis)
+                ok = (dim is not None and spec[dim] == axis
                       and is_replicated(spec[:dim] + spec[dim + 1:])
-                      and held.get(name) == dim
-                      and shape == full[:dim] + (full[dim] // sizes["fsdp"],)
+                      and (held if axis == "fsdp" else split).get(name) == dim
+                      and shape == full[:dim] + (full[dim] // sizes[axis],)
                       + full[dim + 1:])
             if not ok:
                 bad.append(name)
@@ -523,9 +570,10 @@ class Trainer:
                 f"mesh {sizes} lays out {sorted(bad)[:3]}... in a way the "
                 f"port's step does not run (it keeps leaves whole, an "
                 f"expert stack's block of E/ep experts a rank, an fsdp "
-                f"leaf's block along its spec's dim, or a pipeline "
-                f"stage's layers: build the model with this rank's "
-                f"`expert`, `fsdp` and `pipeline` shards)")
+                f"or a tensor leaf's block along its spec's dim, or a "
+                f"pipeline stage's layers: build the model with this "
+                f"rank's `expert`, `fsdp`, `tensor` and `pipeline` "
+                f"shards)")
 
     # ---- state -----------------------------------------------------------
 
@@ -614,11 +662,15 @@ class Trainer:
         else:
             loss = loss_sum
         if self._clip:
-            # the blocks of leaves split over one axis (expert or fsdp;
-            # the config refuses the two together)
-            blocks = self._fsdp_blocks | {id(model.get_parameter(n))
-                                          for n in sharded_stacks(model)}
-            shard = self.expert or self.fsdp
+            # the blocks of leaves split over one axis (expert, fsdp or
+            # tensor; the config refuses any two together)
+            blocks = (self._fsdp_blocks | self._tensor_blocks
+                      | {id(model.get_parameter(n))
+                         for n in sharded_stacks(model)})
+            shard = self.expert or self.fsdp or self.tensor
+            if self.tensor is not None and self._tensor_blocks:
+                # the blocks' squared norms, summed over the tensor group
+                self.tensor.counts["all_reduce"] += 1
             clip_by_global_norm(
                 [p.grad for p in params if id(p) not in blocks],
                 MAX_GRAD_NORM,
@@ -945,7 +997,8 @@ class Trainer:
     def rank_flops(self, batch) -> float:
         """This rank's share of an LM train step's model FLOPs at this
         rank's `batch` (observability/mfu.py `rank_train_flops`: the
-        global step's count over data × fsdp × sequence × expert)."""
+        global step's count over data × fsdp × sequence × expert ×
+        tensor)."""
         count = (encoder_train_flops if self.task.name == "mlm"
                  else lm_train_flops)
         seq = 1 if self.seq is None else self.seq.size
@@ -956,7 +1009,8 @@ class Trainer:
                                 *batch["input_ids"].shape,
                                 data=self.data_world // fsdp, fsdp=fsdp,
                                 sequence=seq, expert=self.cfg.mesh.expert,
-                                stage=stage[0], stages=stage[1])
+                                stage=stage[0], stages=stage[1],
+                                tensor=self.cfg.mesh.tensor)
 
     def step_flops(self, batch) -> float:
         """FLOPs of one training step of this model at `batch`'s shapes
@@ -1148,10 +1202,11 @@ class Trainer:
                 t_last = now
                 steps_since_log = 0
                 # the global step's items: every rank feeds as many, and
-                # the expert ranks and stages of a data shard feed the
-                # same ones
+                # the expert and tensor ranks and stages of a data shard
+                # feed the same ones
                 items = (self.task.count_items(batch_np) * self.world
-                         // (self.cfg.mesh.expert * self.cfg.mesh.pipeline))
+                         // (self.cfg.mesh.expert * self.cfg.mesh.pipeline
+                             * self.cfg.mesh.tensor))
                 step_hist.observe(dt, model=model_label)
                 thpt.set(items / dt, model=model_label)
                 # the window's last step's aux, read after the losses' sync

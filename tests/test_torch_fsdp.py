@@ -69,7 +69,7 @@ from kubeflow_tpu_torch.models.convert import (  # noqa: E402
 )
 from kubeflow_tpu_torch.models.layers import (  # noqa: E402
     fsdp_leaves,
-    join_fsdp_blocks,
+    join_blocks,
 )
 from kubeflow_tpu_torch.models.registry import get_model  # noqa: E402
 from kubeflow_tpu_torch.observability.mfu import (  # noqa: E402
@@ -627,7 +627,7 @@ def test_the_batch_rows_split_over_data_times_fsdp(gangs, data_and_init,
 def test_the_bridge_loads_a_whole_leaf_into_a_block():
     """models/convert.py load_jax_params: a JAX tree's whole leaves land as
     an fsdp model's blocks (a seeded init draws them as world 1 does), and
-    `join_fsdp_blocks` of every rank's state dict is the whole tree
+    `join_blocks` of every rank's state dict is the whole tree
     again."""
     whole = get_model("gpt_tiny", device="cpu", dtype=torch.float32, seed=5)
     tree = params_to_jax(whole.state_dict())
@@ -644,7 +644,7 @@ def test_the_bridge_loads_a_whole_leaf_into_a_block():
                                            rtol=0, atol=0)
             assert len(fsdp_leaves(part)) == 15
             parts.append(part.state_dict())
-        joined = params_to_jax(join_fsdp_blocks(part, parts))
+        joined = params_to_jax(join_blocks(part, parts))
         assert set(joined) == set(tree)
         for key, want in tree.items():
             np.testing.assert_array_equal(joined[key], want, err_msg=key)

@@ -176,8 +176,9 @@ class TestBuildMesh:
             meshlib.build_mesh(spec, device_type="cpu", num_slices=2)
 
     def test_default_mesh_for_refuses_an_unported_axis(self):
-        with pytest.raises(ConfigError, match="A13 item 2"):
-            meshlib.default_mesh_for(8, tensor=2, device_type="cpu")
+        # every axis is ported alone; a pair not run together is refused
+        with pytest.raises(ConfigError, match="A13 item 9"):
+            meshlib.default_mesh_for(8, tensor=2, fsdp=2, device_type="cpu")
         m = meshlib.default_mesh_for(1, device_type="cpu")
         assert meshlib.mesh_shape(m) == dict.fromkeys(
             meshlib.MESH_AXIS_ORDER, 1)
@@ -270,10 +271,11 @@ UNPORTED = [("fsdp", "A13 item 1 (fsdp)"), ("tensor", "A13 item 2"),
 @pytest.mark.parametrize("axis,item", UNPORTED, ids=[a for a, _ in UNPORTED])
 def test_config_refuses_each_unported_axis_naming_its_item(axis, item):
     """Each axis still unported raises naming its item; the fsdp axis (A13
-    item 1), the sequence axis (A13 item 5), the expert axis (A13 item 3)
-    and the pipeline axis (A13 item 4) are ported, so their configs are
-    accepted: the pipeline config's training block loads unedited."""
-    if axis in ("fsdp", "sequence", "expert", "pipeline"):
+    item 1), the tensor axis (A13 item 2), the sequence axis (A13 item
+    5), the expert axis (A13 item 3) and the pipeline axis (A13 item 4)
+    are ported, so their configs are accepted: the pipeline config's
+    training block loads unedited."""
+    if axis in ("fsdp", "tensor", "sequence", "expert", "pipeline"):
         cfg = TrainingConfig.from_dict({"model": "gpt_tiny",
                                         "mesh": {axis: 2}})
         assert getattr(cfg.mesh, axis) == 2

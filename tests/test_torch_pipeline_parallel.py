@@ -86,6 +86,7 @@ from test_torch_data_parallel import (  # noqa: E402
 from torch_gangs import (  # noqa: E402
     SMOKE_EXPERT,
     SMOKE_FSDP,
+    SMOKE_TENSOR,
     SMOKE_PIPELINE,
     SMOKE_SEQ,
     rehearse_smoke,
@@ -765,20 +766,27 @@ def test_a_pipeline_gangs_checkpoint_restores_at_world_1_and_in_jax(
 
 
 def test_chip_smoke_phase_21_rehearsal(tmp_path):
-    """Phases 19-21 and 23 of chip_smoke.py on the CPU at gpt_tiny size,
-    with the gangs main runs (`phase_gangs`: one pair of ranks running
-    19a, 19b and 20b in turn, one quartet 21a, 21b, 23a, 23b and 20a, the
-    two at once): 21a's `{pipeline: 4}` gang against world 1 (losses,
+    """Phases 19-21, 23 and 25 of chip_smoke.py on the CPU at gpt_tiny
+    size, with the gangs main runs (`phase_gangs`: one pair of ranks
+    running 19a, 19b, 25a, 25c and 20b in turn, one quartet 21a, 21b, 23a,
+    23b, 25b and 20a, the two at once): 21a's `{pipeline: 4}` gang
+    against world 1 (losses,
     each rank's parameter bytes by the formula, the stage blocks joined
     against world 1's weights), 21b's live counters under both schedules,
     21c's checkpoint restored at world 1 (the blocks joined, bit for
     bit); 23a's `{fsdp: 4}` and 23b's `{data: 2, fsdp: 2}` against world
     1 (losses, a rank's bytes by the specs' formula, the collectives'
     formulas, rank 0's gathered weights against world 1's), 23c's
-    checkpoint restored at world 1 (the blocks joined, bit for bit); 19
+    checkpoint restored at world 1 (the blocks joined, bit for bit); 25a's
+    `{tensor: 2}`, 25b's `{data: 2, tensor: 2}` (against 23's world 1,
+    the same cell) and 25c's bert_tiny `{tensor: 2}` against world 1
+    (losses, replicated leaves, a rank's bytes by the specs' formula, the
+    all-reduces' formulas, rank 0's joined weights against world 1's); 19
     and 20 read off the shared gangs as their own rehearsals hold them."""
     launches = rehearse_smoke(tmp_path, seq=SMOKE_SEQ, expert=SMOKE_EXPERT,
-                              pipeline=SMOKE_PIPELINE, fsdp=SMOKE_FSDP)
+                              pipeline=SMOKE_PIPELINE, fsdp=SMOKE_FSDP,
+                              tensor=SMOKE_TENSOR)
     zero = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     assert launches == {"seq": zero, "expert": zero, "pipeline": zero,
-                        "fsdp": zero}
+                        "fsdp": zero, "tensor": {"25a": zero, "25b": zero,
+                                                 "25c": zero}}

@@ -287,8 +287,15 @@ def test_config_refuses_what_it_does_not_honour():
     with pytest.raises(ConfigError, match="A13 item 8"):
         TrainingConfig.from_dict({"model": "gpt_tiny",
                                   "mesh": {"fsdp": 2, "expert": 2}})
-    with pytest.raises(ConfigError, match="A13 item 2"):
-        TrainingConfig.from_dict({"model": "gpt_tiny", "mesh": {"tensor": 2}})
+    # the tensor axis is ported; beside the fsdp axis, and for an image
+    # model, it names its ROADMAP item
+    assert TrainingConfig.from_dict(
+        {"model": "gpt_tiny", "mesh": {"tensor": 2}}).mesh.tensor == 2
+    with pytest.raises(ConfigError, match="A13 item 9"):
+        TrainingConfig.from_dict({"model": "gpt_tiny",
+                                  "mesh": {"tensor": 2, "fsdp": 2}})
+    with pytest.raises(ConfigError, match="A13 item 10"):
+        TrainingConfig.from_dict({"model": "mlp", "mesh": {"tensor": 2}})
     with pytest.raises(ConfigError, match="unknown field"):
         TrainingConfig.from_dict({"model": "gpt_tiny", "bogus": 1})
     with pytest.raises(ConfigError, match="A14"):

@@ -1,8 +1,8 @@
 """Shared by the port's gang tests: start a gang of the port's ranks on
 the CPU (one process a rank, gloo over 127.0.0.1, the env
 `render_gang_env` gives each) running a worker's source, and read each
-rank's result line; rehearse chip_smoke.py's gang phases (19-21, 23,
-24) on the CPU. Imports no JAX."""
+rank's result line; rehearse chip_smoke.py's gang phases (19-21, 23-25)
+on the CPU. Imports no JAX."""
 
 import json
 import os
@@ -76,7 +76,7 @@ def chip_smoke():
     return smoke
 
 
-# the cells of chip_smoke.py's phases 19-21, 23 and 24 at test size, f32
+# the cells of chip_smoke.py's phases 19-21 and 23-25 at test size, f32
 # on the CPU:
 # each phase's plan keywords (its `phase_gangs` argument)
 SMOKE_SEQ = {"overrides": dict(model="gpt_tiny", seq_len=64,
@@ -100,22 +100,32 @@ SMOKE_SERVE = {"overrides": dict(
     models={"gpt_small": "gpt_tiny", "gpt_small_moe": "gpt_tiny_moe"},
     lens=(5, 17, 33, 90, 70), max_new=8, buckets="8,16,32",
     dtype="float32")}
+# phase 25's cells: 23's gpt_tiny cell and bert_tiny at 16a's dropout
+SMOKE_TENSOR = {"overrides": dict(model="gpt_tiny", seq_len=32,
+                                  dtype="float32", loss_chunk=16,
+                                  attention_impl="dense"),
+                "bert_overrides": dict(model="bert_tiny", seq_len=32,
+                                       dtype="float32",
+                                       attention_impl="dense"),
+                "model_kwargs": {}}
 # 19c's ring ranks at test size (phase_ring_cost's keywords, but dtype)
 SMOKE_RING_COST = dict(b=1, s=64, n=8, h=4, d=16)
 
 
 def rehearse_smoke(root, seq=None, expert=None, pipeline=None, fsdp=None,
-                   serve=None):
-    """chip_smoke.py's phases 19-21, 23 and 24 as `main` runs them, on
+                   serve=None, tensor=None):
+    """chip_smoke.py's phases 19-21 and 23-25 as `main` runs them, on
     the CPU: `phase_gangs` (the same gangs, the given phases' cells), then
     each given phase's world 1 and gates on its gang's reports → {phase:
-    its flash launches (phase 24: its cells' rank-0 reports)}."""
+    its flash launches (phase 24: its cells' rank-0 reports; phase 25:
+    its cells')}; phase 25 reads phase 23's world 1 where its cell is
+    23's."""
     import torch
 
     smoke = chip_smoke()
     gangs = smoke.phase_gangs(torch, str(root), device="cpu", seq=seq,
                               expert=expert, pipeline=pipeline, fsdp=fsdp,
-                              serve=serve)
+                              serve=serve, tensor=tensor)
     out = {}
     if seq is not None:
         out["seq"] = smoke.phase_sequence(
@@ -127,8 +137,13 @@ def rehearse_smoke(root, seq=None, expert=None, pipeline=None, fsdp=None,
     if pipeline is not None:
         out["pipeline"] = smoke.phase_pipeline(torch, gangs["pipeline"],
                                                device="cpu")
+    ref = {}
     if fsdp is not None:
-        out["fsdp"] = smoke.phase_fsdp(torch, gangs["fsdp"], device="cpu")
+        out["fsdp"] = smoke.phase_fsdp(torch, gangs["fsdp"], device="cpu",
+                                       ref=ref)
+    if tensor is not None:
+        out["tensor"] = smoke.phase_tensor(torch, gangs["tensor"],
+                                           device="cpu", ref=ref or None)
     if serve is not None:
         out["serve"] = smoke.phase_serving_mesh(torch, gangs["serve"], None,
                                                 device="cpu")
