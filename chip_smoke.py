@@ -413,6 +413,23 @@ Phases (any failure raises and the script exits non-zero):
    rank's call ([TB, TS, TH, 64], causal: rows 3t-5t, `tp_call`), and
    the kernels line gives each flash row its `tp_launches` (25a, 25b,
    25c; a row at 0 in 25a or 25b fails).
+26. The InferenceService path (controllers/inference.py and
+   statefulset.py, serving/main.py as a pod runs it). 26a: a StateStore
+   with the port's DeploymentController and InferenceServiceController;
+   InferenceService `lm-serve` (gpt_small, `gpu.topology: h100-1`,
+   INFERENCE_SERVING: phase 5's knobs) reconciles to a Deployment whose
+   pod `lm-serve-0` carries the rendered command (`python -m
+   kubeflow_tpu_torch.serving.main`) and env. That command runs as a
+   child with that env, only `--port` rewritten to a free local port.
+   Once its /healthz answers, the pod is set Running and the service
+   must read Ready=True. Phase 5's traffic then goes to the child (its
+   warm-up, the seven concurrent requests, the 300-token prompt again).
+   Gates: every reply 200; the tokens phase 5's bit for bit (the same
+   seed-0 weights, knobs and dtype); the child's paged launches over
+   the traffic, read from its /metrics (`serving_kernel_launches`),
+   phase 5's; its pool phase 5's 384 pages; SIGTERM drains and the child
+   exits 0 within the rendered terminationGracePeriodSeconds. The
+   kernels line gives each bf16 paged row its `inference_launches`.
 
 Every phase prints its seconds, and the line before the nvidia-smi line
 the whole run's. The last lines are the nvidia-smi line, a {"kernels":
@@ -429,6 +446,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -874,6 +892,12 @@ JOB_PLAN = f"trainer.device_step:after={JOB_SAVE},once,attempt=0"
 JOB_LOSS_REL = 0.0
 # the whole phase's time limit for each of 22a's study and 22b's job
 JOB_TIMEOUT_S = 2 * GANG_RANK_TIMEOUT_S
+# phase 26a: the InferenceService's spec.serving (phase 5's knobs) and
+# how long its pod's process may take to answer /healthz
+INFERENCE_SERVING = {"num_slots": 8, "page_size": 16,
+                     "prefill_buckets": [int(b) for b in BUCKETS.split(",")],
+                     "paged_attention": "kernel"}
+INFERENCE_READY_TIMEOUT_S = 300
 
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
@@ -6546,6 +6570,189 @@ def phase_jobs(torch, layers):
     return launches
 
 
+def free_port() -> int:
+    """A local port nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def metric_launches(port):
+    """{kernel: launches} from a server's /metrics
+    (`serving_kernel_launches`)."""
+    status, body = get(port, "/metrics")
+    if status != 200:
+        raise AssertionError(f"/metrics answered {status}")
+    out = {}
+    for line in body.decode().splitlines():
+        if line.startswith("serving_kernel_launches{"):
+            kernel = line.split('kernel="', 1)[1].split('"', 1)[0]
+            out[kernel] = int(float(line.rsplit(" ", 1)[1]))
+    return out
+
+
+def service_ready(store, name):
+    """The InferenceService's Ready condition status."""
+    conds = store.get("InferenceService", name).get("status", {}).get(
+        "conditions", [])
+    return next((c["status"] for c in conds if c["type"] == "Ready"), None)
+
+
+def phase_inference(torch, ref, model="gpt_small", device="cuda",
+                    serving=INFERENCE_SERVING, lens=SERVE_TRAFFIC["lens"]):
+    """Phase 26a: `ref` is phase 5's {"prompts", "tokens", "launches",
+    "pages_total"} → the child's paged launches over the traffic. The pod
+    runs on the card; `device="cpu"` (a rehearsal) appends `--device cpu`
+    to its command."""
+    from kubeflow_tpu_torch.cluster.reconciler import ControllerManager
+    from kubeflow_tpu_torch.cluster.store import StateStore
+    from kubeflow_tpu_torch.controllers import (
+        DeploymentController,
+        InferenceServiceController,
+        new_inference_service,
+    )
+    from kubeflow_tpu_torch.models.registry import get_model
+
+    t26 = time.monotonic()
+    store = StateStore()
+    cm = ControllerManager(store)
+    cm.register(DeploymentController())
+    cm.register(InferenceServiceController())
+    store.create(new_inference_service("lm-serve", model=model,
+                                       gpu_topology="h100-1",
+                                       serving=serving))
+    cm.run_until_idle(max_seconds=10)
+    pod = store.get("Pod", "lm-serve-0")
+    container = pod["spec"]["containers"][0]
+    grace = pod["spec"]["terminationGracePeriodSeconds"]
+    if container["resources"]["limits"] != {"nvidia.com/gpu": "1"}:
+        raise AssertionError(f"26a: the pod requests "
+                             f"{container['resources']}")
+    if service_ready(store, "lm-serve") != "False":
+        raise AssertionError("26a: the service is Ready before its pod runs")
+    cmd = list(container["command"])
+    port = free_port()
+    at = cmd.index("--port") + 1
+    print(f"inference 26a: the rendered command {' '.join(cmd)}; --port "
+          f"{cmd[at]} rewritten to {port} (a free local port)", flush=True)
+    cmd[at] = str(port)
+    if device == "cpu":
+        cmd += ["--device", "cpu"]
+    env = {k: v for k, v in os.environ.items() if not k.startswith("KFT_")}
+    env.update({e["name"]: e["value"] for e in container["env"]})
+    vocab = get_model(model, device="meta").cfg.vocab_size
+    prompts, warm = serve_traffic(vocab, lens, serving["prefill_buckets"][-1])
+    max_new = SERVE_TRAFFIC["max_new"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="kft-isvc-") as root:
+        log_path = os.path.join(root, "lm-serve-0.log")
+
+        def fail(msg):
+            with open(log_path) as f:
+                tail = f.read()[-6000:]
+            raise AssertionError(f"26a: {msg}; the pod's log:\n{tail}")
+
+        with open(log_path, "w") as log:
+            t0 = time.monotonic()
+            proc = subprocess.Popen(cmd, env=env, cwd=here, stdout=log,
+                                    stderr=subprocess.STDOUT)
+            try:
+                while True:
+                    if proc.poll() is not None:
+                        fail(f"the pod's process exited {proc.returncode} "
+                             f"before it was ready")
+                    if time.monotonic() - t0 > INFERENCE_READY_TIMEOUT_S:
+                        fail(f"/healthz did not answer within "
+                             f"{INFERENCE_READY_TIMEOUT_S} s")
+                    try:
+                        if get(port, "/healthz")[0] == 200:
+                            break
+                    except OSError:
+                        pass
+                    time.sleep(0.25)
+                ready_s = time.monotonic() - t0
+                store.patch_status("Pod", "lm-serve-0", "default",
+                                   {"phase": "Running"})
+                cm.run_until_idle(max_seconds=10)
+                if service_ready(store, "lm-serve") != "True":
+                    fail("the service is not Ready with its pod running")
+                # phase 5's warm-up, then its traffic
+                status, _ = post(port, model, {"prompt_ids": [warm],
+                                               "max_new_tokens": 2})
+                if status != 200:
+                    fail(f"the warm-up answered {status}")
+                before = metric_launches(port)
+                results = [None] * len(prompts)
+
+                def run(i):
+                    results[i] = post(port, model, {
+                        "prompt_ids": [prompts[i]],
+                        "max_new_tokens": max_new})
+
+                t1 = time.monotonic()
+                threads = [threading.Thread(target=run, args=(i,))
+                           for i in range(len(prompts))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=900)
+                prompts.append(prompts[-1])
+                results.append(post(port, model, {
+                    "prompt_ids": [prompts[-1]], "max_new_tokens": max_new}))
+                wall = time.monotonic() - t1
+                after = metric_launches(port)
+                _, statusz = get(port, "/statusz")
+                if proc.poll() is not None:
+                    fail(f"the pod's process exited {proc.returncode} "
+                         f"during the traffic")
+                t2 = time.monotonic()
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    code = proc.wait(grace)
+                except subprocess.TimeoutExpired:
+                    fail(f"SIGTERM: still running after the grace period "
+                         f"of {grace} s")
+                stop_s = time.monotonic() - t2
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if code != 0:
+            fail(f"SIGTERM: the pod's process exited {code}")
+        with open(log_path) as f:
+            if "drain complete" not in f.read():
+                fail("SIGTERM: the drain did not complete")
+        for res in results:
+            if res is None or res[0] != 200:
+                fail(f":generate failed: {res}")
+        tokens = [res[1]["sequences"][0][len(prompt):]
+                  for prompt, res in zip(prompts, results)]
+        if prompts != ref["prompts"]:
+            fail("the traffic is not phase 5's")
+        if tokens != ref["tokens"]:
+            bad = [i for i, (a, b) in enumerate(zip(tokens, ref["tokens"]))
+                   if a != b]
+            fail(f"the tokens of requests {bad} differ from phase 5's")
+        launches = {k: after[k] - before.get(k, 0) for k in after}
+        want = {k: ref["launches"].get(k, 0) for k in launches}
+        if launches != want:
+            fail(f"paged launches {launches}, phase 5's {want}")
+        pool = f"/{ref['pages_total']} pages of {serving['page_size']}"
+        if pool.encode() not in statusz:
+            fail(f"the pool is not phase 5's {pool[1:]}")
+    gen = max_new * (len(prompts) - 1)
+    print(f"inference 26a: pod start to ready {ready_s:.3f} s; phase 5's "
+          f"traffic {wall:.3f} s ({gen} tokens, {gen / wall:.1f} tokens/s, "
+          f"warm-up excluded); launches {launches}; tokens equal phase 5's "
+          f"bit for bit; SIGTERM drained, exit 0 in {stop_s:.3f} s (grace "
+          f"{grace} s) | {smi_line() if device == 'cuda' else device}",
+          flush=True)
+    print(f"phase 26: {time.monotonic() - t26:.3f} s", flush=True)
+    return launches
+
+
 def rank_shape(records, key):
     """A paged kernel row's numbers at a serving-mesh rank's shape (H =
     MESH_H): the B=8 decode call or the main path's windows."""
@@ -6864,7 +7071,19 @@ def main() -> int:
             if rec["job_launches"] < 1:
                 raise AssertionError(f"the job path never launched "
                                      f"{rec['name']}")
-    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-25, "
+    torch.cuda.empty_cache()
+    # this slice's path: an InferenceService's rendered pod, run as a
+    # child process, serving phase 5's traffic through the paged kernels
+    isvc_launches = phase_inference(torch, {
+        "prompts": bf16_stats["traffic"]["prompts"],
+        "tokens": bf16_stats["traffic"]["tokens"], "launches": launches,
+        "pages_total": bf16_stats["pages_total"]})
+    for rec in kernels[:2]:
+        rec["inference_launches"] = isvc_launches[rec["name"]]
+        if rec["inference_launches"] < 1:
+            raise AssertionError(f"the InferenceService path never "
+                                 f"launched {rec['name']}")
+    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-26, "
           f"after the interpreter's start)", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,11 @@
 kubeflow_tpu/config/platform.py's `TrainingConfig`, `MeshConfig`,
 `DataConfig` and `CheckpointConfig` the port's training path honours, of
 `ObservabilityConfig` and `ChaosConfig` both paths read, and of
-`ServingConfig`'s `observability`, `chaos` and `disagg` subtrees), and
-`SliceConfig`, the GPU counterpart of the JAX package's TPU slice request:
-an H100 topology from `GPU_TOPOLOGIES`, one pod a card.
+`ServingConfig`: its engine and KV-tier knobs and its `mesh`,
+`observability`, `chaos` and `disagg` subtrees, which
+controllers/inference.py renders into a serving pod), and `SliceConfig`,
+the GPU counterpart of the JAX package's TPU slice request: an H100
+topology from `GPU_TOPOLOGIES`, one pod a card.
 
 Fields keep the JAX package's names and defaults. A field of the JAX
 config that the port does not honour yet is absent here, so passing it
@@ -44,20 +46,21 @@ _UNPORTED_OBSERVABILITY_FIELDS = {
     "fleet_straggler_zscore": "A14 (the fleet collector)",
     "fleet_burn_window": "A14 (the fleet collector)",
 }
-# ServingConfig fields the port takes elsewhere or not yet: the engine and
-# tier knobs are build_server's arguments and its KFT_SERVING_* env
-_SERVING_KNOBS = "A14 (a rendered ServingConfig; the port takes this " \
-    "knob as a build_server argument or its KFT_SERVING_* env)"
+# ServingConfig subtrees that wait for the fleet collector and the router
 _UNPORTED_SERVING_FIELDS = {
-    **{name: _SERVING_KNOBS for name in (
-        "num_slots", "page_size", "num_pages", "prefix_cache",
-        "paged_attention", "quantize", "prefill_buckets", "max_queue",
-        "draft_model", "num_draft_tokens", "draft_checkpoint_dir",
-        "kv_host_bytes", "kv_persist_dir", "kv_persist_interval_s",
-        "kv_persist_chains", "drain_deadline_s")},
     "autoscale": "A14 (the router's autoscaler)",
     "router": "A14 (the router)",
 }
+# DisaggConfig fields read only by the router's steering and the per-tier
+# autoscaler
+_UNPORTED_DISAGG_FIELDS = {
+    name: "A14 (the router and its autoscaler)" for name in (
+        "min_prefill_replicas", "max_prefill_replicas", "cold_hit_rate",
+        "scale_up_ttft_p99_s", "scale_up_cold_per_s")
+}
+# cards a serving replica's pod may request: a replica is one pod on one
+# node, and an H100 node holds 8
+GPUS_PER_NODE = 8
 
 MESH_AXES = ("data", "fsdp", "tensor", "pipeline", "sequence", "expert")
 # pairs of axes (each ported alone) that the port does not run together
@@ -558,21 +561,35 @@ def _num_experts(model: str) -> int:
 
 @dataclasses.dataclass
 class DisaggConfig:
-    """The disaggregated prefill/decode fleet, the field a serving
-    replica reads: `handoff_chains` bounds the committed radix pages a
-    draining replica ships to the keys' new rendezvous homes
-    (`POST /v1/kv/handoff` without a "chains" count; hottest first, the
-    host tier included). The fleet's other knobs (tiers, steering,
-    autoscale) wait for the router (ROADMAP A14)."""
+    """The disaggregated prefill/decode fleet (the JAX `DisaggConfig`'s
+    fields a replica and its controller read). `enabled` renders a
+    `<name>-prefill` Deployment of `prefill_replicas` pods beside the
+    decode tier (controllers/inference.py); `handoff_chains` bounds the
+    committed radix pages a draining replica ships to the keys' new
+    rendezvous homes (`POST /v1/kv/handoff` without a "chains" count;
+    hottest first, the host tier included). The steering and per-tier
+    autoscale knobs wait for the router (ROADMAP A14), so the port's
+    prefill tier is reached by a client that steers (`:prefill` with
+    its decode peers), and `enabled` does not need `router.enabled` as
+    the JAX config does."""
 
+    enabled: bool = False
+    prefill_replicas: int = 1
     handoff_chains: int = 64
 
     def __post_init__(self):
         self.validate()
 
     def validate(self) -> None:
+        if self.prefill_replicas < 0:
+            raise ConfigError("serving.disagg.prefill_replicas must be >= 0")
         if self.handoff_chains < 1:
             raise ConfigError("serving.disagg.handoff_chains must be >= 1")
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "DisaggConfig":
+        _check_keys(raw, cls, _UNPORTED_DISAGG_FIELDS, "serving.disagg.")
+        return cls(**raw)
 
 
 @dataclasses.dataclass
@@ -602,9 +619,14 @@ class ServingMeshConfig:
                     f"serving.mesh.{axis} must be a positive int, got {v!r}"
                 )
 
+    @property
+    def num_devices(self) -> int:
+        """Cards a replica runs on: tensor · fsdp · expert."""
+        return self.tensor * self.fsdp * self.expert
+
     def env(self) -> Dict[str, str]:
-        """The KFT_SERVING_MESH_* env a controller renders into every
-        rank of a serving replica (serving/main.py reads it)."""
+        """The KFT_SERVING_MESH_* env a controller renders into a serving
+        replica's pod (serving/main.py reads it)."""
         return {"KFT_SERVING_MESH_TENSOR": str(self.tensor),
                 "KFT_SERVING_MESH_FSDP": str(self.fsdp),
                 "KFT_SERVING_MESH_EXPERT": str(self.expert)}
@@ -617,20 +639,62 @@ class ServingMeshConfig:
 
 @dataclasses.dataclass
 class ServingConfig:
-    """The serving config's subtrees a port replica reads (the JAX
-    `ServingConfig`'s `observability`, `chaos`, `disagg` and `mesh`).
-    Its engine and tier knobs are `build_server`'s arguments and
-    KFT_SERVING_* env here; `from_dict` refuses them naming where they
-    wait. `mesh.env()` is the KFT_SERVING_MESH_* env of its mesh."""
+    """Continuous-batching decode-engine knobs (serving/engine.py), the
+    JAX `ServingConfig`'s fields, defaults and checks. The
+    InferenceService controller (controllers/inference.py) renders them
+    as KFT_SERVING_*, KFT_TRACE_* and KFT_CHAOS_* into every serving pod,
+    where serving/main.py `engine_knobs_from_env` reads them back.
 
-    observability: ObservabilityConfig = dataclasses.field(
-        default_factory=ObservabilityConfig
-    )
-    chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
-    disagg: DisaggConfig = dataclasses.field(default_factory=DisaggConfig)
+    `paged_attention` takes the port's read paths, `gather | kernel`
+    (models/gpt.py `PAGED_ATTENTION_IMPLS`): "kernel" is the CUDA page
+    walk, the counterpart of the JAX package's "pallas", which is
+    refused here. `mesh` is a replica's `tensor × fsdp × expert` serving
+    mesh: one pod on that many cards of one node (at most
+    `GPUS_PER_NODE`), one process a card. `autoscale` and `router`
+    wait for the fleet collector and the router (ROADMAP A14):
+    `from_dict` refuses them naming that item."""
+
+    # resident decode slots (the engine's batch); 0 disables the engine
+    num_slots: int = 8
+    # tokens per KV pool page (a power of two dividing max_len)
+    page_size: int = 16
+    # pool capacity in pages; 0 = auto
+    num_pages: int = 0
+    # radix prefix index over committed requests
+    prefix_cache: bool = True
+    # decode read path: gather | kernel
+    paged_attention: str = "gather"
+    # none | int8 (int8 weights and int8 KV pages)
+    quantize: str = "none"
+    # prompt-length buckets (ascending powers of two); empty = the
+    # power-of-two ladder from 8 to max_len
+    prefill_buckets: List[int] = dataclasses.field(default_factory=list)
+    # admission-queue bound: past it requests get 429
+    max_queue: int = 64
+    # registry model drafting speculative tokens; empty = none
+    draft_model: str = ""
+    # tokens drafted a slot a verify step (K); 0 = no speculation
+    num_draft_tokens: int = 0
+    # platform checkpoint of the draft's params; empty = seed-0 init
+    draft_checkpoint_dir: str = ""
+    # host-RAM budget of the KV spill tier in bytes; 0 = off
+    kv_host_bytes: int = 0
+    # the on-disk persistent prefix store; empty = off
+    kv_persist_dir: str = ""
+    # seconds between persists; 0 = only at drain / shutdown
+    kv_persist_interval_s: float = 0.0
+    # prefix pages a persisted generation keeps, hottest first
+    kv_persist_chains: int = 64
+    # SIGTERM drain budget; the pod's grace period is derived from it
+    drain_deadline_s: float = 30.0
     mesh: ServingMeshConfig = dataclasses.field(
         default_factory=ServingMeshConfig
     )
+    observability: ObservabilityConfig = dataclasses.field(
+        default_factory=ObservabilityConfig
+    )
+    disagg: DisaggConfig = dataclasses.field(default_factory=DisaggConfig)
+    chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
 
     def __post_init__(self):
         if isinstance(self.mesh, Mapping):
@@ -642,20 +706,33 @@ class ServingConfig:
         if isinstance(self.chaos, Mapping):
             self.chaos = ChaosConfig.from_dict(self.chaos)
         if isinstance(self.disagg, Mapping):
-            self.disagg = DisaggConfig(**self.disagg)
+            self.disagg = DisaggConfig.from_dict(self.disagg)
         self.validate()
 
     def validate(self) -> None:
+        from kubeflow_tpu_torch.chaos import parse_points
+        from kubeflow_tpu_torch.models.gpt import (
+            PAGED_ATTENTION_IMPLS,
+            QUANTIZE_CHOICES,
+        )
+
+        self.mesh.validate()
         self.observability.validate()
         self.disagg.validate()
-        self.mesh.validate()
+        if self.disagg.enabled:
+            if not self.prefix_cache:
+                raise ConfigError(
+                    "serving.disagg.enabled needs serving.prefix_cache: "
+                    "handed-off pages are admitted as radix prefix hits")
+            if self.num_slots < 1:
+                raise ConfigError(
+                    "serving.disagg.enabled needs serving.num_slots >= 1: "
+                    "both tiers run the decode engine")
         # a programmatically built config must hit the same parse
         # rejection from_dict applies
         self.chaos.validate()
         # serving replicas have no gang-incarnation counter: an
         # attempt-qualified point would arm inert, so it fails here
-        from kubeflow_tpu_torch.chaos import parse_points
-
         for spec in parse_points(self.chaos.points):
             if spec.attempt is not None:
                 raise ConfigError(
@@ -664,8 +741,87 @@ class ServingConfig:
                     f"GPUTrainJob controller renders the incarnation "
                     f"counter; serving replicas have none)"
                 )
+        if self.drain_deadline_s < 0:
+            raise ConfigError("serving.drain_deadline_s must be >= 0")
+        if self.num_slots < 0:
+            raise ConfigError("serving.num_slots must be >= 0")
+        if self.max_queue < 1:
+            raise ConfigError("serving.max_queue must be >= 1")
+        if self.num_draft_tokens < 0:
+            raise ConfigError("serving.num_draft_tokens must be >= 0")
+        if self.num_draft_tokens > 0 and not self.draft_model:
+            raise ConfigError(
+                "serving.num_draft_tokens > 0 needs serving.draft_model "
+                "(speculative decoding drafts from a second model)")
+        if self.paged_attention not in PAGED_ATTENTION_IMPLS:
+            hint = (" (the JAX package's TPU page walk; the port's CUDA "
+                    "page walk is 'kernel')"
+                    if self.paged_attention == "pallas" else "")
+            raise ConfigError(
+                f"serving.paged_attention must be one of "
+                f"{list(PAGED_ATTENTION_IMPLS)}, got "
+                f"{self.paged_attention!r}{hint}")
+        if self.quantize not in QUANTIZE_CHOICES:
+            raise ConfigError(
+                f"serving.quantize must be one of {list(QUANTIZE_CHOICES)}, "
+                f"got {self.quantize!r}")
+        # both knobs live inside the decode engine, which num_slots=0
+        # disables
+        if self.num_slots < 1 and self.paged_attention != "gather":
+            raise ConfigError(
+                "serving.paged_attention=kernel needs serving.num_slots "
+                ">= 1: the kernel serves the decode engine's step, and "
+                "num_slots=0 disables the engine")
+        if self.num_slots < 1 and self.mesh.num_devices > 1:
+            raise ConfigError(
+                "serving.mesh needs serving.num_slots >= 1: the mesh "
+                "shards the decode engine's programs, and num_slots=0 "
+                "disables the engine (the static path would silently "
+                "serve one card)")
+        if self.mesh.num_devices > GPUS_PER_NODE:
+            raise ConfigError(
+                f"serving.mesh needs {self.mesh.num_devices} cards "
+                f"(tensor·fsdp·expert) in one pod, more than the "
+                f"{GPUS_PER_NODE} of one node")
+        if self.num_draft_tokens > 0 and self.num_slots < 1:
+            raise ConfigError(
+                "serving.num_draft_tokens > 0 needs serving.num_slots "
+                ">= 1: speculation lives inside the decode engine, and "
+                "num_slots=0 disables it (the drafted knobs would be "
+                "silently ignored)")
+        for b in self.prefill_buckets:
+            if b < 1 or b & (b - 1):
+                raise ConfigError(
+                    f"serving.prefill_buckets entries must be positive "
+                    f"powers of two, got {b}")
+        if self.prefill_buckets != sorted(self.prefill_buckets):
+            raise ConfigError("serving.prefill_buckets must be ascending")
+        if self.page_size < 1 or self.page_size & (self.page_size - 1):
+            raise ConfigError(
+                f"serving.page_size must be a positive power of two, "
+                f"got {self.page_size}")
+        if self.num_pages < 0:
+            raise ConfigError("serving.num_pages must be >= 0 (0 = auto)")
+        if self.kv_host_bytes < 0:
+            raise ConfigError(
+                "serving.kv_host_bytes must be >= 0 (0 = no host tier)")
+        if self.kv_persist_interval_s < 0:
+            raise ConfigError(
+                "serving.kv_persist_interval_s must be >= 0 "
+                "(0 = shutdown-only snapshots)")
+        if self.kv_persist_chains < 1:
+            raise ConfigError("serving.kv_persist_chains must be >= 1")
+        if (self.kv_host_bytes > 0 or self.kv_persist_dir) \
+                and not self.prefix_cache:
+            raise ConfigError(
+                "serving.kv_host_bytes / kv_persist_dir need "
+                "serving.prefix_cache=true: both tiers key off the "
+                "radix index's committed chains (the knobs would be "
+                "silently ignored)")
 
     @classmethod
     def from_dict(cls, raw: Mapping[str, Any]) -> "ServingConfig":
+        """Build from a spec's `serving:` mapping; `autoscale` and
+        `router` raise, naming the ROADMAP item they wait for."""
         _check_keys(raw, cls, _UNPORTED_SERVING_FIELDS, "serving.")
         return cls(**raw)

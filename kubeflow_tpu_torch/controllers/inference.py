@@ -1,0 +1,323 @@
+"""InferenceService controller: model-serving deployments per CR (port of
+kubeflow_tpu/controllers/inference.py without its autoscaler and router).
+
+InferenceService CR → a Deployment of the port's model server (`python -m
+kubeflow_tpu_torch.serving.main`) + Service(8500) + VirtualService
+/models/<ns>/<name>/, the same reconcile idiom as the JAX controller. The
+pod's env is the engine contract: the platform's `ServingConfig` merged
+with the CR's `spec.serving`, rendered as KFT_SERVING_*, KFT_TRACE_*,
+KFT_FLEET_METRICS_PORT and (armed only) KFT_CHAOS_*, which
+serving/main.py `engine_knobs_from_env` reads back.
+
+A replica is one pod. Its serving mesh (`serving.mesh`, tensor · fsdp ·
+expert = m cards) runs in that pod on m cards of one node: the pod
+requests `nvidia.com/gpu: m`, and serving/main.py starts the m − 1 worker
+ranks beside its own. `spec.gpu.topology`, when given, must be `h100-m`.
+The autoscaler and the router wait for the fleet collector and the router
+(ROADMAP A14); `ServingConfig.from_dict` refuses their subtrees, so
+nothing a spec asks for is silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+from kubeflow_tpu_torch.cluster.objects import (
+    new_object,
+    set_condition,
+    set_owner,
+)
+from kubeflow_tpu_torch.cluster.reconciler import Controller, Result
+from kubeflow_tpu_torch.cluster.store import StateStore
+from kubeflow_tpu_torch.config.platform import (
+    GPU_RESOURCE,
+    ConfigError,
+    ServingConfig,
+    SliceConfig,
+)
+from kubeflow_tpu_torch.controllers.statefulset import new_deployment
+
+KIND = "InferenceService"
+DEFAULT_IMAGE = "kubeflow-tpu/model-server:latest"
+SERVE_PORT = 8500
+SERVER_MODULE = "kubeflow_tpu_torch.serving.main"
+
+
+def new_inference_service(
+    name: str,
+    namespace: str = "default",
+    model: str = "",
+    checkpoint_dir: str = "",
+    gpu_topology: str = "",
+    replicas: int = 1,
+    image: str = DEFAULT_IMAGE,
+    serving: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Any]:
+    return new_object(
+        KIND,
+        name,
+        namespace,
+        spec={
+            "model": model,
+            "checkpointDir": checkpoint_dir,
+            # an H100 topology of config/platform.py GPU_TOPOLOGIES
+            "gpu": {"topology": gpu_topology} if gpu_topology else {},
+            "replicas": replicas,
+            "image": image,
+            # decode-engine knob overrides (ServingConfig field names);
+            # absent keys fall back to the platform defaults
+            "serving": dict(serving or {}),
+        },
+    )
+
+
+class InferenceServiceController(Controller):
+    kind = KIND
+    name = "inference-controller"
+
+    def __init__(
+        self,
+        use_istio: bool = True,
+        istio_gateway: str = "kubeflow/kubeflow-gateway",
+        serving_defaults: Optional[ServingConfig] = None,
+    ) -> None:
+        super().__init__()
+        self.use_istio = use_istio
+        self.istio_gateway = istio_gateway
+        # platform-wide engine defaults; per-CR spec.serving keys
+        # override field by field
+        self.serving_defaults = serving_defaults or ServingConfig()
+        self.watches = {"Deployment": self.map_owned}
+
+    def _serving_env(
+        self, spec: Dict[str, Any], cfg: Optional[ServingConfig] = None
+    ) -> Dict[str, str]:
+        """The engine contract rendered into every serving pod, read by
+        serving/main.py `engine_knobs_from_env`. Always rendered, also at
+        defaults: the pod's env documents the engine it runs."""
+        if cfg is None:
+            cfg = self._serving_cfg(spec)
+        obs = cfg.observability
+        env = {
+            "KFT_SERVING_NUM_SLOTS": str(cfg.num_slots),
+            "KFT_SERVING_MAX_QUEUE": str(cfg.max_queue),
+            "KFT_SERVING_PREFILL_BUCKETS": ",".join(
+                str(b) for b in cfg.prefill_buckets
+            ),
+            # paged-KV pool + radix prefix cache (serving/engine.py)
+            "KFT_SERVING_PAGE_SIZE": str(cfg.page_size),
+            "KFT_SERVING_NUM_PAGES": str(cfg.num_pages),
+            "KFT_SERVING_PREFIX_CACHE": "1" if cfg.prefix_cache else "0",
+            # tiered KV (serving/kv_tiers.py)
+            "KFT_SERVING_KV_HOST_BYTES": str(cfg.kv_host_bytes),
+            "KFT_SERVING_KV_PERSIST_DIR": cfg.kv_persist_dir,
+            "KFT_SERVING_KV_PERSIST_INTERVAL_S": (
+                f"{cfg.kv_persist_interval_s:g}"
+            ),
+            "KFT_SERVING_KV_PERSIST_CHAINS": str(cfg.kv_persist_chains),
+            # decode read path (gather | kernel) and int8 quantization
+            "KFT_SERVING_PAGED_ATTENTION": cfg.paged_attention,
+            "KFT_SERVING_QUANTIZE": cfg.quantize,
+            **cfg.mesh.env(),
+            "KFT_SERVING_DRAFT_MODEL": cfg.draft_model,
+            "KFT_SERVING_DRAFT_TOKENS": str(cfg.num_draft_tokens),
+            "KFT_SERVING_DRAFT_CHECKPOINT_DIR": cfg.draft_checkpoint_dir,
+            # the SIGTERM drain budget (serving/main.py)
+            "KFT_SERVING_DRAIN_DEADLINE_S": f"{cfg.drain_deadline_s:g}",
+            # kft-trace (observability/trace.py knobs_from_env)
+            "KFT_TRACE_ENABLED": "1" if obs.trace_enabled else "0",
+            "KFT_TRACE_BUFFER_SPANS": str(obs.trace_buffer_spans),
+            "KFT_TRACE_STATUSZ": "1" if obs.statusz_enabled else "0",
+            "KFT_TRACE_SAMPLE_PROB": f"{obs.trace_sample_prob:g}",
+            "KFT_TRACE_SAMPLE_KEEP": str(obs.trace_sample_keep),
+        }
+        if obs.statusz_enabled:
+            # the fleet collector scrapes /metrics on the serving port; a
+            # statusz-off replica mounts no /statusz, so it advertises none
+            env["KFT_FLEET_METRICS_PORT"] = str(SERVE_PORT)
+        if cfg.chaos.enabled and cfg.chaos.points:
+            # rendered only when armed: a chaos-off pod carries no plan
+            env["KFT_CHAOS_POINTS"] = ";".join(cfg.chaos.points)
+            env["KFT_CHAOS_SEED"] = str(cfg.chaos.seed)
+        return env
+
+    def _serving_cfg(self, spec: Dict[str, Any]) -> ServingConfig:
+        """Platform defaults merged with the CR's spec.serving overrides;
+        the subtrees merge field by field, so a CR overriding one knob
+        keeps its siblings at the platform's values."""
+        merged = {
+            f.name: getattr(self.serving_defaults, f.name)
+            for f in dataclasses.fields(ServingConfig)
+        }
+        merged["prefill_buckets"] = list(merged["prefill_buckets"])
+        subtrees = ("mesh", "observability", "disagg", "chaos")
+        for subtree in subtrees:
+            merged[subtree] = dataclasses.asdict(merged[subtree])
+        overrides = dict(spec.get("serving") or {})
+        for subtree in subtrees:
+            merged[subtree].update(overrides.pop(subtree, None) or {})
+        merged.update(overrides)
+        return ServingConfig.from_dict(merged)
+
+    @staticmethod
+    def _gpu_request(spec: Dict[str, Any], cfg: ServingConfig):
+        """(resource limits, node selector) of a replica's pod, or None
+        without a topology: `nvidia.com/gpu` = the serving mesh's cards,
+        which `spec.gpu.topology` must name."""
+        topology = (spec.get("gpu") or {}).get("topology", "")
+        if not topology:
+            return None
+        slice_cfg = SliceConfig.from_dict({"topology": topology})
+        cards = cfg.mesh.num_devices
+        if slice_cfg.total_chips != cards:
+            raise ConfigError(
+                f"spec.gpu.topology {topology} has {slice_cfg.total_chips} "
+                f"card(s), but serving.mesh (tensor·fsdp·expert) runs a "
+                f"replica on {cards}: name h100-{cards}")
+        return {GPU_RESOURCE: str(cards)}, slice_cfg.node_selectors()
+
+    def reconcile(self, store: StateStore, namespace: str, name: str) -> Result:
+        svc_cr = store.try_get(KIND, name, namespace)
+        if svc_cr is None or svc_cr["metadata"].get("deletionTimestamp"):
+            return Result()
+        spec = svc_cr.get("spec", {})
+        serving_cfg = self._serving_cfg(spec)
+        gpu = self._gpu_request(spec, serving_cfg)
+
+        container: Dict[str, Any] = {
+            "name": "model-server",
+            "image": spec.get("image", DEFAULT_IMAGE),
+            "command": [
+                "python",
+                "-m",
+                SERVER_MODULE,
+                "--model", spec.get("model", ""),
+                "--checkpoint-dir", spec.get("checkpointDir", ""),
+                "--port", str(SERVE_PORT),
+            ],
+            "ports": [{"containerPort": SERVE_PORT}],
+            "env": [
+                {"name": k, "value": v}
+                for k, v in sorted(
+                    self._serving_env(spec, serving_cfg).items()
+                )
+            ],
+            # /healthz answers 503 + {"draining": true} while a drain
+            # runs: the replica leaves the Service endpoints alive
+            "readinessProbe": {
+                "httpGet": {"path": "/healthz", "port": SERVE_PORT},
+                "periodSeconds": 5,
+            },
+        }
+        # the grace period covers the worst-case shutdown: the SIGTERM
+        # poll (1 s), the drain deadline, and the engine's close after it
+        pod_spec: Dict[str, Any] = {
+            "containers": [container],
+            "terminationGracePeriodSeconds": int(
+                serving_cfg.drain_deadline_s
+            ) + 30,
+        }
+        if gpu is not None:
+            container["resources"] = {"limits": gpu[0]}
+            pod_spec["nodeSelector"] = gpu[1]
+
+        disagg = serving_cfg.disagg.enabled
+        labels = {"app": "model-server", "inferenceservice": name}
+        if disagg:
+            # the tier label is the role contract a steering client reads
+            labels["inferenceservice-tier"] = "decode"
+        dep = new_deployment(
+            name,
+            namespace,
+            int(spec.get("replicas", 1)),
+            pod_spec,
+            labels=labels,
+        )
+        set_owner(dep, svc_cr)
+        store.apply(dep)
+
+        prefill_name = f"{name}-prefill"
+        if disagg:
+            # the prefill tier: the same image and engine contract (the
+            # pages it ships must be bitwise the decode tier's), its own
+            # Deployment so the tiers scale apart
+            prefill_dep = new_deployment(
+                prefill_name,
+                namespace,
+                int(serving_cfg.disagg.prefill_replicas),
+                pod_spec,
+                labels={
+                    "app": "model-server",
+                    "inferenceservice": name,
+                    "inferenceservice-tier": "prefill",
+                },
+            )
+            set_owner(prefill_dep, svc_cr)
+            store.apply(prefill_dep)
+        else:
+            try:
+                store.delete("Deployment", prefill_name, namespace)
+            except KeyError:
+                pass
+
+        selector = {"inferenceservice": name}
+        if disagg:
+            # the Service VIP fronts decode capacity only: prefill pods
+            # answer :prefill at their stable pod addresses
+            selector["inferenceservice-tier"] = "decode"
+        svc = new_object(
+            "Service",
+            name,
+            namespace,
+            api_version="v1",
+            spec={
+                "selector": selector,
+                "ports": [{"port": SERVE_PORT, "targetPort": SERVE_PORT}],
+            },
+        )
+        set_owner(svc, svc_cr)
+        store.apply(svc)
+
+        if self.use_istio:
+            vs = new_object(
+                "VirtualService",
+                f"inference-{namespace}-{name}",
+                namespace,
+                api_version="networking.istio.io/v1alpha3",
+                spec={
+                    "hosts": ["*"],
+                    "gateways": [self.istio_gateway],
+                    "http": [
+                        {
+                            "match": [
+                                {"uri": {"prefix": f"/models/{namespace}/{name}/"}}
+                            ],
+                            "rewrite": {"uri": "/"},
+                            "route": [
+                                {
+                                    "destination": {
+                                        "host": f"{name}.{namespace}.svc.cluster.local",
+                                        "port": {"number": SERVE_PORT},
+                                    }
+                                }
+                            ],
+                        }
+                    ],
+                },
+            )
+            set_owner(vs, svc_cr)
+            store.apply(vs)
+
+        ready = (
+            store.try_get("Deployment", name, namespace) or {}
+        ).get("status", {}).get("readyReplicas", 0)
+        changed = set_condition(
+            svc_cr,
+            "Ready",
+            "True" if ready >= int(spec.get("replicas", 1)) else "False",
+            "Available" if ready else "Pending",
+        )
+        if changed:
+            store.patch_status(KIND, name, namespace, svc_cr["status"])
+        return Result()

@@ -27,16 +27,25 @@ hottest pages); both need the prefix cache.
 (absent: disarmed).
 `--checkpoint-dir` serves the latest committed platform checkpoint of a
 training run (the port's or the JAX package's). SIGTERM drains the
-engines before the process exits.
+engines (for at most `KFT_SERVING_DRAIN_DEADLINE_S` seconds) before the
+process exits. controllers/inference.py renders this command and its
+env into a serving pod.
 
 `KFT_SERVING_MESH_TENSOR`, `_FSDP` and `_EXPERT` (or `--mesh-tensor`,
 `--mesh-fsdp`, `--mesh-expert`) serve the engine on a `tensor × fsdp ×
-expert` serving mesh (parallel/serving_mesh.py): a gang of that many
-processes, one a card, each started with the gang env a controller
-renders (parallel/distributed.py `render_gang_env`) and the same
-arguments. Rank 0 builds the model and the engine and serves REST;
-every other rank builds the same model and runs the engine's relayed
-programs on its shard (`serve_mesh_worker`) until rank 0 closes.
+expert` serving mesh (parallel/serving_mesh.py): a gang of m = t·f·e
+processes, one a card. Rank 0 builds the model and the engine and serves
+REST; every other rank builds the same model and runs the engine's
+relayed programs on its shard (`serve_mesh_worker`) until rank 0 closes.
+A replica is one pod on m cards of one node: started without a gang env
+(`KFT_NUM_PROCESSES` absent), this process is rank 0 and starts ranks
+1..m−1 itself (`ReplicaWorkers`: the same command, the gang env of
+parallel/distributed.py `render_gang_env` over localhost, rank i on
+cuda:i). A worker's death fails the replica (exit 1). Started with a
+gang env, it is the rank that env names.
+
+`--device cpu` runs every rank on the CPU (gloo); the default is the
+card, and a rank whose card is missing raises.
 
     python -m kubeflow_tpu_torch.serving.main --model gpt_small \
         --checkpoint-dir /data/checkpoints/run --port 8500
@@ -46,8 +55,12 @@ from __future__ import annotations
 
 import argparse
 import os
+import signal
+import subprocess
 import sys
-from typing import Dict, Mapping, Optional
+import threading
+import time
+from typing import Dict, List, Mapping, Optional
 
 import torch
 
@@ -62,6 +75,13 @@ from kubeflow_tpu_torch.serving.engine import (
     DEFAULT_PAGED_ATTENTION,
     DEFAULT_QUANTIZE,
 )
+from kubeflow_tpu_torch.serving.server import DEFAULT_DRAIN_DEADLINE_S
+
+# how long rank 0 waits for its workers to end after its engine closed
+WORKER_EXIT_TIMEOUT_S = 30.0
+# set by a replica's rank 0 in its workers' env: rank 0's pid
+ENV_REPLICA_PARENT = "KFT_SERVING_REPLICA_PARENT"
+
 
 def _env_int(name: str, default: int) -> int:
     raw = os.environ.get(name, "")
@@ -89,7 +109,8 @@ def engine_knobs_from_env() -> dict:
     serving mesh: _MESH_TENSOR (ranks splitting the KV pools' heads and
     the heads/mlp/vocab dims of the weights), _MESH_FSDP (ranks
     splitting the weights' embed dims) and _MESH_EXPERT (ranks splitting
-    an MoE model's expert stacks); 1/1/1 is the one-card engine."""
+    an MoE model's expert stacks); 1/1/1 is the one-card engine; and
+    _DRAIN_DEADLINE_S (the SIGTERM drain budget)."""
     buckets_raw = os.environ.get("KFT_SERVING_PREFILL_BUCKETS", "")
     buckets = [int(b) for b in buckets_raw.split(",") if b.strip()]
     prefix_raw = os.environ.get("KFT_SERVING_PREFIX_CACHE", "").strip()
@@ -126,6 +147,9 @@ def engine_knobs_from_env() -> dict:
         "mesh_tensor": _env_int("KFT_SERVING_MESH_TENSOR", 1),
         "mesh_fsdp": _env_int("KFT_SERVING_MESH_FSDP", 1),
         "mesh_expert": _env_int("KFT_SERVING_MESH_EXPERT", 1),
+        "drain_deadline_s": _env_float(
+            "KFT_SERVING_DRAIN_DEADLINE_S", DEFAULT_DRAIN_DEADLINE_S
+        ),
     }
 
 
@@ -168,6 +192,7 @@ def build_server(
     mesh_tensor: Optional[int] = None,
     mesh_fsdp: Optional[int] = None,
     mesh_expert: Optional[int] = None,
+    drain_deadline_s: Optional[float] = None,
 ):
     """Assemble the ModelServer for one registry model. A causal LM gets
     the ServedLm plus (num_slots > 0) its continuous-batching
@@ -218,7 +243,9 @@ def build_server(
     disarms them). `trace_enabled`, `trace_buffer_spans` and
     `statusz_enabled` default from the KFT_TRACE_* env
     (`observability.trace.knobs_from_env`), which also gives the tail
-    sampler's probability and ring size."""
+    sampler's probability and ring size. `drain_deadline_s` (default
+    from KFT_SERVING_DRAIN_DEADLINE_S) is the server's SIGTERM drain
+    budget (`ModelServer.close(drain=True)`)."""
     from kubeflow_tpu_torch.chaos import configure_from_env as configure_chaos
     from kubeflow_tpu_torch.observability.trace import (
         default_tracer,
@@ -244,8 +271,12 @@ def build_server(
         sample_prob=obs["trace_sample_prob"],
         sample_keep=obs["trace_sample_keep"],
     )
+    env = engine_knobs_from_env()
+    if drain_deadline_s is None:
+        drain_deadline_s = env["drain_deadline_s"]
     if not is_causal_family(model):
         server = ModelServer(statusz_enabled=statusz_enabled)
+        server.drain_deadline_s = float(drain_deadline_s)
         server.add(ServedModel.from_registry(
             model, checkpoint_dir=checkpoint_dir or None, params=params,
             batch_window_ms=2.0 if batch_window_ms is None else batch_window_ms,
@@ -255,7 +286,6 @@ def build_server(
     if batch_window_ms:
         print("note: batch_window_ms does not apply to the :generate path "
               "(the decode engine batches at token granularity)", flush=True)
-    env = engine_knobs_from_env()
     num_slots = env["num_slots"] if num_slots is None else num_slots
     max_queue = env["max_queue"] if max_queue is None else max_queue
     if prefill_buckets is None:
@@ -338,6 +368,7 @@ def build_server(
     lm = _served_lm(model, checkpoint_dir, params, build_dev, dtype,
                     lm_quantize)
     server = ModelServer(statusz_enabled=statusz_enabled)
+    server.drain_deadline_s = float(drain_deadline_s)
     server.add_lm(lm)
     lm_model = lm.model
     if num_slots > 0:
@@ -471,7 +502,102 @@ def serve_mesh_worker(
                         mesh_expert=mesh["expert"])
 
 
+def _follow_replica_parent() -> None:
+    """In a worker a replica's rank 0 started (`ENV_REPLICA_PARENT` names
+    rank 0's pid): ignore SIGTERM (rank 0 drains its engine first, and
+    closing it ends the workers' relay), and die with rank 0 (Linux:
+    PR_SET_PDEATHSIG), so no worker outlives it."""
+    parent = int(os.environ.get(ENV_REPLICA_PARENT, "") or 0)
+    if not parent:
+        return
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    try:
+        import ctypes
+
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+    except (AttributeError, OSError):
+        pass
+    if os.getppid() != parent:
+        raise SystemExit(f"serving replica: rank 0 (pid {parent}) is gone")
+
+
+class ReplicaWorkers:
+    """Ranks 1..m−1 of a serving-mesh replica that runs in one pod: this
+    process is rank 0. Each worker is `python -m
+    kubeflow_tpu_torch.serving.main` with `argv` and the gang env
+    `render_gang_env` gives its rank over localhost (so rank i drives
+    cuda:i); rank 0 takes rank 0's env. The coordinator port stays held
+    (`reserve_port`) until `stop()`, so nothing else takes it before rank
+    0's store listens. A watchdog fails the replica when a worker exits
+    before `stop()`: it kills the others and exits this process with 1."""
+
+    def __init__(self, ranks: int, argv: List[str]) -> None:
+        from kubeflow_tpu_torch.parallel.distributed import (
+            render_gang_env,
+            reserve_port,
+        )
+
+        self._port = reserve_port()
+        envs = render_gang_env("serving-replica", ["127.0.0.1"] * ranks,
+                               coordinator_port=self._port.getsockname()[1])
+        os.environ.update(envs[0])
+        repo = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        self._stopping = threading.Event()
+        self.procs: List[subprocess.Popen] = []
+        for rank_env in envs[1:]:
+            env = dict(os.environ, **rank_env)
+            env[ENV_REPLICA_PARENT] = str(os.getpid())
+            env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-m", "kubeflow_tpu_torch.serving.main",
+                 *argv], env=env))
+        print(f"serving replica: {ranks} ranks, workers "
+              f"{[p.pid for p in self.procs]}", flush=True)
+        threading.Thread(target=self._watch, name="replica-watchdog",
+                         daemon=True).start()
+
+    def _watch(self) -> None:
+        while not self._stopping.wait(0.2):
+            for rank, proc in enumerate(self.procs, 1):
+                code = proc.poll()
+                if code is not None and not self._stopping.is_set():
+                    print(f"serving replica: worker rank {rank} exited "
+                          f"{code}; the replica fails", flush=True)
+                    self._kill()
+                    os._exit(1)
+
+    def _kill(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+        for proc in self.procs:
+            proc.wait()
+
+    def closing(self) -> None:
+        """Rank 0 is about to close its engine: the workers' exits that
+        follow end the replica, they do not fail it."""
+        self._stopping.set()
+
+    def stop(self, timeout_s: float) -> List[Optional[int]]:
+        """Wait up to `timeout_s` for the workers to end (rank 0's engine
+        closed their relay), kill any left → their exit codes (None for a
+        worker killed here)."""
+        self.closing()
+        deadline = time.monotonic() + timeout_s
+        codes: List[Optional[int]] = []
+        for proc in self.procs:
+            try:
+                codes.append(proc.wait(max(0.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                codes.append(None)
+        self._kill()
+        self._port.close()
+        return codes
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(description="kubeflow-tpu torch model server")
     ap.add_argument("--model", required=True, help="registry model name")
     ap.add_argument("--checkpoint-dir", default="",
@@ -481,6 +607,9 @@ def main(argv=None) -> int:
                     help="torch.save'd state dict (default: the checkpoint, "
                     "else seed-0 init)")
     ap.add_argument("--port", type=int, default=8500)
+    ap.add_argument("--device", default=None,
+                    help="where every rank runs: the card (default; rank i "
+                    "of a replica drives cuda:i) or cpu (gloo)")
     ap.add_argument("--batch-window-ms", type=float, default=None,
                     help="cross-request micro-batch window for :predict "
                     "(default 2; 0 disables)")
@@ -519,11 +648,9 @@ def main(argv=None) -> int:
                     "num_experts, top-1 routing only; default from "
                     "KFT_SERVING_MESH_EXPERT, else 1)")
     args = ap.parse_args(argv)
+    _follow_replica_parent()
 
-    import signal
-    import threading
-
-    from kubeflow_tpu_torch.api.wsgi import Server
+    from kubeflow_tpu_torch.parallel.distributed import ENV_NUM_PROCESSES
 
     params = None
     if args.weights:
@@ -534,25 +661,47 @@ def main(argv=None) -> int:
               "or --checkpoint-dir given)", flush=True)
     mesh = _mesh_knobs(engine_knobs_from_env(), args.mesh_tensor,
                        args.mesh_fsdp, args.mesh_expert)
+    ranks = mesh["tensor"] * mesh["fsdp"] * mesh["expert"]
+    workers = None
+    if ranks > 1 and ENV_NUM_PROCESSES not in os.environ:
+        # a replica's pod: this process is rank 0 and starts the others
+        workers = ReplicaWorkers(ranks, argv)
+    code = 1
+    try:
+        code = _serve(args, params, mesh, workers)
+        return code
+    finally:
+        if workers is not None:
+            # after a drain the workers end on their own; after a failure
+            # they are killed at once
+            codes = workers.stop(WORKER_EXIT_TIMEOUT_S if code == 0 else 0.0)
+            print(f"serving replica: workers exited {codes}", flush=True)
+
+
+def _serve(args, params, mesh, workers: Optional[ReplicaWorkers]) -> int:
+    """The rest of `main`: a mesh worker's relay loop, or rank 0's (or a
+    one-card replica's) server until SIGTERM drains it."""
+    from kubeflow_tpu_torch.api.wsgi import Server
+
     if max(mesh.values()) > 1:
         from kubeflow_tpu_torch.parallel.distributed import (
             initialize_from_env,
             rank,
         )
 
-        initialize_from_env()
+        initialize_from_env(device=args.device)
         if rank() > 0:
             # a serving mesh's worker: no server of its own
             serve_mesh_worker(
                 args.model, args.checkpoint_dir, params=params,
-                draft_model=args.draft_model,
+                device=args.device, draft_model=args.draft_model,
                 num_draft_tokens=args.draft_tokens,
                 draft_checkpoint_dir=args.draft_checkpoint_dir,
                 mesh_tensor=mesh["tensor"], mesh_fsdp=mesh["fsdp"],
                 mesh_expert=mesh["expert"])
             return 0
     server = build_server(
-        args.model, args.checkpoint_dir, params=params,
+        args.model, args.checkpoint_dir, params=params, device=args.device,
         batch_window_ms=args.batch_window_ms,
         num_slots=args.num_slots, max_queue=args.max_queue,
         page_size=args.page_size, num_pages=args.num_pages,
@@ -581,11 +730,17 @@ def main(argv=None) -> int:
                 server.close()
                 return 1
         # scale-down: finish every accepted request, 429 + Retry-After
-        # for new ones, before the process exits
-        print("SIGTERM: draining engines", flush=True)
+        # for new ones, before the process exits; the workers end when
+        # the drained engine closes their relay
+        print(f"SIGTERM: draining engines (deadline "
+              f"{server.drain_deadline_s:g}s)", flush=True)
+        if workers is not None:
+            workers.closing()
         drained = server.close(drain=True)
         print(f"drain {'complete' if drained else 'TIMED OUT'}", flush=True)
     except KeyboardInterrupt:
+        if workers is not None:
+            workers.closing()
         server.close()
     finally:
         httpd.stop()

@@ -118,6 +118,22 @@ def bucket_for(n: int) -> int:
     return BATCH_BUCKETS[-1]
 
 
+def publish_kernel_launches() -> None:
+    """Copy this process's paged-kernel launch counts
+    (ops/paged_attention.py `launch_counts`) into the
+    `serving_kernel_launches` gauge, read at each scrape of /metrics: a
+    pod started from its rendered command shows there which kernels
+    served it. The CPU path launches nothing, so its counts stay 0."""
+    from kubeflow_tpu_torch.ops import paged_attention
+
+    gauge = default_registry().gauge(
+        "serving_kernel_launches",
+        "CUDA kernel launches of this process", ["kernel"],
+    )
+    for kernel, n in paged_attention.launch_counts.items():
+        gauge.set(n, kernel=kernel)
+
+
 def _default_page_transport(url: str, data: bytes):
     """POST one page envelope to a peer replica's /v1/kv/pages. Returns
     (status, body bytes). ModelServer takes another (tests, fleets in
@@ -366,6 +382,9 @@ class ModelServer:
         # set as close(drain=True) starts, so /healthz reports the drain
         # from its first moment
         self._draining = False
+        # the SIGTERM drain budget close(drain=True) gives the engines
+        # (serving/main.py sets it from KFT_SERVING_DRAIN_DEADLINE_S)
+        self.drain_deadline_s = DEFAULT_DRAIN_DEADLINE_S
         self.app = self._build()
         if statusz_enabled:
             add_debug_routes(
@@ -489,15 +508,18 @@ class ModelServer:
         return self._engines[name]
 
     def close(self, drain: bool = False,
-              drain_deadline_s: float = DEFAULT_DRAIN_DEADLINE_S) -> bool:
+              drain_deadline_s: Optional[float] = None) -> bool:
         """Stop the engines' scheduler threads (the shutdown hook).
 
         `drain=True` is the scale-down/SIGTERM path: every engine stops
         admitting (new `:generate` requests get 429 + Retry-After) while
         everything already accepted runs to completion; what is still
         live at the deadline fails fast. Engines drain concurrently, so
-        the whole shutdown is bounded by one deadline. Returns True when
-        every engine drained in time (always True without `drain`)."""
+        the whole shutdown is bounded by one deadline (default
+        `self.drain_deadline_s`). Returns True when every engine drained
+        in time (always True without `drain`)."""
+        if drain_deadline_s is None:
+            drain_deadline_s = self.drain_deadline_s
         for model in self._models.values():
             model.close()
         if not drain:
@@ -725,6 +747,7 @@ class ModelServer:
 
         @app.get("/metrics")
         def metrics(req):
+            publish_kernel_launches()
             return Response(
                 default_registry().render(),
                 "text/plain; version=0.0.4; charset=utf-8",

@@ -47,6 +47,7 @@ def test_no_port_source_imports_jax_or_the_jax_package():
         "cluster/objects.py", "cluster/store.py", "cluster/reconciler.py",
         "controllers/helpers.py", "controllers/gpujob.py",
         "controllers/studyjob.py", "runtime/executor.py",
+        "controllers/inference.py", "controllers/statefulset.py",
     )} <= {os.path.relpath(p, REPO) for p in sources}
     offenders = [
         (os.path.relpath(p, REPO), m)

@@ -438,8 +438,12 @@ def test_the_fleet_fields_are_refused_naming_the_roadmap():
                 "fleet_straggler_zscore", "fleet_burn_window"):
         with pytest.raises(ConfigError, match="A14"):
             ObservabilityConfig.from_dict({key: 1})
-    with pytest.raises(ConfigError, match="build_server"):
-        ServingConfig.from_dict({"num_slots": 4})
+    # the serving config's autoscaler and router wait for the fleet
+    # collector and the router; its engine knobs are taken
+    for key in ("autoscale", "router"):
+        with pytest.raises(ConfigError, match="A14"):
+            ServingConfig.from_dict({key: {"enabled": True}})
+    assert ServingConfig.from_dict({"num_slots": 4}).num_slots == 4
     with pytest.raises(ConfigError, match="attempt="):
         ServingConfig(chaos=ChaosConfig(points=["engine.step:attempt=0"]))
 

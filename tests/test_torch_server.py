@@ -150,6 +150,7 @@ def test_engine_knobs_from_env(monkeypatch):
         "kv_host_bytes": 0, "kv_persist_dir": "", "kv_persist_interval_s": 0.0,
         "kv_persist_chains": 64,
         "mesh_tensor": 1, "mesh_fsdp": 1, "mesh_expert": 1,
+        "drain_deadline_s": 30.0,
     }
     ms = build_server("gpt_tiny", device="cpu", dtype=torch.float32)
     try:
