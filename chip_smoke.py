@@ -289,11 +289,12 @@ Phases (any failure raises and the script exits non-zero):
 20. Expert parallelism (configs/gpt_moe_v5e16.yaml's `expert: 4` on one
    of its data shards: its training block loaded by
    `TrainingConfig.from_dict` as it is, then cut by EXPERT_CUT). 20a:
-   `mesh: {expert: 4}`, gpt_small_moe bf16, remat, flash, 8 sequences of
-   1024, 3 steps, four ranks of `chip_smoke.py --gang-rank` over gloo on
-   the one card, against world 1 (18e's cell at 3 steps) in this
-   process. Gates: the ranks' losses bit for bit equal and within
-   GANG_LOSS_REL of world 1's, every replicated leaf bit for bit equal
+   `mesh: {expert: 4}`, gpt_small_moe bf16 at EXPERT_DEPTH (6 of its 12
+   layers), remat, flash, 8 sequences of 1024, 3 steps, four ranks of
+   `chip_smoke.py --gang-rank` over gloo on the one card, against world
+   1 (the same cell) in this process. Gates: the ranks' losses bit for
+   bit equal and within GANG_LOSS_REL of world 1's, every replicated
+   leaf bit for bit equal
    across the ranks (sha256 digests), each rank's expert-stack bytes
    (parameters and AdamW moments) exactly a quarter of world 1's, and
    each rank's flash launches the formula (steps x layers x 2 forwards
@@ -314,13 +315,14 @@ Phases (any failure raises and the script exits non-zero):
    by `TrainingConfig.from_dict` as it is, then cut by PIPELINE_CUT).
    21a: `mesh: {pipeline: 4}`, gpt_small bf16, remat, flash, 16
    sequences of 1024, 1f1b over M = 4, 3 steps, four ranks of
-   `chip_smoke.py --gang-rank` over gloo on the one card (3 layers a
-   stage), against world 1 (the same cell at `{pipeline: 1}`) in this
+   `chip_smoke.py --gang-rank` over gloo on the one card (PIPELINE_DEPTH:
+   8 of gpt_small's 12 layers, 2 a stage), against world 1 (the same
+   cell at `{pipeline: 1}`) in this
    process. Gates: the stages' losses bit for bit equal and within
    GANG_LOSS_REL of world 1's, each stage's parameter bytes the
    formula's (its layers, the embeddings on stage 0, the final
    LayerNorm and head on the last), each stage's flash launches the
-   formula (steps x 3 layers x M x 2 forwards under remat, steps x 3 x M
+   formula (steps x 2 layers x M x 2 forwards under remat, steps x 2 x M
    of each backward kernel), each stage's live microbatches S − s, and
    the stage blocks joined within GANG_STEP_REL / GANG_LEAF_STEP_REL of
    world 1's weights (17c's bounds). 21b: the same four processes at M =
@@ -430,6 +432,35 @@ Phases (any failure raises and the script exits non-zero):
    phase 5's; its pool phase 5's 384 pages; SIGTERM drains and the child
    exits 0 within the rendered terminationGracePeriodSeconds. The
    kernels line gives each bf16 paged row its `inference_launches`.
+27. The observability control plane (runtime/profiler.py,
+   controllers/tensorboard.py, observability/fleet.py and slo.py, the
+   autoscaler of controllers/inference.py). 27b, on 26a's pod after its
+   traffic's gates and before its SIGTERM: a FleetCollector over phase
+   26's StateStore (the pod's podIP 127.0.0.1, only the port mapped to
+   the child's) scrapes the child's real /metrics. Gates: one serving
+   target, owned by lm-serve; the fleet series `serving_kernel_launches`
+   equal to 26a's last /metrics read; `serving_signals` num_slots 8.
+   Then an InferenceServiceController(fleet=) with FLEET_AUTOSCALE (1 to
+   2 replicas, breach_cycles 2, cooldown_cycles 1) sweeps and reconciles
+   while a burst of FLEET_BURST concurrent requests runs on the pod's 8
+   slots: the Deployment's replicas go 1 → 2 during the burst (the second
+   replica's pod rendered, never started: one card) and back to 1 after
+   it, with a ScaleUp and a ScaleDown event; the SLO rule FLEET_SLO
+   evaluates to a `fleet_slo_compliant` value; /fleetz answers on a real
+   socket. 27a, last (CUPTI stays attached after a capture): phase 8's
+   cell at 1 + PROFILE_STEPS steps as a GPUTrainJob with
+   `profiler_logdir`; its rendered pod env, only KFT_PROFILER_PORT
+   rewritten to a free port, serves the endpoint through
+   runtime/launcher.py `maybe_start_profiler_server`, and the training
+   thread POSTs /profiler/start and /profiler/stop around steps
+   2..1+PROFILE_STEPS. Gates: the stop reply lists one run under
+   <logdir>/plugins/profile/; its trace's CUDA kernel events of each
+   bf16 flash kernel equal that kernel's launch counter over the
+   captured steps (the formula); /profiler/status reads runs 1 and
+   `profiler_captures_total` 1; a Tensorboard CR on the logdir renders a
+   Deployment with --logdir=<logdir> that mounts it. The kernels line
+   gives the paged rows their `fleet_launches` and the flash rows their
+   `profile_launches`.
 
 Every phase prints its seconds, and the line before the nvidia-smi line
 the whole run's. The last lines are the nvidia-smi line, a {"kernels":
@@ -764,13 +795,14 @@ SEQ_CFG = dict(TRAIN_CFG, seq_len=2 * 4096, global_batch_size=2,
 # [2, 32768, 12, 64] bf16 in 8 blocks of 4096 (ranks 0 and 7)
 RING_B, RING_S, RING_N = 2, 32768, 8
 # phase 20: configs/gpt_moe_v5e16.yaml's expert axis on the one card. 20a:
-# its training block loaded as it is, cut to one of its 8 data shards:
-# `mesh: {expert: 4}` (its own degree, 2 of gpt_small_moe's 8 experts a
-# rank), its global batch of 64 over data 8 = 8 sequences of 1024, bf16,
-# remat, loss_chunk 1024, flash, 3 steps with warmup 2 (its 2000 of
-# 20000), 4 gloo ranks against world 1 (18e's cell at 3 steps). 20c: the
-# gang saves at EXPERT_SAVE (the config's checkpoint block, interval cut)
-# and world 1 restores that step. 20b: gpt_small_moe on `{sequence: 2}`
+# its training block loaded as it is, cut to one of its 8 data shards and
+# to EXPERT_DEPTH: `mesh: {expert: 4}` (its own degree, 2 of
+# gpt_small_moe's 8 experts a rank), its global batch of 64 over data 8 =
+# 8 sequences of 1024, bf16, remat, loss_chunk 1024, flash, 3 steps with
+# warmup 2 (its 2000 of 20000), 4 gloo ranks against world 1 (the same
+# cell). 20c: the gang saves at EXPERT_SAVE (the config's checkpoint
+# block, interval cut) and world 1 restores that step. 20b:
+# gpt_small_moe on `{sequence: 2}`
 # at seq 2048 (1024 a rank), batch 2, ring, 3 steps (the third loss
 # after an update at lr > 0), against world 1's flash over 2048, its
 # rank 0's final weights against world 1's as 19's are, the routers and
@@ -782,10 +814,14 @@ EXPERT_CUT = dict(steps=3, warmup_steps=2, seq_len=1024,
                   attention_impl="flash")
 EXPERT_SEQ_CFG = dict(MOE_TRAIN_CFG, seq_len=2048, global_batch_size=2,
                       steps=3, attention_impl="ring", mesh={"sequence": 2})
+# 20a's depth: 6 of gpt_small_moe's 12 layers (every width, the 8 experts
+# and every gate kept; world 1 the same), so the quartet, the long pole of
+# `phase_gangs`, keeps phase 27 inside the script's time limit
+EXPERT_DEPTH = {"num_layers": 6}
 # phase 21: configs/gpt_pipeline_1f1b_v5e16.yaml's pipeline axis on the
 # one card. 21a: its training block loaded as it is, cut to one of its 4
-# data shards: `mesh: {pipeline: 4}` (its own degree, 3 of gpt_small's 12
-# layers a rank), its global batch of 64 over data 4 = 16 sequences of
+# data shards: `mesh: {pipeline: 4}` (its own degree; PIPELINE_DEPTH's 8
+# layers, 2 a rank), its global batch of 64 over data 4 = 16 sequences of
 # 1024, bf16, remat, 1f1b over M = 4 microbatches (its default: one a
 # stage), flash, 3 steps with warmup 2 (its 2000 of 20000), four gloo
 # ranks against world 1 (the same cell at `{pipeline: 1}`) in this
@@ -797,6 +833,10 @@ EXPERT_SEQ_CFG = dict(MOE_TRAIN_CFG, seq_len=2048, global_batch_size=2,
 PIPELINE_CONFIG = os.path.join("configs", "gpt_pipeline_1f1b_v5e16.yaml")
 PIPELINE_SAVE, PIPELINE_WIDE_M = 2, 8
 PIPELINE_CUT = dict(steps=3, warmup_steps=2, attention_impl="flash")
+# 21a's and 21b's depth: 8 of gpt_small's 12 layers, 2 a stage (every
+# width, the schedule and every gate kept; world 1 the same), for the
+# quartet's time as EXPERT_DEPTH
+PIPELINE_DEPTH = {"num_layers": 8}
 # phase 23: the fsdp axis on the one card. 23a: gpt_small at full width
 # (768/12/12/3072/50257), bf16, flash, remat, seq 1024, a global batch of 8
 # (20a's: 8 sequences of 1024, 2 a rank), loss_chunk 1024, 3 steps with
@@ -898,6 +938,22 @@ INFERENCE_SERVING = {"num_slots": 8, "page_size": 16,
                      "prefill_buckets": [int(b) for b in BUCKETS.split(",")],
                      "paged_attention": "kernel"}
 INFERENCE_READY_TIMEOUT_S = 300
+# phase 27a: phase 8's cell as a GPUTrainJob with profiler_logdir, steps
+# 2..1+PROFILE_STEPS captured through the profiler endpoint; the bf16
+# flash kernels' symbols in the trace
+PROFILE_STEPS = 2
+FLASH_SYMBOLS = {"flash_fwd": "flash_fwd_bf16",
+                 "flash_bwd_dq": "flash_bwd_dq_bf16",
+                 "flash_bwd_dkv": "flash_bwd_dkv_bf16"}
+# phase 27b: the decode tier's autoscaler on 26a's pod. A burst of
+# FLEET_BURST concurrent requests (FLEET_PROMPT_LEN tokens, FLEET_MAX_NEW
+# new) on its 8 slots keeps the queue non-empty for several sweeps; a
+# sweep every FLEET_SWEEP_S, at most FLEET_AFTER_SWEEPS after the burst
+FLEET_AUTOSCALE = {"enabled": True, "min_replicas": 1, "max_replicas": 2,
+                   "breach_cycles": 2, "cooldown_cycles": 1}
+FLEET_BURST, FLEET_PROMPT_LEN, FLEET_MAX_NEW = 16, 32, 64
+FLEET_SLO = "ttft: serving_ttft_p99 < 5s"
+FLEET_SWEEP_S, FLEET_AFTER_SWEEPS, FLEET_TIMEOUT_S = 0.1, 20, 120
 
 
 def hopper_kernel_report(log, kernels=HOPPER_KERNELS):
@@ -5282,11 +5338,14 @@ def expert_gang_report(tag, reps, one_losses, steps, smi):
     return losses
 
 
-def expert_plan(root, overrides=None, seq_overrides=None):
-    """20a's and 20b's gang runs, (config, run options) each: (20a's,
-    20b's; rank 0's final weights saved)."""
+def expert_plan(root, overrides=None, seq_overrides=None,
+                model_kwargs=EXPERT_DEPTH):
+    """20a's and 20b's gang runs, (config, run options) each: (20a's, its
+    model built with `model_kwargs` (its depth); 20b's, rank 0's final
+    weights saved)."""
     cut = moe_config_cut(root, overrides)
-    return ((cut, {"digests": True, "digest_step": EXPERT_SAVE}),
+    return ((cut, {"digests": True, "digest_step": EXPERT_SAVE,
+                   "model_kwargs": dict(model_kwargs)}),
             ({**EXPERT_SEQ_CFG, **(seq_overrides or {})},
              {"digests": True, "out": os.path.join(root, "expert_seq"),
               "out_ranks": [0]}))
@@ -5310,7 +5369,8 @@ def phase_expert(torch, gang, device="cuda"):
     cut = plan[0][0]
     ranks = cut["mesh"]["expert"]
     steps, r = cut["steps"], 2 if cut.get("remat") else 1
-    res, tr, _, _ = world1_run(torch, world1_cell(cut), device)
+    res, tr, _, _ = world1_run(torch, world1_cell(cut), device,
+                               model_kwargs=plan[0][1].get("model_kwargs"))
     one_losses = [loss for _, loss in res["losses"]]
     one_bytes, layers = state_bytes(tr._final_state), tr.model.cfg.num_layers
     losses = expert_gang_report("20a", reps, one_losses, steps, smi)
@@ -5449,7 +5509,7 @@ def stage_param_bytes(mcfg, stage, stages):
     return 4 * n
 
 
-def pipeline_plan(root, overrides=None, model_kwargs=None):
+def pipeline_plan(root, overrides=None, model_kwargs=PIPELINE_DEPTH):
     """21a's and 21b's gang runs, (config, run options) each: 21a, then
     one step at M = PIPELINE_WIDE_M under GPipe and under 1F1B."""
     cut = pipeline_config_cut(root, overrides)
@@ -6601,11 +6661,15 @@ def service_ready(store, name):
 
 
 def phase_inference(torch, ref, model="gpt_small", device="cuda",
-                    serving=INFERENCE_SERVING, lens=SERVE_TRAFFIC["lens"]):
+                    serving=INFERENCE_SERVING, lens=SERVE_TRAFFIC["lens"],
+                    during=None):
     """Phase 26a: `ref` is phase 5's {"prompts", "tokens", "launches",
-    "pages_total"} → the child's paged launches over the traffic. The pod
-    runs on the card; `device="cpu"` (a rehearsal) appends `--device cpu`
-    to its command."""
+    "pages_total"} → (the child's paged launches over the traffic,
+    `during`'s result). The pod runs on the card; `device="cpu"` (a
+    rehearsal) appends `--device cpu` to its command. `during(port,
+    store, cm, read)` runs on the live pod after the traffic's gates and
+    before its SIGTERM (`read`: the traffic's last /metrics read of the
+    launches): phase 27b."""
     from kubeflow_tpu_torch.cluster.reconciler import ControllerManager
     from kubeflow_tpu_torch.cluster.store import StateStore
     from kubeflow_tpu_torch.controllers import (
@@ -6673,8 +6737,11 @@ def phase_inference(torch, ref, model="gpt_small", device="cuda",
                         pass
                     time.sleep(0.25)
                 ready_s = time.monotonic() - t0
+                # the pod runs on this host: its address (the fleet
+                # collector dials it, phase 27b) is 127.0.0.1
                 store.patch_status("Pod", "lm-serve-0", "default",
-                                   {"phase": "Running"})
+                                   {"phase": "Running",
+                                    "podIP": "127.0.0.1"})
                 cm.run_until_idle(max_seconds=10)
                 if service_ready(store, "lm-serve") != "True":
                     fail("the service is not Ready with its pod running")
@@ -6707,6 +6774,28 @@ def phase_inference(torch, ref, model="gpt_small", device="cuda",
                 if proc.poll() is not None:
                     fail(f"the pod's process exited {proc.returncode} "
                          f"during the traffic")
+                for res in results:
+                    if res is None or res[0] != 200:
+                        fail(f":generate failed: {res}")
+                tokens = [res[1]["sequences"][0][len(prompt):]
+                          for prompt, res in zip(prompts, results)]
+                if prompts != ref["prompts"]:
+                    fail("the traffic is not phase 5's")
+                if tokens != ref["tokens"]:
+                    bad = [i for i, (a, b) in enumerate(zip(tokens, ref["tokens"]))
+                           if a != b]
+                    fail(f"the tokens of requests {bad} differ from phase 5's")
+                launches = {k: after[k] - before.get(k, 0) for k in after}
+                want = {k: ref["launches"].get(k, 0) for k in launches}
+                if launches != want:
+                    fail(f"paged launches {launches}, phase 5's {want}")
+                pool = f"/{ref['pages_total']} pages of {serving['page_size']}"
+                if pool.encode() not in statusz:
+                    fail(f"the pool is not phase 5's {pool[1:]}")
+                extra = during(port, store, cm, after) if during else None
+                if proc.poll() is not None:
+                    fail(f"the pod's process exited {proc.returncode} "
+                         f"before its SIGTERM")
                 t2 = time.monotonic()
                 proc.send_signal(signal.SIGTERM)
                 try:
@@ -6724,24 +6813,6 @@ def phase_inference(torch, ref, model="gpt_small", device="cuda",
         with open(log_path) as f:
             if "drain complete" not in f.read():
                 fail("SIGTERM: the drain did not complete")
-        for res in results:
-            if res is None or res[0] != 200:
-                fail(f":generate failed: {res}")
-        tokens = [res[1]["sequences"][0][len(prompt):]
-                  for prompt, res in zip(prompts, results)]
-        if prompts != ref["prompts"]:
-            fail("the traffic is not phase 5's")
-        if tokens != ref["tokens"]:
-            bad = [i for i, (a, b) in enumerate(zip(tokens, ref["tokens"]))
-                   if a != b]
-            fail(f"the tokens of requests {bad} differ from phase 5's")
-        launches = {k: after[k] - before.get(k, 0) for k in after}
-        want = {k: ref["launches"].get(k, 0) for k in launches}
-        if launches != want:
-            fail(f"paged launches {launches}, phase 5's {want}")
-        pool = f"/{ref['pages_total']} pages of {serving['page_size']}"
-        if pool.encode() not in statusz:
-            fail(f"the pool is not phase 5's {pool[1:]}")
     gen = max_new * (len(prompts) - 1)
     print(f"inference 26a: pod start to ready {ready_s:.3f} s; phase 5's "
           f"traffic {wall:.3f} s ({gen} tokens, {gen / wall:.1f} tokens/s, "
@@ -6749,8 +6820,322 @@ def phase_inference(torch, ref, model="gpt_small", device="cuda",
           f"bit for bit; SIGTERM drained, exit 0 in {stop_s:.3f} s (grace "
           f"{grace} s) | {smi_line() if device == 'cuda' else device}",
           flush=True)
-    print(f"phase 26: {time.monotonic() - t26:.3f} s", flush=True)
-    return launches
+    fleet_s = extra["seconds"] if extra else 0.0
+    print(f"phase 26: {time.monotonic() - t26 - fleet_s:.3f} s (phase 27b's "
+          f"{fleet_s:.3f} s on its pod apart)", flush=True)
+    return launches, extra
+
+
+# -- phase 27: the observability control plane ----------------------------------
+
+
+def fleet_fetch(port, serve_port):
+    """The collector's fetch for 26a's pod: the pod's address is this host
+    and only its port is the child's. Any other target (a replica that
+    was rendered but never started has no address) is unreachable here,
+    and fails as such without a lookup."""
+    from kubeflow_tpu_torch.observability.fleet import default_fetch
+
+    local = f"http://127.0.0.1:{serve_port}/"
+
+    def fetch(url):
+        if not url.startswith(local):
+            raise ConnectionError(f"{url}: no started replica there")
+        return default_fetch(f"http://127.0.0.1:{port}/{url[len(local):]}")
+
+    return fetch
+
+
+def phase_fleet(torch, port, store, cm, read_launches, model="gpt_small",
+                max_new=FLEET_MAX_NEW):
+    """Phase 27b on 26a's running pod (`port`, phase 26's `store` and
+    `cm`, `read_launches` its last /metrics read): a FleetCollector over
+    the store's pods scrapes the child's real /metrics; then an
+    InferenceServiceController(fleet=) with FLEET_AUTOSCALE rides a
+    burst of FLEET_BURST concurrent requests on the pod's 8 slots, a
+    sweep and a reconcile at a time. → {"launches" (the fleet series'
+    serving_kernel_launches), "sweeps_up", "sweeps_down", "seconds"}."""
+    from kubeflow_tpu_torch.api.wsgi import Server
+    from kubeflow_tpu_torch.controllers.inference import (
+        SERVE_PORT,
+        InferenceServiceController,
+    )
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.observability.fleet import (
+        FleetCollector,
+        discover_targets,
+    )
+    from kubeflow_tpu_torch.observability.http import build_debug_app
+    from kubeflow_tpu_torch.utils.metrics import MetricsRegistry
+
+    t0 = time.monotonic()
+    registry = MetricsRegistry()
+    collector = FleetCollector(
+        lambda: discover_targets(store), fetch=fleet_fetch(port, SERVE_PORT),
+        registry=registry, slo_rules=[FLEET_SLO])
+    collector.scrape_once()
+    serving = [(t.owner, t.instance, t.base_url)
+               for t in discover_targets(store) if t.role == "serving"]
+    if serving != [("lm-serve", "lm-serve-0",
+                    f"http://127.0.0.1:{SERVE_PORT}")]:
+        raise AssertionError(f"27b: the serving targets {serving}")
+    if registry.get("fleet_targets").value(role="serving") != 1:
+        raise AssertionError("27b: the pod's /metrics was not scraped")
+    series = collector.fleet_series()
+    launches = {dict(key)["kernel"]: int(v) for key, v in
+                series["serving_kernel_launches"].samples.items()}
+    if launches != read_launches:
+        raise AssertionError(f"27b: the fleet reads launches {launches}, "
+                             f"26a's /metrics read {read_launches}")
+    sig = collector.serving_signals("default", "lm-serve")
+    if sig is None or (sig.replicas, sig.num_slots) != (1, 8):
+        raise AssertionError(f"27b: serving_signals {sig}")
+
+    cr = store.get("InferenceService", "lm-serve")
+    cr["spec"]["serving"] = dict(cr["spec"]["serving"],
+                                 autoscale=FLEET_AUTOSCALE)
+    store.update(cr)
+    ctrl = InferenceServiceController(fleet=collector)
+    trajectory = []
+
+    def sweep(phase):
+        collector.scrape_once()
+        ctrl.reconcile(store, "default", "lm-serve")
+        # the Deployment controller renders (or deletes) the replicas
+        cm.run_until_idle(max_seconds=5)
+        s = collector.serving_signals("default", "lm-serve")
+        trajectory.append((phase, collector.sweeps(), store.get(
+            "Deployment", "lm-serve")["spec"]["replicas"],
+            s.queue_depth, round(s.occupancy, 3),
+            store.try_get("Pod", "lm-serve-1") is not None))
+
+    vocab = get_model(model, device="meta").cfg.vocab_size
+    rng = np.random.default_rng(27)
+    prompts = [rng.integers(1, vocab, FLEET_PROMPT_LEN).tolist()
+               for _ in range(FLEET_BURST)]
+    results = [None] * FLEET_BURST
+
+    def run(i):
+        results[i] = post(port, model, {"prompt_ids": [prompts[i]],
+                                        "max_new_tokens": max_new})
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(FLEET_BURST)]
+    t_burst = time.monotonic()
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads):
+        if time.monotonic() - t_burst > FLEET_TIMEOUT_S:
+            raise AssertionError(f"27b: the burst ran past "
+                                 f"{FLEET_TIMEOUT_S} s")
+        sweep("burst")
+        time.sleep(FLEET_SWEEP_S)
+    for t in threads:
+        t.join()
+    burst_s = time.monotonic() - t_burst
+    for _ in range(FLEET_AFTER_SWEEPS):
+        sweep("after")
+        if trajectory[-1][2] == 1:
+            break
+        time.sleep(FLEET_SWEEP_S)
+    for res in results:
+        if res is None or res[0] != 200 or len(
+                res[1]["sequences"][0]) != FLEET_PROMPT_LEN + max_new:
+            raise AssertionError(f"27b: a burst request failed: {res}")
+    replicas = [r[2] for r in trajectory]
+    up = next((i for i, r in enumerate(trajectory) if r[2] == 2), None)
+    if up is None or trajectory[up][0] != "burst" or not trajectory[up][5]:
+        raise AssertionError(f"27b: no scale-up to 2 (replica 2 rendered) "
+                             f"during the burst: {trajectory}")
+    down = next((i for i in range(up, len(trajectory))
+                 if trajectory[i][2] == 1), None)
+    if down is None or trajectory[down][5]:
+        raise AssertionError(f"27b: no scale-down to 1 after the burst: "
+                             f"{trajectory}")
+    if max(replicas) != 2 or replicas[0] != 1:
+        raise AssertionError(f"27b: replicas {replicas}")
+    reasons = [e["reason"] for e in store.events_for(
+        store.get("InferenceService", "lm-serve"))
+        if e["reason"] in ("ScaleUp", "ScaleDown")]
+    # (events carry second-resolution stamps: their order is not read)
+    if sorted(reasons) != ["ScaleDown", "ScaleUp"]:
+        raise AssertionError(f"27b: the resize events {reasons}")
+    slo = {s.rule.name: s for s in collector.slo_statuses()}["ttft"]
+    compliant = registry.get("fleet_slo_compliant").values_snapshot()
+    if slo.evaluations < 1 or ("ttft",) not in compliant:
+        raise AssertionError(f"27b: the TTFT rule never evaluated: {slo}")
+    server = Server(build_debug_app("fleet", fleet=collector))
+    server.start()
+    try:
+        status, body = get(server.port, "/fleetz")
+    finally:
+        server.stop()
+    if status != 200 or b"default/lm-serve: replicas=1" not in body:
+        raise AssertionError(f"27b: /fleetz answered {status}: {body[:400]}")
+    seconds = time.monotonic() - t0
+    print(f"fleet 27b: the collector over phase 26's store found {serving} "
+          f"(podIP 127.0.0.1, port mapped to the child's {port}); fleet "
+          f"serving_kernel_launches {launches} = 26a's /metrics read; "
+          f"num_slots {sig.num_slots:g}; burst of {FLEET_BURST} x "
+          f"{FLEET_PROMPT_LEN}+{max_new} tokens on 8 slots in {burst_s:.3f} "
+          f"s; replicas {replicas[0]} -> 2 at sweep {up + 1} of the burst, "
+          f"-> 1 at sweep {down + 1} ({len(trajectory)} sweeps; (phase, "
+          f"sweep, replicas, queue, occupancy, replica 2 rendered) "
+          f"{trajectory}); events {reasons}; SLO {FLEET_SLO!r}: value "
+          f"{slo.value}, compliant {slo.compliant}, burn "
+          f"{slo.burn_rate:g}; /fleetz 200 on a real socket; "
+          f"{seconds:.3f} s", flush=True)
+    return {"launches": launches, "sweeps_up": up + 1,
+            "sweeps_down": down - up, "seconds": seconds}
+
+
+def flash_trace_counts(path):
+    """Each bf16 flash kernel's CUDA kernel events in a Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    counts = dict.fromkeys(FLASH_SYMBOLS, 0)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for kernel, symbol in FLASH_SYMBOLS.items():
+            if symbol in e.get("name", ""):
+                counts[kernel] += 1
+    return counts, sum(1 for e in events if e.get("cat") == "kernel")
+
+
+def phase_profile(torch, device="cuda", overrides=None):
+    """Phase 27a: phase 8's cell (TRAIN_CFG at 1 + PROFILE_STEPS steps) as
+    a GPUTrainJob with `profiler_logdir`; its rendered pod env (only
+    KFT_PROFILER_PORT rewritten to a free port) serves the profiler
+    endpoint through runtime/launcher.py, and a client on the training
+    thread POSTs /profiler/start and /profiler/stop around steps
+    2..1+PROFILE_STEPS. Runs last: CUPTI stays attached after a capture.
+    → {"counts": each flash kernel's events in the trace, "bytes",
+    "seconds"}."""
+    from kubeflow_tpu_torch.cluster.reconciler import ControllerManager
+    from kubeflow_tpu_torch.cluster.store import StateStore
+    from kubeflow_tpu_torch.config.platform import TrainingConfig
+    from kubeflow_tpu_torch.controllers import (
+        TensorboardController,
+        new_tensorboard,
+    )
+    from kubeflow_tpu_torch.controllers.gpujob import (
+        GPUTrainJobController,
+        new_gpu_train_job,
+    )
+    from kubeflow_tpu_torch.models.registry import get_model
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.runtime import launcher
+    from kubeflow_tpu_torch.runtime.executor import pod_env
+    from kubeflow_tpu_torch.runtime.train_run import run_training
+    from kubeflow_tpu_torch.training.trainer import Trainer
+    from kubeflow_tpu_torch.utils.metrics import default_registry
+
+    t0 = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="kft-profile-") as logdir:
+        training = dict(TRAIN_CFG, steps=1 + PROFILE_STEPS,
+                        mesh={"data": 1}, profiler_logdir=logdir,
+                        **(overrides or {}))
+        store = StateStore()
+        cm = ControllerManager(store)
+        cm.register(GPUTrainJobController())
+        cm.register(TensorboardController())
+        store.create(new_gpu_train_job("prof", training=training,
+                                       slice_spec={"topology": "h100-1"}))
+        store.create(new_tensorboard("prof-tb", logdir=logdir))
+        cm.run_until_idle(max_seconds=10)
+        env = pod_env(store.get("Pod", "prof-worker-0"))
+        if (env.get("KFT_PROFILER_LOGDIR"), env.get("KFT_PROFILER_PORT")) != (
+                logdir, str(launcher.DEFAULT_PROFILER_PORT)):
+            raise AssertionError(f"27a: the pod's profiler env {env}")
+        tb = store.get("Deployment", "prof-tb")["spec"]["template"]["spec"]
+        if (f"--logdir={logdir}" not in tb["containers"][0]["command"]
+                or [m["mountPath"] for m in tb["containers"][0].get(
+                    "volumeMounts", [])] != [logdir]):
+            raise AssertionError(f"27a: the Tensorboard Deployment {tb}")
+        prof_port = free_port()
+        env["KFT_PROFILER_PORT"] = str(prof_port)
+        server = launcher.maybe_start_profiler_server(
+            env, device=None if device == "cuda" else device)
+        if server is None or server.port != prof_port:
+            raise AssertionError("27a: the rendered env served no endpoint")
+        cfg = TrainingConfig.from_dict(json.loads(env["KFT_TRAINING_SPEC"]))
+        seen, calls = {}, [0]
+        first_step = Trainer.train_step
+
+        def train_step(self, state, batch):
+            calls[0] += 1
+            if calls[0] == 2:
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                seen["before"] = dict(fa.launch_counts)
+                seen["t"] = time.monotonic()
+                seen["start"] = post_json(prof_port, "/profiler/start", {})
+            result = first_step(self, state, batch)
+            if calls[0] == 1 + PROFILE_STEPS:
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                seen["after"] = dict(fa.launch_counts)
+                seen["stop"] = post_json(prof_port, "/profiler/stop", {})
+                seen["capture_s"] = time.monotonic() - seen["t"]
+            return result
+
+        Trainer.train_step = train_step
+        # the main path's run: every launch count starts at 0 here
+        fa.reset_launch_counts()
+        try:
+            result = run_training(cfg, device=device, log_every=cfg.steps)
+            status = json.loads(get(prof_port, "/profiler/status")[1])
+        finally:
+            Trainer.train_step = first_step
+            server.stop()
+        launches = dict(fa.launch_counts)
+        if seen.get("start", (0,))[0] != 200 or seen.get("stop", (0,))[0] != 200:
+            raise AssertionError(f"27a: start {seen.get('start')}, stop "
+                                 f"{seen.get('stop')}")
+        runs = seen["stop"][1]["trace_dirs"]
+        root = os.path.join(logdir, "plugins", "profile")
+        if len(runs) != 1 or os.path.dirname(runs[0]) != root:
+            raise AssertionError(f"27a: the stop reply's runs {runs}")
+        (name,) = os.listdir(runs[0])
+        path = os.path.join(runs[0], name)
+        size = os.path.getsize(path)
+        t_read = time.monotonic()
+        counts, kernels = flash_trace_counts(path)
+        read_s = time.monotonic() - t_read
+        captured = {k: seen["after"][k] - seen["before"][k] for k in counts}
+        layers = get_model(cfg.model, device="meta",
+                           max_len=1).cfg.num_layers
+        if device == "cuda" and (counts != captured or captured != flash_formula(
+                training, PROFILE_STEPS, layers)):
+            raise AssertionError(
+                f"27a: flash kernel events {counts} in the trace, launch "
+                f"counters over the captured steps {captured}, formula "
+                f"{flash_formula(training, PROFILE_STEPS, layers)}")
+        if launches != flash_formula(training, cfg.steps, layers) and \
+                device == "cuda":
+            raise AssertionError(f"27a: the run's launches {launches}")
+        captures = default_registry().get("profiler_captures_total").value()
+        if status != {"active": False, "logdir": logdir, "runs": 1} or \
+                captures != 1:
+            raise AssertionError(f"27a: /profiler/status {status}, "
+                                 f"profiler_captures_total {captures}")
+        if not all(np.isfinite(loss) for _, loss in result["losses"]):
+            raise AssertionError(f"27a: a non-finite loss {result['losses']}")
+    seconds = time.monotonic() - t0
+    print(f"profile 27a: GPUTrainJob 'prof' ({cfg.model}, phase 8's cell, "
+          f"{cfg.steps} steps) rendered KFT_PROFILER_LOGDIR and "
+          f"KFT_PROFILER_PORT {launcher.DEFAULT_PROFILER_PORT} (rewritten to "
+          f"{prof_port}); steps 2-{1 + PROFILE_STEPS} captured through "
+          f"/profiler/start and /profiler/stop in {seen['capture_s']:.3f} s; "
+          f"one run {os.path.basename(runs[0])}/{name}, {size} B, {kernels} "
+          f"CUDA kernel events, read in {read_s:.3f} s; flash kernel events "
+          f"{counts} = the launch counters over those steps {captured}; "
+          f"status {status}, profiler_captures_total {captures:g}; the "
+          f"Tensorboard Deployment mounts the logdir | "
+          f"{smi_line() if device == 'cuda' else device}", flush=True)
+    print(f"phase 27a: {seconds:.3f} s", flush=True)
+    return {"counts": counts, "bytes": size, "seconds": seconds}
 
 
 def rank_shape(records, key):
@@ -7074,16 +7459,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     # this slice's path: an InferenceService's rendered pod, run as a
     # child process, serving phase 5's traffic through the paged kernels
-    isvc_launches = phase_inference(torch, {
+    # and this slice's: the fleet collector and the decode tier's
+    # autoscaler on that live pod (27b), before its SIGTERM
+    isvc_launches, fleet = phase_inference(torch, {
         "prompts": bf16_stats["traffic"]["prompts"],
         "tokens": bf16_stats["traffic"]["tokens"], "launches": launches,
-        "pages_total": bf16_stats["pages_total"]})
+        "pages_total": bf16_stats["pages_total"]},
+        during=lambda port, store, cm, read: phase_fleet(
+            torch, port, store, cm, read))
     for rec in kernels[:2]:
         rec["inference_launches"] = isvc_launches[rec["name"]]
-        if rec["inference_launches"] < 1:
+        # the pod's process counts as the fleet reads them (26a's warm-up
+        # and traffic)
+        rec["fleet_launches"] = fleet["launches"][rec["name"]]
+        if min(rec["inference_launches"], rec["fleet_launches"]) < 1:
             raise AssertionError(f"the InferenceService path never "
                                  f"launched {rec['name']}")
-    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-26, "
+    torch.cuda.empty_cache()
+    # this slice's path: a GPUTrainJob's profiler endpoint captures two
+    # steps of phase 8's cell (27a); last, after every timed window of
+    # this process (CUPTI stays attached after a capture)
+    profile = phase_profile(torch)
+    for rec in kernels:
+        if rec["name"] in profile["counts"]:
+            rec["profile_launches"] = profile["counts"][rec["name"]]
+            if rec["profile_launches"] < 1:
+                raise AssertionError(f"the profiled steps never launched "
+                                     f"{rec['name']}")
+    print(f"chip_smoke: the whole run {clock.total():.3f} s (phases 1-27, "
           f"after the interpreter's start)", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@ kubeflow_tpu/config/platform.py's `TrainingConfig`, `MeshConfig`,
 `DataConfig` and `CheckpointConfig` the port's training path honours, of
 `ObservabilityConfig` and `ChaosConfig` both paths read, and of
 `ServingConfig`: its engine and KV-tier knobs and its `mesh`,
-`observability`, `chaos` and `disagg` subtrees, which
-controllers/inference.py renders into a serving pod), and `SliceConfig`,
+`observability`, `autoscale`, `chaos` and `disagg` subtrees, which
+controllers/inference.py renders into a serving pod or acts on), and
+`SliceConfig`,
 the GPU counterpart of the JAX package's TPU slice request: an H100
 topology from `GPU_TOPOLOGIES`, one pod a card.
 
@@ -31,30 +32,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Mapping
 
-# JAX TrainingConfig fields this port does not take yet, and what they
-# wait for (ROADMAP.md)
+# JAX TrainingConfig fields this port does not take, and why (ROADMAP.md)
 _UNPORTED_FIELDS = {
-    "profiler_logdir": "A14 (runtime profiler)",
     "compile_cache_dir": "A14 (nothing compiles ahead in eager PyTorch)",
 }
 
-# ObservabilityConfig fields that feed the fleet collector and its SLO
-# rules, which the port does not have yet
-_UNPORTED_OBSERVABILITY_FIELDS = {
-    "slo_rules": "A14 (fleet SLO rules)",
-    "fleet_scrape_interval_s": "A14 (the fleet collector)",
-    "fleet_straggler_zscore": "A14 (the fleet collector)",
-    "fleet_burn_window": "A14 (the fleet collector)",
-}
-# ServingConfig subtrees that wait for the fleet collector and the router
+# ServingConfig subtrees that wait for the router
 _UNPORTED_SERVING_FIELDS = {
-    "autoscale": "A14 (the router's autoscaler)",
-    "router": "A14 (the router)",
+    "router": "A14 item 5 (the router)",
 }
-# DisaggConfig fields read only by the router's steering and the per-tier
-# autoscaler
+# DisaggConfig fields read only by the router's steering and the
+# prefill tier's autoscaler
 _UNPORTED_DISAGG_FIELDS = {
-    name: "A14 (the router and its autoscaler)" for name in (
+    name: "A14 item 5 (the router and the prefill tier's autoscaler)"
+    for name in (
         "min_prefill_replicas", "max_prefill_replicas", "cold_hit_rate",
         "scale_up_ttft_p99_s", "scale_up_cold_per_s")
 }
@@ -326,11 +317,13 @@ class CheckpointConfig:
 
 @dataclasses.dataclass
 class ObservabilityConfig:
-    """kft-trace knobs (observability/trace.py), the JAX package's fields,
-    defaults and checks. Rendered as KFT_TRACE_* env and read through
-    `observability.trace.configure_from_env` by serving/main.py and
-    runtime/train_run.py. Tracing is on by default: the span layer is a
-    bounded ring, and off it is a shared no-op."""
+    """kft-trace knobs (observability/trace.py) and the fleet collector's
+    (observability/fleet.py, slo.py), the JAX package's fields, defaults
+    and checks. The trace knobs are rendered as KFT_TRACE_* env and read
+    through `observability.trace.configure_from_env` by serving/main.py
+    and runtime/train_run.py; tracing is on by default (the span layer
+    is a bounded ring, and off it is a shared no-op). The fleet knobs
+    map 1:1 onto `FleetCollector.from_config`."""
 
     # record spans into the in-process ring; off = the span API is a no-op
     trace_enabled: bool = True
@@ -343,6 +336,20 @@ class ObservabilityConfig:
     trace_sample_prob: float = 1.0
     # completed-traces ring capacity served by /tracez
     trace_sample_keep: int = 128
+    # declarative fleet SLO rules (observability/slo.py), e.g.
+    # 'serving_ttft_p99 < 5s', 'serving_queue_depth / num_slots < 0.8',
+    # evaluated each fleet sweep into fleet_slo_compliant{slo} and
+    # fleet_slo_burn_rate{slo}
+    slo_rules: List[str] = dataclasses.field(default_factory=list)
+    # fleet collector sweep period: every replica's and rank's /metrics
+    # is scraped and merged this often
+    fleet_scrape_interval_s: float = 10.0
+    # straggler threshold: flag a gang rank whose rolling mean step time
+    # exceeds its peers' by more than this many (leave-one-out, floored)
+    # standard deviations
+    fleet_straggler_zscore: float = 3.0
+    # SLO burn-rate window in sweeps: the breached share of the last N
+    fleet_burn_window: int = 30
 
     def __post_init__(self):
         self.validate()
@@ -356,11 +363,32 @@ class ObservabilityConfig:
             )
         if self.trace_sample_keep < 1:
             raise ConfigError("observability.trace_sample_keep must be >= 1")
+        if self.fleet_scrape_interval_s <= 0:
+            raise ConfigError(
+                "observability.fleet_scrape_interval_s must be > 0")
+        if self.fleet_straggler_zscore <= 0:
+            raise ConfigError(
+                "observability.fleet_straggler_zscore must be > 0")
+        if self.fleet_burn_window < 1:
+            raise ConfigError("observability.fleet_burn_window must be >= 1")
+        # parse and kind-check the rules now: an unparseable rule, a
+        # histogram signal without its quantile or a quantile of a scalar
+        # would otherwise never evaluate, silently
+        from kubeflow_tpu_torch.observability.fleet import AGGREGATION_POLICY
+        from kubeflow_tpu_torch.observability.slo import (
+            SloParseError,
+            check_signal_kinds,
+            parse_rules,
+        )
+
+        try:
+            check_signal_kinds(parse_rules(self.slo_rules), AGGREGATION_POLICY)
+        except SloParseError as e:
+            raise ConfigError(f"observability.slo_rules: {e}") from e
 
     @classmethod
     def from_dict(cls, raw: Mapping[str, Any]) -> "ObservabilityConfig":
-        _check_keys(raw, cls, _UNPORTED_OBSERVABILITY_FIELDS,
-                    "observability.")
+        _check_keys(raw, cls, {}, "observability.")
         return cls(**raw)
 
 
@@ -433,6 +461,9 @@ class TrainingConfig:
     # label-smoothing epsilon of the classification loss (0.1 in the
     # ImageNet recipe)
     label_smoothing: float = 0.0
+    # non-empty: the coordinator serves the profiler capture endpoint
+    # (runtime/profiler.py), writing Tensorboard-readable traces here
+    profiler_logdir: str = ""
     loss_chunk: int = 0
     assume_full_attention: bool = False
     seq_len: int = 0
@@ -560,6 +591,63 @@ def _num_experts(model: str) -> int:
 
 
 @dataclasses.dataclass
+class AutoscaleConfig:
+    """Signal-driven replica autoscaling of an InferenceService's decode
+    tier (controllers/inference.py, fed by the fleet collector's
+    `serving_signals`), the JAX `AutoscaleConfig`'s fields, defaults and
+    checks. Control-plane knobs only: nothing here is rendered into a
+    pod's env."""
+
+    # let the controller adjust spec.replicas from the fleet's queue,
+    # occupancy and 429 signals; off = replicas are the operator's
+    enabled: bool = False
+    # never scale below / above these
+    min_replicas: int = 1
+    max_replicas: int = 1
+    # fleet mean slot occupancy at or above this is scale-up pressure
+    scale_up_occupancy: float = 0.9
+    # fleet queue depth a fleet slot at or above this is scale-up
+    # pressure (the queue / num_slots SLO's shape)
+    scale_up_queue_per_slot: float = 0.5
+    # occupancy at or below this with an empty queue and no 429s is
+    # scale-down headroom
+    scale_down_occupancy: float = 0.3
+    # the pressure (or headroom) must hold this many consecutive fleet
+    # sweeps before a resize
+    breach_cycles: int = 3
+    # sweeps to wait after a resize before another (the new replica's
+    # signals land first)
+    cooldown_cycles: int = 5
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.min_replicas < 0:
+            raise ConfigError("autoscale.min_replicas must be >= 0")
+        if self.max_replicas < max(1, self.min_replicas):
+            raise ConfigError(
+                "autoscale.max_replicas must be >= max(1, min_replicas)")
+        for knob in ("scale_up_occupancy", "scale_up_queue_per_slot",
+                     "scale_down_occupancy"):
+            if getattr(self, knob) < 0:
+                raise ConfigError(f"autoscale.{knob} must be >= 0")
+        if self.scale_down_occupancy >= self.scale_up_occupancy:
+            raise ConfigError(
+                "autoscale.scale_down_occupancy must be below "
+                "scale_up_occupancy (the hysteresis band)")
+        if self.breach_cycles < 1:
+            raise ConfigError("autoscale.breach_cycles must be >= 1")
+        if self.cooldown_cycles < 0:
+            raise ConfigError("autoscale.cooldown_cycles must be >= 0")
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "AutoscaleConfig":
+        _check_keys(raw, cls, {}, "serving.autoscale.")
+        return cls(**raw)
+
+
+@dataclasses.dataclass
 class DisaggConfig:
     """The disaggregated prefill/decode fleet (the JAX `DisaggConfig`'s
     fields a replica and its controller read). `enabled` renders a
@@ -568,10 +656,10 @@ class DisaggConfig:
     committed radix pages a draining replica ships to the keys' new
     rendezvous homes (`POST /v1/kv/handoff` without a "chains" count;
     hottest first, the host tier included). The steering and per-tier
-    autoscale knobs wait for the router (ROADMAP A14), so the port's
-    prefill tier is reached by a client that steers (`:prefill` with
-    its decode peers), and `enabled` does not need `router.enabled` as
-    the JAX config does."""
+    autoscale knobs wait for the router (ROADMAP A14 item 5), so the
+    port's prefill tier is reached by a client that steers (`:prefill`
+    with its decode peers), and `enabled` does not need
+    `router.enabled` as the JAX config does."""
 
     enabled: bool = False
     prefill_replicas: int = 1
@@ -650,9 +738,11 @@ class ServingConfig:
     walk, the counterpart of the JAX package's "pallas", which is
     refused here. `mesh` is a replica's `tensor × fsdp × expert` serving
     mesh: one pod on that many cards of one node (at most
-    `GPUS_PER_NODE`), one process a card. `autoscale` and `router`
-    wait for the fleet collector and the router (ROADMAP A14):
-    `from_dict` refuses them naming that item."""
+    `GPUS_PER_NODE`), one process a card. `autoscale` scales the decode
+    tier's `spec.replicas` on the fleet collector's signals. `router`,
+    and `autoscale.enabled` beside `disagg.enabled` (the prefill tier's
+    policy reads the router's steers), wait for the router (ROADMAP A14
+    item 5) and are refused naming it."""
 
     # resident decode slots (the engine's batch); 0 disables the engine
     num_slots: int = 8
@@ -693,6 +783,9 @@ class ServingConfig:
     observability: ObservabilityConfig = dataclasses.field(
         default_factory=ObservabilityConfig
     )
+    autoscale: AutoscaleConfig = dataclasses.field(
+        default_factory=AutoscaleConfig
+    )
     disagg: DisaggConfig = dataclasses.field(default_factory=DisaggConfig)
     chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
 
@@ -703,6 +796,8 @@ class ServingConfig:
             self.observability = ObservabilityConfig.from_dict(
                 self.observability
             )
+        if isinstance(self.autoscale, Mapping):
+            self.autoscale = AutoscaleConfig.from_dict(self.autoscale)
         if isinstance(self.chaos, Mapping):
             self.chaos = ChaosConfig.from_dict(self.chaos)
         if isinstance(self.disagg, Mapping):
@@ -718,7 +813,13 @@ class ServingConfig:
 
         self.mesh.validate()
         self.observability.validate()
+        self.autoscale.validate()
         self.disagg.validate()
+        if self.disagg.enabled and self.autoscale.enabled:
+            raise ConfigError(
+                "serving.autoscale.enabled with serving.disagg.enabled is "
+                "not ported yet: ROADMAP A14 item 5 (the prefill tier's "
+                "autoscaler reads the router's cold-prefix steers)")
         if self.disagg.enabled:
             if not self.prefix_cache:
                 raise ConfigError(
@@ -821,7 +922,7 @@ class ServingConfig:
 
     @classmethod
     def from_dict(cls, raw: Mapping[str, Any]) -> "ServingConfig":
-        """Build from a spec's `serving:` mapping; `autoscale` and
-        `router` raise, naming the ROADMAP item they wait for."""
+        """Build from a spec's `serving:` mapping; `router` raises,
+        naming the ROADMAP item it waits for."""
         _check_keys(raw, cls, _UNPORTED_SERVING_FIELDS, "serving.")
         return cls(**raw)

@@ -525,10 +525,15 @@ class GPUTrainJobController(Controller):
             # invisible to the manifest scan, so a preemption mid-save can
             # never resume from a torn checkpoint)
             env["KFT_RESTORE_DIR"] = ckpt_dir
-        # the JAX controller also renders KFT_PROFILER_* and
-        # KFT_COMPILE_CACHE_DIR from profiler_logdir / compile_cache_dir:
-        # the port's TrainingConfig refuses both fields (ROADMAP A14), so
-        # a spec that sets them fails InvalidSpec before a pod exists
+        profiler_logdir = training_spec.get("profiler_logdir")
+        if profiler_logdir:
+            # the coordinator serves the torch.profiler capture endpoint
+            # (runtime/profiler.py); a Tensorboard CR fronts the logdir
+            env["KFT_PROFILER_LOGDIR"] = profiler_logdir
+            env.setdefault("KFT_PROFILER_PORT", "9431")
+        # the JAX controller also renders KFT_COMPILE_CACHE_DIR from
+        # compile_cache_dir, which the port's TrainingConfig refuses
+        # (ROADMAP A14): such a spec fails InvalidSpec before a pod exists
         # kft-trace contract (observability/; docs/OBSERVABILITY.md):
         # TrainingConfig.observability → KFT_TRACE_* consumed by
         # runtime/launcher.py. Always rendered — the pod env documents
@@ -546,8 +551,7 @@ class GPUTrainJobController(Controller):
             # this port (runtime/launcher.py; pods have distinct network
             # namespaces so one port fits all); unset = no debug server
             env.setdefault("KFT_DEBUG_PORT", str(DEBUG_PORT))
-            # kft-fleet contract (the JAX package's observability/fleet.py;
-            # its collector is not ported, ROADMAP A14): the collector
+            # kft-fleet contract (observability/fleet.py): the collector
             # scrapes each host's debug port; KFT_FLEET_SCRAPE makes the
             # NON-coordinator hosts serve it too (per-host step-time
             # series are the straggler detector's input), and the

@@ -1,5 +1,6 @@
 """InferenceService controller: model-serving deployments per CR (port of
-kubeflow_tpu/controllers/inference.py without its autoscaler and router).
+kubeflow_tpu/controllers/inference.py with its decode-tier autoscaler and
+without its router).
 
 InferenceService CR → a Deployment of the port's model server (`python -m
 kubeflow_tpu_torch.serving.main`) + Service(8500) + VirtualService
@@ -13,15 +14,22 @@ A replica is one pod. Its serving mesh (`serving.mesh`, tensor · fsdp ·
 expert = m cards) runs in that pod on m cards of one node: the pod
 requests `nvidia.com/gpu: m`, and serving/main.py starts the m − 1 worker
 ranks beside its own. `spec.gpu.topology`, when given, must be `h100-m`.
-The autoscaler and the router wait for the fleet collector and the router
-(ROADMAP A14); `ServingConfig.from_dict` refuses their subtrees, so
-nothing a spec asks for is silently ignored.
+
+`serving.autoscale` scales `spec.replicas` on the fleet collector's
+signals (observability/fleet.py `serving_signals`, passed in as
+`fleet=`): pressure or headroom must hold `breach_cycles` consecutive
+fleet sweeps, a resize starts a `cooldown_cycles` quiet period and emits
+an `autoscale.resize` trace event and a ScaleUp/ScaleDown event, and the
+controller requeues every 5 s while autoscaling is on. The prefill
+tier's policy and the router wait for the router (ROADMAP A14 item 5);
+`ServingConfig` refuses them, so nothing a spec asks for is silently
+ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 from kubeflow_tpu_torch.cluster.objects import (
     new_object,
@@ -37,6 +45,9 @@ from kubeflow_tpu_torch.config.platform import (
     SliceConfig,
 )
 from kubeflow_tpu_torch.controllers.statefulset import new_deployment
+from kubeflow_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
 
 KIND = "InferenceService"
 DEFAULT_IMAGE = "kubeflow-tpu/model-server:latest"
@@ -72,6 +83,18 @@ def new_inference_service(
     )
 
 
+@dataclasses.dataclass
+class _ScaleState:
+    """A service tier's autoscaler hysteresis: how many consecutive fleet
+    SWEEPS the pressure/headroom signal has held, and the post-resize
+    cooldown countdown (also in sweeps)."""
+
+    up_streak: int = 0
+    down_streak: int = 0
+    cooldown: int = 0
+    last_sweep: int = -1  # collector sweep id last counted
+
+
 class InferenceServiceController(Controller):
     kind = KIND
     name = "inference-controller"
@@ -81,6 +104,7 @@ class InferenceServiceController(Controller):
         use_istio: bool = True,
         istio_gateway: str = "kubeflow/kubeflow-gateway",
         serving_defaults: Optional[ServingConfig] = None,
+        fleet=None,
     ) -> None:
         super().__init__()
         self.use_istio = use_istio
@@ -88,6 +112,12 @@ class InferenceServiceController(Controller):
         # platform-wide engine defaults; per-CR spec.serving keys
         # override field by field
         self.serving_defaults = serving_defaults or ServingConfig()
+        # the fleet collector (observability/fleet.py FleetCollector, or
+        # anything with its serving_signals(ns, name) shape): the
+        # autoscaler's only input. None = autoscaling inert even when a
+        # CR asks for it (no signals, no decisions).
+        self.fleet = fleet
+        self._scale_state: Dict[Tuple[str, str, str], _ScaleState] = {}
         self.watches = {"Deployment": self.map_owned}
 
     def _serving_env(
@@ -151,7 +181,7 @@ class InferenceServiceController(Controller):
             for f in dataclasses.fields(ServingConfig)
         }
         merged["prefill_buckets"] = list(merged["prefill_buckets"])
-        subtrees = ("mesh", "observability", "disagg", "chaos")
+        subtrees = ("mesh", "observability", "autoscale", "disagg", "chaos")
         for subtree in subtrees:
             merged[subtree] = dataclasses.asdict(merged[subtree])
         overrides = dict(spec.get("serving") or {})
@@ -159,6 +189,171 @@ class InferenceServiceController(Controller):
             merged[subtree].update(overrides.pop(subtree, None) or {})
         merged.update(overrides)
         return ServingConfig.from_dict(merged)
+
+    def _pop_scale_state(self, namespace: str, name: str) -> None:
+        """Drop every tier's hysteresis entry of one service."""
+        for key in [k for k in self._scale_state
+                    if (k[0], k[1]) == (namespace, name)]:
+            del self._scale_state[key]
+
+    def _sweep_scale_state(self, store: StateStore) -> None:
+        """Drop the hysteresis entries of services that are gone. A CR
+        that vanished without its own reconcile (a store wiped in bulk,
+        a controller pointed at a rebuilt store) must not leave a
+        cooldown or a streak that a recreated same-name service would
+        inherit."""
+        if not self._scale_state:
+            return
+        live = {
+            (
+                o.get("metadata", {}).get("namespace", "default"),
+                o.get("metadata", {}).get("name", ""),
+            )
+            for o in store.list(KIND)
+            if not o.get("metadata", {}).get("deletionTimestamp")
+        }
+        for key in list(self._scale_state):
+            if (key[0], key[1]) not in live:
+                del self._scale_state[key]
+
+    @staticmethod
+    def _hysteresis(
+        st: _ScaleState,
+        fresh: bool,
+        outage: bool,
+        pressure: bool,
+        headroom: bool,
+        breach_cycles: int,
+        cooldown_cycles: int,
+        desired: int,
+        lo: int,
+        hi: int,
+    ) -> Tuple[int, str]:
+        """One hysteresis step for one tier: advance the streaks on a
+        fresh observation and emit at most a one-replica move. On a
+        signal outage the streaks RESET rather than freeze: hysteresis
+        promises CONSECUTIVE observations, and a stale pre-outage streak
+        must not let one post-recovery reading trigger a resize."""
+        reason = "Clamp"
+        if not fresh:
+            return desired, reason
+        if st.cooldown > 0:
+            st.cooldown -= 1
+            return desired, reason
+        if outage:
+            st.up_streak = st.down_streak = 0
+            return desired, reason
+        st.up_streak = st.up_streak + 1 if pressure else 0
+        st.down_streak = st.down_streak + 1 if headroom else 0
+        if st.up_streak >= breach_cycles and desired < hi:
+            desired += 1
+            reason = "ScaleUp"
+        elif st.down_streak >= breach_cycles and desired > lo:
+            desired -= 1
+            reason = "ScaleDown"
+        if reason in ("ScaleUp", "ScaleDown"):
+            st.up_streak = st.down_streak = 0
+            st.cooldown = cooldown_cycles
+        return desired, reason
+
+    def _maybe_autoscale(
+        self,
+        store: StateStore,
+        svc_cr: Dict[str, Any],
+        namespace: str,
+        name: str,
+        cfg_serving: ServingConfig,
+    ) -> bool:
+        """Signal-driven replica autoscaling of the decode tier
+        (`spec.replicas`) on the fleet collector's queue, occupancy and
+        429 signals, with a (namespace, name, tier) hysteresis entry.
+        Returns True while autoscaling is active, so the caller keeps
+        requeueing and the signals are polled again. (The reference's
+        prefill-tier policy waits for the router, ROADMAP A14 item 5;
+        `ServingConfig` refuses autoscale beside disagg.)"""
+        if not cfg_serving.autoscale.enabled or self.fleet is None:
+            self._pop_scale_state(namespace, name)
+            return False
+        self._autoscale_decode(store, svc_cr, namespace, name, cfg_serving)
+        return True
+
+    def _autoscale_decode(
+        self,
+        store: StateStore,
+        svc_cr: Dict[str, Any],
+        namespace: str,
+        name: str,
+        cfg_serving: ServingConfig,
+    ) -> None:
+        spec = svc_cr.get("spec", {})
+        cfg = cfg_serving.autoscale
+        st = self._scale_state.setdefault(
+            (namespace, name, "decode"), _ScaleState()
+        )
+        current = int(spec.get("replicas", 1))
+        # the min/max clamp applies even before any signal arrives
+        desired = min(max(current, cfg.min_replicas), cfg.max_replicas)
+        sig = self.fleet.serving_signals(namespace, name)
+        # hysteresis counts fleet SWEEPS, not reconciles: the controller
+        # also reconciles on watch events and its 5 s requeue, and
+        # re-reading one sweep's snapshot must not fake "consecutive"
+        # observations (sweep < 0 = an untracked source, every read
+        # counts: the test fakes)
+        fresh = True
+        if sig is not None and sig.sweep >= 0:
+            fresh = sig.sweep != st.last_sweep
+            st.last_sweep = sig.sweep
+        pressure = headroom = False
+        if sig is not None:
+            queue, slots, occ = sig.queue_depth, sig.num_slots, sig.occupancy
+            if slots > 0:
+                q_per_slot = queue / slots
+            else:
+                q_per_slot = 1.0 if queue > 0 else 0.0
+            pressure = (
+                occ >= cfg.scale_up_occupancy
+                or q_per_slot >= cfg.scale_up_queue_per_slot
+                or sig.rate_429_per_s > 0
+            )
+            headroom = (
+                occ <= cfg.scale_down_occupancy
+                and queue == 0
+                and sig.rate_429_per_s == 0
+            )
+        desired, reason = self._hysteresis(
+            st, fresh, sig is None, pressure, headroom,
+            cfg.breach_cycles, cfg.cooldown_cycles,
+            desired, cfg.min_replicas, cfg.max_replicas,
+        )
+        if desired != current:
+            from kubeflow_tpu_torch.observability.trace import default_tracer
+
+            detail = (
+                f"replicas {current} -> {desired} "
+                f"(occupancy={getattr(sig, 'occupancy', None)}, "
+                f"queue={getattr(sig, 'queue_depth', None)}, "
+                f"429/s={getattr(sig, 'rate_429_per_s', None)})"
+            )
+            if reason == "ScaleDown":
+                # the condemned replica drains before it dies: SIGTERM →
+                # ModelServer.close(drain=True) inside the grace period
+                # (serving/main.py)
+                detail += (
+                    f"; replica drains in-flight requests for up to "
+                    f"{cfg_serving.drain_deadline_s:g}s before exit"
+                )
+            default_tracer().event(
+                "autoscale.resize",
+                service=f"{namespace}/{name}",
+                reason=reason,
+                replicas_from=current,
+                replicas_to=desired,
+            )
+            log.info("autoscale %s/%s: %s %s", namespace, name, reason, detail)
+            spec["replicas"] = desired
+            svc_cr["spec"] = spec
+            store.update(svc_cr)
+            store.record_event(svc_cr, reason, detail)
 
     @staticmethod
     def _gpu_request(spec: Dict[str, Any], cfg: ServingConfig):
@@ -179,11 +374,18 @@ class InferenceServiceController(Controller):
 
     def reconcile(self, store: StateStore, namespace: str, name: str) -> Result:
         svc_cr = store.try_get(KIND, name, namespace)
+        # hysteresis state of services that no longer exist must not leak
+        # into a later same-name service: swept against the live CRs
+        self._sweep_scale_state(store)
         if svc_cr is None or svc_cr["metadata"].get("deletionTimestamp"):
+            self._pop_scale_state(namespace, name)
             return Result()
         spec = svc_cr.get("spec", {})
         serving_cfg = self._serving_cfg(spec)
         gpu = self._gpu_request(spec, serving_cfg)
+        autoscaling = self._maybe_autoscale(
+            store, svc_cr, namespace, name, serving_cfg
+        )
 
         container: Dict[str, Any] = {
             "name": "model-server",
@@ -320,4 +522,7 @@ class InferenceServiceController(Controller):
         )
         if changed:
             store.patch_status(KIND, name, namespace, svc_cr["status"])
-        return Result()
+        # an autoscaling service re-polls its fleet signals even with no
+        # cluster writes pending (each poll is one hysteresis cycle);
+        # everything else stays event-driven
+        return Result(requeue_after_s=5.0) if autoscaling else Result()

@@ -1,8 +1,10 @@
-"""Observability: request/step tracing (kft-trace), its HTTP surface, and
-the training path's MFU and goodput accounting."""
+"""Observability: request/step tracing (kft-trace), its HTTP surface, the
+training path's MFU and goodput accounting, and the fleet collector with
+its SLO engine (observability/fleet.py, slo.py)."""
 
 from kubeflow_tpu_torch.observability.http import (
     add_debug_routes,
+    add_fleet_routes,
     build_debug_app,
     format_phase_row,
 )
@@ -28,6 +30,7 @@ __all__ = [
     "SpanRecord",
     "Tracer",
     "add_debug_routes",
+    "add_fleet_routes",
     "build_debug_app",
     "configure_from_env",
     "default_tracer",

@@ -14,8 +14,9 @@
   plus the per-series worst-offender exemplars, as JSON; `?trace_id=`
   narrows as /debug/trace does.
 
-The fleet routes (`add_fleet_routes`: /fleetz and the merged traces) wait
-for the fleet collector (ROADMAP A14).
+`add_fleet_routes` mounts a fleet collector's aggregated surface
+(observability/fleet.py): /fleetz and the merged /debug/fleet-trace and
+/debug/fleet-tracez.
 """
 
 from __future__ import annotations
@@ -128,16 +129,62 @@ def build_debug_app(
     tracer: Optional[Tracer] = None,
     statusz_sections: Optional[List[StatuszSection]] = None,
     role: str = "training",
+    fleet=None,
 ) -> App:
     """A standalone debug app: the three debug routes and /metrics (the
-    training runtime's debug server, which waits for ROADMAP A14, mounts
-    this)."""
+    training runtime's debug server, runtime/launcher.py, mounts this).
+    Pass a FleetCollector as `fleet` to also mount the aggregated
+    /fleetz and /debug/fleet-trace surface (a controller's debug
+    server)."""
     app = add_debug_routes(App(name), tracer, statusz_sections, role=role)
 
     @app.get("/metrics")
     def metrics_text(req):
         return Response(default_registry().render(),
                         "text/plain; charset=utf-8")
+
+    if fleet is not None:
+        add_fleet_routes(app, fleet)
+    return app
+
+
+def add_fleet_routes(app: App, collector) -> App:
+    """Mount the fleet-aggregated surface (observability/fleet.py):
+
+    - GET /fleetz: a text snapshot of the whole fleet: scrape targets,
+      each service's condensed serving signals, SLO compliance and burn
+      rates, and the gang straggler table.
+    - GET /debug/fleet-trace: every target's trace ring stitched onto
+      one timeline (a Perfetto process track a host, scrape-time
+      clock-offset estimation, flow events binding one trace id's spans
+      across tracks); load the body in Perfetto like /debug/trace.
+    - GET /debug/fleet-tracez: every target's /tracez merged by trace
+      id, plus the fleet-merged worst-offender exemplars per series.
+    """
+
+    @app.get("/fleetz")
+    def fleetz(req):
+        lines = [
+            f"{app.name} fleetz @ "
+            f"{time.strftime('%Y-%m-%d %H:%M:%S')}",
+            "",
+        ]
+        lines.extend(collector.fleetz_lines())
+        return Response("\n".join(lines) + "\n", "text/plain; charset=utf-8")
+
+    @app.get("/debug/fleet-trace")
+    def fleet_trace(req):
+        return Response(
+            json.dumps(collector.merged_chrome_trace()),
+            "application/json",
+        )
+
+    @app.get("/debug/fleet-tracez")
+    def fleet_tracez(req):
+        return Response(
+            json.dumps(collector.merged_tracez()),
+            "application/json",
+        )
 
     return app
 

@@ -41,8 +41,8 @@ trace — error traces and traces slower than the rolling p99 are ALWAYS
 kept, the rest are kept with probability `sample_prob` — into a bounded
 completed-traces ring served by `/tracez` (observability/http.py). The
 fleet collector pulls every process's /tracez and merges spans by
-trace id into one cross-process view (kubeflow_tpu/observability/
-fleet.py; the port's collector waits for ROADMAP A14).
+trace id into one cross-process view (observability/fleet.py
+`merged_tracez`).
 Exemplars close the metric→trace loop: `observe_exemplar` remembers the
 trace ids of the recent worst offenders per latency series, so an SLO
 breach links directly to replayable traces.

@@ -22,8 +22,10 @@ its mesh's axes multiply to the gang's world size, one process a rank
 (e.g. configs/gpt_moe_v5e16.yaml's `{data: 8, expert: 4}` is a gang of
 32, `mesh: {data: 2, fsdp: 2}` one of 4 whose ranks hold blocks of the
 fsdp leaves, and `mesh: {tensor: 2}` one of 2 whose ranks hold blocks of
-the tensor leaves). The profiler endpoint (KFT_PROFILER_*) is not ported (ROADMAP
-A14): a set knob raises rather than being ignored.
+the tensor leaves). KFT_PROFILER_LOGDIR set (the controller renders it
+from `profiler_logdir`) serves the profiler endpoint (runtime/
+profiler.py) on the coordinator at KFT_PROFILER_PORT (9431 by default)
+for the run's length.
 """
 
 from __future__ import annotations
@@ -40,22 +42,39 @@ log = get_logger(__name__)
 
 ENV_TRAINING_SPEC = "KFT_TRAINING_SPEC"
 ENV_RESTORE_DIR = "KFT_RESTORE_DIR"
+# profiler capture endpoint (runtime/profiler.py): set the logdir to
+# enable; traces land Tensorboard-readable so a Tensorboard CR can front
+# them
 ENV_PROFILER_LOGDIR = "KFT_PROFILER_LOGDIR"
 ENV_PROFILER_PORT = "KFT_PROFILER_PORT"
+DEFAULT_PROFILER_PORT = 9431
 # kft-trace debug surface (observability/http.py): /statusz + /debug/trace
 # + /metrics; unset = no debug server
 ENV_DEBUG_PORT = "KFT_DEBUG_PORT"
 
 
-def refuse_profiler(environ=None) -> None:
-    """The JAX launcher's profiler endpoint waits for its port: a job
-    that asks for it is refused, never run without it."""
+def maybe_start_profiler_server(environ=None, device=None):
+    """Start the `torch.profiler` REST endpoint when the env asks for
+    one: KFT_PROFILER_LOGDIR set, on the coordinator only (same-host gang
+    members would race for the port). Port 0 picks a free port; the
+    rendered pod env uses DEFAULT_PROFILER_PORT. `device` is the rank's
+    (the card unless the caller asks for the CPU). Returns the Server
+    (the caller owns its shutdown) or None."""
     env = os.environ if environ is None else environ
-    for key in (ENV_PROFILER_LOGDIR, ENV_PROFILER_PORT):
-        if env.get(key, "").strip():
-            raise RuntimeError(
-                f"{key} is set, but the profiler endpoint is not ported yet "
-                f"(ROADMAP A14, runtime/profiler.py); unset it")
+    logdir = env.get(ENV_PROFILER_LOGDIR, "")
+    if not logdir:
+        return None
+    if env.get("KFT_PROCESS_ID", "0") != "0":
+        return None
+    from kubeflow_tpu_torch.api.wsgi import Server
+    from kubeflow_tpu_torch.runtime.profiler import ProfilerService, build_app
+
+    port = int(env.get(ENV_PROFILER_PORT, str(DEFAULT_PROFILER_PORT)))
+    server = Server(build_app(ProfilerService(logdir, device=device)),
+                    port=port)
+    server.start()
+    log.info("profiler endpoint on :%d → %s", server.port, logdir)
+    return server
 
 
 def maybe_start_debug_server(environ=None):
@@ -118,7 +137,6 @@ def run(config_path: Optional[str] = None, steps: Optional[int] = None,
     )
     from kubeflow_tpu_torch.runtime.train_run import run_training
 
-    refuse_profiler()
     cfg = TrainingConfig.from_dict(load_spec(config_path))
     gang = initialize_from_env(device=device)
     dev = gang_device(device)
@@ -126,6 +144,7 @@ def run(config_path: Optional[str] = None, steps: Optional[int] = None,
              gang.job_name, gang.process_id, gang.num_processes, dev,
              cfg.model)
     configure_from_env()
+    profiler_server = maybe_start_profiler_server(device=dev)
     debug_server = maybe_start_debug_server()
     try:
         result = run_training(
@@ -141,6 +160,8 @@ def run(config_path: Optional[str] = None, steps: Optional[int] = None,
               flush=True)
         raise
     finally:
+        if profiler_server is not None:
+            profiler_server.stop()
         if debug_server is not None:
             debug_server.stop()
     import torch

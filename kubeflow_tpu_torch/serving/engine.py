@@ -161,13 +161,16 @@ from kubeflow_tpu_torch.utils.metrics import (
     serving_kv_handoff_ms_counter,
     serving_kv_handoff_pages_counter,
     serving_kv_persisted_chains_gauge,
+    serving_kv_pool_bytes_gauge,
     serving_kv_pool_bytes_per_chip_gauge,
     serving_kv_spill_hits_counter,
     serving_kv_spill_pages_counter,
     serving_moe_capacity_overflow_counter,
     serving_moe_expert_tokens_counter,
     serving_moe_load_imbalance_gauge,
+    serving_num_slots_gauge,
     serving_phase_histogram,
+    serving_prefix_hit_rate_gauge,
 )
 
 log = get_logger(__name__)
@@ -1336,6 +1339,9 @@ class DecodeEngine:
         self._spill_pages_m = serving_kv_spill_pages_counter()
         self._spill_hits_m = serving_kv_spill_hits_counter()
         self._persisted_chains_g = serving_kv_persisted_chains_gauge()
+        # the fleet's capacity and heat signals (observability/fleet.py:
+        # queue-per-slot pressure, the per-replica prefix heat)
+        self._prefix_hit_rate_g = serving_prefix_hit_rate_gauge()
         self._handoff_pages_m = serving_kv_handoff_pages_counter()
         self._handoff_ms_m = serving_kv_handoff_ms_counter()
         # MoE router evidence (MoE targets only): cumulative routed
@@ -1353,8 +1359,11 @@ class DecodeEngine:
         self._occupancy_g.set(0.0, model=name)
         self._pages_in_use_g.set(0, model=name)
         self._pages_total_g.set(self.num_pages, model=name)
+        serving_num_slots_gauge().set(self.num_slots, model=name)
+        serving_kv_pool_bytes_gauge().set(self.kv_pool_bytes, model=name)
         serving_kv_pool_bytes_per_chip_gauge().set(
             self.kv_pool_bytes_per_chip, model=name)
+        self._prefix_hit_rate_g.set(0.0, model=name)
         self._persisted_chains_g.set(0, model=name)
         self._first_page_keys_g.set(0, model=name)
 
@@ -2413,6 +2422,9 @@ class DecodeEngine:
         with self._stats_lock:
             self._admitted += 1
             self._prefill_compute_tokens += computed
+            seen = self._prefix_hit_tokens + self._prefill_compute_tokens
+            rate = self._prefix_hit_tokens / seen if seen else 0.0
+        self._prefix_hit_rate_g.set(rate, model=self.name)
         self._pages_in_use_g.set(self._pagepool.in_use, model=self.name)
 
     def _finish(self, slot_idx: int) -> None:

@@ -1,13 +1,17 @@
 """Prometheus-style metrics registry (copy of the subset of
 kubeflow_tpu/utils/metrics.py the port uses): counters, gauges and
-histograms with labels, a registry, and a renderer in the Prometheus
-text exposition format for `/metrics`. Thread-safe; no dependency."""
+histograms with labels, a registry, a renderer in the Prometheus text
+exposition format for `/metrics`, and its inverse for the fleet
+collector (`parse_rendered`, `merge_rendered`). Thread-safe; no
+dependency."""
 
 from __future__ import annotations
 
+import math
+import re
 import threading
 import time
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 LabelValues = Tuple[str, ...]
 
@@ -233,6 +237,186 @@ _default_registry = MetricsRegistry()
 
 def default_registry() -> MetricsRegistry:
     return _default_registry
+
+
+# ---------------------------------------------------------------------------
+# Exposition parsing + cross-process merging (the fleet collector's half of
+# the renderer above: observability/fleet.py scrapes every
+# replica's /metrics text, parses it back into structured samples with
+# parse_rendered(), and merges them into fleet-level series with
+# merge_rendered() — counters sum, gauges follow a declared sum/max/min/mean
+# policy, histograms merge bucket-wise because observe() keeps the bucket
+# counts CUMULATIVE per `le` exactly as Prometheus defines them).
+# ---------------------------------------------------------------------------
+
+# label key: sorted (name, value) pairs — order-independent identity
+LabelItems = Tuple[Tuple[str, str], ...]
+
+_SAMPLE_RE = re.compile(
+    r"^(?P<name>[A-Za-z_:][A-Za-z0-9_:]*)"
+    r"(?:\{(?P<labels>[^}]*)\})?\s+(?P<value>[^\s]+)$"
+)
+_LABEL_RE = re.compile(r'([A-Za-z_][A-Za-z0-9_]*)="([^"]*)"')
+
+
+class HistogramState:
+    """Mergeable histogram snapshot: cumulative bucket counts keyed by the
+    `le` boundary, plus sum and count — the exact state the renderer emits
+    as `_bucket`/`_sum`/`_count` lines, reassembled by parse_rendered()."""
+
+    __slots__ = ("buckets", "sum", "count")
+
+    def __init__(self) -> None:
+        self.buckets: Dict[float, float] = {}  # le -> cumulative count
+        self.sum = 0.0
+        self.count = 0.0
+
+    def merge(self, other: "HistogramState") -> None:
+        """Bucket-wise merge: cumulative counts per `le` add across
+        processes (same-code replicas share one bucket ladder; a union of
+        ladders still merges correctly because each count stays cumulative
+        for its own boundary)."""
+        for le, c in other.buckets.items():
+            self.buckets[le] = self.buckets.get(le, 0.0) + c
+        self.sum += other.sum
+        self.count += other.count
+
+    def quantile(self, q: float) -> Optional[float]:
+        """Prometheus-style histogram_quantile: rank q*count located in the
+        cumulative bucket ladder, linearly interpolated inside its bucket.
+        None when the histogram is empty. The +Inf bucket clamps to the
+        largest finite boundary (the standard histogram_quantile caveat)."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        if self.count <= 0 or not self.buckets:
+            return None
+        ladder = sorted(self.buckets.items())
+        rank = q * self.count
+        prev_le, prev_c = 0.0, 0.0
+        finite = [le for le, _ in ladder if math.isfinite(le)]
+        for le, c in ladder:
+            if c >= rank:
+                if not math.isfinite(le):
+                    return finite[-1] if finite else None
+                if c <= prev_c:
+                    return le
+                frac = (rank - prev_c) / (c - prev_c)
+                return prev_le + (le - prev_le) * frac
+            if math.isfinite(le):
+                prev_le, prev_c = le, c
+        return finite[-1] if finite else None
+
+
+class ParsedMetric:
+    """One metric family parsed back out of exposition text."""
+
+    __slots__ = ("name", "kind", "samples")
+
+    def __init__(self, name: str, kind: str) -> None:
+        self.name = name
+        self.kind = kind
+        # counter/gauge: labels -> float; histogram: labels -> HistogramState
+        self.samples: Dict[LabelItems, object] = {}
+
+
+def _parse_labels(raw: Optional[str]) -> Dict[str, str]:
+    return dict(_LABEL_RE.findall(raw)) if raw else {}
+
+
+def parse_rendered(text: str) -> Dict[str, ParsedMetric]:
+    """Parse MetricsRegistry.render() output (Prometheus exposition text)
+    back into structured samples. `# TYPE` lines drive the shape: histogram
+    families reassemble their `_bucket`/`_sum`/`_count` series into
+    HistogramState per label set (minus `le`). Unknown series without a
+    TYPE line parse as untyped gauges — a foreign exporter still merges."""
+    out: Dict[str, ParsedMetric] = {}
+    types: Dict[str, str] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("#"):
+            parts = line.split()
+            if len(parts) >= 4 and parts[1] == "TYPE":
+                types[parts[2]] = parts[3]
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            continue
+        name = m.group("name")
+        labels = _parse_labels(m.group("labels"))
+        try:
+            value = float(m.group("value"))
+        except ValueError:
+            continue
+        base, part = name, ""
+        for suffix in ("_bucket", "_sum", "_count"):
+            stem = name[: -len(suffix)]
+            if name.endswith(suffix) and types.get(stem) == "histogram":
+                base, part = stem, suffix
+                break
+        kind = types.get(base, "gauge")
+        pm = out.setdefault(base, ParsedMetric(base, kind))
+        if kind == "histogram":
+            le = labels.pop("le", None)
+            key = tuple(sorted(labels.items()))
+            hs = pm.samples.setdefault(key, HistogramState())
+            if part == "_bucket" and le is not None:
+                hs.buckets[float(le)] = value
+            elif part == "_sum":
+                hs.sum = value
+            elif part == "_count":
+                hs.count = value
+        else:
+            pm.samples[tuple(sorted(labels.items()))] = value
+    return out
+
+
+def merge_rendered(
+    snapshots: List[Dict[str, ParsedMetric]],
+    policy: Dict[str, str],
+    drop_labels: Sequence[str] = ("instance",),
+) -> Dict[str, ParsedMetric]:
+    """Merge per-process parse_rendered() snapshots into fleet series.
+
+    Counters sum, histograms merge bucket-wise, gauges follow
+    `policy[name]` (sum/max/min/mean). Labels in `drop_labels` (the
+    per-process identity) are stripped so replica series land on one
+    fleet key. Metrics with no policy entry are skipped — the collector
+    only aggregates what the policy table declares."""
+    merged: Dict[str, ParsedMetric] = {}
+    counts: Dict[Tuple[str, LabelItems], int] = {}
+    for snap in snapshots:
+        for name, pm in snap.items():
+            pol = policy.get(name)
+            if pol is None:
+                continue
+            tgt = merged.setdefault(name, ParsedMetric(name, pm.kind))
+            for key, val in pm.samples.items():
+                key = tuple(
+                    (k, v) for k, v in key if k not in drop_labels
+                )
+                if pm.kind == "histogram" or isinstance(val, HistogramState):
+                    hs = tgt.samples.setdefault(key, HistogramState())
+                    hs.merge(val)
+                    continue
+                prev = tgt.samples.get(key)
+                if prev is None:
+                    tgt.samples[key] = float(val)
+                    counts[(name, key)] = 1
+                elif pol == "max":
+                    tgt.samples[key] = max(prev, float(val))
+                elif pol == "min":
+                    tgt.samples[key] = min(prev, float(val))
+                else:  # sum and mean both accumulate; mean divides below
+                    tgt.samples[key] = prev + float(val)
+                    counts[(name, key)] = counts.get((name, key), 1) + 1
+    for name, pm in merged.items():
+        if policy.get(name) == "mean":
+            for key, val in list(pm.samples.items()):
+                n = counts.get((name, key), 1)
+                pm.samples[key] = float(val) / max(n, 1)
+    return merged
 
 
 # -- the training loop's series (Trainer.fit) ---------------------------------
@@ -563,4 +747,95 @@ def trace_sampled_out_counter() -> Counter:
     return default_registry().counter(
         "kft_trace_sampled_out_total",
         "request traces dropped by the tail sampler",
+    )
+
+
+# -- the engine's capacity and heat (serving/engine.py) -----------------------
+
+
+def serving_num_slots_gauge() -> Gauge:
+    """The engine's configured slot capacity, exported so fleet-level
+    ratios (queue_depth / num_slots in SLO rules, queue-per-slot pressure
+    in the autoscaler) divide by the fleet's real capacity."""
+    return default_registry().gauge(
+        "serving_num_slots",
+        "decode-engine resident slot capacity",
+        ["model"],
+    )
+
+
+def serving_prefix_hit_rate_gauge() -> Gauge:
+    """Fraction of prompt tokens served from the radix prefix cache
+    (hit / (hit + prefilled)): the per-replica heat signal
+    `FleetCollector.replica_serving_signals` reads."""
+    return default_registry().gauge(
+        "serving_prefix_hit_rate",
+        "fraction of prompt tokens served from the prefix cache",
+        ["model"],
+    )
+
+
+def serving_kv_pool_bytes_gauge() -> Gauge:
+    """Resident KV pool bytes (target and draft pools, values and int8
+    scales): the engine's dominant card-memory term in bytes."""
+    return default_registry().gauge(
+        "serving_kv_pool_bytes",
+        "resident KV page pool bytes (all resident pools)",
+        ["model"],
+    )
+
+
+# -- the fleet collector's own series (observability/fleet.py) -----------------
+#
+# Produced by the collector, never scraped: they stay out of its
+# aggregation policy. The JAX package's names, labels and help text.
+
+
+def fleet_slo_compliant_gauge(registry: Optional[MetricsRegistry] = None) -> Gauge:
+    """1 while the SLO rule's current fleet-level value satisfies its
+    threshold, 0 while breached (observability/slo.py)."""
+    return (registry or default_registry()).gauge(
+        "fleet_slo_compliant",
+        "declarative SLO rule currently satisfied (1) or breached (0)",
+        ["slo"],
+    )
+
+
+def fleet_slo_burn_rate_gauge(registry: Optional[MetricsRegistry] = None) -> Gauge:
+    """Fraction of recent SLO evaluations that breached (rolling window of
+    observability.fleet_burn_window sweeps): 0 = healthy, 1 = burning the
+    whole error budget."""
+    return (registry or default_registry()).gauge(
+        "fleet_slo_burn_rate",
+        "breached fraction of the rolling SLO evaluation window",
+        ["slo"],
+    )
+
+
+def fleet_straggler_gauge(registry: Optional[MetricsRegistry] = None) -> Gauge:
+    """1 while the gang host's rolling step time is a robust z-score
+    outlier against its job's other hosts, 0 once it recovers."""
+    return (registry or default_registry()).gauge(
+        "fleet_straggler",
+        "gang host flagged as a step-time straggler",
+        ["job", "host"],
+    )
+
+
+def fleet_targets_gauge(registry: Optional[MetricsRegistry] = None) -> Gauge:
+    """Scrape targets the fleet collector reached at the last sweep."""
+    return (registry or default_registry()).gauge(
+        "fleet_targets",
+        "reachable fleet scrape targets by role",
+        ["role"],
+    )
+
+
+# -- the profiler endpoint (runtime/profiler.py) ------------------------------
+
+
+def profiler_captures_counter() -> Counter:
+    """Completed trace captures of this process's profiler endpoint."""
+    return default_registry().counter(
+        "profiler_captures_total", "completed trace captures", []
     )

@@ -23,8 +23,9 @@ test_spec_decode.py TestPlatformWiring, test_observability.py and
 test_tracing.py) run here on the port's. Every JAX `ServingConfig`
 ConfigError case raises in the port with the same fragment; the one
 exception is listed (`disagg.enabled` without the router, which the port
-does not have). `autoscale` and `router` stay refused, naming their
-ROADMAP item, and a replica's topology must match its mesh on one node.
+does not have). `router`, and `autoscale` beside `disagg`, stay
+refused, naming their ROADMAP item, and a replica's topology must match
+its mesh on one node.
 """
 
 import copy
@@ -538,7 +539,10 @@ def test_disagg_without_the_router_is_the_listed_exception():
 
 
 @pytest.mark.parametrize("serving", [
-    {"autoscale": {"enabled": True, "max_replicas": 3}},
+    # the decode tier's autoscaler is ported; beside a disaggregated
+    # fleet the prefill tier's policy would read the router's steers
+    {"autoscale": {"enabled": True, "max_replicas": 3},
+     "disagg": {"enabled": True}},
     {"router": {"enabled": True}},
     {"router": {"enabled": False}},
     {"disagg": {"cold_hit_rate": 0.5}},

@@ -9,6 +9,10 @@ on the CPU.
   f32 here, as the port's is). The port's `kernel` read path (the JAX
   package's `pallas`, which it pins bitwise to `gather`) is held against
   the same JAX tokens.
+- After that traffic both servers' /metrics declare the same `serving_*`
+  series, apart from the port's `serving_kernel_launches` (the pod's
+  paged-kernel launch counts), and `serving_num_slots` reads the
+  engine's slots: the fleet collector's capacity signal.
 - The rendered command with `--device cpu` and a `{tensor: 2}` mesh:
   `python -m kubeflow_tpu_torch.serving.main` starts its worker rank
   itself (gloo over localhost); its greedy tokens equal the 1×1 port
@@ -61,6 +65,15 @@ def _use_env(monkeypatch, env):
         monkeypatch.setenv(key, value)
 
 
+def _serving_names(app):
+    """The `serving_*` families a server's /metrics declares."""
+    status, resp, _ = app.handle_full("GET", "/metrics")
+    assert status == 200
+    text = resp.body.decode() if hasattr(resp, "body") else resp
+    return {line.split()[2] for line in text.splitlines()
+            if line.startswith("# TYPE serving_")}
+
+
 def _tokens(app, name, prompts):
     out = []
     for prompt in prompts:
@@ -74,7 +87,9 @@ def _tokens(app, name, prompts):
 
 @pytest.fixture(scope="module")
 def jax_tokens(gpt_and_params):
-    """The JAX server's tokens under the JAX controller's rendered env."""
+    """The JAX server's tokens under the JAX controller's rendered env,
+    and the `serving_*` families its /metrics declares after them (a
+    fresh registry: only this server's series)."""
     import jax.numpy as jnp
 
     from kubeflow_tpu.controllers.inference import (
@@ -82,12 +97,14 @@ def jax_tokens(gpt_and_params):
     )
     from kubeflow_tpu.models import registry
     from kubeflow_tpu.serving.main import build_server as jbuild_server
+    from kubeflow_tpu.utils import metrics as jmetrics
 
     _, params = gpt_and_params
     env = JController()._serving_env({"serving": SPEC})
     mp = pytest.MonkeyPatch()
     try:
         _use_env(mp, env)
+        mp.setattr(jmetrics, "_default_registry", jmetrics.MetricsRegistry())
         get_model = registry.get_model
         # the served model in f32, as the port's below (the registry's
         # gpt_tiny computes in bf16 by default)
@@ -96,7 +113,8 @@ def jax_tokens(gpt_and_params):
         ms = jbuild_server("gpt_tiny", params=params, batch_window_ms=0)
         try:
             assert ms._engines["gpt_tiny"].num_slots == SPEC["num_slots"]
-            return env, _tokens(ms.app, "gpt_tiny", _prompts())
+            tokens = _tokens(ms.app, "gpt_tiny", _prompts())
+            return env, tokens, _serving_names(ms.app)
         finally:
             ms.close()
     finally:
@@ -106,7 +124,7 @@ def jax_tokens(gpt_and_params):
 @pytest.mark.parametrize("impl", ["gather", "kernel"])
 def test_the_rendered_env_serves_the_jax_servers_tokens(
         gpt_and_params, jax_tokens, monkeypatch, impl):
-    jenv, want = jax_tokens
+    jenv, want, _ = jax_tokens
     _, params = gpt_and_params
     env = InferenceServiceController()._serving_env(
         {"serving": dict(SPEC, paged_attention=impl)})
@@ -127,6 +145,35 @@ def test_the_rendered_env_serves_the_jax_servers_tokens(
     assert stats["attention_kernel"] == impl
     # the 45-token prompt ran a chunk window past the largest bucket
     assert any(int(w) > 1 for w in stats["paged_attention_windows"])
+
+
+def test_both_servers_declare_the_same_serving_series(
+        gpt_and_params, jax_tokens, monkeypatch):
+    from kubeflow_tpu_torch.utils import metrics
+
+    jenv, want_tokens, want = jax_tokens
+    _use_env(monkeypatch, InferenceServiceController()._serving_env(
+        {"serving": SPEC}))
+    monkeypatch.setattr(metrics, "_default_registry",
+                        metrics.MetricsRegistry())
+    ms = build_server("gpt_tiny", device="cpu", dtype=torch.float32,
+                      params=params_from_jax(gpt_and_params[1]))
+    try:
+        assert _tokens(ms.app, "gpt_tiny", _prompts()) == want_tokens
+        got = _serving_names(ms.app)
+        reg = metrics.default_registry()
+        slots = reg.get("serving_num_slots").value(model="gpt_tiny")
+        pool = reg.get("serving_kv_pool_bytes").value(model="gpt_tiny")
+        hit_rate = reg.get("serving_prefix_hit_rate").value(model="gpt_tiny")
+        stats = ms.engine("gpt_tiny").stats()
+    finally:
+        ms.close()
+    assert {"serving_num_slots", "serving_prefix_hit_rate",
+            "serving_kv_pool_bytes"} <= want
+    assert got - {"serving_kernel_launches"} == want
+    assert slots == SPEC["num_slots"]
+    assert pool == stats["kv_pool_bytes"] > 0
+    assert hit_rate == pytest.approx(stats["prefix_cache_hit_rate"])
 
 
 # -- the rendered command as a pod runs it: a {tensor: 2} replica ------------

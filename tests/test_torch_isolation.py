@@ -48,6 +48,11 @@ def test_no_port_source_imports_jax_or_the_jax_package():
         "controllers/helpers.py", "controllers/gpujob.py",
         "controllers/studyjob.py", "runtime/executor.py",
         "controllers/inference.py", "controllers/statefulset.py",
+        # the observability control plane: the profiler endpoint, the
+        # Tensorboard controller, the fleet collector and its SLO engine
+        "runtime/profiler.py", "controllers/tensorboard.py",
+        "observability/fleet.py", "observability/slo.py",
+        "utils/audit_lock.py",
     )} <= {os.path.relpath(p, REPO) for p in sources}
     offenders = [
         (os.path.relpath(p, REPO), m)
@@ -110,6 +115,12 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked_for():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_training(cfg)
     assert Trainer(cfg, device="cpu").device.type == "cpu"
+
+    from kubeflow_tpu_torch.runtime.profiler import ProfilerService
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProfilerService("/tmp/unused")
+    assert ProfilerService("/tmp/unused", device="cpu").device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_cuda():

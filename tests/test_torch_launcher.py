@@ -1,8 +1,9 @@
 """runtime/launcher.py, the gang rank's entry point: `main` from
 KFT_TRAINING_SPEC and from `--config`, its result line against the JAX
 launcher's, the resume through KFT_RESTORE_DIR, the debug server, the
-refused profiler knobs, and `python -m kubeflow_tpu_torch.runtime.
-launcher` as a 2-rank gloo gang on the CPU."""
+profiler endpoint for the run's length (runtime/profiler.py), and
+`python -m kubeflow_tpu_torch.runtime.launcher` as a 2-rank gloo gang on
+the CPU."""
 
 import json
 import os
@@ -74,13 +75,34 @@ def test_main_from_a_config_file_and_resume(clean_env, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("key", ["KFT_PROFILER_LOGDIR", "KFT_PROFILER_PORT"])
-def test_profiler_knobs_are_refused(clean_env, capsys, key):
-    clean_env.setenv(key, "/tmp/prof" if "LOGDIR" in key else "9431")
+def test_profiler_knobs_are_refused(clean_env, capsys, key, tmp_path,
+                                    monkeypatch):
+    """No knob is refused any more: the logdir serves the profiler
+    endpoint for the run's length (a port alone serves nothing, as in
+    the JAX launcher), and the run ends with it stopped."""
+    clean_env.setenv(key, str(tmp_path) if "LOGDIR" in key else "9431")
+    if "LOGDIR" in key:
+        clean_env.setenv("KFT_PROFILER_PORT", "0")
     clean_env.setenv("KFT_TRAINING_SPEC", json.dumps(SPEC))
-    with pytest.raises(RuntimeError, match="A14"):
-        launcher.refuse_profiler()
-    assert launcher.main(["--device", "cpu"]) == 1
-    assert "A14" in capsys.readouterr().err
+    served = []
+    start = launcher.maybe_start_profiler_server
+
+    def spy(environ=None, device=None):
+        server = start(environ, device)
+        served.append(server)
+        return server
+
+    monkeypatch.setattr(launcher, "maybe_start_profiler_server", spy)
+    assert launcher.main(["--device", "cpu"]) == 0
+    assert _result(capsys.readouterr().out)["final_step"] == 3
+    (server,) = served
+    if "LOGDIR" in key:
+        assert server is not None and server.port > 0
+        # stopped in the launcher's finally
+        assert not server._thread.is_alive()
+        assert server._httpd.socket.fileno() == -1
+    else:
+        assert server is None
 
 
 def test_debug_server_on_the_coordinator_only(clean_env):

@@ -434,15 +434,30 @@ def test_chaos_config_accepts_and_refuses_as_the_jax_package(raw):
 
 
 def test_the_fleet_fields_are_refused_naming_the_roadmap():
-    for key in ("slo_rules", "fleet_scrape_interval_s",
-                "fleet_straggler_zscore", "fleet_burn_window"):
-        with pytest.raises(ConfigError, match="A14"):
-            ObservabilityConfig.from_dict({key: 1})
-    # the serving config's autoscaler and router wait for the fleet
-    # collector and the router; its engine knobs are taken
-    for key in ("autoscale", "router"):
-        with pytest.raises(ConfigError, match="A14"):
-            ServingConfig.from_dict({key: {"enabled": True}})
+    # the fleet collector's fields load with the JAX checks
+    cfg = ObservabilityConfig.from_dict({
+        "slo_rules": ["serving_ttft_p99 < 5s"],
+        "fleet_scrape_interval_s": 1.0, "fleet_straggler_zscore": 2.5,
+        "fleet_burn_window": 4})
+    assert (cfg.slo_rules, cfg.fleet_scrape_interval_s,
+            cfg.fleet_straggler_zscore, cfg.fleet_burn_window) == (
+        ["serving_ttft_p99 < 5s"], 1.0, 2.5, 4)
+    for key in ("fleet_scrape_interval_s", "fleet_straggler_zscore",
+                "fleet_burn_window"):
+        with pytest.raises(ConfigError, match=key):
+            ObservabilityConfig.from_dict({key: 0})
+    with pytest.raises(ConfigError, match="without a quantile"):
+        ObservabilityConfig.from_dict({"slo_rules": ["serving_ttft < 5s"]})
+    # the serving config's decode-tier autoscaler loads; the router (and
+    # with it the prefill tier's autoscaler) waits for ROADMAP A14 item 5
+    auto = ServingConfig.from_dict(
+        {"autoscale": {"enabled": True, "max_replicas": 2}}).autoscale
+    assert auto.enabled and auto.max_replicas == 2
+    with pytest.raises(ConfigError, match="A14 item 5"):
+        ServingConfig.from_dict({"router": {"enabled": True}})
+    with pytest.raises(ConfigError, match="A14 item 5"):
+        ServingConfig.from_dict({"autoscale": {"enabled": True},
+                                 "disagg": {"enabled": True}})
     assert ServingConfig.from_dict({"num_slots": 4}).num_slots == 4
     with pytest.raises(ConfigError, match="attempt="):
         ServingConfig(chaos=ChaosConfig(points=["engine.step:attempt=0"]))

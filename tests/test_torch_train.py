@@ -298,15 +298,20 @@ def test_config_refuses_what_it_does_not_honour():
         TrainingConfig.from_dict({"model": "mlp", "mesh": {"tensor": 2}})
     with pytest.raises(ConfigError, match="unknown field"):
         TrainingConfig.from_dict({"model": "gpt_tiny", "bogus": 1})
+    # the profiler endpoint is ported (runtime/profiler.py); the compile
+    # cache stays refused
+    assert TrainingConfig.from_dict(
+        {"model": "gpt_tiny", "profiler_logdir": "/tmp/prof"}
+    ).profiler_logdir == "/tmp/prof"
     with pytest.raises(ConfigError, match="A14"):
         TrainingConfig.from_dict({"model": "gpt_tiny",
-                                  "profiler_logdir": "/tmp/prof"})
+                                  "compile_cache_dir": "/tmp/cache"})
     # eval without a held-out split is refused as in the JAX config
     with pytest.raises(ConfigError, match="requires a real dataset"):
         TrainingConfig.from_dict({"model": "gpt_tiny",
                                   "data": {"eval_every_steps": 5}})
     with pytest.raises(TypeError):
-        TrainingConfig(model="gpt_tiny", profiler_logdir="/tmp/prof")
+        TrainingConfig(model="gpt_tiny", compile_cache_dir="/tmp/cache")
     with pytest.raises(ConfigError, match="accum_steps"):
         TrainingConfig(model="gpt_tiny", global_batch_size=6, accum_steps=4)
     with pytest.raises(ConfigError, match="requires data.path"):

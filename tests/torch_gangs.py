@@ -85,7 +85,8 @@ SMOKE_EXPERT = {
     "overrides": dict(model="gpt_tiny_moe", seq_len=32, dtype="float32",
                       loss_chunk=16, attention_impl="dense"),
     "seq_overrides": dict(model="gpt_tiny_moe", seq_len=64,
-                          dtype="float32", loss_chunk=16)}
+                          dtype="float32", loss_chunk=16),
+    "model_kwargs": {}}
 SMOKE_PIPELINE = {"overrides": dict(model="gpt_tiny", seq_len=32,
                                     dtype="float32", attention_impl="dense"),
                   "model_kwargs": {"num_layers": 4}}
