@@ -126,6 +126,16 @@ class App:
     def post(self, pattern: str, binary: bool = False):
         return self.route("POST", pattern, binary=binary)
 
+    def handle(
+        self, method: str, path: str, body: Any = None,
+        headers: Optional[Dict[str, str]] = None,
+        query: Optional[Dict[str, str]] = None,
+    ) -> Tuple[int, Any]:
+        """`handle_full` without the response headers (in-process
+        clients and tests)."""
+        status, result, _ = self.handle_full(method, path, body, headers, query)
+        return status, result
+
     def handle_full(
         self, method: str, path: str, body: Any = None,
         headers: Optional[Dict[str, str]] = None,

@@ -3,7 +3,7 @@ kubeflow_tpu/config/platform.py's `TrainingConfig`, `MeshConfig`,
 `DataConfig` and `CheckpointConfig` the port's training path honours, of
 `ObservabilityConfig` and `ChaosConfig` both paths read, and of
 `ServingConfig`: its engine and KV-tier knobs and its `mesh`,
-`observability`, `autoscale`, `chaos` and `disagg` subtrees, which
+`observability`, `autoscale`, `chaos`, `router` and `disagg` subtrees, which
 controllers/inference.py renders into a serving pod or acts on), and
 `SliceConfig`,
 the GPU counterpart of the JAX package's TPU slice request: an H100
@@ -37,18 +37,6 @@ _UNPORTED_FIELDS = {
     "compile_cache_dir": "A14 (nothing compiles ahead in eager PyTorch)",
 }
 
-# ServingConfig subtrees that wait for the router
-_UNPORTED_SERVING_FIELDS = {
-    "router": "A14 item 5 (the router)",
-}
-# DisaggConfig fields read only by the router's steering and the
-# prefill tier's autoscaler
-_UNPORTED_DISAGG_FIELDS = {
-    name: "A14 item 5 (the router and the prefill tier's autoscaler)"
-    for name in (
-        "min_prefill_replicas", "max_prefill_replicas", "cold_hit_rate",
-        "scale_up_ttft_p99_s", "scale_up_cold_per_s")
-}
 # cards a serving replica's pod may request: a replica is one pod on one
 # node, and an H100 node holds 8
 GPUS_PER_NODE = 8
@@ -648,21 +636,75 @@ class AutoscaleConfig:
 
 
 @dataclasses.dataclass
+class RouterConfig:
+    """kft-router knobs (routing/; the JAX `RouterConfig`'s fields,
+    defaults and checks). When enabled the InferenceService controller
+    deploys a `<name>-router` pod beside the replica fleet running
+    `python -m kubeflow_tpu_torch.routing`, with these rendered as
+    KFT_ROUTER_* (routing/__main__.py `knobs_from_env`). The affinity
+    page size is not a knob: the controller renders KFT_ROUTER_PAGE_SIZE
+    from `ServingConfig.page_size`, so the router's hash and the
+    replicas' radix pages cannot drift apart."""
+
+    # deploy the prefix-affinity front door; off = clients talk to the
+    # replica Service directly and each replica's prefix cache is its own
+    enabled: bool = False
+    # route :generate by the prompt's first-page hash over a rendezvous
+    # ranking of live replicas; off = round-robin spray
+    affinity: bool = True
+    # queue depth a slot strictly above which an affinity request takes
+    # its second rendezvous choice (routing/router.py
+    # DEFAULT_SPILL_QUEUE_PER_SLOT)
+    spill_queue_per_slot: float = 2.0
+    # extra replica attempts after a 429, connect failure or 5xx before
+    # a clean 503 (routing/router.py DEFAULT_RETRY_BUDGET)
+    retry_budget: int = 2
+
+    def __post_init__(self):
+        self.validate()
+
+    def validate(self) -> None:
+        if self.spill_queue_per_slot < 0:
+            raise ConfigError(
+                "serving.router.spill_queue_per_slot must be >= 0")
+        if self.retry_budget < 0:
+            raise ConfigError("serving.router.retry_budget must be >= 0")
+
+    @classmethod
+    def from_dict(cls, raw: Mapping[str, Any]) -> "RouterConfig":
+        _check_keys(raw, cls, {}, "serving.router.")
+        return cls(**raw)
+
+
+@dataclasses.dataclass
 class DisaggConfig:
     """The disaggregated prefill/decode fleet (the JAX `DisaggConfig`'s
-    fields a replica and its controller read). `enabled` renders a
-    `<name>-prefill` Deployment of `prefill_replicas` pods beside the
-    decode tier (controllers/inference.py); `handoff_chains` bounds the
-    committed radix pages a draining replica ships to the keys' new
-    rendezvous homes (`POST /v1/kv/handoff` without a "chains" count;
-    hottest first, the host tier included). The steering and per-tier
-    autoscale knobs wait for the router (ROADMAP A14 item 5), so the
-    port's prefill tier is reached by a client that steers (`:prefill`
-    with its decode peers), and `enabled` does not need
-    `router.enabled` as the JAX config does."""
+    fields, defaults and checks). `enabled` renders a `<name>-prefill`
+    Deployment of `prefill_replicas` pods beside the decode tier
+    (controllers/inference.py), and the router steers cold-prefix
+    :generate requests through it: the prefill replica runs chunked
+    prefill and ships the committed pages to the request's decode home
+    over `POST /v1/kv/pages`. Needs `router.enabled` (the router is the
+    steering point) and `prefix_cache` (shipped pages admit as radix
+    hits)."""
 
     enabled: bool = False
+    # prefill-tier pod count; spec.replicas stays the decode tier's. The
+    # per-tier autoscaler moves it within min/max below
     prefill_replicas: int = 1
+    min_prefill_replicas: int = 1
+    max_prefill_replicas: int = 1
+    # a request whose first-page key the router has not steered, or
+    # whose decode home's prefix hit rate is strictly below this, is
+    # cold (KFT_ROUTER_DISAGG_COLD_HIT_RATE)
+    cold_hit_rate: float = 0.2
+    # prefill-tier scale-up pressure: tier TTFT p99 at or above this
+    scale_up_ttft_p99_s: float = 2.0
+    # prefill-tier scale-up pressure: router cold steers a second at or
+    # above this
+    scale_up_cold_per_s: float = 2.0
+    # committed radix pages a draining decode replica ships to the
+    # keys' new rendezvous homes (KFT_SERVING_DISAGG_HANDOFF_CHAINS)
     handoff_chains: int = 64
 
     def __post_init__(self):
@@ -671,12 +713,28 @@ class DisaggConfig:
     def validate(self) -> None:
         if self.prefill_replicas < 0:
             raise ConfigError("serving.disagg.prefill_replicas must be >= 0")
+        if self.min_prefill_replicas < 0:
+            raise ConfigError(
+                "serving.disagg.min_prefill_replicas must be >= 0")
+        if self.max_prefill_replicas < max(1, self.min_prefill_replicas):
+            raise ConfigError(
+                "serving.disagg.max_prefill_replicas must be >= "
+                "max(1, min_prefill_replicas)")
+        if not 0.0 <= self.cold_hit_rate <= 1.0:
+            raise ConfigError(
+                "serving.disagg.cold_hit_rate must be in [0, 1]")
+        if self.scale_up_ttft_p99_s <= 0:
+            raise ConfigError(
+                "serving.disagg.scale_up_ttft_p99_s must be > 0")
+        if self.scale_up_cold_per_s <= 0:
+            raise ConfigError(
+                "serving.disagg.scale_up_cold_per_s must be > 0")
         if self.handoff_chains < 1:
             raise ConfigError("serving.disagg.handoff_chains must be >= 1")
 
     @classmethod
     def from_dict(cls, raw: Mapping[str, Any]) -> "DisaggConfig":
-        _check_keys(raw, cls, _UNPORTED_DISAGG_FIELDS, "serving.disagg.")
+        _check_keys(raw, cls, {}, "serving.disagg.")
         return cls(**raw)
 
 
@@ -739,10 +797,9 @@ class ServingConfig:
     refused here. `mesh` is a replica's `tensor × fsdp × expert` serving
     mesh: one pod on that many cards of one node (at most
     `GPUS_PER_NODE`), one process a card. `autoscale` scales the decode
-    tier's `spec.replicas` on the fleet collector's signals. `router`,
-    and `autoscale.enabled` beside `disagg.enabled` (the prefill tier's
-    policy reads the router's steers), wait for the router (ROADMAP A14
-    item 5) and are refused naming it."""
+    tier's `spec.replicas` on the fleet collector's signals, and the
+    prefill tier's within `disagg`'s bounds. `router` deploys the
+    prefix-affinity front door, which `disagg` needs."""
 
     # resident decode slots (the engine's batch); 0 disables the engine
     num_slots: int = 8
@@ -786,6 +843,7 @@ class ServingConfig:
     autoscale: AutoscaleConfig = dataclasses.field(
         default_factory=AutoscaleConfig
     )
+    router: RouterConfig = dataclasses.field(default_factory=RouterConfig)
     disagg: DisaggConfig = dataclasses.field(default_factory=DisaggConfig)
     chaos: ChaosConfig = dataclasses.field(default_factory=ChaosConfig)
 
@@ -800,6 +858,8 @@ class ServingConfig:
             self.autoscale = AutoscaleConfig.from_dict(self.autoscale)
         if isinstance(self.chaos, Mapping):
             self.chaos = ChaosConfig.from_dict(self.chaos)
+        if isinstance(self.router, Mapping):
+            self.router = RouterConfig.from_dict(self.router)
         if isinstance(self.disagg, Mapping):
             self.disagg = DisaggConfig.from_dict(self.disagg)
         self.validate()
@@ -814,13 +874,14 @@ class ServingConfig:
         self.mesh.validate()
         self.observability.validate()
         self.autoscale.validate()
+        self.router.validate()
         self.disagg.validate()
-        if self.disagg.enabled and self.autoscale.enabled:
-            raise ConfigError(
-                "serving.autoscale.enabled with serving.disagg.enabled is "
-                "not ported yet: ROADMAP A14 item 5 (the prefill tier's "
-                "autoscaler reads the router's cold-prefix steers)")
         if self.disagg.enabled:
+            if not self.router.enabled:
+                raise ConfigError(
+                    "serving.disagg.enabled needs serving.router.enabled: "
+                    "the router steers cold-prefix requests to the "
+                    "prefill tier")
             if not self.prefix_cache:
                 raise ConfigError(
                     "serving.disagg.enabled needs serving.prefix_cache: "
@@ -922,7 +983,6 @@ class ServingConfig:
 
     @classmethod
     def from_dict(cls, raw: Mapping[str, Any]) -> "ServingConfig":
-        """Build from a spec's `serving:` mapping; `router` raises,
-        naming the ROADMAP item it waits for."""
-        _check_keys(raw, cls, _UNPORTED_SERVING_FIELDS, "serving.")
+        """Build from a spec's `serving:` mapping."""
+        _check_keys(raw, cls, {}, "serving.")
         return cls(**raw)

@@ -1,6 +1,6 @@
 """InferenceService controller: model-serving deployments per CR (port of
-kubeflow_tpu/controllers/inference.py with its decode-tier autoscaler and
-without its router).
+kubeflow_tpu/controllers/inference.py with its per-tier autoscaler and
+its router render).
 
 InferenceService CR → a Deployment of the port's model server (`python -m
 kubeflow_tpu_torch.serving.main`) + Service(8500) + VirtualService
@@ -20,10 +20,15 @@ signals (observability/fleet.py `serving_signals`, passed in as
 `fleet=`): pressure or headroom must hold `breach_cycles` consecutive
 fleet sweeps, a resize starts a `cooldown_cycles` quiet period and emits
 an `autoscale.resize` trace event and a ScaleUp/ScaleDown event, and the
-controller requeues every 5 s while autoscaling is on. The prefill
-tier's policy and the router wait for the router (ROADMAP A14 item 5);
-`ServingConfig` refuses them, so nothing a spec asks for is silently
-ignored.
+controller requeues every 5 s while autoscaling is on. A disaggregated
+service's prefill tier (`serving.disagg.prefill_replicas`) scales on the
+collector's `disagg_signals`: fleet TTFT p99 and the router's cold-prefix
+steer rate.
+
+`serving.router.enabled` renders a `<name>-router` Deployment and Service
+running `python -m kubeflow_tpu_torch.routing` (routing/) with the
+KFT_ROUTER_* contract, its replica registry re-rendered on every
+reconcile. The router pod requests no card.
 """
 
 from __future__ import annotations
@@ -53,6 +58,10 @@ KIND = "InferenceService"
 DEFAULT_IMAGE = "kubeflow-tpu/model-server:latest"
 SERVE_PORT = 8500
 SERVER_MODULE = "kubeflow_tpu_torch.serving.main"
+# the kft-router front door's port and module (routing/__main__.py
+# DEFAULT_ROUTER_PORT is the same number)
+ROUTER_PORT = 8600
+ROUTER_MODULE = "kubeflow_tpu_torch.routing"
 
 
 def new_inference_service(
@@ -181,7 +190,8 @@ class InferenceServiceController(Controller):
             for f in dataclasses.fields(ServingConfig)
         }
         merged["prefill_buckets"] = list(merged["prefill_buckets"])
-        subtrees = ("mesh", "observability", "autoscale", "disagg", "chaos")
+        subtrees = ("mesh", "observability", "autoscale", "router", "disagg",
+                    "chaos")
         for subtree in subtrees:
             merged[subtree] = dataclasses.asdict(merged[subtree])
         overrides = dict(spec.get("serving") or {})
@@ -264,17 +274,22 @@ class InferenceServiceController(Controller):
         name: str,
         cfg_serving: ServingConfig,
     ) -> bool:
-        """Signal-driven replica autoscaling of the decode tier
-        (`spec.replicas`) on the fleet collector's queue, occupancy and
-        429 signals, with a (namespace, name, tier) hysteresis entry.
-        Returns True while autoscaling is active, so the caller keeps
-        requeueing and the signals are polled again. (The reference's
-        prefill-tier policy waits for the router, ROADMAP A14 item 5;
-        `ServingConfig` refuses autoscale beside disagg.)"""
+        """Signal-driven replica autoscaling, a tier at a time: the decode
+        tier (`spec.replicas`) on the fleet collector's queue, occupancy
+        and 429 signals; a disaggregated service's prefill tier
+        (`serving.disagg.prefill_replicas`) on fleet TTFT p99 and the
+        router's cold-prefix steer rate. Each tier keeps its own
+        (namespace, name, tier) hysteresis entry. Returns True while
+        autoscaling is active, so the caller keeps requeueing and the
+        signals are polled again."""
         if not cfg_serving.autoscale.enabled or self.fleet is None:
             self._pop_scale_state(namespace, name)
             return False
         self._autoscale_decode(store, svc_cr, namespace, name, cfg_serving)
+        if cfg_serving.disagg.enabled:
+            self._autoscale_prefill(
+                store, svc_cr, namespace, name, cfg_serving
+            )
         return True
 
     def _autoscale_decode(
@@ -294,6 +309,14 @@ class InferenceServiceController(Controller):
         # the min/max clamp applies even before any signal arrives
         desired = min(max(current, cfg.min_replicas), cfg.max_replicas)
         sig = self.fleet.serving_signals(namespace, name)
+        # a disaggregated fleet's decode decision reads the decode
+        # tier's queue and occupancy (idle prefill slots must not drag
+        # the mean down and mask decode pressure); the 429 rate stays
+        # fleet-wide: a prefill-tier 429 still refuses arrivals
+        dsig = None
+        if cfg_serving.disagg.enabled:
+            src = getattr(self.fleet, "disagg_signals", None)
+            dsig = src(namespace, name) if callable(src) else None
         # hysteresis counts fleet SWEEPS, not reconciles: the controller
         # also reconciles on watch events and its 5 s requeue, and
         # re-reading one sweep's snapshot must not fake "consecutive"
@@ -306,6 +329,10 @@ class InferenceServiceController(Controller):
         pressure = headroom = False
         if sig is not None:
             queue, slots, occ = sig.queue_depth, sig.num_slots, sig.occupancy
+            if dsig is not None and dsig.decode_replicas > 0:
+                queue = dsig.decode_queue_depth
+                slots = dsig.decode_num_slots
+                occ = dsig.decode_occupancy
             if slots > 0:
                 q_per_slot = queue / slots
             else:
@@ -337,7 +364,11 @@ class InferenceServiceController(Controller):
             if reason == "ScaleDown":
                 # the condemned replica drains before it dies: SIGTERM →
                 # ModelServer.close(drain=True) inside the grace period
-                # (serving/main.py)
+                # (serving/main.py). On a disaggregated fleet the router
+                # also asks the drainer to hand its hottest committed
+                # chains to the surviving rendezvous homes inside that
+                # window (routing/router.py _note_draining →
+                # /v1/kv/handoff)
                 detail += (
                     f"; replica drains in-flight requests for up to "
                     f"{cfg_serving.drain_deadline_s:g}s before exit"
@@ -354,6 +385,202 @@ class InferenceServiceController(Controller):
             svc_cr["spec"] = spec
             store.update(svc_cr)
             store.record_event(svc_cr, reason, detail)
+
+    def _autoscale_prefill(
+        self,
+        store: StateStore,
+        svc_cr: Dict[str, Any],
+        namespace: str,
+        name: str,
+        cfg_serving: ServingConfig,
+    ) -> None:
+        """The prefill tier's policy (serving.disagg): fleet TTFT p99 at
+        or over `scale_up_ttft_p99_s`, or the router's cold-prefix steer
+        rate at or over `scale_up_cold_per_s`, is pressure; both at or
+        under half their threshold is headroom. Needs the collector's
+        tier-aware `disagg_signals`: against a source without it the
+        prefill count stays where the spec put it."""
+        src = getattr(self.fleet, "disagg_signals", None)
+        if not callable(src):
+            return
+        sig = src(namespace, name)
+        spec = svc_cr.get("spec", {})
+        cfg = cfg_serving.autoscale
+        dcfg = cfg_serving.disagg
+        st = self._scale_state.setdefault(
+            (namespace, name, "prefill"), _ScaleState()
+        )
+        current = int(dcfg.prefill_replicas)
+        desired = min(
+            max(current, dcfg.min_prefill_replicas),
+            dcfg.max_prefill_replicas,
+        )
+        fresh = True
+        if sig is not None and sig.sweep >= 0:
+            fresh = sig.sweep != st.last_sweep
+            st.last_sweep = sig.sweep
+        pressure = headroom = False
+        if sig is not None:
+            slow = (
+                sig.ttft_p99_s is not None
+                and sig.ttft_p99_s >= dcfg.scale_up_ttft_p99_s
+            )
+            pressure = slow or sig.cold_per_s >= dcfg.scale_up_cold_per_s
+            headroom = (
+                (
+                    sig.ttft_p99_s is None
+                    or sig.ttft_p99_s <= dcfg.scale_up_ttft_p99_s / 2
+                )
+                and sig.cold_per_s <= dcfg.scale_up_cold_per_s / 2
+            )
+        desired, reason = self._hysteresis(
+            st, fresh, sig is None, pressure, headroom,
+            cfg.breach_cycles, cfg.cooldown_cycles,
+            desired, dcfg.min_prefill_replicas, dcfg.max_prefill_replicas,
+        )
+        if desired != current:
+            from kubeflow_tpu_torch.observability.trace import default_tracer
+
+            serving = dict(spec.get("serving") or {})
+            disagg = dict(serving.get("disagg") or {})
+            disagg["prefill_replicas"] = desired
+            serving["disagg"] = disagg
+            spec["serving"] = serving
+            svc_cr["spec"] = spec
+            # the caller's merged cfg sizes this reconcile's Deployments,
+            # so the resize lands there too, not only in the spec the
+            # next reconcile reads
+            cfg_serving.disagg.prefill_replicas = desired
+            detail = (
+                f"prefill replicas {current} -> {desired} "
+                f"(ttft_p99={getattr(sig, 'ttft_p99_s', None)}, "
+                f"cold/s={getattr(sig, 'cold_per_s', None)})"
+            )
+            default_tracer().event(
+                "autoscale.resize",
+                service=f"{namespace}/{name}",
+                reason=reason,
+                tier="prefill",
+                replicas_from=current,
+                replicas_to=desired,
+            )
+            log.info("autoscale %s/%s: %s %s", namespace, name, reason, detail)
+            store.update(svc_cr)
+            store.record_event(svc_cr, reason, detail)
+
+    def _reconcile_router(
+        self,
+        store: StateStore,
+        svc_cr: Dict[str, Any],
+        namespace: str,
+        name: str,
+        spec: Dict[str, Any],
+        cfg: ServingConfig,
+    ) -> None:
+        """The kft-router front door (routing/): with
+        serving.router.enabled, a `<name>-router` Deployment and Service
+        run `python -m kubeflow_tpu_torch.routing` with the KFT_ROUTER_*
+        contract. The replica registry is re-rendered on every reconcile
+        from the replica counts (the workload controller's stable
+        `<name>-<i>` pod names), so a scale event updates the router's
+        fleet in the pass that resizes the Deployment. Disabled = a
+        router rendered earlier is torn down. The pod requests no card:
+        the router is host code."""
+        router_name = f"{name}-router"
+        if not cfg.router.enabled:
+            for kind in ("Deployment", "Service"):
+                try:
+                    store.delete(kind, router_name, namespace)
+                except KeyError:
+                    pass
+            return
+        replicas = int(spec.get("replicas", 1))
+        if cfg.disagg.enabled:
+            # entries carry tier roles as `id=url#role`
+            # (routing/__main__.py parse_replicas)
+            entries = [
+                f"{name}-{i}=http://{name}-{i}:{SERVE_PORT}#decode"
+                for i in range(replicas)
+            ]
+            entries.extend(
+                f"{name}-prefill-{i}="
+                f"http://{name}-prefill-{i}:{SERVE_PORT}#prefill"
+                for i in range(int(cfg.disagg.prefill_replicas))
+            )
+            registry = ",".join(entries)
+        else:
+            registry = ",".join(
+                f"{name}-{i}=http://{name}-{i}:{SERVE_PORT}"
+                for i in range(replicas)
+            )
+        env = {
+            "KFT_ROUTER_AFFINITY": "1" if cfg.router.affinity else "0",
+            # the affinity hash granularity is the replicas' page size
+            "KFT_ROUTER_PAGE_SIZE": str(cfg.page_size),
+            "KFT_ROUTER_SPILL_QUEUE_PER_SLOT": (
+                f"{cfg.router.spill_queue_per_slot:g}"
+            ),
+            "KFT_ROUTER_RETRY_BUDGET": str(cfg.router.retry_budget),
+            # the in-flight spill signal's denominator: the replicas'
+            # slot capacity
+            "KFT_ROUTER_REPLICA_SLOTS": str(cfg.num_slots),
+            "KFT_ROUTER_REPLICAS": registry,
+        }
+        if cfg.disagg.enabled:
+            env["KFT_ROUTER_DISAGG"] = "1"
+            env["KFT_ROUTER_DISAGG_COLD_HIT_RATE"] = (
+                f"{cfg.disagg.cold_hit_rate:g}"
+            )
+            env["KFT_SERVING_DISAGG_HANDOFF_CHAINS"] = str(
+                cfg.disagg.handoff_chains
+            )
+        if cfg.observability.statusz_enabled:
+            # the fleet collector scrapes router_* off the router's
+            # /metrics; the pod carries no `inferenceservice` label, so
+            # it never counts as a replica or joins the Service
+            env["KFT_FLEET_METRICS_PORT"] = str(ROUTER_PORT)
+        container = {
+            "name": "router",
+            "image": spec.get("image", DEFAULT_IMAGE),
+            "command": [
+                "python",
+                "-m",
+                ROUTER_MODULE,
+                "--service", f"{namespace}/{name}",
+                "--port", str(ROUTER_PORT),
+            ],
+            "ports": [{"containerPort": ROUTER_PORT}],
+            "env": [
+                {"name": k, "value": v} for k, v in sorted(env.items())
+            ],
+            "readinessProbe": {
+                "httpGet": {"path": "/healthz", "port": ROUTER_PORT},
+                "periodSeconds": 5,
+            },
+        }
+        dep = new_deployment(
+            router_name,
+            namespace,
+            1,
+            {"containers": [container]},
+            labels={"app": "kft-router", "inferenceservice-router": name},
+        )
+        set_owner(dep, svc_cr)
+        store.apply(dep)
+        svc = new_object(
+            "Service",
+            router_name,
+            namespace,
+            api_version="v1",
+            spec={
+                "selector": {"inferenceservice-router": name},
+                "ports": [
+                    {"port": ROUTER_PORT, "targetPort": ROUTER_PORT}
+                ],
+            },
+        )
+        set_owner(svc, svc_cr)
+        store.apply(svc)
 
     @staticmethod
     def _gpu_request(spec: Dict[str, Any], cfg: ServingConfig):
@@ -480,6 +707,8 @@ class InferenceServiceController(Controller):
         )
         set_owner(svc, svc_cr)
         store.apply(svc)
+
+        self._reconcile_router(store, svc_cr, namespace, name, spec, serving_cfg)
 
         if self.use_istio:
             vs = new_object(

@@ -7,8 +7,10 @@ Each model-server replica and each gang rank exports its own /metrics,
 
 - **Discovery**: scrape targets come from the cluster store's pod
   objects. Pods labeled `inferenceservice: <name>` are serving replicas
-  (controllers/inference.py), pods labeled with the GPUTrainJob gang
-  label are training ranks (controllers/gpujob.py). The
+  (controllers/inference.py), pods labeled `inferenceservice-router:
+  <name>` are kft-router front doors (their router_* series; never
+  counted as replicas), pods labeled with the GPUTrainJob gang label are
+  training ranks (controllers/gpujob.py). The
   controller-rendered `KFT_FLEET_METRICS_PORT` env names the scrape
   port; `KFT_FLEET_INSTANCE` names the replica/rank identity.
 - **Aggregation**: every target's /metrics text parses back into
@@ -27,12 +29,13 @@ Each model-server replica and each gang rank exports its own /metrics,
   a reshape (`stragglers()`, `sweeps()`).
 - **Autoscaler signals**: `serving_signals(ns, name)` condenses a
   service's replicas into queue depth / occupancy / slot capacity / 429
-  rate, and `disagg_signals` a disaggregated service's decode tier;
-  `InferenceServiceController` reads them each reconcile to adjust
-  `spec.replicas` with hysteresis (controllers/inference.py). The
-  prefill tier's inputs (the router's cold-prefix steers, TTFT p99) and
-  the router's per-replica rows wait for the router (ROADMAP A14 item
-  5).
+  rate, and `disagg_signals` a disaggregated service's tiers (decode
+  queue and occupancy, fleet TTFT p99, the router's cold-prefix steer
+  rate); `InferenceServiceController` reads them each reconcile to
+  adjust `spec.replicas` and `disagg.prefill_replicas` with hysteresis
+  (controllers/inference.py). `replica_serving_signals` keeps the rows
+  per replica for the router's spill and steering verdicts
+  (routing/router.py `fleet_signals_source`).
 - **Merged Perfetto export**: `merged_chrome_trace()` stitches every
   target's /debug/trace ring onto one timeline using scrape-time
   clock-offset estimation (each dump carries the process's monotonic
@@ -122,8 +125,7 @@ _STRAGGLER_REL_FLOOR = 0.02
 # failure, so a new metric cannot ship unaggregatable. fleet_* series
 # are collector-PRODUCED, never scraped, and stay out. It is the
 # reference's table under the port's names (gpujob_* for tpujob_*, and
-# the pod's serving_kernel_launches); the router's series come with the
-# router (ROADMAP A14 item 5).
+# the pod's serving_kernel_launches).
 AGGREGATION_POLICY: Dict[str, str] = {
     # control-plane + HTTP counters
     "checkpoint_bytes_total": "sum",
@@ -138,6 +140,17 @@ AGGREGATION_POLICY: Dict[str, str] = {
     # finish_trace): kept-by-reason + sampled-out across the fleet
     "kft_trace_kept_total": "sum",
     "kft_trace_sampled_out_total": "sum",
+    # the kft-router front door (routing/router.py)
+    "router_affinity_hits_total": "sum",
+    "router_requests_total": "sum",
+    "router_retry_total": "sum",
+    "router_spill_total": "sum",
+    # steering decisions by (tier, reason): a fleet stuck on
+    # unified/tier-down has a broken tier registry or prefill health
+    "router_tier_steer_total": "sum",
+    # fresh traceparents (requests_total minus this = traffic that
+    # arrives already traced)
+    "router_trace_minted_total": "sum",
     "profiler_captures_total": "sum",
     "reconcile_total": "sum",
     "serving_decode_steps_total": "sum",
@@ -177,6 +190,9 @@ AGGREGATION_POLICY: Dict[str, str] = {
     "serving_predict_seconds": "merge",
     "serving_request_phase_seconds": "merge",
     "serving_time_to_first_token_seconds": "merge",
+    # router request wall time: fleet quantiles for front-door SLO
+    # rules; exemplar trace ids ride /tracez
+    "router_request_seconds": "merge",
     "training_host_wait_seconds": "merge",
     "training_step_seconds": "merge",
     # gauges: capacity/queue-like sum, identity max, ratio-like mean (a
@@ -187,6 +203,9 @@ AGGREGATION_POLICY: Dict[str, str] = {
     # a serving process's paged-kernel launches by kernel (serving/
     # server.py, read at each scrape): launches add across replicas
     "serving_kernel_launches": "sum",
+    # the router's distinct first-page keys (capped): one router a
+    # service, so max is that router's value
+    "router_first_page_keys": "max",
     "serving_kv_pages_in_use": "sum",
     "serving_kv_pages_total": "sum",
     # last persisted-generation size: a restart-warmth indicator, not a
@@ -244,7 +263,12 @@ def _container_env(pod: Dict[str, Any]) -> Dict[str, str]:
 # straggler → reshape relay rides it.
 _JOB_NAME_LABEL = "kubeflow-tpu.dev/job-name"
 _SERVING_LABEL = "inferenceservice"
-# the disaggregated-tier pod label (controllers/inference.py)
+# the kft-router pod label (controllers/inference.py _reconcile_router):
+# the router is scraped (its router_* series) but carries no
+# `inferenceservice` label, so it never counts as a replica
+_ROUTER_LABEL = "inferenceservice-router"
+# the disaggregated-tier pod label (controllers/inference.py; the router
+# reads the same one, routing/router.py _TIER_LABEL)
 _TIER_LABEL = "inferenceservice-tier"
 
 
@@ -268,6 +292,8 @@ def discover_targets(store) -> List[ScrapeTarget]:
             role, owner = "serving", labels[_SERVING_LABEL]
         elif _JOB_NAME_LABEL in labels:
             role, owner = "training", labels[_JOB_NAME_LABEL]
+        elif _ROUTER_LABEL in labels:
+            role, owner = "router", labels[_ROUTER_LABEL]
         else:
             continue
         ns = meta.get("namespace", "default")
@@ -316,15 +342,16 @@ class FleetSignals:
 
 @dataclasses.dataclass
 class DisaggSignals:
-    """The decode tier's autoscaler input for one DISAGGREGATED
-    InferenceService (controllers/inference.py _autoscale_decode): queue
-    and occupancy over decode/unified replicas only, so idle prefill
-    slots cannot mask decode pressure. The reference's prefill-tier
-    inputs (fleet TTFT p99, the router's cold-prefix steers) wait for
-    the router (ROADMAP A14 item 5)."""
+    """Per-tier autoscaler input for one DISAGGREGATED InferenceService
+    (controllers/inference.py _autoscale_prefill, _autoscale_decode).
+    TTFT is fleet-wide (the latency the prefill tier exists to protect);
+    queue and occupancy are over decode/unified replicas only, so idle
+    prefill slots cannot mask decode pressure."""
 
     prefill_replicas: int    # prefill-tier replicas scraped OK
     decode_replicas: int     # decode/unified-tier replicas scraped OK
+    ttft_p99_s: Optional[float]  # fleet TTFT p99 (merged histogram)
+    cold_per_s: float        # router cold-prefix steers a second
     decode_queue_depth: float
     decode_num_slots: float
     decode_occupancy: float
@@ -341,6 +368,12 @@ class _TargetState:
     prev_429: Optional[float] = None
     prev_429_t: float = 0.0
     rate_429: float = 0.0
+    # the router's cold-prefix steer rate (router_tier_steer_total
+    # {tier=prefill,reason=cold} deltas between sweeps): the prefill
+    # autoscaler's arrival signal
+    prev_steer: Optional[float] = None
+    prev_steer_t: float = 0.0
+    rate_steer: float = 0.0
     # straggler inputs: previous (sum, count) of training_step_seconds
     prev_step: Optional[Tuple[float, float]] = None
     step_means: Deque[float] = dataclasses.field(
@@ -416,6 +449,7 @@ class FleetCollector:
         self._merged: Dict[str, ParsedMetric] = {}
         self._groups: Dict[Tuple[str, str, str], Dict[str, ParsedMetric]] = {}
         self._group_429: Dict[Tuple[str, str, str], float] = {}
+        self._group_steer: Dict[Tuple[str, str, str], float] = {}
         self._group_replicas: Dict[Tuple[str, str, str], int] = {}
         self._stragglers: Dict[Tuple[str, str, str], bool] = {}
         self._straggler_means: Dict[Tuple[str, str, str], float] = {}
@@ -536,6 +570,7 @@ class FleetCollector:
         ok_snapshots: List[Dict[str, ParsedMetric]] = []
         group_snaps: Dict[Tuple[str, str, str], List[Dict]] = {}
         self._group_429 = {}
+        self._group_steer = {}
         self._group_replicas = {}
         for t in targets:
             st = self._state.setdefault(t, _TargetState())
@@ -547,6 +582,7 @@ class FleetCollector:
             st.parsed = parsed
             st.last_ok_t = now
             self._update_429(st, parsed, now)
+            self._update_cold_steer(st, parsed, now)
             self._update_step_stats(st, parsed)
             ok_snapshots.append(parsed)
             key = (t.role, t.namespace, t.owner)
@@ -554,6 +590,10 @@ class FleetCollector:
             self._group_429[key] = (
                 self._group_429.get(key, 0.0) + st.rate_429
             )
+            if st.rate_steer:
+                self._group_steer[key] = (
+                    self._group_steer.get(key, 0.0) + st.rate_steer
+                )
             self._group_replicas[key] = (
                 self._group_replicas.get(key, 0) + 1
             )
@@ -580,6 +620,24 @@ class FleetCollector:
             st.rate_429 = delta / (now - st.prev_429_t)
         st.prev_429 = total
         st.prev_429_t = now
+
+    @staticmethod
+    def _update_cold_steer(st: _TargetState, parsed, now: float) -> None:
+        """Cold-prefix steers a second off the router's
+        router_tier_steer_total{tier=prefill,reason=cold}: the 429
+        rate's delta-between-sweeps shape."""
+        pm = parsed.get("router_tier_steer_total")
+        if pm is None:
+            return
+        total = 0.0
+        for key, v in pm.samples.items():
+            if ("tier", "prefill") in key and ("reason", "cold") in key:
+                total += float(v)
+        if st.prev_steer is not None and now > st.prev_steer_t:
+            delta = max(0.0, total - st.prev_steer)
+            st.rate_steer = delta / (now - st.prev_steer_t)
+        st.prev_steer = total
+        st.prev_steer_t = now
 
     @staticmethod
     def _update_step_stats(st: _TargetState, parsed) -> None:
@@ -689,7 +747,7 @@ class FleetCollector:
             )
         for ns, job, host in stale_stragglers:
             self._g_straggler.set(0.0, job=f"{ns}/{job}", host=host)
-        for role in ("serving", "training"):
+        for role in ("serving", "training", "router"):
             self._g_targets.set(float(counts.get(role, 0)), role=role)
 
     # -- consumers ---------------------------------------------------------
@@ -745,7 +803,7 @@ class FleetCollector:
     def disagg_signals(
         self, namespace: str, name: str
     ) -> Optional[DisaggSignals]:
-        """The decode tier's autoscaler input for one disaggregated
+        """Per-tier autoscaler input for one disaggregated
         InferenceService, or None when no serving replica of it was
         reachable at the last sweep. The tier split keys on each scrape
         target's pod label (discover_targets); unified replicas count as
@@ -774,14 +832,72 @@ class FleetCollector:
                 v = _collapse(pm, AGGREGATION_POLICY.get(metric, "sum"))
                 return 0.0 if v is None else v
 
+            # TTFT stays fleet-wide: the merged service group holds
+            # every tier's histogram
+            ttft = None
+            pm = (self._groups.get(key) or {}).get(
+                "serving_time_to_first_token_seconds"
+            )
+            if pm is not None:
+                hs = _merged_histogram(pm)
+                if hs is not None and hs.count > 0:
+                    ttft = hs.quantile(0.99)
             return DisaggSignals(
                 prefill_replicas=prefill,
                 decode_replicas=len(decode_snaps),
+                ttft_p99_s=ttft,
+                cold_per_s=self._group_steer.get(
+                    ("router", namespace, name), 0.0
+                ),
                 decode_queue_depth=val("serving_queue_depth"),
                 decode_num_slots=val("serving_num_slots"),
                 decode_occupancy=val("serving_slot_occupancy"),
                 sweep=self._sweeps,
             )
+
+    def replica_serving_signals(
+        self, namespace: str, name: str, instance: Optional[str] = None
+    ) -> Dict[str, Dict[str, float]]:
+        """Per-replica engine signals of one InferenceService, the
+        router's spill and steering input (routing/router.py
+        `fleet_signals_source`): each reachable replica's queue depth and
+        slot capacity from its last good scrape, keyed by its fleet
+        instance id, and its prefix hit rate and first-page keys where it
+        exports them (so "cold cache, 0.0" differs from "unknown").
+        `instance` narrows the work to one replica's row, the query a
+        routed request makes."""
+        key = ("serving", namespace, name)
+        out: Dict[str, Dict[str, float]] = {}
+        with self._lock:
+            for t, st in self._state.items():
+                if (t.role, t.namespace, t.owner) != key:
+                    continue
+                if instance is not None and t.instance != instance:
+                    continue
+                if st.parsed is None or st.error:
+                    continue
+
+                def opt(metric: str) -> Optional[float]:
+                    pm = st.parsed.get(metric)
+                    if pm is None:
+                        return None
+                    return _collapse(
+                        pm, AGGREGATION_POLICY.get(metric, "sum")
+                    )
+
+                row = {
+                    "queue_depth": opt("serving_queue_depth") or 0.0,
+                    "num_slots": opt("serving_num_slots") or 0.0,
+                }
+                for field, metric in (
+                    ("prefix_hit_rate", "serving_prefix_hit_rate"),
+                    ("first_page_keys", "serving_first_page_keys"),
+                ):
+                    v = opt(metric)
+                    if v is not None:
+                        row[field] = v
+                out[t.instance] = row
+        return out
 
     # -- merged cross-host Perfetto export ---------------------------------
 
@@ -870,7 +986,7 @@ class FleetCollector:
     ) -> List[Dict[str, Any]]:
         """Perfetto flow events binding one request's spans ACROSS
         process tracks: for every trace id whose spans live in >= 2
-        pids (a client-side hop + the replica), emit an s→t→f flow chain
+        pids (the router hop + the replica), emit an s→t→f flow chain
         anchored at each process's earliest span of that trace — the
         merged timeline renders the request as ONE connected flow
         instead of coincidentally aligned slices."""
@@ -1103,8 +1219,13 @@ class FleetCollector:
             )
             dsig = self.disagg_signals(ns, owner)
             if dsig is not None and dsig.prefill_replicas > 0:
+                ttft = (
+                    "n/a" if dsig.ttft_p99_s is None
+                    else f"{dsig.ttft_p99_s:.3f}s"
+                )
                 lines.append(
-                    f"    tiers: prefill={dsig.prefill_replicas} | "
+                    f"    tiers: prefill={dsig.prefill_replicas} "
+                    f"ttft_p99={ttft} cold/s={dsig.cold_per_s:.3f} | "
                     f"decode={dsig.decode_replicas} "
                     f"queue={dsig.decode_queue_depth:g} "
                     f"occupancy={dsig.decode_occupancy:.3f}"

@@ -785,6 +785,100 @@ def serving_kv_pool_bytes_gauge() -> Gauge:
     )
 
 
+# -- the fleet router (routing/router.py) --------------------------------------
+#
+# The JAX package's names, labels, buckets and help text: the fleet
+# collector aggregates them by name (observability/fleet.py).
+
+
+def router_requests_counter() -> Counter:
+    """Requests through the fleet router by outcome: "ok" (a replica
+    answered 2xx/3xx), "upstream_4xx" (the replica's own client-error
+    verdict, passed through), "rejected" (retry budget exhausted or no
+    replicas: the router's clean 503)."""
+    return default_registry().counter(
+        "router_requests_total",
+        "requests through the fleet router by outcome",
+        ["outcome"],
+    )
+
+
+def router_affinity_hits_counter() -> Counter:
+    """Requests served by their prefix-affinity home: the first
+    rendezvous choice for the prompt's first-page hash."""
+    return default_registry().counter(
+        "router_affinity_hits_total",
+        "requests routed to their first-choice (HRW) affinity replica",
+    )
+
+
+def router_spills_counter() -> Counter:
+    """Affinity requests diverted to their second rendezvous choice
+    because the home replica's queue depth per slot breached the spill
+    threshold (the router's spill_queue_per_slot knob)."""
+    return default_registry().counter(
+        "router_spill_total",
+        "affinity requests spilled to the second rendezvous choice",
+    )
+
+
+def router_retries_counter() -> Counter:
+    """Replica attempts abandoned for the next rendezvous choice after a
+    429 (draining, Retry-After honoured), a connect failure or a 5xx."""
+    return default_registry().counter(
+        "router_retry_total",
+        "replica attempts retried against another replica",
+    )
+
+
+def router_tier_steer_counter() -> Counter:
+    """Disaggregated-fleet steering decisions, by destination tier and
+    reason: tier="prefill" reason="cold" (a cold prefix went through the
+    prefill tier first), tier="decode" reason="page-complete" (a warm
+    prefix went straight to its decode-tier home), tier="unified"
+    reason="tier-down" (a tier was empty or the prefill hop failed)."""
+    return default_registry().counter(
+        "router_tier_steer_total",
+        "disaggregated-fleet steering decisions by tier and reason",
+        ["tier", "reason"],
+    )
+
+
+def router_first_page_keys_gauge() -> Gauge:
+    """Distinct first-page affinity keys the router has steered (capped):
+    the fleet-wide cold-prefix arrival cardinality, whose growth rate is
+    the prefill tier's scale-up signal."""
+    return default_registry().gauge(
+        "router_first_page_keys",
+        "distinct first-page affinity keys seen by the router (capped)",
+    )
+
+
+# one proxied hop (ms) to a retried request under drain churn (s): the
+# TTFT envelope, so fleet SLO rules can take a quantile of either
+ROUTER_REQUEST_BUCKETS = SERVING_TTFT_BUCKETS
+
+
+def router_request_seconds_histogram() -> Histogram:
+    """Wall seconds per routed request through the fleet router (the
+    whole attempt loop: ordering, every attempt, backoff between
+    retries)."""
+    return default_registry().histogram(
+        "router_request_seconds",
+        "wall seconds per request through the fleet router",
+        buckets=ROUTER_REQUEST_BUCKETS,
+    )
+
+
+def router_trace_minted_counter() -> Counter:
+    """Routed requests for which the router minted a fresh traceparent
+    (no valid inbound one)."""
+    return default_registry().counter(
+        "router_trace_minted_total",
+        "requests the router minted a new traceparent for",
+    )
+
+
 # -- the fleet collector's own series (observability/fleet.py) -----------------
 #
 # Produced by the collector, never scraped: they stay out of its

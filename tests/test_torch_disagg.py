@@ -23,6 +23,7 @@ import functools
 import importlib.util
 import json
 import os
+import threading
 import urllib.error
 import urllib.request
 from collections.abc import Mapping
@@ -38,6 +39,7 @@ import jax.numpy as jnp  # noqa: E402
 from kubeflow_tpu.config.platform import DisaggConfig as JDisaggConfig  # noqa: E402
 from kubeflow_tpu.models.gpt import stack_layer_params  # noqa: E402
 from kubeflow_tpu.models.registry import get_model as jget_model  # noqa: E402
+import kubeflow_tpu.routing as jrouting  # noqa: E402
 from kubeflow_tpu.routing import affinity as jaffinity  # noqa: E402
 from kubeflow_tpu.serving import engine as jengine  # noqa: E402
 from kubeflow_tpu.serving import kv_tiers as jtiers  # noqa: E402
@@ -46,6 +48,7 @@ from kubeflow_tpu.serving.server import ModelServer as JModelServer  # noqa: E40
 from kubeflow_tpu_torch.api.wsgi import Server  # noqa: E402
 from kubeflow_tpu_torch.config.platform import ConfigError, DisaggConfig  # noqa: E402
 from kubeflow_tpu_torch.models import get_model  # noqa: E402
+from kubeflow_tpu_torch import routing  # noqa: E402
 from kubeflow_tpu_torch.models.convert import load_jax_params  # noqa: E402
 from kubeflow_tpu_torch.routing.affinity import (  # noqa: E402
     first_page_key,
@@ -495,6 +498,393 @@ def test_affinity_and_handoff_budget_are_the_jax_packages():
     assert DisaggConfig().handoff_chains == JDisaggConfig().handoff_chains
     with pytest.raises(ConfigError, match="handoff_chains"):
         DisaggConfig(handoff_chains=0)
+
+
+# -- the router's steering, the per-tier autoscaler, the render -------------
+#
+# tests/test_disagg.py's TestSteeringTable, TestPerTierAutoscale and
+# TestDisaggRender, each run on both packages with the same inputs: the
+# verdicts, the hops, the counts and the resize sequences must be equal.
+
+STEER_PAGE = list(range(100, 116))  # one full page at the router's 16
+
+
+def _steer_body(extra=0):
+    return {"prompt_ids": [STEER_PAGE + list(range(extra))],
+            "max_new_tokens": 2}
+
+
+class _TierFleet:
+    """A scripted tiered fleet behind the router's transport: every call
+    is recorded as (replica id, path); `:prefill` answers the prefill
+    contract, `/v1/kv/handoff` a shipment to d2, anything else a healthy
+    :generate; replicas in `fail` answer 500."""
+
+    def __init__(self, fail=()):
+        self.calls = []
+        self.fail = set(fail)
+        self.handoffs = []
+        self.lock = threading.Lock()
+
+    def transport(self, method, url, body, headers):
+        rid, _, path = url[len("http://"):].partition("/")
+        path = "/" + path
+        with self.lock:
+            self.calls.append((rid, path))
+        if rid in self.fail:
+            return 500, b"{}", {}
+        if path == "/v1/kv/handoff":
+            with self.lock:
+                self.handoffs.append(json.loads(body))
+            return 200, json.dumps({"peers": {"d2": {
+                "pages": 1, "admitted": 1}}}).encode(), {}
+        if path.endswith(":prefill"):
+            row = (json.loads(body) if body else {}).get("prompt_ids") or []
+            return 200, json.dumps({"model": "m", "pages": len(row) // 16,
+                                    "handoff": {"admitted": len(row) // 16}}
+                                   ).encode(), {}
+        return 200, json.dumps({"sequences": [[1, 2]]}).encode(), {
+            "x-ttft-ms": "1.00"}
+
+    def hops(self, suffix):
+        with self.lock:
+            return [(rid, p) for rid, p in self.calls if p.endswith(suffix)]
+
+
+def _steer_case(pkg, bodies, roles=("p1:prefill", "d1:decode", "d2:decode"),
+                fail=(), **kw):
+    """Route `bodies` through a disagg router of `pkg` → (hops, statuses,
+    steer counts, the router_tier_steer deltas)."""
+    mod = jrouting if pkg == "jax" else routing
+    fleet = _TierFleet(fail)
+    reps = [mod.Replica(r.split(":")[0], f"http://{r.split(':')[0]}",
+                        r.split(":")[1]) for r in roles]
+    router = mod.FleetRouter(tuple(reps), transport=fleet.transport,
+                             page_size=16, disagg=True, **kw)
+    steers = (("prefill", "cold"), ("decode", "page-complete"),
+              ("unified", "tier-down"))
+    before = [router._tier_steer.value(tier=t, reason=r) for t, r in steers]
+    statuses = [router.app.handle("POST", "/v1/models/m:generate",
+                                  body=b)[0] for b in bodies]
+    after = [router._tier_steer.value(tier=t, reason=r) for t, r in steers]
+    return {"prefill": fleet.hops(":prefill"),
+            "generate": fleet.hops(":generate"), "statuses": statuses,
+            "steer_counts": dict(router._steer_counts),
+            "series": [a - b for a, b in zip(after, before)]}
+
+
+def _steer_both(bodies, **kw):
+    got = {pkg: _steer_case(pkg, bodies, **kw) for pkg in ("jax", "port")}
+    assert got["port"] == got["jax"]
+    return got["port"]
+
+
+def _steer_home():
+    return rendezvous_rank(first_page_key(STEER_PAGE, 16), ["d1", "d2"])[0]
+
+
+class TestSteeringTable:
+    def test_cold_key_detours_through_prefill(self):
+        got = _steer_both([_steer_body()])
+        assert got["prefill"] == [("p1", "/v1/models/m:prefill")]
+        assert got["generate"] == [(_steer_home(), "/v1/models/m:generate")]
+        assert got["steer_counts"] == {("prefill", "cold"): 1}
+        assert got["series"] == [1, 0, 0]
+
+    def test_seen_key_goes_straight_to_decode(self):
+        got = _steer_both([_steer_body(), _steer_body()])
+        assert len(got["prefill"]) == 1
+        assert [r for r, _ in got["generate"]] == [_steer_home()] * 2
+        assert got["steer_counts"] == {("prefill", "cold"): 1,
+                                       ("decode", "page-complete"): 1}
+
+    def test_low_home_hit_rate_re_steers_cold(self):
+        got = _steer_both([_steer_body(), _steer_body()],
+                          signals=lambda rid: {"prefix_hit_rate": 0.0})
+        assert got["steer_counts"] == {("prefill", "cold"): 2}
+        assert len(got["prefill"]) == 2
+
+    def test_no_prefill_tier_falls_back_unified(self):
+        got = _steer_both([_steer_body()], roles=("d1:decode", "d2:decode"))
+        assert got["prefill"] == [] and got["statuses"] == [200]
+        assert got["steer_counts"] == {("unified", "tier-down"): 1}
+
+    def test_prefill_failure_falls_back_unified(self):
+        got = _steer_both([_steer_body()], fail={"p1"})
+        assert got["statuses"] == [200] and len(got["generate"]) == 1
+        assert got["steer_counts"] == {("unified", "tier-down"): 1}
+
+    def test_prefill_never_serves_generate(self):
+        bodies = [{"prompt_ids": [[1000 * (i + 1) + t for t in range(16)]],
+                   "max_new_tokens": 2} for i in range(8)]
+        got = _steer_both(bodies)
+        assert all(rid != "p1" for rid, _ in got["generate"])
+        assert got["steer_counts"] == {("prefill", "cold"): 8}
+
+    def test_drain_fires_one_handoff_per_window(self):
+        """The first real drain of a decode replica fires one background
+        /v1/kv/handoff naming the surviving decode peers; the same window
+        does not fire again, a recovery re-arms it."""
+        import time
+
+        got = {}
+        for pkg, mod in (("jax", jrouting), ("port", routing)):
+            fleet = _TierFleet()
+            reps = tuple(mod.Replica(r, f"http://{r}", role) for r, role in
+                         (("p1", "prefill"), ("d1", "decode"),
+                          ("d2", "decode")))
+            router = mod.FleetRouter(reps, transport=fleet.transport,
+                                     page_size=16, disagg=True,
+                                     handoff_chains=7)
+
+            def fired(n):
+                deadline = time.monotonic() + 10
+                while len(fleet.handoffs) < n and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                time.sleep(0.1)
+                return len(fleet.handoffs)
+
+            seen = []
+            router._note_draining("d1", 5.0, draining=True)
+            seen.append(fired(1))
+            router._note_draining("d1", 5.0, draining=True)
+            seen.append(fired(1))
+            router._note_ok("d1")
+            router._note_draining("d1", 5.0, draining=True)
+            seen.append(fired(2))
+            router._note_draining("d2", 5.0, draining=False)  # queue-full
+            seen.append(fired(2))
+            got[pkg] = (seen, fleet.handoffs)
+        assert got["port"] == got["jax"]
+        seen, handoffs = got["port"]
+        assert seen == [1, 1, 2, 2]
+        assert handoffs[0] == {"peers": {"d2": "http://d2"}, "chains": 7}
+
+
+def _per_tier_trajectory(pkg, dsigs, sigs=None, serving=None, replicas=1,
+                         reconciles=3):
+    """Reconcile a disaggregated service `reconciles` times on a scripted
+    fleet → [(prefill replicas, decode replicas, prefill Deployment
+    replicas)] and the resize events."""
+    if pkg == "jax":
+        from kubeflow_tpu.cluster.store import StateStore as Store
+        from kubeflow_tpu.controllers.inference import (
+            InferenceServiceController as Ctrl,
+        )
+        from kubeflow_tpu.controllers.inference import new_inference_service
+        from kubeflow_tpu.observability.fleet import (
+            DisaggSignals,
+            FleetSignals,
+        )
+    else:
+        from kubeflow_tpu_torch.cluster.store import StateStore as Store
+        from kubeflow_tpu_torch.controllers.inference import (
+            InferenceServiceController as Ctrl,
+        )
+        from kubeflow_tpu_torch.controllers.inference import (
+            new_inference_service,
+        )
+        from kubeflow_tpu_torch.observability.fleet import (
+            DisaggSignals,
+            FleetSignals,
+        )
+
+    class _TieredFleet:
+        """Row `step` of the scripts (the last row past their end); a
+        None row of `dsigs` is a signal outage."""
+
+        step = 0
+
+        def serving_signals(self, namespace, name):
+            rows = sigs or [(0.0, 0.5)]
+            queue, occ = rows[min(self.step, len(rows) - 1)]
+            return FleetSignals(replicas=1, queue_depth=queue,
+                                occupancy=occ, num_slots=8.0,
+                                rate_429_per_s=0.0)
+
+        def disagg_signals(self, namespace, name):
+            row = dsigs[min(self.step, len(dsigs) - 1)]
+            if row is None:
+                return None
+            ttft, cold, queue, occ = row
+            return DisaggSignals(prefill_replicas=1, decode_replicas=1,
+                                 ttft_p99_s=ttft, cold_per_s=cold,
+                                 decode_queue_depth=queue,
+                                 decode_num_slots=8.0, decode_occupancy=occ)
+
+    base = {"autoscale": {"enabled": True, "min_replicas": 1,
+                          "max_replicas": 3, "breach_cycles": 1,
+                          "cooldown_cycles": 0},
+            "router": {"enabled": True},
+            "disagg": {"enabled": True, "min_prefill_replicas": 1,
+                       "max_prefill_replicas": 3}}
+    for k, v in (serving or {}).items():
+        base.setdefault(k, {}).update(v)
+    store = Store()
+    fleet = _TieredFleet()
+    ctrl = Ctrl(fleet=fleet)
+    store.create(new_inference_service("svc1", model="gpt_tiny",
+                                       replicas=replicas, serving=base))
+    out = []
+    for step in range(reconciles):
+        fleet.step = step
+        ctrl.reconcile(store, "default", "svc1")
+        spec = store.get("InferenceService", "svc1")["spec"]
+        out.append((spec["serving"]["disagg"].get("prefill_replicas", 1),
+                    spec["replicas"],
+                    store.get("Deployment", "svc1-prefill")["spec"][
+                        "replicas"]))
+    events = sorted(e["reason"] for e in store.events_for(
+        store.get("InferenceService", "svc1")))
+    return out, events
+
+
+class TestPerTierAutoscale:
+    CASES = {
+        # (DisaggSignals rows (ttft, cold/s, decode queue, decode occ),
+        #  serving overrides, the prefill trajectory the JAX test pins)
+        "ttft_pressure": ([(5.0, 0.0, 0.0, 0.5)], None, [2, 3, 3]),
+        "cold_arrivals": ([(0.5, 9.0, 0.0, 0.5)], None, [2, 3, 3]),
+        "headroom": ([(0.1, 0.0, 0.0, 0.5)],
+                     {"disagg": {"prefill_replicas": 2}}, [1, 1, 1]),
+        "hold": ([(1.5, 0.0, 0.0, 0.5)],
+                 {"disagg": {"prefill_replicas": 2}}, [2, 2, 2]),
+        "outage_then_burst": ([None, (0.2, 5.0, 0.0, 0.5),
+                               (0.2, 5.0, 0.0, 0.5), (0.2, 0.0, 0.0, 0.5)],
+                              {"autoscale": {"breach_cycles": 2,
+                                             "cooldown_cycles": 1}},
+                              [1, 1, 2, 2, 2]),
+    }
+
+    @pytest.mark.parametrize("case", sorted(CASES))
+    def test_prefill_trajectory_is_the_jax_controllers(self, case):
+        dsigs, serving, want = self.CASES[case]
+        got = {pkg: _per_tier_trajectory(pkg, dsigs, serving=serving,
+                                         reconciles=len(want))
+               for pkg in ("jax", "port")}
+        assert got["port"] == got["jax"]
+        traj, _ = got["port"]
+        assert [t[0] for t in traj] == want
+        # same-pass render: the prefill Deployment carries each resize
+        assert all(t[0] == t[2] for t in traj)
+
+    def test_decode_reads_decode_tier_occupancy(self):
+        """Idle prefill slots must not mask decode pressure: the fleet
+        mean looks calm, the decode tier is saturated: decode scales."""
+        got = {pkg: _per_tier_trajectory(pkg, [(None, 0.0, 30.0, 1.0)],
+                                         reconciles=1)
+               for pkg in ("jax", "port")}
+        assert got["port"] == got["jax"]
+        assert got["port"][0][0][1] == 2
+
+    def test_prefill_noop_without_disagg_signals(self):
+        from kubeflow_tpu_torch.cluster.store import StateStore as Store
+        from kubeflow_tpu_torch.controllers.inference import (
+            InferenceServiceController,
+            new_inference_service,
+        )
+        from kubeflow_tpu_torch.observability.fleet import FleetSignals
+
+        class _Plain:
+            def serving_signals(self, namespace, name):
+                return FleetSignals(replicas=1, queue_depth=0.0,
+                                    occupancy=0.5, num_slots=8.0,
+                                    rate_429_per_s=0.0)
+
+        store = Store()
+        ctrl = InferenceServiceController(fleet=_Plain())
+        store.create(new_inference_service("svc1", model="gpt_tiny", serving={
+            "autoscale": {"enabled": True, "max_replicas": 3},
+            "router": {"enabled": True},
+            "disagg": {"enabled": True, "max_prefill_replicas": 3}}))
+        ctrl.reconcile(store, "default", "svc1")
+        assert store.get("InferenceService", "svc1")["spec"]["serving"][
+            "disagg"].get("prefill_replicas", 1) == 1
+
+
+def _render(pkg, serving, replicas=2, mutate=None):
+    if pkg == "jax":
+        from kubeflow_tpu.cluster.store import StateStore as Store
+        from kubeflow_tpu.controllers.inference import (
+            InferenceServiceController as Ctrl,
+        )
+        from kubeflow_tpu.controllers.inference import new_inference_service
+    else:
+        from kubeflow_tpu_torch.cluster.store import StateStore as Store
+        from kubeflow_tpu_torch.controllers.inference import (
+            InferenceServiceController as Ctrl,
+        )
+        from kubeflow_tpu_torch.controllers.inference import (
+            new_inference_service,
+        )
+    store = Store()
+    ctrl = Ctrl()
+    store.create(new_inference_service("svc1", model="gpt_tiny",
+                                       replicas=replicas, serving=serving))
+    ctrl.reconcile(store, "default", "svc1")
+    if mutate is not None:
+        cr = store.get("InferenceService", "svc1")
+        mutate(cr)
+        store.update(cr)
+        ctrl.reconcile(store, "default", "svc1")
+    out = {}
+    for kind, name in (("Deployment", "svc1"), ("Deployment", "svc1-prefill"),
+                       ("Service", "svc1"), ("Deployment", "svc1-router")):
+        obj = store.try_get(kind, name)
+        if obj is None:
+            out[name, kind] = None
+            continue
+        spec = dict(obj["spec"])
+        if kind == "Deployment":
+            tmpl = spec["template"]
+            c = tmpl["spec"]["containers"][0]
+            spec = {"replicas": spec["replicas"],
+                    "labels": tmpl["metadata"]["labels"],
+                    "env": {e["name"]: e["value"] for e in c["env"]
+                            if e["name"].startswith("KFT_ROUTER")
+                            or e["name"] == "KFT_SERVING_DISAGG_HANDOFF_CHAINS"}}
+        out[name, kind] = spec
+    return out
+
+
+class TestDisaggRender:
+    def test_two_deployments_one_vip_and_router_contract(self):
+        serving = {"router": {"enabled": True},
+                   "disagg": {"enabled": True, "prefill_replicas": 2,
+                              "cold_hit_rate": 0.35, "handoff_chains": 9}}
+        got = {pkg: _render(pkg, serving) for pkg in ("jax", "port")}
+        assert got["port"] == got["jax"]
+        got = got["port"]
+        assert got["svc1", "Deployment"]["labels"][
+            "inferenceservice-tier"] == "decode"
+        pre = got["svc1-prefill", "Deployment"]
+        assert pre["replicas"] == 2
+        assert pre["labels"]["inferenceservice-tier"] == "prefill"
+        assert got["svc1", "Service"]["selector"][
+            "inferenceservice-tier"] == "decode"
+        env = got["svc1-router", "Deployment"]["env"]
+        assert env["KFT_ROUTER_DISAGG"] == "1"
+        assert env["KFT_ROUTER_DISAGG_COLD_HIT_RATE"] == "0.35"
+        assert env["KFT_SERVING_DISAGG_HANDOFF_CHAINS"] == "9"
+        assert env["KFT_ROUTER_REPLICAS"] == (
+            "svc1-0=http://svc1-0:8500#decode,"
+            "svc1-1=http://svc1-1:8500#decode,"
+            "svc1-prefill-0=http://svc1-prefill-0:8500#prefill,"
+            "svc1-prefill-1=http://svc1-prefill-1:8500#prefill")
+
+    def test_disabling_disagg_tears_down_prefill(self):
+        def off(cr):
+            cr["spec"]["serving"]["disagg"]["enabled"] = False
+
+        serving = {"router": {"enabled": True}, "disagg": {"enabled": True}}
+        got = {pkg: _render(pkg, serving, replicas=1, mutate=off)
+               for pkg in ("jax", "port")}
+        assert got["port"] == got["jax"]
+        assert got["port"]["svc1-prefill", "Deployment"] is None
+        assert "inferenceservice-tier" not in got["port"][
+            "svc1", "Service"]["selector"]
+        assert "KFT_ROUTER_DISAGG" not in got["port"][
+            "svc1-router", "Deployment"]["env"]
 
 
 def test_chip_smoke_kv_tier_phase_rehearses_on_cpu():

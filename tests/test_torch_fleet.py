@@ -11,7 +11,9 @@ tests/test_fleet.py:
   the same fake fetch under the same fake clock, and agree sweep by
   sweep on the fleet series, SLO statuses and burn rates, the fleet_*
   gauges, stragglers, `serving_signals`, the decode half of
-  `disagg_signals`, the merged traces and the /fleetz lines; the chaos
+  `disagg_signals` (both tiers, the router's cold-prefix steer rate
+  and the fleet TTFT p99), `replica_serving_signals`, the merged traces
+  and the /fleetz lines; the chaos
   point `fleet.scrape_fetch` degrades one target in both;
 - the autoscaler: both InferenceServiceControllers, fed the same
   FleetSignals sequence, give the same `spec.replicas` trajectory and
@@ -139,7 +141,7 @@ class _Fleet:
         assert _norm(p.fleet_series()) == _norm(j.fleet_series())
         assert _statuses(p) == _statuses(j)
         assert p.stragglers() == j.stragglers() and p.sweeps() == j.sweeps()
-        for role in ("serving", "training"):
+        for role in ("serving", "training", "router"):
             assert reg.get("fleet_targets").value(role=role) == jreg.get(
                 "fleet_targets").value(role=role)
         for name in ("fleet_slo_compliant", "fleet_slo_burn_rate",
@@ -157,8 +159,9 @@ class _Fleet:
             if d is not None:
                 for f in dataclasses.fields(d):
                     assert getattr(d, f.name) == getattr(jd, f.name), f.name
-        if not any(r[5] == "prefill" for r in self.rows):
-            assert p.fleetz_lines() == j.fleetz_lines()
+            assert p.replica_serving_signals(ns, owner) == \
+                j.replica_serving_signals(ns, owner)
+        assert p.fleetz_lines() == j.fleetz_lines()
 
 
 # -- parse and merge ------------------------------------------------------------
@@ -292,6 +295,50 @@ class TestCollector:
         assert (d.prefill_replicas, d.decode_replicas, d.decode_queue_depth,
                 d.decode_num_slots) == (1, 2, 4.0, 8.0)
         assert d.decode_occupancy == pytest.approx(0.7)
+
+    def test_the_router_role_and_the_prefill_tier_signals(self):
+        """A router target's cold-prefix steers become the prefill tier's
+        arrival rate, the replicas' TTFT the fleet p99; the router never
+        counts as a replica; each replica's row keeps its heat."""
+        f = _Fleet()
+        router = MetricsRegistry()
+        steers = router.counter("router_tier_steer_total", "",
+                                ["tier", "reason"])
+        router.counter("router_requests_total", "", ["outcome"]).inc(
+            3, outcome="ok")
+        f.add("router", "svc1", "svc1-router-0", router)
+        for inst, tier, ttft, rate in (("p0", "prefill", 0.4, None),
+                                       ("d0", "decode", 0.9, 0.25),
+                                       ("d1", "decode", 1.8, 0.0)):
+            r = _replica_registry(queue=1, occupancy=0.5, ttfts=[ttft] * 4)
+            if rate is not None:
+                r.gauge("serving_prefix_hit_rate", "", ["model"]).set(
+                    rate, model="m")
+                r.gauge("serving_first_page_keys", "", ["model"]).set(
+                    3, model="m")
+            f.add("serving", "svc1", inst, r, tier=tier)
+        j, jreg, p, reg = f.collectors()
+        rates = []
+        for n_cold in (0, 4, 0, 10):
+            steers.inc(n_cold, tier="prefill", reason="cold")
+            steers.inc(1, tier="decode", reason="page-complete")
+            f.now["t"] += 2.0
+            f.sweep_both(j, jreg, p, reg)
+            rates.append(p.disagg_signals("default", "svc1").cold_per_s)
+        assert rates == [0.0, 2.0, 0.0, 5.0]
+        d = p.disagg_signals("default", "svc1")
+        assert (d.prefill_replicas, d.decode_replicas) == (1, 2)
+        assert d.ttft_p99_s is not None and d.ttft_p99_s > 1.0
+        assert reg.get("fleet_targets").value(role="router") == 1
+        assert p.serving_signals("default", "svc1").replicas == 3
+        rows = p.replica_serving_signals("default", "svc1")
+        assert rows["d0"]["prefix_hit_rate"] == 0.25
+        assert rows["d0"]["first_page_keys"] == 3
+        assert "prefix_hit_rate" not in rows["p0"]
+        assert p.replica_serving_signals("default", "svc1",
+                                         instance="d1") == {"d1": rows["d1"]}
+        assert any("tiers: prefill=1 ttft_p99=" in line and "cold/s=5.000"
+                   in line for line in p.fleetz_lines())
 
     def test_chaos_scrape_fetch_degrades_one_target(self):
         f = _Fleet()
@@ -520,6 +567,11 @@ def test_discover_targets_from_store_pods():
                            {"name": "KFT_FLEET_METRICS_PORT", "value": "9432"},
                            {"name": "KFT_FLEET_INSTANCE", "value": "job1-0"},
                        ]}]}),
+            make("Pod", "svc1-router-0", "default", api_version="v1",
+                 labels={"app": "kft-router",
+                         "inferenceservice-router": "svc1"},
+                 spec={"containers": [{"name": "router", "env": [
+                     {"name": "KFT_FLEET_METRICS_PORT", "value": "8600"}]}]}),
             make("Pod", "other", "default", api_version="v1",
                  spec={"containers": [{"name": "x", "env": []}]}),
         ]
@@ -535,9 +587,12 @@ def test_discover_targets_from_store_pods():
                  for t in fleet.discover_targets(store))
     want = sorted(dataclasses.astuple(t)
                   for t in jfleet.discover_targets(jstore))
-    assert got == want and len(got) == 2
+    assert got == want and len(got) == 3
     assert ("serving", "default", "svc1", "svc1-0", "http://10.0.0.7:8500",
             "decode") in got
+    # the router is scraped as its own role, never as a replica
+    assert ("router", "default", "svc1", "svc1-router-0",
+            "http://svc1-router-0:8600", "unified") in got
     assert fleet.instance_id({"KFT_FLEET_INSTANCE": "pod-3"}) == "pod-3"
 
 

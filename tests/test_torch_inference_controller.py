@@ -3,12 +3,15 @@ inference.py) against the JAX package's, on the CPU, without a server.
 
 For each spec both controllers reconcile it with their own
 DeploymentController on their own store; the Deployment, Service,
-VirtualService, `<name>-prefill` Deployment and the `Ready` condition
-(before and after the first pod runs) must be equal, apart from three
-listed differences (`DIFFERENCES`):
+VirtualService, `<name>-prefill` Deployment, `<name>-router` Deployment
+and Service and the `Ready` condition (before and after the first pod
+runs) must be equal, apart from three listed differences
+(`DIFFERENCES`):
 
-1. the server's module: `kubeflow_tpu_torch.serving.main` for
-   `kubeflow_tpu.serving.main`;
+1. the modules: `kubeflow_tpu_torch.serving.main` for
+   `kubeflow_tpu.serving.main`, `kubeflow_tpu_torch.routing` for
+   `kubeflow_tpu.routing` (the router pod requests no accelerator in
+   either package);
 2. the accelerator request: `nvidia.com/gpu: m` (m = the serving mesh's
    cards) and the H100 node selector for `google.com/tpu` and the TPU
    slice's selectors, where a spec names a topology (`h100-m` for a TPU
@@ -21,11 +24,10 @@ The pod env must equal the JAX `_serving_env`'s key for key, but for
 (tests/test_serving.py TestInferenceServiceController, test_chaos.py,
 test_spec_decode.py TestPlatformWiring, test_observability.py and
 test_tracing.py) run here on the port's. Every JAX `ServingConfig`
-ConfigError case raises in the port with the same fragment; the one
-exception is listed (`disagg.enabled` without the router, which the port
-does not have). `router`, and `autoscale` beside `disagg`, stay
-refused, naming their ROADMAP item, and a replica's topology must match
-its mesh on one node.
+ConfigError case raises in the port with the same fragment, `disagg.enabled`
+without `router.enabled` included. `router`, the prefill tier's
+knobs, and `autoscale` beside `disagg` load as the JAX package's do, and
+a replica's topology must match its mesh on one node.
 """
 
 import copy
@@ -64,6 +66,7 @@ NS = "team-a"
 # the three differences the port's rendering may show against the JAX one
 DIFFERENCES = {
     "module": ("kubeflow_tpu.serving.main", "kubeflow_tpu_torch.serving.main"),
+    "router_module": ("kubeflow_tpu.routing", "kubeflow_tpu_torch.routing"),
     "accelerator": ("google.com/tpu", "nvidia.com/gpu"),
     "paged_attention": ("pallas", "kernel"),
 }
@@ -72,12 +75,10 @@ TOPOLOGIES = {"v5e-1": "h100-1", "v5e-4": "h100-4", "v5e-8": "h100-8"}
 
 
 def _port_serving(serving):
-    """A JAX spec.serving in the port's terms: `pallas` is `kernel`, and
-    the router the JAX disagg rule needs is not in the port."""
+    """A JAX spec.serving in the port's terms: `pallas` is `kernel`."""
     serving = copy.deepcopy(serving or {})
     if serving.get("paged_attention") == "pallas":
         serving["paged_attention"] = "kernel"
-    serving.pop("router", None)
     return serving
 
 
@@ -104,6 +105,18 @@ SPECS = [
     ("disagg", "gpt_small", "", {
         "disagg": {"enabled": True, "prefill_replicas": 2,
                    "handoff_chains": 16},
+        "router": {"enabled": True}}, {}),
+    ("router", "gpt_small", "v5e-1", {
+        "page_size": 8, "num_slots": 4,
+        "router": {"enabled": True, "spill_queue_per_slot": 1.5,
+                   "retry_budget": 4}}, {}),
+    ("router_spray_statusz_off", "gpt_tiny", "", {
+        "router": {"enabled": True, "affinity": False},
+        "observability": {"statusz_enabled": False}}, {}),
+    ("disagg_autoscaled", "gpt_small", "", {
+        "disagg": {"enabled": True, "prefill_replicas": 1,
+                   "max_prefill_replicas": 3, "cold_hit_rate": 0.5},
+        "autoscale": {"enabled": True, "max_replicas": 3},
         "router": {"enabled": True}}, {}),
     ("mesh_tensor2_fsdp2", "gpt_small", "v5e-4", {
         "mesh": {"tensor": 2, "fsdp": 2}}, {}),
@@ -151,7 +164,9 @@ def _reconcile(pkg, model, topology, serving, defaults):
     out = {}
     for kind, name in (("Deployment", "svc"), ("Service", "svc"),
                        ("VirtualService", f"inference-{NS}-svc"),
-                       ("Deployment", "svc-prefill")):
+                       ("Deployment", "svc-prefill"),
+                       ("Deployment", "svc-router"),
+                       ("Service", "svc-router")):
         obj = store.try_get(kind, name, NS)
         out[(kind, name)] = None if obj is None else {
             "apiVersion": obj["apiVersion"],
@@ -172,9 +187,9 @@ def _as_port(objs, cards):
             continue
         pod = obj["spec"]["template"]["spec"]
         for c in pod["containers"]:
-            c["command"] = [DIFFERENCES["module"][1]
-                            if a == DIFFERENCES["module"][0] else a
-                            for a in c["command"]]
+            modules = dict(DIFFERENCES[k]
+                           for k in ("module", "router_module"))
+            c["command"] = [modules.get(a, a) for a in c["command"]]
             for e in c["env"]:
                 if (e["name"] == "KFT_SERVING_PAGED_ATTENTION"
                         and e["value"] == DIFFERENCES["paged_attention"][0]):
@@ -210,9 +225,18 @@ def test_the_rendered_objects_equal_the_jax_controllers(spec):
     if topology:
         assert dep["containers"][0]["resources"]["limits"] == {
             "nvidia.com/gpu": str(cards)}
-    # the prefill tier exactly when the spec splits the fleet
-    assert (got[("Deployment", "svc-prefill")] is not None) == (
-        spec[0] == "disagg")
+    # the prefill tier exactly when the spec splits the fleet, the router
+    # exactly when the spec asks for it; the router requests no card
+    split = "disagg" in serving and serving["disagg"].get("enabled")
+    assert (got[("Deployment", "svc-prefill")] is not None) == bool(split)
+    router = got[("Deployment", "svc-router")]
+    assert (router is not None) == ("router" in serving)
+    if router is not None:
+        pod = router["spec"]["template"]["spec"]
+        assert pod["containers"][0]["command"][:3] == [
+            "python", "-m", "kubeflow_tpu_torch.routing"]
+        assert "resources" not in pod["containers"][0]
+        assert "nodeSelector" not in pod
 
 
 @pytest.mark.parametrize("spec", SPECS, ids=[s[0] for s in SPECS])
@@ -427,8 +451,7 @@ def test_inference_controller_renders_sampling_env():
 # -- ServingConfig's refusals against the JAX package's -----------------------
 
 _ROUTED = {"router": {"enabled": True}}
-# (id, spec.serving, the fragment both packages' ConfigError carries); a
-# `router` key is the JAX rule's and is dropped for the port
+# (id, spec.serving, the fragment both packages' ConfigError carries)
 REFUSALS = [
     ("drain_deadline", {"drain_deadline_s": -1},
      "serving.drain_deadline_s must be >= 0"),
@@ -475,6 +498,23 @@ REFUSALS = [
      "serving.disagg.prefill_replicas must be >= 0"),
     ("handoff_chains", {"disagg": {"handoff_chains": 0}},
      "serving.disagg.handoff_chains must be >= 1"),
+    ("disagg_without_router", {"disagg": {"enabled": True}},
+     "serving.disagg.enabled needs serving.router.enabled"),
+    ("min_prefill_replicas", {"disagg": {"min_prefill_replicas": -1}},
+     "serving.disagg.min_prefill_replicas must be >= 0"),
+    ("max_prefill_replicas", {"disagg": {"min_prefill_replicas": 3,
+                                         "max_prefill_replicas": 2}},
+     "serving.disagg.max_prefill_replicas must be >="),
+    ("cold_hit_rate", {"disagg": {"cold_hit_rate": 1.5}},
+     "serving.disagg.cold_hit_rate must be in [0, 1]"),
+    ("scale_up_ttft", {"disagg": {"scale_up_ttft_p99_s": 0}},
+     "serving.disagg.scale_up_ttft_p99_s must be > 0"),
+    ("scale_up_cold", {"disagg": {"scale_up_cold_per_s": 0}},
+     "serving.disagg.scale_up_cold_per_s must be > 0"),
+    ("router_spill", {"router": {"spill_queue_per_slot": -1}},
+     "serving.router.spill_queue_per_slot must be >= 0"),
+    ("router_retry_budget", {"router": {"retry_budget": -1}},
+     "serving.router.retry_budget must be >= 0"),
     ("mesh_axis", {"mesh": {"tensor": 0}},
      "serving.mesh.tensor must be a positive int"),
     ("chaos_seed", {"chaos": {"seed": -1}}, "chaos.seed must be >= 0"),
@@ -520,29 +560,34 @@ def test_pallas_is_refused_naming_kernel():
 
 
 def test_disagg_without_the_router_is_the_listed_exception():
-    """The JAX config refuses a split fleet without its router (the
-    steering point); the port has no router yet, so a split fleet is
-    steered by its client, and the prefill tier is rendered."""
+    """The name dates from when the port took a split fleet without its
+    router. It checks that both packages refuse disagg without the
+    router (the steering point), and that with the router the port
+    renders the prefill tier, the decode tier's Service and a router
+    whose registry carries the tiers' roles."""
     with pytest.raises(JConfigError, match="needs serving.router.enabled"):
         jfrom_dict(JServingConfig, {"disagg": {"enabled": True}}).validate()
-    cfg = ServingConfig.from_dict({"disagg": {"enabled": True}})
+    with pytest.raises(ConfigError, match="needs serving.router.enabled"):
+        ServingConfig.from_dict({"disagg": {"enabled": True}})
+    cfg = ServingConfig.from_dict({"disagg": {"enabled": True}, **_ROUTED})
     assert cfg.disagg.enabled and cfg.disagg.prefill_replicas == 1
     store, cm = _harness()
     store.create(new_inference_service(
         "split", NS, model="gpt_small",
-        serving={"disagg": {"enabled": True}}))
+        serving={"disagg": {"enabled": True}, **_ROUTED}))
     cm.run_until_idle(max_seconds=5)
     assert store.get("Deployment", "split-prefill", NS)["spec"][
         "replicas"] == 1
     assert store.get("Service", "split", NS)["spec"]["selector"] == {
         "inferenceservice": "split", "inferenceservice-tier": "decode"}
+    assert _env(store, "split-router", NS)["KFT_ROUTER_REPLICAS"] == (
+        "split-0=http://split-0:8500#decode,"
+        "split-prefill-0=http://split-prefill-0:8500#prefill")
 
 
 @pytest.mark.parametrize("serving", [
-    # the decode tier's autoscaler is ported; beside a disaggregated
-    # fleet the prefill tier's policy would read the router's steers
     {"autoscale": {"enabled": True, "max_replicas": 3},
-     "disagg": {"enabled": True}},
+     "disagg": {"enabled": True}, **_ROUTED},
     {"router": {"enabled": True}},
     {"router": {"enabled": False}},
     {"disagg": {"cold_hit_rate": 0.5}},
@@ -550,14 +595,22 @@ def test_disagg_without_the_router_is_the_listed_exception():
 ], ids=["autoscale", "router", "router_off", "cold_hit_rate",
         "max_prefill_replicas"])
 def test_the_autoscaler_and_router_stay_refused(serving):
-    with pytest.raises(ConfigError, match="not ported yet: ROADMAP A14"):
-        ServingConfig.from_dict(serving)
+    """The name dates from when the port refused these specs. It checks
+    that each loads with the JAX package's values and reconciles, with a
+    `<name>-router` exactly when the router is enabled."""
+    want = jfrom_dict(JServingConfig, serving)
+    want.validate()
+    got = ServingConfig.from_dict(serving)
+    for sub in ("router", "disagg", "autoscale"):
+        for f, v in vars(getattr(got, sub)).items():
+            assert getattr(getattr(want, sub), f) == v, (sub, f)
     store, cm = _harness()
     store.create(new_inference_service("svc", NS, model="gpt_tiny",
                                        serving=serving))
-    with pytest.raises(ConfigError, match="ROADMAP A14"):
-        InferenceServiceController().reconcile(store, NS, "svc")
-    assert store.try_get("Deployment", "svc", NS) is None
+    cm.run_until_idle(max_seconds=5)
+    assert store.try_get("Deployment", "svc", NS) is not None
+    assert (store.try_get("Deployment", "svc-router", NS) is not None) == \
+        got.router.enabled
 
 
 @pytest.mark.parametrize("topology,mesh,fragment", [

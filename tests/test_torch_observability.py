@@ -434,7 +434,10 @@ def test_chaos_config_accepts_and_refuses_as_the_jax_package(raw):
 
 
 def test_the_fleet_fields_are_refused_naming_the_roadmap():
-    # the fleet collector's fields load with the JAX checks
+    """The name dates from when the port refused these fields. It checks
+    that the fleet collector's fields load with the JAX checks, that the
+    autoscaler and the router load, and that a split fleet is refused
+    without its router, as in the JAX package."""
     cfg = ObservabilityConfig.from_dict({
         "slo_rules": ["serving_ttft_p99 < 5s"],
         "fleet_scrape_interval_s": 1.0, "fleet_straggler_zscore": 2.5,
@@ -448,16 +451,20 @@ def test_the_fleet_fields_are_refused_naming_the_roadmap():
             ObservabilityConfig.from_dict({key: 0})
     with pytest.raises(ConfigError, match="without a quantile"):
         ObservabilityConfig.from_dict({"slo_rules": ["serving_ttft < 5s"]})
-    # the serving config's decode-tier autoscaler loads; the router (and
-    # with it the prefill tier's autoscaler) waits for ROADMAP A14 item 5
+    # the serving config's autoscaler and router load; a split fleet
+    # needs its router, as in the JAX package
     auto = ServingConfig.from_dict(
         {"autoscale": {"enabled": True, "max_replicas": 2}}).autoscale
     assert auto.enabled and auto.max_replicas == 2
-    with pytest.raises(ConfigError, match="A14 item 5"):
-        ServingConfig.from_dict({"router": {"enabled": True}})
-    with pytest.raises(ConfigError, match="A14 item 5"):
+    assert ServingConfig.from_dict(
+        {"router": {"enabled": True}}).router.enabled
+    with pytest.raises(ConfigError, match="needs serving.router.enabled"):
         ServingConfig.from_dict({"autoscale": {"enabled": True},
                                  "disagg": {"enabled": True}})
+    split = ServingConfig.from_dict({"autoscale": {"enabled": True},
+                                     "disagg": {"enabled": True},
+                                     "router": {"enabled": True}})
+    assert split.autoscale.enabled and split.disagg.enabled
     assert ServingConfig.from_dict({"num_slots": 4}).num_slots == 4
     with pytest.raises(ConfigError, match="attempt="):
         ServingConfig(chaos=ChaosConfig(points=["engine.step:attempt=0"]))

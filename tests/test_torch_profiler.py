@@ -163,6 +163,75 @@ class TestProfilerService:
             {"ph": "X", "cat": "kernel", "name": "gemm"}]}))
         assert count_kernel_events(str(path)) == 2
 
+    def test_chip_smoke_ties_each_flash_launch_to_its_host_op(
+            self, tmp_path):
+        """chip_smoke.py phase 27a's accounting: each flash launch runs
+        under a host op named for its kernel (`record_function`), so a
+        launch whose kernel record CUPTI dropped still counts as that
+        kernel's, by its external id or else by the op's span on its
+        thread; any other launch without a record counts only as lost.
+        The op's name and category are those a CPU capture writes."""
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", os.path.join(os.path.dirname(__file__), "..",
+                                       "chip_smoke.py"))
+        smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(smoke)
+        app = build_app(ProfilerService(str(tmp_path / "traces"),
+                                        device="cpu"))
+        app.handle_full("POST", "/profiler/start", body={})
+        with torch.profiler.record_function("flash_fwd"):
+            torch.ones(4).add_(1)
+        (run_dir,) = app.handle_full("POST", "/profiler/stop")[1][
+            "trace_dirs"]
+        (name,) = os.listdir(run_dir)
+        trace, kernels, lost = smoke.flash_trace_counts(
+            os.path.join(run_dir, name))
+        assert trace["hosted"] == {"flash_fwd": 1, "flash_bwd_dq": 0,
+                                   "flash_bwd_dkv": 0}
+        assert (kernels, lost) == (0, 0)
+
+        events = []
+
+        def op(name, ext, ts, tid=1):
+            events.append({"ph": "X", "cat": "user_annotation", "name": name,
+                           "pid": 7, "tid": tid, "ts": ts, "dur": 50,
+                           "args": {"External id": ext}})
+
+        def launch(corr, ext, ts, tid=1, symbol=None):
+            events.append({"ph": "X", "cat": "cuda_runtime",
+                           "name": "cudaLaunchKernel", "pid": 7, "tid": tid,
+                           "ts": ts, "dur": 1,
+                           "args": {"External id": ext, "correlation": corr}})
+            if symbol:
+                events.append({"ph": "X", "cat": "kernel",
+                               "name": f"void {symbol}<64>()", "pid": 0,
+                               "tid": 7, "ts": 0, "dur": 1,
+                               "args": {"External id": ext,
+                                        "correlation": corr}})
+
+        op("flash_fwd", 10, 100)
+        launch(1, 10, 120, symbol="flash_fwd_bf16")
+        op("flash_fwd", 11, 200)
+        launch(2, 11, 220)  # dropped: tied by its external id
+        op("flash_bwd_dq", 12, 300, tid=2)
+        launch(3, 99, 320, tid=2)  # dropped: tied by the op's span
+        op("flash_bwd_dkv", 13, 400, tid=2)
+        launch(4, 98, 420, tid=2, symbol="flash_bwd_dkv_bf16")
+        launch(5, 50, 500)  # no record, under no flash op
+        launch(6, 51, 600, symbol="gemm")
+        path = tmp_path / "t.pt.trace.json"
+        path.write_text(json.dumps({"traceEvents": events}))
+        trace, kernels, lost = smoke.flash_trace_counts(str(path))
+        assert trace == {
+            "counts": {"flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 1},
+            "hosted": {"flash_fwd": 2, "flash_bwd_dq": 1, "flash_bwd_dkv": 1},
+            "under": {"flash_fwd": 1, "flash_bwd_dq": 0, "flash_bwd_dkv": 1},
+            "dropped": {"flash_fwd": 1, "flash_bwd_dq": 1,
+                        "flash_bwd_dkv": 0}}
+        assert (kernels, lost) == (3, 3)
+
 
 class TestLauncherWiring:
     def test_disabled_without_env(self):
